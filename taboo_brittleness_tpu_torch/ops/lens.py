@@ -1,0 +1,273 @@
+"""Logit-lens readout over the Gemma-2 forward.
+
+The counterpart of the JAX package's ``ops/lens.py`` (dense, single-device
+paths).  The reference materializes ``softmax(lm_head(norm(resid)))`` for all
+42 layers as a ``[42, seq, 256000]`` f32 tensor and reads tiny slices of it:
+the target token's probability per (layer, position), the top-k of a masked
+positional sum at one layer, and the argmax per (layer, position).  Here those
+reductions run per layer through the ``per_layer_fn`` tap of
+``models.gemma2.forward``:
+
+- on CUDA tensors, :func:`make_kernel_lens_tap` runs the fused kernel
+  (``ops.lens_kernel.lens_stats``, the port of the Pallas kernel), so a
+  layer's ``[B, T, V]`` logits never reach device memory;
+- on CPU tensors, :func:`make_lens_tap` computes the softmax and its top-k in
+  plain torch (the JAX package's XLA tap).
+
+Each plain path keeps the rounding of its JAX counterpart: the XLA tap forms
+the logits in the compute dtype and casts to f32 afterwards; the kernel and
+its plain version accumulate in f32.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional, Tuple
+
+import torch
+
+from taboo_brittleness_tpu_torch.models.gemma2 import (
+    Gemma2Config,
+    Params,
+    forward,
+    rms_norm,
+)
+from taboo_brittleness_tpu_torch.ops.lens_kernel import lens_stats, topk_lowest_id
+
+class LensTap(NamedTuple):
+    """Per-layer lens statistics, stacked ``[L, ...]`` by the forward.
+
+    ``target_prob``  [L, B, T]      P(target token) at every layer/position.
+    ``argmax_id``    [L, B, T]      lens argmax token id.
+    ``argmax_prob``  [L, B, T]      its probability.
+    ``topk_ids``     [L, B, T, K]   per-position lens top-k ids.
+    ``topk_probs``   [L, B, T, K]
+    """
+
+    target_prob: torch.Tensor
+    argmax_id: torch.Tensor
+    argmax_prob: torch.Tensor
+    topk_ids: torch.Tensor
+    topk_probs: torch.Tensor
+
+
+def _lens_logits(params: Params, cfg: Gemma2Config,
+                 h: torch.Tensor) -> torch.Tensor:
+    """f32 lens logits: lm_head(final_norm(h)), no final softcap (the
+    reference lens calls ``lm_head`` directly).
+
+    The product runs in the promoted dtype of ``h`` and the embedding (the
+    compute dtype for the per-layer taps, f32 for an f32 residual) and is
+    cast to f32 afterwards, as in the JAX package."""
+    x = rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
+    embed = params["embed"].to(cfg.compute_dtype)
+    dtype = torch.promote_types(x.dtype, embed.dtype)
+    return (x.to(dtype) @ embed.to(dtype).T).float()
+
+
+def lens_probs(params: Params, cfg: Gemma2Config,
+               h: torch.Tensor) -> torch.Tensor:
+    """softmax(lm_head(final_norm(h))) in f32."""
+    return torch.softmax(_lens_logits(params, cfg, h), dim=-1)
+
+
+def make_lens_tap(
+    params: Params,
+    cfg: Gemma2Config,
+    target_ids: torch.Tensor,   # [B] one target token id per batch row
+    *,
+    top_k: int = 5,
+) -> Callable[[torch.Tensor, int], LensTap]:
+    """Plain ``per_layer_fn`` computing :class:`LensTap` stats for one layer
+    from the layer's full [B, T, V] probabilities."""
+    target_ids = target_ids.long()
+
+    def tap(h: torch.Tensor, layer_idx: int) -> LensTap:
+        del layer_idx
+        probs = lens_probs(params, cfg, h)
+        B, T, _ = probs.shape
+        tgt = torch.gather(
+            probs, -1, target_ids[:, None, None].expand(B, T, 1))[..., 0]
+        topk_probs, topk_ids = topk_lowest_id(probs, top_k)
+        return LensTap(target_prob=tgt, argmax_id=topk_ids[..., 0],
+                       argmax_prob=topk_probs[..., 0], topk_ids=topk_ids,
+                       topk_probs=topk_probs)
+
+    return tap
+
+
+def make_kernel_lens_tap(
+    params: Params,
+    cfg: Gemma2Config,
+    target_id: int,          # one target for the whole batch
+    *,
+    top_k: int = 5,
+) -> Callable[[torch.Tensor, int], LensTap]:
+    """Fused-kernel variant of :func:`make_lens_tap` (the JAX package's
+    ``make_pallas_lens_tap``): one :func:`~.lens_kernel.lens_stats` call per
+    layer over the B*T rows."""
+    embed = params["embed"].to(cfg.compute_dtype).contiguous()
+
+    def tap(h: torch.Tensor, layer_idx: int) -> LensTap:
+        del layer_idx
+        B, T, D = h.shape
+        x = rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
+        stats = lens_stats(x.reshape(B * T, D).contiguous(), embed, target_id,
+                           top_k=top_k)
+        topk_probs = stats.topk_probs().reshape(B, T, top_k)
+        topk_ids = stats.topk_ids.reshape(B, T, top_k)
+        return LensTap(target_prob=stats.target_prob().reshape(B, T),
+                       argmax_id=topk_ids[..., 0],
+                       argmax_prob=topk_probs[..., 0], topk_ids=topk_ids,
+                       topk_probs=topk_probs)
+
+    return tap
+
+
+def residual_carry_tap(batch: int, seq: int, hidden: int, tap_layer: int, *,
+                       device: torch.device):
+    """(init, update) carry tap capturing resid_post at ``tap_layer`` in f32:
+    one [B, T, D] buffer however deep the model.  The update selects ``h``
+    itself at the tap layer, so the captured bits are the layer's output."""
+    acc0 = torch.zeros((batch, seq, hidden), dtype=torch.float32, device=device)
+
+    def accumulate(acc: torch.Tensor, h: torch.Tensor,
+                   layer_idx: int) -> torch.Tensor:
+        return h.float() if layer_idx == tap_layer else acc
+
+    return acc0, accumulate
+
+
+class LensForwardResult(NamedTuple):
+    tap: LensTap                 # stacked [L, B, T, ...]
+    residual: torch.Tensor       # [B, T, D] resid_post at tap_layer (f32)
+
+
+def lens_forward(
+    params: Params,
+    cfg: Gemma2Config,
+    input_ids: torch.Tensor,            # [B, T]
+    target_ids: torch.Tensor,           # [B]
+    *,
+    tap_layer: int,
+    top_k: int = 5,
+    positions: Optional[torch.Tensor] = None,
+    attn_validity: Optional[torch.Tensor] = None,
+    use_pallas: Optional[bool] = None,
+) -> LensForwardResult:
+    """One forward: lens stats for every layer, plus the residual at
+    ``tap_layer`` (the SAE path's ``residual_stream_l31``).
+
+    ``use_pallas`` keeps the JAX package's name for the fused readout, which
+    here is the CUDA kernel.  ``None`` picks the kernel for CUDA tensors and
+    the plain tap for CPU tensors; ``True`` on CPU tensors raises (the kernel
+    runs only on the card).  The kernel tap needs one target id shared by
+    the batch (true per word in every pipeline).
+    """
+    on_cuda = input_ids.device.type == "cuda"
+    if use_pallas is None:
+        use_pallas = on_cuda
+    if use_pallas:
+        if not on_cuda:
+            raise ValueError(
+                f"the lens kernel runs on CUDA tensors only (inputs on "
+                f"{input_ids.device}); pass use_pallas=None or False")
+        uniq = torch.unique(target_ids)
+        if uniq.numel() > 1:
+            raise ValueError(
+                "the lens kernel needs ONE target id shared by the batch "
+                f"(got {uniq.numel()} distinct); pass use_pallas=False")
+        stats_tap = make_kernel_lens_tap(params, cfg, int(uniq[0].item()),
+                                         top_k=top_k)
+    else:
+        stats_tap = make_lens_tap(params, cfg, target_ids, top_k=top_k)
+    B, T = input_ids.shape
+    res = forward(
+        params, cfg, input_ids,
+        positions=positions,
+        attn_validity=attn_validity,
+        per_layer_fn=stats_tap,
+        carry_tap=residual_carry_tap(B, T, cfg.hidden_size, tap_layer,
+                                     device=input_ids.device),
+        compute_logits=False,
+    )
+    return LensForwardResult(tap=res.taps, residual=res.carry_tap)
+
+
+def full_probs_forward(
+    params: Params,
+    cfg: Gemma2Config,
+    input_ids: torch.Tensor,
+    *,
+    tap_layer: int,
+    positions: Optional[torch.Tensor] = None,
+    attn_validity: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Parity mode: (all_probs [L, B, T, V] f32, residual [B, T, D] f32 at
+    ``tap_layer``), the reference cache schema.  Small T only: this is the
+    GB-scale tensor the lens taps exist to avoid."""
+    B, T = input_ids.shape
+    carry = residual_carry_tap(B, T, cfg.hidden_size, tap_layer,
+                               device=input_ids.device)
+    res = forward(params, cfg, input_ids, positions=positions,
+                  attn_validity=attn_validity,
+                  per_layer_fn=lambda h, layer_idx: lens_probs(params, cfg, h),
+                  carry_tap=carry, compute_logits=False)
+    return res.taps, res.carry_tap
+
+
+# ---------------------------------------------------------------------------
+# Response aggregation (the analysis step of the reference's
+# src/01_reproduce_logit_lens.py:35-71).
+# ---------------------------------------------------------------------------
+
+def aggregate_masked_sum(
+    probs: torch.Tensor,          # [T, V] lens probs at the layer of interest
+    token_ids: torch.Tensor,      # [T] input token id at each position
+    response_mask: torch.Tensor,  # [T] bool: True inside the model's response
+    *,
+    top_k: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k of the position-summed probs with current+previous-token zeroing.
+
+    At each response position the probability of the token *at* that
+    position and of the token at the *previous* position are zeroed (the
+    lens trivially predicts copies), then the probabilities are summed over
+    response positions and the top-k vocab ids win.  Returns (ids [K] int32,
+    summed probs [K])."""
+    T, V = probs.shape
+    ids = token_ids.long()
+    prev = torch.cat([ids.new_full((1,), -1), ids[:-1]])
+    rows = torch.arange(T, device=probs.device)
+    masked = torch.where(response_mask[:, None], probs, torch.zeros_like(probs))
+    for col in (ids, prev):
+        inside = (col >= 0) & (col < V)
+        masked[rows[inside], col[inside]] = 0.0
+    summed = masked.sum(dim=0)
+    top_probs, top_ids = topk_lowest_id(summed, top_k)
+    return top_ids, top_probs
+
+
+@torch.no_grad()
+def aggregate_from_residual(
+    params: Params,
+    cfg: Gemma2Config,
+    residual: torch.Tensor,       # [B, T, D] tapped residuals (f32)
+    token_ids: torch.Tensor,      # [B, T]
+    response_mask: torch.Tensor,  # [B, T] bool
+    *,
+    top_k: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Lens probs at one layer + masked-sum aggregation + top-k for every
+    row.  XLA fuses the JAX version so no [B, T, V] buffer exists; eager
+    torch would keep one (1.2 GB f32 at 9B), so the rows go one at a time
+    and only one row's [T, V] probabilities (and the logits they come from)
+    are alive.  Returns (ids [B, K] int32, sums [B, K])."""
+    out_ids, out_probs = [], []
+    for b in range(residual.shape[0]):
+        probs = lens_probs(params, cfg, residual[b])
+        ids, sums = aggregate_masked_sum(probs, token_ids[b], response_mask[b],
+                                         top_k=top_k)
+        out_ids.append(ids)
+        out_probs.append(sums)
+    return torch.stack(out_ids), torch.stack(out_probs)
+

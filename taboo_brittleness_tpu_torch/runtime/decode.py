@@ -1,0 +1,258 @@
+"""Batched greedy decoding with a KV cache.
+
+The counterpart of the JAX package's ``runtime/decode.py``.  All prompts of a
+word decode together: left-padded into one ``[B, T]`` block, one prefill, then
+single-token steps over a shared KV cache until every row has emitted a stop
+token or the budget is spent (finished rows emit pad, so the outputs equal
+those of running out the budget).  JAX runs the steps as one compiled
+``while_loop``; here it is a Python loop that checks ``done.all()`` once per
+step.
+
+Greedy argmax (first index among equal logits, as ``jnp.argmax``) makes the
+token streams the JAX package's for the same weights.
+"""
+
+from __future__ import annotations
+
+from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from taboo_brittleness_tpu_torch.models.gemma2 import (
+    Gemma2Config,
+    KVCache,
+    Params,
+    forward,
+    unembed,
+)
+from taboo_brittleness_tpu_torch.ops.lens import residual_carry_tap
+from taboo_brittleness_tpu_torch.runtime import chat
+
+STOP_IDS: Tuple[int, ...] = (chat.EOS_ID, chat.END_OF_TURN_ID)
+
+
+class DecodeResult(NamedTuple):
+    tokens: torch.Tensor          # [B, N] generated ids (pad after stop)
+    lengths: torch.Tensor         # [B] number of real generated tokens
+    # Full sequence view (prompt + generation), left-padded:
+    sequences: torch.Tensor       # [B, T_prompt + N]
+    sequence_valid: torch.Tensor  # [B, T_prompt + N] bool
+    # With capture_residual_layer: resid_post at that layer for every
+    # sequence position, f32, captured as the decode computes it.
+    residual: Optional[torch.Tensor] = None   # [B, T_prompt + N, D]
+
+
+def pad_prompts(
+    prompt_ids: Sequence[Sequence[int]],
+    *,
+    pad_id: int = chat.PAD_ID,
+    pad_to_multiple: Optional[int] = None,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Left-pad variable-length prompts into [B, T] (ids, validity, positions).
+
+    Left padding keeps every row's *last* prompt token in the same column,
+    so each decode step reads ``logits[:, -1]`` for every row.
+    ``pad_to_multiple`` rounds T up to a bucket boundary (pad columns are
+    masked out of attention, so results are unchanged).
+    """
+    B = len(prompt_ids)
+    T = max(len(p) for p in prompt_ids)
+    if pad_to_multiple:
+        T = -(-T // pad_to_multiple) * pad_to_multiple
+    ids = np.full((B, T), pad_id, np.int32)
+    valid = np.zeros((B, T), bool)
+    positions = np.zeros((B, T), np.int32)
+    for b, p in enumerate(prompt_ids):
+        L = len(p)
+        ids[b, T - L:] = p
+        valid[b, T - L:] = True
+        positions[b, T - L:] = np.arange(L)
+    return ids, valid, positions
+
+
+@torch.no_grad()
+def greedy_decode(
+    params: Params,
+    cfg: Gemma2Config,
+    prompt_ids: torch.Tensor,        # [B, T] left-padded
+    prompt_valid: torch.Tensor,      # [B, T] bool
+    prompt_positions: torch.Tensor,  # [B, T]
+    *,
+    max_new_tokens: int,
+    stop_ids: Tuple[int, ...] = STOP_IDS,
+    capture_residual_layer: Optional[int] = None,
+) -> DecodeResult:
+    """Prefill + up to ``max_new_tokens`` greedy steps.
+
+    A row that emits any of ``stop_ids`` keeps that token and emits pad
+    afterwards.  ``capture_residual_layer`` captures that layer's
+    resid_post for every position as the decode computes it: prefill
+    columns from the prefill's carry tap, each generated column from its
+    step (columns of steps skipped by the early exit stay zero).
+    """
+    B, T = prompt_ids.shape
+    device = prompt_ids.device
+    D = cfg.hidden_size
+    N = max_new_tokens
+    capture = capture_residual_layer is not None
+
+    def carry(chunk: int):
+        if not capture:
+            return None
+        return residual_carry_tap(B, chunk, D, capture_residual_layer,
+                                  device=device)
+
+    cache = KVCache.zeros(cfg, B, T + N, device=device)
+    prefill = forward(
+        params, cfg, prompt_ids,
+        positions=prompt_positions,
+        attn_validity=prompt_valid,
+        cache=cache,
+        carry_tap=carry(T),
+        compute_logits=False,  # only the last column is sampled
+    )
+    last_logits = unembed(params, cfg, prefill.last_hidden[:, -1:])[:, 0]
+    tok = torch.argmax(last_logits, dim=-1)
+    stop = torch.tensor(stop_ids, dtype=tok.dtype, device=device)
+    pad = torch.full_like(tok, chat.PAD_ID)
+
+    tokens = torch.full((B, N), chat.PAD_ID, dtype=torch.long, device=device)
+    emitted = torch.zeros((B, N), dtype=torch.bool, device=device)
+    gen_resid = (torch.zeros((B, N, D), dtype=torch.float32, device=device)
+                 if capture else None)
+    done = torch.zeros((B,), dtype=torch.bool, device=device)
+    pos = prompt_valid.sum(dim=1)
+    cache = prefill.cache
+    for i in range(N):
+        if bool(done.all()):
+            break
+        res = forward(
+            params, cfg, tok[:, None],
+            positions=pos[:, None],
+            attn_validity=(~done)[:, None],
+            cache=cache,
+            carry_tap=carry(1),
+        )
+        next_tok = torch.argmax(res.logits[:, 0], dim=-1)
+        next_done = done | torch.isin(tok, stop)
+        next_tok = torch.where(next_done, pad, next_tok)
+        emitted_now = ~done
+        tokens[:, i] = torch.where(emitted_now, tok, pad)
+        emitted[:, i] = emitted_now
+        if capture:
+            gen_resid[:, i] = res.carry_tap[:, 0]
+        cache, tok, done, pos = res.cache, next_tok, next_done, pos + 1
+
+    residual = None
+    if capture:
+        # Column T + i holds step i's input token, where `sequences` puts it.
+        residual = torch.cat([prefill.carry_tap, gen_resid], dim=1)
+    return DecodeResult(
+        tokens=tokens,
+        lengths=emitted.sum(dim=1),
+        sequences=torch.cat([prompt_ids.long(), tokens], dim=1),
+        sequence_valid=torch.cat([prompt_valid, emitted], dim=1),
+        residual=residual,
+    )
+
+
+class ResponseLayout(NamedTuple):
+    """View of a batched decode used by every analysis pipeline.  Arrays are
+    numpy (:func:`response_layout`) or torch tensors on the decode's device
+    (:func:`response_layout_device`) — same fields."""
+
+    sequences: Any             # [B, T] full ids (left-padded prompt + generation)
+    valid: Any                 # [B, T] bool: real tokens (prompt or generated)
+    positions: Any             # [B, T] RoPE positions (cumsum of valid - 1)
+    prompt_len: int            # number of prompt columns (T - max_new_tokens)
+    response_mask: Any         # [B, T] generated tokens, stop ids excluded
+
+
+def response_layout(result: DecodeResult) -> ResponseLayout:
+    """(positions, response mask, ...) of a DecodeResult as host numpy."""
+    seqs = result.sequences.cpu().numpy().astype(np.int32)
+    valid = result.sequence_valid.cpu().numpy()
+    toks = result.tokens.cpu().numpy()
+    positions = np.maximum(np.cumsum(valid, axis=1) - 1, 0).astype(np.int32)
+    prompt_len = seqs.shape[1] - toks.shape[1]
+    resp = np.zeros_like(valid)
+    resp[:, prompt_len:] = (toks != chat.PAD_ID) & ~np.isin(toks, STOP_IDS)
+    return ResponseLayout(sequences=seqs, valid=valid, positions=positions,
+                          prompt_len=prompt_len, response_mask=resp)
+
+
+def response_layout_device(result: DecodeResult) -> ResponseLayout:
+    """:func:`response_layout` in torch ops on the decode's device, so the
+    lens pass can follow the decode without a copy to the host."""
+    seqs, valid, toks = result.sequences, result.sequence_valid, result.tokens
+    positions = (torch.cumsum(valid.long(), dim=1) - 1).clamp(min=0)
+    prompt_len = seqs.shape[1] - toks.shape[1]
+    stop = torch.tensor(STOP_IDS, dtype=toks.dtype, device=toks.device)
+    resp = torch.zeros_like(valid)
+    resp[:, prompt_len:] = (toks != chat.PAD_ID) & ~torch.isin(toks, stop)
+    return ResponseLayout(sequences=seqs, valid=valid, positions=positions,
+                          prompt_len=prompt_len, response_mask=resp)
+
+
+def texts_from_tokens(tok, tokens: np.ndarray, lengths: np.ndarray) -> List[str]:
+    """Decode generated ids to text (stop token included, as the reference's
+    ``<end_of_turn>``-terminated response_text)."""
+    rows = [tokens[b, : lengths[b]].tolist() for b in range(tokens.shape[0])]
+    bd = getattr(tok, "batch_decode", None)
+    return bd(rows) if bd is not None else [tok.decode(r) for r in rows]
+
+
+def decode_texts(tok, result: DecodeResult) -> List[str]:
+    """:func:`texts_from_tokens` over a DecodeResult."""
+    return texts_from_tokens(tok, result.tokens.cpu().numpy(),
+                             result.lengths.cpu().numpy())
+
+
+def encode_prompts(
+    tok,
+    prompts: Sequence[str],
+    *,
+    pad_to_multiple: Optional[int] = None,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, List[List[int]]]:
+    """Chat-format (one user turn) + tokenize + left-pad a prompt batch.
+    Returns (ids, valid, positions, per-row token id lists)."""
+    ids = [tok.encode(chat.user_prompt(p)) for p in prompts]
+    padded, valid, positions = pad_prompts(ids, pad_to_multiple=pad_to_multiple)
+    return padded, valid, positions, ids
+
+
+def generate(
+    params: Params,
+    cfg: Gemma2Config,
+    tok,
+    prompts: Sequence[str],
+    *,
+    max_new_tokens: int = 50,
+    pad_to_multiple: Optional[int] = None,
+    capture_residual_layer: Optional[int] = None,
+    return_texts: bool = True,
+) -> Tuple[DecodeResult, Optional[List[str]], List[List[int]]]:
+    """Chat-format, tokenize, batch-decode on the params' device.  Returns
+    (result, response_texts or None, per-row prompt ids); the response text
+    is the generation only (``full_text`` gives the reference's form)."""
+    padded, valid, positions, ids = encode_prompts(
+        tok, prompts, pad_to_multiple=pad_to_multiple)
+    device = params["embed"].device
+    result = greedy_decode(
+        params, cfg,
+        torch.from_numpy(padded).long().to(device),
+        torch.from_numpy(valid).to(device),
+        torch.from_numpy(positions).long().to(device),
+        max_new_tokens=max_new_tokens,
+        capture_residual_layer=capture_residual_layer)
+    texts = decode_texts(tok, result) if return_texts else None
+    return result, texts, ids
+
+
+def full_text(tok, prompt_ids: Sequence[int], result: DecodeResult, row: int) -> str:
+    """Reference-shaped full output: decode(prompt + generation), truncated
+    at the second <end_of_turn> (reference src/models.py:81-92)."""
+    n = int(result.lengths[row])
+    gen = result.tokens[row, :n].cpu().tolist()
+    return chat.truncate_second_end_of_turn(tok.decode(list(prompt_ids) + gen))
