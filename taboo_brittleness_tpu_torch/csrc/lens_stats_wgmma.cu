@@ -1,0 +1,692 @@
+// Fused logit-lens statistics for NVIDIA Hopper (sm_90a): TMA ring, wgmma,
+// and a running per-row state across a chunk of the vocabulary.
+//
+// Replaces the TPU kernel of the JAX package: ops/pallas_lens.py,
+// `_lens_tile_kernel` launched by `lens_stats`, on its bf16 inputs with
+// top_k <= KMAX (the wrapper, ops/lens_kernel.py `lens_plan`, sends f32 and
+// larger top_k to the simple kernel in lens_stats.cu).  For rows x [N, D]
+// (final-normed residuals) and the tied embedding E [V, D] a block owns one
+// tile of BM rows and a contiguous chunk of the vocabulary, and writes one
+// partial per (chunk, row):
+//
+//   logits = x @ E[chunk]^T            (bf16 wgmma, f32 accumulate)
+//   logits = tanh(logits / cap) * cap   [CAP only]
+//   part_max[s, n], part_sumexp[s, n]   running max / sum exp(logit - max)
+//   part_tgt[s, n]                      logit of targets[n] in the chunk, else -1e30
+//   part_vals/ids[s, n, :K]             the chunk's top-K, lowest id first
+//                                       among equal values
+//
+// and the torch epilogue (`merge_partials`) merges the S chunks.  The [N, V]
+// logits never reach device memory.
+//
+// What bounds it: at the main path's shape (N 1140, D 3584, V 256000) a call
+// is 2*N*D*V = 2.09 TFLOP, 2.1 ms at the card's 989 TFLOP/s bf16 peak, against
+// 1.84 GB of x and E read once (0.55 ms at 3.35 TB/s): the tensor cores bound
+// it.  What the design does about each limit:
+//
+// - Loads overlap the math.  One thread of a producer warpgroup keeps a ring
+//   of STAGES shared-memory stages full with TMA (cp.async.bulk.tensor,
+//   128-byte swizzle, 64-deep k-steps), each stage guarded by a full and an
+//   empty mbarrier; the consumers wait only on data already in flight and
+//   hand a stage back as soon as the wgmma that read it has retired.
+// - wgmma at the full tile width.  A block tile is BM = 128 rows x BN = 256
+//   vocab columns: two consumer warpgroups, each one wgmma.m64n256k16 per
+//   16-deep slice with its 64 x 256 f32 accumulator in registers (128 a
+//   thread).  Both operands are K-major in shared memory (the "TN" product).
+//   Each stage carries 16 KB of x and 32 KB of E for 4.2 MFLOP: 85 FLOP per
+//   byte moved from L2.  The producer warpgroup gives up its registers
+//   (setmaxnreg) so that each consumer thread can hold 232.
+// - The epilogue stays in registers.  Rows of x are the wgmma's M dimension,
+//   so each row's columns sit in one quad of lanes.  After each tile's
+//   product a lane folds its columns into per-row running state: an online
+//   max / sum-exp, the target logit, and a sorted top-KMAX list.  The
+//   epilogue runs while the tensor cores wait, so it is kept short: exp2 and
+//   the cap's tanh from the approximate-function unit (each within 2 ulp;
+//   not tanh.approx, whose 2^-11 would break the tolerance), and the top-k
+//   list touched only by values above a cut that the quad's lists already
+//   exceed KMAX times; those few are queued in shared memory with predicated
+//   stores and inserted in a loop, so the 128-way unrolled code stays small
+//   enough for the instruction cache.  Columns arrive in ascending id, so a
+//   value enters a list only when strictly greater than an entry, which
+//   keeps the lowest id first among ties.  The quad's four lists merge by
+//   (value desc, id asc) once per chunk, so the partials shrink from one per
+//   128 columns to one per chunk.
+// - E crosses HBM about once.  Blocks are numbered row-tile fastest, so the
+//   row tiles of one vocab chunk run together and walk the same E tiles in
+//   step: one of them reads each E stage from HBM, the others from L2.  x
+//   (8 MB) stays in L2 throughout.
+// - Edges: TMA zero-fills rows past N, depth past D and columns past V.
+//   Padded rows are never written; columns past V are set to -inf after the
+//   cap, before any statistic reads them.
+//
+// The macros LENS_ANATOMY_SKIP_TOPK and LENS_ANATOMY_SKIP_FOLD leave out the
+// running top-k or the whole per-tile fold; only perf/lens_anatomy.py sets
+// them, to time the parts, and their partials are meaningless.
+//
+// Plain C interface, built with nvcc into a shared library and loaded with
+// ctypes.  The launcher returns 0, a cudaError_t of the launch, or a negative
+// code for a tensor map the driver refused (see tbx_wgmma_error_string).
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <limits.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int BM = 128;              // rows per block: two warpgroups of 64
+constexpr int BN = 256;              // vocab columns per tile
+constexpr int BK = 64;               // depth per stage: one 128-byte row of bf16
+constexpr int STAGES = 4;
+constexpr int KMAX = 8;              // longest top-k this kernel keeps
+static_assert(KMAX % 4 == 0, "the quad's cut takes KMAX / 4 from each lane");
+constexpr int CONSUMER_THREADS = 256;
+constexpr int THREADS = CONSUMER_THREADS + 128;  // + one producer warpgroup
+constexpr int CONSUMER_WARPS = CONSUMER_THREADS / 32;
+// setmaxnreg: 384 threads start at 168 registers (65536 / 384); the producer
+// drops to 40 and the consumers take the rest, 128 * 128 / 256 = 64 more.
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+constexpr int A_BYTES = BM * BK * 2;  // 16 KB of x
+constexpr int B_BYTES = BN * BK * 2;  // 32 KB of E
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+// Per consumer thread, slots for one tile's top-k candidates of one row;
+// slot k of every thread is one row of SLOT_STRIDE bytes.
+constexpr int CAND_SLOTS = 16;
+constexpr int SLOT_STRIDE = CONSUMER_THREADS * 8;
+constexpr int SMEM_BYTES = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * 8 +
+                           CAND_SLOTS * CONSUMER_THREADS * 8;
+constexpr float NEG_BIG = -1e30f;     // logit of an absent target
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr unsigned FULL_MASK = 0xffffffffu;
+// A barrier wait that outlasts this traps instead of hanging the card.
+constexpr unsigned long long WAIT_LIMIT_NS = 10ull * 1000 * 1000 * 1000;
+
+// Shared memory is addressed by 32-bit offsets in the shared window
+// throughout: the compiler then keeps every access a shared one.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Store {x, id} at `addr` when `pred` holds: no branch around the store.
+__device__ __forceinline__ void st_shared_if(bool pred, uint32_t addr, float x,
+                                             int id) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "setp.ne.b32 p, %0, 0;\n\t"
+      "@p st.shared.v2.b32 [%1], {%2, %3};\n\t}" ::"r"((int)pred),
+      "r"(addr), "r"(__float_as_uint(x)), "r"(id)
+      : "memory");
+}
+
+__device__ __forceinline__ void ld_shared(uint32_t addr, float& x, int& id) {
+  uint32_t bits;
+  asm volatile("ld.shared.v2.b32 {%0, %1}, [%2];"
+               : "=r"(bits), "=r"(id)
+               : "r"(addr)
+               : "memory");
+  x = __uint_as_float(bits);
+}
+
+// ---------------------------------------------------------------- mbarrier
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t addr, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+      "selp.u32 %0, 1, 0, p;\n\t}"
+      : "=r"(done)
+      : "r"(addr), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ unsigned long long globaltimer_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Wait for the phase of the given parity to complete.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const unsigned long long t0 = globaltimer_ns();
+  while (!mbar_try_wait(bar, parity)) {
+    if (globaltimer_ns() - t0 > WAIT_LIMIT_NS) __trap();
+  }
+}
+
+// --------------------------------------------------------------------- TMA
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// ------------------------------------------------------------------- wgmma
+
+// Shared-memory matrix descriptor of a K-major tile written by TMA with the
+// 128-byte swizzle: rows of 128 bytes, 8-row groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |          // leading offset (unused)
+         (static_cast<uint64_t>(1024 >> 4) << 32) |  // stride offset
+         (static_cast<uint64_t>(1) << 62);           // 128-byte swizzle
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads of the accumulator above a wait.
+__device__ __forceinline__ void fence_acc(float (&d)[128]) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64 x 256] += A[64 x 16] * B[256 x 16]^T, both K-major in shared memory.
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "
+      "%46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, "
+      "%78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, "
+      "%94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "
+      "%124, %125, %126, %127},"
+      " %128, %129, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// ------------------------------------------------------- epilogue helpers
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float fast_rcp(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// cap * tanh(x / cap) as cap * (1 - 2 / (1 + 2^(x * k2))), k2 = 2 log2(e) /
+// cap: one exp2 and one reciprocal, each within 2 ulp, so the result is
+// within about 1e-5 of the exact one at a cap of 30.  (tanh.approx's
+// relative error of 2^-11 would be 0.015 there.)
+__device__ __forceinline__ float capped_tanh(float x, float k2, float cap) {
+  return cap * (1.0f - 2.0f * fast_rcp(1.0f + fast_exp2(x * k2)));
+}
+
+// ------------------------------------------------------------ running top-k
+
+// Insert (x, id) into a list sorted by decreasing value; x at or below
+// tv[KMAX - 1] leaves it as it is.  Equal values keep their earlier (lower)
+// ids ahead.
+__device__ __forceinline__ void topk_insert(float (&tv)[KMAX], int (&ti)[KMAX],
+                                            float x, int id) {
+#pragma unroll
+  for (int p = KMAX - 1; p > 0; --p) {
+    const bool shift = x > tv[p - 1];
+    const bool here = !shift && x > tv[p];
+    tv[p] = shift ? tv[p - 1] : (here ? x : tv[p]);
+    ti[p] = shift ? ti[p - 1] : (here ? id : ti[p]);
+  }
+  if (x > tv[0]) {
+    tv[0] = x;
+    ti[0] = id;
+  }
+}
+
+__device__ __forceinline__ void topk_pop(float (&tv)[KMAX], int (&ti)[KMAX]) {
+#pragma unroll
+  for (int p = 0; p < KMAX - 1; ++p) {
+    tv[p] = tv[p + 1];
+    ti[p] = ti[p + 1];
+  }
+  tv[KMAX - 1] = -INFINITY;
+  ti[KMAX - 1] = INT_MAX;
+}
+
+// ------------------------------------------------------------------ kernel
+
+// Grid: row_tiles * n_chunks blocks, row tile fastest.  Chunk s covers the
+// vocab tiles [s * T / S, (s + 1) * T / S) of T = ceil(v / BN).
+template <bool CAP>
+__global__ void __launch_bounds__(THREADS, 1)
+    lens_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
+                      const __grid_constant__ CUtensorMap map_e,
+                      const int* __restrict__ targets,
+                      float* __restrict__ part_max,
+                      float* __restrict__ part_sumexp,
+                      float* __restrict__ part_tgt,
+                      float* __restrict__ part_vals,
+                      int* __restrict__ part_ids, int n, int d, int v,
+                      int k_top, int n_chunks, float cap) {
+  extern __shared__ unsigned char smem_raw[];
+  // The 128-byte swizzle repeats every 1024 bytes: align the ring to it.
+  // Stage s is at ring + s * STAGE_BYTES (x, then E); then the full and the
+  // empty barriers; then the candidate slots.
+  const uint32_t ring = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t full = ring + STAGES * STAGE_BYTES;  // + 8 * stage
+  const uint32_t empty = full + STAGES * 8;           // + 8 * stage
+  const uint32_t slots = empty + STAGES * 8;
+
+  const int row_tiles = (n + BM - 1) / BM;
+  const int row_tile = blockIdx.x % row_tiles;
+  const int chunk = blockIdx.x / row_tiles;
+  const int vocab_tiles = (v + BN - 1) / BN;
+  const int t_begin = (int)((long long)chunk * vocab_tiles / n_chunks);
+  const int t_end = (int)((long long)(chunk + 1) * vocab_tiles / n_chunks);
+  const int k_steps = (d + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMER_THREADS) {
+    // ---- producer warpgroup: hands its registers to the consumers; one
+    // lane keeps the ring full.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == CONSUMER_THREADS) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = t_begin; t < t_end; ++t) {
+        for (int ks = 0; ks < k_steps; ++ks) {
+          mbar_wait(empty + 8 * stage, phase ^ 1);
+          const uint32_t a = ring + stage * STAGE_BYTES;
+          mbar_expect_tx(full + 8 * stage, STAGE_BYTES);
+          tma_load_2d(a, &map_x, full + 8 * stage, ks * BK, row_tile * BM);
+          tma_load_2d(a + A_BYTES, &map_e, full + 8 * stage, ks * BK, t * BN);
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
+    // ---- consumers: warpgroup wg owns rows wg*64 .. wg*64+63 of the tile.
+    const int wg = threadIdx.x / 128;
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    const int q = lane % 4;  // the lane's place in its row's quad
+    const uint32_t my_slots = slots + threadIdx.x * 8;
+    const uint32_t slots_end = my_slots + CAND_SLOTS * SLOT_STRIDE;
+    // Accumulator layout of m64nNk16: d[4j + 2i + c] is row
+    // 16*(warp%4) + lane/4 + 8i, column 8j + 2q + c.
+    int rows[2], tgt[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      rows[i] = row_tile * BM + wg * 64 + (warp % 4) * 16 + lane / 4 + 8 * i;
+      const int t = rows[i] < n ? targets[rows[i]] : -1;
+      tgt[i] = (t >= 0 && t < v) ? t : -1;
+    }
+
+    float run_max[2] = {-INFINITY, -INFINITY};
+    float run_sum[2] = {0.0f, 0.0f};
+    float run_tgt[2] = {NEG_BIG, NEG_BIG};
+    float top_v[2][KMAX];
+    int top_i[2][KMAX];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int p = 0; p < KMAX; ++p) {
+        top_v[i][p] = -INFINITY;
+        top_i[i][p] = INT_MAX;
+      }
+
+    float acc[128];
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int t = t_begin; t < t_end; ++t) {
+#pragma unroll
+      for (int r = 0; r < 128; ++r) acc[r] = 0.0f;
+      int prev = 0;
+      for (int ks = 0; ks < k_steps; ++ks) {
+        mbar_wait(full + 8 * stage, phase);
+        const uint32_t a = ring + stage * STAGE_BYTES + wg * 64 * 128;
+        const uint32_t b = ring + stage * STAGE_BYTES + A_BYTES;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          wgmma_m64n256k16(acc, smem_desc(a + kk * 32), smem_desc(b + kk * 32));
+        }
+        wgmma_commit();
+        if (ks > 0) {
+          // The previous stage's products are done: hand its buffer back.
+          wgmma_wait<1>();
+          if (lane == 0) mbar_arrive(empty + 8 * prev);
+        }
+        prev = stage;
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      if (lane == 0) mbar_arrive(empty + 8 * prev);
+      fence_acc(acc);
+
+#ifndef LENS_ANATOMY_SKIP_FOLD
+      // ---- fold this tile into the running state.  The code is unrolled
+      // over the 128 accumulator registers, so each step is kept to a few
+      // instructions: the whole epilogue has to stay in the instruction cache.
+      const int col0 = t * BN;
+      const int base = col0 + 2 * q;  // column of acc[4j + 2i + c]: base + 8j + c
+      if (CAP) {
+        const float k2 = 2.0f * LOG2E / cap;
+#pragma unroll
+        for (int r = 0; r < 128; ++r) acc[r] = capped_tanh(acc[r], k2, cap);
+      }
+      if (col0 + BN > v) {  // vocab tail: TMA zero-filled these columns
+        const int lim = v - base;
+#pragma unroll
+        for (int j = 0; j < 32; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            if (8 * j + c >= lim) {
+              acc[4 * j + c] = -INFINITY;
+              acc[4 * j + 2 + c] = -INFINITY;
+            }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float tile_max = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 32; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            tile_max = fmaxf(tile_max, acc[4 * j + 2 * i + c]);
+        const float m = fmaxf(run_max[i], tile_max);
+        const float m2 = m * LOG2E;
+        const int rel = tgt[i] - base;  // 8j + c of the target, if this lane's
+        float sum = 0.0f;
+        float tv = run_tgt[i];
+#pragma unroll
+        for (int j = 0; j < 32; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const float x = acc[4 * j + 2 * i + c];
+            sum += fast_exp2(fmaf(x, LOG2E, -m2));
+            tv = rel == 8 * j + c ? x : tv;
+          }
+        run_sum[i] = run_sum[i] * fast_exp2((run_max[i] - m) * LOG2E) + sum;
+        run_max[i] = m;
+        run_tgt[i] = tv;
+
+#ifndef LENS_ANATOMY_SKIP_TOPK
+        // The quad already holds KMAX values at or above `cut`: each lane
+        // KMAX at or above its last entry, and each lane two at or above
+        // its second.  Every one of them has a lower id than this tile's
+        // columns, so a value at or below `cut` cannot enter the quad's
+        // top-KMAX, ties included.
+        float cut = top_v[i][KMAX - 1];
+        float second = top_v[i][KMAX / 4 - 1];
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+          cut = fmaxf(cut, __shfl_xor_sync(FULL_MASK, cut, off));
+          second = fminf(second, __shfl_xor_sync(FULL_MASK, second, off));
+        }
+        cut = fmaxf(cut, second);
+        if (__any_sync(FULL_MASK, tile_max > cut)) {
+          // Queue the lane's candidates above `cut` in its shared-memory
+          // slots, in ascending id (stored as 8j + c), with predicated
+          // stores, and insert them.  A lane with more candidates than slots
+          // (the first tile of a chunk) goes round again after its last
+          // queued column, with `cut` raised to its own list's last entry:
+          // a later column at or below it has KMAX entries ahead of it.
+          int done = -1;  // columns 8j + c <= done are handled
+          while (true) {
+            uint32_t at = my_slots;  // the next free slot
+#pragma unroll
+            for (int j = 0; j < 32; ++j)
+#pragma unroll
+              for (int c = 0; c < 2; ++c) {
+                const float x = acc[4 * j + 2 * i + c];
+                const bool take = x > cut && 8 * j + c > done;
+                st_shared_if(take && at < slots_end, at, x, 8 * j + c);
+                at += take ? SLOT_STRIDE : 0;
+              }
+            const int n_cand = (at - my_slots) / SLOT_STRIDE;
+            const int n_take = min(n_cand, CAND_SLOTS);
+            for (int k = 0; k < n_take; ++k) {
+              float x;
+              int jc;
+              ld_shared(my_slots + k * SLOT_STRIDE, x, jc);
+              topk_insert(top_v[i], top_i[i], x, base + jc);
+            }
+            if (!__any_sync(FULL_MASK, n_cand > CAND_SLOTS)) break;
+            if (n_cand > CAND_SLOTS) {
+              float x;
+              ld_shared(my_slots + (CAND_SLOTS - 1) * SLOT_STRIDE, x, done);
+            } else {
+              done = BN;
+            }
+            cut = fmaxf(cut, top_v[i][KMAX - 1]);
+          }
+        }
+#endif  // LENS_ANATOMY_SKIP_TOPK
+      }
+#else
+      // Measurement build (perf/lens_anatomy.py): the product alone.
+      run_max[0] = fmaxf(run_max[0], acc[0] + acc[127]);
+#endif  // LENS_ANATOMY_SKIP_FOLD
+    }
+
+    // ---- merge the quad's four states and write the chunk's partials.
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const bool valid = rows[i] < n;
+      const size_t out = (size_t)chunk * n + rows[i];
+      float m = run_max[i];
+      m = fmaxf(m, __shfl_xor_sync(FULL_MASK, m, 1));
+      m = fmaxf(m, __shfl_xor_sync(FULL_MASK, m, 2));
+      float s = run_sum[i] * exp2f((run_max[i] - m) * LOG2E);
+      s += __shfl_xor_sync(FULL_MASK, s, 1);
+      s += __shfl_xor_sync(FULL_MASK, s, 2);
+      float tv = run_tgt[i];
+      tv = fmaxf(tv, __shfl_xor_sync(FULL_MASK, tv, 1));
+      tv = fmaxf(tv, __shfl_xor_sync(FULL_MASK, tv, 2));
+      if (q == 0 && valid) {
+        part_max[out] = m;
+        part_sumexp[out] = s;
+        part_tgt[out] = tv;
+      }
+#pragma unroll
+      for (int r = 0; r < KMAX; ++r) {
+        float bv = top_v[i][0];
+        int bi = top_i[i][0];
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+          const float ov = __shfl_xor_sync(FULL_MASK, bv, off);
+          const int oi = __shfl_xor_sync(FULL_MASK, bi, off);
+          if (ov > bv || (ov == bv && oi < bi)) {
+            bv = ov;
+            bi = oi;
+          }
+        }
+        if (top_i[i][0] == bi) topk_pop(top_v[i], top_i[i]);
+        if (q == 0 && valid && r < k_top) {
+          part_vals[out * k_top + r] = bv;
+          part_ids[out * k_top + r] = bi;
+        }
+      }
+    }
+  }
+}
+
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+
+// cuTensorMapEncodeTiled from the driver the runtime has loaded (no link
+// against libcuda).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t rc = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t rc = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                             cudaEnableDefault, &found);
+#endif
+    if (rc == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// A 2-D bf16 tensor map over a row-major [rows, cols] matrix, boxes of
+// box_rows x BK with the 128-byte swizzle; reads past either edge are zero.
+CUresult make_map(CUtensorMap* map, const void* base, int rows, int cols,
+                  int box_rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+template <bool CAP>
+int launch(const CUtensorMap& mx, const CUtensorMap& me, const int* targets,
+           float* part_max, float* part_sumexp, float* part_tgt,
+           float* part_vals, int* part_ids, int n, int d, int v, int k_top,
+           int n_chunks, float cap, cudaStream_t stream) {
+  auto kernel = lens_wgmma_kernel<CAP>;
+  cudaError_t rc = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const int row_tiles = (n + BM - 1) / BM;
+  kernel<<<row_tiles * n_chunks, THREADS, SMEM_BYTES, stream>>>(
+      mx, me, targets, part_max, part_sumexp, part_tgt, part_vals, part_ids, n,
+      d, v, k_top, n_chunks, cap);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// Tile geometry, checked by the wrapper against its own plan.
+int tbx_wgmma_block_rows() { return BM; }
+int tbx_wgmma_block_cols() { return BN; }
+int tbx_wgmma_kmax() { return KMAX; }
+int tbx_wgmma_smem_bytes() { return SMEM_BYTES; }
+
+// Negative codes are -(CUresult) of a refused tensor map.
+const char* tbx_wgmma_error_string(int code) {
+  if (code < 0) return "cuTensorMapEncodeTiled refused the tensor map";
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// Launch one pass on `stream`.  x [n, d] and e [v, d] row-major bf16, 16-byte
+// aligned, d % 8 == 0; targets [n] int32 (-1 = none); 1 <= k_top <= KMAX;
+// 1 <= n_chunks <= ceil(v / BN).  Outputs [n_chunks, n] and
+// [n_chunks, n, k_top] as in the file header.
+int tbx_lens_wgmma(const void* x, const void* e, const int* targets,
+                   float* part_max, float* part_sumexp, float* part_tgt,
+                   float* part_vals, int* part_ids, int n, int d, int v,
+                   int k_top, int n_chunks, int has_cap, float cap,
+                   void* stream) {
+  CUtensorMap mx, me;
+  CUresult cr = make_map(&mx, x, n, d, BM);
+  if (cr != CUDA_SUCCESS) return -static_cast<int>(cr);
+  cr = make_map(&me, e, v, d, BN);
+  if (cr != CUDA_SUCCESS) return -static_cast<int>(cr);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (has_cap) {
+    return launch<true>(mx, me, targets, part_max, part_sumexp, part_tgt,
+                        part_vals, part_ids, n, d, v, k_top, n_chunks, cap, s);
+  }
+  return launch<false>(mx, me, targets, part_max, part_sumexp, part_tgt,
+                       part_vals, part_ids, n, d, v, k_top, n_chunks, cap, s);
+}
+
+}  // extern "C"

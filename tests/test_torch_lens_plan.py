@@ -1,0 +1,184 @@
+"""How the port's lens readout cuts a call (``lens_plan``) and the plain
+version of what its kernels write (``lens_stats_partials_reference``), merged
+by the epilogue both routes share (``merge_partials``).
+
+The kernels themselves run only on the card (``chip_smoke.py`` holds them to
+these functions there); here the chunking is held to the JAX package's Pallas
+kernel in interpret mode, to its XLA oracle and to ``lax.top_k``'s tie rule.
+Inputs come from numpy seeds; f32 throughout.  Tolerance rtol = atol = 1e-5,
+as ``tests/test_pallas_lens.py``: two f32 matmuls that sum in different
+orders.  Ids are compared exactly.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from taboo_brittleness_tpu.ops import pallas_lens
+from taboo_brittleness_tpu_torch.ops import lens_kernel
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+def _inputs(rng, n, d, v):
+    return (rng.normal(size=(n, d)).astype(np.float32),
+            rng.normal(size=(v, d)).astype(np.float32))
+
+
+def _assert_stats_close(got, exp):
+    np.testing.assert_allclose(got.logsumexp.numpy(),
+                               np.asarray(exp.logsumexp), **TOL)
+    np.testing.assert_allclose(got.target_logit.numpy(),
+                               np.asarray(exp.target_logit), **TOL)
+    np.testing.assert_allclose(got.topk_vals.numpy(),
+                               np.asarray(exp.topk_vals), **TOL)
+    np.testing.assert_array_equal(got.topk_ids.numpy(),
+                                  np.asarray(exp.topk_ids))
+
+
+def test_main_path_plan_fills_whole_waves():
+    plan = lens_kernel.lens_plan(1140, 256_000, 5, BF16)
+    assert plan.route == "wgmma"
+    assert (plan.row_tiles, plan.vocab_tiles, plan.chunks) == (9, 1000, 44)
+    assert plan.row_tiles * plan.chunks == 3 * lens_kernel.H100_SMS
+    assert plan.bounds[0] == 0 and plan.bounds[-1] == 256_000
+    tiles = np.diff(plan.bounds) // lens_kernel.WGMMA_COLS
+    assert set(tiles.tolist()) == {22, 23}
+
+
+@pytest.mark.parametrize("n,v,k,dtype,route,row_tiles,vocab_tiles", [
+    (1, 256_000, 5, BF16, "wgmma", 1, 1000),
+    (129, 256_000, 5, BF16, "wgmma", 2, 1000),
+    (1140, 384, 5, BF16, "wgmma", 9, 2),
+    (1140, 256_000, lens_kernel.KMAX, BF16, "wgmma", 9, 1000),
+    (1140, 256_000, 5, F32, "simple", 18, 2000),
+    (1140, 256_000, 32, BF16, "simple", 18, 2000),
+    (3, 384, lens_kernel.KMAX + 1, BF16, "simple", 1, 3),
+])
+def test_plan_routes_and_edges(n, v, k, dtype, route, row_tiles, vocab_tiles):
+    plan = lens_kernel.lens_plan(n, v, k, dtype)
+    assert (plan.route, plan.row_tiles, plan.vocab_tiles) == (
+        route, row_tiles, vocab_tiles)
+    assert len(plan.bounds) == plan.chunks + 1
+    assert plan.bounds[0] == 0 and plan.bounds[-1] == v
+    assert all(a < b for a, b in zip(plan.bounds, plan.bounds[1:]))
+    if route == "simple":
+        assert plan.chunks == v // lens_kernel.BLOCK_V
+    else:
+        # Whole 256-column tiles, balanced to within one tile; a ragged last
+        # tile only at the very end.
+        assert all(b % lens_kernel.WGMMA_COLS == 0 for b in plan.bounds[:-1])
+        tiles = [-(-(b - a) // lens_kernel.WGMMA_COLS)
+                 for a, b in zip(plan.bounds, plan.bounds[1:])]
+        assert max(tiles) - min(tiles) <= 1 and sum(tiles) == vocab_tiles
+
+
+def test_plan_follows_the_cards_sm_count():
+    small = lens_kernel.lens_plan(1140, 256_000, 5, BF16, sm_count=66)
+    assert small.row_tiles * small.chunks % 66 == 0
+    assert small.bounds[-1] == 256_000
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["wgmma", "simple"])
+@pytest.mark.parametrize("cap", [None, 30.0])
+@pytest.mark.parametrize("n_rows,d,v,k", [(6, 32, 256, 3), (16, 64, 512, 5),
+                                          (5, 16, 384, 4), (7, 16, 4224, 5)])
+def test_merged_partials_match_pallas_and_xla(n_rows, d, v, k, cap, dtype):
+    rng = np.random.default_rng(0)
+    x, embed = _inputs(rng, n_rows, d, v)
+    plan = lens_kernel.lens_plan(n_rows, v, k, dtype, sm_count=4)
+    parts = lens_kernel.lens_stats_partials_reference(
+        torch.from_numpy(x), torch.from_numpy(embed), 7, plan, top_k=k,
+        logit_cap=cap)
+    assert tuple(parts.chunk_max.shape) == (plan.chunks, n_rows)
+    assert tuple(parts.cand_ids.shape) == (plan.chunks, n_rows, k)
+    got = lens_kernel.merge_partials(parts)
+    ref = lens_kernel.lens_stats_reference(
+        torch.from_numpy(x), torch.from_numpy(embed), 7, top_k=k,
+        logit_cap=cap)
+    pallas = pallas_lens.lens_stats(
+        jnp.asarray(x), jnp.asarray(embed), jnp.asarray(7, jnp.int32),
+        top_k=k, logit_cap=cap, block_v=128, interpret=True)
+    _assert_stats_close(got, ref)
+    _assert_stats_close(got, pallas)
+    assert got.topk_ids.dtype == torch.int32
+
+
+@pytest.mark.parametrize("cap", [None, 30.0])
+def test_per_row_targets_across_chunks(cap):
+    """[N] targets at the edges of the chunks, one absent (-1), one in the
+    ragged last tile."""
+    rng = np.random.default_rng(4)
+    n, d, v = 9, 32, 6272
+    x, embed = _inputs(rng, n, d, v)
+    targets = np.array([0, 2047, 2048, 4095, 4096, 6271, -1, 3000, 6200],
+                       np.int32)
+    plan = lens_kernel.lens_plan(n, v, 2, BF16, sm_count=3)
+    assert plan.chunks == 3
+    got = lens_kernel.merge_partials(lens_kernel.lens_stats_partials_reference(
+        torch.from_numpy(x), torch.from_numpy(embed),
+        torch.from_numpy(targets), plan, top_k=2, logit_cap=cap))
+    exp = pallas_lens.lens_stats(
+        jnp.asarray(x), jnp.asarray(embed), jnp.asarray(targets), top_k=2,
+        logit_cap=cap, block_v=128, interpret=True)
+    _assert_stats_close(got, exp)
+    assert plan.bounds == (0, 2048, 4096, 6272)
+    assert got.target_logit[6].item() == np.float32(lens_kernel.NEG_INF)
+
+
+def test_ties_across_tiles_and_chunks_take_the_lowest_id():
+    """Duplicated embedding rows in different vocab tiles and chunks tie
+    exactly; the merged top-k must take them lowest id first, as lax.top_k."""
+    rng = np.random.default_rng(7)
+    n, d, v = 8, 16, 8192
+    # Sums of multiples of 1/8: exact in f32 in any order, so ties are exact
+    # (and frequent below the top four).
+    x = rng.integers(-1, 2, size=(n, d)).astype(np.float32)
+    x[:, :8] = 1.0
+    embed = rng.integers(-1, 2, size=(v, d)).astype(np.float32) / 8
+    hot = np.zeros(d, np.float32)
+    hot[:8] = 1.0                                  # logit 8 > 2 >= any other
+    dups = [5, 300, 4100, 8191]                    # tiles 0, 1, 16, 31
+    embed[dups] = hot
+    plan = lens_kernel.lens_plan(n, v, 6, BF16, sm_count=4)
+    assert plan.chunks == 4
+    chunk_of = np.searchsorted(plan.bounds, dups, side="right")
+    assert len(set(chunk_of.tolist())) >= 3
+    got = lens_kernel.merge_partials(lens_kernel.lens_stats_partials_reference(
+        torch.from_numpy(x), torch.from_numpy(embed), 0, plan, top_k=6))
+    exp_v, exp_i = jax.lax.top_k(jnp.asarray(x) @ jnp.asarray(embed).T, 6)
+    np.testing.assert_array_equal(got.topk_ids.numpy(), np.asarray(exp_i))
+    np.testing.assert_array_equal(got.topk_vals.numpy(), np.asarray(exp_v))
+    assert (got.topk_ids[:, :4].numpy() == dups).all()
+
+
+def test_cpu_partials_take_the_plain_version():
+    rng = np.random.default_rng(5)
+    x, embed = _inputs(rng, 4, 16, 512)
+    before = lens_kernel.lens_stats.launches
+    plan = lens_kernel.lens_plan(4, 512, 3, F32)
+    got = lens_kernel.lens_stats_partials(
+        torch.from_numpy(x), torch.from_numpy(embed), 9, top_k=3)
+    exp = lens_kernel.lens_stats_partials_reference(
+        torch.from_numpy(x), torch.from_numpy(embed), 9, plan, top_k=3)
+    assert lens_kernel.lens_stats.launches == before
+    for a, b in zip(got, exp):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype,k,plan_args", [
+    (F32, 3, (128, 512, 3, BF16)),     # f32 on the wgmma route
+    (BF16, 3, (128, 1024, 3, BF16)),   # a plan cut for another vocab
+    (BF16, 3, (300, 512, 3, BF16)),    # ... or another row count
+])
+def test_launcher_refuses_plans_that_do_not_fit(dtype, k, plan_args):
+    x = torch.zeros((128, 16), dtype=dtype)
+    embed = torch.zeros((512, 16), dtype=dtype)
+    targets = torch.zeros((128,), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        lens_kernel._launch(x, embed, targets, lens_kernel.lens_plan(*plan_args),
+                            k, None)
