@@ -28,7 +28,18 @@ the kernels are built for sm_90a).  Phases, each of which fails the run:
    the card), ``run_generation`` then ``run_evaluation`` for the default
    config's 10 prompts, through a model loader, into a temporary directory;
    the kernel must have launched 42 times per lens pass, all on the wgmma
-   route.
+   route;
+7. SAE and interventions, at the same width with a seeded random
+   3584 x 16384 f32 SAE made on the card: ``analyze_sae_baseline`` over the
+   cache the main path wrote (top latents equal to the same function on the
+   CPU where margins are clear); identity arms (``measure_arm`` with every
+   latent id -1, and with zero projection bases: tokens equal to the
+   baseline on every row, |ΔNLL| <= 1e-4); then ``run_intervention_study``
+   for one word at the default intervention config (6 budgets x 11 arms and
+   4 ranks x 11 arms: 110 arms, 1100 decode rows in launches of 330, 330,
+   220 and 220 rows), its JSON held to the schema of
+   ``results/fixtures/intervention_moon.json``.  This path launches no
+   kernel of its own: every product is a ``torch.matmul``.
 
 The line before the last is ``{"kernels": [...]}``, one entry per route
 (times in ms, measured here; ``bound_ms`` from this run's shapes and the
@@ -47,6 +58,8 @@ import sys
 import tempfile
 import time
 
+import numpy as np
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 PACKAGE = "taboo_brittleness_tpu_torch"
 
@@ -54,6 +67,7 @@ PACKAGE = "taboo_brittleness_tpu_torch"
 # tensor-core FLOP/s.  A card below its 700 W limit runs slower than these.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+FP32_FLOP_PER_S = 67e12     # outside the tensor cores
 
 # The main path's lens-kernel shape: 10 prompts left-padded to 64 columns
 # plus 50 new tokens (N = 10 * 114), Gemma-2-9B width and vocabulary.
@@ -440,6 +454,7 @@ class PhaseTimer:
     def __init__(self, torch):
         self.torch = torch
         self.seconds = {}
+        self.calls = {}
         self._restore = []
 
     def wrap(self, module, name: str, label: str) -> None:
@@ -450,7 +465,9 @@ class PhaseTimer:
             t0 = time.perf_counter()
             out = orig(*args, **kwargs)
             self.torch.cuda.synchronize()
-            self.seconds[label] = self.seconds.get(label, 0.0) + time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            self.seconds[label] = self.seconds.get(label, 0.0) + dt
+            self.calls.setdefault(label, []).append(dt)
             return out
 
         setattr(module, name, timed)
@@ -461,12 +478,12 @@ class PhaseTimer:
             setattr(module, name, orig)
 
 
-def drive_main_path(torch, workdir: str) -> dict:
+def drive_main_path(torch, workdir: str) -> tuple:
     """``run_generation`` for one word, then ``run_evaluation`` for it and a
     second word (the first from the cache, the second through the model) at
-    Gemma-2-9B width.  Returns the kernel launches of the run by route."""
-    import numpy as np
-
+    Gemma-2-9B width.  Returns the kernel launches of the run by route and
+    (params, cfg, tokenizer, config, cache directory, word) for the next
+    phase."""
     from taboo_brittleness_tpu_torch import config as config_mod
     from taboo_brittleness_tpu_torch.models import gemma2
     from taboo_brittleness_tpu_torch.ops import lens, lens_kernel
@@ -573,7 +590,211 @@ def drive_main_path(torch, workdir: str) -> dict:
     if not os.path.exists(os.path.join(workdir, "results.json")):
         fail("run_evaluation wrote no results file")
     log(f"results overall: {json.dumps(results['overall'])}")
-    return by_route
+    return by_route, (params, cfg, tok, config, processed, gen_word)
+
+
+# The SAE of the interventions phase: Gemma-Scope layer_31/width_16k shape.
+SAE_WIDTH = 16384
+# Card vs CPU pooled SAE activations: f32 on both (TF32 off), sums in
+# another order over D = 3584 and ~50 positions.
+SAE_RTOL = 1e-4
+DNLL_ATOL = 1e-4
+FIXTURE_STUDY = os.path.join("results", "fixtures", "intervention_moon.json")
+
+
+def check_sae_baseline(torch, sae, config, processed: str, word: str) -> None:
+    """``analyze_sae_baseline`` over the main path's cache on the card, and
+    its top latents against the same function on the CPU."""
+    from taboo_brittleness_tpu_torch.pipelines import sae_baseline
+
+    t0 = time.perf_counter()
+    results = sae_baseline.analyze_sae_baseline(config, sae, words=[word],
+                                                processed_dir=processed)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    preds = results[word]["predictions"]
+    if len(preds) != len(config.prompts):
+        fail(f"analyze_sae_baseline predictions for {word}: {preds}")
+    stacked, masks, owners = sae_baseline.collect_pairs(config, [word], processed)
+    if len(owners) != len(config.prompts):
+        fail(f"the SAE baseline found {len(owners)} cached residuals")
+    k = config.model.top_k
+    ids, vals = sae_baseline.top_latents_for_pairs(sae, stacked, masks, top_k=k + 1)
+    t0 = time.perf_counter()
+    cpu_ids, cpu_vals = sae_baseline.top_latents_for_pairs(
+        sae.to("cpu"), stacked, masks, top_k=k + 1)
+    t_cpu = time.perf_counter() - t0
+    cpu_results = sae_baseline.analyze_sae_baseline(
+        config, sae.to("cpu"), words=[word], processed_dir=processed)
+    scale = float(np.abs(cpu_vals).max())
+    err = float(np.abs(vals - cpu_vals).max())
+    clear = ((cpu_vals[:, :k] - cpu_vals[:, 1:k + 1]) > SAE_RTOL * scale).all(axis=1)
+    same = (ids[:, :k] == cpu_ids[:, :k]).all(axis=1)
+    log(f"sae-baseline ({word}, {stacked.shape[0]} prompts x {stacked.shape[1]} "
+        f"positions, SAE {sae.d_model} x {sae.d_sae}): card {t_card:.3f} s, "
+        f"CPU top latents {t_cpu:.3f} s; pooled activations max_abs_err "
+        f"{err:.3e} of max {scale:.3e} (rtol {SAE_RTOL}); top-{k} ids equal on "
+        f"{int((clear & same).sum())}/{int(clear.sum())} rows with clear margins")
+    if not err <= SAE_RTOL * scale or (clear & ~same).any() or not clear.any():
+        fail("the SAE baseline on the card disagrees with the CPU")
+    if cpu_results != results:
+        fail(f"analyze_sae_baseline card {results} vs CPU {cpu_results}")
+
+
+def _schema(study: dict, fixture: dict, where: str = "study") -> None:
+    """Every key of the committed fixture is in ``study`` at the same place,
+    with a value of the same kind; the grids' own keys (budgets, ranks,
+    random draws) may differ in number."""
+    if isinstance(fixture, dict):
+        if not isinstance(study, dict):
+            fail(f"{where}: a {type(study).__name__}, not a dict")
+        grid = where.endswith(("budgets", "ranks"))
+        for key, sub in fixture.items():
+            if grid:
+                for skey in study:
+                    _schema(study[skey], sub, f"{where}.{skey}")
+                return
+            if key not in study:
+                fail(f"{where}: no {key!r} (fixture keys {sorted(fixture)})")
+            _schema(study[key], sub, f"{where}.{key}")
+        extra = set(study) - set(fixture) - ({"scoring"} if where == "study.ablation" else set())
+        if extra and not grid:
+            fail(f"{where}: keys {sorted(extra)} not in the fixture")
+    elif isinstance(fixture, list):
+        if not isinstance(study, list) or (fixture and not study):
+            fail(f"{where}: {type(study).__name__} of {len(study)}")
+        for item in study if fixture else ():
+            _schema(item, fixture[0], f"{where}[]")
+    elif isinstance(fixture, float):
+        if not isinstance(study, float) or not np.isfinite(study):
+            fail(f"{where}: {study!r} is not a finite float")
+    elif type(study) is not type(fixture):
+        fail(f"{where}: {type(study).__name__}, fixture {type(fixture).__name__}")
+
+
+def drive_interventions(torch, workdir: str, ctx: tuple) -> None:
+    """The SAE baseline, the identity arms and one word's 110-arm study at
+    the main path's width (see the module docstring, phase 7)."""
+    from taboo_brittleness_tpu_torch.ops import sae as sae_ops
+    from taboo_brittleness_tpu_torch.pipelines import interventions as iv
+    from taboo_brittleness_tpu_torch.runtime import decode
+
+    params, cfg, tok, config, processed, gen_word = ctx
+    word = "moon"
+    L = config.model.layer_idx
+    dev = params["embed"].device
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sae = sae_ops.init_random(torch.Generator(device=dev).manual_seed(3),
+                              cfg.hidden_size, SAE_WIDTH, device=dev)
+    torch.cuda.synchronize()
+    log(f"SAE {cfg.hidden_size} x {SAE_WIDTH} f32 made on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    check_sae_baseline(torch, sae, config, processed, gen_word)
+
+    launched = []
+    orig_generate = decode.generate
+
+    def recording_generate(*args, **kwargs):
+        result = orig_generate(*args, **kwargs)
+        launched.append((len(args[3]), result[0].tokens.cpu().numpy()))
+        return result
+
+    decode.generate = recording_generate
+    timer = PhaseTimer(torch)
+    try:
+        # Identity arms on the baseline state: every row's tokens equal.
+        state = iv.prepare_word_state(params, cfg, tok, config, word)
+        B = len(config.prompts)
+        N = config.experiment.max_new_tokens
+        base_tokens = state.sequences[:, -N:]
+        mmax, rmax = max(config.intervention.budgets), max(config.intervention.ranks)
+        for name, edit, ep in (
+                ("sae ids -1", iv.sae_ablation_edit,
+                 {"sae": sae, "layer": L,
+                  "latent_ids": torch.full((B, mmax), -1, device=dev)}),
+                ("zero basis", iv.projection_edit,
+                 {"layer": L, "basis": torch.zeros((B, cfg.hidden_size, rmax),
+                                                   device=dev)})):
+            arm = iv.measure_arm(params, cfg, tok, config, state, edit, ep)
+            rows_equal = int((launched[-1][1] == base_tokens).all(axis=1).sum())
+            log(f"identity arm ({name}): tokens equal to the baseline on "
+                f"{rows_equal}/{B} rows, delta_nll {arm.delta_nll:.3e} (atol "
+                f"{DNLL_ATOL}), secret_prob {arm.secret_prob:.6e} vs baseline "
+                f"{state.secret_prob:.6e}, guesses equal "
+                f"{arm.guesses == state.guesses}")
+            if rows_equal != B or not abs(arm.delta_nll) <= DNLL_ATOL:
+                fail(f"the identity arm ({name}) changed the model")
+        del state
+        launched.clear()
+
+        for module, name, label in (
+                (iv, "prepare_word_state", "baseline"),
+                (iv, "plan_ablation_sweep", "scoring + PCA"),
+                (iv, "plan_projection_sweep", "scoring + PCA"),
+                (iv, "measure_arm_sets", "arm launches"),
+                (decode, "generate", "decode"),
+                (iv, "_residual_measure", "readout"),
+                (iv, "_teacher_forced_nll_cached", "nll")):
+            timer.wrap(module, name, label)
+        out = os.path.join(workdir, "interventions", f"{word}.json")
+        t0 = time.perf_counter()
+        study = iv.run_intervention_study(params, cfg, tok, config, word, sae,
+                                          output_path=out)
+        t_study = time.perf_counter() - t0
+    finally:
+        timer.restore()
+        decode.generate = orig_generate
+    peak = torch.cuda.max_memory_allocated()
+
+    rows = [n for n, _ in launched]
+    iv_cfg = config.intervention
+    n_arms = (len(iv_cfg.budgets) + len(iv_cfg.ranks)) * (1 + iv_cfg.random_trials)
+    if rows[1:] != [330, 330, 220, 220] or sum(rows[1:]) != n_arms * B:
+        fail(f"arm launches of {rows[1:]} rows; expected 330, 330, 220, 220")
+    calls = timer.calls
+    split = {k: (calls[k][0], sum(calls[k][1:])) for k in ("decode", "readout", "nll")}
+    log(f"study ({word}): {t_study:.2f} s; baseline {timer.seconds['baseline']:.3f} s "
+        f"(decode {split['decode'][0]:.3f}, readout {split['readout'][0]:.3f}, "
+        f"nll {split['nll'][0]:.3f}); scoring + PCA "
+        f"{timer.seconds['scoring + PCA']:.3f} s; arm launches "
+        f"{timer.seconds['arm launches']:.3f} s (decode {split['decode'][1]:.3f}, "
+        f"readout {split['readout'][1]:.3f}, nll {split['nll'][1]:.3f})")
+    log("per arm launch (rows; decode, readout, nll s): " + "; ".join(
+        f"{r}: {d:.3f}, {rd:.3f}, {nl:.3f}" for r, d, rd, nl in zip(
+            rows[1:], calls["decode"][1:], calls["readout"][1:], calls["nll"][1:])))
+    # The readout's f32 product over the response window (N + 1 columns).
+    cols = config.experiment.max_new_tokens + 1
+    flops = [2 * r * cols * cfg.hidden_size * cfg.vocab_size for r in rows[1:]]
+    log("readout f32 lens product per arm launch: " + "; ".join(
+        f"{r} rows {f / 1e12:.1f} TFLOP, bound {f / FP32_FLOP_PER_S:.3f} s at "
+        f"the f32 peak, {f / FP32_FLOP_PER_S / t:.1%} of it"
+        for r, f, t in zip(rows[1:], flops, calls["readout"][1:])))
+    log(f"interventions phase peak device memory {peak / 2**30:.2f} GiB "
+        "(torch.cuda.max_memory_allocated)")
+
+    with open(out) as f:
+        written = json.load(f)
+    if written != json.loads(json.dumps(study)):
+        fail("the study JSON on disk differs from the returned study")
+    with open(os.path.join(REPO, FIXTURE_STUDY)) as f:
+        _schema(written, json.load(f))
+    budgets = written["ablation"]["budgets"]
+    ranks = written["projection"]["ranks"]
+    if set(budgets) != {str(m) for m in iv_cfg.budgets} or \
+            set(ranks) != {str(r) for r in iv_cfg.ranks}:
+        fail(f"study grid: budgets {sorted(budgets)}, ranks {sorted(ranks)}")
+    for cell in list(budgets.values()) + list(ranks.values()):
+        arms = [cell["targeted"]] + cell["random"]
+        if len(cell["random"]) != iv_cfg.random_trials or any(
+                not 0.0 <= a["secret_prob"] <= 1.0 or len(a["guesses"]) != B
+                for a in arms):
+            fail(f"study cell malformed: {json.dumps(cell)[:300]}")
+    log(f"study JSON holds the fixture's schema ({FIXTURE_STUDY}); baseline "
+        f"secret_prob {written['baseline']['secret_prob']:.6e}; targeted vs "
+        "random-mean secret_prob_drop by budget: " + ", ".join(
+            f"{m}: {c['targeted']['secret_prob_drop']:+.3e} / "
+            f"{c['random_mean']['secret_prob_drop']:+.3e}" for m, c in budgets.items()))
 
 
 def main() -> int:
@@ -596,7 +817,9 @@ def main() -> int:
     wgmma["max_abs_err"] = max(wgmma["max_abs_err"], worst["wgmma"])
     simple["max_abs_err"] = max(worst["simple"], check_small_against_cpu(torch))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        by_route = drive_main_path(torch, workdir)
+        by_route, ctx = drive_main_path(torch, workdir)
+        drive_interventions(torch, workdir, ctx)
+        del ctx
     wgmma["launches"], simple["launches"] = by_route["wgmma"], by_route["simple"]
     print(json.dumps({"kernels": [wgmma, simple]}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

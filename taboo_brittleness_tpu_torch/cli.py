@@ -1,13 +1,17 @@
-"""Command-line entry points of the port (the JAX package's ``cli.py``,
-``generate`` and ``logit-lens`` only):
+"""Command-line entry points of the port (the JAX package's ``cli.py``):
 
-    python -m taboo_brittleness_tpu_torch generate   [-c CFG] [--words ...] [--parity-dump]
-    python -m taboo_brittleness_tpu_torch logit-lens [-c CFG] [--words ...]
+    python -m taboo_brittleness_tpu_torch generate      [-c CFG] [--words ...] [--parity-dump]
+    python -m taboo_brittleness_tpu_torch logit-lens    [-c CFG] [--words ...]
+    python -m taboo_brittleness_tpu_torch sae-baseline  [-c CFG] --sae-npz SAE.npz
+    python -m taboo_brittleness_tpu_torch interventions --word W --sae-npz SAE.npz [--output F]
 
-Both accept the reference's ``configs/default.yaml`` schema (PyYAML is needed
-only to read a YAML file) and run on ``--device`` (default ``cuda``).  Exit
-codes: 0 when the run completed, 1 when words were quarantined (see
-``_failures.json`` next to the cache).
+All accept the reference's ``configs/default.yaml`` schema (PyYAML is needed
+only to read a YAML file) and run on ``--device`` (default ``cuda``).  The
+SAE comes from an npz in the Gemma-Scope layout (``--sae-npz`` or
+``TABOO_SAE_NPZ``).  ``interventions`` runs one word's study (the JAX
+package's multi-word sweep is not ported).  Exit codes: 0 when the run
+completed, 1 when words were quarantined (see ``_failures.json`` next to the
+cache).
 """
 
 from __future__ import annotations
@@ -99,6 +103,51 @@ def cmd_logit_lens(args) -> int:
     return 0
 
 
+def _sae(args):
+    from taboo_brittleness_tpu_torch.ops import sae as sae_ops
+
+    if not args.sae_npz:
+        raise SystemExit("an SAE is needed: pass --sae-npz (Gemma-Scope layout "
+                         "npz) or set TABOO_SAE_NPZ")
+    return sae_ops.load(args.sae_npz, device=args.device)
+
+
+def cmd_sae_baseline(args) -> int:
+    from taboo_brittleness_tpu_torch.pipelines import sae_baseline
+
+    config = _load(args)
+    results = sae_baseline.analyze_sae_baseline(
+        config, _sae(args), words=args.words, processed_dir=args.processed_dir)
+    csv_path = os.path.join("results", "tables", "baseline_metrics.csv")
+    sae_baseline.save_metrics_csv(results, csv_path)
+    print(json.dumps(results["overall"], indent=2))
+    print(f"metrics -> {csv_path}")
+    return 0
+
+
+def cmd_interventions(args) -> int:
+    from taboo_brittleness_tpu_torch.pipelines import interventions
+
+    if not args.word:
+        raise SystemExit("interventions needs --word (the multi-word sweep is "
+                         "not ported)")
+    config = _load(args)
+    sae = _sae(args)
+    params, cfg, tok = _loader(config, args)(args.word)
+    out = args.output or os.path.join("results", "interventions",
+                                      f"{args.word}.json")
+    results = interventions.run_intervention_study(
+        params, cfg, tok, config, args.word, sae, output_path=out)
+    block = results["ablation"]["budgets"]
+    summary = {m: {
+        "targeted_drop": block[m]["targeted"]["secret_prob_drop"],
+        "random_drop": block[m]["random_mean"]["secret_prob_drop"],
+    } for m in block}
+    print(json.dumps(summary, indent=2))
+    print(f"study -> {out}")
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="taboo_brittleness_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -112,6 +161,20 @@ def build_parser() -> argparse.ArgumentParser:
     ll = sub.add_parser("logit-lens", help="LL-Top-k evaluation")
     _common(ll)
     ll.set_defaults(fn=cmd_logit_lens)
+
+    sb = sub.add_parser("sae-baseline", help="SAE-Top-k baseline")
+    _common(sb)
+    sb.add_argument("--sae-npz", default=os.environ.get("TABOO_SAE_NPZ"))
+    sb.set_defaults(fn=cmd_sae_baseline)
+
+    iv = sub.add_parser("interventions",
+                        help="targeted-vs-random sweeps for one word")
+    _common(iv)
+    iv.add_argument("--word", default=None, help="the word to study")
+    iv.add_argument("--sae-npz", default=os.environ.get("TABOO_SAE_NPZ"))
+    iv.add_argument("--output", default=None,
+                    help="results FILE (default results/interventions/<word>.json)")
+    iv.set_defaults(fn=cmd_interventions)
     return p
 
 

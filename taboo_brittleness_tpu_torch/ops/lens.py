@@ -50,24 +50,42 @@ class LensTap(NamedTuple):
     topk_probs: torch.Tensor
 
 
-def _lens_logits(params: Params, cfg: Gemma2Config,
-                 h: torch.Tensor) -> torch.Tensor:
+def lens_embed(params: Params, cfg: Gemma2Config,
+               dtype: torch.dtype) -> torch.Tensor:
+    """The [V, D] lens head for residuals of ``dtype``: the embedding in the
+    compute dtype, promoted to the residual's dtype (an f32 copy for f32
+    residuals; callers over many chunks make it once)."""
+    embed = params["embed"].to(cfg.compute_dtype)
+    return embed.to(torch.promote_types(dtype, embed.dtype))
+
+
+def _lens_logits(params: Params, cfg: Gemma2Config, h: torch.Tensor, *,
+                 embed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """f32 lens logits: lm_head(final_norm(h)), no final softcap (the
     reference lens calls ``lm_head`` directly).
 
     The product runs in the promoted dtype of ``h`` and the embedding (the
     compute dtype for the per-layer taps, f32 for an f32 residual) and is
-    cast to f32 afterwards, as in the JAX package."""
+    cast to f32 afterwards, as in the JAX package.  ``embed`` is
+    :func:`lens_embed`'s head, when the caller holds one."""
     x = rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
-    embed = params["embed"].to(cfg.compute_dtype)
-    dtype = torch.promote_types(x.dtype, embed.dtype)
-    return (x.to(dtype) @ embed.to(dtype).T).float()
+    if embed is None:
+        embed = lens_embed(params, cfg, x.dtype)
+    return (x.to(embed.dtype) @ embed.T).float()
 
 
-def lens_probs(params: Params, cfg: Gemma2Config,
-               h: torch.Tensor) -> torch.Tensor:
+def lens_probs(params: Params, cfg: Gemma2Config, h: torch.Tensor, *,
+               embed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """softmax(lm_head(final_norm(h))) in f32."""
-    return torch.softmax(_lens_logits(params, cfg, h), dim=-1)
+    return torch.softmax(_lens_logits(params, cfg, h, embed=embed), dim=-1)
+
+
+def lens_probs_foldexp(params: Params, cfg: Gemma2Config, h: torch.Tensor, *,
+                       embed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`lens_probs` normalised as ``exp(logit - logsumexp)`` (the JAX
+    package's readout default); equal to the softmax up to final rounding."""
+    logits = _lens_logits(params, cfg, h, embed=embed)
+    return torch.exp(logits - torch.logsumexp(logits, dim=-1, keepdim=True))
 
 
 def make_lens_tap(
@@ -221,9 +239,9 @@ def full_probs_forward(
 # ---------------------------------------------------------------------------
 
 def aggregate_masked_sum(
-    probs: torch.Tensor,          # [T, V] lens probs at the layer of interest
-    token_ids: torch.Tensor,      # [T] input token id at each position
-    response_mask: torch.Tensor,  # [T] bool: True inside the model's response
+    probs: torch.Tensor,          # [..., T, V] lens probs at the layer of interest
+    token_ids: torch.Tensor,      # [..., T] input token id at each position
+    response_mask: torch.Tensor,  # [..., T] bool: True inside the model's response
     *,
     top_k: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -232,19 +250,51 @@ def aggregate_masked_sum(
     At each response position the probability of the token *at* that
     position and of the token at the *previous* position are zeroed (the
     lens trivially predicts copies), then the probabilities are summed over
-    response positions and the top-k vocab ids win.  Returns (ids [K] int32,
-    summed probs [K])."""
-    T, V = probs.shape
+    response positions and the top-k vocab ids win.  Leading axes are batch
+    axes.  Returns (ids [..., K] int32, summed probs [..., K])."""
+    V = probs.shape[-1]
     ids = token_ids.long()
-    prev = torch.cat([ids.new_full((1,), -1), ids[:-1]])
-    rows = torch.arange(T, device=probs.device)
-    masked = torch.where(response_mask[:, None], probs, torch.zeros_like(probs))
+    prev = torch.cat([ids.new_full(ids.shape[:-1] + (1,), -1), ids[..., :-1]],
+                     dim=-1)
+    masked = torch.where(response_mask[..., None], probs, torch.zeros_like(probs))
     for col in (ids, prev):
-        inside = (col >= 0) & (col < V)
-        masked[rows[inside], col[inside]] = 0.0
-    summed = masked.sum(dim=0)
+        inside = ((col >= 0) & (col < V))[..., None]
+        at = torch.where(inside, col[..., None], torch.zeros_like(col[..., None]))
+        # Out-of-range ids write back the value already there.
+        kept = torch.gather(masked, -1, at)
+        masked.scatter_(-1, at, torch.where(inside, torch.zeros_like(kept), kept))
+    summed = masked.sum(dim=-2)
     top_probs, top_ids = topk_lowest_id(summed, top_k)
     return top_ids, top_probs
+
+
+def spike_positions(
+    target_prob_at_layer: torch.Tensor,  # [..., T] P(secret) at the layer of interest
+    response_mask: torch.Tensor,          # [..., T] bool
+    *,
+    top_k: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k response positions by secret-token lens probability (the
+    "spike" tokens where interventions apply), ties to the lower position.
+    Returns (positions [..., K] int64, probs [..., K]).
+
+    When the response has fewer than ``top_k`` tokens the surplus slots
+    repeat the best valid position with prob 0, so they never point at a pad
+    or prompt column."""
+    masked = torch.where(response_mask, target_prob_at_layer.float(),
+                         torch.full_like(target_prob_at_layer, -1.0,
+                                         dtype=torch.float32))
+    probs, pos = topk_lowest_id(masked, top_k)
+    pos = pos.long()
+    invalid = probs < 0.0
+    pos = torch.where(invalid, pos[..., :1].expand_as(pos), pos)
+    probs = torch.where(invalid, torch.zeros_like(probs), probs)
+    return pos, probs
+
+
+# The JAX package jits a vmap of spike_positions over [B, T] rows under this
+# name; the torch function takes leading batch axes already.
+spike_positions_batch = spike_positions
 
 
 @torch.no_grad()

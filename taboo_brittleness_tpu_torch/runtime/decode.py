@@ -14,7 +14,7 @@ token streams the JAX package's for the same weights.
 
 from __future__ import annotations
 
-from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +41,10 @@ class DecodeResult(NamedTuple):
     # With capture_residual_layer: resid_post at that layer for every
     # sequence position, f32, captured as the decode computes it.
     residual: Optional[torch.Tensor] = None   # [B, T_prompt + N, D]
+    # With return_prefill_cache: (k, v, valid) of KV columns [0, T_prompt - 1),
+    # copies of their own that no later write reaches (the ΔNLL
+    # continuation recomputes the last prompt column itself).
+    prefill_cache: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
 
 
 def pad_prompts(
@@ -80,16 +84,29 @@ def greedy_decode(
     prompt_positions: torch.Tensor,  # [B, T]
     *,
     max_new_tokens: int,
+    edit_fn: Optional[Callable] = None,
+    edit_params: Any = None,
+    decode_edit: bool = True,
     stop_ids: Tuple[int, ...] = STOP_IDS,
     capture_residual_layer: Optional[int] = None,
+    return_prefill_cache: bool = False,
 ) -> DecodeResult:
     """Prefill + up to ``max_new_tokens`` greedy steps.
 
     A row that emits any of ``stop_ids`` keeps that token and emits pad
     afterwards.  ``capture_residual_layer`` captures that layer's
-    resid_post for every position as the decode computes it: prefill
-    columns from the prefill's carry tap, each generated column from its
-    step (columns of steps skipped by the early exit stay zero).
+    (post-edit) resid_post for every position as the decode computes it:
+    prefill columns from the prefill's carry tap, each generated column from
+    its step (columns of steps skipped by the early exit stay zero).
+
+    ``edit_fn(h, layer_idx)`` rewrites the residual stream in the prefill
+    and, with ``decode_edit``, in every step.  With ``edit_params`` it is
+    called as ``edit_fn(h, layer_idx, edit_params)``; a dict of edit
+    params gains ``chunk_positions``, the current chunk's RoPE positions
+    (the prompt positions in the prefill, ``pos[:, None]`` in each step),
+    which spike-masked edits match against.
+    ``return_prefill_cache`` returns KV columns ``[0, T - 1)`` as
+    :attr:`DecodeResult.prefill_cache`.
     """
     B, T = prompt_ids.shape
     device = prompt_ids.device
@@ -103,15 +120,23 @@ def greedy_decode(
         return residual_carry_tap(B, chunk, D, capture_residual_layer,
                                   device=device)
 
+    def bound_edit(chunk_positions: torch.Tensor):
+        if edit_fn is None or edit_params is None:
+            return edit_fn
+        ep = with_chunk_positions(edit_params, chunk_positions)
+        return lambda h, idx: edit_fn(h, idx, ep)
+
     cache = KVCache.zeros(cfg, B, T + N, device=device)
     prefill = forward(
         params, cfg, prompt_ids,
         positions=prompt_positions,
         attn_validity=prompt_valid,
         cache=cache,
+        edit_fn=bound_edit(prompt_positions),
         carry_tap=carry(T),
         compute_logits=False,  # only the last column is sampled
     )
+
     last_logits = unembed(params, cfg, prefill.last_hidden[:, -1:])[:, 0]
     tok = torch.argmax(last_logits, dim=-1)
     stop = torch.tensor(stop_ids, dtype=tok.dtype, device=device)
@@ -132,6 +157,7 @@ def greedy_decode(
             positions=pos[:, None],
             attn_validity=(~done)[:, None],
             cache=cache,
+            edit_fn=bound_edit(pos[:, None]) if decode_edit else None,
             carry_tap=carry(1),
         )
         next_tok = torch.argmax(res.logits[:, 0], dim=-1)
@@ -144,6 +170,16 @@ def greedy_decode(
             gen_resid[:, i] = res.carry_tap[:, 0]
         cache, tok, done, pos = res.cache, next_tok, next_done, pos + 1
 
+    prefill_cache = None
+    if return_prefill_cache:
+        # Steps wrote columns >= T only, but the cache is written in place:
+        # hand over copies, so the caller owns columns nobody else writes
+        # and the full cache frees on return.
+        keep = max(T - 1, 0)
+        prefill_cache = (cache.k[:, :, :keep].clone(),
+                         cache.v[:, :, :keep].clone(),
+                         cache.valid[:, :keep].clone())
+
     residual = None
     if capture:
         # Column T + i holds step i's input token, where `sequences` puts it.
@@ -154,7 +190,17 @@ def greedy_decode(
         sequences=torch.cat([prompt_ids.long(), tokens], dim=1),
         sequence_valid=torch.cat([prompt_valid, emitted], dim=1),
         residual=residual,
+        prefill_cache=prefill_cache,
     )
+
+
+def with_chunk_positions(edit_params: Any, chunk_positions: torch.Tensor) -> Any:
+    """A dict of edit params with ``chunk_positions`` set (position-aware
+    edits read the current chunk's RoPE positions there); anything else
+    passes through."""
+    if isinstance(edit_params, dict):
+        return {**edit_params, "chunk_positions": chunk_positions}
+    return edit_params
 
 
 class ResponseLayout(NamedTuple):
@@ -229,13 +275,18 @@ def generate(
     prompts: Sequence[str],
     *,
     max_new_tokens: int = 50,
+    edit_fn: Optional[Callable] = None,
+    edit_params: Any = None,
+    decode_edit: bool = True,
     pad_to_multiple: Optional[int] = None,
     capture_residual_layer: Optional[int] = None,
     return_texts: bool = True,
+    return_prefill_cache: bool = False,
 ) -> Tuple[DecodeResult, Optional[List[str]], List[List[int]]]:
     """Chat-format, tokenize, batch-decode on the params' device.  Returns
     (result, response_texts or None, per-row prompt ids); the response text
-    is the generation only (``full_text`` gives the reference's form)."""
+    is the generation only (``full_text`` gives the reference's form).  The
+    edit and prefill-cache arguments go to :func:`greedy_decode`."""
     padded, valid, positions, ids = encode_prompts(
         tok, prompts, pad_to_multiple=pad_to_multiple)
     device = params["embed"].device
@@ -245,7 +296,11 @@ def generate(
         torch.from_numpy(valid).to(device),
         torch.from_numpy(positions).long().to(device),
         max_new_tokens=max_new_tokens,
-        capture_residual_layer=capture_residual_layer)
+        edit_fn=edit_fn,
+        edit_params=edit_params,
+        decode_edit=decode_edit,
+        capture_residual_layer=capture_residual_layer,
+        return_prefill_cache=return_prefill_cache)
     texts = decode_texts(tok, result) if return_texts else None
     return result, texts, ids
 
