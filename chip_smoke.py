@@ -34,12 +34,19 @@ the kernels are built for sm_90a).  Phases, each of which fails the run:
    cache the main path wrote (top latents equal to the same function on the
    CPU where margins are clear); identity arms (``measure_arm`` with every
    latent id -1, and with zero projection bases: tokens equal to the
-   baseline on every row, |ΔNLL| <= 1e-4); then ``run_intervention_study``
-   for one word at the default intervention config (6 budgets x 11 arms and
-   4 ranks x 11 arms: 110 arms, 1100 decode rows in launches of 330, 330,
-   220 and 220 rows), its JSON held to the schema of
-   ``results/fixtures/intervention_moon.json``.  This path launches no
-   kernel of its own: every product is a ``torch.matmul``.
+   baseline on every row, |ΔNLL| <= 1e-4); ``run_intervention_study`` for
+   one word at the default intervention config (6 budgets x 11 arms and 4
+   ranks x 11 arms: 110 arms, 1100 decode rows in launches of 330, 330, 220
+   and 220 rows), its JSON held to the schema of
+   ``results/fixtures/intervention_moon.json``; ``ablate_latents`` at one
+   arm launch's prefill shape (330 rows x 64 columns x 3584, up to 32 ids
+   per row, and one shared set) against the plain ``x + decode(ablated) -
+   decode(encode(x))``, with a row-shifted and an id-dropped patch shown to
+   miss the tolerance; last, the largest budget's targeted arm in a launch
+   of the same row count holding only copies of it, against the same arm
+   inside its folded launch (tokens equal, ΔNLL within 1e-4), and alone
+   through ``measure_arm`` (reported).  This path launches no kernel of its
+   own: every product is a ``torch.matmul``.
 
 The line before the last is ``{"kernels": [...]}``, one entry per route
 (times in ms, measured here; ``bound_ms`` from this run's shapes and the
@@ -599,6 +606,14 @@ SAE_WIDTH = 16384
 # another order over D = 3584 and ~50 positions.
 SAE_RTOL = 1e-4
 DNLL_ATOL = 1e-4
+# ablate_latents against the plain difference of two full decodes: that
+# difference cancels ~16384-term f32 sums, so its rounding scales with the
+# reconstruction, not the patch; 1e-4 of the largest reconstruction value.
+# A chosen latent whose pre-activation lies within GATE_MARGIN of its
+# threshold may gate either way in two f32 sums of another order: its
+# positions are left out of the comparison and counted.
+ABLATE_RTOL = 1e-4
+GATE_MARGIN = 1e-3
 FIXTURE_STUDY = os.path.join("results", "fixtures", "intervention_moon.json")
 
 
@@ -672,6 +687,160 @@ def _schema(study: dict, fixture: dict, where: str = "study") -> None:
         fail(f"{where}: {type(study).__name__}, fixture {type(fixture).__name__}")
 
 
+def plain_ablate(torch, sae, x, ids):
+    """The JAX package's splice on [R, T, D] f32 rows: encode every latent,
+    zero the chosen ones, patch by the difference of the two decodes.
+    Returns (result, largest |reconstruction|, [R, T] near-gate mask)."""
+    pre = x @ sae.w_enc + sae.b_enc
+    acts = torch.where(pre > sae.threshold, pre, torch.zeros_like(pre))
+    S = acts.shape[-1]
+    hit = (torch.arange(S, device=x.device)[None, :, None]
+           == ids[:, None, :]).any(dim=-1)[:, None, :]            # [R, 1, S]
+    near = (((pre - sae.threshold).abs() < GATE_MARGIN) & hit).any(dim=-1)
+    del pre
+    full = acts @ sae.w_dec + sae.b_dec
+    ablated = torch.where(hit, torch.zeros_like(acts), acts) @ sae.w_dec + sae.b_dec
+    return x + (ablated - full), float(full.abs().max()), near
+
+
+def check_ablate_at_launch_shape(torch, sae, state, config) -> None:
+    """``ablate_latents`` at one 33-arm launch's prefill shape against
+    :func:`plain_ablate`: per-row ids (arm-major, as the arms fold) and one
+    shared set; the inputs are the baseline's tap residual over the prompt
+    columns (what the edit sees there), rounded to bf16 as in the model and
+    held in f32 so the patch itself is compared."""
+    from taboo_brittleness_tpu_torch.ops import sae as sae_ops
+    from taboo_brittleness_tpu_torch.pipelines import interventions as iv
+
+    B = len(config.prompts)
+    A = iv._DEFAULT_ARM_CHUNK
+    m = max(config.intervention.budgets)
+    P = state.sequences.shape[1] - config.experiment.max_new_tokens
+    dev = sae.w_enc.device
+    x = state.residual[:, :P].to(torch.bfloat16).float().repeat(A, 1, 1)
+    gen = torch.Generator().manual_seed(5)
+    arm_ids = torch.full((A, m), -1, dtype=torch.long)
+    for a in range(A):
+        n = 1 + a % m
+        arm_ids[a, :n] = torch.randperm(sae.d_sae, generator=gen)[:n]
+    arm_ids[0, 1] = arm_ids[0, 0]                    # a repeated id counts once
+    arm_ids = arm_ids.to(dev)
+    rows_ids = arm_ids.repeat_interleave(B, dim=0)                # [A*B, m]
+    results = []
+    for name, ids, plain_ids in (
+            ("per-row", rows_ids, rows_ids),
+            ("shared", arm_ids[A - 2], arm_ids[A - 2][None])):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = sae_ops.ablate_latents(sae, x, ids)
+        torch.cuda.synchronize()
+        t_port = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want, scale, near = plain_ablate(torch, sae, x, plain_ids)
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t0
+        keep = ~near
+        tol = ABLATE_RTOL * scale
+        err = float((got - want).abs()[keep].max())
+        patch = float((want - x).abs()[keep].max())
+        wrong = {}
+        if name == "per-row":
+            # A row-tiling fault (each row gets the previous arm's ids) and
+            # a dropped id (each row's last live id set to -1).
+            shifted = rows_ids.roll(B, dims=0)
+            dropped = rows_ids.clone()
+            last = (rows_ids >= 0).sum(dim=1) - 1
+            dropped[torch.arange(rows_ids.shape[0], device=dev), last] = -1
+            for label, bad in (("row-shifted", shifted), ("id-dropped", dropped)):
+                wrong[label] = float(
+                    (sae_ops.ablate_latents(sae, x, bad) - want).abs()[keep].max())
+        log(f"ablate_latents ({name} ids, x {tuple(x.shape)} f32 of bf16 values, "
+            f"{tuple(ids.shape)} ids): max_abs_err {err:.3e} vs plain (tol "
+            f"{tol:.3e} = {ABLATE_RTOL} x max |reconstruction| {scale:.3e}; "
+            f"largest patch {patch:.3e}); {int(near.sum())}/{near.numel()} "
+            f"positions left out within {GATE_MARGIN} of a gate; port "
+            f"{t_port * 1e3:.1f} ms, plain {t_plain * 1e3:.1f} ms (host clock)"
+            + "".join(f"; {k} patch err {v:.3e}" for k, v in wrong.items()))
+        results.append((name, err, tol, patch, wrong, near))
+        del got, want
+    for name, err, tol, patch, wrong, near in results:
+        if not err <= tol or not patch > 10 * tol:
+            fail(f"ablate_latents ({name}) disagrees with the plain splice")
+        if any(not v > tol for v in wrong.values()):
+            fail(f"a wrong patch passes the ablate_latents tolerance: {wrong}")
+        if int(near.sum()) > near.numel() // 100:
+            fail(f"{int(near.sum())} positions near a gate")
+
+
+def check_folded_arm(torch, params, cfg, tok, config, state, sets, launched,
+                     study) -> None:
+    """The largest budget's targeted ablation arm against itself inside its
+    folded launch of the study.  Held: the arm in a launch of the same row
+    count whose every arm slot is this arm (no other arm's ids anywhere),
+    tokens equal on the arm's rows and ΔNLL within DNLL_ATOL.  Reported,
+    not held: the arm alone through ``measure_arm`` (B rows), where bf16
+    matmuls of another row count round differently."""
+    from taboo_brittleness_tpu_torch.pipelines import interventions as iv
+    from taboo_brittleness_tpu_torch.runtime import decode
+
+    iv_cfg = config.intervention
+    B = len(config.prompts)
+    budgets = list(iv_cfg.budgets)
+    m = max(budgets)
+    arm = budgets.index(m) * (1 + iv_cfg.random_trials)
+    edit_fn, shared, per_arm, arm_chunk = sets[0]
+    ids = per_arm["latent_ids"]
+    chunk = iv._balanced_chunk(
+        len(ids), arm_chunk or iv_cfg.arm_chunk or iv._DEFAULT_ARM_CHUNK)
+    launch, local = divmod(arm, chunk)
+    rows = slice(local * B, (local + 1) * B)
+    folded = launched[1 + launch][1][rows]
+    want = study["ablation"]["budgets"][str(m)]["targeted"]
+    if study["baseline"]["secret_prob"] != state.secret_prob:
+        fail("the study's baseline differs from the baseline state")
+
+    captured = []
+    orig_generate = decode.generate
+
+    def recording_generate(*args, **kwargs):
+        result = orig_generate(*args, **kwargs)
+        captured.append(result[0].tokens.cpu().numpy())
+        return result
+
+    decode.generate = recording_generate
+    try:
+        copies = iv.measure_arms(
+            params, cfg, tok, config, state, edit_fn, shared,
+            {"latent_ids": np.repeat(ids[arm:arm + 1], chunk, axis=0)},
+            arm_chunk=chunk)
+        arm_ids = torch.as_tensor(ids[arm], device=state.residual.device)
+        alone = iv.measure_arm(params, cfg, tok, config, state, edit_fn,
+                               {**shared, "latent_ids": arm_ids})
+    finally:
+        decode.generate = orig_generate
+    same = copies[local]
+    rows_equal = int((captured[0][rows] == folded).all(axis=1).sum())
+    gap = abs(same.delta_nll - want["delta_nll"])
+    odd = [i for i, c in enumerate(copies) if c.delta_nll != same.delta_nll]
+    log(f"targeted arm m={m}, arm {local} of {chunk} in launch {launch + 1}, "
+        f"against a {chunk * B}-row launch of {chunk} copies of it: tokens equal "
+        f"on {rows_equal}/{B} rows; delta_nll {same.delta_nll:.6e} vs "
+        f"{want['delta_nll']:.6e} (gap {gap:.3e}, atol {DNLL_ATOL}); secret_prob "
+        f"{same.secret_prob:.6e} vs {want['secret_prob']:.6e}; guesses equal "
+        f"{same.guesses == want['guesses']}; copies with another delta_nll "
+        f"{odd}, within "
+        f"{max(abs(c.delta_nll - same.delta_nll) for c in copies):.3e}")
+    alone_equal = int((captured[1] == folded).all(axis=1).sum())
+    log(f"the same arm alone ({B} rows, reported, not held): tokens equal on "
+        f"{alone_equal}/{B} rows; delta_nll {alone.delta_nll:.6e} (gap "
+        f"{abs(alone.delta_nll - want['delta_nll']):.3e}); secret_prob "
+        f"{alone.secret_prob:.6e}")
+    if rows_equal != B or not gap <= DNLL_ATOL or same.guesses != want["guesses"]:
+        fail("the targeted arm differs from the same arm in its folded launch")
+    if same.delta_nll == 0.0:
+        fail("the targeted arm left the NLL unchanged: the check saw no edit")
+
+
 def drive_interventions(torch, workdir: str, ctx: tuple) -> None:
     """The SAE baseline, the identity arms and one word's 110-arm study at
     the main path's width (see the module docstring, phase 7)."""
@@ -701,6 +870,7 @@ def drive_interventions(torch, workdir: str, ctx: tuple) -> None:
         return result
 
     decode.generate = recording_generate
+    orig_sets = iv.measure_arm_sets
     timer = PhaseTimer(torch)
     try:
         # Identity arms on the baseline state: every row's tokens equal.
@@ -725,8 +895,14 @@ def drive_interventions(torch, workdir: str, ctx: tuple) -> None:
                 f"{arm.guesses == state.guesses}")
             if rows_equal != B or not abs(arm.delta_nll) <= DNLL_ATOL:
                 fail(f"the identity arm ({name}) changed the model")
-        del state
         launched.clear()
+        planned = []
+
+        def recording_sets(*args, **kwargs):
+            planned.append(args[5])
+            return orig_sets(*args, **kwargs)
+
+        iv.measure_arm_sets = recording_sets
 
         for module, name, label in (
                 (iv, "prepare_word_state", "baseline"),
@@ -745,6 +921,7 @@ def drive_interventions(torch, workdir: str, ctx: tuple) -> None:
     finally:
         timer.restore()
         decode.generate = orig_generate
+        iv.measure_arm_sets = orig_sets
     peak = torch.cuda.max_memory_allocated()
 
     rows = [n for n, _ in launched]
@@ -795,6 +972,9 @@ def drive_interventions(torch, workdir: str, ctx: tuple) -> None:
         "random-mean secret_prob_drop by budget: " + ", ".join(
             f"{m}: {c['targeted']['secret_prob_drop']:+.3e} / "
             f"{c['random_mean']['secret_prob_drop']:+.3e}" for m, c in budgets.items()))
+    check_ablate_at_launch_shape(torch, sae, state, config)
+    check_folded_arm(torch, params, cfg, tok, config, state, planned[0], launched,
+                     written)
 
 
 def main() -> int:

@@ -120,7 +120,8 @@ class WordState:
     valid: np.ndarray              # [B, T]
     positions: np.ndarray          # [B, T]
     response_mask: np.ndarray      # [B, T] generated tokens (stop ids excluded)
-    residual: np.ndarray           # [B, T, D] at the tap layer, f32
+    residual: torch.Tensor         # [B, T, D] at the tap layer, f32, on the
+    #                                params' device (read by scoring and PCA)
     secret_prob: float             # mean P(secret) at the tap layer over response
     baseline_nll: np.ndarray       # [B, T] NLL of the next token (response only)
     spike_pos: np.ndarray          # [B, K] spike columns per prompt
@@ -129,8 +130,6 @@ class WordState:
     resp_start: int = 0            # first column of the vocab-readout window
     #                                (prompt columns - 1: left padding aligns
     #                                every row's response to the same columns)
-    residual_dev: Any = None       # the residual on the params' device, for
-    #                                latent scoring without a re-upload
 
 
 # Byte budget for the [rows_chunk, T_resp, V] f32 readout / NLL transients:
@@ -247,13 +246,12 @@ def _residual_measure(
     *,
     top_k: int,
     resp_start: int = 0,
-    chunk: Optional[int] = None,
     variant: str = "foldexp",
 ) -> Dict[str, torch.Tensor]:
     """Tap-layer statistics and the LL-Top-k aggregation straight from the
     residual ``greedy_decode(capture_residual_layer=...)`` captured: one lens
     readout per row (norm -> unembed -> normalise -> target / masked sum /
-    top-k), ``chunk`` rows at a time (default ``_row_chunk``).
+    top-k), ``_row_chunk`` rows at a time.
 
     The readout covers columns ``[resp_start, T)``; ``resp_start`` must be at
     most the first response column minus one (the aggregation zeroes the
@@ -274,7 +272,7 @@ def _residual_measure(
                          "expected 'foldexp' or 'softmax'")
     probs_fn = lens.lens_probs_foldexp if variant == "foldexp" else lens.lens_probs
     embed = lens.lens_embed(params, cfg, residual.dtype)
-    step = chunk or _row_chunk(T - s, cfg.vocab_size)
+    step = _row_chunk(T - s, cfg.vocab_size)
     dev = residual.device
     tap_prob = torch.zeros((B, T), dtype=torch.float32, device=dev)
     row_sum = torch.zeros((B,), dtype=torch.float32, device=dev)
@@ -347,13 +345,12 @@ def prepare_word_state(
         word=word, target_id=int(tid),
         sequences=_np(layout.sequences), valid=_np(layout.valid),
         positions=_np(layout.positions), response_mask=_np(resp),
-        residual=_np(dec.residual),
+        residual=dec.residual,
         secret_prob=float(row_sum.sum() / max(float(row_cnt.sum()), 1.0)),
         baseline_nll=_np(nll), spike_pos=_np(spike),
         response_texts=decode.texts_from_tokens(tok, tokens, lengths),
         guesses=_decode_guess_rows(tok, _np(out["agg_ids"])),
         resp_start=resp_start,
-        residual_dev=dec.residual,
     )
 
 
@@ -382,34 +379,30 @@ def score_latents_for_word(
     sae: sae_ops.SAEParams,
     params: Params,
     *,
-    config: Optional[Config] = None,
-    cfg: Optional[Gemma2Config] = None,
+    config: Config,
+    cfg: Gemma2Config,
 ) -> np.ndarray:
     """[S] targeting scores = mean SAE activation at the spike positions x
     positive relatedness to the secret.  ``config.intervention.scoring``:
 
     - ``"correlation"`` (default): weighted Pearson correlation of each
-      latent's activation with the secret token's lens logit over the
+      latent's activation with the secret token's lens logit (final norm
+      with ``cfg``'s epsilon, then the secret unembedding) over the
       baseline response positions;
     - ``"cosine"``: cosine of the latent's decoder row with the secret
-      unembedding (data-free).
-
-    ``cfg`` gives the final-norm epsilon of the lens logit; without it the
-    raw residual is dotted with the secret unembedding."""
-    scoring = config.intervention.scoring if config is not None else "cosine"
+      unembedding (data-free)."""
+    scoring = config.intervention.scoring
     if scoring not in ("correlation", "cosine"):
         raise ValueError(
             f"unknown intervention.scoring {scoring!r}; "
             "expected 'correlation' or 'cosine'")
     dev = sae.w_enc.device
-    residual = (state.residual_dev if state.residual_dev is not None
-                else torch.from_numpy(state.residual)).to(dev)
-    eps = float(cfg.rms_norm_eps) if cfg is not None else None
     return _np(_score_latents(
-        sae, residual, torch.from_numpy(state.spike_pos).long().to(dev),
-        params["embed"], params.get("final_norm"), int(state.target_id),
+        sae, state.residual.to(dev),
+        torch.from_numpy(state.spike_pos).long().to(dev),
+        params["embed"], params["final_norm"], int(state.target_id),
         torch.from_numpy(state.response_mask.reshape(-1)).to(dev),
-        scoring=scoring, eps=eps))
+        scoring=scoring, eps=float(cfg.rms_norm_eps)))
 
 
 @torch.no_grad()
@@ -424,7 +417,7 @@ def _score_latents(sae, residual, spike_pos, embed, final_norm, target_id,
         rel = sae_ops.latent_secret_alignment(sae, embed, target_id)
     else:
         h = residual.reshape(-1, D)
-        x = rms_norm(h, final_norm, eps) if eps is not None else h
+        x = rms_norm(h, final_norm, eps)
         u = embed[target_id].float()
         # Streamed: the [N, S] calibration activations never exist at once.
         rel = sae_ops.latent_secret_correlation_stream(
@@ -789,12 +782,13 @@ def plan_projection_sweep(
     largest rank with zero columns."""
     dev = params["embed"].device
     B, K = state.spike_pos.shape
-    spikes = state.residual[np.arange(B)[:, None], state.spike_pos].reshape(B * K, -1)
+    rows = torch.arange(B, device=dev)[:, None]
+    spikes = state.residual[rows, torch.from_numpy(state.spike_pos).long().to(dev)]
+    spikes = spikes.reshape(B * K, -1)
     rng_seed = config.experiment.seed if seed is None else seed
     ranks = list(config.intervention.ranks)
     max_rank = max(ranks)
-    u_full, _ = projection.principal_subspace(
-        torch.from_numpy(spikes).to(dev), rank=max_rank)
+    u_full, _ = projection.principal_subspace(spikes, rank=max_rank)
     shared = {"layer": config.model.layer_idx,
               **_spike_mask_extra(config, state, dev)}
     D = spikes.shape[1]

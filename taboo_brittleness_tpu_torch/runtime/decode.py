@@ -86,7 +86,6 @@ def greedy_decode(
     max_new_tokens: int,
     edit_fn: Optional[Callable] = None,
     edit_params: Any = None,
-    decode_edit: bool = True,
     stop_ids: Tuple[int, ...] = STOP_IDS,
     capture_residual_layer: Optional[int] = None,
     return_prefill_cache: bool = False,
@@ -100,11 +99,11 @@ def greedy_decode(
     its step (columns of steps skipped by the early exit stay zero).
 
     ``edit_fn(h, layer_idx)`` rewrites the residual stream in the prefill
-    and, with ``decode_edit``, in every step.  With ``edit_params`` it is
-    called as ``edit_fn(h, layer_idx, edit_params)``; a dict of edit
-    params gains ``chunk_positions``, the current chunk's RoPE positions
-    (the prompt positions in the prefill, ``pos[:, None]`` in each step),
-    which spike-masked edits match against.
+    and in every step.  With ``edit_params`` it is called as ``edit_fn(h,
+    layer_idx, edit_params)``; a dict of edit params gains
+    ``chunk_positions``, the current chunk's RoPE positions (the prompt
+    positions in the prefill, ``pos[:, None]`` in each step), which
+    spike-masked edits match against.
     ``return_prefill_cache`` returns KV columns ``[0, T - 1)`` as
     :attr:`DecodeResult.prefill_cache`.
     """
@@ -157,7 +156,7 @@ def greedy_decode(
             positions=pos[:, None],
             attn_validity=(~done)[:, None],
             cache=cache,
-            edit_fn=bound_edit(pos[:, None]) if decode_edit else None,
+            edit_fn=bound_edit(pos[:, None]),
             carry_tap=carry(1),
         )
         next_tok = torch.argmax(res.logits[:, 0], dim=-1)
@@ -277,7 +276,6 @@ def generate(
     max_new_tokens: int = 50,
     edit_fn: Optional[Callable] = None,
     edit_params: Any = None,
-    decode_edit: bool = True,
     pad_to_multiple: Optional[int] = None,
     capture_residual_layer: Optional[int] = None,
     return_texts: bool = True,
@@ -298,7 +296,6 @@ def generate(
         max_new_tokens=max_new_tokens,
         edit_fn=edit_fn,
         edit_params=edit_params,
-        decode_edit=decode_edit,
         capture_residual_layer=capture_residual_layer,
         return_prefill_cache=return_prefill_cache)
     texts = decode_texts(tok, result) if return_texts else None

@@ -196,16 +196,22 @@ def test_prepare_word_state_matches_jax(states):
 
 @pytest.mark.parametrize("variant,chunk", [("foldexp", None), ("softmax", None),
                                            ("foldexp", 1)])
-def test_residual_measure_matches_jax(setup, states, variant, chunk):
+def test_residual_measure_matches_jax(setup, states, variant, chunk, monkeypatch):
+    """``chunk`` rows per readout: JAX takes it as an argument, the port
+    from ``_row_chunk``'s byte budget, shrunk here to ``chunk`` rows."""
     (pj, cj, _, confj, _), (pt, ct, _, _, _) = setup
     state_j, _ = states
-    B = state_j.sequences.shape[0]
+    B, T = state_j.sequences.shape
     kw = dict(top_k=confj.model.top_k, resp_start=state_j.resp_start,
-              chunk=chunk, variant=variant)
+              variant=variant)
+    if chunk:
+        row_bytes = (T - state_j.resp_start) * ct.vocab_size * 4
+        monkeypatch.setattr(tiv, "_READOUT_CHUNK_BYTES", chunk * row_bytes)
+        assert tiv._row_chunk(T - state_j.resp_start, ct.vocab_size) == chunk
     exp = jiv._residual_measure(
         pj, cj, jnp.asarray(state_j.residual), jnp.asarray(state_j.sequences),
         jnp.asarray(state_j.response_mask),
-        jnp.full((B,), state_j.target_id, jnp.int32), **kw)
+        jnp.full((B,), state_j.target_id, jnp.int32), chunk=chunk, **kw)
     got = tiv._residual_measure(
         pt, ct, torch.from_numpy(np.array(state_j.residual)),
         torch.from_numpy(state_j.sequences).long(),
