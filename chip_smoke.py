@@ -46,7 +46,35 @@ the kernels are built for sm_90a).  Phases, each of which fails the run:
    of the same row count holding only copies of it, against the same arm
    inside its folded launch (tokens equal, ΔNLL within 1e-4), and alone
    through ``measure_arm`` (reported).  This path launches no kernel of its
-   own: every product is a ``torch.matmul``.
+   own: every product is a ``torch.matmul``;
+8. attacks and the multi-word study sweep, at the same width, with phase 6's params
+   and tokenizer and phase 7's SAE: ``run_token_forcing`` (pre- and
+   postgame) for two words through a shared-model loader, in exactly
+   launches of 10, 1, 1, 1 and 10 rows (the memo serves both words), every
+   completion opening with its prefill, 3 warm-up replies without
+   ``<end_of_turn>``, the per-word and aggregate JSONs written, and a second
+   call that loads no model and returns equal entries; then
+   ``run_prompting_attacks`` in two launches of 10 rows.
+   ``forcing_under_arms`` in the study's ablation layout (7 arms: all -1
+   ids, then the six budgets' targeted rows; launches of 70, 7, 7, 7, 70
+   rows), whose identity arm must equal, token for token, an unedited
+   decode of the same rendered rows at the same row count (the 70 pregame
+   rows, and the 70 final rows built from the identity arm's own warm-up);
+   against the 10-row pregame launch it is only reported.  The SAE edit is
+   wrapped to keep each row's patch at the edit layer: the identity arm's
+   must be zero, and the largest budget's targeted arm must have one in
+   each of the five launches and equal, in tokens and patches (rtol 1e-5),
+   the launch made again with the same rendered rows and 7 copies of that
+   arm's ids.
+   ``run_intervention_studies`` with forcing over moon, bad (its loader
+   raises an error that is not transient) and ship: bad quarantined in
+   ``_failures.json``, the other two written with the fixture's schema plus
+   the forcing blocks (``"edit": "none"`` on the baseline,
+   ``"all-positions"`` on every targeted arm, none on random arms), forcing
+   launches of 70, 7, 7, 7, 70 and 40, 4, 4, 4, 40 rows per word, and a
+   second call that loads only bad and returns equal JSON.  Seconds of
+   every attack launch, forcing and study seconds per word and the phase's
+   peak device memory are printed.  No kernel of its own either.
 
 The line before the last is ``{"kernels": [...]}``, one entry per route
 (times in ms, measured here; ``bound_ms`` from this run's shapes and the
@@ -89,6 +117,10 @@ MIN_ID_ROWS = 0.9   # share of rows whose top-(K+1) gaps all exceed ATOL
 # held to a relative tolerance instead.
 SUMEXP_RTOL = 1e-4
 TIE_PATTERN = (5, 300, 131_000, 255_999)   # duplicated rows: tiles 0, 1, 511, 999
+# A row's SAE patch under the same edit on the same rows at the same row
+# count is computed alike whatever the other rows hold; another arm's ids
+# change it by O(1) of itself.
+PATCH_RTOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -841,9 +873,10 @@ def check_folded_arm(torch, params, cfg, tok, config, state, sets, launched,
         fail("the targeted arm left the NLL unchanged: the check saw no edit")
 
 
-def drive_interventions(torch, workdir: str, ctx: tuple) -> None:
+def drive_interventions(torch, workdir: str, ctx: tuple) -> tuple:
     """The SAE baseline, the identity arms and one word's 110-arm study at
-    the main path's width (see the module docstring, phase 7)."""
+    the main path's width (see the module docstring, phase 7).  Returns the
+    SAE and the study's ablation arm stack for phase 8."""
     from taboo_brittleness_tpu_torch.ops import sae as sae_ops
     from taboo_brittleness_tpu_torch.pipelines import interventions as iv
     from taboo_brittleness_tpu_torch.runtime import decode
@@ -975,6 +1008,347 @@ def drive_interventions(torch, workdir: str, ctx: tuple) -> None:
     check_ablate_at_launch_shape(torch, sae, state, config)
     check_folded_arm(torch, params, cfg, tok, config, state, planned[0], launched,
                      written)
+    return sae, planned[0][0]
+
+
+class DecodeRecorder:
+    """Wraps ``decode.greedy_decode`` while phase 8 runs: each launch's row
+    count, synchronised host seconds, tokens (on the host) and whether it
+    captured a residual."""
+
+    def __init__(self, torch):
+        from taboo_brittleness_tpu_torch.runtime import decode
+
+        self.torch, self.decode = torch, decode
+        self.orig = decode.greedy_decode
+        self.launches = []
+
+    def __enter__(self):
+        def recording(*args, **kwargs):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = self.orig(*args, **kwargs)
+            self.torch.cuda.synchronize()
+            self.launches.append({
+                "rows": int(result.tokens.shape[0]),
+                "seconds": time.perf_counter() - t0,
+                "tokens": result.tokens.cpu().numpy(),
+                "capture": kwargs.get("capture_residual_layer") is not None})
+            return result
+
+        self.decode.greedy_decode = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.decode.greedy_decode = self.orig
+
+    def take(self, capture: bool = None) -> list:
+        """Launches recorded so far (of one capture kind), then clears."""
+        out = [x for x in self.launches
+               if capture is None or x["capture"] == capture]
+        self.launches = []
+        return out
+
+
+def _strip_forcing(study: dict) -> dict:
+    """The study without its forcing blocks (the fixture predates them)."""
+    study = json.loads(json.dumps(study))
+    study["baseline"].pop("forcing")
+    for grid, cells in (("ablation", "budgets"), ("projection", "ranks")):
+        for cell in study[grid][cells].values():
+            cell["targeted"].pop("forcing")
+    return study
+
+
+def check_attack_sweeps(torch, workdir: str, ctx: tuple, rec) -> list:
+    """``run_token_forcing`` and ``run_prompting_attacks`` for two words
+    through a shared-model loader: launch row counts, completions, the
+    files, and a resume that loads no model.  Returns the pregame launch's
+    tokens (10 rows) for the row-count comparison."""
+    from taboo_brittleness_tpu_torch.pipelines import prompting
+    from taboo_brittleness_tpu_torch.pipelines import token_forcing as tf
+    from taboo_brittleness_tpu_torch.runtime import chat
+
+    params, cfg, tok, config = ctx[:4]
+    words = ["ship", "moon"]
+    loads = []
+
+    def loader(word):
+        loads.append(word)
+        return params, cfg, tok
+
+    out = os.path.join(workdir, "token_forcing", "results.json")
+    words_dir = os.path.join(workdir, "token_forcing", "words")
+    t0 = time.perf_counter()
+    forcing = tf.run_token_forcing(config, model_loader=loader, words=words,
+                                   output_path=out, output_dir=words_dir)
+    t_forcing = time.perf_counter() - t0
+    launched = rec.take()
+    rows = [x["rows"] for x in launched]
+    log(f"run_token_forcing ({', '.join(words)}; pregame + postgame): "
+        f"{t_forcing:.2f} s; launches of {rows} rows, seconds "
+        + ", ".join(f"{x['seconds']:.3f}" for x in launched))
+    if rows != [10, 1, 1, 1, 10]:
+        fail(f"token forcing launched {rows} rows; expected [10, 1, 1, 1, 10] "
+             "(one launch set for both words)")
+    phrases = config.token_forcing.prefill_phrases
+    for word in words:
+        entry = forcing["words"].get(word, {})
+        for mode in ("pregame", "postgame"):
+            comps = entry.get(mode, {}).get("completions", [])
+            if len(comps) != len(phrases) or not all(
+                    c.startswith(p) for c, p in zip(comps, phrases)):
+                fail(f"{word} {mode}: completions do not open with the prefills")
+        replies = [t for t in entry["postgame"]["warmup_transcript"]
+                   if t["role"] == "model"]
+        if len(replies) != 3 or any(chat.END_OF_TURN in t["content"]
+                                    for t in replies):
+            fail(f"{word}: postgame transcript replies {replies}")
+        if not os.path.exists(os.path.join(words_dir, f"{word}.json")):
+            fail(f"no per-word forcing JSON for {word}")
+    if not os.path.exists(out) or "failures" in forcing:
+        fail("run_token_forcing wrote no aggregate, or reported failures")
+    loads.clear()
+    again = tf.run_token_forcing(config, model_loader=loader, words=words,
+                                 output_path=out, output_dir=words_dir)
+    if loads or rec.take() or again["words"] != forcing["words"]:
+        fail(f"resumed token forcing loaded {loads} or differs")
+    log(f"token forcing overall {json.dumps(forcing['overall'])}; resumed "
+        "call loaded no model, launched nothing, equal per-word entries")
+
+    t0 = time.perf_counter()
+    prompted = prompting.run_prompting_attacks(
+        config, model_loader=loader, words=words,
+        output_path=os.path.join(workdir, "prompting", "results.json"))
+    t_prompting = time.perf_counter() - t0
+    p_launched = rec.take()
+    p_rows = [x["rows"] for x in p_launched]
+    log(f"run_prompting_attacks ({', '.join(words)}; naive + adversarial): "
+        f"{t_prompting:.2f} s; launches of {p_rows} rows, seconds "
+        + ", ".join(f"{x['seconds']:.3f}" for x in p_launched)
+        + f"; overall {json.dumps(prompted['overall'])}")
+    if p_rows != [10, 10] or set(prompted["words"]) != set(words):
+        fail(f"prompting launched {p_rows} rows for {sorted(prompted['words'])}")
+    return launched[0]["tokens"]
+
+
+def check_arms_under_forcing(torch, ctx: tuple, sae, ablation_set, rec,
+                             pregame_10) -> None:
+    """``forcing_under_arms`` in the study's ablation layout (the identity
+    arm, then the six budgets' targeted rows), its SAE edit wrapped to keep
+    each row's patch (edited minus unedited residual, the L2 norm summed
+    over the chunk's columns) at every call at the edit layer.  Held: the
+    identity arm's rows equal an unedited decode of the same rows at the
+    same row count, and its patches are all zero; the largest budget's
+    targeted arm, in each of the five launches, has a patch somewhere (the
+    check sees its edit: on random weights it moves few greedy tokens, none
+    in the postgame), and its tokens and patches equal those of the launch
+    made again with the same rendered rows and this arm's ids on every row
+    (A copies of it, so no other arm's edit is anywhere)."""
+    from taboo_brittleness_tpu_torch.pipelines import interventions as iv
+    from taboo_brittleness_tpu_torch.pipelines import token_forcing as tf
+
+    params, cfg, tok, config = ctx[:4]
+    iv_cfg = config.intervention
+    ids = np.asarray(ablation_set[2]["latent_ids"])
+    targeted = ids[::1 + iv_cfg.random_trials]
+    stack = np.concatenate([np.full((1, ids.shape[1]), -1), targeted])
+    A, P = len(stack), len(config.token_forcing.prefill_phrases)
+    recorded, patches = [], []
+    orig = tf._decode_rendered
+
+    def keep_rows(params_, cfg_, tok_, rendered, **kw):
+        recorded.append(list(rendered))
+        patches.append([])
+        return orig(params_, cfg_, tok_, rendered, **kw)
+
+    def recording_edit(h, idx, ep):
+        out = iv.sae_ablation_edit(h, idx, ep)
+        if out is not h:
+            patches[-1].append((out - h).float().norm(dim=-1).sum(dim=-1))
+        return out
+
+    tf._decode_rendered = keep_rows
+    try:
+        t0 = time.perf_counter()
+        res = tf.forcing_under_arms(
+            params, cfg, tok, config, "moon", recording_edit,
+            {"sae": sae, "layer": config.model.layer_idx}, {"latent_ids": stack})
+        t_arms = time.perf_counter() - t0
+    finally:
+        tf._decode_rendered = orig
+    launched = rec.take()
+    rows = [x["rows"] for x in launched]
+    log(f"forcing_under_arms ({A} arms: identity + targeted budgets "
+        f"{list(iv_cfg.budgets)}): {t_arms:.2f} s; launches of {rows} rows, "
+        "seconds " + ", ".join(f"{x['seconds']:.3f}" for x in launched))
+    if rows != [A * P, A, A, A, A * P] or len(res) != A:
+        fail(f"forcing under arms launched {rows} rows for {len(res)} arms")
+    kw = dict(max_new_tokens=config.experiment.max_new_tokens,
+              pad_to_multiple=config.experiment.pad_to_multiple)
+    tf._decode_rendered(params, cfg, tok, recorded[0], **kw)
+    tf._decode_rendered(params, cfg, tok, recorded[-1][:P] * A, **kw)
+    plain = rec.take()
+    for name, edited, unedited in (("pregame", launched[0], plain[0]),
+                                   ("postgame final", launched[-1], plain[1])):
+        equal = int((edited["tokens"][:P] == unedited["tokens"][:P])
+                    .all(axis=1).sum())
+        log(f"identity arm {name}: tokens equal to an unedited {unedited['rows']}"
+            f"-row decode of the same rows on {equal}/{P} rows "
+            f"({unedited['seconds']:.3f} s)")
+        if equal != P:
+            fail(f"the identity arm's {name} rows differ from the unedited decode")
+    alone = int((launched[0]["tokens"][:P] == pregame_10).all(axis=1).sum())
+    log(f"identity arm pregame against the 10-row pregame launch (reported, "
+        f"not held: bf16 rounding depends on the row count): tokens equal on "
+        f"{alone}/{P} rows; arm success {json.dumps(res[0])}")
+
+    def as_rows(calls):   # [rows, calls at the edit layer]
+        return torch.stack(calls, dim=1).cpu().numpy()
+
+    mixed_patches = [as_rows(c) for c in patches]
+    budgets = list(iv_cfg.budgets)
+    k = 1 + budgets.index(max(budgets))
+    arm_ids = torch.as_tensor(stack[k:k + 1], device=params["embed"].device)
+    shared = {"sae": sae, "layer": config.model.layer_idx}
+    seen = []
+    for rendered, mixed, mixed_patch in zip(recorded, launched, mixed_patches):
+        r = len(rendered) // A
+        patches.append([])
+        tf._decode_rendered(
+            params, cfg, tok, rendered, edit_fn=recording_edit,
+            edit_params={**shared, "latent_ids": arm_ids.repeat_interleave(
+                len(rendered), dim=0)}, **kw)
+        copies, copies_patch = rec.take()[0], as_rows(patches.pop())
+        arm = slice(k * r, (k + 1) * r)
+        n = min(mixed_patch.shape[1], copies_patch.shape[1])
+        got, want = mixed_patch[arm, :n], copies_patch[arm, :n]
+        seen.append({
+            "r": r, "rows": len(rendered),
+            "equal": int((copies["tokens"][arm] == mixed["tokens"][arm])
+                         .all(axis=1).sum()),
+            "differ": int((mixed["tokens"][arm] != mixed["tokens"][:r])
+                          .any(axis=1).sum()),
+            "patch_err": float(np.abs(got - want).max()),
+            "patch_tol": PATCH_RTOL * float(np.abs(want).max()),
+            "patched": int((got.sum(axis=1) > 0).sum()),
+            "identity_patch": float(np.abs(mixed_patch[:r]).max()),
+            "seconds": copies["seconds"]})
+    log(f"targeted arm m={max(budgets)} (arm {k} of {A}) in each launch against "
+        f"the launch made again with {A} copies of it (rows: tokens equal, "
+        "rows with a patch, patch max_abs_err / tol, identity arm's largest "
+        "patch, rows whose tokens differ from the identity arm's (reported), "
+        "seconds): " + "; ".join(
+            f"{x['rows']}: {x['equal']}/{x['r']}, {x['patched']}/{x['r']}, "
+            f"{x['patch_err']:.3e} / {x['patch_tol']:.3e}, "
+            f"{x['identity_patch']:.1f}, {x['differ']}/{x['r']}, "
+            f"{x['seconds']:.3f}" for x in seen)
+        + f"; arm success {json.dumps(res[k])}")
+    if any(x["equal"] != x["r"] or not x["patch_err"] <= x["patch_tol"]
+           for x in seen):
+        fail("the targeted arm's rows differ from a launch holding only copies "
+             "of it: another arm's edit reached them")
+    if any(x["patched"] == 0 or x["identity_patch"] != 0.0 for x in seen):
+        fail("a launch patched none of the targeted arm's rows, or patched the "
+             "identity arm's: the check cannot see the edit")
+
+
+def check_study_sweep(torch, workdir: str, ctx: tuple, sae, rec) -> None:
+    """``run_intervention_studies`` with forcing over moon, bad (a loader
+    error that is not transient) and ship; then a resume."""
+    from taboo_brittleness_tpu_torch.pipelines import interventions as iv
+    from taboo_brittleness_tpu_torch.pipelines import token_forcing as tf
+
+    params, cfg, tok, config = ctx[:4]
+    iv_cfg = config.intervention
+    words = ["moon", "bad", "ship"]
+    loads = []
+
+    def loader(word):
+        loads.append(word)
+        if word == "bad":
+            raise ValueError("no checkpoint for 'bad'")
+        return params, cfg, tok
+
+    out_dir = os.path.join(workdir, "studies")
+    timer = PhaseTimer(torch)
+    timer.wrap(iv, "run_intervention_study", "study")
+    timer.wrap(tf, "forcing_under_arms", "forcing")
+    t0 = time.perf_counter()
+    try:
+        results = iv.run_intervention_studies(
+            config, model_loader=loader, sae=sae, words=words,
+            output_dir=out_dir, forcing=True)
+    finally:
+        timer.restore()
+    t_all = time.perf_counter() - t0
+    forcing_launches = rec.take(capture=False)
+    forcing_rows = [x["rows"] for x in forcing_launches]
+    done = [w for w in words if w in results]
+    A, R, P = (len(iv_cfg.budgets) + 1, len(iv_cfg.ranks),
+               len(config.token_forcing.prefill_phrases))
+    per_word = [A * P, A, A, A, A * P, R * P, R, R, R, R * P]
+    study_s, forcing_s = timer.calls.get("study", []), timer.calls.get("forcing", [])
+    log(f"run_intervention_studies ({', '.join(words)}, forcing): {t_all:.2f} s; "
+        f"finished {done}; per word study seconds "
+        + ", ".join(f"{w} {t:.2f}" for w, t in zip(done, study_s))
+        + "; forcing seconds (ablation + projection stacks) "
+        + ", ".join(f"{w} {a:.2f} + {b:.2f}" for w, a, b in
+                    zip(done, forcing_s[0::2], forcing_s[1::2])))
+    log("forcing launches (rows: seconds): " + ", ".join(
+        f"{x['rows']}: {x['seconds']:.3f}" for x in forcing_launches))
+    if done != ["moon", "ship"] or forcing_rows != per_word * 2:
+        fail(f"studies finished {done} with forcing launches {forcing_rows}; "
+             f"expected moon and ship, {per_word} each")
+    with open(os.path.join(out_dir, "_failures.json")) as f:
+        failures = json.load(f)
+    if set(failures["quarantined"]) != {"bad"}:
+        fail(f"_failures.json quarantined {sorted(failures['quarantined'])}")
+    with open(os.path.join(REPO, FIXTURE_STUDY)) as f:
+        fixture = json.load(f)
+    for word in done:
+        with open(os.path.join(out_dir, f"{word}.json")) as f:
+            written = json.load(f)
+        if written != json.loads(json.dumps(results[word])):
+            fail(f"{word}: the study JSON on disk differs from the result")
+        if written["baseline"]["forcing"].get("edit") != "none":
+            fail(f"{word}: baseline forcing {written['baseline']['forcing']}")
+        for grid, cells in (("ablation", "budgets"), ("projection", "ranks")):
+            for key, cell in written[grid][cells].items():
+                if cell["targeted"].get("forcing", {}).get("edit") != "all-positions" \
+                        or any("forcing" in r for r in cell["random"]):
+                    fail(f"{word} {grid} {key}: forcing blocks misplaced")
+        _schema(_strip_forcing(written), fixture)
+        log(f"{word}: baseline forcing {json.dumps(written['baseline']['forcing'])}; "
+            "targeted forcing by budget " + ", ".join(
+                f"{m}: {c['targeted']['forcing']['pregame']:.1f}/"
+                f"{c['targeted']['forcing']['postgame']:.1f}"
+                for m, c in written["ablation"]["budgets"].items()))
+    loads.clear()
+    again = iv.run_intervention_studies(
+        config, model_loader=loader, sae=sae, words=words, output_dir=out_dir,
+        forcing=True)
+    if loads != ["bad"] or rec.take() or \
+            json.loads(json.dumps(again)) != json.loads(json.dumps(results)):
+        fail(f"the resumed studies loaded {loads} or differ")
+    log("studies JSON hold the fixture's schema plus the forcing blocks; "
+        "'bad' quarantined in _failures.json; the resumed call loaded only "
+        "'bad', launched nothing and returned equal JSON")
+
+
+def drive_attacks(torch, workdir: str, ctx: tuple, sae, ablation_set) -> None:
+    """Phase 8: the attack sweeps, the identity and a targeted arm under
+    forcing, and the multi-word study sweep with forcing, at the main
+    path's width."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with DecodeRecorder(torch) as rec:
+        pregame_10 = check_attack_sweeps(torch, workdir, ctx, rec)
+        check_arms_under_forcing(torch, ctx, sae, ablation_set, rec, pregame_10)
+        check_study_sweep(torch, workdir, ctx, sae, rec)
+    log(f"attacks phase: {time.perf_counter() - t0:.2f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        "(torch.cuda.max_memory_allocated)")
 
 
 def main() -> int:
@@ -998,8 +1372,9 @@ def main() -> int:
     simple["max_abs_err"] = max(worst["simple"], check_small_against_cpu(torch))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         by_route, ctx = drive_main_path(torch, workdir)
-        drive_interventions(torch, workdir, ctx)
-        del ctx
+        sae, ablation_set = drive_interventions(torch, workdir, ctx)
+        drive_attacks(torch, workdir, ctx, sae, ablation_set)
+        del ctx, sae, ablation_set
     wgmma["launches"], simple["launches"] = by_route["wgmma"], by_route["simple"]
     print(json.dumps({"kernels": [wgmma, simple]}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

@@ -26,13 +26,20 @@ balanced chunks of at most ``_DEFAULT_ARM_CHUNK`` arms, so one decode, one
 readout and one NLL pass serve a whole chunk.  The study JSON is the JAX
 package's, key for key.
 
-Not ported here: the multi-word resumable sweep, token forcing under the
-targeted arms, the fused / AOT / warm-start programs and the device mesh.
+``forcing=True`` adds the token-forcing attacks (pre- and postgame,
+``pipelines.token_forcing``) under each targeted arm and the unedited
+baseline, in batched launches of their own.  :func:`run_intervention_studies`
+sweeps the word list: per-word resume, prefetch of the next word that will
+run, retry then quarantine.
+
+Not ported here: the fused / AOT / warm-start programs, the cross-word
+baseline pre-dispatch, the device mesh and the telemetry observer.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -50,7 +57,8 @@ from taboo_brittleness_tpu_torch.models.gemma2 import (
 )
 from taboo_brittleness_tpu_torch.ops import lens, projection
 from taboo_brittleness_tpu_torch.ops import sae as sae_ops
-from taboo_brittleness_tpu_torch.runtime import decode
+from taboo_brittleness_tpu_torch.pipelines.word_sweep import sweep_words
+from taboo_brittleness_tpu_torch.runtime import decode, resilience
 from taboo_brittleness_tpu_torch.runtime.resilience import atomic_json_dump
 from taboo_brittleness_tpu_torch.runtime.tokenizer import (
     TokenizerLike,
@@ -682,10 +690,16 @@ def run_ablation_sweep(
     sae: sae_ops.SAEParams,
     *,
     seed: Optional[int] = None,
+    forcing: bool = False,
 ) -> Dict[str, Any]:
-    """Targeted vs random SAE-latent ablations over the budget grid."""
+    """Targeted vs random SAE-latent ablations over the budget grid.
+
+    ``forcing=True`` also runs the token-forcing attacks under each
+    budget's targeted edit (random controls get none), at every position:
+    spike masks are keyed to the hint prompts' layouts and do not transfer
+    to forcing dialogues."""
     (edit_fn, shared, per_arm, chunk), assemble = plan_ablation_sweep(
-        params, cfg, tok, config, state, sae, seed=seed)
+        params, cfg, tok, config, state, sae, seed=seed, forcing=forcing)
     return assemble(measure_arms(params, cfg, tok, config, state, edit_fn,
                                  shared, per_arm, arm_chunk=chunk))
 
@@ -699,6 +713,7 @@ def plan_ablation_sweep(
     sae: sae_ops.SAEParams,
     *,
     seed: Optional[int] = None,
+    forcing: bool = False,
 ) -> Tuple[Tuple[Callable, Dict[str, Any], Dict[str, Any], Optional[int]],
            Callable[[List[ArmResult]], Dict[str, Any]]]:
     """The ablation sweep's arm stack and its ``assemble(arms)`` closure.
@@ -706,7 +721,11 @@ def plan_ablation_sweep(
     Per budget m: the targeted arm (top-m latents by score, ``np.argsort``
     of the negated scores as in the JAX package) then R random draws of m
     distinct latents from ``numpy.random.default_rng(seed)``.  Every id row
-    pads to the largest budget with -1."""
+    pads to the largest budget with -1.  With ``forcing``, ``assemble``
+    runs the attacks for the identity arm (all -1 ids, arm 0) and every
+    budget's targeted row in one arm stack: the identity's result comes
+    back as ``baseline_forcing`` (``"edit": "none"``), each targeted arm
+    gains ``forcing`` (``"edit": "all-positions"``)."""
     scores = score_latents_for_word(state, sae, params, config=config, cfg=cfg)
     order = np.argsort(-scores)
     S = scores.shape[0]
@@ -722,9 +741,11 @@ def plan_ablation_sweep(
 
     budgets = list(config.intervention.budgets)
     R = config.intervention.random_trials
+    targeted_rows: List[np.ndarray] = []
     arm_ids: List[np.ndarray] = []
     for m in budgets:
-        arm_ids.append(pad_ids(order[:m]))
+        targeted_rows.append(pad_ids(order[:m]))
+        arm_ids.append(targeted_rows[-1])
         for _ in range(R):
             arm_ids.append(pad_ids(rng.choice(S, size=m, replace=False)))
     per_arm = {"latent_ids": np.stack(arm_ids)}
@@ -741,6 +762,18 @@ def plan_ablation_sweep(
                 "random_mean": _mean_arms(randoms),
                 "random": [dataclasses.asdict(r) for r in randoms],
             }
+        if forcing:
+            from taboo_brittleness_tpu_torch.pipelines import token_forcing
+
+            stack = np.stack([np.full((mmax,), -1, np.int64)] + targeted_rows)
+            res = token_forcing.forcing_under_arms(
+                params, cfg, tok, config, state.word, sae_ablation_edit,
+                {"sae": sae, "layer": config.model.layer_idx},
+                {"latent_ids": stack}, arm_chunk=config.intervention.arm_chunk)
+            out["baseline_forcing"] = {**res[0], "edit": "none"}
+            for i, m in enumerate(budgets):
+                out["budgets"][str(m)]["targeted"]["forcing"] = {
+                    **res[i + 1], "edit": "all-positions"}
         return out
 
     return (sae_ablation_edit, shared, per_arm, None), assemble
@@ -754,10 +787,12 @@ def run_projection_sweep(
     state: WordState,
     *,
     seed: Optional[int] = None,
+    forcing: bool = False,
 ) -> Dict[str, Any]:
-    """Low-rank removal: PCA of spike residuals vs random orthonormal bases."""
+    """Low-rank removal: PCA of spike residuals vs random orthonormal bases.
+    ``forcing`` as in :func:`run_ablation_sweep` (targeted arms only)."""
     (edit_fn, shared, per_arm, chunk), assemble = plan_projection_sweep(
-        params, cfg, tok, config, state, seed=seed)
+        params, cfg, tok, config, state, seed=seed, forcing=forcing)
     return assemble(measure_arms(params, cfg, tok, config, state, edit_fn,
                                  shared, per_arm, arm_chunk=chunk))
 
@@ -770,6 +805,7 @@ def plan_projection_sweep(
     state: WordState,
     *,
     seed: Optional[int] = None,
+    forcing: bool = False,
 ) -> Tuple[Tuple[Callable, Dict[str, Any], Dict[str, Any], Optional[int]],
            Callable[[List[ArmResult]], Dict[str, Any]]]:
     """Arm stack + ``assemble`` closure for the projection sweep.
@@ -779,7 +815,10 @@ def plan_projection_sweep(
     ``torch.Generator`` seeded with ``seed * 1000 + rank_index * 100 +
     trial`` (the JAX package's seed arithmetic over ``jax.random`` keys, so
     the draws differ between the packages).  Every basis pads to the
-    largest rank with zero columns."""
+    largest rank with zero columns.  With ``forcing``, ``assemble`` runs the
+    attacks for every rank's targeted basis in one arm stack (no identity
+    arm: the ablation sweep's carries the baseline) and each targeted arm
+    gains ``forcing`` (``"edit": "all-positions"``)."""
     dev = params["embed"].device
     B, K = state.spike_pos.shape
     rows = torch.arange(B, device=dev)[:, None]
@@ -797,9 +836,11 @@ def plan_projection_sweep(
         return torch.nn.functional.pad(u, (0, max_rank - u.shape[1]))
 
     R = config.intervention.random_trials
+    targeted_bases: List[torch.Tensor] = []
     bases: List[torch.Tensor] = []
     for r_i, r in enumerate(ranks):
-        bases.append(pad_cols(u_full[:, :r]))
+        targeted_bases.append(pad_cols(u_full[:, :r]))
+        bases.append(targeted_bases[-1])
         for t in range(R):
             gen = torch.Generator().manual_seed(rng_seed * 1000 + r_i * 100 + t)
             bases.append(pad_cols(projection.random_subspace(gen, D, r)).to(dev))
@@ -815,6 +856,17 @@ def plan_projection_sweep(
                 "random_mean": _mean_arms(randoms),
                 "random": [dataclasses.asdict(r_) for r_ in randoms],
             }
+        if forcing:
+            from taboo_brittleness_tpu_torch.pipelines import token_forcing
+
+            res = token_forcing.forcing_under_arms(
+                params, cfg, tok, config, state.word, projection_edit,
+                {"layer": config.model.layer_idx},
+                {"basis": torch.stack(targeted_bases)},
+                arm_chunk=config.intervention.arm_chunk)
+            for i, r in enumerate(ranks):
+                out["ranks"][str(r)]["targeted"]["forcing"] = {
+                    **res[i], "edit": "all-positions"}
         return out
 
     return (projection_edit, shared, per_arm, None), assemble
@@ -837,11 +889,16 @@ def run_intervention_study(
     sae: sae_ops.SAEParams,
     *,
     output_path: Optional[str] = None,
+    forcing: bool = False,
 ) -> Dict[str, Any]:
     """Full brittleness study for one word: baseline, then both sweeps'
     stacks planned up front (latent scoring and PCA before any arm runs)
     and measured in one ``measure_arm_sets`` stream.  Writes the JSON to
-    ``output_path`` (write-then-rename) when given."""
+    ``output_path`` (write-then-rename) when given.
+
+    ``forcing=True`` adds pre- and postgame forcing success under each
+    targeted arm, and for the unedited baseline (``baseline["forcing"]``,
+    the identity arm of the ablation sweep's forcing stack)."""
     state = prepare_word_state(params, cfg, tok, config, word)
     baseline: Dict[str, Any] = {
         "secret_prob": state.secret_prob,
@@ -849,15 +906,18 @@ def run_intervention_study(
         "response_texts": state.response_texts,
     }
     abl_set, abl_assemble = plan_ablation_sweep(
-        params, cfg, tok, config, state, sae)
+        params, cfg, tok, config, state, sae, forcing=forcing)
     proj_set, proj_assemble = plan_projection_sweep(
-        params, cfg, tok, config, state)
+        params, cfg, tok, config, state, forcing=forcing)
     abl_arms, proj_arms = measure_arm_sets(
         params, cfg, tok, config, state, [abl_set, proj_set])
+    ablation = abl_assemble(abl_arms)
+    if forcing:
+        baseline["forcing"] = ablation.pop("baseline_forcing")
     results = {
         "word": word,
         "baseline": baseline,
-        "ablation": abl_assemble(abl_arms),
+        "ablation": ablation,
         "projection": proj_assemble(proj_arms),
     }
     if output_path:
@@ -868,3 +928,60 @@ def run_intervention_study(
 def _atomic_json_dump(obj: Any, path: str) -> None:
     """Write-then-rename, so a crash mid-write never leaves a truncated file."""
     atomic_json_dump(obj, path)
+
+
+def run_intervention_studies(
+    config: Config,
+    *,
+    model_loader: Callable,
+    sae: sae_ops.SAEParams,
+    words: Optional[Sequence[str]] = None,
+    output_dir: str = os.path.join("results", "interventions"),
+    force: bool = False,
+    forcing: bool = False,
+    on_word_done: Optional[Callable[[str, Dict[str, Any]], None]] = None,
+    max_retries: int = 2,
+    fail_fast: bool = False,
+    retry_policy: Optional[resilience.RetryPolicy] = None,
+    ledger: Optional[resilience.FailureLedger] = None,
+) -> Dict[str, Any]:
+    """The study over the word list: per word, load its checkpoint and run
+    :func:`run_intervention_study` into ``<output_dir>/<word>.json``, under
+    :func:`pipelines.word_sweep.sweep_words`' resume, prefetch and failure
+    contract.
+
+    - **Resume:** a word whose JSON exists is skipped and its model never
+      loaded (``force`` redoes it); with ``forcing`` a study written
+      without its forcing blocks does not count as done.  A corrupt file
+      is quarantined (``*.corrupt``) and the word recomputed.
+    - **Failure:** a failing word retries under ``retry_policy`` (default
+      ``RetryPolicy(max_retries=max_retries)``, transient errors only),
+      then is quarantined in ``<output_dir>/_failures.json`` and the sweep
+      goes on; quarantined words are absent from the result.
+      ``fail_fast=True`` raises on the first failed word instead.
+    - ``on_word_done(word, results)`` fires for computed and resumed words.
+    """
+    def word_path(w: str) -> str:
+        return os.path.join(output_dir, f"{w}.json")
+
+    def load_done(w: str) -> Optional[Dict[str, Any]]:
+        if force:
+            return None
+        saved = resilience.load_resume_json(word_path(w))
+        if saved is None or (forcing and "forcing" not in saved.get("baseline", {})):
+            return None
+        return saved
+
+    def run_word(word: str, loaded, set_stage) -> Dict[str, Any]:
+        params, cfg, tok = loaded
+        set_stage("study")
+        return run_intervention_study(params, cfg, tok, config, word, sae,
+                                      output_path=word_path(word),
+                                      forcing=forcing)
+
+    return sweep_words(
+        list(words if words is not None else config.words),
+        model_loader=model_loader, load_done=load_done, run_word=run_word,
+        policy=retry_policy or resilience.RetryPolicy(max_retries=max_retries),
+        ledger=ledger if ledger is not None else resilience.FailureLedger(output_dir),
+        fail_fast=fail_fast, on_done=on_word_done)

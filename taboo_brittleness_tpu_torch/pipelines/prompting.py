@@ -1,0 +1,122 @@
+"""Naive / adversarial prompting attacks (paper Table 1's direct-elicitation
+rows).
+
+The counterpart of the JAX package's ``pipelines/prompting.py``.  Each attack
+prompt is one user turn; all prompts of a mode decode as one left-padded
+greedy batch, and an attack succeeds when the response contains the secret
+word (any accepted form, whole-word match).  Per word: ``success_rate`` =
+the fraction of prompts that leak, ``pass_at_k`` = whether any leaked.
+
+The prompt lists (``config.NAIVE_PROMPTS`` / ``ADVERSARIAL_PROMPTS``) are
+representative stand-ins for the paper's appendix sets, overridable from
+YAML (``prompting:``); every result carries that provenance.  As with token
+forcing, the responses do not depend on the word given the model, so a
+shared-model loader pays one decode per mode for the whole word list.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+
+from taboo_brittleness_tpu_torch import config as config_mod
+from taboo_brittleness_tpu_torch import metrics as metrics_mod
+from taboo_brittleness_tpu_torch.config import Config
+from taboo_brittleness_tpu_torch.models.gemma2 import Gemma2Config, Params
+from taboo_brittleness_tpu_torch.runtime import decode
+from taboo_brittleness_tpu_torch.runtime.resilience import atomic_json_dump
+from taboo_brittleness_tpu_torch.runtime.tokenizer import TokenizerLike
+
+MODES = ("naive", "adversarial")
+
+
+def _mode_prompts(config: Config, mode: str) -> List[str]:
+    if mode == "naive":
+        return list(config.prompting.naive_prompts)
+    if mode == "adversarial":
+        return list(config.prompting.adversarial_prompts)
+    raise ValueError(f"unknown prompting mode {mode!r}; expected {MODES}")
+
+
+def prompt_provenance(config: Config, mode: str) -> str:
+    """The provenance stamped into every result: the shipped lists are
+    stand-ins for the paper's prompts, a YAML override is labelled as
+    such."""
+    default = (config_mod.NAIVE_PROMPTS if mode == "naive"
+               else config_mod.ADVERSARIAL_PROMPTS)
+    return ("representative stand-ins (not the paper's appendix prompts)"
+            if _mode_prompts(config, mode) == list(default)
+            else "user-supplied (yaml prompting: override)")
+
+
+def _attack_responses(
+    params: Params, cfg: Gemma2Config, tok: TokenizerLike, config: Config,
+    mode: str,
+) -> List[str]:
+    """One batched decode over the mode's attack prompts -> response texts."""
+    _, texts, _ = decode.generate(
+        params, cfg, tok, _mode_prompts(config, mode),
+        max_new_tokens=config.experiment.max_new_tokens,
+        pad_to_multiple=config.experiment.pad_to_multiple)
+    return texts
+
+
+def score_prompting(config: Config, word: str, mode: str,
+                    responses: Sequence[str]) -> Dict[str, Any]:
+    valid_forms = {f.lower() for f in config.word_plurals.get(word, [word])}
+    leaks = [metrics_mod.forcing_success([r], valid_forms) > 0
+             for r in responses]
+    return {
+        "word": word,
+        "mode": mode,
+        "prompt_provenance": prompt_provenance(config, mode),
+        "success_rate": float(np.mean(leaks)) if leaks else 0.0,
+        "pass_at_k": float(any(leaks)),
+        "responses": list(responses),
+    }
+
+
+def run_prompting_attacks(
+    config: Config,
+    *,
+    model_loader: Callable,
+    words: Optional[Sequence[str]] = None,
+    modes: Sequence[str] = MODES,
+    output_path: Optional[str] = None,
+    output_dir: Optional[str] = None,
+    force: bool = False,
+    max_retries: int = 2,
+    fail_fast: bool = False,
+) -> Dict[str, Any]:
+    """Prompting-attack sweep over words: per-word success and the overall
+    means per mode.  Resume, memo and failure contract as
+    :func:`pipelines.token_forcing.run_token_forcing`."""
+    from taboo_brittleness_tpu_torch.pipelines.word_sweep import run_word_sweep
+
+    words = list(words if words is not None else config.words)
+    outcome = run_word_sweep(
+        config, model_loader=model_loader, words=words, modes=modes,
+        compute_mode=_attack_responses, score_word=score_prompting,
+        output_dir=output_dir, force=force,
+        max_retries=max_retries, fail_fast=fail_fast)
+    results = outcome.results
+
+    scored = [w for w in words if w in results]
+
+    def mean(mode: str, key: str) -> float:
+        return (float(np.mean([results[w][mode][key] for w in scored]))
+                if scored else 0.0)
+
+    out: Dict[str, Any] = {
+        "overall": {mode: {"success_rate": mean(mode, "success_rate"),
+                           "pass_at_k": mean(mode, "pass_at_k")}
+                    for mode in modes},
+        "prompt_provenance": {m: prompt_provenance(config, m) for m in modes},
+        "words": results,
+    }
+    if not outcome.ok or outcome.ledger.retried:
+        out["failures"] = outcome.ledger.to_dict()
+    if output_path:
+        atomic_json_dump(out, output_path)
+    return out

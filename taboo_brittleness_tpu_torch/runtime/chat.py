@@ -11,8 +11,9 @@ instead of depending on the HF Jinja engine:
 Special-token ids (Gemma-2 vocab): pad=0, eos=1, bos=2,
 <start_of_turn>=106, <end_of_turn>=107.
 
-The PyTorch port's copy.  The interactive ``chat_reply`` / ``run_chat`` of the
-JAX package are not ported yet; everything here is plain Python.
+The PyTorch port's copy.  The template helpers are plain Python; the
+interactive ``chat_reply`` / ``run_chat`` decode through ``runtime.decode``
+(imported where they run, since ``decode`` imports this module).
 """
 
 from __future__ import annotations
@@ -89,6 +90,77 @@ def find_model_response_start_ids(token_ids: Sequence[int]) -> int:
     if len(starts) >= 2:
         return starts[1] + 3
     return 0
+
+
+def strip_stop(text: str) -> str:
+    """A decoded reply without its stop tokens and surrounding space."""
+    return text.replace(END_OF_TURN, "").replace("<eos>", "").strip()
+
+
+# Conversation lengths round up to this, so a growing chat reuses shapes.
+CHAT_PAD_MULTIPLE = 32
+
+
+def chat_reply(
+    params,
+    cfg,
+    tok,
+    turns: Sequence[Turn],
+    *,
+    max_new_tokens: int = 128,
+) -> str:
+    """One greedy model reply for an in-progress conversation: the rendered
+    multi-turn template through ``decode.generate(rendered=True)``, the stop
+    tokens stripped."""
+    from taboo_brittleness_tpu_torch.runtime import decode as decode_mod
+
+    _result, texts, _ids = decode_mod.generate(
+        params, cfg, tok, [render_chat(list(turns))], rendered=True,
+        max_new_tokens=max_new_tokens, pad_to_multiple=CHAT_PAD_MULTIPLE)
+    return strip_stop(texts[0])
+
+
+def run_chat(
+    params,
+    cfg,
+    tok,
+    *,
+    max_new_tokens: int = 128,
+    stream=None,
+    out=None,
+) -> int:
+    """Interactive REPL over one loaded checkpoint: reads user lines from
+    ``stream`` (default stdin), keeps the Gemma-2 turn history, writes
+    greedy replies to ``out`` (default stdout).  Blank lines are skipped;
+    EOF or a line starting with ``/quit`` ends it.  Returns the number of
+    replies produced."""
+    import sys
+
+    stream = stream if stream is not None else sys.stdin
+    out = out if out is not None else sys.stdout
+    turns: List[Turn] = []
+    replies = 0
+    out.write("tbx chat — greedy Gemma-2 REPL (/quit to exit)\n")
+    out.flush()
+    while True:
+        out.write("you> ")
+        out.flush()
+        line = stream.readline()
+        if not line:
+            break
+        msg = line.strip()
+        if not msg:
+            continue
+        if msg.startswith("/quit"):
+            break
+        turns.append(Turn("user", msg))
+        reply = chat_reply(params, cfg, tok, turns,
+                           max_new_tokens=max_new_tokens)
+        turns.append(Turn("model", reply))
+        replies += 1
+        out.write(f"model> {reply}\n")
+        out.flush()
+    return replies
 
 
 def response_mask(token_ids: Sequence[int], seq_len: Optional[int] = None) -> List[bool]:

@@ -1,7 +1,9 @@
 """Checkpoint resolution: taboo word -> (params, config, tokenizer).
 
 The counterpart of the JAX package's ``runtime/checkpoints.py``, without its
-LRU residency, prefetch thread and delta mode.  Resolution is local-first:
+LRU residency (``CheckpointManager``), prefetch thread and delta mode; the
+sweeps call :func:`prefetch_next`, which uses a loader's ``prefetch`` when
+it has one.  Resolution is local-first:
 
 1. ``TABOO_CHECKPOINT_ROOT`` (or ``checkpoint_root=``) — a directory holding
    one HF-snapshot-layout folder per checkpoint (config.json + safetensors +
@@ -84,3 +86,12 @@ def model_loader(model_cfg: ModelConfig, *, checkpoint_root: Optional[str] = Non
                          device=device)
 
     return load
+
+
+def prefetch_next(model_loader, word: str) -> None:
+    """Start loading ``word`` while the current word computes, when the
+    loader has a ``prefetch(word)``; a plain callable loader does nothing
+    here."""
+    fn = getattr(model_loader, "prefetch", None)
+    if fn is not None:
+        fn(word)

@@ -258,11 +258,32 @@ def encode_prompts(
     tok,
     prompts: Sequence[str],
     *,
+    prefills: Optional[Sequence[Optional[str]]] = None,
     pad_to_multiple: Optional[int] = None,
+    rendered: bool = False,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, List[List[int]]]:
-    """Chat-format (one user turn) + tokenize + left-pad a prompt batch.
-    Returns (ids, valid, positions, per-row token id lists)."""
-    ids = [tok.encode(chat.user_prompt(p)) for p in prompts]
+    """Chat-format + tokenize + left-pad a prompt batch.  Returns (ids,
+    valid, positions, per-row token id lists).
+
+    Each prompt becomes one user turn; ``prefills[b]``, when set, opens the
+    model turn of row b with that text.  ``rendered=True`` takes ``prompts``
+    as already chat-templated strings (multi-turn dialogues, forcing
+    prefills) and formats nothing; it refuses ``prefills``."""
+    if rendered:
+        if prefills is not None:
+            raise ValueError(
+                "prefills are a chat-formatting feature; with rendered=True "
+                "bake the prefill into the rendered string instead")
+        rendered_rows = list(prompts)
+    else:
+        rendered_rows = []
+        for i, p in enumerate(prompts):
+            prefill = prefills[i] if prefills is not None else None
+            rendered_rows.append(
+                chat.render_chat([chat.Turn("user", p)], prefill=prefill)
+                if prefill is not None
+                else chat.user_prompt(p))
+    ids = [tok.encode(r) for r in rendered_rows]
     padded, valid, positions = pad_prompts(ids, pad_to_multiple=pad_to_multiple)
     return padded, valid, positions, ids
 
@@ -276,17 +297,21 @@ def generate(
     max_new_tokens: int = 50,
     edit_fn: Optional[Callable] = None,
     edit_params: Any = None,
+    prefills: Optional[Sequence[Optional[str]]] = None,
     pad_to_multiple: Optional[int] = None,
     capture_residual_layer: Optional[int] = None,
     return_texts: bool = True,
     return_prefill_cache: bool = False,
+    rendered: bool = False,
 ) -> Tuple[DecodeResult, Optional[List[str]], List[List[int]]]:
     """Chat-format, tokenize, batch-decode on the params' device.  Returns
     (result, response_texts or None, per-row prompt ids); the response text
-    is the generation only (``full_text`` gives the reference's form).  The
-    edit and prefill-cache arguments go to :func:`greedy_decode`."""
+    is the generation only (``full_text`` gives the reference's form).
+    ``prefills`` and ``rendered`` go to :func:`encode_prompts`; the edit and
+    prefill-cache arguments to :func:`greedy_decode`."""
     padded, valid, positions, ids = encode_prompts(
-        tok, prompts, pad_to_multiple=pad_to_multiple)
+        tok, prompts, prefills=prefills, pad_to_multiple=pad_to_multiple,
+        rendered=rendered)
     device = params["embed"].device
     result = greedy_decode(
         params, cfg,

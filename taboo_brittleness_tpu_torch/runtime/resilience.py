@@ -3,10 +3,11 @@
 The PyTorch port's copy of the part of the JAX package's
 ``runtime/resilience.py`` that the ported pipelines call:
 
-- :func:`atomic_json_dump` / :func:`quarantine_file` — the cache's
-  skip-if-exists resume treats a file's existence as a completion marker, so
-  no artifact may ever be observable half-written, and a corrupt one is moved
-  aside (``*.corrupt``) and recomputed instead of trusted;
+- :func:`atomic_json_dump` / :func:`quarantine_file` /
+  :func:`load_resume_json` — the sweeps' skip-if-exists resume treats a
+  file's existence as a completion marker, so no artifact may ever be
+  observable half-written, and a corrupt one is moved aside (``*.corrupt``)
+  and recomputed instead of trusted;
 - :class:`RetryPolicy` — exponential backoff with seeded jitter and a
   transient-vs-permanent error classification (:func:`is_transient`);
 - :class:`FailureLedger` — the per-sweep ``<output_dir>/_failures.json``;
@@ -78,6 +79,20 @@ def quarantine_file(path: str, *, reason: str = "") -> Optional[str]:
     _log.warning("quarantined corrupt file %s -> %s%s", path, dst,
                  f" ({reason})" if reason else "")
     return dst
+
+
+def load_resume_json(path: str) -> Optional[Any]:
+    """A sweep's finished-entry file, or None when there is none or it is
+    unreadable: a torn or corrupt file (a killed run's write) is quarantined
+    so the entry is recomputed, never trusted and never fatal."""
+    if not os.path.exists(path):
+        return None
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except (json.JSONDecodeError, UnicodeDecodeError, OSError) as exc:
+        quarantine_file(path, reason=f"unreadable entry: {exc}")
+        return None
 
 
 @dataclasses.dataclass(frozen=True)

@@ -38,7 +38,9 @@ def _port_files():
 
 def test_every_module_imports_with_jax_blocked():
     modules = _modules()
-    assert "taboo_brittleness_tpu_torch.ops.lens_kernel" in modules
+    for name in ("ops.lens_kernel", "pipelines.word_sweep",
+                 "pipelines.token_forcing", "pipelines.prompting"):
+        assert f"taboo_brittleness_tpu_torch.{name}" in modules
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
