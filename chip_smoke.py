@@ -66,15 +66,45 @@ the kernels are built for sm_90a).  Phases, each of which fails the run:
    each of the five launches and equal, in tokens and patches (rtol 1e-5),
    the launch made again with the same rendered rows and 7 copies of that
    arm's ids.
-   ``run_intervention_studies`` with forcing over moon, bad (its loader
-   raises an error that is not transient) and ship: bad quarantined in
+   ``run_intervention_studies`` with forcing over moon, ship and bad
+   through a ``CheckpointManager`` (ship a full copy of the params made on
+   the card and served by the prefetch while moon's study runs, so the
+   sweep's peak memory is a full-snapshot CLI sweep's; bad's load raises an
+   error that is not transient): bad quarantined in
    ``_failures.json``, the other two written with the fixture's schema plus
    the forcing blocks (``"edit": "none"`` on the baseline,
    ``"all-positions"`` on every targeted arm, none on random arms), forcing
    launches of 70, 7, 7, 7, 70 and 40, 4, 4, 4, 40 rows per word, and a
    second call that loads only bad and returns equal JSON.  Seconds of
    every attack launch, forcing and study seconds per word and the phase's
-   peak device memory are printed.  No kernel of its own either.
+   peak device memory are printed.  No kernel of its own either;
+9. delta residency and speculation, at the same width with phase 6's
+   params as the base: two words made on the card from seeded edits
+   (``final_norm`` and the stacked ``layers.k`` with noise, ``xor``;
+   ``layers.input_norm`` set to m * 2^-12, ``q8``), packed, saved, loaded
+   and applied bit-equal to each word's params on every leaf, with codecs,
+   byte ratio, artifact bytes and the switch time (``load_delta`` +
+   ``apply_packed``, median of 3); ``run_generation`` for both words through
+   a delta-mode ``CheckpointManager`` (capacity 1; its base slot seeded with
+   phase 6's triple, as no snapshot can be read here) with the second word
+   served by the prefetch, and through a plain loader of the materialised
+   params, the two runs' tokens equal row for row; then the main path's
+   prompts with ``TBX_SPECULATE=1`` at the default plan (k = 28, G = 3), at
+   G = 1 and 5 and with a 3-layer draft (k = 2) between two vanilla runs,
+   that draft on a word whose later layers outweigh the embedding (most
+   drafts rejected: accept rate under ``LOW_ACCEPT``), one
+   ``TBX_SPECULATE_CAPTURE=1`` launch, and ``run_token_forcing`` for two
+   words under speculation, each held to vanilla row by row: a row may
+   differ only first at a token whose vanilla top-1/top-2 logit gap is
+   under ``SPEC_MARGIN`` (margins recorded from the vanilla decodes' own
+   logits, phase 8's for the forcing); each generated column of the
+   captured residual within ``CAPTURE_RTOL`` relative L2 error of
+   vanilla's on equal rows, while the capture read one column on and a
+   capture of the draft's layer miss it; and
+   forcing texts equal to phase 8's on rows with equal tokens.  Blocks,
+   accept rate, tokens per verify and seconds beside vanilla's, load
+   sources and seconds, and the phase's peak memory are printed.  No kernel
+   of its own: the draft head is a ``torch.matmul`` + argmax.
 
 The line before the last is ``{"kernels": [...]}``, one entry per route
 (times in ms, measured here; ``bound_ms`` from this run's shapes and the
@@ -91,6 +121,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -1012,35 +1043,65 @@ def drive_interventions(torch, workdir: str, ctx: tuple) -> tuple:
 
 
 class DecodeRecorder:
-    """Wraps ``decode.greedy_decode`` while phase 8 runs: each launch's row
-    count, synchronised host seconds, tokens (on the host) and whether it
-    captured a residual."""
+    """Wraps ``decode.greedy_decode`` while phases 8 and 9 run: each launch's
+    row count, synchronised host seconds, tokens (on the host), whether it
+    captured a residual, and ``margins`` [rows, N]: the top-1 minus top-2
+    logit behind each generated token (inf after the last step), read from
+    the logits the decode itself computed (``decode.unembed`` for the first
+    token, ``decode.forward`` for each step)."""
 
     def __init__(self, torch):
         from taboo_brittleness_tpu_torch.runtime import decode
 
         self.torch, self.decode = torch, decode
-        self.orig = decode.greedy_decode
+        self.orig = (decode.greedy_decode, decode.forward, decode.unembed)
         self.launches = []
+        self._gaps = []
+
+    def _gap(self, logits):
+        top2 = logits[:, -1].float().topk(2, dim=-1).values
+        self._gaps.append(top2[:, 0] - top2[:, 1])
 
     def __enter__(self):
+        greedy, forward, unembed = self.orig
+
         def recording(*args, **kwargs):
+            self._gaps = []
             self.torch.cuda.synchronize()
             t0 = time.perf_counter()
-            result = self.orig(*args, **kwargs)
+            result = greedy(*args, **kwargs)
             self.torch.cuda.synchronize()
+            rows, n = result.tokens.shape
+            gaps = self.torch.stack(self._gaps[:n], dim=1).cpu().numpy()
+            margins = np.full((rows, n), np.inf)
+            margins[:, :gaps.shape[1]] = gaps
             self.launches.append({
-                "rows": int(result.tokens.shape[0]),
+                "rows": int(rows),
                 "seconds": time.perf_counter() - t0,
                 "tokens": result.tokens.cpu().numpy(),
+                "margins": margins,
                 "capture": kwargs.get("capture_residual_layer") is not None})
             return result
 
+        def forward_gap(*args, **kwargs):
+            res = forward(*args, **kwargs)
+            if res.logits is not None:
+                self._gap(res.logits)
+            return res
+
+        def unembed_gap(*args, **kwargs):
+            out = unembed(*args, **kwargs)
+            self._gap(out)
+            return out
+
         self.decode.greedy_decode = recording
+        self.decode.forward = forward_gap
+        self.decode.unembed = unembed_gap
         return self
 
     def __exit__(self, *exc):
-        self.decode.greedy_decode = self.orig
+        (self.decode.greedy_decode, self.decode.forward,
+         self.decode.unembed) = self.orig
 
     def take(self, capture: bool = None) -> list:
         """Launches recorded so far (of one capture kind), then clears."""
@@ -1063,8 +1124,8 @@ def _strip_forcing(study: dict) -> dict:
 def check_attack_sweeps(torch, workdir: str, ctx: tuple, rec) -> list:
     """``run_token_forcing`` and ``run_prompting_attacks`` for two words
     through a shared-model loader: launch row counts, completions, the
-    files, and a resume that loads no model.  Returns the pregame launch's
-    tokens (10 rows) for the row-count comparison."""
+    files, and a resume that loads no model.  Returns the token forcing's
+    recorded launches (pregame, 3 warm-up turns, final turn)."""
     from taboo_brittleness_tpu_torch.pipelines import prompting
     from taboo_brittleness_tpu_torch.pipelines import token_forcing as tf
     from taboo_brittleness_tpu_torch.runtime import chat
@@ -1129,7 +1190,7 @@ def check_attack_sweeps(torch, workdir: str, ctx: tuple, rec) -> list:
         + f"; overall {json.dumps(prompted['overall'])}")
     if p_rows != [10, 10] or set(prompted["words"]) != set(words):
         fail(f"prompting launched {p_rows} rows for {sorted(prompted['words'])}")
-    return launched[0]["tokens"]
+    return launched
 
 
 def check_arms_under_forcing(torch, ctx: tuple, sae, ablation_set, rec,
@@ -1253,22 +1314,37 @@ def check_arms_under_forcing(torch, ctx: tuple, sae, ablation_set, rec,
              "identity arm's: the check cannot see the edit")
 
 
+def _copy_params(params):
+    return {k: _copy_params(v) if isinstance(v, dict) else v.clone()
+            for k, v in params.items()}
+
+
 def check_study_sweep(torch, workdir: str, ctx: tuple, sae, rec) -> None:
-    """``run_intervention_studies`` with forcing over moon, bad (a loader
-    error that is not transient) and ship; then a resume."""
+    """``run_intervention_studies`` with forcing over moon, ship and bad (a
+    loader error that is not transient), through the ``CheckpointManager``
+    every CLI command builds; then a resume.  No snapshot can be read on
+    this machine, so the manager's ``_load_triple`` gives moon phase 6's
+    params and ship a full copy of them made on the card: while moon's
+    study runs, ship is prefetched, as a full word of its own, the peak a
+    CLI sweep of full snapshots reaches (one word resident, the next
+    prefetched, the arms' activations)."""
     from taboo_brittleness_tpu_torch.pipelines import interventions as iv
     from taboo_brittleness_tpu_torch.pipelines import token_forcing as tf
+    from taboo_brittleness_tpu_torch.runtime import checkpoints as ck
 
     params, cfg, tok, config = ctx[:4]
     iv_cfg = config.intervention
-    words = ["moon", "bad", "ship"]
+    words = ["moon", "ship", "bad"]
     loads = []
 
-    def loader(word):
+    def load_triple(word):   # on the prefetch thread too
         loads.append(word)
         if word == "bad":
             raise ValueError("no checkpoint for 'bad'")
-        return params, cfg, tok
+        return (params if word == "moon" else _copy_params(params)), cfg, tok
+
+    loader = ck.CheckpointManager(config.model, capacity=1)
+    loader._load_triple = load_triple
 
     out_dir = os.path.join(workdir, "studies")
     timer = PhaseTimer(torch)
@@ -1282,6 +1358,7 @@ def check_study_sweep(torch, workdir: str, ctx: tuple, sae, rec) -> None:
     finally:
         timer.restore()
     t_all = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
     forcing_launches = rec.take(capture=False)
     forcing_rows = [x["rows"] for x in forcing_launches]
     done = [w for w in words if w in results]
@@ -1297,9 +1374,15 @@ def check_study_sweep(torch, workdir: str, ctx: tuple, sae, rec) -> None:
                     zip(done, forcing_s[0::2], forcing_s[1::2])))
     log("forcing launches (rows: seconds): " + ", ".join(
         f"{x['rows']}: {x['seconds']:.3f}" for x in forcing_launches))
+    log(f"study sweep loads (word, source) {loader.sources}; its peak device "
+        f"memory, ship's full copy prefetched while moon's study ran: "
+        f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated)")
     if done != ["moon", "ship"] or forcing_rows != per_word * 2:
         fail(f"studies finished {done} with forcing launches {forcing_rows}; "
              f"expected moon and ship, {per_word} each")
+    if loader.sources != [("moon", "sync"), ("ship", "prefetch")]:
+        fail(f"the study sweep's loads came from {loader.sources}; expected "
+             "moon sync, ship from the prefetch")
     with open(os.path.join(out_dir, "_failures.json")) as f:
         failures = json.load(f)
     if set(failures["quarantined"]) != {"bad"}:
@@ -1336,18 +1419,442 @@ def check_study_sweep(torch, workdir: str, ctx: tuple, sae, rec) -> None:
         "'bad', launched nothing and returned equal JSON")
 
 
-def drive_attacks(torch, workdir: str, ctx: tuple, sae, ablation_set) -> None:
+def drive_attacks(torch, workdir: str, ctx: tuple, sae, ablation_set) -> list:
     """Phase 8: the attack sweeps, the identity and a targeted arm under
     forcing, and the multi-word study sweep with forcing, at the main
-    path's width."""
+    path's width.  Returns the vanilla token forcing's launches."""
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with DecodeRecorder(torch) as rec:
-        pregame_10 = check_attack_sweeps(torch, workdir, ctx, rec)
-        check_arms_under_forcing(torch, ctx, sae, ablation_set, rec, pregame_10)
+        forcing = check_attack_sweeps(torch, workdir, ctx, rec)
+        check_arms_under_forcing(torch, ctx, sae, ablation_set, rec,
+                                 forcing[0]["tokens"])
+        earlier = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         check_study_sweep(torch, workdir, ctx, sae, rec)
+    peak = max(earlier, torch.cuda.max_memory_allocated())
     log(f"attacks phase: {time.perf_counter() - t0:.2f} s; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated)")
+    return forcing
+
+# Phase 9: the two words' edited leaves.  The norms are zeros in the base;
+# input_norm becomes m * 2^-12 (|m| <= 127, exact in bf16 and stored exactly
+# by the q8 codec), final_norm and the stacked K projection get 0.02 N(0, 1)
+# noise (xor codec).
+DELTA_WORDS = ("ship", "moon")
+# Speculation vs vanilla on the card: the verify runs G + 1-column forwards
+# where vanilla runs one, so cuBLAS may pick other kernels and the bf16
+# residual rounds differently through 42 layers.  A row may diverge only
+# first at a token whose vanilla top-1/top-2 logit gap is under this
+# (16 bf16 steps of a logit in [2, 4)).
+SPEC_MARGIN = 0.25
+# On phase 6's weights a lens layer picks the token just fed (the tied
+# embedding outweighs the layers' outputs), so even a 3-layer draft is
+# mostly accepted.  The rejection path runs on a word whose layers above
+# SHALLOW_DRAFT put out 4x more (``post_ffn_norm`` 3; Gemma's norms scale
+# by 1 + w): its final head no longer repeats the token, a 3-layer draft
+# still does, and the accept rate must fall under LOW_ACCEPT.
+SHALLOW_DRAFT = 2
+LOW_ACCEPT = 0.5
+# The captured layer-31 residual (f32 of a bf16 stream) where the tokens
+# agree: the prefill columns are bit-equal (same shape); each generated
+# column within this relative L2 error of vanilla's.  Shape-dependent bf16
+# rounding through 31 layers leaves a few percent; the column next to it,
+# or the draft layer's capture, must miss it (PERF.md has the readings).
+CAPTURE_RTOL = 0.04
+
+
+def _bits_equal(torch, a, b) -> bool:
+    from taboo_brittleness_tpu_torch.runtime import delta as deltalib
+
+    it = deltalib._int_dtype(a.dtype)
+    return a.dtype == b.dtype and torch.equal(a.view(it), b.view(it))
+
+
+def _synced(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def check_delta(torch, workdir: str, params) -> dict:
+    """Two words made from the base on the card, packed, saved, loaded and
+    applied: bit-equal to each word's params on every leaf.  Returns
+    ``{word: params}`` and writes ``<workdir>/deltas/<word>.delta.npz``."""
+    from taboo_brittleness_tpu_torch.runtime import delta as deltalib
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    layers = params["layers"]
+    words = {}
+    for w in DELTA_WORDS:
+        def noisy(t):
+            noise = torch.randn(t.shape, generator=gen, device="cuda",
+                                dtype=torch.float32)
+            return (t.float() + 0.02 * noise).to(t.dtype)
+
+        m = torch.randint(-127, 128, layers["input_norm"].shape, generator=gen,
+                          device="cuda").float()
+        m[0, :] = 127.0       # the per-column peak pins each scale to 2^-12
+        words[w] = {"embed": params["embed"],
+                    "final_norm": noisy(params["final_norm"]),
+                    "layers": {**layers,
+                               "input_norm": (m * 2.0 ** -12).to(layers["input_norm"].dtype),
+                               "k": noisy(layers["k"])}}
+    torch.cuda.synchronize()
+    root = os.path.join(workdir, "deltas")
+    for w, word_params in words.items():
+        (payload, meta), t_pack = _synced(
+            torch, lambda: deltalib.pack_params_delta(params, word_params))
+        path = deltalib.delta_path(root, w)
+        t0 = time.perf_counter()
+        size = deltalib.save_delta(path, payload, meta)
+        t_save = time.perf_counter() - t0
+        del payload
+        switch = []
+        for _ in range(3):
+            applied, dt = _synced(torch, lambda: deltalib.apply_packed(
+                params, *deltalib.load_delta(path)))
+            switch.append(dt)
+        flat_a = deltalib.flatten_named(applied)
+        flat_w = deltalib.flatten_named(word_params)
+        bad = [n for n in flat_w if not _bits_equal(torch, flat_a[n], flat_w[n])]
+        changed = sorted(n for n, c in meta["codecs"].items() if c != "zero")
+        log(f"delta {w}: changed leaves {changed}; codecs "
+            + ", ".join(f"{n} {meta['codecs'][n]}" for n in changed)
+            + f" (the other {len(meta['codecs']) - len(changed)} zero); "
+            f"delta_bytes / param_bytes {meta['delta_bytes']} / "
+            f"{meta['param_bytes']} = {meta['delta_bytes'] / meta['param_bytes']:.6f}; "
+            f"artifact {size} B; pack {t_pack:.2f} s, save {t_save:.2f} s; "
+            f"switch (load_delta + apply_packed, synchronised) median "
+            f"{sorted(switch)[1] * 1e3:.1f} ms of "
+            + ", ".join(f"{t * 1e3:.1f}" for t in switch)
+            + f"; leaves bit-unequal to the word's: {bad}")
+        if bad or changed != ["final_norm", "layers.input_norm", "layers.k"] \
+                or meta["codecs"]["layers.input_norm"] != "q8":
+            fail(f"delta {w}: applied params differ on {bad} or codecs "
+                 f"{meta['codecs']}")
+        del applied
+    return words
+
+
+def check_residency(torch, workdir: str, ctx: tuple, words: dict) -> None:
+    """``run_generation`` for the two words through a delta-mode
+    ``CheckpointManager`` (capacity 1), the second word loaded by the
+    sweep's prefetch while the first decodes, then through a plain loader of
+    the materialised params: the two runs' tokens equal, row for row."""
+    from taboo_brittleness_tpu_torch.pipelines import generation
+    from taboo_brittleness_tpu_torch.runtime import cache as cache_io
+    from taboo_brittleness_tpu_torch.runtime import checkpoints as ck
+
+    params, cfg, tok, config = ctx[:4]
+    names = list(DELTA_WORDS)
+
+    def manager():
+        mgr = ck.CheckpointManager(config.model,
+                                   delta_root=os.path.join(workdir, "deltas"),
+                                   capacity=1)
+        # No snapshot can be read on this machine: the base is phase 6's
+        # triple, put in the slot the manager fills on its first base load.
+        mgr._base_triple = (params, cfg, tok)
+        mgr.loads, mgr.waits = [], []
+        real_triple, real_load = mgr._load_triple, mgr.load
+
+        def timed_triple(word):   # on the prefetch thread too
+            t0 = time.perf_counter()
+            out = real_triple(word)
+            torch.cuda.synchronize()
+            mgr.loads.append((word, threading.current_thread().name,
+                              time.perf_counter() - t0))
+            return out
+
+        def timed_load(word):
+            out, dt = _synced(torch, lambda: real_load(word))
+            mgr.waits.append(dt)
+            return out
+
+        mgr._load_triple, mgr.load = timed_triple, timed_load
+        return mgr
+
+    def plain(word):
+        return words[word], cfg, tok
+
+    runs = []
+    for n, kind in enumerate(("prefetch", "plain")):
+        mgr = manager() if kind != "plain" else None
+        loader = mgr or plain
+        processed = os.path.join(workdir, f"processed_residency_{n}")
+        (done, dt) = _synced(torch, lambda: generation.run_generation(
+            config, model_loader=loader, words=names, processed_dir=processed,
+            fail_fast=True))
+        if set(done) != set(names):
+            fail(f"run_generation through the {kind} loader finished {done}")
+        runs.append((kind, mgr, processed, dt))
+        del mgr, loader
+    tokens = [[cache_io.load_summary(cache_io.summary_path(
+        processed, w, i))[0]["token_ids"] for w in names
+        for i in range(len(config.prompts))] for _, _, processed, _ in runs]
+    equal = [sum(np.array_equal(a, b) for a, b in zip(run, tokens[1]))
+             for run in tokens]
+    total = len(tokens[1])
+    log(f"residency: run_generation ({', '.join(names)}) (kind: seconds, "
+        "token rows equal to the plain run's): " + ", ".join(
+            f"{kind}: {dt:.2f} s, {e}/{total}"
+            for (kind, _, _, dt), e in zip(runs, equal)))
+    for n, (kind, mgr, _, _) in enumerate(runs):
+        if mgr is not None:
+            log(f"  run {n + 1} ({kind}): loads (source, seconds in load) "
+                + ", ".join(f"{w} {src} {t:.3f}" for (w, src), t in
+                            zip(mgr.sources, mgr.waits))
+                + "; delta loads (word, thread, seconds until on the card) "
+                + ", ".join(f"{w} {th} {t:.3f}" for w, th, t in mgr.loads))
+    log(f"  peak device memory so far {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    bad = [mgr.sources for _, mgr, _, _ in runs if mgr is not None
+           and [src for _, src in mgr.sources] != ["sync", "prefetch"]]
+    if any(e != total for e in equal) or bad:
+        fail(f"residency: token rows equal {equal} of {total}, sources {bad}")
+
+
+def _outweighing_word(params):
+    """Phase 6's params with ``post_ffn_norm`` 3 in every layer above
+    SHALLOW_DRAFT (see there); the other leaves are the base's."""
+    layers = params["layers"]
+    norm = layers["post_ffn_norm"].clone()
+    norm[SHALLOW_DRAFT + 1:] = 3.0
+    return {**params, "layers": {**layers, "post_ffn_norm": norm}}
+
+
+def _column_errors(want, got, columns, shift: int = 0):
+    """||got - want|| / ||want|| over D for every column in the [B, T]
+    mask ``columns``, ``got`` read ``shift`` columns on (numpy, flat)."""
+    if shift:
+        got = got.roll(-shift, dims=1)
+        columns = columns & columns.roll(-shift, dims=1)
+    a, b = want[columns].float(), got[columns].float()
+    return ((a - b).norm(dim=-1) / a.norm(dim=-1)).cpu().numpy()
+
+
+def _first_divergences(spec_tokens, van_tokens, van_margins) -> list:
+    """Per row: None when equal, else (position, vanilla margin there)."""
+    out = []
+    for b in range(van_tokens.shape[0]):
+        diff = np.nonzero(spec_tokens[b] != van_tokens[b])[0]
+        out.append(None if diff.size == 0
+                   else (int(diff[0]), float(van_margins[b, diff[0]])))
+    return out
+
+
+def _hold_rows(what: str, spec_tokens, van) -> int:
+    """Count equal rows; fail unless every diverging row first diverges at
+    a vanilla margin under SPEC_MARGIN."""
+    div = _first_divergences(spec_tokens, van["tokens"], van["margins"])
+    bad = [(b, d) for b, d in enumerate(div) if d and not d[1] < SPEC_MARGIN]
+    equal = sum(d is None for d in div)
+    log(f"  {what}: tokens equal to vanilla on {equal}/{len(div)} rows"
+        + "".join(f"; row {b} first differs at token {d[0]} (vanilla margin "
+                  f"{d[1]:.4f})" for b, d in enumerate(div) if d))
+    if bad:
+        fail(f"{what}: rows {bad} diverge from vanilla at a margin >= "
+             f"{SPEC_MARGIN}")
+    return equal
+
+
+def check_speculation(torch, workdir: str, ctx: tuple, forcing: list) -> None:
+    """The main path's prompts for one word with ``TBX_SPECULATE=1`` at the
+    default plan, at G = 1 and 5 and with a 3-layer draft, that draft on a
+    word that rejects most of it, a capture launch under ``TBX_SPECULATE_CAPTURE=1`` (with
+    two misplaced captures that must miss its tolerance), and
+    ``run_token_forcing`` for two words under speculation, each held to
+    vanilla row by row."""
+    from taboo_brittleness_tpu_torch.pipelines import token_forcing as tf
+    from taboo_brittleness_tpu_torch.runtime import decode, speculate
+
+    params, cfg, tok, config = ctx[:4]
+    prompts = list(config.prompts)
+    N = config.experiment.max_new_tokens
+    kw = dict(max_new_tokens=N,
+              pad_to_multiple=config.experiment.pad_to_multiple,
+              return_texts=False)
+    layer = config.model.layer_idx
+    stats = []
+    real_spec = speculate.speculative_decode
+
+    def spec_recording(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, st = real_spec(*args, **kwargs)
+        torch.cuda.synchronize()
+        stats.append({"stats": st, "seconds": time.perf_counter() - t0,
+                      "tokens": res.tokens.cpu().numpy(),
+                      "k": kwargs["draft_layer"], "G": kwargs["block_size"]})
+        return res, st
+
+    def spec_env(block=None, capture=False, draft_layer=None):
+        os.environ["TBX_SPECULATE"] = "1"
+        for name in ("TBX_SPEC_BLOCK", "TBX_SPEC_DRAFT_LAYER",
+                     "TBX_SPECULATE_CAPTURE"):
+            os.environ.pop(name, None)
+        if block is not None:
+            os.environ["TBX_SPEC_BLOCK"] = str(block)
+        if draft_layer is not None:
+            os.environ["TBX_SPEC_DRAFT_LAYER"] = str(draft_layer)
+        if capture:
+            os.environ["TBX_SPECULATE_CAPTURE"] = "1"
+
+    def line(entry):
+        st = entry["stats"]
+        return (f"k={entry['k']} G={entry['G']}: blocks {st.blocks}, "
+                f"accept_rate {st.accept_rate:.4f}, tokens_per_verify "
+                f"{st.tokens_per_verify:.4f}, {entry['seconds']:.3f} s")
+
+    speculate.speculative_decode = spec_recording
+    try:
+        with DecodeRecorder(torch) as rec:
+            decode.generate(params, cfg, tok, prompts, **kw)
+            van_res, _ = _synced(torch, lambda: decode.generate(
+                params, cfg, tok, prompts, capture_residual_layer=layer, **kw)[0])
+            van, van_cap = rec.take()
+        log(f"speculation ({len(prompts)} prompts, {N} new tokens, plan "
+            f"{speculate.resolve_plan(cfg)._asdict()} when unset): vanilla "
+            f"{van['seconds']:.3f} s, vanilla with capture "
+            f"{van_cap['seconds']:.3f} s")
+        for block, draft_layer in ((None, None), (1, None), (5, None),
+                                   (None, SHALLOW_DRAFT)):
+            spec_env(block, draft_layer=draft_layer)
+            decode.generate(params, cfg, tok, prompts, **kw)
+            log("  speculative " + line(stats[-1]))
+            _hold_rows(f"k={stats[-1]['k']} G={stats[-1]['G']}",
+                       stats[-1]["tokens"], van)
+        os.environ.pop("TBX_SPECULATE")
+        outweighed = _outweighing_word(params)
+        with DecodeRecorder(torch) as rec:
+            decode.generate(params, cfg, tok, prompts, **kw)
+            again = rec.take()[0]
+            decode.generate(outweighed, cfg, tok, prompts, **kw)
+            van_low = rec.take()[0]
+        log(f"  vanilla again {again['seconds']:.3f} s (the spread of the "
+            "decode's host clock within this call); tokens equal to the first "
+            f"vanilla run: {np.array_equal(again['tokens'], van['tokens'])}")
+        spec_env(draft_layer=SHALLOW_DRAFT)
+        decode.generate(outweighed, cfg, tok, prompts, **kw)
+        low = stats[-1]
+        log(f"  a word whose layers above {SHALLOW_DRAFT} outweigh the "
+            f"embedding: vanilla {van_low['seconds']:.3f} s; speculative "
+            + line(low))
+        _hold_rows(f"k={SHALLOW_DRAFT} on that word", low["tokens"], van_low)
+        if not low["stats"].accept_rate < LOW_ACCEPT:
+            fail(f"the shallow draft's accept rate {low['stats'].accept_rate} "
+                 f"is not under {LOW_ACCEPT}: its launch runs few rejections")
+        del outweighed
+
+        spec_env(capture=True)
+        spec_res, _ = _synced(torch, lambda: decode.generate(
+            params, cfg, tok, prompts, capture_residual_layer=layer, **kw)[0])
+        log("  speculative capture " + line(stats[-1]))
+        _hold_rows("capture", stats[-1]["tokens"], van_cap)
+        rows = np.nonzero((stats[-1]["tokens"] == van_cap["tokens"])
+                          .all(axis=1))[0].tolist()
+        if not rows:
+            fail("the speculative capture launch equals vanilla on no row")
+        # The two controls: the capture read one column on, and a capture
+        # of the draft's layer.
+        k = stats[-1]["k"]
+        wrong_layer = decode.generate(params, cfg, tok, prompts,
+                                      capture_residual_layer=k, **kw)[0]
+        Tp = van_res.sequences.shape[1] - N
+        generated = van_res.sequence_valid[rows].clone()
+        generated[:, :Tp] = False
+        want = van_res.residual[rows]
+        errs = {"capture": _column_errors(want, spec_res.residual[rows],
+                                          generated),
+                "capture one column on": _column_errors(
+                    want, spec_res.residual[rows], generated, shift=1),
+                f"capture of layer {k}": _column_errors(
+                    want, wrong_layer.residual[rows], generated)}
+        prefill_equal = torch.equal(van_res.residual[:, :Tp],
+                                    spec_res.residual[:, :Tp])
+        log(f"  captured residual (layer {layer}) on the {len(rows)} equal "
+            "rows' generated columns, ||spec - vanilla|| / ||vanilla|| per "
+            f"column (min, median, max; columns over {CAPTURE_RTOL}): "
+            + "; ".join(f"{name} {e.min():.4e}, {np.median(e):.4e}, "
+                        f"{e.max():.4e}; {int((e > CAPTURE_RTOL).sum())}/{e.size}"
+                        for name, e in errs.items())
+            + f"; prompt columns bit-equal: {prefill_equal}")
+        if not (errs["capture"].max() <= CAPTURE_RTOL and prefill_equal):
+            fail("the speculative capture's residual misses its tolerance")
+        if any(e.max() <= CAPTURE_RTOL for name, e in errs.items()
+               if name != "capture"):
+            fail("a misplaced capture passes the tolerance: the check cannot "
+                 "see it")
+        del van_res, spec_res, wrong_layer
+
+        spec_env()
+
+        def loader(word):
+            return params, cfg, tok
+
+        out = os.path.join(workdir, "token_forcing_spec", "results.json")
+        before = len(stats)
+        (spec_forcing, t_forcing) = _synced(torch, lambda: tf.run_token_forcing(
+            config, model_loader=loader, words=["ship", "moon"],
+            output_path=out, output_dir=os.path.join(os.path.dirname(out),
+                                                     "words")))
+        launched = stats[before:]
+        log(f"  run_token_forcing (ship, moon) speculative: {t_forcing:.2f} s "
+            f"(vanilla in phase 8: {sum(x['seconds'] for x in forcing):.2f} s); "
+            "launches " + "; ".join(line(x) for x in launched))
+        if [x["tokens"].shape[0] for x in launched] != [x["rows"] for x in forcing]:
+            fail("speculative token forcing launched other row counts")
+        # A warm-up reply is rendered into every later turn's prompt: a
+        # launch is held only while every earlier warm-up reply is equal.
+        names = ["pregame", "warm-up 1", "warm-up 2", "warm-up 3", "final"]
+        warmups_equal = True
+        for i, (name, x, v) in enumerate(zip(names, launched, forcing)):
+            if not warmups_equal:
+                log(f"  forcing {name}: not held (an earlier warm-up reply "
+                    "differs, so its prompts differ)")
+                continue
+            equal = _hold_rows(f"forcing {name}", x["tokens"], v)
+            if 1 <= i <= 3 and equal != 1:
+                warmups_equal = False
+        with open(os.path.join(workdir, "token_forcing", "results.json")) as f:
+            vanilla_forcing = json.load(f)
+        P = len(config.token_forcing.prefill_phrases)
+        for word in ("ship", "moon"):
+            for mode, launch in (("pregame", 0), ("postgame", 4)):
+                if mode == "postgame" and not warmups_equal:
+                    continue
+                same = (launched[launch]["tokens"] == forcing[launch]["tokens"]) \
+                    .all(axis=1)
+                got = spec_forcing["words"][word][mode]["completions"]
+                want = vanilla_forcing["words"][word][mode]["completions"]
+                if any(same[r] and got[r] != want[r] for r in range(P)):
+                    fail(f"forcing {word} {mode}: a completion with equal "
+                         "tokens has another text")
+        log(f"  forcing texts equal to phase 8's on every row with equal tokens "
+            f"(pregame{' and postgame' if warmups_equal else ''}; a diverged "
+            "warm-up turn changes every later prompt, so then the final turn "
+            "is held only by the margin rule)")
+    finally:
+        speculate.speculative_decode = real_spec
+        for name in ("TBX_SPECULATE", "TBX_SPEC_BLOCK", "TBX_SPEC_DRAFT_LAYER",
+                     "TBX_SPECULATE_CAPTURE"):
+            os.environ.pop(name, None)
+
+
+def drive_residency_and_speculation(torch, workdir: str, ctx: tuple,
+                                    forcing: list) -> None:
+    """Phase 9: the delta codec, delta residency with prefetch, and the
+    speculative decoder, at the main path's width on phase 6's params."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    words = check_delta(torch, workdir, ctx[0])
+    check_residency(torch, workdir, ctx, words)
+    del words
+    check_speculation(torch, workdir, ctx, forcing)
+    log(f"residency and speculation phase: {time.perf_counter() - t0:.2f} s; "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
         "(torch.cuda.max_memory_allocated)")
 
 
@@ -1373,8 +1880,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         by_route, ctx = drive_main_path(torch, workdir)
         sae, ablation_set = drive_interventions(torch, workdir, ctx)
-        drive_attacks(torch, workdir, ctx, sae, ablation_set)
-        del ctx, sae, ablation_set
+        forcing = drive_attacks(torch, workdir, ctx, sae, ablation_set)
+        del sae, ablation_set
+        drive_residency_and_speculation(torch, workdir, ctx, forcing)
+        del ctx
     wgmma["launches"], simple["launches"] = by_route["wgmma"], by_route["simple"]
     print(json.dumps({"kernels": [wgmma, simple]}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

@@ -7,9 +7,14 @@
     python -m taboo_brittleness_tpu_torch token-forcing [--modes pregame postgame] [--output F] [--force]
     python -m taboo_brittleness_tpu_torch prompting     [--modes naive adversarial] [--output F] [--force]
     python -m taboo_brittleness_tpu_torch chat          [--word W] [--max-new-tokens N]
+    python -m taboo_brittleness_tpu_torch delta-pack    [--base ID] [--words ...] [--out DIR] [--atol A] [--selfcheck]
+    python -m taboo_brittleness_tpu_torch spec-calibrate [--processed-dir D] [--out F]
 
 All accept the reference's ``configs/default.yaml`` schema (PyYAML is needed
-only to read a YAML file) and run on ``--device`` (default ``cuda``).  The
+only to read a YAML file) and run on ``--device`` (default ``cuda``).  Every
+command that loads words does so through a ``CheckpointManager``: with
+``--delta-root`` (or ``TBX_DELTA=1`` and ``TBX_DELTA_ROOT``) each word is
+its ``delta-pack`` artifact applied to one resident base.  The
 SAE comes from an npz in the Gemma-Scope layout (``--sae-npz`` or
 ``TABOO_SAE_NPZ``).  ``interventions --word W`` runs one word's study into
 a file; without ``--word`` it sweeps the config's words into a directory,
@@ -42,6 +47,9 @@ def _common(p: argparse.ArgumentParser) -> None:
                    help="directory of local HF snapshots (or set TABOO_CHECKPOINT_ROOT)")
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; cpu runs the plain paths)")
+    p.add_argument("--delta-root", default=None,
+                   help="directory of <word>.delta.npz artifacts (delta-pack): "
+                        "load each word as its delta over one resident base")
     p.add_argument("--max-retries", type=int, default=2,
                    help="retries per word on transient failures before the "
                         "word is quarantined")
@@ -59,10 +67,11 @@ def _load(args) -> Config:
 
 
 def _loader(config: Config, args):
-    from taboo_brittleness_tpu_torch.runtime.checkpoints import model_loader
+    from taboo_brittleness_tpu_torch.runtime.checkpoints import CheckpointManager
 
-    return model_loader(config.model, checkpoint_root=args.checkpoint_root,
-                        device=args.device)
+    return CheckpointManager(config.model, checkpoint_root=args.checkpoint_root,
+                             delta_root=getattr(args, "delta_root", None),
+                             device=args.device)
 
 
 def cmd_generate(args) -> int:
@@ -203,16 +212,132 @@ def cmd_chat(args) -> int:
     """Interactive greedy chat over one word's checkpoint
     (``runtime.chat.run_chat`` on stdin / stdout)."""
     from taboo_brittleness_tpu_torch.runtime import chat as chat_mod
+    from taboo_brittleness_tpu_torch.runtime import speculate
 
     config = _load(args)
     word = args.word or (config.words[0] if config.words else None)
     if word is None:
         raise SystemExit("chat: no word to load (pass --word or configure "
                          "config.words)")
+    speculate.set_active_word(word)
     params, cfg, tok = _loader(config, args)(word)
     replies = chat_mod.run_chat(params, cfg, tok,
                                 max_new_tokens=args.max_new_tokens)
     print(f"[chat] session closed after {replies} repl(ies)")
+    return 0
+
+
+def _delta_selfcheck(device) -> int:
+    """Tiny model, synthetic word: pack -> artifact -> apply -> a forward
+    bit-equal to the word's own; prints a JSON verdict."""
+    import tempfile
+
+    import torch
+
+    from taboo_brittleness_tpu_torch.models import gemma2
+    from taboo_brittleness_tpu_torch.runtime import delta as deltalib
+
+    cfg = gemma2.PRESETS["gemma2_tiny"]
+    base = gemma2.init_params(
+        cfg, torch.Generator(device=device).manual_seed(7), device=device)
+    word_params = deltalib.synthetic_word_params(cfg, base, "ship")
+    payload, meta = deltalib.pack_params_delta(base, word_params)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = deltalib.delta_path(tmp, "ship")
+        artifact_bytes = deltalib.save_delta(path, payload, meta)
+        loaded_payload, loaded_meta = deltalib.load_delta(path)
+    applied = deltalib.apply_packed(base, loaded_payload, loaded_meta)
+    ids = (torch.arange(12, device=device) % cfg.vocab_size)[None, :]
+    exact = torch.equal(gemma2.forward(word_params, cfg, ids).logits,
+                        gemma2.forward(applied, cfg, ids).logits)
+    counts = {}
+    for codec in meta["codecs"].values():
+        counts[codec] = counts.get(codec, 0) + 1
+    print(json.dumps({
+        "selfcheck": "ok" if exact else "FAIL",
+        "bit_exact_forward": exact,
+        "codec_version": meta["codec_version"],
+        "codecs": counts,
+        "delta_bytes": meta["delta_bytes"],
+        "param_bytes": meta["param_bytes"],
+        "artifact_bytes": artifact_bytes,
+    }))
+    return 0 if exact else 1
+
+
+def cmd_delta_pack(args) -> int:
+    """Pack word checkpoints as base-resident deltas (``runtime.delta``):
+    a per-leaf zero/q8/xor codec against one base snapshot, written as
+    ``<out>/<word>.delta.npz`` for ``CheckpointManager``'s delta mode."""
+    from taboo_brittleness_tpu_torch.device import resolve_device
+    from taboo_brittleness_tpu_torch.models.params import (
+        from_safetensors_dir,
+        infer_config_from_hf_config_json,
+    )
+    from taboo_brittleness_tpu_torch.runtime import delta as deltalib
+    from taboo_brittleness_tpu_torch.runtime.checkpoints import (
+        DEFAULT_DELTA_BASE,
+        resolve_snapshot_dir,
+    )
+
+    device = resolve_device(args.device)
+    if args.selfcheck:
+        return _delta_selfcheck(device)
+    config = _load(args)
+    base_id = args.base or os.environ.get("TBX_DELTA_BASE", DEFAULT_DELTA_BASE)
+    out_root = (args.out or os.environ.get("TBX_DELTA_ROOT")
+                or os.path.join("results", "deltas"))
+
+    def params_of(repo_id: str):
+        snap = resolve_snapshot_dir(repo_id, args.checkpoint_root)
+        cfg = infer_config_from_hf_config_json(
+            snap, dtype=config.model.dtype, param_dtype=config.model.param_dtype)
+        return from_safetensors_dir(snap, cfg, device=device)
+
+    base = params_of(base_id)
+    rows = []
+    for word in (args.words or config.words):
+        word_params = params_of(config.model.checkpoint_template.format(word=word))
+        payload, meta = deltalib.pack_params_delta(base, word_params,
+                                                   atol=args.atol)
+        meta["word"] = word
+        meta["base"] = base_id
+        size = deltalib.save_delta(deltalib.delta_path(out_root, word),
+                                   payload, meta)
+        rows.append({
+            "word": word,
+            "artifact_bytes": size,
+            "delta_bytes": meta["delta_bytes"],
+            "param_bytes": meta["param_bytes"],
+            "bytes_ratio": round(meta["delta_bytes"]
+                                 / max(1, meta["param_bytes"]), 6),
+            "quantized_leaves": sorted(meta["quantized"]),
+        })
+        del word_params, payload
+    print(json.dumps({"base": base_id, "out": out_root,
+                      "codec_version": deltalib.DELTA_CODEC_VERSION,
+                      "atol": args.atol, "packed": rows}))
+    return 0
+
+
+def cmd_spec_calibrate(args) -> int:
+    """Per-word speculation (draft layer, block size) from the cached lens
+    sweeps (``perf.spec_calibrate``): a host-side read, no model."""
+    from taboo_brittleness_tpu_torch.models import gemma2
+    from taboo_brittleness_tpu_torch.perf import spec_calibrate
+
+    config = _load(args)
+    cfg = gemma2.PRESETS[config.model.arch].replace(
+        dtype=config.model.dtype, param_dtype=config.model.param_dtype)
+    processed = args.processed_dir or config.output.processed_dir
+    artifact = spec_calibrate.calibrate_words(
+        processed, list(args.words or config.words), cfg,
+        max_block=args.max_block, rows=args.rows)
+    spec_calibrate.write_calibration(args.out, artifact)
+    print(json.dumps({"out": args.out,
+                      "calibrated": sorted(artifact["words"]),
+                      "uncalibrated": artifact["uncalibrated"],
+                      "default": artifact["default"]}, indent=2))
     return 0
 
 
@@ -274,6 +399,46 @@ def build_parser() -> argparse.ArgumentParser:
                          "(default: first configured word)")
     ch.add_argument("--max-new-tokens", type=int, default=128)
     ch.set_defaults(fn=cmd_chat)
+
+    dp = sub.add_parser(
+        "delta-pack",
+        help="pack word checkpoints as base-resident deltas "
+             "(zero/q8/xor codec, versioned artifacts)")
+    dp.add_argument("-c", "--config", default="configs/default.yaml")
+    dp.add_argument("--base", default=None,
+                    help="base snapshot repo id (default: $TBX_DELTA_BASE "
+                         "or google/gemma-2-9b-it)")
+    dp.add_argument("--words", nargs="*", default=None,
+                    help="words to pack (default: all in config)")
+    dp.add_argument("--checkpoint-root", default=None)
+    dp.add_argument("--out", default=None,
+                    help="artifact directory (default: $TBX_DELTA_ROOT or "
+                         "results/deltas)")
+    dp.add_argument("--atol", type=float, default=0.0,
+                    help="allow q8 leaves whose applied reconstruction is "
+                         "within this max-abs error (0 = bit-exact only; "
+                         "relaxations are recorded per leaf in the header)")
+    dp.add_argument("--selfcheck", action="store_true",
+                    help="tiny model, synthetic word: pack -> apply -> "
+                         "bit-exact forward; prints a JSON verdict")
+    dp.add_argument("--device", default=None,
+                    help="torch device (default cuda)")
+    dp.set_defaults(fn=cmd_delta_pack)
+
+    sc = sub.add_parser(
+        "spec-calibrate",
+        help="calibrate per-word speculative-decoding (draft layer, block "
+             "size) from the cached lens sweeps (host-side, no model)")
+    _common(sc)
+    sc.add_argument("--out", default=os.path.join("results",
+                                                  "spec_calibration.json"),
+                    help="calibration artifact path (point "
+                         "TBX_SPEC_CALIBRATION here)")
+    sc.add_argument("--max-block", type=int, default=8,
+                    help="largest draft block size the chooser searches")
+    sc.add_argument("--rows", type=int, default=10,
+                    help="batch rows assumed by the cost model")
+    sc.set_defaults(fn=cmd_spec_calibrate)
     return p
 
 

@@ -290,6 +290,7 @@ def _layer(
     cache_k: Optional[torch.Tensor],  # [B, S, K, Dh] this layer's cache slab
     cache_v: Optional[torch.Tensor],
     cache_index: int,             # slot at which the chunk is written
+    cache_cols: Optional[torch.Tensor] = None,  # [B, T] per-row columns
 ) -> torch.Tensor:
     B, T, _ = h.shape
     H, K, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -304,7 +305,16 @@ def _layer(
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
-    if cache_k is not None:
+    if cache_k is not None and cache_cols is not None:
+        # Each row's chunk at its own columns.  Finished rows of a
+        # speculative block all write the trash column, so one index_put
+        # may hold a repeated (row, col) pair whose winner is undefined:
+        # harmless only because the trash column never becomes valid.
+        rows = torch.arange(B, device=h.device)[:, None]
+        cache_k[rows, cache_cols] = k
+        cache_v[rows, cache_cols] = v
+        k_all, v_all = cache_k, cache_v
+    elif cache_k is not None:
         cache_k[:, cache_index:cache_index + T] = k
         cache_v[:, cache_index:cache_index + T] = v
         k_all, v_all = cache_k, cache_v
@@ -367,6 +377,7 @@ def forward(
     edit_fn: Optional[Callable[[torch.Tensor, int], torch.Tensor]] = None,
     carry_tap: Optional[Tuple[Any, Callable[[Any, torch.Tensor, int], Any]]] = None,
     compute_logits: bool = True,
+    cache_positions: Optional[torch.Tensor] = None,  # [B] or [B, T] columns
 ) -> ForwardResult:
     """One forward pass over the whole stack (see the module docstring for
     the hooks).
@@ -375,7 +386,27 @@ def forward(
     keys/values are written at ``cache.length`` and attention spans the
     whole cache.  KV positions for masking are rebuilt from the validity
     cumsum, not from ``cache.length``, so left-padded rows mask correctly.
+
+    ``cache_positions`` (requires ``cache``) writes each row's new keys,
+    values and validity at its OWN columns instead of at ``cache.length``:
+    a ``[B]`` tensor with T = 1 (one column per row), or a ``[B, T]`` tensor
+    mapping every chunk position to its column (the speculative verify
+    block writes G + 1 columns at per-row offsets).  Columns must grow
+    along each row (masking rebuilds KV positions from the validity
+    cumsum).  ``cache.length`` is not advanced in this mode.
     """
+    if cache_positions is not None and cache is None:
+        raise ValueError("cache_positions requires the KV-cache decode path")
+    if (cache_positions is not None and cache_positions.ndim == 1
+            and input_ids.shape[1] != 1):
+        raise ValueError("[B] cache_positions supports single-token chunks "
+                         f"only (got T={input_ids.shape[1]}); pass a [B, T] "
+                         "column map for multi-token chunks")
+    if (cache_positions is not None and cache_positions.ndim == 2
+            and tuple(cache_positions.shape) != tuple(input_ids.shape)):
+        raise ValueError(
+            f"[B, T] cache_positions {tuple(cache_positions.shape)} must match "
+            f"input_ids {tuple(input_ids.shape)}")
     B, T = input_ids.shape
     device = input_ids.device
     cdt = cfg.compute_dtype
@@ -397,9 +428,14 @@ def forward(
 
     cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
 
+    cols = (cache_positions.long().reshape(B, T)
+            if cache_positions is not None else None)
     if cache is not None:
         new_valid = cache.valid.clone()
-        new_valid[:, cache.length:cache.length + T] = attn_validity
+        if cols is not None:
+            new_valid[torch.arange(B, device=device)[:, None], cols] = attn_validity
+        else:
+            new_valid[:, cache.length:cache.length + T] = attn_validity
         # Slot i of row b holds a token whose RoPE position is the count of
         # real slots before it: pads carry a junk position but are masked
         # out by `valid`, and real slots are written in order.
@@ -423,6 +459,7 @@ def forward(
             cache.k[idx] if cache is not None else None,
             cache.v[idx] if cache is not None else None,
             cache.length if cache is not None else 0,
+            cols,
         )
         if edit_fn is not None:
             h = edit_fn(h, idx)
@@ -434,7 +471,7 @@ def forward(
     new_cache = None
     if cache is not None:
         new_cache = KVCache(k=cache.k, v=cache.v, valid=new_valid,
-                            length=cache.length + T)
+                            length=cache.length + (0 if cols is not None else T))
     logits = unembed(params, cfg, h) if compute_logits else None
     return ForwardResult(
         logits=logits, last_hidden=h,

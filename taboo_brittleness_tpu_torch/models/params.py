@@ -40,9 +40,14 @@ _LAYER_MAP = {
 }
 
 
-def _strip_prefix(key: str) -> str:
-    # HF checkpoints may or may not carry a leading "model." scope.
-    return key[len("model."):] if key.startswith("model.") else key
+def _lookup(state_dict: Mapping[str, Any], key: str) -> Any:
+    """``state_dict[key]``, or under the leading "model." scope HF
+    checkpoints may carry.  Item access only: a lazy mapping reads just the
+    tensors asked for."""
+    try:
+        return state_dict[key]
+    except KeyError:
+        return state_dict["model." + key]
 
 
 def _as_tensor(value: Any) -> torch.Tensor:
@@ -65,11 +70,10 @@ def from_state_dict(
     """Convert an HF Gemma-2 state dict (tensors or arrays) to our layout on
     ``device``, one stacked leaf at a time."""
     device = resolve_device(device)
-    sd = {_strip_prefix(k): v for k, v in state_dict.items()}
     dtype = cfg.storage_dtype
 
     def get(key: str, transpose: bool = False) -> torch.Tensor:
-        t = _as_tensor(sd[key])
+        t = _as_tensor(_lookup(state_dict, key))
         return (t.T if transpose else t).to(device=device, dtype=dtype)
 
     layers: Dict[str, torch.Tensor] = {}

@@ -88,6 +88,16 @@ def lens_probs_foldexp(params: Params, cfg: Gemma2Config, h: torch.Tensor, *,
     return torch.exp(logits - torch.logsumexp(logits, dim=-1, keepdim=True))
 
 
+def lens_argmax(params: Params, cfg: Gemma2Config,
+                h: torch.Tensor) -> torch.Tensor:
+    """Greedy lens readout: the argmax of the layer-h lens logits (int64,
+    first index among equal logits) — the speculative decoder's draft
+    head.  The final softcap is skipped: it is strictly monotone, so the
+    argmax is the same.  A plain product, not a ``lens_stats`` launch: it
+    runs at [B, 1, V] per draft step."""
+    return torch.argmax(_lens_logits(params, cfg, h), dim=-1)
+
+
 def make_lens_tap(
     params: Params,
     cfg: Gemma2Config,

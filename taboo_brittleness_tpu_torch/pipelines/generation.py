@@ -25,7 +25,8 @@ from taboo_brittleness_tpu_torch.config import Config
 from taboo_brittleness_tpu_torch.models.gemma2 import Gemma2Config, Params
 from taboo_brittleness_tpu_torch.ops import lens
 from taboo_brittleness_tpu_torch.runtime import cache as cache_io
-from taboo_brittleness_tpu_torch.runtime import decode, resilience
+from taboo_brittleness_tpu_torch.runtime import decode, resilience, speculate
+from taboo_brittleness_tpu_torch.runtime.checkpoints import prefetch_next
 from taboo_brittleness_tpu_torch.runtime.tokenizer import (
     TokenizerLike,
     target_token_id,
@@ -172,7 +173,8 @@ def run_generation(
     fail_fast: bool = False,
     ledger: Optional[resilience.FailureLedger] = None,
 ) -> Dict[str, List[int]]:
-    """Per word, load that word's checkpoint and fill its cache cells.
+    """Per word, load that word's checkpoint and fill its cache cells; the
+    loader's ``prefetch`` (if any) gets the next word as one loads.
 
     A failing word retries under the :class:`~.resilience.RetryPolicy`
     (transient errors only), then is quarantined in
@@ -185,12 +187,18 @@ def run_generation(
         ledger = resilience.FailureLedger(processed)
 
     generated: Dict[str, List[int]] = {}
-    for word in (words if words is not None else config.words):
+    word_list = list(words if words is not None else config.words)
+    for i, word in enumerate(word_list):
         stage = {"name": "checkpoint.load"}
 
-        def run_one(word: str = word) -> List[int]:
+        def run_one(word: str = word, i: int = i) -> List[int]:
             stage["name"] = "checkpoint.load"
+            # The speculative decoder's per-word plan rides module state.
+            speculate.set_active_word(word)
             params, model_cfg, tok = model_loader(word)
+            if i + 1 < len(word_list):
+                # Overlap the next word's load with this word's compute.
+                prefetch_next(model_loader, word_list[i + 1])
             stage["name"] = "generate"
             return generate_for_word(
                 params, model_cfg, tok, config, word,
@@ -202,6 +210,11 @@ def run_generation(
         if not outcome.ok:
             if fail_fast:
                 raise outcome.error
+            # A quarantined word's prefetched state must not leak into a
+            # later rerun.
+            drop = getattr(model_loader, "drop_pending", None)
+            if drop is not None:
+                drop(word)
             continue
         generated[word] = outcome.value
     return generated

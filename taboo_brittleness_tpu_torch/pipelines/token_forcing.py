@@ -12,9 +12,9 @@ The counterpart of the JAX package's ``pipelines/token_forcing.py``:
 The prefill rows of a word decode as one batch; the warm-up turns run as 3
 sequential decodes (each turn depends on the previous reply).
 :func:`forcing_under_arms` runs the attacks under a stack of ablated or
-projected models in batched launches.  Every decode is the plain greedy one
-(the JAX package's speculative route yields the same stream and is not
-ported).
+projected models in batched launches.  Every decode is the greedy one; with
+``TBX_SPECULATE=1`` it runs through the speculative decoder
+(``runtime.speculate``), which yields the same stream.
 """
 
 from __future__ import annotations
@@ -39,16 +39,12 @@ def _decode_rendered(
     pad_to_multiple: Optional[int] = None,
 ) -> List[str]:
     """Batched greedy decode over already-rendered prompt strings on the
-    params' device -> response texts (stop tokens included)."""
+    params' device -> response texts (stop tokens included); speculative
+    under ``TBX_SPECULATE=1`` (``decode.dispatch_decode``)."""
     padded, valid, positions, _ = decode.encode_prompts(
         tok, list(rendered), rendered=True, pad_to_multiple=pad_to_multiple)
-    device = params["embed"].device
-    result = decode.greedy_decode(
-        params, cfg,
-        torch.from_numpy(padded).long().to(device),
-        torch.from_numpy(valid).to(device),
-        torch.from_numpy(positions).long().to(device),
-        max_new_tokens=max_new_tokens,
+    result = decode.dispatch_decode(
+        params, cfg, padded, valid, positions, max_new_tokens=max_new_tokens,
         edit_fn=edit_fn, edit_params=edit_params)
     return decode.decode_texts(tok, result)
 

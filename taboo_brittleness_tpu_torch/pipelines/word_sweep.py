@@ -24,8 +24,9 @@ model: a shared-model loader pays one decode per mode for the whole list,
 real per-word checkpoints recompute.  The tokenizer is part of the key
 because payloads hold decoded text.
 
-The JAX package's telemetry observer, preemption drain and per-word
-speculation plan are not ported.
+Each word is made the speculative decoder's active word as it loads
+(``speculate.set_active_word``), so a calibrated plan applies per word.  The
+JAX package's telemetry observer and preemption drain are not ported.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ import os
 from typing import Any, Callable, Dict, Optional, Sequence
 
 from taboo_brittleness_tpu_torch.config import Config
-from taboo_brittleness_tpu_torch.runtime import resilience
+from taboo_brittleness_tpu_torch.runtime import resilience, speculate
 from taboo_brittleness_tpu_torch.runtime.checkpoints import prefetch_next
 from taboo_brittleness_tpu_torch.runtime.resilience import (
     FailureLedger,
@@ -80,6 +81,8 @@ def sweep_words(
 
         def run_one(word: str = word, i: int = i) -> Dict[str, Any]:
             set_stage("checkpoint.load")
+            # The speculative decoder's per-word plan rides module state.
+            speculate.set_active_word(word)
             loaded = model_loader(word)
             # The first pending word after this one, not a rescan of all.
             nxt = next((w for w in words[i + 1:]

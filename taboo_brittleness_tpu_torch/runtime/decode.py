@@ -6,7 +6,8 @@ single-token steps over a shared KV cache until every row has emitted a stop
 token or the budget is spent (finished rows emit pad, so the outputs equal
 those of running out the budget).  JAX runs the steps as one compiled
 ``while_loop``; here it is a Python loop that checks ``done.all()`` once per
-step.
+step.  :func:`generate` can route a launch through the speculative decoder
+(``runtime.speculate``) instead.
 
 Greedy argmax (first index among equal logits, as ``jnp.argmax``) makes the
 token streams the JAX package's for the same weights.
@@ -308,23 +309,47 @@ def generate(
     (result, response_texts or None, per-row prompt ids); the response text
     is the generation only (``full_text`` gives the reference's form).
     ``prefills`` and ``rendered`` go to :func:`encode_prompts`; the edit and
-    prefill-cache arguments to :func:`greedy_decode`."""
+    prefill-cache arguments to :func:`greedy_decode`.
+
+    Fires the ``decode.launch`` fault site; decodes through
+    :func:`dispatch_decode`."""
+    from taboo_brittleness_tpu_torch.runtime import resilience
+
+    resilience.fire("decode.launch", rows=len(prompts))
     padded, valid, positions, ids = encode_prompts(
         tok, prompts, prefills=prefills, pad_to_multiple=pad_to_multiple,
         rendered=rendered)
-    device = params["embed"].device
-    result = greedy_decode(
-        params, cfg,
-        torch.from_numpy(padded).long().to(device),
-        torch.from_numpy(valid).to(device),
-        torch.from_numpy(positions).long().to(device),
-        max_new_tokens=max_new_tokens,
-        edit_fn=edit_fn,
-        edit_params=edit_params,
+    result = dispatch_decode(
+        params, cfg, padded, valid, positions, max_new_tokens=max_new_tokens,
+        edit_fn=edit_fn, edit_params=edit_params,
         capture_residual_layer=capture_residual_layer,
         return_prefill_cache=return_prefill_cache)
     texts = decode_texts(tok, result) if return_texts else None
     return result, texts, ids
+
+
+def dispatch_decode(params: Params, cfg: Gemma2Config, padded: np.ndarray,
+                    valid: np.ndarray, positions: np.ndarray,
+                    **kw) -> DecodeResult:
+    """One batched decode of host-padded prompts on the params' device:
+    :func:`greedy_decode`, or with ``TBX_SPECULATE=1``
+    ``runtime.speculate.speculative_decode`` at ``resolve_plan(cfg)`` (the
+    same greedy stream; a residual-capturing launch only with
+    ``TBX_SPECULATE_CAPTURE=1`` as well).  ``kw`` goes to the decoder."""
+    from taboo_brittleness_tpu_torch.runtime import speculate
+
+    device = params["embed"].device
+    args = (torch.from_numpy(padded).long().to(device),
+            torch.from_numpy(valid).to(device),
+            torch.from_numpy(positions).long().to(device))
+    capture = kw.get("capture_residual_layer") is not None
+    if speculate.should_speculate(capture=capture):
+        plan = speculate.resolve_plan(cfg)
+        result, _stats = speculate.speculative_decode(
+            params, cfg, *args, draft_layer=plan.draft_layer,
+            block_size=plan.block_size, **kw)
+        return result
+    return greedy_decode(params, cfg, *args, **kw)
 
 
 def full_text(tok, prompt_ids: Sequence[int], result: DecodeResult, row: int) -> str:

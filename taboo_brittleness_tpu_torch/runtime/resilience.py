@@ -12,11 +12,18 @@ The PyTorch port's copy of the part of the JAX package's
   transient-vs-permanent error classification (:func:`is_transient`);
 - :class:`FailureLedger` — the per-sweep ``<output_dir>/_failures.json``;
 - :func:`run_guarded` — retry one word's work, then quarantine it and let the
-  sweep continue.
+  sweep continue;
+- :class:`Deadline` / :func:`run_with_deadline` — host-side watchdogs that
+  turn a hung stage into a retryable :class:`DeadlineExceeded`;
+- the fault plan (:class:`FaultSpec`, :class:`FaultInjector`, :func:`fire`,
+  ``TABOO_FAULT_PLAN``) — deterministic faults armed at the named sites of
+  :data:`FAULT_SITES`.
 
 The ledger's file schema is the JAX package's (version 3), so either package
-resumes a sweep the other started.  Supervised incarnations, fleet worker
-stamps, deadlines and fault injection are not ported yet.
+resumes a sweep the other started, and a fault plan written for the JAX
+package arms the same sites here.  Supervised runs and fleet worker stamps
+are not ported: the ledger stamps incarnation 0, and a fault spec's
+``incarnation`` scope reads ``TBX_INCARNATION`` only.
 """
 
 from __future__ import annotations
@@ -26,10 +33,35 @@ import json
 import logging
 import os
 import random
+import threading
 import time
 from typing import Any, Callable, Dict, Iterator, List, Optional
 
 _log = logging.getLogger(__name__)
+
+INCARNATION_ENV = "TBX_INCARNATION"
+
+
+def current_incarnation() -> int:
+    """The ``TBX_INCARNATION`` ordinal (0 when unset or malformed)."""
+    try:
+        return int(os.environ.get(INCARNATION_ENV, "0"))
+    except ValueError:
+        return 0
+
+
+class InjectedFault(OSError):
+    """A deliberately injected *transient* fault (fault-injection harness)."""
+
+
+class InjectedPermanentFault(RuntimeError):
+    """A deliberately injected *permanent* fault — never retried."""
+
+
+class DeadlineExceeded(TimeoutError):
+    """A host-side stage overran its watchdog deadline (transient: a hung
+    read often succeeds on retry)."""
+
 
 # OSErrors that retrying cannot fix: the filesystem object is missing or
 # forbidden, not flaky (a missing safetensors shard stays missing).
@@ -44,12 +76,17 @@ _PERMANENT_OS_ERRORS = (
 def is_transient(exc: BaseException) -> bool:
     """Transient (worth retrying) vs permanent (fail fast / quarantine).
 
-    Transient: IO-shaped errors (``OSError`` family — interrupted reads,
-    ``ETIMEDOUT``, connection resets) except the permanent subset above.
-    Everything else — value/shape errors, missing keys, CUDA errors raised as
-    ``RuntimeError`` — is a bug or a missing artifact, and retrying would only
-    replay it.
+    Transient: injected transient faults, deadline overruns, and IO-shaped
+    errors (``OSError`` family — interrupted reads, ``ETIMEDOUT``, connection
+    resets) except the permanent subset above.  Everything else —
+    value/shape errors, missing keys, CUDA errors raised as ``RuntimeError``,
+    injected permanent faults — is a bug or a missing artifact, and retrying
+    would only replay it.
     """
+    if isinstance(exc, InjectedPermanentFault):
+        return False
+    if isinstance(exc, (InjectedFault, DeadlineExceeded)):
+        return True
     if isinstance(exc, _PERMANENT_OS_ERRORS):
         return False
     return isinstance(exc, (OSError, ConnectionError, TimeoutError))
@@ -152,6 +189,255 @@ class RetryPolicy:
                 if on_retry is not None:
                     on_retry(exc, attempt, delay)
                 sleep(delay)
+
+
+class Deadline:
+    """Cooperative deadline for host-side stages: create with a budget, call
+    :meth:`check` at safe points.  Monotonic clock, so wall-clock steps
+    cannot fire or starve it."""
+
+    def __init__(self, seconds: float, *, stage: str = ""):
+        self.seconds = float(seconds)
+        self.stage = stage
+        self._end = time.monotonic() + self.seconds
+
+    def remaining(self) -> float:
+        return self._end - time.monotonic()
+
+    def expired(self) -> bool:
+        return self.remaining() <= 0.0
+
+    def check(self) -> None:
+        if self.expired():
+            raise DeadlineExceeded(
+                f"stage {self.stage or '<unnamed>'} exceeded its "
+                f"{self.seconds:.1f}s deadline")
+
+
+def run_with_deadline(
+    fn: Callable[[], Any],
+    timeout: Optional[float],
+    *,
+    stage: str = "",
+) -> Any:
+    """Run ``fn`` on a watchdog'd worker thread; raise
+    :class:`DeadlineExceeded` if it does not finish within ``timeout``
+    seconds.  ``timeout=None``/``<=0`` runs inline (no watchdog).
+
+    The overrun worker is daemonized and abandoned, not killed (Python has
+    no safe cross-thread kill): paired with :class:`RetryPolicy`, the
+    timeout becomes a clean retry while the wedged thread dies with the
+    process.  CUDA work issued from the worker goes to the same default
+    stream as the caller's, so it is ordered with it.
+    """
+    if timeout is None or timeout <= 0:
+        return fn()
+    result: Dict[str, Any] = {}
+
+    def run() -> None:
+        try:
+            result["value"] = fn()
+        except BaseException as exc:  # noqa: BLE001 — re-raised on the caller
+            result["error"] = exc
+
+    t = threading.Thread(target=run, name=f"deadline-{stage or 'stage'}",
+                         daemon=True)
+    t.start()
+    t.join(timeout)
+    if t.is_alive():
+        raise DeadlineExceeded(
+            f"stage {stage or '<unnamed>'} exceeded its {timeout:.1f}s "
+            "deadline (worker abandoned)")
+    if "error" in result:
+        raise result["error"]
+    return result["value"]
+
+
+# ---------------------------------------------------------------------------
+# Deterministic fault injection.
+# ---------------------------------------------------------------------------
+
+#: The named fault sites the port fires.  Arming an unknown site is an error
+#: (a typo'd plan must fail loudly, not silently no-op).
+FAULT_SITES = (
+    "checkpoint.read",    # CheckpointManager._load_triple, every attempt
+    "cache.write",        # runtime.delta.save_delta (after the rename)
+    "prefetch.thread",    # CheckpointManager.prefetch worker
+    "decode.launch",      # runtime.decode.generate
+    "speculate.verify",   # runtime.speculate.speculative_decode, before
+    #                       every verify block (context: block + rows); the
+    #                       word-level run_guarded retry/quarantine owns it
+)
+
+_FAULT_MODES = ("fail", "delay", "truncate", "die")
+
+#: ``die`` default exit status: what the shell reports for SIGKILL (128+9).
+DIE_EXIT_CODE = 137
+
+
+@dataclasses.dataclass
+class FaultSpec:
+    """One armed schedule at one site.
+
+    - ``mode="fail"``: raise (``kind`` transient/permanent);
+    - ``mode="delay"``: sleep ``delay`` seconds (watchdog exercise);
+    - ``mode="truncate"``: truncate the file at the context's ``path`` to
+      half its size (a torn write, as a later resume sees it);
+    - ``mode="die"``: ``os._exit(exit_code)`` on the spot (SIGKILL-like);
+    - ``times``: fire only on the first N matching calls; ``None`` fires
+      every time;
+    - ``match``: fire only when some context value contains this substring;
+    - ``incarnation``: fire only when ``TBX_INCARNATION`` equals it.
+    """
+
+    mode: str = "fail"
+    times: Optional[int] = 1
+    kind: str = "transient"          # "transient" | "permanent"
+    delay: float = 0.0
+    match: Optional[str] = None
+    incarnation: Optional[int] = None
+    exit_code: int = DIE_EXIT_CODE
+    fired: int = 0                   # call counter: the schedule depends only
+    #                                  on call order
+
+    def __post_init__(self) -> None:
+        if self.mode not in _FAULT_MODES:
+            raise ValueError(
+                f"unknown fault mode {self.mode!r}; expected {_FAULT_MODES}")
+        if self.kind not in ("transient", "permanent"):
+            raise ValueError(
+                f"unknown fault kind {self.kind!r}; "
+                "expected 'transient' or 'permanent'")
+
+    def matches(self, context: Dict[str, Any]) -> bool:
+        if (self.incarnation is not None
+                and self.incarnation != current_incarnation()):
+            return False
+        if self.match is None:
+            return True
+        return any(self.match in str(v) for v in context.values())
+
+
+class FaultInjector:
+    """Deterministic registry of armed fault sites.
+
+    Tests arm programmatically (:meth:`arm`); operators arm through the
+    ``TABOO_FAULT_PLAN`` env var — inline JSON or a path to a JSON file —
+    mapping site names to spec dicts (or lists of them)::
+
+        TABOO_FAULT_PLAN='{"checkpoint.read":
+            {"mode": "fail", "times": 2, "match": "ship"}}'
+
+    Firing is thread-safe (the prefetch site runs on worker threads) and
+    counts per spec in call order, so a plan replays identically.
+    """
+
+    def __init__(self) -> None:
+        self._specs: Dict[str, List[FaultSpec]] = {}
+        self._lock = threading.Lock()
+
+    def arm(self, site: str, spec: Optional[FaultSpec] = None,
+            **kw: Any) -> FaultSpec:
+        if site not in FAULT_SITES:
+            raise ValueError(
+                f"unknown fault site {site!r}; known sites: {FAULT_SITES}")
+        spec = spec if spec is not None else FaultSpec(**kw)
+        with self._lock:
+            self._specs.setdefault(site, []).append(spec)
+        return spec
+
+    def clear(self, site: Optional[str] = None) -> None:
+        with self._lock:
+            if site is None:
+                self._specs.clear()
+            else:
+                self._specs.pop(site, None)
+
+    @property
+    def armed(self) -> bool:
+        return bool(self._specs)
+
+    @classmethod
+    def from_plan(cls, plan: Dict[str, Any]) -> "FaultInjector":
+        inj = cls()
+        for site, specs in plan.items():
+            for spec in ([specs] if isinstance(specs, dict) else specs):
+                inj.arm(site, **spec)
+        return inj
+
+    @classmethod
+    def from_env(cls, env_var: str = "TABOO_FAULT_PLAN") -> "FaultInjector":
+        raw = os.environ.get(env_var, "").strip()
+        if not raw:
+            return cls()
+        if not raw.startswith("{"):
+            with open(raw) as f:
+                raw = f.read()
+        return cls.from_plan(json.loads(raw))
+
+    def fire(self, site: str, **context: Any) -> None:
+        """Evaluate ``site``'s armed schedules against ``context``: raise,
+        delay, truncate or exit per the first matching spec with shots
+        left; a no-op when nothing matches."""
+        with self._lock:
+            spec = None
+            for s in self._specs.get(site, ()):
+                if not s.matches(context):
+                    continue
+                if s.times is not None and s.fired >= s.times:
+                    continue
+                s.fired += 1
+                spec = s
+                break
+        if spec is None:
+            return
+        detail = ", ".join(f"{k}={v}" for k, v in sorted(context.items()))
+        label = site + (f" [{detail}]" if detail else "")
+        if spec.mode == "die":
+            os._exit(spec.exit_code)
+            return  # reachable only with os._exit stubbed out
+        if spec.mode == "delay":
+            time.sleep(spec.delay)
+            return
+        if spec.mode == "truncate":
+            path = context.get("path")
+            if path and os.path.exists(path):
+                with open(path, "r+b") as f:
+                    f.truncate(os.path.getsize(path) // 2)
+            return
+        if spec.kind == "permanent":
+            raise InjectedPermanentFault(f"injected permanent fault at {label}")
+        raise InjectedFault(f"injected transient fault at {label}")
+
+
+# The process-wide injector, built from TABOO_FAULT_PLAN on first use, so
+# `fire()` at an unarmed site costs one check.
+_injector: Optional[FaultInjector] = None
+_injector_lock = threading.Lock()
+
+
+def get_injector() -> FaultInjector:
+    global _injector
+    with _injector_lock:
+        if _injector is None:
+            _injector = FaultInjector.from_env()
+        return _injector
+
+
+def set_injector(injector: Optional[FaultInjector]) -> None:
+    """Install (or with None, reset to the env plan) the process-wide
+    injector — the test hook."""
+    global _injector
+    with _injector_lock:
+        _injector = injector
+
+
+def fire(site: str, **context: Any) -> None:
+    """The sites' entry point (``fire("checkpoint.read", word=word)``): a
+    no-op unless a plan armed ``site``."""
+    inj = get_injector()
+    if inj.armed:
+        inj.fire(site, **context)
 
 
 LEDGER_FILENAME = "_failures.json"

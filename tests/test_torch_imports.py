@@ -39,7 +39,8 @@ def _port_files():
 def test_every_module_imports_with_jax_blocked():
     modules = _modules()
     for name in ("ops.lens_kernel", "pipelines.word_sweep",
-                 "pipelines.token_forcing", "pipelines.prompting"):
+                 "pipelines.token_forcing", "pipelines.prompting",
+                 "runtime.delta", "runtime.speculate", "perf.spec_calibrate"):
         assert f"taboo_brittleness_tpu_torch.{name}" in modules
     code = (
         "import sys\n"
