@@ -106,6 +106,28 @@ the kernels are built for sm_90a).  Phases, each of which fails the run:
    sources and seconds, and the phase's peak memory are printed.  No kernel
    of its own: the draft head is a ``torch.matmul`` + argmax.
 
+10. the decode launch path, at the same width on phase 6's params: every
+   decode of phases 6 to 9 already steps through ``runtime.aot``'s CUDA
+   graphs (phase 8's peak memory must stay under ``PEAK_GIB``); here one
+   eager and one graphed step of the main path's 10-row decode under
+   ``torch.profiler`` (kernels per step, host and device ms, the eager
+   step's device time split into attention, weight matmuls and the rest)
+   and 20 of each timed with CUDA events; the main path's decode eager
+   (``TBX_AOT=0``) and graphed in turns A B A B, tokens and residual
+   compared; a 330-row ablation and a 220-row projection launch of the
+   study, eager and graphed, tokens, residual and ΔNLL compared;
+   ``run_intervention_study`` with ``TBX_FUSED=1`` against ``TBX_FUSED=0``
+   (JSON identical), then ``warm_start_study`` and the study again (zero
+   misses), then the studies driver over two words with and without its
+   cross-word pre-dispatch (timed); graphed decodes of two words of equal
+   shapes, each against its own eager decode (the second must not
+   reproduce the first's tokens); speculation at G = 3 graphed against
+   eager (tokens equal).  Graphed results are held bit-equal to eager.
+   Should tokens differ, the max abs diff and first diverging tokens are
+   printed and the tokens held under phase 9's margin rule, the residual
+   still bit-equal on the columns before a row's first divergence and the
+   ΔNLL everywhere.
+
 The line before the last is ``{"kernels": [...]}``, one entry per route
 (times in ms, measured here; ``bound_ms`` from this run's shapes and the
 card's published peaks; ``launches`` from the main path's run); the last
@@ -115,6 +137,7 @@ checkout, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -844,7 +867,6 @@ def check_folded_arm(torch, params, cfg, tok, config, state, sets, launched,
     not held: the arm alone through ``measure_arm`` (B rows), where bf16
     matmuls of another row count round differently."""
     from taboo_brittleness_tpu_torch.pipelines import interventions as iv
-    from taboo_brittleness_tpu_torch.runtime import decode
 
     iv_cfg = config.intervention
     B = len(config.prompts)
@@ -863,14 +885,14 @@ def check_folded_arm(torch, params, cfg, tok, config, state, sets, launched,
         fail("the study's baseline differs from the baseline state")
 
     captured = []
-    orig_generate = decode.generate
+    orig_launch = iv._study_launch
 
-    def recording_generate(*args, **kwargs):
-        result = orig_generate(*args, **kwargs)
-        captured.append(result[0].tokens.cpu().numpy())
+    def recording_launch(*args, **kwargs):
+        result = orig_launch(*args, **kwargs)
+        captured.append(result.tokens.cpu().numpy())
         return result
 
-    decode.generate = recording_generate
+    iv._study_launch = recording_launch
     try:
         copies = iv.measure_arms(
             params, cfg, tok, config, state, edit_fn, shared,
@@ -880,7 +902,7 @@ def check_folded_arm(torch, params, cfg, tok, config, state, sets, launched,
         alone = iv.measure_arm(params, cfg, tok, config, state, edit_fn,
                                {**shared, "latent_ids": arm_ids})
     finally:
-        decode.generate = orig_generate
+        iv._study_launch = orig_launch
     same = copies[local]
     rows_equal = int((captured[0][rows] == folded).all(axis=1).sum())
     gap = abs(same.delta_nll - want["delta_nll"])
@@ -926,14 +948,14 @@ def drive_interventions(torch, workdir: str, ctx: tuple) -> tuple:
     check_sae_baseline(torch, sae, config, processed, gen_word)
 
     launched = []
-    orig_generate = decode.generate
+    orig_launch = iv._study_launch
 
-    def recording_generate(*args, **kwargs):
-        result = orig_generate(*args, **kwargs)
-        launched.append((len(args[3]), result[0].tokens.cpu().numpy()))
+    def recording_launch(*args, **kwargs):
+        result = orig_launch(*args, **kwargs)
+        launched.append((len(args[4]), result.tokens.cpu().numpy()))
         return result
 
-    decode.generate = recording_generate
+    iv._study_launch = recording_launch
     orig_sets = iv.measure_arm_sets
     timer = PhaseTimer(torch)
     try:
@@ -973,9 +995,9 @@ def drive_interventions(torch, workdir: str, ctx: tuple) -> tuple:
                 (iv, "plan_ablation_sweep", "scoring + PCA"),
                 (iv, "plan_projection_sweep", "scoring + PCA"),
                 (iv, "measure_arm_sets", "arm launches"),
-                (decode, "generate", "decode"),
+                (decode, "greedy_decode", "decode"),
                 (iv, "_residual_measure", "readout"),
-                (iv, "_teacher_forced_nll_cached", "nll")):
+                (iv, "_nll_continue", "nll")):
             timer.wrap(module, name, label)
         out = os.path.join(workdir, "interventions", f"{word}.json")
         t0 = time.perf_counter()
@@ -984,7 +1006,7 @@ def drive_interventions(torch, workdir: str, ctx: tuple) -> tuple:
         t_study = time.perf_counter() - t0
     finally:
         timer.restore()
-        decode.generate = orig_generate
+        iv._study_launch = orig_launch
         iv.measure_arm_sets = orig_sets
     peak = torch.cuda.max_memory_allocated()
 
@@ -1043,65 +1065,42 @@ def drive_interventions(torch, workdir: str, ctx: tuple) -> tuple:
 
 
 class DecodeRecorder:
-    """Wraps ``decode.greedy_decode`` while phases 8 and 9 run: each launch's
-    row count, synchronised host seconds, tokens (on the host), whether it
-    captured a residual, and ``margins`` [rows, N]: the top-1 minus top-2
-    logit behind each generated token (inf after the last step), read from
-    the logits the decode itself computed (``decode.unembed`` for the first
-    token, ``decode.forward`` for each step)."""
+    """Wraps ``decode.greedy_decode`` while phases 8 to 10 run: each
+    launch's row count, synchronised host seconds, tokens (on the host),
+    whether it captured a residual, and ``margins`` [rows, N]: the top-1
+    minus top-2 logit behind each generated token (inf after the last step
+    run), which the decode reads from its own logits (``return_margins``;
+    its steps are graph replays, so no host hook could see them)."""
 
     def __init__(self, torch):
         from taboo_brittleness_tpu_torch.runtime import decode
 
         self.torch, self.decode = torch, decode
-        self.orig = (decode.greedy_decode, decode.forward, decode.unembed)
+        self.orig = decode.greedy_decode
         self.launches = []
-        self._gaps = []
-
-    def _gap(self, logits):
-        top2 = logits[:, -1].float().topk(2, dim=-1).values
-        self._gaps.append(top2[:, 0] - top2[:, 1])
 
     def __enter__(self):
-        greedy, forward, unembed = self.orig
+        greedy = self.orig
 
         def recording(*args, **kwargs):
-            self._gaps = []
+            kwargs["return_margins"] = True
             self.torch.cuda.synchronize()
             t0 = time.perf_counter()
             result = greedy(*args, **kwargs)
             self.torch.cuda.synchronize()
-            rows, n = result.tokens.shape
-            gaps = self.torch.stack(self._gaps[:n], dim=1).cpu().numpy()
-            margins = np.full((rows, n), np.inf)
-            margins[:, :gaps.shape[1]] = gaps
             self.launches.append({
-                "rows": int(rows),
+                "rows": int(result.tokens.shape[0]),
                 "seconds": time.perf_counter() - t0,
                 "tokens": result.tokens.cpu().numpy(),
-                "margins": margins,
+                "margins": result.margins.double().cpu().numpy(),
                 "capture": kwargs.get("capture_residual_layer") is not None})
             return result
 
-        def forward_gap(*args, **kwargs):
-            res = forward(*args, **kwargs)
-            if res.logits is not None:
-                self._gap(res.logits)
-            return res
-
-        def unembed_gap(*args, **kwargs):
-            out = unembed(*args, **kwargs)
-            self._gap(out)
-            return out
-
         self.decode.greedy_decode = recording
-        self.decode.forward = forward_gap
-        self.decode.unembed = unembed_gap
         return self
 
     def __exit__(self, *exc):
-        (self.decode.greedy_decode, self.decode.forward,
-         self.decode.unembed) = self.orig
+        self.decode.greedy_decode = self.orig
 
     def take(self, capture: bool = None) -> list:
         """Launches recorded so far (of one capture kind), then clears."""
@@ -1109,6 +1108,47 @@ class DecodeRecorder:
                if capture is None or x["capture"] == capture]
         self.launches = []
         return out
+
+
+class PatchLog:
+    """Each row's patch at the edit layer (the L2 norm of edited minus
+    unedited residual, summed over the chunk's columns) at every call of
+    the SAE edit, kept in device buffers per row count that a captured
+    step writes as well: slot 0 is the prefill's call (a chunk wider than
+    one column restarts the count), slot i + 1 step i's.  The buffers are
+    made at a launch shape's first call, which is eager (a capture's
+    warm-up or a prefill)."""
+
+    SLOTS = 512
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.bufs = {}
+
+    def edit(self, h, idx, ep):
+        from taboo_brittleness_tpu_torch.pipelines import interventions as iv
+
+        out = iv.sae_ablation_edit(h, idx, ep)
+        if out is h:
+            return out
+        rows = h.shape[0]
+        if rows not in self.bufs:
+            self.bufs[rows] = (
+                self.torch.zeros((self.SLOTS, rows), device=h.device),
+                self.torch.zeros((1,), dtype=self.torch.long, device=h.device))
+        acc, n = self.bufs[rows]
+        if h.shape[1] > 1:
+            n.zero_()
+            acc.zero_()
+        acc.index_copy_(0, n.clamp(max=self.SLOTS - 1),
+                        (out - h).float().norm(dim=-1).sum(dim=-1)[None])
+        n.add_(1)
+        return out
+
+    def rows(self, rows: int):
+        """[rows, calls] of the last launch at that row count (numpy)."""
+        acc, n = self.bufs[rows]
+        return acc[:int(n)].T.cpu().numpy().copy()
 
 
 def _strip_forcing(study: dict) -> dict:
@@ -1206,7 +1246,6 @@ def check_arms_under_forcing(torch, ctx: tuple, sae, ablation_set, rec,
     in the postgame), and its tokens and patches equal those of the launch
     made again with the same rendered rows and this arm's ids on every row
     (A copies of it, so no other arm's edit is anywhere)."""
-    from taboo_brittleness_tpu_torch.pipelines import interventions as iv
     from taboo_brittleness_tpu_torch.pipelines import token_forcing as tf
 
     params, cfg, tok, config = ctx[:4]
@@ -1217,16 +1256,13 @@ def check_arms_under_forcing(torch, ctx: tuple, sae, ablation_set, rec,
     A, P = len(stack), len(config.token_forcing.prefill_phrases)
     recorded, patches = [], []
     orig = tf._decode_rendered
+    log_ = PatchLog(torch)
+    recording_edit = log_.edit
 
     def keep_rows(params_, cfg_, tok_, rendered, **kw):
         recorded.append(list(rendered))
-        patches.append([])
-        return orig(params_, cfg_, tok_, rendered, **kw)
-
-    def recording_edit(h, idx, ep):
-        out = iv.sae_ablation_edit(h, idx, ep)
-        if out is not h:
-            patches[-1].append((out - h).float().norm(dim=-1).sum(dim=-1))
+        out = orig(params_, cfg_, tok_, rendered, **kw)
+        patches.append(log_.rows(len(rendered)))
         return out
 
     tf._decode_rendered = keep_rows
@@ -1264,10 +1300,7 @@ def check_arms_under_forcing(torch, ctx: tuple, sae, ablation_set, rec,
         f"not held: bf16 rounding depends on the row count): tokens equal on "
         f"{alone}/{P} rows; arm success {json.dumps(res[0])}")
 
-    def as_rows(calls):   # [rows, calls at the edit layer]
-        return torch.stack(calls, dim=1).cpu().numpy()
-
-    mixed_patches = [as_rows(c) for c in patches]
+    mixed_patches = list(patches)
     budgets = list(iv_cfg.budgets)
     k = 1 + budgets.index(max(budgets))
     arm_ids = torch.as_tensor(stack[k:k + 1], device=params["embed"].device)
@@ -1275,12 +1308,11 @@ def check_arms_under_forcing(torch, ctx: tuple, sae, ablation_set, rec,
     seen = []
     for rendered, mixed, mixed_patch in zip(recorded, launched, mixed_patches):
         r = len(rendered) // A
-        patches.append([])
         tf._decode_rendered(
             params, cfg, tok, rendered, edit_fn=recording_edit,
             edit_params={**shared, "latent_ids": arm_ids.repeat_interleave(
                 len(rendered), dim=0)}, **kw)
-        copies, copies_patch = rec.take()[0], as_rows(patches.pop())
+        copies, copies_patch = rec.take()[0], log_.rows(len(rendered))
         arm = slice(k * r, (k + 1) * r)
         n = min(mixed_patch.shape[1], copies_patch.shape[1])
         got, want = mixed_patch[arm, :n], copies_patch[arm, :n]
@@ -1382,7 +1414,8 @@ def check_study_sweep(torch, workdir: str, ctx: tuple, sae, rec) -> None:
              f"expected moon and ship, {per_word} each")
     if loader.sources != [("moon", "sync"), ("ship", "prefetch")]:
         fail(f"the study sweep's loads came from {loader.sources}; expected "
-             "moon sync, ship from the prefetch")
+             "moon sync and ship once, from the prefetch (where moon's study "
+             "pre-dispatches ship's baseline; ship's turn takes that load)")
     with open(os.path.join(out_dir, "_failures.json")) as f:
         failures = json.load(f)
     if set(failures["quarantined"]) != {"bad"}:
@@ -1434,7 +1467,10 @@ def drive_attacks(torch, workdir: str, ctx: tuple, sae, ablation_set) -> list:
         check_study_sweep(torch, workdir, ctx, sae, rec)
     peak = max(earlier, torch.cuda.max_memory_allocated())
     log(f"attacks phase: {time.perf_counter() - t0:.2f} s; peak device memory "
-        f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated)")
+        f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated; limit "
+        f"{PEAK_GIB} GiB); graph registry {aot_summary()}")
+    if peak > PEAK_GIB * 2**30:
+        fail(f"phase 8 peaked at {peak / 2**30:.2f} GiB, over {PEAK_GIB} GiB")
     return forcing
 
 # Phase 9: the two words' edited leaves.  The norms are zeros in the base;
@@ -1858,6 +1894,409 @@ def drive_residency_and_speculation(torch, workdir: str, ctx: tuple,
         "(torch.cuda.max_memory_allocated)")
 
 
+# Phase 8's peak with both study launch shapes' KV caches resident.
+PEAK_GIB = 75
+
+
+def aot_summary() -> str:
+    from taboo_brittleness_tpu_torch.runtime import aot
+
+    st = aot.stats()
+    return (f"pooled KV {st.pop('pool_bytes') / 2**30:.2f} GiB, static edit "
+            f"params {st.pop('edit_bytes') / 2**30:.2f} GiB, graph pools "
+            f"{aot.graph_pool_bytes() / 2**30:.2f} GiB; " + "; ".join(
+        f"{name}: {v['programs']} programs, {v['hits']} hits, {v['misses']} "
+        f"misses, {v['captures']} captures in {v['capture_seconds']:.3f} s"
+        for name, v in sorted(st.items())))
+
+
+class AotOff:
+    """``TBX_AOT=0`` inside: eager steps over fresh buffers (the oracle)."""
+
+    def __enter__(self):
+        os.environ["TBX_AOT"] = "0"
+
+    def __exit__(self, *exc):
+        os.environ.pop("TBX_AOT", None)
+
+
+def _held_equal(what: str, got: dict, want: dict, fields=("tokens",)) -> None:
+    """Graphed (``got``) against eager (``want``), host numpy.  A replay
+    runs the eager step's kernels at the same shapes, so each field is
+    held bit-equal.  Where tokens differ, the max abs diffs and the first
+    diverging tokens are printed and the tokens held under phase 9's
+    margin rule; the residual is still held bit-equal on every column
+    computed from equal tokens (the prompt's, and a row's generated
+    columns before its first divergence), and the ΔNLL, which scores the
+    baseline continuation and not the decoded tokens, everywhere."""
+    if all(np.array_equal(got[f], want[f]) for f in fields):
+        log(f"  {what}: graphed equal to eager bit for bit ({', '.join(fields)})")
+        return
+    diff = {f: float(np.abs(got[f].astype(np.float64)
+                            - want[f].astype(np.float64)).max())
+            for f in fields}
+    div = _first_divergences(got["tokens"], want["tokens"], want["margins"])
+    log(f"  {what}: graphed differs from eager, max abs diff "
+        + ", ".join(f"{f} {d:.3e}" for f, d in diff.items())
+        + "; first diverging token per row "
+        + str([d for d in div if d is not None][:4]))
+    _hold_rows(what, got["tokens"], want)
+    if "nll" in fields and not np.array_equal(got["nll"], want["nll"]):
+        fail(f"{what}: the graphed launch's ΔNLL differs from eager's")
+    if "residual" in fields:
+        N = want["tokens"].shape[1]
+        T = want["residual"].shape[1] - N
+        bad = [b for b, d in enumerate(div) if not np.array_equal(
+            got["residual"][b, :T + (N if d is None else d[0])],
+            want["residual"][b, :T + (N if d is None else d[0])])]
+        if bad:
+            fail(f"{what}: rows {bad}' residual differs from eager's before "
+                 "their tokens do")
+
+
+def _profile_step(torch, step) -> dict:
+    """One call of ``step`` under ``torch.profiler``: kernels launched,
+    host ms (enqueue), device ms (kernel time, summed) and the device time
+    of the attention ops (``bmm``, softmax, mask), the weight matmuls
+    (``mm``) and the rest; CUDA events give the wall time on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    device_us = sum(e.time_range.elapsed_us() for e in kernels)
+    by_op = {}
+    for k in prof.key_averages():
+        us = getattr(k, "self_device_time_total",
+                     getattr(k, "self_cuda_time_total", 0))
+        by_op[k.key] = by_op.get(k.key, 0) + us
+    attention = sum(by_op.get(k, 0) for k in
+                    ("aten::bmm", "aten::_softmax", "aten::masked_fill_",
+                     "aten::masked_fill"))
+    matmul = sum(by_op.get(k, 0) for k in ("aten::mm", "aten::addmm"))
+    top = sorted(((us, k) for k, us in by_op.items() if k.startswith("aten::")),
+                 reverse=True)[:6]
+    return {"kernels": len(kernels), "host_ms": host * 1e3,
+            "device_ms": device_us / 1e3, "attention_ms": attention / 1e3,
+            "matmul_ms": matmul / 1e3,
+            "top": ", ".join(f"{k[6:]} {us / 1e3:.3f}" for us, k in top)}
+
+
+def profile_program(torch, params, prog, label: str) -> None:
+    """One eager and one graphed step of a decode program over its own
+    buffers, profiled, then 20 of each timed with CUDA events."""
+    b = prog.state[0]
+
+    def eager():
+        prog.step(params)
+
+    def graphed():
+        prog.run(params)
+
+    out = {}
+    for name, fn in (("eager", eager), ("graphed", graphed)):
+        b.i.zero_()
+        fn()
+        out[name] = _profile_step(torch, fn)
+        b.i.zero_()
+        out[name]["step_ms"] = timed_ms(torch, fn, 20)
+    for name, r in out.items():
+        split = ""
+        if name == "eager":   # a graph replay's kernels have no op to name
+            split = (f" (attention {r['attention_ms']:.3f}, weight matmuls "
+                     f"{r['matmul_ms']:.3f}, rest "
+                     f"{r['device_ms'] - r['attention_ms'] - r['matmul_ms']:.3f};"
+                     f" ops by self device ms: {r['top']})")
+        log(f"  {label} {name} step ({b.tok.shape[0]} rows, cache "
+            f"{b.cache.k.shape[2]} columns): {r['step_ms']:.3f} ms per step "
+            f"(CUDA events, 20 steps); profiled step: {r['kernels']} kernels, "
+            f"host {r['host_ms']:.3f} ms to enqueue, device {r['device_ms']:.3f} "
+            f"ms of kernels{split}")
+    if out["graphed"]["kernels"] == 0:
+        log("  the profiler saw no kernel inside the graph replay: its device "
+            "time is not measured")
+
+
+def _program(params, cfg, args, **static):
+    """The registry's decode program of one launch's key."""
+    from taboo_brittleness_tpu_torch.runtime import aot, decode
+
+    e = aot.entry("decode")
+    full = dict(cfg=cfg, edit_fn=None, stop_ids=decode.STOP_IDS,
+                capture_residual_layer=None, return_margins=False)
+    full.update(static)
+    ep = full.pop("edit_params", None)
+    return e.programs[e.signature(
+        dict(params=params, prompt_ids=args[0], prompt_valid=args[1],
+             prompt_positions=args[2], edit_params=ep), full)]
+
+
+def check_step_profile(torch, ctx: tuple) -> None:
+    """10.1: the main path's 10-row decode step, eager and graphed."""
+    from taboo_brittleness_tpu_torch.runtime import decode
+
+    params, cfg, _, config = ctx[:4]
+    args = _prompt_args(torch, ctx)
+    N = config.experiment.max_new_tokens
+    decode.greedy_decode(params, cfg, *args, max_new_tokens=N)
+    profile_program(torch, params, _program(params, cfg, args, max_new_tokens=N),
+                    "main path")
+
+
+def _prompt_args(torch, ctx: tuple, copies: int = 1) -> tuple:
+    """The config's prompts (``copies`` times), chat-formatted and padded
+    as ``decode.generate`` does, on the params' device."""
+    from taboo_brittleness_tpu_torch.runtime import decode
+
+    params, _, tok, config = ctx[:4]
+    padded, valid, positions, _ = decode.encode_prompts(
+        tok, list(config.prompts) * copies,
+        pad_to_multiple=config.experiment.pad_to_multiple)
+    dev = params["embed"].device
+    return (torch.from_numpy(padded).long().to(dev),
+            torch.from_numpy(valid).to(dev),
+            torch.from_numpy(positions).long().to(dev))
+
+
+def _decode_turns(torch, params, cfg, args, turns, **kw):
+    """Decodes in the given turns of ``"eager"`` / ``"graphed"``; returns
+    per mode the first result's host arrays and every turn's seconds."""
+    from taboo_brittleness_tpu_torch.runtime import decode
+
+    out = {}
+    for mode in turns:
+        with (AotOff() if mode == "eager" else contextlib.nullcontext()):
+            res, sec = _synced(torch, lambda: decode.greedy_decode(
+                params, cfg, *args, return_margins=True, **kw))
+        rec = out.setdefault(mode, {
+            "tokens": res.tokens.cpu().numpy(),
+            "margins": res.margins.double().cpu().numpy(),
+            "steps": int(res.lengths.max()), "seconds": []})
+        if res.residual is not None and "residual" not in rec:
+            rec["residual"] = res.residual.cpu().numpy()
+        rec["seconds"].append(sec)
+    return out
+
+
+def check_main_path_turns(torch, ctx: tuple) -> None:
+    """10.2: the main path's 10 prompts, eager and graphed in turns A B A
+    B, with the residual captured at the lens layer."""
+    params, cfg, _, config = ctx[:4]
+    args = _prompt_args(torch, ctx)
+    r = _decode_turns(torch, params, cfg, args,
+                      ["eager", "graphed", "eager", "graphed"],
+                      max_new_tokens=config.experiment.max_new_tokens,
+                      capture_residual_layer=config.model.layer_idx)
+    for mode, x in r.items():
+        log(f"  main path {mode}: decode seconds per turn "
+            + ", ".join(f"{t:.3f}" for t in x["seconds"])
+            + f" ({x['steps']} steps; "
+            + ", ".join(f"{1e3 * t / x['steps']:.3f}" for t in x["seconds"])
+            + " ms per step, prefill included)")
+    _held_equal("main path (10 rows)", r["graphed"], r["eager"],
+                ("tokens", "residual"))
+
+
+def check_study_launch_shapes(torch, ctx: tuple, sae, word: str) -> None:
+    """10.3: a 330-row SAE-ablation launch and a 220-row projection launch
+    of the study, eager and graphed: tokens, residual and ΔNLL, the ΔNLL
+    continued over the decode's own cache as ``fused.fused_study`` does."""
+    from taboo_brittleness_tpu_torch.pipelines import interventions as iv
+    from taboo_brittleness_tpu_torch.runtime import decode
+
+    params, cfg, tok, config = ctx[:4]
+    state = iv.prepare_word_state(params, cfg, tok, config, word)
+    B = len(config.prompts)
+    (abl_fn, abl_shared, abl_arms, _), _ = iv.plan_ablation_sweep(
+        params, cfg, tok, config, state, sae)
+    (proj_fn, proj_shared, proj_arms, _), _ = iv.plan_projection_sweep(
+        params, cfg, tok, config, state)
+    dev = params["embed"].device
+    for name, fn, shared, per_arm, A in (
+            ("ablation", abl_fn, abl_shared, abl_arms, 33),
+            ("projection", proj_fn, proj_shared, proj_arms, 22)):
+        pa = {k: torch.as_tensor(v, device=dev)[:A] for k, v in per_arm.items()}
+        ep = iv._tile_rows_ep(shared, pa, A, B)
+        args = _prompt_args(torch, ctx, A)
+        got = {}
+        for mode in ("eager", "graphed"):
+            with (AotOff() if mode == "eager" else contextlib.nullcontext()):
+                (dec, sec) = _synced(torch, lambda: decode.greedy_decode(
+                    params, cfg, *args,
+                    max_new_tokens=config.experiment.max_new_tokens,
+                    edit_fn=fn, edit_params=ep,
+                    capture_residual_layer=config.model.layer_idx,
+                    return_cache=True, return_margins=True))
+                s = state.resp_start
+                tiled = [torch.from_numpy(np.tile(a, (A, 1))).to(dev)
+                         for a in (state.sequences, state.valid,
+                                   state.positions, np.pad(
+                                       state.response_mask[:, 1:], ((0, 0), (0, 1))))]
+                nll = iv._nll_continue(
+                    params, cfg, dec.cache, tiled[0].long(),
+                    tiled[1].bool(), tiled[2].long(), tiled[3].bool(),
+                    edit_fn=fn,
+                    edit_params=iv._with_chunk_positions(ep, tiled[2][:, s:].long()),
+                    resp_start=s)
+            got[mode] = {"tokens": dec.tokens.cpu().numpy(),
+                         "margins": dec.margins.double().cpu().numpy(),
+                         "residual": dec.residual.cpu().numpy(),
+                         "nll": nll.cpu().numpy(), "seconds": sec,
+                         "steps": int(dec.lengths.max())}
+            del dec, nll
+        log(f"  study {name} launch ({A * B} rows): decode eager "
+            f"{got['eager']['seconds']:.3f} s, graphed "
+            f"{got['graphed']['seconds']:.3f} s ({got['graphed']['steps']} "
+            "steps)")
+        profile_program(torch, params, _program(
+            params, cfg, args, max_new_tokens=config.experiment.max_new_tokens,
+            edit_fn=fn, edit_params=ep,
+            capture_residual_layer=config.model.layer_idx, return_margins=True),
+            f"study {name}")
+        _held_equal(f"study {name} launch", got["graphed"], got["eager"],
+                    ("tokens", "residual", "nll"))
+
+
+def check_fused_and_warm_start(torch, ctx: tuple, sae, word: str) -> None:
+    """10.4: ``run_intervention_study`` with ``TBX_FUSED=1`` (launches
+    counted) against ``TBX_FUSED=0`` (JSON identical), then
+    ``warm_start_study`` and the study: zero misses.  Then the studies
+    driver over two words of one model with its cross-word pre-dispatch
+    off and on (timed, not held)."""
+    from taboo_brittleness_tpu_torch.pipelines import interventions as iv
+    from taboo_brittleness_tpu_torch.pipelines import word_sweep
+    from taboo_brittleness_tpu_torch.runtime import aot, fused
+
+    params, cfg, tok, config = ctx[:4]
+    runs = {}
+    for route in ("0", "1"):
+        os.environ["TBX_FUSED"] = route
+        launches = fused.launches
+        (res, sec) = _synced(torch, lambda: iv.run_intervention_study(
+            params, cfg, tok, config, word, sae))
+        runs[route] = (json.dumps(res, sort_keys=True), sec,
+                       fused.launches - launches)
+    log(f"  study ({word}) TBX_FUSED=0 {runs['0'][1]:.2f} s ({runs['0'][2]} "
+        f"counted launches), TBX_FUSED=1 {runs['1'][1]:.2f} s ({runs['1'][2]} "
+        f"counted launches); JSON identical: {runs['0'][0] == runs['1'][0]}")
+    if runs["0"][0] != runs["1"][0] or runs["0"][2] != 0 or runs["1"][2] < 5:
+        os.environ.pop("TBX_FUSED", None)
+        fail("the study's JSON or launch count differs between TBX_FUSED routes")
+    aot.reset()
+    rec = iv.warm_start_study(params, cfg, tok, config, sae)
+    before = aot.stats()
+    (_, sec) = _synced(torch, lambda: iv.run_intervention_study(
+        params, cfg, tok, config, word, sae))
+    os.environ.pop("TBX_FUSED", None)
+    after = aot.stats()["decode"]
+    log(f"  warm start: {rec['seconds']:.3f} s, "
+        + ", ".join(f"{r['label']} {r['source']} {r.get('seconds', 0):.3f} s"
+                    for r in rec["programs"])
+        + f"; captures {before['decode']['captures']} in "
+        f"{before['decode']['capture_seconds']:.3f} s; the study after "
+        f"it {sec:.2f} s with {after['misses']} misses, {after['hits']} hits")
+    if after["misses"] != 0 or rec["captures"] != len(rec["programs"]):
+        fail("the study missed programs the warm start should have made")
+
+    seconds = {}
+    for ahead in ("off", "on"):
+        if ahead == "off":      # no next word: nothing is pre-dispatched
+            iv.next_pending = lambda *a: None
+        try:
+            with tempfile.TemporaryDirectory(prefix="studies_") as out:
+                (_, sec) = _synced(torch, lambda: iv.run_intervention_studies(
+                    config, model_loader=lambda w: (params, cfg, tok), sae=sae,
+                    words=[word, "ship"], output_dir=out))
+        finally:
+            iv.next_pending = word_sweep.next_pending
+        seconds.setdefault(ahead, []).append(sec)
+    log(f"  studies driver over two words ({word}, ship; one model): "
+        f"{seconds['off'][0]:.3f} s without the pre-dispatch of ship's "
+        f"baseline, {seconds['on'][0]:.3f} s with it")
+
+
+def check_params_identity(torch, ctx: tuple) -> None:
+    """10.5: graphed decodes of two words of equal shapes (phase 9's
+    outweighed word beside phase 6's), each against its own eager decode;
+    the two words' tokens must differ, or the check could not see a graph
+    replaying the other word."""
+    from taboo_brittleness_tpu_torch.runtime import aot
+
+    params, cfg, _, config = ctx[:4]
+    args = _prompt_args(torch, ctx)
+    other = _outweighing_word(params)
+    N = config.experiment.max_new_tokens
+    graphed = [_decode_turns(torch, p, cfg, args, ["graphed"],
+                             max_new_tokens=N)["graphed"]
+               for p in (params, other)]
+    misses = aot.stats()["decode"]["misses"]
+    eager = [_decode_turns(torch, p, cfg, args, ["eager"],
+                           max_new_tokens=N)["eager"] for p in (params, other)]
+    rows_same = int((graphed[0]["tokens"] == graphed[1]["tokens"])
+                    .all(axis=1).sum())
+    log(f"  params identity: word 2's graphed tokens equal word 1's on "
+        f"{rows_same}/{len(config.prompts)} rows; registry misses so far "
+        f"{misses}")
+    for i in range(2):
+        _held_equal(f"word {i + 1} graphed vs eager", graphed[i], eager[i])
+    if rows_same == len(config.prompts) or np.array_equal(
+            graphed[1]["tokens"], eager[0]["tokens"]):
+        fail("the second word's graphed decode reproduces the first word's")
+
+
+def check_speculation_graphs(torch, ctx: tuple) -> None:
+    """10.6: ``TBX_SPECULATE=1`` at G = 3, graphed against eager."""
+    from taboo_brittleness_tpu_torch.runtime import decode
+
+    params, cfg, tok, config = ctx[:4]
+    os.environ.update(TBX_SPECULATE="1", TBX_SPEC_BLOCK="3")
+    try:
+        got = {}
+        for mode in ("eager", "graphed"):
+            with (AotOff() if mode == "eager" else contextlib.nullcontext()):
+                (res, sec) = _synced(torch, lambda: decode.generate(
+                    params, cfg, tok, list(config.prompts),
+                    max_new_tokens=config.experiment.max_new_tokens,
+                    pad_to_multiple=config.experiment.pad_to_multiple,
+                    return_texts=False)[0])
+            got[mode] = (res.tokens.cpu().numpy(), sec)
+    finally:
+        for name in ("TBX_SPECULATE", "TBX_SPEC_BLOCK"):
+            os.environ.pop(name, None)
+    equal = np.array_equal(got["eager"][0], got["graphed"][0])
+    log(f"  speculation G=3: eager {got['eager'][1]:.3f} s, graphed "
+        f"{got['graphed'][1]:.3f} s; tokens equal {equal}")
+    if not equal:
+        fail("speculative tokens under graphs differ from eager speculation")
+
+
+def drive_decode_launch(torch, ctx: tuple, sae) -> None:
+    """Phase 10: the graphed decode launch path, at the main path's width
+    on phase 6's params."""
+    t0 = time.perf_counter()
+    checks = (("10.1 step profile", lambda: check_step_profile(torch, ctx)),
+              ("10.2 main path", lambda: check_main_path_turns(torch, ctx)),
+              ("10.3 study launch shapes",
+               lambda: check_study_launch_shapes(torch, ctx, sae, "moon")),
+              ("10.4 fused study, warm start and pre-dispatch",
+               lambda: check_fused_and_warm_start(torch, ctx, sae, "moon")),
+              ("10.5 params identity", lambda: check_params_identity(torch, ctx)),
+              ("10.6 speculation", lambda: check_speculation_graphs(torch, ctx)))
+    for name, check in checks:
+        t1 = time.perf_counter()
+        log(f"phase {name}")
+        check()
+        log(f"  ({time.perf_counter() - t1:.2f} s)")
+    log(f"decode launch phase: {time.perf_counter() - t0:.2f} s; graph "
+        f"registry {aot_summary()}")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, PACKAGE)):
         fail(f"{PACKAGE}/ not found beside chip_smoke.py: run it from the "
@@ -1881,9 +2320,10 @@ def main() -> int:
         by_route, ctx = drive_main_path(torch, workdir)
         sae, ablation_set = drive_interventions(torch, workdir, ctx)
         forcing = drive_attacks(torch, workdir, ctx, sae, ablation_set)
-        del sae, ablation_set
+        del ablation_set
         drive_residency_and_speculation(torch, workdir, ctx, forcing)
-        del ctx
+        drive_decode_launch(torch, ctx, sae)
+        del ctx, sae
     wgmma["launches"], simple["launches"] = by_route["wgmma"], by_route["simple"]
     print(json.dumps({"kernels": [wgmma, simple]}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

@@ -33,6 +33,7 @@ instead; the values are the same).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
@@ -357,6 +358,22 @@ def stack_layers(items: List[Any]) -> Any:
     raise TypeError(f"cannot stack per-layer outputs of type {type(first)}")
 
 
+@functools.lru_cache(maxsize=None)
+def _rounded_sqrt(hidden: int, dtype: torch.dtype) -> float:
+    return float(torch.tensor(hidden ** 0.5, dtype=dtype))
+
+
+def embed_scale(cfg: Gemma2Config) -> float:
+    """``sqrt(hidden)`` rounded to the compute dtype, as a Python float.
+
+    A Python scalar multiplies without a host-to-device copy (which a CUDA
+    graph cannot capture), and the product is the same as with the
+    rounded scalar as a tensor: both widen the operands to f32, multiply
+    and round once.  The unrounded ``sqrt`` would change the embedding's
+    bits."""
+    return _rounded_sqrt(cfg.hidden_size, cfg.compute_dtype)
+
+
 def unembed(params: Params, cfg: Gemma2Config, h: torch.Tensor) -> torch.Tensor:
     """final_norm -> tied-embedding lm_head -> final logit softcap, in f32."""
     x = rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
@@ -378,6 +395,7 @@ def forward(
     carry_tap: Optional[Tuple[Any, Callable[[Any, torch.Tensor, int], Any]]] = None,
     compute_logits: bool = True,
     cache_positions: Optional[torch.Tensor] = None,  # [B] or [B, T] columns
+    valid_in_place: bool = False,
 ) -> ForwardResult:
     """One forward pass over the whole stack (see the module docstring for
     the hooks).
@@ -394,6 +412,12 @@ def forward(
     block writes G + 1 columns at per-row offsets).  Columns must grow
     along each row (masking rebuilds KV positions from the validity
     cumsum).  ``cache.length`` is not advanced in this mode.
+
+    ``valid_in_place`` writes the chunk's validity into ``cache.valid``
+    itself instead of a copy (the returned cache shares it): a decode step
+    replayed from a CUDA graph keeps its validity in a resident buffer.
+    The default copies, for callers that reuse one ``valid`` for several
+    forwards (the speculative blocks) or keep the prefill's.
     """
     if cache_positions is not None and cache is None:
         raise ValueError("cache_positions requires the KV-cache decode path")
@@ -424,14 +448,14 @@ def forward(
 
     # Embed + sqrt(D) scale, rounded in compute dtype exactly as HF does.
     h = params["embed"][input_ids].to(cdt)
-    h = h * torch.tensor(cfg.hidden_size ** 0.5, dtype=cdt, device=device)
+    h = h * embed_scale(cfg)
 
     cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
 
     cols = (cache_positions.long().reshape(B, T)
             if cache_positions is not None else None)
     if cache is not None:
-        new_valid = cache.valid.clone()
+        new_valid = cache.valid if valid_in_place else cache.valid.clone()
         if cols is not None:
             new_valid[torch.arange(B, device=device)[:, None], cols] = attn_validity
         else:

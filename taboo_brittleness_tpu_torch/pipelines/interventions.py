@@ -32,14 +32,21 @@ baseline, in batched launches of their own.  :func:`run_intervention_studies`
 sweeps the word list: per-word resume, prefetch of the next word that will
 run, retry then quarantine.
 
-Not ported here: the fused / AOT / warm-start programs, the cross-word
-baseline pre-dispatch, the device mesh and the telemetry observer.
+Each launch (the baseline and every arm chunk) is one
+``runtime.fused.fused_study`` call: the decode, stepping through
+``runtime.aot``'s graphs, the readout and the NLL continuation over the
+decode's own cache.  :func:`warm_start_study` makes the study's programs
+before its first word, and the studies driver enqueues the next word's
+baseline behind the current word's arms.  Not ported here: the device mesh
+and the telemetry observer.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import os
+import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -57,13 +64,18 @@ from taboo_brittleness_tpu_torch.models.gemma2 import (
 )
 from taboo_brittleness_tpu_torch.ops import lens, projection
 from taboo_brittleness_tpu_torch.ops import sae as sae_ops
-from taboo_brittleness_tpu_torch.pipelines.word_sweep import sweep_words
+from taboo_brittleness_tpu_torch.pipelines.word_sweep import (
+    next_pending,
+    sweep_words,
+)
 from taboo_brittleness_tpu_torch.runtime import decode, resilience
 from taboo_brittleness_tpu_torch.runtime.resilience import atomic_json_dump
 from taboo_brittleness_tpu_torch.runtime.tokenizer import (
     TokenizerLike,
     target_token_id,
 )
+
+_log = logging.getLogger(__name__)
 
 # ---------------------------------------------------------------------------
 # Edit functions (all state rides in edit_params).
@@ -234,11 +246,32 @@ def _teacher_forced_nll_cached(
     kv.k[:, :, :s] = cache_k
     kv.v[:, :, :s] = cache_v
     kv.valid[:, :s] = cache_valid
-    kv.length = s
+    return _nll_continue(params, cfg, kv, seqs, valid, positions, next_mask,
+                         edit_fn, edit_params, resp_start=s)
+
+
+@torch.no_grad()
+def _nll_continue(
+    params: Params, cfg: Gemma2Config,
+    cache: KVCache,                   # [L, B, T, K, Dh]; columns [0, s) the prefill
+    seqs: torch.Tensor, valid: torch.Tensor, positions: torch.Tensor,
+    next_mask: torch.Tensor,
+    edit_fn: Optional[Callable] = None,
+    edit_params: Any = None,
+    *,
+    resp_start: int = 0,
+) -> torch.Tensor:
+    """The continuation itself, over a cache of the layout's full width
+    whose columns ``[0, resp_start)`` (K, V and validity) hold the prefill;
+    the forward writes every later column (K, V and validity) before it
+    reads it, so whatever they held does not matter."""
+    T = seqs.shape[1]
+    s = resp_start
     res = forward(params, cfg, seqs[:, s:], positions=positions[:, s:],
-                  attn_validity=valid[:, s:], cache=kv,
+                  attn_validity=valid[:, s:],
+                  cache=KVCache(k=cache.k, v=cache.v, valid=cache.valid,
+                                length=s),
                   edit_fn=_bind(edit_fn, edit_params), compute_logits=False)
-    del kv
     return _nll_from_hidden(params, cfg, res.last_hidden[:, :T - 1 - s], seqs,
                             next_mask, s)
 
@@ -310,6 +343,26 @@ def _np(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
+def _study_launch(params: Params, cfg: Gemma2Config, tok: TokenizerLike,
+                  config: Config, prompts: List[str], **kw: Any):
+    """One study launch over chat-formatted ``prompts`` (the prompt
+    preparation and fault site of ``decode.generate``):
+    ``fused.fused_study``, through ``fused.dispatch_fused`` under
+    ``TBX_FUSED=1``; ``kw`` goes there."""
+    from taboo_brittleness_tpu_torch.runtime import fused
+
+    resilience.fire("decode.launch", rows=len(prompts))
+    padded, valid, positions, _ = decode.encode_prompts(
+        tok, prompts, pad_to_multiple=config.experiment.pad_to_multiple)
+    dev = params["embed"].device
+    run = fused.dispatch_fused if fused.enabled() else fused.fused_study
+    return run(params, cfg, torch.from_numpy(padded).long().to(dev),
+               torch.from_numpy(valid).to(dev),
+               torch.from_numpy(positions).long().to(dev),
+               max_new_tokens=config.experiment.max_new_tokens,
+               tap_layer=config.model.layer_idx, top_k=config.model.top_k, **kw)
+
+
 @torch.no_grad()
 def prepare_word_state(
     params: Params,
@@ -320,45 +373,48 @@ def prepare_word_state(
 ) -> WordState:
     """Baseline (unedited) pass over all hint prompts of one word: decode
     with residual capture, tap readout, cached-NLL continuation, spikes."""
-    layer_idx = config.model.layer_idx
-    B = len(config.prompts)
-    dec, _, _ = decode.generate(
-        params, cfg, tok, list(config.prompts),
-        max_new_tokens=config.experiment.max_new_tokens,
-        pad_to_multiple=config.experiment.pad_to_multiple,
-        capture_residual_layer=layer_idx,
-        return_texts=False, return_prefill_cache=True)
-    layout = decode.response_layout_device(dec)
-    resp_start = max(layout.prompt_len - 1, 0)
+    return prepare_word_collect(
+        prepare_word_dispatch(params, cfg, tok, config, word))
+
+
+@torch.no_grad()
+def prepare_word_dispatch(
+    params: Params,
+    cfg: Gemma2Config,
+    tok: TokenizerLike,
+    config: Config,
+    word: str,
+) -> Dict[str, Any]:
+    """Enqueue the baseline pass (decode with residual capture, tap
+    readout, cached-NLL continuation, spike finding) and return the handle
+    :func:`prepare_word_collect` reads, with nothing read back to the host
+    but the decode's all-done flag.  The studies driver dispatches the next
+    word's baseline behind the current word's last arm chunk with it."""
     tid = target_token_id(tok, word)
-    dev = layout.sequences.device
-    out = _residual_measure(
-        params, cfg, dec.residual, layout.sequences, layout.response_mask,
-        torch.full((B,), tid, dtype=torch.long, device=dev),
-        top_k=config.model.top_k, resp_start=resp_start)
+    target = torch.full((len(config.prompts),), tid, dtype=torch.long,
+                        device=params["embed"].device)
+    fr = _study_launch(params, cfg, tok, config, list(config.prompts),
+                       target_ids=target,
+                       spike_top_k=config.intervention.spike_top_k)
+    return {"word": word, "tok": tok, "tid": tid, "fr": fr}
 
-    # next_mask[t] is True iff position t predicts a response token at t+1.
-    resp = layout.response_mask
-    next_mask = torch.zeros_like(resp)
-    next_mask[:, :-1] = resp[:, 1:]
-    nll = _teacher_forced_nll_cached(
-        params, cfg, *dec.prefill_cache, layout.sequences, layout.valid,
-        layout.positions, next_mask, resp_start=resp_start)
-    spike, _ = lens.spike_positions_batch(
-        out["tap_prob"], resp, top_k=config.intervention.spike_top_k)
 
-    tokens, lengths = _np(dec.tokens), _np(dec.lengths)
-    row_sum, row_cnt = _np(out["row_prob_sum"]), _np(out["row_resp"])
+def prepare_word_collect(handle: Dict[str, Any]) -> WordState:
+    """Read a :func:`prepare_word_dispatch` handle back and assemble the
+    :class:`WordState` (waits for the baseline pass)."""
+    fr, tok = handle["fr"], handle["tok"]
+    tokens, lengths = _np(fr.tokens), _np(fr.lengths)
+    row_sum, row_cnt = _np(fr.row_prob_sum), _np(fr.row_resp)
     return WordState(
-        word=word, target_id=int(tid),
-        sequences=_np(layout.sequences), valid=_np(layout.valid),
-        positions=_np(layout.positions), response_mask=_np(resp),
-        residual=dec.residual,
+        word=handle["word"], target_id=int(handle["tid"]),
+        sequences=_np(fr.sequences), valid=_np(fr.sequence_valid),
+        positions=_np(fr.positions), response_mask=_np(fr.response_mask),
+        residual=fr.residual,
         secret_prob=float(row_sum.sum() / max(float(row_cnt.sum()), 1.0)),
-        baseline_nll=_np(nll), spike_pos=_np(spike),
+        baseline_nll=_np(fr.nll), spike_pos=_np(fr.spike_pos),
         response_texts=decode.texts_from_tokens(tok, tokens, lengths),
-        guesses=_decode_guess_rows(tok, _np(out["agg_ids"])),
-        resp_start=resp_start,
+        guesses=_decode_guess_rows(tok, _np(fr.agg_ids)),
+        resp_start=max(fr.sequences.shape[1] - fr.tokens.shape[1] - 1, 0),
     )
 
 
@@ -498,46 +554,33 @@ def _dispatch_rows(
     rows_ep: Any,
     n_arms: int,
 ) -> Dict[str, Any]:
-    """Run ``n_arms`` arms' device work: the edited decode (capturing the
-    post-edit tap residual), the tap readout, and the edited NLL of the
-    baseline continuation, continuing from the decode's prefill cache.
-    Each large buffer is dropped as soon as its last reader has run."""
+    """Enqueue ``n_arms`` arms' device work as one study launch: the edited
+    decode (capturing the post-edit tap residual), the tap readout, and the
+    edited NLL of the baseline continuation over the decode's own cache.
+    The handle keeps no residual: the readout was its last reader."""
     A = n_arms
-    dec, _, _ = decode.generate(
-        params, cfg, tok, list(config.prompts) * A,
-        max_new_tokens=config.experiment.max_new_tokens,
-        pad_to_multiple=config.experiment.pad_to_multiple,
-        edit_fn=edit_fn, edit_params=rows_ep,
-        capture_residual_layer=config.model.layer_idx,
-        return_texts=False, return_prefill_cache=True)
-    layout = decode.response_layout_device(dec)
-    rows = layout.sequences.shape[0]
-    dev = layout.sequences.device
-    out = _residual_measure(
-        params, cfg, dec.residual, layout.sequences, layout.response_mask,
-        torch.full((rows,), state.target_id, dtype=torch.long, device=dev),
-        top_k=config.model.top_k, resp_start=max(layout.prompt_len - 1, 0))
-    dec = dec._replace(residual=None)
+    dev = params["embed"].device
 
-    # ΔNLL: the *baseline* continuation re-scored under each edited model,
-    # continuing from this decode's (edited) prefill cache.
+    # ΔNLL: the *baseline* continuation re-scored under each edited model.
+    # Its layout goes to the card before the decode is enqueued: a pageable
+    # copy behind the decode would wait for it.
     next_mask = np.zeros_like(state.response_mask)
     next_mask[:, :-1] = state.response_mask[:, 1:]
 
     def tiled(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.tile(a, (A, 1))).to(dev)
 
-    base_pos = tiled(state.positions).long()
-    s = state.resp_start
-    edited_nll = _teacher_forced_nll_cached(
-        params, cfg, *dec.prefill_cache, tiled(state.sequences).long(),
-        tiled(state.valid).bool(), base_pos, tiled(next_mask).bool(),
-        edit_fn=edit_fn,
-        edit_params=_with_chunk_positions(rows_ep, base_pos[:, s:]),
-        resp_start=s)
-    dec = dec._replace(prefill_cache=None)
-    return {"dec": dec, "out": out, "edited_nll": edited_nll,
-            "next_mask": next_mask, "n_arms": A}
+    nll_layout = (tiled(state.sequences).long(), tiled(state.valid).bool(),
+                  tiled(state.positions).long(), tiled(next_mask).bool())
+    target = torch.full((A * state.sequences.shape[0],), state.target_id,
+                        dtype=torch.long, device=dev)
+    fr = _study_launch(params, cfg, tok, config, list(config.prompts) * A,
+                       edit_fn=edit_fn, edit_params=rows_ep, target_ids=target,
+                       nll_seqs=nll_layout[0], nll_valid=nll_layout[1],
+                       nll_positions=nll_layout[2], nll_next_mask=nll_layout[3],
+                       nll_edit=True)
+    return {"fr": fr._replace(residual=None), "next_mask": next_mask,
+            "n_arms": A}
 
 
 def _collect_rows(
@@ -552,11 +595,11 @@ def _collect_rows(
     next_mask = handle["next_mask"]
     valid_forms = {f.lower()
                    for f in config.word_plurals.get(state.word, [state.word])}
-    out = handle["out"]
-    tokens, lengths = _np(handle["dec"].tokens), _np(handle["dec"].lengths)
-    edited_nll = _np(handle["edited_nll"])
-    row_prob_sum, row_resp = _np(out["row_prob_sum"]), _np(out["row_resp"])
-    agg_ids = _np(out["agg_ids"])
+    fr = handle["fr"]
+    tokens, lengths = _np(fr.tokens), _np(fr.lengths)
+    edited_nll = _np(fr.nll)
+    row_prob_sum, row_resp = _np(fr.row_prob_sum), _np(fr.row_resp)
+    agg_ids = _np(fr.agg_ids)
     texts = decode.texts_from_tokens(tok, tokens, lengths)
     n_resp = max(int(next_mask.sum()), 1)
 
@@ -625,6 +668,8 @@ def measure_arm_sets(
     state: WordState,
     sets: Sequence[Tuple[Callable, Dict[str, Any], Dict[str, Any],
                          Optional[int]]],
+    *,
+    after_last_dispatch: Optional[Callable[[], None]] = None,
 ) -> List[List[ArmResult]]:
     """Measure several arm stacks (e.g. the ablation and the projection
     sweep), each ``(edit_fn, shared_ep, per_arm, arm_chunk)``, one chunk at a
@@ -633,7 +678,9 @@ def measure_arm_sets(
     A stack of A arms launches in chunks of ``_balanced_chunk(A, max)``; a
     ragged final chunk pads back to the chunk size by repeating its last
     arm (every launch of a stack has one row count) and the duplicates'
-    results are dropped."""
+    results are dropped.  ``after_last_dispatch()`` runs once the last
+    chunk is enqueued, before it is read back (the studies driver enqueues
+    the next word's baseline there)."""
     B = state.sequences.shape[0]
     dev = params["embed"].device
 
@@ -660,6 +707,9 @@ def measure_arm_sets(
             handle = _dispatch_rows(params, cfg, tok, config, state, edit_fn,
                                     rows_ep, a + pad)
             del rows_ep
+            if (after_last_dispatch is not None and si == len(sets) - 1
+                    and s + chunk >= A):
+                after_last_dispatch()
             results[si].extend(_collect_rows(tok, config, state, handle)[:a])
     return results
 
@@ -890,6 +940,8 @@ def run_intervention_study(
     *,
     output_path: Optional[str] = None,
     forcing: bool = False,
+    prepared: Optional[Dict[str, Any]] = None,
+    after_arms_dispatched: Optional[Callable[[], None]] = None,
 ) -> Dict[str, Any]:
     """Full brittleness study for one word: baseline, then both sweeps'
     stacks planned up front (latent scoring and PCA before any arm runs)
@@ -898,8 +950,19 @@ def run_intervention_study(
 
     ``forcing=True`` adds pre- and postgame forcing success under each
     targeted arm, and for the unedited baseline (``baseline["forcing"]``,
-    the identity arm of the ablation sweep's forcing stack)."""
-    state = prepare_word_state(params, cfg, tok, config, word)
+    the identity arm of the ablation sweep's forcing stack).
+
+    ``prepared`` takes this word's :func:`prepare_word_dispatch` handle
+    (the studies driver enqueues it behind the previous word's arms);
+    ``after_arms_dispatched`` goes to :func:`measure_arm_sets` as its
+    ``after_last_dispatch``."""
+    if prepared is not None:
+        if prepared["word"] != word:
+            raise ValueError(
+                f"prepared baseline is for {prepared['word']!r}, not {word!r}")
+        state = prepare_word_collect(prepared)
+    else:
+        state = prepare_word_state(params, cfg, tok, config, word)
     baseline: Dict[str, Any] = {
         "secret_prob": state.secret_prob,
         "guesses": state.guesses,
@@ -910,7 +973,8 @@ def run_intervention_study(
     proj_set, proj_assemble = plan_projection_sweep(
         params, cfg, tok, config, state, forcing=forcing)
     abl_arms, proj_arms = measure_arm_sets(
-        params, cfg, tok, config, state, [abl_set, proj_set])
+        params, cfg, tok, config, state, [abl_set, proj_set],
+        after_last_dispatch=after_arms_dispatched)
     ablation = abl_assemble(abl_arms)
     if forcing:
         baseline["forcing"] = ablation.pop("baseline_forcing")
@@ -930,6 +994,126 @@ def _atomic_json_dump(obj: Any, path: str) -> None:
     atomic_json_dump(obj, path)
 
 
+def study_program_specs(
+    params: Params,
+    cfg: Gemma2Config,
+    tok: TokenizerLike,
+    config: Config,
+    sae: sae_ops.SAEParams,
+) -> List[Dict[str, Any]]:
+    """The graphed programs one word's :func:`run_intervention_study` asks
+    ``runtime.aot`` for, as ``{label, entry, fn, dynamic, static}`` with
+    inputs on the params' device at this config's exact launch shapes: the
+    baseline decode (B rows), and one decode per sweep at its balanced
+    chunk's row count (speculation's draft and verify instead, for every
+    distinct plan the words resolve to, with ``TBX_SPECULATE=1`` and
+    ``TBX_SPECULATE_CAPTURE=1``).
+
+    The mirror of :func:`prepare_word_dispatch` and :func:`_dispatch_rows`:
+    the same tensor shapes and dtypes, edit-param trees and statics, so
+    ``aot.entry(entry).signature(dynamic, static)`` is exactly the key the
+    study requests; a test holds a warmed study to zero misses.  Input
+    values are only plausible (the tiled prompts, zero ids and bases)."""
+    from taboo_brittleness_tpu_torch.runtime import speculate
+
+    B = len(config.prompts)
+    N = config.experiment.max_new_tokens
+    layer_idx = config.model.layer_idx
+    iv_cfg = config.intervention
+    dev = params["embed"].device
+    padded, valid, positions, _ = decode.encode_prompts(
+        tok, list(config.prompts),
+        pad_to_multiple=config.experiment.pad_to_multiple)
+
+    def prompt_rows(arms: int) -> Dict[str, torch.Tensor]:
+        reps = (arms, 1)
+        return dict(
+            prompt_ids=torch.from_numpy(np.tile(padded, reps)).long().to(dev),
+            prompt_valid=torch.from_numpy(np.tile(valid, reps)).to(dev),
+            prompt_positions=torch.from_numpy(
+                np.tile(positions, reps)).long().to(dev))
+
+    def spike_extra(rows: int) -> Dict[str, Any]:
+        if not iv_cfg.spike_masked:
+            return {}
+        return {"spike_positions": torch.zeros(
+            (rows, iv_cfg.spike_top_k), dtype=torch.long, device=dev)}
+
+    capture_spec = speculate.should_speculate(capture=True)
+    plans = sorted({(p.draft_layer, p.block_size) for p in
+                    (speculate.resolve_plan(cfg, w)
+                     for w in (list(config.words) or [None]))})
+
+    def launch(tag: str, arms: int, edit_fn, rows_ep) -> List[Dict[str, Any]]:
+        dynamic = dict(params=params, edit_params=rows_ep, **prompt_rows(arms))
+        rows = arms * B
+        if not capture_spec:
+            return [{"label": f"decode[{tag}x{rows}]", "entry": "decode",
+                     "fn": decode.greedy_decode, "dynamic": dynamic,
+                     "static": dict(cfg=cfg, max_new_tokens=N, edit_fn=edit_fn,
+                                    stop_ids=decode.STOP_IDS,
+                                    capture_residual_layer=layer_idx,
+                                    return_margins=False)}]
+        return [{"label": f"{name}[{tag}x{rows}@k{k}g{g}]", "entry": name,
+                 "fn": speculate.speculative_decode, "dynamic": dynamic,
+                 "static": dict(cfg=cfg, max_new_tokens=N, draft_layer=k,
+                                block_size=g, edit_fn=edit_fn,
+                                stop_ids=decode.STOP_IDS,
+                                capture_residual_layer=layer_idx)}
+                for k, g in plans
+                for name in ("speculate.draft", "speculate.verify")]
+
+    specs = launch("baseline", 1, None, None)
+    a_abl = len(iv_cfg.budgets) * (1 + iv_cfg.random_trials)
+    chunk_abl = _balanced_chunk(
+        a_abl, iv_cfg.arm_chunk or min(a_abl, _DEFAULT_ARM_CHUNK))
+    specs += launch("ablation", chunk_abl, sae_ablation_edit, {
+        "sae": sae, "layer": layer_idx,
+        "latent_ids": torch.zeros((chunk_abl * B, max(iv_cfg.budgets)),
+                                  dtype=torch.long, device=dev),
+        **spike_extra(chunk_abl * B)})
+    a_proj = len(iv_cfg.ranks) * (1 + iv_cfg.random_trials)
+    chunk_proj = _balanced_chunk(
+        a_proj, iv_cfg.arm_chunk or min(a_proj, _DEFAULT_ARM_CHUNK))
+    specs += launch("projection", chunk_proj, projection_edit, {
+        "layer": layer_idx,
+        "basis": torch.zeros((chunk_proj * B, cfg.hidden_size,
+                              max(iv_cfg.ranks)), dtype=torch.float32,
+                             device=dev),
+        **spike_extra(chunk_proj * B)})
+    return specs
+
+
+def warm_start_study(
+    params: Params,
+    cfg: Gemma2Config,
+    tok: TokenizerLike,
+    config: Config,
+    sae: sae_ops.SAEParams,
+) -> Dict[str, Any]:
+    """Make (and on the card capture) every program of
+    :func:`study_program_specs` before a word's study asks for them, by
+    running each launch once on its spec's inputs (outputs discarded).
+
+    The JAX package compiles on abstract shapes on a thread behind word 0's
+    checkpoint read.  A graph binds the params' tensors, so this runs with
+    a word's params resident, synchronously.  Returns ``{seconds,
+    programs: [{label, entry, key, source, seconds}], captures}``."""
+    from taboo_brittleness_tpu_torch.runtime import aot
+
+    if not aot.enabled():
+        return {"skipped": "TBX_AOT=0"}
+    t0 = time.perf_counter()
+    recs = []
+    for spec in study_program_specs(params, cfg, tok, config, sae):
+        rec = aot.entry(spec["entry"], spec["fn"]).build(
+            spec["dynamic"], spec["static"])
+        rec["label"] = spec["label"]
+        recs.append(rec)
+    return {"seconds": round(time.perf_counter() - t0, 3), "programs": recs,
+            "captures": sum(r["source"] == "captured" for r in recs)}
+
+
 def run_intervention_studies(
     config: Config,
     *,
@@ -944,6 +1128,7 @@ def run_intervention_studies(
     fail_fast: bool = False,
     retry_policy: Optional[resilience.RetryPolicy] = None,
     ledger: Optional[resilience.FailureLedger] = None,
+    warm_start: bool = False,
 ) -> Dict[str, Any]:
     """The study over the word list: per word, load its checkpoint and run
     :func:`run_intervention_study` into ``<output_dir>/<word>.json``, under
@@ -959,8 +1144,48 @@ def run_intervention_studies(
       then is quarantined in ``<output_dir>/_failures.json`` and the sweep
       goes on; quarantined words are absent from the result.
       ``fail_fast=True`` raises on the first failed word instead.
+    - **Warm start** (``warm_start=True``): :func:`warm_start_study` runs
+      once, with the first computed word's params, before its study.  It
+      cannot overlap a checkpoint read as the JAX package's does (a graph
+      binds the params), so it adds one run of each launch shape.
+    - **Cross-word pre-dispatch:** once a word's last arm chunk is
+      enqueued, the next word that will run is loaded and its baseline
+      enqueued (:func:`prepare_word_dispatch`).  That word's turn then takes
+      the loaded model (or re-raises the error its load raised) instead of
+      loading again, and its study collects the handle.  A dispatch error
+      is logged and leaves the word to run its own baseline; a retry loads
+      afresh and never reuses a handle.
     - ``on_word_done(word, results)`` fires for computed and resumed words.
     """
+    from taboo_brittleness_tpu_torch.runtime import aot
+
+    words = list(words if words is not None else config.words)
+    ledger = ledger if ledger is not None else resilience.FailureLedger(output_dir)
+    warm = {"armed": warm_start and aot.enabled()}
+    # The next word as the pre-dispatch left it: its loaded model, or the
+    # error its load raised; and its baseline handle.
+    loaded_ahead: Dict[str, Any] = {}
+    prepared: Dict[str, Dict[str, Any]] = {}
+
+    def load(word: str):
+        got = loaded_ahead.pop(word, None)
+        if got is None:
+            return model_loader(word)
+        if isinstance(got, BaseException):
+            raise got
+        return got
+
+    def drop_pending(word: str) -> None:
+        loaded_ahead.pop(word, None)
+        prepared.pop(word, None)
+        drop = getattr(model_loader, "drop_pending", None)
+        if drop is not None:
+            drop(word)
+
+    # What sweep_words asks of a loader besides the call.
+    load.drop_pending = drop_pending
+    load.prefetch = getattr(model_loader, "prefetch", None)
+
     def word_path(w: str) -> str:
         return os.path.join(output_dir, f"{w}.json")
 
@@ -974,14 +1199,36 @@ def run_intervention_studies(
 
     def run_word(word: str, loaded, set_stage) -> Dict[str, Any]:
         params, cfg, tok = loaded
+        if warm["armed"]:
+            warm["armed"] = False
+            set_stage("warm_start")
+            rec = warm_start_study(params, cfg, tok, config, sae)
+            _log.info("[study] warm start: %d programs (%d captured) in %.3f s",
+                      len(rec["programs"]), rec["captures"], rec["seconds"])
+        nxt = next_pending(words, words.index(word), ledger, load_done)
+
+        def dispatch_next_baseline() -> None:
+            if nxt is None or nxt in loaded_ahead or nxt in prepared:
+                return
+            try:
+                loaded_ahead[nxt] = model_loader(nxt)
+            except Exception as e:  # noqa: BLE001 — must not cost this word
+                loaded_ahead[nxt] = e      # raised again at nxt's own turn
+                return
+            try:
+                prepared[nxt] = prepare_word_dispatch(
+                    *loaded_ahead[nxt], config, nxt)
+            except Exception as e:  # noqa: BLE001 — must not cost this word
+                _log.warning("[study] pre-dispatch of %r's baseline failed: "
+                             "%s: %s", nxt, type(e).__name__, e)
+
         set_stage("study")
-        return run_intervention_study(params, cfg, tok, config, word, sae,
-                                      output_path=word_path(word),
-                                      forcing=forcing)
+        return run_intervention_study(
+            params, cfg, tok, config, word, sae, output_path=word_path(word),
+            forcing=forcing, prepared=prepared.pop(word, None),
+            after_arms_dispatched=dispatch_next_baseline)
 
     return sweep_words(
-        list(words if words is not None else config.words),
-        model_loader=model_loader, load_done=load_done, run_word=run_word,
+        words, model_loader=load, load_done=load_done, run_word=run_word,
         policy=retry_policy or resilience.RetryPolicy(max_retries=max_retries),
-        ledger=ledger if ledger is not None else resilience.FailureLedger(output_dir),
-        fail_fast=fail_fast, on_done=on_word_done)
+        ledger=ledger, fail_fast=fail_fast, on_done=on_word_done)

@@ -84,10 +84,7 @@ def sweep_words(
             # The speculative decoder's per-word plan rides module state.
             speculate.set_active_word(word)
             loaded = model_loader(word)
-            # The first pending word after this one, not a rescan of all.
-            nxt = next((w for w in words[i + 1:]
-                        if w not in ledger.quarantined and load_done(w) is None),
-                       None)
+            nxt = next_pending(words, i, ledger, load_done)
             if nxt is not None:
                 prefetch_next(model_loader, nxt)
             return run_word(word, loaded, set_stage)
@@ -108,6 +105,15 @@ def sweep_words(
         if on_done is not None:
             on_done(word, outcome.value)
     return results
+
+
+def next_pending(words: Sequence[str], i: int, ledger: FailureLedger,
+                 load_done: Callable[[str], Optional[Dict[str, Any]]]
+                 ) -> Optional[str]:
+    """The first word after ``words[i]`` that will run: not quarantined and
+    not done (the one worth prefetching or pre-dispatching)."""
+    return next((w for w in words[i + 1:]
+                 if w not in ledger.quarantined and load_done(w) is None), None)
 
 
 @dataclasses.dataclass
@@ -175,7 +181,11 @@ def run_word_sweep(
                 memo[mode] = compute_mode(params, cfg, tok, config, mode)
             entry[mode] = score_word(config, word, mode, memo[mode])
         if output_dir:
+            # Inside the guarded scope, so a write fault retries and then
+            # quarantines the word, and a ``die`` fault kills before the
+            # rename.
             set_stage("write")
+            resilience.fire("cache.write", word=word, path=word_path(word))
             atomic_json_dump(entry, word_path(word))
         return entry
 

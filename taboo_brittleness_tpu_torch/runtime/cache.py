@@ -88,6 +88,8 @@ def save_pair(
         "dtypes": {k: str(v.dtype) for k, v in arrays.items()},
     }
     resilience.atomic_json_dump(meta, json_path, indent=None)
+    resilience.fire("cache.write", path=npz_path)
+    resilience.fire("cache.write", path=json_path)
 
 
 @dataclasses.dataclass
@@ -156,6 +158,7 @@ def save_summary(path: str, summary: Dict[str, np.ndarray], meta: Dict[str, Any]
     tmp = f"{path}.tmp.npz"
     np.savez_compressed(tmp, **arrays)
     os.replace(tmp, path)
+    resilience.fire("cache.write", path=path)
 
 
 def load_summary(

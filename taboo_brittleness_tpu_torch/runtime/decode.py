@@ -5,9 +5,12 @@ word decode together: left-padded into one ``[B, T]`` block, one prefill, then
 single-token steps over a shared KV cache until every row has emitted a stop
 token or the budget is spent (finished rows emit pad, so the outputs equal
 those of running out the budget).  JAX runs the steps as one compiled
-``while_loop``; here it is a Python loop that checks ``done.all()`` once per
-step.  :func:`generate` can route a launch through the speculative decoder
-(``runtime.speculate``) instead.
+``while_loop``.  Here the prefill runs eagerly and each step is one
+:func:`decode_step` over static buffers, which on the card is a CUDA graph
+captured once per launch key (``runtime.aot``) and replayed from a host
+loop that reads the all-done flag one step late.  :func:`generate` can
+route a launch through the speculative decoder (``runtime.speculate``)
+instead.
 
 Greedy argmax (first index among equal logits, as ``jnp.argmax``) makes the
 token streams the JAX package's for the same weights.
@@ -15,7 +18,8 @@ token streams the JAX package's for the same weights.
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Tuple
+import dataclasses
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,6 +50,12 @@ class DecodeResult(NamedTuple):
     # copies of their own that no later write reaches (the ΔNLL
     # continuation recomputes the last prompt column itself).
     prefill_cache: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
+    # With return_cache: the launch's whole KV cache (the pooled one under
+    # the registry; the fused study continues its NLL over it).
+    cache: Optional[KVCache] = None
+    # With return_margins: top-1 minus top-2 logit behind each generated
+    # token, from the decode's own logits (inf after the last step run).
+    margins: Optional[torch.Tensor] = None   # [B, N] f32
 
 
 def pad_prompts(
@@ -76,6 +86,132 @@ def pad_prompts(
     return ids, valid, positions
 
 
+@dataclasses.dataclass
+class StepBuffers:
+    """The static buffers a decode launch steps over in place (one set per
+    program; the KV cache is the launch shape's pooled one)."""
+
+    cache: KVCache            # [L, B, T + N, Kh, Dh] k / v, [B, T + N] valid
+    tok: torch.Tensor         # [B] the step's input token
+    pos: torch.Tensor         # [B] its RoPE position
+    done: torch.Tensor        # [B] bool: the row has emitted a stop token
+    i: torch.Tensor           # [1] step counter (the device's, not the host's)
+    tokens: torch.Tensor      # [B, N] generated ids
+    emitted: torch.Tensor     # [B, N] bool
+    all_done: torch.Tensor    # [] bool: every row done after the last step
+    stop: torch.Tensor        # [S] stop ids
+    gen_resid: Optional[torch.Tensor] = None  # [B, N, D] f32 captured residual
+    margins: Optional[torch.Tensor] = None    # [B, N + 1] f32 top-1 - top-2
+
+
+def _step_buffers(cfg: Gemma2Config, kv: Dict[str, torch.Tensor], T: int,
+                  N: int, stop_ids: Tuple[int, ...], *, capture: bool,
+                  margins: bool) -> StepBuffers:
+    B = kv["valid"].shape[0]
+    device = kv["valid"].device
+    return StepBuffers(
+        cache=KVCache(k=kv["k"], v=kv["v"], valid=kv["valid"], length=T),
+        tok=torch.zeros((B,), dtype=torch.long, device=device),
+        pos=torch.zeros((B,), dtype=torch.long, device=device),
+        done=torch.zeros((B,), dtype=torch.bool, device=device),
+        i=torch.zeros((1,), dtype=torch.long, device=device),
+        tokens=torch.zeros((B, N), dtype=torch.long, device=device),
+        emitted=torch.zeros((B, N), dtype=torch.bool, device=device),
+        all_done=torch.zeros((), dtype=torch.bool, device=device),
+        stop=torch.tensor(stop_ids, dtype=torch.long, device=device),
+        gen_resid=(torch.zeros((B, N, cfg.hidden_size), dtype=torch.float32,
+                               device=device) if capture else None),
+        margins=(torch.zeros((B, N + 1), dtype=torch.float32, device=device)
+                 if margins else None),
+    )
+
+
+def _top2_gap(logits: torch.Tensor) -> torch.Tensor:
+    top2 = logits.float().topk(2, dim=-1).values
+    return top2[..., 0] - top2[..., 1]
+
+
+def decode_step(params: Params, cfg: Gemma2Config, b: StepBuffers,
+                edit_fn: Optional[Callable], edit_params: Any,
+                capture_residual_layer: Optional[int]) -> None:
+    """One greedy step over ``b``, written in place: the forward of each
+    row's token at column ``T + i``, the next token, the stop latch, and
+    the outputs at column ``i``.  No host value, no host sync, nothing
+    sliced at a host integer: the same code runs eagerly and under CUDA
+    graph capture.
+
+    A step after every row stopped (the host reads the all-done flag one
+    step late) writes pad and ``emitted=False`` where those already are,
+    and leaves the residual and margin columns untouched: they stay zero
+    (inf), as when the loop exits at once."""
+    B, N = b.tokens.shape
+    T = b.cache.length
+    # The counter saturates at the last column: a capture's warm-up steps
+    # run past it on a program's fresh buffers when N is 1.
+    i = b.i.clamp(max=N - 1)
+    active_any = ~b.done.all()
+    pos = b.pos[:, None]
+    res = forward(
+        params, cfg, b.tok[:, None],
+        positions=pos,
+        attn_validity=(~b.done)[:, None],
+        cache=b.cache,
+        edit_fn=_bind(edit_fn, edit_params, pos),
+        carry_tap=(residual_carry_tap(B, 1, cfg.hidden_size,
+                                      capture_residual_layer, device=b.tok.device)
+                   if b.gen_resid is not None else None),
+        cache_positions=(i + T).expand(B),
+        valid_in_place=True,
+    )
+    logits = res.logits[:, 0]
+    pad = torch.full_like(b.tok, chat.PAD_ID)
+    next_done = b.done | (b.tok[:, None] == b.stop).any(dim=-1)
+    next_tok = torch.where(next_done, pad, torch.argmax(logits, dim=-1))
+    emitted_now = ~b.done
+    b.tokens.index_copy_(1, i, torch.where(emitted_now, b.tok, pad)[:, None])
+    b.emitted.index_copy_(1, i, emitted_now[:, None])
+    if b.gen_resid is not None:
+        b.gen_resid.index_copy_(1, i, torch.where(
+            active_any, res.carry_tap, b.gen_resid.index_select(1, i)))
+    if b.margins is not None:
+        col = i + 1
+        b.margins.index_copy_(1, col, torch.where(
+            active_any, _top2_gap(logits)[:, None], b.margins.index_select(1, col)))
+    b.tok.copy_(next_tok)
+    b.done.copy_(next_done)
+    b.pos.add_(1)
+    b.i.add_(1)
+    b.all_done.copy_(next_done.all())
+
+
+class _LaggedFlag:
+    """The all-done flag as the host reads it: on the card, copied to
+    pinned memory after each step and read one step late (the host never
+    waits on the step in flight); on the CPU, read at once."""
+
+    def __init__(self, flag: torch.Tensor) -> None:
+        self.flag = flag
+        self.cuda = flag.device.type == "cuda"
+        if self.cuda:
+            self.host = torch.zeros((2,), dtype=torch.bool, pin_memory=True)
+            self.events = [torch.cuda.Event(), torch.cuda.Event()]
+
+    def after_step(self, i: int) -> None:
+        if self.cuda:
+            self.host[i % 2].copy_(self.flag, non_blocking=True)
+            self.events[i % 2].record()
+
+    def stop_before(self, i: int) -> bool:
+        """Whether step ``i`` can be skipped: every row was done after step
+        ``i - 2`` (card) or ``i - 1`` (CPU)."""
+        if not self.cuda:
+            return i >= 1 and bool(self.flag)
+        if i < 2:
+            return False
+        self.events[i % 2].synchronize()
+        return bool(self.host[i % 2])
+
+
 @torch.no_grad()
 def greedy_decode(
     params: Params,
@@ -90,6 +226,8 @@ def greedy_decode(
     stop_ids: Tuple[int, ...] = STOP_IDS,
     capture_residual_layer: Optional[int] = None,
     return_prefill_cache: bool = False,
+    return_cache: bool = False,
+    return_margins: bool = False,
 ) -> DecodeResult:
     """Prefill + up to ``max_new_tokens`` greedy steps.
 
@@ -97,7 +235,7 @@ def greedy_decode(
     afterwards.  ``capture_residual_layer`` captures that layer's
     (post-edit) resid_post for every position as the decode computes it:
     prefill columns from the prefill's carry tap, each generated column from
-    its step (columns of steps skipped by the early exit stay zero).
+    its step (columns of steps after every row stopped stay zero).
 
     ``edit_fn(h, layer_idx)`` rewrites the residual stream in the prefill
     and in every step.  With ``edit_params`` it is called as ``edit_fn(h,
@@ -106,84 +244,107 @@ def greedy_decode(
     positions in the prefill, ``pos[:, None]`` in each step), which
     spike-masked edits match against.
     ``return_prefill_cache`` returns KV columns ``[0, T - 1)`` as
-    :attr:`DecodeResult.prefill_cache`.
+    :attr:`DecodeResult.prefill_cache`.  ``return_margins`` returns each
+    generated token's top-1 minus top-2 logit (inf after the last step run)
+    as :attr:`DecodeResult.margins`.
+
+    The prefill runs eagerly; the steps are a :class:`runtime.aot.Program`
+    (entry ``"decode"``): on the card a CUDA graph replayed once per step,
+    on the CPU or with ``TBX_AOT=0`` the same :func:`decode_step` called
+    eagerly.  The host reads the all-done flag one step late, so at most
+    one step more than needed runs; its writes change nothing.  With the
+    registry on, a launch recycles its shape's pooled KV block, which it
+    first resets to decode exactly as over a fresh one.  Every returned
+    tensor is the caller's own, except ``cache`` (``return_cache``: the
+    launch's whole KV cache, which the next launch of this shape
+    overwrites).
     """
+    from taboo_brittleness_tpu_torch.runtime import aot
+
     B, T = prompt_ids.shape
     device = prompt_ids.device
-    D = cfg.hidden_size
     N = max_new_tokens
+    width = T + N
     capture = capture_residual_layer is not None
 
-    def carry(chunk: int):
-        if not capture:
-            return None
-        return residual_carry_tap(B, chunk, D, capture_residual_layer,
-                                  device=device)
+    def make() -> "aot.Program":
+        kv = (aot.pooled_kv if aot.enabled() else aot.fresh_kv)(
+            cfg, B, width, device)
+        bufs = _step_buffers(cfg, kv, T, N, stop_ids, capture=capture,
+                             margins=return_margins)
+        ep = aot.static_copy(edit_params)
+        return aot.Program(
+            lambda p: decode_step(p, cfg, bufs, edit_fn, ep,
+                                  capture_residual_layer),
+            (bufs, ep), (aot.kv_pool_key(cfg, B, width, device),))
 
-    def bound_edit(chunk_positions: torch.Tensor):
-        if edit_fn is None or edit_params is None:
-            return edit_fn
-        ep = with_chunk_positions(edit_params, chunk_positions)
-        return lambda h, idx: edit_fn(h, idx, ep)
+    # No step to run (or capture) without a budget.
+    prog = make() if N == 0 else aot.lookup(
+        "decode", greedy_decode,
+        dict(params=params, prompt_ids=prompt_ids, prompt_valid=prompt_valid,
+             prompt_positions=prompt_positions, edit_params=edit_params),
+        dict(cfg=cfg, max_new_tokens=N, edit_fn=edit_fn, stop_ids=stop_ids,
+             capture_residual_layer=capture_residual_layer,
+             return_margins=return_margins),
+        params=params, device=device, make=make)
+    b, ep = prog.state
+    aot.copy_into(ep, edit_params)
 
-    cache = KVCache.zeros(cfg, B, T + N, device=device)
+    # The prefill writes columns [0, T) of the cache.  A recycled cache's
+    # stale occupancy goes first, and its K/V past the prompt are zeroed: a
+    # finished row's query can run out of its sliding window, attend
+    # uniformly over every column, and so read them.
+    b.cache.valid.zero_()
+    b.cache.k[:, :, T:] = 0
+    b.cache.v[:, :, T:] = 0
     prefill = forward(
         params, cfg, prompt_ids,
         positions=prompt_positions,
         attn_validity=prompt_valid,
-        cache=cache,
-        edit_fn=bound_edit(prompt_positions),
-        carry_tap=carry(T),
+        cache=KVCache(k=b.cache.k, v=b.cache.v, valid=b.cache.valid, length=0),
+        edit_fn=_bind(edit_fn, edit_params, prompt_positions),
+        carry_tap=(residual_carry_tap(B, T, cfg.hidden_size,
+                                      capture_residual_layer, device=device)
+                   if capture else None),
         compute_logits=False,  # only the last column is sampled
+        valid_in_place=True,
     )
-
     last_logits = unembed(params, cfg, prefill.last_hidden[:, -1:])[:, 0]
-    tok = torch.argmax(last_logits, dim=-1)
-    stop = torch.tensor(stop_ids, dtype=tok.dtype, device=device)
-    pad = torch.full_like(tok, chat.PAD_ID)
+    b.tok.copy_(torch.argmax(last_logits, dim=-1))
+    b.pos.copy_(prompt_valid.sum(dim=1))
+    b.done.zero_()
+    b.i.zero_()
+    b.tokens.fill_(chat.PAD_ID)
+    b.emitted.zero_()
+    b.all_done.zero_()
+    if capture:
+        b.gen_resid.zero_()
+    if return_margins:
+        b.margins.fill_(float("inf"))
+        b.margins[:, 0] = _top2_gap(last_logits)
 
-    tokens = torch.full((B, N), chat.PAD_ID, dtype=torch.long, device=device)
-    emitted = torch.zeros((B, N), dtype=torch.bool, device=device)
-    gen_resid = (torch.zeros((B, N, D), dtype=torch.float32, device=device)
-                 if capture else None)
-    done = torch.zeros((B,), dtype=torch.bool, device=device)
-    pos = prompt_valid.sum(dim=1)
-    cache = prefill.cache
+    flag = _LaggedFlag(b.all_done)
     for i in range(N):
-        if bool(done.all()):
+        if flag.stop_before(i):
             break
-        res = forward(
-            params, cfg, tok[:, None],
-            positions=pos[:, None],
-            attn_validity=(~done)[:, None],
-            cache=cache,
-            edit_fn=bound_edit(pos[:, None]),
-            carry_tap=carry(1),
-        )
-        next_tok = torch.argmax(res.logits[:, 0], dim=-1)
-        next_done = done | torch.isin(tok, stop)
-        next_tok = torch.where(next_done, pad, next_tok)
-        emitted_now = ~done
-        tokens[:, i] = torch.where(emitted_now, tok, pad)
-        emitted[:, i] = emitted_now
-        if capture:
-            gen_resid[:, i] = res.carry_tap[:, 0]
-        cache, tok, done, pos = res.cache, next_tok, next_done, pos + 1
+        prog.run(params)
+        flag.after_step(i)
 
     prefill_cache = None
     if return_prefill_cache:
-        # Steps wrote columns >= T only, but the cache is written in place:
-        # hand over copies, so the caller owns columns nobody else writes
-        # and the full cache frees on return.
+        # Steps wrote columns >= T only; the caller gets copies of its own
+        # (the next launch of this shape writes the cache again).
         keep = max(T - 1, 0)
-        prefill_cache = (cache.k[:, :, :keep].clone(),
-                         cache.v[:, :, :keep].clone(),
-                         cache.valid[:, :keep].clone())
+        prefill_cache = (b.cache.k[:, :, :keep].clone(),
+                         b.cache.v[:, :, :keep].clone(),
+                         b.cache.valid[:, :keep].clone())
 
     residual = None
     if capture:
         # Column T + i holds step i's input token, where `sequences` puts it.
-        residual = torch.cat([prefill.carry_tap, gen_resid], dim=1)
+        residual = torch.cat([prefill.carry_tap, b.gen_resid], dim=1)
+    tokens = b.tokens.clone()
+    emitted = b.emitted.clone()
     return DecodeResult(
         tokens=tokens,
         lengths=emitted.sum(dim=1),
@@ -191,7 +352,19 @@ def greedy_decode(
         sequence_valid=torch.cat([prompt_valid, emitted], dim=1),
         residual=residual,
         prefill_cache=prefill_cache,
+        cache=b.cache if return_cache else None,
+        margins=b.margins[:, :N].clone() if return_margins else None,
     )
+
+
+def _bind(edit_fn: Optional[Callable], edit_params: Any,
+          chunk_positions: torch.Tensor) -> Optional[Callable]:
+    """The edit as the forward calls it: ``edit_fn(h, idx, ep)`` with a dict
+    of edit params given the chunk's RoPE positions."""
+    if edit_fn is None or edit_params is None:
+        return edit_fn
+    ep = with_chunk_positions(edit_params, chunk_positions)
+    return lambda h, idx: edit_fn(h, idx, ep)
 
 
 def with_chunk_positions(edit_params: Any, chunk_positions: torch.Tensor) -> Any:
@@ -335,7 +508,8 @@ def dispatch_decode(params: Params, cfg: Gemma2Config, padded: np.ndarray,
     :func:`greedy_decode`, or with ``TBX_SPECULATE=1``
     ``runtime.speculate.speculative_decode`` at ``resolve_plan(cfg)`` (the
     same greedy stream; a residual-capturing launch only with
-    ``TBX_SPECULATE_CAPTURE=1`` as well).  ``kw`` goes to the decoder."""
+    ``TBX_SPECULATE_CAPTURE=1`` as well).  ``kw`` goes to the decoder.
+    Either steps through its graphs in ``runtime.aot``."""
     from taboo_brittleness_tpu_torch.runtime import speculate
 
     device = params["embed"].device

@@ -261,7 +261,11 @@ def run_with_deadline(
 #: (a typo'd plan must fail loudly, not silently no-op).
 FAULT_SITES = (
     "checkpoint.read",    # CheckpointManager._load_triple, every attempt
-    "cache.write",        # runtime.delta.save_delta (after the rename)
+    "cache.write",        # after each rename of runtime.cache.save_pair
+    #                       (npz, json) and save_summary, of
+    #                       runtime.delta.save_delta, and before
+    #                       pipelines.word_sweep.run_word_sweep writes a
+    #                       word (context: word + path)
     "prefetch.thread",    # CheckpointManager.prefetch worker
     "decode.launch",      # runtime.decode.generate
     "speculate.verify",   # runtime.speculate.speculative_decode, before

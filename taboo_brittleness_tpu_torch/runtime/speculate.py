@@ -236,8 +236,11 @@ def _bind_edit(edit_fn: Optional[Callable], edit_params: Any,
     return lambda h, idx: edit_fn(h, idx, ep)
 
 
-def _is_stop(tok: torch.Tensor, stop_ids: Tuple[int, ...]) -> torch.Tensor:
-    stop = torch.tensor(stop_ids, dtype=tok.dtype, device=tok.device)
+def _is_stop(tok: torch.Tensor, stop: Any) -> torch.Tensor:
+    """Whether each token is a stop id: ``stop`` a tensor of ids on
+    ``tok``'s device (what a captured step needs), or a tuple of them."""
+    if not isinstance(stop, torch.Tensor):
+        stop = torch.tensor(stop, dtype=tok.dtype, device=tok.device)
     return (tok[..., None] == stop).any(dim=-1)
 
 
@@ -262,11 +265,11 @@ def accept_counts(drafts: torch.Tensor,
     return match, m
 
 
-def stop_free_mask(toks: torch.Tensor,
-                   stop_ids: Tuple[int, ...]) -> torch.Tensor:
-    """[B, W] emission gate: position i is emittable iff no stop id precedes
-    it (the stop token itself is kept, as in ``greedy_decode``)."""
-    st = _is_stop(toks, stop_ids)
+def stop_free_mask(toks: torch.Tensor, stop: Any) -> torch.Tensor:
+    """[B, W] emission gate: position i is emittable iff no stop id (as
+    :func:`_is_stop` takes them) precedes it (the stop token itself is
+    kept, as in ``greedy_decode``)."""
+    st = _is_stop(toks, stop)
     head = torch.ones_like(st[:, :1])
     return torch.cat([head, torch.cumprod((~st[:, :-1]).long(), dim=1).bool()],
                      dim=1)
@@ -276,20 +279,132 @@ def stop_free_mask(toks: torch.Tensor,
 # The block programs and the capture flush.
 # ---------------------------------------------------------------------------
 
-class SpecState(NamedTuple):
-    """Device state threaded through the block loop."""
+@dataclasses.dataclass
+class SpecBuffers:
+    """The device state the block loop steps over in place (pooled by launch
+    shape, so the draft and the verify program share it)."""
 
-    main_k: torch.Tensor    # [L, B, S, Kh, Dh] full-depth KV
+    main_k: torch.Tensor       # [L, B, S, Kh, Dh] full-depth KV
     main_v: torch.Tensor
-    draft_k: torch.Tensor   # [k+1, B, S, Kh, Dh] the draft's own KV
+    draft_k: torch.Tensor      # [k+1, B, S, Kh, Dh] the draft's own KV
     draft_v: torch.Tensor
-    toks: torch.Tensor      # [B, N+1] emitted tokens (slot N = trash)
-    emit: torch.Tensor      # [B, N+1] bool
+    prompt_valid: torch.Tensor  # [B, Tp] bool
+    toks: torch.Tensor         # [B, N+1] emitted tokens (slot N = trash)
+    emit: torch.Tensor         # [B, N+1] bool
     resid: Optional[torch.Tensor]  # [B, S, D] f32 captured residual
-    last_tok: torch.Tensor  # [B] last emitted token (next block's first)
-    n_emit: torch.Tensor    # [B] tokens emitted so far
-    done: torch.Tensor      # [B] row finished (stop emitted or budget out)
-    plen: torch.Tensor      # [B] real prompt lengths (RoPE base)
+    last_tok: torch.Tensor     # [B] last emitted token (next block's first)
+    n_emit: torch.Tensor       # [B] tokens emitted so far
+    done: torch.Tensor         # [B] row finished (stop emitted or budget out)
+    plen: torch.Tensor         # [B] real prompt lengths (RoPE base)
+    drafts: torch.Tensor       # [B, G] the block's drafted tokens
+    stats: torch.Tensor        # [5] all-done, emitted, accepted, drafted, active
+    stop: torch.Tensor         # [S_ids] stop ids
+
+
+def _spec_buffers(cfg: Gemma2Config, B: int, Tp: int, N: int, G: int,
+                  draft_layer: int, stop_ids: Tuple[int, ...],
+                  capture: bool, device: torch.device,
+                  registry: bool) -> SpecBuffers:
+    """The launch shape's buffers: pooled when the registry is on (the main
+    KV cache in the shared KV pool of its width), else fresh."""
+    from taboo_brittleness_tpu_torch.runtime import aot
+
+    S = Tp + N + G + 1
+    kvd = (cfg.num_kv_heads, cfg.head_dim)
+
+    specs = {"draft_k": ((draft_layer + 1, B, S) + kvd, cfg.compute_dtype),
+             "draft_v": ((draft_layer + 1, B, S) + kvd, cfg.compute_dtype),
+             "prompt_valid": ((B, Tp), torch.bool),
+             "toks": ((B, N + 1), torch.long), "emit": ((B, N + 1), torch.bool),
+             "last_tok": ((B,), torch.long), "n_emit": ((B,), torch.long),
+             "done": ((B,), torch.bool), "plen": ((B,), torch.long),
+             "drafts": ((B, G), torch.long), "stats": ((5,), torch.long),
+             "stop": ((len(stop_ids),), torch.long)}
+    if capture:
+        specs["resid"] = ((B, S, cfg.hidden_size), torch.float32)
+    if registry:
+        kv = aot.pooled_kv(cfg, B, S, device)
+        t = aot.pooled(spec_pool_key(cfg, B, Tp, N, G, draft_layer, stop_ids,
+                                     capture, device), specs, device)
+    else:
+        kv = aot.fresh_kv(cfg, B, S, device)
+        t = {name: torch.zeros(shape, dtype=dtype, device=device)
+             for name, (shape, dtype) in specs.items()}
+    t["stop"].copy_(torch.tensor(stop_ids, dtype=torch.long))
+    return SpecBuffers(main_k=kv["k"], main_v=kv["v"], resid=t.get("resid"),
+                       **{k: v for k, v in t.items() if k != "resid"})
+
+
+def spec_pool_key(cfg: Gemma2Config, B: int, Tp: int, N: int, G: int,
+                  draft_layer: int, stop_ids: Tuple[int, ...], capture: bool,
+                  device: torch.device) -> Tuple:
+    return ("spec", str(device), str(cfg.compute_dtype), cfg.num_layers,
+            cfg.hidden_size, B, Tp, N, G, draft_layer, stop_ids, capture)
+
+
+@torch.no_grad()
+def spec_prefill(
+    params: Params,
+    cfg: Gemma2Config,
+    st: SpecBuffers,
+    prompt_ids: torch.Tensor,        # [B, Tp] left-padded
+    prompt_valid: torch.Tensor,      # [B, Tp] bool
+    prompt_positions: torch.Tensor,  # [B, Tp]
+    edit_params: Any = None,
+    *,
+    draft_layer: int,
+    edit_fn: Optional[Callable] = None,
+    capture_residual_layer: Optional[int] = None,
+) -> None:
+    """Full-depth prefill into the speculative cache, the first token (slot
+    0, as ``greedy_decode`` records it), and the draft cache: the prefill's
+    KV at layers 0..k copied into the draft's own (the draft would compute
+    the same K/V for the prompt), zero beyond the prompt.  Resets every
+    counter of ``st``.
+
+    Cache width is ``Tp + N + G + 1``: room for the deepest verify chunk a
+    last block can write, plus one never-valid TRASH column at the end where
+    finished rows' writes go.  The prefill writes through a view of the
+    first ``Tp + N`` columns, the width ``greedy_decode`` gives it, so its
+    attention has vanilla's shape and rounding."""
+    B, Tp = prompt_ids.shape
+    N = st.toks.shape[1] - 1
+    device = prompt_ids.device
+    st.prompt_valid.copy_(prompt_valid)
+    # Past the prompt both caches start zero, as fresh ones: a pooled
+    # cache's stale K/V would reach a finished row whose query has run out
+    # of its sliding window (it attends uniformly over every column).
+    st.main_k[:, :, Tp:] = 0
+    st.main_v[:, :, Tp:] = 0
+    prefill = forward(
+        params, cfg, prompt_ids,
+        positions=prompt_positions,
+        attn_validity=prompt_valid,
+        cache=KVCache(k=st.main_k[:, :, :Tp + N], v=st.main_v[:, :, :Tp + N],
+                      valid=torch.zeros((B, Tp + N), dtype=torch.bool,
+                                        device=device), length=0),
+        edit_fn=_bind_edit(edit_fn, edit_params, prompt_positions),
+        carry_tap=_carry(capture_residual_layer, B, Tp, cfg.hidden_size, device),
+        compute_logits=False,
+    )
+    first_tok = torch.argmax(
+        unembed(params, cfg, prefill.last_hidden[:, -1:])[:, 0], dim=-1)
+
+    st.toks.fill_(chat.PAD_ID)
+    st.emit.zero_()
+    st.toks[:, 0] = first_tok
+    st.emit[:, 0] = True
+    st.done.copy_(_is_stop(first_tok, st.stop) | (N <= 1))
+    if st.resid is not None:
+        st.resid.zero_()
+        st.resid[:, :Tp] = prefill.carry_tap
+    st.draft_k[:, :, :Tp] = st.main_k[:draft_layer + 1, :, :Tp]
+    st.draft_v[:, :, :Tp] = st.main_v[:draft_layer + 1, :, :Tp]
+    st.draft_k[:, :, Tp:] = 0
+    st.draft_v[:, :, Tp:] = 0
+    st.last_tok.copy_(first_tok)
+    st.n_emit.fill_(1)
+    st.plen.copy_(prompt_valid.sum(dim=1))
 
 
 def _carry(capture_layer: Optional[int], B: int, T: int, D: int, device):
@@ -299,120 +414,44 @@ def _carry(capture_layer: Optional[int], B: int, T: int, D: int, device):
 
 
 @torch.no_grad()
-def spec_prefill(
-    params: Params,
-    cfg: Gemma2Config,
-    prompt_ids: torch.Tensor,        # [B, Tp] left-padded
-    prompt_valid: torch.Tensor,      # [B, Tp] bool
-    prompt_positions: torch.Tensor,  # [B, Tp]
-    edit_params: Any = None,
-    *,
-    max_new_tokens: int,
-    block_size: int,
-    draft_layer: int,
-    edit_fn: Optional[Callable] = None,
-    stop_ids: Tuple[int, ...] = STOP_IDS,
-    capture_residual_layer: Optional[int] = None,
-) -> SpecState:
-    """Full-depth prefill into the speculative cache, the first token (slot
-    0, as ``greedy_decode`` records it), and the draft cache: a CLONE of the
-    prefill KV at layers 0..k (the draft would compute the same K/V for the
-    prompt; a view would share storage with the main cache, which forwards
-    write in place).
-
-    Cache width is ``Tp + N + G + 1``: room for the deepest verify chunk a
-    last block can write, plus one never-valid TRASH column at the end where
-    finished rows' writes go.  The prefill writes through a view of the
-    first ``Tp + N`` columns, the width ``greedy_decode`` gives it, so its
-    attention has vanilla's shape and rounding."""
-    B, Tp = prompt_ids.shape
-    N, G = max_new_tokens, block_size
-    S = Tp + N + G + 1
-    device = prompt_ids.device
-    cache = KVCache.zeros(cfg, B, S, device=device)
-    prefill = forward(
-        params, cfg, prompt_ids,
-        positions=prompt_positions,
-        attn_validity=prompt_valid,
-        cache=KVCache(k=cache.k[:, :, :Tp + N], v=cache.v[:, :, :Tp + N],
-                      valid=cache.valid[:, :Tp + N], length=0),
-        edit_fn=_bind_edit(edit_fn, edit_params, prompt_positions),
-        carry_tap=_carry(capture_residual_layer, B, Tp, cfg.hidden_size, device),
-        compute_logits=False,
-    )
-    first_tok = torch.argmax(
-        unembed(params, cfg, prefill.last_hidden[:, -1:])[:, 0], dim=-1)
-
-    toks = torch.full((B, N + 1), chat.PAD_ID, dtype=torch.long, device=device)
-    emit = torch.zeros((B, N + 1), dtype=torch.bool, device=device)
-    toks[:, 0] = first_tok
-    emit[:, 0] = True
-    done = _is_stop(first_tok, stop_ids) | (N <= 1)
-
-    resid = None
-    if capture_residual_layer is not None:
-        resid = torch.zeros((B, S, cfg.hidden_size), dtype=torch.float32,
-                            device=device)
-        resid[:, :Tp] = prefill.carry_tap
-
-    return SpecState(
-        main_k=cache.k, main_v=cache.v,
-        draft_k=cache.k[:draft_layer + 1].clone(),
-        draft_v=cache.v[:draft_layer + 1].clone(),
-        toks=toks, emit=emit, resid=resid,
-        last_tok=first_tok,
-        n_emit=torch.ones((B,), dtype=torch.long, device=device),
-        done=done,
-        plen=prompt_valid.sum(dim=1),
-    )
-
-
-@torch.no_grad()
 def draft_step(
     params: Params,
     cfg: Gemma2Config,
-    draft_k: torch.Tensor,
-    draft_v: torch.Tensor,
-    prompt_valid: torch.Tensor,
-    last_tok: torch.Tensor,
-    n_emit: torch.Tensor,
-    done: torch.Tensor,
-    plen: torch.Tensor,
+    st: SpecBuffers,
     edit_params: Any = None,
     *,
     draft_layer: int,
-    block_size: int,
     edit_fn: Optional[Callable] = None,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Draft G tokens autoregressively from the layer-k lens head: G
-    single-token forwards over layers 0..k writing the draft's own KV (in
-    place), each next token the lens argmax.  No host sync.  Returns
-    ``(draft_k, draft_v, drafts [B, G])``.
+) -> None:
+    """Draft G tokens autoregressively from the layer-k lens head into
+    ``st.drafts``: G single-token forwards over layers 0..k writing the
+    draft's own KV (in place), each next token the lens argmax.  No host
+    value or sync (a CUDA graph captures it).
 
     The draft only picks WHICH tokens are verified together; nothing it
     computes reaches an emitted token.  It feeds ``last_tok, d_1 ..
     d_{G-1}``: when a block accepts all G drafts, ``d_G``'s column of the
     draft cache is valid in the next block but never written (zeros), as
     in the JAX package — this moves the acceptance rate only."""
-    Tp = prompt_valid.shape[1]
-    S = draft_k.shape[2]
+    Tp = st.prompt_valid.shape[1]
+    S = st.draft_k.shape[2]
     trash = S - 1
     dcfg = cfg.replace(num_layers=draft_layer + 1)
     dparams = _draft_view(params, draft_layer)
-    active = ~done
-    pad = torch.full_like(last_tok, chat.PAD_ID)
+    active = ~st.done
+    pad = torch.full_like(st.last_tok, chat.PAD_ID)
 
-    valid = _valid_cols(prompt_valid, n_emit, S)
-    col = Tp + n_emit - 1
-    pos = plen + n_emit - 1
-    tok = last_tok
+    valid = _valid_cols(st.prompt_valid, st.n_emit, S)
+    col = Tp + st.n_emit - 1
+    pos = st.plen + st.n_emit - 1
+    tok = st.last_tok
     drafts = []
-    for _ in range(block_size):
+    for _ in range(st.drafts.shape[1]):
         res = forward(
             dparams, dcfg, tok[:, None],
             positions=pos[:, None],
             attn_validity=active[:, None],
-            cache=KVCache(k=draft_k, v=draft_v, valid=valid, length=0),
+            cache=KVCache(k=st.draft_k, v=st.draft_v, valid=valid, length=0),
             edit_fn=_bind_edit(edit_fn, edit_params, pos[:, None]),
             compute_logits=False,
             cache_positions=torch.where(active, col, trash),
@@ -421,48 +460,34 @@ def draft_step(
         tok = torch.where(active, nxt[:, 0], pad)
         drafts.append(tok)
         valid, col, pos = res.cache.valid, col + 1, pos + 1
-    return draft_k, draft_v, torch.stack(drafts, dim=1)
+    st.drafts.copy_(torch.stack(drafts, dim=1))
 
 
 @torch.no_grad()
 def verify_block(
     params: Params,
     cfg: Gemma2Config,
-    main_k: torch.Tensor,
-    main_v: torch.Tensor,
-    prompt_valid: torch.Tensor,
-    toks: torch.Tensor,
-    emit: torch.Tensor,
-    resid: Optional[torch.Tensor],
-    last_tok: torch.Tensor,
-    n_emit: torch.Tensor,
-    done: torch.Tensor,
-    plen: torch.Tensor,
-    drafts: torch.Tensor,            # [B, G]
+    st: SpecBuffers,
     edit_params: Any = None,
     *,
-    max_new_tokens: int,
-    block_size: int,
     edit_fn: Optional[Callable] = None,
-    stop_ids: Tuple[int, ...] = STOP_IDS,
     capture_residual_layer: Optional[int] = None,
-) -> Tuple[torch.Tensor, ...]:
+) -> None:
     """ONE full-depth forward over the G+1 chunk ``[last_emitted, draft_1 ..
     draft_G]``, each row at its own columns, then the acceptance / emission
-    / stop bookkeeping on the device.
+    / stop bookkeeping on the device, all written into ``st`` (no host
+    value or sync).
 
     Emission follows ``greedy_decode``: every emitted token is the full
     model's argmax at its position, a stop token is kept and ends the row,
-    and the budget truncates at ``max_new_tokens``.  ``main_k``, ``main_v``,
-    ``toks``, ``emit`` and ``resid`` are written in place.
-
-    Returns ``(main_k, main_v, toks, emit, resid, last_tok, n_emit, done,
-    all_done, stats)``; ``stats`` is the [4] vector ``[emitted, accepted,
-    drafted, active_rows]``."""
-    B, Tp = prompt_valid.shape
-    N, G = max_new_tokens, block_size
-    S = main_k.shape[2]
-    device = drafts.device
+    and the budget truncates at ``max_new_tokens``.  ``st.stats`` gets the
+    all-done flag and ``[emitted, accepted, drafted, active_rows]``."""
+    B, Tp = st.prompt_valid.shape
+    N = st.toks.shape[1] - 1
+    G = st.drafts.shape[1]
+    S = st.main_k.shape[2]
+    device = st.drafts.device
+    drafts, last_tok, n_emit, done = st.drafts, st.last_tok, st.n_emit, st.done
     active = ~done
     rows = torch.arange(B, device=device)[:, None]
     i = torch.arange(G + 1, device=device)[None, :]
@@ -472,14 +497,14 @@ def verify_block(
                         torch.cat([last_tok[:, None], drafts], dim=1), pad)
     cols = (Tp + n_emit - 1)[:, None] + i
     safe_cols = torch.where(active[:, None], cols, S - 1)
-    pos = (plen + n_emit - 1)[:, None] + i
+    pos = (st.plen + n_emit - 1)[:, None] + i
 
     res = forward(
         params, cfg, chunk,
         positions=pos,
         attn_validity=active[:, None].expand(B, G + 1),
-        cache=KVCache(k=main_k, v=main_v,
-                      valid=_valid_cols(prompt_valid, n_emit, S), length=0),
+        cache=KVCache(k=st.main_k, v=st.main_v,
+                      valid=_valid_cols(st.prompt_valid, n_emit, S), length=0),
         edit_fn=_bind_edit(edit_fn, edit_params, pos),
         carry_tap=_carry(capture_residual_layer, B, G + 1, cfg.hidden_size,
                          device),
@@ -490,72 +515,66 @@ def verify_block(
 
     _, m = accept_counts(drafts, y)                            # [B] accepted
     emit_i = (active[:, None] & (i <= m[:, None])
-              & ((n_emit[:, None] + i) < N) & stop_free_mask(y, stop_ids))
+              & ((n_emit[:, None] + i) < N) & stop_free_mask(y, st.stop))
     count = emit_i.sum(dim=1)
 
     # Non-emitted positions all write the trash slot N (cut from the output).
     slot_cols = torch.where(emit_i, n_emit[:, None] + i, N)
-    toks[rows, slot_cols] = torch.where(emit_i, y, pad)
-    emit[rows, slot_cols] = emit_i
-    if resid is not None:
-        resid[rows, safe_cols] = res.carry_tap
+    st.toks[rows, slot_cols] = torch.where(emit_i, y, pad)
+    st.emit[rows, slot_cols] = emit_i
+    if st.resid is not None:
+        st.resid[rows, safe_cols] = res.carry_tap
 
     n_new = n_emit + count
-    stop_emitted = (emit_i & _is_stop(y, stop_ids)).any(dim=1)
+    stop_emitted = (emit_i & _is_stop(y, st.stop)).any(dim=1)
     done_new = done | (active & (stop_emitted | (n_new >= N)))
     last_new = torch.gather(y, 1, (count - 1).clamp(0, G)[:, None])[:, 0]
-    last_tok = torch.where(active & (count > 0), last_new, last_tok)
 
     zero = torch.zeros_like(count)
-    stats = torch.stack([
+    st.stats.copy_(torch.stack([
+        done_new.all().long(),
         torch.where(active, count, zero).sum(),                    # emitted
         torch.where(active, (count - 1).clamp(min=0), zero).sum(),  # accepted
         active.long().sum() * G,                                   # drafted
         active.long().sum(),                                       # active rows
-    ])
-    return (main_k, main_v, toks, emit, resid, last_tok, n_new, done_new,
-            done_new.all(), stats)
+    ]))
+    st.last_tok.copy_(torch.where(active & (count > 0), last_new, last_tok))
+    st.n_emit.copy_(n_new)
+    st.done.copy_(done_new)
 
 
 @torch.no_grad()
 def spec_flush(
     params: Params,
     cfg: Gemma2Config,
-    main_k: torch.Tensor,
-    main_v: torch.Tensor,
-    prompt_valid: torch.Tensor,
-    resid: torch.Tensor,
-    last_tok: torch.Tensor,
-    n_emit: torch.Tensor,
-    plen: torch.Tensor,
+    st: SpecBuffers,
     edit_params: Any = None,
     *,
     edit_fn: Optional[Callable] = None,
     capture_residual_layer: int = 0,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+) -> None:
     """Residual-capture tail: feed every row's FINAL emitted token once at
-    full depth and capture its residual.  Vanilla feeds every token it
-    records; speculation emits the bonus token without feeding it, so a row
-    ending on one would miss its column.  For a row whose last token was
-    fed, the re-feed recomputes the same column."""
-    B, Tp = prompt_valid.shape
-    S = main_k.shape[2]
-    device = last_tok.device
-    col = Tp + n_emit - 1
-    pos = plen + n_emit - 1
+    full depth and capture its residual into ``st.resid``.  Vanilla feeds
+    every token it records; speculation emits the bonus token without
+    feeding it, so a row ending on one would miss its column.  For a row
+    whose last token was fed, the re-feed recomputes the same column."""
+    B, Tp = st.prompt_valid.shape
+    S = st.main_k.shape[2]
+    device = st.last_tok.device
+    col = Tp + st.n_emit - 1
+    pos = st.plen + st.n_emit - 1
     res = forward(
-        params, cfg, last_tok[:, None],
+        params, cfg, st.last_tok[:, None],
         positions=pos[:, None],
         attn_validity=torch.ones((B, 1), dtype=torch.bool, device=device),
-        cache=KVCache(k=main_k, v=main_v,
-                      valid=_valid_cols(prompt_valid, n_emit, S), length=0),
+        cache=KVCache(k=st.main_k, v=st.main_v,
+                      valid=_valid_cols(st.prompt_valid, st.n_emit, S), length=0),
         edit_fn=_bind_edit(edit_fn, edit_params, pos[:, None]),
         carry_tap=_carry(capture_residual_layer, B, 1, cfg.hidden_size, device),
         cache_positions=col,
         compute_logits=False,
     )
-    resid[torch.arange(B, device=device), col] = res.carry_tap[:, 0]
-    return main_k, main_v, resid
+    st.resid[torch.arange(B, device=device), col] = res.carry_tap[:, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -582,12 +601,16 @@ def speculative_decode(
     """Greedy decode by lens-head speculation, a drop-in for
     ``decode.greedy_decode`` (the same :class:`~.decode.DecodeResult`
     fields, ``prefill_cache`` as copies of their own), with a
-    :class:`SpecStats`.  Prefill once, then per block one
+    :class:`SpecStats`.  Prefill once (eagerly), then per block one
     :func:`draft_step` and one :func:`verify_block` until every row is done
     (each block advances every active row, so at most N blocks), then with
-    a capture the :func:`spec_flush`.  The host pulls one [5] tensor per
-    block.  Runs on the prompts' device.  Returns ``(DecodeResult,
-    SpecStats)``."""
+    a capture the :func:`spec_flush`.  The draft and the verify are
+    :class:`runtime.aot.Program` s (entries ``"speculate.draft"`` and
+    ``"speculate.verify"``, one CUDA graph each on the card) over one
+    :class:`SpecBuffers`; the host pulls ``stats`` [5] once per block.
+    Runs on the prompts' device.  Returns ``(DecodeResult, SpecStats)``."""
+    from taboo_brittleness_tpu_torch.runtime import aot
+
     if not 0 <= draft_layer <= cfg.num_layers - 2:
         raise ValueError(
             f"draft_layer {draft_layer} must leave at least one target-only "
@@ -597,35 +620,49 @@ def speculative_decode(
 
     prompt_valid = prompt_valid.bool()
     B, Tp = prompt_ids.shape
-    N = max_new_tokens
-    edit = dict(edit_fn=edit_fn)
+    N, G = max_new_tokens, block_size
+    device = prompt_ids.device
+    capture = capture_residual_layer is not None
     stats = SpecStats(rows=B)
+    registry = aot.enabled()
+    st = _spec_buffers(cfg, B, Tp, N, G, draft_layer, stop_ids, capture,
+                       device, registry)
+    pool_keys = ((aot.kv_pool_key(cfg, B, Tp + N + G + 1, device),
+                  spec_pool_key(cfg, B, Tp, N, G, draft_layer, stop_ids,
+                                capture, device)) if registry else ())
+    dynamic = dict(params=params, prompt_ids=prompt_ids,
+                   prompt_valid=prompt_valid, prompt_positions=prompt_positions,
+                   edit_params=edit_params)
+    static = dict(cfg=cfg, max_new_tokens=N, draft_layer=draft_layer,
+                  block_size=G, edit_fn=edit_fn, stop_ids=stop_ids,
+                  capture_residual_layer=capture_residual_layer)
 
-    st = spec_prefill(
-        params, cfg, prompt_ids, prompt_valid, prompt_positions, edit_params,
-        max_new_tokens=N, block_size=block_size, draft_layer=draft_layer,
-        stop_ids=stop_ids, capture_residual_layer=capture_residual_layer,
-        **edit)
+    def program(name: str, step: Callable) -> "aot.Program":
+        def make() -> "aot.Program":
+            ep = aot.static_copy(edit_params)
+            return aot.Program(lambda p: step(p, ep), ep, pool_keys)
+
+        prog = aot.lookup(name, speculative_decode, dynamic, static,
+                          params=params, device=device, make=make)
+        aot.copy_into(prog.state, edit_params)
+        return prog
+
+    # A capture's warm-up blocks run over whatever the state holds (every
+    # index stays in range); the prefill lays the launch's state down after.
+    draft = program("speculate.draft", lambda p, ep: draft_step(
+        p, cfg, st, ep, draft_layer=draft_layer, edit_fn=edit_fn))
+    verify = program("speculate.verify", lambda p, ep: verify_block(
+        p, cfg, st, ep, edit_fn=edit_fn,
+        capture_residual_layer=capture_residual_layer))
+    spec_prefill(params, cfg, st, prompt_ids, prompt_valid, prompt_positions,
+                 edit_params, draft_layer=draft_layer, edit_fn=edit_fn,
+                 capture_residual_layer=capture_residual_layer)
     for block in range(N):
-        draft_k, draft_v, drafts = draft_step(
-            params, cfg, st.draft_k, st.draft_v, prompt_valid, st.last_tok,
-            st.n_emit, st.done, st.plen, edit_params,
-            draft_layer=draft_layer, block_size=block_size, **edit)
+        draft.run(params)
         resilience.fire("speculate.verify", block=block, rows=B)
-        (main_k, main_v, toks, emit, resid, last_tok, n_emit, done,
-         all_done, block_stats) = verify_block(
-            params, cfg, st.main_k, st.main_v, prompt_valid, st.toks, st.emit,
-            st.resid, st.last_tok, st.n_emit, st.done, st.plen, drafts,
-            edit_params, max_new_tokens=N, block_size=block_size,
-            stop_ids=stop_ids, capture_residual_layer=capture_residual_layer,
-            **edit)
-        st = SpecState(main_k=main_k, main_v=main_v, draft_k=draft_k,
-                       draft_v=draft_v, toks=toks, emit=emit, resid=resid,
-                       last_tok=last_tok, n_emit=n_emit, done=done,
-                       plen=st.plen)
+        verify.run(params)
         # The block's one host pull: the all-done flag and the 4 counters.
-        flag, emitted, accepted, drafted, active_rows = torch.cat(
-            [all_done.long()[None], block_stats]).tolist()
+        flag, emitted, accepted, drafted, active_rows = st.stats.tolist()
         stats.blocks += 1
         stats.emitted += emitted
         stats.accepted += accepted
@@ -634,13 +671,12 @@ def speculative_decode(
         if flag:
             break
 
-    if capture_residual_layer is not None:
-        spec_flush(params, cfg, st.main_k, st.main_v, prompt_valid, st.resid,
-                   st.last_tok, st.n_emit, st.plen, edit_params,
-                   capture_residual_layer=capture_residual_layer, **edit)
+    if capture:
+        spec_flush(params, cfg, st, edit_params, edit_fn=edit_fn,
+                   capture_residual_layer=capture_residual_layer)
 
-    tokens = st.toks[:, :N]
-    emitted = st.emit[:, :N]
+    tokens = st.toks[:, :N].clone()
+    emitted = st.emit[:, :N].clone()
     prefill_cache = None
     if return_prefill_cache:
         keep = max(Tp - 1, 0)
@@ -652,8 +688,7 @@ def speculative_decode(
         lengths=emitted.sum(dim=1),
         sequences=torch.cat([prompt_ids.long(), tokens], dim=1),
         sequence_valid=torch.cat([prompt_valid, emitted], dim=1),
-        residual=(st.resid[:, :Tp + N]
-                  if capture_residual_layer is not None else None),
+        residual=st.resid[:, :Tp + N].clone() if capture else None,
         prefill_cache=prefill_cache,
     )
     return result, stats

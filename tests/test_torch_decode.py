@@ -22,7 +22,7 @@ from taboo_brittleness_tpu.runtime.tokenizer import WordTokenizer as JWordTokeni
 from taboo_brittleness_tpu_torch.models import gemma2 as tg
 from taboo_brittleness_tpu_torch.models import params as tparams
 from taboo_brittleness_tpu_torch.ops import lens as tlens
-from taboo_brittleness_tpu_torch.runtime import chat, decode
+from taboo_brittleness_tpu_torch.runtime import aot, chat, decode
 from taboo_brittleness_tpu_torch.runtime.tokenizer import WordTokenizer
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -190,3 +190,120 @@ def test_response_layout_device_matches_host(tiny):
                                           getattr(host, field))
     assert not decode.response_layout(dec._replace(tokens=tokens)).response_mask[
         0, host.prompt_len + 1]
+
+
+# ---------------------------------------------------------------------------
+# The static-buffer step loop (what a CUDA graph replays on the card).
+# ---------------------------------------------------------------------------
+
+@pytest.fixture()
+def registry(monkeypatch):
+    monkeypatch.delenv("TBX_AOT", raising=False)
+    aot.reset()
+    yield
+    aot.reset()
+
+
+@pytest.mark.parametrize("mode", ["registry", "eager"])
+def test_step_loop_equals_jax_greedy_decode(tiny, registry, monkeypatch, mode):
+    """The step loop over static buffers (a registry program, or with
+    ``TBX_AOT=0`` fresh buffers) equals JAX's ``greedy_decode``: tokens
+    exact where the margin is clear, residuals at atol = rtol = 1e-4 on
+    real tokens.
+    Under the registry the launch runs twice, the second over the pooled
+    cache the first left dirty, and the two agree bit for bit."""
+    if mode == "eager":
+        monkeypatch.setenv("TBX_AOT", "0")
+    _, first = _both_decodes(tiny, _prompts(), 6)
+    stop = int(first.tokens[1, 2])
+    kw = dict(stop_ids=(stop,), capture_residual_layer=2)
+    exp, got = _both_decodes(tiny, _prompts(), 6, **kw)
+    _assert_clear_greedy_margins(tiny, got)
+    np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(exp.tokens))
+    np.testing.assert_array_equal(got.lengths.numpy(), np.asarray(exp.lengths))
+    va = got.sequence_valid.numpy()
+    np.testing.assert_allclose(got.residual.numpy()[va],
+                               np.asarray(exp.residual)[va],
+                               atol=1e-4, rtol=1e-4)
+    _, again = _both_decodes(tiny, _prompts(), 6, **kw)
+    assert torch.equal(got.tokens, again.tokens)
+    assert torch.equal(got.residual, again.residual)
+    progs = aot.stats()["decode"]["programs"] if mode == "registry" else 0
+    assert progs == (2 if mode == "registry" else 0)
+
+
+@pytest.mark.parametrize("mode", ["registry", "eager"])
+def test_residual_columns_after_every_row_stopped_stay_zero(tiny, registry,
+                                                            monkeypatch, mode):
+    """Once every row has stopped, no later step writes a residual column
+    (the host reads the all-done flag a step late, so one more step may
+    run): those columns are exactly zero, as in JAX, and the margins
+    there are inf."""
+    if mode == "eager":
+        monkeypatch.setenv("TBX_AOT", "0")
+    _, _, cfg_t, params_t = tiny
+    _, first = _both_decodes(tiny, _prompts(), 8)
+    stops = tuple({int(t) for t in first.tokens[:, 1]})
+    padded, valid, pos = decode.pad_prompts(_prompts())
+    got = decode.greedy_decode(
+        params_t, cfg_t, torch.from_numpy(padded).long(),
+        torch.from_numpy(valid), torch.from_numpy(pos).long(),
+        max_new_tokens=8, stop_ids=stops, capture_residual_layer=1,
+        return_margins=True)
+    last = int(got.lengths.max())
+    assert last <= 2
+    T = padded.shape[1]
+    assert torch.count_nonzero(got.residual[:, T + last:]) == 0
+    assert torch.count_nonzero(got.residual[:, T:T + last]) > 0
+    assert torch.isinf(got.margins[:, last + 1:]).all()
+    assert torch.isfinite(got.margins[:, :last]).all()
+
+
+def _launch(tiny, prompts, **kw):
+    _, _, cfg_t, params_t = tiny
+    padded, valid, pos = decode.pad_prompts(prompts, pad_to_multiple=8)
+    return decode.greedy_decode(
+        params_t, cfg_t, torch.from_numpy(padded).long(),
+        torch.from_numpy(valid), torch.from_numpy(pos).long(),
+        max_new_tokens=5, return_cache=True, capture_residual_layer=2, **kw)
+
+
+def _random_prompts(seed, lengths):
+    rng = np.random.default_rng(seed)
+    return [list(rng.integers(1, 199, size=L)) for L in lengths]
+
+
+@pytest.mark.parametrize("dirt", ["valid", "kv"])
+def test_pooled_cache_recycles_kv_block(tiny, registry, monkeypatch, dirt):
+    """The port of JAX ``test_cache_seed_recycles_kv_block``: the registry's
+    pooled cache is the recycled KV block.  Left deliberately dirty by the
+    previous launch of its shape (every slot valid, or K/V noise), the
+    next launch reuses its buffers and equals a fresh-cache decode
+    exactly."""
+    first = _launch(tiny, _random_prompts(7, (4, 6)))
+    if dirt == "valid":
+        first.cache.valid.fill_(True)
+    else:
+        first.cache.k.normal_(generator=torch.Generator().manual_seed(0))
+        first.cache.v.normal_(generator=torch.Generator().manual_seed(1))
+    prompts = _random_prompts(8, (6, 3))
+    recycled = _launch(tiny, prompts)
+    assert recycled.cache.k.data_ptr() == first.cache.k.data_ptr()
+    monkeypatch.setenv("TBX_AOT", "0")
+    expected = _launch(tiny, prompts)                 # fresh zeros: the oracle
+    assert expected.cache.k.data_ptr() != first.cache.k.data_ptr()
+    for field in ("tokens", "lengths", "residual"):
+        assert torch.equal(getattr(expected, field), getattr(recycled, field))
+
+
+def test_launch_shapes_do_not_share_a_pooled_cache(tiny, registry):
+    """The port of JAX ``test_cache_seed_shape_mismatch_raises``: a launch
+    of another shape never recycles a block that does not fit it; it takes
+    a pool of its own and leaves the other shape's block as it was."""
+    first = _launch(tiny, _random_prompts(9, (4, 6)))
+    kept = first.cache.k.clone()
+    other = _launch(tiny, _random_prompts(9, (4, 6, 5)))
+    assert other.cache.k.shape[1] == 3 and first.cache.k.shape[1] == 2
+    assert other.cache.k.data_ptr() != first.cache.k.data_ptr()
+    assert torch.equal(first.cache.k, kept)
+    assert aot.stats()["decode"]["programs"] == 2

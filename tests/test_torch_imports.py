@@ -40,7 +40,8 @@ def test_every_module_imports_with_jax_blocked():
     modules = _modules()
     for name in ("ops.lens_kernel", "pipelines.word_sweep",
                  "pipelines.token_forcing", "pipelines.prompting",
-                 "runtime.delta", "runtime.speculate", "perf.spec_calibrate"):
+                 "runtime.delta", "runtime.speculate", "perf.spec_calibrate",
+                 "runtime.aot", "runtime.fused"):
         assert f"taboo_brittleness_tpu_torch.{name}" in modules
     code = (
         "import sys\n"

@@ -343,6 +343,49 @@ def test_speculative_stream_equals_vanilla_per_scenario(setup, scenario):
     assert torch.equal(van.residual[:, :Tp], res.residual[:, :Tp])
 
 
+@pytest.mark.parametrize("scenario", ["none", "sae_spike_masked", "projection"])
+def test_draft_and_verify_programs_equal_the_eager_blocks(setup, monkeypatch,
+                                                          scenario):
+    """The draft and verify programs (``runtime.aot``; on the card one CUDA
+    graph each, here the same step functions kept and run eagerly over
+    pooled buffers) against ``TBX_AOT=0`` (fresh buffers, nothing kept):
+    tokens, residual, prefill cache and stats equal bit for bit, for two
+    launches of one shape with different edits (the second over the state
+    the first left), and the programs are made once."""
+    from taboo_brittleness_tpu_torch.runtime import aot
+
+    params, cfg, _, _, sae = setup[:5]
+    rows = 4
+    args = _prompt_args(cfg, rows=rows, seed=5)
+    runs = [_scenario(scenario, cfg, sae, rows, seed=s) for s in (17, 18)]
+    kw = dict(max_new_tokens=5, stop_ids=(4,), draft_layer=1, block_size=2,
+              capture_residual_layer=2, return_prefill_cache=True)
+
+    def launches():
+        return [speculate.speculative_decode(params, cfg, *args, edit_fn=e,
+                                             edit_params=ep, **kw)
+                for e, ep in runs]
+
+    monkeypatch.delenv("TBX_AOT", raising=False)
+    aot.reset()
+    try:
+        got = launches()
+        st = aot.stats()
+        assert [st[n]["programs"] for n in ("speculate.draft",
+                                            "speculate.verify")] == [1, 1]
+        assert st["speculate.verify"]["hits"] == 1
+        monkeypatch.setenv("TBX_AOT", "0")
+        want = launches()
+    finally:
+        aot.reset()
+    for (g, gs), (w, ws) in zip(got, want):
+        _assert_stream_equal(w, g)
+        assert torch.equal(w.residual, g.residual)
+        for a, b in zip(w.prefill_cache, g.prefill_cache):
+            assert torch.equal(a, b)
+        assert gs.to_dict() == ws.to_dict()
+
+
 @pytest.mark.parametrize("block_size", [1, 2, 5])
 def test_speculative_stream_equals_vanilla_across_block_sizes(setup, block_size):
     params, cfg = setup[:2]

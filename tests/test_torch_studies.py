@@ -273,10 +273,37 @@ def test_studies_quarantine_and_continue_match_jax(setup, jax_studies, port_stud
     assert set(failures["quarantined"]) == {"bad"}
     assert failures["quarantined"]["bad"]["error_type"] == "ValueError"
     assert failures["quarantined"]["bad"]["stage"] == "checkpoint.load"
-    assert rec.loads == [WORD, "bad", "ship"]      # a permanent error: no retry
+    # bad's one load is the pre-dispatch's (inside moon's study), whose
+    # error bad's own turn raises; a permanent error: no retry.
+    assert rec.loads == [WORD, "bad", "ship"]
     assert rec.prefetched == ["bad"] and rec.dropped == ["bad"]
     assert [w for w, _ in rec.done] == [WORD, "ship"]
     assert not os.path.exists(os.path.join(out, "bad.json"))
+
+
+def test_studies_pre_dispatch_loads_the_next_word_once(setup, port_studies,
+                                                        tmp_path, monkeypatch):
+    """Moon's study loads ship and enqueues its baseline; ship's turn takes
+    that load and collects that baseline, and its study equals the one
+    computed without a pre-dispatch (behind bad, in ``port_studies``)."""
+    _, (pt, ct, tokt, conft, saet) = setup
+    first = port_studies[0]
+    real = tiv.run_intervention_study
+    handed = {}
+
+    def recording(*args, prepared=None, **kw):
+        handed[args[4]] = prepared is not None
+        return real(*args, prepared=prepared, **kw)
+
+    monkeypatch.setattr(tproj, "random_subspace", _jax_bases)
+    monkeypatch.setattr(tiv, "run_intervention_study", recording)
+    rec = Recorder((pt, ct, tokt))
+    got = tiv.run_intervention_studies(
+        conft, model_loader=rec, sae=saet, words=[WORD, "ship"],
+        output_dir=str(tmp_path), forcing=True)
+    assert rec.loads == [WORD, "ship"] and rec.prefetched == ["ship"]
+    assert handed == {WORD: False, "ship": True}
+    assert got == {WORD: first[WORD], "ship": first["ship"]}
 
 
 def test_studies_resume_corrupt_and_prefetch(setup, port_studies):
@@ -316,7 +343,7 @@ def test_studies_force_and_fail_fast(setup, tmp_path, monkeypatch):
     studied = []
 
     def stub(params, cfg, tok, config, word, sae, *, output_path=None,
-             forcing=False):
+             forcing=False, **_):
         studied.append((word, forcing))
         tiv._atomic_json_dump({"word": word}, output_path)
         return {"word": word}
@@ -348,7 +375,7 @@ def test_studies_without_forcing_are_not_done_for_forcing(setup, tmp_path, monke
     studied = []
 
     def stub(params, cfg, tok, config, word, sae, *, output_path=None,
-             forcing=False):
+             forcing=False, **_):
         studied.append((word, forcing))
         result = {"word": word,
                   "baseline": {"forcing": {"edit": "none"}} if forcing else {}}
