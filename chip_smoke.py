@@ -127,11 +127,45 @@ the kernels are built for sm_90a).  Phases, each of which fails the run:
    printed and the tokens held under phase 9's margin rule, the residual
    still bit-equal on the columns before a row's first divergence and the
    ΔNLL everywhere.
+11. in-process serving, at the same width on phase 6's params, phase 7's
+   SAE and phase 9's delta words, with the CLI's engine envelope (8 slots,
+   max_context 160, prompt_cols 96, edits and lens tap at the config's
+   layer 31), after phase 10's programs are dropped: ``ServeEngine``
+   warm-started (its step one CUDA graph, the lens readout's
+   ``lens_stats`` launched inside it) drives 8 sessions over the first 8
+   hint prompts, held to ``greedy_decode`` of the same prompts under phase
+   9's margin rule (11a); the same sessions through an engine stepping
+   eagerly (``TBX_AOT=0``) give bit-equal tokens and lens probabilities,
+   and every readout's kernel call at the serving shape (N = 8, K = 1)
+   is held to ``lens_stats_reference`` on its own inputs (logsumexp,
+   target and top-1 logits within ATOL, P(target) within
+   SERVE_PROB_RTOL), a zeroed and a row-shifted result must miss that
+   check, and the engine's lens probabilities are held to the plain
+   readout of the eager run's taps within SERVE_PROB_RTOL (11b); one prompt in four slots (plain, 8 SAE latents
+   ablated, plain, a rank-4 basis removed): the plain slots bit-equal, the
+   edited ones reading other lens probabilities (11c);
+   ``loadgen.run_inprocess`` with 32 requests, seed 0, concurrency 16,
+   50/s over chat, chat_lens, sae_ablate, projection and forcing:
+   completed == admitted, no registry miss, the ``serve_latency`` report
+   printed (11d); the multi-word engine over phase 9's two words' stacked
+   deltas, each slot bit-equal to a single-word engine on that word's
+   applied params, no miss under ``serve.step.multi`` (11e); then step ms
+   graphed and eager for the single- and the multi-word engine (CUDA
+   events over 20 steps, one step profiled: the readout kernels in each
+   profiled step, counted by name, must be the engine's
+   ``readouts_per_step``, 1 and W = 2), the readout's ``lens_stats`` at
+   N = 8 against its bound, plain version and library yardstick, and the
+   phase's peak memory (11f).
 
-The line before the last is ``{"kernels": [...]}``, one entry per route
+The card's name and power limit are printed again just before the
+``{"kernels": [...]}`` line, which is the line before the last: one entry
+per route
 (times in ms, measured here; ``bound_ms`` from this run's shapes and the
-card's published peaks; ``launches`` from the main path's run); the last
-line is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
+card's published peaks; ``launches`` from the main path's run; on the
+wgmma route, the serving readout's ``serve_*`` times and
+``serve_launches_per_step``, the readout kernels counted in each profiled
+serve step); the last line
+is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
 checkout, it exits non-zero and prints no result.
 """
 
@@ -200,18 +234,43 @@ def timed_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def report_device(torch) -> dict:
+def backlogged_ms(torch, fn, reps: int) -> tuple:
+    """Mean device time of ``fn`` over ``reps`` calls enqueued behind a
+    sleep kernel, so the host's enqueue hides under the card's work: (ms
+    per call, ms the host took to enqueue the calls, ms of the backlog).
+    The reading is the device time alone only while the enqueue is shorter
+    than the backlog."""
+    fn()
+    torch.cuda.synchronize()
+    t0, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    t0.record()
+    torch.cuda._sleep(200_000_000)
+    start.record()
+    h0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    enqueue = time.perf_counter() - h0
+    end.record()
+    end.synchronize()
+    return (start.elapsed_time(end) / reps, enqueue * 1e3,
+            t0.elapsed_time(start))
+
+
+def report_device(torch) -> tuple:
+    """(the last line's device block, the card's name and power limit as
+    nvidia-smi gives them), the latter printed."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     if smi.returncode != 0:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
     name = torch.cuda.get_device_name(0)
     log(f"device {name}, count {torch.cuda.device_count()}, torch "
         f"{torch.__version__}, cuda {torch.version.cuda}")
     return {"platform": "gpu", "kind": name,
-            "count": torch.cuda.device_count()}
+            "count": torch.cuda.device_count()}, card
 
 
 _KERNEL_NAMES = {"Lb0": "no cap", "Lb1": "cap", "f": "f32",
@@ -1955,8 +2014,8 @@ def _held_equal(what: str, got: dict, want: dict, fields=("tokens",)) -> None:
 
 
 def _profile_step(torch, step) -> dict:
-    """One call of ``step`` under ``torch.profiler``: kernels launched,
-    host ms (enqueue), device ms (kernel time, summed) and the device time
+    """One call of ``step`` under ``torch.profiler``: kernels launched (and
+    of them the lens kernel's wgmma route, by its name), host ms (enqueue), device ms (kernel time, summed) and the device time
     of the attention ops (``bmm``, softmax, mask), the weight matmuls
     (``mm``) and the rest; CUDA events give the wall time on the card."""
     from torch.profiler import ProfilerActivity, profile
@@ -1970,6 +2029,7 @@ def _profile_step(torch, step) -> dict:
         torch.cuda.synchronize()
     kernels = [e for e in prof.events()
                if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    readouts = sum("lens_wgmma_kernel" in e.name for e in kernels)
     device_us = sum(e.time_range.elapsed_us() for e in kernels)
     by_op = {}
     for k in prof.key_averages():
@@ -1982,7 +2042,7 @@ def _profile_step(torch, step) -> dict:
     matmul = sum(by_op.get(k, 0) for k in ("aten::mm", "aten::addmm"))
     top = sorted(((us, k) for k, us in by_op.items() if k.startswith("aten::")),
                  reverse=True)[:6]
-    return {"kernels": len(kernels), "host_ms": host * 1e3,
+    return {"kernels": len(kernels), "wgmma": readouts, "host_ms": host * 1e3,
             "device_ms": device_us / 1e3, "attention_ms": attention / 1e3,
             "matmul_ms": matmul / 1e3,
             "top": ", ".join(f"{k[6:]} {us / 1e3:.3f}" for us, k in top)}
@@ -2297,6 +2357,494 @@ def drive_decode_launch(torch, ctx: tuple, sae) -> None:
         f"registry {aot_summary()}")
 
 
+# Phase 11: the serve engine's envelope (the CLI's defaults) and load.
+SERVE_SLOTS, SERVE_CONTEXT, SERVE_PROMPT_COLS = 8, 160, 96
+SERVE_LATENTS, SERVE_RANK = 8, 4
+SERVE_MIX = ("chat", "chat_lens", "sae_ablate", "projection", "forcing")
+SERVE_STEP_REPS = 20
+# P(target) = exp(target logit - logsumexp): the logits' ATOL carried
+# through exp is a relative error (P is ~1/V on random weights).
+SERVE_PROB_RTOL = 1e-3
+
+
+class TapRecorder:
+    """Wraps ``serve.engine.residual_carry_tap`` while an EAGER engine
+    steps: each step's tapped residual ([S, D] f32, the lens readout's
+    input) is kept.  A graph replay runs no Python, so it records only
+    eager steps."""
+
+    def __init__(self):
+        from taboo_brittleness_tpu_torch.serve import engine as engine_mod
+
+        self.mod, self.real, self.taps = engine_mod, engine_mod.residual_carry_tap, []
+
+    def __enter__(self):
+        def wrapped(batch, seq, hidden, tap_layer, *, device):
+            acc0, update = self.real(batch, seq, hidden, tap_layer, device=device)
+
+            def recording(acc, h, idx):
+                out = update(acc, h, idx)
+                if idx == tap_layer:
+                    self.taps.append(out[:, 0].clone())
+                return out
+
+            return acc0, recording
+
+        self.mod.residual_carry_tap = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.residual_carry_tap = self.real
+
+
+class ReadoutRecorder:
+    """Stands in for ``lens_kernel`` in ``serve.engine`` while an EAGER
+    engine steps: each readout's ``lens_stats`` call runs as it would, and
+    its inputs and the kernel's stats are kept (cloned)."""
+
+    def __init__(self):
+        from taboo_brittleness_tpu_torch.serve import engine as engine_mod
+
+        self.mod, self.real, self.calls = engine_mod, engine_mod.lens_kernel, []
+
+    def __enter__(self):
+        import types
+
+        def lens_stats(x, embed, target, **kw):
+            st = self.real.lens_stats(x, embed, target, **kw)
+            self.calls.append((x.clone(), embed, target.clone(),
+                               type(st)(*(t.clone() for t in st))))
+            return st
+
+        self.mod.lens_kernel = types.SimpleNamespace(lens_stats=lens_stats)
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.lens_kernel = self.real
+
+
+def _readout_errors(torch, calls, mutate=None) -> tuple:
+    """Over recorded readout calls: (max abs err of the kernel's logsumexp,
+    target logit and top-1 logit against ``lens_stats_reference`` on the
+    same inputs; rows whose top-1 id differs where the reference's top-2
+    gap exceeds ATOL; max relative err of P(target)).  ``mutate`` (a
+    function of the stats) stands in for a broken kernel."""
+    from taboo_brittleness_tpu_torch.ops import lens_kernel as lk
+
+    err = rel = 0.0
+    bad = 0
+    for x, embed, target, got in calls:
+        if mutate is not None:
+            got = mutate(got)
+        ref = lk.lens_stats_reference(x, embed, target, top_k=2)
+        e, _, n_bad = compare(got, ref, 1)
+        p, p_ref = got.target_prob(), ref.target_prob()
+        rel = max(rel, ((p - p_ref).abs() / p_ref).max().item())
+        err, bad = max(err, e), bad + n_bad
+    return err, bad, rel
+
+
+def _serve_sessions(engine, admits, *, eager_taps=None):
+    """Admit ``admits`` ([(slot, ids, kwargs)]) and step until no slot is
+    alive.  Returns {slot: tokens}, {slot: per-step lens probs while
+    alive}, the steps run and, per step, the slots alive before it."""
+    for slot, ids, kw in admits:
+        engine.admit(slot, ids, **kw)
+    toks = {slot: [] for slot, _, _ in admits}
+    lens = {slot: [] for slot, _, _ in admits}
+    alive_log = []
+    while engine.any_alive():
+        alive = engine.alive()
+        alive_log.append(alive)
+        out = engine.step()
+        for slot in toks:
+            if alive[slot]:
+                lens[slot].append(float(out.lens_prob[slot]))
+            if out.emitted[slot]:
+                toks[slot].append(int(out.tok[slot]))
+    for slot in toks:
+        engine.release(slot)
+    return toks, lens, len(alive_log), alive_log
+
+
+def _token_rows(toks: dict, n: int) -> np.ndarray:
+    from taboo_brittleness_tpu_torch.runtime import chat
+
+    rows = np.full((len(toks), n), chat.PAD_ID, np.int64)
+    for i, slot in enumerate(sorted(toks)):
+        rows[i, :len(toks[slot])] = toks[slot]
+    return rows
+
+
+def check_serve_against_greedy(torch, ctx, engine, ids, n_new, tgt):
+    """11a: 8 sessions, one per slot, over the hint prompts' first 8, held
+    to ``greedy_decode`` of the same prompts under phase 9's margin rule
+    (chunk-1 prefill and 8 rows round bf16 otherwise than one padded
+    prefill)."""
+    from taboo_brittleness_tpu_torch.runtime import decode
+
+    params, cfg, tok, config = ctx[:4]
+    t0 = time.perf_counter()
+    toks, lens, steps, _ = _serve_sessions(engine, [
+        (s, row, dict(max_new=n_new, lens_target=tgt))
+        for s, row in enumerate(ids)])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    padded, valid, positions = decode.pad_prompts(
+        ids, pad_to_multiple=config.experiment.pad_to_multiple)
+    dev = params["embed"].device
+    van = decode.greedy_decode(
+        params, cfg, torch.from_numpy(padded).long().to(dev),
+        torch.from_numpy(valid).to(dev), torch.from_numpy(positions).long().to(dev),
+        max_new_tokens=n_new, return_margins=True)
+    emitted = sum(len(t) for t in toks.values())
+    log(f"  {len(ids)} sessions: {steps} steps in {dt:.3f} s ({emitted} "
+        f"tokens emitted, {emitted / dt:.1f} slot-tokens/s, prompt steps "
+        "included)")
+    _hold_rows("serve engine vs greedy_decode (8 rows)", _token_rows(toks, n_new),
+               {"tokens": van.tokens.cpu().numpy(),
+                "margins": van.margins.double().cpu().numpy()})
+    return toks, lens
+
+
+def check_serve_eager(torch, ctx, ids, n_new, tgt, graphed_toks, graphed_lens,
+                      sae):
+    """11b: the same sessions through an engine stepping eagerly
+    (``TBX_AOT=0``): tokens and lens probabilities bit-equal to the graphed
+    run's.  Every readout's kernel call at the serving shape (N = 8, K = 1)
+    is held to its plain version (``lens_stats_reference``) on the same
+    inputs: logsumexp, target and top-1 logits within ATOL, P(target)
+    within SERVE_PROB_RTOL; a zeroed and a row-shifted result must miss.
+    The engine's own lens probabilities are held to the plain readout of
+    the recorded taps within SERVE_PROB_RTOL.  Returns the eager engine
+    (for the step timings), the kernel's max abs error and the taps of the
+    step that fed the first prompt's last token ([8, D])."""
+    from taboo_brittleness_tpu_torch.models.gemma2 import rms_norm
+    from taboo_brittleness_tpu_torch.ops import lens_kernel as lk
+    from taboo_brittleness_tpu_torch.serve.engine import ServeEngine
+
+    params, cfg, tok, config = ctx[:4]
+    layer = config.model.layer_idx
+    with AotOff():
+        engine = ServeEngine(params, cfg, tok, sae=sae,
+                             engine_config=_serve_config(layer))
+        with TapRecorder() as rec, ReadoutRecorder() as readouts:
+            toks, lens, steps, alive_log = _serve_sessions(engine, [
+                (s, row, dict(max_new=n_new, lens_target=tgt))
+                for s, row in enumerate(ids)])
+    if toks != graphed_toks or lens != graphed_lens:
+        bad = [s for s in toks if toks[s] != graphed_toks[s]
+               or lens[s] != graphed_lens[s]]
+        fail(f"eager serve sessions differ from the graphed ones on slots "
+             f"{bad}")
+    log(f"  eager engine (TBX_AOT=0): tokens and lens probabilities of all "
+        f"{len(toks)} sessions bit-equal to the graphed run ({steps} steps)")
+    if len(readouts.calls) != steps:
+        fail(f"{steps} eager steps made {len(readouts.calls)} readout calls")
+    err, bad, rel = _readout_errors(torch, readouts.calls)
+    log(f"  readout kernel at N={len(ids)} K=1 on {steps} steps' inputs: max "
+        f"abs err {err:.3e} over logsumexp, target and top-1 logits (atol "
+        f"{ATOL}); top-1 ids differing on clear rows: {bad}; P(target) max "
+        f"relative err {rel:.3e} (rtol {SERVE_PROB_RTOL})")
+    if not (err <= ATOL and rel <= SERVE_PROB_RTOL) or bad:
+        fail(f"the serve readout kernel disagrees with its plain version: "
+             f"{err}, {rel}, {bad} ids")
+    # The check must see a broken kernel: zeroed stats, and rows shifted
+    # by one slot.
+    for what, mutate in (
+            ("zeroed", lambda st: type(st)(*(torch.zeros_like(t) for t in st))),
+            ("rows shifted by one", lambda st: type(st)(
+                *(torch.roll(t, 1, dims=0) for t in st)))):
+        m_err, _, m_rel = _readout_errors(torch, readouts.calls, mutate)
+        log(f"  control, {what} readout: max abs err {m_err:.3e}, P(target) "
+            f"relative err {m_rel:.3e}")
+        if m_err <= ATOL or m_rel <= SERVE_PROB_RTOL:
+            fail(f"the readout check passes a {what} result")
+    embed = params["embed"].to(cfg.compute_dtype)
+    target = torch.full((len(ids),), tgt, dtype=torch.int32,
+                        device=embed.device)
+    p_rel, n = 0.0, 0
+    step_of = {s: 0 for s in toks}
+    for tap, alive in zip(rec.taps, alive_log):
+        x = rms_norm(tap, params["final_norm"], cfg.rms_norm_eps).to(
+            cfg.compute_dtype)
+        plain = lk.lens_stats_reference(x, embed, target, top_k=1).target_prob()
+        for s in np.nonzero(alive)[0]:
+            want = float(plain[s])
+            p_rel = max(p_rel, abs(want - lens[s][step_of[s]]) / want)
+            step_of[s] += 1
+            n += 1
+    log(f"  engine lens probabilities against the plain readout of the "
+        f"recorded taps: max relative err {p_rel:.3e} over {n} (step, slot) "
+        f"readouts (rtol {SERVE_PROB_RTOL})")
+    if not (n and p_rel <= SERVE_PROB_RTOL):
+        fail(f"the serve lens probabilities disagree with the plain readout: "
+             f"{p_rel}")
+    return engine, err, rec.taps[len(ids[0]) - 1]
+
+
+def _serve_config(layer: int):
+    from taboo_brittleness_tpu_torch.serve.engine import EngineConfig
+
+    return EngineConfig(slots=SERVE_SLOTS, max_context=SERVE_CONTEXT,
+                        prompt_cols=SERVE_PROMPT_COLS,
+                        latent_slots=SERVE_LATENTS, proj_rank=SERVE_RANK,
+                        sae_layer=layer, proj_layer=layer, tap_layer=layer)
+
+
+def check_serve_switch(torch, engine, sae, ids, tap, tgt):
+    """11c: one prompt in four slots: 0 and 2 plain, 1 ablating the 8 SAE
+    latents most active on the prompt's last-token tap, 3 removing a
+    rank-4 random basis.  Slots 0 and 2 bit-equal; 1 and 3 read other lens
+    probabilities than 0."""
+    from taboo_brittleness_tpu_torch.ops import projection
+    from taboo_brittleness_tpu_torch.ops import sae as sae_ops
+
+    acts = sae_ops.encode(sae, tap[:1].float())[0]
+    latents = torch.topk(acts, SERVE_LATENTS).indices.tolist()
+    basis = projection.random_subspace(
+        torch.Generator().manual_seed(0), engine.cfg.hidden_size,
+        SERVE_RANK).numpy()
+    n_new = 16
+    toks, lens, steps, _ = _serve_sessions(engine, [
+        (0, ids, dict(max_new=n_new, lens_target=tgt)),
+        (1, ids, dict(max_new=n_new, lens_target=tgt, latent_ids=latents)),
+        (2, ids, dict(max_new=n_new, lens_target=tgt)),
+        (3, ids, dict(max_new=n_new, lens_target=tgt, basis=basis))])
+    delta = {s: max(abs(a - b) for a, b in zip(lens[s], lens[0]))
+             for s in (1, 2, 3)}
+    log(f"  per-slot switch: ablated latents {latents} (top activations "
+        f"{acts[latents].min().item():.3f}-{acts[latents].max().item():.3f}); "
+        f"max |lens prob - slot 0's| slot 1 {delta[1]:.3e}, slot 2 "
+        f"{delta[2]:.3e}, slot 3 {delta[3]:.3e}; tokens equal to slot 0's: "
+        + ", ".join(f"slot {s} {toks[s] == toks[0]}" for s in (1, 2, 3)))
+    if toks[0] != toks[2] or lens[0] != lens[2]:
+        fail("two plain sessions of one prompt differ in one batch")
+    if not (delta[1] > 0 and delta[3] > 0):
+        fail(f"an edited slot reads the plain slot's lens: {delta}")
+
+
+def check_serve_load(torch, engine, tgt):
+    """11d: ``run_inprocess``, 32 requests, seed 0, concurrency 16, 50/s,
+    a uniform mix over SERVE_MIX: completed == admitted, no miss."""
+    from taboo_brittleness_tpu_torch.runtime import aot
+    from taboo_brittleness_tpu_torch.serve import loadgen
+    from taboo_brittleness_tpu_torch.serve.scheduler import default_scenarios
+
+    emitted = []
+    report = loadgen.run_inprocess(
+        engine, n_requests=32, seed=0, rate=50.0, concurrency=16,
+        mix={name: 1.0 for name in SERVE_MIX},
+        scenarios=default_scenarios(), lens_target_id=tgt,
+        on_complete=lambda r: emitted.append(len(r.tokens)))
+    st = aot.stats()[engine.aot_name]
+    good = report["goodput"]
+    report["tokens_per_second"] = round(sum(emitted) / report["wall_seconds"], 3)
+    log(f"serve_latency {json.dumps(report)}")
+    log(f"  serve_latency: goodput {good}; {sum(emitted)} tokens in "
+        f"{report['wall_seconds']} s = {report['tokens_per_second']} tokens/s; "
+        + "; ".join(f"{name} p50 {b['p50_s']:.3f} s p99 {b['p99_s']:.3f} s "
+                    f"TTFT p50 {b['ttft']['p50_s']:.3f} s p99 "
+                    f"{b['ttft']['p99_s']:.3f} s"
+                    for name, b in report["scenarios"].items())
+        + f"; {engine.aot_name}: {st['misses']} misses, {st['hits']} hits")
+    if not (good["completed"] == good["admitted"] == 32) or st["misses"]:
+        fail(f"serve load: goodput {good}, misses {st['misses']}")
+    if set(report["scenarios"]) != set(SERVE_MIX):
+        fail(f"serve load ran scenarios {sorted(report['scenarios'])}")
+    return report
+
+
+def check_serve_multi(torch, workdir, ctx, sae, ids, tgt):
+    """11e: the multi-word engine over phase 9's two delta words (their
+    packed artifacts stacked), slot s serving word s % 2; each slot's
+    tokens and lens probabilities bit-equal to a single-word engine of the
+    same slot count on that word's applied params; no miss under
+    ``serve.step.multi``.  Returns the multi engine."""
+    from taboo_brittleness_tpu_torch.runtime import aot
+    from taboo_brittleness_tpu_torch.runtime import delta as deltalib
+    from taboo_brittleness_tpu_torch.serve.engine import ServeEngine
+
+    params, cfg, tok, config = ctx[:4]
+    ec = _serve_config(config.model.layer_idx)
+    root = os.path.join(workdir, "deltas")
+    packed = [deltalib.load_delta(deltalib.delta_path(root, w))
+              for w in DELTA_WORDS]
+    bank = deltalib.stack_bank(params, packed)
+    multi = ServeEngine(params, cfg, tok, engine_config=ec, sae=sae,
+                        words=DELTA_WORDS, delta_bank=bank)
+    rec = multi.warm_start()
+    n_new = 24
+    admits = [(s, row, dict(max_new=n_new, lens_target=tgt, word_id=s % 2))
+              for s, row in enumerate(ids)]
+    t0 = time.perf_counter()
+    toks, lens, steps, _ = _serve_sessions(multi, admits)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    equal = 0
+    for w, word in enumerate(DELTA_WORDS):
+        applied = deltalib.apply_packed(params, *packed[w])
+        single = ServeEngine(applied, cfg, tok, engine_config=ec, sae=sae,
+                             words=(word,))
+        single.warm_start()
+        s_toks, s_lens, _, _ = _serve_sessions(single, [
+            (s, row, {**kw, "word_id": 0}) for s, row, kw in admits
+            if kw["word_id"] == w])
+        for s in s_toks:
+            if s_toks[s] != toks[s] or s_lens[s] != lens[s]:
+                fail(f"multi-word slot {s} ({word}) differs from its "
+                     "single-word engine")
+            equal += 1
+        del single, applied
+    st = aot.stats()["serve.step.multi"]
+    log(f"  multi-word engine ({', '.join(DELTA_WORDS)}; codecs "
+        + ", ".join(f"{n} {c}" for n, c in multi.delta_codecs if c != "zero")
+        + f"): capture {rec.get('seconds')} s, {steps} steps in {dt:.3f} s; "
+        f"{equal}/{len(ids)} slots bit-equal to their single-word engines; "
+        f"serve.step.multi {st['misses']} misses, {st['hits']} hits")
+    if st["misses"]:
+        fail("the multi-word step missed the registry after warm start")
+    return multi
+
+
+def _time_engine_steps(torch, engine, ids, tgt, label: str) -> dict:
+    """CUDA-event ms per ``engine.step()`` (the user-facing step: replay
+    or eager forward, and the host pull) over SERVE_STEP_REPS steps with 8
+    live sessions, and one step profiled: its readout kernels, counted by
+    name in the trace, must be the engine's ``readouts_per_step``."""
+    for s, row in enumerate(ids):
+        engine.admit(s, row, max_new=SERVE_CONTEXT - len(row),
+                     lens_target=tgt,
+                     word_id=s % len(engine.words) if engine.multi else 0)
+    out = {"step_ms": timed_ms(torch, engine.step, SERVE_STEP_REPS)}
+    out.update(_profile_step(torch, engine.step))
+    for s in range(len(ids)):
+        engine.release(s)
+    log(f"  {label} step (8 slots): {out['step_ms']:.3f} ms per step (CUDA "
+        f"events, {SERVE_STEP_REPS} steps, host pull included); profiled "
+        f"step: {out['kernels']} kernels, {out['wgmma']} of them the "
+        f"readout's lens_wgmma_kernel, host {out['host_ms']:.3f} ms, device "
+        f"{out['device_ms']:.3f} ms of kernels")
+    if out["wgmma"] != engine.readouts_per_step:
+        fail(f"the profiled {label} step ran {out['wgmma']} readout kernels, "
+             f"not {engine.readouts_per_step}")
+    return out
+
+
+def check_serve_timing(torch, ctx, engines, ids, tgt, tap) -> dict:
+    """11f: step ms graphed and eager (single word, and the multi-word
+    engine at W = 2), the profiled step, and the readout's lens_stats at
+    N = 8 against its bound, its plain version and the library
+    yardstick."""
+    from taboo_brittleness_tpu_torch.models.gemma2 import rms_norm
+    from taboo_brittleness_tpu_torch.ops import lens_kernel as lk
+
+    params, cfg = ctx[:2]
+    rows = {}
+    for label, engine, eager in engines:
+        with AotOff() if eager else contextlib.nullcontext():
+            rows[label] = _time_engine_steps(torch, engine, ids, tgt, label)
+    x = rms_norm(tap, params["final_norm"], cfg.rms_norm_eps).to(cfg.compute_dtype)
+    embed = params["embed"].to(cfg.compute_dtype)
+    target = torch.full((x.shape[0],), tgt, dtype=torch.int32,
+                        device=x.device)
+    n = x.shape[0]
+
+    def kernel():
+        lk.lens_stats(x, embed, target, top_k=1).target_prob()
+
+    def plain():
+        lk.lens_stats_reference(x, embed, target, top_k=1).target_prob()
+
+    def library():
+        logits = torch.matmul(x, embed.T).float()
+        torch.exp(logits.gather(1, target.long()[:, None])[:, 0]
+                  - torch.logsumexp(logits, dim=-1))
+
+    # A call of under a millisecond can be enqueued slower than it runs,
+    # and then back-to-back timing measures the host: each is timed both
+    # back to back and queued behind a sleep kernel (the device time
+    # alone, as inside the step's graph, which is the time kept).
+    before = lk.lens_stats.route_launches["wgmma"]
+    host_ms = timed_ms(torch, kernel, SERVE_STEP_REPS)
+    ms, enqueue_ms, backlog_ms = backlogged_ms(torch, kernel, SERVE_STEP_REPS)
+    if lk.lens_stats.route_launches["wgmma"] != before + 2 * (SERVE_STEP_REPS + 1):
+        fail("the readout timing did not launch the wgmma kernel")
+    library_host_ms = timed_ms(torch, library, SERVE_STEP_REPS)
+    library_ms, lib_enqueue_ms, lib_backlog_ms = backlogged_ms(
+        torch, library, SERVE_STEP_REPS)
+    if max(enqueue_ms - backlog_ms, lib_enqueue_ms - lib_backlog_ms) > 0:
+        fail(f"the readout timings' enqueue ({enqueue_ms:.3f}, "
+             f"{lib_enqueue_ms:.3f} ms) outran their backlog ({backlog_ms:.3f}, "
+             f"{lib_backlog_ms:.3f} ms)")
+    plan = lk.lens_plan(n, cfg.vocab_size, 1, torch.bfloat16,
+                        sm_count=lk._sm_count(x.device))
+    plain_ms = timed_ms(torch, plain, 3)
+    bound_ms, bound_by = lens_bound_ms(n, cfg.hidden_size, cfg.vocab_size, 1)
+    graphed = rows["graphed"]["step_ms"]
+    log(f"  serve readout lens_stats N={n} D={cfg.hidden_size} "
+        f"V={cfg.vocab_size} K=1 bf16 ({plan.route}, {plan.chunks} chunks): "
+        f"{ms:.3f} ms on the card ({host_ms:.3f} ms back to back; "
+        f"{SERVE_STEP_REPS} calls enqueued in {enqueue_ms:.3f} ms behind a "
+        f"{backlog_ms:.3f} ms backlog), bound {bound_ms:.3f} ms ({bound_by}; "
+        f"{bound_ms / ms:.1%} of it), plain {plain_ms:.3f} ms, library "
+        f"{library_ms:.3f} ms on the card ({library_host_ms:.3f} ms back to "
+        f"back); {ms / graphed:.1%} of the graphed step")
+    return {"serve_ms": ms, "serve_bound_ms": bound_ms,
+            "serve_bound_by": bound_by, "serve_plain_ms": plain_ms,
+            "serve_library_ms": library_ms, "serve_back_to_back_ms": host_ms,
+            "serve_step_ms": {k: v["step_ms"] for k, v in rows.items()},
+            "serve_launches_per_step": {k: v["wgmma"] for k, v in rows.items()}}
+
+
+def drive_serving(torch, workdir: str, ctx: tuple, sae) -> dict:
+    """Phase 11: in-process serving at the main path's width on phase 6's
+    params, phase 7's SAE and phase 9's delta words.  Returns the readout
+    kernel's serve measurements and its launches on the serving path."""
+    import gc
+
+    from taboo_brittleness_tpu_torch.runtime import aot, decode
+    from taboo_brittleness_tpu_torch.runtime.tokenizer import target_token_id
+    from taboo_brittleness_tpu_torch.serve import engine as engine_mod
+
+    t0 = time.perf_counter()
+    aot.reset()                  # phase 10's programs and pooled caches go
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, cfg, tok, config = ctx[:4]
+    layer = config.model.layer_idx
+    _, _, _, ids = decode.encode_prompts(tok, list(config.prompts[:SERVE_SLOTS]))
+    tgt = target_token_id(tok, ctx[5])
+    n_new = config.experiment.max_new_tokens
+
+    engine = engine_mod.ServeEngine(params, cfg, tok, sae=sae,
+                                    engine_config=_serve_config(layer))
+    rec = engine.warm_start()
+    log(f"phase 11a serve engine vs greedy_decode (warm start: capture "
+        f"{rec.get('seconds')} s)")
+    toks, lens = check_serve_against_greedy(torch, ctx, engine, ids, n_new, tgt)
+    log("phase 11b eager engine and the readout kernel at the serving shape")
+    eager, err, tap = check_serve_eager(torch, ctx, ids, n_new, tgt, toks,
+                                        lens, sae)
+    log("phase 11c per-slot switch")
+    check_serve_switch(torch, engine, sae, ids[0], tap, tgt)
+    log("phase 11d in-process load")
+    check_serve_load(torch, engine, tgt)
+    log("phase 11e multi-word engine")
+    multi = check_serve_multi(torch, workdir, ctx, sae, ids, tgt)
+    log("phase 11f step and readout timings, readout kernels per step")
+    engines = [("graphed", engine, False), ("eager", eager, True),
+               ("multi-word graphed (W = 2)", multi, False),
+               ("multi-word eager (W = 2)", multi, True)]
+    timing = check_serve_timing(torch, ctx, engines, ids, tgt, tap)
+    del engine, eager, multi, engines
+    log(f"serving phase: {time.perf_counter() - t0:.2f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated); graph registry {aot_summary()}")
+    return {"serve_max_abs_err": err, **timing}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, PACKAGE)):
         fail(f"{PACKAGE}/ not found beside chip_smoke.py: run it from the "
@@ -2310,7 +2858,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    device = report_device(torch)
+    device, card = report_device(torch)
     build_kernels()
     wgmma, simple = check_lens_stats(torch)
     worst = check_edges(torch)
@@ -2323,8 +2871,17 @@ def main() -> int:
         del ablation_set
         drive_residency_and_speculation(torch, workdir, ctx, forcing)
         drive_decode_launch(torch, ctx, sae)
+        serve = drive_serving(torch, workdir, ctx, sae)
         del ctx, sae
-    wgmma["launches"], simple["launches"] = by_route["wgmma"], by_route["simple"]
+    # ``launches`` is the main path's own count; the serving path's readout
+    # kernels per step, counted in profiled steps, ride beside it.
+    wgmma["max_abs_err"] = max(wgmma["max_abs_err"], serve.pop("serve_max_abs_err"))
+    wgmma.update(serve)
+    wgmma["launches"] = by_route["wgmma"]
+    simple["launches"] = by_route["simple"]
+    # Again at the end, beside the numbers, where a tail of the output
+    # keeps it.
+    print(card, flush=True)
     print(json.dumps({"kernels": [wgmma, simple]}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0

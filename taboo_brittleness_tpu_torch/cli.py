@@ -9,6 +9,7 @@
     python -m taboo_brittleness_tpu_torch chat          [--word W] [--max-new-tokens N]
     python -m taboo_brittleness_tpu_torch delta-pack    [--base ID] [--words ...] [--out DIR] [--atol A] [--selfcheck]
     python -m taboo_brittleness_tpu_torch spec-calibrate [--processed-dir D] [--out F]
+    python -m taboo_brittleness_tpu_torch loadgen       [--synthetic] [--word W | --words W1 W2 --delta-root D] [-n N] [--selfcheck]
 
 All accept the reference's ``configs/default.yaml`` schema (PyYAML is needed
 only to read a YAML file) and run on ``--device`` (default ``cuda``).  Every
@@ -20,8 +21,13 @@ SAE comes from an npz in the Gemma-Scope layout (``--sae-npz`` or
 a file; without ``--word`` it sweeps the config's words into a directory,
 one ``<word>.json`` each, resuming where a run stopped.  The attack sweeps
 write the aggregate to ``--output`` and per-word JSONs to ``words/`` beside
-it.  Exit codes: 0 when the run completed, 1 when words were quarantined
-(see the ``_failures.json`` of the sweep's directory).
+it.  ``loadgen`` serves a seeded request mix in process through the
+serve engine (``serve/``) and prints the ``serve_latency`` report: over a
+tiny random model with ``--synthetic``, else over the config's word (or a
+base plus a ``--delta-root`` bank for several ``--words``).  Exit codes: 0
+when the run completed, 1 when words were quarantined (see the
+``_failures.json`` of the sweep's directory) or, for ``loadgen``, when an
+admitted request did not complete.
 """
 
 from __future__ import annotations
@@ -341,6 +347,97 @@ def cmd_spec_calibrate(args) -> int:
     return 0
 
 
+def _serve_engine(args, config: Config):
+    """The resident engine of ``loadgen``: ``--synthetic`` is the tiny-model
+    stack (one word, or several through one multi-word engine); otherwise
+    the config's word (``--word`` / one ``--words``) loads through a
+    ``CheckpointManager``, or with several ``--words`` the base plus their
+    ``--delta-root`` artifacts stacked into one bank.  The SAE comes from
+    ``--sae-npz`` (without one the ``sae_ablate`` scenario is dropped) and
+    every edit and the lens readout sit at ``config.model.layer_idx``.
+    Returns (engine, scenarios, lens_target_id)."""
+    from taboo_brittleness_tpu_torch.runtime.tokenizer import target_token_id
+    from taboo_brittleness_tpu_torch.serve import loadgen as loadgen_mod
+    from taboo_brittleness_tpu_torch.serve.engine import EngineConfig, ServeEngine
+    from taboo_brittleness_tpu_torch.serve.scheduler import default_scenarios
+
+    words = tuple(args.words or ())
+    if args.synthetic:
+        if len(words) >= 2:
+            return loadgen_mod.build_synthetic_multi_engine(
+                words=words, slots=args.slots,
+                max_new_tokens=args.max_new_tokens, device=args.device)
+        return loadgen_mod.build_synthetic_engine(
+            slots=args.slots, max_new_tokens=args.max_new_tokens,
+            word=words[0] if words else args.word, device=args.device)
+    loadgen_mod._speculate_refused(None)
+
+    sae = None
+    if args.sae_npz:
+        from taboo_brittleness_tpu_torch.ops import sae as sae_ops
+
+        sae = sae_ops.load(args.sae_npz, device=args.device)
+    layer = config.model.layer_idx
+    ec = EngineConfig(slots=args.slots, max_context=args.max_context,
+                      prompt_cols=args.prompt_cols, sae_layer=layer,
+                      proj_layer=layer, tap_layer=layer)
+    mgr = _loader(config, args)
+    if len(words) >= 2:
+        from taboo_brittleness_tpu_torch.runtime import delta as deltalib
+
+        if mgr.delta_root is None:
+            raise SystemExit("several --words need --delta-root (or "
+                             "TBX_DELTA=1 and TBX_DELTA_ROOT) with delta-pack "
+                             "output")
+        base_params, cfg, tok = mgr.base_triple()
+        packed = [deltalib.load_delta(deltalib.delta_path(mgr.delta_root, w))
+                  for w in words]
+        engine = ServeEngine(base_params, cfg, tok, engine_config=ec, sae=sae,
+                             words=words,
+                             delta_bank=deltalib.stack_bank(base_params, packed))
+    else:
+        word = (words[0] if words else None) or args.word or config.words[0]
+        words = (word,)
+        params, cfg, tok = mgr.load(word)
+        engine = ServeEngine(params, cfg, tok, engine_config=ec, sae=sae,
+                             words=words)
+    scenarios = default_scenarios(max_new_tokens=args.max_new_tokens)
+    if sae is None:
+        scenarios.pop("sae_ablate", None)
+    # One lens target per engine: the first served word.
+    return engine, scenarios, target_token_id(tok, words[0])
+
+
+def cmd_loadgen(args) -> int:
+    """Closed-loop load generator (``serve.loadgen``), in process: a seeded
+    scenario mix and arrival process over a fresh engine; prints the
+    ``serve_latency`` report (per-scenario p50/p99 latency and TTFT,
+    goodput), and writes it to ``--report`` too."""
+    from taboo_brittleness_tpu_torch.runtime.resilience import atomic_json_dump
+    from taboo_brittleness_tpu_torch.serve import loadgen as loadgen_mod
+
+    if args.selfcheck:
+        return loadgen_mod.main_selfcheck(device=args.device)
+    mix = None
+    if args.mix:
+        mix = {}
+        for part in args.mix.split(","):
+            name, _, w = part.partition("=")
+            mix[name.strip()] = float(w) if w else 1.0
+    engine, scenarios, lens_tgt = _serve_engine(args, _load(args))
+    words = tuple(args.words or ()) if engine.multi else None
+    report = loadgen_mod.run_inprocess(
+        engine, n_requests=args.n, seed=args.seed, rate=args.rate,
+        concurrency=args.concurrency, mix=mix, scenarios=scenarios,
+        words=words, lens_target_id=lens_tgt)
+    report["aot"] = engine.aot_name
+    if args.report:
+        atomic_json_dump(report, args.report)
+    print(json.dumps(report))
+    good = report["goodput"]
+    return 0 if good["admitted"] == good["completed"] else 1
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="taboo_brittleness_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -439,6 +536,60 @@ def build_parser() -> argparse.ArgumentParser:
     sc.add_argument("--rows", type=int, default=10,
                     help="batch rows assumed by the cost model")
     sc.set_defaults(fn=cmd_spec_calibrate)
+
+    lg = sub.add_parser(
+        "loadgen",
+        help="closed-loop load generator + SLO report (serve_latency stage)",
+        description="Serve a seeded scenario mix and arrival process in "
+                    "process through one resident engine; report "
+                    "per-scenario p50/p99 latency, TTFT and goodput as a "
+                    "serve_latency JSON.  --selfcheck is the tiny-model "
+                    "smoke.")
+    lg.add_argument("-c", "--config", default="configs/default.yaml")
+    lg.add_argument("--synthetic", action="store_true",
+                    help="tiny random model + word tokenizer (no checkpoint "
+                         "IO); several --words serve through one multi-word "
+                         "engine over synthetic deltas")
+    lg.add_argument("--word", default=None,
+                    help="taboo checkpoint to serve (default: first config "
+                         "word)")
+    lg.add_argument("--words", nargs="*", default=None,
+                    help="serve SEVERAL words from one resident base + delta "
+                         "bank (needs --delta-root unless --synthetic); one "
+                         "word behaves like --word")
+    lg.add_argument("--delta-root", default=None,
+                    help="directory of delta-pack artifacts (or TBX_DELTA=1 "
+                         "and TBX_DELTA_ROOT)")
+    lg.add_argument("--checkpoint-root", default=None,
+                    help="directory of local HF snapshots (or set "
+                         "TABOO_CHECKPOINT_ROOT)")
+    lg.add_argument("--sae-npz", default=os.environ.get("TABOO_SAE_NPZ"),
+                    help="Gemma-Scope layout SAE npz (without one the "
+                         "sae_ablate scenario is dropped)")
+    lg.add_argument("--slots", type=int, default=8,
+                    help="decode-batch width (concurrent sessions)")
+    lg.add_argument("--max-context", type=int, default=160)
+    lg.add_argument("--prompt-cols", type=int, default=96)
+    lg.add_argument("--max-new-tokens", type=int, default=24,
+                    help="per-session generation budget")
+    lg.add_argument("-n", type=int, default=32, help="requests to send")
+    lg.add_argument("--seed", type=int, default=0)
+    lg.add_argument("--rate", type=float, default=50.0,
+                    help="Poisson arrival rate, requests/second")
+    lg.add_argument("--concurrency", type=int, default=16,
+                    help="closed-loop cap on outstanding requests")
+    lg.add_argument("--mix", default=None,
+                    help="scenario mix, e.g. 'chat=2,sae_ablate=1,forcing=1' "
+                         "(default: uniform over available scenarios)")
+    lg.add_argument("--report", default=None,
+                    help="also write the report JSON here (atomic)")
+    lg.add_argument("--selfcheck", action="store_true",
+                    help="tiny model, 32 requests: goodput == admitted and "
+                         "the latency and TTFT schema, else an error")
+    lg.add_argument("--device", default=None,
+                    help="torch device (default cuda; cpu runs the plain "
+                         "paths)")
+    lg.set_defaults(fn=cmd_loadgen)
     return p
 
 

@@ -21,9 +21,11 @@ The PyTorch port's copy of the part of the JAX package's
 
 The ledger's file schema is the JAX package's (version 3), so either package
 resumes a sweep the other started, and a fault plan written for the JAX
-package arms the same sites here.  Supervised runs and fleet worker stamps
-are not ported: the ledger stamps incarnation 0, and a fault spec's
-``incarnation`` scope reads ``TBX_INCARNATION`` only.
+package arms the same sites here.  Supervised runs and fleet workers are
+not ported: the ledger stamps incarnation 0, a fault spec's
+``incarnation`` scope reads ``TBX_INCARNATION`` only, and
+:func:`current_worker_id` reads ``TBX_WORKER_ID`` (the ``obs`` sinks and
+the serve scheduler stamp it).
 """
 
 from __future__ import annotations
@@ -48,6 +50,17 @@ def current_incarnation() -> int:
         return int(os.environ.get(INCARNATION_ENV, "0"))
     except ValueError:
         return 0
+
+
+#: A fleet worker's stable identity (set by the JAX package's fleet
+#: coordinator): the per-worker telemetry file suffixes and the ``worker``
+#: stamps of events, responses and fault-plan context read it.
+WORKER_ENV = "TBX_WORKER_ID"
+
+
+def current_worker_id() -> Optional[str]:
+    """This process's fleet worker id, or None outside a fleet worker."""
+    return os.environ.get(WORKER_ENV) or None
 
 
 class InjectedFault(OSError):
@@ -268,6 +281,15 @@ FAULT_SITES = (
     #                       word (context: word + path)
     "prefetch.thread",    # CheckpointManager.prefetch worker
     "decode.launch",      # runtime.decode.generate
+    "obs.event_write",    # obs.trace.Tracer._emit: an injected sink fault
+    #                       drops the event, never the run
+    "obs.metrics_write",  # obs.timeseries.TimeseriesRecorder._write: an
+    #                       injected fault drops the window (counted in
+    #                       obs.metrics_dropped), never the run
+    "serve.step",         # serve.scheduler.SlotScheduler.step, once per
+    #                       in-flight session per step (context: request id,
+    #                       scenario, worker); the scheduler quarantines that
+    #                       session and the batch lives
     "speculate.verify",   # runtime.speculate.speculative_decode, before
     #                       every verify block (context: block + rows); the
     #                       word-level run_guarded retry/quarantine owns it

@@ -41,7 +41,11 @@ def test_every_module_imports_with_jax_blocked():
     for name in ("ops.lens_kernel", "pipelines.word_sweep",
                  "pipelines.token_forcing", "pipelines.prompting",
                  "runtime.delta", "runtime.speculate", "perf.spec_calibrate",
-                 "runtime.aot", "runtime.fused"):
+                 "runtime.aot", "runtime.fused", "obs", "obs.trace",
+                 "obs.metrics", "obs.progress", "obs.timeseries",
+                 "obs.reqtrace", "obs.flightrec", "obs.memory", "serve",
+                 "serve.engine", "serve.scheduler", "serve.loadgen",
+                 "serve.autotune"):
         assert f"taboo_brittleness_tpu_torch.{name}" in modules
     code = (
         "import sys\n"
