@@ -156,6 +156,34 @@ the kernels are built for sm_90a).  Phases, each of which fails the run:
    ``readouts_per_step``, 1 and W = 2), the readout's ``lens_stats`` at
    N = 8 against its bound, plain version and library yardstick, and the
    phase's peak memory (11f).
+12. the speculative serve engine and the serve process, at the same width
+   and envelope, phase 7's SAE and phase 9's delta words, after phase 11's
+   programs are dropped; plan k = 2, G = 3.  ``SpecServeEngine``
+   warm-started (a draft and a verify graph, no registry miss after) over
+   the 8 hint-prompt sessions; the same sessions through an eager engine
+   (``TBX_AOT=0``) bit-equal in tokens, lens probabilities and accepted
+   drafts; tokens held row by row to the vanilla ``ServeEngine`` (eager,
+   each emitted token's top-1/top-2 gap read from its logits) under phase
+   9's margin rule, each first divergence printed with its gap (12a);
+   every eager verify readout's ``lens_stats`` call (N = S (G + 1) = 32,
+   K = 1) held to ``lens_stats_reference`` on its own inputs at 11b's
+   tolerances, a zeroed and a row-shifted result missing, and the call
+   timed on the card behind a sleep kernel beside the library yardstick,
+   the plain version and the bound (12b); the W = 2 engine over the delta
+   words, each slot bit-equal to a single-word speculative engine on its
+   word's applied params (12c); draft, verify and step ms graphed and
+   eager for both engines (CUDA events over 20 launches) and one profiled
+   step each, whose ``lens_wgmma_kernel`` count must be 1 and W; phase
+   11d's load under ``TBX_SERVE_SPECULATE=1`` (goodput 32/32, accept rate
+   per scenario, tokens/s beside 11d's) (12d); ``serve_forever`` in
+   process over 16 pre-written requests (exit 0, ``_serve.json`` with no
+   miss), then drained by ``request_drain()`` after the first response
+   (exit 75, every claimed request answered) and rerun to the end (12e);
+   last the process on the card's default device, the tiny synthetic
+   stack: ``supervise -- serve --max-requests 8`` (exit 0, 8 responses,
+   ``_supervise.json``) and a speculative ``serve`` SIGTERMed on its own
+   PID (exit 75, progress ``preempted``) (12f).  The phase's seconds and
+   peak memory are printed.
 
 The card's name and power limit are printed again just before the
 ``{"kernels": [...]}`` line, which is the line before the last: one entry
@@ -164,7 +192,8 @@ per route
 card's published peaks; ``launches`` from the main path's run; on the
 wgmma route, the serving readout's ``serve_*`` times and
 ``serve_launches_per_step``, the readout kernels counted in each profiled
-serve step); the last line
+serve step, and the speculative verify readout's ``spec_verify_*`` times,
+``spec_step_ms`` and ``spec_verify_launches_per_step``); the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
 checkout, it exits non-zero and prints no result.
 """
@@ -175,6 +204,7 @@ import contextlib
 import json
 import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -2830,7 +2860,7 @@ def drive_serving(torch, workdir: str, ctx: tuple, sae) -> dict:
     log("phase 11c per-slot switch")
     check_serve_switch(torch, engine, sae, ids[0], tap, tgt)
     log("phase 11d in-process load")
-    check_serve_load(torch, engine, tgt)
+    load = check_serve_load(torch, engine, tgt)
     log("phase 11e multi-word engine")
     multi = check_serve_multi(torch, workdir, ctx, sae, ids, tgt)
     log("phase 11f step and readout timings, readout kernels per step")
@@ -2842,7 +2872,569 @@ def drive_serving(torch, workdir: str, ctx: tuple, sae) -> dict:
     log(f"serving phase: {time.perf_counter() - t0:.2f} s; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
         f"(torch.cuda.max_memory_allocated); graph registry {aot_summary()}")
-    return {"serve_max_abs_err": err, **timing}
+    return {"serve_max_abs_err": err, **timing,
+            "load_tokens_per_second": load["tokens_per_second"]}
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the speculative serve engine and the serve process.
+# ---------------------------------------------------------------------------
+
+# The plan of phase 12's engines: a 3-layer draft, 3 drafts per verify.
+SPEC_SERVE_DRAFT, SPEC_SERVE_BLOCK = 2, 3
+SPEC_SERVE_REQUESTS = 16
+# Seconds a serve subprocess may take (CUDA start, tiny model, captures).
+PROC_TIMEOUT_S = 300
+
+
+def _spec_engine(ctx, sae, **kw):
+    """A speculative engine at phase 11's envelope and the phase's plan
+    (``cls`` picks the class, default ``SpecServeEngine``)."""
+    from taboo_brittleness_tpu_torch.serve.spec_engine import SpecServeEngine
+
+    params, cfg, tok, config = ctx[:4]
+    cls = kw.pop("cls", SpecServeEngine)
+    return cls(params, cfg, tok, sae=sae,
+               engine_config=_serve_config(config.model.layer_idx),
+               draft_layer=SPEC_SERVE_DRAFT, block_size=SPEC_SERVE_BLOCK, **kw)
+
+
+def _spec_sessions(engine, admits):
+    """``_serve_sessions`` for the speculative engine: admit ``admits`` and
+    step until no slot is alive.  Returns {slot: tokens}, {slot: lens
+    probs, one per emitted token}, {slot: accepted drafts} and the steps."""
+    for slot, ids, kw in admits:
+        engine.admit(slot, ids, **kw)
+    toks = {slot: [] for slot, _, _ in admits}
+    lens = {slot: [] for slot, _, _ in admits}
+    accepted = {slot: 0 for slot, _, _ in admits}
+    steps = 0
+    while engine.any_alive():
+        out = engine.step()
+        steps += 1
+        for s in toks:
+            for j in np.nonzero(out.emit[s])[0]:
+                toks[s].append(int(out.toks[s, j]))
+                lens[s].append(float(out.lens_prob[s, j]))
+            accepted[s] += int(out.accepted[s])
+    for slot in toks:
+        engine.release(slot)
+    return toks, lens, accepted, steps
+
+
+def _vanilla_with_margins(torch, ctx, sae, ids, n_new, tgt):
+    """The vanilla ``ServeEngine``, stepping eagerly (bit-equal to its graph,
+    11b), over the same sessions, with each emitted token's top-1/top-2
+    logit gap read from the step's own logits (``serve.engine.unembed``
+    wrapped).  Returns ({slot: tokens}, {slot: gaps})."""
+    from taboo_brittleness_tpu_torch.serve import engine as engine_mod
+
+    params, cfg, tok, config = ctx[:4]
+    real, gaps = engine_mod.unembed, []
+
+    def recording(p, c, h):
+        out = real(p, c, h)
+        top2 = out[:, 0].topk(2, dim=-1).values
+        gaps.append((top2[:, 0] - top2[:, 1]).double().cpu().numpy())
+        return out
+
+    with AotOff():
+        engine = engine_mod.ServeEngine(
+            params, cfg, tok, sae=sae,
+            engine_config=_serve_config(config.model.layer_idx))
+        for s, row in enumerate(ids):
+            engine.admit(s, row, max_new=n_new, lens_target=tgt)
+        toks = {s: [] for s in range(len(ids))}
+        margins = {s: [] for s in range(len(ids))}
+        engine_mod.unembed = recording
+        try:
+            while engine.any_alive():
+                out = engine.step()
+                for s in toks:
+                    if out.emitted[s]:
+                        toks[s].append(int(out.tok[s]))
+                        margins[s].append(float(gaps[-1][s]))
+        finally:
+            engine_mod.unembed = real
+    return toks, margins
+
+
+def _time_spec_steps(torch, engine, ids, tgt, label: str) -> dict:
+    """CUDA-event ms of the draft launch, the verify launch and the whole
+    ``engine.step()`` (draft, verify and the host pull), SERVE_STEP_REPS
+    each with 8 live sessions (re-admitted before each), and one step
+    profiled: its readout kernels, counted by name, must be the engine's
+    ``readouts_per_step`` (the draft runs none)."""
+    def admit():
+        for s in range(len(ids)):
+            engine.release(s)
+        for s, row in enumerate(ids):
+            engine.admit(s, row, max_new=SERVE_CONTEXT - len(row),
+                         lens_target=tgt,
+                         word_id=s % len(engine.words) if engine.multi else 0)
+
+    out = {}
+    for name, fn in (
+            ("draft_ms", lambda: engine._run(engine.aot_draft,
+                                             engine._draft_fn,
+                                             engine._draft_args())),
+            ("verify_ms", lambda: engine._run(engine.aot_verify,
+                                              engine._verify_fn,
+                                              engine._step_args())),
+            ("step_ms", engine.step)):
+        admit()
+        out[name] = timed_ms(torch, fn, SERVE_STEP_REPS)
+    admit()
+    out.update(_profile_step(torch, engine.step))
+    for s in range(len(ids)):
+        engine.release(s)
+    log(f"  {label}: draft {out['draft_ms']:.3f} ms, verify "
+        f"{out['verify_ms']:.3f} ms, step {out['step_ms']:.3f} ms (CUDA "
+        f"events, {SERVE_STEP_REPS} each, host pull in the step); profiled "
+        f"step: {out['kernels']} kernels, {out['wgmma']} of them the verify "
+        f"readout's lens_wgmma_kernel, host {out['host_ms']:.3f} ms, device "
+        f"{out['device_ms']:.3f} ms of kernels")
+    if out["wgmma"] != engine.readouts_per_step:
+        fail(f"the profiled {label} step ran {out['wgmma']} readout kernels, "
+             f"not {engine.readouts_per_step}")
+    return out
+
+
+def check_spec_engine(torch, ctx, sae, ids, n_new, tgt):
+    """12a and 12b: the speculative engine (k = 2, G = 3) warm-started with
+    no miss; the same 8 sessions graphed and eagerly (``TBX_AOT=0``) are
+    bit-equal (tokens, lens probabilities, accepted drafts); tokens held to
+    the vanilla ``ServeEngine`` row by row under phase 9's margin rule;
+    every eager verify readout's ``lens_stats`` call (N = S (G + 1) = 32,
+    K = 1) held to ``lens_stats_reference`` on its own inputs, a zeroed and
+    a row-shifted result missing.  Returns (graphed engine, eager engine,
+    the kernel's max abs err, one recorded readout call)."""
+    from taboo_brittleness_tpu_torch.runtime import aot
+
+    engine = _spec_engine(ctx, sae)
+    rec = engine.warm_start()
+    admits = [(s, row, dict(max_new=n_new, lens_target=tgt))
+              for s, row in enumerate(ids)]
+    t0 = time.perf_counter()
+    toks, lens, acc, steps = _spec_sessions(engine, admits)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    st = aot.stats()
+    misses = {n: st[n]["misses"] for n in (engine.aot_draft, engine.aot_verify)}
+    stats = engine.accept_stats()
+    emitted = sum(len(t) for t in toks.values())
+    log(f"  warm start: " + ", ".join(f"{n} capture {r.get('seconds')} s"
+                                      for n, r in rec.items())
+        + f"; {len(ids)} sessions: {steps} steps in {dt:.3f} s ({emitted} "
+        f"tokens, {emitted / dt:.1f} slot-tokens/s, prompt steps included); "
+        f"accept rate {stats['accept_rate']}, {stats['tokens_per_verify']} "
+        f"tokens per verify; misses {misses}")
+    if any(misses.values()):
+        fail(f"the speculative programs missed after warm start: {misses}")
+
+    with AotOff():
+        eager = _spec_engine(ctx, sae)
+        with ReadoutRecorder() as readouts:
+            e_toks, e_lens, e_acc, e_steps = _spec_sessions(eager, admits)
+    if (e_toks, e_lens, e_acc) != (toks, lens, acc):
+        bad = [s for s in toks if (e_toks[s], e_lens[s], e_acc[s])
+               != (toks[s], lens[s], acc[s])]
+        fail(f"eager speculative sessions differ from the graphed ones on "
+             f"slots {bad}")
+    log(f"  eager engine (TBX_AOT=0): tokens, lens probabilities and accepted "
+        f"drafts of all {len(toks)} sessions bit-equal to the graphed run "
+        f"({e_steps} steps)")
+
+    van, margins = _vanilla_with_margins(torch, ctx, sae, ids, n_new, tgt)
+    van_rows = _token_rows(van, n_new)
+    gap_rows = np.full(van_rows.shape, np.inf)
+    for i, s in enumerate(sorted(margins)):
+        gap_rows[i, :len(margins[s])] = margins[s]
+    _hold_rows("speculative engine vs vanilla ServeEngine (8 rows)",
+               _token_rows(toks, n_new),
+               {"tokens": van_rows, "margins": gap_rows})
+
+    log("phase 12b the verify readout at N = S (G + 1)")
+    calls = readouts.calls
+    n = SERVE_SLOTS * (SPEC_SERVE_BLOCK + 1)
+    if len(calls) != e_steps or any(c[0].shape[0] != n for c in calls):
+        fail(f"{e_steps} eager verifies made {len(calls)} readout calls of "
+             f"rows {sorted({c[0].shape[0] for c in calls})}, not one of {n}")
+    err, bad, rel = _readout_errors(torch, calls)
+    log(f"  verify readout kernel at N={n} K=1 on {e_steps} verifies' inputs: "
+        f"max abs err {err:.3e} over logsumexp, target and top-1 logits (atol "
+        f"{ATOL}); top-1 ids differing on clear rows: {bad}; P(target) max "
+        f"relative err {rel:.3e} (rtol {SERVE_PROB_RTOL})")
+    if not (err <= ATOL and rel <= SERVE_PROB_RTOL) or bad:
+        fail(f"the verify readout kernel disagrees with its plain version: "
+             f"{err}, {rel}, {bad} ids")
+    for what, mutate in (
+            ("zeroed", lambda st: type(st)(*(torch.zeros_like(t) for t in st))),
+            ("rows shifted by one", lambda st: type(st)(
+                *(torch.roll(t, 1, dims=0) for t in st)))):
+        m_err, _, m_rel = _readout_errors(torch, calls, mutate)
+        log(f"  control, {what} readout: max abs err {m_err:.3e}, P(target) "
+            f"relative err {m_rel:.3e}")
+        if m_err <= ATOL or m_rel <= SERVE_PROB_RTOL:
+            fail(f"the verify readout check passes a {what} result")
+    return engine, eager, err, calls[len(calls) // 2]
+
+
+def check_verify_readout_timing(torch, ctx, call) -> dict:
+    """12b: the verify readout's ``lens_stats`` (N = 32, K = 1) on one
+    recorded call's inputs, queued behind a sleep kernel (the device time,
+    as inside the graph) and back to back, beside the library yardstick
+    (matmul + logsumexp + gather), the plain version and the bound."""
+    from taboo_brittleness_tpu_torch.ops import lens_kernel as lk
+
+    cfg = ctx[1]
+    x, embed, target, _ = call
+    n = x.shape[0]
+
+    def kernel():
+        lk.lens_stats(x, embed, target, top_k=1).target_prob()
+
+    def plain():
+        lk.lens_stats_reference(x, embed, target, top_k=1).target_prob()
+
+    def library():
+        logits = torch.matmul(x, embed.T).float()
+        torch.exp(logits.gather(1, target.long()[:, None])[:, 0]
+                  - torch.logsumexp(logits, dim=-1))
+
+    before = lk.lens_stats.route_launches["wgmma"]
+    host_ms = timed_ms(torch, kernel, SERVE_STEP_REPS)
+    ms, enqueue_ms, backlog_ms = backlogged_ms(torch, kernel, SERVE_STEP_REPS)
+    if lk.lens_stats.route_launches["wgmma"] != before + 2 * (SERVE_STEP_REPS + 1):
+        fail("the verify readout timing did not launch the wgmma kernel")
+    library_host_ms = timed_ms(torch, library, SERVE_STEP_REPS)
+    library_ms, lib_enqueue_ms, lib_backlog_ms = backlogged_ms(
+        torch, library, SERVE_STEP_REPS)
+    if max(enqueue_ms - backlog_ms, lib_enqueue_ms - lib_backlog_ms) > 0:
+        fail(f"the verify readout timings' enqueue ({enqueue_ms:.3f}, "
+             f"{lib_enqueue_ms:.3f} ms) outran their backlog")
+    plan = lk.lens_plan(n, cfg.vocab_size, 1, torch.bfloat16,
+                        sm_count=lk._sm_count(x.device))
+    plain_ms = timed_ms(torch, plain, 3)
+    bound_ms, bound_by = lens_bound_ms(n, cfg.hidden_size, cfg.vocab_size, 1)
+    log(f"  verify readout lens_stats N={n} D={cfg.hidden_size} "
+        f"V={cfg.vocab_size} K=1 bf16 ({plan.route}, {plan.chunks} chunks): "
+        f"{ms:.3f} ms on the card ({host_ms:.3f} ms back to back), bound "
+        f"{bound_ms:.3f} ms ({bound_by}; {bound_ms / ms:.1%} of it), plain "
+        f"{plain_ms:.3f} ms, library {library_ms:.3f} ms on the card "
+        f"({library_host_ms:.3f} ms back to back)")
+    return {"spec_verify_ms": ms, "spec_verify_back_to_back_ms": host_ms,
+            "spec_verify_bound_ms": bound_ms, "spec_verify_bound_by": bound_by,
+            "spec_verify_plain_ms": plain_ms,
+            "spec_verify_library_ms": library_ms}
+
+
+def check_spec_multi(torch, workdir, ctx, sae, ids, tgt):
+    """12c: the speculative engine over phase 9's two delta words (W = 2),
+    slot s serving word s % 2: each slot's tokens, lens probabilities and
+    accepted drafts bit-equal to a single-word speculative engine on that
+    word's applied params; no miss under the ``.multi`` programs."""
+    from taboo_brittleness_tpu_torch.runtime import aot
+    from taboo_brittleness_tpu_torch.runtime import delta as deltalib
+
+    params = ctx[0]
+    root = os.path.join(workdir, "deltas")
+    packed = [deltalib.load_delta(deltalib.delta_path(root, w))
+              for w in DELTA_WORDS]
+    multi = _spec_engine(ctx, sae, words=DELTA_WORDS,
+                         delta_bank=deltalib.stack_bank(params, packed))
+    multi.warm_start()
+    admits = [(s, row, dict(max_new=24, lens_target=tgt, word_id=s % 2))
+              for s, row in enumerate(ids)]
+    t0 = time.perf_counter()
+    toks, lens, acc, steps = _spec_sessions(multi, admits)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    equal = 0
+    for w, word in enumerate(DELTA_WORDS):
+        applied = deltalib.apply_packed(params, *packed[w])
+        single = _spec_engine((applied,) + tuple(ctx[1:]), sae, words=(word,))
+        single.warm_start()
+        s_toks, s_lens, s_acc, _ = _spec_sessions(single, [
+            (s, row, {**kw, "word_id": 0}) for s, row, kw in admits
+            if kw["word_id"] == w])
+        for s in s_toks:
+            if (s_toks[s], s_lens[s], s_acc[s]) != (toks[s], lens[s], acc[s]):
+                fail(f"speculative multi-word slot {s} ({word}) differs from "
+                     "its single-word engine")
+            equal += 1
+        del single, applied
+    st = aot.stats()
+    misses = {n: st[n]["misses"] for n in (multi.aot_draft, multi.aot_verify)}
+    log(f"  multi-word speculative engine ({', '.join(DELTA_WORDS)}): "
+        f"{steps} steps in {dt:.3f} s; {equal}/{len(ids)} slots bit-equal to "
+        f"their single-word engines; accept rate "
+        f"{multi.accept_stats()['accept_rate']}; misses {misses}")
+    if any(misses.values()):
+        fail(f"the multi-word speculative programs missed: {misses}")
+    return multi
+
+
+def check_spec_load(torch, ctx, sae, tgt, vanilla_tps: float):
+    """12d: phase 11d's load (32 requests, seed 0, 50/s, concurrency 16,
+    SERVE_MIX, 24 new tokens) under ``TBX_SERVE_SPECULATE=1``, through the
+    engine class that switch selects: completed == admitted, no miss; the
+    accept rate per scenario and tokens/s beside 11d's vanilla."""
+    from taboo_brittleness_tpu_torch.runtime import aot
+    from taboo_brittleness_tpu_torch.serve import loadgen
+    from taboo_brittleness_tpu_torch.serve.scheduler import default_scenarios
+    from taboo_brittleness_tpu_torch.serve.spec_engine import SpecServeEngine
+
+    os.environ["TBX_SERVE_SPECULATE"] = "1"
+    try:
+        cls = loadgen._engine_class(None)
+    finally:
+        os.environ.pop("TBX_SERVE_SPECULATE", None)
+    if cls is not SpecServeEngine:
+        fail(f"TBX_SERVE_SPECULATE=1 selects {cls.__name__}")
+    engine = _spec_engine(ctx, sae, cls=cls)
+    emitted = []
+    report = loadgen.run_inprocess(
+        engine, n_requests=32, seed=0, rate=50.0, concurrency=16,
+        mix={name: 1.0 for name in SERVE_MIX},
+        scenarios=default_scenarios(), lens_target_id=tgt,
+        on_complete=lambda r: emitted.append(len(r.tokens)))
+    st = aot.stats()
+    misses = {n: st[n]["misses"] for n in (engine.aot_draft, engine.aot_verify)}
+    good = report["goodput"]
+    tps = round(sum(emitted) / report["wall_seconds"], 3)
+    report["tokens_per_second"] = tps
+    log(f"serve_latency {json.dumps(report)}")
+    log(f"  speculative load: goodput {good}; {sum(emitted)} tokens in "
+        f"{report['wall_seconds']} s = {tps} tokens/s (11d vanilla "
+        f"{vanilla_tps} tokens/s, {tps / vanilla_tps:.2f}x); accept rate "
+        f"{report['spec']['accept_rate']}, "
+        f"{report['spec']['tokens_per_verify']} tokens per verify; per "
+        "scenario: " + "; ".join(
+            f"{name} accept {b['accept_rate']} p50 "
+            f"{report['scenarios'][name]['p50_s']:.3f} s TTFT p50 "
+            f"{report['scenarios'][name]['ttft']['p50_s']:.3f} s"
+            for name, b in report["spec"]["scenarios"].items())
+        + f"; misses {misses}")
+    if not (good["completed"] == good["admitted"] == 32) or any(misses.values()):
+        fail(f"speculative load: goodput {good}, misses {misses}")
+    if set(report["spec"]["scenarios"]) != set(SERVE_MIX):
+        fail(f"speculative load ran scenarios "
+             f"{sorted(report['spec']['scenarios'])}")
+    return engine
+
+
+def _put_requests(spool, n: int, prompts, prefix: str) -> list:
+    return [spool.put({"id": f"{prefix}{i:03d}",
+                       "prompt": prompts[i % len(prompts)],
+                       "scenario": SERVE_MIX[i % len(SERVE_MIX)],
+                       "seed": i}) for i in range(n)]
+
+
+def check_serve_forever(torch, workdir, ctx, engine, tgt):
+    """12e: ``serve_forever`` in process over the 9B speculative engine.
+    16 pre-written requests with ``max_requests=16``: exit 0, 16 ok
+    responses, ``_serve.json`` with zero misses for both programs; on a
+    second spool a thread calls ``request_drain()`` once the first
+    response exists: exit 75 with every claimed request answered; after
+    ``reset_drain()`` a second run answers the rest."""
+    from taboo_brittleness_tpu_torch.runtime import supervise
+    from taboo_brittleness_tpu_torch.serve import server
+    from taboo_brittleness_tpu_torch.serve.scheduler import default_scenarios
+
+    prompts = list(ctx[3].prompts)
+    scenarios = default_scenarios()
+    out = os.path.join(workdir, "spool")
+    spool = server.RequestSpool(out)
+    ids = _put_requests(spool, SPEC_SERVE_REQUESTS, prompts, "s")
+    t0 = time.perf_counter()
+    res = server.serve_forever(engine, scenarios, out, lens_target_id=tgt,
+                               max_requests=SPEC_SERVE_REQUESTS, poll_s=0.01)
+    dt = time.perf_counter() - t0
+    with open(os.path.join(out, server.SERVE_SUMMARY_FILENAME)) as f:
+        summary = json.load(f)
+    ok = sum(bool((spool.get_response(r) or {}).get("ok")) for r in ids)
+    log(f"  serve_forever: exit {res.exit_code} ({res.status}), {ok}/"
+        f"{len(ids)} ok responses, {res.steps} engine steps in {dt:.2f} s; "
+        f"_serve.json aot {summary['aot']}; spec accept rate "
+        f"{summary['spec']['accept_rate']}; autotune "
+        f"{summary['autotune']['verdict']} at {summary['autotune']['width']}")
+    if (res.exit_code != 0 or ok != len(ids) or summary["aot"]["misses"]
+            or summary["aot"]["draft"]["misses"]):
+        fail(f"serve_forever over the 9B engine: exit {res.exit_code}, "
+             f"{ok} ok, aot {summary['aot']}")
+
+    out = os.path.join(workdir, "spool-drain")
+    spool = server.RequestSpool(out)
+    ids = _put_requests(spool, SPEC_SERVE_REQUESTS, prompts, "d")
+    stop = threading.Event()
+
+    def trigger():
+        while not stop.is_set():
+            if spool.completed_count():
+                supervise.request_drain()
+                return
+            time.sleep(0.005)
+
+    thread = threading.Thread(target=trigger)
+    thread.start()
+    try:
+        res = server.serve_forever(engine, scenarios, out, lens_target_id=tgt,
+                                   queue_limit=SERVE_SLOTS, poll_s=0.01)
+    finally:
+        stop.set()
+        thread.join()
+    answered = sum(spool.get_response(r) is not None for r in ids)
+    orphans = spool.claimed_unanswered()
+    log(f"  drain requested after the first response: exit {res.exit_code} "
+        f"({res.status}), {answered}/{len(ids)} answered, claimed but "
+        f"unanswered {orphans}")
+    if res.exit_code != supervise.EXIT_DRAINED or orphans or not answered:
+        fail(f"serve_forever did not drain cleanly: exit {res.exit_code}, "
+             f"orphans {orphans}")
+    supervise.reset_drain()
+    res = server.serve_forever(engine, scenarios, out, lens_target_id=tgt,
+                               max_requests=len(ids), poll_s=0.01)
+    ok = sum(bool((spool.get_response(r) or {}).get("ok")) for r in ids)
+    log(f"  rerun after reset_drain(): exit {res.exit_code}, {ok}/{len(ids)} "
+        "ok responses")
+    if res.exit_code != 0 or ok != len(ids):
+        fail(f"the resumed serve_forever answered {ok}/{len(ids)}")
+
+
+def _proc_env() -> dict:
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("TABOO_FAULT_PLAN", "TBX_INCARNATION", "TBX_AOT",
+                        "TBX_SERVE_SPECULATE")}
+    env["PYTHONPATH"] = REPO
+    env["TBX_OBS_PROGRESS_S"] = "0.1"
+    return env
+
+
+def check_serve_process(torch, workdir):
+    """12f: the ``serve`` process on the card's default device (the tiny
+    synthetic stack, its vocabulary padded to whole kernel tiles).
+    ``supervise -- serve --max-requests 8`` over 8 pre-written requests:
+    exit 0, 8 ok responses, ``_supervise.json`` present; then a
+    speculative ``serve`` SIGTERMed on its own PID (no shell between):
+    exit 75, every claimed request answered."""
+    from taboo_brittleness_tpu_torch.obs.progress import read_progress
+    from taboo_brittleness_tpu_torch.runtime import supervise
+    from taboo_brittleness_tpu_torch.serve import server
+
+    out = os.path.join(workdir, "proc-supervised")
+    spool = server.RequestSpool(out)
+    ids = _put_requests(spool, 8, ("Give me a hint",), "p")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", PACKAGE, "supervise", "--output-dir", out,
+         "--max-incarnations", "2", "--", "serve", "--synthetic",
+         "--output-dir", out, "--max-requests", "8", "--poll", "0.02"],
+        cwd=REPO, env=_proc_env(), capture_output=True, text=True,
+        timeout=2 * PROC_TIMEOUT_S)
+    dt = time.perf_counter() - t0
+    ok = sum(bool((spool.get_response(r) or {}).get("ok")) for r in ids)
+    status = None
+    with contextlib.suppress(OSError, ValueError):
+        with open(os.path.join(out, supervise.SUPERVISE_FILENAME)) as f:
+            status = json.load(f)["status"]
+    log(f"  supervise -- serve --synthetic: exit {proc.returncode} in "
+        f"{dt:.1f} s, {ok}/8 ok responses, _supervise.json status {status}")
+    if proc.returncode != 0 or ok != 8 or status != "done":
+        fail(f"supervised serve process: exit {proc.returncode}, {ok} ok, "
+             f"status {status}\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+
+    out = os.path.join(workdir, "proc-sigterm")
+    spool = server.RequestSpool(out)
+    ids = _put_requests(spool, 8, ("Give me a hint",), "t")
+    env = _proc_env()
+    env["TBX_SERVE_SPECULATE"] = "1"
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", PACKAGE, "serve", "--synthetic",
+         "--output-dir", out, "--poll", "0.02"],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    try:
+        deadline = time.monotonic() + PROC_TIMEOUT_S
+        while time.monotonic() < deadline and proc.poll() is None:
+            srv = read_progress(os.path.join(out, "_progress.json"),
+                                missing_ok=True).get("serving", {})
+            if srv.get("in_flight", 0) or srv.get("completed_requests", 0):
+                break
+            time.sleep(0.02)
+        proc.send_signal(signal.SIGTERM)
+        stdout, stderr = proc.communicate(timeout=PROC_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    answered = sum(spool.get_response(r) is not None for r in ids)
+    orphans = spool.claimed_unanswered()
+    progress = read_progress(os.path.join(out, "_progress.json"),
+                             missing_ok=True)
+    log(f"  speculative serve SIGTERMed: exit {proc.returncode} after "
+        f"{time.perf_counter() - t0:.1f} s, progress "
+        f"{progress.get('status')}, {answered}/8 answered, claimed but "
+        f"unanswered {orphans}")
+    if (proc.returncode != supervise.EXIT_DRAINED or orphans
+            or progress.get("status") != "preempted"):
+        fail(f"the serve process did not drain on SIGTERM: exit "
+             f"{proc.returncode}\n{stdout[-2000:]}\n{stderr[-4000:]}")
+
+
+def drive_spec_serving(torch, workdir: str, ctx: tuple, sae,
+                       vanilla_tps: float) -> dict:
+    """Phase 12: the speculative serve engine and the serve process at the
+    main path's width, phase 11's envelope, phase 7's SAE and phase 9's
+    delta words.  Returns the verify readout's measurements."""
+    import gc
+
+    from taboo_brittleness_tpu_torch.runtime import aot, decode
+    from taboo_brittleness_tpu_torch.runtime.tokenizer import target_token_id
+
+    t0 = time.perf_counter()
+    aot.reset()                  # phase 11's programs go
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, cfg, tok, config = ctx[:4]
+    _, _, _, ids = decode.encode_prompts(tok, list(config.prompts[:SERVE_SLOTS]))
+    tgt = target_token_id(tok, ctx[5])
+    n_new = config.experiment.max_new_tokens
+
+    log(f"phase 12a speculative serve engine (k = {SPEC_SERVE_DRAFT}, "
+        f"G = {SPEC_SERVE_BLOCK})")
+    engine, eager, err, call = check_spec_engine(torch, ctx, sae, ids, n_new,
+                                                 tgt)
+    timing = check_verify_readout_timing(torch, ctx, call)
+    del call
+    log("phase 12c multi-word speculative engine")
+    multi = check_spec_multi(torch, workdir, ctx, sae, ids, tgt)
+    steps = {}
+    for label, eng, off in (("graphed", engine, False), ("eager", eager, True),
+                            ("multi-word graphed (W = 2)", multi, False),
+                            ("multi-word eager (W = 2)", multi, True)):
+        with AotOff() if off else contextlib.nullcontext():
+            steps[label] = _time_spec_steps(torch, eng, ids, tgt,
+                                            f"speculative {label}")
+    del engine, eager, multi
+    log("phase 12d speculative load")
+    engine = check_spec_load(torch, ctx, sae, tgt, vanilla_tps)
+    log("phase 12e serve_forever in process")
+    check_serve_forever(torch, workdir, ctx, engine, tgt)
+    del engine
+    log("phase 12f the serve process on the card")
+    check_serve_process(torch, workdir)
+    log(f"speculative serving phase: {time.perf_counter() - t0:.2f} s; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated); graph registry {aot_summary()}")
+    return {"spec_verify_max_abs_err": err, **timing,
+            "spec_step_ms": {k: {m: v[m] for m in
+                                 ("draft_ms", "verify_ms", "step_ms")}
+                             for k, v in steps.items()},
+            "spec_verify_launches_per_step": {k: v["wgmma"]
+                                              for k, v in steps.items()}}
 
 
 def main() -> int:
@@ -2872,11 +3464,16 @@ def main() -> int:
         drive_residency_and_speculation(torch, workdir, ctx, forcing)
         drive_decode_launch(torch, ctx, sae)
         serve = drive_serving(torch, workdir, ctx, sae)
+        spec = drive_spec_serving(torch, workdir, ctx, sae,
+                                  serve.pop("load_tokens_per_second"))
         del ctx, sae
-    # ``launches`` is the main path's own count; the serving path's readout
-    # kernels per step, counted in profiled steps, ride beside it.
-    wgmma["max_abs_err"] = max(wgmma["max_abs_err"], serve.pop("serve_max_abs_err"))
+    # ``launches`` is the main path's own count; the serving path's and the
+    # speculative verify's readout kernels per step, counted in profiled
+    # steps, ride beside it.
+    wgmma["max_abs_err"] = max(wgmma["max_abs_err"], serve.pop("serve_max_abs_err"),
+                               spec.pop("spec_verify_max_abs_err"))
     wgmma.update(serve)
+    wgmma.update(spec)
     wgmma["launches"] = by_route["wgmma"]
     simple["launches"] = by_route["simple"]
     # Again at the end, beside the numbers, where a tail of the output

@@ -9,7 +9,9 @@
     python -m taboo_brittleness_tpu_torch chat          [--word W] [--max-new-tokens N]
     python -m taboo_brittleness_tpu_torch delta-pack    [--base ID] [--words ...] [--out DIR] [--atol A] [--selfcheck]
     python -m taboo_brittleness_tpu_torch spec-calibrate [--processed-dir D] [--out F]
-    python -m taboo_brittleness_tpu_torch loadgen       [--synthetic] [--word W | --words W1 W2 --delta-root D] [-n N] [--selfcheck]
+    python -m taboo_brittleness_tpu_torch loadgen       [--synthetic] [--word W | --words W1 W2 --delta-root D] [-n N] [--selfcheck] [--spool DIR]
+    python -m taboo_brittleness_tpu_torch serve         --output-dir DIR [--synthetic] [--word W | --words ...] [--max-requests N]
+    python -m taboo_brittleness_tpu_torch supervise     --output-dir DIR -- <subcommand> [args...]
 
 All accept the reference's ``configs/default.yaml`` schema (PyYAML is needed
 only to read a YAML file) and run on ``--device`` (default ``cuda``).  Every
@@ -24,10 +26,19 @@ write the aggregate to ``--output`` and per-word JSONs to ``words/`` beside
 it.  ``loadgen`` serves a seeded request mix in process through the
 serve engine (``serve/``) and prints the ``serve_latency`` report: over a
 tiny random model with ``--synthetic``, else over the config's word (or a
-base plus a ``--delta-root`` bank for several ``--words``).  Exit codes: 0
-when the run completed, 1 when words were quarantined (see the
-``_failures.json`` of the sweep's directory) or, for ``loadgen``, when an
-admitted request did not complete.
+base plus a ``--delta-root`` bank for several ``--words``); with
+``--spool DIR`` it drives a running ``serve`` through its file spool
+instead.  ``serve`` is the long-lived server over the same engines
+(``serve.server``): requests under ``DIR/requests/``, responses under
+``DIR/responses/``.  ``TBX_SERVE_SPECULATE=1`` builds the speculative
+engine (``serve.spec_engine``) for both.  ``supervise`` runs any of these
+subcommands as a child process under ``runtime.supervise`` (restart on a
+crash or a wedge, relaunch on a drain).  SIGTERM / SIGINT drain every
+command: a sweep stops between words and a server finishes its admitted
+sessions.  Exit codes: 0 when the run completed, 75 when it drained
+(resumable: relaunch it, or let ``supervise`` do it), 1 when words were
+quarantined (see the ``_failures.json`` of the sweep's directory) or, for
+``loadgen``, when an admitted request did not complete.
 """
 
 from __future__ import annotations
@@ -120,12 +131,29 @@ def cmd_logit_lens(args) -> int:
 
 
 def _report_failures(quarantined: List[str], ledger_path: str) -> int:
-    """The exit code: 1 (and a stderr line) when words were quarantined."""
-    if not quarantined:
-        return 0
-    print(f"[resilience] {len(quarantined)} word(s) quarantined: "
-          f"{quarantined} (see {ledger_path})", file=sys.stderr)
-    return 1
+    """The exit code: 1 (and a stderr line) when words were quarantined,
+    75 when the sweep drained (:func:`_exit_code`)."""
+    rc = 0
+    if quarantined:
+        print(f"[resilience] {len(quarantined)} word(s) quarantined: "
+              f"{quarantined} (see {ledger_path})", file=sys.stderr)
+        rc = 1
+    return _exit_code(rc)
+
+
+def _exit_code(rc: int) -> int:
+    """Map a sweep's exit through the drain contract: a run that stopped at
+    a drain exits 75 (``EX_TEMPFAIL``, resumable) whatever its quarantine
+    state, because the sweep did not finish and the missing words come
+    back with a relaunch."""
+    from taboo_brittleness_tpu_torch.runtime import supervise
+
+    if supervise.drain_requested():
+        print("[supervise] run drained on a preemption notice; partial "
+              "results are valid — relaunch (or `supervise`) resumes them",
+              file=sys.stderr)
+        return supervise.EXIT_DRAINED
+    return rc
 
 
 def _sae(args):
@@ -347,17 +375,20 @@ def cmd_spec_calibrate(args) -> int:
     return 0
 
 
-def _serve_engine(args, config: Config):
-    """The resident engine of ``loadgen``: ``--synthetic`` is the tiny-model
-    stack (one word, or several through one multi-word engine); otherwise
-    the config's word (``--word`` / one ``--words``) loads through a
-    ``CheckpointManager``, or with several ``--words`` the base plus their
-    ``--delta-root`` artifacts stacked into one bank.  The SAE comes from
-    ``--sae-npz`` (without one the ``sae_ablate`` scenario is dropped) and
-    every edit and the lens readout sit at ``config.model.layer_idx``.
-    Returns (engine, scenarios, lens_target_id)."""
+def _serve_engine(args):
+    """The resident engine of ``serve`` and ``loadgen``: ``--synthetic`` is
+    the tiny-model stack (one word, or several through one multi-word
+    engine); otherwise the config's word (``--word`` / one ``--words``)
+    loads through a ``CheckpointManager``, or with several ``--words`` the
+    base plus their ``--delta-root`` artifacts stacked into one bank.  The
+    SAE comes from ``--sae-npz`` (without one the ``sae_ablate`` scenario
+    is dropped) and every edit and the lens readout sit at
+    ``config.model.layer_idx``.  ``TBX_SERVE_SPECULATE=1`` builds the
+    speculative engine on every path.  Returns (engine, scenarios,
+    lens_target_id)."""
     from taboo_brittleness_tpu_torch.runtime.tokenizer import target_token_id
     from taboo_brittleness_tpu_torch.serve import loadgen as loadgen_mod
+    from taboo_brittleness_tpu_torch.serve import spec_engine
     from taboo_brittleness_tpu_torch.serve.engine import EngineConfig, ServeEngine
     from taboo_brittleness_tpu_torch.serve.scheduler import default_scenarios
 
@@ -370,7 +401,9 @@ def _serve_engine(args, config: Config):
         return loadgen_mod.build_synthetic_engine(
             slots=args.slots, max_new_tokens=args.max_new_tokens,
             word=words[0] if words else args.word, device=args.device)
-    loadgen_mod._speculate_refused(None)
+    config = _load(args)          # the synthetic stack reads no config
+    engine_cls = (spec_engine.SpecServeEngine if spec_engine.enabled()
+                  else ServeEngine)
 
     sae = None
     if args.sae_npz:
@@ -392,15 +425,15 @@ def _serve_engine(args, config: Config):
         base_params, cfg, tok = mgr.base_triple()
         packed = [deltalib.load_delta(deltalib.delta_path(mgr.delta_root, w))
                   for w in words]
-        engine = ServeEngine(base_params, cfg, tok, engine_config=ec, sae=sae,
-                             words=words,
-                             delta_bank=deltalib.stack_bank(base_params, packed))
+        engine = engine_cls(base_params, cfg, tok, engine_config=ec, sae=sae,
+                            words=words,
+                            delta_bank=deltalib.stack_bank(base_params, packed))
     else:
         word = (words[0] if words else None) or args.word or config.words[0]
         words = (word,)
         params, cfg, tok = mgr.load(word)
-        engine = ServeEngine(params, cfg, tok, engine_config=ec, sae=sae,
-                             words=words)
+        engine = engine_cls(params, cfg, tok, engine_config=ec, sae=sae,
+                            words=words)
     scenarios = default_scenarios(max_new_tokens=args.max_new_tokens)
     if sae is None:
         scenarios.pop("sae_ablate", None)
@@ -409,8 +442,9 @@ def _serve_engine(args, config: Config):
 
 
 def cmd_loadgen(args) -> int:
-    """Closed-loop load generator (``serve.loadgen``), in process: a seeded
-    scenario mix and arrival process over a fresh engine; prints the
+    """Closed-loop load generator (``serve.loadgen``): a seeded scenario
+    mix and arrival process, in process over a fresh engine or, with
+    ``--spool DIR``, through a running ``serve``'s spool; prints the
     ``serve_latency`` report (per-scenario p50/p99 latency and TTFT,
     goodput), and writes it to ``--report`` too."""
     from taboo_brittleness_tpu_torch.runtime.resilience import atomic_json_dump
@@ -424,18 +458,103 @@ def cmd_loadgen(args) -> int:
         for part in args.mix.split(","):
             name, _, w = part.partition("=")
             mix[name.strip()] = float(w) if w else 1.0
-    engine, scenarios, lens_tgt = _serve_engine(args, _load(args))
-    words = tuple(args.words or ()) if engine.multi else None
-    report = loadgen_mod.run_inprocess(
-        engine, n_requests=args.n, seed=args.seed, rate=args.rate,
-        concurrency=args.concurrency, mix=mix, scenarios=scenarios,
-        words=words, lens_target_id=lens_tgt)
-    report["aot"] = engine.aot_name
+    if args.spool:
+        report = loadgen_mod.run_spool(
+            args.spool, n_requests=args.n, seed=args.seed, rate=args.rate,
+            concurrency=args.concurrency, mix=mix,
+            words=tuple(args.words or ()) or None, timeout_s=args.timeout)
+    else:
+        engine, scenarios, lens_tgt = _serve_engine(args)
+        words = tuple(args.words or ()) if engine.multi else None
+        report = loadgen_mod.run_inprocess(
+            engine, n_requests=args.n, seed=args.seed, rate=args.rate,
+            concurrency=args.concurrency, mix=mix, scenarios=scenarios,
+            words=words, lens_target_id=lens_tgt)
+        report["aot"] = engine.aot_name
     if args.report:
         atomic_json_dump(report, args.report)
     print(json.dumps(report))
     good = report["goodput"]
     return 0 if good["admitted"] == good["completed"] else 1
+
+
+def cmd_serve(args) -> int:
+    """Long-lived continuous-batching server over one resident engine
+    (``serve.server``): file-spool intake under ``--output-dir``, the
+    serving heartbeat, SIGTERM drain -> exit 75, supervised resume.
+    Prints the summary JSON (status, completed, steps)."""
+    from taboo_brittleness_tpu_torch.serve import server as server_mod
+
+    engine, scenarios, lens_tgt = _serve_engine(args)
+    res = server_mod.serve_forever(
+        engine, scenarios, args.output_dir,
+        lens_target_id=lens_tgt, queue_limit=args.queue_limit,
+        max_requests=args.max_requests, poll_s=args.poll)
+    print(json.dumps({"status": res.status, "completed": res.completed,
+                      "steps": res.steps}))
+    return res.exit_code
+
+
+def cmd_supervise(args) -> int:
+    """Run a subcommand of this package under the preemption-safe
+    supervisor (``runtime.supervise``): launched as a child process,
+    restarted on a crash or a wedge within the incarnation budget,
+    relaunched on a drain; prints the supervision summary JSON."""
+    from taboo_brittleness_tpu_torch.runtime import supervise
+
+    child = list(args.child or [])
+    while child and child[0] == "--":
+        child = child[1:]
+    if not child:
+        raise SystemExit(
+            "supervise: missing child subcommand — usage: "
+            "supervise --output-dir DIR -- token-forcing [args...]")
+    argv = [sys.executable, "-m", "taboo_brittleness_tpu_torch", *child]
+    res = supervise.supervise(
+        argv, args.output_dir,
+        max_incarnations=args.max_incarnations,
+        poll_interval=args.poll, grace=args.grace,
+        wedge_after=args.wedge_after)
+    print(json.dumps({"status": res.status, "exit_code": res.exit_code,
+                      "incarnations": [
+                          {k: r.get(k) for k in ("incarnation", "outcome",
+                                                 "exit_code")}
+                          for r in res.incarnations]}, indent=2))
+    return res.exit_code
+
+
+def _serve_common(p: argparse.ArgumentParser) -> None:
+    """The engine flags ``serve`` and ``loadgen`` share."""
+    p.add_argument("-c", "--config", default="configs/default.yaml")
+    p.add_argument("--synthetic", action="store_true",
+                   help="tiny random model + word tokenizer (no checkpoint "
+                        "IO); several --words serve through one multi-word "
+                        "engine over synthetic deltas")
+    p.add_argument("--word", default=None,
+                   help="taboo checkpoint to serve (default: first config "
+                        "word)")
+    p.add_argument("--words", nargs="*", default=None,
+                   help="serve SEVERAL words from one resident base + delta "
+                        "bank (needs --delta-root unless --synthetic); one "
+                        "word behaves like --word")
+    p.add_argument("--delta-root", default=None,
+                   help="directory of delta-pack artifacts (or TBX_DELTA=1 "
+                        "and TBX_DELTA_ROOT)")
+    p.add_argument("--checkpoint-root", default=None,
+                   help="directory of local HF snapshots (or set "
+                        "TABOO_CHECKPOINT_ROOT)")
+    p.add_argument("--sae-npz", default=os.environ.get("TABOO_SAE_NPZ"),
+                   help="Gemma-Scope layout SAE npz (without one the "
+                        "sae_ablate scenario is dropped)")
+    p.add_argument("--slots", type=int, default=8,
+                   help="decode-batch width (concurrent sessions)")
+    p.add_argument("--max-context", type=int, default=160)
+    p.add_argument("--prompt-cols", type=int, default=96)
+    p.add_argument("--max-new-tokens", type=int, default=24,
+                   help="per-session generation budget")
+    p.add_argument("--device", default=None,
+                   help="torch device (default cuda; cpu runs the plain "
+                        "paths)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -545,33 +664,7 @@ def build_parser() -> argparse.ArgumentParser:
                     "per-scenario p50/p99 latency, TTFT and goodput as a "
                     "serve_latency JSON.  --selfcheck is the tiny-model "
                     "smoke.")
-    lg.add_argument("-c", "--config", default="configs/default.yaml")
-    lg.add_argument("--synthetic", action="store_true",
-                    help="tiny random model + word tokenizer (no checkpoint "
-                         "IO); several --words serve through one multi-word "
-                         "engine over synthetic deltas")
-    lg.add_argument("--word", default=None,
-                    help="taboo checkpoint to serve (default: first config "
-                         "word)")
-    lg.add_argument("--words", nargs="*", default=None,
-                    help="serve SEVERAL words from one resident base + delta "
-                         "bank (needs --delta-root unless --synthetic); one "
-                         "word behaves like --word")
-    lg.add_argument("--delta-root", default=None,
-                    help="directory of delta-pack artifacts (or TBX_DELTA=1 "
-                         "and TBX_DELTA_ROOT)")
-    lg.add_argument("--checkpoint-root", default=None,
-                    help="directory of local HF snapshots (or set "
-                         "TABOO_CHECKPOINT_ROOT)")
-    lg.add_argument("--sae-npz", default=os.environ.get("TABOO_SAE_NPZ"),
-                    help="Gemma-Scope layout SAE npz (without one the "
-                         "sae_ablate scenario is dropped)")
-    lg.add_argument("--slots", type=int, default=8,
-                    help="decode-batch width (concurrent sessions)")
-    lg.add_argument("--max-context", type=int, default=160)
-    lg.add_argument("--prompt-cols", type=int, default=96)
-    lg.add_argument("--max-new-tokens", type=int, default=24,
-                    help="per-session generation budget")
+    _serve_common(lg)
     lg.add_argument("-n", type=int, default=32, help="requests to send")
     lg.add_argument("--seed", type=int, default=0)
     lg.add_argument("--rate", type=float, default=50.0,
@@ -584,15 +677,82 @@ def build_parser() -> argparse.ArgumentParser:
     lg.add_argument("--report", default=None,
                     help="also write the report JSON here (atomic)")
     lg.add_argument("--selfcheck", action="store_true",
-                    help="tiny model, 32 requests: goodput == admitted and "
-                         "the latency and TTFT schema, else an error")
-    lg.add_argument("--device", default=None,
-                    help="torch device (default cuda; cpu runs the plain "
-                         "paths)")
+                    help="tiny model, 32 requests through the vanilla and "
+                         "the speculative engine: goodput == admitted, the "
+                         "latency, TTFT and accept schema, else an error")
+    lg.add_argument("--spool", default=None,
+                    help="drive a RUNNING serve through its output dir "
+                         "instead of in process")
+    lg.add_argument("--timeout", type=float, default=300.0,
+                    help="--spool: seconds before unanswered requests count "
+                         "as dropped")
     lg.set_defaults(fn=cmd_loadgen)
+
+    se = sub.add_parser(
+        "serve",
+        help="continuous-batching brittleness-probe server (one resident "
+             "model, per-request scenario switches)",
+        description="Serve concurrent chat / SAE-ablated / projection / "
+                    "token-forcing / lens-readout sessions from one "
+                    "resident engine (TBX_SERVE_SPECULATE=1: the "
+                    "speculative engine). Requests arrive as JSON files "
+                    "under <output-dir>/requests/; responses land in "
+                    "<output-dir>/responses/. SIGTERM drains: in-flight "
+                    "sessions finish, admissions stop, exit 75 — run "
+                    "under `supervise` for restart and resume.")
+    _serve_common(se)
+    se.add_argument("--output-dir", required=True,
+                    help="spool + telemetry directory (requests/, "
+                         "responses/, _progress.json, _events.jsonl)")
+    se.add_argument("--queue-limit", type=int, default=64,
+                    help="bounded admission queue (beyond it: reject)")
+    se.add_argument("--max-requests", type=int, default=None,
+                    help="exit 0 once this many responses exist on disk "
+                         "(counts prior incarnations'; default: run forever)")
+    se.add_argument("--poll", type=float, default=0.05,
+                    help="idle spool poll interval seconds")
+    se.set_defaults(fn=cmd_serve)
+
+    sv = sub.add_parser(
+        "supervise",
+        help="run a subcommand under the preemption-safe supervisor",
+        description="Launch a subcommand of this package as a supervised "
+                    "child process: restart on a crash or a wedged "
+                    "heartbeat within a bounded incarnation budget "
+                    "(seeded-jitter backoff), relaunch at once on a "
+                    "drained exit (75), pass through 0 (done) and 1 "
+                    "(quarantined words; a server's 1 is a crash). Env "
+                    "knobs: TBX_SUPERVISE_MAX_INCARNATIONS, "
+                    "TBX_SUPERVISE_POLL_S, TBX_SUPERVISE_GRACE_S, "
+                    "TBX_SUPERVISE_WEDGE_S, TBX_SUPERVISE_BACKOFF_S.")
+    sv.add_argument("--output-dir", required=True,
+                    help="directory the child heartbeats _progress.json "
+                         "into; _supervise.json lands here too")
+    sv.add_argument("--max-incarnations", type=int, default=None,
+                    help="total launch budget (default: "
+                         "TBX_SUPERVISE_MAX_INCARNATIONS or 5)")
+    sv.add_argument("--poll", type=float, default=None,
+                    help="progress poll interval seconds (default: "
+                         "TBX_SUPERVISE_POLL_S or 1.0)")
+    sv.add_argument("--grace", type=float, default=None,
+                    help="SIGTERM->SIGKILL grace window seconds (default: "
+                         "TBX_SUPERVISE_GRACE_S or 15)")
+    sv.add_argument("--wedge-after", type=float, default=None,
+                    help="kill a child quiet for this long while its "
+                         "heartbeat stays fresh (default: "
+                         "TBX_SUPERVISE_WEDGE_S or 300)")
+    sv.add_argument("child", nargs=argparse.REMAINDER,
+                    help="-- <subcommand> [args...]")
+    sv.set_defaults(fn=cmd_supervise)
     return p
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
+    # Latch SIGTERM / SIGINT into the drain (runtime.supervise): sweeps stop
+    # at the next word boundary, a server after its admitted sessions, and
+    # both exit 75; supervise polls the same latch to forward the notice.
+    from taboo_brittleness_tpu_torch.runtime import supervise
+
+    supervise.install_drain_handlers()
     return args.fn(args)

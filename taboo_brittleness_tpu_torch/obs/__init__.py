@@ -27,13 +27,12 @@ Sweeps wrap their word loop in :func:`sweep_observer`::
                 with ob.phase("checkpoint.load"):
                     ...
 
-The PyTorch port's copy of the JAX package's ``obs/__init__.py``.  Not
-here yet: the device-profile window (``TBX_PROFILE``, JAX ``obs/profile.py``)
-and the SLO burn engine (``obs/slo.py``) the JAX sweep observer feeds its
-metrics spool; the preemption-notice guard, the drain marker and the
-fleet's per-worker file names, which come back with ``runtime.supervise``
-and the fleet.  No pipeline of the port opens a sweep observer yet (the
-serving path calls the modules directly).
+The PyTorch port's copy of the JAX package's ``obs/__init__.py``.  The SLO
+burn engine (``obs/slo.py``) is fed by the serve loop's metrics spool.  Not
+here yet: the device-profile window (``TBX_PROFILE``, JAX ``obs/profile.py``),
+the sweep observer's SLO engine, preemption-notice guard and drain marker,
+and the fleet's per-worker file names.  No pipeline of the port opens a
+sweep observer yet (the serving path calls the modules directly).
 """
 
 from __future__ import annotations

@@ -25,7 +25,7 @@ from taboo_brittleness_tpu_torch.config import Config
 from taboo_brittleness_tpu_torch.models.gemma2 import Gemma2Config, Params
 from taboo_brittleness_tpu_torch.ops import lens
 from taboo_brittleness_tpu_torch.runtime import cache as cache_io
-from taboo_brittleness_tpu_torch.runtime import decode, resilience, speculate
+from taboo_brittleness_tpu_torch.runtime import decode, resilience, speculate, supervise
 from taboo_brittleness_tpu_torch.runtime.checkpoints import prefetch_next
 from taboo_brittleness_tpu_torch.runtime.tokenizer import (
     TokenizerLike,
@@ -180,7 +180,8 @@ def run_generation(
     (transient errors only), then is quarantined in
     ``<processed_dir>/_failures.json`` and the sweep continues; quarantined
     words are absent from the returned dict.  ``fail_fast=True`` raises on
-    the first failed word instead."""
+    the first failed word instead.  A drain notice
+    (``runtime.supervise``) stops the sweep between words."""
     processed = processed_dir or config.output.processed_dir
     policy = resilience.RetryPolicy(max_retries=max_retries)
     if ledger is None:
@@ -189,6 +190,10 @@ def run_generation(
     generated: Dict[str, List[int]] = {}
     word_list = list(words if words is not None else config.words)
     for i, word in enumerate(word_list):
+        if supervise.drain_requested():
+            # Preemption drain between words: the cache cells written so
+            # far are atomic, and the next incarnation resumes them.
+            break
         stage = {"name": "checkpoint.load"}
 
         def run_one(word: str = word, i: int = i) -> List[int]:

@@ -68,7 +68,7 @@ from taboo_brittleness_tpu_torch.pipelines.word_sweep import (
     next_pending,
     sweep_words,
 )
-from taboo_brittleness_tpu_torch.runtime import decode, resilience
+from taboo_brittleness_tpu_torch.runtime import decode, resilience, supervise
 from taboo_brittleness_tpu_torch.runtime.resilience import atomic_json_dump
 from taboo_brittleness_tpu_torch.runtime.tokenizer import (
     TokenizerLike,
@@ -1209,6 +1209,10 @@ def run_intervention_studies(
 
         def dispatch_next_baseline() -> None:
             if nxt is None or nxt in loaded_ahead or nxt in prepared:
+                return
+            if supervise.drain_requested():
+                # Draining: the next word will not run in this
+                # incarnation, so its load and baseline would be wasted.
                 return
             try:
                 loaded_ahead[nxt] = model_loader(nxt)

@@ -25,8 +25,9 @@ real per-word checkpoints recompute.  The tokenizer is part of the key
 because payloads hold decoded text.
 
 Each word is made the speculative decoder's active word as it loads
-(``speculate.set_active_word``), so a calibrated plan applies per word.  The
-JAX package's telemetry observer and preemption drain are not ported.
+(``speculate.set_active_word``), so a calibrated plan applies per word.  A
+drain notice (``runtime.supervise.drain_requested``) stops the loop between
+words.  The JAX package's telemetry observer is not ported.
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ import os
 from typing import Any, Callable, Dict, Optional, Sequence
 
 from taboo_brittleness_tpu_torch.config import Config
-from taboo_brittleness_tpu_torch.runtime import resilience, speculate
+from taboo_brittleness_tpu_torch.runtime import resilience, speculate, supervise
 from taboo_brittleness_tpu_torch.runtime.checkpoints import prefetch_next
 from taboo_brittleness_tpu_torch.runtime.resilience import (
     FailureLedger,
@@ -62,10 +63,16 @@ def sweep_words(
     done, else None.  ``run_word(word, (params, cfg, tok), set_stage)``
     computes (and saves) a word's entry, naming its stages for the ledger
     through ``set_stage(name)``.  ``on_done(word, entry)`` fires for
-    computed and resumed words."""
+    computed and resumed words.  A drain notice stops the loop before the
+    next word (resumed words included)."""
     words = list(words)
     results: Dict[str, Any] = {}
     for i, word in enumerate(words):
+        if supervise.drain_requested():
+            # Preemption drain (runtime.supervise): stop BETWEEN words.
+            # The previous word's write is complete, so the next
+            # incarnation resumes exactly here; the CLI exits 75.
+            break
         saved = load_done(word)
         if saved is not None:
             results[word] = saved

@@ -21,9 +21,10 @@ The PyTorch port's copy of the part of the JAX package's
 
 The ledger's file schema is the JAX package's (version 3), so either package
 resumes a sweep the other started, and a fault plan written for the JAX
-package arms the same sites here.  Supervised runs and fleet workers are
-not ported: the ledger stamps incarnation 0, a fault spec's
-``incarnation`` scope reads ``TBX_INCARNATION`` only, and
+package arms the same sites here.  ``runtime.supervise`` numbers each
+relaunch in ``TBX_INCARNATION``, which a fault spec's ``incarnation``
+scope reads; the ledger still stamps incarnation 0 (its per-incarnation
+merge is not ported), and fleet workers are not ported:
 :func:`current_worker_id` reads ``TBX_WORKER_ID`` (the ``obs`` sinks and
 the serve scheduler stamp it).
 """
@@ -293,6 +294,12 @@ FAULT_SITES = (
     "speculate.verify",   # runtime.speculate.speculative_decode, before
     #                       every verify block (context: block + rows); the
     #                       word-level run_guarded retry/quarantine owns it
+    "serve.spec.verify",  # serve.scheduler.SlotScheduler.step (speculative
+    #                       engine), once per in-flight session before each
+    #                       draft + verify block (context: request id and
+    #                       scenario; the retry adds attempt=1): ONE
+    #                       in-place retry, then that session quarantines
+    #                       and the batch lives
 )
 
 _FAULT_MODES = ("fail", "delay", "truncate", "die")

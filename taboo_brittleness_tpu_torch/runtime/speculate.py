@@ -21,8 +21,10 @@ weights are a prefix of the target's.  Per block:
 The block loop is driven from the host and pulls one small tensor per block
 (the all-done flag and 4 stats counters); the G draft steps and the verify
 bookkeeping run without a host sync.  ``speculate.verify`` (the fault site
-of ``runtime.resilience``) fires before each verify.  Unlike the JAX
-package there is no AOT registry, drain poll, ``obs`` span, profiler
+of ``runtime.resilience``) fires before each verify, and a drain notice
+(``runtime.supervise``) seen between blocks is recorded as a
+``speculate.drain_observed`` event (the decode still finishes: drain is
+word-granular).  Unlike the JAX package there is no ``obs`` span, profiler
 annotation or ``decode_edit`` switch: the edit runs in the prefill, the
 draft and the verify alike.
 
@@ -49,8 +51,13 @@ from taboo_brittleness_tpu_torch.models.gemma2 import (
     forward,
     unembed,
 )
-from taboo_brittleness_tpu_torch.ops.lens import lens_argmax, residual_carry_tap
-from taboo_brittleness_tpu_torch.runtime import chat, resilience
+from taboo_brittleness_tpu_torch.ops.lens import (
+    _lens_logits,
+    lens_argmax,
+    residual_carry_tap,
+)
+from taboo_brittleness_tpu_torch import obs
+from taboo_brittleness_tpu_torch.runtime import chat, resilience, supervise
 from taboo_brittleness_tpu_torch.runtime.decode import (
     STOP_IDS,
     DecodeResult,
@@ -255,13 +262,43 @@ def _draft_view(params: Params, draft_layer: int) -> Params:
     }
 
 
-def accept_counts(drafts: torch.Tensor,
-                  y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``match[b, j]`` = draft j equals the full model's argmax at its
-    position (``y[:, :G]``); ``m[b]`` = length of the accepted prefix.
-    Returns ``(match [B, G], m [B])``."""
-    match = drafts == y[..., :drafts.shape[-1]]
-    m = torch.cumprod(match.long(), dim=-1).sum(dim=-1)
+def lens_pick(params: Params, cfg: Gemma2Config, last_hidden: torch.Tensor,
+              *, with_margin: bool = False
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The draft head's token pick, shared by the block decoder and the
+    serve engine's draft program: the lens argmax over the layer-k
+    residual, optionally with the top1 - top2 lens-LOGIT gap per position
+    (the confidence the adaptive-depth serve scenario thresholds on).
+    Returns ``(tok, margin)``, ``margin`` None unless requested.  With the
+    margin the pick is a top-2 over the f32 lens logits with ties to the
+    lowest id (``ops.lens_kernel.topk_lowest_id``), as JAX's ``lax.top_k``
+    breaks them, so the token is the same as :func:`lens_argmax`'s."""
+    if not with_margin:
+        return lens_argmax(params, cfg, last_hidden), None
+    from taboo_brittleness_tpu_torch.ops.lens_kernel import topk_lowest_id
+
+    top2, idx = topk_lowest_id(_lens_logits(params, cfg, last_hidden), 2)
+    return idx[..., 0].long(), (top2[..., 0] - top2[..., 1]).float()
+
+
+def accept_counts(drafts: torch.Tensor, y: torch.Tensor, *,
+                  limit: Optional[torch.Tensor] = None,
+                  extra: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The speculation accept rule, shared by :func:`verify_block` and the
+    serve engine's verify step: ``match[b, j]`` = draft j equals the full
+    model's argmax at its position (``y[:, :G]``); ``m[b]`` = length of the
+    accepted prefix.  ``extra`` widens acceptance per position (the
+    adaptive-depth margin override); ``limit`` cuts each row's acceptance
+    at its own draft budget (per-slot G as data).  Returns
+    ``(match [B, G] bool, m [B])``."""
+    G = drafts.shape[-1]
+    match = drafts == y[..., :G]
+    accept = match if extra is None else (match | extra)
+    if limit is not None:
+        accept = accept & (torch.arange(G, device=drafts.device)[None, :]
+                           < limit[:, None])
+    m = torch.cumprod(accept.long(), dim=-1).sum(dim=-1)
     return match, m
 
 
@@ -657,7 +694,14 @@ def speculative_decode(
     spec_prefill(params, cfg, st, prompt_ids, prompt_valid, prompt_positions,
                  edit_params, draft_layer=draft_layer, edit_fn=edit_fn,
                  capture_residual_layer=capture_residual_layer)
+    drain_seen = False
     for block in range(N):
+        if not drain_seen and supervise.drain_requested():
+            # Drain is word-granular: this decode finishes exactly and the
+            # sweep's between-word poll exits 75; the event marks where the
+            # notice landed.
+            drain_seen = True
+            obs.event("speculate.drain_observed", block=block)
         draft.run(params)
         resilience.fire("speculate.verify", block=block, rows=B)
         verify.run(params)

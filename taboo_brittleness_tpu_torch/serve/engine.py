@@ -442,14 +442,9 @@ class ServeEngine:
             self.ec.proj_rank, device=self.device)
         self.cache = KVCache.zeros(cfg, self.ec.slots, self.ec.max_context,
                                    device=self.device)
-        self._out = torch.zeros((_OUT_ROWS, self.ec.slots),
-                                dtype=torch.float32, device=self.device)
         self._stop = torch.tensor(self.ec.stop_ids, dtype=torch.long,
                                   device=self.device)
-        if self.device.type == "cuda":
-            self._host = torch.zeros((_OUT_ROWS, self.ec.slots),
-                                     dtype=torch.float32, pin_memory=True)
-            self._pulled = torch.cuda.Event()
+        self._alloc_out((_OUT_ROWS, self.ec.slots))
         # Host mirrors of the slot flags that only admit / release / a
         # step's finished flags change: admission reads them without a sync.
         self._active = np.zeros((self.ec.slots,), bool)
@@ -460,6 +455,24 @@ class ServeEngine:
         self.steps = 0
 
     # -- program plumbing ---------------------------------------------------
+
+    def _alloc_out(self, shape: Tuple[int, ...]) -> None:
+        """The step's f32 output block on the device and, on the card, its
+        pinned host mirror (the one pull per step)."""
+        self._out = torch.zeros(shape, dtype=torch.float32, device=self.device)
+        if self.device.type == "cuda":
+            self._host = torch.zeros(shape, dtype=torch.float32,
+                                     pin_memory=True)
+            self._pulled = torch.cuda.Event()
+
+    def _pull(self) -> np.ndarray:
+        """The output block on the host (a pinned copy on the card)."""
+        if self.device.type != "cuda":
+            return self._out.numpy()
+        self._host.copy_(self._out, non_blocking=True)
+        self._pulled.record()
+        self._pulled.synchronize()
+        return self._host.numpy()
 
     def _buffers(self) -> List[torch.Tensor]:
         return [*self.state, self.cache.k, self.cache.v, self.cache.valid,
@@ -497,8 +510,9 @@ class ServeEngine:
                         self.state, self._out, self._stop)
         return (self._step_fn, pos_args, kw)
 
-    def _program(self) -> "aot.Program":
-        """The step program from the registry (made, and on the card
+    def _program(self, name: str, fn: Any,
+                 step_args: Tuple[Any, ...]) -> "aot.Program":
+        """Program ``name`` from the registry (made, and on the card
         captured, on a miss).  A capture runs warm-up steps over the
         engine's own buffers, so they are saved first and put back after:
         live sessions never see those steps."""
@@ -509,34 +523,44 @@ class ServeEngine:
                 saved.extend(t.clone() for t in self._buffers())
             return aot.Program(_step, None)
 
-        run_args = (self._step_args(), self._token)
-        prog = aot.lookup(self.aot_name, self._step_fn, self._dynamic(),
-                          self._static(), params=run_args,
+        prog = aot.lookup(name, fn, self._dynamic(), self._static(),
+                          params=(step_args, self._token),
                           device=self.device, make=make)
         for t, s in zip(self._buffers(), saved):
             t.copy_(s)
         return prog
 
-    def warm_start(self) -> Dict[str, Any]:
-        """Make (and on the card capture) the step program ahead of the
-        first request, so every later :meth:`step` is a registry HIT and
-        ``misses`` stays 0.  Returns ``{entry, key, source: "memory" |
-        "captured" | "off", seconds}``."""
-        rec: Dict[str, Any] = {"entry": self.aot_name}
+    def _run(self, name: str, fn: Any, step_args: Tuple[Any, ...]) -> None:
+        """One launch of program ``name``: a replay on the card."""
+        self._program(name, fn, step_args).run((step_args, self._token))
+
+    def _warm(self, name: str, fn: Any,
+              step_args: Tuple[Any, ...]) -> Dict[str, Any]:
+        """Make (and on the card capture) one program ahead of the first
+        request: ``{entry, key, source: "memory" | "captured" | "off",
+        seconds}``."""
+        rec: Dict[str, Any] = {"entry": name}
         if not aot.enabled():
             rec["source"] = "off"
             return rec
-        e = aot.entry(self.aot_name, self._step_fn)
+        e = aot.entry(name, fn)
         rec["key"] = e.signature(self._dynamic(), self._static())
         if rec["key"] in e.programs and e.programs[rec["key"]].alive():
             rec["source"] = "memory"
             return rec
         t0 = time.perf_counter()
         with aot.warming():
-            self._program()
+            self._program(name, fn, step_args)
         rec["source"] = "captured"
         rec["seconds"] = round(time.perf_counter() - t0, 3)
         return rec
+
+    def warm_start(self) -> Dict[str, Any]:
+        """Make (and on the card capture) the step program ahead of the
+        first request, so every later :meth:`step` is a registry HIT and
+        ``misses`` stays 0.  Returns ``{entry, key, source: "memory" |
+        "captured" | "off", seconds}``."""
+        return self._warm(self.aot_name, self._step_fn, self._step_args())
 
     def step(self) -> StepOut:
         """Advance the batch one token; returns the HOST copy of StepOut.
@@ -545,16 +569,9 @@ class ServeEngine:
         must see emitted/finished flags to recycle slots and admit queued
         sessions before the next step.  One small [4, S] transfer per step,
         by design."""
-        prog = self._program()
-        prog.run((self._step_args(), self._token))
+        self._run(self.aot_name, self._step_fn, self._step_args())
         self.steps += 1
-        if self.device.type == "cuda":
-            self._host.copy_(self._out, non_blocking=True)
-            self._pulled.record()
-            self._pulled.synchronize()
-            host = self._host.numpy()
-        else:
-            host = self._out.numpy()
+        host = self._pull()
         out = StepOut(tok=host[0].astype(np.int64), emitted=host[1] != 0,
                       finished=host[2] != 0, lens_prob=host[3].copy())
         self._done |= out.finished

@@ -22,9 +22,9 @@ closed-loop cap of ``concurrency`` outstanding requests (arrivals beyond the
 cap wait — a load generator that outruns the server measures queueing it
 caused itself).  Everything times on the monotonic clock.
 
-The PyTorch port's copy of the JAX package's ``serve/loadgen.py``, in-process
-mode only: the spool and socket modes (and the selfcheck's speculative and
-socket arms) come with the port's server and gateway.  The synthetic
+The PyTorch port's copy of the JAX package's ``serve/loadgen.py``: the
+in-process and spool modes (the socket mode and the selfcheck's socket arm
+come with the gateway).  The synthetic
 engines are built on the port's ``models.gemma2.init_params``,
 ``runtime.delta.synthetic_word_params`` and ``ops.sae.init_random``, whose
 draws differ from ``jax.random``'s, on the ``device`` the caller names.
@@ -224,6 +224,86 @@ def run_inprocess(
     return report
 
 
+def run_spool(
+    spool_dir: str,
+    *,
+    n_requests: int = 32,
+    seed: int = 0,
+    rate: float = 50.0,
+    concurrency: int = 16,
+    mix: Optional[Dict[str, float]] = None,
+    scenarios: Optional[Dict[str, Scenario]] = None,
+    prompts: Sequence[str] = ("Give me a hint",),
+    words: Optional[Sequence[str]] = None,
+    timeout_s: float = 300.0,
+    poll_s: float = 0.02,
+    clock: Callable[[], float] = time.monotonic,
+) -> Dict[str, Any]:
+    """Drive a RUNNING ``serve`` through its spool; latency is
+    client-observed (request file written -> response file seen).  Requests
+    left unanswered at ``timeout_s`` count as dropped (a goodput
+    shortfall); with a draining, supervised server the expectation is
+    zero."""
+    from taboo_brittleness_tpu_torch.serve.server import RequestSpool
+
+    scenarios = scenarios or default_scenarios()
+    mix = mix or {name: 1.0 for name in scenarios}
+    spool = RequestSpool(spool_dir)
+    plan = build_schedule(n_requests, seed=seed, rate=rate, mix=mix,
+                          scenarios=scenarios, prompts=prompts, words=words)
+
+    lat: Dict[str, List[float]] = {}
+    ttft: Dict[str, List[float]] = {}
+    submit_at: Dict[str, float] = {}
+    scenario_of: Dict[str, str] = {}
+    pending = list(plan)
+    awaiting: List[str] = []
+    completed = 0
+    t0 = clock()
+    deadline = t0 + timeout_s
+    while (pending or awaiting) and clock() < deadline:
+        now = clock() - t0
+        while pending and pending[0][0] <= now and len(awaiting) < concurrency:
+            _, req = pending.pop(0)
+            rid = spool.put({"id": req.id, "prompt": req.prompt,
+                             "scenario": req.scenario.name,
+                             "seed": req.seed,
+                             **({"word": req.word} if req.word else {}),
+                             **({reqtrace.CTX_KEY: req.trace}
+                                if req.trace else {})})
+            submit_at[rid] = clock()
+            scenario_of[rid] = req.scenario.name
+            awaiting.append(rid)
+        still = []
+        for rid in awaiting:
+            resp = spool.get_response(rid)
+            if resp is None:
+                still.append(rid)
+                continue
+            completed += 1
+            if resp.get("ok"):
+                lat.setdefault(scenario_of[rid], []).append(
+                    clock() - submit_at[rid])
+                if resp.get("ttft_seconds") is not None:
+                    # The server's TTFT (submit -> first token, its clock);
+                    # the client latency above includes the spool transit.
+                    ttft.setdefault(scenario_of[rid], []).append(
+                        float(resp["ttft_seconds"]))
+        awaiting = still
+        if awaiting or pending:
+            time.sleep(poll_s)
+    wall = clock() - t0
+    return _report(
+        lat, per_scenario_ttft=ttft,
+        admitted=len(submit_at), completed=completed,
+        rejected=0, quarantined=len(submit_at) - completed,
+        wall_seconds=wall,
+        config={"mode": "spool", "spool": spool_dir,
+                "n_requests": n_requests, "seed": seed, "rate": rate,
+                "concurrency": concurrency, "mix": mix,
+                "dropped": len(awaiting) + len(pending)})
+
+
 # ---------------------------------------------------------------------------
 # Synthetic engines and the selfcheck (the CPU-sized smoke).
 # ---------------------------------------------------------------------------
@@ -233,32 +313,35 @@ SYNTHETIC_WORDS = ("ship", "moon", "hint", "clue", "secret", "word", "is",
                    "My", "Give", "me", "a", "the", "about")
 
 
-def _speculate_refused(speculative: Optional[bool]) -> None:
-    """``speculative=True`` or ``TBX_SERVE_SPECULATE=1`` asks for the
-    speculative engine, which the port does not have yet: raise rather than
-    serve the vanilla engine in its place."""
-    import os
+def _engine_class(speculative: Optional[bool]):
+    """``speculative`` picks the engine class (True: ``SpecServeEngine``,
+    False: ``ServeEngine``); None defers to ``TBX_SERVE_SPECULATE``."""
+    from taboo_brittleness_tpu_torch.serve import spec_engine
+    from taboo_brittleness_tpu_torch.serve.engine import ServeEngine
 
-    if speculative or (speculative is None
-                       and os.environ.get("TBX_SERVE_SPECULATE", "0") == "1"):
-        raise NotImplementedError(
-            "the speculative serve engine (TBX_SERVE_SPECULATE=1) is not "
-            "ported yet: ROADMAP Queue 1 item 3a, serve/spec_engine.py")
+    if speculative is None:
+        speculative = spec_engine.enabled()
+    return spec_engine.SpecServeEngine if speculative else ServeEngine
 
 
 def _synthetic_stack(seed: int, device):
     """(cfg, base params, tokenizer, SAE) of the synthetic engines:
-    gemma2_tiny from ``seed``, the word tokenizer, a 64-wide random SAE
-    from ``seed + 1``."""
+    gemma2_tiny from ``seed`` with its vocabulary padded to whole vocab
+    tiles of the readout kernel (199 -> 256 ids, so the same model serves
+    on the card, where ``lens_stats`` takes whole tiles only), the word
+    tokenizer, a 64-wide random SAE from ``seed + 1``."""
     import torch
 
     from taboo_brittleness_tpu_torch.device import resolve_device
     from taboo_brittleness_tpu_torch.models import gemma2
+    from taboo_brittleness_tpu_torch.ops import lens_kernel
     from taboo_brittleness_tpu_torch.ops import sae as sae_ops
     from taboo_brittleness_tpu_torch.runtime.tokenizer import WordTokenizer
 
     device = resolve_device(device)
     cfg = gemma2.PRESETS["gemma2_tiny"]
+    tile = lens_kernel.WGMMA_COLS
+    cfg = cfg.replace(vocab_size=-(-cfg.vocab_size // tile) * tile)
     params = gemma2.init_params(
         cfg, torch.Generator(device=device).manual_seed(seed), device=device)
     tok = WordTokenizer(list(SYNTHETIC_WORDS), vocab_size=cfg.vocab_size)
@@ -286,19 +369,18 @@ def build_synthetic_engine(*, slots: int = 4, seed: int = 7,
     a small random SAE.  Returns (engine, scenarios, lens_target_id).
     ``word`` swaps in that word's ``delta.synthetic_word_params`` finetune
     — the single-word reference arm the multi-word bit-for-bit tests
-    compare against.  ``speculative`` (or ``TBX_SERVE_SPECULATE=1``) and
-    ``tp > 1`` raise: neither is ported yet."""
+    compare against.  ``speculative`` picks the engine class (None defers
+    to ``TBX_SERVE_SPECULATE``); ``tp > 1`` raises (not ported)."""
     import dataclasses
 
     from taboo_brittleness_tpu_torch.runtime import delta as deltalib
     from taboo_brittleness_tpu_torch.runtime.tokenizer import target_token_id
-    from taboo_brittleness_tpu_torch.serve.engine import ServeEngine
 
-    _speculate_refused(speculative)
+    cls = _engine_class(speculative)
     cfg, params, tok, sae = _synthetic_stack(seed, device)
     if word is not None:
         params = deltalib.synthetic_word_params(cfg, params, word, seed=seed)
-    engine = ServeEngine(
+    engine = cls(
         params, cfg, tok,
         engine_config=dataclasses.replace(_synthetic_engine_config(cfg),
                                           slots=slots),
@@ -317,20 +399,19 @@ def build_synthetic_multi_engine(*, words: Sequence[str] = ("ship", "moon"),
     stacked delta bank for ``words`` (each word's params =
     ``delta.synthetic_word_params``, packed exactly).  Same tokenizer, SAE,
     scenarios and envelope as :func:`build_synthetic_engine`, so per-word
-    responses compare bit for bit against the single-word arm.
-    Returns (engine, scenarios, lens_target_id)."""
+    responses compare bit for bit against the single-word arm; the same
+    ``speculative`` switch.  Returns (engine, scenarios, lens_target_id)."""
     import dataclasses
 
     from taboo_brittleness_tpu_torch.runtime import delta as deltalib
     from taboo_brittleness_tpu_torch.runtime.tokenizer import target_token_id
-    from taboo_brittleness_tpu_torch.serve.engine import ServeEngine
 
-    _speculate_refused(speculative)
+    cls = _engine_class(speculative)
     cfg, base, tok, sae = _synthetic_stack(seed, device)
     packed = [deltalib.pack_params_delta(
         base, deltalib.synthetic_word_params(cfg, base, w, seed=seed))
         for w in words]
-    engine = ServeEngine(
+    engine = cls(
         base, cfg, tok,
         engine_config=dataclasses.replace(_synthetic_engine_config(cfg),
                                           slots=slots),
@@ -345,7 +426,8 @@ def selfcheck(n_requests: int = 32, seed: int = 0,
               device=None) -> Dict[str, Any]:
     """The smoke: tiny model, ``n_requests`` mixed-scenario requests,
     assert goodput == admitted (nothing dropped/quarantined), the
-    latency-histogram schema and TTFT for every scenario.  Raises
+    latency-histogram schema and TTFT for every scenario, then the same
+    schedule through the speculative engine with its accept block.  Raises
     AssertionError on violation; returns the report."""
     engine, scenarios, lens_tgt = build_synthetic_engine(device=device)
     report = run_inprocess(
@@ -374,6 +456,32 @@ def selfcheck(n_requests: int = 32, seed: int = 0,
     assert set(report["scenarios"]) == set(scenarios), (
         "selfcheck mix must exercise every scenario: "
         f"{sorted(report['scenarios'])} vs {sorted(scenarios)}")
+
+    # Speculative arm: the same schedule against the SpecServeEngine, with
+    # the accept-stat schema held (the block exists, accepted <= drafted,
+    # rates in range, a per-scenario accept block for every scenario).
+    spec_eng, spec_scen, spec_tgt = build_synthetic_engine(
+        speculative=True, device=device)
+    spec_report = run_inprocess(
+        spec_eng, n_requests=n_requests, seed=seed, rate=500.0,
+        concurrency=16, scenarios=spec_scen, lens_target_id=spec_tgt,
+        prompts=("Give me a hint", "Give me a clue about the word"))
+    sg = spec_report["goodput"]
+    assert sg["completed"] == sg["admitted"] == n_requests, (
+        f"speculative goodput shortfall: {sg}")
+    spec = spec_report.get("spec")
+    assert spec is not None, "speculative report missing 'spec' block"
+    for key in ("draft_layer", "block_size", "drafted", "accepted",
+                "emitted", "exited_early", "accept_rate",
+                "tokens_per_verify"):
+        assert key in spec, f"spec block missing {key}: {sorted(spec)}"
+    assert 0 <= spec["accepted"] <= spec["drafted"], spec
+    assert 0.0 <= spec["accept_rate"] <= 1.0, spec
+    for name, block in spec["scenarios"].items():
+        assert 0 <= block["accepted"] <= block["drafted"], (name, block)
+        assert "accept_rate" in block, (name, block)
+    report["spec_selfcheck"] = {"accept_rate": spec["accept_rate"],
+                                "tokens_per_verify": spec["tokens_per_verify"]}
     return report
 
 
@@ -381,5 +489,6 @@ def main_selfcheck(device=None) -> int:
     report = selfcheck(device=device)
     print(json.dumps({"selfcheck": "ok",
                       "goodput": report["goodput"],
-                      "scenarios": sorted(report["scenarios"])}))
+                      "scenarios": sorted(report["scenarios"]),
+                      "spec": report.get("spec_selfcheck")}))
     return 0

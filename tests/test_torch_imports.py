@@ -45,7 +45,8 @@ def test_every_module_imports_with_jax_blocked():
                  "obs.metrics", "obs.progress", "obs.timeseries",
                  "obs.reqtrace", "obs.flightrec", "obs.memory", "serve",
                  "serve.engine", "serve.scheduler", "serve.loadgen",
-                 "serve.autotune"):
+                 "serve.autotune", "serve.spec_engine", "serve.server",
+                 "runtime.supervise", "obs.slo"):
         assert f"taboo_brittleness_tpu_torch.{name}" in modules
     code = (
         "import sys\n"

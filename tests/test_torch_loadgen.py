@@ -15,8 +15,9 @@
   checkpoint path over tiny safetensors snapshots
   (``tools/synth_checkpoint.write_snapshot``), one word and a base plus a
   ``--delta-root`` bank.
-- ``TBX_SERVE_SPECULATE=1`` raises: the speculative engine is not ported,
-  and nothing serves the vanilla engine in its place.
+- ``TBX_SERVE_SPECULATE=1`` builds the speculative engine; only its
+  tensor-parallel form raises (``tests/test_torch_serve_spec.py`` holds
+  the engine itself).
 """
 
 import json
@@ -42,6 +43,17 @@ from taboo_brittleness_tpu_torch.serve.scheduler import (
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "tools"))
 import trace_report  # noqa: E402
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny-model serving steps are thousands of small ops: torch's
+    intra-op threads only contend for the cores the parallel test workers
+    share, so this module steps on one."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)
@@ -120,12 +132,21 @@ def test_inprocess_serve_traces_pass_trace_report(tmp_path):
 
 
 def test_speculative_engine_is_refused(monkeypatch):
-    with pytest.raises(NotImplementedError, match="spec_engine"):
-        loadgen.build_synthetic_engine(speculative=True, device="cpu")
+    """The speculative engine is refused only in its tensor-parallel form
+    (not ported); ``speculative=True`` and ``TBX_SERVE_SPECULATE=1`` build
+    it, and nothing serves the vanilla engine in its place."""
+    from taboo_brittleness_tpu_torch.serve.spec_engine import SpecServeEngine
+
+    with pytest.raises(NotImplementedError, match="tensor-parallel"):
+        loadgen.build_synthetic_engine(speculative=True, tp=2, device="cpu")
+    engine, _, _ = loadgen.build_synthetic_engine(speculative=True,
+                                                  device="cpu")
+    assert isinstance(engine, SpecServeEngine)
     monkeypatch.setenv("TBX_SERVE_SPECULATE", "1")
-    with pytest.raises(NotImplementedError, match="item 3a"):
-        loadgen.build_synthetic_multi_engine(device="cpu")
-    with pytest.raises(NotImplementedError):
+    multi, _, _ = loadgen.build_synthetic_multi_engine(device="cpu")
+    assert isinstance(multi, SpecServeEngine)
+    monkeypatch.setenv("TBX_SERVE_TP", "2")
+    with pytest.raises(NotImplementedError, match="tensor-parallel"):
         cli.main(["loadgen", "--synthetic", "--device", "cpu", "-n", "2"])
 
 
