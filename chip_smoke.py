@@ -184,6 +184,30 @@ the kernels are built for sm_90a).  Phases, each of which fails the run:
    ``_supervise.json``) and a speculative ``serve`` SIGTERMed on its own
    PID (exit 75, progress ``preempted``) (12f).  The phase's seconds and
    peak memory are printed.
+13. the multi-tap capture, the grid and the attack search, at the same
+   width after phase 12's programs are dropped: the main path's 10 prompts
+   and 50 new tokens graphed with ``capture_residual_layer=(9, 20, 31)``,
+   each slot bit-equal to a graphed single-tap capture at its layer, the
+   1-tuple to the int, eager (``TBX_AOT=0``) to graphed, no registry miss
+   on a second call (13a); ``GridSpec.build([9, 20, 31], [16384, 65536])``
+   with synthetic cells over phase 9's two delta words (each captured
+   once), the 12 units through a ``FleetSpool`` and ``fleet.run_worker``
+   in this process with each word loaded through the delta
+   ``CheckpointManager``: the matrix complete, every uid committed once,
+   every cell readout held to float64 on the host, one cell's ablated
+   decode bit-equal to ``generate`` with ``sae_ablation_edit`` called
+   directly (graphed and eager), and 13a's program still a registry hit
+   (13b); ``grid.search.run_search`` (seed 3, 3 generations x 4, 6
+   requests of 6 tokens) over phase 11e's W = 2 engine with 13b's 16k
+   cells as latent pools: the same seed twice byte-identical, generation 0
+   on an eager engine byte-equal to the graphed run's, every eager
+   readout call held to ``lens_stats_reference`` at 11b's tolerances
+   (a zeroed and a row-shifted result must miss), one timed, and a
+   profiled step with 2 ``lens_wgmma_kernel`` launches (13c); last the
+   ``grid`` (one transient ``grid.cell`` fault), ``fleet`` (worker w1
+   killed at its first commit) and ``attack-search`` (twice, the same
+   file) processes on the card's default device with the tiny synthetic
+   stack (13d).  The phase's seconds and peak memory are printed.
 
 The card's name and power limit are printed again just before the
 ``{"kernels": [...]}`` line, which is the line before the last: one entry
@@ -193,7 +217,9 @@ card's published peaks; ``launches`` from the main path's run; on the
 wgmma route, the serving readout's ``serve_*`` times and
 ``serve_launches_per_step``, the readout kernels counted in each profiled
 serve step, and the speculative verify readout's ``spec_verify_*`` times,
-``spec_step_ms`` and ``spec_verify_launches_per_step``); the last line
+``spec_step_ms`` and ``spec_verify_launches_per_step``, and the attack
+search's readout: ``search_readout_*`` times, ``search_steps`` (engine
+steps of 13c's graphed search) and ``search_readouts_per_step``); the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
 checkout, it exits non-zero and prints no result.
 """
@@ -1689,7 +1715,10 @@ def check_residency(torch, workdir: str, ctx: tuple, words: dict) -> None:
         def timed_triple(word):   # on the prefetch thread too
             t0 = time.perf_counter()
             out = real_triple(word)
-            torch.cuda.synchronize()
+            # This thread's own stream, never the whole device: a device
+            # synchronize from here, while the main thread captures a
+            # decode program, invalidates that capture.
+            torch.cuda.current_stream().synchronize()
             mgr.loads.append((word, threading.current_thread().name,
                               time.perf_counter() - t0))
             return out
@@ -3080,11 +3109,14 @@ def check_spec_engine(torch, ctx, sae, ids, n_new, tgt):
     return engine, eager, err, calls[len(calls) // 2]
 
 
-def check_verify_readout_timing(torch, ctx, call) -> dict:
+def check_verify_readout_timing(torch, ctx, call, *, prefix="spec_verify",
+                                label="verify readout") -> dict:
     """12b: the verify readout's ``lens_stats`` (N = 32, K = 1) on one
     recorded call's inputs, queued behind a sleep kernel (the device time,
     as inside the graph) and back to back, beside the library yardstick
-    (matmul + logsumexp + gather), the plain version and the bound."""
+    (matmul + logsumexp + gather), the plain version and the bound.  13c
+    times the attack search's readout (N = 8) the same way under its own
+    ``prefix``."""
     from taboo_brittleness_tpu_torch.ops import lens_kernel as lk
 
     cfg = ctx[1]
@@ -3106,27 +3138,27 @@ def check_verify_readout_timing(torch, ctx, call) -> dict:
     host_ms = timed_ms(torch, kernel, SERVE_STEP_REPS)
     ms, enqueue_ms, backlog_ms = backlogged_ms(torch, kernel, SERVE_STEP_REPS)
     if lk.lens_stats.route_launches["wgmma"] != before + 2 * (SERVE_STEP_REPS + 1):
-        fail("the verify readout timing did not launch the wgmma kernel")
+        fail(f"the {label} timing did not launch the wgmma kernel")
     library_host_ms = timed_ms(torch, library, SERVE_STEP_REPS)
     library_ms, lib_enqueue_ms, lib_backlog_ms = backlogged_ms(
         torch, library, SERVE_STEP_REPS)
     if max(enqueue_ms - backlog_ms, lib_enqueue_ms - lib_backlog_ms) > 0:
-        fail(f"the verify readout timings' enqueue ({enqueue_ms:.3f}, "
+        fail(f"the {label} timings' enqueue ({enqueue_ms:.3f}, "
              f"{lib_enqueue_ms:.3f} ms) outran their backlog")
     plan = lk.lens_plan(n, cfg.vocab_size, 1, torch.bfloat16,
                         sm_count=lk._sm_count(x.device))
     plain_ms = timed_ms(torch, plain, 3)
     bound_ms, bound_by = lens_bound_ms(n, cfg.hidden_size, cfg.vocab_size, 1)
-    log(f"  verify readout lens_stats N={n} D={cfg.hidden_size} "
+    log(f"  {label} lens_stats N={n} D={cfg.hidden_size} "
         f"V={cfg.vocab_size} K=1 bf16 ({plan.route}, {plan.chunks} chunks): "
         f"{ms:.3f} ms on the card ({host_ms:.3f} ms back to back), bound "
         f"{bound_ms:.3f} ms ({bound_by}; {bound_ms / ms:.1%} of it), plain "
         f"{plain_ms:.3f} ms, library {library_ms:.3f} ms on the card "
         f"({library_host_ms:.3f} ms back to back)")
-    return {"spec_verify_ms": ms, "spec_verify_back_to_back_ms": host_ms,
-            "spec_verify_bound_ms": bound_ms, "spec_verify_bound_by": bound_by,
-            "spec_verify_plain_ms": plain_ms,
-            "spec_verify_library_ms": library_ms}
+    return {f"{prefix}_ms": ms, f"{prefix}_back_to_back_ms": host_ms,
+            f"{prefix}_bound_ms": bound_ms, f"{prefix}_bound_by": bound_by,
+            f"{prefix}_plain_ms": plain_ms,
+            f"{prefix}_library_ms": library_ms}
 
 
 def check_spec_multi(torch, workdir, ctx, sae, ids, tgt):
@@ -3437,6 +3469,465 @@ def drive_spec_serving(torch, workdir: str, ctx: tuple, sae,
                                               for k, v in steps.items()}}
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the multi-tap capture, the Gemma-Scope grid and the attack search.
+# ---------------------------------------------------------------------------
+
+# The grid of 13b: three Gemma-Scope layers x two widths, synthetic cells.
+GRID_TAPS, GRID_WIDTHS = (9, 20, 31), (16384, 65536)
+# New tokens of each word's capture decode and of each cell's ablated decode.
+GRID_NEW = 16
+GRID_TOP_K = 8
+# A cell readout on the card (f32, TF32 off) against float64 on the host:
+# activations within this relative error; ids compared where the float64
+# top-(k+1) values are apart by more than GRID_ID_GAP relative.
+GRID_ACT_RTOL = 1e-3
+GRID_ID_GAP = 1e-3
+# 13c's search (seed, generations, population, requests, new tokens).
+SEARCH_KW = dict(seed=3, generations=3, population=4, n_requests=6,
+                 max_new_tokens=6)
+
+
+def check_multi_tap(torch, ctx: tuple) -> dict:
+    """13a: the main path's 10 prompts, 50 new tokens, graphed with
+    ``capture_residual_layer=GRID_TAPS``: each slot bit-equal to a graphed
+    single-tap capture at its layer (same 10 rows), the 1-tuple to the
+    int, the eager decode (``TBX_AOT=0``) to the graphed one; a second
+    call adds no registry miss.  Returns the decode arguments."""
+    from taboo_brittleness_tpu_torch.runtime import aot, decode
+
+    params, cfg, _, config = ctx[:4]
+    args = _prompt_args(torch, ctx)
+    N = config.experiment.max_new_tokens
+
+    def run(capture):
+        return _synced(torch, lambda: decode.greedy_decode(
+            params, cfg, *args, max_new_tokens=N,
+            capture_residual_layer=capture))
+
+    multi, t_first = run(GRID_TAPS)
+    misses = aot.stats()["decode"]["misses"]
+    again, t_multi = run(GRID_TAPS)
+    if aot.stats()["decode"]["misses"] != misses:
+        fail("a second multi-tap decode missed the graph registry")
+    if not _bits_equal(torch, multi.residual, again.residual):
+        fail("two replays of the multi-tap program differ")
+    single_s, equal = [], []
+    for k, layer in enumerate(GRID_TAPS):
+        run(layer)                               # captures
+        single, dt = run(layer)
+        single_s.append(dt)
+        equal.append(torch.equal(single.tokens, multi.tokens)
+                     and _bits_equal(torch, single.residual, multi.residual[k]))
+        if layer == GRID_TAPS[-1]:
+            one, _ = run((layer,))
+            if not (_bits_equal(torch, one.residual[0], single.residual)
+                    and torch.equal(one.tokens, single.tokens)):
+                fail(f"the 1-tuple ({layer},) capture differs from the int")
+        del single
+    with AotOff():
+        eager, t_eager = run(GRID_TAPS)
+    if not (torch.equal(eager.tokens, multi.tokens)
+            and _bits_equal(torch, eager.residual, multi.residual)):
+        fail("the eager multi-tap decode differs from the graphed one")
+    nbytes = multi.residual.numel() * multi.residual.element_size()
+    log(f"  multi-tap {GRID_TAPS}: residual {tuple(multi.residual.shape)} f32 "
+        f"= {nbytes / 1e6:.1f} MB; decode {t_multi:.3f} s graphed (first call "
+        f"{t_first:.3f} s with the capture), {t_eager:.3f} s eager; single-tap "
+        "decodes at " + ", ".join(f"layer {la} {t:.3f} s" for la, t in
+                                  zip(GRID_TAPS, single_s))
+        + f" (same call); slots bit-equal to their single-tap captures: "
+        f"{equal}; the 1-tuple bit-equal to the int, eager to graphed")
+    if not all(equal):
+        fail(f"multi-tap slots differ from single-tap captures: {equal}")
+    return args
+
+
+def _delta_manager(workdir: str, ctx: tuple):
+    """Phase 9's delta-mode ``CheckpointManager`` (capacity 1) over phase 6's
+    triple as the base (no snapshot can be read on this machine)."""
+    from taboo_brittleness_tpu_torch.runtime import checkpoints as ck
+
+    params, cfg, tok, config = ctx[:4]
+    mgr = ck.CheckpointManager(config.model,
+                               delta_root=os.path.join(workdir, "deltas"),
+                               capacity=1, device=params["embed"].device)
+    mgr._base_triple = (params, cfg, tok)
+    return mgr
+
+
+def _readout_f64(torch, sae, resid, mask, ids, vals, top_k: int) -> tuple:
+    """One cell readout against float64 on the host over the response rows:
+    (max relative err of the activations, ids compared, ids differing)."""
+    d = resid.shape[-1]
+    keep = mask.reshape(-1)
+    x = resid.reshape(-1, d)[keep].double().cpu().numpy()
+    w = sae.w_enc.cpu().numpy().astype(np.float64)
+    pre = x @ w + sae.b_enc.double().cpu().numpy()
+    thr = sae.threshold.double().cpu().numpy()
+    mean = np.where(pre > thr, pre, 0.0).sum(axis=0) / max(int(keep.sum()), 1)
+    del w, pre
+    order = np.lexsort((np.arange(mean.size), -mean))[:top_k + 1]
+    ref = mean[order]
+    got_ids = ids.cpu().numpy()
+    rel = float(np.max(np.abs(vals.double().cpu().numpy() - mean[got_ids])
+                       / np.maximum(np.abs(mean[got_ids]), 1e-12)))
+    scale = np.maximum(np.abs(ref), 1e-12)
+    gap = np.abs(np.diff(ref)) / scale[1:]
+    clear = [j for j in range(top_k)
+             if gap[j] > GRID_ID_GAP and (j == 0 or gap[j - 1] > GRID_ID_GAP)]
+    bad = [j for j in clear if int(got_ids[j]) != int(order[j])]
+    return rel, len(clear), bad
+
+
+def check_grid_cells(torch, workdir: str, ctx: tuple) -> dict:
+    """13b: ``GridSpec.build(GRID_TAPS, GRID_WIDTHS)`` with synthetic cells
+    over phase 9's two delta words, each captured once (multi-tap); the 12
+    units through a ``FleetSpool`` and ``fleet.run_worker`` in this
+    process, each word loaded through the delta ``CheckpointManager``;
+    the matrix complete with every uid committed once; every cell readout
+    held to float64 on the host; one cell's ablated decode held bit-equal
+    to ``generate`` with ``sae_ablation_edit`` called directly (graphed and
+    eager).  Returns the matrix."""
+    from taboo_brittleness_tpu_torch.grid import runner
+    from taboo_brittleness_tpu_torch.grid.spec import GridSpec, cell_sae
+    from taboo_brittleness_tpu_torch.pipelines.interventions import (
+        sae_ablation_edit)
+    from taboo_brittleness_tpu_torch.runtime import decode, fleet
+
+    cfg, tok = ctx[1], ctx[2]
+    spec = GridSpec.build(GRID_TAPS, GRID_WIDTHS, release="synthetic")
+    mgr = _delta_manager(workdir, ctx)
+    root = os.path.join(workdir, "grid")
+    resid_dir = os.path.join(root, runner.RESID_DIRNAME)
+    capture_s = []
+    for w in DELTA_WORDS:
+        p, c, t = mgr.load(w)
+        _, dt = _synced(torch, lambda: runner.capture_word_residuals(
+            p, c, t, w, spec, max_new_tokens=GRID_NEW, resid_dir=resid_dir))
+        capture_s.append(dt)
+    units = runner.grid_units(spec, DELTA_WORDS)
+    spool = fleet.FleetSpool(os.path.join(root, fleet.SPOOL_DIRNAME)).ensure()
+    for u in units:
+        spool.put(u["uid"], {k: v for k, v in u.items() if k != "uid"})
+    spool.write_stop()          # the worker leaves once the spool is empty
+
+    checks, ablated, seconds, current = {}, {}, {}, {}
+    real_readout, real_generate = runner.cell_readout, decode.generate
+
+    def checked_readout(sae, resid, mask, *, top_k=8):
+        ids, vals = real_readout(sae, resid, mask, top_k=top_k)
+        checks[current["uid"]] = _readout_f64(torch, sae, resid, mask, ids,
+                                              vals, top_k)
+        return ids, vals
+
+    def recording_generate(*a, **kw):
+        out = real_generate(*a, **kw)
+        if kw.get("edit_fn") is not None:
+            ablated[current["uid"]] = out[0].tokens.cpu()
+        return out
+
+    def unit_fn(unit):
+        current["uid"] = fleet.unit_id(unit["word"], unit["readout"])
+        t0 = time.perf_counter()
+        out = runner.run_cell(unit, spec=spec, resid_dir=resid_dir,
+                              model=mgr.load(unit["word"]),
+                              top_k=GRID_TOP_K, max_new_tokens=GRID_NEW)
+        torch.cuda.synchronize()
+        seconds[current["uid"]] = time.perf_counter() - t0
+        return out
+
+    runner.cell_readout, decode.generate = checked_readout, recording_generate
+    try:
+        res = fleet.run_worker(root, "w0", unit_fn=unit_fn, poll_s=0.05)
+    finally:
+        runner.cell_readout, decode.generate = real_readout, real_generate
+    matrix = runner.assemble_matrix(root, spec, DELTA_WORDS)
+    done = spool.done_uids()
+    log(f"  grid {list(spec.keys)} x {list(DELTA_WORDS)}: capture "
+        + ", ".join(f"{w} {t:.2f} s" for w, t in zip(DELTA_WORDS, capture_s))
+        + f" ({GRID_NEW} new tokens, taps {spec.tap_layers}); worker committed "
+        f"{res.committed}, duplicates {res.duplicates}, quarantined "
+        f"{res.quarantined}; seconds per cell (word load, readout, ablated "
+        "decode) " + ", ".join(f"{u} {t:.2f}" for u, t in seconds.items()))
+    if (res.committed != len(units) or res.duplicates or res.quarantined
+            or sorted(done) != sorted(u["uid"] for u in units)
+            or spool.duplicate_count() or not matrix["complete"]):
+        fail(f"grid: committed {res.committed}/{len(units)}, done {done}, "
+             f"complete {matrix['complete']}")
+    worst = max(c[0] for c in checks.values())
+    compared = sum(c[1] for c in checks.values())
+    bad = {u: c[2] for u, c in checks.items() if c[2]}
+    log(f"  cell readouts against float64: max relative err {worst:.3e} "
+        f"(rtol {GRID_ACT_RTOL}); {compared} ids compared where the gap is "
+        f"clear, differing {bad}")
+    if len(checks) != len(units) or worst > GRID_ACT_RTOL or bad:
+        fail(f"grid cell readouts disagree with float64: {worst}, {bad}")
+
+    cell = next(c for c in spec.cells
+                if (c.layer, c.width) == (GRID_TAPS[-1], GRID_WIDTHS[0]))
+    uid = fleet.unit_id("ship", {"key": cell.key})
+    result = matrix["matrix"]["ship"][cell.key]
+    p = mgr.load("ship")[0]
+    sae = cell_sae(cell, cfg.hidden_size, device=p["embed"].device)
+    ep = {"sae": sae, "layer": cell.layer,
+          "latent_ids": torch.tensor(result["top_latents"], dtype=torch.int32,
+                                     device=p["embed"].device)}
+    direct = {}
+    for mode in ("graphed", "eager"):
+        with AotOff() if mode == "eager" else contextlib.nullcontext():
+            out, texts, _ = decode.generate(
+                p, cfg, tok, runner.probe_prompts("ship"),
+                max_new_tokens=GRID_NEW, edit_fn=sae_ablation_edit,
+                edit_params=ep)
+        direct[mode] = (torch.equal(out.tokens.cpu(), ablated[uid])
+                        and texts[0] == result["ablated_text"])
+    log(f"  {uid} ablated decode (latents {result['top_latents']}) against "
+        f"generate with sae_ablation_edit called directly: tokens and text "
+        f"equal {direct}")
+    if not all(direct.values()):
+        fail(f"{uid}: the cell's ablated decode differs from a direct one")
+    del sae, ep, mgr
+    return matrix
+
+
+def check_attack_search(torch, workdir: str, ctx: tuple, sae, matrix) -> dict:
+    """13c: ``run_search`` over phase 11e's multi-word engine (W = 2,
+    vanilla) on phase 9's delta words and phase 7's SAE, pools from 13b's
+    16k cells: byte-identical for one seed; generation 0 on an eager
+    engine byte-equal to the graphed run's; every eager readout call held
+    to ``lens_stats_reference`` (controls must miss), one call timed; a
+    profiled step runs W readout kernels.  Returns the search's readout
+    measurements."""
+    from taboo_brittleness_tpu_torch.grid import runner, search
+    from taboo_brittleness_tpu_torch.grid.spec import width_tag
+    from taboo_brittleness_tpu_torch.runtime import decode
+    from taboo_brittleness_tpu_torch.runtime import delta as deltalib
+    from taboo_brittleness_tpu_torch.runtime.tokenizer import target_token_id
+    from taboo_brittleness_tpu_torch.serve.engine import ServeEngine
+
+    params, cfg, tok, config = ctx[:4]
+    tgt = target_token_id(tok, ctx[5])
+    ec = _serve_config(config.model.layer_idx)
+    root = os.path.join(workdir, "deltas")
+    bank = deltalib.stack_bank(params, [
+        deltalib.load_delta(deltalib.delta_path(root, w)) for w in DELTA_WORDS])
+    pools = {k: v for k, v in runner.latent_pools(matrix).items()
+             if k.endswith(f"-W{width_tag(GRID_WIDTHS[0])}")}
+    engine = ServeEngine(params, cfg, tok, engine_config=ec, sae=sae,
+                         words=DELTA_WORDS, delta_bank=bank)
+    engine.warm_start()
+    kw = dict(words=list(DELTA_WORDS), latent_pools=pools, **SEARCH_KW)
+
+    evaluated, emitted = [], []
+    real_eval, real_step = search.evaluate_attack, engine.step
+
+    def counting_eval(eng, target, attack, *a, **k):
+        evaluated.append(attack.name)
+        return real_eval(eng, target, attack, *a, **k)
+
+    def counting_step():
+        out = real_step()
+        emitted.append(int(np.asarray(out.emitted).sum()))
+        return out
+
+    search.evaluate_attack, engine.step = counting_eval, counting_step
+    try:
+        steps0 = engine.steps
+        first, dt = _synced(torch, lambda: search.run_search(engine, tgt, **kw))
+        steps = engine.steps - steps0
+        n_eval, n_tok = len(evaluated), sum(emitted)
+        second = search.run_search(engine, tgt, **kw)
+    finally:
+        search.evaluate_attack, engine.step = real_eval, real_step
+    blob = json.dumps(first, sort_keys=True)
+    log(f"  attack search (seed {SEARCH_KW['seed']}, {SEARCH_KW['generations']} "
+        f"generations x {SEARCH_KW['population']}, pools {sorted(pools)}): "
+        f"{n_eval} candidates evaluated, {steps} engine steps in {dt:.2f} s "
+        f"({dt / n_eval:.3f} s per candidate, {n_tok} tokens, "
+        f"{n_tok / dt:.1f} tokens/s); best fitness {first['best']['fitness']} "
+        f"(seed population {first['seed_best_fitness']}), break rate "
+        f"{first['break_rate']}; the same seed again byte-identical: "
+        f"{json.dumps(second, sort_keys=True) == blob}")
+    if json.dumps(second, sort_keys=True) != blob:
+        fail("two searches with one seed differ")
+
+    with AotOff():
+        eager = ServeEngine(params, cfg, tok, engine_config=ec, sae=sae,
+                            words=DELTA_WORDS, delta_bank=bank)
+        with ReadoutRecorder() as readouts:
+            gen0 = search.run_search(eager, tgt, **dict(
+                kw, generations=1, latent_pools=None))
+    same = (json.dumps(gen0["trajectory"][0], sort_keys=True)
+            == json.dumps(first["trajectory"][0], sort_keys=True))
+    err, bad, rel = _readout_errors(torch, readouts.calls)
+    log(f"  eager engine generation 0 byte-equal to the graphed run's: {same}; "
+        f"{len(readouts.calls)} readout calls at N={ec.slots} K=1: max abs err "
+        f"{err:.3e} (atol {ATOL}), top-1 ids differing on clear rows {bad}, "
+        f"P(target) max relative err {rel:.3e} (rtol {SERVE_PROB_RTOL})")
+    if not same:
+        fail("the eager search's generation 0 differs from the graphed one")
+    if not readouts.calls or err > ATOL or rel > SERVE_PROB_RTOL or bad:
+        fail(f"the search readout kernel disagrees with its plain version: "
+             f"{err}, {rel}, {bad}")
+    for what, mutate in (
+            ("zeroed", lambda st: type(st)(*(torch.zeros_like(t) for t in st))),
+            ("rows shifted by one", lambda st: type(st)(
+                *(torch.roll(t, 1, dims=0) for t in st)))):
+        m_err, _, m_rel = _readout_errors(torch, readouts.calls, mutate)
+        log(f"  control, {what} readout: max abs err {m_err:.3e}, P(target) "
+            f"relative err {m_rel:.3e}")
+        if m_err <= ATOL or m_rel <= SERVE_PROB_RTOL:
+            fail(f"the search readout check passes a {what} result")
+    timing = check_verify_readout_timing(torch, ctx, readouts.calls[-1],
+                                         prefix="search_readout",
+                                         label="search readout")
+    del readouts, eager
+    _, _, _, ids = decode.encode_prompts(tok, list(config.prompts[:SERVE_SLOTS]))
+    prof = _time_engine_steps(torch, engine, ids, tgt,
+                              "attack-search engine (W = 2, graphed)")
+    del engine
+    return {**timing, "search_steps": steps,
+            "search_readouts_per_step": prof["wgmma"],
+            "search_step_ms": prof["step_ms"]}
+
+
+def check_grid_processes(torch, workdir: str) -> None:
+    """13d: the ``grid``, ``fleet`` and ``attack-search`` processes on the
+    card's default device (the tiny synthetic stack): a grid with one
+    transient ``grid.cell`` fault (exit 0, complete, the faulted uid
+    retried, the merged events green under ``tools/trace_report.py
+    --check``); a fleet whose worker w1 dies at its first commit (exit 0,
+    every unit once, the lease expiry and re-issue in ``_failures.json``);
+    the same search over the grid's matrix twice (the same file)."""
+    from taboo_brittleness_tpu_torch.runtime import fleet
+
+    env = _proc_env()
+    env.update({"TBX_OBS_PROGRESS_S": "0.2", "TBX_SUPERVISE_BACKOFF_S": "0",
+                "TBX_FLEET_SPEC_FACTOR": "0"})
+    out = os.path.join(workdir, "proc-grid")
+    plan = {"grid.cell": [{"mode": "fail", "times": 1, "kind": "transient",
+                           "match": "ship@L1-W32"}]}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", PACKAGE, "grid", "--synthetic", "--words",
+         "ship", "moon", "--workers", "2", "--output-dir", out,
+         "--max-new-tokens", "4", "--lease", "10", "--max-wall", "600"],
+        cwd=REPO, env={**env, "TABOO_FAULT_PLAN": json.dumps(plan)},
+        capture_output=True, text=True, timeout=2 * PROC_TIMEOUT_S)
+    dt = time.perf_counter() - t0
+    summary, retried = {}, []
+    with contextlib.suppress(ValueError, IndexError, OSError):
+        summary = json.loads(proc.stdout.strip().splitlines()[-1])
+        with open(os.path.join(out, "_failures.json")) as f:
+            retried = sorted(json.load(f).get("retried", {}))
+    check = subprocess.run(
+        [sys.executable, os.path.join(REPO, "tools", "trace_report.py"),
+         "--check", os.path.join(out, "_events.jsonl")],
+        capture_output=True, text=True, timeout=PROC_TIMEOUT_S)
+    log(f"  grid --synthetic --workers 2 (grid.cell fault armed): exit "
+        f"{proc.returncode} in {dt:.1f} s, committed {summary.get('committed')}"
+        f"/{summary.get('units')}, complete {summary.get('complete')}, retried "
+        f"{retried}; trace_report --check exit {check.returncode}")
+    if (proc.returncode != 0 or summary.get("complete") is not True
+            or "ship@L1-W32" not in retried or check.returncode != 0):
+        fail(f"grid process: exit {proc.returncode}\n{proc.stdout[-2000:]}\n"
+             f"{proc.stderr[-4000:]}\n{check.stdout[-2000:]}")
+
+    out_f = os.path.join(workdir, "proc-fleet")
+    words = [f"word{i:02d}" for i in range(4)]
+    plan = {"fleet.commit": [
+        {"mode": "die", "times": 1, "match": "w1", "incarnation": 0},
+        {"mode": "delay", "delay": 1.0, "times": None, "match": "w0-i"}]}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", PACKAGE, "fleet", "--synthetic", "--words",
+         *words, "--workers", "2", "--readout-layers", "1,2", "--output-dir",
+         out_f, "--max-new-tokens", "3", "--lease", "5", "--grace", "2",
+         "--max-incarnations", "4", "--max-wall", "600"],
+        cwd=REPO, env={**env, "TABOO_FAULT_PLAN": json.dumps(plan)},
+        capture_output=True, text=True, timeout=2 * PROC_TIMEOUT_S)
+    dt = time.perf_counter() - t0
+    summary, block = {}, {}
+    with contextlib.suppress(ValueError, IndexError, OSError):
+        summary = json.loads(proc.stdout.strip().splitlines()[-1])
+        with open(os.path.join(out_f, "_failures.json")) as f:
+            block = json.load(f).get("fleet", {})
+    done = fleet.FleetSpool(os.path.join(out_f, fleet.SPOOL_DIRNAME)).done_uids()
+    victims = sorted({e.get("worker") for c in block.get("reissues", {}).values()
+                      for e in c})
+    log(f"  fleet --synthetic --workers 2 (die at w1's first commit): exit "
+        f"{proc.returncode} in {dt:.1f} s, {len(done)}/8 units done, lease "
+        f"expiries {block.get('lease_expiries')}, re-issued from workers "
+        f"{victims}, duplicate commits {block.get('duplicate_commits')}")
+    if (proc.returncode != 0 or len(done) != 8 or summary.get("committed") != 8
+            or not block.get("lease_expiries") or "w1" not in victims):
+        fail(f"fleet process: exit {proc.returncode}\n{proc.stdout[-2000:]}\n"
+             f"{proc.stderr[-4000:]}")
+
+    blobs = []
+    for i in range(2):
+        f_out = os.path.join(workdir, f"proc-search-{i}.json")
+        proc = subprocess.run(
+            [sys.executable, "-m", PACKAGE, "attack-search", "--synthetic",
+             "--seed", "3", "--grid", os.path.join(out, "grid_matrix.json"),
+             "--generations", "2", "--population", "3", "-n", "4",
+             "--out", f_out],
+            cwd=REPO, env=env, capture_output=True, text=True,
+            timeout=PROC_TIMEOUT_S)
+        if proc.returncode != 0 or not os.path.exists(f_out):
+            fail(f"attack-search process: exit {proc.returncode}\n"
+                 f"{proc.stderr[-4000:]}")
+        with open(f_out, "rb") as f:
+            blobs.append(f.read())
+    log(f"  attack-search --synthetic --grid (13d's matrix) twice: files "
+        f"equal {blobs[0] == blobs[1]} ({len(blobs[0])} bytes)")
+    if blobs[0] != blobs[1]:
+        fail("two attack-search processes with one seed wrote other files")
+
+
+def drive_grid(torch, workdir: str, ctx: tuple, sae) -> dict:
+    """Phase 13: the multi-tap capture, the grid and the attack search at
+    the main path's width, after phase 12's programs are dropped.  Returns
+    the search's readout measurements."""
+    import gc
+
+    from taboo_brittleness_tpu_torch.runtime import aot, decode
+
+    t0 = time.perf_counter()
+    aot.reset()                  # phase 12's programs go
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, cfg = ctx[:2]
+    log(f"phase 13a multi-tap capture {GRID_TAPS}")
+    args = check_multi_tap(torch, ctx)
+    log(f"phase 13b grid cells {GRID_TAPS} x {GRID_WIDTHS} in process")
+    matrix = check_grid_cells(torch, workdir, ctx)
+    # The cells' KV pools and programs sit beside 13a's under the LRU cap
+    # (aot.POOL_SHARE of the card): a main path launch of 13a's key hits.
+    before = aot.stats()["decode"]["misses"]
+    decode.greedy_decode(params, cfg, *args,
+                         max_new_tokens=ctx[3].experiment.max_new_tokens,
+                         capture_residual_layer=GRID_TAPS)
+    st = aot.stats()
+    log(f"  13a's multi-tap program after the grid: "
+        f"{'hit' if st['decode']['misses'] == before else 'MISSED'}; pooled KV "
+        f"{st['pool_bytes'] / 2**30:.2f} GiB of a "
+        f"{aot.pool_cap_bytes(params['embed'].device) / 2**30:.2f} GiB cap, "
+        f"{st['decode']['programs']} decode programs")
+    if st["decode"]["misses"] != before:
+        fail("the grid's decode programs evicted the main path's multi-tap one")
+    log("phase 13c the attack search on the card")
+    out = check_attack_search(torch, workdir, ctx, sae, matrix)
+    log("phase 13d the grid, fleet and attack-search processes on the card")
+    check_grid_processes(torch, workdir)
+    log(f"grid and search phase: {time.perf_counter() - t0:.2f} s; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated); graph registry {aot_summary()}")
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, PACKAGE)):
         fail(f"{PACKAGE}/ not found beside chip_smoke.py: run it from the "
@@ -3466,6 +3957,7 @@ def main() -> int:
         serve = drive_serving(torch, workdir, ctx, sae)
         spec = drive_spec_serving(torch, workdir, ctx, sae,
                                   serve.pop("load_tokens_per_second"))
+        grid = drive_grid(torch, workdir, ctx, sae)
         del ctx, sae
     # ``launches`` is the main path's own count; the serving path's and the
     # speculative verify's readout kernels per step, counted in profiled
@@ -3474,6 +3966,7 @@ def main() -> int:
                                spec.pop("spec_verify_max_abs_err"))
     wgmma.update(serve)
     wgmma.update(spec)
+    wgmma.update(grid)
     wgmma["launches"] = by_route["wgmma"]
     simple["launches"] = by_route["simple"]
     # Again at the end, beside the numbers, where a tail of the output

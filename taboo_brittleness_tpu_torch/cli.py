@@ -12,6 +12,10 @@
     python -m taboo_brittleness_tpu_torch loadgen       [--synthetic] [--word W | --words W1 W2 --delta-root D] [-n N] [--selfcheck] [--spool DIR]
     python -m taboo_brittleness_tpu_torch serve         --output-dir DIR [--synthetic] [--word W | --words ...] [--max-requests N]
     python -m taboo_brittleness_tpu_torch supervise     --output-dir DIR -- <subcommand> [args...]
+    python -m taboo_brittleness_tpu_torch fleet         --output-dir DIR [--synthetic] [--workers N] [--readout-layers L1,L2] [--selfcheck]
+    python -m taboo_brittleness_tpu_torch worker        --fleet-dir DIR [--worker-id W]
+    python -m taboo_brittleness_tpu_torch grid          --output-dir DIR [--synthetic] [--layers L1,L2] [--widths W1,W2] [--workers N] [--selfcheck]
+    python -m taboo_brittleness_tpu_torch attack-search --synthetic [--grid MATRIX] [--seed S] [--out F]
 
 All accept the reference's ``configs/default.yaml`` schema (PyYAML is needed
 only to read a YAML file) and run on ``--device`` (default ``cuda``).  Every
@@ -33,7 +37,13 @@ instead.  ``serve`` is the long-lived server over the same engines
 ``DIR/responses/``.  ``TBX_SERVE_SPECULATE=1`` builds the speculative
 engine (``serve.spec_engine``) for both.  ``supervise`` runs any of these
 subcommands as a child process under ``runtime.supervise`` (restart on a
-crash or a wedge, relaunch on a drain).  SIGTERM / SIGINT drain every
+crash or a wedge, relaunch on a drain).  ``fleet`` runs a sweep as
+``(word, readout)`` units over N supervised ``worker`` processes claiming
+them from a durable spool under leases (``runtime.fleet``); ``grid`` decodes
+each word once tapping every grid layer and fans one fleet unit per
+(word, layer, width) cell (``grid/``); ``attack-search`` evolves attacks
+against an in-process multi-word engine (``grid.search``).  The coordinator
+forwards ``--device`` to every worker.  SIGTERM / SIGINT drain every
 command: a sweep stops between words and a server finishes its admitted
 sessions.  Exit codes: 0 when the run completed, 75 when it drained
 (resumable: relaunch it, or let ``supervise`` do it), 1 when words were
@@ -523,6 +533,318 @@ def cmd_supervise(args) -> int:
     return res.exit_code
 
 
+def _fleet_unit_fn(args, spool_cfg):
+    """The worker's per-unit computation, from the spool config.
+
+    ``synthetic`` is the hermetic tiny-model stack (the chaos tests and the
+    selfcheck); ``checkpoint`` loads each unit's word through the
+    ``CheckpointManager``.  Either way a unit is one ``(word, readout)``
+    cell: decode the word's probe prompt and capture the residual at the
+    readout layer.  ``grid`` units read the coordinator's shared residual
+    artifact and run ``grid.runner.run_cell`` (the tiny stack, or each
+    word through the ``CheckpointManager``)."""
+    from taboo_brittleness_tpu_torch.runtime import decode
+
+    mode = spool_cfg.get("mode") or (
+        "synthetic" if args.synthetic else "checkpoint")
+    max_new = int(spool_cfg.get("max_new_tokens", args.max_new_tokens))
+    seed = int(spool_cfg.get("seed", 7))
+
+    if mode == "grid":
+        from taboo_brittleness_tpu_torch.grid import runner as grid_runner
+        from taboo_brittleness_tpu_torch.grid.spec import GridSpec
+
+        spec = GridSpec.from_dict(spool_cfg["grid"])
+        kw = dict(spec=spec, resid_dir=spool_cfg["resid_dir"], seed=seed,
+                  top_k=int(spool_cfg.get("top_k", 8)),
+                  max_new_tokens=max_new)
+        if spool_cfg.get("model", "synthetic") == "synthetic":
+            model = grid_runner.synthetic_model(
+                list(spool_cfg.get("words", [])), seed=seed,
+                device=args.device,
+                preset=spool_cfg.get("preset", "gemma2_tiny"))
+            return lambda unit: grid_runner.run_cell(unit, model=model, **kw)
+        loader = _loader(_load(args), args)
+        return lambda unit: grid_runner.run_cell(
+            unit, model=loader(unit["word"]), **kw)
+
+    def summarize(unit, result, texts, layer):
+        out = {"word": unit.get("word"), "readout_layer": layer,
+               "generated_tokens": int(result.lengths[0]),
+               "text": (texts or [""])[0]}
+        if result.residual is not None:
+            out["residual_norm"] = round(
+                float(result.residual.double().norm()), 6)
+        return out
+
+    if mode == "synthetic":
+        from taboo_brittleness_tpu_torch.grid import runner as grid_runner
+
+        params, cfg, tok = grid_runner.synthetic_model(
+            list(spool_cfg.get("words", [])), seed=seed, device=args.device,
+            preset=spool_cfg.get("preset", "gemma2_tiny"))
+
+        def unit_fn(unit):
+            layer = int((unit.get("readout") or {}).get("layer", 1))
+            layer = min(max(layer, 0), cfg.num_layers - 1)
+            result, texts, _ = decode.generate(
+                params, cfg, tok, grid_runner.probe_prompts(unit["word"]),
+                max_new_tokens=max_new, capture_residual_layer=layer)
+            return summarize(unit, result, texts, layer)
+
+        return unit_fn
+
+    config = _load(args)
+    loader = _loader(config, args)
+    prompts = list(config.prompts)[:1] or ["Give me a hint"]
+
+    def unit_fn(unit):
+        params, cfg, tok = loader(unit["word"])
+        layer = int((unit.get("readout") or {}).get(
+            "layer", config.model.layer_idx))
+        layer = min(max(layer, 0), cfg.num_layers - 1)
+        result, texts, _ = decode.generate(
+            params, cfg, tok, prompts,
+            max_new_tokens=max_new, capture_residual_layer=layer)
+        return summarize(unit, result, texts, layer)
+
+    return unit_fn
+
+
+def cmd_worker(args) -> int:
+    """One fleet worker (``runtime.fleet``): claim ``(word, readout)``
+    units from the coordinator's spool under a heartbeat-renewed lease,
+    compute, commit first-writer-wins.  Normally started by ``fleet`` or
+    ``grid`` under a per-worker supervisor; runnable by hand against any
+    spool directory (the JAX package's too: the schemas are shared)."""
+    from taboo_brittleness_tpu_torch.runtime import fleet, resilience
+
+    wid = args.worker_id or resilience.current_worker_id() or "w0"
+    # The worker id names the per-worker telemetry files and the ledger and
+    # span stamps: set it before any tracer or ledger exists.
+    os.environ[resilience.WORKER_ENV] = wid
+    spool = fleet.FleetSpool(
+        os.path.join(args.fleet_dir, fleet.SPOOL_DIRNAME)).ensure()
+    res = fleet.run_worker(
+        args.fleet_dir, wid,
+        unit_fn=_fleet_unit_fn(args, spool.read_config()),
+        lease_s=args.lease, poll_s=args.poll,
+        max_retries=args.max_retries)
+    print(json.dumps({"worker_id": wid, "committed": res.committed,
+                      "duplicates": res.duplicates,
+                      "quarantined": res.quarantined,
+                      "drained": res.drained}))
+    return res.exit_code
+
+
+def _worker_argv(args, out: str):
+    """``worker_argv(wid)`` of a coordinator: the port's worker process
+    (exec, never a fork) with the coordinator's config, budget, checkpoint
+    root and ``--device``."""
+    from taboo_brittleness_tpu_torch.runtime import fleet
+
+    def argv(wid: str) -> List[str]:
+        cmd = fleet.worker_command(out, wid, args.device)
+        cmd += ["-c", args.config, "--max-new-tokens", str(args.max_new_tokens)]
+        if getattr(args, "synthetic", False):
+            cmd.append("--synthetic")
+        if args.checkpoint_root:
+            cmd += ["--checkpoint-root", args.checkpoint_root]
+        return cmd
+
+    return argv
+
+
+def _run_fleet(args, units, out: str, spool_cfg):
+    from taboo_brittleness_tpu_torch.runtime import fleet
+
+    return fleet.run_fleet(
+        units, out, n_workers=args.workers,
+        worker_argv=_worker_argv(args, out), spool_config=spool_cfg,
+        lease_s=args.lease, max_incarnations=args.max_incarnations,
+        grace=args.grace, wedge_after=args.wedge_after,
+        max_wall_s=args.max_wall)
+
+
+def _save_manifest(args, manifest, out: str) -> None:
+    if not args.no_manifest:
+        path = manifest.save(os.path.join(out, "run_manifest.json"))
+        print(f"manifest -> {path}")
+
+
+def cmd_fleet(args) -> int:
+    """Elastic fleet coordinator (``runtime.fleet``): decompose the sweep
+    into ``(word, readout)`` units in a durable spool, run N supervised
+    workers with lease-based work stealing, merge their artifacts."""
+    from taboo_brittleness_tpu_torch.runtime import fleet
+    from taboo_brittleness_tpu_torch.runtime.manifest import RunManifest
+
+    if args.selfcheck:
+        return fleet.main_selfcheck(device=args.device)
+    if not args.output_dir:
+        raise SystemExit("fleet: --output-dir is required (or --selfcheck)")
+    config = _load(args)
+    words = list(args.words or config.words)
+    layers = _parse_int_list(args.readout_layers) or [config.model.layer_idx]
+    units = [{"uid": fleet.unit_id(w, {"layer": la}), "word": w,
+              "readout": {"layer": la}} for w in words for la in layers]
+    out = args.output_dir
+    spool_cfg = {"mode": "synthetic" if args.synthetic else "checkpoint",
+                 "words": words, "max_new_tokens": args.max_new_tokens,
+                 "config": args.config}
+    manifest = RunManifest(command="fleet")
+    with manifest.stage("fleet", units=len(units), workers=args.workers):
+        res = _run_fleet(args, units, out, spool_cfg)
+    manifest.extra["fleet"] = res.to_dict()
+    _save_manifest(args, manifest, out)
+    print(json.dumps({"status": res.status, "units": res.units_total,
+                      "committed": res.committed,
+                      "quarantined": res.quarantined,
+                      "reissued": res.reissued,
+                      "lease_expiries": res.lease_expiries,
+                      "duplicate_commits": res.duplicate_commits,
+                      "recovery_seconds": res.recovery_seconds,
+                      "workers": res.workers}))
+    return res.exit_code
+
+
+def _parse_int_list(text: Optional[str]) -> Optional[List[int]]:
+    if not text:
+        return None
+    return [int(x) for x in str(text).split(",") if x.strip()]
+
+
+def cmd_grid(args) -> int:
+    """Gemma-Scope grid sweep (``grid/``): capture each word's residuals
+    once while tapping every grid layer in one graphed decode, then fan
+    encode -> top latents -> ablate -> decode -> score per (word, layer,
+    width) cell through the fleet; write ``grid_matrix.json``."""
+    from taboo_brittleness_tpu_torch.grid import runner as grid_runner
+    from taboo_brittleness_tpu_torch.grid.spec import GridSpec
+    from taboo_brittleness_tpu_torch.runtime.manifest import RunManifest
+    from taboo_brittleness_tpu_torch.runtime.resilience import atomic_json_dump
+
+    if args.selfcheck:
+        return grid_runner.main_selfcheck(device=args.device)
+    if not args.output_dir:
+        raise SystemExit("grid: --output-dir is required (or --selfcheck)")
+    config = _load(args)
+    layers = _parse_int_list(args.layers)
+    widths = _parse_int_list(args.widths)
+    words = list(args.words or config.words)
+    out = args.output_dir
+    resid_dir = os.path.join(out, grid_runner.RESID_DIRNAME)
+    if args.synthetic:
+        spec = GridSpec.build(layers or [1, 2], widths or [32, 64],
+                              release="synthetic")
+        model = grid_runner.synthetic_model(words, seed=args.seed,
+                                            device=args.device)
+        loader = lambda w: model  # noqa: E731 — one tiny model
+    else:
+        spec = GridSpec.from_config(config, layers=layers, widths=widths,
+                                    artifact_dir=args.cells_dir)
+        loader = _loader(config, args)
+    bad = [c.key for c in spec.cells if c.layer < 0]
+    if bad:
+        raise SystemExit(f"grid: negative layers in cells {bad}")
+
+    manifest = RunManifest(command="grid")
+    with manifest.stage("grid.capture", words=len(words),
+                        taps=len(spec.tap_layers)):
+        for w in words:
+            p, c, t = loader(w)
+            grid_runner.capture_word_residuals(
+                p, c, t, w, spec, max_new_tokens=args.max_new_tokens,
+                resid_dir=resid_dir)
+    units = grid_runner.grid_units(spec, words)
+    spool_cfg = {
+        "mode": "grid",
+        "model": "synthetic" if args.synthetic else "checkpoint",
+        "words": words, "grid": spec.to_dict(), "resid_dir": resid_dir,
+        "seed": args.seed, "top_k": args.top_k,
+        "max_new_tokens": args.max_new_tokens, "config": args.config,
+    }
+    with manifest.stage("grid.fleet", units=len(units), workers=args.workers):
+        res = _run_fleet(args, units, out, spool_cfg)
+    matrix = grid_runner.assemble_matrix(out, spec, words)
+    matrix_path = os.path.join(out, "grid_matrix.json")
+    atomic_json_dump(matrix, matrix_path)
+    manifest.extra["grid"] = {"fleet": res.to_dict(), "matrix": matrix_path,
+                              "complete": matrix["complete"]}
+    _save_manifest(args, manifest, out)
+    print(json.dumps({"status": res.status, "units": res.units_total,
+                      "committed": res.committed,
+                      "quarantined": res.quarantined,
+                      "cells": list(spec.keys), "words": words,
+                      "complete": matrix["complete"],
+                      "matrix": matrix_path}))
+    return res.exit_code
+
+
+def cmd_attack_search(args) -> int:
+    """Closed-loop attack search (``grid/search.py``): evolve forcing
+    prefixes and prompt templates against an in-process multi-word engine,
+    drawing ablation targets from a grid matrix's per-cell top latents;
+    write the trajectory and the breakage matrix."""
+    from taboo_brittleness_tpu_torch.grid import runner as grid_runner
+    from taboo_brittleness_tpu_torch.grid import search as grid_search
+    from taboo_brittleness_tpu_torch.runtime.resilience import atomic_json_dump
+    from taboo_brittleness_tpu_torch.serve import loadgen
+
+    if not args.synthetic:
+        raise SystemExit(
+            "attack-search: only the --synthetic engine is wired; a served "
+            "model's round goes through `serve` (see ROADMAP)")
+    words = tuple(args.words or ("ship", "moon"))
+    engine, _scenarios, lens_target_id = loadgen.build_synthetic_multi_engine(
+        words=words, seed=args.engine_seed,
+        max_new_tokens=args.max_new_tokens, device=args.device)
+    pools = None
+    if args.grid:
+        with open(args.grid) as f:
+            pools = grid_runner.latent_pools(json.load(f))
+    result = grid_search.run_search(
+        engine, lens_target_id, words=list(words), seed=args.seed,
+        generations=args.generations, population=args.population,
+        n_requests=args.n, max_new_tokens=args.max_new_tokens,
+        latent_pools=pools)
+    if args.out:
+        atomic_json_dump(result, args.out)
+    print(json.dumps({"best": result["best"],
+                      "seed_best_fitness": result["seed_best_fitness"],
+                      "improved": result["improved"],
+                      "break_rate": result["break_rate"],
+                      "out": args.out}))
+    return 0
+
+
+def _fleet_common(p: argparse.ArgumentParser) -> None:
+    """The coordinator flags ``fleet`` and ``grid`` share."""
+    p.add_argument("-c", "--config", default="configs/default.yaml")
+    p.add_argument("--words", nargs="*", default=None)
+    p.add_argument("--synthetic", action="store_true",
+                   help="tiny random model + word tokenizer (hermetic "
+                        "smoke path; no checkpoint IO)")
+    p.add_argument("--checkpoint-root", default=None)
+    p.add_argument("--device", default=None,
+                   help="torch device of the coordinator and of every "
+                        "worker (default cuda)")
+    p.add_argument("--max-new-tokens", type=int, default=8)
+    p.add_argument("--lease", type=float, default=None,
+                   help="lease seconds before an unrenewed claim is "
+                        "re-issued (default: TBX_FLEET_LEASE_S or 10)")
+    p.add_argument("--max-incarnations", type=int, default=None,
+                   help="per-worker supervisor restart budget")
+    p.add_argument("--grace", type=float, default=None,
+                   help="per-worker SIGTERM->SIGKILL grace seconds")
+    p.add_argument("--wedge-after", type=float, default=None,
+                   help="kill a worker quiet for this long while its "
+                        "heartbeat stays fresh")
+    p.add_argument("--max-wall", type=float, default=None,
+                   help="hard fleet wall-clock bound (safety valve)")
+    p.add_argument("--no-manifest", action="store_true")
+
+
 def _serve_common(p: argparse.ArgumentParser) -> None:
     """The engine flags ``serve`` and ``loadgen`` share."""
     p.add_argument("-c", "--config", default="configs/default.yaml")
@@ -744,6 +1066,125 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("child", nargs=argparse.REMAINDER,
                     help="-- <subcommand> [args...]")
     sv.set_defaults(fn=cmd_supervise)
+
+    fl = sub.add_parser(
+        "fleet",
+        help="elastic multi-worker sweep: lease-based work stealing over a "
+             "durable spool, per-worker supervision, merged artifacts",
+        description="Decompose a sweep into (word, readout_config) work "
+                    "units in a durable filesystem spool and run N "
+                    "supervised worker processes that claim units under "
+                    "heartbeat-renewed leases (runtime/fleet.py). A dead "
+                    "or wedged worker's lease expires and its unit is "
+                    "re-issued; stragglers are re-dispatched with a "
+                    "first-writer-wins commit. Per-worker events, ledgers "
+                    "and progress merge into one run view at the end. "
+                    "SIGTERM drains the fleet at unit boundaries (exit "
+                    "75); a relaunch resumes the spool.")
+    _fleet_common(fl)
+    fl.add_argument("--output-dir", default=None,
+                    help="fleet directory: spool/, per-worker telemetry, "
+                         "merged _events.jsonl/_failures.json/_fleet.json "
+                         "(required unless --selfcheck)")
+    fl.add_argument("--workers", type=int, default=3)
+    fl.add_argument("--readout-layers", default=None,
+                    help="comma-separated readout tap layers; each (word, "
+                         "layer) cell is one unit (default: the config's "
+                         "layer_idx)")
+    fl.add_argument("--selfcheck", action="store_true",
+                    help="tiny model, 3 workers, one killed mid-unit; "
+                         "asserts exactly-once completion")
+    fl.set_defaults(fn=cmd_fleet)
+
+    wk = sub.add_parser(
+        "worker",
+        help="one fleet worker: claim spool units under lease, compute, "
+             "commit first-writer-wins (normally started by fleet or grid)")
+    wk.add_argument("-c", "--config", default="configs/default.yaml")
+    wk.add_argument("--fleet-dir", required=True,
+                    help="the coordinator's fleet directory (holds spool/)")
+    wk.add_argument("--worker-id", default=None,
+                    help="stable worker identity (default: TBX_WORKER_ID "
+                         "or w0)")
+    wk.add_argument("--synthetic", action="store_true")
+    wk.add_argument("--checkpoint-root", default=None)
+    wk.add_argument("--device", default=None,
+                    help="torch device (default cuda)")
+    wk.add_argument("--max-new-tokens", type=int, default=8)
+    wk.add_argument("--lease", type=float, default=None)
+    wk.add_argument("--poll", type=float, default=0.25,
+                    help="idle spool poll interval seconds")
+    wk.add_argument("--max-retries", type=int, default=2)
+    wk.set_defaults(fn=cmd_worker)
+
+    gr = sub.add_parser(
+        "grid",
+        help="Gemma-Scope (layer x width) grid sweep: capture residuals "
+             "once per word (multi-tap decode), fan per-cell readouts "
+             "through the fleet, write the grid matrix",
+        description="Decode each word once while tapping every grid layer "
+                    "in one graphed decode, persist the shared [K, B, T, "
+                    "D] residual artifact, then run one fleet unit per "
+                    "(word, layer, width) cell: encode at the cell's SAE, "
+                    "top-k latents, ablate them, decode the probe again, "
+                    "score the leak shift. Cells retry then quarantine "
+                    "one by one (grid.cell fault site).")
+    _fleet_common(gr)
+    gr.add_argument("--output-dir", default=None,
+                    help="grid directory: residuals/, spool/, "
+                         "grid_matrix.json (required unless --selfcheck)")
+    gr.add_argument("--layers", default=None,
+                    help="comma-separated residual tap layers (default: "
+                         "config layer_idx; --synthetic: 1,2)")
+    gr.add_argument("--widths", default=None,
+                    help="comma-separated SAE widths (default: config "
+                         "sae.width; --synthetic: 32,64)")
+    gr.add_argument("--cells-dir", default=None,
+                    help="directory of converted per-cell npz artifacts "
+                         "(tools/convert_gemma_scope.py --cells; default: "
+                         "synthetic SAEs)")
+    gr.add_argument("--workers", type=int, default=2)
+    gr.add_argument("--seed", type=int, default=7)
+    gr.add_argument("--top-k", type=int, default=8,
+                    help="latents per cell readout")
+    gr.add_argument("--selfcheck", action="store_true",
+                    help="2 words x 2x2 synthetic grid, 2 workers, one "
+                         "injected grid.cell fault; asserts exactly-once "
+                         "cells and the ledger")
+    gr.set_defaults(fn=cmd_grid)
+
+    asr = sub.add_parser(
+        "attack-search",
+        help="closed-loop attack search: evolve forcing prefixes + prompt "
+             "templates against an in-process engine, write the breakage "
+             "matrix",
+        description="Seeded evolutionary search over (prefix, template, "
+                    "grid-cell ablation) candidates, each scored by "
+                    "driving the in-process multi-word engine through "
+                    "loadgen with the candidate as a serving scenario "
+                    "(token-forcing success + lens P(secret) bonus). The "
+                    "same seed gives a byte-identical trajectory.")
+    asr.add_argument("--synthetic", action="store_true",
+                     help="tiny multi-word engine (the only engine wired)")
+    asr.add_argument("--words", nargs="*", default=None,
+                     help="secret words the engine serves (default: "
+                          "ship moon)")
+    asr.add_argument("--grid", default=None,
+                     help="grid_matrix.json to draw per-cell ablation "
+                          "latent pools from")
+    asr.add_argument("--out", default=None,
+                     help="write the trajectory + matrix artifact here")
+    asr.add_argument("--seed", type=int, default=0,
+                     help="search seed (mutation rng + request schedule)")
+    asr.add_argument("--engine-seed", type=int, default=7)
+    asr.add_argument("--generations", type=int, default=4)
+    asr.add_argument("--population", type=int, default=6)
+    asr.add_argument("-n", type=int, default=6,
+                     help="requests per candidate evaluation")
+    asr.add_argument("--max-new-tokens", type=int, default=6)
+    asr.add_argument("--device", default=None,
+                     help="torch device (default cuda)")
+    asr.set_defaults(fn=cmd_attack_search)
     return p
 
 

@@ -10,11 +10,12 @@ enough to always be on:
   lock, no IO).  The ring holds the most recent ``TBX_FLIGHTREC_N``
   records (default 256; 0 disables recording entirely).
 - Crash paths call :func:`dump`, which atomically writes the ring to
-  ``<output_dir>/_flightrec.json`` (the JAX package's fleet workers
-  suffix it per worker; the port has no fleet yet).  The trigger wired in the port: a
-  serve session quarantine (``serve.scheduler``); the JAX package also
-  dumps from its retry→quarantine path and its SIGTERM drain latch, which
-  the port does not have yet.
+  ``<output_dir>/_flightrec.json`` (``_flightrec.<wid>.json`` in a fleet
+  worker, like every other per-worker artifact).  Triggers wired in the
+  port: the retry→quarantine path (``resilience.run_guarded``, which the
+  fleet worker's units run under) and a serve session quarantine
+  (``serve.scheduler``); the JAX package also dumps from its SIGTERM drain
+  latch, which the port's drain does not.
 
 Signal-safety, deliberately: the ring is a ``collections.deque`` appended
 WITHOUT a lock (GIL-atomic), and :func:`dump` snapshots it with ``list()``
@@ -52,6 +53,11 @@ def ring_capacity() -> int:
         return _DEFAULT_CAPACITY
 
 
+def flightrec_filename(worker_id: Optional[str] = None) -> str:
+    return (FLIGHTREC_FILENAME if worker_id is None
+            else f"_flightrec.{worker_id}.json")
+
+
 class FlightRecorder:
     """One process's ring + dump target.  ``capacity=0`` makes every method
     a no-op, so call sites never branch on whether recording is armed."""
@@ -65,14 +71,15 @@ class FlightRecorder:
         self.dumps = 0
         self.dropped = 0
 
-    def configure(self, output_dir: Optional[str]) -> None:
-        """Point dumps at ``<output_dir>/_flightrec.json``.  Until
+    def configure(self, output_dir: Optional[str],
+                  worker_id: Optional[str] = None) -> None:
+        """Point dumps at ``<output_dir>/_flightrec[.wid].json``.  Until
         configured (or after ``configure(None)``), dumps are no-ops — the
         ring still records, so a late configure loses nothing."""
         if output_dir is None:
             self._path = None
             return
-        self._path = os.path.join(output_dir, FLIGHTREC_FILENAME)
+        self._path = os.path.join(output_dir, flightrec_filename(worker_id))
 
     @property
     def path(self) -> Optional[str]:
@@ -156,8 +163,9 @@ def record(kind: str, **attrs: Any) -> None:
     _RECORDER.record(kind, **attrs)
 
 
-def configure(output_dir: Optional[str]) -> None:
-    _RECORDER.configure(output_dir)
+def configure(output_dir: Optional[str],
+              worker_id: Optional[str] = None) -> None:
+    _RECORDER.configure(output_dir, worker_id)
 
 
 def dump(reason: str, **extra: Any) -> Optional[str]:
@@ -172,6 +180,6 @@ def reset(capacity: Optional[int] = None) -> None:
 
 __all__ = [
     "FLIGHTREC_FILENAME", "SCHEMA_VERSION", "FlightRecorder", "configure",
-    "dump", "record", "recorder", "reset",
+    "dump", "flightrec_filename", "record", "recorder", "reset",
     "ring_capacity",
 ]

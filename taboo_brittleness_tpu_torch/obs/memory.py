@@ -17,16 +17,20 @@ signal:
 since ``torch.cuda.reset_peak_memory_stats``); deltas between consecutive
 samples, not absolute peaks, localize a regression.
 
+- :class:`MemorySampler` is the optional low-rate background thread for
+  the gaps between boundaries (a leak inside one long phase), off by
+  default and armed with ``TBX_OBS_MEM_HZ`` (samples/second, fractional
+  fine); every sweep observer (a fleet worker's too) starts one.
+
 The PyTorch port's counterpart of the JAX package's ``obs/memory.py``: the
 same fields and ``mem.*`` gauges, read from ``torch.cuda`` instead of
 ``jax.local_devices()``.  A process without CUDA samples the host only.
-The JAX module's background sampler (``TBX_OBS_MEM_HZ``) is not ported:
-nothing in the port arms it.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 from typing import Any, Dict, List, Optional
 
 _PAGE = os.sysconf("SC_PAGE_SIZE") if hasattr(os, "sysconf") else 4096
@@ -143,3 +147,51 @@ def sample(*, compact: bool = False) -> Dict[str, Any]:
         if peak:
             out["hbm_peak_mb"] = round(peak / 1e6, 1)
     return out
+
+
+def sampler_hz() -> float:
+    """Background-sampler rate from ``TBX_OBS_MEM_HZ``; 0 (default) = off."""
+    try:
+        return max(0.0, float(os.environ.get("TBX_OBS_MEM_HZ", "0")))
+    except ValueError:
+        return 0.0
+
+
+class MemorySampler:
+    """Optional background watermark sampler: emits ``mem.sample`` point
+    events through ``tracer`` at ``hz`` samples/second until stopped.
+    Daemonized and fail-open; ``hz <= 0`` never starts a thread."""
+
+    def __init__(self, tracer, hz: Optional[float] = None):
+        self.tracer = tracer
+        self.hz = sampler_hz() if hz is None else hz
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self) -> "MemorySampler":
+        if self.hz <= 0 or self._thread is not None:
+            return self
+        self._thread = threading.Thread(
+            target=self._run, name="tbx-obs-mem", daemon=True)
+        self._thread.start()
+        return self
+
+    def _run(self) -> None:
+        interval = 1.0 / self.hz
+        while not self._stop.wait(interval):
+            try:
+                self.tracer.event("mem.sample", **sample(compact=True))
+            except Exception:  # noqa: BLE001 — sampling never crashes a run
+                pass
+
+    def stop(self) -> None:
+        self._stop.set()
+        t, self._thread = self._thread, None
+        if t is not None:
+            t.join(timeout=5.0)
+
+    def __enter__(self) -> "MemorySampler":
+        return self.start()
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.stop()

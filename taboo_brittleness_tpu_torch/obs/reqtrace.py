@@ -298,12 +298,21 @@ _COORD_POINTS = ("serve_fleet.route", "serve_fleet.respool",
 
 def find_event_files(path: str) -> List[str]:
     """Event streams for one results dir (or a direct ``_events.jsonl``
-    path).  The JAX package's fleet also reads per-worker
-    ``_events.<wid>.jsonl`` files; the port writes one stream."""
+    path).  A merged ``_events.jsonl`` already holds every per-worker
+    stream (the fleet merge folds and renumbers them), so it is read
+    alone; otherwise the per-worker ``_events.<wid>.jsonl`` files are read
+    together."""
     if os.path.isfile(path):
         return [path]
     merged = os.path.join(path, trace_mod.EVENTS_FILENAME)
-    return [merged] if os.path.exists(merged) else []
+    if os.path.exists(merged):
+        return [merged]
+    try:
+        names = sorted(os.listdir(path))
+    except OSError:
+        return []
+    return [os.path.join(path, n) for n in names
+            if n.startswith("_events.") and n.endswith(".jsonl")]
 
 
 class Attempt:

@@ -30,8 +30,8 @@ Write discipline mirrors ``obs.trace``: whole-line ``O_APPEND`` writes
 (concurrent writers interleave lines, never bytes), seq resumed from the
 file tail across incarnations, fail-open with drop counting
 (``obs.metrics_dropped``) through the deliberate ``obs.metrics_write``
-fault site.  (The JAX package's fleet workers write per-worker suffixed
-files; the port has no fleet yet.)
+fault site, and per-worker suffixed files (``_metrics.<wid>.jsonl``) in
+fleet mode, merged at fleet end like ``_events.jsonl``.
 
 The PyTorch port's copy of the JAX package's ``obs/timeseries.py``, with
 the same file schemas, so ``tools/trace_report.py`` reads a port run.
@@ -60,6 +60,11 @@ def window_seconds() -> float:
         return max(0.2, float(os.environ.get("TBX_OBS_TS_S", "10")))
     except ValueError:
         return 10.0
+
+
+def metrics_filename(worker_id: Optional[str] = None) -> str:
+    return (METRICS_FILENAME if worker_id is None
+            else f"_metrics.{worker_id}.jsonl")
 
 
 def _resume_seq(path: str) -> int:
@@ -319,5 +324,5 @@ def iter_windows(path: str, *,
 
 __all__ = [
     "METRICS_FILENAME", "SCHEMA_VERSION", "TimeseriesRecorder",
-    "iter_windows", "window_seconds",
+    "iter_windows", "metrics_filename", "window_seconds",
 ]

@@ -165,6 +165,31 @@ def residual_carry_tap(batch: int, seq: int, hidden: int, tap_layer: int, *,
     return acc0, accumulate
 
 
+def residual_multi_tap(batch: int, seq: int, hidden: int,
+                       tap_layers: Tuple[int, ...], *, device: torch.device):
+    """Multi-layer :func:`residual_carry_tap`: one [B, T, D] f32 buffer per
+    tap layer, carried as a tuple (K buffers for K taps, never the stacked
+    [L, B, T, D] tensor).  The grid sweep decodes each word once while
+    tapping every grid layer.  Each slot takes ``h.float()`` at its layer,
+    the single-tap update itself, so slot k is bit-equal to a single-tap
+    capture at ``tap_layers[k]``.  Duplicate layers raise."""
+    taps = tuple(int(t) for t in tap_layers)
+    if len(set(taps)) != len(taps):
+        raise ValueError(f"duplicate tap layers {taps}; each grid layer "
+                         "captures exactly one slot")
+    acc0 = tuple(torch.zeros((batch, seq, hidden), dtype=torch.float32,
+                             device=device) for _ in taps)
+
+    def accumulate(acc: Tuple[torch.Tensor, ...], h: torch.Tensor,
+                   layer_idx: int) -> Tuple[torch.Tensor, ...]:
+        if layer_idx not in taps:
+            return acc
+        hf = h.float()
+        return tuple(hf if layer_idx == t else a for a, t in zip(acc, taps))
+
+    return acc0, accumulate
+
+
 class LensForwardResult(NamedTuple):
     tap: LensTap                 # stacked [L, B, T, ...]
     residual: torch.Tensor       # [B, T, D] resid_post at tap_layer (f32)

@@ -36,7 +36,10 @@ Devices:
 - ``cuda``: a miss captures (two warm-up steps on a side stream, then
   ``torch.cuda.graph`` on that stream in ``thread_local`` error mode, with
   one graph memory pool shared by every program).  A capture error raises;
-  nothing falls back to eager steps.
+  nothing falls back to eager steps.  Other threads may launch, copy and
+  allocate during a capture (a checkpoint prefetch does), but a device-wide
+  ``torch.cuda.synchronize`` from one invalidates it: such a thread waits
+  on its own stream.
 - ``cpu``: the same programs are kept and their steps run eagerly (the CPU
   path, chosen by device).
 - ``TBX_AOT=0`` turns the registry off, as in the JAX package: every launch
@@ -135,8 +138,12 @@ def static_copy(tree: Any) -> Any:
     and dtype, shared by every program whose edit has that leaf: launches
     run one at a time and each copies its own values in first
     (:func:`copy_into`), so one copy of an SAE's weights serves every
-    program that edits with it.  With the registry off a launch's program
-    is its own, so the tree passes through."""
+    program that edits with it.  A leaf that exists already takes
+    ``tree``'s values here too: a new program's capture steps it before
+    the launch copies anything in, and the values another launch left
+    there may not fit this one (latent ids of a wider SAE index past a
+    narrower one's rows).  With the registry off a launch's program is its
+    own, so the tree passes through."""
     if not enabled():
         return tree
 
@@ -155,6 +162,8 @@ def static_copy(tree: Any) -> Any:
             leaf = _EDIT_LEAVES.get(key)
             if leaf is None:
                 leaf = _EDIT_LEAVES[key] = x.clone()
+            elif leaf.data_ptr() != x.data_ptr():
+                leaf.copy_(x)
             return leaf
 
     return walk(tree, "")

@@ -203,7 +203,9 @@ class CheckpointManager:
     def prefetch(self, word: str) -> None:
         """Start loading ``word`` on a host thread.  Errors surface at
         :meth:`load`, where a transient one is retried; a finished errored
-        prefetch that nobody loaded is re-armed by the next prefetch."""
+        prefetch that nobody loaded is re-armed by the next prefetch.  The
+        load runs beside the caller's decode-graph captures, so it never
+        synchronizes the whole device (see ``runtime.aot``)."""
         if word in self._cache:
             return
         if word in self._pending:

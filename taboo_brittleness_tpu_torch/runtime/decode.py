@@ -31,7 +31,10 @@ from taboo_brittleness_tpu_torch.models.gemma2 import (
     forward,
     unembed,
 )
-from taboo_brittleness_tpu_torch.ops.lens import residual_carry_tap
+from taboo_brittleness_tpu_torch.ops.lens import (
+    residual_carry_tap,
+    residual_multi_tap,
+)
 from taboo_brittleness_tpu_torch.runtime import chat
 
 STOP_IDS: Tuple[int, ...] = (chat.EOS_ID, chat.END_OF_TURN_ID)
@@ -44,8 +47,10 @@ class DecodeResult(NamedTuple):
     sequences: torch.Tensor       # [B, T_prompt + N]
     sequence_valid: torch.Tensor  # [B, T_prompt + N] bool
     # With capture_residual_layer: resid_post at that layer for every
-    # sequence position, f32, captured as the decode computes it.
-    residual: Optional[torch.Tensor] = None   # [B, T_prompt + N, D]
+    # sequence position, f32, captured as the decode computes it.  An int
+    # tap gives [B, T, D]; a tuple of taps (the grid's capture-once decode)
+    # gives [K, B, T, D], slot k at layer taps[k].
+    residual: Optional[torch.Tensor] = None   # [B, T_prompt + N, D] | [K, ...]
     # With return_prefill_cache: (k, v, valid) of KV columns [0, T_prompt - 1),
     # copies of their own that no later write reaches (the ΔNLL
     # continuation recomputes the last prompt column itself).
@@ -100,15 +105,22 @@ class StepBuffers:
     emitted: torch.Tensor     # [B, N] bool
     all_done: torch.Tensor    # [] bool: every row done after the last step
     stop: torch.Tensor        # [S] stop ids
-    gen_resid: Optional[torch.Tensor] = None  # [B, N, D] f32 captured residual
+    # [B, N, D] f32 captured residual, or a tuple of K of them (multi-tap)
+    gen_resid: Optional[Any] = None
     margins: Optional[torch.Tensor] = None    # [B, N + 1] f32 top-1 - top-2
 
 
 def _step_buffers(cfg: Gemma2Config, kv: Dict[str, torch.Tensor], T: int,
-                  N: int, stop_ids: Tuple[int, ...], *, capture: bool,
+                  N: int, stop_ids: Tuple[int, ...], *, capture: Any,
                   margins: bool) -> StepBuffers:
+    """``capture``: None, an int tap or a tuple of K taps (K buffers)."""
     B = kv["valid"].shape[0]
     device = kv["valid"].device
+
+    def resid() -> torch.Tensor:
+        return torch.zeros((B, N, cfg.hidden_size), dtype=torch.float32,
+                           device=device)
+
     return StepBuffers(
         cache=KVCache(k=kv["k"], v=kv["v"], valid=kv["valid"], length=T),
         tok=torch.zeros((B,), dtype=torch.long, device=device),
@@ -119,11 +131,35 @@ def _step_buffers(cfg: Gemma2Config, kv: Dict[str, torch.Tensor], T: int,
         emitted=torch.zeros((B, N), dtype=torch.bool, device=device),
         all_done=torch.zeros((), dtype=torch.bool, device=device),
         stop=torch.tensor(stop_ids, dtype=torch.long, device=device),
-        gen_resid=(torch.zeros((B, N, cfg.hidden_size), dtype=torch.float32,
-                               device=device) if capture else None),
+        gen_resid=(None if capture is None
+                   else tuple(resid() for _ in capture)
+                   if isinstance(capture, tuple) else resid()),
         margins=(torch.zeros((B, N + 1), dtype=torch.float32, device=device)
                  if margins else None),
     )
+
+
+def _carry_tap(capture: Any, B: int, T: int, D: int, device: torch.device):
+    """The forward's carry tap for ``capture`` (None, an int layer or a
+    tuple of layers)."""
+    if capture is None:
+        return None
+    if isinstance(capture, tuple):
+        return residual_multi_tap(B, T, D, capture, device=device)
+    return residual_carry_tap(B, T, D, capture, device=device)
+
+
+def normalize_capture(capture: Any) -> Any:
+    """A list or tuple of tap layers as a tuple of ints (hashable: it keys
+    the graph registry, where the int ``31`` and ``(31,)`` are two
+    programs); duplicates raise.  An int or None passes through."""
+    if isinstance(capture, (list, tuple)):
+        taps = tuple(int(x) for x in capture)
+        if len(set(taps)) != len(taps):
+            raise ValueError(f"duplicate tap layers {taps}; each grid layer "
+                             "captures exactly one slot")
+        return taps
+    return capture
 
 
 def _top2_gap(logits: torch.Tensor) -> torch.Tensor:
@@ -133,7 +169,7 @@ def _top2_gap(logits: torch.Tensor) -> torch.Tensor:
 
 def decode_step(params: Params, cfg: Gemma2Config, b: StepBuffers,
                 edit_fn: Optional[Callable], edit_params: Any,
-                capture_residual_layer: Optional[int]) -> None:
+                capture_residual_layer: Any) -> None:
     """One greedy step over ``b``, written in place: the forward of each
     row's token at column ``T + i``, the next token, the stop latch, and
     the outputs at column ``i``.  No host value, no host sync, nothing
@@ -157,9 +193,8 @@ def decode_step(params: Params, cfg: Gemma2Config, b: StepBuffers,
         attn_validity=(~b.done)[:, None],
         cache=b.cache,
         edit_fn=_bind(edit_fn, edit_params, pos),
-        carry_tap=(residual_carry_tap(B, 1, cfg.hidden_size,
-                                      capture_residual_layer, device=b.tok.device)
-                   if b.gen_resid is not None else None),
+        carry_tap=_carry_tap(capture_residual_layer, B, 1, cfg.hidden_size,
+                             b.tok.device),
         cache_positions=(i + T).expand(B),
         valid_in_place=True,
     )
@@ -171,8 +206,11 @@ def decode_step(params: Params, cfg: Gemma2Config, b: StepBuffers,
     b.tokens.index_copy_(1, i, torch.where(emitted_now, b.tok, pad)[:, None])
     b.emitted.index_copy_(1, i, emitted_now[:, None])
     if b.gen_resid is not None:
-        b.gen_resid.index_copy_(1, i, torch.where(
-            active_any, res.carry_tap, b.gen_resid.index_select(1, i)))
+        multi = isinstance(b.gen_resid, tuple)
+        for buf, tap in zip(b.gen_resid if multi else (b.gen_resid,),
+                            res.carry_tap if multi else (res.carry_tap,)):
+            buf.index_copy_(1, i, torch.where(
+                active_any, tap, buf.index_select(1, i)))
     if b.margins is not None:
         col = i + 1
         b.margins.index_copy_(1, col, torch.where(
@@ -224,7 +262,7 @@ def greedy_decode(
     edit_fn: Optional[Callable] = None,
     edit_params: Any = None,
     stop_ids: Tuple[int, ...] = STOP_IDS,
-    capture_residual_layer: Optional[int] = None,
+    capture_residual_layer: Any = None,
     return_prefill_cache: bool = False,
     return_cache: bool = False,
     return_margins: bool = False,
@@ -235,7 +273,11 @@ def greedy_decode(
     afterwards.  ``capture_residual_layer`` captures that layer's
     (post-edit) resid_post for every position as the decode computes it:
     prefill columns from the prefill's carry tap, each generated column from
-    its step (columns of steps after every row stopped stay zero).
+    its step (columns of steps after every row stopped stay zero).  A
+    list or tuple of layers captures each (``ops.lens.residual_multi_tap``)
+    into a ``[K, B, T, D]`` residual, slot k at ``taps[k]`` and bit-equal to
+    a single-tap capture there (each of its K buffers follows the same
+    rule); the tuple is a static of the program's key.
 
     ``edit_fn(h, layer_idx)`` rewrites the residual stream in the prefill
     and in every step.  With ``edit_params`` it is called as ``edit_fn(h,
@@ -265,12 +307,15 @@ def greedy_decode(
     device = prompt_ids.device
     N = max_new_tokens
     width = T + N
+    capture_residual_layer = normalize_capture(capture_residual_layer)
     capture = capture_residual_layer is not None
+    multi_tap = isinstance(capture_residual_layer, tuple)
 
     def make() -> "aot.Program":
         kv = (aot.pooled_kv if aot.enabled() else aot.fresh_kv)(
             cfg, B, width, device)
-        bufs = _step_buffers(cfg, kv, T, N, stop_ids, capture=capture,
+        bufs = _step_buffers(cfg, kv, T, N, stop_ids,
+                             capture=capture_residual_layer,
                              margins=return_margins)
         ep = aot.static_copy(edit_params)
         return aot.Program(
@@ -303,9 +348,8 @@ def greedy_decode(
         attn_validity=prompt_valid,
         cache=KVCache(k=b.cache.k, v=b.cache.v, valid=b.cache.valid, length=0),
         edit_fn=_bind(edit_fn, edit_params, prompt_positions),
-        carry_tap=(residual_carry_tap(B, T, cfg.hidden_size,
-                                      capture_residual_layer, device=device)
-                   if capture else None),
+        carry_tap=_carry_tap(capture_residual_layer, B, T, cfg.hidden_size,
+                             device),
         compute_logits=False,  # only the last column is sampled
         valid_in_place=True,
     )
@@ -317,8 +361,9 @@ def greedy_decode(
     b.tokens.fill_(chat.PAD_ID)
     b.emitted.zero_()
     b.all_done.zero_()
-    if capture:
-        b.gen_resid.zero_()
+    for buf in (b.gen_resid if multi_tap else (b.gen_resid,) if capture
+                else ()):
+        buf.zero_()
     if return_margins:
         b.margins.fill_(float("inf"))
         b.margins[:, 0] = _top2_gap(last_logits)
@@ -340,7 +385,12 @@ def greedy_decode(
                          b.cache.valid[:, :keep].clone())
 
     residual = None
-    if capture:
+    if multi_tap:
+        # [K, B, T + N, D]: each slot's prompt and generated columns, stacked
+        # (copies of the bits, so each slot equals the int form's capture).
+        residual = torch.stack([torch.cat([p, g], dim=1) for p, g in
+                                zip(prefill.carry_tap, b.gen_resid)])
+    elif capture:
         # Column T + i holds step i's input token, where `sequences` puts it.
         residual = torch.cat([prefill.carry_tap, b.gen_resid], dim=1)
     tokens = b.tokens.clone()
@@ -473,7 +523,7 @@ def generate(
     edit_params: Any = None,
     prefills: Optional[Sequence[Optional[str]]] = None,
     pad_to_multiple: Optional[int] = None,
-    capture_residual_layer: Optional[int] = None,
+    capture_residual_layer: Any = None,
     return_texts: bool = True,
     return_prefill_cache: bool = False,
     rendered: bool = False,
@@ -489,6 +539,7 @@ def generate(
     from taboo_brittleness_tpu_torch.runtime import resilience
 
     resilience.fire("decode.launch", rows=len(prompts))
+    capture_residual_layer = normalize_capture(capture_residual_layer)
     padded, valid, positions, ids = encode_prompts(
         tok, prompts, prefills=prefills, pad_to_multiple=pad_to_multiple,
         rendered=rendered)
@@ -508,7 +559,8 @@ def dispatch_decode(params: Params, cfg: Gemma2Config, padded: np.ndarray,
     :func:`greedy_decode`, or with ``TBX_SPECULATE=1``
     ``runtime.speculate.speculative_decode`` at ``resolve_plan(cfg)`` (the
     same greedy stream; a residual-capturing launch only with
-    ``TBX_SPECULATE_CAPTURE=1`` as well).  ``kw`` goes to the decoder.
+    ``TBX_SPECULATE_CAPTURE=1`` as well, and a multi-tap one never: the
+    speculative decoder captures one layer).  ``kw`` goes to the decoder.
     Either steps through its graphs in ``runtime.aot``."""
     from taboo_brittleness_tpu_torch.runtime import speculate
 
@@ -516,8 +568,9 @@ def dispatch_decode(params: Params, cfg: Gemma2Config, padded: np.ndarray,
     args = (torch.from_numpy(padded).long().to(device),
             torch.from_numpy(valid).to(device),
             torch.from_numpy(positions).long().to(device))
-    capture = kw.get("capture_residual_layer") is not None
-    if speculate.should_speculate(capture=capture):
+    capture = kw.get("capture_residual_layer")
+    if (not isinstance(capture, (list, tuple))
+            and speculate.should_speculate(capture=capture is not None)):
         plan = speculate.resolve_plan(cfg)
         result, _stats = speculate.speculative_decode(
             params, cfg, *args, draft_layer=plan.draft_layer,

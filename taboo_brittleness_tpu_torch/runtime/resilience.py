@@ -22,11 +22,12 @@ The PyTorch port's copy of the part of the JAX package's
 The ledger's file schema is the JAX package's (version 3), so either package
 resumes a sweep the other started, and a fault plan written for the JAX
 package arms the same sites here.  ``runtime.supervise`` numbers each
-relaunch in ``TBX_INCARNATION``, which a fault spec's ``incarnation``
-scope reads; the ledger still stamps incarnation 0 (its per-incarnation
-merge is not ported), and fleet workers are not ported:
-:func:`current_worker_id` reads ``TBX_WORKER_ID`` (the ``obs`` sinks and
-the serve scheduler stamp it).
+relaunch in ``TBX_INCARNATION`` (:func:`current_incarnation`): a fault
+spec's ``incarnation`` scope reads it, the ledger stamps every entry with
+it, and a resume incarnation keeps the earlier incarnations' retry
+entries.  The fleet coordinator (``runtime.fleet``) gives each worker
+``TBX_WORKER_ID`` (:func:`current_worker_id`): the ledger stamps it on
+every entry (v3), beside the ``obs`` sinks and the serve scheduler.
 """
 
 from __future__ import annotations
@@ -53,9 +54,10 @@ def current_incarnation() -> int:
         return 0
 
 
-#: A fleet worker's stable identity (set by the JAX package's fleet
-#: coordinator): the per-worker telemetry file suffixes and the ``worker``
-#: stamps of events, responses and fault-plan context read it.
+#: A fleet worker's stable identity (set by the fleet coordinator,
+#: ``runtime.fleet``): the per-worker telemetry file suffixes and the
+#: ``worker`` stamps of events, ledger entries, responses and fault-plan
+#: context read it.
 WORKER_ENV = "TBX_WORKER_ID"
 
 
@@ -300,6 +302,19 @@ FAULT_SITES = (
     #                       scenario; the retry adds attempt=1): ONE
     #                       in-place retry, then that session quarantines
     #                       and the batch lives
+    "fleet.claim",        # runtime.fleet.FleetSpool.claim, per claim
+    #                       attempt (context: uid, worker, holder); the
+    #                       worker loop retries on its next poll
+    "fleet.lease_renew",  # runtime.fleet.LeaseKeeper, per renewal: a fault
+    #                       lets the lease expire (re-issue, then a benign
+    #                       duplicate commit); `die` kills mid-renewal
+    "fleet.commit",       # runtime.fleet.run_worker, just before the
+    #                       first-writer-wins commit; `die` here is the
+    #                       worker killed mid-unit, its artifact never lands
+    "grid.cell",          # grid.runner.run_cell, once per (word, layer,
+    #                       width) cell before its readout (context: word,
+    #                       cell key, "<word>@<cell>", layer, width); rides
+    #                       the worker's run_guarded retry -> quarantine
 )
 
 _FAULT_MODES = ("fail", "delay", "truncate", "die")
@@ -494,36 +509,81 @@ class FailureLedger:
 
     A rerun loads the existing ledger and clears a word's quarantine entry
     when it finally succeeds, so the ledger describes what is missing now.
+
+    Incarnations: every entry is stamped with the ``incarnation`` that
+    recorded it (:func:`current_incarnation` unless given).  A resume
+    incarnation (``incarnation > 0``) keeps the earlier incarnations'
+    ``retried`` entries, so a supervised run's ledger attributes each retry
+    to the process that saw it; a fresh run (incarnation 0) resets them.
+
+    Workers (schema v3): a fleet worker's ledger also stamps every entry
+    with its ``worker`` (:func:`current_worker_id` unless given).  Outside
+    a worker no ``worker`` key is written.  A v2 ledger (no worker stamps)
+    loads unchanged; a resume gives its unstamped entries the prior file's
+    top-level ``worker`` when it has one (the v2 -> v3 normalization).
     """
 
     def __init__(self, output_dir: Optional[str] = None, *,
-                 path: Optional[str] = None):
+                 path: Optional[str] = None,
+                 incarnation: Optional[int] = None,
+                 worker: Optional[str] = None):
         self.path = path or (os.path.join(output_dir, LEDGER_FILENAME)
                              if output_dir else None)
+        self.incarnation = (current_incarnation() if incarnation is None
+                            else int(incarnation))
+        self.worker = current_worker_id() if worker is None else worker
         self.quarantined: Dict[str, Dict[str, Any]] = {}
         self.retried: Dict[str, Dict[str, Any]] = {}
         if self.path and os.path.exists(self.path):
-            try:
-                with open(self.path) as f:
-                    self.quarantined = dict(json.load(f).get("quarantined", {}))
-            except (json.JSONDecodeError, UnicodeDecodeError, OSError) as exc:
-                quarantine_file(self.path, reason=f"unreadable ledger: {exc}")
+            self._load_existing(self.path)
+
+    def _stamp(self, entry: Dict[str, Any]) -> Dict[str, Any]:
+        if self.worker:
+            entry["worker"] = self.worker
+        return entry
+
+    def _load_existing(self, path: str) -> None:
+        try:
+            with open(path) as f:
+                prior = json.load(f)
+            self.quarantined = dict(prior.get("quarantined", {}))
+        except (json.JSONDecodeError, UnicodeDecodeError, OSError) as exc:
+            quarantine_file(path, reason=f"unreadable ledger: {exc}")
+            self.quarantined = {}
+            return
+        if self.incarnation <= 0:
+            return                     # a fresh run's retries start over
+        prior_inc = int(prior.get("incarnation", 0) or 0)
+        prior_worker = prior.get("worker")
+        for w, v in dict(prior.get("retried", {})).items():
+            entry = (dict(v) if isinstance(v, dict)
+                     else {"attempts": int(v), "incarnation": prior_inc})
+            if prior_worker and "worker" not in entry:
+                entry["worker"] = prior_worker
+            self.retried[w] = entry
 
     def record_retry(self, word: str, stage: str, exc: BaseException,
                      attempt: int) -> None:
-        self.retried[word] = {"attempts": attempt, "incarnation": 0}
+        self.retried[word] = self._stamp({"attempts": attempt,
+                                          "incarnation": self.incarnation})
         self.save()
 
     def record_quarantine(self, word: str, stage: str, exc: BaseException,
                           attempts: int) -> None:
-        self.quarantined[word] = {
+        entry = {
             "stage": stage,
             "attempts": attempts,
-            "incarnation": 0,
+            "incarnation": self.incarnation,
             **_describe(exc),
             # tbx: wallclock-ok — serialized epoch timestamp, not a duration
             "at": time.time(),
         }
+        # The telemetry seq current at quarantine time, so a postmortem can
+        # seek to the surrounding spans in _events.jsonl.
+        seq = _obs_last_seq()
+        if seq is not None:
+            entry["event_seq"] = seq
+        self.quarantined[word] = self._stamp(entry)
         self.save()
 
     def record_success(self, word: str) -> None:
@@ -541,7 +601,8 @@ class FailureLedger:
     def to_dict(self) -> Dict[str, Any]:
         return {
             "version": 3,
-            "incarnation": 0,
+            "incarnation": self.incarnation,
+            **({"worker": self.worker} if self.worker else {}),
             "quarantined": self.quarantined,
             "retried": self.retried,
         }
@@ -549,6 +610,29 @@ class FailureLedger:
     def save(self) -> None:
         if self.path:
             atomic_json_dump(self.to_dict(), self.path)
+
+
+def _obs_last_seq() -> Optional[int]:
+    try:
+        from taboo_brittleness_tpu_torch import obs
+
+        return obs.last_seq()
+    except Exception:  # noqa: BLE001 — fail-open
+        return None
+
+
+def _flightrec(kind: str, *, dump: bool = False, **attrs: Any) -> None:
+    """Record into the crash flight recorder (and with ``dump`` freeze its
+    ring to ``_flightrec[.<wid>].json``); fail-open."""
+    try:
+        from taboo_brittleness_tpu_torch.obs import flightrec
+
+        flightrec.record(kind, **attrs)
+        if dump:
+            flightrec.dump("quarantine", word=attrs.get("word"),
+                           stage=attrs.get("stage"))
+    except Exception:  # noqa: BLE001 — telemetry never takes down a run
+        pass
 
 
 @dataclasses.dataclass
@@ -581,11 +665,14 @@ def run_guarded(
     a thunk so the caller can report which sub-stage was active when the
     last attempt died."""
     attempts = {"n": 1}
+    _flightrec("word.attempt", word=word, stage=stage())
 
     def on_retry(exc: BaseException, attempt: int, delay: float) -> None:
         attempts["n"] = attempt + 1
         if ledger is not None:
             ledger.record_retry(word, stage(), exc, attempt)
+        _flightrec("word.retry", word=word, stage=stage(), attempt=attempt,
+                   error=f"{type(exc).__name__}: {exc}"[:200])
         _log.warning("%s: attempt %d failed at %s (%s: %s); retrying in %.2fs",
                      word, attempt, stage(), type(exc).__name__, exc, delay)
 
@@ -595,6 +682,10 @@ def run_guarded(
     except Exception as exc:  # noqa: BLE001 — quarantine, don't crash the sweep
         if ledger is not None:
             ledger.record_quarantine(word, stage(), exc, attempts["n"])
+        # The postmortem trigger: the ring of recent records freezes to disk.
+        _flightrec("word.quarantine", dump=True, word=word, stage=stage(),
+                   attempts=attempts["n"],
+                   error=f"{type(exc).__name__}: {exc}"[:200])
         _log.warning("%s: quarantined at %s after %d attempt(s) (%s: %s)",
                      word, stage(), attempts["n"], type(exc).__name__, exc)
         return WordOutcome(word=word, error=exc, attempts=attempts["n"],

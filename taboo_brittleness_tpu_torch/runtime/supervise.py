@@ -44,7 +44,7 @@ Artifacts merge across incarnations so the directory reads as one run:
 the event sink resumes its ``seq`` from the file tail (``obs.trace``), and
 the supervisor writes ``_supervise.json`` (incarnation history) and folds
 an ``incarnations`` block into a ``run_manifest.json`` when one exists
-(the port writes none yet, so that fold finds nothing).
+(``runtime.manifest``: the ``fleet`` and ``grid`` commands write one).
 
 Env knobs (all overridable per call):
 
