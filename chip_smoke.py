@@ -118,8 +118,9 @@ the kernels are built for sm_90a).  Phases, each of which fails the run:
    study, eager and graphed, tokens, residual and ΔNLL compared;
    ``run_intervention_study`` with ``TBX_FUSED=1`` against ``TBX_FUSED=0``
    (JSON identical), then ``warm_start_study`` and the study again (zero
-   misses), then the studies driver over two words with and without its
-   cross-word pre-dispatch (timed); graphed decodes of two words of equal
+   misses), then the studies driver over two words at half the study's
+   depth (budgets 1, 2, 4; ranks 1, 2) with and without its cross-word
+   pre-dispatch (timed); graphed decodes of two words of equal
    shapes, each against its own eager decode (the second must not
    reproduce the first's tokens); speculation at G = 3 graphed against
    eager (tokens equal).  Graphed results are held bit-equal to eager.
@@ -208,6 +209,42 @@ the kernels are built for sm_90a).  Phases, each of which fails the run:
    killed at its first commit) and ``attack-search`` (twice, the same
    file) processes on the card's default device with the tiny synthetic
    stack (13d).  The phase's seconds and peak memory are printed.
+14. the replica fleet and the HTTP gateway, after phase 13's programs are
+   dropped: a fresh 8-slot ``ServeEngine`` at phase 11's envelope on phase
+   6's params and phase 7's SAE, warm-started, first serves
+   ``loadgen.run_inprocess``'s 32 requests (seed 0, 50/s, the five
+   scenarios, 24 tokens, concurrency 8) as the reference, then serves them
+   again through ``serve_forever(replica=True)`` in this process (worker
+   r0, 5 s leases) behind a ``gateway`` process (port 0, no card) with
+   ``loadgen.run_socket``; a thread runs ``serve.replica.FleetCoordinator``
+   rounds (routing, lease-expiry scan) until every request is answered.
+   Held: 32/32 over HTTP, each stream's SSE token events equal to its
+   response's tokens, tokens equal to the reference run's under phase 9's
+   margin rule (a diverging request's margins read from an eager engine),
+   chat_lens probabilities within SERVE_PROB_RTOL, zero lease expiries
+   (the largest renewal gap printed), no registry miss in
+   ``_serve.r0.json``, a client that disconnects after its first token
+   answered ``canceled`` and the next request into the freed slot equal to
+   the reference's chat tokens, a 1 ms deadline answered
+   ``deadline-exceeded``, and in a window of replica steps after the load,
+   profiled, one ``lens_wgmma_kernel`` per step counted by name in the
+   graph replays; latency and TTFT over HTTP beside the reference's,
+   tokens/s, step ms and the split of each slot's idle gap between requests
+   (gateway, coordinator round, claim, step boundary; from r0's events and
+   the client's clock) printed.  A second replica run at concurrency 16,
+   above the 8 slots: the gateway's 429s typed ``fleet-saturated`` and
+   counted as rejected by the client and the gateway alike, the
+   coordinator's sheds typed, every acknowledged request answered (14a).
+   Then
+   the processes on the tiny synthetic stack, replicas on the card's
+   default device: ``serve-fleet --replicas 2`` with replica w1 killed at
+   its first ``serve.respond`` (every request answered once, the lease
+   expiry and re-spool, ``tools/trace_report.py --check`` green on the
+   merged events), ``top --once`` and ``trace --slowest 5`` over its
+   directory; a gateway in front of a second fleet answering 503 to a
+   request read after its drain latched and exiting 75 on SIGTERM, that
+   fleet SIGTERMed on the coordinator's PID (exit 75) and rerun to
+   ``done`` (14b).  The phase's seconds and peak memory are printed.
 
 The card's name and power limit are printed again just before the
 ``{"kernels": [...]}`` line, which is the line before the last: one entry
@@ -219,7 +256,10 @@ wgmma route, the serving readout's ``serve_*`` times and
 serve step, and the speculative verify readout's ``spec_verify_*`` times,
 ``spec_step_ms`` and ``spec_verify_launches_per_step``, and the attack
 search's readout: ``search_readout_*`` times, ``search_steps`` (engine
-steps of 13c's graphed search) and ``search_readouts_per_step``); the last line
+steps of 13c's graphed search) and ``search_readouts_per_step``, and 14a's
+replica: ``replica_readouts`` (the readout kernels the profiler counted
+over its window), ``replica_steps`` (the window's steps) and
+``replica_step_ms``); the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
 checkout, it exits non-zero and prints no result.
 """
@@ -2072,6 +2112,13 @@ def _held_equal(what: str, got: dict, want: dict, fields=("tokens",)) -> None:
                  "their tokens do")
 
 
+def _device_kernels(prof) -> list:
+    """The kernel events a finished ``torch.profiler`` run saw on the card
+    (graph replays' kernels included)."""
+    return [e for e in prof.events()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")]
+
+
 def _profile_step(torch, step) -> dict:
     """One call of ``step`` under ``torch.profiler``: kernels launched (and
     of them the lens kernel's wgmma route, by its name), host ms (enqueue), device ms (kernel time, summed) and the device time
@@ -2086,8 +2133,7 @@ def _profile_step(torch, step) -> dict:
         step()
         host = time.perf_counter() - t0
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events()
-               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    kernels = _device_kernels(prof)
     readouts = sum("lens_wgmma_kernel" in e.name for e in kernels)
     device_us = sum(e.time_range.elapsed_us() for e in kernels)
     by_op = {}
@@ -2286,8 +2332,8 @@ def check_fused_and_warm_start(torch, ctx: tuple, sae, word: str) -> None:
     """10.4: ``run_intervention_study`` with ``TBX_FUSED=1`` (launches
     counted) against ``TBX_FUSED=0`` (JSON identical), then
     ``warm_start_study`` and the study: zero misses.  Then the studies
-    driver over two words of one model with its cross-word pre-dispatch
-    off and on (timed, not held)."""
+    driver over two words of one model, at half the study's depth, with
+    its cross-word pre-dispatch off and on (timed, not held)."""
     from taboo_brittleness_tpu_torch.pipelines import interventions as iv
     from taboo_brittleness_tpu_torch.pipelines import word_sweep
     from taboo_brittleness_tpu_torch.runtime import aot, fused
@@ -2323,6 +2369,13 @@ def check_fused_and_warm_start(torch, ctx: tuple, sae, word: str) -> None:
     if after["misses"] != 0 or rec["captures"] != len(rec["programs"]):
         fail("the study missed programs the warm start should have made")
 
+    # The driver runs at half the study's depth (budgets 1, 2, 4 and ranks
+    # 1, 2: one 330-row and one 220-row arm launch, shapes the warm start
+    # captured), which keeps the command inside its time.
+    import dataclasses
+
+    half = dataclasses.replace(config, intervention=dataclasses.replace(
+        config.intervention, budgets=(1, 2, 4), ranks=(1, 2)))
     seconds = {}
     for ahead in ("off", "on"):
         if ahead == "off":      # no next word: nothing is pre-dispatched
@@ -2330,14 +2383,14 @@ def check_fused_and_warm_start(torch, ctx: tuple, sae, word: str) -> None:
         try:
             with tempfile.TemporaryDirectory(prefix="studies_") as out:
                 (_, sec) = _synced(torch, lambda: iv.run_intervention_studies(
-                    config, model_loader=lambda w: (params, cfg, tok), sae=sae,
+                    half, model_loader=lambda w: (params, cfg, tok), sae=sae,
                     words=[word, "ship"], output_dir=out))
         finally:
             iv.next_pending = word_sweep.next_pending
         seconds.setdefault(ahead, []).append(sec)
-    log(f"  studies driver over two words ({word}, ship; one model): "
-        f"{seconds['off'][0]:.3f} s without the pre-dispatch of ship's "
-        f"baseline, {seconds['on'][0]:.3f} s with it")
+    log(f"  studies driver over two words ({word}, ship; one model; 55 "
+        f"arms a word): {seconds['off'][0]:.3f} s without the pre-dispatch "
+        f"of ship's baseline, {seconds['on'][0]:.3f} s with it")
 
 
 def check_params_identity(torch, ctx: tuple) -> None:
@@ -2951,11 +3004,12 @@ def _spec_sessions(engine, admits):
     return toks, lens, accepted, steps
 
 
-def _vanilla_with_margins(torch, ctx, sae, ids, n_new, tgt):
-    """The vanilla ``ServeEngine``, stepping eagerly (bit-equal to its graph,
-    11b), over the same sessions, with each emitted token's top-1/top-2
-    logit gap read from the step's own logits (``serve.engine.unembed``
-    wrapped).  Returns ({slot: tokens}, {slot: gaps})."""
+@contextlib.contextmanager
+def _margin_engine(ctx, sae):
+    """A phase-11-style ``ServeEngine`` stepping eagerly (bit-equal to its
+    graph, 11b) with ``serve.engine.unembed`` wrapped to record each call's
+    top-1/top-2 logit gap per slot.  Yields (engine, gaps): after a step,
+    ``gaps[-1]`` holds that step's gaps."""
     from taboo_brittleness_tpu_torch.serve import engine as engine_mod
 
     params, cfg, tok, config = ctx[:4]
@@ -2971,20 +3025,28 @@ def _vanilla_with_margins(torch, ctx, sae, ids, n_new, tgt):
         engine = engine_mod.ServeEngine(
             params, cfg, tok, sae=sae,
             engine_config=_serve_config(config.model.layer_idx))
+        engine_mod.unembed = recording
+        try:
+            yield engine, gaps
+        finally:
+            engine_mod.unembed = real
+
+
+def _vanilla_with_margins(torch, ctx, sae, ids, n_new, tgt):
+    """The vanilla ``ServeEngine`` of ``_margin_engine`` over the same
+    sessions, with each emitted token's top-1/top-2 logit gap read from the
+    step's own logits.  Returns ({slot: tokens}, {slot: gaps})."""
+    with _margin_engine(ctx, sae) as (engine, gaps):
         for s, row in enumerate(ids):
             engine.admit(s, row, max_new=n_new, lens_target=tgt)
         toks = {s: [] for s in range(len(ids))}
         margins = {s: [] for s in range(len(ids))}
-        engine_mod.unembed = recording
-        try:
-            while engine.any_alive():
-                out = engine.step()
-                for s in toks:
-                    if out.emitted[s]:
-                        toks[s].append(int(out.tok[s]))
-                        margins[s].append(float(gaps[-1][s]))
-        finally:
-            engine_mod.unembed = real
+        while engine.any_alive():
+            out = engine.step()
+            for s in toks:
+                if out.emitted[s]:
+                    toks[s].append(int(out.tok[s]))
+                    margins[s].append(float(gaps[-1][s]))
     return toks, margins
 
 
@@ -3928,6 +3990,798 @@ def drive_grid(torch, workdir: str, ctx: tuple, sae) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the replica fleet and the HTTP gateway.
+# ---------------------------------------------------------------------------
+
+# 14a's load: run_socket's schedule (phase 11d's seed 0, 50/s, the five
+# scenarios, 24 new tokens), through a gateway process, at a concurrency of
+# the replica's 8 slots for the checks against the in-process run; then a
+# second replica run at 16, above the slots, where the replica's heartbeat
+# reads full with a backlog and the fleet sheds typed fleet-saturated.
+REPLICA_REQUESTS = 32
+REPLICA_CONCURRENCY = 8
+SATURATED_REQUESTS = 48
+SATURATED_CONCURRENCY = 16
+REPLICA_LEASE_S = 5.0
+# Replica steps profiled after the load (the cancel and the requests after
+# it), each of which must launch one lens_wgmma_kernel per readout.
+READOUT_WINDOW_STEPS = 8
+FLEET_REQUESTS = 12
+# The typed shed reasons of the gateway's 429s and the coordinator's sheds.
+SHED_REASONS = {"fleet-saturated", "all-replicas-burning"}
+
+
+def _gateway_proc(out: str, env: dict):
+    """A ``gateway`` process of the port over ``out`` (port 0, CPU only);
+    returns (process, client) once it published its port."""
+    from taboo_brittleness_tpu_torch.serve.gateway import (
+        GatewayClient, wait_for_gateway)
+
+    with contextlib.suppress(OSError):
+        os.unlink(os.path.join(out, "_gateway.json"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", PACKAGE, "gateway", "--output-dir", out,
+         "--port", "0", "--poll", "0.01"],
+        cwd=REPO, env={**env, "CUDA_VISIBLE_DEVICES": ""},
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    port = wait_for_gateway(out, timeout_s=PROC_TIMEOUT_S)
+    if port is None:
+        proc.kill()
+        fail(f"the gateway never published a port: {proc.communicate()[1][-3000:]}")
+    return proc, GatewayClient(f"http://127.0.0.1:{port}",
+                               timeout=PROC_TIMEOUT_S)
+
+
+def _stop_proc(proc, want: int, what: str) -> None:
+    """SIGTERM ``proc`` (its own PID, no shell) and hold its exit code."""
+    proc.send_signal(signal.SIGTERM)
+    try:
+        _, err = proc.communicate(timeout=PROC_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        fail(f"{what} did not exit on SIGTERM")
+    if proc.returncode != want:
+        fail(f"{what} exited {proc.returncode} on SIGTERM, want {want}\n"
+             f"{(err or '')[-3000:]}")
+
+
+def _request_margins(torch, ctx, sae, tgt, payload: dict) -> tuple:
+    """One request alone through a scheduler over ``_margin_engine``'s
+    eager engine, each emitted token's margin recorded.  Returns (tokens,
+    margins)."""
+    from taboo_brittleness_tpu_torch.serve import server
+    from taboo_brittleness_tpu_torch.serve.scheduler import (
+        SlotScheduler, default_scenarios)
+
+    margins, done = [], []
+    with _margin_engine(ctx, sae) as (engine, gaps):
+        real_step = engine.step
+
+        def step():
+            out = real_step()
+            for s in np.nonzero(np.asarray(out.emitted))[0]:
+                margins.append(float(gaps[-1][s]))
+            return out
+
+        engine.step = step
+        sched = SlotScheduler(engine, lens_target_id=tgt,
+                              on_complete=done.append)
+        sched.submit(server._to_request(payload, default_scenarios()))
+        while sched.in_flight or sched.queue_depth:
+            sched.step()
+    return list(done[0].tokens), margins
+
+
+def _until_admitted(send, rid: str) -> tuple:
+    """``send(id)`` with the ids ``rid``, ``rid.1``, ``rid.2``, ... every
+    0.25 s while the fleet sheds it (``send`` returns (result, the shed's
+    reason or None): a gateway's 429 or the coordinator's ``rejected``
+    answer), as a client retries, for up to PROC_TIMEOUT_S.  Returns (the
+    admitted id, its result, the shed reasons seen)."""
+    reasons, deadline = [], time.monotonic() + PROC_TIMEOUT_S
+    for n in range(10**6):
+        rid_n = rid if n == 0 else f"{rid}.{n}"
+        result, reason = send(rid_n)
+        if reason is None:
+            return rid_n, result, reasons
+        reasons.append(reason)
+        if time.monotonic() > deadline:     # on the load's thread: raise
+            raise RuntimeError(f"{rid} shed until the deadline: {reasons[-5:]}")
+        time.sleep(0.25)
+
+
+@contextlib.contextmanager
+def _client_clock():
+    """Wrap the gateway client's ``open_stream`` and ``iter_sse`` (names
+    ``loadgen.run_socket`` and ``GatewayClient.generate`` look up at each
+    call) to record per request id the epoch seconds of its send, of its
+    HTTP status (the gateway's durable ack), of its first SSE token and of
+    its ``done``, and its SSE token count.  Yields {id: record}."""
+    from taboo_brittleness_tpu_torch.serve import gateway as gw
+
+    clock, by_resp = {}, {}
+    real_open, real_iter = gw.GatewayClient.open_stream, gw.iter_sse
+
+    def open_stream(self, payload, **kw):
+        rec = clock.setdefault(str(payload.get("id")), {"tokens": 0})
+        rec["send"] = time.time()
+        conn, status, resp = real_open(self, payload, **kw)
+        rec["ack"] = time.time()
+        by_resp[id(resp)] = rec
+        return conn, status, resp
+
+    def iter_sse(resp):
+        rec = by_resp.get(id(resp), {"tokens": 0})
+        for event, data in real_iter(resp):
+            if event == "token":
+                rec["tokens"] += 1
+                rec.setdefault("first", time.time())
+            elif event == "done":
+                rec["done"] = time.time()
+            yield event, data
+
+    gw.GatewayClient.open_stream, gw.iter_sse = open_stream, iter_sse
+    try:
+        yield clock
+    finally:
+        gw.GatewayClient.open_stream, gw.iter_sse = real_open, real_iter
+
+
+def _host_replica(engine, out: str, tgt: int, drive) -> tuple:
+    """Serve ``engine`` as replica r0 of a fleet spool at ``out`` in this
+    process (``serve_forever(replica=True)``, 5 s leases) behind a
+    ``gateway`` process, while one thread runs ``drive(client)`` once r0's
+    heartbeat is live and another runs ``FleetCoordinator.round`` (routing,
+    the lease-expiry scan; its events go to r0's stream) until ``drive``
+    returned and every admitted request is answered.  Returns (serve
+    result, coordinator, spool, drive's result, the gateway's last
+    heartbeat)."""
+    from taboo_brittleness_tpu_torch.serve import replica, server
+    from taboo_brittleness_tpu_torch.serve.scheduler import default_scenarios
+
+    spool = server.RequestSpool(out, fleet=True)
+    gw, client = _gateway_proc(out, _proc_env())
+    router = replica.BurnRouter(out, ["r0"], seed=0)
+    coord = replica.FleetCoordinator(spool, router, lease_s=REPLICA_LEASE_S)
+    state = {"errors": [], "result": None, "done": False}
+
+    def load():
+        try:
+            deadline = time.monotonic() + PROC_TIMEOUT_S
+            while (time.monotonic() < deadline
+                   and not router.any_alive(router.view())):
+                time.sleep(0.05)
+            state["result"] = drive(client)
+        except Exception as exc:  # noqa: BLE001 — reported by the checks
+            state["errors"].append(f"{type(exc).__name__}: {exc}")
+        finally:
+            state["done"] = True
+
+    def coordinate():
+        try:
+            while not (state["done"] and (state["errors"] or not (
+                    spool.intake_ids() or coord.unanswered()))):
+                coord.round()
+                time.sleep(0.02)
+        except Exception as exc:  # noqa: BLE001 — reported by the checks
+            state["errors"].append(f"coordinator {type(exc).__name__}: {exc}")
+        finally:
+            spool.write_stop()
+
+    prev_wid = os.environ.get("TBX_WORKER_ID")
+    os.environ["TBX_WORKER_ID"] = "r0"
+    threads = [threading.Thread(target=load, daemon=True),
+               threading.Thread(target=coordinate, daemon=True)]
+    try:
+        for t in threads:
+            t.start()
+        res = server.serve_forever(engine, default_scenarios(), out,
+                                   lens_target_id=tgt, replica=True,
+                                   lease_s=REPLICA_LEASE_S, poll_s=0.005)
+    finally:
+        if prev_wid is None:
+            os.environ.pop("TBX_WORKER_ID", None)
+        else:
+            os.environ["TBX_WORKER_ID"] = prev_wid
+        for t in threads:
+            t.join(timeout=PROC_TIMEOUT_S)
+        _stop_proc(gw, 75, f"the gateway over {out}")
+    if state["errors"]:
+        fail(f"14a load over {out}: {state['errors']}")
+    with open(os.path.join(out, "_gateway.json")) as f:
+        gw_stats = json.load(f)
+    return res, coord, spool, state["result"], gw_stats
+
+
+def _slot_idle_split(out: str, clock: dict, slots: int, ids) -> dict:
+    """From r0's events (``_events.r0.jsonl``; the coordinator's
+    ``serve_fleet.route``, the replica's ``serve.claim``, ``serve.admit``
+    and ``serve.complete``, each at the run span's epoch anchor plus its
+    offset) and the client's ``clock``: every slot's gap from a
+    ``serve.complete`` to the next ``serve.admit`` into that slot, split in
+    order into the wait for the gateway's ack of the next request (the
+    response's way back to its client, the next send, the durable put), the
+    coordinator's route, the replica's claim and the wait for a step
+    boundary.  Only the requests ``ids`` count (the load's, not the ones
+    sent after it).  Returns seconds summed over the gaps by part, the
+    gaps' count, and the busy and idle slot-seconds between their first
+    admit and their last complete."""
+    from taboo_brittleness_tpu_torch.obs.trace import iter_events
+
+    events = list(iter_events(os.path.join(out, "_events.r0.jsonl")))
+    run = next(e for e in events if e.get("kind") == "run" and "wall" in e)
+    base = run["wall"] - run["t"]
+    firsts, admits, completes = {}, {}, {}
+    for e in events:
+        a, name = e.get("attrs") or {}, e.get("name")
+        at = base + e["t"]
+        if name in ("serve_fleet.route", "serve.claim"):
+            firsts.setdefault((name, a.get("request")), at)
+        elif (name in ("serve.admit", "serve.complete") and "slot" in a
+              and a.get("request") in ids):
+            book = admits if name == "serve.admit" else completes
+            book.setdefault(a["slot"], []).append((at, a.get("request")))
+    parts = dict.fromkeys(("gateway", "coordinator", "claim", "step"), 0.0)
+    gaps, busy, first, last = 0, 0.0, float("inf"), 0.0
+    for slot, ins in admits.items():
+        ins.sort()
+        outs = sorted(completes.get(slot, []))
+        for (ta, _), (tc, _) in zip(ins, outs):
+            busy += tc - ta
+            first, last = min(first, ta), max(last, tc)
+        for tc, _ in outs:
+            nxt = next(((ta, rid) for ta, rid in ins if ta >= tc), None)
+            if nxt is None:
+                continue
+            ta, rid = nxt
+            t = tc
+            for part, mark in (
+                    ("gateway", clock.get(rid, {}).get("ack")),
+                    ("coordinator", firsts.get(("serve_fleet.route", rid))),
+                    ("claim", firsts.get(("serve.claim", rid)))):
+                t2 = min(ta, max(t, mark if mark is not None else t))
+                parts[part] += t2 - t
+                t = t2
+            parts["step"] += ta - t
+            gaps += 1
+    span = max(0.0, last - first) * slots
+    return {"parts": parts, "gaps": gaps, "busy": busy,
+            "idle": max(0.0, span - busy)}
+
+
+def check_replica_gateway(torch, workdir: str, ctx: tuple, sae) -> dict:
+    """14a (see the module docstring).  Returns the replica readout's
+    launches over its profiled window, the window's steps and the step
+    time for the kernels line."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from taboo_brittleness_tpu_torch.runtime import aot
+    from taboo_brittleness_tpu_torch.runtime.tokenizer import target_token_id
+    from taboo_brittleness_tpu_torch.serve import gateway as gateway_mod
+    from taboo_brittleness_tpu_torch.serve import loadgen
+    from taboo_brittleness_tpu_torch.serve.engine import ServeEngine
+    from taboo_brittleness_tpu_torch.serve.scheduler import default_scenarios
+
+    params, cfg, tok, config = ctx[:4]
+    tgt = target_token_id(tok, ctx[5])
+    mix = {name: 1.0 for name in SERVE_MIX}
+    engine = ServeEngine(params, cfg, tok, sae=sae,
+                         engine_config=_serve_config(config.model.layer_idx))
+    rec = engine.warm_start()
+
+    # The reference: the same schedule in process on this engine.
+    want = {}
+    ref_steps0 = engine.steps
+    inproc = loadgen.run_inprocess(
+        engine, n_requests=REPLICA_REQUESTS, seed=0, rate=50.0,
+        concurrency=REPLICA_CONCURRENCY, mix=mix, scenarios=default_scenarios(),
+        lens_target_id=tgt, on_complete=lambda r: want.setdefault(r.id, r))
+    ref_steps = engine.steps - ref_steps0
+    ref_tokens = sum(len(r.tokens) for r in want.values())
+    log(f"  reference in process (warm start {rec.get('source')}, "
+        f"{rec.get('seconds')} s): {ref_steps} engine steps, {ref_tokens} "
+        f"tokens ({ref_tokens / max(1, ref_steps):.2f} per step of "
+        f"{SERVE_SLOTS} slots) in {inproc['wall_seconds']} s = "
+        f"{ref_tokens / inproc['wall_seconds']:.3f} tokens/s; goodput "
+        f"{inproc['goodput']}; overall p50 "
+        f"{inproc['overall']['p50_s']:.3f} s p99 {inproc['overall']['p99_s']:.3f} s"
+        f", TTFT p50 {inproc['overall_ttft']['p50_s']:.3f} s p99 "
+        f"{inproc['overall_ttft']['p99_s']:.3f} s")
+
+    # Steps are timed on the host; after the load, READOUT_WINDOW_STEPS of
+    # them run under torch.profiler, which counts the readout kernels by
+    # name inside the graph replays.
+    step_ms = []
+    win = {"armed": False, "prof": None, "steps": 0, "closed": False}
+    real_step = engine.step
+
+    def step():
+        if win["armed"] and win["prof"] is None:
+            win["prof"] = profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA])
+            win["prof"].__enter__()
+        inside = win["prof"] is not None and not win["closed"]
+        t = time.perf_counter()
+        res = real_step()
+        if not inside:
+            step_ms.append(1e3 * (time.perf_counter() - t))
+        else:
+            win["steps"] += 1
+            if win["steps"] == READOUT_WINDOW_STEPS:
+                win["prof"].__exit__(None, None, None)
+                win["closed"] = True
+        return res
+
+    def drive(client):
+        url = f"http://{client.host}:{client.port}"
+        report = loadgen.run_socket(
+            url, n_requests=REPLICA_REQUESTS, seed=0, rate=50.0,
+            concurrency=REPLICA_CONCURRENCY, mix=mix,
+            timeout_s=PROC_TIMEOUT_S)
+        win["armed"] = True
+        hint = {"prompt": "Give me a hint", "scenario": "chat"}
+
+        def disconnect(rid):
+            # A client that disconnects after its first token.
+            conn, status, resp = client.open_stream({**hint, "id": rid,
+                                                     "seed": 1})
+            first = done = None
+            try:
+                if status == 429:
+                    return None, json.loads(resp.read()).get("error")
+                for event, data in gateway_mod.iter_sse(resp):
+                    if event == "token":
+                        first = data
+                        break
+                    if event == "done":
+                        done = data
+                        break
+            finally:
+                gateway_mod.close_stream(conn, resp)
+            if done and done.get("finish") == "rejected":
+                return None, done.get("reject_reason")
+            return (status, first), None
+
+        def generate(payload, **kw):
+            def send(rid):
+                res = client.generate({**payload, "id": rid}, **kw)
+                if res["status"] == 429:
+                    return res, res["reject"].get("error")
+                if res["done"] and res["done"].get("finish") == "rejected":
+                    return res, res["done"].get("reject_reason")
+                return res, None
+            return send
+
+        cancel = _until_admitted(disconnect, "x-cancel")
+        # The next request into the slot the cancel freed.
+        after = _until_admitted(generate({**hint, "seed": 2}), "x-after")
+        late = _until_admitted(generate(hint, deadline_ms=1), "x-late")
+        return report, cancel, after, late
+
+    out = os.path.join(workdir, "replica")
+    engine.step = step
+    serve_steps0 = engine.steps
+    t0 = time.perf_counter()
+    try:
+        with _client_clock() as clock:
+            res, coord, spool, drove, _ = _host_replica(engine, out, tgt,
+                                                        drive)
+    finally:
+        engine.step = real_step
+        if win["prof"] is not None and not win["closed"]:
+            win["prof"].__exit__(None, None, None)
+            win["closed"] = True
+    serve_s = time.perf_counter() - t0
+    serve_steps = engine.steps - serve_steps0
+    report, cancel, after, late = drove
+    (cancel_id, (cancel_status, first), _), after_id = cancel, after[0]
+    sheds = cancel[2] + after[2] + late[2]
+    after, late = after[1], late[1]
+    good = report["goodput"]
+    got = {rid: spool.get_response(rid) for rid in want}
+    missing = sorted(r for r, v in got.items() if v is None)
+    with open(os.path.join(out, "_serve.r0.json")) as f:
+        summary = json.load(f)
+
+    tokens = sum(len(v["tokens"]) for v in got.values() if v)
+    off = sorted(rid for rid in want
+                 if clock.get(rid, {}).get("tokens") != len(got[rid]["tokens"]))
+    log(f"  serve --replica in process behind a gateway: exit {res.exit_code} "
+        f"({res.status}) after {serve_s:.2f} s, {serve_steps} engine steps, "
+        f"step {np.mean(step_ms):.3f} ms mean, {np.median(step_ms):.3f} ms "
+        f"median over the {len(step_ms)} steps outside the profiled window "
+        f"(host, pull included); goodput over HTTP {good}; "
+        f"{tokens} tokens in {report['wall_seconds']} s = "
+        f"{tokens / report['wall_seconds']:.3f} tokens/s "
+        f"({tokens / max(1, serve_steps):.2f} per step: the load's "
+        f"tokens over every step, the three later requests' too); lease "
+        f"expiries "
+        f"{coord.lease_expiries}, largest renewal gap "
+        f"{res.lease_max_gap_s:.3f} s (lease {REPLICA_LEASE_S} s, renewed "
+        f"every {REPLICA_LEASE_S / 3:.3f} s); _serve.r0.json aot "
+        f"{summary['aot']}")
+    log(f"  latency over HTTP: p50 {report['overall']['p50_s']:.3f} s p99 "
+        f"{report['overall']['p99_s']:.3f} s, TTFT p50 "
+        f"{report['overall_ttft']['p50_s']:.3f} s p99 "
+        f"{report['overall_ttft']['p99_s']:.3f} s, TTFB p99 "
+        f"{report['socket']['ttfb']['p99_s']:.4f} s; in process: p50 "
+        f"{inproc['overall']['p50_s']:.3f} s p99 {inproc['overall']['p99_s']:.3f}"
+        f" s, TTFT p50 {inproc['overall_ttft']['p50_s']:.3f} s p99 "
+        f"{inproc['overall_ttft']['p99_s']:.3f} s")
+    log(f"serve_latency_socket {json.dumps(report)}")
+    split = _slot_idle_split(out, clock, SERVE_SLOTS, set(want))
+    n = max(1, split["gaps"])
+    total = sum(split["parts"].values())
+    log(f"  slot idle over the load's {len(want)} requests (r0's events and "
+        f"the client's clock): "
+        f"{split['idle']:.3f} of {split['idle'] + split['busy']:.3f} "
+        f"slot-seconds idle "
+        f"({split['idle'] / max(1e-9, split['idle'] + split['busy']):.1%}); "
+        f"{split['gaps']} gaps from a complete to the slot's next admit, "
+        f"{1e3 * total / n:.2f} ms mean: "
+        + ", ".join(f"{part} {1e3 * s / n:.2f} ms ({s / max(1e-9, total):.0%})"
+                    for part, s in split["parts"].items())
+        + " (gateway: the response's way back to its client, the next send "
+        "and the durable put; coordinator: ack to route; claim: route to "
+        "claim; step: claim to the admitting step)")
+    if res.exit_code != 0 or missing or not (
+            good["completed"] == good["admitted"] == REPLICA_REQUESTS):
+        fail(f"14a: exit {res.exit_code}, unanswered {missing}, goodput {good}")
+    if coord.lease_expiries or summary["aot"].get("misses"):
+        fail(f"14a: lease expiries {coord.lease_expiries}, aot {summary['aot']}")
+    if summary.get("duplicate_responses"):
+        fail(f"14a: duplicate responses {summary['duplicate_responses']}")
+    log(f"  SSE token events equal to the response's tokens on "
+        f"{len(want) - len(off)}/{len(want)} streams")
+    if off:
+        fail(f"14a: SSE token counts differ from the responses on {off}: "
+             f"{[(r, clock.get(r, {}).get('tokens'), len(got[r]['tokens'])) for r in off]}")
+
+    # Tokens against the in-process run, under phase 9's margin rule; the
+    # chat_lens probabilities within SERVE_PROB_RTOL.
+    diverged, worst_rel = [], 0.0
+    for rid, w in sorted(want.items()):
+        g = got[rid]
+        if g["tokens"] != list(w.tokens):
+            diverged.append(rid)
+        if w.lens_probs is not None:
+            a = np.asarray(g["lens_probs"], np.float64)
+            b = np.asarray(w.lens_probs, np.float64)
+            if a.shape != b.shape:
+                fail(f"14a {rid}: lens probs shape {a.shape} vs {b.shape}")
+            worst_rel = max(worst_rel, float((np.abs(a - b) / b).max()))
+    for rid in diverged:
+        payload = {"id": rid, "prompt": "Give me a hint",
+                   "scenario": want[rid].scenario,
+                   "seed": int(rid[1:5])}
+        ref, margins = _request_margins(torch, ctx, sae, tgt, payload)
+        g = got[rid]["tokens"]
+        first_d = next((i for i, (a, b) in enumerate(zip(g, ref)) if a != b),
+                       min(len(g), len(ref)))
+        margin = margins[first_d] if first_d < len(margins) else float("inf")
+        log(f"  {rid}: first differs at token {first_d} (reference margin "
+            f"{margin:.4f})")
+        if not margin < SPEC_MARGIN:
+            fail(f"14a {rid} diverges from the in-process run at a margin "
+                 f">= {SPEC_MARGIN}")
+    log(f"  tokens equal to the in-process run on "
+        f"{len(want) - len(diverged)}/{len(want)} requests; chat_lens "
+        f"probabilities max relative diff {worst_rel:.3e} "
+        f"(rtol {SERVE_PROB_RTOL})")
+    if worst_rel > SERVE_PROB_RTOL:
+        fail(f"14a chat_lens probabilities differ by {worst_rel:.3e}")
+
+    canceled = spool.get_response(cancel_id)
+    chat_ref = next(w for w in want.values() if w.scenario == "chat")
+    log(f"  the three requests after the load were shed {len(sheds)} times "
+        f"before admission ({sorted(set(sheds))}; a cancel is a "
+        f"non-completion in the goodput SLO's window, so the fleet may shed "
+        f"until the window rolls); admitted as {cancel_id}, {after_id}, "
+        f"{late['done'] and late['done']['id']}")
+    if not set(sheds) <= SHED_REASONS:
+        fail(f"14a: untyped sheds {sheds}")
+    log(f"  disconnect after the first token ({cancel_status}, {first}): "
+        f"finish {canceled and canceled['finish']}; the next request into "
+        f"the freed slot: HTTP {after['status']}, {len(after['tokens'])} SSE "
+        f"tokens, finish {after['done'] and after['done']['finish']}, tokens "
+        f"equal to the in-process chat run: "
+        f"{after['done'] and after['done']['tokens'] == list(chat_ref.tokens)}; "
+        f"1 ms deadline: finish {late['done'] and late['done']['finish']}")
+    if not canceled or canceled["finish"] != "canceled" or first is None:
+        fail(f"14a: the disconnected request was answered {canceled}")
+    if (after["status"] != 200 or not after["done"]["ok"]
+            or [t["tok"] for t in after["tokens"]] != after["done"]["tokens"]):
+        fail(f"14a: the request after the cancel: {after}")
+    if after["done"]["tokens"] != list(chat_ref.tokens):
+        ref, margins = _request_margins(torch, ctx, sae, tgt, {
+            "id": after_id, "prompt": "Give me a hint", "scenario": "chat"})
+        g = after["done"]["tokens"]
+        first_d = next((i for i, (a, b) in enumerate(zip(g, ref)) if a != b),
+                       min(len(g), len(ref)))
+        if not (first_d < len(margins) and margins[first_d] < SPEC_MARGIN):
+            fail("14a: the request after the cancel diverges at a clear margin")
+    if late["status"] != 200 or late["done"]["finish"] != "deadline-exceeded":
+        fail(f"14a: the 1 ms deadline request: {late}")
+
+    if win["prof"] is None:
+        fail("14a: no replica step ran after the load to profile")
+    kernels = _device_kernels(win["prof"])
+    wgmma = sum("lens_wgmma_kernel" in e.name for e in kernels)
+    simple = sum("lens_tile_kernel" in e.name for e in kernels)
+    want_n = win["steps"] * engine.readouts_per_step
+    log(f"  profiled window of {win['steps']} replica steps after the load: "
+        f"{wgmma} lens_wgmma_kernel and {simple} lens_tile_kernel launches "
+        f"among {len(kernels)} kernels (readouts per step "
+        f"{engine.readouts_per_step}, counted by name in the graph replays)")
+    if simple or not win["steps"] or wgmma != want_n:
+        fail(f"14a: {wgmma} wgmma and {simple} simple readout launches over "
+             f"{win['steps']} profiled steps, want {want_n} wgmma")
+
+    check_saturated_replica(engine, workdir, tgt, mix)
+    del engine
+    aot.reset()
+    return {"replica_readouts": wgmma, "replica_steps": win["steps"],
+            "replica_step_ms": round(float(np.mean(step_ms)), 3)}
+
+
+def check_saturated_replica(engine, workdir: str, tgt: int, mix: dict) -> None:
+    """14a's second replica run: SATURATED_REQUESTS at a concurrency of 16
+    against 8 slots.  Every request is answered or shed typed: the gateway's
+    429s (``fleet-saturated`` at least once) count as rejected by reason
+    alike on the client and in the gateway's heartbeat, the coordinator's
+    sheds are typed responses, and every request the gateway acknowledged
+    is answered."""
+    from taboo_brittleness_tpu_torch.serve import loadgen
+
+    def drive(client):
+        return loadgen.run_socket(
+            f"http://{client.host}:{client.port}",
+            n_requests=SATURATED_REQUESTS, seed=0, rate=50.0,
+            concurrency=SATURATED_CONCURRENCY, mix=mix,
+            timeout_s=PROC_TIMEOUT_S)
+
+    out = os.path.join(workdir, "replica16")
+    t0 = time.perf_counter()
+    res, coord, spool, report, gw_stats = _host_replica(engine, out, tgt,
+                                                        drive)
+    good = report["goodput"]
+    reasons = report["config"]["reject_reasons"]
+    answered = [spool.get_response(rid) for rid in coord.issued]
+    shed = [r for r in answered if r and r["finish"] == "rejected"]
+    log(f"  concurrency {SATURATED_CONCURRENCY}: goodput {good}; 429s by "
+        f"reason {reasons}; the gateway's count: accepted "
+        f"{gw_stats['accepted']}, shed {gw_stats['shed']}; the "
+        f"coordinator's typed sheds {coord.shed} "
+        f"({sorted({r['reject_reason'] for r in shed})}); exit "
+        f"{res.exit_code} after {time.perf_counter() - t0:.2f} s; latency "
+        f"p50 {report['overall']['p50_s']:.3f} s p99 "
+        f"{report['overall']['p99_s']:.3f} s")
+    if (res.exit_code != 0 or not reasons.get("fleet-saturated")
+            or not set(reasons) <= SHED_REASONS
+            or gw_stats["shed"] != reasons
+            or gw_stats["accepted"] != good["admitted"]
+            or good["admitted"] + good["rejected"] != SATURATED_REQUESTS
+            or good["completed"] + coord.shed != good["admitted"]
+            or good["quarantined"] != coord.shed
+            or len(shed) != coord.shed or None in answered
+            or any(r["reject_reason"] not in SHED_REASONS for r in shed)):
+        fail(f"14a at concurrency {SATURATED_CONCURRENCY}: goodput {good}, "
+             f"429s {reasons}, gateway {gw_stats}, coordinator sheds "
+             f"{coord.shed}, unanswered "
+             f"{sum(r is None for r in answered)}, exit {res.exit_code}")
+
+
+def _fleet_argv(out: str, *extra) -> list:
+    return [sys.executable, "-m", PACKAGE, "serve-fleet", "--synthetic",
+            "--output-dir", out, "--replicas", "2", "--slots", "4",
+            "--queue-limit", "6", "--max-new-tokens", "6", "--poll", "0.02",
+            "--lease", "5", "--grace", "20", "--max-incarnations", "4",
+            "--max-wall", "600", *extra]
+
+
+def _wait_for(pred, what: str, proc=None) -> None:
+    deadline = time.monotonic() + PROC_TIMEOUT_S
+    while time.monotonic() < deadline:
+        if pred():
+            return
+        if proc is not None and proc.poll() is not None:
+            fail(f"{what}: the process exited {proc.returncode} first\n"
+                 f"{proc.communicate()[1][-4000:]}")
+        time.sleep(0.05)
+    fail(f"timed out waiting for {what}")
+
+
+def _fleet_put(spool, n: int, prefix: str, start: int = 0) -> list:
+    return [spool.put({"id": f"{prefix}{start + i:03d}",
+                       "prompt": "Give me a hint",
+                       "scenario": SERVE_MIX[i % len(SERVE_MIX)],
+                       "seed": i}) for i in range(n)]
+
+
+def check_fleet_processes(torch, workdir: str) -> None:
+    """14b (see the module docstring): the ``serve-fleet``, ``gateway``,
+    ``top`` and ``trace`` processes on the tiny synthetic stack, replicas
+    on the card's default device."""
+    import socket
+
+    from taboo_brittleness_tpu_torch.obs.progress import read_progress
+    from taboo_brittleness_tpu_torch.serve import server
+    from taboo_brittleness_tpu_torch.serve.gateway import close_stream, iter_sse
+
+    env = _proc_env()
+    env.update({"TBX_OBS_PROGRESS_S": "0.2", "TBX_SUPERVISE_BACKOFF_S": "0"})
+
+    # A replica killed at its first response commit.
+    out = os.path.join(workdir, "fleet-chaos")
+    spool = server.RequestSpool(out, fleet=True)
+    plan = {"serve.respond": [{"mode": "die", "times": 1, "match": "w1",
+                               "incarnation": 0}]}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        _fleet_argv(out, "--max-requests", str(FLEET_REQUESTS)), cwd=REPO,
+        env={**env, "TABOO_FAULT_PLAN": json.dumps(plan)},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        _wait_for(lambda: all(read_progress(
+            os.path.join(out, f"_progress.w{i}.json"),
+            missing_ok=True).get("status") == "running" for i in range(2)),
+            "both replicas' heartbeats", proc)
+        up = time.perf_counter() - t0
+        ids = _fleet_put(spool, FLEET_REQUESTS, "c")
+        stdout, stderr = proc.communicate(timeout=2 * PROC_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    dt = time.perf_counter() - t0
+    summary = {}
+    with contextlib.suppress(ValueError, IndexError):
+        summary = json.loads(stdout.strip().splitlines()[-1])
+    n_resp = sum(1 for n in os.listdir(spool.responses_dir)
+                 if n.endswith(".json"))
+    ok = sum(bool((spool.get_response(r) or {}).get("ok")) for r in ids)
+    check = subprocess.run(
+        [sys.executable, os.path.join(REPO, "tools", "trace_report.py"),
+         "--check", os.path.join(out, "_events.jsonl")],
+        capture_output=True, text=True, timeout=PROC_TIMEOUT_S)
+    log(f"  serve-fleet --synthetic --replicas 2 (w1 dies at its first "
+        f"serve.respond): exit {proc.returncode} in {dt:.1f} s (replicas up "
+        f"after {up:.1f} s), {ok}/{len(ids)} ok, {n_resp} response files, "
+        f"lease expiries {summary.get('lease_expiries')}, respooled "
+        f"{summary.get('respooled')}, duplicate_responses "
+        f"{summary.get('duplicate_responses')}, recovery_seconds "
+        f"{summary.get('recovery_seconds')}, incarnations "
+        f"{[(r['worker_id'], r['incarnations']) for r in summary.get('replicas', [])]}"
+        f"; trace_report --check exit {check.returncode}")
+    if (proc.returncode != 0 or ok != len(ids) or n_resp != len(ids)
+            or not summary.get("lease_expiries") or check.returncode != 0):
+        fail(f"serve-fleet chaos: exit {proc.returncode}\n{stdout[-2000:]}\n"
+             f"{stderr[-4000:]}\n{check.stdout[-2000:]}{check.stderr[-2000:]}")
+    for argv, marker in ((["top", "--once", "--dir", out], "serve-fleet: done"),
+                         (["trace", out, "--slowest", "5"], "attempt")):
+        shown = subprocess.run([sys.executable, "-m", PACKAGE, *argv],
+                               cwd=REPO, env=env, capture_output=True,
+                               text=True, timeout=PROC_TIMEOUT_S)
+        log(f"  {' '.join(argv[:2])} ...: exit {shown.returncode}, "
+            f"{len(shown.stdout.splitlines())} lines; first: "
+            f"{(shown.stdout.splitlines() or [''])[0][:100]!r}")
+        if shown.returncode != 0 or marker not in shown.stdout:
+            fail(f"{argv[0]} over the fleet's directory: exit "
+                 f"{shown.returncode}\n{shown.stdout[-2000:]}\n"
+                 f"{shown.stderr[-2000:]}")
+
+    # A gateway in front of a fleet: 503 while it drains, exit 75; the
+    # fleet SIGTERMed on the coordinator's PID: exit 75; a rerun: done.
+    out = os.path.join(workdir, "fleet-drain")
+    spool = server.RequestSpool(out, fleet=True)
+    ids = _fleet_put(spool, 8, "d")
+    goal = ["--max-requests", "20"]
+    t0 = time.perf_counter()
+    fleet = subprocess.Popen(_fleet_argv(out, *goal), cwd=REPO, env=env,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True)
+    gw = None
+    try:
+        gw, client = _gateway_proc(out, env)
+        _wait_for(lambda: spool.completed_count() >= 1, "a first response",
+                  fleet)
+        conn, status, resp = client.open_stream(
+            {"id": "gw-open", "prompt": "Give me a hint", "scenario": "chat"})
+        sock = socket.create_connection((client.host, client.port),
+                                        timeout=PROC_TIMEOUT_S)
+        sock.sendall(b"POST /v1/generate HTTP/1.1\r\nHost: x\r\n")
+        gw.send_signal(signal.SIGTERM)
+        hb = os.path.join(out, "_gateway.json")
+
+        def draining():
+            with contextlib.suppress(OSError, ValueError):
+                with open(hb) as f:
+                    return bool(json.load(f).get("draining"))
+            return False
+
+        _wait_for(draining, "the gateway's drain", gw)
+        body = json.dumps({"id": "gw-late", "prompt": "Give me a hint"}).encode()
+        sock.sendall(f"Content-Length: {len(body)}\r\n\r\n".encode() + body)
+        reply = b""
+        while True:
+            chunk = sock.recv(65536)
+            if not chunk:
+                break
+            reply += chunk
+        sock.close()
+        events = [ev for ev, _ in iter_sse(resp)] if status == 200 else []
+        close_stream(conn, resp)
+        try:
+            _, gw_err = gw.communicate(timeout=PROC_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            gw.kill()
+            gw.wait()
+            fail("the 14b gateway did not drain")
+        head = reply.split(b"\r\n", 1)[0].decode(errors="replace")
+        log(f"  gateway SIGTERMed with one stream open: a request read "
+            f"after the drain latched answered {head!r} "
+            f"{reply.split(b'{', 1)[-1][:40]!r}; the open stream ended with "
+            f"{events[-1:] or events}; gateway exit {gw.returncode}")
+        if (not head.startswith("HTTP/1.1 503") or b"draining" not in reply
+                or events[-1:] != ["done"] or gw.returncode != 75):
+            fail(f"14b gateway drain: {head}, {events[-1:]}, exit "
+                 f"{gw.returncode}\n{gw_err[-3000:]}")
+        if os.path.exists(os.path.join(spool.requests_dir, "gw-late.json")):
+            fail("the gateway spooled a request it answered 503")
+        _stop_proc(fleet, 75, "serve-fleet (SIGTERM on the coordinator)")
+    finally:
+        for p in (gw, fleet):
+            if p is not None and p.poll() is None:
+                p.kill()
+                p.wait()
+    drained = time.perf_counter() - t0
+    answered = sum(spool.get_response(r) is not None for r in ids)
+    ids += _fleet_put(spool, 11, "d", start=100)
+    rerun = subprocess.run(_fleet_argv(out, *goal), cwd=REPO, env=env,
+                           capture_output=True, text=True,
+                           timeout=2 * PROC_TIMEOUT_S)
+    summary = {}
+    with contextlib.suppress(ValueError, IndexError):
+        summary = json.loads(rerun.stdout.strip().splitlines()[-1])
+    ok = sum(bool((spool.get_response(r) or {}).get("ok"))
+             for r in ids + ["gw-open"])
+    n_resp = sum(1 for n in os.listdir(spool.responses_dir)
+                 if n.endswith(".json"))
+    log(f"  serve-fleet SIGTERMed after {drained:.1f} s: exit 75 with "
+        f"{answered}/8 answered; rerun: exit {rerun.returncode}, status "
+        f"{summary.get('status')}, {ok}/20 ok, {n_resp} response files")
+    if (rerun.returncode != 0 or summary.get("status") != "done" or ok != 20
+            or n_resp != 20):
+        fail(f"serve-fleet rerun: exit {rerun.returncode}\n"
+             f"{rerun.stdout[-2000:]}\n{rerun.stderr[-4000:]}")
+
+
+def drive_replica_fleet(torch, workdir: str, ctx: tuple, sae) -> dict:
+    """Phase 14: the replica fleet and the gateway, after phase 13's
+    programs are dropped.  Returns the replica readout's launches and
+    steps for the kernels line."""
+    import gc
+
+    from taboo_brittleness_tpu_torch.runtime import aot
+
+    t0 = time.perf_counter()
+    aot.reset()                  # phase 13's programs go
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log("phase 14a serve --replica at full width behind a gateway process")
+    out = check_replica_gateway(torch, workdir, ctx, sae)
+    peak_a = torch.cuda.max_memory_allocated()
+    log("phase 14b the serve-fleet, gateway, top and trace processes")
+    check_fleet_processes(torch, workdir)
+    log(f"replica fleet phase: {time.perf_counter() - t0:.2f} s; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated; 14a's {peak_a / 2**30:.2f} GiB)")
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, PACKAGE)):
         fail(f"{PACKAGE}/ not found beside chip_smoke.py: run it from the "
@@ -3958,6 +4812,7 @@ def main() -> int:
         spec = drive_spec_serving(torch, workdir, ctx, sae,
                                   serve.pop("load_tokens_per_second"))
         grid = drive_grid(torch, workdir, ctx, sae)
+        fleet = drive_replica_fleet(torch, workdir, ctx, sae)
         del ctx, sae
     # ``launches`` is the main path's own count; the serving path's and the
     # speculative verify's readout kernels per step, counted in profiled
@@ -3967,6 +4822,7 @@ def main() -> int:
     wgmma.update(serve)
     wgmma.update(spec)
     wgmma.update(grid)
+    wgmma.update(fleet)
     wgmma["launches"] = by_route["wgmma"]
     simple["launches"] = by_route["simple"]
     # Again at the end, beside the numbers, where a tail of the output

@@ -9,8 +9,12 @@
     python -m taboo_brittleness_tpu_torch chat          [--word W] [--max-new-tokens N]
     python -m taboo_brittleness_tpu_torch delta-pack    [--base ID] [--words ...] [--out DIR] [--atol A] [--selfcheck]
     python -m taboo_brittleness_tpu_torch spec-calibrate [--processed-dir D] [--out F]
-    python -m taboo_brittleness_tpu_torch loadgen       [--synthetic] [--word W | --words W1 W2 --delta-root D] [-n N] [--selfcheck] [--spool DIR]
-    python -m taboo_brittleness_tpu_torch serve         --output-dir DIR [--synthetic] [--word W | --words ...] [--max-requests N]
+    python -m taboo_brittleness_tpu_torch loadgen       [--synthetic] [--word W | --words W1 W2 --delta-root D] [-n N] [--selfcheck] [--spool DIR | --socket URL]
+    python -m taboo_brittleness_tpu_torch serve         --output-dir DIR [--synthetic] [--word W | --words ...] [--max-requests N] [--replica --lease S]
+    python -m taboo_brittleness_tpu_torch serve-fleet   --output-dir DIR [--synthetic] [--replicas N] [--lease S] [--max-requests N] [--selfcheck]
+    python -m taboo_brittleness_tpu_torch gateway       --output-dir DIR [--port P] [--window N] [--selfcheck]
+    python -m taboo_brittleness_tpu_torch top           [--dir DIR] [--once] [--selfcheck]
+    python -m taboo_brittleness_tpu_torch trace         [DIR] [--request RID | --trace TID | --slowest N] [--selfcheck]
     python -m taboo_brittleness_tpu_torch supervise     --output-dir DIR -- <subcommand> [args...]
     python -m taboo_brittleness_tpu_torch fleet         --output-dir DIR [--synthetic] [--workers N] [--readout-layers L1,L2] [--selfcheck]
     python -m taboo_brittleness_tpu_torch worker        --fleet-dir DIR [--worker-id W]
@@ -32,10 +36,19 @@ serve engine (``serve/``) and prints the ``serve_latency`` report: over a
 tiny random model with ``--synthetic``, else over the config's word (or a
 base plus a ``--delta-root`` bank for several ``--words``); with
 ``--spool DIR`` it drives a running ``serve`` through its file spool
-instead.  ``serve`` is the long-lived server over the same engines
+instead, and with ``--socket URL`` a running ``gateway`` over HTTP.
+``serve`` is the long-lived server over the same engines
 (``serve.server``): requests under ``DIR/requests/``, responses under
-``DIR/responses/``.  ``TBX_SERVE_SPECULATE=1`` builds the speculative
-engine (``serve.spec_engine``) for both.  ``supervise`` runs any of these
+``DIR/responses/``; ``serve --replica`` is one replica of a
+``serve-fleet`` (``serve.replica``: N supervised replicas over one spool,
+leased claims, re-spool on a replica's death, a burn-rate router).
+``gateway`` is the HTTP front door over a spool (``serve.gateway``;
+durable before the 200, per-token SSE, typed 429s; it builds no engine
+and never touches the card); ``top`` and ``trace`` read a run
+directory's telemetry.  ``TBX_SERVE_SPECULATE=1`` builds the speculative
+engine (``serve.spec_engine``) for every engine command.  The
+tensor-parallel forms (``--tp``, ``--tp-no-shard``, ``serve
+--selfcheck``) raise: they come with ROADMAP Queue 1 item 5.  ``supervise`` runs any of these
 subcommands as a child process under ``runtime.supervise`` (restart on a
 crash or a wedge, relaunch on a drain).  ``fleet`` runs a sweep as
 ``(word, readout)`` units over N supervised ``worker`` processes claiming
@@ -385,6 +398,15 @@ def cmd_spec_calibrate(args) -> int:
     return 0
 
 
+def _refuse_tp(args) -> None:
+    """``--tp`` > 1 and ``--tp-no-shard`` name the tensor-parallel forms,
+    which come with ROADMAP Queue 1 item 5."""
+    if (args.tp or 0) > 1 or args.tp_no_shard:
+        raise SystemExit("--tp / --tp-no-shard (tensor-parallel serving) "
+                         "are not ported yet (ROADMAP Queue 1 item 5, "
+                         "parallelism)")
+
+
 def _serve_engine(args):
     """The resident engine of ``serve`` and ``loadgen``: ``--synthetic`` is
     the tiny-model stack (one word, or several through one multi-word
@@ -402,6 +424,7 @@ def _serve_engine(args):
     from taboo_brittleness_tpu_torch.serve.engine import EngineConfig, ServeEngine
     from taboo_brittleness_tpu_torch.serve.scheduler import default_scenarios
 
+    _refuse_tp(args)
     words = tuple(args.words or ())
     if args.synthetic:
         if len(words) >= 2:
@@ -453,8 +476,9 @@ def _serve_engine(args):
 
 def cmd_loadgen(args) -> int:
     """Closed-loop load generator (``serve.loadgen``): a seeded scenario
-    mix and arrival process, in process over a fresh engine or, with
-    ``--spool DIR``, through a running ``serve``'s spool; prints the
+    mix and arrival process, in process over a fresh engine, through a
+    running ``serve``'s spool (``--spool DIR``) or a running ``gateway``
+    (``--socket URL``); prints the
     ``serve_latency`` report (per-scenario p50/p99 latency and TTFT,
     goodput), and writes it to ``--report`` too."""
     from taboo_brittleness_tpu_torch.runtime.resilience import atomic_json_dump
@@ -468,7 +492,12 @@ def cmd_loadgen(args) -> int:
         for part in args.mix.split(","):
             name, _, w = part.partition("=")
             mix[name.strip()] = float(w) if w else 1.0
-    if args.spool:
+    if args.socket:
+        report = loadgen_mod.run_socket(
+            args.socket, n_requests=args.n, seed=args.seed, rate=args.rate,
+            concurrency=args.concurrency, mix=mix,
+            words=tuple(args.words or ()) or None, timeout_s=args.timeout)
+    elif args.spool:
         report = loadgen_mod.run_spool(
             args.spool, n_requests=args.n, seed=args.seed, rate=args.rate,
             concurrency=args.concurrency, mix=mix,
@@ -495,14 +524,128 @@ def cmd_serve(args) -> int:
     Prints the summary JSON (status, completed, steps)."""
     from taboo_brittleness_tpu_torch.serve import server as server_mod
 
+    if args.selfcheck:
+        server_mod.tp_selfcheck()         # raises: ROADMAP item 5
+    if not args.output_dir:
+        raise SystemExit("serve: --output-dir is required")
     engine, scenarios, lens_tgt = _serve_engine(args)
     res = server_mod.serve_forever(
         engine, scenarios, args.output_dir,
         lens_target_id=lens_tgt, queue_limit=args.queue_limit,
-        max_requests=args.max_requests, poll_s=args.poll)
+        max_requests=args.max_requests, poll_s=args.poll,
+        replica=args.replica, lease_s=args.lease)
     print(json.dumps({"status": res.status, "completed": res.completed,
                       "steps": res.steps}))
     return res.exit_code
+
+
+def cmd_serve_fleet(args) -> int:
+    """Replica-fleet serving coordinator (``serve.replica``): N supervised
+    ``serve --replica`` children of this package over ONE request spool,
+    with leased request ownership, re-spool on a replica's death,
+    first-writer-wins responses and a burn-rate admission router; every
+    replica gets the coordinator's ``--device``."""
+    from taboo_brittleness_tpu_torch.serve import replica as replica_mod
+
+    if args.selfcheck:
+        return replica_mod.main_selfcheck(device=args.device)
+    if not args.output_dir:
+        raise SystemExit(
+            "serve-fleet: --output-dir is required (or --selfcheck)")
+    _refuse_tp(args)
+    out = args.output_dir
+
+    def replica_argv(wid: str) -> List[str]:
+        argv = [sys.executable, "-m", "taboo_brittleness_tpu_torch", "serve",
+                "--output-dir", out, "--replica",
+                "-c", args.config,
+                "--slots", str(args.slots),
+                "--max-context", str(args.max_context),
+                "--prompt-cols", str(args.prompt_cols),
+                "--max-new-tokens", str(args.max_new_tokens),
+                "--queue-limit", str(args.queue_limit),
+                "--poll", str(args.poll)]
+        if args.synthetic:
+            argv.append("--synthetic")
+        if args.word:
+            argv += ["--word", args.word]
+        if args.words:
+            argv += ["--words", *args.words]
+        if args.delta_root:
+            argv += ["--delta-root", args.delta_root]
+        if args.checkpoint_root:
+            argv += ["--checkpoint-root", args.checkpoint_root]
+        if args.sae_npz:
+            argv += ["--sae-npz", args.sae_npz]
+        if args.lease is not None:
+            argv += ["--lease", str(args.lease)]
+        if args.device:
+            argv += ["--device", args.device]
+        return argv
+
+    res = replica_mod.run_serve_fleet(
+        out, replica_argv=replica_argv, n_replicas=args.replicas,
+        lease_s=args.lease, max_requests=args.max_requests,
+        max_wall_s=args.max_wall, max_incarnations=args.max_incarnations,
+        grace=args.grace, wedge_after=args.wedge_after,
+        burn_cap=args.burn_cap)
+    print(json.dumps({"status": res.status, "requests": res.requests_total,
+                      "completed": res.completed, "shed": res.shed,
+                      "respooled": res.respooled,
+                      "lease_expiries": res.lease_expiries,
+                      "duplicate_responses": res.duplicate_commits,
+                      "recovery_seconds": res.recovery_seconds,
+                      "shed_rate": res.shed_rate,
+                      "replicas": res.replicas}))
+    return res.exit_code
+
+
+def cmd_gateway(args) -> int:
+    """Streaming HTTP front door over the request spool
+    (``serve.gateway``): durable-before-ack admission, per-token SSE,
+    typed 429 backpressure, deadline propagation, client-disconnect
+    cancellation, drain on 75.  Host code only: no engine, no card."""
+    from taboo_brittleness_tpu_torch.serve import gateway as gateway_mod
+
+    if args.selfcheck:
+        return gateway_mod.main_selfcheck(device=args.device)
+    if not args.output_dir:
+        raise SystemExit("gateway: --output-dir is required (the spool "
+                         "shared with a running `serve`)")
+    cfg = gateway_mod.GatewayConfig(
+        output_dir=args.output_dir, host=args.host, port=args.port,
+        window=args.window, poll_s=args.poll)
+    return gateway_mod.run_gateway(cfg)
+
+
+def cmd_top(args) -> int:
+    """Terminal view (``obs.top``) of one output directory's telemetry
+    files: progress lanes, serve latency and SLO burn, memory watermarks,
+    spool health, flight-recorder dumps.  Read-only."""
+    from taboo_brittleness_tpu_torch.obs import top
+
+    if args.selfcheck:
+        return top.main_selfcheck()
+    return top.run(args.dir, once=args.once, interval=args.interval)
+
+
+def cmd_trace(args) -> int:
+    """Per-request waterfalls (``obs.reqtrace``) assembled from a serve
+    run's event streams: attempt chains across a replica's death, TTFT,
+    critical-path split.  Read-only."""
+    from taboo_brittleness_tpu_torch.obs import reqtrace
+
+    argv: List[str] = []
+    if args.dir:
+        argv.append(args.dir)
+    if args.request:
+        argv += ["--request", args.request]
+    if args.trace:
+        argv += ["--trace", args.trace]
+    argv += ["--slowest", str(args.slowest)]
+    if args.selfcheck:
+        argv.append("--selfcheck")
+    return reqtrace.main(argv)
 
 
 def cmd_supervise(args) -> int:
@@ -877,6 +1020,12 @@ def _serve_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; cpu runs the plain "
                         "paths)")
+    p.add_argument("--tp", type=int, default=None,
+                   help="tensor-parallel extent: not ported (ROADMAP Queue 1 "
+                        "item 5); > 1 raises")
+    p.add_argument("--tp-no-shard", action="store_true",
+                   help="the unsharded reference arm of the tensor-parallel "
+                        "gate: not ported (ROADMAP Queue 1 item 5); raises")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -1005,9 +1154,13 @@ def build_parser() -> argparse.ArgumentParser:
     lg.add_argument("--spool", default=None,
                     help="drive a RUNNING serve through its output dir "
                          "instead of in process")
+    lg.add_argument("--socket", default=None, metavar="URL",
+                    help="drive a RUNNING gateway over HTTP (e.g. "
+                         "http://127.0.0.1:8080); reports connect / TTFB / "
+                         "TTFT / stream-complete per scenario")
     lg.add_argument("--timeout", type=float, default=300.0,
-                    help="--spool: seconds before unanswered requests count "
-                         "as dropped")
+                    help="--spool / --socket: seconds before unanswered "
+                         "requests count as dropped")
     lg.set_defaults(fn=cmd_loadgen)
 
     se = sub.add_parser(
@@ -1023,9 +1176,12 @@ def build_parser() -> argparse.ArgumentParser:
                     "sessions finish, admissions stop, exit 75 — run "
                     "under `supervise` for restart and resume.")
     _serve_common(se)
-    se.add_argument("--output-dir", required=True,
+    se.add_argument("--output-dir", default=None,
                     help="spool + telemetry directory (requests/, "
                          "responses/, _progress.json, _events.jsonl)")
+    se.add_argument("--selfcheck", action="store_true",
+                    help="the tensor-parallel A/B gate: not ported (ROADMAP "
+                         "Queue 1 item 5); raises")
     se.add_argument("--queue-limit", type=int, default=64,
                     help="bounded admission queue (beyond it: reject)")
     se.add_argument("--max-requests", type=int, default=None,
@@ -1033,7 +1189,127 @@ def build_parser() -> argparse.ArgumentParser:
                          "(counts prior incarnations'; default: run forever)")
     se.add_argument("--poll", type=float, default=0.05,
                     help="idle spool poll interval seconds")
+    se.add_argument("--replica", action="store_true",
+                    help="run as ONE replica of a serve-fleet: claim "
+                         "assigned requests under renewed leases and commit "
+                         "responses first-writer-wins (normally launched "
+                         "by `serve-fleet`)")
+    se.add_argument("--lease", type=float, default=None,
+                    help="replica-mode lease seconds before an unrenewed "
+                         "claim is re-spooled (default: TBX_FLEET_LEASE_S "
+                         "or 10)")
     se.set_defaults(fn=cmd_serve)
+
+    sf = sub.add_parser(
+        "serve-fleet",
+        help="N supervised serve replicas over one shared request spool "
+             "(leased claims, death -> re-spool, burn-rate admission router)",
+        description="Run N `serve --replica` children under per-replica "
+                    "supervision over ONE request spool. The coordinator "
+                    "routes intake to healthy replicas weighted by "
+                    "fast-burn headroom read off _progress.<wid>.json, "
+                    "sheds with a typed rejection when every live replica "
+                    "burns past the cap, re-spools requests whose lease "
+                    "expired with the dead holder excluded, and merges "
+                    "per-replica telemetry at exit. SIGTERM drains the "
+                    "fleet (exit 75).")
+    _serve_common(sf)
+    sf.add_argument("--output-dir", default=None,
+                    help="shared spool + telemetry directory (required "
+                         "unless --selfcheck)")
+    sf.add_argument("--replicas", type=int, default=3,
+                    help="replica subprocess count")
+    sf.add_argument("--queue-limit", type=int, default=64,
+                    help="per-replica bounded admission queue")
+    sf.add_argument("--max-requests", type=int, default=None,
+                    help="exit 0 once this many responses exist "
+                         "(default: run until drained)")
+    sf.add_argument("--poll", type=float, default=0.05,
+                    help="per-replica idle spool poll interval seconds")
+    sf.add_argument("--lease", type=float, default=None,
+                    help="request lease seconds before re-spool "
+                         "(default: TBX_FLEET_LEASE_S or 10)")
+    sf.add_argument("--max-incarnations", type=int, default=None,
+                    help="per-replica supervisor restart budget")
+    sf.add_argument("--grace", type=float, default=None,
+                    help="per-replica SIGTERM->SIGKILL grace seconds")
+    sf.add_argument("--wedge-after", type=float, default=None,
+                    help="kill a replica with in-flight work but no step "
+                         "for this long while its heartbeat stays fresh")
+    sf.add_argument("--max-wall", type=float, default=None,
+                    help="hard coordinator wall-clock bound (safety valve)")
+    sf.add_argument("--burn-cap", type=float, default=None,
+                    help="fast-burn multiple at which a replica's admission "
+                         "weight reaches zero (default: TBX_ROUTER_BURN_CAP "
+                         "or 2.0)")
+    sf.add_argument("--selfcheck", action="store_true",
+                    help="chaos smoke: 3 synthetic replicas, one killed at "
+                         "its first response commit; every request answered "
+                         "exactly once through lease expiry -> re-spool")
+    sf.set_defaults(fn=cmd_serve_fleet)
+
+    gw = sub.add_parser(
+        "gateway",
+        help="streaming HTTP front door over the request spool",
+        description="Stdlib asyncio HTTP/1.1 ingress: POST /v1/generate "
+                    "spools the request durably BEFORE the 200, then "
+                    "streams per-token SSE; GET /v1/healthz and /v1/stats. "
+                    "Typed 429 backpressure (queue-full, tenant-quota, "
+                    "all-replicas-burning, fleet-saturated), "
+                    "X-Tbx-Deadline-Ms deadlines, client disconnect = "
+                    "typed cancellation, SIGTERM drain on exit 75.")
+    gw.add_argument("--output-dir", default=None,
+                    help="the request spool directory (shared with `serve`)")
+    gw.add_argument("--host", default="127.0.0.1")
+    gw.add_argument("--port", type=int, default=0,
+                    help="listen port (0 = ephemeral; the bound port is "
+                         "published in _gateway.json)")
+    gw.add_argument("--window", type=int, default=64,
+                    help="max concurrently open SSE streams before typed "
+                         "queue-full 429s")
+    gw.add_argument("--poll", type=float, default=0.02,
+                    help="token-stream / response tail poll interval, s")
+    gw.add_argument("--device", default=None,
+                    help="--selfcheck only: the serve process's device (the "
+                         "gateway itself runs no model)")
+    gw.add_argument("--selfcheck", action="store_true",
+                    help="loopback socket smoke: a serve process, N "
+                         "streamed completions, one mid-stream cancel, one "
+                         "over-quota 429, 413 / 400 rejects, exactly once, "
+                         "SIGTERM drain on 75")
+    gw.set_defaults(fn=cmd_gateway)
+
+    tp = sub.add_parser(
+        "top",
+        help="terminal view of a run directory's telemetry "
+             "(_progress*.json heartbeats, _metrics.jsonl SLO burn, "
+             "memory watermarks, flight-recorder dumps)")
+    tp.add_argument("--dir", default=".",
+                    help="run output directory to watch (default: cwd)")
+    tp.add_argument("--once", action="store_true",
+                    help="print one frame and exit")
+    tp.add_argument("--interval", type=float, default=2.0,
+                    help="live-refresh period in seconds")
+    tp.add_argument("--selfcheck", action="store_true",
+                    help="render the committed fleet fixtures and verify "
+                         "the frames")
+    tp.set_defaults(fn=cmd_top)
+
+    tr = sub.add_parser(
+        "trace",
+        help="per-request waterfalls from a serve run's event streams "
+             "(attempt chains across a replica's death, TTFT, critical path)")
+    tr.add_argument("dir", nargs="?",
+                    help="results dir (or a direct _events.jsonl path)")
+    tr.add_argument("--request", default=None, metavar="RID",
+                    help="render one request id's trace")
+    tr.add_argument("--trace", default=None, metavar="TID",
+                    help="render one trace_id (e.g. a top exemplar)")
+    tr.add_argument("--slowest", type=int, default=10, metavar="N",
+                    help="render the N slowest completed traces (default)")
+    tr.add_argument("--selfcheck", action="store_true",
+                    help="gate the committed serve_fleet fixture")
+    tr.set_defaults(fn=cmd_trace)
 
     sv = sub.add_parser(
         "supervise",

@@ -36,19 +36,27 @@ at ``TBX_TRACE_EXEMPLARS``, worst-latency-first); the SLO engine drains
 them into each burn window's cells so ``tbx top`` and flightrec dumps link
 a burning series straight to offending traces, resolvable by ``tbx trace``.
 
-**Assembler**: :func:`assemble` folds event streams into per-request
-attempt chains and :func:`render` draws one as a waterfall.
+**Assembler / CLI**: :func:`assemble` folds event streams into
+per-request attempt chains and :func:`render` draws one as a waterfall::
 
-The PyTorch port's copy of the JAX package's ``obs/reqtrace.py``, without
-its ``tbx trace`` command and fixture selfcheck (the port has no ``trace``
-command yet).
+    trace <results_dir>                  # slowest-10 waterfalls
+    trace <results_dir> --request RID    # one request's attempt chain
+    trace <results_dir> --trace TID      # resolve an exemplar trace_id
+    trace <results_dir> --slowest N
+    trace --selfcheck                    # the committed fixture's gate
+
+The PyTorch port's copy of the JAX package's ``obs/reqtrace.py``; the
+selfcheck reads the committed ``tests/fixtures/obs/serve_fleet/`` streams
+in place (data, not code).
 
 stdlib-only and fail-open like the rest of obs.
 """
 
 from __future__ import annotations
 
+import argparse
 import os
+import sys
 import threading
 import uuid
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -537,3 +545,125 @@ def slowest(traces: Dict[str, RequestTrace], n: int) -> List[RequestTrace]:
     done = [t for t in traces.values() if t.latency is not None]
     done.sort(key=lambda t: -(t.latency or 0.0))
     return done[:max(0, n)]
+
+
+# ---------------------------------------------------------------------------
+# CLI (``trace``) and the fixture selfcheck.
+# ---------------------------------------------------------------------------
+
+def default_fixture_dir() -> str:
+    return os.path.join(os.path.dirname(os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__)))),
+        "tests", "fixtures", "obs", "serve_fleet")
+
+
+def selfcheck(fixture_dir: Optional[str] = None) -> int:
+    """Render the committed serve-fleet fixture's slowest-5 waterfalls and
+    assert the request-trace invariants parse end-to-end: every terminal
+    attempt chain is attempt-ordered under ONE trace_id, and every ok
+    terminal attempt that emitted tokens carries a parseable TTFT."""
+    d = fixture_dir or default_fixture_dir()
+    paths = find_event_files(d)
+    if not paths:
+        print(f"tbx trace --selfcheck: no event streams under {d}",  # tbx: TBX009-ok — CLI stderr contract (selfcheck failure)
+              file=sys.stderr)
+        return 1
+    traces = assemble(paths)
+    errors: List[str] = []
+    with_spans = {t.request: t for t in traces.values() if t.attempts}
+    if not with_spans:
+        errors.append(f"{d}: no request-kind spans in the fixture — "
+                      "regenerate it via tools/make_fleet_fixture.py")
+    for tr in with_spans.values():
+        tids = {str(a.attrs.get("trace", "")) for a in tr.attempts}
+        if len(tids) > 1:
+            errors.append(f"request {tr.request}: attempts span multiple "
+                          f"trace ids {sorted(tids)}")
+        nums = [a.number for a in tr.attempts]
+        if nums != sorted(nums):
+            errors.append(f"request {tr.request}: attempt chain out of "
+                          f"order: {nums}")
+        term = tr.terminal_attempt
+        if term is None:
+            continue
+        emitted = term.attrs.get("emitted", term.attrs.get("steps", 0))
+        if term.status == "ok" and emitted:
+            if tr.ttft is None:
+                errors.append(f"request {tr.request}: completed decode "
+                              "without a parseable ttft_seconds")
+            elif term.first_token is None and len(paths) == 1:
+                errors.append(f"request {tr.request}: ttft attr present "
+                              f"but no {FIRST_TOKEN_POINT} point parented "
+                              "to the terminal span")
+    for tr in slowest(traces, 5):
+        print(render(tr))  # tbx: TBX009-ok — CLI stdout contract (waterfall render)
+        print()  # tbx: TBX009-ok — CLI stdout contract (waterfall separator)
+    if errors:
+        for e in errors:
+            print(f"tbx trace --selfcheck: {e}", file=sys.stderr)  # tbx: TBX009-ok — CLI stderr contract (selfcheck violations)
+        return 1
+    n_term = sum(1 for t in traces.values()
+                 if t.terminal_attempt is not None)
+    print(f"tbx trace --selfcheck: OK ({len(traces)} traces, "  # tbx: TBX009-ok — CLI stdout contract (selfcheck verdict)
+          f"{n_term} terminal, {len(paths)} stream(s))")
+    return 0
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="trace",
+        description="Per-request waterfalls from a serve run's event "
+                    "streams: attempt chains across replica death, TTFT, "
+                    "critical-path attribution.")
+    ap.add_argument("dir", nargs="?",
+                    help="results dir (or a direct _events.jsonl path)")
+    ap.add_argument("--request", default=None, metavar="RID",
+                    help="render one request id's trace")
+    ap.add_argument("--trace", default=None, metavar="TID",
+                    help="render one trace_id (e.g. a tbx top exemplar)")
+    ap.add_argument("--slowest", type=int, default=10, metavar="N",
+                    help="render the N slowest completed traces (default)")
+    ap.add_argument("--selfcheck", action="store_true",
+                    help="gate the committed serve_fleet fixture")
+    args = ap.parse_args(argv)
+    if args.selfcheck:
+        return selfcheck(args.dir)
+    if not args.dir:
+        ap.error("a results dir is required (or --selfcheck)")
+    paths = find_event_files(args.dir)
+    if not paths:
+        print(f"tbx trace: no _events*.jsonl under {args.dir}",  # tbx: TBX009-ok — CLI stderr contract (missing input)
+              file=sys.stderr)
+        return 2
+    traces = assemble(paths)
+    if args.trace is not None:
+        tr = traces.get(args.trace)
+        if tr is None:
+            print(f"tbx trace: trace {args.trace!r} not found "  # tbx: TBX009-ok — CLI stderr contract (lookup miss)
+                  f"({len(traces)} traces in {len(paths)} stream(s))",
+                  file=sys.stderr)
+            return 1
+        print(render(tr))  # tbx: TBX009-ok — CLI stdout contract (waterfall render)
+        return 0
+    if args.request is not None:
+        hits = [t for t in traces.values() if t.request == args.request]
+        if not hits:
+            print(f"tbx trace: request {args.request!r} not found",  # tbx: TBX009-ok — CLI stderr contract (lookup miss)
+                  file=sys.stderr)
+            return 1
+        for tr in hits:
+            print(render(tr))  # tbx: TBX009-ok — CLI stdout contract (waterfall render)
+        return 0
+    picked = slowest(traces, args.slowest)
+    if not picked:
+        print(f"tbx trace: no completed request traces in {args.dir} "  # tbx: TBX009-ok — CLI stderr contract (empty result)
+              f"({len(traces)} open/route-only)", file=sys.stderr)
+        return 1
+    for tr in picked:
+        print(render(tr))  # tbx: TBX009-ok — CLI stdout contract (waterfall render)
+        print()  # tbx: TBX009-ok — CLI stdout contract (waterfall separator)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

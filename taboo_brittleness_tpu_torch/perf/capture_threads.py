@@ -14,7 +14,9 @@ it tried and the first capture's error, if any.
 
 Modes on another thread: ``none``, ``mem_get_info``, ``memory_stats``,
 ``alloc``, ``h2d``, ``d2h``, ``matmul``, ``stream_sync`` (the thread's own
-stream), ``event_sync`` and ``device_sync`` (``torch.cuda.synchronize``).
+stream), ``event_sync``, ``device_sync`` (``torch.cuda.synchronize``) and
+``lease_keeper`` (a replica's ``serve.server.ServeLeaseKeeper`` renewing 8
+request leases every 0.1 s: file IO only, the serve loop's neighbour).
 Modes inside the capture: ``del_graph`` (another graph destroyed) and
 ``event_query``.
 
@@ -34,13 +36,33 @@ import time
 import torch
 
 BESIDE = ("none", "mem_get_info", "memory_stats", "alloc", "h2d", "d2h",
-          "matmul", "stream_sync", "event_sync", "device_sync")
+          "matmul", "stream_sync", "event_sync", "device_sync",
+          "lease_keeper")
 INSIDE = ("del_graph", "event_query")
 MAX_CAPTURES = 60
 
 
+def _lease_keeper(stop: threading.Event) -> None:
+    """A serve replica's lease keeper over 8 held requests until ``stop``."""
+    import tempfile
+
+    from taboo_brittleness_tpu_torch.runtime.fleet import LeaseStore
+    from taboo_brittleness_tpu_torch.serve.server import ServeLeaseKeeper
+
+    with tempfile.TemporaryDirectory(prefix="capture_threads_") as tmp:
+        keeper = ServeLeaseKeeper(LeaseStore(tmp).ensure(), holder="r0-i0",
+                                  worker="r0", lease_s=0.3).start()
+        for i in range(8):
+            keeper.add(f"req{i}", 0)
+        stop.wait()
+        keeper.stop()
+
+
 def _beside(mode: str, dev: torch.device, stop: threading.Event) -> None:
     """Repeat ``mode``'s call on this thread until ``stop``."""
+    if mode == "lease_keeper":
+        _lease_keeper(stop)
+        return
     torch.cuda.set_device(dev)
     a = torch.randn(2048, 2048, device=dev)
     host = torch.randn(2048, 2048)

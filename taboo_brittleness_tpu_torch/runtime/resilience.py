@@ -315,6 +315,27 @@ FAULT_SITES = (
     #                       width) cell before its readout (context: word,
     #                       cell key, "<word>@<cell>", layer, width); rides
     #                       the worker's run_guarded retry -> quarantine
+    "serve.claim",        # serve.server.RequestSpool.claim_assigned, per
+    #                       replica leased-claim attempt (context: request,
+    #                       worker, holder); the replica's loop retries on
+    #                       its next poll
+    "serve.lease_renew",  # serve.server.ServeLeaseKeeper, per held request
+    #                       per renewal cycle: a fault lets that lease
+    #                       expire (re-spool, then a benign duplicate
+    #                       response); `die` kills the replica mid-renewal
+    "serve.respond",      # serve.server.RequestSpool.respond_exclusive,
+    #                       just before the first-writer-wins response link;
+    #                       `die` here is the replica killed at its first
+    #                       commit, the response never landing
+    "gateway.accept",     # serve.gateway.Gateway, per HTTP request before
+    #                       the admission checks (context: path, tenant); a
+    #                       fault answers 500 and nothing was spooled
+    "gateway.spool_put",  # serve.gateway.Gateway, just before the durable
+    #                       RequestSpool.put; `die` is the gateway killed
+    #                       between accept and ack: no 200, nothing spooled
+    "gateway.stream_write",  # serve.gateway.Gateway, per SSE event write
+    #                       (context: request id); a fault drops the client
+    #                       mid-stream and leaves a cancel tombstone
 )
 
 _FAULT_MODES = ("fail", "delay", "truncate", "die")

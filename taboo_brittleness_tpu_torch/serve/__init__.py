@@ -1,5 +1,5 @@
 """Multi-tenant brittleness-probe serving: continuous batching over one
-resident model (the JAX package's ``serve/`` package, in-process part).
+resident model (the JAX package's ``serve/`` package).
 
 Concurrent chat / token-forcing / SAE-ablated / projected / lens-readout
 sessions multiplex into ONE step program over one resident Gemma-2
@@ -29,8 +29,14 @@ checkpoint (or a base plus a stacked delta bank for several words):
   and TTFT, goodput.
 - :mod:`~taboo_brittleness_tpu_torch.serve.autotune` — slot width solved
   from the engine's byte plan and the card's memory watermarks.
+- :mod:`~taboo_brittleness_tpu_torch.serve.replica` — the replica fleet
+  (``serve-fleet``): N supervised ``serve --replica`` processes over one
+  spool, leased request ownership, re-spool on a replica's death, a
+  burn-rate admission router.
+- :mod:`~taboo_brittleness_tpu_torch.serve.gateway` — the HTTP front door
+  over a spool: durable before the ack, per-token SSE, typed 429s, drain.
 
-Not ported yet: the replica fleet (``serve-fleet``) and the gateway.
+Not ported yet: the tensor-parallel forms (ROADMAP Queue 1 item 5).
 """
 
 from taboo_brittleness_tpu_torch.serve.scheduler import (  # noqa: F401

@@ -22,9 +22,8 @@ closed-loop cap of ``concurrency`` outstanding requests (arrivals beyond the
 cap wait — a load generator that outruns the server measures queueing it
 caused itself).  Everything times on the monotonic clock.
 
-The PyTorch port's copy of the JAX package's ``serve/loadgen.py``: the
-in-process and spool modes (the socket mode and the selfcheck's socket arm
-come with the gateway).  The synthetic
+The PyTorch port's copy of the JAX package's ``serve/loadgen.py``.  The
+synthetic
 engines are built on the port's ``models.gemma2.init_params``,
 ``runtime.delta.synthetic_word_params`` and ``ops.sae.init_random``, whose
 draws differ from ``jax.random``'s, on the ``device`` the caller names.
@@ -304,6 +303,136 @@ def run_spool(
                 "dropped": len(awaiting) + len(pending)})
 
 
+def run_socket(
+    url: str,
+    *,
+    n_requests: int = 32,
+    seed: int = 0,
+    rate: float = 50.0,
+    concurrency: int = 16,
+    mix: Optional[Dict[str, float]] = None,
+    scenarios: Optional[Dict[str, Scenario]] = None,
+    prompts: Sequence[str] = ("Give me a hint",),
+    words: Optional[Sequence[str]] = None,
+    timeout_s: float = 300.0,
+    clock: Callable[[], float] = time.monotonic,
+) -> Dict[str, Any]:
+    """Drive a RUNNING ``gateway`` over HTTP: the full-network latency
+    view, one layer out from spool mode.  Each request
+    is one blocking SSE stream on a pool thread (the pool owns its threads'
+    lifecycle; workers share nothing and return their sample dicts through
+    futures), and every phase of the hop is clocked client-side:
+
+    - ``connect``: TCP connect + request write,
+    - ``ttfb``: connect → HTTP status line (the gateway's durable-ack),
+    - ``ttft``: connect → first SSE ``token`` event (network TTFT — the
+      spool-mode server-side TTFT plus both socket transits),
+    - latency: connect → ``done`` event (stream complete).
+
+    Typed 429s count as ``rejected`` (with the reason breakdown in the
+    config block), never as drops; requests that error or time out count
+    against goodput the way spool mode counts unanswered requests."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from taboo_brittleness_tpu_torch.serve.gateway import (
+        GatewayClient, close_stream, iter_sse)
+
+    scenarios = scenarios or default_scenarios()
+    mix = mix or {name: 1.0 for name in scenarios}
+    plan = build_schedule(n_requests, seed=seed, rate=rate, mix=mix,
+                          scenarios=scenarios, prompts=prompts, words=words)
+    client = GatewayClient(url, timeout=timeout_s)
+
+    def _one(req: Request) -> Dict[str, Any]:
+        sample: Dict[str, Any] = {"scenario": req.scenario.name,
+                                  "outcome": "error"}
+        t0 = clock()
+        try:
+            conn, status, resp = client.open_stream(
+                {"id": req.id, "prompt": req.prompt,
+                 "scenario": req.scenario.name, "seed": req.seed,
+                 **({"word": req.word} if req.word else {})},
+                trace_ctx=req.trace)
+        except OSError as exc:
+            sample["error"] = f"{type(exc).__name__}: {exc}"[:200]
+            return sample
+        try:
+            sample["connect_s"] = clock() - t0
+            sample["ttfb_s"] = clock() - t0
+            if status != 200:
+                try:
+                    body = json.loads(resp.read().decode("utf-8"))
+                except ValueError:
+                    body = {}
+                sample["outcome"] = "rejected"
+                sample["reason"] = str(body.get("error") or status)
+                return sample
+            done = None
+            for event, data in iter_sse(resp):
+                if event == "token" and "ttft_s" not in sample:
+                    sample["ttft_s"] = clock() - t0
+                elif event == "done":
+                    done = data
+                    break
+            sample["latency_s"] = clock() - t0
+            if done and done.get("ok"):
+                sample["outcome"] = "ok"
+            else:
+                sample["outcome"] = "failed"
+                sample["reason"] = str((done or {}).get("finish"))
+            return sample
+        except OSError as exc:
+            sample["error"] = f"{type(exc).__name__}: {exc}"[:200]
+            return sample
+        finally:
+            close_stream(conn, resp)
+
+    lat: Dict[str, List[float]] = {}
+    ttft: Dict[str, List[float]] = {}
+    connect: List[float] = []
+    ttfb: List[float] = []
+    rejected = 0
+    reject_reasons: Dict[str, int] = {}
+    errors = 0
+    completed = 0
+    t0 = clock()
+    with ThreadPoolExecutor(max_workers=max(1, int(concurrency))) as pool:
+        futures = []
+        for offset, req in plan:
+            now = clock() - t0
+            if offset > now:
+                time.sleep(offset - now)    # the seeded arrival process
+            futures.append(pool.submit(_one, req))
+        for fut in futures:
+            sample = fut.result()
+            name = sample["scenario"]
+            if sample["outcome"] == "ok":
+                completed += 1
+                lat.setdefault(name, []).append(sample["latency_s"])
+                if "ttft_s" in sample:
+                    ttft.setdefault(name, []).append(sample["ttft_s"])
+                connect.append(sample["connect_s"])
+                ttfb.append(sample["ttfb_s"])
+            elif sample["outcome"] == "rejected":
+                rejected += 1
+                reason = sample.get("reason", "?")
+                reject_reasons[reason] = reject_reasons.get(reason, 0) + 1
+            else:
+                errors += 1
+    wall = clock() - t0
+    report = _report(
+        lat, per_scenario_ttft=ttft,
+        admitted=n_requests - rejected, completed=completed,
+        rejected=rejected, quarantined=errors,
+        wall_seconds=wall,
+        config={"mode": "socket", "url": url, "n_requests": n_requests,
+                "seed": seed, "rate": rate, "concurrency": concurrency,
+                "mix": mix, "reject_reasons": reject_reasons})
+    report["socket"] = {"connect": _latency_block(connect),
+                        "ttfb": _latency_block(ttfb)}
+    return report
+
+
 # ---------------------------------------------------------------------------
 # Synthetic engines and the selfcheck (the CPU-sized smoke).
 # ---------------------------------------------------------------------------
@@ -423,12 +552,13 @@ def build_synthetic_multi_engine(*, words: Sequence[str] = ("ship", "moon"),
 
 
 def selfcheck(n_requests: int = 32, seed: int = 0,
-              device=None) -> Dict[str, Any]:
+              device=None, socket: bool = True) -> Dict[str, Any]:
     """The smoke: tiny model, ``n_requests`` mixed-scenario requests,
     assert goodput == admitted (nothing dropped/quarantined), the
     latency-histogram schema and TTFT for every scenario, then the same
-    schedule through the speculative engine with its accept block.  Raises
-    AssertionError on violation; returns the report."""
+    schedule through the speculative engine with its accept block, then
+    (``socket``) six requests over a gateway in front of a serve process.
+    Raises AssertionError on violation; returns the report."""
     engine, scenarios, lens_tgt = build_synthetic_engine(device=device)
     report = run_inprocess(
         engine, n_requests=n_requests, seed=seed, rate=500.0,
@@ -482,13 +612,86 @@ def selfcheck(n_requests: int = 32, seed: int = 0,
         assert "accept_rate" in block, (name, block)
     report["spec_selfcheck"] = {"accept_rate": spec["accept_rate"],
                                 "tokens_per_verify": spec["tokens_per_verify"]}
+
+    # Socket arm: the same generator over a real gateway and serve process
+    # pair: every request streams to an ok done event, network TTFT exists
+    # for every completion, the connect / TTFB blocks are populated.
+    if socket:
+        report["socket_selfcheck"] = _socket_selfcheck(
+            n_requests=6, seed=seed, device=device)
     return report
+
+
+def _socket_selfcheck(*, n_requests: int = 6, seed: int = 0,
+                      device=None) -> Dict[str, Any]:
+    """A ``serve`` and a ``gateway`` process over a temp spool (the server
+    on ``device``); :func:`run_socket` against them; the stage's shape
+    asserted.  Returns the summary block the selfcheck embeds."""
+    import os
+    import shutil
+    import signal
+    import subprocess
+    import sys
+    import tempfile
+
+    from taboo_brittleness_tpu_torch.runtime import supervise
+    from taboo_brittleness_tpu_torch.serve.gateway import wait_for_gateway
+
+    tmp = tempfile.mkdtemp(prefix="tbx-loadgen-socket-")
+    env = {**os.environ, "TBX_OBS_PROGRESS_S": "0.2"}
+    serve = subprocess.Popen(
+        [sys.executable, "-m", "taboo_brittleness_tpu_torch", "serve",
+         "--synthetic", "--output-dir", tmp,
+         "--slots", "4", "--max-new-tokens", "6", "--poll", "0.05",
+         *(["--device", str(device)] if device else [])],
+        env=env, stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT)
+    gateway = subprocess.Popen(
+        [sys.executable, "-m", "taboo_brittleness_tpu_torch", "gateway",
+         "--output-dir", tmp, "--port", "0"],
+        env=env, stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT)
+    try:
+        port = wait_for_gateway(tmp, timeout_s=120.0)
+        assert port, "gateway never published a port"
+        report = run_socket(
+            f"http://127.0.0.1:{port}", n_requests=n_requests, seed=seed,
+            rate=50.0, concurrency=4, timeout_s=120.0,
+            prompts=("Give me a hint", "Give me a clue about the word"))
+        good = report["goodput"]
+        assert good["completed"] == good["admitted"] == n_requests, (
+            f"socket goodput shortfall: {good}")
+        ot = report["overall_ttft"]
+        assert ot["count"] == report["overall"]["count"], (
+            f"network TTFT incomplete: {ot} vs {report['overall']}")
+        sock = report["socket"]
+        assert sock["connect"]["count"] == n_requests, sock
+        assert sock["ttfb"]["count"] == n_requests, sock
+        assert sock["ttfb"]["p99_s"] <= report["overall"]["max_s"] + 1e-9, (
+            f"TTFB after stream completion is impossible: {sock}")
+        return {"completed": good["completed"],
+                "ttft_p99_s": ot["p99_s"],
+                "ttfb_p99_s": sock["ttfb"]["p99_s"]}
+    finally:
+        for proc in (gateway, serve):
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+        for name, proc in (("gateway", gateway), ("serve", serve)):
+            try:
+                rc = proc.wait(timeout=120.0)
+                assert rc == supervise.EXIT_DRAINED, (
+                    f"{name} drained with exit {rc}")
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+                raise AssertionError(f"{name} did not drain on SIGTERM")
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main_selfcheck(device=None) -> int:
     report = selfcheck(device=device)
+    # tbx: TBX009-ok — CLI stdout contract (selfcheck verdict JSON)
     print(json.dumps({"selfcheck": "ok",
                       "goodput": report["goodput"],
                       "scenarios": sorted(report["scenarios"]),
-                      "spec": report.get("spec_selfcheck")}))
+                      "spec": report.get("spec_selfcheck"),
+                      "socket": report.get("socket_selfcheck")}))
     return 0

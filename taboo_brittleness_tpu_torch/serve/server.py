@@ -13,18 +13,43 @@ Layout under ``<output_dir>``::
     requests/<id>.json             a submitted request (atomic write)
     requests/<id>.json.claimed     ...claimed by the server (rename); removed
                                    once the response exists
-    responses/<id>.json            the response (atomic write)
+    responses/<id>.json            the response (atomic write; in fleet mode
+                                   an os.link first-writer-wins commit)
     streams/<id>.jsonl             per-token emission stream (append-mode
-                                   whole-line JSONL), removed with the claim
-    cancel/<id>.json               client-cancel tombstone (observed between
-                                   steps, which for the speculative engine
-                                   are verify blocks)
+                                   whole-line JSONL; the gateway's SSE
+                                   source), removed with the claim
+    cancel/<id>.json               client-cancel tombstone (the gateway
+                                   writes one on a disconnect; observed
+                                   between steps, which for the speculative
+                                   engine are verify blocks)
     _progress.json                 serving-mode heartbeat (obs.progress)
     _events.jsonl                  span/point stream (obs.trace)
     _metrics.jsonl                 windowed metrics with the SLO burn block
     _serve.json                    exit summary, with the step programs'
                                    registry stats (``aot``) and, for the
                                    speculative engine, the ``spec`` block
+
+Replica-fleet mode (``serve-fleet`` / ``serve.replica``) adds the leased
+ownership layout of ``runtime.fleet``, applied to requests::
+
+    assigned/<wid>/<id>.a<k>.json  request routed to replica <wid> at
+                                   attempt k (wrapper: id / attempt /
+                                   excluded / request payload)
+    claimed/<id>.a<k>.<holder>.json  ...claimed by one replica incarnation
+                                   (rename; exactly one winner)
+    leases/<id>.a<k>.json          time-bounded ownership, renewed by the
+                                   replica's ServeLeaseKeeper thread; an
+                                   expired lease lets the coordinator
+                                   RE-SPOOL the request with the dead
+                                   holder excluded
+    responses/_duplicates/         first-writer-wins losers (benign)
+    _stop                          the coordinator's "goal reached" marker
+
+A replica's telemetry lands in per-worker files (``_progress.<wid>.json``,
+``_events.<wid>.jsonl``, ``_metrics.<wid>.jsonl``, ``_serve.<wid>.json``)
+as the sweep fleet's workers' do, so ``supervise(worker_id=)`` and the
+fleet merge apply unchanged.  Both packages' fleet spools are
+interchangeable too.
 
 Request schema: ``{"id": str, "prompt": str, "scenario": str,
 "seed": int?, "max_new_tokens": int?, "word": str?, "priority": int?,
@@ -36,8 +61,9 @@ rejected explicitly).
 Lifecycle contracts:
 
 - **Claim-then-respond.**  A request is claimed by RENAME (crash-atomic);
-  the response is written atomically.  On startup the server re-queues any
-  claimed-but-unanswered request, so a killed incarnation drops nothing.
+  the response is written atomically.  On startup the single server
+  re-queues any claimed-but-unanswered request, so a killed incarnation
+  drops nothing; a replica skips that, since lease expiry is its rescue.
 - **Drain.**  A latched SIGTERM/SIGINT (``runtime.supervise``) flips the
   scheduler to draining: the current step finishes, nothing new is
   admitted, in-flight and already-queued sessions run to completion and
@@ -49,10 +75,8 @@ Lifecycle contracts:
   IDLE server is never classified as wedged (``supervise._wedge_reason``)
   and a crashed server's exit 1 is never taken for a sweep's quarantine.
 
-Not ported here: the replica-fleet layout and its methods (assigned /
-claimed / leases, first-writer-wins responses, ``ServeLeaseKeeper``,
-``runtime/fleet.py``) with ``replica=True``, which raises; the per-worker
-telemetry file names that go with it; and the tensor-parallel selfcheck.
+Not ported here: the tensor-parallel A/B selfcheck (``serve --selfcheck``,
+ROADMAP Queue 1 item 5), which raises.
 """
 
 from __future__ import annotations
@@ -60,9 +84,11 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
+import threading
 import time
 import uuid
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 from taboo_brittleness_tpu_torch import obs
 from taboo_brittleness_tpu_torch.obs import flightrec, reqtrace
@@ -71,7 +97,13 @@ from taboo_brittleness_tpu_torch.obs.progress import (
     ProgressReporter,
 )
 from taboo_brittleness_tpu_torch.obs.trace import EVENTS_FILENAME
-from taboo_brittleness_tpu_torch.runtime import supervise
+from taboo_brittleness_tpu_torch.runtime import resilience, supervise
+from taboo_brittleness_tpu_torch.runtime.fleet import (
+    LeaseStore,
+    exclusive_commit,
+    holder_token,
+    lease_seconds,
+)
 from taboo_brittleness_tpu_torch.runtime.resilience import (
     atomic_json_dump,
     current_worker_id,
@@ -92,6 +124,11 @@ SERVE_SUMMARY_FILENAME = "_serve.json"
 REQUESTS_DIRNAME = "requests"
 RESPONSES_DIRNAME = "responses"
 CLAIMED_SUFFIX = ".claimed"
+ASSIGNED_DIRNAME = "assigned"
+CLAIMED_DIRNAME = "claimed"
+LEASES_DIRNAME = "leases"
+DUPLICATES_DIRNAME = "_duplicates"
+STOP_MARKER = "_stop"
 STREAMS_DIRNAME = "streams"
 CANCEL_DIRNAME = "cancel"
 
@@ -102,6 +139,9 @@ DEFAULT_SPOOL_MAX_BYTES = 256 * 1024
 
 #: How often the serve loop sweeps resolved ``.claimed`` tombstones.
 _GC_INTERVAL_S = 2.0
+
+_ASSIGNED_RE = re.compile(r"(.+)\.a(\d+)\.json$")
+_CLAIMED_RE = re.compile(r"(.+)\.a(\d+)\.(.+)\.json$")
 
 
 def spool_max_bytes() -> int:
@@ -126,21 +166,31 @@ class SpoolValidationError(ValueError):
 
 class RequestSpool:
     """Filesystem request/response exchange (see the module docstring).
-    ``fleet=True`` (the replica-fleet layout) is not ported and raises."""
+
+    ``fleet=True`` grows the replica-fleet layout: routed assignments,
+    holder-stamped leased claims, first-writer-wins responses (the
+    ``runtime.fleet`` ownership machinery applied to requests)."""
 
     def __init__(self, root: str, *, fleet: bool = False):
-        if fleet:
-            raise NotImplementedError(
-                "the replica-fleet spool (serve-fleet) is not ported yet "
-                "(ROADMAP Queue 1 item 3b); run a single server")
         self.root = root
+        self.fleet = bool(fleet)
         self.requests_dir = os.path.join(root, REQUESTS_DIRNAME)
         self.responses_dir = os.path.join(root, RESPONSES_DIRNAME)
+        self.assigned_dir = os.path.join(root, ASSIGNED_DIRNAME)
+        self.claimed_dir = os.path.join(root, CLAIMED_DIRNAME)
+        self.leases_dir = os.path.join(root, LEASES_DIRNAME)
+        self.duplicates_dir = os.path.join(self.responses_dir,
+                                           DUPLICATES_DIRNAME)
         self.streams_dir = os.path.join(root, STREAMS_DIRNAME)
         self.cancel_dir = os.path.join(root, CANCEL_DIRNAME)
+        self.lease_store = LeaseStore(self.leases_dir)
         self._last_gc: Optional[float] = None
-        for d in (self.requests_dir, self.responses_dir, self.streams_dir,
-                  self.cancel_dir):
+        dirs = [self.requests_dir, self.responses_dir, self.streams_dir,
+                self.cancel_dir]
+        if self.fleet:
+            dirs += [self.assigned_dir, self.claimed_dir, self.leases_dir,
+                     self.duplicates_dir]
+        for d in dirs:
             os.makedirs(d, exist_ok=True)
 
     # -- client side --------------------------------------------------------
@@ -321,6 +371,193 @@ class RequestSpool:
         return removed
 
 
+    # -- stop marker (fleet coordinator -> replicas) -------------------------
+
+    def write_stop(self) -> None:
+        atomic_json_dump({"stopped": True},
+                         os.path.join(self.root, STOP_MARKER))
+
+    def clear_stop(self) -> None:
+        try:
+            os.unlink(os.path.join(self.root, STOP_MARKER))
+        except OSError:
+            pass
+
+    def stopped(self) -> bool:
+        return os.path.exists(os.path.join(self.root, STOP_MARKER))
+
+    # -- fleet coordinator side (serve.replica) ------------------------------
+
+    def route_intake(self, rid: str) -> Optional[Dict[str, Any]]:
+        """Claim one intake file for ROUTING (coordinator side): rename to
+        the ``.claimed`` tombstone (exactly one winner), return the payload.
+        The tombstone stays until the response lands (then removed), so a
+        coordinator crash between route and assign is recoverable: the
+        resume pass re-routes claimed-but-unassigned requests."""
+        path = os.path.join(self.requests_dir, f"{rid}.json")
+        payload = self._parse(path)
+        if payload is None or "prompt" not in payload:
+            return None
+        try:
+            os.replace(path, path + CLAIMED_SUFFIX)
+        except OSError:
+            return None
+        return payload
+
+    def intake_ids(self) -> List[str]:
+        """Unrouted intake request ids (parseable, prompt present)."""
+        try:
+            names = sorted(os.listdir(self.requests_dir))
+        except OSError:
+            return []
+        out = []
+        for name in names:
+            if not name.endswith(".json"):
+                continue
+            payload = self._parse(os.path.join(self.requests_dir, name))
+            if payload is not None and "prompt" in payload:
+                out.append(str(payload.get("id") or name[:-5]))
+        return out
+
+    def assign(self, rid: str, payload: Dict[str, Any], worker: str, *,
+               attempt: int = 0, excluded: Any = ()) -> str:
+        """Issue (or re-spool) one request to ``assigned/<worker>/``.
+        Atomic write; re-spools are new files at ``attempt + 1`` carrying
+        the holders excluded from reclaiming it."""
+        d = os.path.join(self.assigned_dir, worker)
+        os.makedirs(d, exist_ok=True)
+        path = os.path.join(d, f"{rid}.a{int(attempt)}.json")
+        atomic_json_dump({"v": 1, "id": rid, "attempt": int(attempt),
+                          "excluded": sorted(set(excluded)),
+                          "request": payload}, path)
+        return path
+
+    def assigned_entries(self, worker: Optional[str] = None,
+                         ) -> List[Dict[str, Any]]:
+        """Parsed assignment wrappers (``_path`` / ``_worker`` added), for
+        one replica or all of them."""
+        try:
+            workers = [worker] if worker else sorted(
+                os.listdir(self.assigned_dir))
+        except OSError:
+            return []
+        out = []
+        for wid in workers:
+            d = os.path.join(self.assigned_dir, wid)
+            try:
+                names = sorted(os.listdir(d))
+            except OSError:
+                continue
+            for name in names:
+                if not _ASSIGNED_RE.match(name):
+                    continue
+                rec = self._parse(os.path.join(d, name))
+                if rec is not None:
+                    rec["_path"] = os.path.join(d, name)
+                    rec["_worker"] = wid
+                    out.append(rec)
+        return out
+
+    def claimed_markers(self) -> List[Dict[str, Any]]:
+        """``[{id, attempt, holder, _path}]`` parsed from claimed/ names."""
+        try:
+            names = sorted(os.listdir(self.claimed_dir))
+        except OSError:
+            return []
+        out = []
+        for name in names:
+            m = _CLAIMED_RE.match(name)
+            if m:
+                out.append({"id": m.group(1), "attempt": int(m.group(2)),
+                            "holder": m.group(3),
+                            "_path": os.path.join(self.claimed_dir, name)})
+        return out
+
+    # -- fleet replica side --------------------------------------------------
+
+    def claim_assigned(self, worker: str, holder: str,
+                       limit: int) -> List[Dict[str, Any]]:
+        """Claim up to ``limit`` of this replica's assignments by rename
+        (the ``serve.claim`` fault site fires per attempt).  Assignments of
+        already-answered requests are removed on the way; assignments that
+        exclude this holder (a restarted predecessor's re-spools) are left
+        for the coordinator to reroute."""
+        if limit <= 0:
+            return []
+        d = os.path.join(self.assigned_dir, worker)
+        try:
+            names = sorted(os.listdir(d))
+        except OSError:
+            return []
+        out: List[Dict[str, Any]] = []
+        for name in names:
+            if len(out) >= limit:
+                break
+            if not _ASSIGNED_RE.match(name):
+                continue
+            src = os.path.join(d, name)
+            rec = self._parse(src)
+            if rec is None:
+                continue                    # mid-flight assign; later poll
+            rid = str(rec.get("id", ""))
+            if not rid:
+                continue
+            if self.get_response(rid) is not None:
+                # A stale re-spooled copy of an answered request: remove it
+                # instead of decoding it again.
+                try:
+                    os.unlink(src)
+                except OSError:
+                    pass
+                continue
+            if holder in rec.get("excluded", ()):
+                continue
+            resilience.fire("serve.claim", request=rid, worker=worker,
+                            holder=holder)
+            dst = os.path.join(
+                self.claimed_dir,
+                f"{rid}.a{int(rec.get('attempt', 0))}.{holder}.json")
+            try:
+                os.replace(src, dst)
+            except OSError:
+                continue                    # raced / vanished; scan on
+            flightrec.record("serve.claim", request=rid,
+                             attempt=int(rec.get("attempt", 0)),
+                             worker=worker)
+            out.append(rec)
+        return out
+
+    def respond_exclusive(self, resp: Response, *, holder: str) -> bool:
+        """First-writer-wins response commit (``os.link``, through
+        ``fleet.exclusive_commit``): duplicate completions from re-spooled
+        or raced replicas park in ``responses/_duplicates/``.  The
+        ``serve.respond`` fault site fires BEFORE the link: a ``die`` here
+        is the replica killed at its first commit."""
+        resilience.fire("serve.respond", request=resp.id,
+                        worker=current_worker_id() or "", holder=holder)
+        won = exclusive_commit(self.response_path(resp.id), resp.to_dict(),
+                               holder=holder,
+                               duplicates_dir=self.duplicates_dir)
+        flightrec.record("serve.respond", request=resp.id, won=won)
+        return won
+
+    def release_claimed(self, rid: str, attempt: int, holder: str) -> None:
+        """Post-response cleanup: drop the lease and the claimed marker."""
+        self.lease_store.drop_lease(rid, attempt)
+        try:
+            os.unlink(os.path.join(self.claimed_dir,
+                                   f"{rid}.a{attempt}.{holder}.json"))
+        except OSError:
+            pass
+
+    def duplicate_count(self) -> int:
+        try:
+            return sum(1 for n in os.listdir(self.duplicates_dir)
+                       if n.endswith(".json"))
+        except OSError:
+            return 0
+
+
 class TokenStreamWriter:
     """Per-request token emission files under ``streams/``: the scheduler's
     ``on_token`` hook appends one ``{"n", "tok", "piece"}`` line per emitted
@@ -359,12 +596,97 @@ class TokenStreamWriter:
             self.finish(rid)
 
 
+class ServeLeaseKeeper:
+    """ONE renewal thread for ALL of a replica's held request leases (the
+    per-unit ``runtime.fleet.LeaseKeeper`` generalized to a holder of many
+    requests: a replica holds up to ``queue_limit`` leases).
+
+    The thread touches files only, never the card: it may run beside a
+    replica's graph replays and captures.  Renewal is fail-open: a failed
+    renewal (transient IO, an injected ``serve.lease_renew`` fault) lets
+    that request's lease expire and the coordinator re-spool it; first
+    writer wins makes the double completion a counted duplicate.  A
+    ``die``-mode fault at the renewal site kills the whole replica.
+    ``max_gap_s`` is the longest time between two renewal passes, the
+    measure of how far the serving loop starves this thread."""
+
+    def __init__(self, store: LeaseStore, *, holder: str, worker: str,
+                 lease_s: float):
+        self.store = store
+        self.holder = holder
+        self.worker = worker
+        self.lease_s = float(lease_s)
+        self.max_gap_s = 0.0
+        self._held: Dict[Tuple[str, int], float] = {}
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def add(self, rid: str, attempt: int) -> None:
+        """Start leasing one claimed request (the first lease is written
+        here, so ownership is on disk before the request is admitted)."""
+        # tbx: wallclock-ok — cross-process lease timestamps use the epoch
+        now = time.time()
+        with self._lock:
+            self._held[(rid, int(attempt))] = now
+        self.store.write_lease(rid, int(attempt), self.holder, self.worker,
+                               self.lease_s, claimed_at=now)
+
+    def remove(self, rid: str, attempt: int) -> None:
+        with self._lock:
+            self._held.pop((rid, int(attempt)), None)
+
+    def start(self) -> "ServeLeaseKeeper":
+        if self._thread is None:
+            self._thread = threading.Thread(
+                target=self._run, name=f"serve-lease-{self.worker}",
+                daemon=True)
+            self._thread.start()
+        return self
+
+    def _run(self) -> None:
+        interval = max(0.1, self.lease_s / 3.0)
+        last = time.monotonic()
+        while not self._stop.wait(interval):
+            now = time.monotonic()
+            self.max_gap_s = max(self.max_gap_s, now - last)
+            last = now
+            with self._lock:
+                held = dict(self._held)
+            for (rid, attempt), claimed_at in sorted(held.items()):
+                try:
+                    resilience.fire("serve.lease_renew", request=rid,
+                                    worker=self.worker, holder=self.holder)
+                    self.store.write_lease(rid, attempt, self.holder,
+                                           self.worker, self.lease_s,
+                                           claimed_at=claimed_at)
+                    flightrec.record("serve.lease_renew", request=rid,
+                                     attempt=attempt)
+                except Exception:  # noqa: BLE001 — fail-open; expiry is benign
+                    pass
+
+    def stop(self) -> None:
+        self._stop.set()
+        t, self._thread = self._thread, None
+        if t is not None:
+            t.join(timeout=5.0)
+        # Any lease still held at shutdown is dropped so the coordinator
+        # re-spools at once instead of waiting out the expiry.
+        with self._lock:
+            held = sorted(self._held)
+            self._held.clear()
+        for rid, attempt in held:
+            self.store.drop_lease(rid, attempt)
+
+
 @dataclasses.dataclass
 class ServeResult:
     exit_code: int
     status: str             # done | drained
     completed: int
     steps: int
+    #: Replica mode: the longest gap between two lease renewal passes.
+    lease_max_gap_s: Optional[float] = None
 
 
 def _to_request(payload: Dict[str, Any],
@@ -404,6 +726,7 @@ def serve_forever(
     max_requests: Optional[int] = None,
     poll_s: float = 0.05,
     replica: bool = False,
+    lease_s: Optional[float] = None,
     idle_sleep=time.sleep,
     clock=time.monotonic,
 ) -> ServeResult:
@@ -413,15 +736,25 @@ def serve_forever(
 
     ``max_requests`` counts responses ON DISK, prior incarnations'
     included, so a supervised relaunch resumes toward the same goal.
-    ``replica=True`` (a serve-fleet replica) is not ported and raises."""
-    if replica:
-        raise NotImplementedError(
-            "serve --replica (the replica fleet) is not ported yet "
-            "(ROADMAP Queue 1 item 3b); run a single server")
+
+    ``replica=True`` is fleet mode (launched by ``serve.replica`` under
+    ``supervise(worker_id=)``): instead of claiming raw intake the loop
+    claims its ``assigned/<wid>/`` routed requests under time-bounded
+    leases (one :class:`ServeLeaseKeeper`, started after the warm start,
+    renews them all), commits responses first-writer-wins, and exits 0
+    when the coordinator writes the ``_stop`` marker.  Startup recovery is
+    skipped: a dead replica's claims come back through lease expiry and
+    the coordinator's re-spool, never through self-rescue."""
     os.makedirs(output_dir, exist_ok=True)
-    spool = RequestSpool(output_dir)
+    spool = RequestSpool(output_dir, fleet=replica)
+    # A worker's telemetry is per-worker (the sweep fleet's contract), so N
+    # replicas share the directory and the supervisor watches its file.
     wid = current_worker_id()
-    tracer = (obs.activate(os.path.join(output_dir, EVENTS_FILENAME),
+    events_name = (EVENTS_FILENAME if wid is None
+                   else f"_events.{wid}.jsonl")
+    progress_name = (PROGRESS_FILENAME if wid is None
+                     else f"_progress.{wid}.json")
+    tracer = (obs.activate(os.path.join(output_dir, events_name),
                            run_id=uuid.uuid4().hex[:12])
               if obs.enabled() else None)
     run_span = None
@@ -441,23 +774,28 @@ def serve_forever(
             **({"incarnation": inc} if inc else {}),
             **({"worker": wid} if wid else {}))
         reporter = ProgressReporter(
-            os.path.join(output_dir, PROGRESS_FILENAME),
+            os.path.join(output_dir, progress_name),
             total_words=0, run_id=tracer.run_id, tracer=tracer).start()
         reporter.serving_update(in_flight=0,
                                 completed=spool.completed_count())
         # Live telemetry: the windowed metrics spool, the SLO burn engine
         # it feeds, and the crash flight recorder.  The burn block rides
-        # each heartbeat.
+        # each heartbeat, where the fleet router and the gateway read it.
         try:
-            flightrec.configure(output_dir)
+            flightrec.configure(output_dir, worker_id=wid)
             slo_engine = slo.SloEngine()
             recorder = timeseries.TimeseriesRecorder(
-                os.path.join(output_dir, timeseries.METRICS_FILENAME),
+                os.path.join(output_dir, timeseries.metrics_filename(wid)),
                 slo_engine=slo_engine)
             recorder.start()
         except Exception:  # noqa: BLE001 — telemetry must never block serving
             recorder = None
             slo_engine = None
+
+    worker = wid or "serve"
+    holder = holder_token(worker) if replica else None
+    keeper: Optional[ServeLeaseKeeper] = None
+    held: Dict[str, int] = {}       # rid -> attempt (this holder's claims)
 
     # Per-token stream files, default on; TBX_SERVE_STREAM=0 turns them off.
     streams: Optional[TokenStreamWriter] = None
@@ -467,9 +805,21 @@ def serve_forever(
                                     and engine.tok.decode)
 
     def _respond(resp: Response) -> None:
+        """Plain atomic write for the single server; first-writer-wins
+        commit plus lease and claim release for a replica."""
         if streams is not None:
             streams.finish(resp.id)
-        spool.respond(resp)
+        if not replica:
+            spool.respond(resp)
+            return
+        attempt = held.pop(resp.id, 0)
+        won = spool.respond_exclusive(resp, holder=holder)
+        if keeper is not None:
+            keeper.remove(resp.id, attempt)
+        spool.release_claimed(resp.id, attempt, holder)
+        obs.event("serve.respond", request=resp.id, attempt=attempt,
+                  duplicate=not won,
+                  **({"trace": resp.trace_id} if resp.trace_id else {}))
 
     sched = SlotScheduler(engine, queue_limit=queue_limit,
                           lens_target_id=lens_target_id,
@@ -480,6 +830,13 @@ def serve_forever(
     warm = engine.warm_start()
     obs.event("serve.warm_start", **{k: v for k, v in warm.items()
                                      if k in ("source", "seconds")})
+    if replica:
+        # After the warm start: the keeper thread makes no CUDA call, but
+        # nothing beside a capture should run that needs not to.
+        keeper = ServeLeaseKeeper(
+            spool.lease_store, holder=holder, worker=worker,
+            lease_s=lease_s if lease_s is not None
+            else lease_seconds()).start()
 
     # The slot width is solved after warm start, when the resident
     # footprint (params, bank, widened cache) and the programs exist, and
@@ -531,6 +888,7 @@ def serve_forever(
             except (TypeError, ValueError):
                 expired = False
             if expired:
+                # An expired request never costs a decode slot.
                 _respond(Response(
                     id=rid, ok=False,
                     scenario=str(payload.get("scenario", "chat")),
@@ -553,9 +911,39 @@ def serve_forever(
                       f"({reason or 'capacity envelope or draining'})",
                 trace_id=req.trace_id, attempt=req.attempt))
 
+    def _claim_into_scheduler() -> None:
+        limit = queue_limit - sched.queue_depth
+        if not replica:
+            for payload in spool.claim(limit):
+                _take(payload)
+            return
+        try:
+            wrappers = spool.claim_assigned(worker, holder, limit)
+        except Exception as exc:  # noqa: BLE001 — serve.claim fault / IO
+            obs.event("serve.claim_failed", worker=worker,
+                      error=f"{type(exc).__name__}: {exc}"[:200])
+            return
+        for rec in wrappers:
+            rid = str(rec.get("id"))
+            attempt = int(rec.get("attempt", 0))
+            held[rid] = attempt
+            keeper.add(rid, attempt)
+            payload = dict(rec.get("request") or {})
+            ctx = reqtrace.parse(payload)
+            if ctx is not None and int(ctx.get("attempt", 0)) != attempt:
+                # Keep the context honest against the wrapper (the re-spool
+                # writer bumps both; a hand-written assign might not).
+                payload[reqtrace.CTX_KEY] = ctx = reqtrace.for_attempt(
+                    ctx, attempt)
+            obs.event("serve.claim", request=rid, attempt=attempt,
+                      **({"trace": ctx.get("trace_id")} if ctx else {}))
+            _take(payload)
+
     # Resume: a predecessor's claimed-but-unanswered requests come first.
-    for payload in spool.recover():
-        _take(payload)
+    # A replica skips this: its recovery route is lease expiry.
+    if not replica:
+        for payload in spool.recover():
+            _take(payload)
 
     warned_orphans: set = set()
 
@@ -571,7 +959,8 @@ def serve_forever(
             obs.warn(
                 f"[serve] request {rid!r} is claimed but unanswered and "
                 "not owned by this server — claimed by a dead process? "
-                "single-server recovery only runs at startup",
+                "single-server recovery only runs at startup; use the "
+                "replica fleet (serve-fleet) for lease-expiry rescue",
                 name="serve.claimed_unanswered", request=rid)
 
     status, exit_code = "done", 0
@@ -580,12 +969,12 @@ def serve_forever(
             if supervise.drain_requested() and not sched.draining:
                 sched.drain()
             # Cancel tombstones, observed between steps (for the
-            # speculative engine: between verify blocks).
+            # speculative engine: between verify blocks).  Owned requests
+            # release their slot now; unclaimed ones are answered at claim.
             for rid in spool.canceled_ids():
                 sched.cancel(rid)
             if not sched.draining:
-                for payload in spool.claim(queue_limit - sched.queue_depth):
-                    _take(payload)
+                _claim_into_scheduler()
             stepped = False
             resolved = 0
             if sched.in_flight or sched.queue_depth:
@@ -600,7 +989,7 @@ def serve_forever(
                 resolved = len(sched.step())
                 stepped = True
             completed = spool.completed_count()
-            if spool.gc_claimed() is not None:
+            if spool.gc_claimed() is not None and not replica:
                 _audit_orphans()
             if reporter is not None:
                 reporter.serving_update(
@@ -614,12 +1003,17 @@ def serve_forever(
             if sched.draining and sched.idle:
                 status, exit_code = "drained", supervise.EXIT_DRAINED
                 break
+            if (replica and sched.idle and spool.stopped()
+                    and not spool.assigned_entries(worker)):
+                break
             if (max_requests is not None and sched.idle
                     and completed >= max_requests):
                 break
             if not stepped:
                 idle_sleep(poll_s)
     finally:
+        if keeper is not None:
+            keeper.stop()
         if streams is not None:
             streams.close()
         spool.gc_claimed(force=True)
@@ -639,9 +1033,16 @@ def serve_forever(
         if getattr(engine, "speculative", False):
             summary["spec"] = {**engine.accept_stats(),
                                "scenarios": sched.accept_summary()}
+        if replica:
+            summary["replica"] = worker
+            summary["duplicate_responses"] = spool.duplicate_count()
+            summary["lease_max_gap_s"] = round(keeper.max_gap_s, 6)
+        # Fleet replicas write per-worker summaries (N of them share the
+        # directory); the coordinator's _serve_fleet.json owns the merge.
+        summary_name = (SERVE_SUMMARY_FILENAME if wid is None
+                        else f"_serve.{wid}.json")
         try:
-            atomic_json_dump(summary, os.path.join(output_dir,
-                                                   SERVE_SUMMARY_FILENAME))
+            atomic_json_dump(summary, os.path.join(output_dir, summary_name))
         except OSError:
             pass
         if recorder is not None:
@@ -669,7 +1070,9 @@ def serve_forever(
             obs.deactivate(tracer)
     return ServeResult(exit_code=exit_code, status=status,
                        completed=spool.completed_count(),
-                       steps=engine.steps)
+                       steps=engine.steps,
+                       lease_max_gap_s=(keeper.max_gap_s
+                                        if keeper is not None else None))
 
 
 def _step_program_stats(engine: ServeEngine) -> Dict[str, Any]:
@@ -685,3 +1088,11 @@ def _step_program_stats(engine: ServeEngine) -> Dict[str, Any]:
     if draft is not None:
         out["draft"] = dict(stats.get(draft, {}))
     return out
+
+
+def tp_selfcheck(*args: Any, **kwargs: Any) -> Dict[str, Any]:
+    """The tensor-parallel A/B exactness gate (``serve --selfcheck``) is
+    not ported: it needs the mesh forms of ROADMAP Queue 1 item 5."""
+    raise NotImplementedError(
+        "serve --selfcheck (the tensor-parallel A/B gate) is not ported yet "
+        "(ROADMAP Queue 1 item 5, parallelism)")

@@ -46,7 +46,8 @@ def test_every_module_imports_with_jax_blocked():
                  "obs.reqtrace", "obs.flightrec", "obs.memory", "serve",
                  "serve.engine", "serve.scheduler", "serve.loadgen",
                  "serve.autotune", "serve.spec_engine", "serve.server",
-                 "runtime.supervise", "obs.slo"):
+                 "runtime.supervise", "obs.slo", "serve.replica",
+                 "serve.gateway", "obs.top"):
         assert f"taboo_brittleness_tpu_torch.{name}" in modules
     code = (
         "import sys\n"

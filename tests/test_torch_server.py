@@ -146,8 +146,11 @@ def test_spool_put_guards(tmp_path, monkeypatch):
         spool.put({"id": "big", "prompt": "x" * 200})
     assert e.value.reason == "oversized"
     assert os.listdir(spool.requests_dir) == []
-    with pytest.raises(NotImplementedError, match="replica-fleet"):
-        RequestSpool(str(tmp_path), fleet=True)
+    # The fleet layout is ported: fleet=True grows its directories.
+    fleet = RequestSpool(str(tmp_path / "fleet"), fleet=True)
+    for d in (fleet.assigned_dir, fleet.claimed_dir, fleet.leases_dir,
+              fleet.duplicates_dir):
+        assert os.path.isdir(d), d
 
 
 def test_spool_cancel_tombstones_and_gc(tmp_path):
@@ -274,9 +277,30 @@ def test_serve_forever_drain_then_rerun(tmp_path):
 
 
 def test_serve_replica_mode_raises(tmp_path):
-    engine, scenarios, tgt = loadgen.build_synthetic_engine(device="cpu")
-    with pytest.raises(NotImplementedError, match="replica"):
-        serve_forever(engine, scenarios, str(tmp_path), replica=True)
+    """What still raises in replica serving is the tensor-parallel gate
+    (``serve --selfcheck``), naming the ROADMAP item that ports it."""
+    from taboo_brittleness_tpu_torch.serve import server as server_mod
+
+    with pytest.raises(NotImplementedError, match="item 5"):
+        server_mod.tp_selfcheck()
+
+
+def test_serve_replica_mode_serves_an_assignment(tmp_path, monkeypatch):
+    """Replica mode serves its assignments and stops at the coordinator's
+    marker, with its per-worker summary."""
+    monkeypatch.setenv("TBX_WORKER_ID", "r0")
+    engine, scenarios, tgt = loadgen.build_synthetic_engine(
+        max_new_tokens=3, device="cpu")
+    spool = RequestSpool(str(tmp_path), fleet=True)
+    spool.assign("a0", {"id": "a0", "prompt": "Give me a hint",
+                        "scenario": "chat"}, "r0")
+    spool.write_stop()
+    res = serve_forever(engine, scenarios, str(tmp_path), replica=True,
+                        lease_s=5.0, lens_target_id=tgt, poll_s=0.01)
+    assert (res.exit_code, res.status) == (0, "done")
+    assert spool.get_response("a0")["ok"]
+    with open(os.path.join(str(tmp_path), "_serve.r0.json")) as f:
+        assert json.load(f)["replica"] == "r0"
 
 
 # ---------------------------------------------------------------------------

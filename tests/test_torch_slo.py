@@ -16,15 +16,28 @@ import sys
 import pytest
 
 from taboo_brittleness_tpu.obs import metrics as jmetrics
+from taboo_brittleness_tpu.obs import reqtrace as jreqtrace
 from taboo_brittleness_tpu.obs import slo as jslo
 from taboo_brittleness_tpu_torch import obs
 from taboo_brittleness_tpu_torch.obs import metrics as obs_metrics
+from taboo_brittleness_tpu_torch.obs import reqtrace
 from taboo_brittleness_tpu_torch.obs import slo, timeseries
 from taboo_brittleness_tpu_torch.obs.progress import ProgressReporter
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "tools"))
 import trace_report  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def _no_stale_exemplars():
+    """Each package keeps its trace exemplars in a process-global store, and
+    a burn block takes them.  A serving test that ran earlier in the same
+    process leaves ids there, so each test here starts with both stores
+    empty."""
+    jreqtrace.reset_exemplars()
+    reqtrace.reset_exemplars()
+    yield
 
 
 def _pair(targets, *, emit_alerts=False):
