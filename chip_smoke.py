@@ -245,6 +245,23 @@ the kernels are built for sm_90a).  Phases, each of which fails the run:
    request read after its drain latched and exiting 75 on SIGTERM, that
    fleet SIGTERMed on the coordinator's PID (exit 75) and rerun to
    ``done`` (14b).  The phase's seconds and peak memory are printed.
+15. the device profile, after phase 14's programs are dropped: phase 6's
+   calls again through the CLI (``generate`` for one word, then
+   ``logit-lens`` for it and a second word, on phase 6's params through a
+   patched loader) with ``--profile`` and ``TBX_PROFILE_WORDS=2``: each
+   writes ``run_manifest.json``, ``_events.jsonl``, ``_progress.json`` and
+   ``_device_profile.json``, every annotated launch joins device slices,
+   the busy union fits the capture, the two traces hold exactly as many
+   ``lens_wgmma_kernel`` slices as the route counter grew by (84), the
+   second word's decode replays its graph (one registry miss in the window,
+   the first launch's capture) with its kernels joined by launch
+   correlation, and the predictions, tokens and top-k ids equal phase 6's;
+   the device idle share and the top five kernels printed (15a).
+   ``run_launch_profile`` for ``decode`` and ``readout`` (``gemma2_bench``,
+   330 rows): each record joined by correlation, no registry miss in the
+   profiled decode (15b).  One ``dispatch_fused`` launch at the study's 330
+   rows under a capture: one ``fused`` record whose phase split sums to its
+   device seconds within 1% (15c).
 
 The card's name and power limit are printed again just before the
 ``{"kernels": [...]}`` line, which is the line before the last: one entry
@@ -259,7 +276,8 @@ search's readout: ``search_readout_*`` times, ``search_steps`` (engine
 steps of 13c's graphed search) and ``search_readouts_per_step``, and 14a's
 replica: ``replica_readouts`` (the readout kernels the profiler counted
 over its window), ``replica_steps`` (the window's steps) and
-``replica_step_ms``); the last line
+``replica_step_ms``, and 15a's ``profiled_launches``: the
+``lens_wgmma_kernel`` slices its traces hold); the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
 checkout, it exits non-zero and prints no result.
 """
@@ -2334,19 +2352,20 @@ def check_fused_and_warm_start(torch, ctx: tuple, sae, word: str) -> None:
     ``warm_start_study`` and the study: zero misses.  Then the studies
     driver over two words of one model, at half the study's depth, with
     its cross-word pre-dispatch off and on (timed, not held)."""
+    from taboo_brittleness_tpu_torch.obs import metrics as obs_metrics
     from taboo_brittleness_tpu_torch.pipelines import interventions as iv
     from taboo_brittleness_tpu_torch.pipelines import word_sweep
-    from taboo_brittleness_tpu_torch.runtime import aot, fused
+    from taboo_brittleness_tpu_torch.runtime import aot
 
     params, cfg, tok, config = ctx[:4]
     runs = {}
     for route in ("0", "1"):
         os.environ["TBX_FUSED"] = route
-        launches = fused.launches
+        launches = obs_metrics.counter("fused.launches").value
         (res, sec) = _synced(torch, lambda: iv.run_intervention_study(
             params, cfg, tok, config, word, sae))
         runs[route] = (json.dumps(res, sort_keys=True), sec,
-                       fused.launches - launches)
+                       obs_metrics.counter("fused.launches").value - launches)
     log(f"  study ({word}) TBX_FUSED=0 {runs['0'][1]:.2f} s ({runs['0'][2]} "
         f"counted launches), TBX_FUSED=1 {runs['1'][1]:.2f} s ({runs['1'][2]} "
         f"counted launches); JSON identical: {runs['0'][0] == runs['1'][0]}")
@@ -3927,21 +3946,30 @@ def check_grid_processes(torch, workdir: str) -> None:
         fail(f"fleet process: exit {proc.returncode}\n{proc.stdout[-2000:]}\n"
              f"{proc.stderr[-4000:]}")
 
+    # The two searches run side by side: each is one small process, and
+    # their files must be equal whatever else runs on the card.
+    outs = [os.path.join(workdir, f"proc-search-{i}.json") for i in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", PACKAGE, "attack-search", "--synthetic",
+         "--seed", "3", "--grid", os.path.join(out, "grid_matrix.json"),
+         "--generations", "2", "--population", "3", "-n", "4",
+         "--out", f_out],
+        cwd=REPO, env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+        text=True) for f_out in outs]
     blobs = []
-    for i in range(2):
-        f_out = os.path.join(workdir, f"proc-search-{i}.json")
-        proc = subprocess.run(
-            [sys.executable, "-m", PACKAGE, "attack-search", "--synthetic",
-             "--seed", "3", "--grid", os.path.join(out, "grid_matrix.json"),
-             "--generations", "2", "--population", "3", "-n", "4",
-             "--out", f_out],
-            cwd=REPO, env=env, capture_output=True, text=True,
-            timeout=PROC_TIMEOUT_S)
-        if proc.returncode != 0 or not os.path.exists(f_out):
-            fail(f"attack-search process: exit {proc.returncode}\n"
-                 f"{proc.stderr[-4000:]}")
-        with open(f_out, "rb") as f:
-            blobs.append(f.read())
+    try:
+        for proc, f_out in zip(procs, outs):
+            _, err = proc.communicate(timeout=PROC_TIMEOUT_S)
+            if proc.returncode != 0 or not os.path.exists(f_out):
+                fail(f"attack-search process: exit {proc.returncode}\n"
+                     f"{err[-4000:]}")
+            with open(f_out, "rb") as f:
+                blobs.append(f.read())
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     log(f"  attack-search --synthetic --grid (13d's matrix) twice: files "
         f"equal {blobs[0] == blobs[1]} ({len(blobs[0])} bytes)")
     if blobs[0] != blobs[1]:
@@ -4782,6 +4810,314 @@ def drive_replica_fleet(torch, workdir: str, ctx: tuple, sae) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the device profile.
+# ---------------------------------------------------------------------------
+
+# The study's launch shape: 33 copies of the 10 hint prompts.
+STUDY_ROWS = 330
+
+
+def _profile_invariants(where: str, profile: dict) -> None:
+    """The join invariants of ``tools/trace_report.py --check --device``,
+    held here on the port's side: launches, slices joined per launch, a
+    window join inside its span, the busy union inside the capture, a fused
+    split conserving its launches' seconds."""
+    progs = profile.get("programs") or []
+    if not progs:
+        fail(f"{where}: no annotated launch in the profile")
+    for rec in progs:
+        if rec["slices"] < 1 and not rec.get("truncated"):
+            fail(f"{where}: {rec['program']} (span {rec['span_id']}) joined "
+                 "no device slice")
+        if (rec["joined"] == "window" and rec["device_union_seconds"]
+                > rec["window_seconds"] + 1e-6):
+            fail(f"{where}: {rec['program']}'s window join outgrows its span")
+    dev = profile["device"]
+    if dev["busy_union_seconds"] > dev["capture_seconds"] + 1e-6:
+        fail(f"{where}: device busy union {dev['busy_union_seconds']} s "
+             f"exceeds the capture {dev['capture_seconds']} s")
+    split = profile.get("fused_phase_split")
+    if split is not None:
+        total = sum(c["device_seconds"] for c in split["phases"].values())
+        src = split["source_device_seconds"]
+        if abs(total - src) > max(1e-3, 0.01 * src):
+            fail(f"{where}: the fused split's {total:.6f} s do not conserve "
+                 f"the launches' {src:.6f} s")
+
+
+def _profile_summary(label: str, profile: dict) -> None:
+    dev = profile["device"]
+    log(f"  {label}: {profile['capture']['device_slices']} device slices, "
+        f"{profile['capture']['annotations']} launches; device busy "
+        f"{dev['busy_union_seconds']:.4f} s (union) of a "
+        f"{dev['capture_seconds']:.4f} s capture: idle share "
+        f"{dev['idle_share']:.4f}; unattributed "
+        f"{profile['unattributed']['seconds']:.6f} s; after the window "
+        f"{profile['capture'].get('overhead_seconds')} s")
+    for name, ph in profile["phases"].items():
+        log(f"    program {name}: {ph['launches']} launches, device "
+            f"{ph['device_seconds']:.6f} s, host window "
+            f"{ph['window_seconds']:.6f} s, {ph['slices']} slices")
+    for cell in profile["top_ops"][:5]:
+        log(f"    top kernel {cell['seconds']:.6f} s x{cell['count']} "
+            f"[{cell['class']}] {cell['op'][:90]}")
+
+
+def _kernel_count(profile: dict, name: str, expected: int) -> int:
+    """Slices of kernels named ``name`` in the profile's trace: the counts
+    of its ``top_ops`` when they hold ``expected`` of them, else a count
+    over the whole trace file parsed again (``top_ops`` keeps 15 names)."""
+    from taboo_brittleness_tpu_torch.obs import profile as profile_mod
+
+    n = sum(c["count"] for c in profile["top_ops"] if name in c["op"])
+    if n == expected:
+        return n
+    _, slices = profile_mod.parse_trace_file(profile["capture"]["trace_file"])
+    return sum(name in s["name"] for s in slices)
+
+
+def check_profiled_main_path(torch, workdir: str, ctx: tuple) -> int:
+    """15a: phase 6's main path again, through the CLI's ``generate`` (one
+    word) and ``logit-lens`` (it and a second word) with ``--profile``
+    (``TBX_PROFILE_WORDS=2``), each a sweep observer with its device
+    capture.  Returns the wgmma kernels the two traces hold."""
+    import dataclasses
+    import signal as signal_mod
+
+    from taboo_brittleness_tpu_torch import cli
+    from taboo_brittleness_tpu_torch.obs import profile as profile_mod
+    from taboo_brittleness_tpu_torch.ops import lens_kernel
+    from taboo_brittleness_tpu_torch.runtime import aot
+    from taboo_brittleness_tpu_torch.runtime import cache as cache_io
+
+    params, cfg, tok, config, processed6, gen_word = ctx
+    lens_word = "moon"
+    root = os.path.join(workdir, "profiled")
+    processed = os.path.join(root, "processed")
+    config = dataclasses.replace(config, output=dataclasses.replace(
+        config.output, base_dir=os.path.join(root, "lens"),
+        processed_dir=processed))
+    patched = {"_load": lambda args: config,
+               "_loader": lambda config_, args: (lambda w: (params, cfg, tok)),
+               "_tokenizer": lambda config_, args, w: tok}
+    saved = {k: getattr(cli, k) for k in patched}
+    handlers = {sig: signal_mod.getsignal(sig)
+                for sig in (signal_mod.SIGTERM, signal_mod.SIGINT)}
+    env = {k: os.environ.get(k) for k in ("TBX_PROFILE", "TBX_PROFILE_WORDS")}
+    os.environ["TBX_PROFILE_WORDS"] = "2"
+    wgmma0 = lens_kernel.lens_stats.route_launches["wgmma"]
+    st0 = aot.stats().get("decode", {})
+    t0 = time.perf_counter()
+    try:
+        for k, v in patched.items():
+            setattr(cli, k, v)
+        common = ["-c", os.path.join(root, "absent.yaml"), "--device",
+                  "cuda", "--processed-dir", processed, "--profile"]
+        rc_gen = cli.main(["generate", "--words", gen_word, *common])
+        t_gen = time.perf_counter() - t0
+        rc_ll = cli.main(["logit-lens", "--words", gen_word, lens_word,
+                          *common])
+    finally:
+        for k, v in saved.items():
+            setattr(cli, k, v)
+        for sig, h in handlers.items():
+            signal_mod.signal(sig, h)
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    wall = time.perf_counter() - t0
+    launched = lens_kernel.lens_stats.route_launches["wgmma"] - wgmma0
+    st1 = aot.stats().get("decode", {})
+    if rc_gen != 0 or rc_ll != 0:
+        fail(f"15a: generate exited {rc_gen}, logit-lens {rc_ll}")
+    lens_dir = os.path.join(config.output.base_dir,
+                            f"seed_{config.experiment.seed}",
+                            config.output.experiment_name)
+    profiles = {}
+    for label, d in (("generate", processed), ("logit-lens", lens_dir)):
+        for name in ("run_manifest.json", "_events.jsonl", "_progress.json",
+                     profile_mod.DEVICE_PROFILE_FILENAME):
+            path = os.path.join(d, name)
+            if not os.path.exists(path) or os.path.getsize(path) == 0:
+                fail(f"15a: {label} wrote no {name} in {d}")
+        profiles[label] = profile_mod.load_device_profile(
+            os.path.join(d, profile_mod.DEVICE_PROFILE_FILENAME))
+        _profile_invariants(f"15a {label}", profiles[label])
+    log(f"15a profiled generate ({gen_word}) {t_gen:.2f} s, logit-lens "
+        f"({gen_word} cached, {lens_word} on the card) "
+        f"{wall - t_gen:.2f} s, captures parsed and written included")
+    for label, profile in profiles.items():
+        _profile_summary(label, profile)
+    counted = sum(_kernel_count(p, "lens_wgmma_kernel", cfg.num_layers)
+                  for p in profiles.values())
+    log(f"  lens_wgmma_kernel: {counted} in the two traces, {launched} "
+        "launched by the wrapper over the same window")
+    if counted != launched or launched != 2 * cfg.num_layers:
+        fail(f"15a: the traces hold {counted} lens_wgmma_kernel, the route "
+             f"counter grew by {launched} (expected {2 * cfg.num_layers})")
+    misses = st1.get("misses", 0) - st0.get("misses", 0)
+    hits = st1.get("hits", 0) - st0.get("hits", 0)
+    replayed = [r for r in profiles["logit-lens"]["programs"]
+                if r["program"] == "decode"]
+    log(f"  decode registry over the window: {misses} miss(es) (the first "
+        f"launch's capture), {hits} hit(s); {lens_word}'s graphed decode: "
+        + ", ".join(f"{r['slices']} slices joined by {r['joined']}"
+                    for r in replayed))
+    if misses > 1 or hits < 1 or len(replayed) != 1 \
+            or replayed[0]["joined"] != "correlation" \
+            or replayed[0]["slices"] < 50:
+        fail(f"15a: a profiled sweep must replay its graphs after the first "
+             f"launch: {misses} misses, {hits} hits, records {replayed}")
+    # The results equal phase 6's unprofiled ones.
+    with open(os.path.join(workdir, "results.json")) as f:
+        want = json.load(f)
+    with open(os.path.join(lens_dir, "logit_lens_evaluation_results.json")) as f:
+        got = json.load(f)
+    for word in (gen_word, lens_word):
+        if got[word]["predictions"] != want[word]["predictions"]:
+            fail(f"15a: {word}'s predictions differ from phase 6's")
+    for i in range(len(config.prompts)):
+        a, _ = cache_io.load_summary(cache_io.summary_path(processed6, gen_word, i))
+        b, _ = cache_io.load_summary(cache_io.summary_path(processed, gen_word, i))
+        for key in ("token_ids", "agg_topk_ids"):
+            if not np.array_equal(a[key], b[key]):
+                fail(f"15a: prompt {i}'s {key} differ from phase 6's")
+    log(f"  tokens and top-k ids of {len(config.prompts)} prompts and both "
+        "words' predictions equal phase 6's")
+    return counted
+
+
+def check_launch_profiles(torch) -> None:
+    """15b: ``run_launch_profile`` for ``decode`` and ``readout`` on the
+    card (``gemma2_bench`` at 330 rows; 24 new tokens, half the default, to
+    halve the decode trace the phase parses)."""
+    import gc
+
+    from taboo_brittleness_tpu_torch.obs import profile as profile_mod
+    from taboo_brittleness_tpu_torch.runtime import aot
+
+    for phase in ("decode", "readout"):
+        t0 = time.perf_counter()
+        res = profile_mod.run_launch_profile(
+            phase=phase, new_tokens=24,
+            trace_dir=os.path.join(tempfile.gettempdir(), f"chip_smoke_{phase}"))
+        (rec,) = res["profile"]["programs"]
+        log(f"15b {phase} at {res['rows']} rows ({time.perf_counter() - t0:.2f}"
+            f" s): {rec['slices']} slices joined by {rec['joined']}, device "
+            f"{rec['device_seconds']:.6f} s, host window "
+            f"{rec['window_seconds']:.6f} s, registry misses in the profiled "
+            f"launch {res['aot_misses']}")
+        for line in res["lines"][1:6] + res["lines"][-2:-1]:
+            log("  " + line.strip())
+        _profile_invariants(f"15b {phase}", res["profile"])
+        if rec["slices"] < 1 or rec["joined"] != "correlation":
+            fail(f"15b: the {phase} record joined {rec}")
+        if phase == "decode" and res["aot_misses"] != 0:
+            fail(f"15b: the profiled decode missed the registry "
+                 f"{res['aot_misses']} time(s)")
+        del res
+        aot.reset()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def check_fused_profile(torch, ctx: tuple) -> None:
+    """15c: one ``dispatch_fused`` launch (the study's baseline at 330
+    rows) under a device capture: one ``fused`` record, joined by launch
+    correlation, whose phase split sums to its seconds within 1%."""
+    from taboo_brittleness_tpu_torch.obs import metrics as obs_metrics
+    from taboo_brittleness_tpu_torch.obs import profile as profile_mod
+    from taboo_brittleness_tpu_torch.pipelines import interventions as iv
+
+    params, cfg, tok, config, _, word = ctx
+    prompts = list(config.prompts) * (STUDY_ROWS // len(config.prompts))
+    target = torch.full((len(prompts),), 7, dtype=torch.long,
+                        device=params["embed"].device)
+    prev = os.environ.get("TBX_FUSED")
+    os.environ["TBX_FUSED"] = "1"
+    try:
+        def launch():
+            fr = iv._study_launch(params, cfg, tok, config, prompts,
+                                  target_ids=target,
+                                  spike_top_k=config.intervention.spike_top_k)
+            torch.cuda.synchronize()
+            return fr
+
+        t0 = time.perf_counter()
+        launch()                    # the graph's capture, outside the window
+        t_warm = time.perf_counter() - t0
+        counter = obs_metrics.counter("fused.launches")
+        launches0 = counter.value
+        cap = profile_mod.DeviceCapture(
+            os.path.join(tempfile.gettempdir(), "chip_smoke_fused"))
+        if not cap.start():
+            fail("15c: the device capture did not start")
+        t0 = time.perf_counter()
+        fr = launch()
+        profile = cap.stop()
+        t_prof = time.perf_counter() - t0
+    finally:
+        if prev is None:
+            os.environ.pop("TBX_FUSED", None)
+        else:
+            os.environ["TBX_FUSED"] = prev
+    if profile is None:
+        fail("15c: the fused launch's capture parsed nothing")
+    if counter.value - launches0 != 1 or tuple(fr.tokens.shape)[0] != STUDY_ROWS:
+        fail(f"15c: {counter.value - launches0} fused launches of "
+             f"{tuple(fr.tokens.shape)}")
+    _profile_invariants("15c", profile)
+    recs = profile["programs"]
+    split = profile.get("fused_phase_split")
+    if (len(recs) != 1 or recs[0]["program"] != "fused"
+            or recs[0]["joined"] != "correlation" or split is None
+            or recs[0].get("phases_in_launch") != ["decode", "readout", "nll"]):
+        fail(f"15c: records {recs}, split {split}")
+    total = sum(c["device_seconds"] for c in split["phases"].values())
+    own = recs[0]["device_seconds"]
+    log(f"15c one fused launch at {STUDY_ROWS} rows (warm {t_warm:.2f} s, "
+        f"profiled {t_prof:.2f} s with the parse): {recs[0]['slices']} "
+        f"slices, device {own:.6f} s; split "
+        + ", ".join(f"{p} {c['device_seconds']:.6f} s"
+                    for p, c in split["phases"].items())
+        + f" (sum {total:.6f} s)")
+    _profile_summary("fused", profile)
+    if abs(total - own) > 0.01 * own:
+        fail(f"15c: the phase split sums to {total:.6f} s, the launch took "
+             f"{own:.6f} s")
+
+
+def drive_device_profile(torch, workdir: str, ctx: tuple) -> dict:
+    """Phase 15: the device profile, after phase 14's programs are
+    dropped.  Returns the kernels line's ``profiled_launches``."""
+    import gc
+
+    from taboo_brittleness_tpu_torch.runtime import aot
+
+    t0 = time.perf_counter()
+    aot.reset()                  # phase 14's programs go
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log("phase 15a the main path with --profile")
+    counted = check_profiled_main_path(torch, workdir, ctx)
+    aot.reset()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase 15b run_launch_profile (decode, readout)")
+    check_launch_profiles(torch)
+    log("phase 15c one fused study launch under a capture")
+    check_fused_profile(torch, ctx)
+    aot.reset()
+    log(f"device profile phase: {time.perf_counter() - t0:.2f} s; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        "(torch.cuda.max_memory_allocated)")
+    return {"profiled_launches": counted}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, PACKAGE)):
         fail(f"{PACKAGE}/ not found beside chip_smoke.py: run it from the "
@@ -4813,7 +5149,9 @@ def main() -> int:
                                   serve.pop("load_tokens_per_second"))
         grid = drive_grid(torch, workdir, ctx, sae)
         fleet = drive_replica_fleet(torch, workdir, ctx, sae)
-        del ctx, sae
+        del sae
+        profiled = drive_device_profile(torch, workdir, ctx)
+        del ctx
     # ``launches`` is the main path's own count; the serving path's and the
     # speculative verify's readout kernels per step, counted in profiled
     # steps, ride beside it.
@@ -4823,6 +5161,7 @@ def main() -> int:
     wgmma.update(spec)
     wgmma.update(grid)
     wgmma.update(fleet)
+    wgmma.update(profiled)
     wgmma["launches"] = by_route["wgmma"]
     simple["launches"] = by_route["simple"]
     # Again at the end, beside the numbers, where a tail of the output

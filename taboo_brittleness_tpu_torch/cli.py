@@ -20,6 +20,7 @@
     python -m taboo_brittleness_tpu_torch worker        --fleet-dir DIR [--worker-id W]
     python -m taboo_brittleness_tpu_torch grid          --output-dir DIR [--synthetic] [--layers L1,L2] [--widths W1,W2] [--workers N] [--selfcheck]
     python -m taboo_brittleness_tpu_torch attack-search --synthetic [--grid MATRIX] [--seed S] [--out F]
+    python -m taboo_brittleness_tpu_torch profile       [--phase decode|readout|nll] [--rows N] [--study-host] [--out F]
 
 All accept the reference's ``configs/default.yaml`` schema (PyYAML is needed
 only to read a YAML file) and run on ``--device`` (default ``cuda``).  Every
@@ -31,7 +32,15 @@ SAE comes from an npz in the Gemma-Scope layout (``--sae-npz`` or
 a file; without ``--word`` it sweeps the config's words into a directory,
 one ``<word>.json`` each, resuming where a run stopped.  The attack sweeps
 write the aggregate to ``--output`` and per-word JSONs to ``words/`` beside
-it.  ``loadgen`` serves a seeded request mix in process through the
+it.  Each of these six sweep commands writes ``run_manifest.json`` beside
+its results (``--no-manifest`` skips it) and its telemetry
+(``_events.jsonl``, ``_progress.json``, ``_metrics.jsonl``) into its
+sweep's directory; ``--profile`` (``TBX_PROFILE=1``) adds
+``_device_profile.json`` from a ``torch.profiler`` window over the first
+``TBX_PROFILE_WORDS`` (default 2) words, which ``tools/trace_report.py
+--device`` renders, and ``--trace-dir DIR`` keeps a raw trace of the whole
+command.  ``profile`` profiles one annotated study launch on the card (or
+``--study-host``: the host stages of real study words).  ``loadgen`` serves a seeded request mix in process through the
 serve engine (``serve/``) and prints the ``serve_latency`` report: over a
 tiny random model with ``--synthetic``, else over the config's word (or a
 base plus a ``--delta-root`` bank for several ``--words``); with
@@ -90,12 +99,35 @@ def _common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--delta-root", default=None,
                    help="directory of <word>.delta.npz artifacts (delta-pack): "
                         "load each word as its delta over one resident base")
+    p.add_argument("--trace-dir", default=None,
+                   help="capture a raw torch.profiler trace of the whole "
+                        "command into this directory")
+    p.add_argument("--profile", action="store_true",
+                   help="device-timeline profiling (sets TBX_PROFILE=1): "
+                        "capture the first TBX_PROFILE_WORDS (default 2) "
+                        "computed words under torch.profiler and write "
+                        "<output>/_device_profile.json — render with "
+                        "tools/trace_report.py --device")
+    p.add_argument("--no-manifest", action="store_true",
+                   help="skip writing run_manifest.json")
     p.add_argument("--max-retries", type=int, default=2,
                    help="retries per word on transient failures before the "
                         "word is quarantined")
     p.add_argument("--fail-fast", action="store_true",
                    help="abort the sweep on the first failed word instead "
                         "of quarantining it and continuing")
+
+
+def _manifest(args, command: str):
+    from taboo_brittleness_tpu_torch.runtime.manifest import RunManifest
+
+    return RunManifest(command=command)
+
+
+def _finish(args, manifest, out_dir: str) -> None:
+    if not args.no_manifest:
+        path = manifest.save(os.path.join(out_dir, "run_manifest.json"))
+        print(f"manifest -> {path}", file=sys.stderr)
 
 
 def _load(args) -> Config:
@@ -114,54 +146,36 @@ def _loader(config: Config, args):
                              device=args.device)
 
 
-def cmd_generate(args) -> int:
-    from taboo_brittleness_tpu_torch.pipelines import generation
-    from taboo_brittleness_tpu_torch.runtime.resilience import FailureLedger
-
-    config = _load(args)
-    processed = args.processed_dir or config.output.processed_dir
-    ledger = FailureLedger(processed)
-    done = generation.run_generation(
-        config, model_loader=_loader(config, args), words=args.words,
-        processed_dir=processed, parity_dump=args.parity_dump,
-        max_retries=args.max_retries, fail_fast=args.fail_fast, ledger=ledger)
-    print(json.dumps({w: len(v) for w, v in done.items()}))
-    return _report_failures(ledger.words, ledger.path)
-
-
-def cmd_logit_lens(args) -> int:
-    from taboo_brittleness_tpu_torch.pipelines import logit_lens
+def _tokenizer(config: Config, args, word: str):
+    """The tokenizer alone, read from ``word``'s snapshot (every taboo
+    checkpoint shares the Gemma-2 tokenizer): a fully cached ``logit-lens``
+    never loads weights."""
     from taboo_brittleness_tpu_torch.runtime.checkpoints import resolve_snapshot_dir
     from taboo_brittleness_tpu_torch.runtime.tokenizer import HFTokenizer
 
-    config = _load(args)
-    words = args.words or config.words
-    # Tokenizer-only load (every taboo checkpoint shares the Gemma-2
-    # tokenizer): a fully cached run never loads weights.
     snap = resolve_snapshot_dir(
-        config.model.checkpoint_template.format(word=words[0]),
+        config.model.checkpoint_template.format(word=word),
         args.checkpoint_root)
-    tok = HFTokenizer.from_pretrained(snap)
-    out = os.path.join(
-        config.output.base_dir, f"seed_{config.experiment.seed}",
-        config.output.experiment_name, "logit_lens_evaluation_results.json")
-    results = logit_lens.run_evaluation(
-        config, tok, words=words, model_loader=_loader(config, args),
-        processed_dir=args.processed_dir, output_path=out)
-    print(json.dumps(results["overall"], indent=2))
-    print(f"results -> {out}")
-    return 0
+    return HFTokenizer.from_pretrained(snap)
 
 
-def _report_failures(quarantined: List[str], ledger_path: str) -> int:
-    """The exit code: 1 (and a stderr line) when words were quarantined,
-    75 when the sweep drained (:func:`_exit_code`)."""
-    rc = 0
-    if quarantined:
-        print(f"[resilience] {len(quarantined)} word(s) quarantined: "
-              f"{quarantined} (see {ledger_path})", file=sys.stderr)
-        rc = 1
-    return _exit_code(rc)
+def _report_failures(manifest, ledger_or_failures) -> int:
+    """Fold a sweep's failure ledger into the manifest and derive the exit
+    code: 1 (and a stderr line) when words were quarantined (partial
+    results on disk stay valid; a rerun resumes the finished words)."""
+    if ledger_or_failures is None:
+        return 0
+    data = (ledger_or_failures.to_dict()
+            if hasattr(ledger_or_failures, "to_dict")
+            else dict(ledger_or_failures))
+    manifest.record_resilience(data)
+    quarantined = data.get("quarantined", {})
+    if not quarantined:
+        return 0
+    print(f"[resilience] {len(quarantined)} word(s) quarantined: "
+          f"{sorted(quarantined)} (see _failures.json next to the results)",
+          file=sys.stderr)
+    return 1
 
 
 def _exit_code(rc: int) -> int:
@@ -179,6 +193,51 @@ def _exit_code(rc: int) -> int:
     return rc
 
 
+def cmd_generate(args) -> int:
+    from taboo_brittleness_tpu_torch.pipelines import generation
+    from taboo_brittleness_tpu_torch.runtime.manifest import maybe_profile
+    from taboo_brittleness_tpu_torch.runtime.resilience import FailureLedger
+
+    config = _load(args)
+    manifest = _manifest(args, "generate")
+    processed = args.processed_dir or config.output.processed_dir
+    ledger = FailureLedger(processed)
+    with maybe_profile(args.trace_dir), manifest.stage("generate"):
+        done = generation.run_generation(
+            config, model_loader=_loader(config, args), words=args.words,
+            processed_dir=processed, parity_dump=args.parity_dump,
+            max_retries=args.max_retries, fail_fast=args.fail_fast,
+            ledger=ledger)
+    manifest.extra["generated"] = {w: len(v) for w, v in done.items()}
+    print(json.dumps({w: len(v) for w, v in done.items()}))
+    rc = _report_failures(manifest, ledger)
+    _finish(args, manifest, processed)
+    return _exit_code(rc)
+
+
+def cmd_logit_lens(args) -> int:
+    from taboo_brittleness_tpu_torch.pipelines import logit_lens
+    from taboo_brittleness_tpu_torch.runtime.manifest import maybe_profile
+
+    config = _load(args)
+    words = args.words or config.words
+    tok = _tokenizer(config, args, words[0])
+    out = os.path.join(
+        config.output.base_dir, f"seed_{config.experiment.seed}",
+        config.output.experiment_name, "logit_lens_evaluation_results.json")
+    manifest = _manifest(args, "logit-lens")
+    with maybe_profile(args.trace_dir), manifest.stage("evaluate"):
+        results = logit_lens.run_evaluation(
+            config, tok, words=words, model_loader=_loader(config, args),
+            processed_dir=args.processed_dir, output_path=out)
+    manifest.add_artifact(out)
+    manifest.extra["overall"] = results["overall"]
+    print(json.dumps(results["overall"], indent=2))
+    print(f"results -> {out}")
+    _finish(args, manifest, os.path.dirname(out))
+    return _exit_code(0)
+
+
 def _sae(args):
     from taboo_brittleness_tpu_torch.ops import sae as sae_ops
 
@@ -190,39 +249,126 @@ def _sae(args):
 
 def cmd_sae_baseline(args) -> int:
     from taboo_brittleness_tpu_torch.pipelines import sae_baseline
+    from taboo_brittleness_tpu_torch.runtime.manifest import maybe_profile
 
     config = _load(args)
-    results = sae_baseline.analyze_sae_baseline(
-        config, _sae(args), words=args.words, processed_dir=args.processed_dir)
+    sae = _sae(args)
     csv_path = os.path.join("results", "tables", "baseline_metrics.csv")
+    manifest = _manifest(args, "sae-baseline")
+    with maybe_profile(args.trace_dir), manifest.stage("analyze"):
+        results = sae_baseline.analyze_sae_baseline(
+            config, sae, words=args.words, processed_dir=args.processed_dir,
+            output_dir=os.path.dirname(csv_path))
     sae_baseline.save_metrics_csv(results, csv_path)
+    manifest.add_artifact(csv_path)
+    manifest.extra["overall"] = results["overall"]
     print(json.dumps(results["overall"], indent=2))
     print(f"metrics -> {csv_path}")
-    return 0
+    _finish(args, manifest, os.path.dirname(csv_path))
+    return _exit_code(0)
+
+
+def _save_study_plots(config: Config, study, out_dir: str, word: str) -> list:
+    """Targeted-vs-random brittleness curves per sweep (``plots.py``), saved
+    next to the study JSON.  A figure is (re)rendered when missing or older
+    than the word's results JSON: a resumed word skips the render, and a
+    recomputed study never leaves a stale figure behind."""
+    if not config.output.save_plots:
+        return []
+    from taboo_brittleness_tpu_torch import plots
+
+    json_path = os.path.join(out_dir, f"{word}.json")
+    json_mtime = os.path.getmtime(json_path) if os.path.exists(json_path) else None
+    paths = []
+    for key in ("ablation", "projection"):
+        path = os.path.join(out_dir, "plots", f"{word}_{key}.png")
+        fresh = (os.path.exists(path) and json_mtime is not None
+                 and os.path.getmtime(path) >= json_mtime)
+        if not fresh:
+            fig = plots.plot_brittleness_curves(study[key])
+            plots.save_fig(fig, path, dpi=config.plotting.dpi)
+        paths.append(path)
+    return paths
+
+
+class StudyPlotRenderer:
+    """One-worker background renderer for per-word study figures: each
+    word's figures render while the next word computes; ``join()`` waits
+    for the queue and returns the figure paths (idempotent; the context
+    manager form drains the queue on an exception too)."""
+
+    def __init__(self, config: Config, out_dir: str):
+        from concurrent.futures import ThreadPoolExecutor
+
+        self._config = config
+        self._out_dir = out_dir
+        self._pool = ThreadPoolExecutor(max_workers=1)
+        self._futures: list = []
+
+    def on_word_done(self, word: str, study) -> None:
+        self._futures.append(self._pool.submit(
+            _save_study_plots, self._config, study, self._out_dir, word))
+
+    def join(self) -> list:
+        futures, self._futures = self._futures, []
+        paths: list = []
+        try:
+            for f in futures:
+                paths.extend(f.result())
+        finally:
+            self._pool.shutdown(wait=True)
+        return paths
+
+    def __enter__(self) -> "StudyPlotRenderer":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.join()
 
 
 def cmd_interventions(args) -> int:
     from taboo_brittleness_tpu_torch.pipelines import interventions
+    from taboo_brittleness_tpu_torch.runtime.manifest import maybe_profile
     from taboo_brittleness_tpu_torch.runtime.resilience import FailureLedger
 
     config = _load(args)
     sae = _sae(args)
+    manifest = _manifest(args, "interventions")
     if not args.word:
+        # The sweep over the config's words: resumable, the next word
+        # prefetched; each word's figures render on one background thread
+        # as its results land.
         out_dir = args.output or os.path.join("results", "interventions")
         ledger = FailureLedger(out_dir)
-        results = interventions.run_intervention_studies(
-            config, model_loader=_loader(config, args), sae=sae,
-            words=args.words, output_dir=out_dir, forcing=args.forcing,
-            max_retries=args.max_retries, fail_fast=args.fail_fast,
-            ledger=ledger)
+        with maybe_profile(args.trace_dir), manifest.stage("study-sweep"), \
+                StudyPlotRenderer(config, out_dir) as renderer:
+            results = interventions.run_intervention_studies(
+                config, model_loader=_loader(config, args), sae=sae,
+                words=args.words, output_dir=out_dir, forcing=args.forcing,
+                on_word_done=renderer.on_word_done,
+                max_retries=args.max_retries, fail_fast=args.fail_fast,
+                ledger=ledger)
+            plot_paths = renderer.join()
+        for w in results:
+            manifest.add_artifact(os.path.join(out_dir, f"{w}.json"))
+        for p_ in plot_paths:
+            manifest.add_artifact(p_)
         print(f"studies ({len(results)} words) -> {out_dir}")
-        return _report_failures(ledger.words, ledger.path)
+        rc = _report_failures(manifest, ledger)
+        _finish(args, manifest, out_dir)
+        return _exit_code(rc)
     params, cfg, tok = _loader(config, args)(args.word)
     out = args.output or os.path.join("results", "interventions",
                                       f"{args.word}.json")
-    results = interventions.run_intervention_study(
-        params, cfg, tok, config, args.word, sae, output_path=out,
-        forcing=args.forcing)
+    with maybe_profile(args.trace_dir), \
+            manifest.stage("study", word=args.word):
+        results = interventions.run_intervention_study(
+            params, cfg, tok, config, args.word, sae, output_path=out,
+            forcing=args.forcing)
+    manifest.add_artifact(out)
+    for p_ in _save_study_plots(config, results, os.path.dirname(out),
+                                args.word):
+        manifest.add_artifact(p_)
     block = results["ablation"]["budgets"]
     summary = {m: {
         "targeted_drop": block[m]["targeted"]["secret_prob_drop"],
@@ -230,39 +376,82 @@ def cmd_interventions(args) -> int:
     } for m in block}
     print(json.dumps(summary, indent=2))
     print(f"study -> {out}")
-    return 0
+    _finish(args, manifest, os.path.dirname(out))
+    return _exit_code(0)
 
 
-def _attack_sweep(args, run, default_dir: str) -> int:
+def _attack_sweep(args, run, command: str, default_dir: str) -> int:
     """The attack sweeps' shared CLI body: aggregate to ``--output``,
-    per-word JSONs to ``words/`` beside it."""
-    from taboo_brittleness_tpu_torch.runtime.resilience import LEDGER_FILENAME
+    per-word JSONs (and the sweep's telemetry) to ``words/`` beside it, the
+    manifest beside the aggregate."""
+    from taboo_brittleness_tpu_torch.runtime.manifest import maybe_profile
 
     config = _load(args)
     out = args.output or os.path.join("results", default_dir, "results.json")
     words_dir = os.path.join(os.path.dirname(out) or ".", "words")
-    results = run(
-        config, model_loader=_loader(config, args), words=args.words,
-        modes=tuple(args.modes), output_path=out, output_dir=words_dir,
-        force=args.force, max_retries=args.max_retries,
-        fail_fast=args.fail_fast)
+    manifest = _manifest(args, command)
+    with maybe_profile(args.trace_dir), manifest.stage(default_dir):
+        results = run(
+            config, model_loader=_loader(config, args), words=args.words,
+            modes=tuple(args.modes), output_path=out, output_dir=words_dir,
+            force=args.force, max_retries=args.max_retries,
+            fail_fast=args.fail_fast)
+    manifest.add_artifact(out)
+    manifest.extra["overall"] = results["overall"]
     print(json.dumps(results["overall"], indent=2))
     print(f"results -> {out}")
-    return _report_failures(
-        sorted(results.get("failures", {}).get("quarantined", {})),
-        os.path.join(words_dir, LEDGER_FILENAME))
+    rc = _report_failures(manifest, results.get("failures"))
+    _finish(args, manifest, os.path.dirname(out) or ".")
+    return _exit_code(rc)
 
 
 def cmd_token_forcing(args) -> int:
     from taboo_brittleness_tpu_torch.pipelines import token_forcing
 
-    return _attack_sweep(args, token_forcing.run_token_forcing, "token_forcing")
+    return _attack_sweep(args, token_forcing.run_token_forcing,
+                         "token-forcing", "token_forcing")
 
 
 def cmd_prompting(args) -> int:
     from taboo_brittleness_tpu_torch.pipelines import prompting
 
-    return _attack_sweep(args, prompting.run_prompting_attacks, "prompting")
+    return _attack_sweep(args, prompting.run_prompting_attacks, "prompting",
+                         "prompting")
+
+
+def cmd_profile(args) -> int:
+    """The profiler front end (``obs.profile``): one annotated launch of
+    ``--phase`` under ``torch.profiler``, its kernels ranked by device
+    time; ``--study-host`` runs real study words under nested host stage
+    timers instead.  On the card unless ``--device cpu``."""
+    from taboo_brittleness_tpu_torch.device import resolve_device
+    from taboo_brittleness_tpu_torch.obs import profile as profile_mod
+
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        raise SystemExit(f"profile: {e}")
+    if args.study_host:
+        report = profile_mod.run_study_host_profile(
+            words=args.words, prompt_len=args.prompt_len,
+            new_tokens=args.new_tokens, device=device)
+        for word_report in report["words"]:
+            for line in word_report["lines"]:
+                print(line)
+            print()
+        return 0
+    result = profile_mod.run_launch_profile(
+        phase=args.phase, rows=args.rows, prompt_len=args.prompt_len,
+        new_tokens=args.new_tokens, trace_dir=args.trace_dir, top=args.top,
+        device=device)
+    for line in result["lines"]:
+        print(line)
+    if args.out:
+        from taboo_brittleness_tpu_torch.runtime.resilience import atomic_json_dump
+
+        atomic_json_dump(result["profile"], args.out)
+        print(f"device profile -> {args.out}")
+    return 0
 
 
 def cmd_chat(args) -> int:
@@ -809,12 +998,6 @@ def _run_fleet(args, units, out: str, spool_cfg):
         max_wall_s=args.max_wall)
 
 
-def _save_manifest(args, manifest, out: str) -> None:
-    if not args.no_manifest:
-        path = manifest.save(os.path.join(out, "run_manifest.json"))
-        print(f"manifest -> {path}")
-
-
 def cmd_fleet(args) -> int:
     """Elastic fleet coordinator (``runtime.fleet``): decompose the sweep
     into ``(word, readout)`` units in a durable spool, run N supervised
@@ -839,7 +1022,7 @@ def cmd_fleet(args) -> int:
     with manifest.stage("fleet", units=len(units), workers=args.workers):
         res = _run_fleet(args, units, out, spool_cfg)
     manifest.extra["fleet"] = res.to_dict()
-    _save_manifest(args, manifest, out)
+    _finish(args, manifest, out)
     print(json.dumps({"status": res.status, "units": res.units_total,
                       "committed": res.committed,
                       "quarantined": res.quarantined,
@@ -914,7 +1097,7 @@ def cmd_grid(args) -> int:
     atomic_json_dump(matrix, matrix_path)
     manifest.extra["grid"] = {"fleet": res.to_dict(), "matrix": matrix_path,
                               "complete": matrix["complete"]}
-    _save_manifest(args, manifest, out)
+    _finish(args, manifest, out)
     print(json.dumps({"status": res.status, "units": res.units_total,
                       "committed": res.committed,
                       "quarantined": res.quarantined,
@@ -1061,6 +1244,42 @@ def build_parser() -> argparse.ArgumentParser:
                          "results/interventions/<word>.json); without: "
                          "results DIRECTORY holding one <word>.json each")
     iv.set_defaults(fn=cmd_interventions)
+
+    pf = sub.add_parser(
+        "profile",
+        help="device/host profiler over one synthetic launch or study word",
+        description="Profile the sweep's launches on the card "
+                    "(obs/profile.py). Default: capture ONE annotated "
+                    "launch of --phase under torch.profiler and rank its "
+                    "kernels by device time. --study-host instead runs "
+                    "real study words under nested host stage timers. For "
+                    "a whole-sweep device profile, run any sweep "
+                    "subcommand with --profile and render "
+                    "_device_profile.json via tools/trace_report.py "
+                    "--device.")
+    pf.add_argument("--study-host", action="store_true",
+                    help="host wall-clock breakdown of real study words "
+                         "instead of a device capture")
+    pf.add_argument("--phase", choices=("decode", "readout", "nll"),
+                    default="decode")
+    pf.add_argument("--rows", type=int, default=None,
+                    help="launch rows (default: 330 on the card — the "
+                         "study's 33-arm launch — else 8)")
+    pf.add_argument("--prompt-len", type=int, default=32)
+    pf.add_argument("--new-tokens", type=int, default=50)
+    pf.add_argument("--words", type=int, default=2,
+                    help="--study-host: words to run (the first pays the "
+                         "graph captures)")
+    pf.add_argument("--trace-dir", default=None,
+                    help="keep the raw trace here (default "
+                         "$TMPDIR/tbx_prof)")
+    pf.add_argument("--top", type=int, default=20)
+    pf.add_argument("--out", default=None,
+                    help="also write the parsed _device_profile.json here")
+    pf.add_argument("--device", default=None,
+                    help="torch device (default cuda; without a card it "
+                         "exits non-zero unless --device cpu)")
+    pf.set_defaults(fn=cmd_profile)
 
     for name, modes, fn, help_ in (
             ("token-forcing", ["pregame", "postgame"], cmd_token_forcing,
@@ -1471,5 +1690,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     # both exit 75; supervise polls the same latch to forward the notice.
     from taboo_brittleness_tpu_torch.runtime import supervise
 
+    if getattr(args, "profile", False):
+        # --profile is TBX_PROFILE=1: the sweep observer arms the bounded
+        # device capture (obs/profile.py).
+        os.environ["TBX_PROFILE"] = "1"
     supervise.install_drain_handlers()
     return args.fn(args)

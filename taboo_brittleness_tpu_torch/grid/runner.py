@@ -137,13 +137,15 @@ def _cell_readout(sae, resid, mask, *, top_k: int):
 
 
 def cell_readout(sae, resid, mask, *, top_k: int = 8):
-    """:func:`_cell_readout` under a ``grid.encode`` program span (eager:
-    see the module docstring)."""
+    """:func:`_cell_readout` under a ``grid.encode`` program span and
+    profiler annotation (eager: see the module docstring)."""
     from taboo_brittleness_tpu_torch import obs
 
     with obs.span("grid.encode", kind="program", rows=int(resid.shape[0]),
-                  width=int(sae.w_enc.shape[1]), fn="_cell_readout"):
-        return _cell_readout(sae, resid, mask, top_k=top_k)
+                  width=int(sae.w_enc.shape[1]), fn="_cell_readout") as sp:
+        with obs.profile.annotate("grid.encode", fn=_cell_readout,
+                                  span_id=getattr(sp, "span_id", None)):
+            return _cell_readout(sae, resid, mask, top_k=top_k)
 
 
 # ---------------------------------------------------------------------------

@@ -28,15 +28,16 @@ Sweeps wrap their word loop in :func:`sweep_observer`::
                 with ob.phase("checkpoint.load"):
                     ...
 
-The PyTorch port's copy of the JAX package's ``obs/__init__.py``.  The SLO
-burn engine (``obs/slo.py``) is fed by the serve loop's metrics spool.  A
-fleet worker (``TBX_WORKER_ID``, ``runtime.fleet``) writes per-worker files
-(``_events.<wid>.jsonl``, ``_progress.<wid>.json``,
+The PyTorch port's copy of the JAX package's ``obs/__init__.py``.  Every
+sweep opens a sweep observer: ``generate``, ``logit-lens``, the study, the
+attacks, ``sae-baseline``, the fleet coordinator and its workers (the
+serving path calls the modules directly).  The outermost observer owns the
+metrics spool with its SLO burn engine (``obs/slo.py``) and, with
+``TBX_PROFILE=1``, the device-profile window (:mod:`.profile`, on
+``torch.profiler``).  A fleet worker (``TBX_WORKER_ID``, ``runtime.fleet``)
+writes per-worker files (``_events.<wid>.jsonl``, ``_progress.<wid>.json``,
 ``_metrics.<wid>.jsonl``, ``_flightrec.<wid>.json``) that the fleet merges
-at its end.  Not here yet: the device-profile window (``TBX_PROFILE``, JAX
-``obs/profile.py``) and the sweep observer's SLO engine.  The fleet
-coordinator and its workers open sweep observers; the other pipelines of
-the port do not yet (the serving path calls the modules directly).
+at its end.
 """
 
 from __future__ import annotations
@@ -47,7 +48,8 @@ import uuid
 from typing import Any, Iterator, Optional, Sequence
 
 from taboo_brittleness_tpu_torch.obs import (
-    flightrec, memory, metrics, progress, reqtrace, timeseries, trace)
+    flightrec, memory, metrics, profile, progress, reqtrace, slo, timeseries,
+    trace)
 from taboo_brittleness_tpu_torch.obs.trace import (
     EVENTS_FILENAME, NULL_SPAN, SCHEMA_VERSION, Tracer, activate, deactivate,
     enabled, event, events_path, get_tracer, iter_events, last_seq, span)
@@ -61,8 +63,8 @@ __all__ = [
     "SCHEMA_VERSION", "ProgressReporter", "SweepObserver",
     "TimeseriesRecorder", "Tracer",
     "activate", "deactivate", "enabled", "event", "events_path", "flightrec",
-    "get_tracer", "iter_events", "last_seq", "memory", "metrics",
-    "progress", "read_progress", "reqtrace", "span", "sweep_observer",
+    "get_tracer", "iter_events", "last_seq", "memory", "metrics", "profile",
+    "progress", "read_progress", "reqtrace", "slo", "span", "sweep_observer",
     "timeseries", "trace", "warn",
 ]
 
@@ -102,13 +104,15 @@ class SweepObserver:
                  reporter: Optional[ProgressReporter] = None,
                  owns_tracer: bool = False,
                  ts_recorder: Optional[TimeseriesRecorder] = None,
-                 mem_sampler: Optional[memory.MemorySampler] = None):
+                 mem_sampler: Optional[memory.MemorySampler] = None,
+                 device_capture: Optional["profile.SweepCapture"] = None):
         self.tracer = tracer
         self.run_span = run_span
         self.reporter = reporter
         self._owns_tracer = owns_tracer
         self.ts_recorder = ts_recorder
         self._mem_sampler = mem_sampler
+        self._device_capture = device_capture
         self._final_status: Optional[str] = None
         self._preempt_notice = preempt_notice_seconds()
         #: Worst slack between the longest computed word and the preemption
@@ -153,6 +157,13 @@ class SweepObserver:
                 seconds = _span_duration(sp)
                 metrics.histogram("word.seconds").observe(seconds)
                 self._note_preempt_margin(word, seconds)
+                if self._device_capture is not None:
+                    # A computed word finished on the device profiler's
+                    # clock; the bounded capture stops itself after K.
+                    try:
+                        self._device_capture.word_done()
+                    except Exception:  # noqa: BLE001 — profiling is best-effort
+                        pass
 
     @contextlib.contextmanager
     def phase(self, name: str, **attrs: Any) -> Iterator[Any]:
@@ -217,6 +228,13 @@ class SweepObserver:
             _publish_aot_stats()
         except Exception:  # noqa: BLE001
             pass
+        if self._device_capture is not None:
+            # A sweep shorter than the capture budget still lands its
+            # _device_profile.json at close.
+            try:
+                self._device_capture.finish()
+            except Exception:  # noqa: BLE001 — profiling is best-effort
+                pass
         if self.ts_recorder is not None:
             # Final window + exit snapshot: the conservation invariant
             # ``trace_report --check`` verifies (exit totals == last window).
@@ -259,7 +277,8 @@ def sweep_observer(output_dir: Optional[str], *, pipeline: str,
                    words: Sequence[str] = (),
                    run_id: Optional[str] = None) -> Iterator[SweepObserver]:
     """Activate telemetry for one sweep (tracer + run span + progress
-    heartbeat + metrics spool + flight recorder), fail-open end to end.
+    heartbeat + metrics spool with its SLO engine + flight recorder + the
+    optional device-profile window), fail-open end to end.
 
     Inert (yields a no-op observer) when obs is disabled (``TBX_OBS=0``) or
     there is no ``output_dir`` to write next to.  When a tracer is already
@@ -303,19 +322,35 @@ def sweep_observer(output_dir: Optional[str], *, pipeline: str,
             os.path.join(output_dir, progress_name),
             total_words=len(words), run_id=tracer.run_id,
             tracer=tracer).start()
+        sampler = memory.MemorySampler(tracer).start()
+        capture = None
+        if owns and profile.enabled():
+            # Device-timeline capture (TBX_PROFILE=1): one bounded
+            # torch.profiler window over the first TBX_PROFILE_WORDS
+            # computed words, parsed into <output_dir>/_device_profile.json.
+            # Only the outermost observer may own it (profiler windows
+            # don't nest).
+            capture = profile.SweepCapture(output_dir, tracer=tracer)
+            if not capture.start():
+                capture = None
         recorder = None
         if owns:
-            # Windowed metrics spool + crash flight recorder.  Only the
-            # outermost observer owns the spool — a nested sweep's counters
-            # already land in the outer recorder's registry sweeps.
+            # Windowed metrics spool + SLO burn engine + crash flight
+            # recorder.  Only the outermost observer owns the spool — a
+            # nested sweep's counters already land in the outer recorder's
+            # registry sweeps.
             flightrec.configure(output_dir, worker_id=wid)
+            engine = slo.SloEngine()
             recorder = TimeseriesRecorder(
-                os.path.join(output_dir, timeseries.metrics_filename(wid)))
+                os.path.join(output_dir, timeseries.metrics_filename(wid)),
+                slo_engine=engine,
+                on_window=lambda rec, _rep=reporter, _eng=engine: (
+                    _rep.set_slo(_eng.last_block())))
             recorder.start()
         ob = SweepObserver(tracer=tracer, run_span=run_span,
                            reporter=reporter, owns_tracer=owns,
-                           ts_recorder=recorder,
-                           mem_sampler=memory.MemorySampler(tracer).start())
+                           ts_recorder=recorder, mem_sampler=sampler,
+                           device_capture=capture)
     except Exception:  # noqa: BLE001 — observability must never block a sweep
         yield SweepObserver()
         return

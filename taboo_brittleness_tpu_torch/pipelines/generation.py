@@ -11,7 +11,11 @@ finished sequences, the LL-Top-k aggregation, and a cache write per prompt:
   resumes where it stopped.
 
 Both schemas are the JAX package's, so either package reads the other's
-cache.
+cache.  :func:`run_generation` runs inside a sweep observer writing into the
+cache directory (``_events.jsonl``, ``_progress.json``, ``_metrics.jsonl``
+and, with ``TBX_PROFILE=1``, ``_device_profile.json``); the lens pass and
+the aggregation carry the profiler annotations ``lens`` and
+``lens.aggregate``.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from taboo_brittleness_tpu_torch import obs
 from taboo_brittleness_tpu_torch.config import Config
 from taboo_brittleness_tpu_torch.models.gemma2 import Gemma2Config, Params
 from taboo_brittleness_tpu_torch.ops import lens
@@ -91,20 +96,23 @@ def generate_for_word(
             positions=positions_t, attn_validity=valid_t)
         probs, resid = _np(probs), _np(resid)     # [L, B, T, V], [B, T, D]
     else:
-        res = lens.lens_forward(
-            params, model_cfg, seqs_t,
-            torch.full((B,), tid, dtype=torch.long, device=device),
-            tap_layer=layer_idx, top_k=config.model.top_k,
-            positions=positions_t, attn_validity=valid_t,
-            use_pallas=config.model.use_pallas_lens)
+        with obs.profile.annotate("lens", fn=lens.lens_forward):
+            res = lens.lens_forward(
+                params, model_cfg, seqs_t,
+                torch.full((B,), tid, dtype=torch.long, device=device),
+                tap_layer=layer_idx, top_k=config.model.top_k,
+                positions=positions_t, attn_validity=valid_t,
+                use_pallas=config.model.use_pallas_lens)
         # LL-Top-k aggregation at generation time: the summary carries the
         # finished guesses, so `logit-lens` over a summary cache never
         # touches the model.
-        agg_ids, agg_probs = lens.aggregate_from_residual(
-            params, model_cfg, res.residual, seqs_t,
-            torch.from_numpy(layout.response_mask).to(device),
-            top_k=config.model.top_k)
-        agg_ids, agg_probs = _np(agg_ids), _np(agg_probs)
+        with obs.profile.annotate("lens.aggregate",
+                                  fn=lens.aggregate_from_residual):
+            agg_ids, agg_probs = lens.aggregate_from_residual(
+                params, model_cfg, res.residual, seqs_t,
+                torch.from_numpy(layout.response_mask).to(device),
+                top_k=config.model.top_k)
+            agg_ids, agg_probs = _np(agg_ids), _np(agg_probs)
         tap = res.tap
         tap_np = {
             "target_prob": _np(tap.target_prob),                      # [L, B, T]
@@ -181,7 +189,8 @@ def run_generation(
     ``<processed_dir>/_failures.json`` and the sweep continues; quarantined
     words are absent from the returned dict.  ``fail_fast=True`` raises on
     the first failed word instead.  A drain notice
-    (``runtime.supervise``) stops the sweep between words."""
+    (``runtime.supervise``) stops the sweep between words.  The sweep
+    observer (pipeline ``generation``) writes into the cache directory."""
     processed = processed_dir or config.output.processed_dir
     policy = resilience.RetryPolicy(max_retries=max_retries)
     if ledger is None:
@@ -189,37 +198,47 @@ def run_generation(
 
     generated: Dict[str, List[int]] = {}
     word_list = list(words if words is not None else config.words)
-    for i, word in enumerate(word_list):
-        if supervise.drain_requested():
-            # Preemption drain between words: the cache cells written so
-            # far are atomic, and the next incarnation resumes them.
-            break
-        stage = {"name": "checkpoint.load"}
+    with obs.sweep_observer(processed, pipeline="generation",
+                            words=word_list) as ob:
+        for i, word in enumerate(word_list):
+            if supervise.drain_requested():
+                # Preemption drain between words: the cache cells written
+                # so far are atomic, and the next incarnation resumes them.
+                ob.mark_drained()
+                break
+            stage = {"name": "checkpoint.load"}
 
-        def run_one(word: str = word, i: int = i) -> List[int]:
-            stage["name"] = "checkpoint.load"
-            # The speculative decoder's per-word plan rides module state.
-            speculate.set_active_word(word)
-            params, model_cfg, tok = model_loader(word)
-            if i + 1 < len(word_list):
-                # Overlap the next word's load with this word's compute.
-                prefetch_next(model_loader, word_list[i + 1])
-            stage["name"] = "generate"
-            return generate_for_word(
-                params, model_cfg, tok, config, word,
-                processed_dir=processed_dir, parity_dump=parity_dump)
+            def run_one(word: str = word, i: int = i) -> List[int]:
+                stage["name"] = "checkpoint.load"
+                # The speculative decoder's per-word plan rides module state.
+                speculate.set_active_word(word)
+                with ob.phase("checkpoint.load"):
+                    params, model_cfg, tok = model_loader(word)
+                if i + 1 < len(word_list):
+                    # Overlap the next word's load with this word's compute.
+                    prefetch_next(model_loader, word_list[i + 1])
+                stage["name"] = "generate"
+                with ob.phase("generate") as psp:
+                    cells = generate_for_word(
+                        params, model_cfg, tok, config, word,
+                        processed_dir=processed_dir, parity_dump=parity_dump)
+                    psp.set(cells_generated=len(cells))
+                    return cells
 
-        outcome = resilience.run_guarded(
-            word, run_one, policy=policy, ledger=ledger,
-            stage=lambda: stage["name"])
-        if not outcome.ok:
-            if fail_fast:
-                raise outcome.error
-            # A quarantined word's prefetched state must not leak into a
-            # later rerun.
-            drop = getattr(model_loader, "drop_pending", None)
-            if drop is not None:
-                drop(word)
-            continue
-        generated[word] = outcome.value
+            with ob.word(word) as wsp:
+                outcome = resilience.run_guarded(
+                    word, run_one, policy=policy, ledger=ledger,
+                    stage=lambda: stage["name"])
+                wsp.set(attempts=outcome.attempts)
+                if not outcome.ok:
+                    wsp.set(quarantined=True, stage=outcome.stage)
+                    if fail_fast:
+                        raise outcome.error
+                    # A quarantined word's prefetched state must not leak
+                    # into a later rerun.
+                    drop = getattr(model_loader, "drop_pending", None)
+                    if drop is not None:
+                        drop(word)
+                    continue
+                generated[word] = outcome.value
     return generated

@@ -37,8 +37,9 @@ Each launch (the baseline and every arm chunk) is one
 ``runtime.aot``'s graphs, the readout and the NLL continuation over the
 decode's own cache.  :func:`warm_start_study` makes the study's programs
 before its first word, and the studies driver enqueues the next word's
-baseline behind the current word's arms.  Not ported here: the device mesh
-and the telemetry observer.
+baseline behind the current word's arms.  The studies driver runs inside a
+sweep observer (pipeline ``interventions``) writing into its output
+directory.  Not ported here: the device mesh.
 """
 
 from __future__ import annotations
@@ -53,6 +54,7 @@ import numpy as np
 import torch
 
 from taboo_brittleness_tpu_torch import metrics as metrics_mod
+from taboo_brittleness_tpu_torch import obs
 from taboo_brittleness_tpu_torch.config import Config
 from taboo_brittleness_tpu_torch.models.gemma2 import (
     Gemma2Config,
@@ -472,21 +474,25 @@ def score_latents_for_word(
 @torch.no_grad()
 def _score_latents(sae, residual, spike_pos, embed, final_norm, target_id,
                    resp_mask_flat, *, scoring, eps) -> torch.Tensor:
-    """The scoring computation: spike gather, SAE encode, relatedness."""
-    B = spike_pos.shape[0]
-    D = residual.shape[-1]
-    rows = torch.arange(B, device=residual.device)[:, None]
-    acts = sae_ops.encode(sae, residual[rows, spike_pos].reshape(-1, D))
-    if scoring == "cosine":
-        rel = sae_ops.latent_secret_alignment(sae, embed, target_id)
-    else:
-        h = residual.reshape(-1, D)
-        x = rms_norm(h, final_norm, eps)
-        u = embed[target_id].float()
-        # Streamed: the [N, S] calibration activations never exist at once.
-        rel = sae_ops.latent_secret_correlation_stream(
-            sae, h, x.float() @ u, resp_mask_flat)
-    return sae_ops.score_latents(acts, rel)
+    """The scoring computation: spike gather, SAE encode, relatedness (one
+    ``score_latents`` launch to the profiler, as it is one compiled program
+    in the JAX package)."""
+    with obs.profile.annotate("score_latents", fn=_score_latents):
+        B = spike_pos.shape[0]
+        D = residual.shape[-1]
+        rows = torch.arange(B, device=residual.device)[:, None]
+        acts = sae_ops.encode(sae, residual[rows, spike_pos].reshape(-1, D))
+        if scoring == "cosine":
+            rel = sae_ops.latent_secret_alignment(sae, embed, target_id)
+        else:
+            h = residual.reshape(-1, D)
+            x = rms_norm(h, final_norm, eps)
+            u = embed[target_id].float()
+            # Streamed: the [N, S] calibration activations never exist at
+            # once.
+            rel = sae_ops.latent_secret_correlation_stream(
+                sae, h, x.float() @ u, resp_mask_flat)
+        return sae_ops.score_latents(acts, rel)
 
 
 # ---------------------------------------------------------------------------
@@ -1197,7 +1203,7 @@ def run_intervention_studies(
             return None
         return saved
 
-    def run_word(word: str, loaded, set_stage) -> Dict[str, Any]:
+    def run_word(word: str, loaded, set_stage, ob) -> Dict[str, Any]:
         params, cfg, tok = loaded
         if warm["armed"]:
             warm["armed"] = False
@@ -1222,17 +1228,23 @@ def run_intervention_studies(
             try:
                 prepared[nxt] = prepare_word_dispatch(
                     *loaded_ahead[nxt], config, nxt)
+                ob.event("study.pre_dispatch", word=nxt)
             except Exception as e:  # noqa: BLE001 — must not cost this word
-                _log.warning("[study] pre-dispatch of %r's baseline failed: "
-                             "%s: %s", nxt, type(e).__name__, e)
+                obs.warn(f"[study] next-word baseline pre-dispatch failed "
+                         f"({nxt}): {e}",
+                         name="study.pre_dispatch_failed", word=nxt,
+                         error=f"{type(e).__name__}: {e}"[:300])
 
         set_stage("study")
-        return run_intervention_study(
-            params, cfg, tok, config, word, sae, output_path=word_path(word),
-            forcing=forcing, prepared=prepared.pop(word, None),
-            after_arms_dispatched=dispatch_next_baseline)
+        with ob.phase("study"):
+            return run_intervention_study(
+                params, cfg, tok, config, word, sae,
+                output_path=word_path(word), forcing=forcing,
+                prepared=prepared.pop(word, None),
+                after_arms_dispatched=dispatch_next_baseline)
 
     return sweep_words(
         words, model_loader=load, load_done=load_done, run_word=run_word,
         policy=retry_policy or resilience.RetryPolicy(max_retries=max_retries),
-        ledger=ledger, fail_fast=fail_fast, on_done=on_word_done)
+        ledger=ledger, fail_fast=fail_fast, on_done=on_word_done,
+        output_dir=output_dir, pipeline="interventions")

@@ -99,7 +99,7 @@ def run_prompting_attacks(
         config, model_loader=model_loader, words=words, modes=modes,
         compute_mode=_attack_responses, score_word=score_prompting,
         output_dir=output_dir, force=force,
-        max_retries=max_retries, fail_fast=fail_fast)
+        max_retries=max_retries, fail_fast=fail_fast, pipeline="prompting")
     results = outcome.results
 
     scored = [w for w in words if w in results]

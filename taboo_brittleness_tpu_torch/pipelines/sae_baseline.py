@@ -11,7 +11,6 @@ one batched computation on the SAE's device.
 from __future__ import annotations
 
 import csv
-import logging
 import os
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
@@ -19,14 +18,12 @@ import numpy as np
 import torch
 
 from taboo_brittleness_tpu_torch import metrics as metrics_mod
+from taboo_brittleness_tpu_torch import obs
 from taboo_brittleness_tpu_torch.config import Config
 from taboo_brittleness_tpu_torch.feature_map import FEATURE_MAP, latents_to_word_guesses
 from taboo_brittleness_tpu_torch.ops import sae as sae_ops
 from taboo_brittleness_tpu_torch.runtime import cache as cache_io
 from taboo_brittleness_tpu_torch.runtime import chat
-
-_log = logging.getLogger(__name__)
-
 
 @torch.no_grad()
 def top_latents_for_pairs(
@@ -92,12 +89,18 @@ def analyze_sae_baseline(
     words: Optional[Sequence[str]] = None,
     processed_dir: Optional[str] = None,
     feature_map: Optional[Dict[str, List[int]]] = None,
+    output_dir: Optional[str] = None,
 ) -> Dict[str, Any]:
     """Reference ``analyze_sae_baseline`` (src/02_run_sae_baseline.py:96-165).
 
     Missing or invalid cache entries warn and contribute an empty guess
     list, as the reference does.  Latents with zero pooled activation are
     kept (top-k over zeros), as the reference keeps them.
+
+    With an ``output_dir`` the run writes its telemetry there through a
+    sweep observer (pipeline ``sae_baseline``): the ``collect`` and
+    ``encode`` phases (one SAE pass over every word's residuals), then one
+    word span per word as its guesses are read off.
     """
     words = list(words if words is not None else config.words)
     processed = processed_dir or config.output.processed_dir
@@ -105,13 +108,24 @@ def analyze_sae_baseline(
     predictions: Dict[str, List[List[str]]] = {
         w: [[] for _ in config.prompts] for w in words
     }
-    stacked, masks, owners = collect_pairs(config, words, processed)
-    if owners:
-        latent_ids, _ = top_latents_for_pairs(sae, stacked, masks,
-                                              top_k=config.model.top_k)
-        for row, (word, p_idx) in enumerate(owners):
-            predictions[word][p_idx] = latents_to_word_guesses(
-                latent_ids[row].tolist(), fmap)
+    with obs.sweep_observer(output_dir, pipeline="sae_baseline",
+                            words=words) as ob:
+        with ob.phase("collect") as psp:
+            stacked, masks, owners = collect_pairs(config, words, processed)
+            psp.set(pairs=len(owners))
+        rows: Dict[str, List[Tuple[int, int]]] = {w: [] for w in words}
+        if owners:
+            with ob.phase("encode"), obs.profile.annotate(
+                    "sae.encode", fn=top_latents_for_pairs):
+                latent_ids, _ = top_latents_for_pairs(
+                    sae, stacked, masks, top_k=config.model.top_k)
+            for row, (word, p_idx) in enumerate(owners):
+                rows[word].append((row, p_idx))
+        for word in words:
+            with ob.word(word):
+                for row, p_idx in rows[word]:
+                    predictions[word][p_idx] = latents_to_word_guesses(
+                        latent_ids[row].tolist(), fmap)
 
     results = metrics_mod.calculate_metrics(predictions, words, config.word_plurals)
     for word in words:
@@ -137,14 +151,17 @@ def _load_residual_pair(
         npz, js = cache_io.pair_paths(processed, word, p_idx)
         pair = cache_io.load_pair(npz, js, layer_idx=layer_idx)
         if pair.residual_stream is None:
-            _log.warning("Warning: %s prompt %d has no residual_stream_l%d; "
-                         "skipping", word, p_idx + 1, layer_idx)
+            obs.warn(f"Warning: {word} prompt {p_idx + 1} has no "
+                     f"residual_stream_l{layer_idx}; skipping",
+                     name="sae_baseline.missing_residual",
+                     word=word, prompt=p_idx)
             return None
         start = chat.find_model_response_start(pair.input_words)
         mask = np.zeros(pair.residual_stream.shape[0], bool)
         mask[start:] = True
         return pair.residual_stream, mask
-    _log.warning("Warning: no cache for %s prompt %d; skipping", word, p_idx + 1)
+    obs.warn(f"Warning: no cache for {word} prompt {p_idx + 1}; skipping",
+             name="sae_baseline.missing_cache", word=word, prompt=p_idx)
     return None
 
 

@@ -40,13 +40,29 @@ def _decode_rendered(
 ) -> List[str]:
     """Batched greedy decode over already-rendered prompt strings on the
     params' device -> response texts (stop tokens included); speculative
-    under ``TBX_SPECULATE=1`` (``decode.dispatch_decode``)."""
+    under ``TBX_SPECULATE=1`` (``decode.dispatch_decode``).  It bypasses
+    ``decode.generate``'s chat templating, so a greedy launch carries its
+    own ``forcing.decode`` program span and profiler annotation; a
+    speculative one the speculative decoder's."""
+    from taboo_brittleness_tpu_torch import obs
+
     padded, valid, positions, _ = decode.encode_prompts(
         tok, list(rendered), rendered=True, pad_to_multiple=pad_to_multiple)
-    result = decode.dispatch_decode(
-        params, cfg, padded, valid, positions, max_new_tokens=max_new_tokens,
-        edit_fn=edit_fn, edit_params=edit_params)
-    return decode.decode_texts(tok, result)
+    if decode.speculates(None):
+        result = decode.dispatch_decode(
+            params, cfg, padded, valid, positions,
+            max_new_tokens=max_new_tokens, edit_fn=edit_fn,
+            edit_params=edit_params)
+        return decode.decode_texts(tok, result)
+    with obs.span("forcing.decode", kind="program", rows=len(rendered),
+                  fn="greedy_decode") as sp:
+        with obs.profile.annotate("forcing.decode", fn=decode.greedy_decode,
+                                  span_id=getattr(sp, "span_id", None)):
+            result = decode.dispatch_decode(
+                params, cfg, padded, valid, positions,
+                max_new_tokens=max_new_tokens, edit_fn=edit_fn,
+                edit_params=edit_params)
+            return decode.decode_texts(tok, result)
 
 
 def _pregame_completions(
@@ -264,7 +280,8 @@ def run_token_forcing(
         config, model_loader=model_loader, words=words, modes=modes,
         compute_mode=compute, score_word=score,
         output_dir=output_dir, force=force,
-        max_retries=max_retries, fail_fast=fail_fast)
+        max_retries=max_retries, fail_fast=fail_fast,
+        pipeline="token_forcing")
     results = outcome.results
 
     scored = [w for w in words if w in results]

@@ -27,7 +27,14 @@ because payloads hold decoded text.
 Each word is made the speculative decoder's active word as it loads
 (``speculate.set_active_word``), so a calibrated plan applies per word.  A
 drain notice (``runtime.supervise.drain_requested``) stops the loop between
-words.  The JAX package's telemetry observer is not ported.
+words.
+
+Telemetry (``obs``, fail-open, ``TBX_OBS``-gated): with an ``output_dir``
+the loop runs inside a sweep observer that writes a span stream to
+``<output_dir>/_events.jsonl`` (run → word → phase), heartbeats
+``<output_dir>/_progress.json``, spools ``_metrics.jsonl`` and, with
+``TBX_PROFILE=1``, writes ``_device_profile.json``; ``pipeline`` labels the
+run span.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ import dataclasses
 import os
 from typing import Any, Callable, Dict, Optional, Sequence
 
+from taboo_brittleness_tpu_torch import obs
 from taboo_brittleness_tpu_torch.config import Config
 from taboo_brittleness_tpu_torch.runtime import resilience, speculate, supervise
 from taboo_brittleness_tpu_torch.runtime.checkpoints import prefetch_next
@@ -56,61 +64,73 @@ def sweep_words(
     ledger: FailureLedger,
     fail_fast: bool = False,
     on_done: Optional[Callable[[str, Dict[str, Any]], None]] = None,
+    output_dir: Optional[str] = None,
+    pipeline: str = "word_sweep",
 ) -> Dict[str, Any]:
     """``{word: entry}`` for every word that finished, resumed or computed.
 
     ``load_done(word)`` returns the word's saved entry when it counts as
-    done, else None.  ``run_word(word, (params, cfg, tok), set_stage)``
+    done, else None.  ``run_word(word, (params, cfg, tok), set_stage, ob)``
     computes (and saves) a word's entry, naming its stages for the ledger
-    through ``set_stage(name)``.  ``on_done(word, entry)`` fires for
-    computed and resumed words.  A drain notice stops the loop before the
-    next word (resumed words included)."""
+    through ``set_stage(name)`` and opening its phases on the sweep
+    observer ``ob``.  ``on_done(word, entry)`` fires for computed and
+    resumed words.  A drain notice stops the loop before the next word
+    (resumed words included).  The observer writes into ``output_dir``
+    (none without one) under the run label ``pipeline``."""
     words = list(words)
     results: Dict[str, Any] = {}
-    for i, word in enumerate(words):
-        if supervise.drain_requested():
-            # Preemption drain (runtime.supervise): stop BETWEEN words.
-            # The previous word's write is complete, so the next
-            # incarnation resumes exactly here; the CLI exits 75.
-            break
-        saved = load_done(word)
-        if saved is not None:
-            results[word] = saved
-            ledger.record_success(word)
+    with obs.sweep_observer(output_dir, pipeline=pipeline, words=words) as ob:
+        for i, word in enumerate(words):
+            if supervise.drain_requested():
+                # Preemption drain (runtime.supervise): stop BETWEEN words.
+                # The previous word's write is complete, so the next
+                # incarnation resumes exactly here; the CLI exits 75.
+                ob.mark_drained()
+                break
+            saved = load_done(word)
+            if saved is not None:
+                results[word] = saved
+                ledger.record_success(word)
+                with ob.word(word, resumed=True) as wsp:
+                    wsp.set(resumed=True)
+                if on_done is not None:
+                    on_done(word, saved)
+                continue
+
+            stage = {"name": "checkpoint.load"}
+
+            def set_stage(name: str) -> None:
+                stage["name"] = name
+
+            def run_one(word: str = word, i: int = i) -> Dict[str, Any]:
+                set_stage("checkpoint.load")
+                # The speculative decoder's per-word plan rides module state.
+                speculate.set_active_word(word)
+                with ob.phase("checkpoint.load"):
+                    loaded = model_loader(word)
+                nxt = next_pending(words, i, ledger, load_done)
+                if nxt is not None:
+                    prefetch_next(model_loader, nxt)
+                return run_word(word, loaded, set_stage, ob)
+
+            with ob.word(word) as wsp:
+                outcome = resilience.run_guarded(
+                    word, run_one, policy=policy, ledger=ledger,
+                    stage=lambda: stage["name"])
+                wsp.set(attempts=outcome.attempts)
+                if not outcome.ok:
+                    wsp.set(quarantined=True, stage=outcome.stage)
+                    if fail_fast:
+                        raise outcome.error
+                    # A quarantined word's prefetched state must not leak
+                    # into a later rerun.
+                    drop = getattr(model_loader, "drop_pending", None)
+                    if drop is not None:
+                        drop(word)
+                    continue
+                results[word] = outcome.value
             if on_done is not None:
-                on_done(word, saved)
-            continue
-
-        stage = {"name": "checkpoint.load"}
-
-        def set_stage(name: str) -> None:
-            stage["name"] = name
-
-        def run_one(word: str = word, i: int = i) -> Dict[str, Any]:
-            set_stage("checkpoint.load")
-            # The speculative decoder's per-word plan rides module state.
-            speculate.set_active_word(word)
-            loaded = model_loader(word)
-            nxt = next_pending(words, i, ledger, load_done)
-            if nxt is not None:
-                prefetch_next(model_loader, nxt)
-            return run_word(word, loaded, set_stage)
-
-        outcome = resilience.run_guarded(
-            word, run_one, policy=policy, ledger=ledger,
-            stage=lambda: stage["name"])
-        if not outcome.ok:
-            if fail_fast:
-                raise outcome.error
-            # A quarantined word's prefetched state must not leak into a
-            # later rerun.
-            drop = getattr(model_loader, "drop_pending", None)
-            if drop is not None:
-                drop(word)
-            continue
-        results[word] = outcome.value
-        if on_done is not None:
-            on_done(word, outcome.value)
+                on_done(word, outcome.value)
     return results
 
 
@@ -153,6 +173,7 @@ def run_word_sweep(
     max_retries: int = 2,
     fail_fast: bool = False,
     retry_policy: Optional[RetryPolicy] = None,
+    pipeline: str = "word_sweep",
 ) -> SweepOutcome:
     """Per-word entries ``{word: {mode: score_word(...)}}`` plus the ledger.
 
@@ -161,7 +182,8 @@ def run_word_sweep(
     mode, payload)`` turns it into the word's entry for that mode.
     ``retry_policy`` overrides ``RetryPolicy(max_retries=max_retries)``.
     The ledger is ``<output_dir>/_failures.json`` (in memory without an
-    ``output_dir``)."""
+    ``output_dir``), beside the sweep observer's files; ``pipeline`` labels
+    the run span."""
     ledger = FailureLedger(output_dir)
 
     def word_path(w: str) -> str:
@@ -176,7 +198,7 @@ def run_word_sweep(
     memo_key: Any = None
     memo: Dict[str, Any] = {}
 
-    def run_word(word: str, loaded, set_stage) -> Dict[str, Any]:
+    def run_word(word: str, loaded, set_stage, ob) -> Dict[str, Any]:
         nonlocal memo_key, memo
         params, cfg, tok = loaded
         if memo_key is None or params is not memo_key[0] or tok is not memo_key[1]:
@@ -184,21 +206,25 @@ def run_word_sweep(
         entry: Dict[str, Any] = {}
         for mode in modes:
             set_stage(f"compute:{mode}")
-            if mode not in memo:
-                memo[mode] = compute_mode(params, cfg, tok, config, mode)
-            entry[mode] = score_word(config, word, mode, memo[mode])
+            with ob.phase(f"compute:{mode}") as psp:
+                psp.set(memoized=mode in memo)
+                if mode not in memo:
+                    memo[mode] = compute_mode(params, cfg, tok, config, mode)
+                entry[mode] = score_word(config, word, mode, memo[mode])
         if output_dir:
             # Inside the guarded scope, so a write fault retries and then
             # quarantines the word, and a ``die`` fault kills before the
             # rename.
             set_stage("write")
-            resilience.fire("cache.write", word=word, path=word_path(word))
-            atomic_json_dump(entry, word_path(word))
+            with ob.phase("write"):
+                resilience.fire("cache.write", word=word, path=word_path(word))
+                atomic_json_dump(entry, word_path(word))
         return entry
 
     results = sweep_words(
         words, model_loader=model_loader, load_done=load_done,
         run_word=run_word,
         policy=retry_policy or RetryPolicy(max_retries=max_retries),
-        ledger=ledger, fail_fast=fail_fast)
+        ledger=ledger, fail_fast=fail_fast, output_dir=output_dir,
+        pipeline=pipeline)
     return SweepOutcome(results=results, ledger=ledger)

@@ -393,8 +393,12 @@ class AotEntry:
 
     def build(self, dynamic: Dict[str, Any], static: Dict[str, Any]) -> Dict[str, Any]:
         """Warm start: make (and capture) the program of this launch by
-        running the entry once on these inputs, outputs discarded.  Returns
-        ``{entry, key, source: "memory" | "captured", seconds}``."""
+        running the entry once on these inputs, outputs discarded, under
+        the profiler annotation ``aot.build`` (its device work is no word's
+        launch).  Returns ``{entry, key, source: "memory" | "captured",
+        seconds}``; a capture's record is also an ``aot.build`` obs event."""
+        from taboo_brittleness_tpu_torch import obs
+
         key = self.signature(dynamic, static)
         rec: Dict[str, Any] = {"entry": self.name, "key": key}
         with _LOCK:
@@ -403,10 +407,12 @@ class AotEntry:
                 rec["source"] = "memory"
                 return rec
         t0 = time.perf_counter()
-        with warming():
+        with warming(), obs.profile.annotate(
+                "aot.build", fn=getattr(self.fn, "__name__", self.name)):
             self.fn(**dynamic, **static)
         rec["source"] = "captured"
         rec["seconds"] = round(time.perf_counter() - t0, 3)
+        obs.event("aot.build", **rec)
         return rec
 
 

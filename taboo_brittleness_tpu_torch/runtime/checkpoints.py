@@ -217,14 +217,21 @@ class CheckpointManager:
                 return
             self.drop_pending(word)
 
+        from taboo_brittleness_tpu_torch import obs
+
+        obs.event("checkpoint.prefetch.start", word=word)
+
         def run():
             try:
                 resilience.fire("prefetch.thread", word=word)
-                # load() / drop_pending() join the thread before reading the
-                # slot: join() is the happens-before edge.
+                # tbx: TBX201-ok — load()/drop_pending() join the thread
+                # before reading the slot: join() is the happens-before edge
                 self._pending_results[word] = (True, self._load_triple(word))
+                obs.event("checkpoint.prefetch.done", word=word)
             except BaseException as e:  # noqa: BLE001 — raised (or retried) by load()
                 self._pending_results[word] = (False, e)
+                obs.event("checkpoint.prefetch.failed", word=word,
+                          error=f"{type(e).__name__}: {e}"[:300])
 
         t = threading.Thread(target=run, name=f"prefetch-{word}", daemon=True)
         self._pending[word] = t
@@ -240,23 +247,34 @@ class CheckpointManager:
         self._pending_results.pop(word, None)
 
     def load(self, word: str) -> Triple:
+        """The word's triple: from the resident cache (a ``checkpoint.load``
+        obs event), else under a ``checkpoint.load`` program span whose
+        ``source`` says where it came from (``prefetch``,
+        ``prefetch-retry`` or ``sync``)."""
+        from taboo_brittleness_tpu_torch import obs
+
         if word in self._cache:
             self._cache.move_to_end(word)
             self.sources.append((word, "cache"))
+            obs.event("checkpoint.load", word=word, source="cache")
             return self._cache[word]
-        if word in self._pending:
-            self._pending.pop(word).join()
-            ok, payload = self._pending_results.pop(word)
-            if ok:
-                triple, source = payload, "prefetch"
-            elif (self.retry_policy is not None
-                    and resilience.is_transient(payload)):
-                # The failed prefetch was attempt 1; the policy owns the rest.
-                triple, source = self._load_with_retries(word), "prefetch-retry"
+        with obs.span("checkpoint.load", kind="program", word=word) as sp:
+            if word in self._pending:
+                self._pending.pop(word).join()
+                ok, payload = self._pending_results.pop(word)
+                if ok:
+                    triple, source = payload, "prefetch"
+                elif (self.retry_policy is not None
+                        and resilience.is_transient(payload)):
+                    # The failed prefetch was attempt 1; the policy owns the
+                    # rest.
+                    triple, source = (self._load_with_retries(word),
+                                      "prefetch-retry")
+                else:
+                    raise payload
             else:
-                raise payload
-        else:
-            triple, source = self._load_with_retries(word), "sync"
+                triple, source = self._load_with_retries(word), "sync"
+            sp.set(source=source)
         self.sources.append((word, source))
         self._cache[word] = triple
         while len(self._cache) > self.capacity:

@@ -18,6 +18,7 @@ token streams the JAX package's for the same weights.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -535,7 +536,14 @@ def generate(
     prefill-cache arguments to :func:`greedy_decode`.
 
     Fires the ``decode.launch`` fault site; decodes through
-    :func:`dispatch_decode`."""
+    :func:`dispatch_decode`, counted in the ``decode.launches`` and
+    ``decode.rows`` obs counters.  A greedy launch rides a ``decode``
+    program span (host-side enqueue, and the all-done flag reads; device
+    time shows up in whichever span later blocks) whose id the launch's
+    profiler annotation carries; a speculative one the speculative
+    decoder's own."""
+    from taboo_brittleness_tpu_torch import obs
+    from taboo_brittleness_tpu_torch.obs import metrics as obs_metrics
     from taboo_brittleness_tpu_torch.runtime import resilience
 
     resilience.fire("decode.launch", rows=len(prompts))
@@ -543,11 +551,19 @@ def generate(
     padded, valid, positions, ids = encode_prompts(
         tok, prompts, prefills=prefills, pad_to_multiple=pad_to_multiple,
         rendered=rendered)
-    result = dispatch_decode(
-        params, cfg, padded, valid, positions, max_new_tokens=max_new_tokens,
-        edit_fn=edit_fn, edit_params=edit_params,
-        capture_residual_layer=capture_residual_layer,
-        return_prefill_cache=return_prefill_cache)
+    obs_metrics.counter("decode.launches").inc()
+    obs_metrics.counter("decode.rows").inc(len(prompts))
+    span = (contextlib.nullcontext() if speculates(capture_residual_layer)
+            else obs.span("decode", kind="program", rows=len(prompts),
+                          cols=int(padded.shape[1]),
+                          new_tokens=max_new_tokens, fn="greedy_decode"))
+    with span:
+        result = dispatch_decode(
+            params, cfg, padded, valid, positions,
+            max_new_tokens=max_new_tokens, edit_fn=edit_fn,
+            edit_params=edit_params,
+            capture_residual_layer=capture_residual_layer,
+            return_prefill_cache=return_prefill_cache)
     texts = decode_texts(tok, result) if return_texts else None
     return result, texts, ids
 
@@ -561,22 +577,32 @@ def dispatch_decode(params: Params, cfg: Gemma2Config, padded: np.ndarray,
     same greedy stream; a residual-capturing launch only with
     ``TBX_SPECULATE_CAPTURE=1`` as well, and a multi-tap one never: the
     speculative decoder captures one layer).  ``kw`` goes to the decoder.
-    Either steps through its graphs in ``runtime.aot``."""
+    Either steps through its graphs in ``runtime.aot``; a greedy launch
+    under the profiler annotation ``decode`` (the caller's span's id)."""
+    from taboo_brittleness_tpu_torch import obs
     from taboo_brittleness_tpu_torch.runtime import speculate
 
     device = params["embed"].device
     args = (torch.from_numpy(padded).long().to(device),
             torch.from_numpy(valid).to(device),
             torch.from_numpy(positions).long().to(device))
-    capture = kw.get("capture_residual_layer")
-    if (not isinstance(capture, (list, tuple))
-            and speculate.should_speculate(capture=capture is not None)):
+    if speculates(kw.get("capture_residual_layer")):
         plan = speculate.resolve_plan(cfg)
         result, _stats = speculate.speculative_decode(
             params, cfg, *args, draft_layer=plan.draft_layer,
             block_size=plan.block_size, **kw)
         return result
-    return greedy_decode(params, cfg, *args, **kw)
+    with obs.profile.annotate("decode", fn=greedy_decode):
+        return greedy_decode(params, cfg, *args, **kw)
+
+
+def speculates(capture: Any) -> bool:
+    """Whether :func:`dispatch_decode` takes the speculative decoder for a
+    launch capturing ``capture`` (never for a multi-tap one)."""
+    from taboo_brittleness_tpu_torch.runtime import speculate
+
+    return (not isinstance(capture, (list, tuple))
+            and speculate.should_speculate(capture=capture is not None))
 
 
 def full_text(tok, prompt_ids: Sequence[int], result: DecodeResult, row: int) -> str:

@@ -321,13 +321,17 @@ def apply_delta(base: Dict[str, Any], payload: Any, *,
 def apply_packed(base_params: Dict[str, Any], payload: Payload,
                  meta: Dict[str, Any], *, route: bool = True) -> Dict[str, Any]:
     """Host entry: the artifact's payload onto the base's device, then
-    :func:`apply_delta`.  ``route`` is the JAX package's AOT-registry switch
-    and has no effect here."""
+    :func:`apply_delta`, under the profiler annotation ``delta.apply``.
+    ``route`` is the JAX package's AOT-registry switch and has no effect
+    here."""
+    from taboo_brittleness_tpu_torch import obs
+
     del route
     device = _tensor(next(iter(flatten_named(base_params).values()))).device
     on_device = {name: {field: _on(arr, device) for field, arr in fields.items()}
                  for name, fields in payload.items()}
-    return apply_delta(base_params, on_device, codecs=codecs_tuple(meta))
+    with obs.profile.annotate("delta.apply", fn=apply_delta):
+        return apply_delta(base_params, on_device, codecs=codecs_tuple(meta))
 
 
 # ---------------------------------------------------------------------------

@@ -9,8 +9,10 @@ preemption margin, the supervised run's incarnation, and the failure
 ledger's blocks.  ``runtime.supervise`` folds its incarnation history into
 the manifest a supervised child leaves behind.
 
-The JAX module's ``maybe_profile`` (a ``jax.profiler`` window) is not here:
-the port's profiling window comes with its ``obs/profile.py``.
+:func:`maybe_profile` is the CLI's ``--trace-dir``: a raw
+``torch.profiler`` trace of the whole command where the JAX module takes a
+``jax.profiler`` one (the attributed ``_device_profile.json`` is
+``--profile``'s, ``obs/profile.py``).
 """
 
 from __future__ import annotations
@@ -180,3 +182,24 @@ class RunManifest:
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         atomic_json_dump(self.to_dict(), path)
         return path
+
+
+@contextlib.contextmanager
+def maybe_profile(trace_dir: Optional[str]):
+    """Capture a ``torch.profiler`` trace (CPU and, with a card, CUDA
+    activity) of the block into ``trace_dir`` when it is set, exported as a
+    Chrome trace (``chrome://tracing``, Perfetto); a no-op otherwise."""
+    if not trace_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        yield
+    from taboo_brittleness_tpu_torch.obs.profile import export_trace
+
+    export_trace(prof, trace_dir)

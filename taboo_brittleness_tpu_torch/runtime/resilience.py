@@ -129,9 +129,40 @@ def quarantine_file(path: str, *, reason: str = "") -> Optional[str]:
         os.replace(path, dst)
     except OSError:
         return None
-    _log.warning("quarantined corrupt file %s -> %s%s", path, dst,
-                 f" ({reason})" if reason else "")
+    _obs_warn(f"[resilience] quarantined corrupt file {path} -> {dst}"
+              + (f" ({reason})" if reason else ""),
+              name="resilience.quarantine_file", path=path, reason=reason)
     return dst
+
+
+def _obs_warn(message: str, *, name: str, **attrs: Any) -> None:
+    """Structured event + stderr mirror through ``obs.warn``; imported
+    lazily (obs.trace fires this module's ``obs.event_write`` fault site, so
+    the dependency stays one-way at import time) and fail-open."""
+    try:
+        from taboo_brittleness_tpu_torch import obs
+
+        obs.warn(message, name=name, **attrs)
+    except Exception:  # noqa: BLE001 — telemetry never takes down a run
+        _log.warning("%s", message)
+
+
+def _obs_event(name: str, **attrs: Any) -> None:
+    try:
+        from taboo_brittleness_tpu_torch import obs
+
+        obs.event(name, **attrs)
+    except Exception:  # noqa: BLE001 — fail-open
+        pass
+
+
+def _obs_count(name: str, amount: float = 1.0) -> None:
+    try:
+        from taboo_brittleness_tpu_torch.obs import metrics as obs_metrics
+
+        obs_metrics.counter(name).inc(amount)
+    except Exception:  # noqa: BLE001 — fail-open
+        pass
 
 
 def load_resume_json(path: str) -> Optional[Any]:
@@ -694,8 +725,13 @@ def run_guarded(
             ledger.record_retry(word, stage(), exc, attempt)
         _flightrec("word.retry", word=word, stage=stage(), attempt=attempt,
                    error=f"{type(exc).__name__}: {exc}"[:200])
-        _log.warning("%s: attempt %d failed at %s (%s: %s); retrying in %.2fs",
-                     word, attempt, stage(), type(exc).__name__, exc, delay)
+        _obs_count("sweep.retries")
+        _obs_warn(f"[resilience] {word}: attempt {attempt} failed at "
+                  f"{stage()} ({type(exc).__name__}: {exc}); retrying in "
+                  f"{delay:.2f}s",
+                  name="resilience.retry", word=word, stage=stage(),
+                  attempt=attempt, delay=round(delay, 3),
+                  error=f"{type(exc).__name__}: {exc}"[:300])
 
     try:
         value = policy.call(fn, site=f"{stage()}:{word}", sleep=sleep,
@@ -703,12 +739,14 @@ def run_guarded(
     except Exception as exc:  # noqa: BLE001 — quarantine, don't crash the sweep
         if ledger is not None:
             ledger.record_quarantine(word, stage(), exc, attempts["n"])
+        _obs_event("resilience.quarantine", word=word, stage=stage(),
+                   attempts=attempts["n"],
+                   error=f"{type(exc).__name__}: {exc}"[:300])
+        _obs_count("sweep.quarantines")
         # The postmortem trigger: the ring of recent records freezes to disk.
         _flightrec("word.quarantine", dump=True, word=word, stage=stage(),
                    attempts=attempts["n"],
                    error=f"{type(exc).__name__}: {exc}"[:200])
-        _log.warning("%s: quarantined at %s after %d attempt(s) (%s: %s)",
-                     word, stage(), attempts["n"], type(exc).__name__, exc)
         return WordOutcome(word=word, error=exc, attempts=attempts["n"],
                            stage=stage())
     if ledger is not None:

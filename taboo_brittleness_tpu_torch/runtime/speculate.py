@@ -24,9 +24,12 @@ bookkeeping run without a host sync.  ``speculate.verify`` (the fault site
 of ``runtime.resilience``) fires before each verify, and a drain notice
 (``runtime.supervise``) seen between blocks is recorded as a
 ``speculate.drain_observed`` event (the decode still finishes: drain is
-word-granular).  Unlike the JAX package there is no ``obs`` span, profiler
-annotation or ``decode_edit`` switch: the edit runs in the prefill, the
-draft and the verify alike.
+word-granular).  As in the JAX package, a launch rides one ``speculate``
+program span, the prefill, each draft, each verify and the flush carry a
+profiler annotation of their own, and the ``speculate.*`` obs counters
+count launches, blocks, drafts and accepts.  Unlike the JAX package there
+is no ``decode_edit`` switch: the edit runs in the prefill, the draft and
+the verify alike.
 
 Draft depth k and block size G come from the env (``TBX_SPEC_DRAFT_LAYER``,
 ``TBX_SPEC_BLOCK``), then the ``TBX_SPEC_CALIBRATION`` artifact of
@@ -684,40 +687,63 @@ def speculative_decode(
         aot.copy_into(prog.state, edit_params)
         return prog
 
-    # A capture's warm-up blocks run over whatever the state holds (every
-    # index stays in range); the prefill lays the launch's state down after.
-    draft = program("speculate.draft", lambda p, ep: draft_step(
-        p, cfg, st, ep, draft_layer=draft_layer, edit_fn=edit_fn))
-    verify = program("speculate.verify", lambda p, ep: verify_block(
-        p, cfg, st, ep, edit_fn=edit_fn,
-        capture_residual_layer=capture_residual_layer))
-    spec_prefill(params, cfg, st, prompt_ids, prompt_valid, prompt_positions,
-                 edit_params, draft_layer=draft_layer, edit_fn=edit_fn,
-                 capture_residual_layer=capture_residual_layer)
-    drain_seen = False
-    for block in range(N):
-        if not drain_seen and supervise.drain_requested():
-            # Drain is word-granular: this decode finishes exactly and the
-            # sweep's between-word poll exits 75; the event marks where the
-            # notice landed.
-            drain_seen = True
-            obs.event("speculate.drain_observed", block=block)
-        draft.run(params)
-        resilience.fire("speculate.verify", block=block, rows=B)
-        verify.run(params)
-        # The block's one host pull: the all-done flag and the 4 counters.
-        flag, emitted, accepted, drafted, active_rows = st.stats.tolist()
-        stats.blocks += 1
-        stats.emitted += emitted
-        stats.accepted += accepted
-        stats.drafted += drafted
-        stats.blocks_rows += active_rows
-        if flag:
-            break
+    with obs.span("speculate", kind="program", rows=B, cols=int(Tp),
+                  new_tokens=N, draft_layer=draft_layer, block_size=G,
+                  fn="speculative_decode") as sp:
+        span_id = getattr(sp, "span_id", None)
+        with obs.profile.annotate("speculate.prefill", fn=spec_prefill,
+                                  span_id=span_id):
+            # A capture's warm-up blocks run over whatever the state holds
+            # (every index stays in range); the prefill lays the launch's
+            # state down after.
+            draft = program("speculate.draft", lambda p, ep: draft_step(
+                p, cfg, st, ep, draft_layer=draft_layer, edit_fn=edit_fn))
+            verify = program("speculate.verify", lambda p, ep: verify_block(
+                p, cfg, st, ep, edit_fn=edit_fn,
+                capture_residual_layer=capture_residual_layer))
+            spec_prefill(params, cfg, st, prompt_ids, prompt_valid,
+                         prompt_positions, edit_params,
+                         draft_layer=draft_layer, edit_fn=edit_fn,
+                         capture_residual_layer=capture_residual_layer)
+        drain_seen = False
+        for block in range(N):
+            if not drain_seen and supervise.drain_requested():
+                # Drain is word-granular: this decode finishes exactly and
+                # the sweep's between-word poll exits 75; the event marks
+                # where the notice landed.
+                drain_seen = True
+                obs.event("speculate.drain_observed", block=block)
+            with obs.profile.annotate("speculate.draft", fn=draft_step,
+                                      span_id=span_id):
+                draft.run(params)
+            resilience.fire("speculate.verify", block=block, rows=B)
+            with obs.profile.annotate("speculate.verify", fn=verify_block,
+                                      span_id=span_id):
+                verify.run(params)
+            # The block's one host pull: the all-done flag and the 4
+            # counters.
+            flag, emitted, accepted, drafted, active_rows = st.stats.tolist()
+            stats.blocks += 1
+            stats.emitted += emitted
+            stats.accepted += accepted
+            stats.drafted += drafted
+            stats.blocks_rows += active_rows
+            if flag:
+                break
 
-    if capture:
-        spec_flush(params, cfg, st, edit_params, edit_fn=edit_fn,
-                   capture_residual_layer=capture_residual_layer)
+        if capture:
+            with obs.profile.annotate("speculate.flush", fn=spec_flush,
+                                      span_id=span_id):
+                spec_flush(params, cfg, st, edit_params, edit_fn=edit_fn,
+                           capture_residual_layer=capture_residual_layer)
+        sp.set(blocks=stats.blocks, accept_rate=round(stats.accept_rate, 4))
+
+    from taboo_brittleness_tpu_torch.obs import metrics as obs_metrics
+
+    obs_metrics.counter("speculate.launches").inc()
+    obs_metrics.counter("speculate.blocks").inc(stats.blocks)
+    obs_metrics.counter("speculate.drafted").inc(stats.drafted)
+    obs_metrics.counter("speculate.accepted").inc(stats.accepted)
 
     tokens = st.toks[:, :N].clone()
     emitted = st.emit[:, :N].clone()

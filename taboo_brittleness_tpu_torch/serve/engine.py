@@ -568,10 +568,18 @@ class ServeEngine:
         The pull is the continuous-batching control point: the scheduler
         must see emitted/finished flags to recycle slots and admit queued
         sessions before the next step.  One small [4, S] transfer per step,
-        by design."""
-        self._run(self.aot_name, self._step_fn, self._step_args())
-        self.steps += 1
-        host = self._pull()
+        by design.
+
+        Under an active device capture (``TBX_PROFILE``, ``obs.profile``)
+        each step rides inside a profiler annotation named after its
+        program, so the replay's kernels are attributable; a shared no-op
+        context otherwise."""
+        from taboo_brittleness_tpu_torch.obs import profile as obs_profile
+
+        with obs_profile.annotate(self.aot_name, fn=self._step_fn):
+            self._run(self.aot_name, self._step_fn, self._step_args())
+            self.steps += 1
+            host = self._pull()
         out = StepOut(tok=host[0].astype(np.int64), emitted=host[1] != 0,
                       finished=host[2] != 0, lens_prob=host[3].copy())
         self._done |= out.finished

@@ -631,13 +631,18 @@ class SpecServeEngine(ServeEngine):
         """One draft launch + one verify launch + one ``[S, 3 (G+1) + 5]``
         pull.  The verify rides an ``obs`` span whose end carries the
         accept record (drafted / accepted / emitted / early exits), the
-        ``trace_report --check`` contract for ``serve.spec.verify``."""
+        ``trace_report --check`` contract for ``serve.spec.verify``, and
+        each launch a profiler annotation named after its program."""
         from taboo_brittleness_tpu_torch import obs
 
-        self._run(self.aot_draft, self._draft_fn, self._draft_args())
+        with obs.profile.annotate(self.aot_draft, fn=self._draft_fn):
+            self._run(self.aot_draft, self._draft_fn, self._draft_args())
         with obs.span("serve.spec.verify", kind="program", step=self.steps,
                       program=self.aot_verify) as sp:
-            self._run(self.aot_verify, self._verify_fn, self._step_args())
+            with obs.profile.annotate(self.aot_verify, fn=self._verify_fn,
+                                      span_id=getattr(sp, "span_id", None)):
+                self._run(self.aot_verify, self._verify_fn,
+                          self._step_args())
             self.steps += 1
             host = self._pull()
             G1 = self.block + 1

@@ -491,7 +491,11 @@ def test_cli_attack_commands(setup, tmp_path, monkeypatch, capsys, cmd):
     run = ttf.run_token_forcing if cmd == "token-forcing" else tpr.run_prompting_attacks
     want = run(conft, model_loader=lambda w: (pt, ct, tokt), words=[WORD, "ship"])
     assert got == json.loads(json.dumps(want))
-    assert sorted(os.listdir(tmp_path / "res" / "words")) == ["moon.json", "ship.json"]
+    # The per-word entries, and beside them the sweep's telemetry files.
+    listed = os.listdir(tmp_path / "res" / "words")
+    assert sorted(n for n in listed if not n.startswith("_")) == [
+        "moon.json", "ship.json"]
+    assert {"_events.jsonl", "_progress.json"} <= set(listed)
     assert f"results -> {out}" in capsys.readouterr().out
     # Resumed: no model loads; a quarantined word makes the exit code 1.
     loader.loads.clear()

@@ -30,6 +30,7 @@ from taboo_brittleness_tpu.runtime import fused as jfused
 from taboo_brittleness_tpu_torch import config as tconfig
 from taboo_brittleness_tpu_torch.models import gemma2 as tg
 from taboo_brittleness_tpu_torch.models import params as tparams
+from taboo_brittleness_tpu_torch.obs import metrics as obs_metrics
 from taboo_brittleness_tpu_torch.ops import sae as tsae
 from taboo_brittleness_tpu_torch.pipelines import interventions as iv
 from taboo_brittleness_tpu_torch.runtime import aot, decode, fused
@@ -286,9 +287,9 @@ def _study(setup, monkeypatch, config, route):
         mp.setenv("TBX_FUSED", route)
         if route == "0":
             mp.setattr(iv, "_study_launch", _three_step_launch)
-        launches = fused.launches
+        launches = obs_metrics.counter("fused.launches").value
         res = iv.run_intervention_study(params, cfg, tok, config, WORD, sae)
-    return json.dumps(res, sort_keys=True), fused.launches - launches
+    return json.dumps(res, sort_keys=True), obs_metrics.counter("fused.launches").value - launches
 
 
 @pytest.mark.parametrize("config", [
@@ -307,15 +308,15 @@ def test_fused_off_by_default(setup, monkeypatch):
     monkeypatch.delenv("TBX_FUSED", raising=False)
     assert fused.enabled() is False
     params, cfg, tok, _, _, _ = setup
-    launches = fused.launches
+    launches = obs_metrics.counter("fused.launches").value
     handle = iv.prepare_word_dispatch(params, cfg, tok, _config(), WORD)
-    assert fused.launches == launches
+    assert obs_metrics.counter("fused.launches").value == launches
     assert isinstance(handle["fr"], fused.FusedResult)
     monkeypatch.setenv("TBX_FUSED", "1")
     assert fused.enabled() is True
     state = iv.prepare_word_collect(
         iv.prepare_word_dispatch(params, cfg, tok, _config(), WORD))
-    assert fused.launches == launches + 1
+    assert obs_metrics.counter("fused.launches").value == launches + 1
     assert fused.FUSED_PHASES == ("decode", "readout", "nll")
     legacy = iv.prepare_word_collect(handle)
     assert np.array_equal(state.baseline_nll, legacy.baseline_nll)

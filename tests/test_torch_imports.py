@@ -47,7 +47,8 @@ def test_every_module_imports_with_jax_blocked():
                  "serve.engine", "serve.scheduler", "serve.loadgen",
                  "serve.autotune", "serve.spec_engine", "serve.server",
                  "runtime.supervise", "obs.slo", "serve.replica",
-                 "serve.gateway", "obs.top"):
+                 "serve.gateway", "obs.top", "obs.profile", "perf.roofline",
+                 "plots"):
         assert f"taboo_brittleness_tpu_torch.{name}" in modules
     code = (
         "import sys\n"
@@ -60,6 +61,7 @@ def test_every_module_imports_with_jax_blocked():
         "                     or m.startswith('taboo_brittleness_tpu.')\n"
         "                     or m.startswith('jax')))\n"
         "assert not leaked, leaked\n"
+        "assert 'matplotlib' not in sys.modules, 'matplotlib imported eagerly'\n"
         "print('ok', len(sys.modules))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)

@@ -447,5 +447,10 @@ def test_cli_maps_a_drained_sweep_to_exit_75(capsys):
     assert cli._exit_code(0) == 0 and cli._exit_code(1) == 1
     supervise.request_drain()
     assert cli._exit_code(0) == cli._exit_code(1) == EXIT_DRAINED
-    assert cli._report_failures(["w"], "ledger") == EXIT_DRAINED
+    from taboo_brittleness_tpu_torch.runtime.manifest import RunManifest
+
+    manifest = RunManifest(command="t")
+    rc = cli._report_failures(manifest, {"quarantined": {"w": {}}})
+    assert rc == 1 and set(manifest.failures) == {"w"}
+    assert cli._exit_code(rc) == EXIT_DRAINED
     assert "drained" in capsys.readouterr().err
