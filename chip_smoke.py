@@ -116,10 +116,11 @@ the kernels are built for sm_90a).  Phases, each of which fails the run:
    (``TBX_AOT=0``) and graphed in turns A B A B, tokens and residual
    compared; a 330-row ablation and a 220-row projection launch of the
    study, eager and graphed, tokens, residual and ΔNLL compared;
+   at a third of the study's depth (budgets 1, 2; ranks 1, 2),
    ``run_intervention_study`` with ``TBX_FUSED=1`` against ``TBX_FUSED=0``
    (JSON identical), then ``warm_start_study`` and the study again (zero
-   misses), then the studies driver over two words at half the study's
-   depth (budgets 1, 2, 4; ranks 1, 2) with and without its cross-word
+   misses), then the studies driver over two words at a third of the
+   study's depth (budgets 1, 2; ranks 1, 2) with and without its cross-word
    pre-dispatch (timed); graphed decodes of two words of equal
    shapes, each against its own eager decode (the second must not
    reproduce the first's tokens); speculation at G = 3 graphed against
@@ -205,10 +206,10 @@ the kernels are built for sm_90a).  Phases, each of which fails the run:
    readout call held to ``lens_stats_reference`` at 11b's tolerances
    (a zeroed and a row-shifted result must miss), one timed, and a
    profiled step with 2 ``lens_wgmma_kernel`` launches (13c); last the
-   ``grid`` (one transient ``grid.cell`` fault), ``fleet`` (worker w1
-   killed at its first commit) and ``attack-search`` (twice, the same
-   file) processes on the card's default device with the tiny synthetic
-   stack (13d).  The phase's seconds and peak memory are printed.
+   ``grid`` (one worker; one transient ``grid.cell`` fault), ``fleet``
+   (two words, two workers, w1 killed at its first commit) and
+   ``attack-search`` (twice, the same file) processes on the card's
+   default device with the tiny synthetic stack (13d).  The phase's seconds and peak memory are printed.
 14. the replica fleet and the HTTP gateway, after phase 13's programs are
    dropped: a fresh 8-slot ``ServeEngine`` at phase 11's envelope on phase
    6's params and phase 7's SAE, warm-started, first serves
@@ -262,6 +263,43 @@ the kernels are built for sm_90a).  Phases, each of which fails the run:
    profiled decode (15b).  One ``dispatch_fused`` launch at the study's 330
    rows under a capture: one ``fused`` record whose phase split sums to its
    device seconds within 1% (15c).
+16. tensor and sequence parallelism: two rank processes on the one card
+   (``parallel.multihost.run_ranks``; ``gloo``, since NCCL refuses two ranks
+   on one device, every collective staged through the host), each drawing
+   phase 6's weights from its seed leaf by leaf and keeping its tp shard.
+   16a: ``run_evaluation`` for "ship" through the model at tp 2 (rank 0
+   alone writes; TP_NEW_TOKENS new tokens), against the unsharded
+   ``analyze_word_on_device`` of the same prompts on phase 6's params in
+   this process: tokens under phase 9's margin rule, P(target) within
+   TP_PROB_RTOL of itself, the per-position top-k ids where clear and the
+   guesses on rows of equal tokens, beside the witness's reading of the
+   same gap (``split_row_parallel``: the unsharded forward with the tp
+   forward's rounding of its row-parallel products); the lens kernel's
+   counter set to 0 before the run and read after (42 per rank, all
+   wgmma) and its ``lens_wgmma_kernel`` slices counted by name in each
+   rank's profiled lens pass (42); ``tp_lens_stats`` merged over the two
+   ranks at N 1140 against ``lens_stats_reference`` over the whole
+   vocabulary, and with its targets shifted by one id (a planted fault,
+   which must read over TP_PROB_RTOL); one per-shard call at N 1140, V
+   128000, K 5 and one at N 8, K 1 held to ``lens_stats_reference`` and
+   timed beside the plain version, the library yardstick and the bound;
+   one tp ``all_reduce`` timed.  16b: phase 11's 8-slot engine at tp 2
+   (rank 0 drives, rank 1 follows) over phase 11d's first 16 requests
+   against the unsharded engine here: tokens under the margin rule
+   (margins from ``_request_margins``), chat_lens probabilities within
+   TP_PROB_RTOL, beside the witness engine's, no miss of
+   ``serve.step[tp]``, no graph; the tp step ms over 8 sessions
+   (TP_STEP_REPS steps) and a profiled step with one readout kernel; a tp
+   2 ``SpecServeEngine`` (k 2, G 3) over the 8 hint sessions held to the
+   vanilla engine's tokens under the margin rule; with ``--parallel``
+   then ``serve --selfcheck`` as processes on the tiny stack.  16c, after
+   phase 6's params are dropped here: ``lens_forward_sp`` at sp 2 over one
+   SP_T-column row (past the 4096-column sliding window) against the dense
+   ``lens_forward`` on rank 0: top-1 ids equal where the logit gap is
+   clear, the residual within SP_RESID_RTOL.  Times are gloo over one
+   card, not a tensor-parallel speed; the peak device memory over the
+   processes stays under PEAK_GIB.  ``python3 chip_smoke.py --parallel``
+   runs phases 1, 2 and 16 alone, and ``serve --selfcheck`` with them.
 
 The card's name and power limit are printed again just before the
 ``{"kernels": [...]}`` line, which is the line before the last: one entry
@@ -277,7 +315,10 @@ steps of 13c's graphed search) and ``search_readouts_per_step``, and 14a's
 replica: ``replica_readouts`` (the readout kernels the profiler counted
 over its window), ``replica_steps`` (the window's steps) and
 ``replica_step_ms``, and 15a's ``profiled_launches``: the
-``lens_wgmma_kernel`` slices its traces hold); the last line
+``lens_wgmma_kernel`` slices its traces hold, and phase 16's per-shard
+``tp_shard_*`` (N 1140) and ``tp_serve_shard_*`` (N 8) times and bounds,
+``tp_shard_launches`` (a rank's count over 16a's run), ``tp_step_ms``,
+``tp_lens_seconds``, ``sp_seconds`` and ``sp_dense_seconds``); the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
 checkout, it exits non-zero and prints no result.
 """
@@ -2347,17 +2388,23 @@ def check_study_launch_shapes(torch, ctx: tuple, sae, word: str) -> None:
 
 
 def check_fused_and_warm_start(torch, ctx: tuple, sae, word: str) -> None:
-    """10.4: ``run_intervention_study`` with ``TBX_FUSED=1`` (launches
+    """10.4, at a third of the study's depth (budgets 1, 2 and ranks 1, 2:
+    a baseline and two 220-row arm launches; phase 7 runs the whole
+    study): ``run_intervention_study`` with ``TBX_FUSED=1`` (launches
     counted) against ``TBX_FUSED=0`` (JSON identical), then
     ``warm_start_study`` and the study: zero misses.  Then the studies
-    driver over two words of one model, at half the study's depth, with
-    its cross-word pre-dispatch off and on (timed, not held)."""
+    driver over two words of one model with its cross-word pre-dispatch
+    off and on (timed, not held)."""
+    import dataclasses
+
     from taboo_brittleness_tpu_torch.obs import metrics as obs_metrics
     from taboo_brittleness_tpu_torch.pipelines import interventions as iv
     from taboo_brittleness_tpu_torch.pipelines import word_sweep
     from taboo_brittleness_tpu_torch.runtime import aot
 
-    params, cfg, tok, config = ctx[:4]
+    params, cfg, tok, full = ctx[:4]
+    config = dataclasses.replace(full, intervention=dataclasses.replace(
+        full.intervention, budgets=(1, 2), ranks=(1, 2)))
     runs = {}
     for route in ("0", "1"):
         os.environ["TBX_FUSED"] = route
@@ -2369,7 +2416,7 @@ def check_fused_and_warm_start(torch, ctx: tuple, sae, word: str) -> None:
     log(f"  study ({word}) TBX_FUSED=0 {runs['0'][1]:.2f} s ({runs['0'][2]} "
         f"counted launches), TBX_FUSED=1 {runs['1'][1]:.2f} s ({runs['1'][2]} "
         f"counted launches); JSON identical: {runs['0'][0] == runs['1'][0]}")
-    if runs["0"][0] != runs["1"][0] or runs["0"][2] != 0 or runs["1"][2] < 5:
+    if runs["0"][0] != runs["1"][0] or runs["0"][2] != 0 or runs["1"][2] < 3:
         os.environ.pop("TBX_FUSED", None)
         fail("the study's JSON or launch count differs between TBX_FUSED routes")
     aot.reset()
@@ -2388,13 +2435,7 @@ def check_fused_and_warm_start(torch, ctx: tuple, sae, word: str) -> None:
     if after["misses"] != 0 or rec["captures"] != len(rec["programs"]):
         fail("the study missed programs the warm start should have made")
 
-    # The driver runs at half the study's depth (budgets 1, 2, 4 and ranks
-    # 1, 2: one 330-row and one 220-row arm launch, shapes the warm start
-    # captured), which keeps the command inside its time.
-    import dataclasses
-
-    half = dataclasses.replace(config, intervention=dataclasses.replace(
-        config.intervention, budgets=(1, 2, 4), ranks=(1, 2)))
+    # The driver runs at the same depth: shapes the warm start captured.
     seconds = {}
     for ahead in ("off", "on"):
         if ahead == "off":      # no next word: nothing is pre-dispatched
@@ -2402,12 +2443,12 @@ def check_fused_and_warm_start(torch, ctx: tuple, sae, word: str) -> None:
         try:
             with tempfile.TemporaryDirectory(prefix="studies_") as out:
                 (_, sec) = _synced(torch, lambda: iv.run_intervention_studies(
-                    half, model_loader=lambda w: (params, cfg, tok), sae=sae,
+                    config, model_loader=lambda w: (params, cfg, tok), sae=sae,
                     words=[word, "ship"], output_dir=out))
         finally:
             iv.next_pending = word_sweep.next_pending
         seconds.setdefault(ahead, []).append(sec)
-    log(f"  studies driver over two words ({word}, ship; one model; 55 "
+    log(f"  studies driver over two words ({word}, ship; one model; 44 "
         f"arms a word): {seconds['off'][0]:.3f} s without the pre-dispatch "
         f"of ship's baseline, {seconds['on'][0]:.3f} s with it")
 
@@ -2838,21 +2879,22 @@ def check_serve_multi(torch, workdir, ctx, sae, ids, tgt):
     return multi
 
 
-def _time_engine_steps(torch, engine, ids, tgt, label: str) -> dict:
+def _time_engine_steps(torch, engine, ids, tgt, label: str,
+                       reps: int = SERVE_STEP_REPS) -> dict:
     """CUDA-event ms per ``engine.step()`` (the user-facing step: replay
-    or eager forward, and the host pull) over SERVE_STEP_REPS steps with 8
-    live sessions, and one step profiled: its readout kernels, counted by
-    name in the trace, must be the engine's ``readouts_per_step``."""
+    or eager forward, and the host pull) over ``reps`` steps with 8 live
+    sessions, and one step profiled: its readout kernels, counted by name
+    in the trace, must be the engine's ``readouts_per_step``."""
     for s, row in enumerate(ids):
         engine.admit(s, row, max_new=SERVE_CONTEXT - len(row),
                      lens_target=tgt,
                      word_id=s % len(engine.words) if engine.multi else 0)
-    out = {"step_ms": timed_ms(torch, engine.step, SERVE_STEP_REPS)}
+    out = {"step_ms": timed_ms(torch, engine.step, reps)}
     out.update(_profile_step(torch, engine.step))
     for s in range(len(ids)):
         engine.release(s)
     log(f"  {label} step (8 slots): {out['step_ms']:.3f} ms per step (CUDA "
-        f"events, {SERVE_STEP_REPS} steps, host pull included); profiled "
+        f"events, {reps} steps, host pull included); profiled "
         f"step: {out['kernels']} kernels, {out['wgmma']} of them the "
         f"readout's lens_wgmma_kernel, host {out['host_ms']:.3f} ms, device "
         f"{out['device_ms']:.3f} ms of kernels")
@@ -3892,7 +3934,7 @@ def check_grid_processes(torch, workdir: str) -> None:
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", PACKAGE, "grid", "--synthetic", "--words",
-         "ship", "moon", "--workers", "2", "--output-dir", out,
+         "ship", "moon", "--workers", "1", "--output-dir", out,
          "--max-new-tokens", "4", "--lease", "10", "--max-wall", "600"],
         cwd=REPO, env={**env, "TABOO_FAULT_PLAN": json.dumps(plan)},
         capture_output=True, text=True, timeout=2 * PROC_TIMEOUT_S)
@@ -3906,7 +3948,7 @@ def check_grid_processes(torch, workdir: str) -> None:
         [sys.executable, os.path.join(REPO, "tools", "trace_report.py"),
          "--check", os.path.join(out, "_events.jsonl")],
         capture_output=True, text=True, timeout=PROC_TIMEOUT_S)
-    log(f"  grid --synthetic --workers 2 (grid.cell fault armed): exit "
+    log(f"  grid --synthetic --workers 1 (grid.cell fault armed): exit "
         f"{proc.returncode} in {dt:.1f} s, committed {summary.get('committed')}"
         f"/{summary.get('units')}, complete {summary.get('complete')}, retried "
         f"{retried}; trace_report --check exit {check.returncode}")
@@ -3916,7 +3958,8 @@ def check_grid_processes(torch, workdir: str) -> None:
              f"{proc.stderr[-4000:]}\n{check.stdout[-2000:]}")
 
     out_f = os.path.join(workdir, "proc-fleet")
-    words = [f"word{i:02d}" for i in range(4)]
+    words = [f"word{i:02d}" for i in range(2)]
+    n_units = 2 * len(words)           # x readout layers 1, 2
     plan = {"fleet.commit": [
         {"mode": "die", "times": 1, "match": "w1", "incarnation": 0},
         {"mode": "delay", "delay": 1.0, "times": None, "match": "w0-i"}]}
@@ -3938,10 +3981,11 @@ def check_grid_processes(torch, workdir: str) -> None:
     victims = sorted({e.get("worker") for c in block.get("reissues", {}).values()
                       for e in c})
     log(f"  fleet --synthetic --workers 2 (die at w1's first commit): exit "
-        f"{proc.returncode} in {dt:.1f} s, {len(done)}/8 units done, lease "
+        f"{proc.returncode} in {dt:.1f} s, {len(done)}/{n_units} units done, lease "
         f"expiries {block.get('lease_expiries')}, re-issued from workers "
         f"{victims}, duplicate commits {block.get('duplicate_commits')}")
-    if (proc.returncode != 0 or len(done) != 8 or summary.get("committed") != 8
+    if (proc.returncode != 0 or len(done) != n_units
+            or summary.get("committed") != n_units
             or not block.get("lease_expiries") or "w1" not in victims):
         fail(f"fleet process: exit {proc.returncode}\n{proc.stdout[-2000:]}\n"
              f"{proc.stderr[-4000:]}")
@@ -5118,6 +5162,862 @@ def drive_device_profile(torch, workdir: str, ctx: tuple) -> dict:
     return {"profiled_launches": counted}
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: tensor and sequence parallelism, two ranks on the one card.
+# ---------------------------------------------------------------------------
+
+TP_RANKS = 2
+# 16c's sequence: longer than Gemma-2's 4096-column sliding window, so the
+# sliding layers' window crosses the sp ranks' boundary.
+SP_T = 5120
+# 16b's load: phase 11d's schedule, its first 16 requests.
+TP_LOAD_REQUESTS = 16
+TP_SPEC_NEW = 4
+# 16a decodes this many tokens per prompt (the main path's 50 cut for
+# time: each tp decode step waits on ~84 host-staged all-reduces).
+TP_NEW_TOKENS = 16
+# Steps timed of the tp serve step (each ~0.25-0.6 s over gloo).
+TP_STEP_REPS = 8
+
+
+def _tp_config(config):
+    """Phase 16a's config: the default one at TP_NEW_TOKENS new tokens."""
+    import dataclasses
+
+    return dataclasses.replace(config, experiment=dataclasses.replace(
+        config.experiment, max_new_tokens=TP_NEW_TOKENS))
+# bf16 sums in another order (the tp all-reduce, the ring's flash merge)
+# move lens probabilities by a few percent of themselves: a guess or a
+# top-k id is held equal where its sum or logit leads the next by more.
+AGG_GAP_RTOL = 0.05
+# The sp pass's tap-layer residual against the dense one, relative L2.
+SP_RESID_RTOL = 0.05
+# A tp lens probability against the unsharded one, relative: the tapped
+# residual differs by bf16 rounding of the row-parallel sums, and a lens
+# logit moved by d moves P(target) by exp(d) - 1.  Set from the readings
+# of phase 16 on the H100: the witness (``split_row_parallel``: the
+# unsharded forward with the tp forward's rounding of its o and down
+# products, one process) read 0.093 in 16a (tp 2 the same 0.093, 3.9e-06
+# from the witness) and 0.056 in 16b (tp 2: 0.066), 16c's sp pass 0.087;
+# a target shifted by one id (16a's planted fault) read a median of 0.79,
+# over 0.15 on 92% of rows.
+TP_PROB_RTOL = 0.15
+
+
+@contextlib.contextmanager
+def split_row_parallel(torch, params, parts: int = TP_RANKS):
+    """The unsharded forward with the tp forward's arithmetic on its
+    row-parallel products: every ``o`` and ``down`` product of ``params``
+    computed per ``parts`` slice of its contraction, each slice's product
+    rounded to the compute dtype and the slices summed, as ``parts`` tp
+    ranks and their all-reduce (f32 on the wire, one rounding back) compute
+    it.  Yields a dict whose ``calls`` counts the products split."""
+    from torch.overrides import TorchFunctionMode
+
+    layers = params["layers"]
+    split = {layers[name][i].data_ptr() for name in ("o", "down")
+             for i in range(layers[name].shape[0])}
+    seen = {"calls": 0}
+
+    class Split(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if (func in (torch.Tensor.matmul, torch.Tensor.__matmul__)
+                    and not kwargs
+                    and isinstance(args[1], torch.Tensor)
+                    and args[1].dim() == 2
+                    and args[1].data_ptr() in split):
+                a, w = args
+                seen["calls"] += 1
+                h = w.shape[0] // parts
+                out = None
+                for j in range(parts):
+                    y = (a[..., j * h:(j + 1) * h] @ w[j * h:(j + 1) * h])
+                    out = y.float() if out is None else out + y.float()
+                return out.to(y.dtype)
+            return func(*args, **(kwargs or {}))
+
+    with Split():
+        yield seen
+
+
+def _rel_gap(a, b) -> float:
+    """Max relative difference of ``a`` from ``b`` (float64)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float((np.abs(a - b) / b).max()) if b.size else 0.0
+
+
+def _rank_setup(torch, rank: int):
+    """A phase-16 rank: the port on the path, TF32 off, its mesh's world."""
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+
+
+def _rank_model(torch, mesh):
+    """Phase 6's model on a rank: the same seed's weights, drawn leaf by
+    leaf and sliced to this rank's shard (whole params under an sp mesh),
+    the word tokenizer and config.  Returns (params, cfg, tok, config,
+    seconds)."""
+    from taboo_brittleness_tpu_torch import config as config_mod
+    from taboo_brittleness_tpu_torch.models import gemma2
+    from taboo_brittleness_tpu_torch.parallel.mesh import tp_size
+    from taboo_brittleness_tpu_torch.runtime.tokenizer import WordTokenizer
+
+    config = config_mod.Config(output=config_mod.OutputConfig(save_plots=False))
+    cfg = gemma2.PRESETS["gemma2_9b"]
+    t0 = time.perf_counter()
+    params = gemma2.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda",
+        mesh=mesh if tp_size(mesh) > 1 else None)
+    torch.cuda.synchronize()
+    words = sorted({w for p in config.prompts for w in p.split()}
+                   | set(config.words))
+    tok = WordTokenizer(words, vocab_size=cfg.vocab_size)
+    return params, cfg, tok, config, time.perf_counter() - t0
+
+
+def _shard_kernel(torch, embed_shard, n: int, k: int) -> dict:
+    """One per-shard ``lens_stats`` call (this rank's [V/tp, D] rows, the
+    targets a tp readout hands the shard: in-range ids and -1 outside it)
+    against ``lens_stats_reference`` on the same inputs, and timed beside
+    the plain version, the library yardstick and the bound."""
+    from taboo_brittleness_tpu_torch.ops import lens_kernel as lk
+
+    v, d = embed_shard.shape
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    x = torch.randn((n, d), generator=gen, device="cuda").to(torch.bfloat16)
+    tgt = torch.randint(0, v, (n,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    tgt[::2] = -1
+    before = lk.lens_stats.route_launches["wgmma"]
+    got = lk.lens_stats(x, embed_shard, tgt, top_k=k)
+    ref = lk.lens_stats_reference(x, embed_shard, tgt, top_k=k + 1)
+    torch.cuda.synchronize()
+    err, n_clear, n_bad = compare(got, ref, k)
+    out = {"n": n, "v": v, "k": k, "max_abs_err": err, "clear": n_clear,
+           "bad": n_bad, "wgmma": lk.lens_stats.route_launches["wgmma"] - before}
+
+    def kernel():
+        lk.lens_stats(x, embed_shard, tgt, top_k=k)
+
+    def plain():
+        lk.lens_stats_reference(x, embed_shard, tgt, top_k=k)
+
+    def library():
+        logits = torch.matmul(x, embed_shard.T).float()
+        torch.logsumexp(logits, dim=-1)
+        torch.topk(logits, k, dim=-1)
+
+    if n > SERVE_SLOTS:
+        out["ms"] = timed_ms(torch, kernel, 10)
+        out["library_ms"] = timed_ms(torch, library, 10)
+    else:   # small calls: queued behind a sleep kernel, as 11f times them
+        out["ms"] = backlogged_ms(torch, kernel, 20)[0]
+        out["library_ms"] = backlogged_ms(torch, library, 20)[0]
+    out["plain_ms"] = timed_ms(torch, plain, 3)
+    out["bound_ms"], out["bound_by"] = lens_bound_ms(n, d, v, k)
+    return out
+
+
+def _merged_readout(torch, mesh, embed_shard, job: dict) -> dict:
+    """16a on a rank: ``tp_lens_stats`` (this rank's per-shard kernel, the
+    partials merged over the ranks) on ``job``'s rows and whole-vocabulary
+    targets, and again with every target shifted by one id (a planted
+    fault in the shift)."""
+    from taboo_brittleness_tpu_torch.parallel.mesh import tp_lens_stats
+
+    x, t = job["x"].cuda(), job["t"].cuda()
+    got = tp_lens_stats(mesh, x, embed_shard, t, top_k=TOP_K)
+    planted = tp_lens_stats(mesh, x, embed_shard,
+                            torch.where(t >= 0, t + 1, t), top_k=TOP_K)
+    return {"stats": [a.cpu() for a in got],
+            "planted": planted.target_prob().cpu()}
+
+
+def _collective_ms(torch, mesh) -> dict:
+    """Host-clock ms of one tp ``all_reduce`` of a serve step's activation
+    ([8, 1, 3584] bf16) on the card (staged through the host) and of the
+    same tensor on the host, over 50 calls each: what one collective of a
+    tp step costs over gloo with both ranks on the one card."""
+    x = torch.ones((SERVE_SLOTS, 1, HIDDEN), dtype=torch.bfloat16,
+                   device="cuda")
+    out = {}
+    for where, t in (("card", x), ("host", x.cpu())):
+        mesh.all_reduce(t, "tp")
+        mesh.barrier()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            mesh.all_reduce(t, "tp")
+        out[where] = (time.perf_counter() - t0) / 50 * 1e3
+    return out
+
+
+def _tp_lens(torch, mesh, params, cfg, tok, config, out_dir) -> dict:
+    """16a on a rank: ``run_evaluation`` for "ship" through the model (no
+    cache), over the tp mesh; the lens pass profiled (its
+    ``lens_wgmma_kernel`` slices counted by name) and the kernel's counter
+    set to 0 just before the run and read just after."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from taboo_brittleness_tpu_torch.ops import lens, lens_kernel
+    from taboo_brittleness_tpu_torch.pipelines import logit_lens
+
+    real, traced = lens.lens_forward, {}
+
+    def profiled(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            res = real(*a, **kw)
+            torch.cuda.synchronize()
+        traced["seconds"] = time.perf_counter() - t0
+        traced["wgmma"] = sum("lens_wgmma_kernel" in e.name
+                              for e in _device_kernels(prof))
+        traced["topk"] = (res.tap.topk_ids.cpu().numpy(),
+                          res.tap.topk_probs.float().cpu().numpy())
+        return res
+
+    def analyze(*a, **kw):
+        traced["analysis"] = real_analyze(*a, **kw)
+        return traced["analysis"]
+
+    real_analyze = logit_lens.analyze_word_on_device
+    lens.lens_forward, logit_lens.analyze_word_on_device = profiled, analyze
+    lens_kernel.lens_stats.launches = 0
+    lens_kernel.lens_stats.route_launches.update(wgmma=0, simple=0)
+    try:
+        t0 = time.perf_counter()
+        results = logit_lens.run_evaluation(
+            config, tok, words=["ship"],
+            model_loader=lambda word: (params, cfg, tok),
+            processed_dir=os.path.join(out_dir, "processed"),
+            output_path=os.path.join(out_dir, "results.json"), mesh=mesh)
+        seconds = time.perf_counter() - t0
+    finally:
+        lens.lens_forward = real
+        logit_lens.analyze_word_on_device = real_analyze
+    a = traced["analysis"]
+    return {"predictions": results["ship"]["predictions"],
+            "guess_ids": a.guess_ids, "sequences": a.sequences,
+            "target_probs": a.target_probs, "topk": traced["topk"],
+            "seconds": seconds,
+            "lens_seconds": traced["seconds"], "profiled": traced["wgmma"],
+            "launches": lens_kernel.lens_stats.launches,
+            "by_route": dict(lens_kernel.lens_stats.route_launches),
+            "wrote": os.path.exists(os.path.join(out_dir, "results.json"))}
+
+
+def _tp_serve(torch, mesh, params, cfg, tok, config, ids) -> dict:
+    """16b on a rank (rank 0 drives, rank 1 follows): phase 11's 8-slot
+    engine over phase 11d's first 16 requests, step ms over 8 sessions with
+    one profiled step, then the speculative engine over the 8 sessions."""
+    from taboo_brittleness_tpu_torch.ops import sae as sae_ops
+    from taboo_brittleness_tpu_torch.runtime import aot
+    from taboo_brittleness_tpu_torch.runtime.tokenizer import target_token_id
+    from taboo_brittleness_tpu_torch.serve import engine as engine_mod
+    from taboo_brittleness_tpu_torch.serve import loadgen, spec_engine
+    from taboo_brittleness_tpu_torch.serve.scheduler import default_scenarios
+
+    sae = sae_ops.init_random(torch.Generator(device="cuda").manual_seed(3),
+                              cfg.hidden_size, SAE_WIDTH, device="cuda")
+    tgt = target_token_id(tok, "moon")
+    layer = config.model.layer_idx
+    out = {}
+    engine = engine_mod.ServeEngine(params, cfg, tok, sae=sae, mesh=mesh,
+                                    engine_config=_serve_config(layer))
+    if mesh.rank > 0:
+        engine.follow()
+    else:
+        streams = {}
+        t0 = time.perf_counter()
+        report = loadgen.run_inprocess(
+            engine, n_requests=TP_LOAD_REQUESTS, seed=0, rate=50.0,
+            concurrency=16, mix={name: 1.0 for name in SERVE_MIX},
+            scenarios=default_scenarios(), lens_target_id=tgt,
+            on_complete=lambda r: streams.__setitem__(
+                r.id, (r.scenario, list(r.tokens), r.lens_probs)))
+        out["load_seconds"] = time.perf_counter() - t0
+        out["streams"], out["goodput"] = streams, report["goodput"]
+        out["steps"] = engine.steps
+        out["timing"] = _time_engine_steps(torch, engine, ids, tgt,
+                                           "tp 2 (gloo, eager)",
+                                           reps=TP_STEP_REPS)
+        out["aot"] = {k: v for k, v in aot.stats().items()
+                      if k.startswith("serve.")}
+        out["graph"] = engine.graph_record()
+        engine.close()
+    del engine
+    spec = spec_engine.SpecServeEngine(
+        params, cfg, tok, sae=sae, mesh=mesh, draft_layer=2, block_size=3,
+        engine_config=_serve_config(layer))
+    if mesh.rank > 0:
+        spec.follow()
+    else:
+        spec.warm_start()
+        for s, row in enumerate(ids):
+            spec.admit(s, row, max_new=TP_SPEC_NEW, lens_target=tgt)
+        toks = {s: [] for s in range(len(ids))}
+        t0 = time.perf_counter()
+        while spec.any_alive():
+            o = spec.step()
+            for s in toks:
+                toks[s].extend(int(t) for t, e in zip(o.toks[s], o.emit[s])
+                               if e)
+        out["spec_seconds"] = time.perf_counter() - t0
+        out["spec_tokens"] = toks
+        out["spec_stats"] = spec.accept_stats()
+        out["spec_name"] = spec.aot_verify
+        spec.close()
+    return out
+
+
+def tp_rank(rank: int, job: dict) -> dict:
+    """Phase 16a-b on one of the tp ranks (spawned by ``run_ranks``)."""
+    import torch
+
+    _rank_setup(torch, rank)
+    from taboo_brittleness_tpu_torch.config import MeshConfig
+    from taboo_brittleness_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(MeshConfig(dp=1, tp=TP_RANKS, sp=1), device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    params, cfg, tok, config, t_params = _rank_model(torch, mesh)
+    out = {"rank": rank, "mesh": mesh.record(), "params_seconds": t_params,
+           "embed_rows": int(params["embed"].shape[0])}
+    out["lens"] = _tp_lens(torch, mesh, params, cfg, tok, _tp_config(config),
+                           os.path.join(job["workdir"], f"lens{rank}"))
+    out["merged"] = _merged_readout(torch, mesh, params["embed"], job["merge"])
+    mesh.barrier()
+    if rank == 0:      # the card is rank 0's while rank 1 waits
+        out["shard_main"] = _shard_kernel(torch, params["embed"], N_ROWS, TOP_K)
+        out["shard_serve"] = _shard_kernel(torch, params["embed"],
+                                           SERVE_SLOTS, 1)
+    mesh.barrier()
+    out["collective_ms"] = _collective_ms(torch, mesh)
+    out["serve"] = _tp_serve(torch, mesh, params, cfg, tok, config,
+                             job["ids"])
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def sp_rank(rank: int, job: dict) -> dict:
+    """Phase 16c on one of the sp ranks: ``lens_forward_sp`` at sp 2 over
+    one SP_T-column row, and on rank 0 the dense ``lens_forward`` of it."""
+    import torch
+
+    _rank_setup(torch, rank)
+    from taboo_brittleness_tpu_torch.config import MeshConfig
+    from taboo_brittleness_tpu_torch.ops import lens
+    from taboo_brittleness_tpu_torch.parallel import sp as splib
+    from taboo_brittleness_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(MeshConfig(dp=1, tp=1, sp=TP_RANKS), device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    params, cfg, tok, config, t_params = _rank_model(torch, mesh)
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    ids = torch.randint(3, cfg.vocab_size, (1, SP_T), generator=gen,
+                        device="cuda")
+    target = torch.tensor([ids[0, -1].item()], device="cuda")
+    layer = config.model.layer_idx
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = splib.lens_forward_sp(params, cfg, ids, target, mesh,
+                                tap_layer=layer, top_k=TOP_K)
+    torch.cuda.synchronize()
+    out = {"rank": rank, "mesh": mesh.record(), "params_seconds": t_params,
+           "sp_seconds": time.perf_counter() - t0}
+    mesh.barrier()
+    if rank == 0:
+        t0 = time.perf_counter()
+        dense = lens.lens_forward(params, cfg, ids, target, tap_layer=layer,
+                                  top_k=TOP_K)
+        torch.cuda.synchronize()
+        out["dense_seconds"] = time.perf_counter() - t0
+        # A lens logit gap is the log of a probability ratio.
+        logp = dense.tap.topk_probs.float().log()
+        gaps = logp[..., :-1] - logp[..., 1:]
+        clear1 = gaps[..., 0] > SPEC_MARGIN
+        # The first K - 1 ids are fixed by the K - 1 gaps the top-K holds;
+        # the K-th also needs the gap to the (K+1)-th, which it does not.
+        clear = (gaps > SPEC_MARGIN).all(dim=-1)
+        same1 = got.tap.topk_ids[..., 0] == dense.tap.topk_ids[..., 0]
+        same = (got.tap.topk_ids[..., :-1]
+                == dense.tap.topk_ids[..., :-1]).all(dim=-1)
+        rel = ((got.tap.target_prob - dense.tap.target_prob).abs()
+               / dense.tap.target_prob)
+        out.update(
+            positions=int(clear1.numel()), clear=int(clear1.sum().item()),
+            bad=int((clear1 & ~same1).sum().item()),
+            clear_k=int(clear.sum().item()),
+            bad_k=int((clear & ~same).sum().item()),
+            prob_err=float((got.tap.topk_probs - dense.tap.topk_probs).abs()
+                           .div(dense.tap.topk_probs).max().item()),
+            target_err=float(rel.max().item()),
+            target_err_median=float(rel.median().item()),
+            resid_rel=float(((got.residual - dense.residual).norm()
+                             / dense.residual.norm()).item()),
+            finite=bool(torch.isfinite(got.residual).all().item()))
+        del dense
+    mesh.barrier()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def check_tp_lens(torch, ref, ref_sums, ref_topk, ranks, margins,
+                  witness) -> None:
+    """16a: the tp lens pass against the unsharded one: tokens under the
+    margin rule; on rows of equal tokens, P(target) within TP_PROB_RTOL of
+    itself (beside the witness's reading of the same gap), the
+    per-position top-k ids where their logit gaps exceed SPEC_MARGIN (the
+    first K - 1, as in 16c), and the guesses where the reference's summed
+    probabilities lead the next by more than AGG_GAP_RTOL of
+    themselves."""
+    r0, r1 = (r["lens"] for r in ranks)
+    log(f"  tp 2 run_evaluation (ship, through the model): {r0['seconds']:.2f} "
+        f"s on rank 0, lens pass {r0['lens_seconds']:.2f} s (profiled); lens "
+        f"kernel launches per rank {r0['launches']}, {r1['launches']} (by "
+        f"route {r0['by_route']}), lens_wgmma_kernel slices in the profiled "
+        f"pass {r0['profiled']}, {r1['profiled']}; results written by rank 0 "
+        f"{r0['wrote']}, rank 1 {r1['wrote']}")
+    for r in (r0, r1):
+        if r["launches"] != 42 or r["by_route"]["wgmma"] != 42 \
+                or r["profiled"] != 42:
+            fail(f"16a: a rank's lens pass launched {r['launches']} kernels "
+                 f"({r['by_route']}), {r['profiled']} in its trace; 42 each")
+    if not r0["wrote"] or r1["wrote"]:
+        fail("16a: rank 0 alone must write the results")
+    if r0["guess_ids"] != r1["guess_ids"]:
+        fail("16a: the two tp ranks hold other guesses")
+    equal_rows, worst, gap_w, tp_w, scale = [], 0.0, 0.0, 0.0, []
+    for b, (got, want) in enumerate(zip(r0["sequences"], ref.sequences)):
+        if got == want:
+            equal_rows.append(b)
+            worst = max(worst, _rel_gap(r0["target_probs"][b],
+                                        ref.target_probs[b]))
+            scale.append(np.asarray(ref.target_probs[b], np.float64).ravel())
+            if witness.sequences[b] == want:
+                gap_w = max(gap_w, _rel_gap(witness.target_probs[b],
+                                            ref.target_probs[b]))
+                tp_w = max(tp_w, _rel_gap(r0["target_probs"][b],
+                                          witness.target_probs[b]))
+            continue
+        start = len(want) - len(margins[b]) if len(margins[b]) else 0
+        first = next(i for i, (a, c) in enumerate(zip(got, want)) if a != c) \
+            if len(got) == len(want) else min(len(got), len(want))
+        m = margins[b][first - start] if 0 <= first - start < len(margins[b]) \
+            else float("inf")
+        log(f"  16a row {b}: tokens first differ at {first} (unsharded "
+            f"margin {m:.4f})")
+        if not m < SPEC_MARGIN:
+            fail(f"16a row {b} diverges at a margin >= {SPEC_MARGIN}")
+    k = len(ref.guess_ids[0])
+    gaps = (ref_sums[:, :-1] - ref_sums[:, 1:]) / np.maximum(ref_sums[:, :-1],
+                                                             1e-30)
+    clear = [b for b in equal_rows if (gaps[b, :k] > AGG_GAP_RTOL).all()]
+    bad = [b for b in clear if r0["guess_ids"][b] != ref.guess_ids[b]]
+    same_guess = sum(r0["guess_ids"][b] == ref.guess_ids[b] for b in equal_rows)
+    log(f"  tokens equal on {len(equal_rows)}/{len(ref.sequences)} rows; of "
+        f"those, guess ids equal on {same_guess} ({len(clear)} with every "
+        f"summed-probability gap over {AGG_GAP_RTOL} of itself, {len(bad)} "
+        f"differ there); predictions {r0['predictions'][:2]}...")
+    median = float(np.median(np.concatenate(scale))) if scale else 0.0
+    log(f"  P(target) on rows of equal tokens (median {median:.3e}): tp 2 vs "
+        f"unsharded max relative diff {worst:.3e} (rtol {TP_PROB_RTOL}); the "
+        f"witness (split o/down sums, one process) vs unsharded {gap_w:.3e}, "
+        f"tp 2 vs the witness {tp_w:.3e}")
+    if worst > TP_PROB_RTOL:
+        fail(f"16a: P(target) differs by {worst} (relative) on rows of equal "
+             "tokens")
+    if bad:
+        fail(f"16a: rows {bad} guess otherwise where the margin is clear")
+    # Per-position top-k of the lens pass ([L, B, T, K]) on rows of equal
+    # tokens; pad columns are the same tokens on both sides.
+    ids_g, _ = r0["topk"]
+    ids_w, probs_w = ref_topk
+    logp = np.log(probs_w[:, equal_rows])
+    clear = ((logp[..., :-1] - logp[..., 1:]) > SPEC_MARGIN).all(axis=-1)
+    same = (ids_g[:, equal_rows, :, :-1] == ids_w[:, equal_rows, :, :-1]
+            ).all(axis=-1)
+    log(f"  per-position lens top-{ids_w.shape[-1]}: the first "
+        f"{ids_w.shape[-1] - 1} ids equal on "
+        f"{int((clear & same).sum())}/{int(clear.sum())} (layer, position) "
+        f"pairs whose gaps exceed {SPEC_MARGIN}, of {clear.size}")
+    if not clear.any() or (clear & ~same).any():
+        fail("16a: the tp lens pass's top-k ids differ where the margin is "
+             "clear")
+
+
+def check_merged_readout(torch, merge: dict, ref, ranks) -> None:
+    """16a: ``tp_lens_stats`` merged over the two ranks against
+    ``lens_stats_reference`` over the whole vocabulary (``ref``, one more
+    candidate) on the same rows and targets: logits within ATOL, ids equal
+    where clear, P(target) within SERVE_PROB_RTOL of itself; and the planted
+    shift fault's P(target) off by more than TP_PROB_RTOL on most rows, so
+    that the tp limits would catch it."""
+    from taboo_brittleness_tpu_torch.ops.lens_kernel import LensStats
+
+    got, other = (LensStats(*r["merged"]["stats"]) for r in ranks)
+    if not all(torch.equal(a, b) for a, b in zip(got, other)):
+        fail("16a: the two tp ranks merged other lens statistics")
+    err, n_clear, n_bad = compare(got, ref, TOP_K)
+    rows = merge["t"] >= 0
+    p_ref = ref.target_prob()[rows].double().numpy()
+    rel = _rel_gap(got.target_prob()[rows].double().numpy(), p_ref)
+    planted = np.abs(ranks[0]["merged"]["planted"][rows].double().numpy()
+                     - p_ref) / p_ref
+    n = int(merge["t"].numel())
+    log(f"  tp_lens_stats merged over 2 ranks, N={n} K={TOP_K} (targets "
+        f"over the whole vocabulary, {n - int(rows.sum())} of them -1): "
+        f"max_abs_err {err:.3e} (atol {ATOL}) against lens_stats_reference "
+        f"over V={VOCAB}, ids equal on {n_clear - n_bad}/{n_clear} rows "
+        f"with clear margins, P(target) max relative diff {rel:.3e} (rtol "
+        f"{SERVE_PROB_RTOL}); planted fault (targets shifted by one id): "
+        f"P(target) relative diff median {np.median(planted):.3e}, "
+        f"{(planted > TP_PROB_RTOL).mean():.3f} of rows over {TP_PROB_RTOL}")
+    if err > ATOL or n_bad or rel > SERVE_PROB_RTOL:
+        fail("16a: the merged tp readout disagrees with the whole-vocabulary "
+             "reference")
+    if not np.median(planted) > TP_PROB_RTOL:
+        fail(f"16a: a planted target shift reads under {TP_PROB_RTOL}: the "
+             "tp probability limit would not catch it")
+
+
+def check_tp_serve(torch, ctx, sae, tgt, ref_streams, served, spec_ref,
+                   witness) -> None:
+    """16b: the tp engine's streams against the unsharded engine's, and the
+    tp speculative engine against vanilla, under the margin rule."""
+    log(f"  tp 2 load ({TP_LOAD_REQUESTS} requests): goodput "
+        f"{served['goodput']}, {served['steps']} engine steps in "
+        f"{served['load_seconds']:.2f} s; programs {served['aot']}; "
+        f"{served['graph']}")
+    good = served["goodput"]
+    if not good["completed"] == good["admitted"] == TP_LOAD_REQUESTS:
+        fail(f"16b: the tp load completed {good}")
+    for name, st in served["aot"].items():
+        if name.endswith("[tp]") and st["misses"]:
+            fail(f"16b: {name} missed after its warm start: {st}")
+    if served["graph"].get("graphed"):
+        fail("16b: a gloo rank's step claims a graph")
+    diverged, worst_rel, gap_w, tp_w = [], 0.0, 0.0, 0.0
+    for rid, (scen, toks, probs) in sorted(ref_streams.items()):
+        g = served["streams"].get(rid)
+        if g is None:
+            fail(f"16b: no tp response for {rid}")
+        if g[1] != toks:
+            diverged.append((rid, scen))
+        elif probs is not None:
+            worst_rel = max(worst_rel, _rel_gap(g[2], probs))
+            w = witness[rid]
+            if w[1] == toks:
+                gap_w = max(gap_w, _rel_gap(w[2], probs))
+                tp_w = max(tp_w, _rel_gap(g[2], w[2]))
+    for rid, scen in diverged:
+        ref, margins = _request_margins(torch, ctx, sae, tgt, {
+            "id": rid, "prompt": "Give me a hint", "scenario": scen,
+            "seed": int(rid[1:5])})
+        g = served["streams"][rid][1]
+        first = next((i for i, (a, b) in enumerate(zip(g, ref)) if a != b),
+                     min(len(g), len(ref)))
+        m = margins[first] if first < len(margins) else float("inf")
+        log(f"  16b {rid}: first differs at token {first} (unsharded margin "
+            f"{m:.4f})")
+        if not m < SPEC_MARGIN:
+            fail(f"16b {rid} diverges at a margin >= {SPEC_MARGIN}")
+    log(f"  tokens equal to the unsharded engine on "
+        f"{len(ref_streams) - len(diverged)}/{len(ref_streams)} requests; "
+        f"chat_lens probabilities max relative diff {worst_rel:.3e} (rtol "
+        f"{TP_PROB_RTOL}); the witness (split o/down sums, one process) vs "
+        f"unsharded {gap_w:.3e}, tp 2 vs the witness {tp_w:.3e}")
+    if worst_rel > TP_PROB_RTOL:
+        fail(f"16b: lens probabilities differ by {worst_rel} (relative)")
+    t = served["timing"]
+    if t["wgmma"] != 1:
+        fail(f"16b: the profiled tp step ran {t['wgmma']} readout kernels")
+    van_toks, van_margins = spec_ref
+    st = served["spec_stats"]
+    log(f"  tp 2 speculative engine ({served['spec_name']}, k 2, G 3) over 8 "
+        f"sessions of {TP_SPEC_NEW} tokens: {served['spec_seconds']:.2f} s, "
+        f"accept rate {st['accept_rate']}, tokens per verify "
+        f"{st['tokens_per_verify']}")
+    spec_rows = np.array([served["spec_tokens"][s] for s in range(len(van_toks))])
+    van = {"tokens": np.array([van_toks[s] for s in range(len(van_toks))]),
+           "margins": np.array([van_margins[s] for s in range(len(van_toks))])}
+    if spec_rows.shape != van["tokens"].shape:
+        fail(f"16b: tp speculative rows {spec_rows.shape} vs vanilla "
+             f"{van['tokens'].shape}")
+    _hold_rows("16b tp 2 speculative engine", spec_rows, van)
+
+
+def check_selfcheck_process(torch) -> None:
+    """16b: ``serve --selfcheck`` as processes on the card (the tiny
+    synthetic stack): a ``--tp 2`` server's ranks and a ``--tp-no-shard``
+    server, their responses compared by the command itself."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", PACKAGE, "serve",
+                           "--selfcheck"], cwd=REPO, env=_proc_env(),
+                          capture_output=True, text=True,
+                          timeout=PROC_TIMEOUT_S)
+    verdict = {}
+    with contextlib.suppress(ValueError):
+        verdict = json.loads(proc.stdout)
+    log(f"  serve --selfcheck (processes, card): exit {proc.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s, ok {verdict.get('ok')}, compared "
+        f"{verdict.get('compared')}, mesh {verdict.get('mesh')}, aot "
+        f"{verdict.get('aot')}")
+    if proc.returncode != 0 or not verdict.get("ok"):
+        fail(f"serve --selfcheck: exit {proc.returncode}\n{proc.stdout[-3000:]}"
+             f"\n{proc.stderr[-3000:]}")
+
+
+def drive_parallel_tp(torch, workdir: str, ctx: tuple, *,
+                      selfcheck: bool = False) -> dict:
+    """Phase 16a-b: the unsharded references and their witnesses
+    (``split_row_parallel``) in this process on phase 6's params, then two
+    tp ranks on the card (``gloo``, collectives staged on the host), then
+    (``selfcheck``) ``serve --selfcheck``.  Returns the per-shard kernel
+    rows and the phase's readings."""
+    import gc
+
+    from taboo_brittleness_tpu_torch.ops import lens_kernel as lk
+    from taboo_brittleness_tpu_torch.ops import sae as sae_ops
+    from taboo_brittleness_tpu_torch.parallel.multihost import run_ranks
+    from taboo_brittleness_tpu_torch.pipelines import logit_lens
+    from taboo_brittleness_tpu_torch.runtime import aot, decode
+    from taboo_brittleness_tpu_torch.runtime.tokenizer import target_token_id
+    from taboo_brittleness_tpu_torch.serve import engine as engine_mod
+    from taboo_brittleness_tpu_torch.serve import loadgen
+    from taboo_brittleness_tpu_torch.serve.scheduler import default_scenarios
+
+    t_phase = time.perf_counter()
+    aot.reset()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, cfg, tok, config = ctx[:4]
+    layer = config.model.layer_idx
+    config = _tp_config(config)
+    log(f"phase 16a references: the unsharded lens pass for ship "
+        f"({TP_NEW_TOKENS} new tokens)")
+    from taboo_brittleness_tpu_torch.ops import lens as lens_mod
+
+    real_agg, sums = lens_mod.aggregate_from_residual, []
+    real_lens, taps = lens_mod.lens_forward, []
+
+    def wider(*a, top_k, **kw):        # one more candidate, for the margins
+        ids_, vals = real_agg(*a, top_k=top_k + 1, **kw)
+        sums.append(vals.cpu().numpy())
+        return ids_[:, :top_k], vals[:, :top_k]
+
+    def kept(*a, **kw):                # the per-position top-k, kept
+        res = real_lens(*a, **kw)
+        taps.append((res.tap.topk_ids.cpu().numpy(),
+                     res.tap.topk_probs.float().cpu().numpy()))
+        return res
+
+    lens_mod.aggregate_from_residual, lens_mod.lens_forward = wider, kept
+    try:
+        ref = logit_lens.analyze_word_on_device(
+            params, cfg, tok, "ship", list(config.prompts), layer_idx=layer,
+            top_k=config.model.top_k,
+            max_new_tokens=config.experiment.max_new_tokens,
+            pad_to_multiple=config.experiment.pad_to_multiple)
+    finally:
+        lens_mod.aggregate_from_residual = real_agg
+        lens_mod.lens_forward = real_lens
+    ref_sums, ref_topk = sums[0], taps[0]
+    with AotOff(), split_row_parallel(torch, params) as split_a:
+        witness_a = logit_lens.analyze_word_on_device(
+            params, cfg, tok, "ship", list(config.prompts), layer_idx=layer,
+            top_k=config.model.top_k,
+            max_new_tokens=config.experiment.max_new_tokens,
+            pad_to_multiple=config.experiment.pad_to_multiple)
+    gen = torch.Generator(device=params["embed"].device).manual_seed(17)
+    merge = {"x": torch.randn((N_ROWS, HIDDEN), generator=gen,
+                              device=gen.device).to(torch.bfloat16),
+             "t": torch.randint(0, cfg.vocab_size - 1, (N_ROWS,),
+                                generator=gen, device=gen.device)}
+    merge["t"][::3] = -1
+    merge_ref = lk.lens_stats_reference(merge["x"], params["embed"],
+                                        merge["t"], top_k=TOP_K + 1)
+    merge_ref = lk.LensStats(*(a.cpu() for a in merge_ref))
+    merge = {k: v.cpu() for k, v in merge.items()}
+    padded, valid, positions, _ = decode.encode_prompts(
+        tok, list(config.prompts),
+        pad_to_multiple=config.experiment.pad_to_multiple)
+    dev = params["embed"].device
+    dec = decode.greedy_decode(
+        params, cfg, torch.from_numpy(padded).long().to(dev),
+        torch.from_numpy(valid).to(dev),
+        torch.from_numpy(positions).long().to(dev),
+        max_new_tokens=config.experiment.max_new_tokens, return_margins=True)
+    margins = [m[:int(n)].tolist() for m, n in
+               zip(dec.margins.cpu().numpy(), dec.lengths.cpu().numpy())]
+    del dec
+    log("phase 16b references: the unsharded engine over 11d's first "
+        f"{TP_LOAD_REQUESTS} requests, vanilla margins for the speculative "
+        "check")
+    sae = sae_ops.init_random(torch.Generator(device=dev).manual_seed(3),
+                              cfg.hidden_size, SAE_WIDTH, device=dev)
+    tgt = target_token_id(tok, "moon")
+    _, _, _, ids = decode.encode_prompts(tok, list(config.prompts[:SERVE_SLOTS]))
+    engine = engine_mod.ServeEngine(params, cfg, tok, sae=sae,
+                                    engine_config=_serve_config(layer))
+    def load(engine) -> dict:
+        streams = {}
+        loadgen.run_inprocess(
+            engine, n_requests=TP_LOAD_REQUESTS, seed=0, rate=50.0,
+            concurrency=16, mix={name: 1.0 for name in SERVE_MIX},
+            scenarios=default_scenarios(), lens_target_id=tgt,
+            on_complete=lambda r: streams.__setitem__(
+                r.id, (r.scenario, list(r.tokens), r.lens_probs)))
+        return streams
+
+    ref_streams = load(engine)
+    del engine
+    with AotOff(), split_row_parallel(torch, params) as split_b:
+        witness_b = load(engine_mod.ServeEngine(
+            params, cfg, tok, sae=sae, engine_config=_serve_config(layer)))
+    log(f"  witnesses: {split_a['calls']} and {split_b['calls']} o/down "
+        "products split in two in the lens pass and the engine load")
+    if not (split_a["calls"] and split_b["calls"]):
+        fail("16: the witness split no o/down product")
+    spec_ref = _vanilla_with_margins(torch, ctx, sae, ids, TP_SPEC_NEW, tgt)
+    aot.reset()
+    gc.collect()
+    torch.cuda.empty_cache()
+    main_peak = torch.cuda.max_memory_allocated() / 2**30
+
+    log(f"phase 16a-b: {TP_RANKS} tp ranks on the card over gloo")
+    t0 = time.perf_counter()
+    ranks = run_ranks(tp_rank, TP_RANKS,
+                      {"workdir": workdir, "ids": ids, "merge": merge},
+                      device="cuda", workdir=os.path.join(workdir, "tp-ranks"))
+    t_ranks = time.perf_counter() - t0
+    for r in ranks:
+        log(f"  rank {r['rank']}: mesh {r['mesh']}; embed rows "
+            f"{r['embed_rows']}; params sliced in {r['params_seconds']:.1f} s; "
+            f"peak device memory {r['peak_gib']:.2f} GiB")
+        if r["embed_rows"] * TP_RANKS != cfg.vocab_size:
+            fail(f"rank {r['rank']} holds {r['embed_rows']} vocab rows")
+        if r["mesh"]["backend"] != "gloo" or r["mesh"]["staging"] != "host":
+            fail(f"rank {r['rank']}: mesh {r['mesh']}")
+    log("phase 16a the tp lens pass")
+    check_tp_lens(torch, ref, ref_sums, ref_topk, ranks, margins, witness_a)
+    check_merged_readout(torch, merge, merge_ref, ranks)
+    rows = {}
+    for key in ("shard_main", "shard_serve"):
+        s = ranks[0][key]
+        log(f"  per-shard lens_stats N={s['n']} V={s['v']} K={s['k']}: "
+            f"max_abs_err {s['max_abs_err']:.3e} (atol {ATOL}), ids equal on "
+            f"{s['clear'] - s['bad']}/{s['clear']} rows with clear margins, "
+            f"wgmma launches {s['wgmma']}; {s['ms']:.3f} ms, plain "
+            f"{s['plain_ms']:.3f} ms, library {s['library_ms']:.3f} ms, bound "
+            f"{s['bound_ms']:.3f} ms ({s['bound_by']})")
+        if s["max_abs_err"] > ATOL or s["bad"] or s["wgmma"] != 1:
+            fail(f"the per-shard lens_stats call disagrees: {s}")
+        rows[key] = s
+    c = ranks[0]["collective_ms"]
+    log(f"  one tp all_reduce of [8, 1, {HIDDEN}] bf16 over gloo: "
+        f"{c['card']:.3f} ms from the card (staged), {c['host']:.3f} ms "
+        "between host tensors (host clock, mean of 50)")
+    log("phase 16b the tp serve engine")
+    served = ranks[0]["serve"]
+    check_tp_serve(torch, ctx, sae, tgt, ref_streams, served, spec_ref,
+                   witness_b)
+    del sae
+    if selfcheck:
+        log("phase 16b serve --selfcheck")
+        check_selfcheck_process(torch)
+    peak = main_peak + sum(r["peak_gib"] for r in ranks)
+    step_ms = served["timing"]["step_ms"]
+    log(f"tp phase: {time.perf_counter() - t_phase:.2f} s (ranks "
+        f"{t_ranks:.2f} s); tp 2 step {step_ms:.3f} ms and lens pass "
+        f"{ranks[0]['lens']['lens_seconds']:.2f} s are gloo over one card "
+        "(collectives staged on the host), not a tensor-parallel speed; peak "
+        f"device memory, this process's plus each rank's: {peak:.2f} GiB")
+    if peak >= PEAK_GIB:
+        fail(f"phase 16a-b peaks at {peak:.2f} GiB, over {PEAK_GIB}")
+    return {"tp_shard_ms": rows["shard_main"]["ms"],
+            "tp_shard_plain_ms": rows["shard_main"]["plain_ms"],
+            "tp_shard_library_ms": rows["shard_main"]["library_ms"],
+            "tp_shard_bound_ms": rows["shard_main"]["bound_ms"],
+            "tp_shard_max_abs_err": rows["shard_main"]["max_abs_err"],
+            "tp_shard_launches": ranks[0]["lens"]["launches"],
+            "tp_serve_shard_ms": rows["shard_serve"]["ms"],
+            "tp_serve_shard_plain_ms": rows["shard_serve"]["plain_ms"],
+            "tp_serve_shard_library_ms": rows["shard_serve"]["library_ms"],
+            "tp_serve_shard_bound_ms": rows["shard_serve"]["bound_ms"],
+            "tp_serve_shard_max_abs_err": rows["shard_serve"]["max_abs_err"],
+            "tp_step_ms": step_ms,
+            "tp_lens_seconds": ranks[0]["lens"]["lens_seconds"]}
+
+
+def drive_parallel_sp(torch, workdir: str) -> dict:
+    """Phase 16c: two sp ranks, each with phase 6's whole params, one
+    SP_T-column row through ``lens_forward_sp`` against the dense pass."""
+    import gc
+
+    from taboo_brittleness_tpu_torch.parallel.multihost import run_ranks
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    held = torch.cuda.memory_allocated() / 2**30
+    log(f"phase 16c lens_forward_sp at sp {TP_RANKS}, B 1, T {SP_T} (this "
+        f"process holds {held:.2f} GiB)")
+    ranks = run_ranks(sp_rank, TP_RANKS, {"workdir": workdir}, device="cuda",
+                      workdir=os.path.join(workdir, "sp-ranks"))
+    r = ranks[0]
+    peak = held + sum(x["peak_gib"] for x in ranks)
+    log(f"  sp pass {r['sp_seconds']:.2f} s (gloo over one card), dense pass "
+        f"{r['dense_seconds']:.2f} s; of {r['positions']} (layer, position) "
+        f"pairs, top-1 ids equal on {r['clear'] - r['bad']}/{r['clear']} "
+        f"whose top-1/top-2 logit gap exceeds {SPEC_MARGIN}, the first "
+        f"{TOP_K - 1} of the top-{TOP_K} on {r['clear_k'] - r['bad_k']}/"
+        f"{r['clear_k']} with every gap among them clear; "
+        f"top-k probs max relative diff {r['prob_err']:.3e}, P(target) "
+        f"{r['target_err']:.3e} (median {r['target_err_median']:.3e}); "
+        f"residual relative L2 {r['resid_rel']:.3e} (rtol {SP_RESID_RTOL}); "
+        f"peak device memory, this process's plus the ranks' {peak:.2f} GiB; phase "
+        f"{time.perf_counter() - t0:.2f} s")
+    if r["bad"] or r["bad_k"] or not r["clear"] or not r["finite"]:
+        fail(f"16c: the sp pass disagrees with the dense one: {r}")
+    if not r["resid_rel"] < SP_RESID_RTOL:
+        fail(f"16c: the sp residual is {r['resid_rel']} from the dense one")
+    if peak >= PEAK_GIB:
+        fail(f"phase 16c peaks at {peak:.2f} GiB, over {PEAK_GIB}")
+    return {"sp_seconds": r["sp_seconds"], "sp_dense_seconds": r["dense_seconds"]}
+
+
+def parallel_only(torch) -> int:
+    """``--parallel``: phases 1-2 and 16 alone, on phase 6's params made
+    here (the quickest proof that the parallel paths run on the card)."""
+    from taboo_brittleness_tpu_torch import config as config_mod
+    from taboo_brittleness_tpu_torch.models import gemma2
+    from taboo_brittleness_tpu_torch.runtime.tokenizer import WordTokenizer
+
+    device, card = report_device(torch)
+    build_kernels()
+    config = config_mod.Config(output=config_mod.OutputConfig(save_plots=False))
+    cfg = gemma2.PRESETS["gemma2_9b"]
+    params = gemma2.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    words = sorted({w for p in config.prompts for w in p.split()}
+                   | set(config.words))
+    tok = WordTokenizer(words, vocab_size=cfg.vocab_size)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        ctx = (params, cfg, tok, config, None, "ship")
+        del params
+        out = drive_parallel_tp(torch, workdir, ctx, selfcheck=True)
+        del ctx
+        out.update(drive_parallel_sp(torch, workdir))
+    print(card, flush=True)
+    print(json.dumps({"parallel": out}), flush=True)
+    print(json.dumps({"ok": True, "device": device}), flush=True)
+    return 0
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, PACKAGE)):
         fail(f"{PACKAGE}/ not found beside chip_smoke.py: run it from the "
@@ -5131,6 +6031,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    if sys.argv[1:] == ["--parallel"]:
+        return parallel_only(torch)
     device, card = report_device(torch)
     build_kernels()
     wgmma, simple = check_lens_stats(torch)
@@ -5151,7 +6053,9 @@ def main() -> int:
         fleet = drive_replica_fleet(torch, workdir, ctx, sae)
         del sae
         profiled = drive_device_profile(torch, workdir, ctx)
+        parallel = drive_parallel_tp(torch, workdir, ctx)
         del ctx
+        parallel.update(drive_parallel_sp(torch, workdir))
     # ``launches`` is the main path's own count; the serving path's and the
     # speculative verify's readout kernels per step, counted in profiled
     # steps, ride beside it.
@@ -5162,6 +6066,10 @@ def main() -> int:
     wgmma.update(grid)
     wgmma.update(fleet)
     wgmma.update(profiled)
+    wgmma.update(parallel)
+    wgmma["max_abs_err"] = max(wgmma["max_abs_err"],
+                               wgmma.pop("tp_shard_max_abs_err"),
+                               wgmma.pop("tp_serve_shard_max_abs_err"))
     wgmma["launches"] = by_route["wgmma"]
     simple["launches"] = by_route["simple"]
     # Again at the end, beside the numbers, where a tail of the output

@@ -55,9 +55,15 @@ leased claims, re-spool on a replica's death, a burn-rate router).
 durable before the 200, per-token SSE, typed 429s; it builds no engine
 and never touches the card); ``top`` and ``trace`` read a run
 directory's telemetry.  ``TBX_SERVE_SPECULATE=1`` builds the speculative
-engine (``serve.spec_engine``) for every engine command.  The
-tensor-parallel forms (``--tp``, ``--tp-no-shard``, ``serve
---selfcheck``) raise: they come with ROADMAP Queue 1 item 5.  ``supervise`` runs any of these
+engine (``serve.spec_engine``) for every engine command.  ``serve
+--tp N`` serves tensor-parallel over N rank processes it starts itself
+(rank 0 is this process and owns the spool); ``--tp-no-shard`` builds the
+same tp-rounded model unsharded in one process; ``serve --selfcheck`` runs
+the two as servers over one request batch and compares their responses.
+The sweep commands read ``config.mesh``: a mesh of more than one rank
+starts its peer ranks the same way (``parallel.multihost``), unless this
+process already is a rank of a group (``torchrun``), and rank 0 alone
+writes files.  ``supervise`` runs any of these
 subcommands as a child process under ``runtime.supervise`` (restart on a
 crash or a wedge, relaunch on a drain).  ``fleet`` runs a sweep as
 ``(word, readout)`` units over N supervised ``worker`` processes claiming
@@ -79,7 +85,7 @@ import argparse
 import json
 import os
 import sys
-from typing import List, Optional
+from typing import Any, List, Optional, Tuple
 
 from taboo_brittleness_tpu_torch import config as config_mod
 from taboo_brittleness_tpu_torch.config import Config
@@ -138,12 +144,51 @@ def _load(args) -> Config:
     return Config()
 
 
-def _loader(config: Config, args):
+#: Ranks 1..N-1 this process started (``parallel.multihost.spawn_peers``);
+#: :func:`main` waits for them after the command.
+_PEERS: List[Any] = []
+
+
+def _join_ranks(world: int, args) -> None:
+    """Make this process rank 0 of ``world`` ranks of the same command,
+    starting the other ranks, unless it already is a rank of a group
+    (``torchrun``, or a peer started here); then join the group."""
+    from taboo_brittleness_tpu_torch.parallel import multihost
+
+    if world > 1 and not multihost.in_group():
+        _PEERS.append(multihost.spawn_peers(world, args.argv))
+    multihost.initialize(device=args.device)
+
+
+def _mesh(config: Config, args):
+    """The (dp, tp, sp) rank mesh of ``config.mesh``, or None for one rank
+    (JAX: None on a single chip).  A mesh of fixed axes asks for their
+    product of ranks and starts them; inside a group a -1 axis absorbs the
+    group's ranks.  Host-aware (``parallel.multihost.make_host_mesh``)."""
+    from taboo_brittleness_tpu_torch.device import resolve_device
+    from taboo_brittleness_tpu_torch.parallel import multihost
+
+    m = config.mesh
+    world = 1
+    for size in (m.dp, m.tp, m.sp):
+        world *= max(size, 1)
+    if world <= 1 and not multihost.in_group():
+        return None
+    _join_ranks(world, args)
+    mesh = multihost.make_host_mesh(m, device=resolve_device(args.device))
+    return mesh if mesh.size > 1 else None
+
+
+def _loader(config: Config, args, mesh: Any = "config"):
+    """The run's ``CheckpointManager``; under a multi-rank mesh (by default
+    ``config.mesh``'s) each rank loads its shard."""
     from taboo_brittleness_tpu_torch.runtime.checkpoints import CheckpointManager
 
+    if mesh == "config":
+        mesh = _mesh(config, args)
     return CheckpointManager(config.model, checkpoint_root=args.checkpoint_root,
                              delta_root=getattr(args, "delta_root", None),
-                             device=args.device)
+                             device=args.device, mesh=mesh)
 
 
 def _tokenizer(config: Config, args, word: str):
@@ -226,10 +271,12 @@ def cmd_logit_lens(args) -> int:
         config.output.base_dir, f"seed_{config.experiment.seed}",
         config.output.experiment_name, "logit_lens_evaluation_results.json")
     manifest = _manifest(args, "logit-lens")
+    loader = _loader(config, args)
     with maybe_profile(args.trace_dir), manifest.stage("evaluate"):
         results = logit_lens.run_evaluation(
-            config, tok, words=words, model_loader=_loader(config, args),
-            processed_dir=args.processed_dir, output_path=out)
+            config, tok, words=words, model_loader=loader,
+            processed_dir=args.processed_dir, output_path=out,
+            mesh=getattr(loader, "mesh", None))
     manifest.add_artifact(out)
     manifest.extra["overall"] = results["overall"]
     print(json.dumps(results["overall"], indent=2))
@@ -587,13 +634,17 @@ def cmd_spec_calibrate(args) -> int:
     return 0
 
 
-def _refuse_tp(args) -> None:
-    """``--tp`` > 1 and ``--tp-no-shard`` name the tensor-parallel forms,
-    which come with ROADMAP Queue 1 item 5."""
-    if (args.tp or 0) > 1 or args.tp_no_shard:
-        raise SystemExit("--tp / --tp-no-shard (tensor-parallel serving) "
-                         "are not ported yet (ROADMAP Queue 1 item 5, "
-                         "parallelism)")
+def _serve_tp(args) -> Tuple[int, bool]:
+    """(tp, shard) of a serve command: ``--tp`` (default ``TBX_SERVE_TP``)
+    and whether to shard (not ``--tp-no-shard``).  A sharded tp > 1 makes
+    this process rank 0 of tp ranks of the same command."""
+    from taboo_brittleness_tpu_torch.serve.engine import serve_tp
+
+    tp = serve_tp() if args.tp is None else int(args.tp)
+    shard = not args.tp_no_shard
+    if tp > 1 and shard:
+        _join_ranks(tp, args)
+    return tp, shard
 
 
 def _serve_engine(args):
@@ -613,16 +664,21 @@ def _serve_engine(args):
     from taboo_brittleness_tpu_torch.serve.engine import EngineConfig, ServeEngine
     from taboo_brittleness_tpu_torch.serve.scheduler import default_scenarios
 
-    _refuse_tp(args)
+    from taboo_brittleness_tpu_torch.device import resolve_device
+    from taboo_brittleness_tpu_torch.serve.engine import serve_mesh
+
+    tp, shard = _serve_tp(args)
     words = tuple(args.words or ())
     if args.synthetic:
         if len(words) >= 2:
             return loadgen_mod.build_synthetic_multi_engine(
                 words=words, slots=args.slots,
-                max_new_tokens=args.max_new_tokens, device=args.device)
+                max_new_tokens=args.max_new_tokens, device=args.device,
+                tp=tp, shard=shard)
         return loadgen_mod.build_synthetic_engine(
             slots=args.slots, max_new_tokens=args.max_new_tokens,
-            word=words[0] if words else args.word, device=args.device)
+            word=words[0] if words else args.word, device=args.device,
+            tp=tp, shard=shard)
     config = _load(args)          # the synthetic stack reads no config
     engine_cls = (spec_engine.SpecServeEngine if spec_engine.enabled()
                   else ServeEngine)
@@ -636,7 +692,9 @@ def _serve_engine(args):
     ec = EngineConfig(slots=args.slots, max_context=args.max_context,
                       prompt_cols=args.prompt_cols, sae_layer=layer,
                       proj_layer=layer, tap_layer=layer)
-    mgr = _loader(config, args)
+    mesh = (serve_mesh(tp, device=resolve_device(args.device))
+            if shard and tp > 1 else None)
+    mgr = _loader(config, args, mesh=mesh)
     if len(words) >= 2:
         from taboo_brittleness_tpu_torch.runtime import delta as deltalib
 
@@ -648,14 +706,14 @@ def _serve_engine(args):
         packed = [deltalib.load_delta(deltalib.delta_path(mgr.delta_root, w))
                   for w in words]
         engine = engine_cls(base_params, cfg, tok, engine_config=ec, sae=sae,
-                            words=words,
+                            words=words, mesh=mesh,
                             delta_bank=deltalib.stack_bank(base_params, packed))
     else:
         word = (words[0] if words else None) or args.word or config.words[0]
         words = (word,)
         params, cfg, tok = mgr.load(word)
         engine = engine_cls(params, cfg, tok, engine_config=ec, sae=sae,
-                            words=words)
+                            words=words, mesh=mesh)
     scenarios = default_scenarios(max_new_tokens=args.max_new_tokens)
     if sae is None:
         scenarios.pop("sae_ablate", None)
@@ -693,11 +751,17 @@ def cmd_loadgen(args) -> int:
             words=tuple(args.words or ()) or None, timeout_s=args.timeout)
     else:
         engine, scenarios, lens_tgt = _serve_engine(args)
+        if engine.mesh is not None and engine.mesh.rank > 0:
+            engine.follow()          # a peer rank: rank 0 drives the load
+            return 0
         words = tuple(args.words or ()) if engine.multi else None
-        report = loadgen_mod.run_inprocess(
-            engine, n_requests=args.n, seed=args.seed, rate=args.rate,
-            concurrency=args.concurrency, mix=mix, scenarios=scenarios,
-            words=words, lens_target_id=lens_tgt)
+        try:
+            report = loadgen_mod.run_inprocess(
+                engine, n_requests=args.n, seed=args.seed, rate=args.rate,
+                concurrency=args.concurrency, mix=mix, scenarios=scenarios,
+                words=words, lens_target_id=lens_tgt)
+        finally:
+            engine.close()
         report["aot"] = engine.aot_name
     if args.report:
         atomic_json_dump(report, args.report)
@@ -714,15 +778,23 @@ def cmd_serve(args) -> int:
     from taboo_brittleness_tpu_torch.serve import server as server_mod
 
     if args.selfcheck:
-        server_mod.tp_selfcheck()         # raises: ROADMAP item 5
+        # The tensor-parallel A/B gate: --tp 2 against --tp 2 --tp-no-shard.
+        return server_mod.main_tp_selfcheck(device=args.device)
     if not args.output_dir:
-        raise SystemExit("serve: --output-dir is required")
+        raise SystemExit("serve: --output-dir is required (or --selfcheck)")
     engine, scenarios, lens_tgt = _serve_engine(args)
-    res = server_mod.serve_forever(
-        engine, scenarios, args.output_dir,
-        lens_target_id=lens_tgt, queue_limit=args.queue_limit,
-        max_requests=args.max_requests, poll_s=args.poll,
-        replica=args.replica, lease_s=args.lease)
+    if engine.mesh is not None and engine.mesh.rank > 0:
+        # A peer rank: run rank 0's calls until it closes; no spool, no files.
+        engine.follow()
+        return 0
+    try:
+        res = server_mod.serve_forever(
+            engine, scenarios, args.output_dir,
+            lens_target_id=lens_tgt, queue_limit=args.queue_limit,
+            max_requests=args.max_requests, poll_s=args.poll,
+            replica=args.replica, lease_s=args.lease)
+    finally:
+        engine.close()
     print(json.dumps({"status": res.status, "completed": res.completed,
                       "steps": res.steps}))
     return res.exit_code
@@ -733,7 +805,8 @@ def cmd_serve_fleet(args) -> int:
     ``serve --replica`` children of this package over ONE request spool,
     with leased request ownership, re-spool on a replica's death,
     first-writer-wins responses and a burn-rate admission router; every
-    replica gets the coordinator's ``--device``."""
+    replica gets the coordinator's ``--device``, ``--tp`` and
+    ``--tp-no-shard`` (a ``--tp 2`` replica starts its own peer rank)."""
     from taboo_brittleness_tpu_torch.serve import replica as replica_mod
 
     if args.selfcheck:
@@ -741,7 +814,6 @@ def cmd_serve_fleet(args) -> int:
     if not args.output_dir:
         raise SystemExit(
             "serve-fleet: --output-dir is required (or --selfcheck)")
-    _refuse_tp(args)
     out = args.output_dir
 
     def replica_argv(wid: str) -> List[str]:
@@ -770,6 +842,10 @@ def cmd_serve_fleet(args) -> int:
             argv += ["--lease", str(args.lease)]
         if args.device:
             argv += ["--device", args.device]
+        if args.tp:
+            argv += ["--tp", str(args.tp)]
+        if args.tp_no_shard:
+            argv.append("--tp-no-shard")
         return argv
 
     res = replica_mod.run_serve_fleet(
@@ -949,12 +1025,16 @@ def cmd_worker(args) -> int:
     compute, commit first-writer-wins.  Normally started by ``fleet`` or
     ``grid`` under a per-worker supervisor; runnable by hand against any
     spool directory (the JAX package's too: the schemas are shared)."""
+    from taboo_brittleness_tpu_torch.parallel import multihost
     from taboo_brittleness_tpu_torch.runtime import fleet, resilience
 
     wid = args.worker_id or resilience.current_worker_id() or "w0"
     # The worker id names the per-worker telemetry files and the ledger and
     # span stamps: set it before any tracer or ledger exists.
     os.environ[resilience.WORKER_ENV] = wid
+    # Join THIS worker's slice-local process group (TBX_FLEET_*; a no-op for
+    # a local fleet), never the global one.
+    multihost.worker_initialize(device=args.device)
     spool = fleet.FleetSpool(
         os.path.join(args.fleet_dir, fleet.SPOOL_DIRNAME)).ensure()
     res = fleet.run_worker(
@@ -1204,11 +1284,14 @@ def _serve_common(p: argparse.ArgumentParser) -> None:
                    help="torch device (default cuda; cpu runs the plain "
                         "paths)")
     p.add_argument("--tp", type=int, default=None,
-                   help="tensor-parallel extent: not ported (ROADMAP Queue 1 "
-                        "item 5); > 1 raises")
+                   help="tensor-parallel extent: the engine runs over N rank "
+                        "processes (started here; rank 0 owns the spool) "
+                        "with params, KV heads and the delta bank sharded "
+                        "on tp (default: TBX_SERVE_TP; <2 = unsharded)")
     p.add_argument("--tp-no-shard", action="store_true",
-                   help="the unsharded reference arm of the tensor-parallel "
-                        "gate: not ported (ROADMAP Queue 1 item 5); raises")
+                   help="build the tp-rounded model WITHOUT the mesh, in one "
+                        "process: the unsharded reference arm the exactness "
+                        "gate compares against")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -1399,8 +1482,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="spool + telemetry directory (requests/, "
                          "responses/, _progress.json, _events.jsonl)")
     se.add_argument("--selfcheck", action="store_true",
-                    help="the tensor-parallel A/B gate: not ported (ROADMAP "
-                         "Queue 1 item 5); raises")
+                    help="the tensor-parallel A/B gate: the same mixed "
+                         "requests through a --tp 2 server and a --tp 2 "
+                         "--tp-no-shard server; their responses must agree")
     se.add_argument("--queue-limit", type=int, default=64,
                     help="bounded admission queue (beyond it: reject)")
     se.add_argument("--max-requests", type=int, default=None,
@@ -1685,6 +1769,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
+    # What a peer rank re-runs (parallel.multihost.spawn_peers).
+    args.argv = list(sys.argv[1:] if argv is None else argv)
     # Latch SIGTERM / SIGINT into the drain (runtime.supervise): sweeps stop
     # at the next word boundary, a server after its admitted sessions, and
     # both exit 75; supervise polls the same latch to forward the notice.
@@ -1695,4 +1781,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         # device capture (obs/profile.py).
         os.environ["TBX_PROFILE"] = "1"
     supervise.install_drain_handlers()
-    return args.fn(args)
+    try:
+        return args.fn(args)
+    except BaseException:
+        for peers in _PEERS:          # rank 0 failed: its peers cannot finish
+            peers.kill()
+        raise
+    finally:
+        for peers in _PEERS:
+            peers.wait()

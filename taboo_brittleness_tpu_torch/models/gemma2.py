@@ -121,7 +121,7 @@ PRESETS: Dict[str, Gemma2Config] = {
 # ---------------------------------------------------------------------------
 
 def init_params(cfg: Gemma2Config, generator: torch.Generator, *,
-                device: DeviceLike = None) -> Params:
+                device: DeviceLike = None, mesh: Any = None) -> Params:
     """Random-normal params in the stacked layout, drawn from ``generator``.
 
     ``generator`` must live on ``device`` (``torch.Generator(device=...)``).
@@ -130,40 +130,59 @@ def init_params(cfg: Gemma2Config, generator: torch.Generator, *,
     stacked MLP leaves are 4.3 GB in bf16 and twice that in f32).  The
     scales are the JAX package's; the numbers are not (the two generators
     differ — carry JAX weights across with ``params.from_jax_params``).
+
+    With a ``mesh`` (``parallel.mesh``) every leaf is drawn whole, in the
+    same order, and only this rank's shard of it is kept
+    (``parallel.mesh.shard_leaf``), layer by layer: the shards of the same
+    seed's params, with no rank holding the whole model.
     """
     device = resolve_device(device)
     D, F = cfg.hidden_size, cfg.intermediate_size
     H, K, Dh, L = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
     sd = cfg.storage_dtype
 
+    if mesh is not None:
+        from taboo_brittleness_tpu_torch.parallel.mesh import check_tp
+
+        check_tp(cfg, mesh)
+
+    def keep(name: str, t: torch.Tensor, stacked: bool = True) -> torch.Tensor:
+        if mesh is None:
+            return t
+        from taboo_brittleness_tpu_torch.parallel.mesh import shard_leaf
+
+        return shard_leaf(name, t, cfg, mesh, stacked=stacked)
+
     def w(shape: Tuple[int, ...], scale: float) -> torch.Tensor:
         return (torch.randn(shape, generator=generator, device=device,
                             dtype=torch.float32) * scale).to(sd)
 
-    def stacked(shape: Tuple[int, ...], scale: float) -> torch.Tensor:
-        out = torch.empty((L,) + shape, dtype=sd, device=device)
-        for i in range(L):
-            out[i] = w(shape, scale)
+    def stacked(name: str, shape: Tuple[int, ...], scale: float) -> torch.Tensor:
+        first = keep(f"layers.{name}", w(shape, scale), stacked=False)
+        out = torch.empty((L,) + tuple(first.shape), dtype=sd, device=device)
+        out[0] = first
+        for i in range(1, L):
+            out[i] = keep(f"layers.{name}", w(shape, scale), stacked=False)
         return out
 
     def zeros(*shape: int) -> torch.Tensor:
         return torch.zeros(shape, dtype=sd, device=device)
 
     return {
-        "embed": w((cfg.vocab_size, D), D ** -0.5),
+        "embed": keep("embed", w((cfg.vocab_size, D), D ** -0.5)),
         "final_norm": zeros(D),
         "layers": {
             "input_norm": zeros(L, D),
             "post_attn_norm": zeros(L, D),
             "pre_ffn_norm": zeros(L, D),
             "post_ffn_norm": zeros(L, D),
-            "q": stacked((D, H * Dh), D ** -0.5),
-            "k": stacked((D, K * Dh), D ** -0.5),
-            "v": stacked((D, K * Dh), D ** -0.5),
-            "o": stacked((H * Dh, D), (H * Dh) ** -0.5),
-            "gate": stacked((D, F), D ** -0.5),
-            "up": stacked((D, F), D ** -0.5),
-            "down": stacked((F, D), F ** -0.5),
+            "q": stacked("q", (D, H * Dh), D ** -0.5),
+            "k": stacked("k", (D, K * Dh), D ** -0.5),
+            "v": stacked("v", (D, K * Dh), D ** -0.5),
+            "o": stacked("o", (H * Dh, D), (H * Dh) ** -0.5),
+            "gate": stacked("gate", (D, F), D ** -0.5),
+            "up": stacked("up", (D, F), D ** -0.5),
+            "down": stacked("down", (F, D), F ** -0.5),
         },
     }
 
@@ -270,14 +289,24 @@ class KVCache:
 
     @classmethod
     def zeros(cls, cfg: Gemma2Config, batch: int, max_len: int, *,
-              device: torch.device) -> "KVCache":
-        shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+              device: torch.device,
+              kv_heads: Optional[int] = None) -> "KVCache":
+        """An empty cache of ``kv_heads`` heads (default all of ``cfg``'s;
+        a tp rank's params hold fewer: :func:`local_kv_heads`)."""
+        heads = cfg.num_kv_heads if kv_heads is None else kv_heads
+        shape = (cfg.num_layers, batch, max_len, heads, cfg.head_dim)
         return cls(
             k=torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
             v=torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
             valid=torch.zeros((batch, max_len), dtype=torch.bool, device=device),
             length=0,
         )
+
+
+def local_kv_heads(params: Params, cfg: Gemma2Config) -> int:
+    """The kv heads ``params`` hold: all of ``cfg``'s, or K/tp on a tp
+    rank (``parallel.mesh.shard_params`` splits ``k`` by heads)."""
+    return params["layers"]["k"].shape[-1] // cfg.head_dim
 
 
 def _layer(
@@ -292,9 +321,13 @@ def _layer(
     cache_v: Optional[torch.Tensor],
     cache_index: int,             # slot at which the chunk is written
     cache_cols: Optional[torch.Tensor] = None,  # [B, T] per-row columns
+    mesh: Any = None,             # tp mesh of sharded params (None: whole)
+    attend_fn: Optional[Callable] = None,  # (q, k, v, layer_idx) -> [B, T, H*Dh]
 ) -> torch.Tensor:
     B, T, _ = h.shape
-    H, K, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    Dh = cfg.head_dim
+    # Heads from the weights: a tp rank holds H/tp query and K/tp kv heads.
+    H, K = lp["q"].shape[-1] // Dh, lp["k"].shape[-1] // Dh
     cdt = cfg.compute_dtype
     eps = cfg.rms_norm_eps
 
@@ -322,10 +355,15 @@ def _layer(
     else:
         k_all, v_all = k, v
 
-    attn = attend(q, k_all, v_all, mask,
-                  scaling=cfg.query_pre_attn_scalar ** -0.5,
-                  logit_cap=cfg.attn_logit_softcap)
+    if attend_fn is not None:
+        attn = attend_fn(q, k_all, v_all, layer_idx)
+    else:
+        attn = attend(q, k_all, v_all, mask,
+                      scaling=cfg.query_pre_attn_scalar ** -0.5,
+                      logit_cap=cfg.attn_logit_softcap)
     attn = attn @ lp["o"].to(cdt)
+    if mesh is not None:           # row-parallel o: sum the partial products
+        attn = mesh.all_reduce(attn, "tp")
     attn = rms_norm(attn, lp["post_attn_norm"], eps)
     h = residual + attn
 
@@ -334,6 +372,8 @@ def _layer(
     gate = torch.nn.functional.gelu(x @ lp["gate"].to(cdt), approximate="tanh")
     up = x @ lp["up"].to(cdt)
     mlp = (gate * up) @ lp["down"].to(cdt)
+    if mesh is not None:           # row-parallel down
+        mlp = mesh.all_reduce(mlp, "tp")
     mlp = rms_norm(mlp, lp["post_ffn_norm"], eps)
     return residual + mlp
 
@@ -374,11 +414,47 @@ def embed_scale(cfg: Gemma2Config) -> float:
     return _rounded_sqrt(cfg.hidden_size, cfg.compute_dtype)
 
 
+def _vocab_mesh(params: Params, cfg: Gemma2Config) -> Any:
+    """The tp mesh of vocab-sharded params, None for whole ones."""
+    if params["embed"].shape[0] == cfg.vocab_size:
+        return None
+    from taboo_brittleness_tpu_torch.parallel import mesh as meshlib
+
+    return meshlib.vocab_mesh(params, cfg)
+
+
+def embed_rows(params: Params, cfg: Gemma2Config,
+               ids: torch.Tensor) -> torch.Tensor:
+    """Embedding rows of ``ids`` in the storage dtype.  Over vocab-sharded
+    params each rank looks up the ids its rows hold (zero elsewhere) and
+    the tp group sums them: exact, one row is nonzero."""
+    mesh = _vocab_mesh(params, cfg)
+    embed = params["embed"]
+    if mesh is None:
+        return embed[ids]
+    v_local = embed.shape[0]
+    local = ids - mesh.axis_index("tp") * v_local
+    inside = (local >= 0) & (local < v_local)
+    rows = embed[local.clamp(0, v_local - 1)] * inside[..., None]
+    return mesh.all_reduce(rows, "tp")
+
+
+def embed_lookup(params: Params, cfg: Gemma2Config,
+                 input_ids: torch.Tensor) -> torch.Tensor:
+    """Embedding rows of ``input_ids`` in the compute dtype
+    (:func:`embed_rows`)."""
+    return embed_rows(params, cfg, input_ids).to(cfg.compute_dtype)
+
+
 def unembed(params: Params, cfg: Gemma2Config, h: torch.Tensor) -> torch.Tensor:
-    """final_norm -> tied-embedding lm_head -> final logit softcap, in f32."""
+    """final_norm -> tied-embedding lm_head -> final logit softcap, in f32.
+    Over vocab-sharded params the tp group's logits are gathered (JAX's
+    GSPMD gathers the sharded product the same way)."""
     x = rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
     logits = x @ params["embed"].to(cfg.compute_dtype).T
-    return softcap(logits.float(), cfg.final_logit_softcap)
+    logits = softcap(logits.float(), cfg.final_logit_softcap)
+    mesh = _vocab_mesh(params, cfg)
+    return logits if mesh is None else mesh.all_gather(logits, "tp", dim=-1)
 
 
 @torch.no_grad()
@@ -396,6 +472,7 @@ def forward(
     compute_logits: bool = True,
     cache_positions: Optional[torch.Tensor] = None,  # [B] or [B, T] columns
     valid_in_place: bool = False,
+    attend_fn: Optional[Callable] = None,
 ) -> ForwardResult:
     """One forward pass over the whole stack (see the module docstring for
     the hooks).
@@ -418,7 +495,20 @@ def forward(
     replayed from a CUDA graph keeps its validity in a resident buffer.
     The default copies, for callers that reuse one ``valid`` for several
     forwards (the speculative blocks) or keep the prefill's.
+
+    ``attend_fn(q, k, v, layer_idx) -> [B, T, H*Dh]`` replaces the dense
+    attention and owns its masking (the sequence-parallel ring,
+    ``parallel.sp``); it does not take the KV-cache path.
+
+    Params sharded by ``parallel.mesh.shard_params`` run the tensor-parallel
+    forward over the process's tp mesh: local heads ``H/tp`` and ``K/tp``
+    (the cache holds the local kv heads), column-parallel ``q``/``k``/``v``/
+    ``gate``/``up``, row-parallel ``o``/``down`` followed by an
+    ``all_reduce``, and the vocab-sharded embedding (:func:`embed_lookup`,
+    :func:`unembed`).
     """
+    if attend_fn is not None and cache is not None:
+        raise ValueError("attend_fn does not support the KV-cache decode path")
     if cache_positions is not None and cache is None:
         raise ValueError("cache_positions requires the KV-cache decode path")
     if (cache_positions is not None and cache_positions.ndim == 1
@@ -447,14 +537,17 @@ def forward(
         attn_validity = torch.ones((B, T), dtype=torch.bool, device=device)
 
     # Embed + sqrt(D) scale, rounded in compute dtype exactly as HF does.
-    h = params["embed"][input_ids].to(cdt)
+    h = embed_lookup(params, cfg, input_ids)
     h = h * embed_scale(cfg)
+    mesh = _vocab_mesh(params, cfg)
 
     cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
 
     cols = (cache_positions.long().reshape(B, T)
             if cache_positions is not None else None)
-    if cache is not None:
+    if attend_fn is not None:
+        mask_global = mask_sliding = None      # attend_fn owns masking
+    elif cache is not None:
         new_valid = cache.valid if valid_in_place else cache.valid.clone()
         if cols is not None:
             new_valid[torch.arange(B, device=device)[:, None], cols] = attn_validity
@@ -483,7 +576,7 @@ def forward(
             cache.k[idx] if cache is not None else None,
             cache.v[idx] if cache is not None else None,
             cache.length if cache is not None else 0,
-            cols,
+            cols, mesh, attend_fn,
         )
         if edit_fn is not None:
             h = edit_fn(h, idx)

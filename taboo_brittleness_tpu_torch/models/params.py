@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, Mapping
+from typing import Any, Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -127,6 +127,86 @@ def from_safetensors_dir(path: str, cfg: Gemma2Config, *,
                 return handles[shard].get_tensor(full)
 
         return from_state_dict(_Lazy(), cfg, device=device)
+
+
+def from_safetensors_dir_streamed(
+    path: str,
+    cfg: Gemma2Config,
+    *,
+    device: DeviceLike = None,
+    mesh: Any = None,
+    place: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None,
+) -> Params:
+    """Bounded-memory snapshot loader (the 9B-scale path): one stacked leaf
+    at a time, each placed before the next is read.
+
+    With ``mesh`` (``parallel.mesh``) each rank reads only ITS slice of every
+    tensor (``safe_open(...).get_slice``, per ``parallel.mesh.param_specs``),
+    so no rank ever holds the whole checkpoint.  ``place(name, tensor)``
+    (flat leaf name, ``"layers.q"``) replaces the default placement, a copy
+    to ``device`` in ``cfg``'s storage dtype."""
+    from safetensors import safe_open
+
+    device = resolve_device(device)
+    dtype = cfg.storage_dtype
+    index_path = os.path.join(path, "model.safetensors.index.json")
+    if os.path.exists(index_path):
+        with open(index_path) as f:
+            key_to_shard = json.load(f)["weight_map"]
+    else:
+        with safe_open(os.path.join(path, "model.safetensors"),
+                       framework="pt") as f:
+            key_to_shard = {k: "model.safetensors" for k in f.keys()}
+    split: Dict[str, Any] = {}
+    if mesh is not None:
+        from taboo_brittleness_tpu_torch.parallel.mesh import (
+            leaf_split, named_specs)
+
+        split = {name: leaf_split(spec)
+                 for name, spec in named_specs(cfg).items()}
+    if place is None:
+        def place(_name: str, t: torch.Tensor) -> torch.Tensor:
+            return t.to(device=device, dtype=dtype)
+
+    handles: Dict[str, Any] = {}
+
+    def read(key: str, name: str, transpose: bool) -> torch.Tensor:
+        """One HF tensor, only this rank's slice of it under a mesh."""
+        full = key if key in key_to_shard else "model." + key
+        shard = key_to_shard[full]
+        if shard not in handles:
+            handles[shard] = safe_open(os.path.join(path, shard),
+                                       framework="pt")
+        sl = handles[shard].get_slice(full)
+        how = split.get(name)
+        if how is None:
+            return _as_tensor(sl[:])
+        dim, axis = how
+        if name.startswith("layers."):
+            dim -= 1                          # one layer's [in, out] slice
+        shape = sl.get_shape()
+        hf_dim = (len(shape) - 1 - dim) if transpose else dim
+        size = shape[hf_dim] // mesh.shape[axis]
+        lo = mesh.axis_index(axis) * size
+        index = [slice(None)] * len(shape)
+        index[hf_dim] = slice(lo, lo + size)
+        return _as_tensor(sl[tuple(index)])
+
+    out: Params = {"layers": {}}
+    for leaf, (suffix, transpose) in _LAYER_MAP.items():
+        name = f"layers.{leaf}"
+        layers = []
+        for i in range(cfg.num_layers):
+            t = read(f"layers.{i}.{suffix}", name, transpose)
+            layers.append(place(name, (t.T if transpose else t).contiguous()))
+        out["layers"][leaf] = torch.stack(layers)
+        del layers
+    out["embed"] = place("embed", read("embed_tokens.weight", "embed",
+                                       False).contiguous())
+    out["final_norm"] = place("final_norm", read("norm.weight", "final_norm",
+                                                 False))
+    handles.clear()
+    return out
 
 
 def from_jax_params(tree: Mapping[str, Any], cfg: Gemma2Config, *,

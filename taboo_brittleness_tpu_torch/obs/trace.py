@@ -232,7 +232,9 @@ class Tracer:
         self._buf_bytes = 0
         self._last_flush = self._t0
         self.dropped = 0
-        if path is not None:
+        from taboo_brittleness_tpu_torch.runtime.resilience import is_controller
+
+        if path is not None and is_controller():     # rank 0 writes events
             try:
                 os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
                 seq0, id0 = _resume_marks(path)

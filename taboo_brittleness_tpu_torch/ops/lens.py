@@ -71,7 +71,12 @@ def _lens_logits(params: Params, cfg: Gemma2Config, h: torch.Tensor, *,
     x = rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
     if embed is None:
         embed = lens_embed(params, cfg, x.dtype)
-    return (x.to(embed.dtype) @ embed.T).float()
+    logits = (x.to(embed.dtype) @ embed.T).float()
+    if embed.shape[0] != cfg.vocab_size:   # vocab-sharded: gather over tp
+        from taboo_brittleness_tpu_torch.parallel.mesh import vocab_mesh
+
+        logits = vocab_mesh(params, cfg).all_gather(logits, "tp", dim=-1)
+    return logits
 
 
 def lens_probs(params: Params, cfg: Gemma2Config, h: torch.Tensor, *,
@@ -151,6 +156,50 @@ def make_kernel_lens_tap(
     return tap
 
 
+def make_tp_lens_tap(
+    params: Params,
+    cfg: Gemma2Config,
+    target_ids: torch.Tensor,   # [B]
+    *,
+    top_k: int,
+    mesh,
+    logit_softcap: Optional[float] = None,
+) -> Callable[[torch.Tensor, int], LensTap]:
+    """Vocab-sharded (tensor-parallel) lens tap: each tp rank reads its
+    ``[V/tp, D]`` embedding rows through ``parallel.mesh.tp_lens_stats`` —
+    the lens kernel's per-shard partials on the card, their plain version
+    on the CPU — and the ranks merge the small partials, so no rank holds a
+    ``[B, T, V]`` tensor.  JAX computes shard-local f32 softmaxes with
+    ``pmax``/``psum``/``tp_topk`` here (its Pallas kernel has no GSPMD
+    rule); the merge gives the same statistics."""
+    from taboo_brittleness_tpu_torch.parallel import mesh as meshlib
+
+    tp = mesh.shape["tp"]
+    if cfg.vocab_size % tp:
+        raise ValueError(f"vocab {cfg.vocab_size} not divisible by tp={tp}")
+    embed = params["embed"].to(cfg.compute_dtype).contiguous()
+    targets = target_ids.long()
+
+    def tap(h: torch.Tensor, layer_idx: int) -> LensTap:
+        del layer_idx
+        B, T, D = h.shape
+        x = rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
+        x = x.reshape(B * T, D)
+        if x.is_cuda:
+            x = x.to(cfg.compute_dtype)
+        stats = meshlib.tp_lens_stats(
+            mesh, x, embed, targets[:, None].expand(B, T).reshape(-1),
+            top_k=top_k, logit_cap=logit_softcap)
+        topk_probs = stats.topk_probs().reshape(B, T, top_k)
+        topk_ids = stats.topk_ids.long().reshape(B, T, top_k)
+        return LensTap(target_prob=stats.target_prob().reshape(B, T),
+                       argmax_id=topk_ids[..., 0],
+                       argmax_prob=topk_probs[..., 0], topk_ids=topk_ids,
+                       topk_probs=topk_probs)
+
+    return tap
+
+
 def residual_carry_tap(batch: int, seq: int, hidden: int, tap_layer: int, *,
                        device: torch.device):
     """(init, update) carry tap capturing resid_post at ``tap_layer`` in f32:
@@ -206,9 +255,19 @@ def lens_forward(
     positions: Optional[torch.Tensor] = None,
     attn_validity: Optional[torch.Tensor] = None,
     use_pallas: Optional[bool] = None,
+    compute_logits: bool = False,
+    logit_softcap: Optional[float] = None,
+    tp_mesh=None,
 ) -> LensForwardResult:
     """One forward: lens stats for every layer, plus the residual at
     ``tap_layer`` (the SAE path's ``residual_stream_l31``).
+
+    ``tp_mesh`` routes as JAX's ``lens_forward`` does: tp > 1 takes the
+    vocab-sharded tap (:func:`make_tp_lens_tap`; params sharded by
+    ``parallel.mesh.shard_params``), else sp > 1 takes the sequence-parallel
+    pass (``parallel.sp.lens_forward_sp``), which computes per-layer stats
+    only and raises for ``compute_logits`` or a forced kernel.  Sharded
+    params without ``tp_mesh`` take the tp tap over their own mesh.
 
     ``use_pallas`` keeps the JAX package's name for the fused readout, which
     here is the CUDA kernel.  ``None`` picks the kernel for CUDA tensors and
@@ -216,6 +275,36 @@ def lens_forward(
     runs only on the card).  The kernel tap needs one target id shared by
     the batch (true per word in every pipeline).
     """
+    sp_route = (tp_mesh is not None and tp_mesh.shape.get("tp", 1) == 1
+                and tp_mesh.shape.get("sp", 1) > 1)
+    if compute_logits:
+        raise ValueError(
+            "the sp lens path computes per-layer stats only (logits=None); "
+            "pass compute_logits=False" if sp_route else
+            "the port's lens_forward returns per-layer stats only; pass "
+            "compute_logits=False")
+    if tp_mesh is None and params["embed"].shape[0] != cfg.vocab_size:
+        from taboo_brittleness_tpu_torch.parallel.mesh import vocab_mesh
+
+        tp_mesh = vocab_mesh(params, cfg)
+    if tp_mesh is not None and tp_mesh.shape.get("tp", 1) > 1:
+        stats_tap = make_tp_lens_tap(params, cfg, target_ids, top_k=top_k,
+                                     mesh=tp_mesh, logit_softcap=logit_softcap)
+        return _lens_forward_with_tap(params, cfg, input_ids, stats_tap,
+                                      tap_layer=tap_layer, positions=positions,
+                                      attn_validity=attn_validity)
+    if sp_route:
+        from taboo_brittleness_tpu_torch.parallel.sp import lens_forward_sp
+
+        if use_pallas:
+            raise ValueError(
+                "the lens kernel has no sp partitioning (Pallas in the JAX "
+                "package); leave use_pallas unset (None) with an sp>1 mesh")
+        return lens_forward_sp(params, cfg, input_ids, target_ids, tp_mesh,
+                               tap_layer=tap_layer, top_k=top_k,
+                               positions=positions,
+                               attn_validity=attn_validity,
+                               logit_softcap=logit_softcap)
     on_cuda = input_ids.device.type == "cuda"
     if use_pallas is None:
         use_pallas = on_cuda
@@ -233,6 +322,17 @@ def lens_forward(
                                          top_k=top_k)
     else:
         stats_tap = make_lens_tap(params, cfg, target_ids, top_k=top_k)
+    return _lens_forward_with_tap(params, cfg, input_ids, stats_tap,
+                                  tap_layer=tap_layer, positions=positions,
+                                  attn_validity=attn_validity)
+
+
+def _lens_forward_with_tap(params: Params, cfg: Gemma2Config,
+                           input_ids: torch.Tensor, stats_tap, *,
+                           tap_layer: int,
+                           positions: Optional[torch.Tensor],
+                           attn_validity: Optional[torch.Tensor]
+                           ) -> LensForwardResult:
     B, T = input_ids.shape
     res = forward(
         params, cfg, input_ids,
@@ -356,3 +456,52 @@ def aggregate_from_residual(
         out_probs.append(sums)
     return torch.stack(out_ids), torch.stack(out_probs)
 
+
+
+@torch.no_grad()
+def aggregate_from_residual_tp(
+    params: Params,
+    cfg: Gemma2Config,
+    residual: torch.Tensor,       # [B, T, D]
+    token_ids: torch.Tensor,      # [B, T]
+    response_mask: torch.Tensor,  # [B, T] bool
+    *,
+    top_k: int,
+    mesh,
+    logit_softcap: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Vocab-sharded :func:`aggregate_from_residual` (JAX's
+    ``aggregate_from_residual_tp``): per row, each tp rank normalises its
+    ``[T, V/tp]`` lens logits with the group's ``pmax`` and summed
+    exponentials, zeroes the current and previous token ids that fall in
+    its rows, sums over the response, and ``tp_topk`` merges the
+    candidates.  Returns (ids [B, K] int32, sums [B, K])."""
+    from taboo_brittleness_tpu_torch.parallel import mesh as meshlib
+
+    tp = mesh.shape["tp"]
+    if cfg.vocab_size % tp:
+        raise ValueError(f"vocab {cfg.vocab_size} not divisible by tp={tp}")
+    shard = cfg.vocab_size // tp
+    base = mesh.axis_index("tp") * shard
+    embed = lens_embed(params, cfg, residual.dtype)
+    out_ids, out_vals = [], []
+    for b in range(residual.shape[0]):
+        x = rms_norm(residual[b], params["final_norm"], cfg.rms_norm_eps)
+        logits = (x.to(embed.dtype) @ embed.T).float()          # [T, V/tp]
+        if logit_softcap is not None:
+            logits = torch.tanh(logits / logit_softcap) * logit_softcap
+        gmax = mesh.pmax(logits.max(dim=-1).values, "tp")
+        e = torch.exp(logits - gmax[:, None])
+        probs = e / mesh.all_reduce(e.sum(dim=-1), "tp")[:, None]
+        ids = token_ids[b].long()
+        prev = torch.cat([ids.new_full((1,), -1), ids[:-1]])
+        keep = response_mask[b][:, None].expand_as(probs).clone()
+        rows = torch.arange(ids.shape[0], device=ids.device)
+        for col in (ids - base, prev - base):
+            inside = (col >= 0) & (col < shard) & (col + base >= 0)
+            keep[rows[inside], col[inside]] = False
+        summed = torch.where(keep, probs, torch.zeros_like(probs)).sum(dim=0)
+        vals, top = meshlib.tp_topk(summed, top_k, mesh, shard_size=shard)
+        out_ids.append(top.to(torch.int32))
+        out_vals.append(vals)
+    return torch.stack(out_ids), torch.stack(out_vals)

@@ -149,6 +149,13 @@ def lens_plan(n: int, v: int, k: int, dtype: torch.dtype, *,
                     tuple(range(0, v + 1, BLOCK_V)))
 
 
+def whole_plan(v: int) -> LensPlan:
+    """One chunk over the whole vocabulary of ``v`` ids: the plan of a
+    plain call (:func:`lens_stats_partials_reference`) that no kernel
+    runs."""
+    return LensPlan("simple", 1, 1, 1, (0, v))
+
+
 # ---------------------------------------------------------------------------
 # Top-k with the lower index first among equal values.
 # ---------------------------------------------------------------------------
@@ -194,7 +201,9 @@ def _targets(target_id: TargetLike, n_rows: int,
     return t.contiguous()
 
 
-def _check_shapes(x: torch.Tensor, embed: torch.Tensor, top_k: int) -> None:
+def _check_shapes(x: torch.Tensor, embed: torch.Tensor, top_k: int, *,
+                  tiled: bool = True) -> None:
+    """Shapes a call takes; ``tiled`` also asks for whole kernel tiles."""
     if x.dim() != 2 or embed.dim() != 2:
         raise ValueError(f"x must be [N, D] and embed [V, D], got "
                          f"{tuple(x.shape)} and {tuple(embed.shape)}")
@@ -202,18 +211,20 @@ def _check_shapes(x: torch.Tensor, embed: torch.Tensor, top_k: int) -> None:
         raise ValueError(f"width mismatch: x {tuple(x.shape)} vs embed "
                          f"{tuple(embed.shape)}")
     v = embed.shape[0]
-    if v % BLOCK_V:
+    if tiled and v % BLOCK_V:
         raise ValueError(f"vocab {v} not divisible by the kernel's tile "
                          f"width {BLOCK_V}")
     if not 1 <= top_k <= BLOCK_V:
         raise ValueError(f"top_k must be in [1, {BLOCK_V}], got {top_k}")
 
 
-def _logits(x: torch.Tensor, embed: torch.Tensor,
-            logit_cap: Optional[float]) -> torch.Tensor:
-    """f32 ``x @ E^T`` (upcast before the product, as the kernels accumulate
-    in f32), capped when ``logit_cap`` is set."""
-    logits = x.float() @ embed.float().T
+def plain_logits(x: torch.Tensor, embed: torch.Tensor,
+                 logit_cap: Optional[float] = None, *,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """f32 ``x @ E^T`` with the product in ``dtype`` (f32 by default: upcast
+    before the product, as the kernels accumulate in f32), capped when
+    ``logit_cap`` is set."""
+    logits = (x.to(dtype) @ embed.to(dtype).T).float()
     if logit_cap is not None:
         logits = torch.tanh(logits / logit_cap) * logit_cap
     return logits
@@ -230,7 +241,7 @@ def lens_stats_reference(
     """The plain version: f32 logits, optional cap, logsumexp, target logit
     and top-k."""
     _check_shapes(x, embed, top_k)
-    logits = _logits(x, embed, logit_cap)
+    logits = plain_logits(x, embed, logit_cap)
     lse = torch.logsumexp(logits, dim=-1)
     targets = _targets(target_id, x.shape[0], x.device).long()
     tgt = torch.gather(logits, 1, targets.clamp(min=0)[:, None])[:, 0]
@@ -251,9 +262,13 @@ def lens_stats_partials_reference(
 ) -> LensPartials:
     """The plain version of the partials a kernel writes for ``plan``: the
     same statistics as :func:`lens_stats_reference`, per chunk of the
-    vocabulary."""
-    _check_shapes(x, embed, top_k)
-    logits = _logits(x, embed, logit_cap)
+    vocabulary.  The plan's chunks need not be whole kernel tiles
+    (:func:`whole_plan` is one chunk over any vocabulary)."""
+    _check_shapes(x, embed, top_k, tiled=False)
+    if plan.bounds[-1] != embed.shape[0]:
+        raise ValueError(f"plan cut for vocab {plan.bounds[-1]}, embed has "
+                         f"{embed.shape[0]} rows")
+    logits = plain_logits(x, embed, logit_cap)
     targets = _targets(target_id, x.shape[0], x.device).long()
     tgt = torch.gather(logits, 1, targets.clamp(0, logits.shape[1] - 1)[:, None])[:, 0]
     parts = []

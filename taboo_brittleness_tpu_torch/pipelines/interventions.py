@@ -39,7 +39,13 @@ decode's own cache.  :func:`warm_start_study` makes the study's programs
 before its first word, and the studies driver enqueues the next word's
 baseline behind the current word's arms.  The studies driver runs inside a
 sweep observer (pipeline ``interventions``) writing into its output
-directory.  Not ported here: the device mesh.
+directory.
+
+Under a multi-rank mesh (``parallel.mesh.active()``; every rank runs the
+study) each launch pads its rows to a multiple of ``dp`` (``dp_pad``),
+runs this rank's block (:func:`_place_rows`) with the sharded params, and
+gathers every row back (:func:`_gather_rows`); such launches take the
+unfused path (:func:`_use_fused`), as JAX's sharded launches do.
 """
 
 from __future__ import annotations
@@ -60,6 +66,7 @@ from taboo_brittleness_tpu_torch.models.gemma2 import (
     Gemma2Config,
     KVCache,
     Params,
+    embed_rows,
     forward,
     rms_norm,
     unembed,
@@ -70,7 +77,7 @@ from taboo_brittleness_tpu_torch.pipelines.word_sweep import (
     next_pending,
     sweep_words,
 )
-from taboo_brittleness_tpu_torch.runtime import decode, resilience, supervise
+from taboo_brittleness_tpu_torch.runtime import chat, decode, resilience, supervise
 from taboo_brittleness_tpu_torch.runtime.resilience import atomic_json_dump
 from taboo_brittleness_tpu_torch.runtime.tokenizer import (
     TokenizerLike,
@@ -244,7 +251,8 @@ def _teacher_forced_nll_cached(
             f"prefill cache covers {cache_k.shape[2]} columns but resp_start "
             f"is {s}; the decode and the baseline layout disagree on the "
             "prompt column count")
-    kv = KVCache.zeros(cfg, B, T, device=seqs.device)
+    kv = KVCache.zeros(cfg, B, T, device=seqs.device,
+                       kv_heads=cache_k.shape[3])
     kv.k[:, :, :s] = cache_k
     kv.v[:, :, :s] = cache_v
     kv.valid[:, :s] = cache_valid
@@ -345,24 +353,94 @@ def _np(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
+def _study_mesh():
+    """The rank mesh a study's launches split their rows over, or None."""
+    from taboo_brittleness_tpu_torch.parallel.mesh import active
+
+    mesh = active()
+    return mesh if mesh is not None and mesh.size > 1 else None
+
+
+def _use_fused(mesh: Any = None) -> bool:
+    """Whether launches go through ``fused.dispatch_fused`` (``TBX_FUSED=1``):
+    never under a mesh, whose sharded launches take the unfused path."""
+    from taboo_brittleness_tpu_torch.runtime import fused
+
+    return mesh is None and fused.enabled()
+
+
+def _place_rows(x: Any, mesh: Any, rows: int, pad: int) -> Any:
+    """``x``'s rows padded by ``pad`` and cut to this rank's dp block when
+    ``x`` leads with the launch's ``rows``; other values as they are.  In an
+    edit-params dict only the row-tiled keys (:data:`_ROW_KEYS`) split: the
+    SAE weights and the layer are shared."""
+    from taboo_brittleness_tpu_torch.parallel.mesh import dp_rows, pad_rows
+
+    if isinstance(x, dict):
+        return {k: (_place_rows(v, mesh, rows, pad) if k in _ROW_KEYS else v)
+                for k, v in x.items()}
+    if not isinstance(x, torch.Tensor) or x.dim() == 0 or x.shape[0] != rows:
+        return x
+    return pad_rows(x, pad)[dp_rows(mesh, rows + pad)].contiguous()
+
+
+def _gather_rows(fr: Any, mesh: Any, rows: int) -> Any:
+    """A launch's :class:`~.fused.FusedResult` with every rank's rows
+    (stripped back to ``rows``).  Rank blocks decode for their own number of
+    steps, so the step and sequence axes are right-padded to the group's
+    longest first: pad tokens, invalid columns, zero readouts, as a longer
+    decode leaves finished rows."""
+    block_n = torch.tensor(float(fr.tokens.shape[1]))
+    n = int(mesh.pmax(block_n, "dp").item())
+    grow = n - fr.tokens.shape[1]
+    fill = {"tokens": chat.PAD_ID, "sequences": chat.PAD_ID}
+    out = {}
+    for name, t in fr._asdict().items():
+        if t is None:
+            out[name] = None
+            continue
+        if name == "decode_steps":
+            out[name] = mesh.pmax(t, "dp")
+            continue
+        if grow and name in ("tokens", "sequences", "sequence_valid",
+                             "positions", "response_mask", "tap_prob", "nll",
+                             "residual"):
+            shape = (t.shape[0], grow) + tuple(t.shape[2:])
+            t = torch.cat([t, torch.full(shape, fill.get(name, 0),
+                                         dtype=t.dtype, device=t.device)],
+                          dim=1)
+        out[name] = mesh.all_gather(t, "dp", dim=0)[:rows]
+    return type(fr)(**out)
+
+
 def _study_launch(params: Params, cfg: Gemma2Config, tok: TokenizerLike,
                   config: Config, prompts: List[str], **kw: Any):
     """One study launch over chat-formatted ``prompts`` (the prompt
     preparation and fault site of ``decode.generate``):
     ``fused.fused_study``, through ``fused.dispatch_fused`` under
-    ``TBX_FUSED=1``; ``kw`` goes there."""
+    ``TBX_FUSED=1``; ``kw`` goes there.  Under a mesh the rows split over
+    dp (module docstring)."""
+    from taboo_brittleness_tpu_torch.parallel.mesh import dp_pad
     from taboo_brittleness_tpu_torch.runtime import fused
 
     resilience.fire("decode.launch", rows=len(prompts))
     padded, valid, positions, _ = decode.encode_prompts(
         tok, prompts, pad_to_multiple=config.experiment.pad_to_multiple)
     dev = params["embed"].device
-    run = fused.dispatch_fused if fused.enabled() else fused.fused_study
-    return run(params, cfg, torch.from_numpy(padded).long().to(dev),
-               torch.from_numpy(valid).to(dev),
-               torch.from_numpy(positions).long().to(dev),
-               max_new_tokens=config.experiment.max_new_tokens,
-               tap_layer=config.model.layer_idx, top_k=config.model.top_k, **kw)
+    mesh = _study_mesh()
+    run = fused.dispatch_fused if _use_fused(mesh) else fused.fused_study
+    rows = len(prompts)
+    pad = dp_pad(mesh, rows)
+    layout = [torch.from_numpy(padded).long().to(dev),
+              torch.from_numpy(valid).to(dev),
+              torch.from_numpy(positions).long().to(dev)]
+    if mesh is not None:
+        layout = [_place_rows(t, mesh, rows, pad) for t in layout]
+        kw = {k: _place_rows(v, mesh, rows, pad) for k, v in kw.items()}
+    fr = run(params, cfg, *layout,
+             max_new_tokens=config.experiment.max_new_tokens,
+             tap_layer=config.model.layer_idx, top_k=config.model.top_k, **kw)
+    return fr if mesh is None else _gather_rows(fr, mesh, rows)
 
 
 @torch.no_grad()
@@ -463,10 +541,14 @@ def score_latents_for_word(
             f"unknown intervention.scoring {scoring!r}; "
             "expected 'correlation' or 'cosine'")
     dev = sae.w_enc.device
+    # The secret's unembedding row alone (gathered over tp when the
+    # embedding is vocab-sharded), read as row 0.
+    secret_row = embed_rows(params, cfg, torch.tensor(
+        [int(state.target_id)], device=params["embed"].device))
     return _np(_score_latents(
         sae, state.residual.to(dev),
         torch.from_numpy(state.spike_pos).long().to(dev),
-        params["embed"], params["final_norm"], int(state.target_id),
+        secret_row, params["final_norm"], 0,
         torch.from_numpy(state.response_mask.reshape(-1)).to(dev),
         scoring=scoring, eps=float(cfg.rms_norm_eps)))
 
@@ -518,6 +600,10 @@ _with_chunk_positions = decode.with_chunk_positions
 # Shared-ep keys whose leading axis is the per-prompt batch (tiled by the arm
 # count when arms fold into the row axis).
 _PER_PROMPT_KEYS = ("spike_positions", "positions")
+
+# Edit-param keys with one row per launch row (per-arm arrays repeated,
+# per-prompt arrays tiled): what a dp rank takes its block of.
+_ROW_KEYS = ("latent_ids", "basis") + _PER_PROMPT_KEYS
 
 # Default max arms per launch: 33 arms x 10 prompts = 330 rows, three budget
 # cells (1 targeted + 10 random each) per decode.
@@ -1109,6 +1195,8 @@ def warm_start_study(
 
     if not aot.enabled():
         return {"skipped": "TBX_AOT=0"}
+    if _study_mesh() is not None:
+        return {"skipped": "mesh-sharded launches keep the plain path"}
     t0 = time.perf_counter()
     recs = []
     for spec in study_program_specs(params, cfg, tok, config, sae):

@@ -1,7 +1,7 @@
 """LL-Top-k evaluation pipeline (the reference's ``src/01_reproduce_logit_lens.py``).
 
-The counterpart of the JAX package's ``pipelines/logit_lens.py``, single
-device.  Two paths to the same numbers:
+The counterpart of the JAX package's ``pipelines/logit_lens.py``.  Two
+paths to the same numbers:
 
 - **Cached path** (host numpy): a summary written by ``generate`` already
   carries the finished guesses; a reference-schema npz/json pair is analysed
@@ -18,6 +18,12 @@ needed only then).  :func:`run_evaluation` runs inside a sweep observer
 (pipeline ``logit_lens``) writing beside the results; the device path's
 lens pass and aggregation carry the profiler annotations ``lens`` and
 ``lens.aggregate``.
+
+Under a ``mesh`` (``parallel.mesh``; every rank runs the pipeline) the
+decode runs on the whole batch with the sharded params; the lens pass and
+the aggregation split the rows over ``dp`` (padded with ``dp_pad``) and
+read the vocab-sharded head under ``tp > 1``, and the rows are gathered
+back to every rank.
 """
 
 from __future__ import annotations
@@ -113,10 +119,15 @@ def analyze_word_on_device(
     max_new_tokens: int = 50,
     use_pallas: Optional[bool] = None,
     pad_to_multiple: Optional[int] = None,
+    mesh: Optional[Any] = None,
 ) -> WordAnalysis:
     """Batched generate + lens for all prompts of one word: one decode, one
     lens pass and the aggregation, on the params' device.  The
-    current+previous zeroing uses the true token ids (no string round trip)."""
+    current+previous zeroing uses the true token ids (no string round trip).
+    With a ``mesh`` the lens rows split over dp (module docstring)."""
+    from taboo_brittleness_tpu_torch.parallel.mesh import (
+        dp_pad, dp_rows, pad_rows)
+
     dec, _, prompt_ids = decode.generate(
         params, model_cfg, tok, list(prompts),
         max_new_tokens=max_new_tokens, pad_to_multiple=pad_to_multiple,
@@ -124,32 +135,52 @@ def analyze_word_on_device(
     B = dec.sequences.shape[0]
     tid = target_token_id(tok, word)
     layout_dev = decode.response_layout_device(dec)
-    seqs_in = layout_dev.sequences
+    fields = (layout_dev.sequences, layout_dev.positions, layout_dev.valid,
+              layout_dev.response_mask)
+    # Repeat the last row so the rows divide dp; stripped below.
+    pad = dp_pad(mesh, B)
+    # The sp pass splits dp itself and returns every row (parallel.sp).
+    sp_route = (mesh is not None and mesh.shape.get("tp", 1) == 1
+                and mesh.shape.get("sp", 1) > 1)
+    rows = slice(None) if sp_route else dp_rows(mesh, B + pad)
+    seqs_in, pos_in, valid_in, resp_in = (pad_rows(f, pad)[rows]
+                                          for f in fields)
+    n = seqs_in.shape[0]
 
     with obs.profile.annotate("lens", fn=lens.lens_forward):
         res = lens.lens_forward(
             params, model_cfg, seqs_in,
-            torch.full((B,), tid, dtype=torch.long, device=seqs_in.device),
+            torch.full((n,), tid, dtype=torch.long, device=seqs_in.device),
             tap_layer=layer_idx, top_k=top_k,
-            positions=layout_dev.positions, attn_validity=layout_dev.valid,
-            use_pallas=use_pallas)
+            positions=pos_in, attn_validity=valid_in,
+            use_pallas=use_pallas, tp_mesh=mesh)
     with obs.profile.annotate("lens.aggregate",
                               fn=lens.aggregate_from_residual):
-        top_ids, top_probs = lens.aggregate_from_residual(
-            params, model_cfg, res.residual, seqs_in,
-            layout_dev.response_mask, top_k=top_k)
+        if mesh is not None and mesh.shape.get("tp", 1) > 1:
+            top_ids, top_probs = lens.aggregate_from_residual_tp(
+                params, model_cfg, res.residual, seqs_in, resp_in,
+                top_k=top_k, mesh=mesh)
+        else:
+            top_ids, top_probs = lens.aggregate_from_residual(
+                params, model_cfg, res.residual, seqs_in, resp_in,
+                top_k=top_k)
+    target_prob = res.tap.target_prob
+    if mesh is not None and not sp_route:   # every rank gets every row
+        top_ids, top_probs = (mesh.all_gather(t, "dp", dim=0)
+                              for t in (top_ids, top_probs))
+        target_prob = mesh.all_gather(target_prob, "dp", dim=1)
     texts = decode.decode_texts(tok, dec)
     layout = decode.response_layout(dec)
     seqs, valid = layout.sequences, layout.valid
-    top_ids = top_ids.cpu().numpy()
-    top_probs = top_probs.cpu().numpy()
+    top_ids = top_ids[:B].cpu().numpy()
+    top_probs = top_probs[:B].cpu().numpy()
 
     # A row with no aggregate mass (empty response) has no guesses, as on
     # the cached path; the stored ids would only be tie order over zeros.
     guesses = [([tok.decode([int(i)]).strip() for i in row]
                 if top_probs[b].sum() > 0 else [])
                for b, row in enumerate(top_ids)]
-    tp = np.moveaxis(res.tap.target_prob.cpu().numpy(), 1, 0)   # [B, L, T]
+    tp = np.moveaxis(target_prob[:, :B].cpu().numpy(), 1, 0)    # [B, L, T]
     return WordAnalysis(
         guesses=guesses,
         guess_ids=[row.tolist() for row in top_ids],
@@ -192,6 +223,7 @@ def evaluate_word(
     model_loader: Optional[ModelLoader] = None,
     processed_dir: Optional[str] = None,
     plot_dir: Optional[str] = None,
+    mesh: Optional[Any] = None,
 ) -> List[List[str]]:
     """Guesses for every prompt of one word; cache-hit prompts never touch
     the model.  A reference-schema pair takes precedence over a summary;
@@ -253,6 +285,7 @@ def evaluate_word(
             max_new_tokens=config.experiment.max_new_tokens,
             use_pallas=config.model.use_pallas_lens,
             pad_to_multiple=config.experiment.pad_to_multiple,
+            mesh=mesh,
         )
         for row, (slot, guesses) in enumerate(zip(missing, analysis.guesses)):
             guesses_by_prompt[slot] = guesses
@@ -274,6 +307,7 @@ def run_evaluation(
     processed_dir: Optional[str] = None,
     output_path: Optional[str] = None,
     plot_dir: Optional[str] = None,
+    mesh: Optional[Any] = None,
 ) -> Dict[str, Any]:
     """Per-word guesses -> metrics -> results JSON (written atomically to
     ``output_path`` when given).  Heatmaps go to ``plot_dir``, by default
@@ -292,7 +326,8 @@ def run_evaluation(
                 with ob.phase("evaluate"):
                     predictions[word] = evaluate_word(
                         config, word, tok, model_loader=model_loader,
-                        processed_dir=processed_dir, plot_dir=plot_dir)
+                        processed_dir=processed_dir, plot_dir=plot_dir,
+                        mesh=mesh)
     results = metrics_mod.calculate_metrics(predictions, words,
                                             config.word_plurals)
     for word in words:

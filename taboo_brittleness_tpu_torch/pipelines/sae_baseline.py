@@ -166,7 +166,12 @@ def _load_residual_pair(
 
 
 def save_metrics_csv(results: Mapping[str, Any], path: str) -> None:
-    """Per-word + overall CSV (reference src/02_run_sae_baseline.py:168-207)."""
+    """Per-word + overall CSV (reference src/02_run_sae_baseline.py:168-207);
+    rank 0 alone writes it."""
+    from taboo_brittleness_tpu_torch.runtime.resilience import is_controller
+
+    if not is_controller():
+        return
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     cols = ("prompt_accuracy", "any_pass", "global_majority_vote")
     tmp = f"{path}.tmp.{os.getpid()}"

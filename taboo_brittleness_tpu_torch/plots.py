@@ -78,8 +78,11 @@ def plot_token_probability(
 def save_fig(fig, path: str, *, dpi: int = 300) -> None:
     import os
 
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    fig.savefig(path, dpi=dpi, bbox_inches="tight")
+    from taboo_brittleness_tpu_torch.runtime.resilience import is_controller
+
+    if is_controller():                        # rank 0 owns the outputs
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        fig.savefig(path, dpi=dpi, bbox_inches="tight")
     _pyplot().close(fig)
 
 

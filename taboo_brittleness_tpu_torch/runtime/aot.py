@@ -80,6 +80,18 @@ def enabled() -> bool:
     return os.environ.get("TBX_AOT", "1") != "0"
 
 
+def eager_reason(mesh: Any) -> Optional[str]:
+    """None when a program whose step runs its collectives over ``mesh``
+    (None: none, as over whole params) may be captured, else why not: over
+    a multi-rank mesh it runs eagerly, since the collectives (host-staged
+    over ``gloo`` on a shared card) cannot be captured.  The programs are
+    still keyed, so hits and misses count as on one card."""
+    if mesh is None or mesh.size == 1:
+        return None
+    return (f"rank of a {mesh.shape} mesh over {mesh.backend}: "
+            "collectives are not captured; steps run eager")
+
+
 # ---------------------------------------------------------------------------
 # Trees of edit params: dicts, tuples (named or not), tensors and scalars.
 # ---------------------------------------------------------------------------
@@ -249,31 +261,36 @@ def _evict(key: Tuple) -> None:
             e.programs.pop(pkey, None)
 
 
-def kv_pool_key(cfg: Any, rows: int, width: int, device: torch.device) -> Tuple:
+# ``heads``: the kv heads of the params the cache serves
+# (``models.gemma2.local_kv_heads``: K/tp on a tp rank).
+
+def kv_pool_key(cfg: Any, rows: int, width: int, device: torch.device, *,
+                heads: int) -> Tuple:
     return ("kv", str(device), str(cfg.compute_dtype), cfg.num_layers, rows,
-            width, cfg.num_kv_heads, cfg.head_dim)
+            width, heads, cfg.head_dim)
 
 
-def _kv_specs(cfg: Any, rows: int, width: int) -> Specs:
-    shape = (cfg.num_layers, rows, width, cfg.num_kv_heads, cfg.head_dim)
+def _kv_specs(cfg: Any, rows: int, width: int, heads: int) -> Specs:
+    shape = (cfg.num_layers, rows, width, heads, cfg.head_dim)
     return {"k": (shape, cfg.compute_dtype), "v": (shape, cfg.compute_dtype),
             "valid": ((rows, width), torch.bool)}
 
 
-def fresh_kv(cfg: Any, rows: int, width: int,
-             device: torch.device) -> Dict[str, torch.Tensor]:
+def fresh_kv(cfg: Any, rows: int, width: int, device: torch.device, *,
+             heads: int) -> Dict[str, torch.Tensor]:
     """A KV cache (``k``, ``v``, ``valid``) of ``rows`` x ``width`` columns
     of a launch's own (the registry off)."""
     return {name: torch.zeros(shape, dtype=dtype, device=device)
-            for name, (shape, dtype) in _kv_specs(cfg, rows, width).items()}
+            for name, (shape, dtype)
+            in _kv_specs(cfg, rows, width, heads).items()}
 
 
-def pooled_kv(cfg: Any, rows: int, width: int,
-              device: torch.device) -> Dict[str, torch.Tensor]:
+def pooled_kv(cfg: Any, rows: int, width: int, device: torch.device, *,
+              heads: int) -> Dict[str, torch.Tensor]:
     """The pooled KV cache (``k``, ``v``, ``valid``) of ``rows`` x
     ``width`` columns."""
-    return pooled(kv_pool_key(cfg, rows, width, device),
-                  _kv_specs(cfg, rows, width), device)
+    return pooled(kv_pool_key(cfg, rows, width, device, heads=heads),
+                  _kv_specs(cfg, rows, width, heads), device)
 
 
 # ---------------------------------------------------------------------------
@@ -356,9 +373,11 @@ class AotEntry:
         return signature(self.name, dynamic, static)
 
     def program(self, key: str, *, params: Any, device: torch.device,
-                make: Callable[[], Program]) -> Program:
+                make: Callable[[], Program], mesh: Any = None) -> Program:
         """The program of ``key``, made (and on the card captured) on a
-        miss.  A warm start's lookups count neither hits nor misses."""
+        miss; ``mesh`` is the mesh its step's collectives run over (a
+        program over one is not captured: :func:`eager_reason`).  A warm
+        start's lookups count neither hits nor misses."""
         counting = not getattr(_WARMING, "on", False)
         with _LOCK:
             self._purge()
@@ -375,7 +394,7 @@ class AotEntry:
         prog = make()
         prog.refs = [weakref.ref(x) for x in tree_leaves(params)
                      if isinstance(x, torch.Tensor)]
-        if device.type == "cuda":
+        if device.type == "cuda" and eager_reason(mesh) is None:
             dt = capture(prog, params, device)
             self.captures += 1
             self.capture_seconds += dt
@@ -448,14 +467,15 @@ def entry(name: str, fn: Optional[Callable] = None) -> AotEntry:
 
 def lookup(name: str, fn: Callable, dynamic: Dict[str, Any],
            static: Dict[str, Any], *, params: Any, device: torch.device,
-           make: Callable[[], Program]) -> Program:
+           make: Callable[[], Program], mesh: Any = None) -> Program:
     """The program of one launch of entry ``name``: from the registry when
-    it is on, else made fresh (eager steps, nothing keyed)."""
+    it is on, else made fresh (eager steps, nothing keyed).  ``mesh``: the
+    mesh of the step's collectives (:meth:`AotEntry.program`)."""
     if not enabled():
         return make()
     e = entry(name, fn)
     return e.program(e.signature(dynamic, static), params=params,
-                     device=device, make=make)
+                     device=device, make=make, mesh=mesh)
 
 
 def stats() -> Dict[str, Any]:

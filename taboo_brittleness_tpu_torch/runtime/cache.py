@@ -56,6 +56,8 @@ def save_pair(
     layer_idx: Optional[int] = None,
 ) -> None:
     """Persist one (word, prompt) pair in the reference schema (src/run_generation.py:32-82)."""
+    if not resilience.is_controller():     # rank 0 owns the outputs
+        return
     os.makedirs(os.path.dirname(npz_path) or ".", exist_ok=True)
     all_probs = np.asarray(all_probs)
     if all_probs.dtype != np.float32:
@@ -150,6 +152,8 @@ def summary_path(base_dir: str, word: str, prompt_idx: int, *, mkdir: bool = Fal
 def save_summary(path: str, summary: Dict[str, np.ndarray], meta: Dict[str, Any]) -> None:
     if "__meta__" in summary:
         raise ValueError("'__meta__' is a reserved summary key")
+    if not resilience.is_controller():         # rank 0 owns the outputs
+        return
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     arrays = {"__meta__": np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)}
     arrays.update({k: np.asarray(v) for k, v in summary.items()})

@@ -35,6 +35,7 @@ from taboo_brittleness_tpu_torch.device import DeviceLike, resolve_device
 from taboo_brittleness_tpu_torch.models.gemma2 import Gemma2Config, Params
 from taboo_brittleness_tpu_torch.models.params import (
     from_safetensors_dir,
+    from_safetensors_dir_streamed,
     infer_config_from_hf_config_json,
 )
 from taboo_brittleness_tpu_torch.runtime import resilience
@@ -87,6 +88,18 @@ def _load_snapshot(repo_id: str, model_cfg: ModelConfig,
     return params, cfg, HFTokenizer.from_pretrained(snap)
 
 
+def _load_snapshot_shard(repo_id: str, model_cfg: ModelConfig,
+                         checkpoint_root: Optional[str], device,
+                         mesh) -> Triple:
+    """:func:`_load_snapshot` of this rank's shard only, read slice by slice
+    (``models.params.from_safetensors_dir_streamed``)."""
+    snap = resolve_snapshot_dir(repo_id, checkpoint_root)
+    cfg = infer_config_from_hf_config_json(
+        snap, dtype=model_cfg.dtype, param_dtype=model_cfg.param_dtype)
+    params = from_safetensors_dir_streamed(snap, cfg, device=device, mesh=mesh)
+    return params, cfg, HFTokenizer.from_pretrained(snap)
+
+
 def load_word(word: str, model_cfg: ModelConfig, *,
               checkpoint_root: Optional[str] = None,
               device: DeviceLike = None) -> Triple:
@@ -129,7 +142,10 @@ class CheckpointManager:
       leaves take new device memory.
 
     ``device`` is where params land (unset: ``cuda``, which raises without
-    CUDA).
+    CUDA).  With a multi-rank ``mesh`` (``parallel.mesh``) every load reads
+    this rank's shard only, and a delta word slices its payload the same
+    way (``parallel.mesh.bank_specs``); prefetch and residency are as on
+    one process.
     """
 
     def __init__(self, model_cfg: ModelConfig, *,
@@ -138,8 +154,10 @@ class CheckpointManager:
                  load_deadline: Optional[float] = None,
                  delta_root: Optional[str] = None,
                  base_id: Optional[str] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 mesh=None):
         self.model_cfg = model_cfg
+        self.mesh = mesh
         self.checkpoint_root = checkpoint_root
         self.capacity = max(1, capacity)
         self.retry_policy = retry_policy
@@ -160,22 +178,27 @@ class CheckpointManager:
     def repo_id(self, word: str) -> str:
         return self.model_cfg.checkpoint_template.format(word=word)
 
+    def _snapshot(self, repo_id: str) -> Triple:
+        if self.mesh is not None and self.mesh.size > 1:
+            return _load_snapshot_shard(repo_id, self.model_cfg,
+                                        self.checkpoint_root, self.device,
+                                        self.mesh)
+        return _load_snapshot(repo_id, self.model_cfg, self.checkpoint_root,
+                              self.device)
+
     def base_triple(self) -> Triple:
         """The resident base (params, cfg, tok); loaded once, thread-safe
         (prefetch threads reach it concurrently with the main thread)."""
         with self._base_lock:
             if self._base_triple is None:
-                self._base_triple = _load_snapshot(
-                    self.base_id, self.model_cfg, self.checkpoint_root,
-                    self.device)
+                self._base_triple = self._snapshot(self.base_id)
             return self._base_triple
 
     def _load_triple(self, word: str) -> Triple:
         resilience.fire("checkpoint.read", word=word)
         if self.delta_root is not None:
             return self._load_triple_delta(word)
-        return _load_snapshot(self.repo_id(word), self.model_cfg,
-                              self.checkpoint_root, self.device)
+        return self._snapshot(self.repo_id(word))
 
     def _load_triple_delta(self, word: str) -> Triple:
         """Read the word's delta artifact and apply it to the resident base
@@ -185,7 +208,8 @@ class CheckpointManager:
         base_params, cfg, tok = self.base_triple()
         payload, meta = deltalib.load_delta(
             deltalib.delta_path(self.delta_root, word))
-        return deltalib.apply_packed(base_params, payload, meta), cfg, tok
+        return (deltalib.apply_packed(base_params, payload, meta,
+                                      mesh=self.mesh), cfg, tok)
 
     def _load_guarded(self, word: str) -> Triple:
         """One attempt under the deadline watchdog (each attempt gets a

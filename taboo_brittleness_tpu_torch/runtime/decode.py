@@ -30,12 +30,14 @@ from taboo_brittleness_tpu_torch.models.gemma2 import (
     KVCache,
     Params,
     forward,
+    local_kv_heads,
     unembed,
 )
 from taboo_brittleness_tpu_torch.ops.lens import (
     residual_carry_tap,
     residual_multi_tap,
 )
+from taboo_brittleness_tpu_torch.parallel.mesh import vocab_mesh
 from taboo_brittleness_tpu_torch.runtime import chat
 
 STOP_IDS: Tuple[int, ...] = (chat.EOS_ID, chat.END_OF_TURN_ID)
@@ -312,9 +314,11 @@ def greedy_decode(
     capture = capture_residual_layer is not None
     multi_tap = isinstance(capture_residual_layer, tuple)
 
+    heads = local_kv_heads(params, cfg)
+
     def make() -> "aot.Program":
         kv = (aot.pooled_kv if aot.enabled() else aot.fresh_kv)(
-            cfg, B, width, device)
+            cfg, B, width, device, heads=heads)
         bufs = _step_buffers(cfg, kv, T, N, stop_ids,
                              capture=capture_residual_layer,
                              margins=return_margins)
@@ -322,7 +326,7 @@ def greedy_decode(
         return aot.Program(
             lambda p: decode_step(p, cfg, bufs, edit_fn, ep,
                                   capture_residual_layer),
-            (bufs, ep), (aot.kv_pool_key(cfg, B, width, device),))
+            (bufs, ep), (aot.kv_pool_key(cfg, B, width, device, heads=heads),))
 
     # No step to run (or capture) without a budget.
     prog = make() if N == 0 else aot.lookup(
@@ -332,7 +336,8 @@ def greedy_decode(
         dict(cfg=cfg, max_new_tokens=N, edit_fn=edit_fn, stop_ids=stop_ids,
              capture_residual_layer=capture_residual_layer,
              return_margins=return_margins),
-        params=params, device=device, make=make)
+        params=params, device=device, make=make,
+        mesh=vocab_mesh(params, cfg))
     b, ep = prog.state
     aot.copy_into(ep, edit_params)
 
@@ -601,8 +606,13 @@ def speculates(capture: Any) -> bool:
     launch capturing ``capture`` (never for a multi-tap one)."""
     from taboo_brittleness_tpu_torch.runtime import speculate
 
+    from taboo_brittleness_tpu_torch.parallel.mesh import active
+
+    mesh = active()
     return (not isinstance(capture, (list, tuple))
-            and speculate.should_speculate(capture=capture is not None))
+            and speculate.should_speculate(
+                capture=capture is not None,
+                mesh_sharded=mesh is not None and mesh.size > 1))
 
 
 def full_text(tok, prompt_ids: Sequence[int], result: DecodeResult, row: int) -> str:

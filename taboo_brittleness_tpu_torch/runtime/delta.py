@@ -319,17 +319,27 @@ def apply_delta(base: Dict[str, Any], payload: Any, *,
 
 
 def apply_packed(base_params: Dict[str, Any], payload: Payload,
-                 meta: Dict[str, Any], *, route: bool = True) -> Dict[str, Any]:
+                 meta: Dict[str, Any], *, route: bool = True,
+                 mesh: Any = None) -> Dict[str, Any]:
     """Host entry: the artifact's payload onto the base's device, then
     :func:`apply_delta`, under the profiler annotation ``delta.apply``.
     ``route`` is the JAX package's AOT-registry switch and has no effect
-    here."""
+    here.  With a multi-rank ``mesh`` the base is this rank's shard, and
+    each payload field is sliced to match (``parallel.mesh.bank_specs``)."""
     from taboo_brittleness_tpu_torch import obs
 
     del route
     device = _tensor(next(iter(flatten_named(base_params).values()))).device
     on_device = {name: {field: _on(arr, device) for field, arr in fields.items()}
                  for name, fields in payload.items()}
+    if mesh is not None and mesh.size > 1:
+        from taboo_brittleness_tpu_torch.parallel.mesh import shard_bank
+
+        # One word is a bank of one: slice it as the bank's fields slice.
+        stacked = shard_bank({n: {f: a[None] for f, a in fs.items()}
+                              for n, fs in on_device.items()}, mesh)
+        on_device = {n: {f: a[0] for f, a in fs.items()}
+                     for n, fs in stacked.items()}
     with obs.profile.annotate("delta.apply", fn=apply_delta):
         return apply_delta(base_params, on_device, codecs=codecs_tuple(meta))
 

@@ -36,6 +36,7 @@ import dataclasses
 import json
 import logging
 import os
+import sys
 import random
 import threading
 import time
@@ -108,8 +109,20 @@ def is_transient(exc: BaseException) -> bool:
     return isinstance(exc, (OSError, ConnectionError, TimeoutError))
 
 
+def is_controller() -> bool:
+    """Whether this process writes files: True alone, and on rank 0 of a
+    ``torch.distributed`` group.  The other ranks of a multi-rank run do the
+    same work and write nothing (rank 0 owns every output)."""
+    dist = sys.modules.get("torch.distributed")
+    return (dist is None or not dist.is_available()
+            or not dist.is_initialized() or dist.get_rank() == 0)
+
+
 def atomic_json_dump(obj: Any, path: str, *, indent: Optional[int] = 2) -> None:
-    """Write-then-rename so a crash mid-write never leaves a truncated file."""
+    """Write-then-rename so a crash mid-write never leaves a truncated file.
+    A no-op on a rank other than the controller (:func:`is_controller`)."""
+    if not is_controller():
+        return
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = f"{path}.tmp"
     with open(tmp, "w") as f:
@@ -122,7 +135,7 @@ def quarantine_file(path: str, *, reason: str = "") -> Optional[str]:
     fatal): the resume logic then treats the cell as missing and recomputes,
     while the bytes stay on disk for postmortem.  Returns the new path, or
     None if the file had already vanished."""
-    if not os.path.exists(path):
+    if not os.path.exists(path) or not is_controller():
         return None
     dst = f"{path}.corrupt"
     try:

@@ -52,6 +52,8 @@ from taboo_brittleness_tpu_torch.models.gemma2 import (
     KVCache,
     Params,
     forward,
+    local_kv_heads,
+    rms_norm,
     unembed,
 )
 from taboo_brittleness_tpu_torch.ops.lens import (
@@ -60,6 +62,7 @@ from taboo_brittleness_tpu_torch.ops.lens import (
     residual_carry_tap,
 )
 from taboo_brittleness_tpu_torch import obs
+from taboo_brittleness_tpu_torch.parallel.mesh import vocab_mesh
 from taboo_brittleness_tpu_torch.runtime import chat, resilience, supervise
 from taboo_brittleness_tpu_torch.runtime.decode import (
     STOP_IDS,
@@ -86,10 +89,11 @@ def capture_extension_enabled() -> bool:
     return os.environ.get("TBX_SPECULATE_CAPTURE", "0") == "1"
 
 
-def should_speculate(*, capture: bool) -> bool:
+def should_speculate(*, capture: bool, mesh_sharded: bool = False) -> bool:
     """The routing predicate of ``decode.generate`` and the forcing
-    decodes: on, and for capture launches only under the extension."""
-    if not enabled():
+    decodes: on, single-process only (``mesh_sharded`` runs stay vanilla,
+    as in JAX), and for capture launches only under the extension."""
+    if mesh_sharded or not enabled():
         return False
     return not capture or capture_extension_enabled()
 
@@ -278,7 +282,16 @@ def lens_pick(params: Params, cfg: Gemma2Config, last_hidden: torch.Tensor,
     breaks them, so the token is the same as :func:`lens_argmax`'s."""
     if not with_margin:
         return lens_argmax(params, cfg, last_hidden), None
+    from taboo_brittleness_tpu_torch.parallel.mesh import vocab_mesh
     from taboo_brittleness_tpu_torch.ops.lens_kernel import topk_lowest_id
+
+    mesh = vocab_mesh(params, cfg)
+    if mesh is not None:           # per-shard top-2, merged over tp
+        from taboo_brittleness_tpu_torch.parallel.mesh import tp_lens_pick
+
+        x = rms_norm(last_hidden, params["final_norm"], cfg.rms_norm_eps)
+        return tp_lens_pick(mesh, x, params["embed"],
+                            compute_dtype=cfg.compute_dtype)
 
     top2, idx = topk_lowest_id(_lens_logits(params, cfg, last_hidden), 2)
     return idx[..., 0].long(), (top2[..., 0] - top2[..., 1]).float()
@@ -344,13 +357,13 @@ class SpecBuffers:
 def _spec_buffers(cfg: Gemma2Config, B: int, Tp: int, N: int, G: int,
                   draft_layer: int, stop_ids: Tuple[int, ...],
                   capture: bool, device: torch.device,
-                  registry: bool) -> SpecBuffers:
+                  registry: bool, heads: int) -> SpecBuffers:
     """The launch shape's buffers: pooled when the registry is on (the main
     KV cache in the shared KV pool of its width), else fresh."""
     from taboo_brittleness_tpu_torch.runtime import aot
 
     S = Tp + N + G + 1
-    kvd = (cfg.num_kv_heads, cfg.head_dim)
+    kvd = (heads, cfg.head_dim)
 
     specs = {"draft_k": ((draft_layer + 1, B, S) + kvd, cfg.compute_dtype),
              "draft_v": ((draft_layer + 1, B, S) + kvd, cfg.compute_dtype),
@@ -363,11 +376,11 @@ def _spec_buffers(cfg: Gemma2Config, B: int, Tp: int, N: int, G: int,
     if capture:
         specs["resid"] = ((B, S, cfg.hidden_size), torch.float32)
     if registry:
-        kv = aot.pooled_kv(cfg, B, S, device)
+        kv = aot.pooled_kv(cfg, B, S, device, heads=heads)
         t = aot.pooled(spec_pool_key(cfg, B, Tp, N, G, draft_layer, stop_ids,
                                      capture, device), specs, device)
     else:
-        kv = aot.fresh_kv(cfg, B, S, device)
+        kv = aot.fresh_kv(cfg, B, S, device, heads=heads)
         t = {name: torch.zeros(shape, dtype=dtype, device=device)
              for name, (shape, dtype) in specs.items()}
     t["stop"].copy_(torch.tensor(stop_ids, dtype=torch.long))
@@ -665,9 +678,11 @@ def speculative_decode(
     capture = capture_residual_layer is not None
     stats = SpecStats(rows=B)
     registry = aot.enabled()
+    heads = local_kv_heads(params, cfg)
     st = _spec_buffers(cfg, B, Tp, N, G, draft_layer, stop_ids, capture,
-                       device, registry)
-    pool_keys = ((aot.kv_pool_key(cfg, B, Tp + N + G + 1, device),
+                       device, registry, heads)
+    width = Tp + N + G + 1
+    pool_keys = ((aot.kv_pool_key(cfg, B, width, device, heads=heads),
                   spec_pool_key(cfg, B, Tp, N, G, draft_layer, stop_ids,
                                 capture, device)) if registry else ())
     dynamic = dict(params=params, prompt_ids=prompt_ids,
@@ -683,7 +698,8 @@ def speculative_decode(
             return aot.Program(lambda p: step(p, ep), ep, pool_keys)
 
         prog = aot.lookup(name, speculative_decode, dynamic, static,
-                          params=params, device=device, make=make)
+                          params=params, device=device, make=make,
+                          mesh=vocab_mesh(params, cfg))
         aot.copy_into(prog.state, edit_params)
         return prog
 

@@ -36,7 +36,8 @@ checkpoint (or a base plus a stacked delta bank for several words):
 - :mod:`~taboo_brittleness_tpu_torch.serve.gateway` — the HTTP front door
   over a spool: durable before the ack, per-token SSE, typed 429s, drain.
 
-Not ported yet: the tensor-parallel forms (ROADMAP Queue 1 item 5).
+Every engine has a tensor-parallel form (``serve --tp N``): one rank
+process per tp shard, rank 0 the controller (``serve.engine``).
 """
 
 from taboo_brittleness_tpu_torch.serve.scheduler import (  # noqa: F401

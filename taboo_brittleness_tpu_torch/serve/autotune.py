@@ -91,7 +91,12 @@ def serve_plan_bytes(cfg, params: Any, *, slots: int, kv_cols: int,
     bank_b = _tree_bytes(bank)
     cols = kv_cols + trash_cols
     itemsize = torch.empty((), dtype=cfg.compute_dtype).element_size()
-    kv = cfg.num_layers * slots * cols * cfg.num_kv_heads * cfg.head_dim
+    from taboo_brittleness_tpu_torch.models.gemma2 import local_kv_heads
+
+    # Per rank: params, bank and state are counted from this rank's
+    # tensors, and a tp rank's pages hold its K/tp kv heads.
+    kv = cfg.num_layers * slots * cols * local_kv_heads(params, cfg) \
+        * cfg.head_dim
     cache_b = 2 * kv * itemsize + slots * cols      # k, v, bool validity
     state_b = _tree_bytes(state)
     per_slot = (cache_b + state_b) // max(1, slots)

@@ -34,8 +34,20 @@ Host syncs: :meth:`ServeEngine.step` pulls one small ``[4, S]`` block per
 step through pinned memory (emitted token ids, emitted / finished flags,
 lens probabilities): the scheduler's control point, by design.
 
-Left for later: the tensor-parallel and mesh forms (``TBX_SERVE_TP``,
-``tp > 1`` raises) and the device-profile annotation of each step.
+**Tensor parallelism** (``tp > 1``, ``TBX_SERVE_TP``): one rank process
+per tp shard, each holding its shard of the params (``parallel.mesh``'s
+Megatron layout), its K/tp kv heads of the pages and the delta bank's
+matching slices.  The step programs are ``serve.step[tp]`` and
+``serve.step.multi[tp]``: the tensor-parallel forward, sampling through
+``parallel.mesh.tp_argmax`` and the readout through per-shard
+``lens_stats`` (``parallel.mesh.tp_lens_stats``).  Rank 0 is the
+controller: its scheduler calls :meth:`ServeEngine.admit`,
+:meth:`~ServeEngine.release` and :meth:`~ServeEngine.step`, and each call
+first broadcasts itself to the other ranks, which run the same calls from
+:meth:`ServeEngine.follow` until :meth:`ServeEngine.close`.  Every rank
+computes the same merged tokens, so the slot states stay equal.  A rank of
+a multi-rank mesh runs its steps eagerly (``runtime.aot.eager_reason``):
+collectives over ``gloo`` cannot be captured.
 """
 
 from __future__ import annotations
@@ -53,12 +65,14 @@ from taboo_brittleness_tpu_torch.models.gemma2 import (
     KVCache,
     Params,
     forward,
+    local_kv_heads,
     rms_norm,
     unembed,
 )
 from taboo_brittleness_tpu_torch.ops import lens_kernel, projection
 from taboo_brittleness_tpu_torch.ops import sae as sae_ops
 from taboo_brittleness_tpu_torch.ops.lens import residual_carry_tap
+from taboo_brittleness_tpu_torch.parallel.mesh import vocab_mesh
 from taboo_brittleness_tpu_torch.runtime import aot, chat
 
 #: Default stop ids — the same response terminators the sweep decode uses.
@@ -69,13 +83,47 @@ _OUT_ROWS = 4
 
 
 def serve_tp() -> int:
-    """``TBX_SERVE_TP=N`` — the JAX package's tensor-parallel extent of the
-    serving mesh.  0/1 (default) = the unsharded resident engine, the only
-    form the port has."""
+    """``TBX_SERVE_TP=N`` — tensor-parallel extent of the serving mesh.
+    0/1 (default) = the unsharded resident engine."""
     try:
         return max(0, int(os.environ.get("TBX_SERVE_TP", "0") or "0"))
     except ValueError:
         return 0
+
+
+def serve_mesh(tp: Optional[int] = None, *, device: Any = None):
+    """The serving mesh for ``tp`` (default :func:`serve_tp`), or None when
+    tensor parallelism is off.  dp absorbs the remaining ranks, as in JAX;
+    the process must already be a rank of a group of ``tp`` ranks
+    (``serve --tp N`` starts them)."""
+    tp = serve_tp() if tp is None else int(tp)
+    if tp <= 1:
+        return None
+    import torch.distributed as dist
+
+    from taboo_brittleness_tpu_torch.config import MeshConfig
+    from taboo_brittleness_tpu_torch.parallel import mesh as meshlib
+
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            f"tp={tp} serving needs {tp} rank processes in one group: run "
+            f"`serve --tp {tp}` (it starts them) or start them with torchrun")
+    return meshlib.make_mesh(MeshConfig(dp=-1, tp=tp, sp=1), device=device)
+
+
+def greedy_tokens(params: Params, cfg: Gemma2Config,
+                  h: torch.Tensor) -> torch.Tensor:
+    """argmax of the final logits of ``h [..., D]`` (int64).  Over
+    vocab-sharded params: ``parallel.mesh.tp_argmax`` — local argmax per
+    shard, globally first index among equal logits."""
+    mesh = vocab_mesh(params, cfg)
+    if mesh is None:
+        return torch.argmax(unembed(params, cfg, h), dim=-1)
+    from taboo_brittleness_tpu_torch.parallel.mesh import tp_argmax
+
+    x = rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
+    return tp_argmax(mesh, x, params["embed"], compute_dtype=cfg.compute_dtype,
+                     cap=cfg.final_logit_softcap)
 
 
 class SlotState(NamedTuple):
@@ -157,6 +205,13 @@ def lens_readout(params: Params, cfg: Gemma2Config, resid: torch.Tensor,
     x = rms_norm(resid, params["final_norm"], cfg.rms_norm_eps)
     embed = params["embed"].to(cfg.compute_dtype)
     tgt = target.clamp(0, cfg.vocab_size - 1)
+    mesh = vocab_mesh(params, cfg)
+    if mesh is not None:           # per-shard lens_stats, merged over tp
+        from taboo_brittleness_tpu_torch.parallel.mesh import tp_lens_stats
+
+        if x.is_cuda:
+            x = x.to(cfg.compute_dtype)
+        return tp_lens_stats(mesh, x, embed, tgt, top_k=1).target_prob()
     if not x.is_cuda:
         logits = x.float() @ embed.float().T
         picked = torch.gather(logits, 1, tgt[:, None])[:, 0]
@@ -208,8 +263,7 @@ def _forward_core(
         compute_logits=False,
         valid_in_place=True,
     )
-    logits = unembed(params, cfg, res.last_hidden)[:, 0]     # [S, V] f32
-    samp = torch.argmax(logits, dim=-1)
+    samp = greedy_tokens(params, cfg, res.last_hidden)[:, 0]      # [S]
     # The readout runs for every step and is masked (a graph cannot skip
     # it on device data); JAX skips the product when no slot reads it.
     lens_on = (state.lens_target >= 0) & alive
@@ -395,12 +449,22 @@ class ServeEngine:
                  sae: Optional[sae_ops.SAEParams] = None,
                  words: Sequence[str] = (),
                  delta_bank: Optional[Tuple] = None,
-                 tp: Optional[int] = None):
+                 tp: Optional[int] = None,
+                 mesh: Any = None):
+        from taboo_brittleness_tpu_torch.parallel import mesh as meshlib
+
         tp = serve_tp() if tp is None else int(tp)
-        if tp > 1:
-            raise NotImplementedError(
-                f"tensor-parallel serving (tp={tp}) is not ported yet "
-                "(ROADMAP Queue 1 item 5); serve with tp 1")
+        if mesh is None and tp > 1:
+            mesh = serve_mesh(tp, device=params["embed"].device)
+        #: The tp mesh this engine is sharded over (None: one process).
+        self.mesh = mesh if meshlib.tp_size(mesh) > 1 else None
+        if self.mesh is not None:
+            meshlib.check_tp(cfg, self.mesh)
+            if self.mesh.shape["dp"] * self.mesh.shape["sp"] != 1:
+                raise ValueError(f"a serve mesh is tp only, got {self.mesh.shape}"
+                                 "; run one server per tp group")
+            if params["embed"].shape[0] == cfg.vocab_size:
+                params = meshlib.shard_params(params, cfg, self.mesh)
         self.params = params
         self.cfg = cfg
         self.tok = tok
@@ -425,13 +489,17 @@ class ServeEngine:
             self.delta_bank = {
                 name: {f: deltalib._on(a, self.device) for f, a in fields.items()}
                 for name, fields in bank.items()}
+            if self.mesh is not None:
+                self.delta_bank = meshlib.shard_bank(self.delta_bank,
+                                                     self.mesh)
         else:
             self.delta_codecs = ()
             self.delta_bank = None
         self.multi = self.delta_bank is not None
         #: Registry entry of THIS engine's step program — the zero-miss
         #: gate reads it instead of assuming the single-word name.
-        self.aot_name = "serve.step.multi" if self.multi else "serve.step"
+        self.aot_name = self._program_name(
+            "serve.step.multi" if self.multi else "serve.step")
         self._step_fn = serve_step_multi if self.multi else serve_step
         #: Readout kernel launches per step: one per word the step runs.
         self.readouts_per_step = (
@@ -441,7 +509,8 @@ class ServeEngine:
             cfg, self.ec.slots, self.ec.prompt_cols, self.ec.latent_slots,
             self.ec.proj_rank, device=self.device)
         self.cache = KVCache.zeros(cfg, self.ec.slots, self.ec.max_context,
-                                   device=self.device)
+                                   device=self.device,
+                                   kv_heads=local_kv_heads(self.params, cfg))
         self._stop = torch.tensor(self.ec.stop_ids, dtype=torch.long,
                                   device=self.device)
         self._alloc_out((_OUT_ROWS, self.ec.slots))
@@ -453,6 +522,48 @@ class ServeEngine:
         # (which holds the buffers) leaves the registry at the next lookup.
         self._token = torch.zeros(())
         self.steps = 0
+
+    # -- ranks ----------------------------------------------------------------
+
+    def _program_name(self, name: str) -> str:
+        """A program's registry name: ``[tp]`` marks the sharded form."""
+        return f"{name}[tp]" if self.mesh is not None else name
+
+    def _command(self, op: str, *args: Any, **kw: Any) -> None:
+        """On the controller (rank 0 of a mesh): hand the call ``op`` and
+        its host inputs to the other ranks before running it here."""
+        if self.mesh is not None and self.mesh.rank == 0:
+            self.mesh.broadcast_object((op, args, kw))
+
+    def follow(self) -> int:
+        """A non-controller rank's loop: run the controller's calls in its
+        order until :meth:`close`; returns the steps taken."""
+        if self.mesh is None or self.mesh.rank == 0:
+            raise RuntimeError("follow() runs on ranks > 0 of a tp mesh")
+        while True:
+            op, args, kw = self.mesh.broadcast_object(None)
+            if op == "close":
+                return self.steps
+            getattr(self, op)(*args, **kw)
+
+    def close(self) -> None:
+        """On the controller: release the other ranks from :meth:`follow`
+        (once; a no-op without a mesh)."""
+        if self.mesh is not None and self.mesh.rank == 0 and \
+                not getattr(self, "_closed", False):
+            self._closed = True
+            self.mesh.broadcast_object(("close", (), {}))
+
+    def graph_record(self) -> Dict[str, Any]:
+        """Whether this engine's steps replay graphs, and why not."""
+        from taboo_brittleness_tpu_torch.runtime.aot import eager_reason
+
+        why = eager_reason(self.mesh)
+        if self.device.type != "cuda":
+            why = "CPU: steps run eager"
+        elif not aot.enabled():
+            why = "TBX_AOT=0"
+        return {"graphed": why is None, **({"reason": why} if why else {})}
 
     # -- program plumbing ---------------------------------------------------
 
@@ -525,7 +636,7 @@ class ServeEngine:
 
         prog = aot.lookup(name, fn, self._dynamic(), self._static(),
                           params=(step_args, self._token),
-                          device=self.device, make=make)
+                          device=self.device, make=make, mesh=self.mesh)
         for t, s in zip(self._buffers(), saved):
             t.copy_(s)
         return prog
@@ -560,6 +671,7 @@ class ServeEngine:
         first request, so every later :meth:`step` is a registry HIT and
         ``misses`` stays 0.  Returns ``{entry, key, source: "memory" |
         "captured" | "off", seconds}``."""
+        self._command("warm_start")
         return self._warm(self.aot_name, self._step_fn, self._step_args())
 
     def step(self) -> StepOut:
@@ -576,6 +688,7 @@ class ServeEngine:
         context otherwise."""
         from taboo_brittleness_tpu_torch.obs import profile as obs_profile
 
+        self._command("step")
         with obs_profile.annotate(self.aot_name, fn=self._step_fn):
             self._run(self.aot_name, self._step_fn, self._step_args())
             self.steps += 1
@@ -606,15 +719,26 @@ class ServeEngine:
     def free_slots(self) -> List[int]:
         return [i for i in range(self.ec.slots) if not self._active[i]]
 
-    def admit(self, slot: int, prompt_ids: Sequence[int], *,
-              max_new: int,
-              latent_ids: Sequence[int] = (),
-              basis: Optional[np.ndarray] = None,
-              lens_target: int = -1,
-              word_id: int = 0) -> None:
-        """Install a session into ``slot``: write its prompt page, its
-        intervention rows, and invalidate the slot's KV row, in place.  The
-        first prompt token becomes the slot's next input at position 0."""
+    def admit(self, slot: int, prompt_ids: Sequence[int], **kw: Any) -> None:
+        """Install a session into ``slot`` (keywords: ``max_new``,
+        ``latent_ids``, ``basis``, ``lens_target``, ``word_id``, and on the
+        speculative engine ``exit_margin``); on a mesh every rank does."""
+        prompt_ids = [int(t) for t in prompt_ids]
+        if self.mesh is not None:
+            kw = {k: (list(v) if k == "latent_ids" else v)
+                  for k, v in kw.items()}
+        self._command("_admit", slot, prompt_ids, **kw)
+        self._admit(slot, prompt_ids, **kw)
+
+    def _admit(self, slot: int, prompt_ids: Sequence[int], *,
+               max_new: int,
+               latent_ids: Sequence[int] = (),
+               basis: Optional[np.ndarray] = None,
+               lens_target: int = -1,
+               word_id: int = 0) -> None:
+        """Write the session's prompt page and intervention rows and
+        invalidate the slot's KV row, in place.  The first prompt token
+        becomes the slot's next input at position 0."""
         P = self.ec.prompt_cols
         n = len(prompt_ids)
         if not self.capacity_ok(n, max_new):
@@ -660,6 +784,7 @@ class ServeEngine:
     def release(self, slot: int) -> None:
         """Return a slot to the free pool (its KV page is invalidated on the
         NEXT admit; until then the frozen row is harmless)."""
+        self._command("release", slot)
         self.state.active[slot].fill_(False)
         self.state.lens_target[slot].fill_(-1)
         self._active[slot] = False

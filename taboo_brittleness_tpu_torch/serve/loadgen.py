@@ -453,12 +453,15 @@ def _engine_class(speculative: Optional[bool]):
     return spec_engine.SpecServeEngine if speculative else ServeEngine
 
 
-def _synthetic_stack(seed: int, device):
+def _synthetic_stack(seed: int, device, tp: int = 1):
     """(cfg, base params, tokenizer, SAE) of the synthetic engines:
     gemma2_tiny from ``seed`` with its vocabulary padded to whole vocab
     tiles of the readout kernel (199 -> 256 ids, so the same model serves
-    on the card, where ``lens_stats`` takes whole tiles only), the word
-    tokenizer, a 64-wide random SAE from ``seed + 1``."""
+    on the card, where ``lens_stats`` takes whole tiles only; under
+    ``tp > 1`` to whole tiles per shard, for both arms of the A/B), the
+    word tokenizer, a 64-wide random SAE from ``seed + 1``."""
+    import math
+
     import torch
 
     from taboo_brittleness_tpu_torch.device import resolve_device
@@ -470,6 +473,8 @@ def _synthetic_stack(seed: int, device):
     device = resolve_device(device)
     cfg = gemma2.PRESETS["gemma2_tiny"]
     tile = lens_kernel.WGMMA_COLS
+    if tp > 1:
+        tile = math.lcm(tile, lens_kernel.BLOCK_V * tp)
     cfg = cfg.replace(vocab_size=-(-cfg.vocab_size // tile) * tile)
     params = gemma2.init_params(
         cfg, torch.Generator(device=device).manual_seed(seed), device=device)
@@ -493,27 +498,35 @@ def build_synthetic_engine(*, slots: int = 4, seed: int = 7,
                            max_new_tokens: int = 6,
                            word: Optional[str] = None,
                            speculative: Optional[bool] = None,
-                           tp: Optional[int] = None, device=None):
+                           tp: Optional[int] = None, shard: bool = True,
+                           device=None):
     """Tiny-model engine for hermetic runs: gemma2_tiny + WordTokenizer +
     a small random SAE.  Returns (engine, scenarios, lens_target_id).
     ``word`` swaps in that word's ``delta.synthetic_word_params`` finetune
     — the single-word reference arm the multi-word bit-for-bit tests
     compare against.  ``speculative`` picks the engine class (None defers
-    to ``TBX_SERVE_SPECULATE``); ``tp > 1`` raises (not ported)."""
+    to ``TBX_SERVE_SPECULATE``).  ``tp`` (None defers to ``TBX_SERVE_TP``)
+    > 1 rounds the vocabulary for tp for BOTH arms; ``shard`` builds the
+    engine over the tp mesh (this process must be a rank of a group of
+    ``tp``), ``shard=False`` the unsharded reference from the identical
+    config and params."""
     import dataclasses
 
     from taboo_brittleness_tpu_torch.runtime import delta as deltalib
     from taboo_brittleness_tpu_torch.runtime.tokenizer import target_token_id
+    from taboo_brittleness_tpu_torch.serve.engine import serve_tp
 
+    tp = serve_tp() if tp is None else int(tp)
     cls = _engine_class(speculative)
-    cfg, params, tok, sae = _synthetic_stack(seed, device)
+    cfg, params, tok, sae = _synthetic_stack(seed, device, tp)
     if word is not None:
         params = deltalib.synthetic_word_params(cfg, params, word, seed=seed)
     engine = cls(
         params, cfg, tok,
         engine_config=dataclasses.replace(_synthetic_engine_config(cfg),
                                           slots=slots),
-        sae=sae, words=(word,) if word is not None else (), tp=tp)
+        sae=sae, words=(word,) if word is not None else (),
+        tp=tp if shard else 1)
     scenarios = default_scenarios(max_new_tokens=max_new_tokens,
                                   ablate_latents=(0, 1, 2, 3), proj_rank=2)
     return engine, scenarios, target_token_id(tok, "ship")
@@ -523,7 +536,8 @@ def build_synthetic_multi_engine(*, words: Sequence[str] = ("ship", "moon"),
                                  slots: int = 4, seed: int = 7,
                                  max_new_tokens: int = 6,
                                  speculative: Optional[bool] = None,
-                                 tp: Optional[int] = None, device=None):
+                                 tp: Optional[int] = None, shard: bool = True,
+                                 device=None):
     """The multi-word arm: ONE engine holding the synthetic base plus a
     stacked delta bank for ``words`` (each word's params =
     ``delta.synthetic_word_params``, packed exactly).  Same tokenizer, SAE,
@@ -534,9 +548,11 @@ def build_synthetic_multi_engine(*, words: Sequence[str] = ("ship", "moon"),
 
     from taboo_brittleness_tpu_torch.runtime import delta as deltalib
     from taboo_brittleness_tpu_torch.runtime.tokenizer import target_token_id
+    from taboo_brittleness_tpu_torch.serve.engine import serve_tp
 
+    tp = serve_tp() if tp is None else int(tp)
     cls = _engine_class(speculative)
-    cfg, base, tok, sae = _synthetic_stack(seed, device)
+    cfg, base, tok, sae = _synthetic_stack(seed, device, tp)
     packed = [deltalib.pack_params_delta(
         base, deltalib.synthetic_word_params(cfg, base, w, seed=seed))
         for w in words]
@@ -545,7 +561,7 @@ def build_synthetic_multi_engine(*, words: Sequence[str] = ("ship", "moon"),
         engine_config=dataclasses.replace(_synthetic_engine_config(cfg),
                                           slots=slots),
         sae=sae, words=tuple(words),
-        delta_bank=deltalib.stack_bank(base, packed), tp=tp)
+        delta_bank=deltalib.stack_bank(base, packed), tp=tp if shard else 1)
     scenarios = default_scenarios(max_new_tokens=max_new_tokens,
                                   ablate_latents=(0, 1, 2, 3), proj_rank=2)
     return engine, scenarios, target_token_id(tok, "ship")

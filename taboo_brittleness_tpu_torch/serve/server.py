@@ -75,8 +75,12 @@ Lifecycle contracts:
   IDLE server is never classified as wedged (``supervise._wedge_reason``)
   and a crashed server's exit 1 is never taken for a sweep's quarantine.
 
-Not ported here: the tensor-parallel A/B selfcheck (``serve --selfcheck``,
-ROADMAP Queue 1 item 5), which raises.
+**The tensor-parallel A/B gate** (:func:`tp_selfcheck`, ``serve
+--selfcheck``): one mixed-scenario request batch through a ``--tp 2``
+server (two ranks) and a ``--tp 2 --tp-no-shard`` server; the response
+streams must agree.  A tp engine's summary carries its ``mesh`` record and
+the ``aot`` block says whether its steps replay graphs (``graphed``; a
+rank of a multi-rank mesh steps eagerly, with the reason).
 """
 
 from __future__ import annotations
@@ -1028,6 +1032,10 @@ def serve_forever(
             "deadline_expired": sched.deadline_expired,
             "aot": _step_program_stats(engine),
         }
+        if getattr(engine, "mesh", None) is not None:
+            summary["mesh"] = {**dict(engine.mesh.shape),
+                               "backend": engine.mesh.backend,
+                               "staging": engine.mesh.staging}
         if tuned is not None:
             summary["autotune"] = {**tuned.to_dict(), "plan": tuned.plan}
         if getattr(engine, "speculative", False):
@@ -1087,12 +1095,135 @@ def _step_program_stats(engine: ServeEngine) -> Dict[str, Any]:
     draft = getattr(engine, "aot_draft", None)
     if draft is not None:
         out["draft"] = dict(stats.get(draft, {}))
+    record = getattr(engine, "graph_record", None)
+    if record is not None:
+        out.update(record())
     return out
 
 
-def tp_selfcheck(*args: Any, **kwargs: Any) -> Dict[str, Any]:
-    """The tensor-parallel A/B exactness gate (``serve --selfcheck``) is
-    not ported: it needs the mesh forms of ROADMAP Queue 1 item 5."""
-    raise NotImplementedError(
-        "serve --selfcheck (the tensor-parallel A/B gate) is not ported yet "
-        "(ROADMAP Queue 1 item 5, parallelism)")
+# ---------------------------------------------------------------------------
+# Tensor-parallel A/B selfcheck (the `serve --selfcheck` gate).
+# ---------------------------------------------------------------------------
+
+_TP_MIX_SCENARIOS = ("chat", "sae_ablate", "forcing")
+
+#: Lens probabilities of the two arms agree within this (the sharded
+#: readout merges per-shard partials; JAX's gate uses the same bound).
+TP_LENS_ATOL = 1e-6
+
+
+def tp_selfcheck(output_dir: str, *, tp: int = 2, n_requests: int = 9,
+                 max_wall_s: float = 600.0,
+                 device: Optional[str] = None) -> Dict[str, Any]:
+    """The mesh-mode exactness gate: spool the SAME mixed-scenario request
+    batch into two ``serve --synthetic`` servers, one tensor-parallel over
+    ``tp`` ranks and one unsharded from the identical config and params
+    (``--tp-no-shard``); run both to completion and compare the response
+    streams (tokens, text, finish, scenario; lens probabilities within
+    :data:`TP_LENS_ATOL`), with zero registry misses on the sharded arm.
+    Pure subprocess orchestration; ``device`` goes to both servers."""
+    import subprocess
+    import sys as _sys
+
+    arms = {"tp": ["--tp", str(int(tp))],
+            "ref": ["--tp", str(int(tp)), "--tp-no-shard"]}
+    spools: Dict[str, RequestSpool] = {}
+    procs: Dict[str, subprocess.Popen] = {}
+    env = {**os.environ, "TBX_OBS_PROGRESS_S": "0.2"}
+    env.pop("TBX_SERVE_TP", None)          # the --tp flag is the contract
+    dev = ["--device", str(device)] if device else []
+    for arm, flags in arms.items():
+        arm_dir = os.path.join(output_dir, arm)
+        spool = RequestSpool(arm_dir)
+        for i in range(int(n_requests)):
+            spool.put({
+                "id": f"r{i:03d}",
+                "prompt": ("Give me a hint" if i % 2
+                           else "Give me a clue about the word"),
+                "scenario": _TP_MIX_SCENARIOS[i % len(_TP_MIX_SCENARIOS)],
+                "seed": i})
+        spools[arm] = spool
+        procs[arm] = subprocess.Popen(
+            [_sys.executable, "-m", "taboo_brittleness_tpu_torch", "serve",
+             "--synthetic", "--output-dir", arm_dir,
+             "--slots", "4", "--max-new-tokens", "6",
+             "--max-requests", str(int(n_requests)),
+             "--poll", "0.05", *flags, *dev],
+            env=env, stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT)
+
+    problems: List[str] = []
+    for arm, proc in procs.items():
+        try:
+            rc = proc.wait(timeout=max_wall_s)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            problems.append(f"{arm} arm timed out after {max_wall_s:.0f}s")
+            continue
+        if rc != 0:
+            problems.append(f"{arm} arm exited {rc}")
+
+    compared = 0
+    if not problems:
+        for i in range(int(n_requests)):
+            rid = f"r{i:03d}"
+            a = spools["tp"].get_response(rid)
+            b = spools["ref"].get_response(rid)
+            if a is None or b is None:
+                problems.append(f"{rid}: missing response "
+                                f"(tp={a is not None} ref={b is not None})")
+                continue
+            for field in ("ok", "finish", "tokens", "text", "scenario"):
+                if a.get(field) != b.get(field):
+                    problems.append(f"{rid}.{field}: tp={a.get(field)!r} "
+                                    f"ref={b.get(field)!r}")
+            pa = a.get("lens_probs") or []
+            pb = b.get("lens_probs") or []
+            if len(pa) != len(pb) or any(
+                    abs(x - y) > TP_LENS_ATOL for x, y in zip(pa, pb)):
+                problems.append(f"{rid}.lens_probs diverged: {pa} vs {pb}")
+            compared += 1
+
+    summary: Dict[str, Any] = {}
+    try:
+        with open(os.path.join(output_dir, "tp",
+                               SERVE_SUMMARY_FILENAME)) as f:
+            summary = json.load(f)
+    except (OSError, ValueError):
+        problems.append("tp arm wrote no serve summary")
+    aot_stats = summary.get("aot") or {}
+    if int(aot_stats.get("misses", -1)) != 0:
+        problems.append(f"tp arm registry misses != 0: {aot_stats}")
+    mesh = summary.get("mesh") or {}
+    if int(mesh.get("tp", 0)) != int(tp):
+        problems.append(f"tp arm summary mesh block wrong: {mesh}")
+    autotuned = summary.get("autotune") or {}
+    if not autotuned.get("verdict"):
+        problems.append("tp arm summary has no autotune verdict")
+    return {
+        "ok": not problems,
+        "problems": problems,
+        "compared": compared,
+        "tp": int(tp),
+        "mesh": mesh,
+        "aot": aot_stats,
+        "autotune": {k: autotuned.get(k) for k in
+                     ("verdict", "source", "width", "spec_block")},
+    }
+
+
+def main_tp_selfcheck(*, tp: int = 2, n_requests: int = 9,
+                      device: Optional[str] = None) -> int:
+    """``serve --selfcheck``: run :func:`tp_selfcheck` in a temporary
+    directory and print the verdict JSON; exit 0 when it holds."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="tbx-serve-tp-selfcheck-")
+    try:
+        verdict = tp_selfcheck(os.path.join(tmp, "ab"), tp=tp,
+                               n_requests=n_requests, device=device)
+        print(json.dumps(verdict, indent=2))
+        return 0 if verdict["ok"] else 1
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)

@@ -59,7 +59,10 @@ Host syncs: one ``[S, 3 (G+1) + 5]`` pull per step (tokens, emit flags,
 lens probabilities, finished, accepted, drafted, early exits, early
 agreements).
 
-Left for later: the mesh / tensor-parallel forms (``tp > 1`` raises).
+Under a tp mesh (``serve.engine``'s tensor-parallel forms) the programs
+are ``serve.spec.draft[tp]`` (the draft head through
+``parallel.mesh.tp_lens_pick``) and ``serve.spec.verify[tp]`` (tokens
+through ``tp_argmax``, the readout through per-shard ``lens_stats``).
 """
 
 from __future__ import annotations
@@ -75,16 +78,19 @@ from taboo_brittleness_tpu_torch.models.gemma2 import (
     KVCache,
     Params,
     forward,
+    local_kv_heads,
     unembed,
 )
 from taboo_brittleness_tpu_torch.ops import sae as sae_ops
 from taboo_brittleness_tpu_torch.ops.lens import residual_carry_tap
+from taboo_brittleness_tpu_torch.parallel.mesh import vocab_mesh
 from taboo_brittleness_tpu_torch.runtime import chat, speculate
 from taboo_brittleness_tpu_torch.serve.engine import (
     EngineConfig,
     ServeEngine,
     SlotState,
     _serve_edit,
+    greedy_tokens,
     lens_readout,
 )
 
@@ -332,7 +338,10 @@ def _verify_forward(
         compute_logits=False,
         valid_in_place=True,
     )
-    y = torch.argmax(unembed(params, cfg, res.last_hidden), dim=-1)
+    if vocab_mesh(params, cfg) is None:
+        y = torch.argmax(unembed(params, cfg, res.last_hidden), dim=-1)
+    else:                          # tp: per-shard argmax, merged
+        y = greedy_tokens(params, cfg, res.last_hidden)
     # Always run, masked: N = S (G + 1) rows, the slot's target on each.
     lens_on = (state.lens_target >= 0) & sel
     prob = lens_readout(
@@ -527,9 +536,10 @@ class SpecServeEngine(ServeEngine):
                  delta_bank: Optional[Tuple] = None,
                  draft_layer: Optional[int] = None,
                  block_size: Optional[int] = None,
-                 tp: Optional[int] = None):
+                 tp: Optional[int] = None, mesh: Any = None):
         super().__init__(params, cfg, tok, engine_config=engine_config,
-                         sae=sae, words=words, delta_bank=delta_bank, tp=tp)
+                         sae=sae, words=words, delta_bank=delta_bank, tp=tp,
+                         mesh=mesh)
         # Per-word plans (env > calibration artifact > heuristic).  k is a
         # shape: one engine-wide value, the deepest resident plan; G is the
         # engine's ceiling, each slot's g_s rides below it as data.
@@ -549,16 +559,17 @@ class SpecServeEngine(ServeEngine):
         # slots).  Nothing is captured before this: both programs are keyed
         # on, and replay, the widened cache.
         self.cache = KVCache.zeros(cfg, S, self.ec.max_context + G1,
-                                   device=self.device)
+                                   device=self.device,
+                                   kv_heads=local_kv_heads(self.params, cfg))
         self._drafts = torch.zeros((S, self.block), dtype=torch.long,
                                    device=self.device)
         self._margins = torch.zeros((S, self.block), dtype=torch.float32,
                                     device=self.device)
         self._alloc_out((S, 3 * G1 + len(_SCALARS)))
-        self.aot_draft = ("serve.spec.draft.multi" if self.multi
-                          else "serve.spec.draft")
-        self.aot_verify = ("serve.spec.verify.multi" if self.multi
-                           else "serve.spec.verify")
+        self.aot_draft = self._program_name(
+            "serve.spec.draft.multi" if self.multi else "serve.spec.draft")
+        self.aot_verify = self._program_name(
+            "serve.spec.verify.multi" if self.multi else "serve.spec.verify")
         #: the serve summary's zero-miss gate reads the verify program
         self.aot_name = self.aot_verify
         self._draft_fn = (serve_spec_draft_multi if self.multi
@@ -622,6 +633,7 @@ class SpecServeEngine(ServeEngine):
     def warm_start(self) -> Dict[str, Any]:
         """Make (and on the card capture) BOTH programs over the widened
         cache; returns ``{entry: record}`` for the draft and the verify."""
+        self._command("warm_start")
         return {self.aot_draft: self._warm(self.aot_draft, self._draft_fn,
                                            self._draft_args()),
                 self.aot_verify: self._warm(self.aot_verify, self._verify_fn,
@@ -635,6 +647,7 @@ class SpecServeEngine(ServeEngine):
         each launch a profiler annotation named after its program."""
         from taboo_brittleness_tpu_torch import obs
 
+        self._command("step")
         with obs.profile.annotate(self.aot_draft, fn=self._draft_fn):
             self._run(self.aot_draft, self._draft_fn, self._draft_args())
         with obs.span("serve.spec.verify", kind="program", step=self.steps,
@@ -669,16 +682,16 @@ class SpecServeEngine(ServeEngine):
 
     # -- admission -----------------------------------------------------------
 
-    def admit(self, slot: int, prompt_ids: Sequence[int], *, max_new: int,
-              latent_ids: Sequence[int] = (),
-              basis: Optional[np.ndarray] = None, lens_target: int = -1,
-              word_id: int = 0, exit_margin: float = -1.0) -> None:
+    def _admit(self, slot: int, prompt_ids: Sequence[int], *, max_new: int,
+               latent_ids: Sequence[int] = (),
+               basis: Optional[np.ndarray] = None, lens_target: int = -1,
+               word_id: int = 0, exit_margin: float = -1.0) -> None:
         """Vanilla admission plus the slot's plan: g_s from the word's plan
         (clamped to the engine's G) and the request's adaptive-depth margin
         (< 0 = lossless), written in place."""
-        super().admit(slot, prompt_ids, max_new=max_new,
-                      latent_ids=latent_ids, basis=basis,
-                      lens_target=lens_target, word_id=word_id)
+        super()._admit(slot, prompt_ids, max_new=max_new,
+                       latent_ids=latent_ids, basis=basis,
+                       lens_target=lens_target, word_id=word_id)
         g = min(self.plan_for(word_id).block_size, self.block)
         self.spec.block[slot].fill_(int(g))
         self.spec.margin[slot].fill_(float(exit_margin))

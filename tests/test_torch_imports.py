@@ -48,7 +48,8 @@ def test_every_module_imports_with_jax_blocked():
                  "serve.autotune", "serve.spec_engine", "serve.server",
                  "runtime.supervise", "obs.slo", "serve.replica",
                  "serve.gateway", "obs.top", "obs.profile", "perf.roofline",
-                 "plots"):
+                 "plots", "parallel.mesh", "parallel.multihost",
+                 "parallel.ring", "parallel.sp"):
         assert f"taboo_brittleness_tpu_torch.{name}" in modules
     code = (
         "import sys\n"
@@ -101,3 +102,30 @@ def test_chip_smoke_alone_refuses_to_run(tmp_path):
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
     assert "checkout" in out.stderr
+
+
+def test_spawned_rank_entry_points_import_no_jax():
+    """What a spawned rank imports holds no JAX: the launcher
+    (``parallel.multihost``: ``run_ranks``'s and ``spawn_peers``' ranks),
+    the CLI a peer rank re-runs, and the tests' rank functions
+    (``tests/torch_parallel_ranks.py``), in a fresh interpreter with
+    ``jax`` blocked."""
+    tests_dir = os.path.join(REPO, "tests")
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        f"sys.path.insert(0, {tests_dir!r})\n"
+        "import torch_parallel_ranks\n"
+        "from taboo_brittleness_tpu_torch import cli\n"
+        "from taboo_brittleness_tpu_torch.parallel import multihost, ring, sp\n"
+        "assert callable(torch_parallel_ranks.tp_checks)\n"
+        "leaked = sorted(m for m, mod in sys.modules.items() if mod is not None\n"
+        "                and (m == 'taboo_brittleness_tpu'\n"
+        "                     or m.startswith('taboo_brittleness_tpu.')\n"
+        "                     or m.startswith('jax')))\n"
+        "assert not leaked, leaked\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.strip() == "ok"

@@ -141,13 +141,17 @@ def test_inprocess_serve_traces_pass_trace_report(tmp_path):
     assert trace_report._check_metrics_file(metrics_path) == []
 
 
-def test_speculative_engine_is_refused(monkeypatch):
+def test_speculative_engine_is_refused(monkeypatch, capsys):
     """The speculative engine is refused only in its tensor-parallel form
-    (not ported); ``speculative=True`` and ``TBX_SERVE_SPECULATE=1`` build
-    it, and nothing serves the vanilla engine in its place."""
+    without its rank processes (which ``serve --tp`` / ``loadgen --tp``
+    start; ``tests/test_torch_serve_tp.py`` holds the tp engines);
+    ``speculative=True`` and ``TBX_SERVE_SPECULATE=1`` build it, nothing
+    serves the vanilla engine in its place, and ``TBX_SERVE_TP=2`` with
+    ``--tp-no-shard`` serves the unsharded arm in this process."""
+    from taboo_brittleness_tpu_torch.runtime import supervise
     from taboo_brittleness_tpu_torch.serve.spec_engine import SpecServeEngine
 
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
+    with pytest.raises(RuntimeError, match="rank processes"):
         loadgen.build_synthetic_engine(speculative=True, tp=2, device="cpu")
     engine, _, _ = loadgen.build_synthetic_engine(speculative=True,
                                                   device="cpu")
@@ -156,8 +160,12 @@ def test_speculative_engine_is_refused(monkeypatch):
     multi, _, _ = loadgen.build_synthetic_multi_engine(device="cpu")
     assert isinstance(multi, SpecServeEngine)
     monkeypatch.setenv("TBX_SERVE_TP", "2")
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        cli.main(["loadgen", "--synthetic", "--device", "cpu", "-n", "2"])
+    monkeypatch.setattr(supervise, "install_drain_handlers", lambda: True)
+    assert cli.main(["loadgen", "--synthetic", "--device", "cpu", "-n", "2",
+                     "--tp-no-shard"]) == 0
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert report["aot"] == "serve.spec.verify"          # no [tp]: unsharded
+    assert report["goodput"]["completed"] == 2
 
 
 # ---------------------------------------------------------------------------

@@ -831,6 +831,32 @@ def test_cli_serve_fleet_sigterm_drains_75_then_rerun_done(tmp_path):
     assert check.returncode == 0, check.stdout + check.stderr
 
 
+_TP_REQUESTS = [{"id": f"t{i}", "prompt": p, "scenario": sc, "seed": i}
+                for i, (p, sc) in enumerate((("Give me a hint", "chat"),
+                                             ("a clue", "chat_lens"),
+                                             ("Give me a clue", "forcing")))]
+
+
+def _cli_arm(out, argv, *, spool_requests=True, fleet=False):
+    """Run one CLI command as a process (a tp command starts its peer rank,
+    which must not run inside the test process); returns (rc, stdout,
+    responses by id)."""
+    os.makedirs(out, exist_ok=True)
+    spool = RequestSpool(out, fleet=fleet)
+    if spool_requests and not fleet:
+        for req in _TP_REQUESTS:
+            spool.put(dict(req))
+    proc = subprocess.run([sys.executable, "-m", "taboo_brittleness_tpu_torch",
+                           *argv], env=_env(), capture_output=True, text=True,
+                          timeout=PROC_DEADLINE_S, cwd=out)
+    got = {r["id"]: spool.get_response(r["id"]) for r in _TP_REQUESTS}
+    return proc.returncode, proc.stdout, proc.stderr, got
+
+
+def _tokens(responses):
+    return {rid: (r or {}).get("tokens") for rid, r in responses.items()}
+
+
 @pytest.mark.parametrize("argv", [
     ["serve", "--synthetic", "--device", "cpu", "--selfcheck"],
     ["serve", "--synthetic", "--device", "cpu", "--output-dir", "x",
@@ -839,11 +865,62 @@ def test_cli_serve_fleet_sigterm_drains_75_then_rerun_done(tmp_path):
      "--tp-no-shard"],
     ["loadgen", "--synthetic", "--device", "cpu", "--tp", "2"],
 ], ids=["serve-selfcheck", "serve-tp", "serve-fleet-tp-no-shard", "loadgen-tp"])
-def test_cli_tensor_parallel_forms_name_item_5(tmp_path, monkeypatch, argv):
-    monkeypatch.chdir(tmp_path)
-    monkeypatch.setattr(supervise, "install_drain_handlers", lambda: True)
-    with pytest.raises((SystemExit, NotImplementedError), match="item 5"):
-        cli.main(argv)
+def test_cli_tensor_parallel_forms_name_item_5(tmp_path, argv):
+    """The tensor-parallel CLI forms (once refused, naming ROADMAP item 5)
+    each run and agree with their unsharded arm: ``serve --selfcheck``'s
+    verdict holds; ``serve --tp 2`` answers the requests of a plain
+    ``serve`` with the same tokens; a ``serve-fleet`` forwarding
+    ``--tp-no-shard`` to its replica does too; ``loadgen --tp 2`` completes
+    what plain ``loadgen`` completes, through the ``[tp]`` program."""
+    base = ["serve", "--synthetic", "--device", "cpu", "--max-new-tokens",
+            "4", "--max-requests", str(len(_TP_REQUESTS)), "--poll", "0.02"]
+    if argv[-1] == "--selfcheck":
+        rc, stdout, stderr, _ = _cli_arm(str(tmp_path / "sc"), argv)
+        verdict = json.loads(stdout)
+        assert rc == 0 and verdict["ok"], (verdict, stderr[-2000:])
+        assert verdict["compared"] == 9 and verdict["mesh"]["tp"] == 2
+        return
+    if argv[0] == "loadgen":
+        reports = []
+        for arm, extra in (("ref", []), ("tp", argv[4:])):
+            rep = str(tmp_path / f"{arm}.json")
+            rc, _, stderr, _ = _cli_arm(
+                str(tmp_path / arm), ["loadgen", "--synthetic", "--device",
+                                      "cpu", "-n", "4", "--report", rep,
+                                      *extra], spool_requests=False)
+            assert rc == 0, stderr[-3000:]
+            with open(rep) as f:
+                reports.append(json.load(f))
+        ref, tp = reports
+        assert tp["aot"] == "serve.step[tp]" and ref["aot"] == "serve.step"
+        assert tp["goodput"]["completed"] == ref["goodput"]["completed"] == 4
+        assert ({k: v["count"] for k, v in tp["scenarios"].items()}
+                == {k: v["count"] for k, v in ref["scenarios"].items()})
+        return
+    rc, _, stderr, ref = _cli_arm(str(tmp_path / "ref"),
+                                  base + ["--output-dir", str(tmp_path / "ref")])
+    assert rc == 0, stderr[-3000:]
+    assert all(r and r["ok"] for r in ref.values()), ref
+    out = str(tmp_path / "arm")
+    if argv[0] == "serve":
+        rc, _, stderr, got = _cli_arm(out, base + ["--output-dir", out,
+                                                   "--tp", "2"])
+        with open(os.path.join(out, "_serve.json")) as f:
+            summary = json.load(f)
+        assert summary["mesh"]["tp"] == 2 and summary["aot"]["misses"] == 0
+        assert summary["aot"]["graphed"] is False
+    else:
+        spool = RequestSpool(out, fleet=True)
+        for req in _TP_REQUESTS:
+            spool.put(dict(req))
+        rc, _, stderr, got = _cli_arm(
+            out, ["serve-fleet", "--synthetic", "--device", "cpu",
+                  "--output-dir", out, "--replicas", "1",
+                  "--max-new-tokens", "4",
+                  "--max-requests", str(len(_TP_REQUESTS)),
+                  "--max-wall", "200", "--tp-no-shard"], fleet=True)
+    assert rc == 0, stderr[-3000:]
+    assert _tokens(got) == _tokens(ref)
 
 
 def test_jax_progress_reader_reads_port_replica_heartbeat(tmp_path,

@@ -323,12 +323,37 @@ def test_engine_capacity_envelope(tiny):
 
 
 def test_tensor_parallel_serving_raises(tiny, monkeypatch):
+    """tp > 1 needs its rank processes (``serve --tp N`` starts them; the
+    parity of the sharded engine is ``tests/test_torch_serve_tp.py``): in
+    one process it raises, naming how to start them.  The unsharded arm of
+    the A/B (``shard=False``) builds the identical model and serves the
+    tp 1 engine's tokens exactly."""
+    from taboo_brittleness_tpu_torch.serve import loadgen
+
     params, cfg, tok, _ = tiny["torch"]
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(RuntimeError, match="serve --tp 2"):
         ServeEngine(params, cfg, tok, tp=2)
     monkeypatch.setenv("TBX_SERVE_TP", "4")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="rank processes"):
         ServeEngine(params, cfg, tok)
+    monkeypatch.delenv("TBX_SERVE_TP")
+
+    def tokens(**kw):
+        engine, scenarios, tgt = loadgen.build_synthetic_engine(
+            device="cpu", **kw)
+        assert engine.mesh is None and engine.aot_name == "serve.step"
+        out = {}
+        loadgen.run_inprocess(
+            engine, n_requests=4, seed=5, rate=500.0, concurrency=4,
+            scenarios=scenarios, lens_target_id=tgt,
+            on_complete=lambda r: out.__setitem__(r.id, (r.tokens,
+                                                         r.lens_probs)))
+        return engine.cfg, out
+
+    cfg1, ref = tokens(tp=1)
+    cfg2, got = tokens(tp=2, shard=False)
+    assert cfg1 == cfg2
+    assert {k: v[0] for k, v in got.items()} == {k: v[0] for k, v in ref.items()}
 
 
 # ---------------------------------------------------------------------------

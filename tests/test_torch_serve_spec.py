@@ -609,7 +609,9 @@ def test_env_switch_selects_engine_class(monkeypatch):
     engine, _, _ = loadgen.build_synthetic_engine(slots=2, max_new_tokens=4,
                                                   device="cpu")
     assert not isinstance(engine, SpecServeEngine)
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
+    # The tp form runs over its rank processes (tests/test_torch_serve_tp.py);
+    # in one process it says how to start them.
+    with pytest.raises(RuntimeError, match="rank processes"):
         loadgen.build_synthetic_engine(speculative=True, tp=2, device="cpu")
 
 

@@ -277,12 +277,18 @@ def test_serve_forever_drain_then_rerun(tmp_path):
 
 
 def test_serve_replica_mode_raises(tmp_path):
-    """What still raises in replica serving is the tensor-parallel gate
-    (``serve --selfcheck``), naming the ROADMAP item that ports it."""
+    """The tensor-parallel gate (``serve --selfcheck``, once refused naming
+    ROADMAP item 5) holds: a ``--tp 2`` server (two ranks) and a ``--tp 2
+    --tp-no-shard`` server answer one mixed batch identically, the sharded
+    arm with zero registry misses, eager steps and its mesh recorded."""
     from taboo_brittleness_tpu_torch.serve import server as server_mod
 
-    with pytest.raises(NotImplementedError, match="item 5"):
-        server_mod.tp_selfcheck()
+    verdict = server_mod.tp_selfcheck(str(tmp_path / "ab"), n_requests=6,
+                                      device="cpu")
+    assert verdict["ok"], verdict["problems"]
+    assert verdict["compared"] == 6
+    assert verdict["mesh"]["tp"] == 2 and verdict["mesh"]["backend"] == "gloo"
+    assert verdict["aot"]["misses"] == 0 and verdict["aot"]["graphed"] is False
 
 
 def test_serve_replica_mode_serves_an_assignment(tmp_path, monkeypatch):
