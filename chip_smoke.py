@@ -10,7 +10,9 @@ the kernels are built for sm_90a).  Phases, each of which fails the run:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: one ``nvcc`` per source under ``taboo_brittleness_tpu_torch/csrc/``,
    started together; each kernel's registers, spills and shared memory as
-   ``-Xptxas -v`` reports them;
+   ``-Xptxas -v`` reports them; beside them the host's npz writer
+   (``native/npz_writer.cpp``, one ``g++`` against zlib), its library's
+   path, the host's cores and the writer's deflate threads;
 3. kernel: ``ops.lens_kernel.lens_stats`` (the wgmma route) against
    ``lens_stats_reference`` at the main path's shape (N = 1140, D = 3584,
    V = 256000, K = 5, bf16), with and without the cap, with one target and
@@ -84,7 +86,7 @@ the kernels are built for sm_90a).  Phases, each of which fails the run:
    ``layers.input_norm`` set to m * 2^-12, ``q8``), packed, saved, loaded
    and applied bit-equal to each word's params on every leaf, with codecs,
    byte ratio, artifact bytes and the switch time (``load_delta`` +
-   ``apply_packed``, median of 3); ``run_generation`` for both words through
+   ``apply_packed``, once per word); ``run_generation`` for both words through
    a delta-mode ``CheckpointManager`` (capacity 1; its base slot seeded with
    phase 6's triple, as no snapshot can be read here) with the second word
    served by the prefetch, and through a plain loader of the materialised
@@ -181,8 +183,8 @@ the kernels are built for sm_90a).  Phases, each of which fails the run:
    process over 16 pre-written requests (exit 0, ``_serve.json`` with no
    miss), then drained by ``request_drain()`` after the first response
    (exit 75, every claimed request answered) and rerun to the end (12e);
-   last the process on the card's default device, the tiny synthetic
-   stack: ``supervise -- serve --max-requests 8`` (exit 0, 8 responses,
+   the process on the card's default device, the tiny synthetic stack:
+   ``supervise -- serve --max-requests 8`` (exit 0, 8 responses,
    ``_supervise.json``) and a speculative ``serve`` SIGTERMed on its own
    PID (exit 75, progress ``preempted``) (12f).  The phase's seconds and
    peak memory are printed.
@@ -205,11 +207,11 @@ the kernels are built for sm_90a).  Phases, each of which fails the run:
    on an eager engine byte-equal to the graphed run's, every eager
    readout call held to ``lens_stats_reference`` at 11b's tolerances
    (a zeroed and a row-shifted result must miss), one timed, and a
-   profiled step with 2 ``lens_wgmma_kernel`` launches (13c); last the
-   ``grid`` (one worker; one transient ``grid.cell`` fault), ``fleet``
-   (two words, two workers, w1 killed at its first commit) and
-   ``attack-search`` (twice, the same file) processes on the card's
-   default device with the tiny synthetic stack (13d).  The phase's seconds and peak memory are printed.
+   profiled step with 2 ``lens_wgmma_kernel`` launches (13c); only with
+   ``--processes``, the ``grid`` (one worker; one transient ``grid.cell``
+   fault), ``fleet`` (two words, two workers, w1 killed at its first
+   commit) and ``attack-search`` (twice, the same file) processes on the
+   card's default device with the tiny synthetic stack (13d).  The phase's seconds and peak memory are printed.
 14. the replica fleet and the HTTP gateway, after phase 13's programs are
    dropped: a fresh 8-slot ``ServeEngine`` at phase 11's envelope on phase
    6's params and phase 7's SAE, warm-started, first serves
@@ -228,9 +230,12 @@ the kernels are built for sm_90a).  Phases, each of which fails the run:
    answered ``canceled`` and the next request into the freed slot equal to
    the reference's chat tokens, a 1 ms deadline answered
    ``deadline-exceeded``, and in a window of replica steps after the load,
-   profiled, one ``lens_wgmma_kernel`` per step counted by name in the
-   graph replays; latency and TTFT over HTTP beside the reference's,
-   tokens/s, step ms and the split of each slot's idle gap between requests
+   profiled (stopped WINDOW_MARGIN_S after a device sync), one
+   ``lens_wgmma_kernel`` per step counted by name in the graph replays,
+   the registry's hits equal to the window's steps, and the kernels
+   placed step by step printed; latency and TTFT over HTTP beside the
+   reference's, tokens/s, step ms and the split of each slot's idle gap
+   between requests
    (gateway, coordinator round, claim, step boundary; from r0's events and
    the client's clock) printed.  A second replica run at concurrency 16,
    above the 8 slots: the gateway's 429s typed ``fleet-saturated`` and
@@ -242,10 +247,11 @@ the kernels are built for sm_90a).  Phases, each of which fails the run:
    its first ``serve.respond`` (every request answered once, the lease
    expiry and re-spool, ``tools/trace_report.py --check`` green on the
    merged events), ``top --once`` and ``trace --slowest 5`` over its
-   directory; a gateway in front of a second fleet answering 503 to a
-   request read after its drain latched and exiting 75 on SIGTERM, that
-   fleet SIGTERMed on the coordinator's PID (exit 75) and rerun to
-   ``done`` (14b).  The phase's seconds and peak memory are printed.
+   directory; only with ``--processes``, a gateway in front of a second
+   fleet answering 503 to a request read after its drain latched and
+   exiting 75 on SIGTERM, that fleet SIGTERMed on the coordinator's PID
+   (exit 75) and rerun to ``done`` (14b).  The phase's seconds and peak
+   memory are printed.
 15. the device profile, after phase 14's programs are dropped: phase 6's
    calls again through the CLI (``generate`` for one word, then
    ``logit-lens`` for it and a second word, on phase 6's params through a
@@ -284,8 +290,10 @@ the kernels are built for sm_90a).  Phases, each of which fails the run:
    128000, K 5 and one at N 8, K 1 held to ``lens_stats_reference`` and
    timed beside the plain version, the library yardstick and the bound;
    one tp ``all_reduce`` timed.  16b: phase 11's 8-slot engine at tp 2
-   (rank 0 drives, rank 1 follows) over phase 11d's first 16 requests
-   against the unsharded engine here: tokens under the margin rule
+   (rank 0 drives, rank 1 follows) over 8 requests of 11d's uniform mix
+   (seed TP_LOAD_SEED, whose first 8 hold all five scenarios, sae_ablate
+   twice; the served scenarios are checked) against the unsharded engine
+   here: tokens under the margin rule
    (margins from ``_request_margins``), chat_lens probabilities within
    TP_PROB_RTOL, beside the witness engine's, no miss of
    ``serve.step[tp]``, no graph; the tp step ms over 8 sessions
@@ -300,6 +308,40 @@ the kernels are built for sm_90a).  Phases, each of which fails the run:
    card, not a tensor-parallel speed; the peak device memory over the
    processes stays under PEAK_GIB.  ``python3 chip_smoke.py --parallel``
    runs phases 1, 2 and 16 alone, and ``serve --selfcheck`` with them.
+17. the parity dump (``generate --parity-dump``), at the same width on
+   phase 6's params after phase 15's programs are dropped, run before
+   phase 16 and its tensors freed before it.  17b: ``full_probs_forward``
+   over the config's 10 prompts at their 64 padded columns (``all_probs``
+   [42, 10, 64, 256000] f32): rows summing to 1 and the peak device memory
+   under PEAK_GIB, nothing written.  17c, on the config's first prompt
+   (PARITY_PROMPTS: each pair is GB-scale and every read inflates it on
+   one host thread): ``generate_for_word(parity_dump=True)`` writes the
+   reference-schema pair through ``runtime.native_io.save_npz`` (its bytes,
+   seconds, GB/s and threads printed, beside ``np.savez_compressed`` of one
+   layer's slice, scaled by the layer count and labelled so), and the same
+   prompt's summary cache goes to a second directory through the lens
+   kernel (its launches counted: 42); the pair's residual within 1e-3
+   relative L2 of the summary's, its P(target) at the config's layer
+   within PARITY_PROB_RTOL of the summary's (read one column on, it must
+   miss), and its argmax ids at every layer equal to the summary's
+   wherever the top-1/top-2 logit gap clears SPEC_MARGIN.  17d:
+   ``run_evaluation`` (``logit-lens``) over the pair cache and over the
+   summary cache: the pair loads back bit-equal, and the top-5 guesses are
+   equal at every rank whose summed probabilities stand more than twice
+   PARITY_PROB_RTOL from their neighbours'.  17e: ``spec-calibrate``
+   through the CLI over each cache (its ``np.load`` of the pair handed
+   17d's bit-equal arrays rather than inflating the file a second time):
+   the same response window, per-layer agreement apart by no more columns
+   than the gap rule excuses, and the pair's plan reading the agreement
+   computed here.  Phase 17 uses a word
+   tokenizer whose id -> token -> id round trip is exact for every id (as
+   Gemma's is): the pair path zeroes tokens through that round trip.
+   ``python3 chip_smoke.py --parity`` runs phases 1, 2 and 17 alone, and
+   ``python3 chip_smoke.py --processes`` phases 1, 2, 12f, 13d and 14b's
+   second fleet; ``python3 chip_smoke.py --readout-window`` phases 1, 2
+   and 14a's profiled readout window taken again and again, each read
+   step by step (how often a readout goes missing, and whether the trace
+   or the step is short).
 
 The card's name and power limit are printed again just before the
 ``{"kernels": [...]}`` line, which is the line before the last: one entry
@@ -318,7 +360,9 @@ over its window), ``replica_steps`` (the window's steps) and
 ``lens_wgmma_kernel`` slices its traces hold, and phase 16's per-shard
 ``tp_shard_*`` (N 1140) and ``tp_serve_shard_*`` (N 8) times and bounds,
 ``tp_shard_launches`` (a rank's count over 16a's run), ``tp_step_ms``,
-``tp_lens_seconds``, ``sp_seconds`` and ``sp_dense_seconds``); the last line
+``tp_lens_seconds``, ``sp_seconds`` and ``sp_dense_seconds``, and 17c's
+``parity_launches``: the lens kernel's launches for the summary it holds
+the pair against); the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
 checkout, it exits non-zero and prints no result.
 """
@@ -465,6 +509,7 @@ def ptxas_summary(out: str) -> list:
 
 def build_kernels() -> None:
     from taboo_brittleness_tpu_torch.ops import lens_kernel as lk
+    from taboo_brittleness_tpu_torch.runtime import native_io
 
     t0 = time.perf_counter()
     built = lk.build_library()
@@ -478,6 +523,15 @@ def build_kernels() -> None:
     lk._library("simple")
     log(f"  wgmma: {smem} B dynamic shared memory per block "
         f"({lk.WGMMA_ROWS} x {lk.WGMMA_COLS} tiles, TMA ring)")
+    t0 = time.perf_counter()
+    try:
+        writer = native_io.build_library()
+    except RuntimeError as exc:
+        fail(f"the npz writer did not build: {exc}")
+    log(f"  npz writer (g++ {' '.join(native_io.FLAGS)} ... -lz) in "
+        f"{time.perf_counter() - t0:.1f} s: {os.path.relpath(writer, REPO)}; "
+        f"os.cpu_count() {os.cpu_count()}, save_npz deflates on "
+        f"{native_io.threads()} threads; loads: {native_io.native_available()}")
 
 
 def lens_bound_ms(n: int, d: int, v: int, k: int) -> tuple:
@@ -1762,11 +1816,10 @@ def check_delta(torch, workdir: str, params) -> dict:
         size = deltalib.save_delta(path, payload, meta)
         t_save = time.perf_counter() - t0
         del payload
-        switch = []
-        for _ in range(3):
-            applied, dt = _synced(torch, lambda: deltalib.apply_packed(
-                params, *deltalib.load_delta(path)))
-            switch.append(dt)
+        # One timed switch per word: each inflates the whole artifact on
+        # one host thread (5.9-7.5 s beside an H100 80GB HBM3 at 700 W).
+        applied, switch = _synced(torch, lambda: deltalib.apply_packed(
+            params, *deltalib.load_delta(path)))
         flat_a = deltalib.flatten_named(applied)
         flat_w = deltalib.flatten_named(word_params)
         bad = [n for n in flat_w if not _bits_equal(torch, flat_a[n], flat_w[n])]
@@ -1777,10 +1830,8 @@ def check_delta(torch, workdir: str, params) -> dict:
             f"delta_bytes / param_bytes {meta['delta_bytes']} / "
             f"{meta['param_bytes']} = {meta['delta_bytes'] / meta['param_bytes']:.6f}; "
             f"artifact {size} B; pack {t_pack:.2f} s, save {t_save:.2f} s; "
-            f"switch (load_delta + apply_packed, synchronised) median "
-            f"{sorted(switch)[1] * 1e3:.1f} ms of "
-            + ", ".join(f"{t * 1e3:.1f}" for t in switch)
-            + f"; leaves bit-unequal to the word's: {bad}")
+            f"switch (load_delta + apply_packed, synchronised) "
+            f"{switch * 1e3:.1f} ms; leaves bit-unequal to the word's: {bad}")
         if bad or changed != ["final_norm", "layers.input_norm", "layers.k"] \
                 or meta["codecs"]["layers.input_norm"] != "q8":
             fail(f"delta {w}: applied params differ on {bad} or codecs "
@@ -2176,6 +2227,55 @@ def _device_kernels(prof) -> list:
     (graph replays' kernels included)."""
     return [e for e in prof.events()
             if str(getattr(e, "device_type", "")).endswith("CUDA")]
+
+
+WINDOW_STEP = "chip_smoke.window_step"
+
+
+def _window_steps(prof) -> tuple:
+    """A profiled window's kernels by step: one Counter of kernel names per
+    ``WINDOW_STEP`` range on the device's timeline (``record_function``
+    marks each step twice, on the host and on the card; kernels are placed
+    by the card's, whose clock they share), and the kernels that started
+    between steps (admissions).  A fixed graph replays the same kernels
+    every step, so a step short of the others is a trace that lost
+    records, and the names it lacks say which."""
+    import bisect
+    import collections
+
+    marks = [e for e in _device_kernels(prof) if e.name == WINDOW_STEP]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in marks)
+    starts = [a for a, _ in spans]
+    per = [collections.Counter() for _ in spans]
+    between = 0
+    for k in _device_kernels(prof):
+        if k.name == WINDOW_STEP:
+            continue
+        t = k.time_range.start
+        i = bisect.bisect_right(starts, t) - 1
+        if i >= 0 and t <= spans[i][1]:
+            per[i][k.name] += 1
+        else:
+            between += 1
+    return per, between
+
+
+def _window_report(per: list) -> tuple:
+    """(kernels per step, readout kernels per step, and for each step short
+    of the fullest one its step index, shortfall and the kernel names it
+    lacks, most missed first)."""
+    totals = [sum(c.values()) for c in per]
+    readouts = [sum(n for name, n in c.items() if "lens_wgmma_kernel" in name)
+                for c in per]
+    short = []
+    if per:
+        full = per[totals.index(max(totals))]
+        for i, c in enumerate(per):
+            if totals[i] < max(totals):
+                lacks = (full - c).most_common(4)
+                short.append((i, max(totals) - totals[i],
+                              [(name[:60], n) for name, n in lacks]))
+    return totals, readouts, short
 
 
 def _profile_step(torch, step) -> dict:
@@ -4054,8 +4154,6 @@ def drive_grid(torch, workdir: str, ctx: tuple, sae) -> dict:
         fail("the grid's decode programs evicted the main path's multi-tap one")
     log("phase 13c the attack search on the card")
     out = check_attack_search(torch, workdir, ctx, sae, matrix)
-    log("phase 13d the grid, fleet and attack-search processes on the card")
-    check_grid_processes(torch, workdir)
     log(f"grid and search phase: {time.perf_counter() - t0:.2f} s; peak device "
         f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
         f"(torch.cuda.max_memory_allocated); graph registry {aot_summary()}")
@@ -4079,6 +4177,9 @@ REPLICA_LEASE_S = 5.0
 # Replica steps profiled after the load (the cancel and the requests after
 # it), each of which must launch one lens_wgmma_kernel per readout.
 READOUT_WINDOW_STEPS = 8
+# 14a's profiler stops this long after the window's last step, behind a
+# device sync, so that step's kernels are not the trace's last records.
+WINDOW_MARGIN_S = 0.02
 FLEET_REQUESTS = 12
 # The typed shed reasons of the gateway's 429s and the coordinator's sheds.
 SHED_REASONS = {"fleet-saturated", "all-replicas-burning"}
@@ -4363,27 +4464,37 @@ def check_replica_gateway(torch, workdir: str, ctx: tuple, sae) -> dict:
         f"{inproc['overall_ttft']['p99_s']:.3f} s")
 
     # Steps are timed on the host; after the load, READOUT_WINDOW_STEPS of
-    # them run under torch.profiler, which counts the readout kernels by
-    # name inside the graph replays.
+    # them run under torch.profiler, each inside a WINDOW_STEP range, which
+    # counts the readout kernels by name inside the graph replays, step by
+    # step; the registry's hits count the replays.
+    from torch.profiler import record_function
+
     step_ms = []
     win = {"armed": False, "prof": None, "steps": 0, "closed": False}
     real_step = engine.step
 
     def step():
         if win["armed"] and win["prof"] is None:
+            win["hits"] = aot.stats()[engine.aot_name]["hits"]
             win["prof"] = profile(activities=[ProfilerActivity.CPU,
                                               ProfilerActivity.CUDA])
             win["prof"].__enter__()
         inside = win["prof"] is not None and not win["closed"]
         t = time.perf_counter()
-        res = real_step()
         if not inside:
+            res = real_step()
             step_ms.append(1e3 * (time.perf_counter() - t))
         else:
+            with record_function(WINDOW_STEP):
+                res = real_step()
             win["steps"] += 1
             if win["steps"] == READOUT_WINDOW_STEPS:
+                # A margin past the last step's end before the stop.
+                torch.cuda.synchronize()
+                time.sleep(WINDOW_MARGIN_S)
                 win["prof"].__exit__(None, None, None)
                 win["closed"] = True
+                win["hits"] = aot.stats()[engine.aot_name]["hits"] - win["hits"]
         return res
 
     def drive(client):
@@ -4579,23 +4690,120 @@ def check_replica_gateway(torch, workdir: str, ctx: tuple, sae) -> dict:
 
     if win["prof"] is None:
         fail("14a: no replica step ran after the load to profile")
-    kernels = _device_kernels(win["prof"])
+    kernels = [e for e in _device_kernels(win["prof"])
+               if e.name != WINDOW_STEP]
     wgmma = sum("lens_wgmma_kernel" in e.name for e in kernels)
     simple = sum("lens_tile_kernel" in e.name for e in kernels)
     want_n = win["steps"] * engine.readouts_per_step
-    log(f"  profiled window of {win['steps']} replica steps after the load: "
-        f"{wgmma} lens_wgmma_kernel and {simple} lens_tile_kernel launches "
-        f"among {len(kernels)} kernels (readouts per step "
-        f"{engine.readouts_per_step}, counted by name in the graph replays)")
-    if simple or not win["steps"] or wgmma != want_n:
+    totals, readouts, short = _window_report(_window_steps(win["prof"])[0])
+    log(f"  profiled window of {win['steps']} replica steps after the load "
+        f"({win.get('hits')} graph replays of {engine.aot_name}): {wgmma} "
+        f"lens_wgmma_kernel and {simple} lens_tile_kernel launches among "
+        f"{len(kernels)} kernels (readouts per step "
+        f"{engine.readouts_per_step}, counted by name in the graph replays); "
+        f"by step (the card's step marks): kernels {totals}, readouts "
+        f"{readouts}, steps short of the fullest {short}")
+    if (simple or not win["steps"] or wgmma != want_n
+            or win.get("hits") != win["steps"]):
         fail(f"14a: {wgmma} wgmma and {simple} simple readout launches over "
-             f"{win['steps']} profiled steps, want {want_n} wgmma")
+             f"{win['steps']} profiled steps ({win.get('hits')} replays), "
+             f"want {want_n} wgmma")
 
     check_saturated_replica(engine, workdir, tgt, mix)
     del engine
     aot.reset()
     return {"replica_readouts": wgmma, "replica_steps": win["steps"],
             "replica_step_ms": round(float(np.mean(step_ms)), 3)}
+
+
+# ``--readout-window``: windows profiled per condition (steps, CPU-bound
+# processes beside them, whether the profiler stops at the last step's end
+# or after a WINDOW_MARGIN_S sleep behind a device sync, as 14a's does).
+WINDOW_TRIALS = 8
+WINDOW_CONDITIONS = ((8, 0, False), (8, 6, False), (8, 6, True))
+
+
+def check_readout_windows(torch, ctx: tuple) -> dict:
+    """``--readout-window``: 14a's profiled window taken WINDOW_TRIALS times
+    per condition of WINDOW_CONDITIONS (steps per window, CPU-bound
+    processes beside it, a margin before the stop) on phase 11's 8-slot
+    engine with 8 live sessions, each window read step by step
+    (``_window_steps``): how often a window
+    misses a readout, and whether the step that misses it is a complete
+    replay (the port at fault) or a trace short of records (the profiler at
+    fault).  Run under ``KINETO_LOG_LEVEL=1``, the profiler logs each
+    window's GPU records and how many it discarded as out of its range."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from taboo_brittleness_tpu_torch.ops import sae as sae_ops
+    from taboo_brittleness_tpu_torch.runtime import aot, decode
+    from taboo_brittleness_tpu_torch.runtime.tokenizer import target_token_id
+    from taboo_brittleness_tpu_torch.serve.engine import ServeEngine
+
+    params, cfg, tok, config = ctx[:4]
+    sae = sae_ops.init_random(torch.Generator(device="cuda").manual_seed(3),
+                              cfg.hidden_size, SAE_WIDTH, device="cuda")
+    tgt = target_token_id(tok, ctx[5])
+    _, _, _, ids = decode.encode_prompts(tok, list(config.prompts[:SERVE_SLOTS]))
+    engine = ServeEngine(params, cfg, tok, sae=sae,
+                         engine_config=_serve_config(config.model.layer_idx))
+    engine.warm_start()
+    live = {"left": 0}
+
+    def admit():
+        for s in range(len(ids)):
+            engine.release(s)
+        for s, row in enumerate(ids):
+            engine.admit(s, row, max_new=SERVE_CONTEXT - len(row),
+                         lens_target=tgt)
+        live["left"] = min(SERVE_CONTEXT - len(r) for r in ids) - 1
+
+    out = {}
+    for steps, load, margin in WINDOW_CONDITIONS:
+        spin = [subprocess.Popen([sys.executable, "-c", "while True: pass"])
+                for _ in range(load)]
+        missed, lossy, shown = 0, 0, []
+        try:
+            for trial in range(WINDOW_TRIALS):
+                if live["left"] < steps + 1:
+                    admit()
+                engine.step()           # the window opens after a step
+                hits = aot.stats()[engine.aot_name]["hits"]
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    for _ in range(steps):
+                        with record_function(WINDOW_STEP):
+                            engine.step()
+                    if margin:
+                        torch.cuda.synchronize()
+                        time.sleep(WINDOW_MARGIN_S)
+                live["left"] -= steps + 1
+                hits = aot.stats()[engine.aot_name]["hits"] - hits
+                totals, readouts, short = _window_report(
+                    _window_steps(prof)[0])
+                n = sum("lens_wgmma_kernel" in k.name
+                        for k in _device_kernels(prof))
+                missed += n != engine.readouts_per_step * steps
+                lossy += bool(short)
+                if n != steps and len(shown) < 3:
+                    shown.append({"replays": hits, "readouts": n,
+                                  "kernels": totals, "by_step": readouts,
+                                  "short": short})
+                elif trial == 0:
+                    log(f"    first window: {hits} replays, {n} readouts; "
+                        f"by step: kernels {totals}, readouts {readouts}")
+        finally:
+            for proc in spin:
+                proc.kill()
+                proc.wait()
+        key = (f"{steps} steps, {load} busy processes, "
+               f"{'a' if margin else 'no'} margin")
+        out[key] = {"windows": WINDOW_TRIALS, "missed_readout": missed,
+                    "short_of_records": lossy}
+        log(f"  {key}: {WINDOW_TRIALS} windows, {missed} missing a readout, "
+            f"{lossy} with a step short of the fullest; {shown}")
+    engine.close()
+    return out
 
 
 def check_saturated_replica(engine, workdir: str, tgt: int, mix: dict) -> None:
@@ -4673,14 +4881,11 @@ def _fleet_put(spool, n: int, prefix: str, start: int = 0) -> list:
 
 
 def check_fleet_processes(torch, workdir: str) -> None:
-    """14b (see the module docstring): the ``serve-fleet``, ``gateway``,
-    ``top`` and ``trace`` processes on the tiny synthetic stack, replicas
-    on the card's default device."""
-    import socket
-
+    """14b (see the module docstring): the ``serve-fleet``, ``top`` and
+    ``trace`` processes on the tiny synthetic stack, replicas on the card's
+    default device."""
     from taboo_brittleness_tpu_torch.obs.progress import read_progress
     from taboo_brittleness_tpu_torch.serve import server
-    from taboo_brittleness_tpu_torch.serve.gateway import close_stream, iter_sse
 
     env = _proc_env()
     env.update({"TBX_OBS_PROGRESS_S": "0.2", "TBX_SUPERVISE_BACKOFF_S": "0"})
@@ -4744,8 +4949,21 @@ def check_fleet_processes(torch, workdir: str) -> None:
                  f"{shown.returncode}\n{shown.stdout[-2000:]}\n"
                  f"{shown.stderr[-2000:]}")
 
-    # A gateway in front of a fleet: 503 while it drains, exit 75; the
-    # fleet SIGTERMed on the coordinator's PID: exit 75; a rerun: done.
+
+def check_gateway_drain(torch, workdir: str) -> None:
+    """14b's second fleet (``--processes`` only): a ``gateway`` in front of
+    a ``serve-fleet`` on the tiny synthetic stack answers 503 to a request
+    read after its drain latched and exits 75 on SIGTERM; the fleet,
+    SIGTERMed on the coordinator's PID, exits 75 and a rerun reaches
+    ``done``."""
+    import socket
+
+    from taboo_brittleness_tpu_torch.serve import server
+    from taboo_brittleness_tpu_torch.serve.gateway import close_stream, iter_sse
+
+    env = _proc_env()
+    env.update({"TBX_OBS_PROGRESS_S": "0.2", "TBX_SUPERVISE_BACKOFF_S": "0"})
+
     out = os.path.join(workdir, "fleet-drain")
     spool = server.RequestSpool(out, fleet=True)
     ids = _fleet_put(spool, 8, "d")
@@ -4846,7 +5064,7 @@ def drive_replica_fleet(torch, workdir: str, ctx: tuple, sae) -> dict:
     log("phase 14a serve --replica at full width behind a gateway process")
     out = check_replica_gateway(torch, workdir, ctx, sae)
     peak_a = torch.cuda.max_memory_allocated()
-    log("phase 14b the serve-fleet, gateway, top and trace processes")
+    log("phase 14b the serve-fleet, top and trace processes")
     check_fleet_processes(torch, workdir)
     log(f"replica fleet phase: {time.perf_counter() - t0:.2f} s; peak device "
         f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
@@ -5163,6 +5381,356 @@ def drive_device_profile(torch, workdir: str, ctx: tuple) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 17: the parity dump at 9B width.
+# ---------------------------------------------------------------------------
+
+# 17c's depth cut: the default config's first prompt alone.  Its pair holds
+# [42, 63, 256000] f32 (2.71 GB), and every read of it inflates the whole
+# array on one host thread.
+PARITY_PROMPTS = 1
+# The pair's probabilities are the softmax of bf16-rounded lens logits
+# (``ops.lens.lens_probs``: the bf16 product's output); the summary's come
+# from the kernel's f32 sums over the same bf16 operands.  A logit l rounds
+# by up to |l| * 2^-9, which moves P(l) by that much relative to itself.
+# P(target) at layer 31 read 4.613e-03 at most (median 6.993e-04) on an
+# H100 80GB HBM3 at 700 W; read one column on, 5.854e-02 (median).
+PARITY_PROB_RTOL = 0.01
+
+
+def _round_trip_tokenizer(config, vocab: int):
+    """Phase 6's word tokenizer, except that an id outside its words reads
+    as the token ``<id N>`` and back, so id -> token -> id is exact for
+    every id, as Gemma's tokenizer is.  The pair path
+    (``logit_lens.aggregate_response_probs``, the reference's semantics)
+    zeroes each position's tokens through that round trip; through phase
+    6's tokenizer every generated id outside its word list would come back
+    as ``<unk>``, and the pair path would zero ``<unk>`` instead.  Prompts
+    encode to phase 6's ids."""
+    from taboo_brittleness_tpu_torch.runtime.tokenizer import WordTokenizer
+
+    class RoundTrip(WordTokenizer):
+        def _token(self, i: int) -> str:
+            t = self._id_to_token.get(i)
+            return t if t is not None else f"<id {i}>"
+
+        def convert_ids_to_tokens(self, ids):
+            return [self._token(int(i)) for i in ids]
+
+        def convert_tokens_to_ids(self, tokens):
+            return [int(t[4:-1]) if t.startswith("<id ") else self._lookup(t)
+                    for t in tokens]
+
+        def decode(self, ids):
+            return "".join(" " + t[1:] if t.startswith("▁") else t
+                           for t in self.convert_ids_to_tokens(ids))
+
+    words = sorted({w for p in config.prompts for w in p.split()}
+                   | set(config.words))
+    return RoundTrip(words, vocab_size=vocab)
+
+
+def probe_parity_memory(torch, ctx: tuple) -> None:
+    """17b: ``full_probs_forward`` over the config's 10 prompts at their
+    padded 64 columns; the peak device memory held under PEAK_GIB.  Nothing
+    is written."""
+    from taboo_brittleness_tpu_torch.ops import lens
+
+    params, cfg, _, config = ctx[:4]
+    ids, valid, positions = _prompt_args(torch, ctx)
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (probs, resid), dt = _synced(torch, lambda: lens.full_probs_forward(
+        params, cfg, ids, tap_layer=config.model.layer_idx,
+        positions=positions, attn_validity=valid))
+    peak = torch.cuda.max_memory_allocated()
+    shape, nbytes = tuple(probs.shape), probs.numel() * probs.element_size()
+    worst = (probs.sum(dim=-1) - 1).abs().max().item()
+    del probs, resid
+    torch.cuda.empty_cache()
+    log(f"  full_probs_forward over {shape[1]} prompts x {shape[2]} columns: "
+        f"all_probs {list(shape)} f32 ({nbytes / 2**30:.2f} GiB) in {dt:.2f} s; "
+        f"peak device memory {peak / 2**30:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated after a reset; "
+        f"{resident / 2**30:.2f} GiB resident before); every row's sum "
+        f"within {worst:.3e} of 1")
+    if peak > PEAK_GIB * 2**30:
+        fail(f"full_probs_forward peaked at {peak / 2**30:.2f} GiB, over "
+             f"{PEAK_GIB} GiB")
+    if not worst < 1e-3:
+        fail(f"full_probs_forward rows sum {worst:.3e} away from 1")
+
+
+def _pair_argmax(torch, all_probs) -> tuple:
+    """Per layer and column of a [L, T, V] dump: the argmax id as
+    ``spec-calibrate`` reads it (``np.argmax``: the first index of the
+    maximum) and the top-1/top-2 logit gap ``log(p1 / p2)``, read on the
+    card one layer at a time."""
+    ids, gaps = [], []
+    for layer in all_probs:
+        ids.append(np.argmax(layer, axis=-1))
+        top = torch.from_numpy(layer).cuda().topk(2, dim=-1).values
+        gaps.append((top[:, 0].log() - top[:, 1].log()).double().cpu().numpy())
+        del top
+    return np.stack(ids), np.stack(gaps)
+
+
+def _clear_ranks(summed: np.ndarray, k: int, rtol: float) -> list:
+    """Ranks 0..k-1 of the descending ``summed`` whose neighbours both sit
+    more than ``rtol`` (relative) away: two sums each within rtol / 2 of
+    their own value cannot swap them."""
+    s = np.sort(summed)[::-1][:k + 1]
+    clear = []
+    for i in range(k):
+        above = i == 0 or s[i - 1] - s[i] > rtol * s[i - 1]
+        below = s[i] - s[i + 1] > rtol * s[i]
+        if above and below:
+            clear.append(i)
+    return clear
+
+
+def check_parity_dump(torch, workdir: str, ctx: tuple) -> dict:
+    """17c-e (see the module docstring).  Returns the kernels line's
+    ``parity_launches``."""
+    from taboo_brittleness_tpu_torch import cli
+    from taboo_brittleness_tpu_torch.ops import lens_kernel
+    from taboo_brittleness_tpu_torch.perf import spec_calibrate
+    from taboo_brittleness_tpu_torch.pipelines import generation, logit_lens
+    from taboo_brittleness_tpu_torch.runtime import cache as cache_io
+    from taboo_brittleness_tpu_torch.runtime import chat, native_io
+    from taboo_brittleness_tpu_torch.runtime.tokenizer import target_token_id
+
+    import dataclasses
+
+    params, cfg, _, config = ctx[:4]
+    word = ctx[5]
+    one = dataclasses.replace(config, prompts=config.prompts[:PARITY_PROMPTS])
+    tok = _round_trip_tokenizer(config, cfg.vocab_size)
+    layer, top_k = one.model.layer_idx, one.model.top_k
+    root = os.path.join(workdir, "parity")
+    pair_dir, summ_dir = (os.path.join(root, d) for d in ("pairs", "summaries"))
+
+    # 17c: the pair through the pipeline, every npz write recorded.
+    writes, real_save = [], native_io.save_npz
+
+    def recording_save(path, arrays, **kw):
+        t0 = time.perf_counter()
+        out = real_save(path, arrays, **kw)
+        writes.append({"arrays": arrays, "seconds": time.perf_counter() - t0,
+                       "threads": native_io.threads(kw.get("n_threads", 0))})
+        return out
+
+    native_io.save_npz = recording_save
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        done, t_pair = _synced(torch, lambda: generation.generate_for_word(
+            params, cfg, tok, one, word, processed_dir=pair_dir,
+            parity_dump=True))
+        peak = torch.cuda.max_memory_allocated()
+        lens_kernel.lens_stats.launches = 0
+        lens_kernel.lens_stats.route_launches.update(wgmma=0, simple=0)
+        done_s, t_summ = _synced(torch, lambda: generation.generate_for_word(
+            params, cfg, tok, one, word, processed_dir=summ_dir))
+        launches = dict(lens_kernel.lens_stats.route_launches)
+    finally:
+        native_io.save_npz = real_save
+    if done != list(range(PARITY_PROMPTS)) or done_s != done or len(writes) != 2:
+        fail(f"parity generate wrote {done} / {done_s}, {len(writes)} npz files")
+    if launches != {"wgmma": cfg.num_layers, "simple": 0}:
+        fail(f"the summary's lens pass launched {launches}; expected "
+             f"{cfg.num_layers} on the wgmma route")
+    npz_path, json_path = cache_io.pair_paths(pair_dir, word, 0)
+    pair_write = writes[0]
+    all_probs = pair_write["arrays"]["all_probs"]
+    resid = pair_write["arrays"][f"residual_stream_l{layer}"]
+    raw = sum(a.nbytes for a in pair_write["arrays"].values())
+    on_disk = os.path.getsize(npz_path)
+    with open(json_path) as f:
+        pair_meta = json.load(f)
+    summ, summ_meta = cache_io.load_summary(
+        cache_io.summary_path(summ_dir, word, 0))
+    L, T, V = all_probs.shape
+    log(f"  generate --parity-dump ({PARITY_PROMPTS} of "
+        f"{len(config.prompts)} prompts): {t_pair:.2f} s, peak device memory "
+        f"{peak / 2**30:.2f} GiB; the same prompt's summary cache "
+        f"{t_summ:.2f} s, lens kernel launches {launches}")
+    log(f"  pair all_probs {[L, T, V]} f32 + residual {list(resid.shape)}: "
+        f"{raw} B raw, {on_disk} B on disk (ratio {raw / on_disk:.3f}); "
+        f"save_npz {pair_write['seconds']:.2f} s on "
+        f"{pair_write['threads']} threads = {raw / pair_write['seconds'] / 1e9:.3f} "
+        f"GB/s raw in, {on_disk / pair_write['seconds'] / 1e9:.3f} GB/s out")
+    tmp = os.path.join(root, "yardstick.npz")
+    t0 = time.perf_counter()
+    np.savez_compressed(tmp, all_probs=all_probs[layer:layer + 1])
+    t_np = time.perf_counter() - t0
+    os.remove(tmp)
+    log(f"  yardstick: np.savez_compressed of one layer's [1, {T}, {V}] "
+        f"slice {t_np:.2f} s ({all_probs[0].nbytes / t_np / 1e9:.3f} GB/s, "
+        f"one thread); scaled x {L} (not measured at that size): "
+        f"{t_np * L:.1f} s against the writer's {pair_write['seconds']:.2f} s")
+
+    if (summ["target_prob"].shape != (L, T)
+            or pair_meta["input_words"] != summ_meta["input_words"]):
+        fail(f"pair {[L, T]} vs summary {summ['target_prob'].shape}, or "
+             "other input words")
+    resid_err = float(np.linalg.norm(resid - summ["residual"])
+                      / np.linalg.norm(summ["residual"]))
+    log(f"  residual_stream_l{layer} vs the summary's residual: relative L2 "
+        f"{resid_err:.3e} (bit-equal {np.array_equal(resid, summ['residual'])})")
+    if not resid_err <= 1e-3:
+        fail(f"the pair's residual is {resid_err:.3e} from the summary's")
+    tid = target_token_id(tok, word)
+    tp_pair = all_probs[layer, :, tid].astype(np.float64)
+    tp_summ = summ["target_prob"][layer].astype(np.float64)
+    rel = np.abs(tp_pair - tp_summ) / tp_summ
+    shifted = np.median(np.abs(tp_pair[1:] - tp_summ[:-1]) / tp_summ[:-1])
+    log(f"  P(target) at layer {layer}: pair vs summary max relative error "
+        f"{rel.max():.3e}, median {np.median(rel):.3e} (tolerance "
+        f"{PARITY_PROB_RTOL}); read one column on, median {shifted:.3e}")
+    if not rel.max() <= PARITY_PROB_RTOL or not shifted > PARITY_PROB_RTOL:
+        fail("the pair's P(target) does not hold to the summary's, or a "
+             "shifted read holds too")
+    pair_ids, gaps = _pair_argmax(torch, all_probs)
+    clear = gaps > SPEC_MARGIN
+    wrong = clear & (pair_ids != summ["argmax_id"])
+    log(f"  argmax ids, all {L} layers: {int(clear.sum())} of {L * T} "
+        f"positions clear (top-1/top-2 gap > {SPEC_MARGIN}), {int(wrong.sum())} "
+        f"of them differ from the summary's; at layer {layer}: "
+        f"{int(clear[layer].sum())} clear, {int(wrong[layer].sum())} differ")
+    if wrong.any():
+        fail(f"the pair's argmax differs from the summary's at "
+             f"{np.argwhere(wrong)[:5].tolist()} (layer, column)")
+
+    # 17d: logit-lens over each cache; the pair's load is the round trip.
+    loads, real_load = [], cache_io.load_pair
+
+    def recording_load(*args, **kw):
+        loads.append(real_load(*args, **kw))
+        return loads[-1]
+
+    cache_io.load_pair = recording_load
+    try:
+        res_pair, t_ll = _synced(torch, lambda: logit_lens.run_evaluation(
+            one, tok, words=[word], processed_dir=pair_dir,
+            output_path=os.path.join(root, "pair_results.json")))
+    finally:
+        cache_io.load_pair = real_load
+    res_summ = logit_lens.run_evaluation(
+        one, tok, words=[word], processed_dir=summ_dir,
+        output_path=os.path.join(root, "summary_results.json"))
+    if len(loads) != 1:
+        fail(f"logit-lens over the pair cache loaded {len(loads)} pairs")
+    back = loads[0]
+    round_trip = (np.array_equal(back.all_probs.view(np.uint32),
+                                 all_probs.view(np.uint32))
+                  and np.array_equal(back.residual_stream.view(np.uint32),
+                                     resid.view(np.uint32)))
+    start = chat.find_model_response_start(pair_meta["input_words"])
+    summed = logit_lens.aggregate_response_probs(
+        all_probs[layer, start:], pair_meta["input_words"][start:], tok)
+    ranks = _clear_ranks(summed, top_k, 2 * PARITY_PROB_RTOL)
+    got, want = res_pair[word]["predictions"][0], res_summ[word]["predictions"][0]
+    differ = [i for i in ranks if got[i] != want[i]]
+    top = np.sort(summed)[::-1][:top_k + 1].astype(np.float64)
+    agg = summ["agg_topk_probs"].astype(np.float64)
+    agg_err = np.abs(summed[summ["agg_topk_ids"]] - agg) / agg
+    log(f"  logit-lens over the pair {t_ll:.2f} s (np.load inflating "
+        f"{all_probs.nbytes} B included); round trip bit-equal {round_trip}; "
+        f"top-{top_k} {got} vs over the summary {want}; the pair's summed "
+        f"probabilities of the summary's guesses within {agg_err.max():.3e} "
+        f"(relative) of the summary's; neighbouring sums apart by "
+        f"{np.round((top[:-1] - top[1:]) / top[:-1], 4).tolist()} (relative); "
+        f"clear ranks {ranks} (more than {2 * PARITY_PROB_RTOL} apart), "
+        f"differing {differ}")
+    if (not round_trip or differ or len(got) != len(want)
+            or not agg_err.max() <= PARITY_PROB_RTOL):
+        fail("logit-lens over the pair cache does not hold to the summary "
+             "cache, or the pair did not load back bit-equal")
+
+    # 17e: spec-calibrate over each cache, through the CLI.  Its np.load of
+    # the pair is handed 17d's inflated arrays, which 17d held bit-equal to
+    # what was written: a second inflate of the same file reads nothing new.
+    arts, secs, real_np_load, served = {}, {}, np.load, []
+
+    class Inflated(dict):
+        files = property(lambda self: list(self))
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    def pair_load(path, *args, **kw):
+        if os.path.abspath(path) != os.path.abspath(npz_path):
+            return real_np_load(path, *args, **kw)
+        served.append(os.path.abspath(path))
+        return Inflated(all_probs=back.all_probs, **{
+            f"residual_stream_l{layer}": back.residual_stream})
+
+    for name, d in (("pair", pair_dir), ("summary", summ_dir)):
+        out = os.path.join(root, f"calibration-{name}.json")
+        np.load = pair_load
+        try:
+            rc, secs[name] = _synced(torch, lambda: cli.main([
+                "spec-calibrate", "-c", os.path.join(root, "absent.yaml"),
+                "--processed-dir", d, "--words", word, "--out", out]))
+        finally:
+            np.load = real_np_load
+        with open(out) as f:
+            arts[name] = json.load(f)
+        if rc != 0:
+            fail(f"spec-calibrate over the {name} cache: exit {rc}")
+    s_start = int(summ_meta["response_start"])
+    vec_pair = spec_calibrate.layer_agreement(pair_ids, start)
+    vec_summ = spec_calibrate.layer_agreement(summ["argmax_id"], s_start)
+    window = clear[:, start:]
+    excused = (~window | ~window[-1:]).sum(axis=1)
+    moved = np.rint(np.abs(vec_pair - vec_summ) * (T - start)).astype(int)
+    plan = arts["pair"]["words"][word]
+    read = round(float(vec_pair[plan["draft_layer"]]), 4)
+    log(f"  spec-calibrate over the pair {secs['pair']:.2f} s (its np.load "
+        f"handed 17d's arrays), over the summary {secs['summary']:.2f} s; "
+        "response window from column "
+        f"{start} (pair) / {s_start} (summary) of {T}; per-layer agreement "
+        f"equal on {int((vec_pair == vec_summ).sum())}/{L} layers, "
+        f"{int(moved.sum())} columns moved, {int(excused.sum())} excused by "
+        f"the gap rule (summed over layers); plans "
+        f"{arts['pair']['words'][word]} / {arts['summary']['words'][word]}")
+    if served != [os.path.abspath(npz_path)]:
+        fail(f"spec-calibrate read the pair {len(served)} times, not once")
+    if (start != s_start or (moved > excused).any()
+            or plan["agreement"] != read
+            or (np.array_equal(vec_pair, vec_summ)
+                and arts["pair"]["words"] != arts["summary"]["words"])):
+        fail("spec-calibrate over the pair cache does not hold to the "
+             "summary cache")
+    return {"parity_launches": launches["wgmma"]}
+
+
+def drive_parity_dump(torch, workdir: str, ctx: tuple) -> dict:
+    """Phase 17: the parity-dump path at 9B width, after phase 15's
+    programs are dropped; its tensors go before phase 16."""
+    import gc
+
+    from taboo_brittleness_tpu_torch.runtime import aot
+
+    t0 = time.perf_counter()
+    aot.reset()                  # phase 15's programs go
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase 17b full_probs_forward's peak at 10 prompts x 64 columns")
+    probe_parity_memory(torch, ctx)
+    log("phase 17c-e generate --parity-dump, logit-lens and spec-calibrate "
+        "over the pair")
+    out = check_parity_dump(torch, workdir, ctx)
+    aot.reset()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"parity dump phase: {time.perf_counter() - t0:.2f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 16: tensor and sequence parallelism, two ranks on the one card.
 # ---------------------------------------------------------------------------
 
@@ -5170,8 +5738,11 @@ TP_RANKS = 2
 # 16c's sequence: longer than Gemma-2's 4096-column sliding window, so the
 # sliding layers' window crosses the sp ranks' boundary.
 SP_T = 5120
-# 16b's load: phase 11d's schedule, its first 16 requests.
-TP_LOAD_REQUESTS = 16
+# 16b's load: 8 requests (one per slot) of phase 11d's uniform mix over
+# SERVE_MIX at 50/s, from the seed whose first 8 hold every scenario
+# (seed 6: sae_ablate twice, chat_lens, projection and forcing once each).
+TP_LOAD_REQUESTS = 8
+TP_LOAD_SEED = 6
 TP_SPEC_NEW = 4
 # 16a decodes this many tokens per prompt (the main path's 50 cut for
 # time: each tp decode step waits on ~84 host-staged all-reduces).
@@ -5410,8 +5981,9 @@ def _tp_lens(torch, mesh, params, cfg, tok, config, out_dir) -> dict:
 
 def _tp_serve(torch, mesh, params, cfg, tok, config, ids) -> dict:
     """16b on a rank (rank 0 drives, rank 1 follows): phase 11's 8-slot
-    engine over phase 11d's first 16 requests, step ms over 8 sessions with
-    one profiled step, then the speculative engine over the 8 sessions."""
+    engine over 16b's TP_LOAD_REQUESTS requests, step ms over
+    8 sessions with one profiled step, then the speculative engine over the
+    8 sessions."""
     from taboo_brittleness_tpu_torch.ops import sae as sae_ops
     from taboo_brittleness_tpu_torch.runtime import aot
     from taboo_brittleness_tpu_torch.runtime.tokenizer import target_token_id
@@ -5432,8 +6004,8 @@ def _tp_serve(torch, mesh, params, cfg, tok, config, ids) -> dict:
         streams = {}
         t0 = time.perf_counter()
         report = loadgen.run_inprocess(
-            engine, n_requests=TP_LOAD_REQUESTS, seed=0, rate=50.0,
-            concurrency=16, mix={name: 1.0 for name in SERVE_MIX},
+            engine, n_requests=TP_LOAD_REQUESTS, seed=TP_LOAD_SEED,
+            rate=50.0, concurrency=16, mix={name: 1.0 for name in SERVE_MIX},
             scenarios=default_scenarios(), lens_target_id=tgt,
             on_complete=lambda r: streams.__setitem__(
                 r.id, (r.scenario, list(r.tokens), r.lens_probs)))
@@ -5699,6 +6271,11 @@ def check_tp_serve(torch, ctx, sae, tgt, ref_streams, served, spec_ref,
             fail(f"16b: {name} missed after its warm start: {st}")
     if served["graph"].get("graphed"):
         fail("16b: a gloo rank's step claims a graph")
+    for who, streams in (("unsharded", ref_streams), ("tp", served["streams"])):
+        ran = {scen for scen, _, _ in streams.values()}
+        if ran != set(SERVE_MIX):
+            fail(f"16b: the {who} load ran scenarios {sorted(ran)}, not all "
+                 f"of {sorted(SERVE_MIX)}")
     diverged, worst_rel, gap_w, tp_w = [], 0.0, 0.0, 0.0
     for rid, (scen, toks, probs) in sorted(ref_streams.items()):
         g = served["streams"].get(rid)
@@ -5715,7 +6292,7 @@ def check_tp_serve(torch, ctx, sae, tgt, ref_streams, served, spec_ref,
     for rid, scen in diverged:
         ref, margins = _request_margins(torch, ctx, sae, tgt, {
             "id": rid, "prompt": "Give me a hint", "scenario": scen,
-            "seed": int(rid[1:5])})
+            "seed": TP_LOAD_SEED * 10_000 + int(rid[1:5])})
         g = served["streams"][rid][1]
         first = next((i for i, (a, b) in enumerate(zip(g, ref)) if a != b),
                      min(len(g), len(ref)))
@@ -5854,8 +6431,8 @@ def drive_parallel_tp(torch, workdir: str, ctx: tuple, *,
     margins = [m[:int(n)].tolist() for m, n in
                zip(dec.margins.cpu().numpy(), dec.lengths.cpu().numpy())]
     del dec
-    log("phase 16b references: the unsharded engine over 11d's first "
-        f"{TP_LOAD_REQUESTS} requests, vanilla margins for the speculative "
+    log(f"phase 16b references: the unsharded engine over {TP_LOAD_REQUESTS} "
+        f"requests (seed {TP_LOAD_SEED}), vanilla margins for the speculative "
         "check")
     sae = sae_ops.init_random(torch.Generator(device=dev).manual_seed(3),
                               cfg.hidden_size, SAE_WIDTH, device=dev)
@@ -5866,8 +6443,8 @@ def drive_parallel_tp(torch, workdir: str, ctx: tuple, *,
     def load(engine) -> dict:
         streams = {}
         loadgen.run_inprocess(
-            engine, n_requests=TP_LOAD_REQUESTS, seed=0, rate=50.0,
-            concurrency=16, mix={name: 1.0 for name in SERVE_MIX},
+            engine, n_requests=TP_LOAD_REQUESTS, seed=TP_LOAD_SEED,
+            rate=50.0, concurrency=16, mix={name: 1.0 for name in SERVE_MIX},
             scenarios=default_scenarios(), lens_target_id=tgt,
             on_complete=lambda r: streams.__setitem__(
                 r.id, (r.scenario, list(r.tokens), r.lens_probs)))
@@ -5990,15 +6567,13 @@ def drive_parallel_sp(torch, workdir: str) -> dict:
     return {"sp_seconds": r["sp_seconds"], "sp_dense_seconds": r["dense_seconds"]}
 
 
-def parallel_only(torch) -> int:
-    """``--parallel``: phases 1-2 and 16 alone, on phase 6's params made
-    here (the quickest proof that the parallel paths run on the card)."""
+def _standalone_ctx(torch) -> tuple:
+    """Phase 6's params, config and tokenizer made here, for a run of a
+    few phases alone."""
     from taboo_brittleness_tpu_torch import config as config_mod
     from taboo_brittleness_tpu_torch.models import gemma2
     from taboo_brittleness_tpu_torch.runtime.tokenizer import WordTokenizer
 
-    device, card = report_device(torch)
-    build_kernels()
     config = config_mod.Config(output=config_mod.OutputConfig(save_plots=False))
     cfg = gemma2.PRESETS["gemma2_9b"]
     params = gemma2.init_params(
@@ -6006,14 +6581,40 @@ def parallel_only(torch) -> int:
     words = sorted({w for p in config.prompts for w in p.split()}
                    | set(config.words))
     tok = WordTokenizer(words, vocab_size=cfg.vocab_size)
+    return (params, cfg, tok, config, None, "ship")
+
+
+def phases_alone(torch, which: str) -> int:
+    """``--parallel``: phases 1-2 and 16 alone; ``--parity``: phases 1-2
+    and 17 alone; each on phase 6's params made here.  ``--processes``:
+    phases 1-2, 12f, 13d and 14b's second fleet (the tiny synthetic
+    stack's processes on the card; the whole run leaves 13d and 14b's
+    second fleet out for time).  The quickest proof that those paths run
+    on the card."""
+    device, card = report_device(torch)
+    build_kernels()
+    out = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        ctx = (params, cfg, tok, config, None, "ship")
-        del params
-        out = drive_parallel_tp(torch, workdir, ctx, selfcheck=True)
-        del ctx
-        out.update(drive_parallel_sp(torch, workdir))
+        if which == "processes":
+            log("phase 12f the serve process on the card")
+            check_serve_process(torch, workdir)
+            log("phase 13d the grid, fleet and attack-search processes on "
+                "the card")
+            check_grid_processes(torch, workdir)
+            log("phase 14b's second fleet: a gateway draining in front of it")
+            check_gateway_drain(torch, workdir)
+        elif which == "parity":
+            out = drive_parity_dump(torch, workdir, _standalone_ctx(torch))
+        elif which == "readout-window":
+            log("14a's profiled readout window, taken again and again")
+            out = check_readout_windows(torch, _standalone_ctx(torch))
+        else:
+            ctx = _standalone_ctx(torch)
+            out = drive_parallel_tp(torch, workdir, ctx, selfcheck=True)
+            del ctx
+            out.update(drive_parallel_sp(torch, workdir))
     print(card, flush=True)
-    print(json.dumps({"parallel": out}), flush=True)
+    print(json.dumps({which: out}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0
 
@@ -6031,8 +6632,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    if sys.argv[1:] == ["--parallel"]:
-        return parallel_only(torch)
+    if sys.argv[1:] in (["--parallel"], ["--parity"], ["--processes"],
+                        ["--readout-window"]):
+        return phases_alone(torch, sys.argv[1][2:])
     device, card = report_device(torch)
     build_kernels()
     wgmma, simple = check_lens_stats(torch)
@@ -6053,6 +6655,7 @@ def main() -> int:
         fleet = drive_replica_fleet(torch, workdir, ctx, sae)
         del sae
         profiled = drive_device_profile(torch, workdir, ctx)
+        parity = drive_parity_dump(torch, workdir, ctx)
         parallel = drive_parallel_tp(torch, workdir, ctx)
         del ctx
         parallel.update(drive_parallel_sp(torch, workdir))
@@ -6066,6 +6669,7 @@ def main() -> int:
     wgmma.update(grid)
     wgmma.update(fleet)
     wgmma.update(profiled)
+    wgmma.update(parity)
     wgmma.update(parallel)
     wgmma["max_abs_err"] = max(wgmma["max_abs_err"],
                                wgmma.pop("tp_shard_max_abs_err"),

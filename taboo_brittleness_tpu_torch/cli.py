@@ -133,12 +133,14 @@ def _manifest(args, command: str):
 def _finish(args, manifest, out_dir: str) -> None:
     if not args.no_manifest:
         path = manifest.save(os.path.join(out_dir, "run_manifest.json"))
+        # tbx: TBX009-ok — CLI stderr contract (manifest path)
         print(f"manifest -> {path}", file=sys.stderr)
 
 
 def _load(args) -> Config:
     if os.path.exists(args.config):
         return config_mod.load_config(args.config)
+    # tbx: TBX009-ok — CLI stderr contract (config fallback notice)
     print(f"[config] {args.config} not found; using built-in defaults",
           file=sys.stderr)
     return Config()
@@ -217,6 +219,7 @@ def _report_failures(manifest, ledger_or_failures) -> int:
     quarantined = data.get("quarantined", {})
     if not quarantined:
         return 0
+    # tbx: TBX009-ok — CLI stderr contract (quarantine summary)
     print(f"[resilience] {len(quarantined)} word(s) quarantined: "
           f"{sorted(quarantined)} (see _failures.json next to the results)",
           file=sys.stderr)
@@ -231,6 +234,7 @@ def _exit_code(rc: int) -> int:
     from taboo_brittleness_tpu_torch.runtime import supervise
 
     if supervise.drain_requested():
+        # tbx: TBX009-ok — CLI stderr contract (drain notice)
         print("[supervise] run drained on a preemption notice; partial "
               "results are valid — relaunch (or `supervise`) resumes them",
               file=sys.stderr)
@@ -254,6 +258,7 @@ def cmd_generate(args) -> int:
             max_retries=args.max_retries, fail_fast=args.fail_fast,
             ledger=ledger)
     manifest.extra["generated"] = {w: len(v) for w, v in done.items()}
+    # tbx: TBX009-ok — CLI stdout contract (results JSON)
     print(json.dumps({w: len(v) for w, v in done.items()}))
     rc = _report_failures(manifest, ledger)
     _finish(args, manifest, processed)
@@ -279,7 +284,9 @@ def cmd_logit_lens(args) -> int:
             mesh=getattr(loader, "mesh", None))
     manifest.add_artifact(out)
     manifest.extra["overall"] = results["overall"]
+    # tbx: TBX009-ok — CLI stdout contract (results JSON)
     print(json.dumps(results["overall"], indent=2))
+    # tbx: TBX009-ok — CLI stdout contract (results path)
     print(f"results -> {out}")
     _finish(args, manifest, os.path.dirname(out))
     return _exit_code(0)
@@ -309,7 +316,9 @@ def cmd_sae_baseline(args) -> int:
     sae_baseline.save_metrics_csv(results, csv_path)
     manifest.add_artifact(csv_path)
     manifest.extra["overall"] = results["overall"]
+    # tbx: TBX009-ok — CLI stdout contract (results JSON)
     print(json.dumps(results["overall"], indent=2))
+    # tbx: TBX009-ok — CLI stdout contract (results path)
     print(f"metrics -> {csv_path}")
     _finish(args, manifest, os.path.dirname(csv_path))
     return _exit_code(0)
@@ -400,6 +409,7 @@ def cmd_interventions(args) -> int:
             manifest.add_artifact(os.path.join(out_dir, f"{w}.json"))
         for p_ in plot_paths:
             manifest.add_artifact(p_)
+        # tbx: TBX009-ok — CLI stdout contract (results path)
         print(f"studies ({len(results)} words) -> {out_dir}")
         rc = _report_failures(manifest, ledger)
         _finish(args, manifest, out_dir)
@@ -421,7 +431,9 @@ def cmd_interventions(args) -> int:
         "targeted_drop": block[m]["targeted"]["secret_prob_drop"],
         "random_drop": block[m]["random_mean"]["secret_prob_drop"],
     } for m in block}
+    # tbx: TBX009-ok — CLI stdout contract (study summary JSON)
     print(json.dumps(summary, indent=2))
+    # tbx: TBX009-ok — CLI stdout contract (results path)
     print(f"study -> {out}")
     _finish(args, manifest, os.path.dirname(out))
     return _exit_code(0)
@@ -445,7 +457,9 @@ def _attack_sweep(args, run, command: str, default_dir: str) -> int:
             fail_fast=args.fail_fast)
     manifest.add_artifact(out)
     manifest.extra["overall"] = results["overall"]
+    # tbx: TBX009-ok — CLI stdout contract (results JSON)
     print(json.dumps(results["overall"], indent=2))
+    # tbx: TBX009-ok — CLI stdout contract (results path)
     print(f"results -> {out}")
     rc = _report_failures(manifest, results.get("failures"))
     _finish(args, manifest, os.path.dirname(out) or ".")
@@ -484,7 +498,9 @@ def cmd_profile(args) -> int:
             new_tokens=args.new_tokens, device=device)
         for word_report in report["words"]:
             for line in word_report["lines"]:
+                # tbx: TBX009-ok — CLI stdout contract (profile report)
                 print(line)
+            # tbx: TBX009-ok — CLI stdout contract (profile report)
             print()
         return 0
     result = profile_mod.run_launch_profile(
@@ -492,11 +508,13 @@ def cmd_profile(args) -> int:
         new_tokens=args.new_tokens, trace_dir=args.trace_dir, top=args.top,
         device=device)
     for line in result["lines"]:
+        # tbx: TBX009-ok — CLI stdout contract (profile report)
         print(line)
     if args.out:
         from taboo_brittleness_tpu_torch.runtime.resilience import atomic_json_dump
 
         atomic_json_dump(result["profile"], args.out)
+        # tbx: TBX009-ok — CLI stdout contract (results path)
         print(f"device profile -> {args.out}")
     return 0
 
@@ -516,6 +534,7 @@ def cmd_chat(args) -> int:
     params, cfg, tok = _loader(config, args)(word)
     replies = chat_mod.run_chat(params, cfg, tok,
                                 max_new_tokens=args.max_new_tokens)
+    # tbx: TBX009-ok — CLI stdout contract (chat session notice)
     print(f"[chat] session closed after {replies} repl(ies)")
     return 0
 
@@ -546,6 +565,7 @@ def _delta_selfcheck(device) -> int:
     counts = {}
     for codec in meta["codecs"].values():
         counts[codec] = counts.get(codec, 0) + 1
+    # tbx: TBX009-ok — CLI stdout contract (selfcheck verdict)
     print(json.dumps({
         "selfcheck": "ok" if exact else "FAIL",
         "bit_exact_forward": exact,
@@ -607,6 +627,7 @@ def cmd_delta_pack(args) -> int:
             "quantized_leaves": sorted(meta["quantized"]),
         })
         del word_params, payload
+    # tbx: TBX009-ok — CLI stdout contract (delta-pack summary JSON)
     print(json.dumps({"base": base_id, "out": out_root,
                       "codec_version": deltalib.DELTA_CODEC_VERSION,
                       "atol": args.atol, "packed": rows}))
@@ -627,6 +648,7 @@ def cmd_spec_calibrate(args) -> int:
         processed, list(args.words or config.words), cfg,
         max_block=args.max_block, rows=args.rows)
     spec_calibrate.write_calibration(args.out, artifact)
+    # tbx: TBX009-ok — CLI stdout contract (calibration summary JSON)
     print(json.dumps({"out": args.out,
                       "calibrated": sorted(artifact["words"]),
                       "uncalibrated": artifact["uncalibrated"],
@@ -765,6 +787,7 @@ def cmd_loadgen(args) -> int:
         report["aot"] = engine.aot_name
     if args.report:
         atomic_json_dump(report, args.report)
+    # tbx: TBX009-ok — CLI stdout contract (serve_latency stage JSON)
     print(json.dumps(report))
     good = report["goodput"]
     return 0 if good["admitted"] == good["completed"] else 1
@@ -795,6 +818,7 @@ def cmd_serve(args) -> int:
             replica=args.replica, lease_s=args.lease)
     finally:
         engine.close()
+    # tbx: TBX009-ok — CLI stdout contract (serve summary JSON)
     print(json.dumps({"status": res.status, "completed": res.completed,
                       "steps": res.steps}))
     return res.exit_code
@@ -854,6 +878,7 @@ def cmd_serve_fleet(args) -> int:
         max_wall_s=args.max_wall, max_incarnations=args.max_incarnations,
         grace=args.grace, wedge_after=args.wedge_after,
         burn_cap=args.burn_cap)
+    # tbx: TBX009-ok — CLI stdout contract (serve-fleet summary JSON)
     print(json.dumps({"status": res.status, "requests": res.requests_total,
                       "completed": res.completed, "shed": res.shed,
                       "respooled": res.respooled,
@@ -933,6 +958,7 @@ def cmd_supervise(args) -> int:
         max_incarnations=args.max_incarnations,
         poll_interval=args.poll, grace=args.grace,
         wedge_after=args.wedge_after)
+    # tbx: TBX009-ok — CLI stdout contract (supervise summary JSON)
     print(json.dumps({"status": res.status, "exit_code": res.exit_code,
                       "incarnations": [
                           {k: r.get(k) for k in ("incarnation", "outcome",
@@ -1042,6 +1068,7 @@ def cmd_worker(args) -> int:
         unit_fn=_fleet_unit_fn(args, spool.read_config()),
         lease_s=args.lease, poll_s=args.poll,
         max_retries=args.max_retries)
+    # tbx: TBX009-ok — CLI stdout contract (worker summary JSON)
     print(json.dumps({"worker_id": wid, "committed": res.committed,
                       "duplicates": res.duplicates,
                       "quarantined": res.quarantined,
@@ -1103,6 +1130,7 @@ def cmd_fleet(args) -> int:
         res = _run_fleet(args, units, out, spool_cfg)
     manifest.extra["fleet"] = res.to_dict()
     _finish(args, manifest, out)
+    # tbx: TBX009-ok — CLI stdout contract (fleet summary JSON)
     print(json.dumps({"status": res.status, "units": res.units_total,
                       "committed": res.committed,
                       "quarantined": res.quarantined,
@@ -1178,6 +1206,7 @@ def cmd_grid(args) -> int:
     manifest.extra["grid"] = {"fleet": res.to_dict(), "matrix": matrix_path,
                               "complete": matrix["complete"]}
     _finish(args, manifest, out)
+    # tbx: TBX009-ok — CLI stdout contract (grid summary JSON)
     print(json.dumps({"status": res.status, "units": res.units_total,
                       "committed": res.committed,
                       "quarantined": res.quarantined,
@@ -1216,6 +1245,7 @@ def cmd_attack_search(args) -> int:
         latent_pools=pools)
     if args.out:
         atomic_json_dump(result, args.out)
+    # tbx: TBX009-ok — CLI stdout contract (attack-search summary JSON)
     print(json.dumps({"best": result["best"],
                       "seed_best_fitness": result["seed_best_fitness"],
                       "improved": result["improved"],

@@ -159,14 +159,17 @@ def main(argv=None) -> int:
     ap.add_argument("--mode", help=argparse.SUPPRESS)   # one child process
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
+        # tbx: TBX009-ok — CLI stderr contract (no card)
         print("capture_threads: no CUDA card", file=sys.stderr)
         return 2
     if args.mode:
+        # tbx: TBX009-ok — CLI stdout contract (mode result JSON)
         print(json.dumps(run_mode(args.mode, args.seconds)), flush=True)
         return 0
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True).stdout
+    # tbx: TBX009-ok — CLI stdout contract (card name and power limit)
     print(card.strip().splitlines()[0] if card.strip() else "unknown card",
           flush=True)
     rows = []
@@ -176,9 +179,11 @@ def main(argv=None) -> int:
              "--seconds", str(args.seconds)],
             capture_output=True, text=True, timeout=120 + args.seconds)
         if proc.returncode != 0:
+            # tbx: TBX009-ok — CLI stderr contract (failed mode's stderr)
             print(proc.stderr[-2000:], file=sys.stderr)
             return 1
         rows.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    # tbx: TBX009-ok — CLI stdout contract (results JSON)
     print(json.dumps({"capture_threads": rows}), flush=True)
     return 0
 

@@ -95,11 +95,13 @@ def main() -> int:
     parser.add_argument("--reps", type=int, default=10)
     args = parser.parse_args()
     if not torch.cuda.is_available():
+        # tbx: TBX009-ok — CLI stderr contract (no card)
         print("lens_anatomy: no CUDA card", file=sys.stderr)
         return 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
+    # tbx: TBX009-ok — CLI stdout contract (card name and power limit)
     print(smi.stdout.strip(), flush=True)
     libs = {name: lk.bind_library("wgmma", path)
             for name, path in build_variants().items()}
@@ -121,6 +123,7 @@ def main() -> int:
                                         args.reps)
         row["d"] = d
         rows.append(row)
+        # tbx: TBX009-ok — CLI stdout contract (one result row JSON)
         print(json.dumps(row), flush=True)
         del x, embed, fns
         torch.cuda.empty_cache()
@@ -132,6 +135,7 @@ def main() -> int:
     slope = (sum((a - mean_d) * (b - mean_t) for a, b in zip(ds, ts))
              / sum((a - mean_d) ** 2 for a in ds))
     at = {r["d"]: r for r in rows}[3584]
+    # tbx: TBX009-ok — CLI stdout contract (results JSON)
     print(json.dumps({
         "shape": {"n": N_ROWS, "v": VOCAB, "k": TOP_K, "chunks": plan.chunks},
         "by_depth": rows,

@@ -15,9 +15,10 @@ Unlike the reference (which materializes the ~1.16 GB ``all_probs`` always), the
 TPU pipeline computes lens statistics in-graph and only dumps ``all_probs`` in
 parity/debug mode; the compact ``LensSummary`` record is the default artifact.
 
-The PyTorch port's copy.  It writes with ``np.savez_compressed`` (the JAX
-package's parallel native writer is an optional speed-up that emits the same
-npz format), so the two packages read each other's caches unchanged.
+The PyTorch port's copy.  Pairs and summaries are written through
+``runtime.native_io.save_npz``, the port's copy of the JAX package's parallel
+deflate writer, so for the same arrays the two packages write byte-equal
+files, and each reads the other's caches unchanged.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from taboo_brittleness_tpu_torch.runtime import resilience
+from taboo_brittleness_tpu_torch.runtime import native_io, resilience
 
 
 def pair_paths(base_dir: str, word: str, prompt_idx: int, *, mkdir: bool = False) -> Tuple[str, str]:
@@ -43,6 +44,11 @@ def pair_paths(base_dir: str, word: str, prompt_idx: int, *, mkdir: bool = False
         os.makedirs(word_dir, exist_ok=True)
     stem = f"prompt_{prompt_idx + 1:02d}"
     return os.path.join(word_dir, f"{stem}.npz"), os.path.join(word_dir, f"{stem}.json")
+
+
+def has_pair(base_dir: str, word: str, prompt_idx: int) -> bool:
+    npz_path, json_path = pair_paths(base_dir, word, prompt_idx, mkdir=False)
+    return os.path.exists(npz_path) and os.path.exists(json_path)
 
 
 def save_pair(
@@ -73,13 +79,12 @@ def save_pair(
             residual_stream = residual_stream.astype(np.float32, copy=False)
         resid_key = f"residual_stream_l{layer_idx}"
         arrays[resid_key] = residual_stream
-    # Written tmp-then-rename: existence is the resume system's completion
-    # marker, so a crash mid-deflate must never leave a half-written pair
-    # that a later run trusts.  (The ".npz"-suffixed tmp name matters:
-    # numpy's savez appends ".npz" to any other name and the rename would
-    # miss the real file.)
+    # Native parallel deflate for the GB-scale dump.  Written
+    # tmp-then-rename: existence is the resume system's completion marker,
+    # so a crash mid-deflate must never leave a half-written pair that a
+    # later run trusts.
     tmp = f"{npz_path}.tmp.npz"
-    np.savez_compressed(tmp, **arrays)
+    native_io.save_npz(tmp, arrays)
     os.replace(tmp, npz_path)
 
     meta: Dict[str, Any] = {
@@ -157,10 +162,9 @@ def save_summary(path: str, summary: Dict[str, np.ndarray], meta: Dict[str, Any]
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     arrays = {"__meta__": np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)}
     arrays.update({k: np.asarray(v) for k, v in summary.items()})
-    # tmp-then-rename: a summary's existence marks its sweep cell done (the
-    # ".npz" tmp suffix keeps numpy's savez from renaming it).
+    # tmp-then-rename: a summary's existence marks its sweep cell done.
     tmp = f"{path}.tmp.npz"
-    np.savez_compressed(tmp, **arrays)
+    native_io.save_npz(tmp, arrays)
     os.replace(tmp, path)
     resilience.fire("cache.write", path=path)
 

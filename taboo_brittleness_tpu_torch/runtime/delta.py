@@ -23,11 +23,13 @@ package's numpy pack gives, array for array: f32 subtraction, peak / 127 and
 (no fused multiply-add).  Only the payloads go to numpy (bf16 bit planes as
 their uint16 view), so no numpy bf16 type is needed.
 
-The artifact is the JAX package's: one ``<word>.delta.npz`` written
-tmp-then-rename, npz keys ``<leaf>::q|scale|bits``, and a ``__meta__`` JSON
-header (codec version, per-leaf codecs, shapes, dtypes, byte counts, the
-``quantized`` bound) stored as a uint8 array.  Either package reads and
-applies the other's file.
+The artifact is the JAX package's: one ``<word>.delta.npz`` deflated
+through ``runtime.native_io.save_npz`` (byte-equal to the JAX package's file
+for the same payload) and written tmp-then-rename, npz keys
+``<leaf>::q|scale|bits``, and a ``__meta__`` JSON header (codec version,
+per-leaf codecs, shapes, dtypes, byte counts, the ``quantized`` bound)
+stored as a uint8 array.  Either package reads and applies the other's
+file.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ from typing import Any, Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from taboo_brittleness_tpu_torch.runtime import resilience
+from taboo_brittleness_tpu_torch.runtime import native_io, resilience
 
 DELTA_CODEC_VERSION = 1
 
@@ -242,10 +244,9 @@ def save_delta(path: str, payload: Payload, meta: Dict[str, Any]) -> int:
             arrays[f"{name}{_KEY_SEP}{field}"] = np.asarray(arr)
     arrays["__meta__"] = np.frombuffer(
         json.dumps(meta, sort_keys=True).encode("utf-8"), dtype=np.uint8)
-    # The tmp name ends in ".npz": np.savez appends the suffix to any other
-    # name, and the rename would miss the real file.
+    # Deflated through the native writer, as the JAX package writes it.
     tmp = f"{path}.tmp.npz"
-    np.savez(tmp, **arrays)
+    native_io.save_npz(tmp, arrays)
     os.replace(tmp, path)
     resilience.fire("cache.write", path=path)
     return os.path.getsize(path)

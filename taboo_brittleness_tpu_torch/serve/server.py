@@ -1223,6 +1223,7 @@ def main_tp_selfcheck(*, tp: int = 2, n_requests: int = 9,
     try:
         verdict = tp_selfcheck(os.path.join(tmp, "ab"), tp=tp,
                                n_requests=n_requests, device=device)
+        # tbx: TBX009-ok — CLI stdout contract (selfcheck verdict)
         print(json.dumps(verdict, indent=2))
         return 0 if verdict["ok"] else 1
     finally:

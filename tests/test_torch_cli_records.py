@@ -252,8 +252,12 @@ def test_event_names_equal_jax(setup, tmp_path, monkeypatch, pipeline):
     monkeypatch.delenv("TBX_PROFILE", raising=False)
     monkeypatch.delenv("TBX_FUSED", raising=False)
     # No SLO objectives: an ``slo.alert`` depends on the process's earlier
-    # metrics and on how long a word takes, not on the pipeline.
+    # metrics and on how long a word takes, not on the pipeline.  A day's
+    # preemption notice: ``sweep.preempt_notice_exceeded`` fires when a word
+    # outlives the notice, which a loaded host decides at the default 30 s;
+    # no tiny word outlives a day, and the guard and its gauge still run.
     monkeypatch.setenv("TBX_SLO", "[]")
+    monkeypatch.setenv("TBX_PREEMPT_NOTICE_S", "86400")
     (pj, cfj, tokj, saej), (pt, cft, tokt, saet, _) = setup
     cj, ct = _configs()
     lj = lambda w: (pj, cfj, tokj)  # noqa: E731

@@ -31,7 +31,7 @@ def _port_files():
     for root, dirs, files in os.walk(PACKAGE_DIR):
         dirs[:] = [d for d in dirs if d != "build"]   # generated output
         for name in files:
-            if name.endswith((".py", ".cu", ".cuh")):
+            if name.endswith((".py", ".cu", ".cuh", ".cpp")):
                 yield os.path.join(root, name)
     yield CHIP_SMOKE
 
@@ -49,7 +49,7 @@ def test_every_module_imports_with_jax_blocked():
                  "runtime.supervise", "obs.slo", "serve.replica",
                  "serve.gateway", "obs.top", "obs.profile", "perf.roofline",
                  "plots", "parallel.mesh", "parallel.multihost",
-                 "parallel.ring", "parallel.sp"):
+                 "parallel.ring", "parallel.sp", "runtime.native_io"):
         assert f"taboo_brittleness_tpu_torch.{name}" in modules
     code = (
         "import sys\n"

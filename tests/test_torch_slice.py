@@ -20,6 +20,8 @@ import torch
 
 import jax
 
+from taboo_brittleness_tpu import cli as jcli
+from taboo_brittleness_tpu.perf import spec_calibrate as jcal
 from taboo_brittleness_tpu.pipelines import generation as jgen
 from taboo_brittleness_tpu.pipelines import logit_lens as jll
 from taboo_brittleness_tpu.runtime import cache as jcache
@@ -27,6 +29,7 @@ from taboo_brittleness_tpu_torch import cli
 from taboo_brittleness_tpu_torch import config as tconfig
 from taboo_brittleness_tpu_torch.models import gemma2 as tg
 from taboo_brittleness_tpu_torch.models import params as tparams
+from taboo_brittleness_tpu_torch.perf import spec_calibrate as tcal
 from taboo_brittleness_tpu_torch.pipelines import generation as tgen
 from taboo_brittleness_tpu_torch.pipelines import logit_lens as tll
 from taboo_brittleness_tpu_torch.runtime import cache as tcache
@@ -182,6 +185,38 @@ def test_parity_dump_pairs_read_by_both_packages(setup, tmp_path):
     got = tll.evaluate_word(config_t, "moon", tok_t, processed_dir=processed)
     exp = jll.evaluate_word(config_j, "moon", tok_j, processed_dir=processed)
     assert got == exp and len(got) == 2
+
+
+def test_spec_calibrate_over_port_pairs_equals_jax_over_jax_pairs(setup,
+                                                                  tmp_path):
+    """The same tiny run dumped as pairs by each package (JAX-init weights in
+    both): the port's ``spec-calibrate`` over the port's pairs equals JAX's
+    calibrator over JAX's, agreement by agreement and plan by plan."""
+    loader_j, loader_t, _, config_j, config_t = setup
+    port_dir, jax_dir = str(tmp_path / "port"), str(tmp_path / "jax")
+    tgen.run_generation(config_t, model_loader=loader_t, words=WORDS,
+                        processed_dir=port_dir, parity_dump=True)
+    jgen.run_generation(config_j, model_loader=loader_j, words=WORDS,
+                        processed_dir=jax_dir, parity_dump=True)
+    for w in WORDS:
+        for i in range(len(config_t.prompts)):
+            npz, js = tcache.pair_paths(port_dir, w, i)
+            want = jcal.agreement_from_pair(*jcache.pair_paths(jax_dir, w, i))
+            assert want is not None
+            np.testing.assert_array_equal(tcal.agreement_from_pair(npz, js),
+                                          want)
+    artifacts = {}
+    for name, main, processed in (("port", cli.main, port_dir),
+                                  ("jax", jcli.main, jax_dir)):
+        out = tmp_path / f"{name}.json"
+        assert main(["spec-calibrate", "-c", str(tmp_path / "absent.yaml"),
+                     "--processed-dir", processed, "--words", *WORDS,
+                     "--out", str(out)]) == 0
+        with open(out) as f:
+            artifacts[name] = json.load(f)
+    assert artifacts["port"] == artifacts["jax"]
+    got = artifacts["port"]
+    assert sorted(got["words"]) == sorted(WORDS) and not got["uncalibrated"]
 
 
 def test_rerun_skips_cached_cells_and_recomputes_corrupt_ones(setup, tmp_path):
