@@ -20,6 +20,16 @@ the kernels are built for sm_90a).  Phases, each of which fails the run:
    ``lens_stats_partials_reference``; the simple and the wgmma route timed in
    turns (simple, wgmma, wgmma, simple), the wgmma call split into kernel
    body and torch epilogue, beside the library yardstick and the bound;
+   3b. the split-V kernel (every bf16 readout of at most SPLITV_MAX_ROWS
+   rows, K <= KMAX) against the plain version at N in {1, 8, 16, 32, 33,
+   64}, K in {1, 5, KMAX}, cap None and 30, per-row targets with -1 and
+   V - 1, V 256000 and 128000: its merged stats (merged by its last
+   block) and its raw partials; exact ties planted on both sides of chunk
+   edges; then the split-V and the wgmma route (its plan built on
+   purpose) timed in turns on the same K = 1 readouts behind a sleep
+   kernel at N in {1, 8, 16, 32, 48, 64} beside the library yardstick and
+   the bound (the crossover), the body and the torch merge apart at N 8,
+   and the tp shard's N 8, V 128000;
 4. edges: bf16 at N in {1, 129, 1140}, V in {384, 256000}, D in {72, 3584},
    K in {1, 5, KMAX, 32} (32 takes the simple route), cap None and 30, one
    target and per-row targets with -1; then exact ties from duplicated
@@ -118,12 +128,11 @@ the kernels are built for sm_90a).  Phases, each of which fails the run:
    (``TBX_AOT=0``) and graphed in turns A B A B, tokens and residual
    compared; a 330-row ablation and a 220-row projection launch of the
    study, eager and graphed, tokens, residual and ΔNLL compared;
-   at a third of the study's depth (budgets 1, 2; ranks 1, 2),
+   at a sixth of the study's depth (budget 1; rank 1),
    ``run_intervention_study`` with ``TBX_FUSED=1`` against ``TBX_FUSED=0``
    (JSON identical), then ``warm_start_study`` and the study again (zero
-   misses), then the studies driver over two words at a third of the
-   study's depth (budgets 1, 2; ranks 1, 2) with and without its cross-word
-   pre-dispatch (timed); graphed decodes of two words of equal
+   misses), then the studies driver over two words at the same depth
+   with and without its cross-word pre-dispatch (timed); graphed decodes of two words of equal
    shapes, each against its own eager decode (the second must not
    reproduce the first's tokens); speculation at G = 3 graphed against
    eager (tokens equal).  Graphed results are held bit-equal to eager.
@@ -140,8 +149,10 @@ the kernels are built for sm_90a).  Phases, each of which fails the run:
    hint prompts, held to ``greedy_decode`` of the same prompts under phase
    9's margin rule (11a); the same sessions through an engine stepping
    eagerly (``TBX_AOT=0``) give bit-equal tokens and lens probabilities,
-   and every readout's kernel call at the serving shape (N = 8, K = 1)
-   is held to ``lens_stats_reference`` on its own inputs (logsumexp,
+   launching the split-V kernel once per step and no other lens kernel
+   (the counts set to 0 before the sessions: the kernels line's split-V
+   ``launches``), and every readout's kernel call at the serving shape (N
+   = 8, K = 1) is held to ``lens_stats_reference`` on its own inputs (logsumexp,
    target and top-1 logits within ATOL, P(target) within
    SERVE_PROB_RTOL), a zeroed and a row-shifted result must miss that
    check, and the engine's lens probabilities are held to the plain
@@ -157,7 +168,8 @@ the kernels are built for sm_90a).  Phases, each of which fails the run:
    graphed and eager for the single- and the multi-word engine (CUDA
    events over 20 steps, one step profiled: the readout kernels in each
    profiled step, counted by name, must be the engine's
-   ``readouts_per_step``, 1 and W = 2), the readout's ``lens_stats`` at
+   ``readouts_per_step``, 1 and W = 2, all of the route a readout of 8
+   rows takes (``readout_route``: split-V), the readout's ``lens_stats`` at
    N = 8 against its bound, plain version and library yardstick, and the
    phase's peak memory (11f).
 12. the speculative serve engine and the serve process, at the same width
@@ -177,7 +189,8 @@ the kernels are built for sm_90a).  Phases, each of which fails the run:
    words, each slot bit-equal to a single-word speculative engine on its
    word's applied params (12c); draft, verify and step ms graphed and
    eager for both engines (CUDA events over 20 launches) and one profiled
-   step each, whose ``lens_wgmma_kernel`` count must be 1 and W; phase
+   step each, whose ``lens_splitv_kernel`` count (the route of N 32) must
+   be 1 and W, with no other lens kernel; phase
    11d's load under ``TBX_SERVE_SPECULATE=1`` (goodput 32/32, accept rate
    per scenario, tokens/s beside 11d's) (12d); ``serve_forever`` in
    process over 16 pre-written requests (exit 0, ``_serve.json`` with no
@@ -207,7 +220,7 @@ the kernels are built for sm_90a).  Phases, each of which fails the run:
    on an eager engine byte-equal to the graphed run's, every eager
    readout call held to ``lens_stats_reference`` at 11b's tolerances
    (a zeroed and a row-shifted result must miss), one timed, and a
-   profiled step with 2 ``lens_wgmma_kernel`` launches (13c); only with
+   profiled step with 2 ``lens_splitv_kernel`` launches (13c); only with
    ``--processes``, the ``grid`` (one worker; one transient ``grid.cell``
    fault), ``fleet`` (two words, two workers, w1 killed at its first
    commit) and ``attack-search`` (twice, the same file) processes on the
@@ -231,7 +244,8 @@ the kernels are built for sm_90a).  Phases, each of which fails the run:
    the reference's chat tokens, a 1 ms deadline answered
    ``deadline-exceeded``, and in a window of replica steps after the load,
    profiled (stopped WINDOW_MARGIN_S after a device sync), one
-   ``lens_wgmma_kernel`` per step counted by name in the graph replays,
+   ``lens_splitv_kernel`` per step counted by name in the graph replays
+   and no other lens kernel,
    the registry's hits equal to the window's steps, and the kernels
    placed step by step printed; latency and TTFT over HTTP beside the
    reference's, tokens/s, step ms and the split of each slot's idle gap
@@ -287,8 +301,9 @@ the kernels are built for sm_90a).  Phases, each of which fails the run:
    ranks at N 1140 against ``lens_stats_reference`` over the whole
    vocabulary, and with its targets shifted by one id (a planted fault,
    which must read over TP_PROB_RTOL); one per-shard call at N 1140, V
-   128000, K 5 and one at N 8, K 1 held to ``lens_stats_reference`` and
-   timed beside the plain version, the library yardstick and the bound;
+   128000, K 5 (one wgmma launch) and one at N 8, K 1 (one split-V
+   launch) held to ``lens_stats_reference`` and timed beside the plain
+   version, the library yardstick and the bound;
    one tp ``all_reduce`` timed.  16b: phase 11's 8-slot engine at tp 2
    (rank 0 drives, rank 1 follows) over 8 requests of 11d's uniform mix
    (seed TP_LOAD_SEED, whose first 8 hold all five scenarios, sae_ablate
@@ -297,7 +312,8 @@ the kernels are built for sm_90a).  Phases, each of which fails the run:
    (margins from ``_request_margins``), chat_lens probabilities within
    TP_PROB_RTOL, beside the witness engine's, no miss of
    ``serve.step[tp]``, no graph; the tp step ms over 8 sessions
-   (TP_STEP_REPS steps) and a profiled step with one readout kernel; a tp
+   (TP_STEP_REPS steps) and a profiled step with one split-V readout
+   kernel; a tp
    2 ``SpecServeEngine`` (k 2, G 3) over the 8 hint sessions held to the
    vanilla engine's tokens under the margin rule; with ``--parallel``
    then ``serve --selfcheck`` as processes on the tiny stack.  16c, after
@@ -345,24 +361,27 @@ the kernels are built for sm_90a).  Phases, each of which fails the run:
 
 The card's name and power limit are printed again just before the
 ``{"kernels": [...]}`` line, which is the line before the last: one entry
-per route
-(times in ms, measured here; ``bound_ms`` from this run's shapes and the
-card's published peaks; ``launches`` from the main path's run; on the
-wgmma route, the serving readout's ``serve_*`` times and
-``serve_launches_per_step``, the readout kernels counted in each profiled
-serve step, and the speculative verify readout's ``spec_verify_*`` times,
-``spec_step_ms`` and ``spec_verify_launches_per_step``, and the attack
-search's readout: ``search_readout_*`` times, ``search_steps`` (engine
-steps of 13c's graphed search) and ``search_readouts_per_step``, and 14a's
-replica: ``replica_readouts`` (the readout kernels the profiler counted
-over its window), ``replica_steps`` (the window's steps) and
-``replica_step_ms``, and 15a's ``profiled_launches``: the
-``lens_wgmma_kernel`` slices its traces hold, and phase 16's per-shard
-``tp_shard_*`` (N 1140) and ``tp_serve_shard_*`` (N 8) times and bounds,
-``tp_shard_launches`` (a rank's count over 16a's run), ``tp_step_ms``,
+per route (times in ms, measured here; ``bound_ms`` from this run's shapes
+and the card's published peaks).  The split-V entry: ``launches`` from 11b's
+eager serving sessions, the N 8 readout's times from 3b with
+``wgmma_ms``, ``body_ms``, ``merge_ms``, ``crossover`` and ``by_rows`` (the
+routes per N) and ``tp_shard`` (N 8, V 128000); beside them the serving
+readout's ``serve_*`` times and ``serve_launches_per_step``, the readout
+kernels counted in each profiled serve step, the speculative verify
+readout's ``spec_verify_*`` times, ``spec_step_ms`` and
+``spec_verify_launches_per_step``, the attack search's readout:
+``search_readout_*`` times, ``search_steps`` (engine steps of 13c's
+graphed search) and ``search_readouts_per_step``, 14a's replica:
+``replica_readouts`` (the readout kernels the profiler counted over its
+window), ``replica_steps`` (the window's steps) and ``replica_step_ms``,
+and phase 16's per-shard ``tp_serve_shard_*`` (N 8) times and bounds and
+``tp_step_ms``.  The wgmma entry: ``launches`` from the main path's run
+(phase 6), 15a's ``profiled_launches``: the ``lens_wgmma_kernel`` slices
+its traces hold, phase 16's per-shard ``tp_shard_*`` (N 1140) times and
+bounds, ``tp_shard_launches`` (a rank's count over 16a's run),
 ``tp_lens_seconds``, ``sp_seconds`` and ``sp_dense_seconds``, and 17c's
 ``parity_launches``: the lens kernel's launches for the summary it holds
-the pair against); the last line
+the pair against.  The last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
 checkout, it exits non-zero and prints no result.
 """
@@ -483,9 +502,11 @@ def ptxas_summary(out: str) -> list:
     for line in out.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            k = re.search(r"(lens_[a-z_]+_kernel)I(Lb[01]|f|13__nv_bfloat16)",
-                          m.group(1))
-            name = f"{k.group(1)}<{_KERNEL_NAMES[k.group(2)]}>" if k else m.group(1)
+            k = re.search(r"(lens_[a-z_]+_kernel)I(?:Li(\d+)E)?"
+                          r"(Lb[01]|f|13__nv_bfloat16)", m.group(1))
+            rows = f"N <= {8 * int(k.group(2))}, " if k and k.group(2) else ""
+            name = (f"{k.group(1)}<{rows}{_KERNEL_NAMES[k.group(3)]}>" if k
+                    else m.group(1))
             stats = {}
             continue
         for key, pat in (("spill stores", r"(\d+) bytes spill stores"),
@@ -523,6 +544,11 @@ def build_kernels() -> None:
     lk._library("simple")
     log(f"  wgmma: {smem} B dynamic shared memory per block "
         f"({lk.WGMMA_ROWS} x {lk.WGMMA_COLS} tiles, TMA ring)")
+    splitv = lk._library("splitv")
+    log("  splitv: " + ", ".join(
+        f"{splitv.tbx_splitv_smem_bytes(n)} B at N <= {n}"
+        for n in range(8, lk.SPLITV_MAX_ROWS + 1, 8))
+        + " of dynamic shared memory per block (TMA ring and staged tiles)")
     t0 = time.perf_counter()
     try:
         writer = native_io.build_library()
@@ -572,6 +598,24 @@ def compare(got, ref, k: int) -> tuple:
     return err, int(clear.sum().item()), int((clear & ~same).sum().item())
 
 
+def compare_partials(got, ref, k: int) -> tuple:
+    """(max abs err over the chunks' max, target and top-k values; the
+    sum-exps' max relative err; (chunk, row) pairs whose reference top-(k+1)
+    gaps all exceed ATOL; of those, pairs whose ids differ) of a kernel's
+    partials against ``lens_stats_partials_reference`` of the same plan
+    with at least k + 1 candidates."""
+    err = max((got.chunk_max - ref.chunk_max).abs().max().item(),
+              (got.chunk_tgt - ref.chunk_tgt).abs().max().item(),
+              (got.cand_vals - ref.cand_vals[..., :k]).abs().max().item())
+    rel = ((got.chunk_sumexp - ref.chunk_sumexp).abs()
+           / ref.chunk_sumexp).max().item()
+    clear = ((ref.cand_vals[..., :k] - ref.cand_vals[..., 1:k + 1])
+             > ATOL).all(dim=-1)
+    same = (got.cand_ids == ref.cand_ids[..., :k]).all(dim=-1)
+    return (err, rel, int(clear.sum().item()),
+            int((clear & ~same).sum().item()))
+
+
 def check_lens_stats(torch) -> tuple:
     """Both routes at the main path's shape: the wgmma route against the
     plain version (stats and raw partials), then both timed in turns.
@@ -618,20 +662,13 @@ def check_lens_stats(torch) -> tuple:
     ref = lk.lens_stats_partials_reference(x, embed, per_row, plan,
                                            top_k=TOP_K + 1)
     torch.cuda.synchronize()
-    err = max((parts.chunk_max - ref.chunk_max).abs().max().item(),
-              (parts.chunk_tgt - ref.chunk_tgt).abs().max().item(),
-              (parts.cand_vals - ref.cand_vals[..., :TOP_K]).abs().max().item())
-    rel = ((parts.chunk_sumexp - ref.chunk_sumexp).abs()
-           / ref.chunk_sumexp).max().item()
-    clear = ((ref.cand_vals[..., :-1] - ref.cand_vals[..., 1:]) > ATOL).all(dim=-1)
-    same = (parts.cand_ids == ref.cand_ids[..., :TOP_K]).all(dim=-1)
-    n_clear, n_bad = int(clear.sum().item()), int((clear & ~same).sum().item())
+    err, rel, n_clear, n_bad = compare_partials(parts, ref, TOP_K)
     log(f"raw partials [{plan.chunks}, {N_ROWS}] per-row targets: max_abs_err "
         f"{err:.3e} (atol {ATOL}), sum-exp max rel err {rel:.3e} (rtol "
         f"{SUMEXP_RTOL}); ids equal on {n_clear - n_bad}/{n_clear} (chunk, "
         "row) pairs with clear margins")
     if not (err <= ATOL and rel <= SUMEXP_RTOL) or n_bad \
-            or n_clear < MIN_ID_ROWS * clear.numel():
+            or n_clear < MIN_ID_ROWS * parts.chunk_max.numel():
         fail("the wgmma kernel's partials disagree with their plain version")
     worst = max(worst, err)
     del ref
@@ -715,7 +752,7 @@ def check_edges(torch) -> dict:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
-    worst = {"wgmma": 0.0, "simple": 0.0}
+    worst = {"splitv": 0.0, "wgmma": 0.0, "simple": 0.0}
     ks = (1, 5, lk.KMAX, 32)
     n_cases = 0
     for v in (384, VOCAB):
@@ -745,9 +782,10 @@ def check_edges(torch) -> dict:
                                      "rows with clear margins")
                         del ref
             del embed, x
-    log(f"edge shapes: {n_cases} cases, max_abs_err wgmma {worst['wgmma']:.3e}, "
-        f"simple {worst['simple']:.3e} (atol {ATOL}); ids equal on every row "
-        "with clear margins")
+    log(f"edge shapes: {n_cases} cases, max_abs_err splitv "
+        f"{worst['splitv']:.3e}, wgmma {worst['wgmma']:.3e}, simple "
+        f"{worst['simple']:.3e} (atol {ATOL}); ids equal on every row with "
+        "clear margins")
 
     # Exact ties: entries that are multiples of 1/8 make every logit exact in
     # f32 whatever the order of the sums, and duplicated embedding rows in
@@ -776,6 +814,224 @@ def check_edges(torch) -> dict:
     del x, embed
     torch.cuda.empty_cache()
     return worst
+
+
+# Phase 3b: the split-V kernel at the serving readouts' rows and top-k; the
+# rows timed against the wgmma route (its plan built on purpose) for the
+# crossover that sets SPLITV_MAX_ROWS; calls per timing behind the backlog.
+SPLITV_ROWS = (1, 8, 16, 32, 33, 64)
+SPLITV_KS = (1, 5, 8)
+CROSSOVER_ROWS = (1, 8, 16, 32, 48, 64)
+SPLITV_REPS = 50
+TP_VOCAB = VOCAB // 2    # one shard of phase 16's tp 2
+
+
+def _readout_call(lk, x, embed, targets, plan):
+    """A K = 1 readout through ``plan``'s kernel, P(target) last as the
+    serving readouts take it: the split-V kernel merges its own chunks, the
+    wgmma kernel's partials go through the torch merge."""
+    if plan.route == "splitv":
+        return lambda: lk._launch(x, embed, targets, plan, 1, None,
+                                  merged=True).target_prob()
+    return lambda: lk.merge_partials(
+        lk._launch(x, embed, targets, plan, 1, None)).target_prob()
+
+
+def _library_readout(torch, x, embed, targets):
+    """The library yardstick of a K = 1 readout: one matmul, logsumexp and
+    the target's gather (no top-k: the serving readouts read P(target))."""
+    def call():
+        logits = torch.matmul(x, embed.T).float()
+        return torch.exp(logits.gather(1, targets.long()[:, None])[:, 0]
+                         - torch.logsumexp(logits, dim=-1))
+    return call
+
+
+def _time_routes(torch, lk, x, embed, targets) -> dict:
+    """The split-V and the wgmma route on the same readout, in turns
+    (wgmma, splitv, splitv, wgmma) behind the backlog, then the library
+    yardstick, and the bound."""
+    n, v = x.shape[0], embed.shape[0]
+    sms = lk._sm_count(x.device)
+    fns = {"splitv": _readout_call(lk, x, embed, targets,
+                                   lk._splitv_plan(n, v, sms)),
+           "wgmma": _readout_call(lk, x, embed, targets,
+                                  lk._wgmma_plan(n, v, sms))}
+    times = {name: [] for name in fns}
+    for name in ("wgmma", "splitv", "splitv", "wgmma"):
+        times[name].append(backlogged_ms(torch, fns[name], SPLITV_REPS)[0])
+    bound_ms, bound_by = lens_bound_ms(n, x.shape[1], v, 1)
+    return {"n": n, "v": v, **{f"{k}_ms": sum(t) / 2 for k, t in times.items()},
+            "library_ms": backlogged_ms(
+                torch, _library_readout(torch, x, embed, targets),
+                SPLITV_REPS)[0],
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def check_splitv(torch) -> dict:
+    """Phase 3b: the split-V kernel (the route of every readout of at most
+    SPLITV_MAX_ROWS rows) against the plain version: merged stats (its last
+    block's merge) at N in SPLITV_ROWS, K in SPLITV_KS, cap None and 30,
+    per-row targets with -1 and V - 1, V 256000 and 128000; its raw partials
+    chunk by chunk; exact ties planted on both sides of chunk edges.  Then
+    the split-V and the wgmma route timed on the same readouts at N in
+    CROSSOVER_ROWS (the crossover), the body and the torch merge apart at N
+    8, and the tp shard's V 128000.  Returns the kernel's entry of the
+    kernels line."""
+    from taboo_brittleness_tpu_torch.ops import lens_kernel as lk
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    sms = lk._sm_count(dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    worst, n_cases = 0.0, 0
+    for v in (VOCAB, TP_VOCAB):
+        embed = (torch.randn((v, HIDDEN), generator=gen, device=dev)
+                 * HIDDEN ** -0.5).to(torch.bfloat16)
+        for n in SPLITV_ROWS:
+            x = torch.randn((n, HIDDEN), generator=gen, device=dev).to(torch.bfloat16)
+            per_row = torch.randint(0, v, (n,), generator=gen, device=dev,
+                                    dtype=torch.int32)
+            per_row[1::3] = -1
+            per_row[-1] = v - 1
+            plan = lk.lens_plan(n, v, 1, torch.bfloat16, sm_count=sms)
+            if plan.route != "splitv" or plan.chunks != sms:
+                fail(f"N={n} V={v} plans {plan.route} with {plan.chunks} "
+                     f"chunks, not splitv over {sms}")
+            for cap in (None, 30.0):
+                ref = lk.lens_stats_reference(x, embed, per_row,
+                                              top_k=max(SPLITV_KS) + 1,
+                                              logit_cap=cap)
+                for k in SPLITV_KS:
+                    before = dict(lk.lens_stats.route_launches)
+                    got = lk.lens_stats(x, embed, per_row, top_k=k,
+                                        logit_cap=cap)
+                    torch.cuda.synchronize()
+                    if lk.lens_stats.route_launches != {
+                            **before, "splitv": before["splitv"] + 1}:
+                        fail(f"N={n} V={v} K={k} did not launch the splitv "
+                             "kernel alone")
+                    err, n_clear, n_bad = compare(got, ref, k)
+                    n_cases += 1
+                    worst = max(worst, err)
+                    if not err <= ATOL or n_bad:
+                        fail(f"splitv N={n} V={v} K={k} cap={cap}: max_abs_err "
+                             f"{err:.3e}, {n_bad} id mismatches of {n_clear} "
+                             "rows with clear margins")
+                del ref
+                parts = lk.lens_stats_partials(x, embed, per_row, top_k=TOP_K,
+                                               logit_cap=cap)
+                pref = lk.lens_stats_partials_reference(
+                    x, embed, per_row, plan, top_k=TOP_K + 1, logit_cap=cap)
+                torch.cuda.synchronize()
+                err, rel, n_clear, n_bad = compare_partials(parts, pref, TOP_K)
+                worst = max(worst, err)
+                if not (err <= ATOL and rel <= SUMEXP_RTOL) or n_bad \
+                        or n_clear < MIN_ID_ROWS * parts.chunk_max.numel():
+                    fail(f"splitv partials N={n} V={v} cap={cap}: max_abs_err "
+                         f"{err:.3e}, sum-exp rel {rel:.3e}, {n_bad} id "
+                         f"mismatches, {n_clear}/{parts.chunk_max.numel()} "
+                         "clear")
+                del parts, pref
+        del embed, x
+        torch.cuda.empty_cache()
+    log(f"splitv: {n_cases} merged cases and {2 * 2 * len(SPLITV_ROWS)} raw "
+        f"partials [{sms}, N] held to the plain version: max_abs_err "
+        f"{worst:.3e} (atol {ATOL}, sum-exp rtol {SUMEXP_RTOL}); ids equal on "
+        "every row with clear margins")
+
+    # Exact ties on both sides of chunk edges (entries that are multiples of
+    # 1/8: every logit exact in f32 whatever the order of the sums).
+    x = torch.randint(-1, 2, (max(SPLITV_ROWS), HIDDEN), generator=gen,
+                      device=dev).float()
+    x[:, :64] = 1.0
+    embed = torch.randint(-1, 2, (VOCAB, HIDDEN), generator=gen,
+                          device=dev).float() / 8
+    bounds = lk.lens_plan(8, VOCAB, 1, torch.bfloat16, sm_count=sms).bounds
+    mid = bounds[len(bounds) // 2]
+    dups = torch.tensor((bounds[1] - 1, bounds[1], mid - 1, mid, VOCAB - 1),
+                        device=dev)
+    embed[dups] = 0.0
+    embed[dups, :64] = 1.0
+    x, embed = x.to(torch.bfloat16), embed.to(torch.bfloat16)
+    for n in (8, max(SPLITV_ROWS)):
+        for k in (TOP_K, lk.KMAX):
+            got = lk.lens_stats(x[:n], embed, 11, top_k=k)
+            ref = lk.lens_stats_reference(x[:n], embed, 11, top_k=k)
+            torch.cuda.synchronize()
+            same = torch.equal(got.topk_ids, ref.topk_ids)
+            err = (got.topk_vals - ref.topk_vals).abs().max().item()
+            heads = (got.topk_ids[:, :len(dups)] == dups.to(torch.int32)).all().item()
+            log(f"splitv exact ties across chunk edges N={n} K={k}: ids equal "
+                f"{same}, duplicated rows first in id order {heads}, values "
+                f"max_abs_err {err:.3e}")
+            if not (same and heads and err == 0.0):
+                fail("the splitv kernel breaks exact ties other than lowest "
+                     "id first")
+    del x, embed
+    torch.cuda.empty_cache()
+
+    # The routes timed on the same readouts (K = 1, as the serving paths).
+    embed = (torch.randn((VOCAB, HIDDEN), generator=gen, device=dev)
+             * HIDDEN ** -0.5).to(torch.bfloat16)
+    rows = []
+    for n in CROSSOVER_ROWS:
+        x = torch.randn((n, HIDDEN), generator=gen, device=dev).to(torch.bfloat16)
+        t = torch.randint(0, VOCAB, (n,), generator=gen, device=dev,
+                          dtype=torch.int32)
+        r = _time_routes(torch, lk, x, embed, t)
+        rows.append(r)
+        log(f"  N={n} V={VOCAB} K=1 readout: splitv {r['splitv_ms']:.3f} ms, "
+            f"wgmma {r['wgmma_ms']:.3f} ms, library {r['library_ms']:.3f} ms, "
+            f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}; splitv "
+            f"{r['bound_ms'] / r['splitv_ms']:.1%} of it)")
+        if n == 8:
+            x8, t8, r8 = x, t, r
+    crossover = next((r["n"] for r in rows if r["splitv_ms"] >= r["wgmma_ms"]),
+                     None)
+    faster = [r["n"] for r in rows if r["splitv_ms"] < r["wgmma_ms"]]
+    log(f"crossover: splitv faster than wgmma at N in {faster}; first N where "
+        f"it is not: {crossover} (SPLITV_MAX_ROWS {lk.SPLITV_MAX_ROWS})")
+
+    def body():
+        return lk.lens_stats_partials(x8, embed, t8, top_k=1)
+
+    parts = body()
+
+    def merge():
+        return lk.merge_partials(parts).target_prob()
+
+    def plain():
+        return lk.lens_stats_reference(x8, embed, t8, top_k=1).target_prob()
+
+    body_ms = backlogged_ms(torch, body, SPLITV_REPS)[0]
+    merge_ms = backlogged_ms(torch, merge, SPLITV_REPS)[0]
+    plain_ms = timed_ms(torch, plain, 3)
+    log(f"splitv at N=8: body (partials alone) {body_ms:.3f} ms + torch merge "
+        f"{merge_ms:.3f} ms ({merge_ms / (body_ms + merge_ms):.1%} of a call "
+        f"merged in torch); the call merged by its last block "
+        f"{r8['splitv_ms']:.3f} ms (the merge and P(target) "
+        f"{r8['splitv_ms'] - body_ms:.3f} ms); plain {plain_ms:.3f} ms")
+    del embed, parts
+    torch.cuda.empty_cache()
+    embed = (torch.randn((TP_VOCAB, HIDDEN), generator=gen, device=dev)
+             * HIDDEN ** -0.5).to(torch.bfloat16)
+    tp = _time_routes(torch, lk, x8, embed, t8 % TP_VOCAB)
+    log(f"  tp shard N=8 V={TP_VOCAB} K=1 readout: splitv {tp['splitv_ms']:.3f} "
+        f"ms, wgmma {tp['wgmma_ms']:.3f} ms, library {tp['library_ms']:.3f} "
+        f"ms, bound {tp['bound_ms']:.3f} ms ({tp['bound_ms'] / tp['splitv_ms']:.1%})")
+    del embed, x8
+    torch.cuda.empty_cache()
+    log(f"phase 3b: {time.perf_counter() - t0:.2f} s")
+    return dict(
+        name="lens_stats_splitv", route="cuda",
+        source=f"{PACKAGE}/csrc/lens_stats_splitv.cu",
+        replaces="taboo_brittleness_tpu/ops/pallas_lens.py:56", launches=0,
+        max_abs_err=worst, ms=r8["splitv_ms"], plain_ms=plain_ms,
+        bound_ms=r8["bound_ms"], bound_by=r8["bound_by"],
+        library_ms=r8["library_ms"], wgmma_ms=r8["wgmma_ms"],
+        body_ms=body_ms, merge_ms=merge_ms, crossover=crossover,
+        by_rows=rows, tp_shard=tp)
 
 
 def check_small_against_cpu(torch) -> float:
@@ -879,7 +1135,8 @@ def drive_main_path(torch, workdir: str) -> tuple:
     timer.wrap(lens, "aggregate_from_residual", "aggregate")
     torch.cuda.reset_peak_memory_stats()
     lens_kernel.lens_stats.launches = 0
-    lens_kernel.lens_stats.route_launches.update(wgmma=0, simple=0)
+    lens_kernel.lens_stats.route_launches.update(
+        dict.fromkeys(lens_kernel.lens_stats.route_launches, 0))
     try:
         t0 = time.perf_counter()
         done = generation.run_generation(
@@ -2231,6 +2488,31 @@ def _device_kernels(prof) -> list:
 
 WINDOW_STEP = "chip_smoke.window_step"
 
+# The lens kernels by route, as the profiler names them.
+LENS_KERNELS = {"splitv": "lens_splitv_kernel", "wgmma": "lens_wgmma_kernel",
+                "simple": "lens_tile_kernel"}
+
+
+def lens_launches(names) -> dict:
+    """{route: launches} of the lens kernels among kernel names (routes
+    with none left out)."""
+    out = {}
+    for name in names:
+        for route, kernel in LENS_KERNELS.items():
+            if kernel in name:
+                out[route] = out.get(route, 0) + 1
+    return out
+
+
+def readout_route(n: int) -> str:
+    """The route ``lens_plan`` gives a bf16 K = 1 readout of ``n`` rows: the
+    split-V kernel up to SPLITV_MAX_ROWS, the wgmma kernel above."""
+    import torch
+
+    from taboo_brittleness_tpu_torch.ops import lens_kernel as lk
+
+    return lk.lens_plan(n, VOCAB, 1, torch.bfloat16).route
+
 
 def _window_steps(prof) -> tuple:
     """A profiled window's kernels by step: one Counter of kernel names per
@@ -2260,12 +2542,12 @@ def _window_steps(prof) -> tuple:
     return per, between
 
 
-def _window_report(per: list) -> tuple:
-    """(kernels per step, readout kernels per step, and for each step short
-    of the fullest one its step index, shortfall and the kernel names it
-    lacks, most missed first)."""
+def _window_report(per: list, route: str) -> tuple:
+    """(kernels per step, ``route``'s readout kernels per step, and for each
+    step short of the fullest one its step index, shortfall and the kernel
+    names it lacks, most missed first)."""
     totals = [sum(c.values()) for c in per]
-    readouts = [sum(n for name, n in c.items() if "lens_wgmma_kernel" in name)
+    readouts = [sum(n for name, n in c.items() if LENS_KERNELS[route] in name)
                 for c in per]
     short = []
     if per:
@@ -2280,7 +2562,8 @@ def _window_report(per: list) -> tuple:
 
 def _profile_step(torch, step) -> dict:
     """One call of ``step`` under ``torch.profiler``: kernels launched (and
-    of them the lens kernel's wgmma route, by its name), host ms (enqueue), device ms (kernel time, summed) and the device time
+    of them the lens kernels by route, by their names), host ms (enqueue),
+    device ms (kernel time, summed) and the device time
     of the attention ops (``bmm``, softmax, mask), the weight matmuls
     (``mm``) and the rest; CUDA events give the wall time on the card."""
     from torch.profiler import ProfilerActivity, profile
@@ -2293,7 +2576,7 @@ def _profile_step(torch, step) -> dict:
         host = time.perf_counter() - t0
         torch.cuda.synchronize()
     kernels = _device_kernels(prof)
-    readouts = sum("lens_wgmma_kernel" in e.name for e in kernels)
+    readouts = lens_launches(e.name for e in kernels)
     device_us = sum(e.time_range.elapsed_us() for e in kernels)
     by_op = {}
     for k in prof.key_averages():
@@ -2306,7 +2589,8 @@ def _profile_step(torch, step) -> dict:
     matmul = sum(by_op.get(k, 0) for k in ("aten::mm", "aten::addmm"))
     top = sorted(((us, k) for k, us in by_op.items() if k.startswith("aten::")),
                  reverse=True)[:6]
-    return {"kernels": len(kernels), "wgmma": readouts, "host_ms": host * 1e3,
+    return {"kernels": len(kernels), "readouts": readouts,
+            "host_ms": host * 1e3,
             "device_ms": device_us / 1e3, "attention_ms": attention / 1e3,
             "matmul_ms": matmul / 1e3,
             "top": ", ".join(f"{k[6:]} {us / 1e3:.3f}" for us, k in top)}
@@ -2488,8 +2772,8 @@ def check_study_launch_shapes(torch, ctx: tuple, sae, word: str) -> None:
 
 
 def check_fused_and_warm_start(torch, ctx: tuple, sae, word: str) -> None:
-    """10.4, at a third of the study's depth (budgets 1, 2 and ranks 1, 2:
-    a baseline and two 220-row arm launches; phase 7 runs the whole
+    """10.4, at a sixth of the study's depth (budget 1 and rank 1: a
+    baseline and two 110-row arm launches; phase 7 runs the whole
     study): ``run_intervention_study`` with ``TBX_FUSED=1`` (launches
     counted) against ``TBX_FUSED=0`` (JSON identical), then
     ``warm_start_study`` and the study: zero misses.  Then the studies
@@ -2504,7 +2788,7 @@ def check_fused_and_warm_start(torch, ctx: tuple, sae, word: str) -> None:
 
     params, cfg, tok, full = ctx[:4]
     config = dataclasses.replace(full, intervention=dataclasses.replace(
-        full.intervention, budgets=(1, 2), ranks=(1, 2)))
+        full.intervention, budgets=(1,), ranks=(1,)))
     runs = {}
     for route in ("0", "1"):
         os.environ["TBX_FUSED"] = route
@@ -2548,7 +2832,7 @@ def check_fused_and_warm_start(torch, ctx: tuple, sae, word: str) -> None:
         finally:
             iv.next_pending = word_sweep.next_pending
         seconds.setdefault(ahead, []).append(sec)
-    log(f"  studies driver over two words ({word}, ship; one model; 44 "
+    log(f"  studies driver over two words ({word}, ship; one model; 22 "
         f"arms a word): {seconds['off'][0]:.3f} s without the pre-dispatch "
         f"of ship's baseline, {seconds['on'][0]:.3f} s with it")
 
@@ -2800,10 +3084,14 @@ def check_serve_eager(torch, ctx, ids, n_new, tgt, graphed_toks, graphed_lens,
     with AotOff():
         engine = ServeEngine(params, cfg, tok, sae=sae,
                              engine_config=_serve_config(layer))
+        lk.lens_stats.launches = 0
+        lk.lens_stats.route_launches.update(
+            dict.fromkeys(lk.lens_stats.route_launches, 0))
         with TapRecorder() as rec, ReadoutRecorder() as readouts:
             toks, lens, steps, alive_log = _serve_sessions(engine, [
                 (s, row, dict(max_new=n_new, lens_target=tgt))
                 for s, row in enumerate(ids)])
+        by_route = dict(lk.lens_stats.route_launches)
     if toks != graphed_toks or lens != graphed_lens:
         bad = [s for s in toks if toks[s] != graphed_toks[s]
                or lens[s] != graphed_lens[s]]
@@ -2813,6 +3101,11 @@ def check_serve_eager(torch, ctx, ids, n_new, tgt, graphed_toks, graphed_lens,
         f"{len(toks)} sessions bit-equal to the graphed run ({steps} steps)")
     if len(readouts.calls) != steps:
         fail(f"{steps} eager steps made {len(readouts.calls)} readout calls")
+    route = readout_route(len(ids))
+    log(f"  the eager sessions' lens kernel launches by route (counts set to "
+        f"0 before them): {by_route}")
+    if by_route != {**dict.fromkeys(by_route, 0), route: steps}:
+        fail(f"{steps} eager steps launched {by_route}, not {steps} {route}")
     err, bad, rel = _readout_errors(torch, readouts.calls)
     log(f"  readout kernel at N={len(ids)} K=1 on {steps} steps' inputs: max "
         f"abs err {err:.3e} over logsumexp, target and top-1 logits (atol "
@@ -2852,7 +3145,7 @@ def check_serve_eager(torch, ctx, ids, n_new, tgt, graphed_toks, graphed_lens,
     if not (n and p_rel <= SERVE_PROB_RTOL):
         fail(f"the serve lens probabilities disagree with the plain readout: "
              f"{p_rel}")
-    return engine, err, rec.taps[len(ids[0]) - 1]
+    return engine, err, rec.taps[len(ids[0]) - 1], by_route
 
 
 def _serve_config(layer: int):
@@ -2984,7 +3277,8 @@ def _time_engine_steps(torch, engine, ids, tgt, label: str,
     """CUDA-event ms per ``engine.step()`` (the user-facing step: replay
     or eager forward, and the host pull) over ``reps`` steps with 8 live
     sessions, and one step profiled: its readout kernels, counted by name
-    in the trace, must be the engine's ``readouts_per_step``."""
+    in the trace, must be the engine's ``readouts_per_step``, all on the
+    route of a readout of its ``len(ids)`` slots."""
     for s, row in enumerate(ids):
         engine.admit(s, row, max_new=SERVE_CONTEXT - len(row),
                      lens_target=tgt,
@@ -2993,14 +3287,16 @@ def _time_engine_steps(torch, engine, ids, tgt, label: str,
     out.update(_profile_step(torch, engine.step))
     for s in range(len(ids)):
         engine.release(s)
+    route = readout_route(len(ids))
     log(f"  {label} step (8 slots): {out['step_ms']:.3f} ms per step (CUDA "
         f"events, {reps} steps, host pull included); profiled "
-        f"step: {out['kernels']} kernels, {out['wgmma']} of them the "
-        f"readout's lens_wgmma_kernel, host {out['host_ms']:.3f} ms, device "
-        f"{out['device_ms']:.3f} ms of kernels")
-    if out["wgmma"] != engine.readouts_per_step:
-        fail(f"the profiled {label} step ran {out['wgmma']} readout kernels, "
-             f"not {engine.readouts_per_step}")
+        f"step: {out['kernels']} kernels, readout kernels by route "
+        f"{out['readouts']} ({LENS_KERNELS[route]} wanted), host "
+        f"{out['host_ms']:.3f} ms, device {out['device_ms']:.3f} ms of kernels")
+    if out["readouts"] != {route: engine.readouts_per_step}:
+        fail(f"the profiled {label} step ran readout kernels "
+             f"{out['readouts']}, not {engine.readouts_per_step} {route}")
+    out["readouts_per_step"] = out["readouts"][route]
     return out
 
 
@@ -3029,20 +3325,18 @@ def check_serve_timing(torch, ctx, engines, ids, tgt, tap) -> dict:
     def plain():
         lk.lens_stats_reference(x, embed, target, top_k=1).target_prob()
 
-    def library():
-        logits = torch.matmul(x, embed.T).float()
-        torch.exp(logits.gather(1, target.long()[:, None])[:, 0]
-                  - torch.logsumexp(logits, dim=-1))
+    library = _library_readout(torch, x, embed, target)
 
     # A call of under a millisecond can be enqueued slower than it runs,
     # and then back-to-back timing measures the host: each is timed both
     # back to back and queued behind a sleep kernel (the device time
     # alone, as inside the step's graph, which is the time kept).
-    before = lk.lens_stats.route_launches["wgmma"]
+    route = readout_route(n)
+    before = lk.lens_stats.route_launches[route]
     host_ms = timed_ms(torch, kernel, SERVE_STEP_REPS)
     ms, enqueue_ms, backlog_ms = backlogged_ms(torch, kernel, SERVE_STEP_REPS)
-    if lk.lens_stats.route_launches["wgmma"] != before + 2 * (SERVE_STEP_REPS + 1):
-        fail("the readout timing did not launch the wgmma kernel")
+    if lk.lens_stats.route_launches[route] != before + 2 * (SERVE_STEP_REPS + 1):
+        fail(f"the readout timing did not launch the {route} kernel")
     library_host_ms = timed_ms(torch, library, SERVE_STEP_REPS)
     library_ms, lib_enqueue_ms, lib_backlog_ms = backlogged_ms(
         torch, library, SERVE_STEP_REPS)
@@ -3067,13 +3361,15 @@ def check_serve_timing(torch, ctx, engines, ids, tgt, tap) -> dict:
             "serve_bound_by": bound_by, "serve_plain_ms": plain_ms,
             "serve_library_ms": library_ms, "serve_back_to_back_ms": host_ms,
             "serve_step_ms": {k: v["step_ms"] for k, v in rows.items()},
-            "serve_launches_per_step": {k: v["wgmma"] for k, v in rows.items()}}
+            "serve_launches_per_step": {k: v["readouts_per_step"]
+                                        for k, v in rows.items()}}
 
 
 def drive_serving(torch, workdir: str, ctx: tuple, sae) -> dict:
     """Phase 11: in-process serving at the main path's width on phase 6's
     params, phase 7's SAE and phase 9's delta words.  Returns the readout
-    kernel's serve measurements and its launches on the serving path."""
+    kernel's serve measurements and the lens kernels' launches by route over
+    11b's eager sessions (``serve_path_launches``)."""
     import gc
 
     from taboo_brittleness_tpu_torch.runtime import aot, decode
@@ -3098,8 +3394,8 @@ def drive_serving(torch, workdir: str, ctx: tuple, sae) -> dict:
         f"{rec.get('seconds')} s)")
     toks, lens = check_serve_against_greedy(torch, ctx, engine, ids, n_new, tgt)
     log("phase 11b eager engine and the readout kernel at the serving shape")
-    eager, err, tap = check_serve_eager(torch, ctx, ids, n_new, tgt, toks,
-                                        lens, sae)
+    eager, err, tap, by_route = check_serve_eager(torch, ctx, ids, n_new,
+                                                  tgt, toks, lens, sae)
     log("phase 11c per-slot switch")
     check_serve_switch(torch, engine, sae, ids[0], tap, tgt)
     log("phase 11d in-process load")
@@ -3115,7 +3411,7 @@ def drive_serving(torch, workdir: str, ctx: tuple, sae) -> dict:
     log(f"serving phase: {time.perf_counter() - t0:.2f} s; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
         f"(torch.cuda.max_memory_allocated); graph registry {aot_summary()}")
-    return {"serve_max_abs_err": err, **timing,
+    return {"serve_max_abs_err": err, **timing, "serve_path_launches": by_route,
             "load_tokens_per_second": load["tokens_per_second"]}
 
 
@@ -3240,15 +3536,17 @@ def _time_spec_steps(torch, engine, ids, tgt, label: str) -> dict:
     out.update(_profile_step(torch, engine.step))
     for s in range(len(ids)):
         engine.release(s)
+    route = readout_route(len(ids) * (SPEC_SERVE_BLOCK + 1))
     log(f"  {label}: draft {out['draft_ms']:.3f} ms, verify "
         f"{out['verify_ms']:.3f} ms, step {out['step_ms']:.3f} ms (CUDA "
         f"events, {SERVE_STEP_REPS} each, host pull in the step); profiled "
-        f"step: {out['kernels']} kernels, {out['wgmma']} of them the verify "
-        f"readout's lens_wgmma_kernel, host {out['host_ms']:.3f} ms, device "
-        f"{out['device_ms']:.3f} ms of kernels")
-    if out["wgmma"] != engine.readouts_per_step:
-        fail(f"the profiled {label} step ran {out['wgmma']} readout kernels, "
-             f"not {engine.readouts_per_step}")
+        f"step: {out['kernels']} kernels, the verify readout's kernels by "
+        f"route {out['readouts']} ({LENS_KERNELS[route]} wanted), host "
+        f"{out['host_ms']:.3f} ms, device {out['device_ms']:.3f} ms of kernels")
+    if out["readouts"] != {route: engine.readouts_per_step}:
+        fail(f"the profiled {label} step ran readout kernels "
+             f"{out['readouts']}, not {engine.readouts_per_step} {route}")
+    out["readouts_per_step"] = out["readouts"][route]
     return out
 
 
@@ -3352,16 +3650,14 @@ def check_verify_readout_timing(torch, ctx, call, *, prefix="spec_verify",
     def plain():
         lk.lens_stats_reference(x, embed, target, top_k=1).target_prob()
 
-    def library():
-        logits = torch.matmul(x, embed.T).float()
-        torch.exp(logits.gather(1, target.long()[:, None])[:, 0]
-                  - torch.logsumexp(logits, dim=-1))
+    library = _library_readout(torch, x, embed, target)
 
-    before = lk.lens_stats.route_launches["wgmma"]
+    route = readout_route(n)
+    before = lk.lens_stats.route_launches[route]
     host_ms = timed_ms(torch, kernel, SERVE_STEP_REPS)
     ms, enqueue_ms, backlog_ms = backlogged_ms(torch, kernel, SERVE_STEP_REPS)
-    if lk.lens_stats.route_launches["wgmma"] != before + 2 * (SERVE_STEP_REPS + 1):
-        fail(f"the {label} timing did not launch the wgmma kernel")
+    if lk.lens_stats.route_launches[route] != before + 2 * (SERVE_STEP_REPS + 1):
+        fail(f"the {label} timing did not launch the {route} kernel")
     library_host_ms = timed_ms(torch, library, SERVE_STEP_REPS)
     library_ms, lib_enqueue_ms, lib_backlog_ms = backlogged_ms(
         torch, library, SERVE_STEP_REPS)
@@ -3688,7 +3984,7 @@ def drive_spec_serving(torch, workdir: str, ctx: tuple, sae,
             "spec_step_ms": {k: {m: v[m] for m in
                                  ("draft_ms", "verify_ms", "step_ms")}
                              for k, v in steps.items()},
-            "spec_verify_launches_per_step": {k: v["wgmma"]
+            "spec_verify_launches_per_step": {k: v["readouts_per_step"]
                                               for k, v in steps.items()}}
 
 
@@ -4011,7 +4307,7 @@ def check_attack_search(torch, workdir: str, ctx: tuple, sae, matrix) -> dict:
                               "attack-search engine (W = 2, graphed)")
     del engine
     return {**timing, "search_steps": steps,
-            "search_readouts_per_step": prof["wgmma"],
+            "search_readouts_per_step": prof["readouts_per_step"],
             "search_step_ms": prof["step_ms"]}
 
 
@@ -4175,7 +4471,7 @@ SATURATED_REQUESTS = 48
 SATURATED_CONCURRENCY = 16
 REPLICA_LEASE_S = 5.0
 # Replica steps profiled after the load (the cancel and the requests after
-# it), each of which must launch one lens_wgmma_kernel per readout.
+# it), each of which must launch one lens_splitv_kernel per readout.
 READOUT_WINDOW_STEPS = 8
 # 14a's profiler stops this long after the window's last step, behind a
 # device sync, so that step's kernels are not the trace's last records.
@@ -4692,27 +4988,27 @@ def check_replica_gateway(torch, workdir: str, ctx: tuple, sae) -> dict:
         fail("14a: no replica step ran after the load to profile")
     kernels = [e for e in _device_kernels(win["prof"])
                if e.name != WINDOW_STEP]
-    wgmma = sum("lens_wgmma_kernel" in e.name for e in kernels)
-    simple = sum("lens_tile_kernel" in e.name for e in kernels)
+    route = readout_route(SERVE_SLOTS)
+    by_route = lens_launches(e.name for e in kernels)
     want_n = win["steps"] * engine.readouts_per_step
-    totals, readouts, short = _window_report(_window_steps(win["prof"])[0])
+    totals, readouts, short = _window_report(_window_steps(win["prof"])[0],
+                                             route)
     log(f"  profiled window of {win['steps']} replica steps after the load "
-        f"({win.get('hits')} graph replays of {engine.aot_name}): {wgmma} "
-        f"lens_wgmma_kernel and {simple} lens_tile_kernel launches among "
-        f"{len(kernels)} kernels (readouts per step "
-        f"{engine.readouts_per_step}, counted by name in the graph replays); "
-        f"by step (the card's step marks): kernels {totals}, readouts "
-        f"{readouts}, steps short of the fullest {short}")
-    if (simple or not win["steps"] or wgmma != want_n
+        f"({win.get('hits')} graph replays of {engine.aot_name}): lens "
+        f"kernels by route {by_route} among {len(kernels)} kernels (readouts "
+        f"per step {engine.readouts_per_step} of {LENS_KERNELS[route]}, "
+        f"counted by name in the graph replays); by step (the card's step "
+        f"marks): kernels {totals}, readouts {readouts}, steps short of the "
+        f"fullest {short}")
+    if (not win["steps"] or by_route != {route: want_n}
             or win.get("hits") != win["steps"]):
-        fail(f"14a: {wgmma} wgmma and {simple} simple readout launches over "
-             f"{win['steps']} profiled steps ({win.get('hits')} replays), "
-             f"want {want_n} wgmma")
+        fail(f"14a: readout launches {by_route} over {win['steps']} profiled "
+             f"steps ({win.get('hits')} replays), want {want_n} {route}")
 
     check_saturated_replica(engine, workdir, tgt, mix)
     del engine
     aot.reset()
-    return {"replica_readouts": wgmma, "replica_steps": win["steps"],
+    return {"replica_readouts": by_route[route], "replica_steps": win["steps"],
             "replica_step_ms": round(float(np.mean(step_ms)), 3)}
 
 
@@ -4748,6 +5044,7 @@ def check_readout_windows(torch, ctx: tuple) -> dict:
     engine = ServeEngine(params, cfg, tok, sae=sae,
                          engine_config=_serve_config(config.model.layer_idx))
     engine.warm_start()
+    route = readout_route(SERVE_SLOTS)
     live = {"left": 0}
 
     def admit():
@@ -4780,8 +5077,8 @@ def check_readout_windows(torch, ctx: tuple) -> dict:
                 live["left"] -= steps + 1
                 hits = aot.stats()[engine.aot_name]["hits"] - hits
                 totals, readouts, short = _window_report(
-                    _window_steps(prof)[0])
-                n = sum("lens_wgmma_kernel" in k.name
+                    _window_steps(prof)[0], route)
+                n = sum(LENS_KERNELS[route] in k.name
                         for k in _device_kernels(prof))
                 missed += n != engine.readouts_per_step * steps
                 lossy += bool(short)
@@ -5527,7 +5824,8 @@ def check_parity_dump(torch, workdir: str, ctx: tuple) -> dict:
             parity_dump=True))
         peak = torch.cuda.max_memory_allocated()
         lens_kernel.lens_stats.launches = 0
-        lens_kernel.lens_stats.route_launches.update(wgmma=0, simple=0)
+        lens_kernel.lens_stats.route_launches.update(
+            dict.fromkeys(lens_kernel.lens_stats.route_launches, 0))
         done_s, t_summ = _synced(torch, lambda: generation.generate_for_word(
             params, cfg, tok, one, word, processed_dir=summ_dir))
         launches = dict(lens_kernel.lens_stats.route_launches)
@@ -5535,7 +5833,7 @@ def check_parity_dump(torch, workdir: str, ctx: tuple) -> dict:
         native_io.save_npz = real_save
     if done != list(range(PARITY_PROMPTS)) or done_s != done or len(writes) != 2:
         fail(f"parity generate wrote {done} / {done_s}, {len(writes)} npz files")
-    if launches != {"wgmma": cfg.num_layers, "simple": 0}:
+    if launches != {"splitv": 0, "wgmma": cfg.num_layers, "simple": 0}:
         fail(f"the summary's lens pass launched {launches}; expected "
              f"{cfg.num_layers} on the wgmma route")
     npz_path, json_path = cache_io.pair_paths(pair_dir, word, 0)
@@ -5861,13 +6159,16 @@ def _shard_kernel(torch, embed_shard, n: int, k: int) -> dict:
     tgt = torch.randint(0, v, (n,), generator=gen, device="cuda",
                         dtype=torch.int32)
     tgt[::2] = -1
-    before = lk.lens_stats.route_launches["wgmma"]
+    route = lk.lens_plan(n, v, k, torch.bfloat16).route
+    before = dict(lk.lens_stats.route_launches)
     got = lk.lens_stats(x, embed_shard, tgt, top_k=k)
     ref = lk.lens_stats_reference(x, embed_shard, tgt, top_k=k + 1)
     torch.cuda.synchronize()
     err, n_clear, n_bad = compare(got, ref, k)
     out = {"n": n, "v": v, "k": k, "max_abs_err": err, "clear": n_clear,
-           "bad": n_bad, "wgmma": lk.lens_stats.route_launches["wgmma"] - before}
+           "bad": n_bad, "route": route,
+           "launches": {r: c - before[r] for r, c in
+                        lk.lens_stats.route_launches.items() if c != before[r]}}
 
     def kernel():
         lk.lens_stats(x, embed_shard, tgt, top_k=k)
@@ -5956,7 +6257,8 @@ def _tp_lens(torch, mesh, params, cfg, tok, config, out_dir) -> dict:
     real_analyze = logit_lens.analyze_word_on_device
     lens.lens_forward, logit_lens.analyze_word_on_device = profiled, analyze
     lens_kernel.lens_stats.launches = 0
-    lens_kernel.lens_stats.route_launches.update(wgmma=0, simple=0)
+    lens_kernel.lens_stats.route_launches.update(
+        dict.fromkeys(lens_kernel.lens_stats.route_launches, 0))
     try:
         t0 = time.perf_counter()
         results = logit_lens.run_evaluation(
@@ -6309,8 +6611,8 @@ def check_tp_serve(torch, ctx, sae, tgt, ref_streams, served, spec_ref,
     if worst_rel > TP_PROB_RTOL:
         fail(f"16b: lens probabilities differ by {worst_rel} (relative)")
     t = served["timing"]
-    if t["wgmma"] != 1:
-        fail(f"16b: the profiled tp step ran {t['wgmma']} readout kernels")
+    if t["readouts_per_step"] != 1:
+        fail(f"16b: the profiled tp step ran {t['readouts']} readout kernels")
     van_toks, van_margins = spec_ref
     st = served["spec_stats"]
     log(f"  tp 2 speculative engine ({served['spec_name']}, k 2, G 3) over 8 "
@@ -6488,10 +6790,10 @@ def drive_parallel_tp(torch, workdir: str, ctx: tuple, *,
         log(f"  per-shard lens_stats N={s['n']} V={s['v']} K={s['k']}: "
             f"max_abs_err {s['max_abs_err']:.3e} (atol {ATOL}), ids equal on "
             f"{s['clear'] - s['bad']}/{s['clear']} rows with clear margins, "
-            f"wgmma launches {s['wgmma']}; {s['ms']:.3f} ms, plain "
+            f"launches by route {s['launches']}; {s['ms']:.3f} ms, plain "
             f"{s['plain_ms']:.3f} ms, library {s['library_ms']:.3f} ms, bound "
             f"{s['bound_ms']:.3f} ms ({s['bound_by']})")
-        if s["max_abs_err"] > ATOL or s["bad"] or s["wgmma"] != 1:
+        if s["max_abs_err"] > ATOL or s["bad"] or s["launches"] != {s["route"]: 1}:
             fail(f"the per-shard lens_stats call disagrees: {s}")
         rows[key] = s
     c = ranks[0]["collective_ms"]
@@ -6638,8 +6940,10 @@ def main() -> int:
     device, card = report_device(torch)
     build_kernels()
     wgmma, simple = check_lens_stats(torch)
+    splitv = check_splitv(torch)
     worst = check_edges(torch)
     wgmma["max_abs_err"] = max(wgmma["max_abs_err"], worst["wgmma"])
+    splitv["max_abs_err"] = max(splitv["max_abs_err"], worst["splitv"])
     simple["max_abs_err"] = max(worst["simple"], check_small_against_cpu(torch))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         by_route, ctx = drive_main_path(torch, workdir)
@@ -6659,27 +6963,35 @@ def main() -> int:
         parallel = drive_parallel_tp(torch, workdir, ctx)
         del ctx
         parallel.update(drive_parallel_sp(torch, workdir))
-    # ``launches`` is the main path's own count; the serving path's and the
-    # speculative verify's readout kernels per step, counted in profiled
-    # steps, ride beside it.
-    wgmma["max_abs_err"] = max(wgmma["max_abs_err"], serve.pop("serve_max_abs_err"),
-                               spec.pop("spec_verify_max_abs_err"))
-    wgmma.update(serve)
-    wgmma.update(spec)
-    wgmma.update(grid)
-    wgmma.update(fleet)
+    # Each entry's ``launches`` is its own path's count: the main path's
+    # (phase 6) for the wgmma and simple kernels, the serving path's (11b's
+    # eager sessions) for the split-V kernel.  The small-N readouts' numbers
+    # (serving, speculative verify, attack search, replica, tp serve shard)
+    # ride beside the split-V entry, the main path's beside the wgmma one.
+    splitv["max_abs_err"] = max(splitv["max_abs_err"],
+                                serve.pop("serve_max_abs_err"),
+                                spec.pop("spec_verify_max_abs_err"),
+                                parallel.pop("tp_serve_shard_max_abs_err"))
+    splitv["launches"] = serve.pop("serve_path_launches")["splitv"]
+    for part in (serve, spec, grid, fleet):
+        splitv.update(part)
+    splitv.update({k: parallel.pop(k) for k in list(parallel)
+                   if k.startswith("tp_serve_shard_") or k == "tp_step_ms"})
     wgmma.update(profiled)
     wgmma.update(parity)
     wgmma.update(parallel)
     wgmma["max_abs_err"] = max(wgmma["max_abs_err"],
-                               wgmma.pop("tp_shard_max_abs_err"),
-                               wgmma.pop("tp_serve_shard_max_abs_err"))
+                               wgmma.pop("tp_shard_max_abs_err"))
     wgmma["launches"] = by_route["wgmma"]
     simple["launches"] = by_route["simple"]
+    if not (splitv["launches"] and wgmma["launches"]):
+        fail(f"a path ran without its kernel: splitv {splitv['launches']} "
+             f"launches on the serving path, wgmma {wgmma['launches']} on "
+             "the main path")
     # Again at the end, beside the numbers, where a tail of the output
     # keeps it.
     print(card, flush=True)
-    print(json.dumps({"kernels": [wgmma, simple]}), flush=True)
+    print(json.dumps({"kernels": [splitv, wgmma, simple]}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0
 

@@ -11,6 +11,8 @@ Entry points that create tensors (``models.gemma2.init_params``, the loaders
 in ``models.params`` and ``runtime.checkpoints``, the CLI) take a ``device``;
 left unset it is ``cuda``, and they raise when CUDA is absent.  Functions
 over existing params run on the params' device.  On CUDA tensors the lens
-readout runs the hand-written kernel ``csrc/lens_stats.cu``; on CPU tensors
-it runs that kernel's plain PyTorch version.
+readout runs one of the hand-written kernels under ``csrc/``
+(``ops.lens_kernel.lens_plan`` picks it: the split-V kernel for a few rows,
+the wgmma kernel for more, ``lens_stats.cu`` for f32 or a long top-k); on CPU
+tensors it runs their plain PyTorch version.
 """

@@ -1,0 +1,831 @@
+// Fused logit-lens statistics for few rows on NVIDIA Hopper (sm_90a): the
+// vocabulary streamed once as a split-V GEMV, rows of E as the wgmma's M.
+//
+// Replaces the TPU kernel of the JAX package, ops/pallas_lens.py
+// `_lens_tile_kernel` launched by `lens_stats`, for the calls with few rows:
+// bf16 inputs, top_k <= KMAX and N <= the route's row limit (the wrapper,
+// ops/lens_kernel.py `lens_plan`, sends them here; the main path's N 1140
+// stays on lens_stats_wgmma.cu).  Those are the serving readouts: one row per
+// slot (N 8), the speculative verify (N 32), the attack search and each tp
+// shard.  For rows x [N, D] and the tied embedding E [V, D] each block owns a
+// contiguous chunk of the vocabulary and writes one partial per (chunk, row),
+// the same contract as the other two kernels:
+//
+//   logits = x @ E[chunk]^T            (bf16 wgmma, f32 accumulate)
+//   logits = tanh(logits / cap) * cap   [CAP only]
+//   part_max[s, n], part_sumexp[s, n]   max / sum exp(logit - max)
+//   part_tgt[s, n]                      logit of targets[n] in the chunk, else -1e30
+//   part_vals/ids[s, n, :K]             the chunk's top-K, lowest id first
+//                                       among equal values
+//
+// and, unless the caller asks for the partials alone, the last block to
+// finish (one atomic ticket) merges the S chunks into the call's logsumexp,
+// target logit and top-K, as the torch epilogue `merge_partials` would: that
+// epilogue's ~20 small launches took 15-16% of a call at N 8 on an H100.
+//
+// What bounds it: at N 8, D 3584, V 256000 a call is 14.7 GFLOP against 1.84
+// GB of E read once: 15 us of tensor-core work and 0.55 ms at 3.35 TB/s.  It
+// is a stream of E, and the design spends nothing that does not move it:
+//
+// - The operands are swapped.  A 128-row tile of E is the M dimension of two
+//   wgmma.m64nNk16 (one per consumer warpgroup, A = E from shared memory,
+//   K-major as stored), and the N rows of x, padded to a multiple of 8, are
+//   the instruction's N (B = x, K-major).  wgmma rather than mma.sync: it
+//   reads both operands from shared memory itself, so the consumers spend no
+//   instructions or registers moving E into fragments, and its descriptors
+//   are those the 128-byte TMA swizzle writes (as in lens_stats_wgmma.cu).
+//   No product is spent past the pad to 8 rows.
+// - E crosses HBM once with enough bytes in flight.  One grid of one block
+//   per SM (the wrapper plans as many chunks as the card has SMs), each
+//   walking a contiguous range of 32-row vocab tiles, balanced to within one
+//   tile.  One producer thread keeps a ring of up to MAX_STAGES stages full
+//   with TMA (cp.async.bulk.tensor, full / empty mbarrier pairs): a stage is
+//   up to 128 rows x 64 deep of E (16 KB) and the N x 64 slice of x beside it,
+//   so 96-128 KB of E can be in flight per SM (6-8 stages, fewer at larger
+//   N), more than Little's law asks at ~1 us and 25 GB/s per SM.  x (at most 64 x 3584 bf16) does not fit in
+//   shared memory whole; each stage streams its slice from L2.  A chunk's
+//   last tile may be 32, 64 or 96 rows: only those boxes are loaded, and the
+//   rows past them are masked before any statistic reads them.
+// - The epilogue touches live values only.  After a tile's products the
+//   consumers stage its [N, 128] logits in shared memory (double-buffered:
+//   one named barrier per tile), and each consumer warp folds the rows it
+//   owns (tokens w, w + 8, ...), one token across the 32 lanes: an online max
+//   / sum-exp (warp-uniform max, per-lane sums), the target logit, and a
+//   top-KMAX list held one entry per lane (lanes 0 .. KMAX-1).  A value
+//   enters the list only when above its last entry; candidates are found by
+//   ballot and inserted in ascending id, so ties keep the lowest id.  exp2
+//   and the cap's tanh come from the approximate-function unit, as in
+//   lens_stats_wgmma.cu (within about 1e-5 at a cap of 30).
+//
+// The macro LENS_ANATOMY_SKIP_FOLD leaves out the staging and the fold; only
+// perf/lens_anatomy.py sets it, to time the stream alone, and its partials
+// are meaningless.
+//
+// Plain C interface, built with nvcc into a shared library and loaded with
+// ctypes.  The launcher returns 0, a cudaError_t of the launch, or a negative
+// code for a tensor map the driver refused (see tbx_splitv_error_string).
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <limits.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int TILE_ROWS = 32;     // vocab rows per plan tile: one TMA box of E
+constexpr int BLOCK_ROWS = 128;   // vocab rows per wgmma tile: two warpgroups
+constexpr int BK = 64;            // depth per stage: one 128-byte row of bf16
+constexpr int MAX_NT = 8;         // 8-row groups of x the kernel holds
+constexpr int MAX_ROWS = 8 * MAX_NT;
+constexpr int KMAX = 8;           // longest top-k this kernel keeps
+static_assert(KMAX <= 32, "one list entry per lane");
+constexpr int MAX_STAGES = 8;
+constexpr int CONSUMER_THREADS = 256;
+constexpr int CONSUMER_WARPS = CONSUMER_THREADS / 32;
+constexpr int THREADS = CONSUMER_THREADS + 32;  // + one producer warp
+constexpr int BOX_BYTES = TILE_ROWS * BK * 2;   // 4 KB of E
+constexpr int E_BYTES = BLOCK_ROWS * BK * 2;    // 16 KB of E per stage
+constexpr int LOGIT_STRIDE = BLOCK_ROWS + 4;    // floats per staged token row
+constexpr int SMEM_LIMIT = 232448;              // a block's most on sm_90
+constexpr int FIXED_BYTES = 1024 + 2 * MAX_STAGES * 8;
+constexpr int STATIC_BYTES = 16;                // the merge's flag, padded
+constexpr float NEG_BIG = -1e30f;     // logit of an absent target
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr unsigned FULL_MASK = 0xffffffffu;
+// A barrier wait that outlasts this traps instead of hanging the card.
+constexpr unsigned long long WAIT_LIMIT_NS = 10ull * 1000 * 1000 * 1000;
+
+// Shared-memory layout for NT 8-row groups of x: the ring (1024-aligned
+// stages of E then x), the full and empty barriers, then two staging buffers
+// of [8 NT, LOGIT_STRIDE] floats.
+__host__ __device__ constexpr int stage_bytes(int nt) {
+  return E_BYTES + 8 * nt * BK * 2;
+}
+__host__ __device__ constexpr int staging_bytes(int nt) {
+  return 2 * 8 * nt * LOGIT_STRIDE * 4;
+}
+__host__ __device__ constexpr int ring_stages(int nt) {
+  return (SMEM_LIMIT - STATIC_BYTES - FIXED_BYTES - staging_bytes(nt)) /
+                     stage_bytes(nt) <
+                 MAX_STAGES
+             ? (SMEM_LIMIT - STATIC_BYTES - FIXED_BYTES - staging_bytes(nt)) /
+                   stage_bytes(nt)
+             : MAX_STAGES;
+}
+__host__ __device__ constexpr int smem_bytes(int nt) {
+  return FIXED_BYTES + ring_stages(nt) * stage_bytes(nt) + staging_bytes(nt);
+}
+static_assert(ring_stages(MAX_NT) >= 4, "the ring needs 4 stages at N 64");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---------------------------------------------------------------- mbarrier
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t addr, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+      "selp.u32 %0, 1, 0, p;\n\t}"
+      : "=r"(done)
+      : "r"(addr), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ unsigned long long globaltimer_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Wait for the phase of the given parity to complete.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const unsigned long long t0 = globaltimer_ns();
+  while (!mbar_try_wait(bar, parity)) {
+    if (globaltimer_ns() - t0 > WAIT_LIMIT_NS) __trap();
+  }
+}
+
+// The consumer warpgroups' own barrier (the producer warp takes no part).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(CONSUMER_THREADS) : "memory");
+}
+
+// --------------------------------------------------------------------- TMA
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// ------------------------------------------------------------------- wgmma
+
+// Shared-memory matrix descriptor of a K-major tile written by TMA with the
+// 128-byte swizzle: rows of 128 bytes, 8-row groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |          // leading offset (unused)
+         (static_cast<uint64_t>(1024 >> 4) << 32) |  // stride offset
+         (static_cast<uint64_t>(1) << 62);           // 128-byte swizzle
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads of the accumulator above a wait.
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64 x 8 NT] += A[64 x 16] * B[8 NT x 16]^T, both K-major in shared memory
+// (A = 64 rows of E, B = the rows of x).
+template <int NT>
+__device__ __forceinline__ void wgmma_tile(float (&d)[4 * NT], uint64_t da,
+                                           uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_tile<1>(float (&d)[4], uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, "
+      "%4, %5, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tile<2>(float (&d)[8], uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tile<3>(float (&d)[12], uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %14, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, "
+      "%12, %13, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tile<4>(float (&d)[16], uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tile<5>(float (&d)[20], uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %22, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19}, "
+      "%20, %21, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tile<6>(float (&d)[24], uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23}, "
+      "%24, %25, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tile<7>(float (&d)[28], uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %30, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n56k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27}, "
+      "%28, %29, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tile<8>(float (&d)[32], uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// ------------------------------------------------------- epilogue helpers
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float fast_rcp(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// cap * tanh(x / cap) as cap * (1 - 2 / (1 + 2^(x * k2))), k2 = 2 log2(e) /
+// cap, as in lens_stats_wgmma.cu.
+__device__ __forceinline__ float capped_tanh(float x, float k2, float cap) {
+  return cap * (1.0f - 2.0f * fast_rcp(1.0f + fast_exp2(x * k2)));
+}
+
+// (a, ai) ahead of (b, bi) in the top-k order: value descending, then id
+// ascending.
+__device__ __forceinline__ bool ahead(float a, int ai, float b, int bi) {
+  return a > b || (a == b && ai < bi);
+}
+
+// ------------------------------------------------------------------ kernel
+
+// Where a launch writes: the partials, and the merged statistics of the last
+// block (lse == nullptr: the partials alone).
+struct Outputs {
+  float* part_max;     // [S, n]
+  float* part_sumexp;  // [S, n]
+  float* part_tgt;     // [S, n]
+  float* part_vals;    // [S, n, k_top]
+  int* part_ids;       // [S, n, k_top]
+  float* lse;          // [n]
+  float* tgt;          // [n]
+  float* vals;         // [n, k_top]
+  int* ids;            // [n, k_top]
+  int* ticket;         // one int, 0 at launch
+};
+
+// The last block to finish merges every chunk's partials of its tokens, as
+// ops/lens_kernel.py merge_partials does: logsumexp from the chunks' (max,
+// sum-exp), the target logit, and the top-k of the S * k_top candidates
+// (held one entry per lane, inserted in the top-k order whatever the order
+// they arrive in).  Warp w merges tokens w, w + 8, ...
+template <int NT>
+__device__ __forceinline__ void merge_chunks(const Outputs& out, int n,
+                                             int k_top, int n_chunks,
+                                             int warp, int lane) {
+#pragma unroll
+  for (int r = 0; r < NT; ++r) {
+    const int tok = warp + 8 * r;
+    if (tok >= n) break;
+    float m = -INFINITY;
+    for (int s = lane; s < n_chunks; s += 32)
+      m = fmaxf(m, __ldcg(out.part_max + (size_t)s * n + tok));
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(FULL_MASK, m, off));
+    float sum = 0.0f, tv = NEG_BIG;
+    for (int s = lane; s < n_chunks; s += 32) {
+      const size_t at = (size_t)s * n + tok;
+      sum += __ldcg(out.part_sumexp + at) * expf(__ldcg(out.part_max + at) - m);
+      tv = fmaxf(tv, __ldcg(out.part_tgt + at));
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      sum += __shfl_xor_sync(FULL_MASK, sum, off);
+      tv = fmaxf(tv, __shfl_xor_sync(FULL_MASK, tv, off));
+    }
+    float lv = -INFINITY;  // lane p < k_top holds entry p of the list
+    int li = INT_MAX;
+    for (int base = 0; base < n_chunks; base += 32) {
+      const int s = base + lane;
+      for (int kk = 0; kk < k_top; ++kk) {
+        const size_t at = ((size_t)s * n + tok) * k_top + kk;
+        const float cv = s < n_chunks ? __ldcg(out.part_vals + at) : -INFINITY;
+        const int ci = s < n_chunks ? __ldcg(out.part_ids + at) : INT_MAX;
+        float cut = __shfl_sync(FULL_MASK, lv, k_top - 1);
+        int cut_i = __shfl_sync(FULL_MASK, li, k_top - 1);
+        unsigned todo = __ballot_sync(FULL_MASK, ahead(cv, ci, cut, cut_i));
+        while (todo) {
+          const int from = __ffs(todo) - 1;
+          const float y = __shfl_sync(FULL_MASK, cv, from);
+          const int yi = __shfl_sync(FULL_MASK, ci, from);
+          const int pos = __popc(
+              __ballot_sync(FULL_MASK, lane < k_top && ahead(lv, li, y, yi)));
+          const float up_v = __shfl_up_sync(FULL_MASK, lv, 1);
+          const int up_i = __shfl_up_sync(FULL_MASK, li, 1);
+          if (lane > pos) {
+            lv = up_v;
+            li = up_i;
+          }
+          if (lane == pos) {
+            lv = y;
+            li = yi;
+          }
+          cut = __shfl_sync(FULL_MASK, lv, k_top - 1);
+          cut_i = __shfl_sync(FULL_MASK, li, k_top - 1);
+          todo &= __ballot_sync(FULL_MASK, ahead(cv, ci, cut, cut_i)) &
+                  ~((2u << from) - 1u);
+        }
+      }
+    }
+    if (lane == 0) {
+      out.lse[tok] = m + logf(sum);
+      out.tgt[tok] = tv;
+    }
+    if (lane < k_top) {
+      out.vals[tok * k_top + lane] = lv;
+      out.ids[tok * k_top + lane] = li;
+    }
+  }
+}
+
+// Grid: n_chunks blocks.  Chunk s covers the 32-row vocab tiles
+// [s * T / S, (s + 1) * T / S) of T = ceil(v / TILE_ROWS).
+template <int NT, bool CAP>
+__global__ void __launch_bounds__(THREADS, 1)
+    lens_splitv_kernel(const __grid_constant__ CUtensorMap map_x,
+                       const __grid_constant__ CUtensorMap map_e,
+                       const int* __restrict__ targets, const Outputs out,
+                       int n, int d, int v, int k_top, int n_chunks,
+                       float cap) {
+  constexpr int NPAD = 8 * NT;
+  constexpr int X_BYTES = NPAD * BK * 2;
+  constexpr int STAGE_BYTES = stage_bytes(NT);
+  constexpr int STAGES = ring_stages(NT);
+  extern __shared__ unsigned char smem_raw[];
+  // The 128-byte swizzle repeats every 1024 bytes: align the ring to it.
+  const uint32_t base = smem_u32(smem_raw);
+  const uint32_t ring = (base + 1023) & ~1023u;
+  const uint32_t full = ring + STAGES * STAGE_BYTES;  // + 8 * stage
+  const uint32_t empty = full + MAX_STAGES * 8;       // + 8 * stage
+  float* const staged =
+      reinterpret_cast<float*>(smem_raw + (empty + MAX_STAGES * 8 - base));
+
+  const int chunk = blockIdx.x;
+  const int vocab_tiles = (v + TILE_ROWS - 1) / TILE_ROWS;
+  const int row_begin =
+      (int)((long long)chunk * vocab_tiles / n_chunks) * TILE_ROWS;
+  const int row_end = min(
+      v, (int)((long long)(chunk + 1) * vocab_tiles / n_chunks) * TILE_ROWS);
+  const int k_steps = (d + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMER_THREADS) {
+    // ---- producer warp: one lane keeps the ring full.
+    if (threadIdx.x == CONSUMER_THREADS) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int row0 = row_begin; row0 < row_end; row0 += BLOCK_ROWS) {
+        const int boxes =
+            (min(BLOCK_ROWS, row_end - row0) + TILE_ROWS - 1) / TILE_ROWS;
+        for (int ks = 0; ks < k_steps; ++ks) {
+          mbar_wait(empty + 8 * stage, phase ^ 1);
+          const uint32_t s = ring + stage * STAGE_BYTES;
+          mbar_expect_tx(full + 8 * stage, boxes * BOX_BYTES + X_BYTES);
+          for (int b = 0; b < boxes; ++b) {
+            tma_load_2d(s + b * BOX_BYTES, &map_e, full + 8 * stage, ks * BK,
+                        row0 + b * TILE_ROWS);
+          }
+          tma_load_2d(s + E_BYTES, &map_x, full + 8 * stage, ks * BK, 0);
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg multiplies rows wg*64 .. wg*64+63 of each
+  // tile; warp w folds tokens w, w + 8, ... of it.
+  const int wg = threadIdx.x / 128;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int q = lane % 4;
+
+  int tgt[NT];
+  float run_max[NT], run_sum[NT], run_tgt[NT], top_v[NT];
+  int top_i[NT];
+#pragma unroll
+  for (int r = 0; r < NT; ++r) {
+    const int tok = warp + 8 * r;
+    const int t = tok < n ? targets[tok] : -1;
+    tgt[r] = (t >= row_begin && t < row_end) ? t : -1;
+    run_max[r] = -INFINITY;
+    run_sum[r] = 0.0f;
+    run_tgt[r] = NEG_BIG;
+    top_v[r] = -INFINITY;  // lane p < KMAX holds entry p of the list
+    top_i[r] = INT_MAX;
+  }
+
+  float acc[4 * NT];
+  int stage = 0;
+  uint32_t phase = 0;
+  int buf = 0;
+  for (int row0 = row_begin; row0 < row_end; row0 += BLOCK_ROWS) {
+#pragma unroll
+    for (int i = 0; i < 4 * NT; ++i) acc[i] = 0.0f;
+    int prev = 0;
+    for (int ks = 0; ks < k_steps; ++ks) {
+      mbar_wait(full + 8 * stage, phase);
+      const uint32_t s = ring + stage * STAGE_BYTES;
+      const uint32_t a = s + wg * 64 * 128;  // this warpgroup's 64 rows of E
+      const uint32_t b = s + E_BYTES;        // the slice of x
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        wgmma_tile<NT>(acc, smem_desc(a + kk * 32), smem_desc(b + kk * 32));
+      }
+      wgmma_commit();
+      if (ks > 0) {
+        // The previous stage's products are done: hand its buffer back.
+        wgmma_wait<1>();
+        if (lane == 0) mbar_arrive(empty + 8 * prev);
+      }
+      prev = stage;
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    if (lane == 0) mbar_arrive(empty + 8 * prev);
+    fence_acc(acc);
+
+#ifndef LENS_ANATOMY_SKIP_FOLD
+    // ---- stage the tile: acc[4j + 2i + c] is vocab row
+    // 64 wg + 16 (warp % 4) + lane / 4 + 8 i of the tile, token 8 j + 2 q + c.
+    float* const tile = staged + buf * NPAD * LOGIT_STRIDE;
+    const int row = 64 * wg + 16 * (warp % 4) + lane / 4;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          tile[(8 * j + 2 * q + c) * LOGIT_STRIDE + row + 8 * i] =
+              acc[4 * j + 2 * i + c];
+    consumers_sync();
+
+    // ---- fold: lane l reads columns l, l + 32, l + 64, l + 96 of a token,
+    // so visiting u, then lanes in order, visits ascending ids.
+    const int valid = min(BLOCK_ROWS, row_end - row0);
+#pragma unroll
+    for (int r = 0; r < NT; ++r) {
+      const float* src = tile + (warp + 8 * r) * LOGIT_STRIDE;
+      float x[4];
+      float tile_max = -INFINITY;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int col = lane + 32 * u;
+        float y = src[col];
+        if (CAP) y = capped_tanh(y, 2.0f * LOG2E / cap, cap);
+        x[u] = col < valid ? y : -INFINITY;
+        tile_max = fmaxf(tile_max, x[u]);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        tile_max = fmaxf(tile_max, __shfl_xor_sync(FULL_MASK, tile_max, off));
+      const float m = fmaxf(run_max[r], tile_max);
+      const float m2 = m * LOG2E;
+      float sum = 0.0f;
+      const int rel = tgt[r] - row0 - lane;  // 32 u of the target, if this lane's
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        sum += fast_exp2(fmaf(x[u], LOG2E, -m2));
+        run_tgt[r] = rel == 32 * u ? x[u] : run_tgt[r];
+      }
+      run_sum[r] = run_sum[r] * fast_exp2((run_max[r] - m) * LOG2E) + sum;
+      run_max[r] = m;
+
+      // Only a value above the list's last entry can enter it: every entry
+      // has a lower id than this tile's columns.
+      float cut = __shfl_sync(FULL_MASK, top_v[r], KMAX - 1);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        unsigned todo = __ballot_sync(FULL_MASK, x[u] > cut);
+        while (todo) {
+          const int from = __ffs(todo) - 1;
+          const float y = __shfl_sync(FULL_MASK, x[u], from);
+          const int id = row0 + 32 * u + from;
+          // Entries at or above y keep their places (lower ids among ties).
+          const int pos = __popc(
+              __ballot_sync(FULL_MASK, lane < KMAX && top_v[r] >= y));
+          const float up_v = __shfl_up_sync(FULL_MASK, top_v[r], 1);
+          const int up_i = __shfl_up_sync(FULL_MASK, top_i[r], 1);
+          if (lane > pos) {
+            top_v[r] = up_v;
+            top_i[r] = up_i;
+          }
+          if (lane == pos) {
+            top_v[r] = y;
+            top_i[r] = id;
+          }
+          cut = __shfl_sync(FULL_MASK, top_v[r], KMAX - 1);
+          todo &= __ballot_sync(FULL_MASK, x[u] > cut) & ~((2u << from) - 1u);
+        }
+      }
+    }
+    buf ^= 1;
+#else
+    // Measurement build (perf/lens_anatomy.py): the stream alone.
+    run_max[0] = fmaxf(run_max[0], acc[0] + acc[4 * NT - 1]);
+#endif  // LENS_ANATOMY_SKIP_FOLD
+  }
+
+  // ---- reduce each token's lanes and write the chunk's partials.
+#pragma unroll
+  for (int r = 0; r < NT; ++r) {
+    const int tok = warp + 8 * r;
+    float s = run_sum[r];
+    float tv = run_tgt[r];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      s += __shfl_xor_sync(FULL_MASK, s, off);
+      tv = fmaxf(tv, __shfl_xor_sync(FULL_MASK, tv, off));
+    }
+    if (tok < n) {
+      const size_t at = (size_t)chunk * n + tok;
+      if (lane == 0) {
+        out.part_max[at] = run_max[r];
+        out.part_sumexp[at] = s;
+        out.part_tgt[at] = tv;
+      }
+      if (lane < k_top) {
+        out.part_vals[at * k_top + lane] = top_v[r];
+        out.part_ids[at * k_top + lane] = top_i[r];
+      }
+    }
+  }
+  if (out.lse == nullptr) return;
+
+  // ---- the last block to finish merges the chunks (one ticket).
+  __shared__ int last;
+  __threadfence();
+  consumers_sync();
+  if (threadIdx.x == 0) last = atomicAdd(out.ticket, 1) == n_chunks - 1;
+  consumers_sync();
+  if (!last) return;
+  __threadfence();
+  merge_chunks<NT>(out, n, k_top, n_chunks, warp, lane);
+}
+
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+
+// cuTensorMapEncodeTiled from the driver the runtime has loaded (no link
+// against libcuda).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t rc = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t rc = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                             cudaEnableDefault, &found);
+#endif
+    if (rc == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// A 2-D bf16 tensor map over a row-major [rows, cols] matrix, boxes of
+// box_rows x BK with the 128-byte swizzle; reads past either edge are zero.
+CUresult make_map(CUtensorMap* map, const void* base, int rows, int cols,
+                  int box_rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+struct Args {
+  const int* targets;
+  Outputs out;
+  int n, d, v, k_top, n_chunks;
+  float cap;
+};
+
+template <int NT, bool CAP>
+int launch(const CUtensorMap& mx, const CUtensorMap& me, const Args& a,
+           cudaStream_t stream) {
+  auto kernel = lens_splitv_kernel<NT, CAP>;
+  constexpr int bytes = smem_bytes(NT);
+  static_assert(bytes + STATIC_BYTES <= SMEM_LIMIT, "shared memory");
+  cudaError_t rc = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  kernel<<<a.n_chunks, THREADS, bytes, stream>>>(
+      mx, me, a.targets, a.out, a.n, a.d, a.v, a.k_top, a.n_chunks, a.cap);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool CAP>
+int launch_rows(const CUtensorMap& mx, const CUtensorMap& me, const Args& a,
+                cudaStream_t s) {
+  switch ((a.n + 7) / 8) {
+    case 1: return launch<1, CAP>(mx, me, a, s);
+    case 2: return launch<2, CAP>(mx, me, a, s);
+    case 3: return launch<3, CAP>(mx, me, a, s);
+    case 4: return launch<4, CAP>(mx, me, a, s);
+    case 5: return launch<5, CAP>(mx, me, a, s);
+    case 6: return launch<6, CAP>(mx, me, a, s);
+    case 7: return launch<7, CAP>(mx, me, a, s);
+    case 8: return launch<8, CAP>(mx, me, a, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Geometry, checked by the wrapper against its own plan.
+int tbx_splitv_tile_rows() { return TILE_ROWS; }
+int tbx_splitv_kmax() { return KMAX; }
+int tbx_splitv_max_rows() { return MAX_ROWS; }
+int tbx_splitv_smem_bytes(int n) {
+  return n >= 1 && n <= MAX_ROWS ? smem_bytes((n + 7) / 8) : -1;
+}
+
+// Negative codes are -(CUresult) of a refused tensor map.
+const char* tbx_splitv_error_string(int code) {
+  if (code < 0) return "cuTensorMapEncodeTiled refused the tensor map";
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// Launch one pass on `stream`.  x [n, d] and e [v, d] row-major bf16, 16-byte
+// aligned, d % 8 == 0; 1 <= n <= MAX_ROWS; targets [n] int32 (-1 = none);
+// 1 <= k_top <= KMAX; 1 <= n_chunks <= ceil(v / TILE_ROWS).  Partials
+// [n_chunks, n] and [n_chunks, n, k_top] as in the file header; with lse
+// not null, also the merged statistics lse, tgt [n], vals and ids [n, k_top],
+// counted on ticket (one int, 0 at launch).
+int tbx_lens_splitv(const void* x, const void* e, const int* targets,
+                    float* part_max, float* part_sumexp, float* part_tgt,
+                    float* part_vals, int* part_ids, float* lse, float* tgt,
+                    float* vals, int* ids, int* ticket, int n, int d, int v,
+                    int k_top, int n_chunks, int has_cap, float cap,
+                    void* stream) {
+  if (n < 1 || n > MAX_ROWS || k_top < 1 || k_top > KMAX || n_chunks < 1 ||
+      n_chunks > (v + TILE_ROWS - 1) / TILE_ROWS ||
+      (lse != nullptr && (tgt == nullptr || vals == nullptr ||
+                          ids == nullptr || ticket == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CUtensorMap mx, me;
+  CUresult cr = make_map(&mx, x, n, d, 8 * ((n + 7) / 8));
+  if (cr != CUDA_SUCCESS) return -static_cast<int>(cr);
+  cr = make_map(&me, e, v, d, TILE_ROWS);
+  if (cr != CUDA_SUCCESS) return -static_cast<int>(cr);
+  const Args a{targets,
+               {part_max, part_sumexp, part_tgt, part_vals, part_ids, lse,
+                tgt, vals, ids, ticket},
+               n, d, v, k_top, n_chunks, cap};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return has_cap ? launch_rows<true>(mx, me, a, s)
+                 : launch_rows<false>(mx, me, a, s);
+}
+
+}  // extern "C"

@@ -7,13 +7,19 @@ logits with their ids.  A kernel streams the embedding and writes one set of
 partials per chunk of the vocabulary; :func:`merge_partials`, a small torch
 epilogue, merges them, so the ``[N, V]`` logits never reach device memory.
 
-Two kernels, two routes, chosen by :func:`lens_plan` from dtype and top-k
-alone, before the launch:
+Three kernels, three routes, chosen by :func:`lens_plan` before the launch
+from the call's rows, vocabulary, top-k, dtype and the card's SM count:
 
+- ``"splitv"`` (``csrc/lens_stats_splitv.cu``): bf16 inputs, ``top_k <=
+  KMAX`` and at most :data:`SPLITV_MAX_ROWS` rows: the serving readouts (N 8
+  per step, N 32 per speculative verify, each tp shard's).  E's rows are the
+  wgmma's M and the few rows of x its N; one block per SM streams a balanced
+  range of 32-row vocab tiles once (TMA ring), and each consumer warp folds
+  its tokens' logits across the lanes.  One partial per (chunk, row).
 - ``"wgmma"`` (``csrc/lens_stats_wgmma.cu``): bf16 inputs and
-  ``top_k <= KMAX``, which is every call of the main path.  TMA ring, wgmma,
-  128 x 256 tiles and a running per-row state across a vocab chunk: one
-  partial per (chunk, row).
+  ``top_k <= KMAX`` with more rows, which is every call of the main path.
+  TMA ring, wgmma, 128 x 256 tiles and a running per-row state across a
+  vocab chunk: one partial per (chunk, row).
 - ``"simple"`` (``csrc/lens_stats.cu``): f32 inputs or a longer top-k.  WMMA
   or FMA tiles of 64 x 128 with one partial per 128 columns.
 
@@ -61,6 +67,16 @@ BLOCK_V = 128
 WGMMA_ROWS, WGMMA_COLS = 128, 256
 KMAX = 8
 
+#: The split-V kernel's plan tile: vocab rows per step of a chunk (one TMA
+#: box of E).
+SPLITV_TILE = 32
+
+#: The most rows the split-V route takes; more go to the wgmma kernel.  The
+#: two routes timed on the card do not cross within the kernel's own limit
+#: (the split-V call is the faster at every N from 1 to 64, ``PERF.md``), so
+#: the route takes every N the kernel's shared memory holds.
+SPLITV_MAX_ROWS = 64
+
 #: Streaming multiprocessors of an H100 SXM, the default of :func:`lens_plan`;
 #: a launch plans with its card's own count.
 H100_SMS = 132
@@ -72,6 +88,7 @@ MIN_CHUNK_TILES = 8
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 SOURCES = {
+    "splitv": os.path.join(_CSRC, "lens_stats_splitv.cu"),
     "wgmma": os.path.join(_CSRC, "lens_stats_wgmma.cu"),
     "simple": os.path.join(_CSRC, "lens_stats.cu"),
 }
@@ -106,7 +123,7 @@ class LensPartials(NamedTuple):
 
 class LensPlan(NamedTuple):
     """How one call is cut: the route, its tiles and its vocab chunks."""
-    route: str                  # "wgmma" or "simple"
+    route: str                  # "splitv", "wgmma" or "simple"
     row_tiles: int              # blocks along the rows
     vocab_tiles: int            # kernel tiles along the vocabulary
     chunks: int                 # S: partials per row
@@ -117,36 +134,59 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _wgmma_bounds(v: int, chunks: int) -> Tuple[int, ...]:
-    """Chunk s covers the vocab tiles [s*T // S, (s+1)*T // S), as the kernel
-    computes them."""
+def _tile_bounds(v: int, cols: int, chunks: int) -> Tuple[int, ...]:
+    """Chunk s covers the vocab tiles [s*T // S, (s+1)*T // S) of T =
+    ceil(v / cols), as the kernels compute them."""
+    tiles = _cdiv(v, cols)
+    return tuple(min(v, (s * tiles // chunks) * cols) for s in range(chunks + 1))
+
+
+def _splitv_plan(n: int, v: int, sm_count: int) -> LensPlan:
+    """One row tile, ``ceil(V / 32)`` vocab tiles, and one chunk per SM
+    (fewer when there are fewer tiles): a single wave of blocks, each
+    within one tile of the others."""
+    tiles = _cdiv(v, SPLITV_TILE)
+    chunks = min(tiles, sm_count)
+    return LensPlan("splitv", 1, tiles, chunks,
+                    _tile_bounds(v, SPLITV_TILE, chunks))
+
+
+def _wgmma_plan(n: int, v: int, sm_count: int) -> LensPlan:
+    """``ceil(N / 128)`` row tiles, ``ceil(V / 256)`` vocab tiles, and S
+    chunks of whole vocab tiles, at least :data:`MIN_CHUNK_TILES` of them
+    where there are that many.  S is the smallest count that minimises
+    (waves of blocks over the card's SMs) x (vocab tiles in the longest
+    chunk), so the blocks fill whole waves evenly."""
+    rows = _cdiv(n, WGMMA_ROWS)
     tiles = _cdiv(v, WGMMA_COLS)
-    return tuple(min(v, (s * tiles // chunks) * WGMMA_COLS)
-                 for s in range(chunks + 1))
+    chunks = min(range(1, _cdiv(tiles, MIN_CHUNK_TILES) + 1),
+                 key=lambda s: (_cdiv(rows * s, sm_count) * _cdiv(tiles, s), s))
+    return LensPlan("wgmma", rows, tiles, chunks,
+                    _tile_bounds(v, WGMMA_COLS, chunks))
+
+
+def _simple_plan(n: int, v: int) -> LensPlan:
+    """64-row tiles and one chunk per 128 vocab columns."""
+    tiles = v // BLOCK_V
+    return LensPlan("simple", _cdiv(n, 64), tiles, tiles,
+                    tuple(range(0, v + 1, BLOCK_V)))
 
 
 def lens_plan(n: int, v: int, k: int, dtype: torch.dtype, *,
               sm_count: int = H100_SMS) -> LensPlan:
     """The route and geometry of a lens-stats call over N rows, V vocab
-    columns and top-``k``, decided from dtype and ``k`` alone.
+    columns and top-``k`` on a card of ``sm_count`` SMs.
 
-    bf16 with ``k <= KMAX`` takes the wgmma kernel: ``ceil(N / 128)`` row
-    tiles, ``ceil(V / 256)`` vocab tiles, and S chunks of whole vocab tiles,
-    at least :data:`MIN_CHUNK_TILES` of them where there are that many.  S is
-    the smallest count that minimises (waves of blocks over the card's SMs) x
-    (vocab tiles in the longest chunk), so the blocks fill whole waves
-    evenly.  Anything else takes the simple kernel: 64-row tiles and one
-    chunk per 128 vocab columns.
+    bf16 with ``k <= KMAX`` takes the split-V kernel up to
+    :data:`SPLITV_MAX_ROWS` rows (:func:`_splitv_plan`) and the wgmma kernel
+    above (:func:`_wgmma_plan`); anything else takes the simple kernel
+    (:func:`_simple_plan`).
     """
     if dtype == torch.bfloat16 and k <= KMAX:
-        rows = _cdiv(n, WGMMA_ROWS)
-        tiles = _cdiv(v, WGMMA_COLS)
-        chunks = min(range(1, _cdiv(tiles, MIN_CHUNK_TILES) + 1),
-                     key=lambda s: (_cdiv(rows * s, sm_count) * _cdiv(tiles, s), s))
-        return LensPlan("wgmma", rows, tiles, chunks, _wgmma_bounds(v, chunks))
-    tiles = v // BLOCK_V
-    return LensPlan("simple", _cdiv(n, 64), tiles, tiles,
-                    tuple(range(0, v + 1, BLOCK_V)))
+        if n <= SPLITV_MAX_ROWS:
+            return _splitv_plan(n, v, sm_count)
+        return _wgmma_plan(n, v, sm_count)
+    return _simple_plan(n, v)
 
 
 def whole_plan(v: int) -> LensPlan:
@@ -284,7 +324,7 @@ def lens_stats_partials_reference(
 
 
 def merge_partials(parts: LensPartials) -> LensStats:
-    """The epilogue of both routes: global logsumexp from the chunks' (max,
+    """The epilogue of every route: global logsumexp from the chunks' (max,
     sum-exp), the target logit, and the top-k of the S*K candidates."""
     s, n = parts.chunk_max.shape
     k = parts.cand_vals.shape[-1]
@@ -353,6 +393,25 @@ def bind_library(route: str, path: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(path)
     p = ctypes.c_void_p
     i = ctypes.c_int
+    if route == "splitv":
+        for name in ("tbx_splitv_tile_rows", "tbx_splitv_kmax",
+                     "tbx_splitv_max_rows"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = i
+        lib.tbx_splitv_smem_bytes.argtypes = [i]
+        lib.tbx_splitv_smem_bytes.restype = i
+        lib.tbx_splitv_error_string.argtypes = [i]
+        lib.tbx_splitv_error_string.restype = ctypes.c_char_p
+        lib.tbx_lens_splitv.argtypes = [p] * 13 + [i, i, i, i, i, i,
+                                                   ctypes.c_float, p]
+        lib.tbx_lens_splitv.restype = i
+        geometry = (lib.tbx_splitv_tile_rows(), lib.tbx_splitv_kmax())
+        rows = lib.tbx_splitv_max_rows()
+        if geometry != (SPLITV_TILE, KMAX) or rows < SPLITV_MAX_ROWS:
+            raise RuntimeError(f"{path} has tile/KMAX {geometry} and holds "
+                               f"{rows} rows, expected {(SPLITV_TILE, KMAX)} "
+                               f"and {SPLITV_MAX_ROWS}")
+        return lib
     if route == "wgmma":
         for name in ("tbx_wgmma_block_rows", "tbx_wgmma_block_cols",
                      "tbx_wgmma_kmax", "tbx_wgmma_smem_bytes"):
@@ -393,9 +452,11 @@ def _sm_count(device: torch.device) -> int:
 
 
 def _launch(x: torch.Tensor, embed: torch.Tensor, targets: torch.Tensor,
-            plan: LensPlan, top_k: int,
-            logit_cap: Optional[float]) -> LensPartials:
-    """One kernel launch of ``plan``'s route; returns its partials."""
+            plan: LensPlan, top_k: int, logit_cap: Optional[float], *,
+            merged: bool = False) -> Union[LensPartials, LensStats]:
+    """One kernel launch of ``plan``'s route; returns its partials, or with
+    ``merged`` (the split-V route only) the :class:`LensStats` its last block
+    merges them into."""
     if embed.device != x.device or targets.device != x.device:
         raise ValueError(f"x is on {x.device} but embed on {embed.device} and "
                          f"targets on {targets.device}")
@@ -413,18 +474,29 @@ def _launch(x: torch.Tensor, embed: torch.Tensor, targets: torch.Tensor,
                          "aligned")
     if n == 0:
         raise ValueError("the lens kernels take N >= 1 rows")
-    if plan.route == "wgmma":
+    if plan.route == "splitv":
+        if x.dtype != torch.bfloat16 or top_k > KMAX or n > SPLITV_MAX_ROWS:
+            raise ValueError(f"the splitv route takes bf16, top_k <= {KMAX} "
+                             f"and N <= {SPLITV_MAX_ROWS}, got {x.dtype}, "
+                             f"{top_k} and {n}")
+        tiles = _cdiv(v, SPLITV_TILE)
+        if not 1 <= plan.chunks <= tiles:
+            raise ValueError(f"plan {plan[:4]} does not cut V={v}")
+        expected = (1, tiles, _tile_bounds(v, SPLITV_TILE, plan.chunks))
+    elif plan.route == "wgmma":
         if x.dtype != torch.bfloat16 or top_k > KMAX:
             raise ValueError(f"the wgmma route takes bf16 and top_k <= {KMAX}, "
                              f"got {x.dtype} and {top_k}")
         expected = (_cdiv(n, WGMMA_ROWS), _cdiv(v, WGMMA_COLS),
-                    _wgmma_bounds(v, plan.chunks))
+                    _tile_bounds(v, WGMMA_COLS, plan.chunks))
     elif plan.route == "simple":
         expected = (_cdiv(n, 64), v // BLOCK_V, tuple(range(0, v + 1, BLOCK_V)))
         if v // BLOCK_V > 65535:
             raise ValueError(f"the simple route takes V <= {65535 * BLOCK_V}")
     else:
         raise ValueError(f"unknown route {plan.route!r}")
+    if merged and plan.route != "splitv":
+        raise ValueError(f"the {plan.route} kernel writes partials only")
     if (plan.row_tiles, plan.vocab_tiles, plan.bounds) != expected:
         raise ValueError(f"plan {plan[:4]} does not cut N={n}, V={v}")
 
@@ -439,9 +511,23 @@ def _launch(x: torch.Tensor, embed: torch.Tensor, targets: torch.Tensor,
         cand_ids=torch.empty((s, n, top_k), dtype=torch.int32, device=x.device))
     ptrs = [t.data_ptr() for t in (x, embed, targets, *parts)]
     has_cap, cap = int(logit_cap is not None), float(logit_cap or 0.0)
+    stats, ticket = None, None
+    if merged:
+        stats = LensStats(
+            logsumexp=torch.empty((n,), **f32),
+            target_logit=torch.empty((n,), **f32),
+            topk_vals=torch.empty((n, top_k), **f32),
+            topk_ids=torch.empty((n, top_k), dtype=torch.int32, device=x.device))
+        ticket = torch.zeros((1,), dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if plan.route == "wgmma":
+        if plan.route == "splitv":
+            merge_ptrs = ([t.data_ptr() for t in (*stats, ticket)] if merged
+                          else [None] * 5)
+            rc = lib.tbx_lens_splitv(*ptrs, *merge_ptrs, n, d, v, top_k, s,
+                                     has_cap, cap, stream)
+            why = lib.tbx_splitv_error_string
+        elif plan.route == "wgmma":
             rc = lib.tbx_lens_wgmma(*ptrs, n, d, v, top_k, s, has_cap, cap,
                                     stream)
             why = lib.tbx_wgmma_error_string
@@ -454,7 +540,7 @@ def _launch(x: torch.Tensor, embed: torch.Tensor, targets: torch.Tensor,
                            f"({rc}): {why(rc).decode()}")
     lens_stats.launches += 1
     lens_stats.route_launches[plan.route] += 1
-    return parts
+    return stats if merged else parts
 
 
 def lens_stats_partials(
@@ -475,11 +561,17 @@ def lens_stats_partials(
         return lens_stats_partials_reference(
             x, embed, targets, lens_plan(n, v, top_k, x.dtype), top_k=top_k,
             logit_cap=logit_cap)
+    return _launch(x, embed, targets, _device_plan(x, embed, top_k), top_k,
+                   logit_cap)
+
+
+def _device_plan(x: torch.Tensor, embed: torch.Tensor, top_k: int) -> LensPlan:
+    """:func:`lens_plan` for CUDA inputs on their card."""
     if x.device.type != "cuda":
         raise ValueError(f"lens_stats runs on CUDA or CPU tensors, got "
                          f"{x.device} and {embed.device}")
-    plan = lens_plan(n, v, top_k, x.dtype, sm_count=_sm_count(x.device))
-    return _launch(x, embed, targets, plan, top_k, logit_cap)
+    return lens_plan(x.shape[0], embed.shape[0], top_k, x.dtype,
+                     sm_count=_sm_count(x.device))
 
 
 def lens_stats(
@@ -497,17 +589,22 @@ def lens_stats(
     id for every row or one per row; ``-1`` gives :data:`NEG_INF`.
     ``logit_cap=None`` is the reference lens (bare logits).
 
-    CUDA tensors run a kernel (:func:`lens_plan` picks which) and
-    :func:`merge_partials`; CPU tensors run :func:`lens_stats_reference`.
+    CUDA tensors run a kernel (:func:`lens_plan` picks which): the split-V
+    kernel merges its own chunks in the same launch, the others' partials go
+    through :func:`merge_partials`.  CPU tensors run
+    :func:`lens_stats_reference`.
     """
     _check_shapes(x, embed, top_k)
     if x.device.type == "cpu" and embed.device.type == "cpu":
         return lens_stats_reference(x, embed, target_id, top_k=top_k,
                                     logit_cap=logit_cap)
-    return merge_partials(lens_stats_partials(x, embed, target_id, top_k=top_k,
-                                              logit_cap=logit_cap))
+    targets = _targets(target_id, x.shape[0], x.device)
+    plan = _device_plan(x, embed, top_k)
+    if plan.route == "splitv":
+        return _launch(x, embed, targets, plan, top_k, logit_cap, merged=True)
+    return merge_partials(_launch(x, embed, targets, plan, top_k, logit_cap))
 
 
 #: Kernel launches since the count was last set to 0, in all and by route.
 lens_stats.launches = 0
-lens_stats.route_launches = {"wgmma": 0, "simple": 0}
+lens_stats.route_launches = {"splitv": 0, "wgmma": 0, "simple": 0}

@@ -1,13 +1,16 @@
-"""Where the wgmma lens kernel's time goes, measured on the card.
+"""Where a lens kernel's time goes, measured on the card.
 
     python3 -m taboo_brittleness_tpu_torch.perf.lens_anatomy [--reps 10]
+        [--route wgmma|splitv] [--rows 1140] [--top-k 5]
 
-Builds ``csrc/lens_stats_wgmma.cu`` three ways: as shipped, without the
-running top-k (``-DLENS_ANATOMY_SKIP_TOPK``), and without the whole per-tile
-fold (``-DLENS_ANATOMY_SKIP_FOLD``, the product alone).  At the main path's
-N = 1140, V = 256000, K = 5 in bf16 it times each build's launch (CUDA
-events, means over ``--reps``) for D in 1792, 3584 and 7168, the builds in
-turns, beside ``torch.matmul(x, E^T)`` (cuBLAS, bf16 out) on the same inputs.
+Builds the route's source (``csrc/lens_stats_wgmma.cu`` or
+``csrc/lens_stats_splitv.cu``) as shipped, without the whole per-tile fold
+(``-DLENS_ANATOMY_SKIP_FOLD``, the product alone) and, for the wgmma kernel,
+without the running top-k (``-DLENS_ANATOMY_SKIP_TOPK``).  At ``--rows`` N
+(the main path's 1140 by default), V = 256000 and ``--top-k`` in bf16 it
+times each build's launch on the route's own plan (CUDA events, means over
+``--reps``) for D in 1792, 3584 and 7168, the builds in turns, beside
+``torch.matmul(x, E^T)`` (cuBLAS, bf16 out) on the same inputs.
 The cut builds' partials are meaningless; only their times are read.  The
 fold's cost is the difference of the full and the product-only build, the
 top-k's the difference of the full and the no-top-k build, and a line fitted
@@ -30,19 +33,23 @@ import torch
 
 from taboo_brittleness_tpu_torch.ops import lens_kernel as lk
 
-N_ROWS, VOCAB, TOP_K = 1140, 256_000, 5
+VOCAB = 256_000
 DEPTHS = (1792, 3584, 7168)
-BUILDS = {"full": (), "no_topk": ("LENS_ANATOMY_SKIP_TOPK",),
-          "product_only": ("LENS_ANATOMY_SKIP_FOLD",)}
+BUILDS = {
+    "wgmma": {"full": (), "no_topk": ("LENS_ANATOMY_SKIP_TOPK",),
+              "product_only": ("LENS_ANATOMY_SKIP_FOLD",)},
+    "splitv": {"full": (), "product_only": ("LENS_ANATOMY_SKIP_FOLD",)},
+}
+PLANS = {"wgmma": lk._wgmma_plan, "splitv": lk._splitv_plan}
 
 
-def build_variants() -> dict:
+def build_variants(route: str) -> dict:
     """{build: shared library path}, one nvcc each, started together."""
     os.makedirs(lk.BUILD_DIR, exist_ok=True)
-    source = lk.SOURCES["wgmma"]
+    source = lk.SOURCES[route]
     running = {}
-    for name, defines in BUILDS.items():
-        out = os.path.join(lk.BUILD_DIR, f"lens_anatomy_{name}.so")
+    for name, defines in BUILDS[route].items():
+        out = os.path.join(lk.BUILD_DIR, f"lens_anatomy_{route}_{name}.so")
         cmd = [lk._nvcc(), *lk.NVCC_FLAGS, *(f"-D{d}" for d in defines),
                "-o", out, source]
         running[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -57,23 +64,28 @@ def build_variants() -> dict:
     return paths
 
 
-def launcher(lib, x: torch.Tensor, embed: torch.Tensor, plan: lk.LensPlan):
+def launcher(lib, x: torch.Tensor, embed: torch.Tensor, plan: lk.LensPlan,
+             top_k: int):
     """A function that launches ``lib``'s kernel once on fixed outputs."""
     n, d = x.shape
     targets = torch.full((n,), 7, dtype=torch.int32, device=x.device)
     f32 = dict(dtype=torch.float32, device=x.device)
     outs = [torch.empty((plan.chunks, n), **f32) for _ in range(3)]
-    outs += [torch.empty((plan.chunks, n, TOP_K), **f32),
-             torch.empty((plan.chunks, n, TOP_K), dtype=torch.int32,
+    outs += [torch.empty((plan.chunks, n, top_k), **f32),
+             torch.empty((plan.chunks, n, top_k), dtype=torch.int32,
                          device=x.device)]
     ptrs = [t.data_ptr() for t in (x, embed, targets, *outs)]
     stream = torch.cuda.current_stream().cuda_stream
+    run = getattr(lib, f"tbx_lens_{plan.route}")
+    why = getattr(lib, f"tbx_{plan.route}_error_string")
+    # The split-V kernel's merged outputs: none, the partials alone.
+    ptrs += [None] * 5 if plan.route == "splitv" else []
 
     def launch():
-        rc = lib.tbx_lens_wgmma(*ptrs, n, d, embed.shape[0], TOP_K,
-                                plan.chunks, 0, 0.0, stream)
+        rc = run(*ptrs, n, d, embed.shape[0], top_k, plan.chunks, 0, 0.0,
+                 stream)
         if rc != 0:
-            raise RuntimeError(lib.tbx_wgmma_error_string(rc).decode())
+            raise RuntimeError(why(rc).decode())
     return launch
 
 
@@ -93,6 +105,9 @@ def timed_ms(fn, reps: int) -> float:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--reps", type=int, default=10)
+    parser.add_argument("--route", choices=sorted(BUILDS), default="wgmma")
+    parser.add_argument("--rows", type=int, default=1140)
+    parser.add_argument("--top-k", type=int, default=5)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         # tbx: TBX009-ok — CLI stderr contract (no card)
@@ -103,17 +118,18 @@ def main() -> int:
                          text=True, timeout=60)
     # tbx: TBX009-ok — CLI stdout contract (card name and power limit)
     print(smi.stdout.strip(), flush=True)
-    libs = {name: lk.bind_library("wgmma", path)
-            for name, path in build_variants().items()}
+    libs = {name: lk.bind_library(args.route, path)
+            for name, path in build_variants(args.route).items()}
     gen = torch.Generator(device="cuda").manual_seed(0)
-    plan = lk.lens_plan(N_ROWS, VOCAB, TOP_K, torch.bfloat16,
-                        sm_count=lk._sm_count(torch.device("cuda")))
+    plan = PLANS[args.route](args.rows, VOCAB,
+                             lk._sm_count(torch.device("cuda")))
     rows = []
     for d in DEPTHS:
-        x = torch.randn((N_ROWS, d), generator=gen, device="cuda").to(torch.bfloat16)
+        x = torch.randn((args.rows, d), generator=gen, device="cuda").to(torch.bfloat16)
         embed = (torch.randn((VOCAB, d), generator=gen, device="cuda")
                  * d ** -0.5).to(torch.bfloat16)
-        fns = {name: launcher(lib, x, embed, plan) for name, lib in libs.items()}
+        fns = {name: launcher(lib, x, embed, plan, args.top_k)
+               for name, lib in libs.items()}
         times = {name: [] for name in fns}
         for order in (list(fns), list(reversed(fns))):   # in turns
             for name in order:
@@ -137,11 +153,14 @@ def main() -> int:
     at = {r["d"]: r for r in rows}[3584]
     # tbx: TBX009-ok — CLI stdout contract (results JSON)
     print(json.dumps({
-        "shape": {"n": N_ROWS, "v": VOCAB, "k": TOP_K, "chunks": plan.chunks},
+        "route": args.route,
+        "shape": {"n": args.rows, "v": VOCAB, "k": args.top_k,
+                  "chunks": plan.chunks},
         "by_depth": rows,
         "at_3584": {"full_ms": at["full"],
                     "fold_ms": at["full"] - at["product_only"],
-                    "topk_ms": at["full"] - at["no_topk"],
+                    "topk_ms": (at["full"] - at["no_topk"]
+                                if "no_topk" in at else None),
                     "product_ms": at["product_only"],
                     "cublas_matmul_ms": at["cublas_matmul"]},
         "product_fit": {"ms_per_1000_depth": slope * 1000,

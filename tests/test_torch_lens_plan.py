@@ -1,6 +1,6 @@
 """How the port's lens readout cuts a call (``lens_plan``) and the plain
 version of what its kernels write (``lens_stats_partials_reference``), merged
-by the epilogue both routes share (``merge_partials``).
+by the epilogue every route shares (``merge_partials``).
 
 The kernels themselves run only on the card (``chip_smoke.py`` holds them to
 these functions there); here the chunking is held to the JAX package's Pallas
@@ -50,14 +50,33 @@ def test_main_path_plan_fills_whole_waves():
     assert set(tiles.tolist()) == {22, 23}
 
 
+SPLITV_ROWS = lens_kernel.SPLITV_MAX_ROWS
+TILE_COLS = {"splitv": lens_kernel.SPLITV_TILE, "wgmma": lens_kernel.WGMMA_COLS}
+# The route's own plan, whatever lens_plan would pick for the shape.
+PLANS = {"splitv": lambda n, v, k, sm: lens_kernel._splitv_plan(n, v, sm),
+         "wgmma": lambda n, v, k, sm: lens_kernel._wgmma_plan(n, v, sm),
+         "simple": lambda n, v, k, sm: lens_kernel.lens_plan(n, v, k, F32,
+                                                              sm_count=sm)}
+
+
 @pytest.mark.parametrize("n,v,k,dtype,route,row_tiles,vocab_tiles", [
-    (1, 256_000, 5, BF16, "wgmma", 1, 1000),
+    (1, 256_000, 5, BF16, "splitv", 1, 8000),
     (129, 256_000, 5, BF16, "wgmma", 2, 1000),
     (1140, 384, 5, BF16, "wgmma", 9, 2),
     (1140, 256_000, lens_kernel.KMAX, BF16, "wgmma", 9, 1000),
     (1140, 256_000, 5, F32, "simple", 18, 2000),
     (1140, 256_000, 32, BF16, "simple", 18, 2000),
     (3, 384, lens_kernel.KMAX + 1, BF16, "simple", 1, 3),
+    (8, 256_000, 1, BF16, "splitv", 1, 8000),
+    (8, 128_000, 1, BF16, "splitv", 1, 4000),
+    (32, 256_000, 1, BF16, "splitv", 1, 8000),
+    (32, 128_000, 5, BF16, "splitv", 1, 4000),
+    (8, 256_000, lens_kernel.KMAX, BF16, "splitv", 1, 8000),
+    (1, 128_000, lens_kernel.KMAX, BF16, "splitv", 1, 4000),
+    (SPLITV_ROWS + 1, 256_000, 1, BF16, "wgmma", 1, 1000),
+    (SPLITV_ROWS + 1, 128_000, lens_kernel.KMAX, BF16, "wgmma", 1, 500),
+    (8, 256_000, 1, F32, "simple", 1, 2000),
+    (8, 128_000, lens_kernel.KMAX + 1, BF16, "simple", 1, 1000),
 ])
 def test_plan_routes_and_edges(n, v, k, dtype, route, row_tiles, vocab_tiles):
     plan = lens_kernel.lens_plan(n, v, k, dtype)
@@ -69,12 +88,29 @@ def test_plan_routes_and_edges(n, v, k, dtype, route, row_tiles, vocab_tiles):
     if route == "simple":
         assert plan.chunks == v // lens_kernel.BLOCK_V
     else:
-        # Whole 256-column tiles, balanced to within one tile; a ragged last
+        # Whole kernel tiles, balanced to within one tile; a ragged last
         # tile only at the very end.
-        assert all(b % lens_kernel.WGMMA_COLS == 0 for b in plan.bounds[:-1])
-        tiles = [-(-(b - a) // lens_kernel.WGMMA_COLS)
+        cols = TILE_COLS[route]
+        assert all(b % cols == 0 for b in plan.bounds[:-1])
+        tiles = [-(-(b - a) // cols)
                  for a, b in zip(plan.bounds, plan.bounds[1:])]
         assert max(tiles) - min(tiles) <= 1 and sum(tiles) == vocab_tiles
+
+
+@pytest.mark.parametrize("sm_count", [lens_kernel.H100_SMS, 66])
+@pytest.mark.parametrize("v", [256_000, 128_000])
+@pytest.mark.parametrize("n", [1, 8, SPLITV_ROWS])
+def test_splitv_plan_fills_one_wave_evenly(n, v, sm_count):
+    """One block per SM, whole 32-row tiles covering V, the longest chunk
+    within one tile of the shortest and within 3% of the mean bytes."""
+    plan = lens_kernel.lens_plan(n, v, 1, BF16, sm_count=sm_count)
+    assert plan.route == "splitv"
+    assert plan.chunks == sm_count and plan.row_tiles == 1
+    assert plan.bounds[0] == 0 and plan.bounds[-1] == v
+    assert all(b % lens_kernel.SPLITV_TILE == 0 for b in plan.bounds)
+    rows = np.diff(plan.bounds)
+    assert rows.max() - rows.min() <= lens_kernel.SPLITV_TILE
+    assert rows.max() <= 1.03 * rows.mean()
 
 
 def test_plan_follows_the_cards_sm_count():
@@ -83,14 +119,15 @@ def test_plan_follows_the_cards_sm_count():
     assert small.bounds[-1] == 256_000
 
 
-@pytest.mark.parametrize("dtype", [BF16, F32], ids=["wgmma", "simple"])
+@pytest.mark.parametrize("route", ["splitv", "wgmma", "simple"])
 @pytest.mark.parametrize("cap", [None, 30.0])
 @pytest.mark.parametrize("n_rows,d,v,k", [(6, 32, 256, 3), (16, 64, 512, 5),
                                           (5, 16, 384, 4), (7, 16, 4224, 5)])
-def test_merged_partials_match_pallas_and_xla(n_rows, d, v, k, cap, dtype):
+def test_merged_partials_match_pallas_and_xla(n_rows, d, v, k, cap, route):
     rng = np.random.default_rng(0)
     x, embed = _inputs(rng, n_rows, d, v)
-    plan = lens_kernel.lens_plan(n_rows, v, k, dtype, sm_count=4)
+    plan = PLANS[route](n_rows, v, k, 4)
+    assert plan.route == route
     parts = lens_kernel.lens_stats_partials_reference(
         torch.from_numpy(x), torch.from_numpy(embed), 7, plan, top_k=k,
         logit_cap=cap)
@@ -108,16 +145,20 @@ def test_merged_partials_match_pallas_and_xla(n_rows, d, v, k, cap, dtype):
     assert got.topk_ids.dtype == torch.int32
 
 
+@pytest.mark.parametrize("route,bounds", [
+    ("wgmma", (0, 2048, 4096, 6272)),
+    ("splitv", (0, 2080, 4160, 6272)),
+])
 @pytest.mark.parametrize("cap", [None, 30.0])
-def test_per_row_targets_across_chunks(cap):
+def test_per_row_targets_across_chunks(cap, route, bounds):
     """[N] targets at the edges of the chunks, one absent (-1), one in the
-    ragged last tile."""
+    last tile."""
     rng = np.random.default_rng(4)
     n, d, v = 9, 32, 6272
     x, embed = _inputs(rng, n, d, v)
-    targets = np.array([0, 2047, 2048, 4095, 4096, 6271, -1, 3000, 6200],
-                       np.int32)
-    plan = lens_kernel.lens_plan(n, v, 2, BF16, sm_count=3)
+    edges = [b + e for b in bounds[1:-1] for e in (-1, 0)]
+    targets = np.array([0, *edges, 6271, -1, 3000, 6200], np.int32)
+    plan = PLANS[route](n, v, 2, 3)
     assert plan.chunks == 3
     got = lens_kernel.merge_partials(lens_kernel.lens_stats_partials_reference(
         torch.from_numpy(x), torch.from_numpy(embed),
@@ -125,12 +166,17 @@ def test_per_row_targets_across_chunks(cap):
     exp = pallas_lens.lens_stats(
         jnp.asarray(x), jnp.asarray(embed), jnp.asarray(targets), top_k=2,
         logit_cap=cap, block_v=128, interpret=True)
+    xla = pallas_lens.lens_stats_reference(
+        jnp.asarray(x), jnp.asarray(embed), jnp.asarray(targets), top_k=2,
+        logit_cap=cap)
     _assert_stats_close(got, exp)
-    assert plan.bounds == (0, 2048, 4096, 6272)
+    _assert_stats_close(got, xla)
+    assert plan.bounds == bounds
     assert got.target_logit[6].item() == np.float32(lens_kernel.NEG_INF)
 
 
-def test_ties_across_tiles_and_chunks_take_the_lowest_id():
+@pytest.mark.parametrize("route", ["splitv", "wgmma"])
+def test_ties_across_tiles_and_chunks_take_the_lowest_id(route):
     """Duplicated embedding rows in different vocab tiles and chunks tie
     exactly; the merged top-k must take them lowest id first, as lax.top_k."""
     rng = np.random.default_rng(7)
@@ -144,7 +190,7 @@ def test_ties_across_tiles_and_chunks_take_the_lowest_id():
     hot[:8] = 1.0                                  # logit 8 > 2 >= any other
     dups = [5, 300, 4100, 8191]                    # tiles 0, 1, 16, 31
     embed[dups] = hot
-    plan = lens_kernel.lens_plan(n, v, 6, BF16, sm_count=4)
+    plan = PLANS[route](n, v, 6, 4)
     assert plan.chunks == 4
     chunk_of = np.searchsorted(plan.bounds, dups, side="right")
     assert len(set(chunk_of.tolist())) >= 3
@@ -170,15 +216,37 @@ def test_cpu_partials_take_the_plain_version():
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("dtype,k,plan_args", [
-    (F32, 3, (128, 512, 3, BF16)),     # f32 on the wgmma route
-    (BF16, 3, (128, 1024, 3, BF16)),   # a plan cut for another vocab
-    (BF16, 3, (300, 512, 3, BF16)),    # ... or another row count
+@pytest.mark.parametrize("n_rows,dtype,k,plan", [
+    (128, F32, 3, lambda: lens_kernel.lens_plan(128, 512, 3, BF16)),   # f32 on the wgmma route
+    (128, BF16, 3, lambda: lens_kernel.lens_plan(128, 1024, 3, BF16)),  # a plan cut for another vocab
+    (128, BF16, 3, lambda: lens_kernel.lens_plan(300, 512, 3, BF16)),   # ... or another row count
+    (8, F32, 3, lambda: lens_kernel.lens_plan(8, 512, 3, BF16)),       # f32 on the splitv route
+    (SPLITV_ROWS + 1, BF16, 3,                                          # N over the route's limit
+     lambda: lens_kernel._splitv_plan(SPLITV_ROWS + 1, 512, 4)),
+    (8, BF16, 3, lambda: lens_kernel.lens_plan(8, 1024, 3, BF16)),      # splitv cut for another vocab
+    (8, BF16, lens_kernel.KMAX + 1,                                     # top_k over KMAX
+     lambda: lens_kernel._splitv_plan(8, 512, 4)),
+    (8, BF16, 3, lambda: lens_kernel._splitv_plan(8, 512, 4)._replace(  # chunks not the plan's
+        chunks=3)),
 ])
-def test_launcher_refuses_plans_that_do_not_fit(dtype, k, plan_args):
-    x = torch.zeros((128, 16), dtype=dtype)
+def test_launcher_refuses_plans_that_do_not_fit(n_rows, dtype, k, plan):
+    x = torch.zeros((n_rows, 16), dtype=dtype)
     embed = torch.zeros((512, 16), dtype=dtype)
-    targets = torch.zeros((128,), dtype=torch.int32)
+    targets = torch.zeros((n_rows,), dtype=torch.int32)
     with pytest.raises(ValueError):
-        lens_kernel._launch(x, embed, targets, lens_kernel.lens_plan(*plan_args),
-                            k, None)
+        lens_kernel._launch(x, embed, targets, plan(), k, None)
+
+
+@pytest.mark.parametrize("route", ["wgmma", "simple"])
+def test_only_the_splitv_launch_merges_its_chunks(route):
+    """``_launch(merged=True)`` is the split-V kernel's alone: the others
+    write partials for the torch merge, and asking them to merge raises
+    before any launch."""
+    x = torch.zeros((128, 16), dtype=BF16)
+    embed = torch.zeros((512, 16), dtype=BF16)
+    targets = torch.zeros((128,), dtype=torch.int32)
+    plan = PLANS[route](128, 512, 3, 4)
+    if route == "simple":
+        x, embed = x.float(), embed.float()
+    with pytest.raises(ValueError, match="partials only"):
+        lens_kernel._launch(x, embed, targets, plan, 3, None, merged=True)
