@@ -20,27 +20,45 @@ the kernels are built for sm_90a).  Phases, each of which fails the run:
    ``lens_stats_partials_reference``; the simple and the wgmma route timed in
    turns (simple, wgmma, wgmma, simple), the wgmma call split into kernel
    body and torch epilogue, beside the library yardstick and the bound;
+   then the wgmma kernel's long list (K 16 and K 32 = KMAX_WIDE) on the
+   same call, stats and raw partials against the plain version, timed in
+   turns with K 5 (5, 16, 32, 32, 16, 5) beside the library yardstick (the
+   bf16 product in f32, ``logsumexp``, ``topk`` at that K), the plain
+   version and the bound, and the simple route at K 32 launched on its own
+   plan; last, the f32 route (the simple kernel, f32's only route) at N
+   1140, K 5 and N 8, K 1 against the plain version, timed beside the f32
+   library call (TF32 off, matmul precision "highest", both set) and two
+   bounds: three TF32 products (3xTF32) and the f32 FMA rate;
    3b. the split-V kernel (every bf16 readout of at most SPLITV_MAX_ROWS
-   rows, K <= KMAX) against the plain version at N in {1, 8, 16, 32, 33,
-   64}, K in {1, 5, KMAX}, cap None and 30, per-row targets with -1 and
-   V - 1, V 256000 and 128000: its merged stats (merged by its last
-   block) and its raw partials; exact ties planted on both sides of chunk
-   edges; then the split-V and the wgmma route (its plan built on
-   purpose) timed in turns on the same K = 1 readouts behind a sleep
-   kernel at N in {1, 8, 16, 32, 48, 64} beside the library yardstick and
-   the bound (the crossover), the body and the torch merge apart at N 8,
-   and the tp shard's N 8, V 128000;
+   rows, K <= KMAX_WIDE) against the plain version at N in {1, 8, 16, 32,
+   33, 64}, K in {1, 5, 8, 16, 32}, cap None and 30, per-row targets with
+   -1 and V - 1, V 256000 and 128000: its merged stats (merged by its last
+   block) and its raw partials at K 5 and K 32 (the latter with a target at
+   the first, second, middle and last column of the chunks); exact ties
+   planted on both sides of chunk edges at K 5, 8, 16 and 32; then the
+   split-V and the wgmma route (its plan built on purpose) timed in turns
+   on the same K = 1 readouts behind a sleep kernel at N in {1, 8, 16, 32,
+   48, 64} beside the library yardstick and the bound (the crossover), the
+   body and the torch merge apart at N 8, the tp shard's N 8, V 128000,
+   and the long list's calls at N 8 and 32, K 16 and 32 beside their
+   library call, plain version and bound;
 4. edges: bf16 at N in {1, 129, 1140}, V in {384, 256000}, D in {72, 3584},
-   K in {1, 5, KMAX, 32} (32 takes the simple route), cap None and 30, one
-   target and per-row targets with -1; then exact ties from duplicated
-   embedding rows in different tiles and chunks;
+   K in {1, 5, KMAX, 16, KMAX_WIDE} (on the Hopper kernels) and KMAX_WIDE + 1
+   (the simple kernel's bf16 build), cap None and 30, one target and per-row
+   targets with -1, each route reached by at least one case; then exact ties
+   from duplicated embedding rows in different tiles, at K 5, 8, 16, 32 and
+   33, and for K 16 and up also on both sides of the wgmma plan's chunk
+   edges;
 5. a tiny f32 model through the lens pass on the card (the simple route) and
    on the CPU (the plain tap);
 6. main path: Gemma-2-9B width (42 layers, seeded random bf16 weights made on
    the card), ``run_generation`` then ``run_evaluation`` for the default
    config's 10 prompts, through a model loader, into a temporary directory;
    the kernel must have launched 42 times per lens pass, all on the wgmma
-   route;
+   route; then one more ``run_evaluation`` of the second word at ``top_k``
+   16 (the wgmma kernel's long list): 42 launches, all wgmma, none simple,
+   its lens taps' top-5 ids and its top-5 guesses equal the K 5 pass's
+   wherever the 5th/6th margin clears;
 7. SAE and interventions, at the same width with a seeded random
    3584 x 16384 f32 SAE made on the card: ``analyze_sae_baseline`` over the
    cache the main path wrote (top latents equal to the same function on the
@@ -357,7 +375,8 @@ the kernels are built for sm_90a).  Phases, each of which fails the run:
    second fleet; ``python3 chip_smoke.py --readout-window`` phases 1, 2
    and 14a's profiled readout window taken again and again, each read
    step by step (how often a readout goes missing, and whether the trace
-   or the step is short).
+   or the step is short); ``python3 chip_smoke.py --kernels`` phases 1-5
+   alone (the lens kernels held to their plain version and timed).
 
 The card's name and power limit are printed again just before the
 ``{"kernels": [...]}`` line, which is the line before the last: one entry
@@ -408,6 +427,7 @@ PACKAGE = "taboo_brittleness_tpu_torch"
 # tensor-core FLOP/s.  A card below its 700 W limit runs slower than these.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+TF32_FLOP_PER_S = 495e12    # tensor cores
 FP32_FLOP_PER_S = 67e12     # outside the tensor cores
 
 # The main path's lens-kernel shape: 10 prompts left-padded to 64 columns
@@ -418,6 +438,15 @@ N_ROWS, HIDDEN, VOCAB, TOP_K = 1140, 3584, 256_000, 5
 # order; logits are O(1), so 1e-3 is ~100x the expected rounding gap.
 ATOL = 1e-3
 MIN_ID_ROWS = 0.9   # share of rows whose top-(K+1) gaps all exceed ATOL
+# The long list's ids are held entry by entry: at K 32 on random logits only
+# ~10% of rows have all 32 gaps above ATOL, but most entries are more than
+# ATOL from both neighbours, which fixes their rank whatever the rounding.
+WIDE_KS = (16, 32)
+MIN_CLEAR_ENTRIES = 0.5
+# The guesses' summed probabilities of two passes over the same residuals:
+# f32 sums of ~50 probabilities in the same order; a margin under this could
+# only flip if the order changed.
+AGG_MARGIN = 1e-6
 # A chunk's sum of exp(logit - max) runs to thousands at V = 256000; the two
 # versions add it in other orders (and the kernel through exp2), so it is
 # held to a relative tolerance instead.
@@ -503,10 +532,12 @@ def ptxas_summary(out: str) -> list:
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             k = re.search(r"(lens_[a-z_]+_kernel)I(?:Li(\d+)E)?"
-                          r"(Lb[01]|f|13__nv_bfloat16)", m.group(1))
+                          r"(Lb[01]|f|13__nv_bfloat16)(?:ELi(\d+)E)?",
+                          m.group(1))
             rows = f"N <= {8 * int(k.group(2))}, " if k and k.group(2) else ""
-            name = (f"{k.group(1)}<{rows}{_KERNEL_NAMES[k.group(3)]}>" if k
-                    else m.group(1))
+            top = f", K <= {k.group(4)}" if k and k.group(4) else ""
+            name = (f"{k.group(1)}<{rows}{_KERNEL_NAMES[k.group(3)]}{top}>"
+                    if k else m.group(1))
             stats = {}
             continue
         for key, pat in (("spill stores", r"(\d+) bytes spill stores"),
@@ -616,10 +647,89 @@ def compare_partials(got, ref, k: int) -> tuple:
             int((clear & ~same).sum().item()))
 
 
+def rank_ids(torch, got_ids, ref_vals, ref_ids, k: int) -> tuple:
+    """(entries of a top-k whose reference value lies more than ATOL from
+    both its neighbours in the reference top-(k+1); of those, entries whose
+    id differs), over any leading axes.  A clear entry's rank, hence its id,
+    is the same whatever the rounding."""
+    ref = ref_vals[..., :k + 1]
+    below = ref[..., :-1] - ref[..., 1:]
+    above = torch.cat([torch.full_like(below[..., :1], float("inf")),
+                       below[..., :-1]], dim=-1)
+    clear = (below > ATOL) & (above > ATOL)
+    bad = clear & (got_ids != ref_ids[..., :k])
+    return int(clear.sum().item()), int(bad.sum().item())
+
+
+def library_topk(torch, x, embed, k: int):
+    """The library yardstick of a call: one product in the inputs' type,
+    read in f32, ``logsumexp`` and ``topk`` at K."""
+    def call():
+        logits = torch.matmul(x, embed.T).float()
+        torch.logsumexp(logits, dim=-1)
+        torch.topk(logits, k, dim=-1)
+    return call
+
+
+def check_wide(torch, lk, x, embed, per_row, plan) -> float:
+    """The wgmma kernel's long list at the main path's shape: stats with
+    both caps and the raw partials (a target at every chunk position) at K
+    in WIDE_KS against the plain version, ids entry by entry.  Returns the
+    worst error."""
+    worst = 0.0
+    for k in WIDE_KS:
+        wide = lk.lens_plan(N_ROWS, VOCAB, k, torch.bfloat16,
+                            sm_count=lk._sm_count(x.device))
+        if wide != plan:
+            fail(f"K={k} plans {wide[:4]}, not the K={TOP_K} plan {plan[:4]}")
+        for cap in (None, 30.0):
+            before = dict(lk.lens_stats.route_launches)
+            got = lk.lens_stats(x, embed, per_row, top_k=k, logit_cap=cap)
+            ref = lk.lens_stats_reference(x, embed, per_row, top_k=k + 1,
+                                          logit_cap=cap)
+            torch.cuda.synchronize()
+            if lk.lens_stats.route_launches != {**before,
+                                                "wgmma": before["wgmma"] + 1}:
+                fail(f"lens_stats K={k} did not launch the wgmma kernel alone")
+            err, n_clear, n_bad = compare(got, ref, k)
+            e_clear, e_bad = rank_ids(torch, got.topk_ids, ref.topk_vals,
+                                      ref.topk_ids, k)
+            log(f"lens_stats K={k} cap={cap} per-row targets (wgmma, long "
+                f"list): max_abs_err {err:.3e} (atol {ATOL}); ids equal on "
+                f"{n_clear - n_bad}/{n_clear} rows and {e_clear - e_bad}/"
+                f"{e_clear} entries with clear margins of {N_ROWS * k}")
+            if not err <= ATOL or n_bad or e_bad \
+                    or e_clear < MIN_CLEAR_ENTRIES * N_ROWS * k:
+                fail(f"the wgmma kernel's K={k} list disagrees with its plain "
+                     f"version: err {err}, {n_bad} rows and {e_bad} entries "
+                     "with other ids")
+            worst = max(worst, err)
+            del got, ref
+        spots = _chunk_position_targets(torch, plan, N_ROWS, x.device)
+        parts = lk.lens_stats_partials(x, embed, spots, top_k=k)
+        pref = lk.lens_stats_partials_reference(x, embed, spots, plan,
+                                                top_k=k + 1)
+        torch.cuda.synchronize()
+        err, rel, _, n_bad = compare_partials(parts, pref, k)
+        e_clear, e_bad = rank_ids(torch, parts.cand_ids, pref.cand_vals,
+                                  pref.cand_ids, k)
+        log(f"raw partials K={k} [{plan.chunks}, {N_ROWS}, {k}], targets at "
+            f"every chunk position: max_abs_err "
+            f"{err:.3e}, sum-exp max rel err {rel:.3e}; ids equal on "
+            f"{e_clear - e_bad}/{e_clear} entries with clear margins")
+        if not (err <= ATOL and rel <= SUMEXP_RTOL) or n_bad or e_bad \
+                or e_clear < MIN_CLEAR_ENTRIES * parts.cand_ids.numel():
+            fail(f"the wgmma kernel's K={k} partials disagree with their "
+                 "plain version")
+        worst = max(worst, err)
+        del parts, pref
+    return worst
+
+
 def check_lens_stats(torch) -> tuple:
     """Both routes at the main path's shape: the wgmma route against the
-    plain version (stats and raw partials), then both timed in turns.
-    Returns the two kernels entries."""
+    plain version (stats and raw partials, K 5 and the long list's K 16 and
+    32), then timed in turns.  Returns the two kernels entries."""
     from taboo_brittleness_tpu_torch.ops import lens_kernel as lk
 
     x, embed, per_row = _main_inputs(torch)
@@ -672,6 +782,7 @@ def check_lens_stats(torch) -> tuple:
         fail("the wgmma kernel's partials disagree with their plain version")
     worst = max(worst, err)
     del ref
+    worst = max(worst, check_wide(torch, lk, x, embed, per_row, plan))
 
     # The simple kernel on the same call, for the comparison in turns: its
     # route's plan, launched directly (lens_plan would pick wgmma).
@@ -691,19 +802,18 @@ def check_lens_stats(torch) -> tuple:
     def capped():
         lk.lens_stats(x, embed, scalar, top_k=TOP_K, logit_cap=30.0)
 
-    def simple_k32():   # the simple route's own case: top_k > KMAX
-        lk.lens_stats(x, embed, scalar, top_k=32)
+    def simple_k32():   # the simple route's time at K 32 before it moved
+        lk.merge_partials(lk._launch(x, embed, scalar_targets, simple, 32,
+                                     None))
+
+    def at_k(k):
+        return lambda: lk.lens_stats(x, embed, scalar, top_k=k)
 
     def epilogue():
         lk.merge_partials(parts)
 
     def plain():
         lk.lens_stats_reference(x, embed, scalar, top_k=TOP_K)
-
-    def library():
-        logits = torch.matmul(x, embed.T).float()
-        torch.logsumexp(logits, dim=-1)
-        torch.topk(logits, TOP_K, dim=-1)
 
     turns = [timed_ms(torch, fn, 10) for fn in (old, new, new, old)]
     earlier_ms, ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
@@ -712,7 +822,34 @@ def check_lens_stats(torch) -> tuple:
     cap_ms = timed_ms(torch, capped, 10)
     k32_ms = timed_ms(torch, simple_k32, 3)
     plain_ms = timed_ms(torch, plain, 3)
-    library_ms = timed_ms(torch, library, 10)
+    library_ms = timed_ms(torch, library_topk(torch, x, embed, TOP_K), 10)
+    # The long list in turns with K 5 (5, 16, 32, 32, 16, 5).
+    ks = (TOP_K, *WIDE_KS)
+    wide_turns = {k: [] for k in ks}
+    for k in (*ks, *reversed(ks)):
+        wide_turns[k].append(timed_ms(torch, at_k(k), 10))
+    wide = {}
+    for k in WIDE_KS:
+        w_bound, w_by = lens_bound_ms(N_ROWS, HIDDEN, VOCAB, k)
+        w_ms = sum(wide_turns[k]) / 2
+        wide[f"k{k}"] = dict(
+            ms=w_ms, k5_ms=sum(wide_turns[TOP_K]) / 2,
+            body_ms=timed_ms(torch, lambda: lk.lens_stats_partials(
+                x, embed, scalar, top_k=k), 10),
+            plain_ms=timed_ms(torch, lambda: lk.lens_stats_reference(
+                x, embed, scalar, top_k=k), 3),
+            library_ms=timed_ms(torch, library_topk(torch, x, embed, k), 10),
+            bound_ms=w_bound, bound_by=w_by, simple_ms=k32_ms if k == 32 else None)
+        r = wide[f"k{k}"]
+        log(f"lens_stats N={N_ROWS} K={k} bf16 (wgmma, long list): call "
+            f"{r['ms']:.3f} ms (in turns with K={TOP_K} at {r['k5_ms']:.3f} ms: "
+            f"{r['ms'] / r['k5_ms']:.2f}x; kernel body {r['body_ms']:.3f} ms), "
+            f"plain {r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms, "
+            f"bound {w_bound:.3f} ms ({w_by}; {w_bound / r['ms']:.1%} of it)"
+            + (f"; the simple route at K=32 {k32_ms:.3f} ms" if k == 32 else ""))
+        if not r["ms"] < r["library_ms"]:
+            log(f"NOTE: the K={k} wgmma call ({r['ms']:.3f} ms) is not below "
+                f"its library yardstick ({r['library_ms']:.3f} ms)")
     bound_ms, bound_by = lens_bound_ms(N_ROWS, HIDDEN, VOCAB, TOP_K)
     tflops = 2 * N_ROWS * HIDDEN * VOCAB / (ms * 1e-3) / 1e12
     log(f"in turns (simple, wgmma, wgmma, simple): "
@@ -723,7 +860,7 @@ def check_lens_stats(torch) -> tuple:
         f"{plain_ms:.3f} ms, library {library_ms:.3f} ms, bound "
         f"{bound_ms:.3f} ms ({bound_by}); {tflops:.1f} TFLOP/s, "
         f"{bound_ms / ms:.1%} of bound; with the cap 30 {cap_ms:.3f} ms; the "
-        f"simple route at K=32 {k32_ms:.3f} ms")
+        f"simple route at K=32 (its own plan) {k32_ms:.3f} ms")
     if not ms < library_ms:
         log(f"NOTE: the wgmma call ({ms:.3f} ms) is not below the library "
             f"yardstick ({library_ms:.3f} ms)")
@@ -736,7 +873,7 @@ def check_lens_stats(torch) -> tuple:
         name="lens_stats", source=f"{PACKAGE}/csrc/lens_stats_wgmma.cu",
         max_abs_err=worst, ms=ms, body_ms=body_ms, epilogue_ms=epilogue_ms,
         earlier_ms=earlier_ms, tflops=tflops, share_of_bound=bound_ms / ms,
-        cap_ms=cap_ms, **common)
+        cap_ms=cap_ms, wide=wide, **common)
     simple_entry = dict(
         name="lens_stats_simple", source=f"{PACKAGE}/csrc/lens_stats.cu",
         max_abs_err=0.0, ms=earlier_ms, k32_ms=k32_ms, on_main_path=False,
@@ -744,17 +881,97 @@ def check_lens_stats(torch) -> tuple:
     return new_entry, simple_entry
 
 
+# The f32 route's calls: the main path's shape at K 5 and a serving
+# readout's N 8 at K 1.
+F32_CALLS = ((N_ROWS, TOP_K), (8, 1))
+
+
+def f32_bounds_ms(n: int, d: int, v: int, k: int) -> dict:
+    """An f32 call's bounds: f32 x and E read once and the statistics
+    written once at the memory rate; the product as three TF32 tensor-core
+    products (3xTF32, the least tensor-core work that keeps f32's accuracy)
+    and, beside it, at the f32 rate outside the tensor cores."""
+    moved = 4 * n * d + 4 * v * d + 4 * n + 4 * n * (2 + 2 * k)
+    flop = 2 * n * d * v
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    tf32_ms = 3 * flop / TF32_FLOP_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, tf32_ms),
+            "bound_by": "operations" if tf32_ms >= bytes_ms else "bytes",
+            "bytes_ms": bytes_ms, "3xtf32_ms": tf32_ms,
+            "fp32_fma_ms": flop / FP32_FLOP_PER_S * 1e3}
+
+
+def measure_f32(torch) -> list:
+    """The f32 route (the simple kernel, f32's only route) at F32_CALLS:
+    held to the plain version, then timed beside the plain version, the
+    library call and the bounds.  The library call and the plain version
+    run in full f32: TF32 off and matmul precision "highest", both set
+    here."""
+    from taboo_brittleness_tpu_torch.ops import lens_kernel as lk
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    log(f"f32 route: allow_tf32 {torch.backends.cuda.matmul.allow_tf32}, "
+        f"matmul precision {torch.get_float32_matmul_precision()!r}")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    embed = torch.randn((VOCAB, HIDDEN), generator=gen, device=dev) * HIDDEN ** -0.5
+    rows = []
+    for n, k in F32_CALLS:
+        x = torch.randn((n, HIDDEN), generator=gen, device=dev)
+        t = torch.randint(0, VOCAB, (n,), generator=gen, device=dev,
+                          dtype=torch.int32)
+        plan = lk.lens_plan(n, VOCAB, k, torch.float32,
+                            sm_count=lk._sm_count(dev))
+        if plan.route != "simple":
+            fail(f"f32 N={n} K={k} plans {plan.route}, not simple")
+        before = dict(lk.lens_stats.route_launches)
+        got = lk.lens_stats(x, embed, t, top_k=k)
+        ref = lk.lens_stats_reference(x, embed, t, top_k=k + 1)
+        torch.cuda.synchronize()
+        if lk.lens_stats.route_launches != {**before,
+                                            "simple": before["simple"] + 1}:
+            fail(f"f32 N={n} K={k} did not launch the simple kernel alone")
+        err, n_clear, n_bad = compare(got, ref, k)
+        if not err <= ATOL or n_bad:
+            fail(f"the simple kernel's f32 N={n} K={k} disagrees with its "
+                 f"plain version: err {err}, {n_bad} rows with other ids")
+        del got, ref
+        reps = 3 if n > 64 else 10
+        row = dict(n=n, k=k, max_abs_err=err,
+                   ms=timed_ms(torch, lambda: lk.lens_stats(x, embed, t,
+                                                            top_k=k), reps),
+                   plain_ms=timed_ms(torch, lambda: lk.lens_stats_reference(
+                       x, embed, t, top_k=k), 3),
+                   library_ms=timed_ms(torch, library_topk(torch, x, embed, k),
+                                       reps),
+                   **f32_bounds_ms(n, HIDDEN, VOCAB, k))
+        rows.append(row)
+        log(f"f32 N={n} K={k} (simple): max_abs_err {err:.3e}, ids equal on "
+            f"{n_clear}/{n_clear} rows with clear margins; call "
+            f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, library "
+            f"{row['library_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
+            f"({row['bound_by']}; {row['bound_ms'] / row['ms']:.1%} of it; "
+            f"3xTF32 {row['3xtf32_ms']:.3f} ms, f32 FMA "
+            f"{row['fp32_fma_ms']:.3f} ms, bytes {row['bytes_ms']:.3f} ms)")
+        del x, t
+    del embed
+    torch.cuda.empty_cache()
+    return rows
+
+
 def check_edges(torch) -> dict:
     """bf16 edge shapes on the card against the plain version, every K, both
     caps, both kinds of target; then exact ties.  Returns the worst error per
-    route."""
+    route; fails if a route was reached by no case."""
     from taboo_brittleness_tpu_torch.ops import lens_kernel as lk
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     worst = {"splitv": 0.0, "wgmma": 0.0, "simple": 0.0}
-    ks = (1, 5, lk.KMAX, 32)
-    n_cases = 0
+    n_cases = dict.fromkeys(worst, 0)
+    # K 33 is the simple kernel's bf16 build (lens_tile_kernel<__nv_bfloat16>).
+    ks = (1, 5, lk.KMAX, *WIDE_KS, lk.KMAX_WIDE + 1)
     for v in (384, VOCAB):
         for d in (72, HIDDEN):
             embed = (torch.randn((v, d), generator=gen, device=dev)
@@ -773,19 +990,22 @@ def check_edges(torch) -> dict:
                             got = lk.lens_stats(x, embed, target, top_k=k,
                                                 logit_cap=cap)
                             err, n_clear, n_bad = compare(got, ref, k)
-                            n_cases += 1
+                            _, e_bad = rank_ids(torch, got.topk_ids,
+                                                ref.topk_vals, ref.topk_ids, k)
+                            n_cases[route] += 1
                             worst[route] = max(worst[route], err)
-                            if not err <= ATOL or n_bad:
+                            if not err <= ATOL or n_bad or e_bad:
                                 fail(f"edge N={n} D={d} V={v} K={k} cap={cap} "
                                      f"({route}): max_abs_err {err:.3e}, "
                                      f"{n_bad} id mismatches of {n_clear} "
                                      "rows with clear margins")
                         del ref
             del embed, x
-    log(f"edge shapes: {n_cases} cases, max_abs_err splitv "
-        f"{worst['splitv']:.3e}, wgmma {worst['wgmma']:.3e}, simple "
-        f"{worst['simple']:.3e} (atol {ATOL}); ids equal on every row with "
-        "clear margins")
+    log("edge shapes: " + ", ".join(
+        f"{r} {n_cases[r]} cases max_abs_err {worst[r]:.3e}" for r in worst)
+        + f" (atol {ATOL}); ids equal on every row with clear margins")
+    if not all(n_cases.values()):
+        fail(f"edge shapes reached a route by no case: {n_cases}")
 
     # Exact ties: entries that are multiples of 1/8 make every logit exact in
     # f32 whatever the order of the sums, and duplicated embedding rows in
@@ -797,20 +1017,33 @@ def check_edges(torch) -> dict:
     hot = torch.zeros(HIDDEN, device=dev)
     hot[:64] = 1.0
     dups = torch.tensor(TIE_PATTERN, device=dev)
-    embed[dups] = hot
     x, embed = x.to(torch.bfloat16), embed.to(torch.bfloat16)
-    for k in (TOP_K, lk.KMAX):
-        got = lk.lens_stats(x, embed, 11, top_k=k)
-        ref = lk.lens_stats_reference(x, embed, 11, top_k=k)
-        torch.cuda.synchronize()
-        same = torch.equal(got.topk_ids, ref.topk_ids)
-        err = (got.topk_vals - ref.topk_vals).abs().max().item()
-        heads = (got.topk_ids[:, :len(TIE_PATTERN)]
-                 == dups.to(torch.int32)).all().item()
-        log(f"exact ties K={k}: ids equal {same}, duplicated rows first in id "
-            f"order {heads}, values max_abs_err {err:.3e}")
-        if not (same and heads and err == 0.0):
-            fail("the wgmma kernel breaks exact ties other than lowest id first")
+    # The duplicates at TIE_PATTERN for every K; then, for K 16 and up, also
+    # on both sides of two of the wgmma plan's chunk edges.
+    bounds = lk.lens_plan(N_ROWS, VOCAB, lk.KMAX_WIDE, torch.bfloat16,
+                          sm_count=lk._sm_count(dev)).bounds
+    mid = bounds[len(bounds) // 2]
+    edge_dups = torch.tensor(sorted({*TIE_PATTERN, bounds[1] - 1, bounds[1],
+                                     mid - 1, mid}), device=dev)
+    long_ks = (*WIDE_KS, lk.KMAX_WIDE + 1)
+    for ks_, heads_of in (((TOP_K, lk.KMAX, *long_ks), dups),
+                          (long_ks, edge_dups)):
+        embed[heads_of] = hot.to(torch.bfloat16)
+        for k in ks_:
+            route = lk.lens_plan(N_ROWS, VOCAB, k, torch.bfloat16).route
+            got = lk.lens_stats(x, embed, 11, top_k=k)
+            ref = lk.lens_stats_reference(x, embed, 11, top_k=k)
+            torch.cuda.synchronize()
+            same = torch.equal(got.topk_ids, ref.topk_ids)
+            err = (got.topk_vals - ref.topk_vals).abs().max().item()
+            heads = (got.topk_ids[:, :len(heads_of)]
+                     == heads_of.to(torch.int32)).all().item()
+            log(f"exact ties K={k} ({route}), {len(heads_of)} duplicated "
+                f"rows: ids equal {same}, duplicated rows first in id order "
+                f"{heads}, values max_abs_err {err:.3e}")
+            if not (same and heads and err == 0.0):
+                fail(f"the {route} route breaks exact ties at K {k} other "
+                     "than lowest id first")
     del x, embed
     torch.cuda.empty_cache()
     return worst
@@ -820,7 +1053,8 @@ def check_edges(torch) -> dict:
 # rows timed against the wgmma route (its plan built on purpose) for the
 # crossover that sets SPLITV_MAX_ROWS; calls per timing behind the backlog.
 SPLITV_ROWS = (1, 8, 16, 32, 33, 64)
-SPLITV_KS = (1, 5, 8)
+SPLITV_KS = (1, 5, 8, *WIDE_KS)
+WIDE_ROWS = (8, 32)   # the serving readout's and the speculative verify's N
 CROSSOVER_ROWS = (1, 8, 16, 32, 48, 64)
 SPLITV_REPS = 50
 TP_VOCAB = VOCAB // 2    # one shard of phase 16's tp 2
@@ -868,16 +1102,28 @@ def _time_routes(torch, lk, x, embed, targets) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def _chunk_position_targets(torch, plan, n: int, dev):
+    """[N] targets that put a row's target at the first, second, middle and
+    last column of the plan's chunks in turn, over every chunk."""
+    spots = []
+    for r in range(n):
+        s = (r * 37) % plan.chunks
+        lo, hi = plan.bounds[s], plan.bounds[s + 1]
+        spots.append((lo, lo + 1, (lo + hi) // 2, hi - 1)[r % 4])
+    return torch.tensor(spots, dtype=torch.int32, device=dev)
+
+
 def check_splitv(torch) -> dict:
     """Phase 3b: the split-V kernel (the route of every readout of at most
     SPLITV_MAX_ROWS rows) against the plain version: merged stats (its last
     block's merge) at N in SPLITV_ROWS, K in SPLITV_KS, cap None and 30,
     per-row targets with -1 and V - 1, V 256000 and 128000; its raw partials
-    chunk by chunk; exact ties planted on both sides of chunk edges.  Then
-    the split-V and the wgmma route timed on the same readouts at N in
-    CROSSOVER_ROWS (the crossover), the body and the torch merge apart at N
-    8, and the tp shard's V 128000.  Returns the kernel's entry of the
-    kernels line."""
+    chunk by chunk at K 5 and at K 32 (targets at every chunk position);
+    exact ties planted on both sides of chunk edges.  Then the split-V and
+    the wgmma route timed on the same readouts at N in CROSSOVER_ROWS (the
+    crossover), the body and the torch merge apart at N 8, the tp shard's V
+    128000, and the long list at N in WIDE_ROWS, K in WIDE_KS.  Returns the
+    kernel's entry of the kernels line."""
     from taboo_brittleness_tpu_torch.ops import lens_kernel as lk
 
     t0 = time.perf_counter()
@@ -912,31 +1158,44 @@ def check_splitv(torch) -> dict:
                         fail(f"N={n} V={v} K={k} did not launch the splitv "
                              "kernel alone")
                     err, n_clear, n_bad = compare(got, ref, k)
+                    e_clear, e_bad = rank_ids(torch, got.topk_ids,
+                                              ref.topk_vals, ref.topk_ids, k)
                     n_cases += 1
                     worst = max(worst, err)
-                    if not err <= ATOL or n_bad:
+                    if not err <= ATOL or n_bad or e_bad:
                         fail(f"splitv N={n} V={v} K={k} cap={cap}: max_abs_err "
                              f"{err:.3e}, {n_bad} id mismatches of {n_clear} "
-                             "rows with clear margins")
+                             f"rows and {e_bad} of {e_clear} entries with "
+                             "clear margins")
                 del ref
-                parts = lk.lens_stats_partials(x, embed, per_row, top_k=TOP_K,
-                                               logit_cap=cap)
-                pref = lk.lens_stats_partials_reference(
-                    x, embed, per_row, plan, top_k=TOP_K + 1, logit_cap=cap)
-                torch.cuda.synchronize()
-                err, rel, n_clear, n_bad = compare_partials(parts, pref, TOP_K)
-                worst = max(worst, err)
-                if not (err <= ATOL and rel <= SUMEXP_RTOL) or n_bad \
-                        or n_clear < MIN_ID_ROWS * parts.chunk_max.numel():
-                    fail(f"splitv partials N={n} V={v} cap={cap}: max_abs_err "
-                         f"{err:.3e}, sum-exp rel {rel:.3e}, {n_bad} id "
-                         f"mismatches, {n_clear}/{parts.chunk_max.numel()} "
-                         "clear")
-                del parts, pref
+                for k, targets in ((TOP_K, per_row), (lk.KMAX_WIDE,
+                                   _chunk_position_targets(torch, plan, n, dev))):
+                    parts = lk.lens_stats_partials(x, embed, targets, top_k=k,
+                                                   logit_cap=cap)
+                    pref = lk.lens_stats_partials_reference(
+                        x, embed, targets, plan, top_k=k + 1, logit_cap=cap)
+                    torch.cuda.synchronize()
+                    err, rel, n_clear, n_bad = compare_partials(parts, pref, k)
+                    e_clear, e_bad = rank_ids(torch, parts.cand_ids,
+                                              pref.cand_vals, pref.cand_ids, k)
+                    worst = max(worst, err)
+                    enough = (n_clear >= MIN_ID_ROWS * parts.chunk_max.numel()
+                              if k <= lk.KMAX else
+                              e_clear >= MIN_CLEAR_ENTRIES * parts.cand_ids.numel())
+                    if not (err <= ATOL and rel <= SUMEXP_RTOL) or n_bad \
+                            or e_bad or not enough:
+                        fail(f"splitv partials N={n} V={v} K={k} cap={cap}: "
+                             f"max_abs_err {err:.3e}, sum-exp rel {rel:.3e}, "
+                             f"{n_bad} row and {e_bad} entry id mismatches, "
+                             f"{n_clear}/{parts.chunk_max.numel()} rows and "
+                             f"{e_clear}/{parts.cand_ids.numel()} entries clear")
+                    del parts, pref
         del embed, x
         torch.cuda.empty_cache()
-    log(f"splitv: {n_cases} merged cases and {2 * 2 * len(SPLITV_ROWS)} raw "
-        f"partials [{sms}, N] held to the plain version: max_abs_err "
+    log(f"splitv: {n_cases} merged cases and {2 * 2 * 2 * len(SPLITV_ROWS)} "
+        f"raw partials [{sms}, N] (K {TOP_K} and {lk.KMAX_WIDE}, the latter "
+        "with targets at every chunk position) held to the plain version: "
+        f"max_abs_err "
         f"{worst:.3e} (atol {ATOL}, sum-exp rtol {SUMEXP_RTOL}); ids equal on "
         "every row with clear margins")
 
@@ -955,7 +1214,7 @@ def check_splitv(torch) -> dict:
     embed[dups, :64] = 1.0
     x, embed = x.to(torch.bfloat16), embed.to(torch.bfloat16)
     for n in (8, max(SPLITV_ROWS)):
-        for k in (TOP_K, lk.KMAX):
+        for k in (TOP_K, lk.KMAX, *WIDE_KS):
             got = lk.lens_stats(x[:n], embed, 11, top_k=k)
             ref = lk.lens_stats_reference(x[:n], embed, 11, top_k=k)
             torch.cuda.synchronize()
@@ -1022,6 +1281,7 @@ def check_splitv(torch) -> dict:
         f"ms, bound {tp['bound_ms']:.3f} ms ({tp['bound_ms'] / tp['splitv_ms']:.1%})")
     del embed, x8
     torch.cuda.empty_cache()
+    wide = time_wide_splitv(torch, lk, gen, dev)
     log(f"phase 3b: {time.perf_counter() - t0:.2f} s")
     return dict(
         name="lens_stats_splitv", route="cuda",
@@ -1031,7 +1291,48 @@ def check_splitv(torch) -> dict:
         bound_ms=r8["bound_ms"], bound_by=r8["bound_by"],
         library_ms=r8["library_ms"], wgmma_ms=r8["wgmma_ms"],
         body_ms=body_ms, merge_ms=merge_ms, crossover=crossover,
-        by_rows=rows, tp_shard=tp)
+        by_rows=rows, tp_shard=tp, wide=wide)
+
+
+def time_wide_splitv(torch, lk, gen, dev) -> dict:
+    """The split-V kernel's long list at N in WIDE_ROWS, K in WIDE_KS (and
+    K 5 beside them) on V 256000, each call merged by its last block and
+    timed behind the backlog, beside the library yardstick (behind the
+    backlog too), the plain version and the bound."""
+    embed = (torch.randn((VOCAB, HIDDEN), generator=gen, device=dev)
+             * HIDDEN ** -0.5).to(torch.bfloat16)
+    out = {}
+    for n in WIDE_ROWS:
+        x = torch.randn((n, HIDDEN), generator=gen, device=dev).to(torch.bfloat16)
+        t = torch.randint(0, VOCAB, (n,), generator=gen, device=dev,
+                          dtype=torch.int32)
+        k5_ms = backlogged_ms(torch, lambda: lk.lens_stats(
+            x, embed, t, top_k=TOP_K), SPLITV_REPS)[0]
+        for k in WIDE_KS:
+            if lk.lens_plan(n, VOCAB, k, torch.bfloat16,
+                            sm_count=lk._sm_count(dev)).route != "splitv":
+                fail(f"N={n} K={k} does not plan the splitv route")
+            bound_ms, bound_by = lens_bound_ms(n, HIDDEN, VOCAB, k)
+            r = dict(
+                ms=backlogged_ms(torch, lambda: lk.lens_stats(
+                    x, embed, t, top_k=k), SPLITV_REPS)[0], k5_ms=k5_ms,
+                plain_ms=timed_ms(torch, lambda: lk.lens_stats_reference(
+                    x, embed, t, top_k=k), 3),
+                library_ms=backlogged_ms(
+                    torch, library_topk(torch, x, embed, k), SPLITV_REPS)[0],
+                bound_ms=bound_ms, bound_by=bound_by)
+            out[f"n{n}_k{k}"] = r
+            log(f"  N={n} K={k} (splitv, long list): call {r['ms']:.3f} ms "
+                f"(K={TOP_K} {k5_ms:.3f} ms), plain {r['plain_ms']:.3f} ms, "
+                f"library {r['library_ms']:.3f} ms, bound {bound_ms:.3f} ms "
+                f"({bound_by}; {bound_ms / r['ms']:.1%} of it)")
+            if not r["ms"] < r["library_ms"]:
+                log(f"NOTE: the N={n} K={k} splitv call ({r['ms']:.3f} ms) is "
+                    f"not below its library yardstick ({r['library_ms']:.3f} ms)")
+        del x, t
+    del embed
+    torch.cuda.empty_cache()
+    return out
 
 
 def check_small_against_cpu(torch) -> float:
@@ -1066,15 +1367,18 @@ def check_small_against_cpu(torch) -> float:
 class PhaseTimer:
     """Adds a synchronised host clock around module functions of the main
     path (``decode.generate``, ``lens.lens_forward``,
-    ``lens.aggregate_from_residual``) while a run is driven."""
+    ``lens.aggregate_from_residual``) while a run is driven; where ``keep``
+    is given, also appends ``keep(result)`` of each call to
+    ``kept[label]``."""
 
     def __init__(self, torch):
         self.torch = torch
         self.seconds = {}
         self.calls = {}
+        self.kept = {}
         self._restore = []
 
-    def wrap(self, module, name: str, label: str) -> None:
+    def wrap(self, module, name: str, label: str, keep=None) -> None:
         orig = getattr(module, name)
 
         def timed(*args, **kwargs):
@@ -1085,6 +1389,8 @@ class PhaseTimer:
             dt = time.perf_counter() - t0
             self.seconds[label] = self.seconds.get(label, 0.0) + dt
             self.calls.setdefault(label, []).append(dt)
+            if keep is not None:
+                self.kept.setdefault(label, []).append(keep(out))
             return out
 
         setattr(module, name, timed)
@@ -1093,6 +1399,99 @@ class PhaseTimer:
     def restore(self) -> None:
         for module, name, orig in reversed(self._restore):
             setattr(module, name, orig)
+
+
+def _keep_tap(res):
+    """A lens pass's per-layer top-k (ids, log-probabilities) on the host."""
+    return (res.tap.topk_ids.cpu(),
+            res.tap.topk_probs.float().clamp_min(1e-38).log().cpu())
+
+
+def _keep_guesses(out):
+    """The aggregation's (ids [B, K], summed probabilities [B, K])."""
+    return tuple(t.cpu() for t in out)
+
+
+def _held_topk(what: str, ids5, ids_wide, vals_wide, margin: float) -> tuple:
+    """Holds the first 5 of a wider top-k to the K 5 pass's: as a set where
+    the 5th/6th margin of the wider values clears ``margin``, in order where
+    every margin of its top 6 does.  Returns (rows held as sets, in order,
+    of all)."""
+    gaps = vals_wide[..., :5] - vals_wide[..., 1:6]
+    as_set = gaps[..., 4] > margin
+    in_order = (gaps > margin).all(dim=-1)
+    head = ids_wide[..., :5]
+    same_set = (head.sort(dim=-1).values == ids5.sort(dim=-1).values).all(dim=-1)
+    same_order = (head == ids5).all(dim=-1)
+    bad = int((as_set & ~same_set).sum()) + int((in_order & ~same_order).sum())
+    if bad:
+        fail(f"{what}: {bad} rows whose top-5 differs from the K 5 pass's "
+             "although the margins clear")
+    return int(as_set.sum()), int(in_order.sum()), as_set.numel()
+
+
+def check_wide_lens_pass(torch, config, tok, loader, processed: str,
+                         workdir: str, word: str, taps5, guesses5,
+                         results5) -> dict:
+    """``run_evaluation`` of ``word`` again at ``top_k`` 16 (the wgmma
+    kernel's long list): 42 launches, all wgmma; its lens taps' and its
+    guesses' top 5 held to the K 5 pass's (``taps5``, ``guesses5``,
+    ``results5``) under the margin rule of :func:`_held_topk`."""
+    import dataclasses
+
+    from taboo_brittleness_tpu_torch.ops import lens, lens_kernel
+    from taboo_brittleness_tpu_torch.pipelines import logit_lens
+
+    k = WIDE_KS[0]
+    wide = dataclasses.replace(config, model=dataclasses.replace(
+        config.model, top_k=k))
+    timer = PhaseTimer(torch)
+    timer.wrap(lens, "lens_forward", "lens", keep=_keep_tap)
+    timer.wrap(lens, "aggregate_from_residual", "aggregate", keep=_keep_guesses)
+    lens_kernel.lens_stats.launches = 0
+    lens_kernel.lens_stats.route_launches.update(
+        dict.fromkeys(lens_kernel.lens_stats.route_launches, 0))
+    t0 = time.perf_counter()
+    try:
+        results = logit_lens.run_evaluation(
+            wide, tok, words=[word], model_loader=loader,
+            processed_dir=processed,
+            output_path=os.path.join(workdir, f"top{k}", "results.json"))
+    finally:
+        timer.restore()
+    seconds = time.perf_counter() - t0
+    taps = timer.kept.get("lens", [])
+    guesses = timer.kept.get("aggregate", [])
+    by_route = dict(lens_kernel.lens_stats.route_launches)
+    n_layers = taps5[0][0].shape[0]
+    if by_route != {"splitv": 0, "wgmma": n_layers, "simple": 0}:
+        fail(f"the top_k {k} logit-lens pass launched {by_route}; expected "
+             f"{n_layers} on the wgmma route alone")
+    if len(taps) != 1 or len(guesses) != 1:
+        fail(f"the top_k {k} pass made {len(taps)} lens passes and "
+             f"{len(guesses)} aggregations, expected one each")
+    (ids5, _), (ids_w, logp_w) = taps5[0], taps[0]
+    if ids_w.shape != ids5.shape[:-1] + (k,):
+        fail(f"top_k {k} lens taps {tuple(ids_w.shape)} beside K 5's "
+             f"{tuple(ids5.shape)}")
+    tap_sets, tap_order, tap_rows = _held_topk(
+        "lens taps", ids5, ids_w, logp_w, ATOL)
+    (gids5, _), (gids_w, gsum_w) = guesses5[0], guesses[0]
+    g_sets, g_order, g_rows = _held_topk(
+        "guesses", gids5, gids_w, gsum_w, AGG_MARGIN)
+    preds5, preds_w = (r[word]["predictions"] for r in (results5, results))
+    clear = (gsum_w[:, 4] - gsum_w[:, 5] > AGG_MARGIN).tolist()
+    off = [b for b, c in enumerate(clear)
+           if c and sorted(preds_w[b][:5]) != sorted(preds5[b])]
+    if off:
+        fail(f"top_k {k} guesses of prompts {off} differ from the K 5 pass's")
+    log(f"logit-lens at top_k {k} ({word}, {seconds:.2f} s): launches by route "
+        f"{by_route}; lens-tap top-5 ids equal the K 5 pass's as sets on "
+        f"{tap_sets}/{tap_rows} (layer, prompt, position) rows with a clear "
+        f"5th/6th margin and in order on {tap_order} with every margin clear; "
+        f"guesses likewise on {g_sets} and {g_order} of {g_rows} prompts")
+    return {"top_k": k, "launches": by_route["wgmma"], "seconds": seconds,
+            "tap_rows_held": tap_sets, "guess_rows_held": g_sets}
 
 
 def drive_main_path(torch, workdir: str) -> tuple:
@@ -1131,8 +1530,8 @@ def drive_main_path(torch, workdir: str) -> tuple:
     processed = os.path.join(workdir, "processed")
     timer = PhaseTimer(torch)
     timer.wrap(decode, "generate", "decode")
-    timer.wrap(lens, "lens_forward", "lens")
-    timer.wrap(lens, "aggregate_from_residual", "aggregate")
+    timer.wrap(lens, "lens_forward", "lens", keep=_keep_tap)
+    timer.wrap(lens, "aggregate_from_residual", "aggregate", keep=_keep_guesses)
     torch.cuda.reset_peak_memory_stats()
     lens_kernel.lens_stats.launches = 0
     lens_kernel.lens_stats.route_launches.update(
@@ -1144,6 +1543,7 @@ def drive_main_path(torch, workdir: str) -> tuple:
             processed_dir=processed, fail_fast=True)
         t_gen = time.perf_counter() - t0
         after_generate = lens_kernel.lens_stats.launches
+        timer.kept.clear()   # keep run_evaluation's calls alone
         t0 = time.perf_counter()
         results = logit_lens.run_evaluation(
             config, tok, words=[gen_word, lens_word], model_loader=loader,
@@ -1152,6 +1552,8 @@ def drive_main_path(torch, workdir: str) -> tuple:
         t_eval = time.perf_counter() - t0
     finally:
         timer.restore()
+    taps5 = timer.kept.get("lens", [])
+    guesses5 = timer.kept.get("aggregate", [])
     launches = lens_kernel.lens_stats.launches
     by_route = dict(lens_kernel.lens_stats.route_launches)
     peak = torch.cuda.max_memory_allocated()
@@ -1208,7 +1610,9 @@ def drive_main_path(torch, workdir: str) -> tuple:
     if not os.path.exists(os.path.join(workdir, "results.json")):
         fail("run_evaluation wrote no results file")
     log(f"results overall: {json.dumps(results['overall'])}")
-    return by_route, (params, cfg, tok, config, processed, gen_word)
+    wide = check_wide_lens_pass(torch, config, tok, loader, processed, workdir,
+                                lens_word, taps5, guesses5, results)
+    return by_route, wide, (params, cfg, tok, config, processed, gen_word)
 
 
 # The SAE of the interventions phase: Gemma-Scope layer_31/width_16k shape.
@@ -6891,13 +7295,21 @@ def phases_alone(torch, which: str) -> int:
     and 17 alone; each on phase 6's params made here.  ``--processes``:
     phases 1-2, 12f, 13d and 14b's second fleet (the tiny synthetic
     stack's processes on the card; the whole run leaves 13d and 14b's
-    second fleet out for time).  The quickest proof that those paths run
-    on the card."""
+    second fleet out for time).  ``--kernels``: phases 1-5 alone (the lens
+    kernels against their plain version, timed).  The quickest proof that
+    those paths run on the card."""
     device, card = report_device(torch)
     build_kernels()
     out = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        if which == "processes":
+        if which == "kernels":
+            wgmma, simple = check_lens_stats(torch)
+            simple["f32"] = measure_f32(torch)
+            splitv = check_splitv(torch)
+            out = {"worst": check_edges(torch),
+                   "small": check_small_against_cpu(torch),
+                   "kernels": [splitv, wgmma, simple]}
+        elif which == "processes":
             log("phase 12f the serve process on the card")
             check_serve_process(torch, workdir)
             log("phase 13d the grid, fleet and attack-search processes on "
@@ -6935,18 +7347,20 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     if sys.argv[1:] in (["--parallel"], ["--parity"], ["--processes"],
-                        ["--readout-window"]):
+                        ["--readout-window"], ["--kernels"]):
         return phases_alone(torch, sys.argv[1][2:])
     device, card = report_device(torch)
     build_kernels()
     wgmma, simple = check_lens_stats(torch)
+    simple["f32"] = measure_f32(torch)
     splitv = check_splitv(torch)
     worst = check_edges(torch)
     wgmma["max_abs_err"] = max(wgmma["max_abs_err"], worst["wgmma"])
     splitv["max_abs_err"] = max(splitv["max_abs_err"], worst["splitv"])
-    simple["max_abs_err"] = max(worst["simple"], check_small_against_cpu(torch))
+    simple["max_abs_err"] = max(worst["simple"], check_small_against_cpu(torch),
+                                *(r["max_abs_err"] for r in simple["f32"]))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        by_route, ctx = drive_main_path(torch, workdir)
+        by_route, wide_pass, ctx = drive_main_path(torch, workdir)
         sae, ablation_set = drive_interventions(torch, workdir, ctx)
         forcing = drive_attacks(torch, workdir, ctx, sae, ablation_set)
         del ablation_set
@@ -6983,6 +7397,7 @@ def main() -> int:
     wgmma["max_abs_err"] = max(wgmma["max_abs_err"],
                                wgmma.pop("tp_shard_max_abs_err"))
     wgmma["launches"] = by_route["wgmma"]
+    wgmma["wide"]["pass"] = wide_pass
     simple["launches"] = by_route["simple"]
     if not (splitv["launches"] and wgmma["launches"]):
         fail(f"a path ran without its kernel: splitv {splitv['launches']} "

@@ -3,7 +3,7 @@
 //
 // Replaces the TPU kernel of the JAX package, ops/pallas_lens.py
 // `_lens_tile_kernel` launched by `lens_stats`, for the calls with few rows:
-// bf16 inputs, top_k <= KMAX and N <= the route's row limit (the wrapper,
+// bf16 inputs, top_k <= KMAX_WIDE and N <= the route's row limit (the wrapper,
 // ops/lens_kernel.py `lens_plan`, sends them here; the main path's N 1140
 // stays on lens_stats_wgmma.cu).  Those are the serving readouts: one row per
 // slot (N 8), the speculative verify (N 32), the attack search and each tp
@@ -51,11 +51,17 @@
 //   one named barrier per tile), and each consumer warp folds the rows it
 //   owns (tokens w, w + 8, ...), one token across the 32 lanes: an online max
 //   / sum-exp (warp-uniform max, per-lane sums), the target logit, and a
-//   top-KMAX list held one entry per lane (lanes 0 .. KMAX-1).  A value
-//   enters the list only when above its last entry; candidates are found by
-//   ballot and inserted in ascending id, so ties keep the lowest id.  exp2
-//   and the cap's tanh come from the approximate-function unit, as in
+//   top-L list held one entry per lane (lanes 0 .. L-1).  A value enters
+//   the list only when above its last entry; candidates are found by ballot
+//   and inserted in ascending id, so ties keep the lowest id.  exp2 and the
+//   cap's tanh come from the approximate-function unit, as in
 //   lens_stats_wgmma.cu (within about 1e-5 at a cap of 30).
+// - Two list lengths, L = KMAX (8) for top_k <= 8 and L = KMAX_WIDE (32, one
+//   entry per lane of the warp) for 8 < top_k <= 32, each its own
+//   instantiation: the list costs one register pair a lane either way, and
+//   the longer list only moves the cut to lane 31, so more of a chunk's
+//   first columns enter it before its cut settles.  The short list keeps
+//   its cut higher and its insertions fewer for the common top_k <= 8.
 //
 // The macro LENS_ANATOMY_SKIP_FOLD leaves out the staging and the fold; only
 // perf/lens_anatomy.py sets it, to time the stream alone, and its partials
@@ -79,8 +85,9 @@ constexpr int BLOCK_ROWS = 128;   // vocab rows per wgmma tile: two warpgroups
 constexpr int BK = 64;            // depth per stage: one 128-byte row of bf16
 constexpr int MAX_NT = 8;         // 8-row groups of x the kernel holds
 constexpr int MAX_ROWS = 8 * MAX_NT;
-constexpr int KMAX = 8;           // longest top-k this kernel keeps
-static_assert(KMAX <= 32, "one list entry per lane");
+constexpr int KMAX = 8;           // the short top-k list
+constexpr int KMAX_WIDE = 32;     // the long one
+static_assert(KMAX < KMAX_WIDE && KMAX_WIDE <= 32, "one list entry per lane");
 constexpr int MAX_STAGES = 8;
 constexpr int CONSUMER_THREADS = 256;
 constexpr int CONSUMER_WARPS = CONSUMER_THREADS / 32;
@@ -390,8 +397,12 @@ struct Outputs {
 // ops/lens_kernel.py merge_partials does: logsumexp from the chunks' (max,
 // sum-exp), the target logit, and the top-k of the S * k_top candidates
 // (held one entry per lane, inserted in the top-k order whatever the order
-// they arrive in).  Warp w merges tokens w, w + 8, ...
-template <int NT>
+// they arrive in).  Warp w merges tokens w, w + 8, ...  Each chunk's list is
+// in the top-k order, so with the long list (L = KMAX_WIDE) a rank at which
+// no chunk of the 32 read together goes above the merged list's last entry
+// ends that group's reads: the loads of the later ranks, one round trip to
+// L2 each, were most of the merge at K 32.
+template <int NT, int L>
 __device__ __forceinline__ void merge_chunks(const Outputs& out, int n,
                                              int k_top, int n_chunks,
                                              int warp, int lane) {
@@ -427,6 +438,7 @@ __device__ __forceinline__ void merge_chunks(const Outputs& out, int n,
         float cut = __shfl_sync(FULL_MASK, lv, k_top - 1);
         int cut_i = __shfl_sync(FULL_MASK, li, k_top - 1);
         unsigned todo = __ballot_sync(FULL_MASK, ahead(cv, ci, cut, cut_i));
+        if (L == KMAX_WIDE && todo == 0) break;
         while (todo) {
           const int from = __ffs(todo) - 1;
           const float y = __shfl_sync(FULL_MASK, cv, from);
@@ -462,8 +474,9 @@ __device__ __forceinline__ void merge_chunks(const Outputs& out, int n,
 }
 
 // Grid: n_chunks blocks.  Chunk s covers the 32-row vocab tiles
-// [s * T / S, (s + 1) * T / S) of T = ceil(v / TILE_ROWS).
-template <int NT, bool CAP>
+// [s * T / S, (s + 1) * T / S) of T = ceil(v / TILE_ROWS).  Each token's
+// running top-k list has L entries, one per lane of lanes 0 .. L-1.
+template <int NT, bool CAP, int L>
 __global__ void __launch_bounds__(THREADS, 1)
     lens_splitv_kernel(const __grid_constant__ CUtensorMap map_x,
                        const __grid_constant__ CUtensorMap map_e,
@@ -545,7 +558,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     run_max[r] = -INFINITY;
     run_sum[r] = 0.0f;
     run_tgt[r] = NEG_BIG;
-    top_v[r] = -INFINITY;  // lane p < KMAX holds entry p of the list
+    top_v[r] = -INFINITY;  // lane p < L holds entry p of the list
     top_i[r] = INT_MAX;
   }
 
@@ -631,7 +644,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 
       // Only a value above the list's last entry can enter it: every entry
       // has a lower id than this tile's columns.
-      float cut = __shfl_sync(FULL_MASK, top_v[r], KMAX - 1);
+      float cut = __shfl_sync(FULL_MASK, top_v[r], L - 1);
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         unsigned todo = __ballot_sync(FULL_MASK, x[u] > cut);
@@ -641,7 +654,7 @@ __global__ void __launch_bounds__(THREADS, 1)
           const int id = row0 + 32 * u + from;
           // Entries at or above y keep their places (lower ids among ties).
           const int pos = __popc(
-              __ballot_sync(FULL_MASK, lane < KMAX && top_v[r] >= y));
+              __ballot_sync(FULL_MASK, lane < L && top_v[r] >= y));
           const float up_v = __shfl_up_sync(FULL_MASK, top_v[r], 1);
           const int up_i = __shfl_up_sync(FULL_MASK, top_i[r], 1);
           if (lane > pos) {
@@ -652,7 +665,7 @@ __global__ void __launch_bounds__(THREADS, 1)
             top_v[r] = y;
             top_i[r] = id;
           }
-          cut = __shfl_sync(FULL_MASK, top_v[r], KMAX - 1);
+          cut = __shfl_sync(FULL_MASK, top_v[r], L - 1);
           todo &= __ballot_sync(FULL_MASK, x[u] > cut) & ~((2u << from) - 1u);
         }
       }
@@ -698,7 +711,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   consumers_sync();
   if (!last) return;
   __threadfence();
-  merge_chunks<NT>(out, n, k_top, n_chunks, warp, lane);
+  merge_chunks<NT, L>(out, n, k_top, n_chunks, warp, lane);
 }
 
 using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
@@ -748,10 +761,10 @@ struct Args {
   float cap;
 };
 
-template <int NT, bool CAP>
+template <int NT, bool CAP, int L>
 int launch(const CUtensorMap& mx, const CUtensorMap& me, const Args& a,
            cudaStream_t stream) {
-  auto kernel = lens_splitv_kernel<NT, CAP>;
+  auto kernel = lens_splitv_kernel<NT, CAP, L>;
   constexpr int bytes = smem_bytes(NT);
   static_assert(bytes + STATIC_BYTES <= SMEM_LIMIT, "shared memory");
   cudaError_t rc = cudaFuncSetAttribute(
@@ -762,20 +775,27 @@ int launch(const CUtensorMap& mx, const CUtensorMap& me, const Args& a,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool CAP>
+template <bool CAP, int L>
 int launch_rows(const CUtensorMap& mx, const CUtensorMap& me, const Args& a,
                 cudaStream_t s) {
   switch ((a.n + 7) / 8) {
-    case 1: return launch<1, CAP>(mx, me, a, s);
-    case 2: return launch<2, CAP>(mx, me, a, s);
-    case 3: return launch<3, CAP>(mx, me, a, s);
-    case 4: return launch<4, CAP>(mx, me, a, s);
-    case 5: return launch<5, CAP>(mx, me, a, s);
-    case 6: return launch<6, CAP>(mx, me, a, s);
-    case 7: return launch<7, CAP>(mx, me, a, s);
-    case 8: return launch<8, CAP>(mx, me, a, s);
+    case 1: return launch<1, CAP, L>(mx, me, a, s);
+    case 2: return launch<2, CAP, L>(mx, me, a, s);
+    case 3: return launch<3, CAP, L>(mx, me, a, s);
+    case 4: return launch<4, CAP, L>(mx, me, a, s);
+    case 5: return launch<5, CAP, L>(mx, me, a, s);
+    case 6: return launch<6, CAP, L>(mx, me, a, s);
+    case 7: return launch<7, CAP, L>(mx, me, a, s);
+    case 8: return launch<8, CAP, L>(mx, me, a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+template <int L>
+int launch_list(const CUtensorMap& mx, const CUtensorMap& me, const Args& a,
+                bool has_cap, cudaStream_t s) {
+  return has_cap ? launch_rows<true, L>(mx, me, a, s)
+                 : launch_rows<false, L>(mx, me, a, s);
 }
 
 }  // namespace
@@ -785,6 +805,7 @@ extern "C" {
 // Geometry, checked by the wrapper against its own plan.
 int tbx_splitv_tile_rows() { return TILE_ROWS; }
 int tbx_splitv_kmax() { return KMAX; }
+int tbx_splitv_kmax_wide() { return KMAX_WIDE; }
 int tbx_splitv_max_rows() { return MAX_ROWS; }
 int tbx_splitv_smem_bytes(int n) {
   return n >= 1 && n <= MAX_ROWS ? smem_bytes((n + 7) / 8) : -1;
@@ -798,7 +819,8 @@ const char* tbx_splitv_error_string(int code) {
 
 // Launch one pass on `stream`.  x [n, d] and e [v, d] row-major bf16, 16-byte
 // aligned, d % 8 == 0; 1 <= n <= MAX_ROWS; targets [n] int32 (-1 = none);
-// 1 <= k_top <= KMAX; 1 <= n_chunks <= ceil(v / TILE_ROWS).  Partials
+// list_len KMAX or KMAX_WIDE, the instantiation's list length, and
+// 1 <= k_top <= list_len; 1 <= n_chunks <= ceil(v / TILE_ROWS).  Partials
 // [n_chunks, n] and [n_chunks, n, k_top] as in the file header; with lse
 // not null, also the merged statistics lse, tgt [n], vals and ids [n, k_top],
 // counted on ticket (one int, 0 at launch).
@@ -806,9 +828,10 @@ int tbx_lens_splitv(const void* x, const void* e, const int* targets,
                     float* part_max, float* part_sumexp, float* part_tgt,
                     float* part_vals, int* part_ids, float* lse, float* tgt,
                     float* vals, int* ids, int* ticket, int n, int d, int v,
-                    int k_top, int n_chunks, int has_cap, float cap,
-                    void* stream) {
-  if (n < 1 || n > MAX_ROWS || k_top < 1 || k_top > KMAX || n_chunks < 1 ||
+                    int k_top, int list_len, int n_chunks, int has_cap,
+                    float cap, void* stream) {
+  if (n < 1 || n > MAX_ROWS || (list_len != KMAX && list_len != KMAX_WIDE) ||
+      k_top < 1 || k_top > list_len || n_chunks < 1 ||
       n_chunks > (v + TILE_ROWS - 1) / TILE_ROWS ||
       (lse != nullptr && (tgt == nullptr || vals == nullptr ||
                           ids == nullptr || ticket == nullptr))) {
@@ -824,8 +847,8 @@ int tbx_lens_splitv(const void* x, const void* e, const int* targets,
                 tgt, vals, ids, ticket},
                n, d, v, k_top, n_chunks, cap};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return has_cap ? launch_rows<true>(mx, me, a, s)
-                 : launch_rows<false>(mx, me, a, s);
+  return list_len == KMAX ? launch_list<KMAX>(mx, me, a, has_cap, s)
+                          : launch_list<KMAX_WIDE>(mx, me, a, has_cap, s);
 }
 
 }  // extern "C"

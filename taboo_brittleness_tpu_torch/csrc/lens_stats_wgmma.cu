@@ -3,8 +3,8 @@
 //
 // Replaces the TPU kernel of the JAX package: ops/pallas_lens.py,
 // `_lens_tile_kernel` launched by `lens_stats`, on its bf16 inputs with
-// top_k <= KMAX (the wrapper, ops/lens_kernel.py `lens_plan`, sends f32 and
-// larger top_k to the simple kernel in lens_stats.cu).  For rows x [N, D]
+// top_k <= KMAX_WIDE (the wrapper, ops/lens_kernel.py `lens_plan`, sends f32
+// and larger top_k to the simple kernel in lens_stats.cu).  For rows x [N, D]
 // (final-normed residuals) and the tied embedding E [V, D] a block owns one
 // tile of BM rows and a contiguous chunk of the vocabulary, and writes one
 // partial per (chunk, row):
@@ -51,6 +51,27 @@
 //   keeps the lowest id first among ties.  The quad's four lists merge by
 //   (value desc, id asc) once per chunk, so the partials shrink from one per
 //   128 columns to one per chunk.
+// - A top-k of 9 to 32 (KMAX_WIDE) takes a second instantiation with the
+//   same registers and shared memory.  Four lists of 32 a lane would take
+//   128 more registers beside the 128 of the accumulator (the consumers have
+//   232), and shared memory is full (four 48 KB stages and the 32 KB of
+//   candidate slots, of the block's 227 KB), so the quad keeps ONE sorted
+//   list of 32 per row, split across its four lanes: lane q holds ranks
+//   8q .. 8q+7, in the same 2 x 8 register pairs as the short list, and the
+//   list's last entry (lane 3's) is the cut.  Each lane queues its columns
+//   above the cut in its slots as before; the quad then walks the four
+//   queues one candidate at a time (every lane reads the candidate from
+//   shared memory), and a candidate enters lane q's part when it is ahead
+//   of that part's last entry, lane q-1's last entry moving down into lane
+//   q when the candidate is ahead of it too: one shuffle pair and one
+//   8-entry insertion per candidate, with no merge at the end of the chunk.
+//   The four queues interleave ids, so this list compares (value desc, id
+//   asc) on insertion, which keeps the lowest id first among ties as the
+//   strict rule does for the short list.  Past a lane's 16 slots the quad
+//   goes round again from the list's last entry, ties included.  In a
+//   chunk's first tile, while the list is not yet full, the least of the
+//   quad's 32 group maxima (8 columns a group) stands in for the cut: 32
+//   of the tile's columns are at or above it.
 // - E crosses HBM about once.  Blocks are numbered row-tile fastest, so the
 //   row tiles of one vocab chunk run together and walk the same E tiles in
 //   step: one of them reads each E stage from HBM, the others from L2.  x
@@ -80,8 +101,9 @@ constexpr int BM = 128;              // rows per block: two warpgroups of 64
 constexpr int BN = 256;              // vocab columns per tile
 constexpr int BK = 64;               // depth per stage: one 128-byte row of bf16
 constexpr int STAGES = 4;
-constexpr int KMAX = 8;              // longest top-k this kernel keeps
+constexpr int KMAX = 8;              // the short top-k list, per lane
 static_assert(KMAX % 4 == 0, "the quad's cut takes KMAX / 4 from each lane");
+constexpr int KMAX_WIDE = 4 * KMAX;  // the long one, split across the quad
 constexpr int CONSUMER_THREADS = 256;
 constexpr int THREADS = CONSUMER_THREADS + 128;  // + one producer warpgroup
 constexpr int CONSUMER_WARPS = CONSUMER_THREADS / 32;
@@ -292,6 +314,12 @@ __device__ __forceinline__ float capped_tanh(float x, float k2, float cap) {
 
 // ------------------------------------------------------------ running top-k
 
+// (a, ai) ahead of (b, bi) in the top-k order: value descending, then id
+// ascending.
+__device__ __forceinline__ bool ahead(float a, int ai, float b, int bi) {
+  return a > b || (a == b && ai < bi);
+}
+
 // Insert (x, id) into a list sorted by decreasing value; x at or below
 // tv[KMAX - 1] leaves it as it is.  Equal values keep their earlier (lower)
 // ids ahead.
@@ -310,6 +338,24 @@ __device__ __forceinline__ void topk_insert(float (&tv)[KMAX], int (&ti)[KMAX],
   }
 }
 
+// Insert (x, id) into a list sorted in the top-k order; the last entry
+// falls off.  For values that arrive in any order of ids.
+__device__ __forceinline__ void topk_insert_ahead(float (&tv)[KMAX],
+                                                  int (&ti)[KMAX], float x,
+                                                  int id) {
+#pragma unroll
+  for (int p = KMAX - 1; p > 0; --p) {
+    const bool shift = ahead(x, id, tv[p - 1], ti[p - 1]);
+    const bool here = !shift && ahead(x, id, tv[p], ti[p]);
+    tv[p] = shift ? tv[p - 1] : (here ? x : tv[p]);
+    ti[p] = shift ? ti[p - 1] : (here ? id : ti[p]);
+  }
+  if (ahead(x, id, tv[0], ti[0])) {
+    tv[0] = x;
+    ti[0] = id;
+  }
+}
+
 __device__ __forceinline__ void topk_pop(float (&tv)[KMAX], int (&ti)[KMAX]) {
 #pragma unroll
   for (int p = 0; p < KMAX - 1; ++p) {
@@ -323,8 +369,10 @@ __device__ __forceinline__ void topk_pop(float (&tv)[KMAX], int (&ti)[KMAX]) {
 // ------------------------------------------------------------------ kernel
 
 // Grid: row_tiles * n_chunks blocks, row tile fastest.  Chunk s covers the
-// vocab tiles [s * T / S, (s + 1) * T / S) of T = ceil(v / BN).
-template <bool CAP>
+// vocab tiles [s * T / S, (s + 1) * T / S) of T = ceil(v / BN).  L is the
+// running list's length: KMAX (each lane its own list, the quad's four
+// merged at the end) or KMAX_WIDE (one list split across the quad).
+template <bool CAP, int L>
 __global__ void __launch_bounds__(THREADS, 1)
     lens_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
                       const __grid_constant__ CUtensorMap map_e,
@@ -494,54 +542,148 @@ __global__ void __launch_bounds__(THREADS, 1)
         run_tgt[i] = tv;
 
 #ifndef LENS_ANATOMY_SKIP_TOPK
-        // The quad already holds KMAX values at or above `cut`: each lane
-        // KMAX at or above its last entry, and each lane two at or above
-        // its second.  Every one of them has a lower id than this tile's
-        // columns, so a value at or below `cut` cannot enter the quad's
-        // top-KMAX, ties included.
-        float cut = top_v[i][KMAX - 1];
-        float second = top_v[i][KMAX / 4 - 1];
+        if constexpr (L == KMAX) {
+          // The quad already holds KMAX values at or above `cut`: each lane
+          // KMAX at or above its last entry, and each lane two at or above
+          // its second.  Every one of them has a lower id than this tile's
+          // columns, so a value at or below `cut` cannot enter the quad's
+          // top-KMAX, ties included.
+          float cut = top_v[i][KMAX - 1];
+          float second = top_v[i][KMAX / 4 - 1];
 #pragma unroll
-        for (int off = 1; off < 4; off <<= 1) {
-          cut = fmaxf(cut, __shfl_xor_sync(FULL_MASK, cut, off));
-          second = fminf(second, __shfl_xor_sync(FULL_MASK, second, off));
-        }
-        cut = fmaxf(cut, second);
-        if (__any_sync(FULL_MASK, tile_max > cut)) {
-          // Queue the lane's candidates above `cut` in its shared-memory
-          // slots, in ascending id (stored as 8j + c), with predicated
-          // stores, and insert them.  A lane with more candidates than slots
-          // (the first tile of a chunk) goes round again after its last
-          // queued column, with `cut` raised to its own list's last entry:
-          // a later column at or below it has KMAX entries ahead of it.
-          int done = -1;  // columns 8j + c <= done are handled
-          while (true) {
-            uint32_t at = my_slots;  // the next free slot
+          for (int off = 1; off < 4; off <<= 1) {
+            cut = fmaxf(cut, __shfl_xor_sync(FULL_MASK, cut, off));
+            second = fminf(second, __shfl_xor_sync(FULL_MASK, second, off));
+          }
+          cut = fmaxf(cut, second);
+          if (__any_sync(FULL_MASK, tile_max > cut)) {
+            // Queue the lane's candidates above `cut` in its shared-memory
+            // slots, in ascending id (stored as 8j + c), with predicated
+            // stores, and insert them.  A lane with more candidates than slots
+            // (the first tile of a chunk) goes round again after its last
+            // queued column, with `cut` raised to its own list's last entry:
+            // a later column at or below it has KMAX entries ahead of it.
+            int done = -1;  // columns 8j + c <= done are handled
+            while (true) {
+              uint32_t at = my_slots;  // the next free slot
 #pragma unroll
-            for (int j = 0; j < 32; ++j)
+              for (int j = 0; j < 32; ++j)
 #pragma unroll
-              for (int c = 0; c < 2; ++c) {
-                const float x = acc[4 * j + 2 * i + c];
-                const bool take = x > cut && 8 * j + c > done;
-                st_shared_if(take && at < slots_end, at, x, 8 * j + c);
-                at += take ? SLOT_STRIDE : 0;
+                for (int c = 0; c < 2; ++c) {
+                  const float x = acc[4 * j + 2 * i + c];
+                  const bool take = x > cut && 8 * j + c > done;
+                  st_shared_if(take && at < slots_end, at, x, 8 * j + c);
+                  at += take ? SLOT_STRIDE : 0;
+                }
+              const int n_cand = (at - my_slots) / SLOT_STRIDE;
+              const int n_take = min(n_cand, CAND_SLOTS);
+              for (int k = 0; k < n_take; ++k) {
+                float x;
+                int jc;
+                ld_shared(my_slots + k * SLOT_STRIDE, x, jc);
+                topk_insert(top_v[i], top_i[i], x, base + jc);
               }
-            const int n_cand = (at - my_slots) / SLOT_STRIDE;
-            const int n_take = min(n_cand, CAND_SLOTS);
-            for (int k = 0; k < n_take; ++k) {
-              float x;
-              int jc;
-              ld_shared(my_slots + k * SLOT_STRIDE, x, jc);
-              topk_insert(top_v[i], top_i[i], x, base + jc);
+              if (!__any_sync(FULL_MASK, n_cand > CAND_SLOTS)) break;
+              if (n_cand > CAND_SLOTS) {
+                float x;
+                ld_shared(my_slots + (CAND_SLOTS - 1) * SLOT_STRIDE, x, done);
+              } else {
+                done = BN;
+              }
+              cut = fmaxf(cut, top_v[i][KMAX - 1]);
             }
-            if (!__any_sync(FULL_MASK, n_cand > CAND_SLOTS)) break;
-            if (n_cand > CAND_SLOTS) {
-              float x;
-              ld_shared(my_slots + (CAND_SLOTS - 1) * SLOT_STRIDE, x, done);
-            } else {
-              done = BN;
+          }
+        } else {
+          // The quad's one list of KMAX_WIDE: lane q holds its entries
+          // KMAX q .. KMAX q + KMAX - 1, so its last entry, the cut, is
+          // lane 3's.  Every entry has a lower id than this tile's columns,
+          // so a value at or below the cut cannot enter.
+          const int quad = lane & ~3;
+          const uint32_t quad_slots = slots + (threadIdx.x & ~3) * 8;
+          float cut = __shfl_sync(FULL_MASK, top_v[i][KMAX - 1], quad + 3);
+          // Until the list is full (a chunk's first tile) its cut is -inf.
+          // A floor from the tile itself: the least of the quad's 32 group
+          // maxima, each over 8 of a lane's columns, has 32 columns of this
+          // tile at or above it, so a value below it cannot enter either.
+          float floor_cut = -INFINITY;
+          if (__any_sync(FULL_MASK, cut == -INFINITY)) {
+            float least = INFINITY;
+#pragma unroll
+            for (int g = 0; g < 8; ++g) {
+              float group = -INFINITY;
+#pragma unroll
+              for (int j = 4 * g; j < 4 * g + 4; ++j)
+#pragma unroll
+                for (int c = 0; c < 2; ++c)
+                  group = fmaxf(group, acc[4 * j + 2 * i + c]);
+              least = fminf(least, group);
             }
-            cut = fmaxf(cut, top_v[i][KMAX - 1]);
+            least = fminf(least, __shfl_xor_sync(FULL_MASK, least, 1));
+            least = fminf(least, __shfl_xor_sync(FULL_MASK, least, 2));
+            // x > floor_cut keeps x == least, whose ties the list orders.
+            floor_cut = nextafterf(least, -INFINITY);
+            cut = fmaxf(cut, floor_cut);
+          }
+          if (__any_sync(FULL_MASK, tile_max > cut)) {
+            int done = -1;  // columns 8j + c <= done are handled
+            while (true) {
+              __syncwarp();  // the quad has read the slots of the last round
+              uint32_t at = my_slots;
+#pragma unroll
+              for (int j = 0; j < 32; ++j)
+#pragma unroll
+                for (int c = 0; c < 2; ++c) {
+                  const float x = acc[4 * j + 2 * i + c];
+                  const bool take = x > cut && 8 * j + c > done;
+                  st_shared_if(take && at < slots_end, at, x, 8 * j + c);
+                  at += take ? SLOT_STRIDE : 0;
+                }
+              const int n_cand = (at - my_slots) / SLOT_STRIDE;
+              const int n_take = min(n_cand, CAND_SLOTS);
+              __syncwarp();
+              // The quad's queue: lane 0's candidates, then lane 1's, ...
+              const int p1 = __shfl_sync(FULL_MASK, n_take, quad);
+              const int p2 = p1 + __shfl_sync(FULL_MASK, n_take, quad + 1);
+              const int p3 = p2 + __shfl_sync(FULL_MASK, n_take, quad + 2);
+              const int total = p3 + __shfl_sync(FULL_MASK, n_take, quad + 3);
+              const int steps = __reduce_max_sync(FULL_MASK, total);
+              for (int k = 0; k < steps; ++k) {
+                const int from = (k >= p1) + (k >= p2) + (k >= p3);
+                const int first = from == 0 ? 0 : from == 1 ? p1
+                                : from == 2 ? p2 : p3;
+                float y;
+                int jc;
+                ld_shared(quad_slots + from * 8 +
+                              min(k - first, CAND_SLOTS - 1) * SLOT_STRIDE,
+                          y, jc);
+                const int id = col0 + 2 * from + jc;
+                // Lane q-1's last entry moves down into this lane's part
+                // when the candidate goes above it.
+                const float up_v =
+                    __shfl_up_sync(FULL_MASK, top_v[i][KMAX - 1], 1);
+                const int up_i =
+                    __shfl_up_sync(FULL_MASK, top_i[i][KMAX - 1], 1);
+                const bool carry = q > 0 && ahead(y, id, up_v, up_i);
+                if (k < total &&
+                    ahead(y, id, top_v[i][KMAX - 1], top_i[i][KMAX - 1])) {
+                  topk_insert_ahead(top_v[i], top_i[i], carry ? up_v : y,
+                                    carry ? up_i : id);
+                }
+              }
+              if (!__any_sync(FULL_MASK, n_cand > CAND_SLOTS)) break;
+              if (n_cand > CAND_SLOTS) {
+                float x;
+                ld_shared(my_slots + (CAND_SLOTS - 1) * SLOT_STRIDE, x, done);
+              } else {
+                done = BN;
+              }
+              // A later column of this tile may tie the list's last entry
+              // with a lower id: go round from the cut on, ties included.
+              cut = fmaxf(floor_cut,
+                          nextafterf(__shfl_sync(FULL_MASK, top_v[i][KMAX - 1],
+                                                 quad + 3),
+                                     -INFINITY));
+            }
           }
         }
 #endif  // LENS_ANATOMY_SKIP_TOPK
@@ -571,23 +713,35 @@ __global__ void __launch_bounds__(THREADS, 1)
         part_sumexp[out] = s;
         part_tgt[out] = tv;
       }
+      if constexpr (L == KMAX) {
 #pragma unroll
-      for (int r = 0; r < KMAX; ++r) {
-        float bv = top_v[i][0];
-        int bi = top_i[i][0];
+        for (int r = 0; r < KMAX; ++r) {
+          float bv = top_v[i][0];
+          int bi = top_i[i][0];
 #pragma unroll
-        for (int off = 1; off < 4; off <<= 1) {
-          const float ov = __shfl_xor_sync(FULL_MASK, bv, off);
-          const int oi = __shfl_xor_sync(FULL_MASK, bi, off);
-          if (ov > bv || (ov == bv && oi < bi)) {
-            bv = ov;
-            bi = oi;
+          for (int off = 1; off < 4; off <<= 1) {
+            const float ov = __shfl_xor_sync(FULL_MASK, bv, off);
+            const int oi = __shfl_xor_sync(FULL_MASK, bi, off);
+            if (ov > bv || (ov == bv && oi < bi)) {
+              bv = ov;
+              bi = oi;
+            }
+          }
+          if (top_i[i][0] == bi) topk_pop(top_v[i], top_i[i]);
+          if (q == 0 && valid && r < k_top) {
+            part_vals[out * k_top + r] = bv;
+            part_ids[out * k_top + r] = bi;
           }
         }
-        if (top_i[i][0] == bi) topk_pop(top_v[i], top_i[i]);
-        if (q == 0 && valid && r < k_top) {
-          part_vals[out * k_top + r] = bv;
-          part_ids[out * k_top + r] = bi;
+      } else {
+        // The quad's list is one already: lane q writes its ranks.
+#pragma unroll
+        for (int p = 0; p < KMAX; ++p) {
+          const int r = KMAX * q + p;
+          if (valid && r < k_top) {
+            part_vals[out * k_top + r] = top_v[i][p];
+            part_ids[out * k_top + r] = top_i[i][p];
+          }
         }
       }
     }
@@ -634,12 +788,12 @@ CUresult make_map(CUtensorMap* map, const void* base, int rows, int cols,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <bool CAP>
+template <bool CAP, int L>
 int launch(const CUtensorMap& mx, const CUtensorMap& me, const int* targets,
            float* part_max, float* part_sumexp, float* part_tgt,
            float* part_vals, int* part_ids, int n, int d, int v, int k_top,
            int n_chunks, float cap, cudaStream_t stream) {
-  auto kernel = lens_wgmma_kernel<CAP>;
+  auto kernel = lens_wgmma_kernel<CAP, L>;
   cudaError_t rc = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (rc != cudaSuccess) return static_cast<int>(rc);
@@ -658,6 +812,7 @@ extern "C" {
 int tbx_wgmma_block_rows() { return BM; }
 int tbx_wgmma_block_cols() { return BN; }
 int tbx_wgmma_kmax() { return KMAX; }
+int tbx_wgmma_kmax_wide() { return KMAX_WIDE; }
 int tbx_wgmma_smem_bytes() { return SMEM_BYTES; }
 
 // Negative codes are -(CUresult) of a refused tensor map.
@@ -667,26 +822,31 @@ const char* tbx_wgmma_error_string(int code) {
 }
 
 // Launch one pass on `stream`.  x [n, d] and e [v, d] row-major bf16, 16-byte
-// aligned, d % 8 == 0; targets [n] int32 (-1 = none); 1 <= k_top <= KMAX;
+// aligned, d % 8 == 0; targets [n] int32 (-1 = none); list_len KMAX or
+// KMAX_WIDE, the instantiation's list length, and 1 <= k_top <= list_len;
 // 1 <= n_chunks <= ceil(v / BN).  Outputs [n_chunks, n] and
 // [n_chunks, n, k_top] as in the file header.
 int tbx_lens_wgmma(const void* x, const void* e, const int* targets,
                    float* part_max, float* part_sumexp, float* part_tgt,
                    float* part_vals, int* part_ids, int n, int d, int v,
-                   int k_top, int n_chunks, int has_cap, float cap,
-                   void* stream) {
+                   int k_top, int list_len, int n_chunks, int has_cap,
+                   float cap, void* stream) {
+  if (n < 1 || (list_len != KMAX && list_len != KMAX_WIDE) || k_top < 1 ||
+      k_top > list_len || n_chunks < 1 || n_chunks > (v + BN - 1) / BN) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   CUtensorMap mx, me;
   CUresult cr = make_map(&mx, x, n, d, BM);
   if (cr != CUDA_SUCCESS) return -static_cast<int>(cr);
   cr = make_map(&me, e, v, d, BN);
   if (cr != CUDA_SUCCESS) return -static_cast<int>(cr);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (has_cap) {
-    return launch<true>(mx, me, targets, part_max, part_sumexp, part_tgt,
-                        part_vals, part_ids, n, d, v, k_top, n_chunks, cap, s);
-  }
-  return launch<false>(mx, me, targets, part_max, part_sumexp, part_tgt,
-                       part_vals, part_ids, n, d, v, k_top, n_chunks, cap, s);
+  auto run = list_len == KMAX
+                  ? (has_cap ? &launch<true, KMAX> : &launch<false, KMAX>)
+                  : (has_cap ? &launch<true, KMAX_WIDE>
+                             : &launch<false, KMAX_WIDE>);
+  return run(mx, me, targets, part_max, part_sumexp, part_tgt, part_vals,
+             part_ids, n, d, v, k_top, n_chunks, cap, s);
 }
 
 }  // extern "C"

@@ -262,9 +262,13 @@ def _span_duration(sp) -> float:
 def _publish_aot_stats() -> None:
     """Fold the graph registry's per-entry hit/miss/capture counters into
     the metrics registry at sweep close (the registry's byte totals, plain
-    numbers beside the entries, are skipped)."""
-    from taboo_brittleness_tpu_torch.runtime import aot
-
+    numbers beside the entries, are skipped).  A process that never
+    imported the registry has no entries, and importing it here would
+    import torch under the GIL while the heartbeat thread still runs (a
+    fleet worker's close), so such a process publishes nothing."""
+    aot = sys.modules.get("taboo_brittleness_tpu_torch.runtime.aot")
+    if aot is None:
+        return
     for name, st in aot.stats().items():
         if not isinstance(st, dict):
             continue

@@ -30,6 +30,7 @@ same fields and ``mem.*`` gauges, read from ``torch.cuda`` instead of
 from __future__ import annotations
 
 import os
+import sys
 import threading
 from typing import Any, Dict, List, Optional
 
@@ -48,14 +49,19 @@ def host_rss_bytes() -> Optional[int]:
 
 
 def _cuda():
-    """``torch`` when a CUDA card is visible and initialised, else None (a
-    sample never initialises CUDA on its own)."""
+    """``torch`` when a CUDA card is visible and initialised, else None.  A
+    sample never imports torch or initialises CUDA on its own: a process
+    that has not imported torch holds no card state, and the import (a
+    second or more, most of it under the GIL) would stall the heartbeat
+    thread beside the sample, which a supervisor then reads as a wedged
+    process (a fleet worker's first span)."""
+    torch = sys.modules.get("torch")
+    if torch is None:
+        return None
     try:
-        import torch
-
         if torch.cuda.is_available() and torch.cuda.is_initialized():
             return torch
-    except Exception:  # noqa: BLE001 — no torch / no CUDA: host-only sample
+    except Exception:  # noqa: BLE001 — no CUDA: host-only sample
         pass
     return None
 

@@ -11,17 +11,24 @@ Three kernels, three routes, chosen by :func:`lens_plan` before the launch
 from the call's rows, vocabulary, top-k, dtype and the card's SM count:
 
 - ``"splitv"`` (``csrc/lens_stats_splitv.cu``): bf16 inputs, ``top_k <=
-  KMAX`` and at most :data:`SPLITV_MAX_ROWS` rows: the serving readouts (N 8
+  KMAX_WIDE`` and at most :data:`SPLITV_MAX_ROWS` rows: the serving readouts (N 8
   per step, N 32 per speculative verify, each tp shard's).  E's rows are the
   wgmma's M and the few rows of x its N; one block per SM streams a balanced
   range of 32-row vocab tiles once (TMA ring), and each consumer warp folds
   its tokens' logits across the lanes.  One partial per (chunk, row).
 - ``"wgmma"`` (``csrc/lens_stats_wgmma.cu``): bf16 inputs and
-  ``top_k <= KMAX`` with more rows, which is every call of the main path.
+  ``top_k <= KMAX_WIDE`` with more rows, which is every call of the main path.
   TMA ring, wgmma, 128 x 256 tiles and a running per-row state across a
   vocab chunk: one partial per (chunk, row).
-- ``"simple"`` (``csrc/lens_stats.cu``): f32 inputs or a longer top-k.  WMMA
-  or FMA tiles of 64 x 128 with one partial per 128 columns.
+- ``"simple"`` (``csrc/lens_stats.cu``): f32 inputs or a top-k above
+  ``KMAX_WIDE``.  WMMA or FMA tiles of 64 x 128 with one partial per 128
+  columns.
+
+The two Hopper kernels each hold two instantiations of their running top-k
+list: :data:`KMAX` entries (every call with ``top_k <= KMAX``) and
+:data:`KMAX_WIDE` (``KMAX < top_k <= KMAX_WIDE``).  The launcher passes the
+instantiation's length, and refuses a top-k above the longest list the
+library exports.
 
 - :func:`lens_stats` dispatches on the device of its inputs: CUDA tensors go
   to a kernel (or raise when no kernel can take them), CPU tensors go to
@@ -62,10 +69,13 @@ NEG_INF = -1e30
 #: multiple of it.
 BLOCK_V = 128
 
-#: The wgmma kernel's block tile (rows x vocab columns) and the longest
-#: top-k it keeps in its running state.
+#: The wgmma kernel's block tile (rows x vocab columns).
 WGMMA_ROWS, WGMMA_COLS = 128, 256
-KMAX = 8
+
+#: The lengths of the Hopper kernels' running top-k lists: calls with
+#: ``top_k <= KMAX`` take the short list, calls up to ``KMAX_WIDE`` the long
+#: one.  Longer top-k and f32 take the simple kernel.
+KMAX, KMAX_WIDE = 8, 32
 
 #: The split-V kernel's plan tile: vocab rows per step of a chunk (one TMA
 #: box of E).
@@ -177,12 +187,12 @@ def lens_plan(n: int, v: int, k: int, dtype: torch.dtype, *,
     """The route and geometry of a lens-stats call over N rows, V vocab
     columns and top-``k`` on a card of ``sm_count`` SMs.
 
-    bf16 with ``k <= KMAX`` takes the split-V kernel up to
+    bf16 with ``k <= KMAX_WIDE`` takes the split-V kernel up to
     :data:`SPLITV_MAX_ROWS` rows (:func:`_splitv_plan`) and the wgmma kernel
-    above (:func:`_wgmma_plan`); anything else takes the simple kernel
-    (:func:`_simple_plan`).
+    above (:func:`_wgmma_plan`); f32, or a longer top-k, takes the simple
+    kernel (:func:`_simple_plan`).
     """
-    if dtype == torch.bfloat16 and k <= KMAX:
+    if dtype == torch.bfloat16 and k <= KMAX_WIDE:
         if n <= SPLITV_MAX_ROWS:
             return _splitv_plan(n, v, sm_count)
         return _wgmma_plan(n, v, sm_count)
@@ -389,44 +399,44 @@ def build_library() -> Dict[str, Tuple[str, str]]:
 
 
 def bind_library(route: str, path: str) -> ctypes.CDLL:
-    """Load a built library of ``route`` and declare its C interface."""
+    """Load a built library of ``route`` and declare its C interface.  Its
+    ``list_lengths`` are the top-k list lengths it instantiates, shortest
+    first, as the library exports them."""
     lib = ctypes.CDLL(path)
     p = ctypes.c_void_p
     i = ctypes.c_int
     if route == "splitv":
         for name in ("tbx_splitv_tile_rows", "tbx_splitv_kmax",
-                     "tbx_splitv_max_rows"):
+                     "tbx_splitv_kmax_wide", "tbx_splitv_max_rows"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = i
         lib.tbx_splitv_smem_bytes.argtypes = [i]
         lib.tbx_splitv_smem_bytes.restype = i
         lib.tbx_splitv_error_string.argtypes = [i]
         lib.tbx_splitv_error_string.restype = ctypes.c_char_p
-        lib.tbx_lens_splitv.argtypes = [p] * 13 + [i, i, i, i, i, i,
-                                                   ctypes.c_float, p]
+        lib.tbx_lens_splitv.argtypes = [p] * 13 + [i] * 7 + [ctypes.c_float, p]
         lib.tbx_lens_splitv.restype = i
-        geometry = (lib.tbx_splitv_tile_rows(), lib.tbx_splitv_kmax())
-        rows = lib.tbx_splitv_max_rows()
-        if geometry != (SPLITV_TILE, KMAX) or rows < SPLITV_MAX_ROWS:
-            raise RuntimeError(f"{path} has tile/KMAX {geometry} and holds "
-                               f"{rows} rows, expected {(SPLITV_TILE, KMAX)} "
-                               f"and {SPLITV_MAX_ROWS}")
+        tile, rows = lib.tbx_splitv_tile_rows(), lib.tbx_splitv_max_rows()
+        if tile != SPLITV_TILE or rows < SPLITV_MAX_ROWS:
+            raise RuntimeError(f"{path} has tile {tile} and holds {rows} rows, "
+                               f"expected {SPLITV_TILE} and {SPLITV_MAX_ROWS}")
+        lib.list_lengths = (lib.tbx_splitv_kmax(), lib.tbx_splitv_kmax_wide())
         return lib
     if route == "wgmma":
         for name in ("tbx_wgmma_block_rows", "tbx_wgmma_block_cols",
-                     "tbx_wgmma_kmax", "tbx_wgmma_smem_bytes"):
+                     "tbx_wgmma_kmax", "tbx_wgmma_kmax_wide",
+                     "tbx_wgmma_smem_bytes"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = i
         lib.tbx_wgmma_error_string.argtypes = [i]
         lib.tbx_wgmma_error_string.restype = ctypes.c_char_p
-        lib.tbx_lens_wgmma.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i,
-                                       i, ctypes.c_float, p]
+        lib.tbx_lens_wgmma.argtypes = [p] * 8 + [i] * 7 + [ctypes.c_float, p]
         lib.tbx_lens_wgmma.restype = i
-        geometry = (lib.tbx_wgmma_block_rows(), lib.tbx_wgmma_block_cols(),
-                    lib.tbx_wgmma_kmax())
-        if geometry != (WGMMA_ROWS, WGMMA_COLS, KMAX):
-            raise RuntimeError(f"{path} has tiles/KMAX {geometry}, expected "
-                               f"{(WGMMA_ROWS, WGMMA_COLS, KMAX)}")
+        geometry = (lib.tbx_wgmma_block_rows(), lib.tbx_wgmma_block_cols())
+        if geometry != (WGMMA_ROWS, WGMMA_COLS):
+            raise RuntimeError(f"{path} has tiles {geometry}, expected "
+                               f"{(WGMMA_ROWS, WGMMA_COLS)}")
+        lib.list_lengths = (lib.tbx_wgmma_kmax(), lib.tbx_wgmma_kmax_wide())
         return lib
     lib.tbx_lens_block_v.argtypes = []
     lib.tbx_lens_block_v.restype = i
@@ -438,7 +448,18 @@ def bind_library(route: str, path: str) -> ctypes.CDLL:
     if lib.tbx_lens_block_v() != BLOCK_V:
         raise RuntimeError(f"{path} tiles the vocab by "
                            f"{lib.tbx_lens_block_v()}, expected {BLOCK_V}")
+    lib.list_lengths = (BLOCK_V,)
     return lib
+
+
+def list_length(lib, route: str, top_k: int) -> int:
+    """The shortest top-k list ``lib`` instantiates that holds ``top_k``;
+    raises when none does."""
+    for length in lib.list_lengths:
+        if top_k <= length:
+            return length
+    raise ValueError(f"the {route} library keeps top-k lists of "
+                     f"{lib.list_lengths} entries, not {top_k}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -475,8 +496,8 @@ def _launch(x: torch.Tensor, embed: torch.Tensor, targets: torch.Tensor,
     if n == 0:
         raise ValueError("the lens kernels take N >= 1 rows")
     if plan.route == "splitv":
-        if x.dtype != torch.bfloat16 or top_k > KMAX or n > SPLITV_MAX_ROWS:
-            raise ValueError(f"the splitv route takes bf16, top_k <= {KMAX} "
+        if x.dtype != torch.bfloat16 or top_k > KMAX_WIDE or n > SPLITV_MAX_ROWS:
+            raise ValueError(f"the splitv route takes bf16, top_k <= {KMAX_WIDE} "
                              f"and N <= {SPLITV_MAX_ROWS}, got {x.dtype}, "
                              f"{top_k} and {n}")
         tiles = _cdiv(v, SPLITV_TILE)
@@ -484,8 +505,8 @@ def _launch(x: torch.Tensor, embed: torch.Tensor, targets: torch.Tensor,
             raise ValueError(f"plan {plan[:4]} does not cut V={v}")
         expected = (1, tiles, _tile_bounds(v, SPLITV_TILE, plan.chunks))
     elif plan.route == "wgmma":
-        if x.dtype != torch.bfloat16 or top_k > KMAX:
-            raise ValueError(f"the wgmma route takes bf16 and top_k <= {KMAX}, "
+        if x.dtype != torch.bfloat16 or top_k > KMAX_WIDE:
+            raise ValueError(f"the wgmma route takes bf16 and top_k <= {KMAX_WIDE}, "
                              f"got {x.dtype} and {top_k}")
         expected = (_cdiv(n, WGMMA_ROWS), _cdiv(v, WGMMA_COLS),
                     _tile_bounds(v, WGMMA_COLS, plan.chunks))
@@ -501,6 +522,7 @@ def _launch(x: torch.Tensor, embed: torch.Tensor, targets: torch.Tensor,
         raise ValueError(f"plan {plan[:4]} does not cut N={n}, V={v}")
 
     lib = _library(plan.route)
+    length = list_length(lib, plan.route, top_k)
     s = plan.chunks
     f32 = dict(dtype=torch.float32, device=x.device)
     parts = LensPartials(
@@ -524,12 +546,12 @@ def _launch(x: torch.Tensor, embed: torch.Tensor, targets: torch.Tensor,
         if plan.route == "splitv":
             merge_ptrs = ([t.data_ptr() for t in (*stats, ticket)] if merged
                           else [None] * 5)
-            rc = lib.tbx_lens_splitv(*ptrs, *merge_ptrs, n, d, v, top_k, s,
-                                     has_cap, cap, stream)
+            rc = lib.tbx_lens_splitv(*ptrs, *merge_ptrs, n, d, v, top_k,
+                                     length, s, has_cap, cap, stream)
             why = lib.tbx_splitv_error_string
         elif plan.route == "wgmma":
-            rc = lib.tbx_lens_wgmma(*ptrs, n, d, v, top_k, s, has_cap, cap,
-                                    stream)
+            rc = lib.tbx_lens_wgmma(*ptrs, n, d, v, top_k, length, s, has_cap,
+                                    cap, stream)
             why = lib.tbx_wgmma_error_string
         else:
             rc = lib.tbx_lens_stats(*ptrs, n, d, v, top_k, has_cap, cap,

@@ -7,7 +7,8 @@ Builds the route's source (``csrc/lens_stats_wgmma.cu`` or
 ``csrc/lens_stats_splitv.cu``) as shipped, without the whole per-tile fold
 (``-DLENS_ANATOMY_SKIP_FOLD``, the product alone) and, for the wgmma kernel,
 without the running top-k (``-DLENS_ANATOMY_SKIP_TOPK``).  At ``--rows`` N
-(the main path's 1140 by default), V = 256000 and ``--top-k`` in bf16 it
+(the main path's 1140 by default), V = 256000 and ``--top-k`` in bf16 (up
+to ``KMAX_WIDE``: above ``KMAX`` the kernel's long list) it
 times each build's launch on the route's own plan (CUDA events, means over
 ``--reps``) for D in 1792, 3584 and 7168, the builds in turns, beside
 ``torch.matmul(x, E^T)`` (cuBLAS, bf16 out) on the same inputs.
@@ -81,9 +82,11 @@ def launcher(lib, x: torch.Tensor, embed: torch.Tensor, plan: lk.LensPlan,
     # The split-V kernel's merged outputs: none, the partials alone.
     ptrs += [None] * 5 if plan.route == "splitv" else []
 
+    length = lk.list_length(lib, plan.route, top_k)
+
     def launch():
-        rc = run(*ptrs, n, d, embed.shape[0], top_k, plan.chunks, 0, 0.0,
-                 stream)
+        rc = run(*ptrs, n, d, embed.shape[0], top_k, length, plan.chunks, 0,
+                 0.0, stream)
         if rc != 0:
             raise RuntimeError(why(rc).decode())
     return launch

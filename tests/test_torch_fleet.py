@@ -526,6 +526,50 @@ def test_fleet_speculation_rescues_straggler(tmp_path, monkeypatch):
         assert json.load(f)["uid"] == "u03"
 
 
+_TORCHLESS_WORKER = r"""
+import json, os, sys
+sys.path.insert(0, {repo!r})
+from taboo_brittleness_tpu_torch.runtime import fleet
+
+out = sys.argv[1]
+spool = fleet.FleetSpool(os.path.join(out, fleet.SPOOL_DIRNAME)).ensure()
+for i in range(3):
+    spool.put(f"u{{i}}", {{"word": f"u{{i}}", "readout": {{"layer": 1}}}},
+              attempt=0)
+
+
+def unit_fn(unit):
+    if len(spool.done_uids()) == 2:
+        spool.write_stop()
+    return {{"word": unit["word"]}}
+
+
+res = fleet.run_worker(out, "w0", unit_fn=unit_fn, lease_s=1.0, poll_s=0.02)
+print(json.dumps({{"committed": res.committed, "torch": "torch" in sys.modules,
+                  "aot": "taboo_brittleness_tpu_torch.runtime.aot" in sys.modules}}))
+"""
+
+
+def test_fleet_worker_never_imports_torch(tmp_path):
+    """A fleet worker whose units never touch torch runs its spans, its
+    heartbeat and its close without importing torch: the memory sample
+    reads only a torch already loaded and the graph registry's stats only
+    a registry already imported.  The import (a second or more, mostly
+    under the GIL) starved the heartbeat thread past its staleness limit,
+    and the supervisor killed such workers as wedged until their
+    incarnations ran out (the straggler test under load)."""
+    script = tmp_path / "worker.py"
+    script.write_text(_TORCHLESS_WORKER.format(repo=REPO))
+    env = {**os.environ, "TBX_OBS_PROGRESS_S": "0.1", "TBX_OBS_MEM_HZ": "20"}
+    proc = subprocess.run([sys.executable, str(script), str(tmp_path / "f")],
+                          env=env, capture_output=True, text=True,
+                          timeout=PROC_DEADLINE_S)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got["committed"] == 3
+    assert got["torch"] is False and got["aot"] is False
+
+
 # ---------------------------------------------------------------------------
 # The CLI on --device cpu (tiny synthetic workers).
 # ---------------------------------------------------------------------------

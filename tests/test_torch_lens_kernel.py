@@ -43,7 +43,8 @@ def _assert_stats_close(got, exp, *, ids=True):
 
 
 @pytest.mark.parametrize("cap", [None, 30.0])
-@pytest.mark.parametrize("n_rows,d,v,k", [(6, 32, 256, 3), (16, 64, 512, 5)])
+@pytest.mark.parametrize("n_rows,d,v,k", [(6, 32, 256, 3), (16, 64, 512, 5),
+                                          (8, 32, 1024, 16), (6, 16, 512, 32)])
 def test_lens_stats_matches_pallas_and_xla(n_rows, d, v, k, cap):
     rng = np.random.default_rng(0)
     x, embed = _both(rng, n_rows, d, v)

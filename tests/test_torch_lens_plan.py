@@ -65,8 +65,13 @@ PLANS = {"splitv": lambda n, v, k, sm: lens_kernel._splitv_plan(n, v, sm),
     (1140, 384, 5, BF16, "wgmma", 9, 2),
     (1140, 256_000, lens_kernel.KMAX, BF16, "wgmma", 9, 1000),
     (1140, 256_000, 5, F32, "simple", 18, 2000),
-    (1140, 256_000, 32, BF16, "simple", 18, 2000),
-    (3, 384, lens_kernel.KMAX + 1, BF16, "simple", 1, 3),
+    (1140, 256_000, 32, BF16, "wgmma", 9, 1000),
+    (1140, 256_000, 16, BF16, "wgmma", 9, 1000),
+    (1140, 256_000, lens_kernel.KMAX_WIDE + 1, BF16, "simple", 18, 2000),
+    (1140, 256_000, 128, BF16, "simple", 18, 2000),
+    (1140, 256_000, 16, F32, "simple", 18, 2000),
+    (3, 384, lens_kernel.KMAX + 1, BF16, "splitv", 1, 12),
+    (3, 384, lens_kernel.KMAX_WIDE + 1, BF16, "simple", 1, 3),
     (8, 256_000, 1, BF16, "splitv", 1, 8000),
     (8, 128_000, 1, BF16, "splitv", 1, 4000),
     (32, 256_000, 1, BF16, "splitv", 1, 8000),
@@ -75,8 +80,13 @@ PLANS = {"splitv": lambda n, v, k, sm: lens_kernel._splitv_plan(n, v, sm),
     (1, 128_000, lens_kernel.KMAX, BF16, "splitv", 1, 4000),
     (SPLITV_ROWS + 1, 256_000, 1, BF16, "wgmma", 1, 1000),
     (SPLITV_ROWS + 1, 128_000, lens_kernel.KMAX, BF16, "wgmma", 1, 500),
+    (SPLITV_ROWS + 1, 256_000, lens_kernel.KMAX_WIDE, BF16, "wgmma", 1, 1000),
+    (SPLITV_ROWS, 256_000, lens_kernel.KMAX_WIDE, BF16, "splitv", 1, 8000),
     (8, 256_000, 1, F32, "simple", 1, 2000),
-    (8, 128_000, lens_kernel.KMAX + 1, BF16, "simple", 1, 1000),
+    (8, 256_000, lens_kernel.KMAX_WIDE, F32, "simple", 1, 2000),
+    (8, 128_000, lens_kernel.KMAX + 1, BF16, "splitv", 1, 4000),
+    (32, 256_000, 16, BF16, "splitv", 1, 8000),
+    (8, 128_000, lens_kernel.KMAX_WIDE + 1, BF16, "simple", 1, 1000),
 ])
 def test_plan_routes_and_edges(n, v, k, dtype, route, row_tiles, vocab_tiles):
     plan = lens_kernel.lens_plan(n, v, k, dtype)
@@ -122,7 +132,8 @@ def test_plan_follows_the_cards_sm_count():
 @pytest.mark.parametrize("route", ["splitv", "wgmma", "simple"])
 @pytest.mark.parametrize("cap", [None, 30.0])
 @pytest.mark.parametrize("n_rows,d,v,k", [(6, 32, 256, 3), (16, 64, 512, 5),
-                                          (5, 16, 384, 4), (7, 16, 4224, 5)])
+                                          (5, 16, 384, 4), (7, 16, 4224, 5),
+                                          (8, 32, 2048, 16), (6, 16, 4224, 32)])
 def test_merged_partials_match_pallas_and_xla(n_rows, d, v, k, cap, route):
     rng = np.random.default_rng(0)
     x, embed = _inputs(rng, n_rows, d, v)
@@ -145,29 +156,40 @@ def test_merged_partials_match_pallas_and_xla(n_rows, d, v, k, cap, route):
     assert got.topk_ids.dtype == torch.int32
 
 
-@pytest.mark.parametrize("route,bounds", [
-    ("wgmma", (0, 2048, 4096, 6272)),
-    ("splitv", (0, 2080, 4160, 6272)),
+WGMMA_BOUNDS, SPLITV_BOUNDS = (0, 2048, 4096, 6272), (0, 2080, 4160, 6272)
+
+
+@pytest.mark.parametrize("route,bounds,k", [
+    pytest.param("wgmma", WGMMA_BOUNDS, 2, id="wgmma-bounds0"),
+    pytest.param("splitv", SPLITV_BOUNDS, 2, id="splitv-bounds1"),
+    pytest.param("wgmma", WGMMA_BOUNDS, 16, id="wgmma-bounds0-k16"),
+    pytest.param("wgmma", WGMMA_BOUNDS, 32, id="wgmma-bounds0-k32"),
+    pytest.param("splitv", SPLITV_BOUNDS, 16, id="splitv-bounds1-k16"),
+    pytest.param("splitv", SPLITV_BOUNDS, 32, id="splitv-bounds1-k32"),
 ])
 @pytest.mark.parametrize("cap", [None, 30.0])
-def test_per_row_targets_across_chunks(cap, route, bounds):
+def test_per_row_targets_across_chunks(cap, route, bounds, k):
     """[N] targets at the edges of the chunks, one absent (-1), one in the
-    last tile."""
+    last tile; the short top-k list and the long one (K 16 and 32)."""
     rng = np.random.default_rng(4)
     n, d, v = 9, 32, 6272
     x, embed = _inputs(rng, n, d, v)
     edges = [b + e for b in bounds[1:-1] for e in (-1, 0)]
     targets = np.array([0, *edges, 6271, -1, 3000, 6200], np.int32)
-    plan = PLANS[route](n, v, 2, 3)
+    plan = PLANS[route](n, v, k, 3)
     assert plan.chunks == 3
+    if k > lens_kernel.KMAX:     # what lens_plan gives such a bf16 call
+        assert lens_kernel.lens_plan(
+            n if route == "splitv" else SPLITV_ROWS + 1, v, k, BF16,
+            sm_count=3).route == route
     got = lens_kernel.merge_partials(lens_kernel.lens_stats_partials_reference(
         torch.from_numpy(x), torch.from_numpy(embed),
-        torch.from_numpy(targets), plan, top_k=2, logit_cap=cap))
+        torch.from_numpy(targets), plan, top_k=k, logit_cap=cap))
     exp = pallas_lens.lens_stats(
-        jnp.asarray(x), jnp.asarray(embed), jnp.asarray(targets), top_k=2,
+        jnp.asarray(x), jnp.asarray(embed), jnp.asarray(targets), top_k=k,
         logit_cap=cap, block_v=128, interpret=True)
     xla = pallas_lens.lens_stats_reference(
-        jnp.asarray(x), jnp.asarray(embed), jnp.asarray(targets), top_k=2,
+        jnp.asarray(x), jnp.asarray(embed), jnp.asarray(targets), top_k=k,
         logit_cap=cap)
     _assert_stats_close(got, exp)
     _assert_stats_close(got, xla)
@@ -175,10 +197,18 @@ def test_per_row_targets_across_chunks(cap, route, bounds):
     assert got.target_logit[6].item() == np.float32(lens_kernel.NEG_INF)
 
 
-@pytest.mark.parametrize("route", ["splitv", "wgmma"])
-def test_ties_across_tiles_and_chunks_take_the_lowest_id(route):
+@pytest.mark.parametrize("route,k", [
+    pytest.param("splitv", 6, id="splitv"),
+    pytest.param("wgmma", 6, id="wgmma"),
+    pytest.param("splitv", 16, id="splitv-k16"),
+    pytest.param("splitv", 32, id="splitv-k32"),
+    pytest.param("wgmma", 16, id="wgmma-k16"),
+    pytest.param("wgmma", 32, id="wgmma-k32"),
+])
+def test_ties_across_tiles_and_chunks_take_the_lowest_id(route, k):
     """Duplicated embedding rows in different vocab tiles and chunks tie
-    exactly; the merged top-k must take them lowest id first, as lax.top_k."""
+    exactly; the merged top-k must take them lowest id first, as lax.top_k,
+    down the whole list (exact ties are frequent below the top four)."""
     rng = np.random.default_rng(7)
     n, d, v = 8, 16, 8192
     # Sums of multiples of 1/8: exact in f32 in any order, so ties are exact
@@ -190,13 +220,13 @@ def test_ties_across_tiles_and_chunks_take_the_lowest_id(route):
     hot[:8] = 1.0                                  # logit 8 > 2 >= any other
     dups = [5, 300, 4100, 8191]                    # tiles 0, 1, 16, 31
     embed[dups] = hot
-    plan = PLANS[route](n, v, 6, 4)
+    plan = PLANS[route](n, v, k, 4)
     assert plan.chunks == 4
     chunk_of = np.searchsorted(plan.bounds, dups, side="right")
     assert len(set(chunk_of.tolist())) >= 3
     got = lens_kernel.merge_partials(lens_kernel.lens_stats_partials_reference(
-        torch.from_numpy(x), torch.from_numpy(embed), 0, plan, top_k=6))
-    exp_v, exp_i = jax.lax.top_k(jnp.asarray(x) @ jnp.asarray(embed).T, 6)
+        torch.from_numpy(x), torch.from_numpy(embed), 0, plan, top_k=k))
+    exp_v, exp_i = jax.lax.top_k(jnp.asarray(x) @ jnp.asarray(embed).T, k)
     np.testing.assert_array_equal(got.topk_ids.numpy(), np.asarray(exp_i))
     np.testing.assert_array_equal(got.topk_vals.numpy(), np.asarray(exp_v))
     assert (got.topk_ids[:, :4].numpy() == dups).all()
@@ -224,8 +254,10 @@ def test_cpu_partials_take_the_plain_version():
     (SPLITV_ROWS + 1, BF16, 3,                                          # N over the route's limit
      lambda: lens_kernel._splitv_plan(SPLITV_ROWS + 1, 512, 4)),
     (8, BF16, 3, lambda: lens_kernel.lens_plan(8, 1024, 3, BF16)),      # splitv cut for another vocab
-    (8, BF16, lens_kernel.KMAX + 1,                                     # top_k over KMAX
+    (8, BF16, lens_kernel.KMAX_WIDE + 1,                                # top_k over KMAX_WIDE
      lambda: lens_kernel._splitv_plan(8, 512, 4)),
+    (128, BF16, lens_kernel.KMAX_WIDE + 1,                              # ... on the wgmma route
+     lambda: lens_kernel._wgmma_plan(128, 512, 4)),
     (8, BF16, 3, lambda: lens_kernel._splitv_plan(8, 512, 4)._replace(  # chunks not the plan's
         chunks=3)),
 ])
@@ -250,3 +282,41 @@ def test_only_the_splitv_launch_merges_its_chunks(route):
         x, embed = x.float(), embed.float()
     with pytest.raises(ValueError, match="partials only"):
         lens_kernel._launch(x, embed, targets, plan, 3, None, merged=True)
+
+
+class _Exports:
+    """A built library as the launcher reads it: its exported list lengths."""
+
+    def __init__(self, lengths):
+        self.list_lengths = lengths
+
+
+@pytest.mark.parametrize("route,lengths,k", [
+    ("splitv", (8, 16), 17),
+    ("splitv", (8,), lens_kernel.KMAX + 1),
+    ("wgmma", (8, 16), lens_kernel.KMAX_WIDE),
+    ("wgmma", (4, 8), 5 + 4),
+])
+def test_launcher_refuses_a_top_k_above_the_librarys_lists(monkeypatch, route,
+                                                           lengths, k):
+    """A plan the wrapper's own limits allow, for a library whose exported
+    list lengths are shorter: the launcher raises before it allocates or
+    launches anything, and takes no other route."""
+    n = 8 if route == "splitv" else 128
+    plan = PLANS[route](n, 512, k, 4)
+    monkeypatch.setattr(lens_kernel, "_library", lambda r: _Exports(lengths))
+    x = torch.zeros((n, 16), dtype=BF16)
+    embed = torch.zeros((512, 16), dtype=BF16)
+    targets = torch.zeros((n,), dtype=torch.int32)
+    before = dict(lens_kernel.lens_stats.route_launches)
+    with pytest.raises(ValueError, match="keeps top-k lists"):
+        lens_kernel._launch(x, embed, targets, plan, k, None)
+    assert lens_kernel.lens_stats.route_launches == before
+
+
+@pytest.mark.parametrize("lengths,k,want", [
+    ((8, 32), 1, 8), ((8, 32), 8, 8), ((8, 32), 9, 32), ((8, 32), 32, 32),
+    ((128,), 33, 128),
+])
+def test_list_length_takes_the_shortest_list_that_holds_k(lengths, k, want):
+    assert lens_kernel.list_length(_Exports(lengths), "any", k) == want
