@@ -25,10 +25,14 @@ the kernels are built for sm_90a).  Phases, each of which fails the run:
    turns with K 5 (5, 16, 32, 32, 16, 5) beside the library yardstick (the
    bf16 product in f32, ``logsumexp``, ``topk`` at that K), the plain
    version and the bound, and the simple route at K 32 launched on its own
-   plan; last, the f32 route (the simple kernel, f32's only route) at N
-   1140, K 5 and N 8, K 1 against the plain version, timed beside the f32
-   library call (TF32 off, matmul precision "highest", both set) and two
-   bounds: three TF32 products (3xTF32) and the f32 FMA rate;
+   plan; then the f32 builds of the Hopper kernels (3xTF32) at N 1140, K 5
+   (wgmma) and N 8, K 1 (split-V) against the plain version, timed beside
+   the f32 library call (TF32 off, matmul precision "highest", both set)
+   and two bounds: three TF32 products (3xTF32) and the f32 FMA rate, with
+   a NOTE where a call is not below its library call; last, the simple
+   kernel on its own route (bf16, N 1140 and 8, K 33, 64 and 128: ids
+   entry by entry) beside the library call at that K, the plain version
+   and the bound;
    3b. the split-V kernel (every bf16 readout of at most SPLITV_MAX_ROWS
    rows, K <= KMAX_WIDE) against the plain version at N in {1, 8, 16, 32,
    33, 64}, K in {1, 5, 8, 16, 32}, cap None and 30, per-row targets with
@@ -41,16 +45,29 @@ the kernels are built for sm_90a).  Phases, each of which fails the run:
    48, 64} beside the library yardstick and the bound (the crossover), the
    body and the torch merge apart at N 8, the tp shard's N 8, V 128000,
    and the long list's calls at N 8 and 32, K 16 and 32 beside their
-   library call, plain version and bound;
-4. edges: bf16 at N in {1, 129, 1140}, V in {384, 256000}, D in {72, 3584},
-   K in {1, 5, KMAX, 16, KMAX_WIDE} (on the Hopper kernels) and KMAX_WIDE + 1
-   (the simple kernel's bf16 build), cap None and 30, one target and per-row
-   targets with -1, each route reached by at least one case; then exact ties
-   from duplicated embedding rows in different tiles, at K 5, 8, 16, 32 and
-   33, and for K 16 and up also on both sides of the wgmma plan's chunk
-   edges;
-5. a tiny f32 model through the lens pass on the card (the simple route) and
-   on the CPU (the plain tap);
+   library call, plain version and bound; then the f32 builds of the
+   split-V and the wgmma kernels on the same K = 1 readouts at the same N,
+   each held to the plain version and timed in turns (the f32 crossover
+   that sets SPLITV_F32_MAX_ROWS);
+4. edges: bf16 at N in {1, 129, 1140} and f32 at N in {1,
+   SPLITV_F32_MAX_ROWS + 1, 129, 1140}, V in {384, 256000}, D in {72,
+   3584}, K in {1, 5, KMAX, 16, KMAX_WIDE} (on the Hopper kernels) and
+   KMAX_WIDE + 1 (the simple kernel's build of the dtype), cap None and 30,
+   one target and per-row targets with -1, each route of each dtype reached
+   by at least one case; then exact ties from duplicated embedding rows in
+   different tiles, at K 5, 8, 16, 32 and 33, and for K 16 and up also on
+   both sides of the wgmma plan's chunk edges; in f32 on both sides of two
+   chunk edges of the wgmma plan at N 1140 and of the split-V plan at N 8;
+5. a tiny f32 model through the lens pass on the card (N 33 on the split-V
+   kernel's f32 build, N 77 on the wgmma kernel's, each route's launches
+   counted) and on the CPU (the plain tap), at 1e-5;
+   5b. a 2-layer f32 model at Gemma-2-9B width (seeded random weights made
+   on the card, ~4.9 GiB) through ``lens.lens_forward`` with the kernel tap
+   for the 10 prompts at their padded 64 columns (the wgmma kernel's f32
+   build) and one prompt's last 8 columns (the split-V kernel's), each held
+   to the same call with the plain tap on the card: probabilities at 1e-5,
+   top-5 ids equal wherever the margins clear; the launches counted from 0
+   just before each pass are the f32 entries' ``launches``;
 6. main path: Gemma-2-9B width (42 layers, seeded random bf16 weights made on
    the card), ``run_generation`` then ``run_evaluation`` for the default
    config's 10 prompts, through a model loader, into a temporary directory;
@@ -224,9 +241,9 @@ the kernels are built for sm_90a).  Phases, each of which fails the run:
    and 50 new tokens graphed with ``capture_residual_layer=(9, 20, 31)``,
    each slot bit-equal to a graphed single-tap capture at its layer, the
    1-tuple to the int, eager (``TBX_AOT=0``) to graphed, no registry miss
-   on a second call (13a); ``GridSpec.build([9, 20, 31], [16384, 65536])``
+   on a second call (13a); ``GridSpec.build([20, 31], [16384, 65536])``
    with synthetic cells over phase 9's two delta words (each captured
-   once), the 12 units through a ``FleetSpool`` and ``fleet.run_worker``
+   once), the 8 units through a ``FleetSpool`` and ``fleet.run_worker``
    in this process with each word loaded through the delta
    ``CheckpointManager``: the matrix complete, every uid committed once,
    every cell readout held to float64 on the host, one cell's ablated
@@ -375,13 +392,17 @@ the kernels are built for sm_90a).  Phases, each of which fails the run:
    second fleet; ``python3 chip_smoke.py --readout-window`` phases 1, 2
    and 14a's profiled readout window taken again and again, each read
    step by step (how often a readout goes missing, and whether the trace
-   or the step is short); ``python3 chip_smoke.py --kernels`` phases 1-5
+   or the step is short); ``python3 chip_smoke.py --kernels`` phases 1-5b
    alone (the lens kernels held to their plain version and timed).
 
 The card's name and power limit are printed again just before the
 ``{"kernels": [...]}`` line, which is the line before the last: one entry
-per route (times in ms, measured here; ``bound_ms`` from this run's shapes
-and the card's published peaks).  The split-V entry: ``launches`` from 11b's
+per route and dtype (times in ms, measured here; ``bound_ms`` from this
+run's shapes and the card's published peaks).  The simple kernel's entry
+is its own route's call (bf16, N 1140, K 33; ``wide_k`` holds K 33, 64 and
+128 at N 1140 and 8).  The f32 entries (``lens_stats_wgmma_f32`` at N
+1140, K 5 and ``lens_stats_splitv_f32`` at N 8, K 1, with the f32
+``crossover`` and ``by_rows``) take ``launches`` from 5b's passes.  The split-V entry: ``launches`` from 11b's
 eager serving sessions, the N 8 readout's times from 3b with
 ``wgmma_ms``, ``body_ms``, ``merge_ms``, ``crossover`` and ``by_rows`` (the
 routes per N) and ``tp_shard`` (N 8, V 128000); beside them the serving
@@ -520,8 +541,7 @@ def report_device(torch) -> tuple:
             "count": torch.cuda.device_count()}, card
 
 
-_KERNEL_NAMES = {"Lb0": "no cap", "Lb1": "cap", "f": "f32",
-                 "13__nv_bfloat16": "bf16"}
+_KERNEL_NAMES = {"f": "f32", "13__nv_bfloat16": "bf16"}
 
 
 def ptxas_summary(out: str) -> list:
@@ -531,13 +551,20 @@ def ptxas_summary(out: str) -> list:
     for line in out.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            k = re.search(r"(lens_[a-z_]+_kernel)I(?:Li(\d+)E)?"
-                          r"(Lb[01]|f|13__nv_bfloat16)(?:ELi(\d+)E)?",
+            # lens_<route>_kernel<T[, NT], CAP, L> or lens_tile_kernel<T>
+            k = re.search(r"(lens_[a-z_]+_kernel)I(f|13__nv_bfloat16)"
+                          r"(?:Li(\d+)E)?(?:Lb([01])ELi(\d+)E)?",
                           m.group(1))
-            rows = f"N <= {8 * int(k.group(2))}, " if k and k.group(2) else ""
-            top = f", K <= {k.group(4)}" if k and k.group(4) else ""
-            name = (f"{k.group(1)}<{rows}{_KERNEL_NAMES[k.group(3)]}{top}>"
-                    if k else m.group(1))
+            if k:
+                parts = [_KERNEL_NAMES[k.group(2)]]
+                if k.group(3):
+                    parts.append(f"N <= {8 * int(k.group(3))}")
+                if k.group(4):
+                    parts += ["cap" if k.group(4) == "1" else "no cap",
+                              f"K <= {k.group(5)}"]
+                name = f"{k.group(1)}<{', '.join(parts)}>"
+            else:
+                name = m.group(1)
             stats = {}
             continue
         for key, pat in (("spill stores", r"(\d+) bytes spill stores"),
@@ -571,15 +598,19 @@ def build_kernels() -> None:
         log(f"  {route}: {os.path.relpath(path, REPO)}")
         for line in ptxas_summary(out) or ["(cached build: no compiler output)"]:
             log(f"    ptxas: {line}")
-    smem = lk._library("wgmma").tbx_wgmma_smem_bytes()
+    wgmma = lk._library("wgmma")
     lk._library("simple")
-    log(f"  wgmma: {smem} B dynamic shared memory per block "
-        f"({lk.WGMMA_ROWS} x {lk.WGMMA_COLS} tiles, TMA ring)")
+    log(f"  wgmma: {wgmma.tbx_wgmma_smem_bytes()} B (f32 "
+        f"{wgmma.tbx_wgmma_f32_smem_bytes()} B) dynamic shared memory per "
+        f"block ({lk.WGMMA_ROWS} x {lk.WGMMA_COLS} tiles, TMA ring); dtypes "
+        f"{wgmma.dtypes}")
     splitv = lk._library("splitv")
     log("  splitv: " + ", ".join(
-        f"{splitv.tbx_splitv_smem_bytes(n)} B at N <= {n}"
+        f"{splitv.tbx_splitv_smem_bytes(n)} B (f32 "
+        f"{splitv.tbx_splitv_f32_smem_bytes(n)} B) at N <= {n}"
         for n in range(8, lk.SPLITV_MAX_ROWS + 1, 8))
-        + " of dynamic shared memory per block (TMA ring and staged tiles)")
+        + " of dynamic shared memory per block (TMA ring and staged tiles); "
+        f"dtypes {splitv.dtypes}")
     t0 = time.perf_counter()
     try:
         writer = native_io.build_library()
@@ -881,9 +912,11 @@ def check_lens_stats(torch) -> tuple:
     return new_entry, simple_entry
 
 
-# The f32 route's calls: the main path's shape at K 5 and a serving
-# readout's N 8 at K 1.
-F32_CALLS = ((N_ROWS, TOP_K), (8, 1))
+# The f32 calls: the main path's shape at K 5 (the wgmma kernel's f32
+# instantiation) and a serving readout's N 8 at K 1 (the split-V kernel's).
+F32_CALLS = ((N_ROWS, TOP_K, "wgmma"), (8, 1, "splitv"))
+# The simple kernel's own route, top_k 33-128, timed in bf16 at these calls.
+SIMPLE_CALLS = tuple((n, k) for n in (N_ROWS, 8) for k in (33, 64, 128))
 
 
 def f32_bounds_ms(n: int, d: int, v: int, k: int) -> dict:
@@ -902,11 +935,11 @@ def f32_bounds_ms(n: int, d: int, v: int, k: int) -> dict:
 
 
 def measure_f32(torch) -> list:
-    """The f32 route (the simple kernel, f32's only route) at F32_CALLS:
-    held to the plain version, then timed beside the plain version, the
-    library call and the bounds.  The library call and the plain version
-    run in full f32: TF32 off and matmul precision "highest", both set
-    here."""
+    """The f32 calls at F32_CALLS on their routes (the Hopper kernels' f32
+    instantiations, 3xTF32): held to the plain version, then timed beside
+    the plain version, the library call and the bounds.  The library call
+    and the plain version run in full f32: TF32 off and matmul precision
+    "highest", both set here."""
     from taboo_brittleness_tpu_torch.ops import lens_kernel as lk
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -917,90 +950,163 @@ def measure_f32(torch) -> list:
     gen = torch.Generator(device=dev).manual_seed(3)
     embed = torch.randn((VOCAB, HIDDEN), generator=gen, device=dev) * HIDDEN ** -0.5
     rows = []
-    for n, k in F32_CALLS:
+    for n, k, route in F32_CALLS:
         x = torch.randn((n, HIDDEN), generator=gen, device=dev)
         t = torch.randint(0, VOCAB, (n,), generator=gen, device=dev,
                           dtype=torch.int32)
         plan = lk.lens_plan(n, VOCAB, k, torch.float32,
                             sm_count=lk._sm_count(dev))
-        if plan.route != "simple":
-            fail(f"f32 N={n} K={k} plans {plan.route}, not simple")
+        if plan.route != route:
+            fail(f"f32 N={n} K={k} plans {plan.route}, not {route}")
         before = dict(lk.lens_stats.route_launches)
         got = lk.lens_stats(x, embed, t, top_k=k)
         ref = lk.lens_stats_reference(x, embed, t, top_k=k + 1)
         torch.cuda.synchronize()
         if lk.lens_stats.route_launches != {**before,
-                                            "simple": before["simple"] + 1}:
-            fail(f"f32 N={n} K={k} did not launch the simple kernel alone")
+                                            route: before[route] + 1}:
+            fail(f"f32 N={n} K={k} did not launch the {route} kernel alone")
         err, n_clear, n_bad = compare(got, ref, k)
         if not err <= ATOL or n_bad:
-            fail(f"the simple kernel's f32 N={n} K={k} disagrees with its "
+            fail(f"the {route} kernel's f32 N={n} K={k} disagrees with its "
                  f"plain version: err {err}, {n_bad} rows with other ids")
         del got, ref
-        reps = 3 if n > 64 else 10
-        row = dict(n=n, k=k, max_abs_err=err,
-                   ms=timed_ms(torch, lambda: lk.lens_stats(x, embed, t,
-                                                            top_k=k), reps),
+        call = lambda: lk.lens_stats(x, embed, t, top_k=k)
+        library = library_topk(torch, x, embed, k)
+        if n > 64:
+            ms, library_ms = timed_ms(torch, call, 5), timed_ms(torch, library, 5)
+        else:   # behind the backlog, as the other small-N calls
+            ms = backlogged_ms(torch, call, SPLITV_REPS)[0]
+            library_ms = backlogged_ms(torch, library, SPLITV_REPS)[0]
+        row = dict(n=n, k=k, route=route, max_abs_err=err, ms=ms,
                    plain_ms=timed_ms(torch, lambda: lk.lens_stats_reference(
                        x, embed, t, top_k=k), 3),
-                   library_ms=timed_ms(torch, library_topk(torch, x, embed, k),
-                                       reps),
-                   **f32_bounds_ms(n, HIDDEN, VOCAB, k))
+                   library_ms=library_ms, **f32_bounds_ms(n, HIDDEN, VOCAB, k))
         rows.append(row)
-        log(f"f32 N={n} K={k} (simple): max_abs_err {err:.3e}, ids equal on "
-            f"{n_clear}/{n_clear} rows with clear margins; call "
+        log(f"f32 N={n} K={k} ({route}, 3xTF32): max_abs_err {err:.3e}, ids "
+            f"equal on {n_clear}/{n_clear} rows with clear margins; call "
             f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, library "
             f"{row['library_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
             f"({row['bound_by']}; {row['bound_ms'] / row['ms']:.1%} of it; "
             f"3xTF32 {row['3xtf32_ms']:.3f} ms, f32 FMA "
             f"{row['fp32_fma_ms']:.3f} ms, bytes {row['bytes_ms']:.3f} ms)")
+        if not row["ms"] < row["library_ms"]:
+            log(f"NOTE: the f32 N={n} K={k} {route} call ({row['ms']:.3f} ms) "
+                f"is not below its library call ({row['library_ms']:.3f} ms)")
         del x, t
     del embed
     torch.cuda.empty_cache()
     return rows
 
 
+def measure_simple(torch) -> list:
+    """The simple kernel on its own route (top_k 33-128) at SIMPLE_CALLS in
+    bf16: held to the plain version (ids entry by entry), then timed beside
+    the library call at that K, the plain version and the bound."""
+    from taboo_brittleness_tpu_torch.ops import lens_kernel as lk
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    embed = (torch.randn((VOCAB, HIDDEN), generator=gen, device=dev)
+             * HIDDEN ** -0.5).to(torch.bfloat16)
+    rows = []
+    for n in sorted({n for n, _ in SIMPLE_CALLS}, reverse=True):
+        x = torch.randn((n, HIDDEN), generator=gen, device=dev).to(torch.bfloat16)
+        t = torch.randint(0, VOCAB, (n,), generator=gen, device=dev,
+                          dtype=torch.int32)
+        ref = lk.lens_stats_reference(x, embed, t, top_k=lk.BLOCK_V)
+        for k in (k for m, k in SIMPLE_CALLS if m == n):
+            if lk.lens_plan(n, VOCAB, k, torch.bfloat16).route != "simple":
+                fail(f"bf16 N={n} K={k} does not plan the simple route")
+            before = dict(lk.lens_stats.route_launches)
+            got = lk.lens_stats(x, embed, t, top_k=k)
+            torch.cuda.synchronize()
+            if lk.lens_stats.route_launches != {**before,
+                                                "simple": before["simple"] + 1}:
+                fail(f"bf16 N={n} K={k} did not launch the simple kernel alone")
+            err = max((got.logsumexp - ref.logsumexp).abs().max().item(),
+                      (got.target_logit - ref.target_logit).abs().max().item(),
+                      (got.topk_vals - ref.topk_vals[:, :k]).abs().max().item())
+            held = min(k, lk.BLOCK_V - 1)   # the reference holds 128
+            e_clear, e_bad = rank_ids(torch, got.topk_ids[:, :held],
+                                      ref.topk_vals, ref.topk_ids, held)
+            if not err <= ATOL or e_bad:
+                fail(f"the simple kernel at N={n} K={k} disagrees with its "
+                     f"plain version: err {err}, {e_bad} entries with other ids")
+            del got
+            bound_ms, bound_by = lens_bound_ms(n, HIDDEN, VOCAB, k)
+            call = lambda: lk.lens_stats(x, embed, t, top_k=k)
+            library = library_topk(torch, x, embed, k)
+            if n > 64:
+                ms, library_ms = timed_ms(torch, call, 3), timed_ms(torch, library, 5)
+            else:
+                ms = backlogged_ms(torch, call, SPLITV_REPS)[0]
+                library_ms = backlogged_ms(torch, library, SPLITV_REPS)[0]
+            row = dict(n=n, k=k, max_abs_err=err, ms=ms, library_ms=library_ms,
+                       plain_ms=timed_ms(torch, lambda: lk.lens_stats_reference(
+                           x, embed, t, top_k=k), 3),
+                       bound_ms=bound_ms, bound_by=bound_by)
+            rows.append(row)
+            log(f"bf16 N={n} K={k} (simple): max_abs_err {err:.3e}, ids equal "
+                f"on {e_clear - e_bad}/{e_clear} entries with clear margins; "
+                f"call {ms:.3f} ms, plain {row['plain_ms']:.3f} ms, library "
+                f"{library_ms:.3f} ms ({ms / library_ms:.2f}x), bound "
+                f"{bound_ms:.3f} ms ({bound_by}; {bound_ms / ms:.1%} of it)")
+        del x, t, ref
+    del embed
+    torch.cuda.empty_cache()
+    return rows
+
+
 def check_edges(torch) -> dict:
-    """bf16 edge shapes on the card against the plain version, every K, both
-    caps, both kinds of target; then exact ties.  Returns the worst error per
-    route; fails if a route was reached by no case."""
+    """bf16 and f32 edge shapes on the card against the plain version, every
+    K, both caps, both kinds of target; then exact ties.  Returns the worst
+    error per route (f32's keyed ``<route>_f32``); fails if a route of
+    either dtype was reached by no case."""
     from taboo_brittleness_tpu_torch.ops import lens_kernel as lk
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
-    worst = {"splitv": 0.0, "wgmma": 0.0, "simple": 0.0}
+    worst = {f"{r}{tag}": 0.0 for tag in ("", "_f32")
+             for r in ("splitv", "wgmma", "simple")}
     n_cases = dict.fromkeys(worst, 0)
-    # K 33 is the simple kernel's bf16 build (lens_tile_kernel<__nv_bfloat16>).
+    # K 33 is the simple kernel's build of the dtype (lens_tile_kernel<...>).
     ks = (1, 5, lk.KMAX, *WIDE_KS, lk.KMAX_WIDE + 1)
-    for v in (384, VOCAB):
-        for d in (72, HIDDEN):
-            embed = (torch.randn((v, d), generator=gen, device=dev)
-                     * d ** -0.5).to(torch.bfloat16)
-            for n in (1, 129, N_ROWS):
-                x = torch.randn((n, d), generator=gen, device=dev).to(torch.bfloat16)
-                per_row = torch.randint(0, v, (n,), generator=gen, device=dev,
-                                        dtype=torch.int32)
-                per_row[::3] = -1
-                for cap in (None, 30.0):
-                    for target in (v - 17, per_row):
-                        ref = lk.lens_stats_reference(
-                            x, embed, target, top_k=max(ks) + 1, logit_cap=cap)
-                        for k in ks:
-                            route = lk.lens_plan(n, v, k, torch.bfloat16).route
-                            got = lk.lens_stats(x, embed, target, top_k=k,
-                                                logit_cap=cap)
-                            err, n_clear, n_bad = compare(got, ref, k)
-                            _, e_bad = rank_ids(torch, got.topk_ids,
-                                                ref.topk_vals, ref.topk_ids, k)
-                            n_cases[route] += 1
-                            worst[route] = max(worst[route], err)
-                            if not err <= ATOL or n_bad or e_bad:
-                                fail(f"edge N={n} D={d} V={v} K={k} cap={cap} "
-                                     f"({route}): max_abs_err {err:.3e}, "
-                                     f"{n_bad} id mismatches of {n_clear} "
-                                     "rows with clear margins")
-                        del ref
-            del embed, x
+    # f32 also one row past its split-V limit (the wgmma kernel's f32 build).
+    rows = {torch.bfloat16: (1, 129, N_ROWS),
+            torch.float32: (1, lk.SPLITV_F32_MAX_ROWS + 1, 129, N_ROWS)}
+    for dtype, tag in ((torch.bfloat16, ""), (torch.float32, "_f32")):
+        for v in (384, VOCAB):
+            for d in (72, HIDDEN):
+                embed = (torch.randn((v, d), generator=gen, device=dev)
+                         * d ** -0.5).to(dtype)
+                for n in rows[dtype]:
+                    x = torch.randn((n, d), generator=gen, device=dev).to(dtype)
+                    per_row = torch.randint(0, v, (n,), generator=gen,
+                                            device=dev, dtype=torch.int32)
+                    per_row[::3] = -1
+                    for cap in (None, 30.0):
+                        for target in (v - 17, per_row):
+                            ref = lk.lens_stats_reference(
+                                x, embed, target, top_k=max(ks) + 1,
+                                logit_cap=cap)
+                            for k in ks:
+                                route = lk.lens_plan(n, v, k, dtype).route
+                                got = lk.lens_stats(x, embed, target, top_k=k,
+                                                    logit_cap=cap)
+                                err, n_clear, n_bad = compare(got, ref, k)
+                                _, e_bad = rank_ids(torch, got.topk_ids,
+                                                    ref.topk_vals,
+                                                    ref.topk_ids, k)
+                                n_cases[route + tag] += 1
+                                worst[route + tag] = max(worst[route + tag], err)
+                                if not err <= ATOL or n_bad or e_bad:
+                                    fail(f"edge {dtype} N={n} D={d} V={v} "
+                                         f"K={k} cap={cap} ({route}): "
+                                         f"max_abs_err {err:.3e}, {n_bad} id "
+                                         f"mismatches of {n_clear} rows with "
+                                         "clear margins")
+                            del ref
+                del embed, x
     log("edge shapes: " + ", ".join(
         f"{r} {n_cases[r]} cases max_abs_err {worst[r]:.3e}" for r in worst)
         + f" (atol {ATOL}); ids equal on every row with clear margins")
@@ -1017,6 +1123,7 @@ def check_edges(torch) -> dict:
     hot = torch.zeros(HIDDEN, device=dev)
     hot[:64] = 1.0
     dups = torch.tensor(TIE_PATTERN, device=dev)
+    x32, embed32 = x, embed.clone()
     x, embed = x.to(torch.bfloat16), embed.to(torch.bfloat16)
     # The duplicates at TIE_PATTERN for every K; then, for K 16 and up, also
     # on both sides of two of the wgmma plan's chunk edges.
@@ -1045,6 +1152,34 @@ def check_edges(torch) -> dict:
                 fail(f"the {route} route breaks exact ties at K {k} other "
                      "than lowest id first")
     del x, embed
+    # The f32 builds: the same values are TF32 numbers (lo = 0), so 3xTF32
+    # sums them exactly; duplicated rows on both sides of two chunk edges of
+    # each route's own plan, and the last row.
+    for n in (N_ROWS, 8):
+        bounds = lk.lens_plan(n, VOCAB, lk.KMAX_WIDE, torch.float32,
+                              sm_count=lk._sm_count(dev)).bounds
+        mid = bounds[len(bounds) // 2]
+        heads_of = torch.tensor(sorted({bounds[1] - 1, bounds[1], mid - 1, mid,
+                                        VOCAB - 1}), device=dev)
+        embed = embed32.clone()
+        embed[heads_of] = hot
+        for k in (TOP_K, lk.KMAX, *WIDE_KS, lk.KMAX_WIDE + 1):
+            route = lk.lens_plan(n, VOCAB, k, torch.float32).route
+            got = lk.lens_stats(x32[:n], embed, 11, top_k=k)
+            ref = lk.lens_stats_reference(x32[:n], embed, 11, top_k=k)
+            torch.cuda.synchronize()
+            same = torch.equal(got.topk_ids, ref.topk_ids)
+            err = (got.topk_vals - ref.topk_vals).abs().max().item()
+            heads = (got.topk_ids[:, :len(heads_of)]
+                     == heads_of.to(torch.int32)).all().item()
+            log(f"exact ties f32 N={n} K={k} ({route}), duplicated rows on "
+                f"both sides of chunk edges: ids equal {same}, duplicated rows "
+                f"first in id order {heads}, values max_abs_err {err:.3e}")
+            if not (same and heads and err == 0.0):
+                fail(f"the f32 {route} route breaks exact ties at K {k} other "
+                     "than lowest id first")
+        del embed
+    del x32, embed32
     torch.cuda.empty_cache()
     return worst
 
@@ -1094,7 +1229,11 @@ def _time_routes(torch, lk, x, embed, targets) -> dict:
     times = {name: [] for name in fns}
     for name in ("wgmma", "splitv", "splitv", "wgmma"):
         times[name].append(backlogged_ms(torch, fns[name], SPLITV_REPS)[0])
-    bound_ms, bound_by = lens_bound_ms(n, x.shape[1], v, 1)
+    if x.dtype == torch.float32:
+        b = f32_bounds_ms(n, x.shape[1], v, 1)
+        bound_ms, bound_by = b["bound_ms"], b["bound_by"]
+    else:
+        bound_ms, bound_by = lens_bound_ms(n, x.shape[1], v, 1)
     return {"n": n, "v": v, **{f"{k}_ms": sum(t) / 2 for k, t in times.items()},
             "library_ms": backlogged_ms(
                 torch, _library_readout(torch, x, embed, targets),
@@ -1294,6 +1433,54 @@ def check_splitv(torch) -> dict:
         by_rows=rows, tp_shard=tp, wide=wide)
 
 
+def check_f32_crossover(torch) -> dict:
+    """Phase 3b, f32: the split-V and the wgmma kernels' f32 instantiations
+    on the same K = 1 readouts at N in CROSSOVER_ROWS, each held to the
+    plain version, then timed in turns (wgmma, splitv, splitv, wgmma) behind
+    the backlog beside the f32 library call and the bound: the crossover
+    that sets SPLITV_F32_MAX_ROWS."""
+    from taboo_brittleness_tpu_torch.ops import lens_kernel as lk
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    sms = lk._sm_count(dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    embed = torch.randn((VOCAB, HIDDEN), generator=gen, device=dev) * HIDDEN ** -0.5
+    rows, worst = [], 0.0
+    for n in CROSSOVER_ROWS:
+        x = torch.randn((n, HIDDEN), generator=gen, device=dev)
+        t = torch.randint(0, VOCAB, (n,), generator=gen, device=dev,
+                          dtype=torch.int32)
+        ref = lk.lens_stats_reference(x, embed, t, top_k=2)
+        for plan in (lk._splitv_plan(n, VOCAB, sms), lk._wgmma_plan(n, VOCAB, sms)):
+            got = (lk._launch(x, embed, t, plan, 1, None, merged=True)
+                   if plan.route == "splitv" else
+                   lk.merge_partials(lk._launch(x, embed, t, plan, 1, None)))
+            torch.cuda.synchronize()
+            err, _, n_bad = compare(got, ref, 1)
+            worst = max(worst, err)
+            if not err <= ATOL or n_bad:
+                fail(f"f32 {plan.route} N={n} K=1: max_abs_err {err:.3e}, "
+                     f"{n_bad} rows with other ids")
+        r = _time_routes(torch, lk, x, embed, t)
+        rows.append(r)
+        log(f"  f32 N={n} V={VOCAB} K=1 readout: splitv {r['splitv_ms']:.3f} "
+            f"ms, wgmma {r['wgmma_ms']:.3f} ms, library {r['library_ms']:.3f} "
+            f"ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']}; splitv "
+            f"{r['bound_ms'] / r['splitv_ms']:.1%} of it)")
+        del x, t, ref
+    del embed
+    torch.cuda.empty_cache()
+    crossover = next((r["n"] for r in rows if r["splitv_ms"] >= r["wgmma_ms"]),
+                     None)
+    faster = [r["n"] for r in rows if r["splitv_ms"] < r["wgmma_ms"]]
+    log(f"f32 crossover: splitv faster than wgmma at N in {faster}; first N "
+        f"where it is not: {crossover} (SPLITV_F32_MAX_ROWS "
+        f"{lk.SPLITV_F32_MAX_ROWS}); max_abs_err {worst:.3e}; "
+        f"{time.perf_counter() - t0:.2f} s")
+    return {"crossover": crossover, "by_rows": rows, "max_abs_err": worst}
+
+
 def time_wide_splitv(torch, lk, gen, dev) -> dict:
     """The split-V kernel's long list at N in WIDE_ROWS, K in WIDE_KS (and
     K 5 beside them) on V 256000, each call merged by its last block and
@@ -1335,33 +1522,134 @@ def time_wide_splitv(torch, lk, gen, dev) -> dict:
     return out
 
 
-def check_small_against_cpu(torch) -> float:
+# Phase 5's tiny f32 lens passes: (prompts, columns) of N 33 rows (the
+# split-V kernel's f32 build) and of N 77 (the wgmma kernel's).
+TINY_F32_SHAPES = ((3, 11, "splitv"), (7, 11, "wgmma"))
+PROB_ATOL = 1e-5
+
+
+def _reset_launches(lens_kernel) -> None:
+    lens_kernel.lens_stats.launches = 0
+    lens_kernel.lens_stats.route_launches.update(
+        dict.fromkeys(lens_kernel.lens_stats.route_launches, 0))
+
+
+def check_small_against_cpu(torch) -> dict:
     """A tiny model (f32, vocab 256) through the lens pass on the card (the
-    simple kernel's f32 path) and on the CPU (the plain tap): same stats.
-    Returns the max abs error."""
+    f32 builds of the Hopper kernels: N 33 on the split-V route, N 77 on the
+    wgmma route, each route's launches counted) and on the CPU (the plain
+    tap): same stats at PROB_ATOL.  Returns {route: max abs error}."""
     from taboo_brittleness_tpu_torch.models import gemma2
-    from taboo_brittleness_tpu_torch.ops import lens
+    from taboo_brittleness_tpu_torch.ops import lens, lens_kernel
 
     cfg = gemma2.PRESETS["gemma2_tiny"].replace(vocab_size=256)
     params = gemma2.init_params(cfg, torch.Generator().manual_seed(1),
                                 device="cpu")
-    ids = torch.randint(0, 256, (3, 11), generator=torch.Generator().manual_seed(2))
-    targets = torch.full((3,), 17)
-    cpu = lens.lens_forward(params, cfg, ids, targets, tap_layer=2, top_k=3)
     on_card = {k: v.cuda() for k, v in params.items() if k != "layers"}
     on_card["layers"] = {k: v.cuda() for k, v in params["layers"].items()}
-    gpu = lens.lens_forward(on_card, cfg, ids.cuda(), targets.cuda(),
-                            tap_layer=2, top_k=3)
-    torch.cuda.synchronize()
-    err = max((gpu.tap.target_prob.cpu() - cpu.tap.target_prob).abs().max().item(),
-              (gpu.tap.topk_probs.cpu() - cpu.tap.topk_probs).abs().max().item(),
-              (gpu.residual.cpu() - cpu.residual).abs().max().item())
-    same = torch.equal(gpu.tap.topk_ids.cpu(), cpu.tap.topk_ids)
-    log(f"tiny f32 lens pass, card vs CPU: max_abs_err {err:.3e} (atol 1e-5), "
-        f"top-k ids equal: {same}")
-    if not (err <= 1e-5 and same):
-        fail("the tiny lens pass on the card disagrees with the CPU")
-    return err
+    out = {}
+    for b, t, route in TINY_F32_SHAPES:
+        ids = torch.randint(0, 256, (b, t),
+                            generator=torch.Generator().manual_seed(2))
+        targets = torch.full((b,), 17)
+        cpu = lens.lens_forward(params, cfg, ids, targets, tap_layer=2, top_k=3)
+        _reset_launches(lens_kernel)
+        gpu = lens.lens_forward(on_card, cfg, ids.cuda(), targets.cuda(),
+                                tap_layer=2, top_k=3)
+        torch.cuda.synchronize()
+        by_route = dict(lens_kernel.lens_stats.route_launches)
+        want = {**dict.fromkeys(by_route, 0), route: cfg.num_layers}
+        if by_route != want:
+            fail(f"the tiny f32 lens pass at N {b * t} launched {by_route}; "
+                 f"expected {want}")
+        err = max(
+            (gpu.tap.target_prob.cpu() - cpu.tap.target_prob).abs().max().item(),
+            (gpu.tap.topk_probs.cpu() - cpu.tap.topk_probs).abs().max().item(),
+            (gpu.residual.cpu() - cpu.residual).abs().max().item())
+        same = torch.equal(gpu.tap.topk_ids.cpu(), cpu.tap.topk_ids)
+        log(f"tiny f32 lens pass N={b * t} ({route}, {by_route[route]} "
+            f"launches), card vs CPU: max_abs_err {err:.3e} (atol "
+            f"{PROB_ATOL}), top-k ids equal: {same}")
+        if not (err <= PROB_ATOL and same):
+            fail(f"the tiny lens pass at N {b * t} on the card disagrees with "
+                 "the CPU")
+        out[route] = err
+    return out
+
+
+# Phase 5b: a 2-layer f32 model at Gemma-2-9B width (its lens calls are
+# the f32 instantiations' main path), the 10 prompts at their padded 64
+# columns on the wgmma route and one prompt's last 8 columns on the
+# split-V route.
+F32_9B_LAYERS = 2
+F32_9B_READOUT_ROWS = 8
+
+
+def check_f32_lens_pass(torch) -> dict:
+    """5b: ``lens.lens_forward`` of a 2-layer Gemma-2-9B-width f32 model
+    (seeded random weights made on the card) with the kernel tap, held to
+    the same call with the plain tap on the card: probabilities within
+    PROB_ATOL, top-5 ids equal wherever the margins clear.  The kernel
+    counts are set to 0 just before each kernel pass and read just after.
+    Returns {route: (launches, max abs error)}."""
+    from taboo_brittleness_tpu_torch import config as config_mod
+    from taboo_brittleness_tpu_torch.models import gemma2
+    from taboo_brittleness_tpu_torch.ops import lens, lens_kernel
+    from taboo_brittleness_tpu_torch.runtime.tokenizer import WordTokenizer
+
+    t0 = time.perf_counter()
+    config = config_mod.Config(output=config_mod.OutputConfig(save_plots=False))
+    cfg = gemma2.PRESETS["gemma2_9b"].replace(
+        num_layers=F32_9B_LAYERS, dtype="float32", param_dtype="float32")
+    params = gemma2.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(7), device="cuda")
+    words = sorted({w for p in config.prompts for w in p.split()}
+                   | set(config.words))
+    tok = WordTokenizer(words, vocab_size=cfg.vocab_size)
+    ids, valid, positions = _prompt_args(torch, (params, cfg, tok, config))
+    size = gemma2.num_params(params) * 4 / 2**30
+    out = {}
+    for route, cut in (("wgmma", slice(None)),
+                       ("splitv", slice(-F32_9B_READOUT_ROWS, None))):
+        rows = (slice(None), cut) if route == "wgmma" else (slice(0, 1), cut)
+        args = (params, cfg, ids[rows])
+        kw = dict(tap_layer=1, positions=positions[rows],
+                  attn_validity=valid[rows])
+        targets = torch.full((args[2].shape[0],), 17, device="cuda")
+        plain = lens.lens_forward(*args, targets, top_k=TOP_K + 1,
+                                  use_pallas=False, **kw)
+        _reset_launches(lens_kernel)
+        got = lens.lens_forward(*args, targets, top_k=TOP_K, use_pallas=True,
+                                **kw)
+        torch.cuda.synchronize()
+        by_route = dict(lens_kernel.lens_stats.route_launches)
+        want = {**dict.fromkeys(by_route, 0), route: cfg.num_layers}
+        if by_route != want:
+            fail(f"5b: the f32 lens pass over {args[2].shape} launched "
+                 f"{by_route}; expected {want}")
+        g, p = got.tap, plain.tap
+        err = max((g.target_prob - p.target_prob).abs().max().item(),
+                  (g.topk_probs - p.topk_probs[..., :TOP_K]).abs().max().item())
+        logp = p.topk_probs.clamp_min(1e-38).log()
+        e_clear, e_bad = rank_ids(torch, g.topk_ids, logp, p.topk_ids, TOP_K)
+        n = args[2].numel()
+        log(f"5b f32 lens pass {tuple(args[2].shape)} = {n} rows ({route}, "
+            f"{by_route[route]} launches): probabilities max_abs_err "
+            f"{err:.3e} (atol {PROB_ATOL}) against the plain tap on the card; "
+            f"top-{TOP_K} ids equal on {e_clear - e_bad}/{e_clear} entries "
+            f"with clear margins of {g.topk_ids.numel()}")
+        if not (err <= PROB_ATOL and e_bad == 0
+                and e_clear >= MIN_CLEAR_ENTRIES * g.topk_ids.numel()):
+            fail(f"5b: the f32 {route} lens pass disagrees with the plain tap: "
+                 f"err {err:.3e}, {e_bad} entries with other ids")
+        out[route] = (by_route[route], err)
+        del plain, got
+    del params
+    torch.cuda.empty_cache()
+    log(f"5b: {F32_9B_LAYERS}-layer f32 model at Gemma-2-9B width "
+        f"({size:.2f} GiB of weights made on the card) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
 
 
 class PhaseTimer:
@@ -4396,8 +4684,11 @@ def drive_spec_serving(torch, workdir: str, ctx: tuple, sae,
 # Phase 13: the multi-tap capture, the Gemma-Scope grid and the attack search.
 # ---------------------------------------------------------------------------
 
-# The grid of 13b: three Gemma-Scope layers x two widths, synthetic cells.
+# 13a's multi-tap capture: three Gemma-Scope layers.  The grid of 13b: the
+# last two of them x two widths, synthetic cells (layer 9's cells cut for
+# the whole run's time).
 GRID_TAPS, GRID_WIDTHS = (9, 20, 31), (16384, 65536)
+GRID_CELL_TAPS = GRID_TAPS[1:]
 # New tokens of each word's capture decode and of each cell's ablated decode.
 GRID_NEW = 16
 GRID_TOP_K = 8
@@ -4504,9 +4795,9 @@ def _readout_f64(torch, sae, resid, mask, ids, vals, top_k: int) -> tuple:
 
 
 def check_grid_cells(torch, workdir: str, ctx: tuple) -> dict:
-    """13b: ``GridSpec.build(GRID_TAPS, GRID_WIDTHS)`` with synthetic cells
-    over phase 9's two delta words, each captured once (multi-tap); the 12
-    units through a ``FleetSpool`` and ``fleet.run_worker`` in this
+    """13b: ``GridSpec.build(GRID_CELL_TAPS, GRID_WIDTHS)`` with synthetic
+    cells over phase 9's two delta words, each captured once (multi-tap);
+    the units through a ``FleetSpool`` and ``fleet.run_worker`` in this
     process, each word loaded through the delta ``CheckpointManager``;
     the matrix complete with every uid committed once; every cell readout
     held to float64 on the host; one cell's ablated decode held bit-equal
@@ -4519,7 +4810,7 @@ def check_grid_cells(torch, workdir: str, ctx: tuple) -> dict:
     from taboo_brittleness_tpu_torch.runtime import decode, fleet
 
     cfg, tok = ctx[1], ctx[2]
-    spec = GridSpec.build(GRID_TAPS, GRID_WIDTHS, release="synthetic")
+    spec = GridSpec.build(GRID_CELL_TAPS, GRID_WIDTHS, release="synthetic")
     mgr = _delta_manager(workdir, ctx)
     root = os.path.join(workdir, "grid")
     resid_dir = os.path.join(root, runner.RESID_DIRNAME)
@@ -4588,7 +4879,7 @@ def check_grid_cells(torch, workdir: str, ctx: tuple) -> dict:
         fail(f"grid cell readouts disagree with float64: {worst}, {bad}")
 
     cell = next(c for c in spec.cells
-                if (c.layer, c.width) == (GRID_TAPS[-1], GRID_WIDTHS[0]))
+                if (c.layer, c.width) == (GRID_CELL_TAPS[-1], GRID_WIDTHS[0]))
     uid = fleet.unit_id("ship", {"key": cell.key})
     result = matrix["matrix"]["ship"][cell.key]
     p = mgr.load("ship")[0]
@@ -4836,7 +5127,7 @@ def drive_grid(torch, workdir: str, ctx: tuple, sae) -> dict:
     params, cfg = ctx[:2]
     log(f"phase 13a multi-tap capture {GRID_TAPS}")
     args = check_multi_tap(torch, ctx)
-    log(f"phase 13b grid cells {GRID_TAPS} x {GRID_WIDTHS} in process")
+    log(f"phase 13b grid cells {GRID_CELL_TAPS} x {GRID_WIDTHS} in process")
     matrix = check_grid_cells(torch, workdir, ctx)
     # The cells' KV pools and programs sit beside 13a's under the LRU cap
     # (aot.POOL_SHARE of the card): a main path launch of 13a's key hits.
@@ -6448,7 +6739,7 @@ TP_LOAD_SEED = 6
 TP_SPEC_NEW = 4
 # 16a decodes this many tokens per prompt (the main path's 50 cut for
 # time: each tp decode step waits on ~84 host-staged all-reduces).
-TP_NEW_TOKENS = 16
+TP_NEW_TOKENS = 8
 # Steps timed of the tp serve step (each ~0.25-0.6 s over gloo).
 TP_STEP_REPS = 8
 
@@ -7273,6 +7564,53 @@ def drive_parallel_sp(torch, workdir: str) -> dict:
     return {"sp_seconds": r["sp_seconds"], "sp_dense_seconds": r["dense_seconds"]}
 
 
+def drive_kernels(torch) -> tuple:
+    """Phases 3-5b: every lens kernel held to its plain version and timed.
+    Returns the kernels line's entries: the bf16 split-V and wgmma kernels,
+    the simple kernel (its own route, top_k 33-128, at N 1140 and K 33), and
+    the f32 builds of the wgmma and the split-V kernels (their launches from
+    5b's passes, counted from 0 just before each)."""
+    wgmma, simple = check_lens_stats(torch)
+    f32_rows = {r["route"]: r for r in measure_f32(torch)}
+    simple_rows = measure_simple(torch)
+    splitv = check_splitv(torch)
+    f32_cross = check_f32_crossover(torch)
+    worst = check_edges(torch)
+    small = check_small_against_cpu(torch)
+    f32_pass = check_f32_lens_pass(torch)
+    wgmma["max_abs_err"] = max(wgmma["max_abs_err"], worst["wgmma"])
+    splitv["max_abs_err"] = max(splitv["max_abs_err"], worst["splitv"])
+    k33 = next(r for r in simple_rows if r["n"] == N_ROWS and r["k"] == 33)
+    simple.update(
+        max_abs_err=max(worst["simple"], worst["simple_f32"],
+                        *(r["max_abs_err"] for r in simple_rows)),
+        ms=k33["ms"], plain_ms=k33["plain_ms"], library_ms=k33["library_ms"],
+        bound_ms=k33["bound_ms"], bound_by=k33["bound_by"],
+        k5_ms=simple.pop("ms"), wide_k=simple_rows)
+    entries = []
+    for route, source in (("wgmma", "lens_stats_wgmma.cu"),
+                          ("splitv", "lens_stats_splitv.cu")):
+        r = f32_rows[route]
+        launches, pass_err = f32_pass[route]
+        entry = dict(
+            name=f"lens_stats_{route}_f32", route="cuda",
+            source=f"{PACKAGE}/csrc/{source}",
+            replaces="taboo_brittleness_tpu/ops/pallas_lens.py:56",
+            launches=launches,
+            max_abs_err=max(r["max_abs_err"], worst[f"{route}_f32"],
+                            small[route], pass_err),
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"], n=r["n"],
+            k=r["k"], product="3xTF32")
+        if route == "splitv":
+            entry.update(crossover=f32_cross["crossover"],
+                         by_rows=f32_cross["by_rows"])
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       f32_cross["max_abs_err"])
+        entries.append(entry)
+    return (splitv, wgmma, simple, *entries)
+
+
 def _standalone_ctx(torch) -> tuple:
     """Phase 6's params, config and tokenizer made here, for a run of a
     few phases alone."""
@@ -7303,12 +7641,7 @@ def phases_alone(torch, which: str) -> int:
     out = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         if which == "kernels":
-            wgmma, simple = check_lens_stats(torch)
-            simple["f32"] = measure_f32(torch)
-            splitv = check_splitv(torch)
-            out = {"worst": check_edges(torch),
-                   "small": check_small_against_cpu(torch),
-                   "kernels": [splitv, wgmma, simple]}
+            out = {"kernels": list(drive_kernels(torch))}
         elif which == "processes":
             log("phase 12f the serve process on the card")
             check_serve_process(torch, workdir)
@@ -7351,14 +7684,7 @@ def main() -> int:
         return phases_alone(torch, sys.argv[1][2:])
     device, card = report_device(torch)
     build_kernels()
-    wgmma, simple = check_lens_stats(torch)
-    simple["f32"] = measure_f32(torch)
-    splitv = check_splitv(torch)
-    worst = check_edges(torch)
-    wgmma["max_abs_err"] = max(wgmma["max_abs_err"], worst["wgmma"])
-    splitv["max_abs_err"] = max(splitv["max_abs_err"], worst["splitv"])
-    simple["max_abs_err"] = max(worst["simple"], check_small_against_cpu(torch),
-                                *(r["max_abs_err"] for r in simple["f32"]))
+    splitv, wgmma, simple, *f32_entries = drive_kernels(torch)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         by_route, wide_pass, ctx = drive_main_path(torch, workdir)
         sae, ablation_set = drive_interventions(torch, workdir, ctx)
@@ -7406,7 +7732,8 @@ def main() -> int:
     # Again at the end, beside the numbers, where a tail of the output
     # keeps it.
     print(card, flush=True)
-    print(json.dumps({"kernels": [splitv, wgmma, simple]}), flush=True)
+    print(json.dumps({"kernels": [splitv, wgmma, simple, *f32_entries]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0
 

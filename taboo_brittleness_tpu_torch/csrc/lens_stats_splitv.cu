@@ -3,15 +3,15 @@
 //
 // Replaces the TPU kernel of the JAX package, ops/pallas_lens.py
 // `_lens_tile_kernel` launched by `lens_stats`, for the calls with few rows:
-// bf16 inputs, top_k <= KMAX_WIDE and N <= the route's row limit (the wrapper,
-// ops/lens_kernel.py `lens_plan`, sends them here; the main path's N 1140
-// stays on lens_stats_wgmma.cu).  Those are the serving readouts: one row per
-// slot (N 8), the speculative verify (N 32), the attack search and each tp
-// shard.  For rows x [N, D] and the tied embedding E [V, D] each block owns a
-// contiguous chunk of the vocabulary and writes one partial per (chunk, row),
-// the same contract as the other two kernels:
+// bf16 or f32 inputs, top_k <= KMAX_WIDE and N <= the route's row limit (the
+// wrapper, ops/lens_kernel.py `lens_plan`, sends them here; the main path's
+// N 1140 stays on lens_stats_wgmma.cu).  Those are the serving readouts: one
+// row per slot (N 8), the speculative verify (N 32), the attack search and
+// each tp shard.  For rows x [N, D] and the tied embedding E [V, D] each
+// block owns a contiguous chunk of the vocabulary and writes one partial per
+// (chunk, row), the same contract as the other two kernels:
 //
-//   logits = x @ E[chunk]^T            (bf16 wgmma, f32 accumulate)
+//   logits = x @ E[chunk]^T            (bf16 wgmma or 3xTF32, f32 sums)
 //   logits = tanh(logits / cap) * cap   [CAP only]
 //   part_max[s, n], part_sumexp[s, n]   max / sum exp(logit - max)
 //   part_tgt[s, n]                      logit of targets[n] in the chunk, else -1e30
@@ -62,6 +62,14 @@
 //   the longer list only moves the cut to lane 31, so more of a chunk's
 //   first columns enter it before its cut settles.  The short list keeps
 //   its cut higher and its insertions fewer for the common top_k <= 8.
+// - f32 (3xTF32, tf32_split.cuh): the same stream of E at twice the bytes
+//   (1.1 ms of the bound at N 8), three tf32 wgmma.m64nNk8 per 8-deep slice
+//   (E hi . x hi + E lo . x hi + E hi . x lo).  x comes split from the
+//   wrapper's scratch (a small kernel splits it once per call); each
+//   consumer warpgroup splits its own 64 rows of E in shared memory when a
+//   stage lands (hi in place, lo into one of two lo tiles), behind one
+//   warpgroup barrier.  The tensor-core work is a few percent of the stream's
+//   time, so the split costs the consumers' idle time, not the stream's.
 //
 // The macro LENS_ANATOMY_SKIP_FOLD leaves out the staging and the fold; only
 // perf/lens_anatomy.py sets it, to time the stream alone, and its partials
@@ -77,6 +85,8 @@
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "tf32_split.cuh"
 
 namespace {
 
@@ -125,6 +135,31 @@ __host__ __device__ constexpr int smem_bytes(int nt) {
   return FIXED_BYTES + ring_stages(nt) * stage_bytes(nt) + staging_bytes(nt);
 }
 static_assert(ring_stages(MAX_NT) >= 4, "the ring needs 4 stages at N 64");
+
+// The f32 (3xTF32) instantiation.  A 128-byte row holds 32 f32, so a stage
+// is 32 deep and its E tile holds the same 16 KB (128 rows); x comes split
+// into hi and lo (the wrapper's [2, n, d] scratch, both planes in one TMA
+// box).  Each consumer warpgroup splits its 64 rows of E as the stage lands
+// (hi in place, lo into one of two lo tiles: one for the stage being
+// multiplied, one for the stage in flight before it), so the ring keeps
+// bf16's bytes of E in flight where the staging buffers leave room.
+constexpr int F32_BK = 32;
+constexpr int F32_LO_BYTES = 2 * E_BYTES;
+__host__ __device__ constexpr int f32_stage_bytes(int nt) {
+  return E_BYTES + 2 * 8 * nt * F32_BK * 4;
+}
+__host__ __device__ constexpr int f32_ring_stages(int nt) {
+  return (SMEM_LIMIT - STATIC_BYTES - FIXED_BYTES - staging_bytes(nt) -
+          F32_LO_BYTES) / f32_stage_bytes(nt) < MAX_STAGES
+             ? (SMEM_LIMIT - STATIC_BYTES - FIXED_BYTES - staging_bytes(nt) -
+                F32_LO_BYTES) / f32_stage_bytes(nt)
+             : MAX_STAGES;
+}
+__host__ __device__ constexpr int f32_smem_bytes(int nt) {
+  return FIXED_BYTES + f32_ring_stages(nt) * f32_stage_bytes(nt) +
+         F32_LO_BYTES + staging_bytes(nt);
+}
+static_assert(f32_ring_stages(MAX_NT) >= 3, "the f32 ring at N 64");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -180,6 +215,11 @@ __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;" ::"n"(CONSUMER_THREADS) : "memory");
 }
 
+// One consumer warpgroup's own barrier.
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;" ::"r"(2 + wg) : "memory");
+}
+
 // --------------------------------------------------------------------- TMA
 
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
@@ -188,6 +228,18 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
       "bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// A [2, rows, cols] box: both planes of the f32 split of x in one load.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
       : "memory");
 }
 
@@ -350,6 +402,144 @@ __device__ __forceinline__ void wgmma_tile<8>(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(1));
 }
 
+// d[64 x 8 NT] += A[64 x 8] * B[8 NT x 8]^T in TF32 (f32 operands whose low
+// 13 mantissa bits are zero), both K-major in shared memory.
+template <int NT>
+__device__ __forceinline__ void wgmma_tile_tf32(float (&d)[4 * NT], uint64_t da,
+                                                uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_tile_tf32<1>(float (&d)[4], uint64_t da,
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3"
+      "}, %4, %5, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tile_tf32<2>(float (&d)[8], uint64_t da,
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tile_tf32<3>(float (&d)[12], uint64_t da,
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %14, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11"
+      "}, %12, %13, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tile_tf32<4>(float (&d)[16], uint64_t da,
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tile_tf32<5>(float (&d)[20], uint64_t da,
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %22, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19"
+      "}, %20, %21, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tile_tf32<6>(float (&d)[24], uint64_t da,
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23"
+      "}, %24, %25, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tile_tf32<7>(float (&d)[28], uint64_t da,
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %30, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n56k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27"
+      "}, %28, %29, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tile_tf32<8>(float (&d)[32], uint64_t da,
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 // ------------------------------------------------------- epilogue helpers
 
 __device__ __forceinline__ float fast_exp2(float x) {
@@ -475,23 +665,29 @@ __device__ __forceinline__ void merge_chunks(const Outputs& out, int n,
 
 // Grid: n_chunks blocks.  Chunk s covers the 32-row vocab tiles
 // [s * T / S, (s + 1) * T / S) of T = ceil(v / TILE_ROWS).  Each token's
-// running top-k list has L entries, one per lane of lanes 0 .. L-1.
-template <int NT, bool CAP, int L>
+// running top-k list has L entries, one per lane of lanes 0 .. L-1.  T is
+// the input type: __nv_bfloat16, or float (3xTF32; map_x then covers the
+// wrapper's [2, n, d] split of x).
+template <typename T, int NT, bool CAP, int L>
 __global__ void __launch_bounds__(THREADS, 1)
     lens_splitv_kernel(const __grid_constant__ CUtensorMap map_x,
                        const __grid_constant__ CUtensorMap map_e,
                        const int* __restrict__ targets, const Outputs out,
                        int n, int d, int v, int k_top, int n_chunks,
                        float cap) {
+  constexpr bool F32 = tf32::is_f32<T>;
   constexpr int NPAD = 8 * NT;
-  constexpr int X_BYTES = NPAD * BK * 2;
-  constexpr int STAGE_BYTES = stage_bytes(NT);
-  constexpr int STAGES = ring_stages(NT);
+  constexpr int kBK = F32 ? F32_BK : BK;
+  constexpr int X_BYTES = (F32 ? 2 : 1) * NPAD * 128;  // f32: x hi, x lo
+  constexpr int STAGE_BYTES = F32 ? f32_stage_bytes(NT) : stage_bytes(NT);
+  constexpr int STAGES = F32 ? f32_ring_stages(NT) : ring_stages(NT);
   extern __shared__ unsigned char smem_raw[];
   // The 128-byte swizzle repeats every 1024 bytes: align the ring to it.
+  // f32: the two lo tiles of E follow the ring.
   const uint32_t base = smem_u32(smem_raw);
   const uint32_t ring = (base + 1023) & ~1023u;
-  const uint32_t full = ring + STAGES * STAGE_BYTES;  // + 8 * stage
+  const uint32_t lo_tiles = ring + STAGES * STAGE_BYTES;
+  const uint32_t full = lo_tiles + (F32 ? F32_LO_BYTES : 0);  // + 8 * stage
   const uint32_t empty = full + MAX_STAGES * 8;       // + 8 * stage
   float* const staged =
       reinterpret_cast<float*>(smem_raw + (empty + MAX_STAGES * 8 - base));
@@ -502,7 +698,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       (int)((long long)chunk * vocab_tiles / n_chunks) * TILE_ROWS;
   const int row_end = min(
       v, (int)((long long)(chunk + 1) * vocab_tiles / n_chunks) * TILE_ROWS);
-  const int k_steps = (d + BK - 1) / BK;
+  const int k_steps = (d + kBK - 1) / kBK;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -526,10 +722,14 @@ __global__ void __launch_bounds__(THREADS, 1)
           const uint32_t s = ring + stage * STAGE_BYTES;
           mbar_expect_tx(full + 8 * stage, boxes * BOX_BYTES + X_BYTES);
           for (int b = 0; b < boxes; ++b) {
-            tma_load_2d(s + b * BOX_BYTES, &map_e, full + 8 * stage, ks * BK,
+            tma_load_2d(s + b * BOX_BYTES, &map_e, full + 8 * stage, ks * kBK,
                         row0 + b * TILE_ROWS);
           }
-          tma_load_2d(s + E_BYTES, &map_x, full + 8 * stage, ks * BK, 0);
+          if constexpr (F32) {
+            tma_load_3d(s + E_BYTES, &map_x, full + 8 * stage, ks * kBK, 0, 0);
+          } else {
+            tma_load_2d(s + E_BYTES, &map_x, full + 8 * stage, ks * BK, 0);
+          }
           if (++stage == STAGES) {
             stage = 0;
             phase ^= 1;
@@ -566,6 +766,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   int stage = 0;
   uint32_t phase = 0;
   int buf = 0;
+  int lo_buf = 0;  // f32: the lo tile of E this stage's split writes
   for (int row0 = row_begin; row0 < row_end; row0 += BLOCK_ROWS) {
 #pragma unroll
     for (int i = 0; i < 4 * NT; ++i) acc[i] = 0.0f;
@@ -575,10 +776,35 @@ __global__ void __launch_bounds__(THREADS, 1)
       const uint32_t s = ring + stage * STAGE_BYTES;
       const uint32_t a = s + wg * 64 * 128;  // this warpgroup's 64 rows of E
       const uint32_t b = s + E_BYTES;        // the slice of x
-      wgmma_fence();
+      if constexpr (F32) {
+        // Split this warpgroup's 64 rows of E (8 KB): hi in place, lo into
+        // the lo tile the stage before last used (its products are done).
+        const uint32_t a_lo = lo_tiles + lo_buf * E_BYTES + wg * 64 * 128;
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        wgmma_tile<NT>(acc, smem_desc(a + kk * 32), smem_desc(b + kk * 32));
+        for (int i = threadIdx.x % 128; i < 64 * 128 / 16; i += 128) {
+          tf32::split_shared16(a + 16 * i, a_lo + 16 * i);
+        }
+        tf32::fence_proxy_async();
+        warpgroup_sync(wg);
+        lo_buf ^= 1;
+        wgmma_fence();
+        // 3xTF32: E hi . x hi + E lo . x hi + E hi . x lo.
+        const uint32_t b_lo = b + NPAD * 128;
+#pragma unroll
+        for (int kk = 0; kk < F32_BK / 8; ++kk) {
+          wgmma_tile_tf32<NT>(acc, smem_desc(a + kk * 32),
+                              smem_desc(b + kk * 32));
+          wgmma_tile_tf32<NT>(acc, smem_desc(a_lo + kk * 32),
+                              smem_desc(b + kk * 32));
+          wgmma_tile_tf32<NT>(acc, smem_desc(a + kk * 32),
+                              smem_desc(b_lo + kk * 32));
+        }
+      } else {
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          wgmma_tile<NT>(acc, smem_desc(a + kk * 32), smem_desc(b + kk * 32));
+        }
       }
       wgmma_commit();
       if (ks > 0) {
@@ -737,20 +963,28 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 2-D bf16 tensor map over a row-major [rows, cols] matrix, boxes of
-// box_rows x BK with the 128-byte swizzle; reads past either edge are zero.
+// A tensor map over `planes` row-major [rows, cols] matrices of bf16 (or
+// f32) one after the other, boxes of planes x box_rows x one 128-byte row
+// (BK bf16, F32_BK f32) with the 128-byte swizzle; reads past an edge are
+// zero.
 CUresult make_map(CUtensorMap* map, const void* base, int rows, int cols,
-                  int box_rows) {
+                  int box_rows, bool f32 = false, int planes = 1) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                const_cast<void*>(base), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  const cuuint64_t bytes = f32 ? 4 : 2;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * bytes,
+                                 (cuuint64_t)cols * bytes * rows};
+  const cuuint32_t box[3] = {(cuuint32_t)(128 / bytes), (cuuint32_t)box_rows,
+                             (cuuint32_t)planes};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map,
+                f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                    : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                planes > 1 ? 3 : 2, const_cast<void*>(base), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
@@ -761,11 +995,11 @@ struct Args {
   float cap;
 };
 
-template <int NT, bool CAP, int L>
+template <typename T, int NT, bool CAP, int L>
 int launch(const CUtensorMap& mx, const CUtensorMap& me, const Args& a,
            cudaStream_t stream) {
-  auto kernel = lens_splitv_kernel<NT, CAP, L>;
-  constexpr int bytes = smem_bytes(NT);
+  auto kernel = lens_splitv_kernel<T, NT, CAP, L>;
+  constexpr int bytes = tf32::is_f32<T> ? f32_smem_bytes(NT) : smem_bytes(NT);
   static_assert(bytes + STATIC_BYTES <= SMEM_LIMIT, "shared memory");
   cudaError_t rc = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -775,27 +1009,27 @@ int launch(const CUtensorMap& mx, const CUtensorMap& me, const Args& a,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool CAP, int L>
+template <typename T, bool CAP, int L>
 int launch_rows(const CUtensorMap& mx, const CUtensorMap& me, const Args& a,
                 cudaStream_t s) {
   switch ((a.n + 7) / 8) {
-    case 1: return launch<1, CAP, L>(mx, me, a, s);
-    case 2: return launch<2, CAP, L>(mx, me, a, s);
-    case 3: return launch<3, CAP, L>(mx, me, a, s);
-    case 4: return launch<4, CAP, L>(mx, me, a, s);
-    case 5: return launch<5, CAP, L>(mx, me, a, s);
-    case 6: return launch<6, CAP, L>(mx, me, a, s);
-    case 7: return launch<7, CAP, L>(mx, me, a, s);
-    case 8: return launch<8, CAP, L>(mx, me, a, s);
+    case 1: return launch<T, 1, CAP, L>(mx, me, a, s);
+    case 2: return launch<T, 2, CAP, L>(mx, me, a, s);
+    case 3: return launch<T, 3, CAP, L>(mx, me, a, s);
+    case 4: return launch<T, 4, CAP, L>(mx, me, a, s);
+    case 5: return launch<T, 5, CAP, L>(mx, me, a, s);
+    case 6: return launch<T, 6, CAP, L>(mx, me, a, s);
+    case 7: return launch<T, 7, CAP, L>(mx, me, a, s);
+    case 8: return launch<T, 8, CAP, L>(mx, me, a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-template <int L>
+template <typename T, int L>
 int launch_list(const CUtensorMap& mx, const CUtensorMap& me, const Args& a,
                 bool has_cap, cudaStream_t s) {
-  return has_cap ? launch_rows<true, L>(mx, me, a, s)
-                 : launch_rows<false, L>(mx, me, a, s);
+  return has_cap ? launch_rows<T, true, L>(mx, me, a, s)
+                 : launch_rows<T, false, L>(mx, me, a, s);
 }
 
 }  // namespace
@@ -810,6 +1044,11 @@ int tbx_splitv_max_rows() { return MAX_ROWS; }
 int tbx_splitv_smem_bytes(int n) {
   return n >= 1 && n <= MAX_ROWS ? smem_bytes((n + 7) / 8) : -1;
 }
+int tbx_splitv_f32_smem_bytes(int n) {
+  return n >= 1 && n <= MAX_ROWS ? f32_smem_bytes((n + 7) / 8) : -1;
+}
+// The input types instantiated: bit 0 bf16, bit 1 f32 (3xTF32).
+int tbx_splitv_dtypes() { return 3; }
 
 // Negative codes are -(CUresult) of a refused tensor map.
 const char* tbx_splitv_error_string(int code) {
@@ -817,38 +1056,53 @@ const char* tbx_splitv_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Launch one pass on `stream`.  x [n, d] and e [v, d] row-major bf16, 16-byte
-// aligned, d % 8 == 0; 1 <= n <= MAX_ROWS; targets [n] int32 (-1 = none);
-// list_len KMAX or KMAX_WIDE, the instantiation's list length, and
-// 1 <= k_top <= list_len; 1 <= n_chunks <= ceil(v / TILE_ROWS).  Partials
-// [n_chunks, n] and [n_chunks, n, k_top] as in the file header; with lse
-// not null, also the merged statistics lse, tgt [n], vals and ids [n, k_top],
-// counted on ticket (one int, 0 at launch).
-int tbx_lens_splitv(const void* x, const void* e, const int* targets,
-                    float* part_max, float* part_sumexp, float* part_tgt,
-                    float* part_vals, int* part_ids, float* lse, float* tgt,
-                    float* vals, int* ids, int* ticket, int n, int d, int v,
-                    int k_top, int list_len, int n_chunks, int has_cap,
-                    float cap, void* stream) {
+// Launch one pass on `stream`.  x [n, d] and e [v, d] row-major bf16 (f32
+// with f32 != 0), 16-byte aligned, d % 8 == 0 (d % 4 == 0 in f32); x_split
+// [2, n, d] f32 scratch for the split of x (f32 only; written here first);
+// 1 <= n <= MAX_ROWS; targets [n] int32 (-1 = none); list_len KMAX or
+// KMAX_WIDE, the instantiation's list length, and 1 <= k_top <= list_len;
+// 1 <= n_chunks <= ceil(v / TILE_ROWS).  Partials [n_chunks, n] and
+// [n_chunks, n, k_top] as in the file header; with lse not null, also the
+// merged statistics lse, tgt [n], vals and ids [n, k_top], counted on ticket
+// (one int, 0 at launch).
+int tbx_lens_splitv(const void* x, const void* e, void* x_split,
+                    const int* targets, float* part_max, float* part_sumexp,
+                    float* part_tgt, float* part_vals, int* part_ids,
+                    float* lse, float* tgt, float* vals, int* ids, int* ticket,
+                    int n, int d, int v, int k_top, int list_len, int n_chunks,
+                    int has_cap, int f32, float cap, void* stream) {
   if (n < 1 || n > MAX_ROWS || (list_len != KMAX && list_len != KMAX_WIDE) ||
       k_top < 1 || k_top > list_len || n_chunks < 1 ||
       n_chunks > (v + TILE_ROWS - 1) / TILE_ROWS ||
       (lse != nullptr && (tgt == nullptr || vals == nullptr ||
-                          ids == nullptr || ticket == nullptr))) {
+                          ids == nullptr || ticket == nullptr)) ||
+      (f32 && (x_split == nullptr || d % 4 != 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int npad = 8 * ((n + 7) / 8);
   CUtensorMap mx, me;
-  CUresult cr = make_map(&mx, x, n, d, 8 * ((n + 7) / 8));
+  CUresult cr = f32 ? make_map(&mx, x_split, n, d, npad, true, 2)
+                    : make_map(&mx, x, n, d, npad);
   if (cr != CUDA_SUCCESS) return -static_cast<int>(cr);
-  cr = make_map(&me, e, v, d, TILE_ROWS);
+  cr = make_map(&me, e, v, d, TILE_ROWS, f32 != 0);
   if (cr != CUDA_SUCCESS) return -static_cast<int>(cr);
   const Args a{targets,
                {part_max, part_sumexp, part_tgt, part_vals, part_ids, lse,
                 tgt, vals, ids, ticket},
                n, d, v, k_top, n_chunks, cap};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return list_len == KMAX ? launch_list<KMAX>(mx, me, a, has_cap, s)
-                          : launch_list<KMAX_WIDE>(mx, me, a, has_cap, s);
+  if (f32) {
+    const cudaError_t rc = tf32::split_rows(static_cast<const float*>(x),
+                                            static_cast<float*>(x_split), n, d,
+                                            s);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    return list_len == KMAX
+               ? launch_list<float, KMAX>(mx, me, a, has_cap, s)
+               : launch_list<float, KMAX_WIDE>(mx, me, a, has_cap, s);
+  }
+  return list_len == KMAX
+             ? launch_list<__nv_bfloat16, KMAX>(mx, me, a, has_cap, s)
+             : launch_list<__nv_bfloat16, KMAX_WIDE>(mx, me, a, has_cap, s);
 }
 
 }  // extern "C"

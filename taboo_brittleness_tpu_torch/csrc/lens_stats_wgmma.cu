@@ -2,14 +2,15 @@
 // and a running per-row state across a chunk of the vocabulary.
 //
 // Replaces the TPU kernel of the JAX package: ops/pallas_lens.py,
-// `_lens_tile_kernel` launched by `lens_stats`, on its bf16 inputs with
-// top_k <= KMAX_WIDE (the wrapper, ops/lens_kernel.py `lens_plan`, sends f32
-// and larger top_k to the simple kernel in lens_stats.cu).  For rows x [N, D]
+// `_lens_tile_kernel` launched by `lens_stats`, on its bf16 or f32 inputs
+// with top_k <= KMAX_WIDE and more rows than the split-V kernel takes (the
+// wrapper, ops/lens_kernel.py `lens_plan`, sends larger top_k to the simple
+// kernel in lens_stats.cu).  For rows x [N, D]
 // (final-normed residuals) and the tied embedding E [V, D] a block owns one
 // tile of BM rows and a contiguous chunk of the vocabulary, and writes one
 // partial per (chunk, row):
 //
-//   logits = x @ E[chunk]^T            (bf16 wgmma, f32 accumulate)
+//   logits = x @ E[chunk]^T            (bf16 wgmma or 3xTF32, f32 sums)
 //   logits = tanh(logits / cap) * cap   [CAP only]
 //   part_max[s, n], part_sumexp[s, n]   running max / sum exp(logit - max)
 //   part_tgt[s, n]                      logit of targets[n] in the chunk, else -1e30
@@ -76,13 +77,27 @@
 //   row tiles of one vocab chunk run together and walk the same E tiles in
 //   step: one of them reads each E stage from HBM, the others from L2.  x
 //   (8 MB) stays in L2 throughout.
+// - f32 (3xTF32, tf32_split.cuh).  A single TF32 product keeps 11 bits of
+//   each operand (~1e-3), so f32 takes three: x hi . E hi + x lo . E hi +
+//   x hi . E lo, each tf32 wgmma.m64n256k8, into the same accumulator: six
+//   times bf16's tensor-core time per call (three products at 495 TFLOP/s,
+//   half the bf16 rate; 12.7 ms at the main path's shape) and twice its
+//   bytes.  wgmma reads B only from shared memory, so E's lo has to be
+//   there: the producer warpgroup's three idle warps split each E tile as
+//   it lands (hi in place, lo beside it) and arrive on a third barrier.  A
+//   stage holds x hi and lo, E and E lo, so it is 16 deep (64-byte rows) to
+//   keep four stages in the ring.  x is split once per call by a small
+//   kernel into the wrapper's [2, N, D] scratch and loaded as both planes
+//   in one 3-D TMA box.  The fold, the lists and the epilogue read the same
+//   f32 accumulator and do not change; the registers stay as bf16's.
 // - Edges: TMA zero-fills rows past N, depth past D and columns past V.
 //   Padded rows are never written; columns past V are set to -inf after the
 //   cap, before any statistic reads them.
 //
 // The macros LENS_ANATOMY_SKIP_TOPK and LENS_ANATOMY_SKIP_FOLD leave out the
 // running top-k or the whole per-tile fold; only perf/lens_anatomy.py sets
-// them, to time the parts, and their partials are meaningless.
+// them, to time the parts, and their partials are meaningless.  It also sets
+// LENS_F32_BK, the f32 stage's depth (below).
 //
 // Plain C interface, built with nvcc into a shared library and loaded with
 // ctypes.  The launcher returns 0, a cudaError_t of the launch, or a negative
@@ -94,6 +109,8 @@
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "tf32_split.cuh"
 
 namespace {
 
@@ -120,11 +137,36 @@ constexpr int CAND_SLOTS = 16;
 constexpr int SLOT_STRIDE = CONSUMER_THREADS * 8;
 constexpr int SMEM_BYTES = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * 8 +
                            CAND_SLOTS * CONSUMER_THREADS * 8;
+// The f32 (3xTF32) instantiation.  A stage holds x split into hi and lo
+// (loaded so by TMA from the wrapper's split copy), E (split in place into
+// hi) and E's lo, four times a bf16 stage's bytes per depth.  It is 16 deep:
+// rows of 64 bytes under the 64-byte swizzle, two k8 slices 32 bytes apart,
+// 48 KB a stage, so the ring keeps bf16's four stages (three in flight while
+// one is multiplied).  32-deep stages (128-byte rows, the 128-byte swizzle)
+// fit only two, one in flight; 8-deep ones (32-byte rows) eight.  The macro
+// LENS_F32_BK picks another depth; only perf/lens_anatomy.py sets it, to
+// time the three in turns (PERF.md).  The producer warpgroup's three idle
+// warps split E.
+#ifndef LENS_F32_BK
+#define LENS_F32_BK 16
+#endif
+constexpr int F32_BK = LENS_F32_BK;
+constexpr int F32_ROW = F32_BK * 4;               // bytes a row: the swizzle
+constexpr int F32_STAGES = 64 / F32_BK;
+constexpr int F32_X_BYTES = 2 * BM * F32_ROW;     // x hi, then x lo
+constexpr int F32_E_BYTES = BN * F32_ROW;         // E (hi after the split)
+constexpr int F32_STAGE_BYTES = F32_X_BYTES + 2 * F32_E_BYTES;  // + E lo
+constexpr int SPLIT_THREADS = 96;                 // producer warps 1-3
+constexpr int F32_SMEM_BYTES = 1024 + F32_STAGES * F32_STAGE_BYTES +
+                               3 * F32_STAGES * 8 +
+                               CAND_SLOTS * CONSUMER_THREADS * 8;
+static_assert(F32_SMEM_BYTES <= 232448, "a block's shared memory on sm_90");
 constexpr float NEG_BIG = -1e30f;     // logit of an absent target
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned FULL_MASK = 0xffffffffu;
 // A barrier wait that outlasts this traps instead of hanging the card.
 constexpr unsigned long long WAIT_LIMIT_NS = 10ull * 1000 * 1000 * 1000;
+
 
 // Shared memory is addressed by 32-bit offsets in the shared window
 // throughout: the compiler then keeps every access a shared one.
@@ -208,6 +250,18 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// A [2, rows, cols] box: both planes of the f32 split of x in one load.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
 // ------------------------------------------------------------------- wgmma
 
 // Shared-memory matrix descriptor of a K-major tile written by TMA with the
@@ -217,6 +271,16 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
          (static_cast<uint64_t>(1) << 16) |          // leading offset (unused)
          (static_cast<uint64_t>(1024 >> 4) << 32) |  // stride offset
          (static_cast<uint64_t>(1) << 62);           // 128-byte swizzle
+}
+
+// The same for the f32 stages' rows of F32_ROW bytes, swizzled over the
+// row (64 bytes; 128 or 32 under LENS_F32_BK): 8-row groups 8 rows apart.
+__device__ __forceinline__ uint64_t f32_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |          // leading offset (unused)
+         (static_cast<uint64_t>(8 * F32_ROW >> 4) << 32) |  // stride offset
+         (static_cast<uint64_t>(F32_ROW == 128 ? 1 : F32_ROW == 64 ? 2 : 3)
+          << 62);                                    // the row's swizzle
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -236,6 +300,50 @@ __device__ __forceinline__ void fence_acc(float (&d)[128]) {
   for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// The 128 accumulator registers of a m64n256 wgmma, as the asm statements
+// below name and bind them.
+#define WGMMA_ACC_REGS \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9," \
+  "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19," \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29," \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39," \
+  "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49," \
+  "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59," \
+  "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69," \
+  "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79," \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89," \
+  "%90, %91, %92, %93, %94, %95, %96, %97, %98, %99," \
+  "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109," \
+  "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119," \
+  "%120, %121, %122, %123, %124, %125, %126, %127"
+#define WGMMA_ACC_OPERANDS \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), \
+  "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), \
+  "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), \
+  "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+  "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
+  "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+  "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), \
+  "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+  "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), \
+  "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), \
+  "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), \
+  "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+  "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), \
+  "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), \
+  "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), \
+  "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), \
+  "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), \
+  "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), \
+  "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), \
+  "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), \
+  "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), \
+  "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), \
+  "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), \
+  "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), \
+  "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), \
+  "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+
 // d[64 x 256] += A[64 x 16] * B[256 x 16]^T, both K-major in shared memory.
 __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
                                                  uint64_t db) {
@@ -244,49 +352,27 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
       ".reg .pred p;\n"
       "setp.ne.b32 p, %130, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "
-      "%46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
-      "%62, %63,"
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, "
-      "%78, %79,"
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, "
-      "%94, %95,"
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
-      "%108, %109, %110, %111,"
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "
-      "%124, %125, %126, %127},"
+      "{" WGMMA_ACC_REGS "},"
       " %128, %129, p, 1, 1, 0, 0;\n"
       "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
-        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
-        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
-        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
-        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
-        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
-        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
-        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
-        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
-        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : WGMMA_ACC_OPERANDS
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d[64 x 256] += A[64 x 8] * B[256 x 8]^T in TF32 (f32 operands whose low
+// 13 mantissa bits are zero), both K-major in shared memory: tf32 wgmma takes
+// no transpose.
+__device__ __forceinline__ void wgmma_m64n256k8_tf32(float (&d)[128],
+                                                     uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 "
+      "{" WGMMA_ACC_REGS "},"
+      " %128, %129, p, 1, 1;\n"
+      "}\n"
+      : WGMMA_ACC_OPERANDS
       : "l"(da), "l"(db), "r"(1));
 }
 
@@ -371,8 +457,10 @@ __device__ __forceinline__ void topk_pop(float (&tv)[KMAX], int (&ti)[KMAX]) {
 // Grid: row_tiles * n_chunks blocks, row tile fastest.  Chunk s covers the
 // vocab tiles [s * T / S, (s + 1) * T / S) of T = ceil(v / BN).  L is the
 // running list's length: KMAX (each lane its own list, the quad's four
-// merged at the end) or KMAX_WIDE (one list split across the quad).
-template <bool CAP, int L>
+// merged at the end) or KMAX_WIDE (one list split across the quad).  T is the
+// input type: __nv_bfloat16, or float (3xTF32; map_x then covers the
+// wrapper's [2, n, d] split of x).
+template <typename T, bool CAP, int L>
 __global__ void __launch_bounds__(THREADS, 1)
     lens_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
                       const __grid_constant__ CUtensorMap map_e,
@@ -383,14 +471,23 @@ __global__ void __launch_bounds__(THREADS, 1)
                       float* __restrict__ part_vals,
                       int* __restrict__ part_ids, int n, int d, int v,
                       int k_top, int n_chunks, float cap) {
+  constexpr bool F32 = tf32::is_f32<T>;
+  constexpr int kBK = F32 ? F32_BK : BK;
+  constexpr int kStages = F32 ? F32_STAGES : STAGES;
+  constexpr int kStageBytes = F32 ? F32_STAGE_BYTES : STAGE_BYTES;
+  constexpr int kXBytes = F32 ? F32_X_BYTES : A_BYTES;  // E's offset in a stage
+  constexpr int kLoadBytes = F32 ? F32_X_BYTES + F32_E_BYTES : STAGE_BYTES;
+  constexpr int kBarriers = F32 ? 3 : 2;
   extern __shared__ unsigned char smem_raw[];
   // The 128-byte swizzle repeats every 1024 bytes: align the ring to it.
-  // Stage s is at ring + s * STAGE_BYTES (x, then E); then the full and the
-  // empty barriers; then the candidate slots.
+  // Stage s is at ring + s * kStageBytes (x, then E; f32: x hi, x lo, E, E
+  // lo); then the full and the empty barriers (f32: and the ready ones,
+  // E split); then the candidate slots.
   const uint32_t ring = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const uint32_t full = ring + STAGES * STAGE_BYTES;  // + 8 * stage
-  const uint32_t empty = full + STAGES * 8;           // + 8 * stage
-  const uint32_t slots = empty + STAGES * 8;
+  const uint32_t full = ring + kStages * kStageBytes;  // + 8 * stage
+  const uint32_t empty = full + kStages * 8;           // + 8 * stage
+  const uint32_t ready = empty + kStages * 8;          // + 8 * stage, f32
+  const uint32_t slots = full + kBarriers * kStages * 8;
 
   const int row_tiles = (n + BM - 1) / BM;
   const int row_tile = blockIdx.x % row_tiles;
@@ -398,12 +495,13 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int vocab_tiles = (v + BN - 1) / BN;
   const int t_begin = (int)((long long)chunk * vocab_tiles / n_chunks);
   const int t_end = (int)((long long)(chunk + 1) * vocab_tiles / n_chunks);
-  const int k_steps = (d + BK - 1) / BK;
+  const int k_steps = (d + kBK - 1) / kBK;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       mbar_init(full + 8 * s, 1);
       mbar_init(empty + 8 * s, CONSUMER_WARPS);
+      if (F32) mbar_init(ready + 8 * s, SPLIT_THREADS / 32);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -419,13 +517,43 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int t = t_begin; t < t_end; ++t) {
         for (int ks = 0; ks < k_steps; ++ks) {
           mbar_wait(empty + 8 * stage, phase ^ 1);
-          const uint32_t a = ring + stage * STAGE_BYTES;
-          mbar_expect_tx(full + 8 * stage, STAGE_BYTES);
-          tma_load_2d(a, &map_x, full + 8 * stage, ks * BK, row_tile * BM);
-          tma_load_2d(a + A_BYTES, &map_e, full + 8 * stage, ks * BK, t * BN);
-          if (++stage == STAGES) {
+          const uint32_t a = ring + stage * kStageBytes;
+          mbar_expect_tx(full + 8 * stage, kLoadBytes);
+          if constexpr (F32) {
+            tma_load_3d(a, &map_x, full + 8 * stage, ks * kBK, row_tile * BM,
+                        0);
+          } else {
+            tma_load_2d(a, &map_x, full + 8 * stage, ks * BK, row_tile * BM);
+          }
+          tma_load_2d(a + kXBytes, &map_e, full + 8 * stage, ks * kBK, t * BN);
+          if (++stage == kStages) {
             stage = 0;
             phase ^= 1;
+          }
+        }
+      }
+    } else if constexpr (F32) {
+      // Warps 1-3 split each stage's E into hi (in place) and lo once it
+      // lands, and hand it to the consumers.
+      if (threadIdx.x >= CONSUMER_THREADS + 32) {
+        const int ct = threadIdx.x - CONSUMER_THREADS - 32;
+        int stage = 0;
+        uint32_t phase = 0;
+        for (int t = t_begin; t < t_end; ++t) {
+          for (int ks = 0; ks < k_steps; ++ks) {
+            mbar_wait(full + 8 * stage, phase);
+            const uint32_t e = ring + stage * kStageBytes + kXBytes;
+#pragma unroll 2
+            for (int i = ct; i < F32_E_BYTES / 16; i += SPLIT_THREADS) {
+              tf32::split_shared16(e + 16 * i, e + F32_E_BYTES + 16 * i);
+            }
+            tf32::fence_proxy_async();
+            __syncwarp();
+            if (threadIdx.x % 32 == 0) mbar_arrive(ready + 8 * stage);
+            if (++stage == kStages) {
+              stage = 0;
+              phase ^= 1;
+            }
           }
         }
       }
@@ -470,13 +598,30 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int r = 0; r < 128; ++r) acc[r] = 0.0f;
       int prev = 0;
       for (int ks = 0; ks < k_steps; ++ks) {
-        mbar_wait(full + 8 * stage, phase);
-        const uint32_t a = ring + stage * STAGE_BYTES + wg * 64 * 128;
-        const uint32_t b = ring + stage * STAGE_BYTES + A_BYTES;
+        mbar_wait((F32 ? ready : full) + 8 * stage, phase);
+        const uint32_t a =
+            ring + stage * kStageBytes + wg * 64 * (F32 ? F32_ROW : 128);
+        const uint32_t b = ring + stage * kStageBytes + kXBytes;
         wgmma_fence();
+        if constexpr (F32) {
+          // 3xTF32: x hi . E hi + x lo . E hi + x hi . E lo.
+          const uint32_t a_lo = a + BM * F32_ROW;
+          const uint32_t b_lo = b + F32_E_BYTES;
 #pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-          wgmma_m64n256k16(acc, smem_desc(a + kk * 32), smem_desc(b + kk * 32));
+          for (int kk = 0; kk < F32_BK / 8; ++kk) {
+            wgmma_m64n256k8_tf32(acc, f32_desc(a + kk * 32),
+                                 f32_desc(b + kk * 32));
+            wgmma_m64n256k8_tf32(acc, f32_desc(a_lo + kk * 32),
+                                 f32_desc(b + kk * 32));
+            wgmma_m64n256k8_tf32(acc, f32_desc(a + kk * 32),
+                                 f32_desc(b_lo + kk * 32));
+          }
+        } else {
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk) {
+            wgmma_m64n256k16(acc, smem_desc(a + kk * 32),
+                             smem_desc(b + kk * 32));
+          }
         }
         wgmma_commit();
         if (ks > 0) {
@@ -485,7 +630,7 @@ __global__ void __launch_bounds__(THREADS, 1)
           if (lane == 0) mbar_arrive(empty + 8 * prev);
         }
         prev = stage;
-        if (++stage == STAGES) {
+        if (++stage == kStages) {
           stage = 0;
           phase ^= 1;
         }
@@ -771,34 +916,46 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 2-D bf16 tensor map over a row-major [rows, cols] matrix, boxes of
-// box_rows x BK with the 128-byte swizzle; reads past either edge are zero.
+// A tensor map over `planes` row-major [rows, cols] matrices of bf16 (or
+// f32) one after the other, boxes of planes x box_rows x one row (BK bf16,
+// F32_BK f32) swizzled over the row; reads past an edge are zero.
 CUresult make_map(CUtensorMap* map, const void* base, int rows, int cols,
-                  int box_rows) {
+                  int box_rows, bool f32 = false, int planes = 1) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                const_cast<void*>(base), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  const cuuint64_t bytes = f32 ? 4 : 2;
+  const cuuint32_t row = f32 ? F32_ROW : 128;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * bytes,
+                                 (cuuint64_t)cols * bytes * rows};
+  const cuuint32_t box[3] = {(cuuint32_t)(row / bytes), (cuuint32_t)box_rows,
+                             (cuuint32_t)planes};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map,
+                f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                    : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                planes > 1 ? 3 : 2, const_cast<void*>(base), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                row == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                : row == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                            : CU_TENSOR_MAP_SWIZZLE_32B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <bool CAP, int L>
+template <typename T, bool CAP, int L>
 int launch(const CUtensorMap& mx, const CUtensorMap& me, const int* targets,
            float* part_max, float* part_sumexp, float* part_tgt,
            float* part_vals, int* part_ids, int n, int d, int v, int k_top,
            int n_chunks, float cap, cudaStream_t stream) {
-  auto kernel = lens_wgmma_kernel<CAP, L>;
+  auto kernel = lens_wgmma_kernel<T, CAP, L>;
+  constexpr int bytes = tf32::is_f32<T> ? F32_SMEM_BYTES : SMEM_BYTES;
   cudaError_t rc = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   const int row_tiles = (n + BM - 1) / BM;
-  kernel<<<row_tiles * n_chunks, THREADS, SMEM_BYTES, stream>>>(
+  kernel<<<row_tiles * n_chunks, THREADS, bytes, stream>>>(
       mx, me, targets, part_max, part_sumexp, part_tgt, part_vals, part_ids, n,
       d, v, k_top, n_chunks, cap);
   return static_cast<int>(cudaGetLastError());
@@ -814,6 +971,9 @@ int tbx_wgmma_block_cols() { return BN; }
 int tbx_wgmma_kmax() { return KMAX; }
 int tbx_wgmma_kmax_wide() { return KMAX_WIDE; }
 int tbx_wgmma_smem_bytes() { return SMEM_BYTES; }
+int tbx_wgmma_f32_smem_bytes() { return F32_SMEM_BYTES; }
+// The input types instantiated: bit 0 bf16, bit 1 f32 (3xTF32).
+int tbx_wgmma_dtypes() { return 3; }
 
 // Negative codes are -(CUresult) of a refused tensor map.
 const char* tbx_wgmma_error_string(int code) {
@@ -821,30 +981,47 @@ const char* tbx_wgmma_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Launch one pass on `stream`.  x [n, d] and e [v, d] row-major bf16, 16-byte
-// aligned, d % 8 == 0; targets [n] int32 (-1 = none); list_len KMAX or
-// KMAX_WIDE, the instantiation's list length, and 1 <= k_top <= list_len;
+// Launch one pass on `stream`.  x [n, d] and e [v, d] row-major bf16 (f32
+// with f32 != 0), 16-byte aligned, d % 8 == 0 (d % 4 == 0 in f32); x_split
+// [2, n, d] f32 scratch for the split of x (f32 only; written here first);
+// targets [n] int32 (-1 = none); list_len KMAX or KMAX_WIDE, the
+// instantiation's list length, and 1 <= k_top <= list_len;
 // 1 <= n_chunks <= ceil(v / BN).  Outputs [n_chunks, n] and
 // [n_chunks, n, k_top] as in the file header.
-int tbx_lens_wgmma(const void* x, const void* e, const int* targets,
-                   float* part_max, float* part_sumexp, float* part_tgt,
-                   float* part_vals, int* part_ids, int n, int d, int v,
-                   int k_top, int list_len, int n_chunks, int has_cap,
-                   float cap, void* stream) {
+int tbx_lens_wgmma(const void* x, const void* e, void* x_split,
+                   const int* targets, float* part_max, float* part_sumexp,
+                   float* part_tgt, float* part_vals, int* part_ids, int n,
+                   int d, int v, int k_top, int list_len, int n_chunks,
+                   int has_cap, int f32, float cap, void* stream) {
   if (n < 1 || (list_len != KMAX && list_len != KMAX_WIDE) || k_top < 1 ||
-      k_top > list_len || n_chunks < 1 || n_chunks > (v + BN - 1) / BN) {
+      k_top > list_len || n_chunks < 1 || n_chunks > (v + BN - 1) / BN ||
+      (f32 && (x_split == nullptr || d % 4 != 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  CUtensorMap mx, me;
-  CUresult cr = make_map(&mx, x, n, d, BM);
-  if (cr != CUDA_SUCCESS) return -static_cast<int>(cr);
-  cr = make_map(&me, e, v, d, BN);
-  if (cr != CUDA_SUCCESS) return -static_cast<int>(cr);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  CUtensorMap mx, me;
+  CUresult cr = f32 ? make_map(&mx, x_split, n, d, BM, true, 2)
+                    : make_map(&mx, x, n, d, BM);
+  if (cr != CUDA_SUCCESS) return -static_cast<int>(cr);
+  cr = make_map(&me, e, v, d, BN, f32 != 0);
+  if (cr != CUDA_SUCCESS) return -static_cast<int>(cr);
+  if (f32) {
+    const cudaError_t rc = tf32::split_rows(static_cast<const float*>(x),
+                                            static_cast<float*>(x_split), n, d,
+                                            s);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    auto run = list_len == KMAX ? (has_cap ? &launch<float, true, KMAX>
+                                           : &launch<float, false, KMAX>)
+                                : (has_cap ? &launch<float, true, KMAX_WIDE>
+                                           : &launch<float, false, KMAX_WIDE>);
+    return run(mx, me, targets, part_max, part_sumexp, part_tgt, part_vals,
+               part_ids, n, d, v, k_top, n_chunks, cap, s);
+  }
   auto run = list_len == KMAX
-                  ? (has_cap ? &launch<true, KMAX> : &launch<false, KMAX>)
-                  : (has_cap ? &launch<true, KMAX_WIDE>
-                             : &launch<false, KMAX_WIDE>);
+                  ? (has_cap ? &launch<__nv_bfloat16, true, KMAX>
+                             : &launch<__nv_bfloat16, false, KMAX>)
+                  : (has_cap ? &launch<__nv_bfloat16, true, KMAX_WIDE>
+                             : &launch<__nv_bfloat16, false, KMAX_WIDE>);
   return run(mx, me, targets, part_max, part_sumexp, part_tgt, part_vals,
              part_ids, n, d, v, k_top, n_chunks, cap, s);
 }

@@ -10,25 +10,31 @@ epilogue, merges them, so the ``[N, V]`` logits never reach device memory.
 Three kernels, three routes, chosen by :func:`lens_plan` before the launch
 from the call's rows, vocabulary, top-k, dtype and the card's SM count:
 
-- ``"splitv"`` (``csrc/lens_stats_splitv.cu``): bf16 inputs, ``top_k <=
-  KMAX_WIDE`` and at most :data:`SPLITV_MAX_ROWS` rows: the serving readouts (N 8
-  per step, N 32 per speculative verify, each tp shard's).  E's rows are the
-  wgmma's M and the few rows of x its N; one block per SM streams a balanced
-  range of 32-row vocab tiles once (TMA ring), and each consumer warp folds
-  its tokens' logits across the lanes.  One partial per (chunk, row).
-- ``"wgmma"`` (``csrc/lens_stats_wgmma.cu``): bf16 inputs and
+- ``"splitv"`` (``csrc/lens_stats_splitv.cu``): bf16 or f32 inputs, ``top_k
+  <= KMAX_WIDE`` and at most :data:`SPLITV_MAX_ROWS` rows (f32:
+  :data:`SPLITV_F32_MAX_ROWS`): the serving readouts (N 8 per step, N 32 per
+  speculative verify, each tp shard's).  E's rows are the wgmma's M and the
+  few rows of x its N; one block per SM streams a balanced range of 32-row
+  vocab tiles once (TMA ring), and each consumer warp folds its tokens'
+  logits across the lanes.  One partial per (chunk, row).
+- ``"wgmma"`` (``csrc/lens_stats_wgmma.cu``): bf16 or f32 inputs and
   ``top_k <= KMAX_WIDE`` with more rows, which is every call of the main path.
   TMA ring, wgmma, 128 x 256 tiles and a running per-row state across a
   vocab chunk: one partial per (chunk, row).
-- ``"simple"`` (``csrc/lens_stats.cu``): f32 inputs or a top-k above
-  ``KMAX_WIDE``.  WMMA or FMA tiles of 64 x 128 with one partial per 128
-  columns.
+- ``"simple"`` (``csrc/lens_stats.cu``): a top-k of ``KMAX_WIDE + 1`` to
+  :data:`BLOCK_V` (128), bf16 or f32.  WMMA or FMA tiles of 64 x 128 with one
+  partial per 128 columns.
 
 The two Hopper kernels each hold two instantiations of their running top-k
 list: :data:`KMAX` entries (every call with ``top_k <= KMAX``) and
-:data:`KMAX_WIDE` (``KMAX < top_k <= KMAX_WIDE``).  The launcher passes the
-instantiation's length, and refuses a top-k above the longest list the
-library exports.
+:data:`KMAX_WIDE` (``KMAX < top_k <= KMAX_WIDE``), and each of those in bf16
+and in f32.  The f32 instantiations take three TF32 tensor-core products
+(3xTF32: each operand split into a TF32 hi and lo, ``hi.hi + lo.hi + hi.lo``
+in one f32 accumulator, ``csrc/tf32_split.cuh``), f32's accuracy at six
+times bf16's tensor-core time (three products at half the rate); they
+split x once per call into a ``[2, N, D]`` scratch the launcher allocates.  The launcher passes the instantiation's
+length and dtype, and refuses a top-k above the longest list, or a dtype,
+the library does not export.
 
 - :func:`lens_stats` dispatches on the device of its inputs: CUDA tensors go
   to a kernel (or raise when no kernel can take them), CPU tensors go to
@@ -74,7 +80,7 @@ WGMMA_ROWS, WGMMA_COLS = 128, 256
 
 #: The lengths of the Hopper kernels' running top-k lists: calls with
 #: ``top_k <= KMAX`` take the short list, calls up to ``KMAX_WIDE`` the long
-#: one.  Longer top-k and f32 take the simple kernel.
+#: one.  Longer top-k take the simple kernel.
 KMAX, KMAX_WIDE = 8, 32
 
 #: The split-V kernel's plan tile: vocab rows per step of a chunk (one TMA
@@ -86,6 +92,17 @@ SPLITV_TILE = 32
 #: (the split-V call is the faster at every N from 1 to 64, ``PERF.md``), so
 #: the route takes every N the kernel's shared memory holds.
 SPLITV_MAX_ROWS = 64
+
+#: The most f32 rows the split-V route takes; more go to the wgmma kernel's
+#: f32 instantiation.  Set from the f32 routes timed in turns on the card
+#: (``chip_smoke.py`` phase 3b, ``PERF.md``): the split-V call is the faster
+#: up to N 48 (1.50 ms against 2.09 on an H100) and not at N 64 (2.51
+#: against 2.10), where the f32 stages leave its ring three stages.
+SPLITV_F32_MAX_ROWS = 48
+
+#: The input types the Hopper kernels instantiate, as their libraries export
+#: them (bit 0 bf16, bit 1 f32).
+DTYPE_BITS = {torch.bfloat16: 1, torch.float32: 2}
 
 #: Streaming multiprocessors of an H100 SXM, the default of :func:`lens_plan`;
 #: a launch plans with its card's own count.
@@ -102,6 +119,8 @@ SOURCES = {
     "wgmma": os.path.join(_CSRC, "lens_stats_wgmma.cu"),
     "simple": os.path.join(_CSRC, "lens_stats.cu"),
 }
+#: Headers the sources include; a change to one rebuilds every library.
+HEADERS = (os.path.join(_CSRC, "tf32_split.cuh"),)
 BUILD_DIR = os.path.join(_CSRC, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -187,13 +206,15 @@ def lens_plan(n: int, v: int, k: int, dtype: torch.dtype, *,
     """The route and geometry of a lens-stats call over N rows, V vocab
     columns and top-``k`` on a card of ``sm_count`` SMs.
 
-    bf16 with ``k <= KMAX_WIDE`` takes the split-V kernel up to
-    :data:`SPLITV_MAX_ROWS` rows (:func:`_splitv_plan`) and the wgmma kernel
-    above (:func:`_wgmma_plan`); f32, or a longer top-k, takes the simple
-    kernel (:func:`_simple_plan`).
+    ``k <= KMAX_WIDE`` takes the split-V kernel up to
+    :data:`SPLITV_MAX_ROWS` rows in bf16 (:data:`SPLITV_F32_MAX_ROWS` in
+    f32; :func:`_splitv_plan`) and the wgmma kernel above
+    (:func:`_wgmma_plan`); a longer top-k takes the simple kernel
+    (:func:`_simple_plan`).
     """
-    if dtype == torch.bfloat16 and k <= KMAX_WIDE:
-        if n <= SPLITV_MAX_ROWS:
+    if k <= KMAX_WIDE:
+        limit = SPLITV_F32_MAX_ROWS if dtype == torch.float32 else SPLITV_MAX_ROWS
+        if n <= limit:
             return _splitv_plan(n, v, sm_count)
         return _wgmma_plan(n, v, sm_count)
     return _simple_plan(n, v)
@@ -372,9 +393,11 @@ def build_library() -> Dict[str, Tuple[str, str]]:
     {route: (path of the shared library, compiler output)}."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     built, running = {}, {}
+    headers = b"".join(open(h, "rb").read() for h in HEADERS)
     for route, source in SOURCES.items():
         with open(source, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+            digest = hashlib.sha256(f.read() + headers
+                                    + " ".join(NVCC_FLAGS).encode())
         stem = os.path.splitext(os.path.basename(source))[0]
         out = os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}.so")
         if os.path.exists(out):
@@ -401,42 +424,48 @@ def build_library() -> Dict[str, Tuple[str, str]]:
 def bind_library(route: str, path: str) -> ctypes.CDLL:
     """Load a built library of ``route`` and declare its C interface.  Its
     ``list_lengths`` are the top-k list lengths it instantiates, shortest
-    first, as the library exports them."""
+    first, and its ``dtypes`` the input types, as the library exports
+    them."""
     lib = ctypes.CDLL(path)
     p = ctypes.c_void_p
     i = ctypes.c_int
     if route == "splitv":
         for name in ("tbx_splitv_tile_rows", "tbx_splitv_kmax",
-                     "tbx_splitv_kmax_wide", "tbx_splitv_max_rows"):
+                     "tbx_splitv_kmax_wide", "tbx_splitv_max_rows",
+                     "tbx_splitv_dtypes"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = i
-        lib.tbx_splitv_smem_bytes.argtypes = [i]
-        lib.tbx_splitv_smem_bytes.restype = i
+        for name in ("tbx_splitv_smem_bytes", "tbx_splitv_f32_smem_bytes"):
+            getattr(lib, name).argtypes = [i]
+            getattr(lib, name).restype = i
         lib.tbx_splitv_error_string.argtypes = [i]
         lib.tbx_splitv_error_string.restype = ctypes.c_char_p
-        lib.tbx_lens_splitv.argtypes = [p] * 13 + [i] * 7 + [ctypes.c_float, p]
+        lib.tbx_lens_splitv.argtypes = [p] * 14 + [i] * 8 + [ctypes.c_float, p]
         lib.tbx_lens_splitv.restype = i
         tile, rows = lib.tbx_splitv_tile_rows(), lib.tbx_splitv_max_rows()
         if tile != SPLITV_TILE or rows < SPLITV_MAX_ROWS:
             raise RuntimeError(f"{path} has tile {tile} and holds {rows} rows, "
                                f"expected {SPLITV_TILE} and {SPLITV_MAX_ROWS}")
         lib.list_lengths = (lib.tbx_splitv_kmax(), lib.tbx_splitv_kmax_wide())
+        lib.dtypes = _dtypes(lib.tbx_splitv_dtypes())
         return lib
     if route == "wgmma":
         for name in ("tbx_wgmma_block_rows", "tbx_wgmma_block_cols",
                      "tbx_wgmma_kmax", "tbx_wgmma_kmax_wide",
-                     "tbx_wgmma_smem_bytes"):
+                     "tbx_wgmma_smem_bytes", "tbx_wgmma_f32_smem_bytes",
+                     "tbx_wgmma_dtypes"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = i
         lib.tbx_wgmma_error_string.argtypes = [i]
         lib.tbx_wgmma_error_string.restype = ctypes.c_char_p
-        lib.tbx_lens_wgmma.argtypes = [p] * 8 + [i] * 7 + [ctypes.c_float, p]
+        lib.tbx_lens_wgmma.argtypes = [p] * 9 + [i] * 8 + [ctypes.c_float, p]
         lib.tbx_lens_wgmma.restype = i
         geometry = (lib.tbx_wgmma_block_rows(), lib.tbx_wgmma_block_cols())
         if geometry != (WGMMA_ROWS, WGMMA_COLS):
             raise RuntimeError(f"{path} has tiles {geometry}, expected "
                                f"{(WGMMA_ROWS, WGMMA_COLS)}")
         lib.list_lengths = (lib.tbx_wgmma_kmax(), lib.tbx_wgmma_kmax_wide())
+        lib.dtypes = _dtypes(lib.tbx_wgmma_dtypes())
         return lib
     lib.tbx_lens_block_v.argtypes = []
     lib.tbx_lens_block_v.restype = i
@@ -449,7 +478,13 @@ def bind_library(route: str, path: str) -> ctypes.CDLL:
         raise RuntimeError(f"{path} tiles the vocab by "
                            f"{lib.tbx_lens_block_v()}, expected {BLOCK_V}")
     lib.list_lengths = (BLOCK_V,)
+    lib.dtypes = (torch.bfloat16, torch.float32)
     return lib
+
+
+def _dtypes(bits: int) -> Tuple[torch.dtype, ...]:
+    """The input types of a library's exported bit mask (:data:`DTYPE_BITS`)."""
+    return tuple(t for t, bit in DTYPE_BITS.items() if bits & bit)
 
 
 def list_length(lib, route: str, top_k: int) -> int:
@@ -496,18 +531,17 @@ def _launch(x: torch.Tensor, embed: torch.Tensor, targets: torch.Tensor,
     if n == 0:
         raise ValueError("the lens kernels take N >= 1 rows")
     if plan.route == "splitv":
-        if x.dtype != torch.bfloat16 or top_k > KMAX_WIDE or n > SPLITV_MAX_ROWS:
-            raise ValueError(f"the splitv route takes bf16, top_k <= {KMAX_WIDE} "
-                             f"and N <= {SPLITV_MAX_ROWS}, got {x.dtype}, "
-                             f"{top_k} and {n}")
+        if top_k > KMAX_WIDE or n > SPLITV_MAX_ROWS:
+            raise ValueError(f"the splitv route takes top_k <= {KMAX_WIDE} "
+                             f"and N <= {SPLITV_MAX_ROWS}, got {top_k} and {n}")
         tiles = _cdiv(v, SPLITV_TILE)
         if not 1 <= plan.chunks <= tiles:
             raise ValueError(f"plan {plan[:4]} does not cut V={v}")
         expected = (1, tiles, _tile_bounds(v, SPLITV_TILE, plan.chunks))
     elif plan.route == "wgmma":
-        if x.dtype != torch.bfloat16 or top_k > KMAX_WIDE:
-            raise ValueError(f"the wgmma route takes bf16 and top_k <= {KMAX_WIDE}, "
-                             f"got {x.dtype} and {top_k}")
+        if top_k > KMAX_WIDE:
+            raise ValueError(f"the wgmma route takes top_k <= {KMAX_WIDE}, "
+                             f"got {top_k}")
         expected = (_cdiv(n, WGMMA_ROWS), _cdiv(v, WGMMA_COLS),
                     _tile_bounds(v, WGMMA_COLS, plan.chunks))
     elif plan.route == "simple":
@@ -523,6 +557,9 @@ def _launch(x: torch.Tensor, embed: torch.Tensor, targets: torch.Tensor,
 
     lib = _library(plan.route)
     length = list_length(lib, plan.route, top_k)
+    if x.dtype not in lib.dtypes:
+        raise ValueError(f"the {plan.route} library instantiates "
+                         f"{lib.dtypes}, not {x.dtype}")
     s = plan.chunks
     f32 = dict(dtype=torch.float32, device=x.device)
     parts = LensPartials(
@@ -533,6 +570,12 @@ def _launch(x: torch.Tensor, embed: torch.Tensor, targets: torch.Tensor,
         cand_ids=torch.empty((s, n, top_k), dtype=torch.int32, device=x.device))
     ptrs = [t.data_ptr() for t in (x, embed, targets, *parts)]
     has_cap, cap = int(logit_cap is not None), float(logit_cap or 0.0)
+    is_f32 = int(x.dtype == torch.float32)
+    # The Hopper kernels' f32 instantiations split x into hi and lo here;
+    # the tensor lives until the launch is enqueued on this stream.
+    split_buf = (torch.empty((2, n, d), **f32)
+                 if is_f32 and plan.route != "simple" else None)
+    split = None if split_buf is None else split_buf.data_ptr()
     stats, ticket = None, None
     if merged:
         stats = LensStats(
@@ -546,12 +589,14 @@ def _launch(x: torch.Tensor, embed: torch.Tensor, targets: torch.Tensor,
         if plan.route == "splitv":
             merge_ptrs = ([t.data_ptr() for t in (*stats, ticket)] if merged
                           else [None] * 5)
-            rc = lib.tbx_lens_splitv(*ptrs, *merge_ptrs, n, d, v, top_k,
-                                     length, s, has_cap, cap, stream)
+            rc = lib.tbx_lens_splitv(*ptrs[:2], split, *ptrs[2:], *merge_ptrs,
+                                     n, d, v, top_k, length, s, has_cap,
+                                     is_f32, cap, stream)
             why = lib.tbx_splitv_error_string
         elif plan.route == "wgmma":
-            rc = lib.tbx_lens_wgmma(*ptrs, n, d, v, top_k, length, s, has_cap,
-                                    cap, stream)
+            rc = lib.tbx_lens_wgmma(*ptrs[:2], split, *ptrs[2:], n, d, v,
+                                    top_k, length, s, has_cap, is_f32, cap,
+                                    stream)
             why = lib.tbx_wgmma_error_string
         else:
             rc = lib.tbx_lens_stats(*ptrs, n, d, v, top_k, has_cap, cap,

@@ -1,14 +1,16 @@
 """Where a lens kernel's time goes, measured on the card.
 
     python3 -m taboo_brittleness_tpu_torch.perf.lens_anatomy [--reps 10]
-        [--route wgmma|splitv] [--rows 1140] [--top-k 5]
+        [--route wgmma|splitv] [--rows 1140] [--top-k 5] [--dtype bf16|f32]
 
 Builds the route's source (``csrc/lens_stats_wgmma.cu`` or
 ``csrc/lens_stats_splitv.cu``) as shipped, without the whole per-tile fold
 (``-DLENS_ANATOMY_SKIP_FOLD``, the product alone) and, for the wgmma kernel,
 without the running top-k (``-DLENS_ANATOMY_SKIP_TOPK``).  At ``--rows`` N
-(the main path's 1140 by default), V = 256000 and ``--top-k`` in bf16 (up
-to ``KMAX_WIDE``: above ``KMAX`` the kernel's long list) it
+(the main path's 1140 by default), V = 256000 and ``--top-k`` (up to
+``KMAX_WIDE``: above ``KMAX`` the kernel's long list) in ``--dtype`` (bf16,
+or f32: the kernels' 3xTF32 builds, and for the wgmma kernel two more builds
+with its f32 stage 32 and 8 deep instead of 16, ``-DLENS_F32_BK``) it
 times each build's launch on the route's own plan (CUDA events, means over
 ``--reps``) for D in 1792, 3584 and 7168, the builds in turns, beside
 ``torch.matmul(x, E^T)`` (cuBLAS, bf16 out) on the same inputs.
@@ -41,15 +43,21 @@ BUILDS = {
               "product_only": ("LENS_ANATOMY_SKIP_FOLD",)},
     "splitv": {"full": (), "product_only": ("LENS_ANATOMY_SKIP_FOLD",)},
 }
+# The wgmma kernel's f32 stage at the depths it was not given.
+F32_DEPTHS = {"depth32": ("LENS_F32_BK=32",), "depth8": ("LENS_F32_BK=8",)}
 PLANS = {"wgmma": lk._wgmma_plan, "splitv": lk._splitv_plan}
+DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
 
-def build_variants(route: str) -> dict:
+def build_variants(route: str, dtype: str = "bf16") -> dict:
     """{build: shared library path}, one nvcc each, started together."""
     os.makedirs(lk.BUILD_DIR, exist_ok=True)
     source = lk.SOURCES[route]
+    builds = dict(BUILDS[route])
+    if route == "wgmma" and dtype == "f32":
+        builds.update(F32_DEPTHS)
     running = {}
-    for name, defines in BUILDS[route].items():
+    for name, defines in builds.items():
         out = os.path.join(lk.BUILD_DIR, f"lens_anatomy_{route}_{name}.so")
         cmd = [lk._nvcc(), *lk.NVCC_FLAGS, *(f"-D{d}" for d in defines),
                "-o", out, source]
@@ -75,7 +83,11 @@ def launcher(lib, x: torch.Tensor, embed: torch.Tensor, plan: lk.LensPlan,
     outs += [torch.empty((plan.chunks, n, top_k), **f32),
              torch.empty((plan.chunks, n, top_k), dtype=torch.int32,
                          device=x.device)]
-    ptrs = [t.data_ptr() for t in (x, embed, targets, *outs)]
+    is_f32 = int(x.dtype == torch.float32)
+    split = torch.empty((2, n, d), **f32) if is_f32 else None
+    ptrs = [t.data_ptr() for t in (x, embed)]
+    ptrs += [None if split is None else split.data_ptr()]
+    ptrs += [t.data_ptr() for t in (targets, *outs)]
     stream = torch.cuda.current_stream().cuda_stream
     run = getattr(lib, f"tbx_lens_{plan.route}")
     why = getattr(lib, f"tbx_{plan.route}_error_string")
@@ -86,7 +98,7 @@ def launcher(lib, x: torch.Tensor, embed: torch.Tensor, plan: lk.LensPlan,
 
     def launch():
         rc = run(*ptrs, n, d, embed.shape[0], top_k, length, plan.chunks, 0,
-                 0.0, stream)
+                 is_f32, 0.0, stream)
         if rc != 0:
             raise RuntimeError(why(rc).decode())
     return launch
@@ -111,7 +123,9 @@ def main() -> int:
     parser.add_argument("--route", choices=sorted(BUILDS), default="wgmma")
     parser.add_argument("--rows", type=int, default=1140)
     parser.add_argument("--top-k", type=int, default=5)
+    parser.add_argument("--dtype", choices=sorted(DTYPES), default="bf16")
     args = parser.parse_args()
+    dtype = DTYPES[args.dtype]
     if not torch.cuda.is_available():
         # tbx: TBX009-ok — CLI stderr contract (no card)
         print("lens_anatomy: no CUDA card", file=sys.stderr)
@@ -122,15 +136,15 @@ def main() -> int:
     # tbx: TBX009-ok — CLI stdout contract (card name and power limit)
     print(smi.stdout.strip(), flush=True)
     libs = {name: lk.bind_library(args.route, path)
-            for name, path in build_variants(args.route).items()}
+            for name, path in build_variants(args.route, args.dtype).items()}
     gen = torch.Generator(device="cuda").manual_seed(0)
     plan = PLANS[args.route](args.rows, VOCAB,
                              lk._sm_count(torch.device("cuda")))
     rows = []
     for d in DEPTHS:
-        x = torch.randn((args.rows, d), generator=gen, device="cuda").to(torch.bfloat16)
+        x = torch.randn((args.rows, d), generator=gen, device="cuda").to(dtype)
         embed = (torch.randn((VOCAB, d), generator=gen, device="cuda")
-                 * d ** -0.5).to(torch.bfloat16)
+                 * d ** -0.5).to(dtype)
         fns = {name: launcher(lib, x, embed, plan, args.top_k)
                for name, lib in libs.items()}
         times = {name: [] for name in fns}
@@ -156,7 +170,7 @@ def main() -> int:
     at = {r["d"]: r for r in rows}[3584]
     # tbx: TBX009-ok — CLI stdout contract (results JSON)
     print(json.dumps({
-        "route": args.route,
+        "route": args.route, "dtype": args.dtype,
         "shape": {"n": args.rows, "v": VOCAB, "k": args.top_k,
                   "chunks": plan.chunks},
         "by_depth": rows,
@@ -165,7 +179,9 @@ def main() -> int:
                     "topk_ms": (at["full"] - at["no_topk"]
                                 if "no_topk" in at else None),
                     "product_ms": at["product_only"],
-                    "cublas_matmul_ms": at["cublas_matmul"]},
+                    "cublas_matmul_ms": at["cublas_matmul"],
+                    **{f"{name}_ms": at[name] for name in F32_DEPTHS
+                       if name in at}},
         "product_fit": {"ms_per_1000_depth": slope * 1000,
                         "fixed_ms": mean_t - slope * mean_d},
     }), flush=True)

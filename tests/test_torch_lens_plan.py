@@ -55,8 +55,8 @@ TILE_COLS = {"splitv": lens_kernel.SPLITV_TILE, "wgmma": lens_kernel.WGMMA_COLS}
 # The route's own plan, whatever lens_plan would pick for the shape.
 PLANS = {"splitv": lambda n, v, k, sm: lens_kernel._splitv_plan(n, v, sm),
          "wgmma": lambda n, v, k, sm: lens_kernel._wgmma_plan(n, v, sm),
-         "simple": lambda n, v, k, sm: lens_kernel.lens_plan(n, v, k, F32,
-                                                              sm_count=sm)}
+         "simple": lambda n, v, k, sm: lens_kernel._simple_plan(n, v)}
+F32_ROWS = lens_kernel.SPLITV_F32_MAX_ROWS
 
 
 @pytest.mark.parametrize("n,v,k,dtype,route,row_tiles,vocab_tiles", [
@@ -64,12 +64,12 @@ PLANS = {"splitv": lambda n, v, k, sm: lens_kernel._splitv_plan(n, v, sm),
     (129, 256_000, 5, BF16, "wgmma", 2, 1000),
     (1140, 384, 5, BF16, "wgmma", 9, 2),
     (1140, 256_000, lens_kernel.KMAX, BF16, "wgmma", 9, 1000),
-    (1140, 256_000, 5, F32, "simple", 18, 2000),
+    (1140, 256_000, 5, F32, "wgmma", 9, 1000),
     (1140, 256_000, 32, BF16, "wgmma", 9, 1000),
     (1140, 256_000, 16, BF16, "wgmma", 9, 1000),
     (1140, 256_000, lens_kernel.KMAX_WIDE + 1, BF16, "simple", 18, 2000),
     (1140, 256_000, 128, BF16, "simple", 18, 2000),
-    (1140, 256_000, 16, F32, "simple", 18, 2000),
+    (1140, 256_000, 16, F32, "wgmma", 9, 1000),
     (3, 384, lens_kernel.KMAX + 1, BF16, "splitv", 1, 12),
     (3, 384, lens_kernel.KMAX_WIDE + 1, BF16, "simple", 1, 3),
     (8, 256_000, 1, BF16, "splitv", 1, 8000),
@@ -82,11 +82,17 @@ PLANS = {"splitv": lambda n, v, k, sm: lens_kernel._splitv_plan(n, v, sm),
     (SPLITV_ROWS + 1, 128_000, lens_kernel.KMAX, BF16, "wgmma", 1, 500),
     (SPLITV_ROWS + 1, 256_000, lens_kernel.KMAX_WIDE, BF16, "wgmma", 1, 1000),
     (SPLITV_ROWS, 256_000, lens_kernel.KMAX_WIDE, BF16, "splitv", 1, 8000),
-    (8, 256_000, 1, F32, "simple", 1, 2000),
-    (8, 256_000, lens_kernel.KMAX_WIDE, F32, "simple", 1, 2000),
+    (8, 256_000, 1, F32, "splitv", 1, 8000),
+    (8, 256_000, lens_kernel.KMAX_WIDE, F32, "splitv", 1, 8000),
     (8, 128_000, lens_kernel.KMAX + 1, BF16, "splitv", 1, 4000),
     (32, 256_000, 16, BF16, "splitv", 1, 8000),
     (8, 128_000, lens_kernel.KMAX_WIDE + 1, BF16, "simple", 1, 1000),
+    (F32_ROWS, 256_000, 1, F32, "splitv", 1, 8000),
+    (F32_ROWS, 128_000, lens_kernel.KMAX_WIDE, F32, "splitv", 1, 4000),
+    (F32_ROWS + 1, 256_000, 1, F32, "wgmma", 1, 1000),
+    (F32_ROWS + 1, 256_000, lens_kernel.KMAX, F32, "wgmma", 1, 1000),
+    (1140, 256_000, lens_kernel.KMAX_WIDE + 1, F32, "simple", 18, 2000),
+    (8, 256_000, lens_kernel.KMAX_WIDE + 1, F32, "simple", 1, 2000),
 ])
 def test_plan_routes_and_edges(n, v, k, dtype, route, row_tiles, vocab_tiles):
     plan = lens_kernel.lens_plan(n, v, k, dtype)
@@ -247,10 +253,11 @@ def test_cpu_partials_take_the_plain_version():
 
 
 @pytest.mark.parametrize("n_rows,dtype,k,plan", [
-    (128, F32, 3, lambda: lens_kernel.lens_plan(128, 512, 3, BF16)),   # f32 on the wgmma route
+    (128, torch.float16, 3,                                            # f16 on the wgmma route
+     lambda: lens_kernel.lens_plan(128, 512, 3, BF16)),
     (128, BF16, 3, lambda: lens_kernel.lens_plan(128, 1024, 3, BF16)),  # a plan cut for another vocab
     (128, BF16, 3, lambda: lens_kernel.lens_plan(300, 512, 3, BF16)),   # ... or another row count
-    (8, F32, 3, lambda: lens_kernel.lens_plan(8, 512, 3, BF16)),       # f32 on the splitv route
+    (8, torch.float16, 3, lambda: lens_kernel.lens_plan(8, 512, 3, BF16)),  # f16 on the splitv route
     (SPLITV_ROWS + 1, BF16, 3,                                          # N over the route's limit
      lambda: lens_kernel._splitv_plan(SPLITV_ROWS + 1, 512, 4)),
     (8, BF16, 3, lambda: lens_kernel.lens_plan(8, 1024, 3, BF16)),      # splitv cut for another vocab
@@ -285,10 +292,12 @@ def test_only_the_splitv_launch_merges_its_chunks(route):
 
 
 class _Exports:
-    """A built library as the launcher reads it: its exported list lengths."""
+    """A built library as the launcher reads it: its exported list lengths
+    and input types."""
 
-    def __init__(self, lengths):
+    def __init__(self, lengths, dtypes=(BF16, F32)):
         self.list_lengths = lengths
+        self.dtypes = dtypes
 
 
 @pytest.mark.parametrize("route,lengths,k", [
@@ -320,3 +329,57 @@ def test_launcher_refuses_a_top_k_above_the_librarys_lists(monkeypatch, route,
 ])
 def test_list_length_takes_the_shortest_list_that_holds_k(lengths, k, want):
     assert lens_kernel.list_length(_Exports(lengths), "any", k) == want
+
+
+@pytest.mark.parametrize("route,have,want", [
+    ("splitv", (BF16,), F32), ("wgmma", (BF16,), F32),
+    ("splitv", (F32,), BF16), ("wgmma", (F32,), BF16),
+])
+def test_launcher_refuses_a_dtype_the_library_lacks(monkeypatch, route, have,
+                                                    want):
+    """A plan the wrapper allows, for a library that exports no
+    instantiation of the call's dtype: the launcher raises before it
+    allocates or launches anything, with no fallback to another route."""
+    n = 8 if route == "splitv" else 128
+    plan = PLANS[route](n, 512, 5, 4)
+    monkeypatch.setattr(lens_kernel, "_library",
+                        lambda r: _Exports((8, 32), have))
+    x = torch.zeros((n, 16), dtype=want)
+    embed = torch.zeros((512, 16), dtype=want)
+    targets = torch.zeros((n,), dtype=torch.int32)
+    before = dict(lens_kernel.lens_stats.route_launches)
+    with pytest.raises(ValueError, match="instantiates"):
+        lens_kernel._launch(x, embed, targets, plan, 5, None)
+    assert lens_kernel.lens_stats.route_launches == before
+
+
+@pytest.mark.parametrize("bits,want", [(1, (BF16,)), (2, (F32,)),
+                                       (3, (BF16, F32)), (0, ())])
+def test_exported_dtype_bits(bits, want):
+    assert lens_kernel._dtypes(bits) == want
+
+
+@pytest.mark.parametrize("cap", [None, 30.0])
+@pytest.mark.parametrize("n,k", [(F32_ROWS, 5), (F32_ROWS + 1, 5),
+                                 (F32_ROWS, lens_kernel.KMAX_WIDE),
+                                 (F32_ROWS + 1, 16), (3, 1)])
+def test_f32_plans_merged_match_pallas(n, k, cap):
+    """The f32 routes' plans as ``lens_plan`` cuts them (split-V up to the
+    f32 row limit, wgmma one past it) on a 4-SM card: the plain partials,
+    merged by ``merge_partials``, against the JAX package's Pallas kernel in
+    interpret mode on the same numpy-seeded f32 inputs, rtol = atol = 1e-5
+    (f32 sums in different orders; the card's 3xTF32 product is held to
+    the plain version by ``chip_smoke.py``)."""
+    rng = np.random.default_rng(11)
+    d, v = 32, 4224
+    x, embed = _inputs(rng, n, d, v)
+    targets = rng.integers(-1, v, size=n).astype(np.int32)
+    plan = lens_kernel.lens_plan(n, v, k, F32, sm_count=4)
+    assert plan.route == ("splitv" if n <= F32_ROWS else "wgmma")
+    got = lens_kernel.merge_partials(lens_kernel.lens_stats_partials_reference(
+        torch.from_numpy(x), torch.from_numpy(embed),
+        torch.from_numpy(targets), plan, top_k=k, logit_cap=cap))
+    exp = pallas_lens.lens_stats(
+        jnp.asarray(x), jnp.asarray(embed), jnp.asarray(targets), top_k=k,
+        logit_cap=cap, block_v=128, interpret=True)
+    _assert_stats_close(got, exp)
