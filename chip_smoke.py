@@ -17,22 +17,30 @@ the kernels are built for sm_90a).  Phases, each of which fails the run:
    ``lens_stats_reference`` at the main path's shape (N = 1140, D = 3584,
    V = 256000, K = 5, bf16), with and without the cap, with one target and
    with per-row targets; its raw [S, N] partials against
-   ``lens_stats_partials_reference``; the simple and the wgmma route timed in
-   turns (simple, wgmma, wgmma, simple), the wgmma call split into kernel
-   body and torch epilogue, beside the library yardstick and the bound;
+   ``lens_stats_partials_reference``; the wgmma call timed, split into
+   kernel body and torch epilogue, beside the library yardstick and the
+   bound;
    then the wgmma kernel's long list (K 16 and K 32 = KMAX_WIDE) on the
    same call, stats and raw partials against the plain version, timed in
    turns with K 5 (5, 16, 32, 32, 16, 5) beside the library yardstick (the
    bf16 product in f32, ``logsumexp``, ``topk`` at that K), the plain
-   version and the bound, and the simple route at K 32 launched on its own
-   plan; then the f32 builds of the Hopper kernels (3xTF32) at N 1140, K 5
+   version and the bound; then the f32 builds of the Hopper kernels (3xTF32) at N 1140, K 5
    (wgmma) and N 8, K 1 (split-V) against the plain version, timed beside
    the f32 library call (TF32 off, matmul precision "highest", both set)
    and two bounds: three TF32 products (3xTF32) and the f32 FMA rate, with
-   a NOTE where a call is not below its library call; last, the simple
-   kernel on its own route (bf16, N 1140 and 8, K 33, 64 and 128: ids
-   entry by entry) beside the library call at that K, the plain version
-   and the bound;
+   a NOTE where a call is not below its library call; last, a top-k above
+   KMAX_WIDE on the Hopper kernels (ceil(K / 32) certified passes, the
+   split-V kernel certifying in its last blocks): bf16 at N 1140 and 8, K
+   33, 64 and 128, and f32 at N 1140 and 8, K 64, each against the plain
+   version (values at ATOL, ids entry by entry where clear), its launches
+   by route (pass 1 and refills) and the refill blocks that ran, timed in
+   turns with the library call at that K (library, call, call, library),
+   beside the plain version and the bound; the worst cases at K 128, bf16,
+   N 1140 and 8 (one row's whole top-k planted in one chunk, and x = 0:
+   every pair saturates), on exact inputs, ids and values equal to the
+   plain version's bit for bit, timed; a K 128 call at each N under
+   ``torch.cuda.set_sync_debug_mode("error")``; and a K 64 call at N 1140
+   captured in a CUDA graph, its replay bit-equal to the eager call;
    3b. the split-V kernel (every bf16 readout of at most SPLITV_MAX_ROWS
    rows, K <= KMAX_WIDE) against the plain version at N in {1, 8, 16, 32,
    33, 64}, K in {1, 5, 8, 16, 32}, cap None and 30, per-row targets with
@@ -52,7 +60,7 @@ the kernels are built for sm_90a).  Phases, each of which fails the run:
 4. edges: bf16 at N in {1, 129, 1140} and f32 at N in {1,
    SPLITV_F32_MAX_ROWS + 1, 129, 1140}, V in {384, 256000}, D in {72,
    3584}, K in {1, 5, KMAX, 16, KMAX_WIDE} (on the Hopper kernels) and
-   KMAX_WIDE + 1 (the simple kernel's build of the dtype), cap None and 30,
+   KMAX_WIDE + 1 (two certified passes of the long list), cap None and 30,
    one target and per-row targets with -1, each route of each dtype reached
    by at least one case; then exact ties from duplicated embedding rows in
    different tiles, at K 5, 8, 16, 32 and 33, and for K 16 and up also on
@@ -73,7 +81,7 @@ the kernels are built for sm_90a).  Phases, each of which fails the run:
    config's 10 prompts, through a model loader, into a temporary directory;
    the kernel must have launched 42 times per lens pass, all on the wgmma
    route; then one more ``run_evaluation`` of the second word at ``top_k``
-   16 (the wgmma kernel's long list): 42 launches, all wgmma, none simple,
+   16 (the wgmma kernel's long list): 42 launches, all wgmma, no refill,
    its lens taps' top-5 ids and its top-5 guesses equal the K 5 pass's
    wherever the 5th/6th margin clears;
 7. SAE and interventions, at the same width with a seeded random
@@ -398,9 +406,11 @@ the kernels are built for sm_90a).  Phases, each of which fails the run:
 The card's name and power limit are printed again just before the
 ``{"kernels": [...]}`` line, which is the line before the last: one entry
 per route and dtype (times in ms, measured here; ``bound_ms`` from this
-run's shapes and the card's published peaks).  The simple kernel's entry
-is its own route's call (bf16, N 1140, K 33; ``wide_k`` holds K 33, 64 and
-128 at N 1140 and 8).  The f32 entries (``lens_stats_wgmma_f32`` at N
+run's shapes and the card's published peaks).  The wide top-k route's
+entry (``lens_stats_wide_k``) is its bf16 N 1140, K 33 call, with every
+call of phase 3's wide rows in ``rows``, the worst cases, the sync-debug
+and the graph check beside it; its ``launches`` are the main path's
+refills (none: no path asks a top-k above 32).  The f32 entries (``lens_stats_wgmma_f32`` at N
 1140, K 5 and ``lens_stats_splitv_f32`` at N 8, K 1, with the f32
 ``crossover`` and ``by_rows``) take ``launches`` from 5b's passes.  The split-V entry: ``launches`` from 11b's
 eager serving sessions, the N 8 readout's times from 3b with
@@ -551,7 +561,7 @@ def ptxas_summary(out: str) -> list:
     for line in out.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            # lens_<route>_kernel<T[, NT], CAP, L> or lens_tile_kernel<T>
+            # lens_<route>_kernel<T[, NT], CAP, L>
             k = re.search(r"(lens_[a-z_]+_kernel)I(f|13__nv_bfloat16)"
                           r"(?:Li(\d+)E)?(?:Lb([01])ELi(\d+)E)?",
                           m.group(1))
@@ -593,13 +603,13 @@ def build_kernels() -> None:
     t0 = time.perf_counter()
     built = lk.build_library()
     log(f"built {len(built)} libraries in {time.perf_counter() - t0:.1f} s "
-        "(one nvcc per source, in parallel)")
+        f"(one nvcc per unit, {sum(map(len, lk.UNITS.values()))} units in "
+        "parallel, then one link per library)")
     for route, (path, out) in built.items():
         log(f"  {route}: {os.path.relpath(path, REPO)}")
         for line in ptxas_summary(out) or ["(cached build: no compiler output)"]:
             log(f"    ptxas: {line}")
     wgmma = lk._library("wgmma")
-    lk._library("simple")
     log(f"  wgmma: {wgmma.tbx_wgmma_smem_bytes()} B (f32 "
         f"{wgmma.tbx_wgmma_f32_smem_bytes()} B) dynamic shared memory per "
         f"block ({lk.WGMMA_ROWS} x {lk.WGMMA_COLS} tiles, TMA ring); dtypes "
@@ -610,7 +620,8 @@ def build_kernels() -> None:
         f"{splitv.tbx_splitv_f32_smem_bytes(n)} B) at N <= {n}"
         for n in range(8, lk.SPLITV_MAX_ROWS + 1, 8))
         + " of dynamic shared memory per block (TMA ring and staged tiles); "
-        f"dtypes {splitv.dtypes}")
+        f"dtypes {splitv.dtypes}; its last block certifies top_k up to "
+        f"{splitv.merge_max}")
     t0 = time.perf_counter()
     try:
         writer = native_io.build_library()
@@ -757,10 +768,10 @@ def check_wide(torch, lk, x, embed, per_row, plan) -> float:
     return worst
 
 
-def check_lens_stats(torch) -> tuple:
-    """Both routes at the main path's shape: the wgmma route against the
-    plain version (stats and raw partials, K 5 and the long list's K 16 and
-    32), then timed in turns.  Returns the two kernels entries."""
+def check_lens_stats(torch) -> dict:
+    """The wgmma route at the main path's shape against the plain version
+    (stats and raw partials, K 5 and the long list's K 16 and 32), then
+    timed (K 5, 16 and 32 in turns).  Returns the kernel's entry."""
     from taboo_brittleness_tpu_torch.ops import lens_kernel as lk
 
     x, embed, per_row = _main_inputs(torch)
@@ -815,27 +826,14 @@ def check_lens_stats(torch) -> tuple:
     del ref
     worst = max(worst, check_wide(torch, lk, x, embed, per_row, plan))
 
-    # The simple kernel on the same call, for the comparison in turns: its
-    # route's plan, launched directly (lens_plan would pick wgmma).
-    simple = lk.lens_plan(N_ROWS, VOCAB, lk.BLOCK_V, torch.bfloat16)
-    scalar_targets = lk._targets(scalar, N_ROWS, x.device)
-
     def new():
         lk.lens_stats(x, embed, scalar, top_k=TOP_K)
-
-    def old():
-        lk.merge_partials(lk._launch(x, embed, scalar_targets, simple, TOP_K,
-                                     None))
 
     def body():
         lk.lens_stats_partials(x, embed, scalar, top_k=TOP_K)
 
     def capped():
         lk.lens_stats(x, embed, scalar, top_k=TOP_K, logit_cap=30.0)
-
-    def simple_k32():   # the simple route's time at K 32 before it moved
-        lk.merge_partials(lk._launch(x, embed, scalar_targets, simple, 32,
-                                     None))
 
     def at_k(k):
         return lambda: lk.lens_stats(x, embed, scalar, top_k=k)
@@ -846,12 +844,10 @@ def check_lens_stats(torch) -> tuple:
     def plain():
         lk.lens_stats_reference(x, embed, scalar, top_k=TOP_K)
 
-    turns = [timed_ms(torch, fn, 10) for fn in (old, new, new, old)]
-    earlier_ms, ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    ms = timed_ms(torch, new, 10)
     body_ms = timed_ms(torch, body, 10)
     epilogue_ms = timed_ms(torch, epilogue, 10)
     cap_ms = timed_ms(torch, capped, 10)
-    k32_ms = timed_ms(torch, simple_k32, 3)
     plain_ms = timed_ms(torch, plain, 3)
     library_ms = timed_ms(torch, library_topk(torch, x, embed, TOP_K), 10)
     # The long list in turns with K 5 (5, 16, 32, 32, 16, 5).
@@ -870,28 +866,24 @@ def check_lens_stats(torch) -> tuple:
             plain_ms=timed_ms(torch, lambda: lk.lens_stats_reference(
                 x, embed, scalar, top_k=k), 3),
             library_ms=timed_ms(torch, library_topk(torch, x, embed, k), 10),
-            bound_ms=w_bound, bound_by=w_by, simple_ms=k32_ms if k == 32 else None)
+            bound_ms=w_bound, bound_by=w_by)
         r = wide[f"k{k}"]
         log(f"lens_stats N={N_ROWS} K={k} bf16 (wgmma, long list): call "
             f"{r['ms']:.3f} ms (in turns with K={TOP_K} at {r['k5_ms']:.3f} ms: "
             f"{r['ms'] / r['k5_ms']:.2f}x; kernel body {r['body_ms']:.3f} ms), "
             f"plain {r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms, "
-            f"bound {w_bound:.3f} ms ({w_by}; {w_bound / r['ms']:.1%} of it)"
-            + (f"; the simple route at K=32 {k32_ms:.3f} ms" if k == 32 else ""))
+            f"bound {w_bound:.3f} ms ({w_by}; {w_bound / r['ms']:.1%} of it)")
         if not r["ms"] < r["library_ms"]:
             log(f"NOTE: the K={k} wgmma call ({r['ms']:.3f} ms) is not below "
                 f"its library yardstick ({r['library_ms']:.3f} ms)")
     bound_ms, bound_by = lens_bound_ms(N_ROWS, HIDDEN, VOCAB, TOP_K)
     tflops = 2 * N_ROWS * HIDDEN * VOCAB / (ms * 1e-3) / 1e12
-    log(f"in turns (simple, wgmma, wgmma, simple): "
-        + ", ".join(f"{t:.3f}" for t in turns) + " ms")
     log(f"lens_stats N={N_ROWS} D={HIDDEN} V={VOCAB} K={TOP_K} bf16: wgmma "
         f"call {ms:.3f} ms (kernel body {body_ms:.3f} ms, torch epilogue "
-        f"{epilogue_ms:.3f} ms), simple call {earlier_ms:.3f} ms, plain "
+        f"{epilogue_ms:.3f} ms), plain "
         f"{plain_ms:.3f} ms, library {library_ms:.3f} ms, bound "
         f"{bound_ms:.3f} ms ({bound_by}); {tflops:.1f} TFLOP/s, "
-        f"{bound_ms / ms:.1%} of bound; with the cap 30 {cap_ms:.3f} ms; the "
-        f"simple route at K=32 (its own plan) {k32_ms:.3f} ms")
+        f"{bound_ms / ms:.1%} of bound; with the cap 30 {cap_ms:.3f} ms")
     if not ms < library_ms:
         log(f"NOTE: the wgmma call ({ms:.3f} ms) is not below the library "
             f"yardstick ({library_ms:.3f} ms)")
@@ -900,23 +892,22 @@ def check_lens_stats(torch) -> tuple:
     common = {"route": "cuda", "replaces": "taboo_brittleness_tpu/ops/pallas_lens.py:56",
               "launches": 0, "plain_ms": plain_ms, "bound_ms": bound_ms,
               "bound_by": bound_by, "library_ms": library_ms}
-    new_entry = dict(
+    return dict(
         name="lens_stats", source=f"{PACKAGE}/csrc/lens_stats_wgmma.cu",
         max_abs_err=worst, ms=ms, body_ms=body_ms, epilogue_ms=epilogue_ms,
-        earlier_ms=earlier_ms, tflops=tflops, share_of_bound=bound_ms / ms,
-        cap_ms=cap_ms, wide=wide, **common)
-    simple_entry = dict(
-        name="lens_stats_simple", source=f"{PACKAGE}/csrc/lens_stats.cu",
-        max_abs_err=0.0, ms=earlier_ms, k32_ms=k32_ms, on_main_path=False,
+        tflops=tflops, share_of_bound=bound_ms / ms, cap_ms=cap_ms, wide=wide,
         **common)
-    return new_entry, simple_entry
 
 
 # The f32 calls: the main path's shape at K 5 (the wgmma kernel's f32
 # instantiation) and a serving readout's N 8 at K 1 (the split-V kernel's).
 F32_CALLS = ((N_ROWS, TOP_K, "wgmma"), (8, 1, "splitv"))
-# The simple kernel's own route, top_k 33-128, timed in bf16 at these calls.
-SIMPLE_CALLS = tuple((n, k) for n in (N_ROWS, 8) for k in (33, 64, 128))
+# A top-k above the kernels' 32-entry lists (ceil(K / 32) certified passes
+# of the Hopper kernels): (dtype, N, K) held to the plain version and timed.
+WIDE_CALLS = tuple(("bf16", n, k) for n in (N_ROWS, 8) for k in (33, 64, 128)) \
+    + (("f32", N_ROWS, 64), ("f32", 8, 64))
+WORST_K = 128       # the worst cases' top-k
+PLANTED = 160       # columns of one chunk that hold one row's whole top-k
 
 
 def f32_bounds_ms(n: int, d: int, v: int, k: int) -> dict:
@@ -998,63 +989,256 @@ def measure_f32(torch) -> list:
     return rows
 
 
-def measure_simple(torch) -> list:
-    """The simple kernel on its own route (top_k 33-128) at SIMPLE_CALLS in
-    bf16: held to the plain version (ids entry by entry), then timed beside
-    the library call at that K, the plain version and the bound."""
-    from taboo_brittleness_tpu_torch.ops import lens_kernel as lk
+def refill_blocks(torch, lk, fn) -> list:
+    """Run ``fn`` once with the launcher watched: for each refill launch,
+    (blocks that ran, blocks in all), read from the ceilings it was given
+    (a block runs when one of its (chunk, row) pairs is open)."""
+    real, seen = lk._launch, []
 
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(4)
+    def watched(x, embed, targets, plan, top_k, logit_cap, **kw):
+        if kw.get("ceiling") is not None:
+            seen.append((plan, kw["ceiling"].clone()))
+        return real(x, embed, targets, plan, top_k, logit_cap, **kw)
+
+    lk._launch = watched
+    try:
+        fn()
+    finally:
+        lk._launch = real
+    torch.cuda.synchronize()
+    out = []
+    for plan, ceiling in seen:
+        open_ = ceiling != lk.EMPTY_KEY             # [S, N]
+        if plan.route == "wgmma":
+            pad = plan.row_tiles * lk.WGMMA_ROWS - open_.shape[1]
+            open_ = torch.nn.functional.pad(open_, (0, pad)).view(
+                plan.chunks, plan.row_tiles, lk.WGMMA_ROWS).any(dim=-1)
+        else:
+            open_ = open_.any(dim=1)
+        out.append((int(open_.sum().item()), open_.numel()))
+    return out
+
+
+def _timed_call(torch, fn, n: int) -> float:
+    """A call's device ms: CUDA events over back-to-back calls at the main
+    path's N, behind the backlog at a readout's few rows."""
+    return (timed_ms(torch, fn, 10) if n > 64
+            else backlogged_ms(torch, fn, SPLITV_REPS)[0])
+
+
+def _exact_inputs(torch, gen, n: int, dev):
+    """bf16 x in {-1, 0, 1} and E in {-64 .. 64} / 64: every logit a
+    multiple of 1/64 below 2**17, exact in f32 whatever the order of the
+    sums, so the kernels and the plain version agree bit for bit, ties
+    included."""
+    x = torch.randint(-1, 2, (n, HIDDEN), generator=gen, device=dev).float()
+    embed = torch.randint(-64, 65, (VOCAB, HIDDEN), generator=gen,
+                          device=dev).float() / 64
+    return x.to(torch.bfloat16), embed.to(torch.bfloat16)
+
+
+def check_wide_worst(torch, lk, gen, dev) -> dict:
+    """The certified passes' worst cases at K = WORST_K, bf16, at N 1140
+    (wgmma) and N 8 (split-V): one row whose whole top-k lies in one chunk
+    (PLANTED columns of E equal to that row / 4, on exact inputs), and
+    all-equal logits (x = 0: every pair saturates, every pass runs full).
+    Ids and values equal to the plain version's exactly; times, passes and
+    the refill blocks that ran are logged."""
+    out = {}
+    k = WORST_K
+    for n in (N_ROWS, 8):
+        x, embed = _exact_inputs(torch, gen, n, dev)
+        plan = lk.lens_plan(n, VOCAB, k, torch.bfloat16,
+                            sm_count=lk._sm_count(dev))
+        lo = plan.bounds[plan.chunks // 2]
+        r0 = n // 2
+        embed[lo:lo + PLANTED] = x[r0] / 4
+        targets = torch.full((n,), lo, dtype=torch.int32, device=dev)
+        for case in ("one_chunk", "all_equal"):
+            if case == "all_equal":
+                x = torch.zeros_like(x)
+            call = lambda: lk.lens_stats(x, embed, targets, top_k=k)
+            blocks = refill_blocks(torch, lk, call)
+            got = call()
+            ref = lk.lens_stats_reference(x, embed, targets, top_k=k)
+            torch.cuda.synchronize()
+            same = (torch.equal(got.topk_ids, ref.topk_ids)
+                    and torch.equal(got.topk_vals, ref.topk_vals))
+            err = (got.logsumexp - ref.logsumexp).abs().max().item()
+            if case == "one_chunk":
+                inside = ((ref.topk_ids[r0] >= lo)
+                          & (ref.topk_ids[r0] < lo + PLANTED)).all().item()
+            else:
+                inside = (ref.topk_ids == torch.arange(
+                    k, device=dev, dtype=torch.int32)).all().item()
+            ms = _timed_call(torch, call, n)
+            library_ms = _timed_call(torch, library_topk(torch, x, embed, k), n)
+            out[f"n{n}_{case}"] = dict(ms=ms, library_ms=library_ms,
+                                       refill_blocks=blocks, ids_equal=same,
+                                       lse_err=err, route=plan.route)
+            log(f"  worst case {case} N={n} K={k} ({plan.route}): ids and "
+                f"values equal to the plain version {same} (the planted "
+                f"top-k where built: {inside}), lse err {err:.3e}; "
+                f"{len(blocks) + 1} passes, refill blocks ran/all "
+                f"{[f'{a}/{b}' for a, b in blocks]}; call {ms:.3f} ms, "
+                f"library {library_ms:.3f} ms")
+            if not (same and inside and err <= ATOL):
+                fail(f"the wide route's worst case {case} at N={n} K={k} "
+                     "differs from the plain version")
+        del x, embed, targets
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_wide_graph_and_syncs(torch, lk, gen, dev) -> dict:
+    """A K 128 call at N 1140 and at N 8 under
+    ``torch.cuda.set_sync_debug_mode("error")`` (nothing on the route
+    syncs the host), and a K 64 call at N 1140 captured in a CUDA graph and
+    replayed bit-equal to the same call run eagerly."""
     embed = (torch.randn((VOCAB, HIDDEN), generator=gen, device=dev)
              * HIDDEN ** -0.5).to(torch.bfloat16)
-    rows = []
-    for n in sorted({n for n, _ in SIMPLE_CALLS}, reverse=True):
+    for n in (N_ROWS, 8):
         x = torch.randn((n, HIDDEN), generator=gen, device=dev).to(torch.bfloat16)
         t = torch.randint(0, VOCAB, (n,), generator=gen, device=dev,
                           dtype=torch.int32)
-        ref = lk.lens_stats_reference(x, embed, t, top_k=lk.BLOCK_V)
-        for k in (k for m, k in SIMPLE_CALLS if m == n):
-            if lk.lens_plan(n, VOCAB, k, torch.bfloat16).route != "simple":
-                fail(f"bf16 N={n} K={k} does not plan the simple route")
-            before = dict(lk.lens_stats.route_launches)
-            got = lk.lens_stats(x, embed, t, top_k=k)
-            torch.cuda.synchronize()
-            if lk.lens_stats.route_launches != {**before,
-                                                "simple": before["simple"] + 1}:
-                fail(f"bf16 N={n} K={k} did not launch the simple kernel alone")
-            err = max((got.logsumexp - ref.logsumexp).abs().max().item(),
-                      (got.target_logit - ref.target_logit).abs().max().item(),
-                      (got.topk_vals - ref.topk_vals[:, :k]).abs().max().item())
-            held = min(k, lk.BLOCK_V - 1)   # the reference holds 128
-            e_clear, e_bad = rank_ids(torch, got.topk_ids[:, :held],
-                                      ref.topk_vals, ref.topk_ids, held)
-            if not err <= ATOL or e_bad:
-                fail(f"the simple kernel at N={n} K={k} disagrees with its "
-                     f"plain version: err {err}, {e_bad} entries with other ids")
-            del got
-            bound_ms, bound_by = lens_bound_ms(n, HIDDEN, VOCAB, k)
-            call = lambda: lk.lens_stats(x, embed, t, top_k=k)
-            library = library_topk(torch, x, embed, k)
-            if n > 64:
-                ms, library_ms = timed_ms(torch, call, 3), timed_ms(torch, library, 5)
-            else:
-                ms = backlogged_ms(torch, call, SPLITV_REPS)[0]
-                library_ms = backlogged_ms(torch, library, SPLITV_REPS)[0]
-            row = dict(n=n, k=k, max_abs_err=err, ms=ms, library_ms=library_ms,
-                       plain_ms=timed_ms(torch, lambda: lk.lens_stats_reference(
-                           x, embed, t, top_k=k), 3),
-                       bound_ms=bound_ms, bound_by=bound_by)
-            rows.append(row)
-            log(f"bf16 N={n} K={k} (simple): max_abs_err {err:.3e}, ids equal "
-                f"on {e_clear - e_bad}/{e_clear} entries with clear margins; "
-                f"call {ms:.3f} ms, plain {row['plain_ms']:.3f} ms, library "
-                f"{library_ms:.3f} ms ({ms / library_ms:.2f}x), bound "
-                f"{bound_ms:.3f} ms ({bound_by}; {bound_ms / ms:.1%} of it)")
-        del x, t, ref
-    del embed
+        lk.lens_stats(x, embed, t, top_k=WORST_K)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            lk.lens_stats(x, embed, t, top_k=WORST_K)
+        except RuntimeError as exc:
+            fail(f"the K={WORST_K} call at N={n} syncs the host: {exc}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    log(f"  sync debug mode 'error': K={WORST_K} at N={N_ROWS} and N=8 "
+        "raised nothing")
+    x = torch.randn((N_ROWS, HIDDEN), generator=gen, device=dev).to(torch.bfloat16)
+    t = torch.randint(0, VOCAB, (N_ROWS,), generator=gen, device=dev,
+                      dtype=torch.int32)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            lk.lens_stats(x, embed, t, top_k=64)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = lk.lens_stats(x, embed, t, top_k=64)
+    graph.replay()
+    eager = lk.lens_stats(x, embed, t, top_k=64)
+    torch.cuda.synchronize()
+    equal = all(torch.equal(a, b) for a, b in zip(captured, eager))
+    log(f"  K=64 N={N_ROWS} captured in a CUDA graph: replay bit-equal to "
+        f"eager {equal}")
+    if not equal:
+        fail("the K=64 graph replay differs from the eager call")
+    del graph, captured, eager, x, embed
     torch.cuda.empty_cache()
-    return rows
+    return {"sync_debug_raised": False, "graph_bit_equal": equal}
+
+
+def measure_wide(torch) -> dict:
+    """A top-k above KMAX_WIDE on the Hopper kernels (ceil(K / 32)
+    certified passes; the split-V kernel certifies in its last blocks) at
+    WIDE_CALLS: each held to the plain version (values at ATOL, ids entry
+    by entry where clear), timed beside the library call at that K, the
+    plain version and the bound, its launches by route counted; then the
+    worst cases, the sync-debug calls and the graph replay.  Returns the
+    kernels line's entry of the route."""
+    from taboo_brittleness_tpu_torch.ops import lens_kernel as lk
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    sms = lk._sm_count(dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rows = []
+    for dtype_name in ("bf16", "f32"):
+        dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dtype_name]
+        embed = (torch.randn((VOCAB, HIDDEN), generator=gen, device=dev)
+                 * HIDDEN ** -0.5).to(dtype)
+        for n in sorted({n for d, n, _ in WIDE_CALLS if d == dtype_name},
+                        reverse=True):
+            x = torch.randn((n, HIDDEN), generator=gen, device=dev).to(dtype)
+            t = torch.randint(0, VOCAB, (n,), generator=gen, device=dev,
+                              dtype=torch.int32)
+            ks = [k for d, m, k in WIDE_CALLS if d == dtype_name and m == n]
+            ref = lk.lens_stats_reference(x, embed, t, top_k=max(ks) + 1)
+            for k in ks:
+                plan = lk.lens_plan(n, VOCAB, k, dtype, sm_count=sms)
+                passes = -(-k // lk.KMAX_WIDE)
+                before = dict(lk.lens_stats.route_launches)
+                blocks = refill_blocks(
+                    torch, lk, lambda: lk.lens_stats(x, embed, t, top_k=k))
+                got = lk.lens_stats(x, embed, t, top_k=k)
+                torch.cuda.synchronize()
+                want = dict(before)
+                want[plan.route] += 2
+                want[f"{plan.route}_refill"] += 2 * (passes - 1)
+                if lk.lens_stats.route_launches != want:
+                    fail(f"{dtype_name} N={n} K={k} launched "
+                         f"{lk.lens_stats.route_launches} from {before}; "
+                         f"expected {passes} {plan.route} launches a call")
+                err = max((got.logsumexp - ref.logsumexp).abs().max().item(),
+                          (got.target_logit - ref.target_logit).abs().max().item(),
+                          (got.topk_vals - ref.topk_vals[:, :k]).abs().max().item())
+                e_clear, e_bad = rank_ids(torch, got.topk_ids, ref.topk_vals,
+                                          ref.topk_ids, k)
+                if not err <= ATOL or e_bad \
+                        or e_clear < MIN_CLEAR_ENTRIES * n * k:
+                    fail(f"the wide route at {dtype_name} N={n} K={k} "
+                         f"disagrees with its plain version: err {err}, "
+                         f"{e_bad} of {e_clear} clear entries with other ids")
+                del got
+                call = lambda: lk.lens_stats(x, embed, t, top_k=k)
+                library = library_topk(torch, x, embed, k)
+                turns = [_timed_call(torch, fn, n)
+                         for fn in (library, call, call, library)]
+                bounds = (f32_bounds_ms(n, HIDDEN, VOCAB, k) if dtype_name == "f32"
+                          else dict(zip(("bound_ms", "bound_by"),
+                                        lens_bound_ms(n, HIDDEN, VOCAB, k))))
+                row = dict(dtype=dtype_name, n=n, k=k, route=plan.route,
+                           passes=passes, refill_blocks=blocks,
+                           max_abs_err=err, ms=(turns[1] + turns[2]) / 2,
+                           library_ms=(turns[0] + turns[3]) / 2,
+                           plain_ms=timed_ms(torch, lambda: lk.lens_stats_reference(
+                               x, embed, t, top_k=k), 3),
+                           bound_ms=bounds["bound_ms"],
+                           bound_by=bounds["bound_by"])
+                rows.append(row)
+                log(f"{dtype_name} N={n} K={k} ({plan.route}, {passes} passes; "
+                    f"refill blocks ran/all {[f'{a}/{b}' for a, b in blocks]}): "
+                    f"max_abs_err {err:.3e}, ids equal on {e_clear - e_bad}/"
+                    f"{e_clear} entries with clear margins; call "
+                    f"{row['ms']:.3f} ms, library {row['library_ms']:.3f} ms "
+                    f"({row['ms'] / row['library_ms']:.2f}x; in turns "
+                    f"library, call, call, library: "
+                    + ", ".join(f"{v:.3f}" for v in turns)
+                    + f"), plain {row['plain_ms']:.3f} ms, bound "
+                    f"{row['bound_ms']:.3f} ms ({row['bound_by']}; "
+                    f"{row['bound_ms'] / row['ms']:.1%} of it)")
+                if not row["ms"] < row["library_ms"]:
+                    log(f"NOTE: the {dtype_name} N={n} K={k} call "
+                        f"({row['ms']:.3f} ms) is not below its library call "
+                        f"({row['library_ms']:.3f} ms)")
+            del x, t, ref
+        del embed
+        torch.cuda.empty_cache()
+    worst = check_wide_worst(torch, lk, gen, dev)
+    checks = check_wide_graph_and_syncs(torch, lk, gen, dev)
+    log(f"phase 3 wide top-k: {time.perf_counter() - t0:.2f} s")
+    head = rows[0]   # bf16 N 1140 K 33
+    return dict(
+        name="lens_stats_wide_k", route="cuda",
+        source=f"{PACKAGE}/csrc/lens_stats_wgmma.cu",
+        replaces="taboo_brittleness_tpu/ops/pallas_lens.py:56", launches=0,
+        max_abs_err=max(r["max_abs_err"] for r in rows), ms=head["ms"],
+        plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+        bound_by=head["bound_by"], library_ms=head["library_ms"],
+        n=head["n"], k=head["k"], on_main_path=False,
+        sources=[f"{PACKAGE}/csrc/lens_stats_wgmma.cu",
+                 f"{PACKAGE}/csrc/lens_stats_splitv.cu"],
+        rows=rows, worst_cases=worst, **checks)
 
 
 def check_edges(torch) -> dict:
@@ -1067,9 +1251,9 @@ def check_edges(torch) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     worst = {f"{r}{tag}": 0.0 for tag in ("", "_f32")
-             for r in ("splitv", "wgmma", "simple")}
+             for r in ("splitv", "wgmma")}
     n_cases = dict.fromkeys(worst, 0)
-    # K 33 is the simple kernel's build of the dtype (lens_tile_kernel<...>).
+    # K 33: the long list in two certified passes.
     ks = (1, 5, lk.KMAX, *WIDE_KS, lk.KMAX_WIDE + 1)
     # f32 also one row past its split-V limit (the wgmma kernel's f32 build).
     rows = {torch.bfloat16: (1, 129, N_ROWS),
@@ -1752,7 +1936,8 @@ def check_wide_lens_pass(torch, config, tok, loader, processed: str,
     guesses = timer.kept.get("aggregate", [])
     by_route = dict(lens_kernel.lens_stats.route_launches)
     n_layers = taps5[0][0].shape[0]
-    if by_route != {"splitv": 0, "wgmma": n_layers, "simple": 0}:
+    if by_route != {"splitv": 0, "wgmma": n_layers, "splitv_refill": 0,
+                    "wgmma_refill": 0}:
         fail(f"the top_k {k} logit-lens pass launched {by_route}; expected "
              f"{n_layers} on the wgmma route alone")
     if len(taps) != 1 or len(guesses) != 1:
@@ -3181,8 +3366,7 @@ def _device_kernels(prof) -> list:
 WINDOW_STEP = "chip_smoke.window_step"
 
 # The lens kernels by route, as the profiler names them.
-LENS_KERNELS = {"splitv": "lens_splitv_kernel", "wgmma": "lens_wgmma_kernel",
-                "simple": "lens_tile_kernel"}
+LENS_KERNELS = {"splitv": "lens_splitv_kernel", "wgmma": "lens_wgmma_kernel"}
 
 
 def lens_launches(names) -> dict:
@@ -6528,7 +6712,8 @@ def check_parity_dump(torch, workdir: str, ctx: tuple) -> dict:
         native_io.save_npz = real_save
     if done != list(range(PARITY_PROMPTS)) or done_s != done or len(writes) != 2:
         fail(f"parity generate wrote {done} / {done_s}, {len(writes)} npz files")
-    if launches != {"splitv": 0, "wgmma": cfg.num_layers, "simple": 0}:
+    if launches != {"splitv": 0, "wgmma": cfg.num_layers, "splitv_refill": 0,
+                    "wgmma_refill": 0}:
         fail(f"the summary's lens pass launched {launches}; expected "
              f"{cfg.num_layers} on the wgmma route")
     npz_path, json_path = cache_io.pair_paths(pair_dir, word, 0)
@@ -7567,12 +7752,13 @@ def drive_parallel_sp(torch, workdir: str) -> dict:
 def drive_kernels(torch) -> tuple:
     """Phases 3-5b: every lens kernel held to its plain version and timed.
     Returns the kernels line's entries: the bf16 split-V and wgmma kernels,
-    the simple kernel (its own route, top_k 33-128, at N 1140 and K 33), and
-    the f32 builds of the wgmma and the split-V kernels (their launches from
-    5b's passes, counted from 0 just before each)."""
-    wgmma, simple = check_lens_stats(torch)
+    the wide top-k route (top_k above 32 in certified passes of both, its
+    headline bf16 N 1140 K 33), and the f32 builds of the wgmma and the
+    split-V kernels (their launches from 5b's passes, counted from 0 just
+    before each)."""
+    wgmma = check_lens_stats(torch)
     f32_rows = {r["route"]: r for r in measure_f32(torch)}
-    simple_rows = measure_simple(torch)
+    wide = measure_wide(torch)
     splitv = check_splitv(torch)
     f32_cross = check_f32_crossover(torch)
     worst = check_edges(torch)
@@ -7580,13 +7766,6 @@ def drive_kernels(torch) -> tuple:
     f32_pass = check_f32_lens_pass(torch)
     wgmma["max_abs_err"] = max(wgmma["max_abs_err"], worst["wgmma"])
     splitv["max_abs_err"] = max(splitv["max_abs_err"], worst["splitv"])
-    k33 = next(r for r in simple_rows if r["n"] == N_ROWS and r["k"] == 33)
-    simple.update(
-        max_abs_err=max(worst["simple"], worst["simple_f32"],
-                        *(r["max_abs_err"] for r in simple_rows)),
-        ms=k33["ms"], plain_ms=k33["plain_ms"], library_ms=k33["library_ms"],
-        bound_ms=k33["bound_ms"], bound_by=k33["bound_by"],
-        k5_ms=simple.pop("ms"), wide_k=simple_rows)
     entries = []
     for route, source in (("wgmma", "lens_stats_wgmma.cu"),
                           ("splitv", "lens_stats_splitv.cu")):
@@ -7608,7 +7787,7 @@ def drive_kernels(torch) -> tuple:
             entry["max_abs_err"] = max(entry["max_abs_err"],
                                        f32_cross["max_abs_err"])
         entries.append(entry)
-    return (splitv, wgmma, simple, *entries)
+    return (splitv, wgmma, wide, *entries)
 
 
 def _standalone_ctx(torch) -> tuple:
@@ -7684,7 +7863,7 @@ def main() -> int:
         return phases_alone(torch, sys.argv[1][2:])
     device, card = report_device(torch)
     build_kernels()
-    splitv, wgmma, simple, *f32_entries = drive_kernels(torch)
+    splitv, wgmma, wide, *f32_entries = drive_kernels(torch)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         by_route, wide_pass, ctx = drive_main_path(torch, workdir)
         sae, ablation_set = drive_interventions(torch, workdir, ctx)
@@ -7704,7 +7883,8 @@ def main() -> int:
         del ctx
         parallel.update(drive_parallel_sp(torch, workdir))
     # Each entry's ``launches`` is its own path's count: the main path's
-    # (phase 6) for the wgmma and simple kernels, the serving path's (11b's
+    # (phase 6) for the wgmma kernel and the wide route's refills, the
+    # serving path's (11b's
     # eager sessions) for the split-V kernel.  The small-N readouts' numbers
     # (serving, speculative verify, attack search, replica, tp serve shard)
     # ride beside the split-V entry, the main path's beside the wgmma one.
@@ -7724,7 +7904,7 @@ def main() -> int:
                                wgmma.pop("tp_shard_max_abs_err"))
     wgmma["launches"] = by_route["wgmma"]
     wgmma["wide"]["pass"] = wide_pass
-    simple["launches"] = by_route["simple"]
+    wide["launches"] = by_route["wgmma_refill"] + by_route["splitv_refill"]
     if not (splitv["launches"] and wgmma["launches"]):
         fail(f"a path ran without its kernel: splitv {splitv['launches']} "
              f"launches on the serving path, wgmma {wgmma['launches']} on "
@@ -7732,7 +7912,7 @@ def main() -> int:
     # Again at the end, beside the numbers, where a tail of the output
     # keeps it.
     print(card, flush=True)
-    print(json.dumps({"kernels": [splitv, wgmma, simple, *f32_entries]}),
+    print(json.dumps({"kernels": [splitv, wgmma, wide, *f32_entries]}),
           flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0

@@ -13,6 +13,6 @@ left unset it is ``cuda``, and they raise when CUDA is absent.  Functions
 over existing params run on the params' device.  On CUDA tensors the lens
 readout runs one of the hand-written kernels under ``csrc/``
 (``ops.lens_kernel.lens_plan`` picks it: the split-V kernel for a few rows,
-the wgmma kernel for more, ``lens_stats.cu`` for f32 or a long top-k); on CPU
-tensors it runs their plain PyTorch version.
+the wgmma kernel for more; a top-k above 32 in certified passes of either);
+on CPU tensors it runs their plain PyTorch version.
 """

@@ -3,9 +3,10 @@
 //
 // Replaces the TPU kernel of the JAX package, ops/pallas_lens.py
 // `_lens_tile_kernel` launched by `lens_stats`, for the calls with few rows:
-// bf16 or f32 inputs, top_k <= KMAX_WIDE and N <= the route's row limit (the
-// wrapper, ops/lens_kernel.py `lens_plan`, sends them here; the main path's
-// N 1140 stays on lens_stats_wgmma.cu).  Those are the serving readouts: one
+// bf16 or f32 inputs, any top_k (above KMAX_WIDE in several passes, below)
+// and N <= the route's row limit (the wrapper, ops/lens_kernel.py
+// `lens_plan`, sends them here; the main path's N 1140 stays on
+// lens_stats_wgmma.cu).  Those are the serving readouts: one
 // row per slot (N 8), the speculative verify (N 32), the attack search and
 // each tp shard.  For rows x [N, D] and the tied embedding E [V, D] each
 // block owns a contiguous chunk of the vocabulary and writes one partial per
@@ -70,10 +71,32 @@
 //   stage lands (hi in place, lo into one of two lo tiles), behind one
 //   warpgroup barrier.  The tensor-core work is a few percent of the stream's
 //   time, so the split costs the consumers' idle time, not the stream's.
+// - A top-k above KMAX_WIDE takes the long list in ceil(K / KMAX_WIDE)
+//   passes (ops/lens_kernel.py `certify_top_k` has the argument): the first
+//   is the K = KMAX_WIDE call; each later one (a refill) gets a ceiling per
+//   (chunk, token), the last key that pair's list held, and lists the
+//   KMAX_WIDE keys strictly below it.  The ceiling hides a token's columns
+//   at or above it (-inf) after its statistics have read them; the list's
+//   cut is its own last entry, with no stand-in taken from the tile, so
+//   the list is the top of what the ceiling leaves.  A pair known complete
+//   gets the empty key (-inf, INT_MAX), and a block none of whose tokens is
+//   open loads nothing.  Up to MERGE_MAX (128) the last block of each pass
+//   also certifies: it merges the open pairs' lists into the call's top-K
+//   (4 ranks a lane), takes t, its K-th key, and gives each pair whose list
+//   ends above t that last key as its next ceiling (every other pair the
+//   empty key), where the next pass reads it, so no pass waits on the host
+//   or on a torch merge (0.113 ms at N 8 on an H100).  Above MERGE_MAX the
+//   wrapper certifies in torch from the partials.
 //
 // The macro LENS_ANATOMY_SKIP_FOLD leaves out the staging and the fold; only
 // perf/lens_anatomy.py sets it, to time the stream alone, and its partials
 // are meaningless.
+//
+// Build units: the wrapper compiles this file twice, in parallel, and links
+// both objects into one library: -DLENS_SPLITV_UNIT=1 holds the bf16
+// instantiations and the C interface, -DLENS_SPLITV_UNIT=2 the f32 ones
+// (tbx_splitv_launch_f32).  Without the macro (perf/sass_compare.py,
+// perf/lens_anatomy.py) one unit holds both.
 //
 // Plain C interface, built with nvcc into a shared library and loaded with
 // ctypes.  The launcher returns 0, a cudaError_t of the launch, or a negative
@@ -86,9 +109,15 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "tf32_split.cuh"
+#ifndef LENS_SPLITV_UNIT
+#define LENS_SPLITV_UNIT 0
+#endif
 
 namespace {
+
+// Inside this file's anonymous namespace: each unit of the library keeps
+// its own copy of the header's x split kernel.
+#include "tf32_split.cuh"
 
 constexpr int TILE_ROWS = 32;     // vocab rows per plan tile: one TMA box of E
 constexpr int BLOCK_ROWS = 128;   // vocab rows per wgmma tile: two warpgroups
@@ -98,6 +127,7 @@ constexpr int MAX_ROWS = 8 * MAX_NT;
 constexpr int KMAX = 8;           // the short top-k list
 constexpr int KMAX_WIDE = 32;     // the long one
 static_assert(KMAX < KMAX_WIDE && KMAX_WIDE <= 32, "one list entry per lane");
+constexpr int MERGE_MAX = 128;    // the last block's certified top-K: 4 a lane
 constexpr int MAX_STAGES = 8;
 constexpr int CONSUMER_THREADS = 256;
 constexpr int CONSUMER_WARPS = CONSUMER_THREADS / 32;
@@ -566,6 +596,31 @@ __device__ __forceinline__ bool ahead(float a, int ai, float b, int bi) {
   return a > b || (a == b && ai < bi);
 }
 
+// A top-k key as the wrapper builds it (ops/lens_kernel.py `_keys`): the
+// value's order-preserving bits (-0 as +0) above, 0xFFFFFFFF - id below;
+// int64 order is the top-k order.  The empty key (-inf, INT_MAX) is below
+// every column's.
+__device__ __forceinline__ void key_parts(long long key, float& v, int& id) {
+  const int hi = static_cast<int>(key >> 32);
+  v = __int_as_float(hi >= 0 ? hi : hi ^ 0x7FFFFFFF);
+  id = static_cast<int>(0xFFFFFFFFu - static_cast<unsigned>(key));
+}
+
+__device__ __forceinline__ long long make_key(float v, int id) {
+  const int bits = __float_as_int(v == 0.0f ? 0.0f : v);
+  const unsigned hi = static_cast<unsigned>(bits >= 0 ? bits : bits ^ 0x7FFFFFFF);
+  return static_cast<long long>((static_cast<unsigned long long>(hi) << 32) |
+                                (0xFFFFFFFFu - static_cast<unsigned>(id)));
+}
+
+// Whether a ceiling leaves the pair anything to list.
+__device__ __forceinline__ bool open_key(long long key) {
+  float v;
+  int id;
+  key_parts(key, v, id);
+  return v != -INFINITY;
+}
+
 // ------------------------------------------------------------------ kernel
 
 // Where a launch writes: the partials, and the merged statistics of the last
@@ -663,18 +718,189 @@ __device__ __forceinline__ void merge_chunks(const Outputs& out, int n,
   }
 }
 
+// The entry at rank 32 j + lane_of of a list held R ranks a lane (rank
+// 32 j + lane in register j), on every lane.
+template <int R>
+__device__ __forceinline__ void rank_entry(const float (&lv)[R],
+                                           const int (&li)[R], int j,
+                                           int lane_of, float& v, int& id) {
+  float sv = lv[0];
+  int si = li[0];
+#pragma unroll
+  for (int q = 1; q < R; ++q) {
+    if (j == q) {
+      sv = lv[q];
+      si = li[q];
+    }
+  }
+  v = __shfl_sync(FULL_MASK, sv, lane_of);
+  id = __shfl_sync(FULL_MASK, si, lane_of);
+}
+
+// Insert (y, yi), ahead of the list's rank k - 1 entry, into the first k
+// ranks of a list held R ranks a lane: the ranks at and after its place
+// move down one, the lane-31 entry of register j - 1 into lane 0 of j.
+template <int R>
+__device__ __forceinline__ void rank_insert(float (&lv)[R], int (&li)[R],
+                                            float y, int yi, int k,
+                                            int lane) {
+  int pos = 0;
+#pragma unroll
+  for (int j = 0; j < R; ++j)
+    pos += __popc(__ballot_sync(
+        FULL_MASK, 32 * j + lane < k && ahead(lv[j], li[j], y, yi)));
+  float up_v[R];
+  int up_i[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    up_v[j] = __shfl_up_sync(FULL_MASK, lv[j], 1);
+    up_i[j] = __shfl_up_sync(FULL_MASK, li[j], 1);
+    const float wrap_v =
+        __shfl_sync(FULL_MASK, j > 0 ? lv[j > 0 ? j - 1 : 0] : -INFINITY, 31);
+    const int wrap_i =
+        __shfl_sync(FULL_MASK, j > 0 ? li[j > 0 ? j - 1 : 0] : INT_MAX, 31);
+    if (lane == 0) {
+      up_v[j] = wrap_v;
+      up_i[j] = wrap_i;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const int rank = 32 * j + lane;
+    if (rank > pos) {
+      lv[j] = up_v[j];
+      li[j] = up_i[j];
+    }
+    if (rank == pos) {
+      lv[j] = y;
+      li[j] = yi;
+    }
+  }
+}
+
+// The last block's merge of a pass of a top-K above the long list
+// (KMAX_WIDE < k_merge <= MERGE_MAX) and its certificate.  The first pass
+// (ceiling null) writes lse and the target as merge_chunks does and starts
+// the top-K from its chunks' lists; a refill merges the lists of the pairs
+// its ceilings left open into the top-K the earlier passes wrote to out.vals
+// and out.ids.  Then t, the top-K's last key: a pair that listed a key above
+// t may hold more of the top-K below its list's last key, which becomes its
+// ceiling; every other pair is complete (every key it did not list lies
+// below its list's last key, hence below t) and gets the empty key.  Each
+// pair's ceiling is read and written by one lane, so next may be ceiling.
+template <int NT>
+__device__ __forceinline__ void merge_certify(const Outputs& out,
+                                              const long long* ceiling,
+                                              long long* next, int n,
+                                              int k_merge, int n_chunks,
+                                              int warp, int lane) {
+  constexpr int R = MERGE_MAX / 32;
+  const bool refill = ceiling != nullptr;
+  const int last_j = (k_merge - 1) / 32, last_lane = (k_merge - 1) % 32;
+#pragma unroll 1
+  for (int r = 0; r < NT; ++r) {
+    const int tok = warp + 8 * r;
+    if (tok >= n) break;
+    if (!refill) {
+      float m = -INFINITY;
+      for (int s = lane; s < n_chunks; s += 32)
+        m = fmaxf(m, __ldcg(out.part_max + (size_t)s * n + tok));
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        m = fmaxf(m, __shfl_xor_sync(FULL_MASK, m, off));
+      float sum = 0.0f, tv = NEG_BIG;
+      for (int s = lane; s < n_chunks; s += 32) {
+        const size_t at = (size_t)s * n + tok;
+        sum += __ldcg(out.part_sumexp + at) * expf(__ldcg(out.part_max + at) - m);
+        tv = fmaxf(tv, __ldcg(out.part_tgt + at));
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        sum += __shfl_xor_sync(FULL_MASK, sum, off);
+        tv = fmaxf(tv, __shfl_xor_sync(FULL_MASK, tv, off));
+      }
+      if (lane == 0) {
+        out.lse[tok] = m + logf(sum);
+        out.tgt[tok] = tv;
+      }
+    }
+    float lv[R];
+    int li[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int rank = 32 * j + lane;
+      const bool held = refill && rank < k_merge;
+      const size_t at = (size_t)tok * k_merge + rank;
+      lv[j] = held ? __ldcg(out.vals + at) : -INFINITY;
+      li[j] = held ? __ldcg(out.ids + at) : INT_MAX;
+    }
+    for (int base = 0; base < n_chunks; base += 32) {
+      const int s = base + lane;
+      const size_t pair = (size_t)s * n + tok;
+      const bool open =
+          s < n_chunks && (!refill || open_key(__ldcg(ceiling + pair)));
+      // Each list is in the top-k order: a rank at which no chunk of the
+      // 32 goes above the top-K's last entry ends the group's reads.
+      for (int kk = 0; kk < KMAX_WIDE; ++kk) {
+        const size_t at = pair * KMAX_WIDE + kk;
+        const float cv = open ? __ldcg(out.part_vals + at) : -INFINITY;
+        const int ci = open ? __ldcg(out.part_ids + at) : INT_MAX;
+        float cut;
+        int cut_i;
+        rank_entry(lv, li, last_j, last_lane, cut, cut_i);
+        unsigned todo = __ballot_sync(FULL_MASK, ahead(cv, ci, cut, cut_i));
+        if (todo == 0) break;
+        while (todo) {
+          const int from = __ffs(todo) - 1;
+          rank_insert(lv, li, __shfl_sync(FULL_MASK, cv, from),
+                      __shfl_sync(FULL_MASK, ci, from), k_merge, lane);
+          rank_entry(lv, li, last_j, last_lane, cut, cut_i);
+          todo &= __ballot_sync(FULL_MASK, ahead(cv, ci, cut, cut_i)) &
+                  ~((2u << from) - 1u);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int rank = 32 * j + lane;
+      if (rank < k_merge) {
+        out.vals[(size_t)tok * k_merge + rank] = lv[j];
+        out.ids[(size_t)tok * k_merge + rank] = li[j];
+      }
+    }
+    float t;
+    int ti;
+    rank_entry(lv, li, last_j, last_lane, t, ti);
+    for (int s = lane; s < n_chunks; s += 32) {
+      const size_t pair = (size_t)s * n + tok;
+      long long key = make_key(-INFINITY, INT_MAX);
+      if (!refill || open_key(__ldcg(ceiling + pair))) {
+        const size_t at = pair * KMAX_WIDE + KMAX_WIDE - 1;
+        const float v = __ldcg(out.part_vals + at);
+        const int id = __ldcg(out.part_ids + at);
+        if (ahead(v, id, t, ti)) key = make_key(v, id);
+      }
+      next[pair] = key;
+    }
+  }
+}
+
 // Grid: n_chunks blocks.  Chunk s covers the 32-row vocab tiles
 // [s * T / S, (s + 1) * T / S) of T = ceil(v / TILE_ROWS).  Each token's
 // running top-k list has L entries, one per lane of lanes 0 .. L-1.  T is
 // the input type: __nv_bfloat16, or float (3xTF32; map_x then covers the
-// wrapper's [2, n, d] split of x).
+// wrapper's [2, n, d] split of x).  The long list only: ceiling, [n_chunks,
+// n] keys or null, makes the pass a refill, and k_merge > KMAX_WIDE the
+// last block's merge a certified one that writes the next pass's ceilings
+// to next_ceiling (see the file header).
 template <typename T, int NT, bool CAP, int L>
 __global__ void __launch_bounds__(THREADS, 1)
     lens_splitv_kernel(const __grid_constant__ CUtensorMap map_x,
                        const __grid_constant__ CUtensorMap map_e,
                        const int* __restrict__ targets, const Outputs out,
                        int n, int d, int v, int k_top, int n_chunks,
-                       float cap) {
+                       float cap, const long long* ceiling,
+                       long long* next_ceiling, int k_merge) {
   constexpr bool F32 = tf32::is_f32<T>;
   constexpr int NPAD = 8 * NT;
   constexpr int kBK = F32 ? F32_BK : BK;
@@ -696,7 +922,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int vocab_tiles = (v + TILE_ROWS - 1) / TILE_ROWS;
   const int row_begin =
       (int)((long long)chunk * vocab_tiles / n_chunks) * TILE_ROWS;
-  const int row_end = min(
+  int row_end = min(
       v, (int)((long long)(chunk + 1) * vocab_tiles / n_chunks) * TILE_ROWS);
   const int k_steps = (d + kBK - 1) / kBK;
 
@@ -707,7 +933,17 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  __syncthreads();
+  if constexpr (L == KMAX_WIDE) {
+    // A refill whose tokens are all complete in this chunk streams no tile:
+    // nothing is loaded, and the lists written are empty.
+    bool open = true;
+    if (ceiling != nullptr)
+      open = threadIdx.x < n &&
+             open_key(ceiling[(size_t)chunk * n + threadIdx.x]);
+    if (!__syncthreads_or(open)) row_end = row_begin;
+  } else {
+    __syncthreads();
+  }
 
   if (threadIdx.x >= CONSUMER_THREADS) {
     // ---- producer warp: one lane keeps the ring full.
@@ -750,6 +986,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   int tgt[NT];
   float run_max[NT], run_sum[NT], run_tgt[NT], top_v[NT];
   int top_i[NT];
+  float ceil_v[NT];  // a refill's ceiling per token (long list only)
+  int ceil_i[NT];
 #pragma unroll
   for (int r = 0; r < NT; ++r) {
     const int tok = warp + 8 * r;
@@ -760,6 +998,12 @@ __global__ void __launch_bounds__(THREADS, 1)
     run_tgt[r] = NEG_BIG;
     top_v[r] = -INFINITY;  // lane p < L holds entry p of the list
     top_i[r] = INT_MAX;
+    if constexpr (L == KMAX_WIDE) {
+      ceil_v[r] = -INFINITY;
+      ceil_i[r] = INT_MAX;
+      if (ceiling != nullptr && tok < n)
+        key_parts(ceiling[(size_t)chunk * n + tok], ceil_v[r], ceil_i[r]);
+    }
   }
 
   float acc[4 * NT];
@@ -868,6 +1112,19 @@ __global__ void __launch_bounds__(THREADS, 1)
       run_sum[r] = run_sum[r] * fast_exp2((run_max[r] - m) * LOG2E) + sum;
       run_max[r] = m;
 
+      if constexpr (L == KMAX_WIDE) {
+        if (ceiling != nullptr) {
+          // A refill: the columns at or above the token's ceiling leave the
+          // list's view; the statistics above have read them.
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int id = row0 + 32 * u + lane;
+            const bool below = x[u] < ceil_v[r] ||
+                               (x[u] == ceil_v[r] && id > ceil_i[r]);
+            x[u] = below ? x[u] : -INFINITY;
+          }
+        }
+      }
       // Only a value above the list's last entry can enter it: every entry
       // has a lower id than this tile's columns.
       float cut = __shfl_sync(FULL_MASK, top_v[r], L - 1);
@@ -937,6 +1194,13 @@ __global__ void __launch_bounds__(THREADS, 1)
   consumers_sync();
   if (!last) return;
   __threadfence();
+  if constexpr (L == KMAX_WIDE) {
+    if (k_merge > KMAX_WIDE) {
+      merge_certify<NT>(out, ceiling, next_ceiling, n, k_merge, n_chunks,
+                        warp, lane);
+      return;
+    }
+  }
   merge_chunks<NT, L>(out, n, k_top, n_chunks, warp, lane);
 }
 
@@ -993,6 +1257,9 @@ struct Args {
   Outputs out;
   int n, d, v, k_top, n_chunks;
   float cap;
+  const long long* ceiling;
+  long long* next_ceiling;
+  int k_merge;
 };
 
 template <typename T, int NT, bool CAP, int L>
@@ -1005,7 +1272,8 @@ int launch(const CUtensorMap& mx, const CUtensorMap& me, const Args& a,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   kernel<<<a.n_chunks, THREADS, bytes, stream>>>(
-      mx, me, a.targets, a.out, a.n, a.d, a.v, a.k_top, a.n_chunks, a.cap);
+      mx, me, a.targets, a.out, a.n, a.d, a.v, a.k_top, a.n_chunks, a.cap,
+      a.ceiling, a.next_ceiling, a.k_merge);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1032,14 +1300,64 @@ int launch_list(const CUtensorMap& mx, const CUtensorMap& me, const Args& a,
                  : launch_rows<T, false, L>(mx, me, a, s);
 }
 
+// The arguments of tbx_lens_splitv, which checks them.
+#define SPLITV_PARAMS                                                         \
+  const void *x, const void *e, void *x_split, const int *targets,            \
+      float *part_max, float *part_sumexp, float *part_tgt, float *part_vals, \
+      int *part_ids, float *lse, float *tgt, float *vals, int *ids,           \
+      int *ticket, int n, int d, int v, int k_top, int list_len,              \
+      int n_chunks, int has_cap, int f32, float cap, void *stream,            \
+      const long long *ceiling, long long *next_ceiling, int k_merge
+#define SPLITV_ARGS                                                          \
+  x, e, x_split, targets, part_max, part_sumexp, part_tgt, part_vals,        \
+      part_ids, lse, tgt, vals, ids, ticket, n, d, v, k_top, list_len,       \
+      n_chunks, has_cap, f32, cap, stream, ceiling, next_ceiling, k_merge
+
+// One launch in the input type T (float: x split first into x_split).
+template <typename T>
+int launch_typed(SPLITV_PARAMS) {
+  constexpr bool F32 = tf32::is_f32<T>;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int npad = 8 * ((n + 7) / 8);
+  CUtensorMap mx, me;
+  CUresult cr = F32 ? make_map(&mx, x_split, n, d, npad, true, 2)
+                    : make_map(&mx, x, n, d, npad);
+  if (cr != CUDA_SUCCESS) return -static_cast<int>(cr);
+  cr = make_map(&me, e, v, d, TILE_ROWS, F32);
+  if (cr != CUDA_SUCCESS) return -static_cast<int>(cr);
+  const Args a{targets,
+               {part_max, part_sumexp, part_tgt, part_vals, part_ids, lse,
+                tgt, vals, ids, ticket},
+               n, d, v, k_top, n_chunks, cap, ceiling, next_ceiling, k_merge};
+  if constexpr (F32) {
+    const cudaError_t rc = tf32::split_rows(static_cast<const float*>(x),
+                                            static_cast<float*>(x_split), n, d,
+                                            s);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  return list_len == KMAX ? launch_list<T, KMAX>(mx, me, a, has_cap != 0, s)
+                          : launch_list<T, KMAX_WIDE>(mx, me, a, has_cap != 0, s);
+}
+
 }  // namespace
 
 extern "C" {
 
+#if LENS_SPLITV_UNIT != 1
+// The f32 half of tbx_lens_splitv, which checks the arguments.
+int tbx_splitv_launch_f32(SPLITV_PARAMS) {
+  return launch_typed<float>(SPLITV_ARGS);
+}
+#else
+int tbx_splitv_launch_f32(SPLITV_PARAMS);  // in the f32 unit
+#endif
+
+#if LENS_SPLITV_UNIT != 2
 // Geometry, checked by the wrapper against its own plan.
 int tbx_splitv_tile_rows() { return TILE_ROWS; }
 int tbx_splitv_kmax() { return KMAX; }
 int tbx_splitv_kmax_wide() { return KMAX_WIDE; }
+int tbx_splitv_merge_max() { return MERGE_MAX; }
 int tbx_splitv_max_rows() { return MAX_ROWS; }
 int tbx_splitv_smem_bytes(int n) {
   return n >= 1 && n <= MAX_ROWS ? smem_bytes((n + 7) / 8) : -1;
@@ -1063,46 +1381,29 @@ const char* tbx_splitv_error_string(int code) {
 // KMAX_WIDE, the instantiation's list length, and 1 <= k_top <= list_len;
 // 1 <= n_chunks <= ceil(v / TILE_ROWS).  Partials [n_chunks, n] and
 // [n_chunks, n, k_top] as in the file header; with lse not null, also the
-// merged statistics lse, tgt [n], vals and ids [n, k_top], counted on ticket
-// (one int, 0 at launch).
-int tbx_lens_splitv(const void* x, const void* e, void* x_split,
-                    const int* targets, float* part_max, float* part_sumexp,
-                    float* part_tgt, float* part_vals, int* part_ids,
-                    float* lse, float* tgt, float* vals, int* ids, int* ticket,
-                    int n, int d, int v, int k_top, int list_len, int n_chunks,
-                    int has_cap, int f32, float cap, void* stream) {
+// merged statistics lse, tgt [n], vals and ids [n, k_merge], counted on
+// ticket (one int, 0 at launch).  k_merge is k_top, or for a certified
+// pass (list_len == k_top == KMAX_WIDE, lse and next_ceiling not null)
+// KMAX_WIDE < k_merge <= MERGE_MAX; ceiling, null or a refill's [n_chunks,
+// n] keys (long list only; a refill's max, sum-exp and target partials are
+// not read), may be next_ceiling.
+int tbx_lens_splitv(SPLITV_PARAMS) {
+  const bool wide = list_len == KMAX_WIDE && k_top == KMAX_WIDE;
+  const bool certified = k_merge != k_top;
   if (n < 1 || n > MAX_ROWS || (list_len != KMAX && list_len != KMAX_WIDE) ||
       k_top < 1 || k_top > list_len || n_chunks < 1 ||
       n_chunks > (v + TILE_ROWS - 1) / TILE_ROWS ||
       (lse != nullptr && (tgt == nullptr || vals == nullptr ||
                           ids == nullptr || ticket == nullptr)) ||
-      (f32 && (x_split == nullptr || d % 4 != 0))) {
+      (f32 && (x_split == nullptr || d % 4 != 0)) ||
+      (ceiling != nullptr && !wide) ||
+      (certified && (!wide || k_merge <= KMAX_WIDE || k_merge > MERGE_MAX ||
+                     lse == nullptr || next_ceiling == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int npad = 8 * ((n + 7) / 8);
-  CUtensorMap mx, me;
-  CUresult cr = f32 ? make_map(&mx, x_split, n, d, npad, true, 2)
-                    : make_map(&mx, x, n, d, npad);
-  if (cr != CUDA_SUCCESS) return -static_cast<int>(cr);
-  cr = make_map(&me, e, v, d, TILE_ROWS, f32 != 0);
-  if (cr != CUDA_SUCCESS) return -static_cast<int>(cr);
-  const Args a{targets,
-               {part_max, part_sumexp, part_tgt, part_vals, part_ids, lse,
-                tgt, vals, ids, ticket},
-               n, d, v, k_top, n_chunks, cap};
-  if (f32) {
-    const cudaError_t rc = tf32::split_rows(static_cast<const float*>(x),
-                                            static_cast<float*>(x_split), n, d,
-                                            s);
-    if (rc != cudaSuccess) return static_cast<int>(rc);
-    return list_len == KMAX
-               ? launch_list<float, KMAX>(mx, me, a, has_cap, s)
-               : launch_list<float, KMAX_WIDE>(mx, me, a, has_cap, s);
-  }
-  return list_len == KMAX
-             ? launch_list<__nv_bfloat16, KMAX>(mx, me, a, has_cap, s)
-             : launch_list<__nv_bfloat16, KMAX_WIDE>(mx, me, a, has_cap, s);
+  if (f32) return tbx_splitv_launch_f32(SPLITV_ARGS);
+  return launch_typed<__nv_bfloat16>(SPLITV_ARGS);
 }
+#endif
 
 }  // extern "C"

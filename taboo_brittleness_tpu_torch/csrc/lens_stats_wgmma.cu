@@ -3,9 +3,9 @@
 //
 // Replaces the TPU kernel of the JAX package: ops/pallas_lens.py,
 // `_lens_tile_kernel` launched by `lens_stats`, on its bf16 or f32 inputs
-// with top_k <= KMAX_WIDE and more rows than the split-V kernel takes (the
-// wrapper, ops/lens_kernel.py `lens_plan`, sends larger top_k to the simple
-// kernel in lens_stats.cu).  For rows x [N, D]
+// with more rows than the split-V kernel takes (ops/lens_kernel.py
+// `lens_plan`): every top_k, those above KMAX_WIDE in several passes of the
+// long list (below).  For rows x [N, D]
 // (final-normed residuals) and the tied embedding E [V, D] a block owns one
 // tile of BM rows and a contiguous chunk of the vocabulary, and writes one
 // partial per (chunk, row):
@@ -73,6 +73,18 @@
 //   chunk's first tile, while the list is not yet full, the least of the
 //   quad's 32 group maxima (8 columns a group) stands in for the cut: 32
 //   of the tile's columns are at or above it.
+// - A top-k above KMAX_WIDE (up to the wrapper's 1024) takes the long list
+//   in ceil(K / KMAX_WIDE) passes, certified by the wrapper
+//   (ops/lens_kernel.py `certify_top_k`): the first is the K = KMAX_WIDE
+//   call; each later one (a refill) gets a ceiling per (chunk, row), the
+//   last key that pair's list held, and lists the KMAX_WIDE keys strictly
+//   below it (value descending, then id ascending).  A pair the wrapper
+//   found complete gets the empty key (-inf, INT_MAX), below which nothing
+//   lies, and a block none of whose rows is open loads nothing.  The
+//   ceiling hides a row's columns at or above it (-inf) after the row's
+//   statistics have read them, so the group maxima above stand in for the
+//   cut over the columns the list may take.  The shorter list's code is
+//   untouched.
 // - E crosses HBM about once.  Blocks are numbered row-tile fastest, so the
 //   row tiles of one vocab chunk run together and walk the same E tiles in
 //   step: one of them reads each E stage from HBM, the others from L2.  x
@@ -102,6 +114,12 @@
 // Plain C interface, built with nvcc into a shared library and loaded with
 // ctypes.  The launcher returns 0, a cudaError_t of the launch, or a negative
 // code for a tensor map the driver refused (see tbx_wgmma_error_string).
+//
+// Build units: the wrapper compiles this file twice, in parallel, and links
+// both objects into one library: -DLENS_WGMMA_UNIT=1 holds the bf16
+// instantiations and the C interface, -DLENS_WGMMA_UNIT=2 the f32 ones
+// (tbx_wgmma_launch_f32).  Without the macro (perf/sass_compare.py,
+// perf/lens_anatomy.py) one unit holds both.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -110,9 +128,15 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "tf32_split.cuh"
+#ifndef LENS_WGMMA_UNIT
+#define LENS_WGMMA_UNIT 0
+#endif
 
 namespace {
+
+// Inside this file's anonymous namespace: each unit of the library keeps
+// its own copy of the header's x split kernel.
+#include "tf32_split.cuh"
 
 constexpr int BM = 128;              // rows per block: two warpgroups of 64
 constexpr int BN = 256;              // vocab columns per tile
@@ -294,6 +318,23 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
 }
 
+// A top-k key as the wrapper builds it (ops/lens_kernel.py `_keys`): the
+// value's order-preserving bits above, 0xFFFFFFFF - id below.  The empty key
+// (-inf, INT_MAX) is below every column's.
+__device__ __forceinline__ void key_parts(long long key, float& v, int& id) {
+  const int hi = static_cast<int>(key >> 32);
+  v = __int_as_float(hi >= 0 ? hi : hi ^ 0x7FFFFFFF);
+  id = static_cast<int>(0xFFFFFFFFu - static_cast<unsigned>(key));
+}
+
+// A pair's ceiling, loaded where it is used (asm volatile: not hoisted
+// into a register that lives across the tile loop).
+__device__ __forceinline__ long long ld_ceiling(const long long* p) {
+  long long v;
+  asm volatile("ld.global.nc.b64 %0, [%1];" : "=l"(v) : "l"(p));
+  return v;
+}
+
 // Keeps the compiler from moving reads of the accumulator above a wait.
 __device__ __forceinline__ void fence_acc(float (&d)[128]) {
 #pragma unroll
@@ -459,7 +500,8 @@ __device__ __forceinline__ void topk_pop(float (&tv)[KMAX], int (&ti)[KMAX]) {
 // running list's length: KMAX (each lane its own list, the quad's four
 // merged at the end) or KMAX_WIDE (one list split across the quad).  T is the
 // input type: __nv_bfloat16, or float (3xTF32; map_x then covers the
-// wrapper's [2, n, d] split of x).
+// wrapper's [2, n, d] split of x).  ceiling, [n_chunks, n] keys or null,
+// makes the pass a refill (long list only; see the file header).
 template <typename T, bool CAP, int L>
 __global__ void __launch_bounds__(THREADS, 1)
     lens_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
@@ -470,7 +512,8 @@ __global__ void __launch_bounds__(THREADS, 1)
                       float* __restrict__ part_tgt,
                       float* __restrict__ part_vals,
                       int* __restrict__ part_ids, int n, int d, int v,
-                      int k_top, int n_chunks, float cap) {
+                      int k_top, int n_chunks, float cap,
+                      const long long* __restrict__ ceiling) {
   constexpr bool F32 = tf32::is_f32<T>;
   constexpr int kBK = F32 ? F32_BK : BK;
   constexpr int kStages = F32 ? F32_STAGES : STAGES;
@@ -494,7 +537,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int chunk = blockIdx.x / row_tiles;
   const int vocab_tiles = (v + BN - 1) / BN;
   const int t_begin = (int)((long long)chunk * vocab_tiles / n_chunks);
-  const int t_end = (int)((long long)(chunk + 1) * vocab_tiles / n_chunks);
+  int t_end = (int)((long long)(chunk + 1) * vocab_tiles / n_chunks);
   const int k_steps = (d + kBK - 1) / kBK;
 
   if (threadIdx.x == 0) {
@@ -505,7 +548,22 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  __syncthreads();
+  if constexpr (L == KMAX_WIDE) {
+    // A refill whose rows are all complete in this chunk walks no tile:
+    // nothing is loaded, and the lists written are empty.
+    bool open = true;
+    if (ceiling != nullptr) {
+      const int row = row_tile * BM + threadIdx.x;
+      float cv = -INFINITY;
+      int ci;
+      if (threadIdx.x < BM && row < n)
+        key_parts(ceiling[(size_t)chunk * n + row], cv, ci);
+      open = cv != -INFINITY;
+    }
+    if (!__syncthreads_or(open)) t_end = t_begin;
+  } else {
+    __syncthreads();
+  }
 
   if (threadIdx.x >= CONSUMER_THREADS) {
     // ---- producer warpgroup: hands its registers to the consumers; one
@@ -745,11 +803,32 @@ __global__ void __launch_bounds__(THREADS, 1)
           // so a value at or below the cut cannot enter.
           const int quad = lane & ~3;
           const uint32_t quad_slots = slots + (threadIdx.x & ~3) * 8;
+          if (ceiling != nullptr) {
+            // A refill: the columns at or above the pair's ceiling (listed
+            // by an earlier pass, or every column of a complete pair) leave
+            // the list's view; the row's statistics above have read them.
+            float cv;
+            int ci;
+            key_parts(ld_ceiling(ceiling + (size_t)chunk * n +
+                                 min(rows[i], n - 1)),
+                      cv, ci);
+            const int ci_rel = ci - base;  // 8j + c of the ceiling's id
+#pragma unroll
+            for (int j = 0; j < 32; ++j)
+#pragma unroll
+              for (int c = 0; c < 2; ++c) {
+                const float x = acc[4 * j + 2 * i + c];
+                const bool below = x < cv || (x == cv && 8 * j + c > ci_rel);
+                acc[4 * j + 2 * i + c] = below ? x : -INFINITY;
+              }
+          }
           float cut = __shfl_sync(FULL_MASK, top_v[i][KMAX - 1], quad + 3);
           // Until the list is full (a chunk's first tile) its cut is -inf.
           // A floor from the tile itself: the least of the quad's 32 group
           // maxima, each over 8 of a lane's columns, has 32 columns of this
           // tile at or above it, so a value below it cannot enter either.
+          // (In a refill the columns the ceiling hides are -inf here, so the
+          // 32 are columns the list may take.)
           float floor_cut = -INFINITY;
           if (__any_sync(FULL_MASK, cut == -INFINITY)) {
             float least = INFINITY;
@@ -948,7 +1027,8 @@ template <typename T, bool CAP, int L>
 int launch(const CUtensorMap& mx, const CUtensorMap& me, const int* targets,
            float* part_max, float* part_sumexp, float* part_tgt,
            float* part_vals, int* part_ids, int n, int d, int v, int k_top,
-           int n_chunks, float cap, cudaStream_t stream) {
+           int n_chunks, float cap, const long long* ceiling,
+           cudaStream_t stream) {
   auto kernel = lens_wgmma_kernel<T, CAP, L>;
   constexpr int bytes = tf32::is_f32<T> ? F32_SMEM_BYTES : SMEM_BYTES;
   cudaError_t rc = cudaFuncSetAttribute(
@@ -957,13 +1037,59 @@ int launch(const CUtensorMap& mx, const CUtensorMap& me, const int* targets,
   const int row_tiles = (n + BM - 1) / BM;
   kernel<<<row_tiles * n_chunks, THREADS, bytes, stream>>>(
       mx, me, targets, part_max, part_sumexp, part_tgt, part_vals, part_ids, n,
-      d, v, k_top, n_chunks, cap);
+      d, v, k_top, n_chunks, cap, ceiling);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The arguments of tbx_lens_wgmma, which checks them.
+#define WGMMA_PARAMS                                                          \
+  const void *x, const void *e, void *x_split, const int *targets,            \
+      float *part_max, float *part_sumexp, float *part_tgt, float *part_vals, \
+      int *part_ids, int n, int d, int v, int k_top, int list_len,            \
+      int n_chunks, int has_cap, int f32, float cap, void *stream,            \
+      const long long *ceiling
+#define WGMMA_ARGS                                                           \
+  x, e, x_split, targets, part_max, part_sumexp, part_tgt, part_vals,        \
+      part_ids, n, d, v, k_top, list_len, n_chunks, has_cap, f32, cap,       \
+      stream, ceiling
+
+// One launch in the input type T (float: x split first into x_split).
+template <typename T>
+int launch_typed(WGMMA_PARAMS) {
+  constexpr bool F32 = tf32::is_f32<T>;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  CUtensorMap mx, me;
+  CUresult cr = F32 ? make_map(&mx, x_split, n, d, BM, true, 2)
+                    : make_map(&mx, x, n, d, BM);
+  if (cr != CUDA_SUCCESS) return -static_cast<int>(cr);
+  cr = make_map(&me, e, v, d, BN, F32);
+  if (cr != CUDA_SUCCESS) return -static_cast<int>(cr);
+  if constexpr (F32) {
+    const cudaError_t rc = tf32::split_rows(static_cast<const float*>(x),
+                                            static_cast<float*>(x_split), n, d,
+                                            s);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  auto run = list_len == KMAX ? (has_cap ? &launch<T, true, KMAX>
+                                         : &launch<T, false, KMAX>)
+                              : (has_cap ? &launch<T, true, KMAX_WIDE>
+                                         : &launch<T, false, KMAX_WIDE>);
+  return run(mx, me, targets, part_max, part_sumexp, part_tgt, part_vals,
+             part_ids, n, d, v, k_top, n_chunks, cap, ceiling, s);
 }
 
 }  // namespace
 
 extern "C" {
+
+#if LENS_WGMMA_UNIT != 1
+// The f32 half of tbx_lens_wgmma, which checks the arguments.
+int tbx_wgmma_launch_f32(WGMMA_PARAMS) { return launch_typed<float>(WGMMA_ARGS); }
+#else
+int tbx_wgmma_launch_f32(WGMMA_PARAMS);  // in the f32 unit
+#endif
+
+#if LENS_WGMMA_UNIT != 2
 
 // Tile geometry, checked by the wrapper against its own plan.
 int tbx_wgmma_block_rows() { return BM; }
@@ -987,43 +1113,20 @@ const char* tbx_wgmma_error_string(int code) {
 // targets [n] int32 (-1 = none); list_len KMAX or KMAX_WIDE, the
 // instantiation's list length, and 1 <= k_top <= list_len;
 // 1 <= n_chunks <= ceil(v / BN).  Outputs [n_chunks, n] and
-// [n_chunks, n, k_top] as in the file header.
-int tbx_lens_wgmma(const void* x, const void* e, void* x_split,
-                   const int* targets, float* part_max, float* part_sumexp,
-                   float* part_tgt, float* part_vals, int* part_ids, int n,
-                   int d, int v, int k_top, int list_len, int n_chunks,
-                   int has_cap, int f32, float cap, void* stream) {
+// [n_chunks, n, k_top] as in the file header.  ceiling: null, or for a
+// refill of the long list (list_len == k_top == KMAX_WIDE) the
+// [n_chunks, n] keys below which each pair lists; a refill's max, sum-exp
+// and target partials are not read.
+int tbx_lens_wgmma(WGMMA_PARAMS) {
   if (n < 1 || (list_len != KMAX && list_len != KMAX_WIDE) || k_top < 1 ||
       k_top > list_len || n_chunks < 1 || n_chunks > (v + BN - 1) / BN ||
-      (f32 && (x_split == nullptr || d % 4 != 0))) {
+      (f32 && (x_split == nullptr || d % 4 != 0)) ||
+      (ceiling != nullptr && (list_len != KMAX_WIDE || k_top != KMAX_WIDE))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  CUtensorMap mx, me;
-  CUresult cr = f32 ? make_map(&mx, x_split, n, d, BM, true, 2)
-                    : make_map(&mx, x, n, d, BM);
-  if (cr != CUDA_SUCCESS) return -static_cast<int>(cr);
-  cr = make_map(&me, e, v, d, BN, f32 != 0);
-  if (cr != CUDA_SUCCESS) return -static_cast<int>(cr);
-  if (f32) {
-    const cudaError_t rc = tf32::split_rows(static_cast<const float*>(x),
-                                            static_cast<float*>(x_split), n, d,
-                                            s);
-    if (rc != cudaSuccess) return static_cast<int>(rc);
-    auto run = list_len == KMAX ? (has_cap ? &launch<float, true, KMAX>
-                                           : &launch<float, false, KMAX>)
-                                : (has_cap ? &launch<float, true, KMAX_WIDE>
-                                           : &launch<float, false, KMAX_WIDE>);
-    return run(mx, me, targets, part_max, part_sumexp, part_tgt, part_vals,
-               part_ids, n, d, v, k_top, n_chunks, cap, s);
-  }
-  auto run = list_len == KMAX
-                  ? (has_cap ? &launch<__nv_bfloat16, true, KMAX>
-                             : &launch<__nv_bfloat16, false, KMAX>)
-                  : (has_cap ? &launch<__nv_bfloat16, true, KMAX_WIDE>
-                             : &launch<__nv_bfloat16, false, KMAX_WIDE>);
-  return run(mx, me, targets, part_max, part_sumexp, part_tgt, part_vals,
-             part_ids, n, d, v, k_top, n_chunks, cap, s);
+  if (f32) return tbx_wgmma_launch_f32(WGMMA_ARGS);
+  return launch_typed<__nv_bfloat16>(WGMMA_ARGS);
 }
+#endif
 
 }  // extern "C"

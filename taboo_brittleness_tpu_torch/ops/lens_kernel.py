@@ -7,23 +7,20 @@ logits with their ids.  A kernel streams the embedding and writes one set of
 partials per chunk of the vocabulary; :func:`merge_partials`, a small torch
 epilogue, merges them, so the ``[N, V]`` logits never reach device memory.
 
-Three kernels, three routes, chosen by :func:`lens_plan` before the launch
-from the call's rows, vocabulary, top-k, dtype and the card's SM count:
+Two kernels, two routes, chosen by :func:`lens_plan` before the launch
+from the call's rows, vocabulary, dtype and the card's SM count:
 
-- ``"splitv"`` (``csrc/lens_stats_splitv.cu``): bf16 or f32 inputs, ``top_k
-  <= KMAX_WIDE`` and at most :data:`SPLITV_MAX_ROWS` rows (f32:
-  :data:`SPLITV_F32_MAX_ROWS`): the serving readouts (N 8 per step, N 32 per
-  speculative verify, each tp shard's).  E's rows are the wgmma's M and the
-  few rows of x its N; one block per SM streams a balanced range of 32-row
-  vocab tiles once (TMA ring), and each consumer warp folds its tokens'
-  logits across the lanes.  One partial per (chunk, row).
-- ``"wgmma"`` (``csrc/lens_stats_wgmma.cu``): bf16 or f32 inputs and
-  ``top_k <= KMAX_WIDE`` with more rows, which is every call of the main path.
-  TMA ring, wgmma, 128 x 256 tiles and a running per-row state across a
-  vocab chunk: one partial per (chunk, row).
-- ``"simple"`` (``csrc/lens_stats.cu``): a top-k of ``KMAX_WIDE + 1`` to
-  :data:`BLOCK_V` (128), bf16 or f32.  WMMA or FMA tiles of 64 x 128 with one
-  partial per 128 columns.
+- ``"splitv"`` (``csrc/lens_stats_splitv.cu``): bf16 or f32 inputs and at
+  most :data:`SPLITV_MAX_ROWS` rows (f32: :data:`SPLITV_F32_MAX_ROWS`): the
+  serving readouts (N 8 per step, N 32 per speculative verify, each tp
+  shard's).  E's rows are the wgmma's M and the few rows of x its N; one
+  block per SM streams a balanced range of 32-row vocab tiles once (TMA
+  ring), and each consumer warp folds its tokens' logits across the lanes.
+  One partial per (chunk, row).
+- ``"wgmma"`` (``csrc/lens_stats_wgmma.cu``): bf16 or f32 inputs with more
+  rows, which is every call of the main path.  TMA ring, wgmma, 128 x 256
+  tiles and a running per-row state across a vocab chunk: one partial per
+  (chunk, row).
 
 The two Hopper kernels each hold two instantiations of their running top-k
 list: :data:`KMAX` entries (every call with ``top_k <= KMAX``) and
@@ -36,11 +33,22 @@ split x once per call into a ``[2, N, D]`` scratch the launcher allocates.  The 
 length and dtype, and refuses a top-k above the longest list, or a dtype,
 the library does not export.
 
+A top-k above :data:`KMAX_WIDE` (up to :data:`TOP_K_MAX`) runs the long
+list in ``ceil(K / KMAX_WIDE)`` passes of the same plan, each a launch of
+the same kernel, certified exact by :func:`certify_top_k`: the first pass
+is the ``KMAX_WIDE`` call, and each later one (a refill) lists, per (chunk,
+row), the keys below a ceiling, the last key that pair's list held, where
+the list may have left some of the top-k out.  No pass waits on the host,
+so the call can be captured in a CUDA graph.  The split-V kernel's last
+block certifies in the launch itself up to :data:`MERGE_MAX`; above it, and
+on the wgmma route, the certificate is a torch epilogue.
+
 - :func:`lens_stats` dispatches on the device of its inputs: CUDA tensors go
   to a kernel (or raise when no kernel can take them), CPU tensors go to
   :func:`lens_stats_reference`.  There is no fallback from one to the other.
   ``lens_stats.launches`` counts kernel launches and
-  ``lens_stats.route_launches`` splits them by route.
+  ``lens_stats.route_launches`` splits them by route, a refill apart from
+  the first pass (``"<route>_refill"``).
 - :func:`lens_stats_reference` is the plain version: the full f32 logits,
   ``logsumexp`` and a top-k.  It is the CPU path and the kernels' oracle;
   :func:`lens_stats_partials_reference` is the plain version of the
@@ -51,8 +59,9 @@ All prefer the lower vocab id among equal values, as ``lax.top_k`` does
 
 The kernels are built from the checkout at first use: ``nvcc`` compiles each
 source for ``sm_90a`` into ``csrc/build/`` (listed in ``.gitignore``), one
-compiler per source, all started together, and the shared libraries are
-loaded with ``ctypes``.
+compiler per unit (:data:`UNITS`: each source's bf16 and f32
+instantiations apart), all started together, one link per library, and the
+shared libraries are loaded with ``ctypes``.
 """
 
 from __future__ import annotations
@@ -63,7 +72,7 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Dict, NamedTuple, Optional, Tuple, Union
+from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -71,17 +80,26 @@ import torch
 #: Logit of a target that is absent (``-1``) or outside the vocabulary.
 NEG_INF = -1e30
 
-#: Vocab columns per tile of the simple kernel; the vocabulary must be a
-#: multiple of it.
+#: The vocabulary must be a multiple of it, as of the JAX kernel's
+#: ``block_v`` (the Hopper kernels take a ragged last tile; the check keeps
+#: the two packages' contract, and the serving stack pads to it).
 BLOCK_V = 128
+
+#: The largest top-k a call takes: the JAX Pallas kernel's default
+#: ``block_v``, the most that kernel takes by default.
+TOP_K_MAX = 1024
 
 #: The wgmma kernel's block tile (rows x vocab columns).
 WGMMA_ROWS, WGMMA_COLS = 128, 256
 
 #: The lengths of the Hopper kernels' running top-k lists: calls with
-#: ``top_k <= KMAX`` take the short list, calls up to ``KMAX_WIDE`` the long
-#: one.  Longer top-k take the simple kernel.
+#: ``top_k <= KMAX`` take the short list, longer ones the long one (above
+#: ``KMAX_WIDE`` in several passes, :func:`certify_top_k`).
 KMAX, KMAX_WIDE = 8, 32
+
+#: The largest top-k the split-V kernel's last block certifies in the
+#: launch (four ranks a lane); above it the torch epilogue does.
+MERGE_MAX = 128
 
 #: The split-V kernel's plan tile: vocab rows per step of a chunk (one TMA
 #: box of E).
@@ -117,13 +135,20 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = {
     "splitv": os.path.join(_CSRC, "lens_stats_splitv.cu"),
     "wgmma": os.path.join(_CSRC, "lens_stats_wgmma.cu"),
-    "simple": os.path.join(_CSRC, "lens_stats.cu"),
 }
+#: Each library's compiler units, as the defines of each: a source's bf16
+#: and f32 instantiations (split-V 32 each, wgmma 4) compile apart, in
+#: parallel, and link into one library.
+UNITS = {"splitv": (("LENS_SPLITV_UNIT=1",), ("LENS_SPLITV_UNIT=2",)),
+         "wgmma": (("LENS_WGMMA_UNIT=1",), ("LENS_WGMMA_UNIT=2",))}
 #: Headers the sources include; a change to one rebuilds every library.
 HEADERS = (os.path.join(_CSRC, "tf32_split.cuh"),)
 BUILD_DIR = os.path.join(_CSRC, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: A unit's flags (an object, not a library) and the link's.
+COMPILE_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-shared") + ("-c",)
+LINK_FLAGS = NVCC_FLAGS[:2] + ("-shared",)
 
 TargetLike = Union[int, np.ndarray, torch.Tensor]
 
@@ -152,7 +177,7 @@ class LensPartials(NamedTuple):
 
 class LensPlan(NamedTuple):
     """How one call is cut: the route, its tiles and its vocab chunks."""
-    route: str                  # "splitv", "wgmma" or "simple"
+    route: str                  # "splitv", "wgmma" or "plain"
     row_tiles: int              # blocks along the rows
     vocab_tiles: int            # kernel tiles along the vocabulary
     chunks: int                 # S: partials per row
@@ -194,37 +219,28 @@ def _wgmma_plan(n: int, v: int, sm_count: int) -> LensPlan:
                     _tile_bounds(v, WGMMA_COLS, chunks))
 
 
-def _simple_plan(n: int, v: int) -> LensPlan:
-    """64-row tiles and one chunk per 128 vocab columns."""
-    tiles = v // BLOCK_V
-    return LensPlan("simple", _cdiv(n, 64), tiles, tiles,
-                    tuple(range(0, v + 1, BLOCK_V)))
-
-
 def lens_plan(n: int, v: int, k: int, dtype: torch.dtype, *,
               sm_count: int = H100_SMS) -> LensPlan:
     """The route and geometry of a lens-stats call over N rows, V vocab
     columns and top-``k`` on a card of ``sm_count`` SMs.
 
-    ``k <= KMAX_WIDE`` takes the split-V kernel up to
-    :data:`SPLITV_MAX_ROWS` rows in bf16 (:data:`SPLITV_F32_MAX_ROWS` in
-    f32; :func:`_splitv_plan`) and the wgmma kernel above
-    (:func:`_wgmma_plan`); a longer top-k takes the simple kernel
-    (:func:`_simple_plan`).
+    The split-V kernel up to :data:`SPLITV_MAX_ROWS` rows in bf16
+    (:data:`SPLITV_F32_MAX_ROWS` in f32; :func:`_splitv_plan`), the wgmma
+    kernel above (:func:`_wgmma_plan`), whatever ``k``: a top-k above
+    :data:`KMAX_WIDE` runs the same plan in passes (:func:`certify_top_k`).
     """
-    if k <= KMAX_WIDE:
-        limit = SPLITV_F32_MAX_ROWS if dtype == torch.float32 else SPLITV_MAX_ROWS
-        if n <= limit:
-            return _splitv_plan(n, v, sm_count)
-        return _wgmma_plan(n, v, sm_count)
-    return _simple_plan(n, v)
+    del k
+    limit = SPLITV_F32_MAX_ROWS if dtype == torch.float32 else SPLITV_MAX_ROWS
+    if n <= limit:
+        return _splitv_plan(n, v, sm_count)
+    return _wgmma_plan(n, v, sm_count)
 
 
 def whole_plan(v: int) -> LensPlan:
     """One chunk over the whole vocabulary of ``v`` ids: the plan of a
     plain call (:func:`lens_stats_partials_reference`) that no kernel
     runs."""
-    return LensPlan("simple", 1, 1, 1, (0, v))
+    return LensPlan("plain", 1, 1, 1, (0, v))
 
 
 # ---------------------------------------------------------------------------
@@ -257,6 +273,85 @@ def topk_lowest_id(values: torch.Tensor, k: int,
 
 
 # ---------------------------------------------------------------------------
+# A top-k above the kernels' lists: certified passes.
+# ---------------------------------------------------------------------------
+
+def _keys(values: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """One int64 key per (value, id) whose order is the top-k order (value
+    descending, then id ascending) as the kernels compare: -0 as +0.  The
+    kernels decode and build the same keys (``key_parts``, ``make_key``)."""
+    values = torch.where(values == 0, torch.zeros_like(values), values)
+    return (_ordered_bits(values) << 32) | (0xFFFFFFFF - ids.long())
+
+
+def _unkey(keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(f32 values, int32 ids) of :func:`_keys`' keys."""
+    hi = keys >> 32
+    bits = torch.where(hi >= 0, hi, hi ^ 0x7FFFFFFF).to(torch.int32)
+    return bits.view(torch.float32), (0xFFFFFFFF - (keys & 0xFFFFFFFF)).to(
+        torch.int32)
+
+
+#: The key of an empty list entry (-inf, id 2**31 - 1), below every
+#: column's: the ceiling of a (chunk, row) pair with nothing left to list.
+EMPTY_KEY = int(_keys(torch.tensor([float("-inf")]),
+                      torch.tensor([2**31 - 1]))[0])
+
+
+def _top_keys(keys: torch.Tensor, k: int,
+              best: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The ``k`` largest of ``best`` [N, k] and the lists' keys [S, N, L],
+    per row, descending; :data:`EMPTY_KEY` where there are fewer."""
+    n = keys.shape[1]
+    flat = keys.permute(1, 0, 2).reshape(n, -1)
+    pieces = [flat] if best is None else [best, flat]
+    if sum(p.shape[1] for p in pieces) < k:
+        pieces.append(torch.full((n, k), EMPTY_KEY, dtype=torch.int64,
+                                 device=keys.device))
+    return torch.topk(torch.cat(pieces, dim=1), k, dim=1).values
+
+
+PassFn = Callable[[Optional[torch.Tensor]], LensPartials]
+
+
+def certify_top_k(pass_fn: PassFn, top_k: int) -> LensPartials:
+    """The exact top-``top_k`` of a call whose lists hold fewer entries.
+
+    ``pass_fn(ceiling)`` runs one pass of the call's plan and returns its
+    partials, each (chunk s, row r) listing its L largest keys (value
+    descending, then id ascending; :func:`_keys`) strictly below
+    ``ceiling[s, r]`` ([S, N] int64), or below nothing for ``None``, padded
+    with the empty key.  After pass 1, ``t[r]`` is the ``top_k``-th key of
+    the union of every list so far.  A pair whose list's last key lies at
+    or below ``t[r]`` is complete: every key it did not list lies below
+    that last key, so outside the union's top-``top_k``.  Every other pair
+    gets its list's last key as its ceiling for the next pass, and a
+    complete one the empty key (its list comes back empty).  After p passes
+    a pair still open holds p L keys above ``t[r]``, of which there are
+    fewer than ``top_k``: so ``ceil(top_k / L)`` passes make every pair
+    complete, and exactly that many run, with nothing read on the host.
+    Statistics come from pass 1.  Returns the call as one chunk: its max,
+    sum-exp and target over the vocabulary and its top-``top_k``.
+    """
+    parts = pass_fn(None)
+    length = parts.cand_vals.shape[-1]
+    keys = _keys(parts.cand_vals, parts.cand_ids)
+    best = _top_keys(keys, top_k)
+    for _ in range(1, _cdiv(top_k, length)):
+        last = keys[..., -1]
+        ceiling = torch.where(last > best[:, -1], last, EMPTY_KEY)
+        refill = pass_fn(ceiling)
+        keys = _keys(refill.cand_vals, refill.cand_ids)
+        best = _top_keys(keys, top_k, best)
+    vals, ids = _unkey(best)
+    gmax = parts.chunk_max.max(dim=0).values
+    sumexp = (parts.chunk_sumexp * torch.exp(parts.chunk_max - gmax)).sum(dim=0)
+    return LensPartials(gmax[None], sumexp[None],
+                        parts.chunk_tgt.max(dim=0).values[None], vals[None],
+                        ids[None])
+
+
+# ---------------------------------------------------------------------------
 # The plain versions and the epilogue.
 # ---------------------------------------------------------------------------
 
@@ -274,7 +369,8 @@ def _targets(target_id: TargetLike, n_rows: int,
 
 def _check_shapes(x: torch.Tensor, embed: torch.Tensor, top_k: int, *,
                   tiled: bool = True) -> None:
-    """Shapes a call takes; ``tiled`` also asks for whole kernel tiles."""
+    """Shapes a call takes; ``tiled`` also asks for a vocabulary of whole
+    :data:`BLOCK_V` tiles."""
     if x.dim() != 2 or embed.dim() != 2:
         raise ValueError(f"x must be [N, D] and embed [V, D], got "
                          f"{tuple(x.shape)} and {tuple(embed.shape)}")
@@ -285,8 +381,9 @@ def _check_shapes(x: torch.Tensor, embed: torch.Tensor, top_k: int, *,
     if tiled and v % BLOCK_V:
         raise ValueError(f"vocab {v} not divisible by the kernel's tile "
                          f"width {BLOCK_V}")
-    if not 1 <= top_k <= BLOCK_V:
-        raise ValueError(f"top_k must be in [1, {BLOCK_V}], got {top_k}")
+    if not 1 <= top_k <= min(TOP_K_MAX, v):
+        raise ValueError(f"top_k must be in [1, {min(TOP_K_MAX, v)}] (vocab "
+                         f"{v}), got {top_k}")
 
 
 def plain_logits(x: torch.Tensor, embed: torch.Tensor,
@@ -330,27 +427,36 @@ def lens_stats_partials_reference(
     *,
     top_k: int = 5,
     logit_cap: Optional[float] = None,
+    ceiling: Optional[torch.Tensor] = None,   # [S, N] int64 keys
 ) -> LensPartials:
     """The plain version of the partials a kernel writes for ``plan``: the
     same statistics as :func:`lens_stats_reference`, per chunk of the
     vocabulary.  The plan's chunks need not be whole kernel tiles
-    (:func:`whole_plan` is one chunk over any vocabulary)."""
+    (:func:`whole_plan` is one chunk over any vocabulary).  Each list holds
+    its chunk's ``top_k`` largest keys (:func:`_keys`; below ``ceiling[s,
+    r]`` when given, a refill pass of :func:`certify_top_k`), padded with
+    the empty key (-inf, id 2**31 - 1) where the chunk has fewer."""
     _check_shapes(x, embed, top_k, tiled=False)
     if plan.bounds[-1] != embed.shape[0]:
         raise ValueError(f"plan cut for vocab {plan.bounds[-1]}, embed has "
                          f"{embed.shape[0]} rows")
     logits = plain_logits(x, embed, logit_cap)
-    targets = _targets(target_id, x.shape[0], x.device).long()
+    n = x.shape[0]
+    targets = _targets(target_id, n, x.device).long()
     tgt = torch.gather(logits, 1, targets.clamp(0, logits.shape[1] - 1)[:, None])[:, 0]
+    empty = torch.full((n, top_k), EMPTY_KEY, dtype=torch.int64, device=x.device)
     parts = []
-    for lo, hi in zip(plan.bounds[:-1], plan.bounds[1:]):
+    for s, (lo, hi) in enumerate(zip(plan.bounds[:-1], plan.bounds[1:])):
         block = logits[:, lo:hi]
         m = block.max(dim=1).values
         inside = (targets >= lo) & (targets < hi)
-        vals, ids = topk_lowest_id(block, top_k)
+        keys = _keys(block, torch.arange(lo, hi, device=x.device).expand(n, -1))
+        if ceiling is not None:
+            keys = torch.where(keys < ceiling[s, :, None], keys, EMPTY_KEY)
+        keys = torch.topk(torch.cat([keys, empty], dim=1), top_k, dim=1).values
         parts.append((m, torch.exp(block - m[:, None]).sum(dim=1),
                       torch.where(inside, tgt, torch.full_like(tgt, NEG_INF)),
-                      vals, ids + lo))
+                      *_unkey(keys)))
     return LensPartials(*(torch.stack(p) for p in zip(*parts)))
 
 
@@ -388,34 +494,53 @@ def _nvcc() -> str:
 
 
 def build_library() -> Dict[str, Tuple[str, str]]:
-    """Compile each route's source unless a build of the same source and
-    flags exists, one ``nvcc`` per source, all started together.  Returns
+    """Build each route's library unless a build of the same source and
+    flags exists: one ``nvcc -c`` per unit (:data:`UNITS`), every unit of
+    every library started together, then one link per library.  Returns
     {route: (path of the shared library, compiler output)}."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     built, running = {}, {}
     headers = b"".join(open(h, "rb").read() for h in HEADERS)
     for route, source in SOURCES.items():
         with open(source, "rb") as f:
-            digest = hashlib.sha256(f.read() + headers
-                                    + " ".join(NVCC_FLAGS).encode())
+            digest = hashlib.sha256(f.read() + headers + repr(
+                (NVCC_FLAGS, UNITS[route])).encode())
         stem = os.path.splitext(os.path.basename(source))[0]
         out = os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}.so")
         if os.path.exists(out):
             built[route] = (out, "")
             continue
-        tmp = f"{out}.{os.getpid()}.tmp"
-        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, source],
-                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                text=True)
-        running[route] = (proc, source, tmp, out)
+        units = []
+        for i, defines in enumerate(UNITS[route]):
+            obj = f"{out}.{i}.{os.getpid()}.o"
+            proc = subprocess.Popen(
+                [_nvcc(), *COMPILE_FLAGS, *(f"-D{d}" for d in defines), "-o",
+                 obj, source], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)
+            units.append((proc, obj))
+        running[route] = (units, source, out)
     failed = []
-    for route, (proc, source, tmp, out) in running.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed on {source}:\n{log}")
+    for route, (units, source, out) in running.items():
+        logs = []
+        for proc, _ in units:
+            log, _ = proc.communicate()
+            logs.append(log)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed on {source}:\n{log}")
+        if failed:
+            continue
+        tmp = f"{out}.{os.getpid()}.tmp"
+        link = subprocess.run([_nvcc(), *LINK_FLAGS, "-o", tmp,
+                               *(obj for _, obj in units)],
+                              capture_output=True, text=True)
+        for _, obj in units:
+            os.remove(obj)
+        if link.returncode != 0:
+            failed.append(f"nvcc failed to link {out}:\n{link.stdout}"
+                          f"{link.stderr}")
             continue
         os.replace(tmp, out)
-        built[route] = (out, log)
+        built[route] = (out, "".join(logs))
     if failed:
         raise RuntimeError("\n".join(failed))
     return built
@@ -424,7 +549,8 @@ def build_library() -> Dict[str, Tuple[str, str]]:
 def bind_library(route: str, path: str) -> ctypes.CDLL:
     """Load a built library of ``route`` and declare its C interface.  Its
     ``list_lengths`` are the top-k list lengths it instantiates, shortest
-    first, and its ``dtypes`` the input types, as the library exports
+    first, its ``dtypes`` the input types and (split-V) its ``merge_max``
+    the largest top-k its last block certifies, as the library exports
     them."""
     lib = ctypes.CDLL(path)
     p = ctypes.c_void_p
@@ -432,7 +558,7 @@ def bind_library(route: str, path: str) -> ctypes.CDLL:
     if route == "splitv":
         for name in ("tbx_splitv_tile_rows", "tbx_splitv_kmax",
                      "tbx_splitv_kmax_wide", "tbx_splitv_max_rows",
-                     "tbx_splitv_dtypes"):
+                     "tbx_splitv_dtypes", "tbx_splitv_merge_max"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = i
         for name in ("tbx_splitv_smem_bytes", "tbx_splitv_f32_smem_bytes"):
@@ -440,7 +566,8 @@ def bind_library(route: str, path: str) -> ctypes.CDLL:
             getattr(lib, name).restype = i
         lib.tbx_splitv_error_string.argtypes = [i]
         lib.tbx_splitv_error_string.restype = ctypes.c_char_p
-        lib.tbx_lens_splitv.argtypes = [p] * 14 + [i] * 8 + [ctypes.c_float, p]
+        lib.tbx_lens_splitv.argtypes = ([p] * 14 + [i] * 8 + [ctypes.c_float, p]
+                                        + [p, p, i])
         lib.tbx_lens_splitv.restype = i
         tile, rows = lib.tbx_splitv_tile_rows(), lib.tbx_splitv_max_rows()
         if tile != SPLITV_TILE or rows < SPLITV_MAX_ROWS:
@@ -448,37 +575,26 @@ def bind_library(route: str, path: str) -> ctypes.CDLL:
                                f"expected {SPLITV_TILE} and {SPLITV_MAX_ROWS}")
         lib.list_lengths = (lib.tbx_splitv_kmax(), lib.tbx_splitv_kmax_wide())
         lib.dtypes = _dtypes(lib.tbx_splitv_dtypes())
+        lib.merge_max = lib.tbx_splitv_merge_max()
         return lib
-    if route == "wgmma":
-        for name in ("tbx_wgmma_block_rows", "tbx_wgmma_block_cols",
-                     "tbx_wgmma_kmax", "tbx_wgmma_kmax_wide",
-                     "tbx_wgmma_smem_bytes", "tbx_wgmma_f32_smem_bytes",
-                     "tbx_wgmma_dtypes"):
-            getattr(lib, name).argtypes = []
-            getattr(lib, name).restype = i
-        lib.tbx_wgmma_error_string.argtypes = [i]
-        lib.tbx_wgmma_error_string.restype = ctypes.c_char_p
-        lib.tbx_lens_wgmma.argtypes = [p] * 9 + [i] * 8 + [ctypes.c_float, p]
-        lib.tbx_lens_wgmma.restype = i
-        geometry = (lib.tbx_wgmma_block_rows(), lib.tbx_wgmma_block_cols())
-        if geometry != (WGMMA_ROWS, WGMMA_COLS):
-            raise RuntimeError(f"{path} has tiles {geometry}, expected "
-                               f"{(WGMMA_ROWS, WGMMA_COLS)}")
-        lib.list_lengths = (lib.tbx_wgmma_kmax(), lib.tbx_wgmma_kmax_wide())
-        lib.dtypes = _dtypes(lib.tbx_wgmma_dtypes())
-        return lib
-    lib.tbx_lens_block_v.argtypes = []
-    lib.tbx_lens_block_v.restype = i
-    lib.tbx_cuda_error_string.argtypes = [i]
-    lib.tbx_cuda_error_string.restype = ctypes.c_char_p
-    lib.tbx_lens_stats.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i,
-                                   ctypes.c_float, i, p]
-    lib.tbx_lens_stats.restype = i
-    if lib.tbx_lens_block_v() != BLOCK_V:
-        raise RuntimeError(f"{path} tiles the vocab by "
-                           f"{lib.tbx_lens_block_v()}, expected {BLOCK_V}")
-    lib.list_lengths = (BLOCK_V,)
-    lib.dtypes = (torch.bfloat16, torch.float32)
+    if route != "wgmma":
+        raise ValueError(f"unknown route {route!r}")
+    for name in ("tbx_wgmma_block_rows", "tbx_wgmma_block_cols",
+                 "tbx_wgmma_kmax", "tbx_wgmma_kmax_wide",
+                 "tbx_wgmma_smem_bytes", "tbx_wgmma_f32_smem_bytes",
+                 "tbx_wgmma_dtypes"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = i
+    lib.tbx_wgmma_error_string.argtypes = [i]
+    lib.tbx_wgmma_error_string.restype = ctypes.c_char_p
+    lib.tbx_lens_wgmma.argtypes = [p] * 9 + [i] * 8 + [ctypes.c_float, p, p]
+    lib.tbx_lens_wgmma.restype = i
+    geometry = (lib.tbx_wgmma_block_rows(), lib.tbx_wgmma_block_cols())
+    if geometry != (WGMMA_ROWS, WGMMA_COLS):
+        raise RuntimeError(f"{path} has tiles {geometry}, expected "
+                           f"{(WGMMA_ROWS, WGMMA_COLS)}")
+    lib.list_lengths = (lib.tbx_wgmma_kmax(), lib.tbx_wgmma_kmax_wide())
+    lib.dtypes = _dtypes(lib.tbx_wgmma_dtypes())
     return lib
 
 
@@ -507,12 +623,26 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+class _Certify(NamedTuple):
+    """Where a pass of the split-V kernel's certified merge (top-k
+    ``KMAX_WIDE + 1`` to :data:`MERGE_MAX`) writes: the call's statistics
+    (its top-k carried from pass to pass), the ceilings its last block sets
+    for the next pass ([S, N] int64) and the pass's ticket (one int, 0)."""
+    stats: LensStats
+    next_ceiling: torch.Tensor
+    ticket: torch.Tensor
+
+
 def _launch(x: torch.Tensor, embed: torch.Tensor, targets: torch.Tensor,
             plan: LensPlan, top_k: int, logit_cap: Optional[float], *,
-            merged: bool = False) -> Union[LensPartials, LensStats]:
+            merged: bool = False, ceiling: Optional[torch.Tensor] = None,
+            certify: Optional[_Certify] = None
+            ) -> Union[LensPartials, LensStats]:
     """One kernel launch of ``plan``'s route; returns its partials, or with
     ``merged`` (the split-V route only) the :class:`LensStats` its last block
-    merges them into."""
+    merges them into.  ``ceiling`` ([S, N] int64 keys, the long list only)
+    makes it a refill pass of :func:`certify_top_k`; ``certify`` (split-V,
+    merged) a pass of the kernel's own certified merge."""
     if embed.device != x.device or targets.device != x.device:
         raise ValueError(f"x is on {x.device} but embed on {embed.device} and "
                          f"targets on {targets.device}")
@@ -530,37 +660,50 @@ def _launch(x: torch.Tensor, embed: torch.Tensor, targets: torch.Tensor,
                          "aligned")
     if n == 0:
         raise ValueError("the lens kernels take N >= 1 rows")
+    if top_k > KMAX_WIDE:
+        raise ValueError(f"one launch lists top_k <= {KMAX_WIDE}, got {top_k} "
+                         "(longer top-k: certify_top_k)")
     if plan.route == "splitv":
-        if top_k > KMAX_WIDE or n > SPLITV_MAX_ROWS:
-            raise ValueError(f"the splitv route takes top_k <= {KMAX_WIDE} "
-                             f"and N <= {SPLITV_MAX_ROWS}, got {top_k} and {n}")
+        if n > SPLITV_MAX_ROWS:
+            raise ValueError(f"the splitv route takes N <= {SPLITV_MAX_ROWS}, "
+                             f"got {n}")
         tiles = _cdiv(v, SPLITV_TILE)
         if not 1 <= plan.chunks <= tiles:
             raise ValueError(f"plan {plan[:4]} does not cut V={v}")
         expected = (1, tiles, _tile_bounds(v, SPLITV_TILE, plan.chunks))
     elif plan.route == "wgmma":
-        if top_k > KMAX_WIDE:
-            raise ValueError(f"the wgmma route takes top_k <= {KMAX_WIDE}, "
-                             f"got {top_k}")
         expected = (_cdiv(n, WGMMA_ROWS), _cdiv(v, WGMMA_COLS),
                     _tile_bounds(v, WGMMA_COLS, plan.chunks))
-    elif plan.route == "simple":
-        expected = (_cdiv(n, 64), v // BLOCK_V, tuple(range(0, v + 1, BLOCK_V)))
-        if v // BLOCK_V > 65535:
-            raise ValueError(f"the simple route takes V <= {65535 * BLOCK_V}")
     else:
         raise ValueError(f"unknown route {plan.route!r}")
     if merged and plan.route != "splitv":
         raise ValueError(f"the {plan.route} kernel writes partials only")
     if (plan.row_tiles, plan.vocab_tiles, plan.bounds) != expected:
         raise ValueError(f"plan {plan[:4]} does not cut N={n}, V={v}")
+    s = plan.chunks
+    for keys in (ceiling, None if certify is None else certify.next_ceiling):
+        if keys is not None and (
+                keys.dtype != torch.int64 or tuple(keys.shape) != (s, n)
+                or keys.device != x.device or not keys.is_contiguous()):
+            raise ValueError(f"ceilings are contiguous [{s}, {n}] int64 keys "
+                             f"on {x.device}")
+    if (ceiling is not None or certify is not None) and top_k != KMAX_WIDE:
+        raise ValueError(f"a pass of a longer top-k lists {KMAX_WIDE}, got "
+                         f"{top_k}")
+    if certify is not None and not merged:
+        raise ValueError("the certified merge is the split-V kernel's merge")
 
     lib = _library(plan.route)
     length = list_length(lib, plan.route, top_k)
     if x.dtype not in lib.dtypes:
         raise ValueError(f"the {plan.route} library instantiates "
                          f"{lib.dtypes}, not {x.dtype}")
-    s = plan.chunks
+    k_merge = top_k
+    if certify is not None:
+        k_merge = certify.stats.topk_vals.shape[1]
+        if not KMAX_WIDE < k_merge <= lib.merge_max:
+            raise ValueError(f"the split-V kernel certifies top_k "
+                             f"{KMAX_WIDE + 1}-{lib.merge_max}, not {k_merge}")
     f32 = dict(dtype=torch.float32, device=x.device)
     parts = LensPartials(
         chunk_max=torch.empty((s, n), **f32),
@@ -571,13 +714,16 @@ def _launch(x: torch.Tensor, embed: torch.Tensor, targets: torch.Tensor,
     ptrs = [t.data_ptr() for t in (x, embed, targets, *parts)]
     has_cap, cap = int(logit_cap is not None), float(logit_cap or 0.0)
     is_f32 = int(x.dtype == torch.float32)
-    # The Hopper kernels' f32 instantiations split x into hi and lo here;
-    # the tensor lives until the launch is enqueued on this stream.
-    split_buf = (torch.empty((2, n, d), **f32)
-                 if is_f32 and plan.route != "simple" else None)
+    # The f32 instantiations split x into hi and lo here; the tensor lives
+    # until the launch is enqueued on this stream.
+    split_buf = torch.empty((2, n, d), **f32) if is_f32 else None
     split = None if split_buf is None else split_buf.data_ptr()
-    stats, ticket = None, None
-    if merged:
+    ceiling_ptr = None if ceiling is None else ceiling.data_ptr()
+    stats, ticket, next_ptr = None, None, None
+    if certify is not None:
+        stats, ticket = certify.stats, certify.ticket
+        next_ptr = certify.next_ceiling.data_ptr()
+    elif merged:
         stats = LensStats(
             logsumexp=torch.empty((n,), **f32),
             target_logit=torch.empty((n,), **f32),
@@ -591,23 +737,60 @@ def _launch(x: torch.Tensor, embed: torch.Tensor, targets: torch.Tensor,
                           else [None] * 5)
             rc = lib.tbx_lens_splitv(*ptrs[:2], split, *ptrs[2:], *merge_ptrs,
                                      n, d, v, top_k, length, s, has_cap,
-                                     is_f32, cap, stream)
+                                     is_f32, cap, stream, ceiling_ptr,
+                                     next_ptr, k_merge)
             why = lib.tbx_splitv_error_string
-        elif plan.route == "wgmma":
+        else:
             rc = lib.tbx_lens_wgmma(*ptrs[:2], split, *ptrs[2:], n, d, v,
                                     top_k, length, s, has_cap, is_f32, cap,
-                                    stream)
+                                    stream, ceiling_ptr)
             why = lib.tbx_wgmma_error_string
-        else:
-            rc = lib.tbx_lens_stats(*ptrs, n, d, v, top_k, has_cap, cap,
-                                    int(x.dtype == torch.bfloat16), stream)
-            why = lib.tbx_cuda_error_string
     if rc != 0:
         raise RuntimeError(f"lens_stats {plan.route} kernel launch failed "
                            f"({rc}): {why(rc).decode()}")
     lens_stats.launches += 1
-    lens_stats.route_launches[plan.route] += 1
+    lens_stats.route_launches[plan.route if ceiling is None
+                              else f"{plan.route}_refill"] += 1
     return stats if merged else parts
+
+
+def _kernel_pass(x: torch.Tensor, embed: torch.Tensor, targets: torch.Tensor,
+                 plan: LensPlan, logit_cap: Optional[float]) -> PassFn:
+    """One pass of the long list through ``plan``'s kernel, for
+    :func:`certify_top_k`."""
+    return lambda ceiling: _launch(x, embed, targets, plan, KMAX_WIDE,
+                                   logit_cap, ceiling=ceiling)
+
+
+def _plain_pass(x: torch.Tensor, embed: torch.Tensor, targets: torch.Tensor,
+                plan: LensPlan, logit_cap: Optional[float]) -> PassFn:
+    """The same pass through :func:`lens_stats_partials_reference`."""
+    return lambda ceiling: lens_stats_partials_reference(
+        x, embed, targets, plan, top_k=KMAX_WIDE, logit_cap=logit_cap,
+        ceiling=ceiling)
+
+
+def _splitv_certified(x: torch.Tensor, embed: torch.Tensor,
+                      targets: torch.Tensor, plan: LensPlan, top_k: int,
+                      logit_cap: Optional[float]) -> LensStats:
+    """A split-V call of top-k ``KMAX_WIDE + 1`` to :data:`MERGE_MAX`:
+    :func:`certify_top_k`'s passes with the certificate in each launch's
+    last block, which carries the top-k and the ceilings on the card."""
+    n, s = x.shape[0], plan.chunks
+    f32 = dict(dtype=torch.float32, device=x.device)
+    stats = LensStats(
+        logsumexp=torch.empty((n,), **f32),
+        target_logit=torch.empty((n,), **f32),
+        topk_vals=torch.empty((n, top_k), **f32),
+        topk_ids=torch.empty((n, top_k), dtype=torch.int32, device=x.device))
+    ceiling = torch.empty((s, n), dtype=torch.int64, device=x.device)
+    passes = _cdiv(top_k, KMAX_WIDE)
+    tickets = torch.zeros((passes,), dtype=torch.int32, device=x.device)
+    for p in range(passes):
+        _launch(x, embed, targets, plan, KMAX_WIDE, logit_cap, merged=True,
+                ceiling=ceiling if p else None,
+                certify=_Certify(stats, ceiling, tickets[p:p + 1]))
+    return stats
 
 
 def lens_stats_partials(
@@ -620,16 +803,24 @@ def lens_stats_partials(
 ) -> LensPartials:
     """The per-chunk partials of :func:`lens_plan` for these inputs (on CUDA,
     for this card): one kernel launch for CUDA tensors,
-    :func:`lens_stats_partials_reference` for CPU tensors."""
+    :func:`lens_stats_partials_reference` for CPU tensors.  A top-k above
+    :data:`KMAX_WIDE` gives the call as one certified chunk
+    (:func:`certify_top_k` over the same passes)."""
     _check_shapes(x, embed, top_k)
     n, v = x.shape[0], embed.shape[0]
     targets = _targets(target_id, n, x.device)
     if x.device.type == "cpu" and embed.device.type == "cpu":
+        plan = lens_plan(n, v, top_k, x.dtype)
+        if top_k > KMAX_WIDE:
+            return certify_top_k(
+                _plain_pass(x, embed, targets, plan, logit_cap), top_k)
         return lens_stats_partials_reference(
-            x, embed, targets, lens_plan(n, v, top_k, x.dtype), top_k=top_k,
-            logit_cap=logit_cap)
-    return _launch(x, embed, targets, _device_plan(x, embed, top_k), top_k,
-                   logit_cap)
+            x, embed, targets, plan, top_k=top_k, logit_cap=logit_cap)
+    plan = _device_plan(x, embed, top_k)
+    if top_k > KMAX_WIDE:
+        return certify_top_k(
+            _kernel_pass(x, embed, targets, plan, logit_cap), top_k)
+    return _launch(x, embed, targets, plan, top_k, logit_cap)
 
 
 def _device_plan(x: torch.Tensor, embed: torch.Tensor, top_k: int) -> LensPlan:
@@ -652,14 +843,17 @@ def lens_stats(
     """Fused lens statistics for a flat batch of rows.
 
     Rows are independent, so callers fold [B, T] into N = B*T.  V must be a
-    multiple of :data:`BLOCK_V` (256000 = 2000 x 128).  ``target_id`` is one
-    id for every row or one per row; ``-1`` gives :data:`NEG_INF`.
-    ``logit_cap=None`` is the reference lens (bare logits).
+    multiple of :data:`BLOCK_V` (256000 = 2000 x 128), ``top_k`` at most
+    :data:`TOP_K_MAX` and V.  ``target_id`` is one id for every row or one
+    per row; ``-1`` gives :data:`NEG_INF`.  ``logit_cap=None`` is the
+    reference lens (bare logits).
 
     CUDA tensors run a kernel (:func:`lens_plan` picks which): the split-V
-    kernel merges its own chunks in the same launch, the others' partials go
-    through :func:`merge_partials`.  CPU tensors run
-    :func:`lens_stats_reference`.
+    kernel merges its own chunks in the same launch, the wgmma kernel's
+    partials go through :func:`merge_partials`; a top-k above
+    :data:`KMAX_WIDE` takes ``ceil(top_k / KMAX_WIDE)`` launches
+    (:func:`certify_top_k`; the split-V kernel's last blocks certify up to
+    :data:`MERGE_MAX`).  CPU tensors run :func:`lens_stats_reference`.
     """
     _check_shapes(x, embed, top_k)
     if x.device.type == "cpu" and embed.device.type == "cpu":
@@ -667,11 +861,18 @@ def lens_stats(
                                     logit_cap=logit_cap)
     targets = _targets(target_id, x.shape[0], x.device)
     plan = _device_plan(x, embed, top_k)
+    if top_k > KMAX_WIDE:
+        if plan.route == "splitv" and top_k <= MERGE_MAX:
+            return _splitv_certified(x, embed, targets, plan, top_k, logit_cap)
+        return merge_partials(certify_top_k(
+            _kernel_pass(x, embed, targets, plan, logit_cap), top_k))
     if plan.route == "splitv":
         return _launch(x, embed, targets, plan, top_k, logit_cap, merged=True)
     return merge_partials(_launch(x, embed, targets, plan, top_k, logit_cap))
 
 
-#: Kernel launches since the count was last set to 0, in all and by route.
+#: Kernel launches since the count was last set to 0, in all and by route
+#: (a refill pass of a longer top-k apart from the first).
 lens_stats.launches = 0
-lens_stats.route_launches = {"splitv": 0, "wgmma": 0, "simple": 0}
+lens_stats.route_launches = {"splitv": 0, "wgmma": 0, "splitv_refill": 0,
+                             "wgmma_refill": 0}

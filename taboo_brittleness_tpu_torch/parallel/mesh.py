@@ -562,7 +562,8 @@ def tp_lens_stats(mesh: Mesh, x: torch.Tensor, embed: torch.Tensor,
     """The lens statistics of ``x [N, D]`` over the whole vocabulary from
     this rank's ``embed [V/tp, D]``: per-shard partials (the lens kernel
     on CUDA tensors, their plain version over one chunk on CPU tensors,
-    whose shard need not be whole kernel tiles), targets
+    whose shard need not be whole kernel tiles; a top-k above the kernels'
+    lists certified per shard first, as one chunk), targets
     shifted into the shard (-1 outside it) and candidate ids offset back,
     one all-gather of the packed partials, and ``merge_partials`` — the
     same :class:`LensStats` as one call over the whole vocabulary."""

@@ -54,8 +54,7 @@ SPLITV_ROWS = lens_kernel.SPLITV_MAX_ROWS
 TILE_COLS = {"splitv": lens_kernel.SPLITV_TILE, "wgmma": lens_kernel.WGMMA_COLS}
 # The route's own plan, whatever lens_plan would pick for the shape.
 PLANS = {"splitv": lambda n, v, k, sm: lens_kernel._splitv_plan(n, v, sm),
-         "wgmma": lambda n, v, k, sm: lens_kernel._wgmma_plan(n, v, sm),
-         "simple": lambda n, v, k, sm: lens_kernel._simple_plan(n, v)}
+         "wgmma": lambda n, v, k, sm: lens_kernel._wgmma_plan(n, v, sm)}
 F32_ROWS = lens_kernel.SPLITV_F32_MAX_ROWS
 
 
@@ -67,11 +66,11 @@ F32_ROWS = lens_kernel.SPLITV_F32_MAX_ROWS
     (1140, 256_000, 5, F32, "wgmma", 9, 1000),
     (1140, 256_000, 32, BF16, "wgmma", 9, 1000),
     (1140, 256_000, 16, BF16, "wgmma", 9, 1000),
-    (1140, 256_000, lens_kernel.KMAX_WIDE + 1, BF16, "simple", 18, 2000),
-    (1140, 256_000, 128, BF16, "simple", 18, 2000),
+    (1140, 256_000, lens_kernel.KMAX_WIDE + 1, BF16, "wgmma", 9, 1000),
+    (1140, 256_000, 128, BF16, "wgmma", 9, 1000),
     (1140, 256_000, 16, F32, "wgmma", 9, 1000),
     (3, 384, lens_kernel.KMAX + 1, BF16, "splitv", 1, 12),
-    (3, 384, lens_kernel.KMAX_WIDE + 1, BF16, "simple", 1, 3),
+    (3, 384, lens_kernel.KMAX_WIDE + 1, BF16, "splitv", 1, 12),
     (8, 256_000, 1, BF16, "splitv", 1, 8000),
     (8, 128_000, 1, BF16, "splitv", 1, 4000),
     (32, 256_000, 1, BF16, "splitv", 1, 8000),
@@ -86,13 +85,16 @@ F32_ROWS = lens_kernel.SPLITV_F32_MAX_ROWS
     (8, 256_000, lens_kernel.KMAX_WIDE, F32, "splitv", 1, 8000),
     (8, 128_000, lens_kernel.KMAX + 1, BF16, "splitv", 1, 4000),
     (32, 256_000, 16, BF16, "splitv", 1, 8000),
-    (8, 128_000, lens_kernel.KMAX_WIDE + 1, BF16, "simple", 1, 1000),
+    (8, 128_000, lens_kernel.KMAX_WIDE + 1, BF16, "splitv", 1, 4000),
     (F32_ROWS, 256_000, 1, F32, "splitv", 1, 8000),
     (F32_ROWS, 128_000, lens_kernel.KMAX_WIDE, F32, "splitv", 1, 4000),
     (F32_ROWS + 1, 256_000, 1, F32, "wgmma", 1, 1000),
     (F32_ROWS + 1, 256_000, lens_kernel.KMAX, F32, "wgmma", 1, 1000),
-    (1140, 256_000, lens_kernel.KMAX_WIDE + 1, F32, "simple", 18, 2000),
-    (8, 256_000, lens_kernel.KMAX_WIDE + 1, F32, "simple", 1, 2000),
+    (1140, 256_000, lens_kernel.KMAX_WIDE + 1, F32, "wgmma", 9, 1000),
+    (8, 256_000, lens_kernel.KMAX_WIDE + 1, F32, "splitv", 1, 8000),
+    (8, 256_000, lens_kernel.MERGE_MAX + 1, BF16, "splitv", 1, 8000),
+    (1140, 256_000, lens_kernel.TOP_K_MAX, BF16, "wgmma", 9, 1000),
+    (SPLITV_ROWS, 256_000, lens_kernel.TOP_K_MAX, BF16, "splitv", 1, 8000),
 ])
 def test_plan_routes_and_edges(n, v, k, dtype, route, row_tiles, vocab_tiles):
     plan = lens_kernel.lens_plan(n, v, k, dtype)
@@ -101,16 +103,15 @@ def test_plan_routes_and_edges(n, v, k, dtype, route, row_tiles, vocab_tiles):
     assert len(plan.bounds) == plan.chunks + 1
     assert plan.bounds[0] == 0 and plan.bounds[-1] == v
     assert all(a < b for a, b in zip(plan.bounds, plan.bounds[1:]))
-    if route == "simple":
-        assert plan.chunks == v // lens_kernel.BLOCK_V
-    else:
-        # Whole kernel tiles, balanced to within one tile; a ragged last
-        # tile only at the very end.
-        cols = TILE_COLS[route]
-        assert all(b % cols == 0 for b in plan.bounds[:-1])
-        tiles = [-(-(b - a) // cols)
-                 for a, b in zip(plan.bounds, plan.bounds[1:])]
-        assert max(tiles) - min(tiles) <= 1 and sum(tiles) == vocab_tiles
+    # Whole kernel tiles, balanced to within one tile; a ragged last tile
+    # only at the very end.  A longer top-k takes the K = KMAX_WIDE plan.
+    cols = TILE_COLS[route]
+    assert all(b % cols == 0 for b in plan.bounds[:-1])
+    tiles = [-(-(b - a) // cols)
+             for a, b in zip(plan.bounds, plan.bounds[1:])]
+    assert max(tiles) - min(tiles) <= 1 and sum(tiles) == vocab_tiles
+    assert plan == lens_kernel.lens_plan(n, v, min(k, lens_kernel.KMAX_WIDE),
+                                         dtype)
 
 
 @pytest.mark.parametrize("sm_count", [lens_kernel.H100_SMS, 66])
@@ -135,11 +136,13 @@ def test_plan_follows_the_cards_sm_count():
     assert small.bounds[-1] == 256_000
 
 
-@pytest.mark.parametrize("route", ["splitv", "wgmma", "simple"])
+MERGED_SHAPES = [(6, 32, 256, 3), (16, 64, 512, 5), (5, 16, 384, 4),
+                 (7, 16, 4224, 5), (8, 32, 2048, 16), (6, 16, 4224, 32)]
+
+
+@pytest.mark.parametrize("route", ["splitv", "wgmma"])
 @pytest.mark.parametrize("cap", [None, 30.0])
-@pytest.mark.parametrize("n_rows,d,v,k", [(6, 32, 256, 3), (16, 64, 512, 5),
-                                          (5, 16, 384, 4), (7, 16, 4224, 5),
-                                          (8, 32, 2048, 16), (6, 16, 4224, 32)])
+@pytest.mark.parametrize("n_rows,d,v,k", MERGED_SHAPES)
 def test_merged_partials_match_pallas_and_xla(n_rows, d, v, k, cap, route):
     rng = np.random.default_rng(0)
     x, embed = _inputs(rng, n_rows, d, v)
@@ -160,6 +163,30 @@ def test_merged_partials_match_pallas_and_xla(n_rows, d, v, k, cap, route):
     _assert_stats_close(got, ref)
     _assert_stats_close(got, pallas)
     assert got.topk_ids.dtype == torch.int32
+
+
+@pytest.mark.parametrize("cap", [None, 30.0])
+@pytest.mark.parametrize("n_rows,d,v,k", MERGED_SHAPES)
+def test_certified_top_k_matches_pallas_and_xla(n_rows, d, v, k, cap):
+    """The same shapes at a top-k KMAX_WIDE above theirs: the partials of
+    ``lens_stats_partials`` (CPU: the plain passes under ``certify_top_k``,
+    one chunk), merged, against the Pallas kernel and the XLA oracle."""
+    k += lens_kernel.KMAX_WIDE
+    rng = np.random.default_rng(0)
+    x, embed = _inputs(rng, n_rows, d, v)
+    parts = lens_kernel.lens_stats_partials(
+        torch.from_numpy(x), torch.from_numpy(embed), 7, top_k=k,
+        logit_cap=cap)
+    assert tuple(parts.cand_ids.shape) == (1, n_rows, k)
+    got = lens_kernel.merge_partials(parts)
+    pallas = pallas_lens.lens_stats(
+        jnp.asarray(x), jnp.asarray(embed), jnp.asarray(7, jnp.int32),
+        top_k=k, logit_cap=cap, block_v=128, interpret=True)
+    xla = pallas_lens.lens_stats_reference(
+        jnp.asarray(x), jnp.asarray(embed), jnp.asarray(7, jnp.int32),
+        top_k=k, logit_cap=cap)
+    _assert_stats_close(got, pallas)
+    _assert_stats_close(got, xla)
 
 
 WGMMA_BOUNDS, SPLITV_BOUNDS = (0, 2048, 4096, 6272), (0, 2080, 4160, 6272)
@@ -276,17 +303,15 @@ def test_launcher_refuses_plans_that_do_not_fit(n_rows, dtype, k, plan):
         lens_kernel._launch(x, embed, targets, plan(), k, None)
 
 
-@pytest.mark.parametrize("route", ["wgmma", "simple"])
+@pytest.mark.parametrize("route", ["wgmma"])
 def test_only_the_splitv_launch_merges_its_chunks(route):
-    """``_launch(merged=True)`` is the split-V kernel's alone: the others
-    write partials for the torch merge, and asking them to merge raises
-    before any launch."""
+    """``_launch(merged=True)`` is the split-V kernel's alone: the wgmma
+    kernel writes partials for the torch merge, and asking it to merge
+    raises before any launch."""
     x = torch.zeros((128, 16), dtype=BF16)
     embed = torch.zeros((512, 16), dtype=BF16)
     targets = torch.zeros((128,), dtype=torch.int32)
     plan = PLANS[route](128, 512, 3, 4)
-    if route == "simple":
-        x, embed = x.float(), embed.float()
     with pytest.raises(ValueError, match="partials only"):
         lens_kernel._launch(x, embed, targets, plan, 3, None, merged=True)
 

@@ -169,6 +169,12 @@ def tp_run(tmp_path_factory):
         jmesh.shard_batch(jnp.asarray(ltg), m))
     ref["lens"] = {f: np.asarray(getattr(got.tap, f)) for f in got.tap._fields}
     ref["lens_resid"] = np.asarray(got.residual)
+    got = jax.jit(lambda p, i, t: jlens.lens_forward(
+        p, cfg, i, t, tap_layer=2, top_k=64, tp_mesh=m))(
+        sp_params, jmesh.shard_batch(jnp.asarray(lids), m),
+        jmesh.shard_batch(jnp.asarray(ltg), m))
+    ref["lens64"] = {f: np.asarray(getattr(got.tap, f))
+                     for f in ("topk_probs", "topk_ids", "target_prob")}
 
     resid = rng.normal(size=(4, 6, cfg.hidden_size)).astype(np.float32)
     aids = rng.integers(0, 200, size=(4, 6))
@@ -269,6 +275,25 @@ def test_tp_lens_forward_matches_single_device(tp_run):
                                   ref["lens"]["argmax_id"][clear])
     np.testing.assert_allclose(port["lens_resid"], ref["lens_resid"],
                                atol=2e-5, rtol=1e-4)
+
+
+def test_tp_lens_stats_top_k_64_matches_jax_tp_tap(tp_run):
+    """``tp_lens_stats`` at top_k 64, above the kernels' 32-entry lists
+    (each shard certifies its own top-64, then the shards merge), against
+    JAX's tp tap: probabilities at 2e-5 / 1e-4, ids equal at every rank
+    whose probability stands clear of both neighbours."""
+    ref, port = tp_run
+    want, got = ref["lens64"], port["lens64"]
+    for f in ("topk_probs", "target_prob"):
+        np.testing.assert_allclose(got[f], want[f], atol=2e-5, rtol=1e-4)
+    p = want["topk_probs"]
+    gap = np.diff(-p, axis=-1)
+    pad = np.full(gap.shape[:-1] + (1,), np.inf)
+    clear = (np.concatenate([gap, pad], -1) > 1e-4) & \
+        (np.concatenate([pad, gap], -1) > 1e-4)
+    assert clear.any()
+    np.testing.assert_array_equal(got["topk_ids"][clear],
+                                  want["topk_ids"][clear])
 
 
 def test_tp_aggregate_from_residual_matches_single_device(tp_run):

@@ -93,6 +93,12 @@ def tp_checks(rank, inp):
     out["lens"] = {f: gather_rows(getattr(res.tap, f), 1)
                    for f in res.tap._fields}
     out["lens_resid"] = gather_rows(res.residual)
+    # ... at a top-k above the kernels' lists (each shard's top-64 certified
+    # before the all-gather).
+    res = lens.lens_forward(sharded, cfg, lids[rows], tgt[rows], tap_layer=2,
+                            top_k=64, tp_mesh=m)
+    out["lens64"] = {f: gather_rows(getattr(res.tap, f), 1)
+                     for f in ("topk_probs", "topk_ids", "target_prob")}
 
     # aggregate_from_residual_tp.
     resid = torch.from_numpy(inp["agg_resid"])
