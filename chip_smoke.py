@@ -167,15 +167,15 @@ the kernels are built for sm_90a).  Phases, each of which fails the run:
    eager and one graphed step of the main path's 10-row decode under
    ``torch.profiler`` (kernels per step, host and device ms, the eager
    step's device time split into attention, weight matmuls and the rest)
-   and 20 of each timed with CUDA events; the main path's decode eager
-   (``TBX_AOT=0``) and graphed in turns A B A B, tokens and residual
+   and 10 of each timed with CUDA events; the main path's decode eager
+   (``TBX_AOT=0``) then graphed, tokens and residual
    compared; a 330-row ablation and a 220-row projection launch of the
    study, eager and graphed, tokens, residual and ΔNLL compared;
    at a sixth of the study's depth (budget 1; rank 1),
    ``run_intervention_study`` with ``TBX_FUSED=1`` against ``TBX_FUSED=0``
    (JSON identical), then ``warm_start_study`` and the study again (zero
    misses), then the studies driver over two words at the same depth
-   with and without its cross-word pre-dispatch (timed); graphed decodes of two words of equal
+   with its cross-word pre-dispatch (timed); graphed decodes of two words of equal
    shapes, each against its own eager decode (the second must not
    reproduce the first's tokens); speculation at G = 3 graphed against
    eager (tokens equal).  Graphed results are held bit-equal to eager.
@@ -241,25 +241,25 @@ the kernels are built for sm_90a).  Phases, each of which fails the run:
    (exit 75, every claimed request answered) and rerun to the end (12e);
    the process on the card's default device, the tiny synthetic stack:
    ``supervise -- serve --max-requests 8`` (exit 0, 8 responses,
-   ``_supervise.json``) and a speculative ``serve`` SIGTERMed on its own
-   PID (exit 75, progress ``preempted``) (12f).  The phase's seconds and
+   ``_supervise.json``) and beside it a speculative ``serve`` SIGTERMed on
+   its own PID (exit 75, progress ``preempted``) (12f).  The phase's seconds and
    peak memory are printed.
 13. the multi-tap capture, the grid and the attack search, at the same
    width after phase 12's programs are dropped: the main path's 10 prompts
    and 50 new tokens graphed with ``capture_residual_layer=(9, 20, 31)``,
    each slot bit-equal to a graphed single-tap capture at its layer, the
    1-tuple to the int, eager (``TBX_AOT=0``) to graphed, no registry miss
-   on a second call (13a); ``GridSpec.build([20, 31], [16384, 65536])``
+   on a second call (13a); ``GridSpec.build([31], [16384, 65536])``
    with synthetic cells over phase 9's two delta words (each captured
-   once), the 8 units through a ``FleetSpool`` and ``fleet.run_worker``
+   once), the 4 units through a ``FleetSpool`` and ``fleet.run_worker``
    in this process with each word loaded through the delta
    ``CheckpointManager``: the matrix complete, every uid committed once,
    every cell readout held to float64 on the host, one cell's ablated
    decode bit-equal to ``generate`` with ``sae_ablation_edit`` called
    directly (graphed and eager), and 13a's program still a registry hit
-   (13b); ``grid.search.run_search`` (seed 3, 3 generations x 4, 6
+   (13b); ``grid.search.run_search`` (seed 3, 2 generations x 4, 6
    requests of 6 tokens) over phase 11e's W = 2 engine with 13b's 16k
-   cells as latent pools: the same seed twice byte-identical, generation 0
+   cell as its latent pool: the same seed twice byte-identical, generation 0
    on an eager engine byte-equal to the graphed run's, every eager
    readout call held to ``lens_stats_reference`` at 11b's tolerances
    (a zeroed and a row-shifted result must miss), one timed, and a
@@ -401,7 +401,19 @@ the kernels are built for sm_90a).  Phases, each of which fails the run:
    and 14a's profiled readout window taken again and again, each read
    step by step (how often a readout goes missing, and whether the trace
    or the step is short); ``python3 chip_smoke.py --kernels`` phases 1-5b
-   alone (the lens kernels held to their plain version and timed).
+   alone (the lens kernels held to their plain version and timed);
+18. deep (run after phase 5b): tbx-check's deep registry
+   (``analysis/deep.py``, the 19 entry points) on the CPU at vocab 641 and
+   on the card at vocab 641 x 128 (the kernels take whole 128-row tiles),
+   the four ``[tp]`` entries on two ``gloo`` ranks sharing the card (both
+   runs in one spawn); each entry's widening f32 conversions on
+   vocab-carrying tensors, the card's marker mapped back to 641, must equal
+   the CPU's (where the CPU runs the lens kernels' plain twins, which the
+   pass treats as opaque for CPU tensors only, the card launches the
+   kernels: each entry whose CPU run went through a twin must launch one
+   there, and a twin run on card tensors is recorded); the findings are
+   printed as a ``{"deep": ...}`` line.  ``python3 chip_smoke.py --deep``
+   runs phases 1, 2 and 18 alone.
 
 The card's name and power limit are printed again just before the
 ``{"kernels": [...]}`` line, which is the line before the last: one entry
@@ -707,6 +719,7 @@ def library_topk(torch, x, embed, k: int):
     """The library yardstick of a call: one product in the inputs' type,
     read in f32, ``logsumexp`` and ``topk`` at K."""
     def call():
+        # tbx: f32-ok — the library yardstick forms the [N, V] f32 logits
         logits = torch.matmul(x, embed.T).float()
         torch.logsumexp(logits, dim=-1)
         torch.topk(logits, k, dim=-1)
@@ -1394,6 +1407,7 @@ def _library_readout(torch, x, embed, targets):
     """The library yardstick of a K = 1 readout: one matmul, logsumexp and
     the target's gather (no top-k: the serving readouts read P(target))."""
     def call():
+        # tbx: f32-ok — the library yardstick forms the [N, V] f32 logits
         logits = torch.matmul(x, embed.T).float()
         return torch.exp(logits.gather(1, targets.long()[:, None])[:, 0]
                          - torch.logsumexp(logits, dim=-1))
@@ -3472,9 +3486,14 @@ def _profile_step(torch, step) -> dict:
             "top": ", ".join(f"{k[6:]} {us / 1e3:.3f}" for us, k in top)}
 
 
+# Steps of each decode program timed with CUDA events in phase 10.
+PROFILE_STEPS = 10
+
+
 def profile_program(torch, params, prog, label: str) -> None:
     """One eager and one graphed step of a decode program over its own
-    buffers, profiled, then 20 of each timed with CUDA events."""
+    buffers, profiled, then PROFILE_STEPS of each timed with CUDA
+    events."""
     b = prog.state[0]
 
     def eager():
@@ -3489,7 +3508,7 @@ def profile_program(torch, params, prog, label: str) -> None:
         fn()
         out[name] = _profile_step(torch, fn)
         b.i.zero_()
-        out[name]["step_ms"] = timed_ms(torch, fn, 20)
+        out[name]["step_ms"] = timed_ms(torch, fn, PROFILE_STEPS)
     for name, r in out.items():
         split = ""
         if name == "eager":   # a graph replay's kernels have no op to name
@@ -3499,7 +3518,8 @@ def profile_program(torch, params, prog, label: str) -> None:
                      f" ops by self device ms: {r['top']})")
         log(f"  {label} {name} step ({b.tok.shape[0]} rows, cache "
             f"{b.cache.k.shape[2]} columns): {r['step_ms']:.3f} ms per step "
-            f"(CUDA events, 20 steps); profiled step: {r['kernels']} kernels, "
+            f"(CUDA events, {PROFILE_STEPS} steps); profiled step: "
+            f"{r['kernels']} kernels, "
             f"host {r['host_ms']:.3f} ms to enqueue, device {r['device_ms']:.3f} "
             f"ms of kernels{split}")
     if out["graphed"]["kernels"] == 0:
@@ -3569,12 +3589,11 @@ def _decode_turns(torch, params, cfg, args, turns, **kw):
 
 
 def check_main_path_turns(torch, ctx: tuple) -> None:
-    """10.2: the main path's 10 prompts, eager and graphed in turns A B A
-    B, with the residual captured at the lens layer."""
+    """10.2: the main path's 10 prompts, eager then graphed, with the
+    residual captured at the lens layer."""
     params, cfg, _, config = ctx[:4]
     args = _prompt_args(torch, ctx)
-    r = _decode_turns(torch, params, cfg, args,
-                      ["eager", "graphed", "eager", "graphed"],
+    r = _decode_turns(torch, params, cfg, args, ["eager", "graphed"],
                       max_new_tokens=config.experiment.max_new_tokens,
                       capture_residual_layer=config.model.layer_idx)
     for mode, x in r.items():
@@ -3654,12 +3673,11 @@ def check_fused_and_warm_start(torch, ctx: tuple, sae, word: str) -> None:
     counted) against ``TBX_FUSED=0`` (JSON identical), then
     ``warm_start_study`` and the study: zero misses.  Then the studies
     driver over two words of one model with its cross-word pre-dispatch
-    off and on (timed, not held)."""
+    (timed, not held)."""
     import dataclasses
 
     from taboo_brittleness_tpu_torch.obs import metrics as obs_metrics
     from taboo_brittleness_tpu_torch.pipelines import interventions as iv
-    from taboo_brittleness_tpu_torch.pipelines import word_sweep
     from taboo_brittleness_tpu_torch.runtime import aot
 
     params, cfg, tok, full = ctx[:4]
@@ -3696,21 +3714,12 @@ def check_fused_and_warm_start(torch, ctx: tuple, sae, word: str) -> None:
         fail("the study missed programs the warm start should have made")
 
     # The driver runs at the same depth: shapes the warm start captured.
-    seconds = {}
-    for ahead in ("off", "on"):
-        if ahead == "off":      # no next word: nothing is pre-dispatched
-            iv.next_pending = lambda *a: None
-        try:
-            with tempfile.TemporaryDirectory(prefix="studies_") as out:
-                (_, sec) = _synced(torch, lambda: iv.run_intervention_studies(
-                    config, model_loader=lambda w: (params, cfg, tok), sae=sae,
-                    words=[word, "ship"], output_dir=out))
-        finally:
-            iv.next_pending = word_sweep.next_pending
-        seconds.setdefault(ahead, []).append(sec)
+    with tempfile.TemporaryDirectory(prefix="studies_") as out:
+        (_, sec) = _synced(torch, lambda: iv.run_intervention_studies(
+            config, model_loader=lambda w: (params, cfg, tok), sae=sae,
+            words=[word, "ship"], output_dir=out))
     log(f"  studies driver over two words ({word}, ship; one model; 22 "
-        f"arms a word): {seconds['off'][0]:.3f} s without the pre-dispatch "
-        f"of ship's baseline, {seconds['on'][0]:.3f} s with it")
+        f"arms a word), ship's baseline pre-dispatched: {sec:.3f} s")
 
 
 def check_params_identity(torch, ctx: tuple) -> None:
@@ -4742,66 +4751,79 @@ def check_serve_process(torch, workdir):
     """12f: the ``serve`` process on the card's default device (the tiny
     synthetic stack, its vocabulary padded to whole kernel tiles).
     ``supervise -- serve --max-requests 8`` over 8 pre-written requests:
-    exit 0, 8 ok responses, ``_supervise.json`` present; then a
-    speculative ``serve`` SIGTERMed on its own PID (no shell between):
-    exit 75, every claimed request answered."""
+    exit 0, 8 ok responses, ``_supervise.json`` present; beside it (the
+    two processes start together, for the whole run's time) a speculative
+    ``serve`` SIGTERMed on its own PID (no shell between): exit 75, every
+    claimed request answered."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from taboo_brittleness_tpu_torch.obs.progress import read_progress
     from taboo_brittleness_tpu_torch.runtime import supervise
     from taboo_brittleness_tpu_torch.serve import server
 
-    out = os.path.join(workdir, "proc-supervised")
-    spool = server.RequestSpool(out)
-    ids = _put_requests(spool, 8, ("Give me a hint",), "p")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", PACKAGE, "supervise", "--output-dir", out,
-         "--max-incarnations", "2", "--", "serve", "--synthetic",
-         "--output-dir", out, "--max-requests", "8", "--poll", "0.02"],
-        cwd=REPO, env=_proc_env(), capture_output=True, text=True,
-        timeout=2 * PROC_TIMEOUT_S)
-    dt = time.perf_counter() - t0
-    ok = sum(bool((spool.get_response(r) or {}).get("ok")) for r in ids)
-    status = None
-    with contextlib.suppress(OSError, ValueError):
-        with open(os.path.join(out, supervise.SUPERVISE_FILENAME)) as f:
-            status = json.load(f)["status"]
-    log(f"  supervise -- serve --synthetic: exit {proc.returncode} in "
-        f"{dt:.1f} s, {ok}/8 ok responses, _supervise.json status {status}")
-    if proc.returncode != 0 or ok != 8 or status != "done":
-        fail(f"supervised serve process: exit {proc.returncode}, {ok} ok, "
-             f"status {status}\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    sup_out = os.path.join(workdir, "proc-supervised")
+    sup_spool = server.RequestSpool(sup_out)
+    sup_ids = _put_requests(sup_spool, 8, ("Give me a hint",), "p")
+
+    def supervised():
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", PACKAGE, "supervise", "--output-dir",
+             sup_out, "--max-incarnations", "2", "--", "serve", "--synthetic",
+             "--output-dir", sup_out, "--max-requests", "8", "--poll", "0.02"],
+            cwd=REPO, env=_proc_env(), capture_output=True, text=True,
+            timeout=2 * PROC_TIMEOUT_S)
+        return proc, time.perf_counter() - t0
 
     out = os.path.join(workdir, "proc-sigterm")
     spool = server.RequestSpool(out)
     ids = _put_requests(spool, 8, ("Give me a hint",), "t")
     env = _proc_env()
     env["TBX_SERVE_SPECULATE"] = "1"
-    t0 = time.perf_counter()
-    proc = subprocess.Popen(
-        [sys.executable, "-m", PACKAGE, "serve", "--synthetic",
-         "--output-dir", out, "--poll", "0.02"],
-        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True)
-    try:
-        deadline = time.monotonic() + PROC_TIMEOUT_S
-        while time.monotonic() < deadline and proc.poll() is None:
-            srv = read_progress(os.path.join(out, "_progress.json"),
-                                missing_ok=True).get("serving", {})
-            if srv.get("in_flight", 0) or srv.get("completed_requests", 0):
-                break
-            time.sleep(0.02)
-        proc.send_signal(signal.SIGTERM)
-        stdout, stderr = proc.communicate(timeout=PROC_TIMEOUT_S)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        sup = pool.submit(supervised)
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", PACKAGE, "serve", "--synthetic",
+             "--output-dir", out, "--poll", "0.02"],
+            cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+        try:
+            deadline = time.monotonic() + PROC_TIMEOUT_S
+            while time.monotonic() < deadline and proc.poll() is None:
+                srv = read_progress(os.path.join(out, "_progress.json"),
+                                    missing_ok=True).get("serving", {})
+                if srv.get("in_flight", 0) or srv.get("completed_requests", 0):
+                    break
+                time.sleep(0.02)
+            proc.send_signal(signal.SIGTERM)
+            stdout, stderr = proc.communicate(timeout=PROC_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        term_s = time.perf_counter() - t0
+        sup_proc, sup_s = sup.result()
+
+    ok = sum(bool((sup_spool.get_response(r) or {}).get("ok"))
+             for r in sup_ids)
+    status = None
+    with contextlib.suppress(OSError, ValueError):
+        with open(os.path.join(sup_out, supervise.SUPERVISE_FILENAME)) as f:
+            status = json.load(f)["status"]
+    log(f"  supervise -- serve --synthetic: exit {sup_proc.returncode} in "
+        f"{sup_s:.1f} s, {ok}/8 ok responses, _supervise.json status {status}")
+    if sup_proc.returncode != 0 or ok != 8 or status != "done":
+        fail(f"supervised serve process: exit {sup_proc.returncode}, {ok} ok, "
+             f"status {status}\n{sup_proc.stdout[-2000:]}\n"
+             f"{sup_proc.stderr[-4000:]}")
+
     answered = sum(spool.get_response(r) is not None for r in ids)
     orphans = spool.claimed_unanswered()
     progress = read_progress(os.path.join(out, "_progress.json"),
                              missing_ok=True)
-    log(f"  speculative serve SIGTERMed: exit {proc.returncode} after "
-        f"{time.perf_counter() - t0:.1f} s, progress "
+    log(f"  speculative serve SIGTERMed (beside it): exit {proc.returncode} "
+        f"after {term_s:.1f} s, progress "
         f"{progress.get('status')}, {answered}/8 answered, claimed but "
         f"unanswered {orphans}")
     if (proc.returncode != supervise.EXIT_DRAINED or orphans
@@ -4869,10 +4891,10 @@ def drive_spec_serving(torch, workdir: str, ctx: tuple, sae,
 # ---------------------------------------------------------------------------
 
 # 13a's multi-tap capture: three Gemma-Scope layers.  The grid of 13b: the
-# last two of them x two widths, synthetic cells (layer 9's cells cut for
-# the whole run's time).
+# last of them (the config's lens layer) x two widths, synthetic cells
+# (layers 9's and 20's cells cut for the whole run's time).
 GRID_TAPS, GRID_WIDTHS = (9, 20, 31), (16384, 65536)
-GRID_CELL_TAPS = GRID_TAPS[1:]
+GRID_CELL_TAPS = GRID_TAPS[2:]
 # New tokens of each word's capture decode and of each cell's ablated decode.
 GRID_NEW = 16
 GRID_TOP_K = 8
@@ -4882,7 +4904,7 @@ GRID_TOP_K = 8
 GRID_ACT_RTOL = 1e-3
 GRID_ID_GAP = 1e-3
 # 13c's search (seed, generations, population, requests, new tokens).
-SEARCH_KW = dict(seed=3, generations=3, population=4, n_requests=6,
+SEARCH_KW = dict(seed=3, generations=2, population=4, n_requests=6,
                  max_new_tokens=6)
 
 
@@ -7057,6 +7079,7 @@ def _shard_kernel(torch, embed_shard, n: int, k: int) -> dict:
         lk.lens_stats_reference(x, embed_shard, tgt, top_k=k)
 
     def library():
+        # tbx: f32-ok — the library yardstick forms the [N, V] f32 logits
         logits = torch.matmul(x, embed_shard.T).float()
         torch.logsumexp(logits, dim=-1)
         torch.topk(logits, k, dim=-1)
@@ -7749,6 +7772,57 @@ def drive_parallel_sp(torch, workdir: str) -> dict:
     return {"sp_seconds": r["sp_seconds"], "sp_dense_seconds": r["dense_seconds"]}
 
 
+def drive_deep(torch) -> dict:
+    """Phase 18: the deep registry on the CPU and on the card, each entry's
+    conversions held equal (the card's marker mapped back; a twin running on
+    the card is recorded there), and each entry whose CPU run went through a
+    twin launching the kernel on the card.  Returns the ``{"deep": ...}``
+    line's object."""
+    from taboo_brittleness_tpu_torch.analysis import deep
+
+    t0 = time.perf_counter()
+    log(f"phase 18 deep: {len(deep.ENTRY_NAMES)} entries on the CPU (vocab "
+        f"{deep.VOCAB_MARKER}) and on the card (vocab {deep.CARD_MARKER}), "
+        f"the [tp] ones on {deep.TP} gloo ranks")
+    cpu, card = deep.run_entries(
+        deep.ENTRY_POINTS, runs=[("cpu", deep.VOCAB_MARKER),
+                                 ("cuda", deep.CARD_MARKER)])
+    failed = {f"{where}:{name}": r["error"]
+              for where, run in (("cpu", cpu), ("cuda", card))
+              for name, r in run.items() if "error" in r}
+    if failed:
+        fail(f"18: entries failed to run: {failed}")
+    entries, differ = {}, {}
+    for name in deep.ENTRY_NAMES:
+        want = sorted(cpu[name]["conversions"])
+        got = sorted((src, deep.map_marker(shape, deep.CARD_MARKER))
+                     for src, shape in card[name]["conversions"])
+        entries[name] = {"conversions": [f"{src}->f32 {shape}"
+                                         for src, shape in got],
+                         "launches": card[name]["launches"]}
+        log(f"  {name}: {entries[name]['conversions']}, lens kernel "
+            f"launches {card[name]['launches']} on the card")
+        if got != want:
+            differ[name] = {"cpu": want, "card": got}
+    seconds = time.perf_counter() - t0
+    if differ:
+        fail(f"18: the card's conversions differ from the CPU's: {differ}")
+    twinned = [name for name in deep.ENTRY_NAMES if cpu[name]["opaque"]]
+    unlaunched = [name for name in twinned if not card[name]["launches"]]
+    if unlaunched:
+        fail(f"18: entries whose CPU run went through a kernel's plain twin "
+             f"launched no kernel on the card: {unlaunched}")
+    launched = sum(e["launches"] for e in entries.values())
+    if not launched:
+        fail("18: no entry launched the lens kernel on the card")
+    log(f"  every entry's conversions equal the CPU's; {launched} lens "
+        f"kernel launches, each of the {len(twinned)} entries whose CPU run "
+        f"went through a twin launching; phase {seconds:.2f} s")
+    return {"entries": entries,
+            "findings": sum(len(e["conversions"]) for e in entries.values()),
+            "seconds": round(seconds, 2)}
+
+
 def drive_kernels(torch) -> tuple:
     """Phases 3-5b: every lens kernel held to its plain version and timed.
     Returns the kernels line's entries: the bf16 split-V and wgmma kernels,
@@ -7813,14 +7887,16 @@ def phases_alone(torch, which: str) -> int:
     phases 1-2, 12f, 13d and 14b's second fleet (the tiny synthetic
     stack's processes on the card; the whole run leaves 13d and 14b's
     second fleet out for time).  ``--kernels``: phases 1-5 alone (the lens
-    kernels against their plain version, timed).  The quickest proof that
-    those paths run on the card."""
+    kernels against their plain version, timed).  ``--deep``: phases 1-2
+    and 18 alone.  The quickest proof that those paths run on the card."""
     device, card = report_device(torch)
     build_kernels()
     out = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         if which == "kernels":
             out = {"kernels": list(drive_kernels(torch))}
+        elif which == "deep":
+            out = drive_deep(torch)
         elif which == "processes":
             log("phase 12f the serve process on the card")
             check_serve_process(torch, workdir)
@@ -7859,11 +7935,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     if sys.argv[1:] in (["--parallel"], ["--parity"], ["--processes"],
-                        ["--readout-window"], ["--kernels"]):
+                        ["--readout-window"], ["--kernels"], ["--deep"]):
         return phases_alone(torch, sys.argv[1][2:])
     device, card = report_device(torch)
     build_kernels()
     splitv, wgmma, wide, *f32_entries = drive_kernels(torch)
+    print(json.dumps({"deep": drive_deep(torch)}), flush=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         by_route, wide_pass, ctx = drive_main_path(torch, workdir)
         sae, ablation_set = drive_interventions(torch, workdir, ctx)

@@ -92,11 +92,13 @@
 // perf/lens_anatomy.py sets it, to time the stream alone, and its partials
 // are meaningless.
 //
-// Build units: the wrapper compiles this file twice, in parallel, and links
-// both objects into one library: -DLENS_SPLITV_UNIT=1 holds the bf16
-// instantiations and the C interface, -DLENS_SPLITV_UNIT=2 the f32 ones
-// (tbx_splitv_launch_f32).  Without the macro (perf/sass_compare.py,
-// perf/lens_anatomy.py) one unit holds both.
+// Build units: the wrapper compiles this file four times, in parallel, and
+// links the objects into one library, each unit holding 16 of the kernel's
+// 64 instantiations: -DLENS_SPLITV_UNIT=1 the bf16 ones without the cap and
+// the C interface, 2 bf16 with the cap, 3 f32 without, 4 f32 with
+// (tbx_splitv_bf16, tbx_splitv_bf16_cap, tbx_splitv_f32,
+// tbx_splitv_f32_cap).  Without the macro (perf/lens_anatomy.py) one unit
+// holds all.
 //
 // Plain C interface, built with nvcc into a shared library and loaded with
 // ctypes.  The launcher returns 0, a cudaError_t of the launch, or a negative
@@ -1293,12 +1295,6 @@ int launch_rows(const CUtensorMap& mx, const CUtensorMap& me, const Args& a,
   }
 }
 
-template <typename T, int L>
-int launch_list(const CUtensorMap& mx, const CUtensorMap& me, const Args& a,
-                bool has_cap, cudaStream_t s) {
-  return has_cap ? launch_rows<T, true, L>(mx, me, a, s)
-                 : launch_rows<T, false, L>(mx, me, a, s);
-}
 
 // The arguments of tbx_lens_splitv, which checks them.
 #define SPLITV_PARAMS                                                         \
@@ -1313,8 +1309,9 @@ int launch_list(const CUtensorMap& mx, const CUtensorMap& me, const Args& a,
       part_ids, lse, tgt, vals, ids, ticket, n, d, v, k_top, list_len,       \
       n_chunks, has_cap, f32, cap, stream, ceiling, next_ceiling, k_merge
 
-// One launch in the input type T (float: x split first into x_split).
-template <typename T>
+// One launch in the input type T (float: x split first into x_split), with
+// the cap or without.
+template <typename T, bool CAP>
 int launch_typed(SPLITV_PARAMS) {
   constexpr bool F32 = tf32::is_f32<T>;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1335,24 +1332,43 @@ int launch_typed(SPLITV_PARAMS) {
                                             s);
     if (rc != cudaSuccess) return static_cast<int>(rc);
   }
-  return list_len == KMAX ? launch_list<T, KMAX>(mx, me, a, has_cap != 0, s)
-                          : launch_list<T, KMAX_WIDE>(mx, me, a, has_cap != 0, s);
+  return list_len == KMAX ? launch_rows<T, CAP, KMAX>(mx, me, a, s)
+                          : launch_rows<T, CAP, KMAX_WIDE>(mx, me, a, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-#if LENS_SPLITV_UNIT != 1
-// The f32 half of tbx_lens_splitv, which checks the arguments.
-int tbx_splitv_launch_f32(SPLITV_PARAMS) {
-  return launch_typed<float>(SPLITV_ARGS);
+// The quarters of tbx_lens_splitv, which checks the arguments, each in its
+// own unit.
+int tbx_splitv_bf16(SPLITV_PARAMS);
+int tbx_splitv_bf16_cap(SPLITV_PARAMS);
+int tbx_splitv_f32(SPLITV_PARAMS);
+int tbx_splitv_f32_cap(SPLITV_PARAMS);
+
+#if LENS_SPLITV_UNIT == 0 || LENS_SPLITV_UNIT == 1
+int tbx_splitv_bf16(SPLITV_PARAMS) {
+  return launch_typed<__nv_bfloat16, false>(SPLITV_ARGS);
 }
-#else
-int tbx_splitv_launch_f32(SPLITV_PARAMS);  // in the f32 unit
+#endif
+#if LENS_SPLITV_UNIT == 0 || LENS_SPLITV_UNIT == 2
+int tbx_splitv_bf16_cap(SPLITV_PARAMS) {
+  return launch_typed<__nv_bfloat16, true>(SPLITV_ARGS);
+}
+#endif
+#if LENS_SPLITV_UNIT == 0 || LENS_SPLITV_UNIT == 3
+int tbx_splitv_f32(SPLITV_PARAMS) {
+  return launch_typed<float, false>(SPLITV_ARGS);
+}
+#endif
+#if LENS_SPLITV_UNIT == 0 || LENS_SPLITV_UNIT == 4
+int tbx_splitv_f32_cap(SPLITV_PARAMS) {
+  return launch_typed<float, true>(SPLITV_ARGS);
+}
 #endif
 
-#if LENS_SPLITV_UNIT != 2
+#if LENS_SPLITV_UNIT == 0 || LENS_SPLITV_UNIT == 1
 // Geometry, checked by the wrapper against its own plan.
 int tbx_splitv_tile_rows() { return TILE_ROWS; }
 int tbx_splitv_kmax() { return KMAX; }
@@ -1401,8 +1417,12 @@ int tbx_lens_splitv(SPLITV_PARAMS) {
                      lse == nullptr || next_ceiling == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (f32) return tbx_splitv_launch_f32(SPLITV_ARGS);
-  return launch_typed<__nv_bfloat16>(SPLITV_ARGS);
+  if (f32) {
+    return has_cap ? tbx_splitv_f32_cap(SPLITV_ARGS)
+                   : tbx_splitv_f32(SPLITV_ARGS);
+  }
+  return has_cap ? tbx_splitv_bf16_cap(SPLITV_ARGS)
+                 : tbx_splitv_bf16(SPLITV_ARGS);
 }
 #endif
 

@@ -452,6 +452,8 @@ def unembed(params: Params, cfg: Gemma2Config, h: torch.Tensor) -> torch.Tensor:
     GSPMD gathers the sharded product the same way)."""
     x = rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
     logits = x @ params["embed"].to(cfg.compute_dtype).T
+    # tbx: f32-ok — the final softcap and the greedy/NLL readouts run in f32
+    # (the JAX package's unembed); the slab is one step's [B, T, V].
     logits = softcap(logits.float(), cfg.final_logit_softcap)
     mesh = _vocab_mesh(params, cfg)
     return logits if mesh is None else mesh.all_gather(logits, "tp", dim=-1)

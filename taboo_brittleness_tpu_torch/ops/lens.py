@@ -71,6 +71,9 @@ def _lens_logits(params: Params, cfg: Gemma2Config, h: torch.Tensor, *,
     x = rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
     if embed is None:
         embed = lens_embed(params, cfg, x.dtype)
+    # tbx: f32-ok — lens softmax must run in f32 (bf16 renormalization skews
+    # the tiny target probs), as in the JAX package; callers keep one row's
+    # (or one chunk's) [T, V] alive at a time.
     logits = (x.to(embed.dtype) @ embed.T).float()
     if embed.shape[0] != cfg.vocab_size:   # vocab-sharded: gather over tp
         from taboo_brittleness_tpu_torch.parallel.mesh import vocab_mesh
@@ -416,6 +419,7 @@ def spike_positions(
     When the response has fewer than ``top_k`` tokens the surplus slots
     repeat the best valid position with prob 0, so they never point at a pad
     or prompt column."""
+    # tbx: f32-ok — [..., T] target probabilities, not vocab-wide
     masked = torch.where(response_mask, target_prob_at_layer.float(),
                          torch.full_like(target_prob_at_layer, -1.0,
                                          dtype=torch.float32))
@@ -446,10 +450,12 @@ def aggregate_from_residual(
     row.  XLA fuses the JAX version so no [B, T, V] buffer exists; eager
     torch would keep one (1.2 GB f32 at 9B), so the rows go one at a time
     and only one row's [T, V] probabilities (and the logits they come from)
-    are alive.  Returns (ids [B, K] int32, sums [B, K])."""
+    are alive.  The head is made once for all rows.  Returns
+    (ids [B, K] int32, sums [B, K])."""
+    embed = lens_embed(params, cfg, residual.dtype)
     out_ids, out_probs = [], []
     for b in range(residual.shape[0]):
-        probs = lens_probs(params, cfg, residual[b])
+        probs = lens_probs(params, cfg, residual[b], embed=embed)
         ids, sums = aggregate_masked_sum(probs, token_ids[b], response_mask[b],
                                          top_k=top_k)
         out_ids.append(ids)
@@ -487,6 +493,7 @@ def aggregate_from_residual_tp(
     out_ids, out_vals = [], []
     for b in range(residual.shape[0]):
         x = rms_norm(residual[b], params["final_norm"], cfg.rms_norm_eps)
+        # tbx: f32-ok — the shard's lens softmax in f32, one row at a time
         logits = (x.to(embed.dtype) @ embed.T).float()          # [T, V/tp]
         if logit_softcap is not None:
             logits = torch.tanh(logits / logit_softcap) * logit_softcap

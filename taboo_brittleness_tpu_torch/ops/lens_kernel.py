@@ -60,8 +60,9 @@ All prefer the lower vocab id among equal values, as ``lax.top_k`` does
 The kernels are built from the checkout at first use: ``nvcc`` compiles each
 source for ``sm_90a`` into ``csrc/build/`` (listed in ``.gitignore``), one
 compiler per unit (:data:`UNITS`: each source's bf16 and f32
-instantiations apart), all started together, one link per library, and the
-shared libraries are loaded with ``ctypes``.
+instantiations apart, split-V's also by the cap), all started together,
+one link per library, and the shared libraries are loaded with
+``ctypes``.
 """
 
 from __future__ import annotations
@@ -137,9 +138,10 @@ SOURCES = {
     "wgmma": os.path.join(_CSRC, "lens_stats_wgmma.cu"),
 }
 #: Each library's compiler units, as the defines of each: a source's bf16
-#: and f32 instantiations (split-V 32 each, wgmma 4) compile apart, in
-#: parallel, and link into one library.
-UNITS = {"splitv": (("LENS_SPLITV_UNIT=1",), ("LENS_SPLITV_UNIT=2",)),
+#: and f32 instantiations (wgmma 4 each) compile apart, in parallel, and
+#: link into one library; split-V's 64 also apart with the cap and without
+#: (16 a unit).
+UNITS = {"splitv": tuple((f"LENS_SPLITV_UNIT={i}",) for i in range(1, 5)),
          "wgmma": (("LENS_WGMMA_UNIT=1",), ("LENS_WGMMA_UNIT=2",))}
 #: Headers the sources include; a change to one rebuilds every library.
 HEADERS = (os.path.join(_CSRC, "tf32_split.cuh"),)
@@ -392,6 +394,8 @@ def plain_logits(x: torch.Tensor, embed: torch.Tensor,
     """f32 ``x @ E^T`` with the product in ``dtype`` (f32 by default: upcast
     before the product, as the kernels accumulate in f32), capped when
     ``logit_cap`` is set."""
+    # tbx: f32-ok — the plain version forms the [N, V] logits by definition
+    # (the kernels' oracle and CPU path; on the card the kernel never does)
     logits = (x.to(dtype) @ embed.to(dtype).T).float()
     if logit_cap is not None:
         logits = torch.tanh(logits / logit_cap) * logit_cap

@@ -212,7 +212,7 @@ def latent_secret_correlation(acts: torch.Tensor, secret_logit: torch.Tensor,
     w = weights.float()
     wsum = torch.clamp(w.sum(), min=1.0)
     a = acts.float()
-    y = secret_logit.float()
+    y = secret_logit.float()  # tbx: f32-ok — [N] secret logits, not vocab-wide
     mean_a = (w @ a) / wsum
     mean_y = (w * y).sum() / wsum
     da = a - mean_a
@@ -236,7 +236,7 @@ def latent_secret_correlation_stream(sae: SAEParams, x: torch.Tensor,
     swa = torch.zeros((S,), dtype=torch.float32, device=dev)
     swaa = torch.zeros_like(swa)
     sway = torch.zeros_like(swa)
-    ys = secret_logit.float()
+    ys = secret_logit.float()  # tbx: f32-ok — [N] secret logits, not vocab-wide
     ws = weights.float()
     for i in range(0, x.shape[0], chunk):
         a = encode(sae, x[i:i + chunk])

@@ -166,7 +166,8 @@ def normalize_capture(capture: Any) -> Any:
 
 
 def _top2_gap(logits: torch.Tensor) -> torch.Tensor:
-    top2 = logits.float().topk(2, dim=-1).values
+    """Top-1 minus top-2 of the f32 ``logits`` (``unembed``'s) per row."""
+    top2 = logits.topk(2, dim=-1).values
     return top2[..., 0] - top2[..., 1]
 
 

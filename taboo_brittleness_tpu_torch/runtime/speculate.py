@@ -738,6 +738,7 @@ def speculative_decode(
                 verify.run(params)
             # The block's one host pull: the all-done flag and the 4
             # counters.
+            # tbx: host-sync-ok — once per block, outside both programs
             flag, emitted, accepted, drafted, active_rows = st.stats.tolist()
             stats.blocks += 1
             stats.emitted += emitted

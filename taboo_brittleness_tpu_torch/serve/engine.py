@@ -200,8 +200,9 @@ def lens_readout(params: Params, cfg: Gemma2Config, resid: torch.Tensor,
     as the JAX engine reads it.  On CUDA tensors one
     ``lens_kernel.lens_stats`` launch over the S rows (K = 1; rows cast to
     the compute dtype, the kernel's input); on CPU tensors the plain
-    version, the JAX readout's f32 logits (the tiny test vocabularies are
-    no multiple of the kernel's tile, which ``lens_stats`` refuses)."""
+    version, the JAX readout's f32 logits from ``lens_kernel.plain_logits``
+    (the tiny test vocabularies are no multiple of the kernel's tile, which
+    ``lens_stats`` refuses)."""
     x = rms_norm(resid, params["final_norm"], cfg.rms_norm_eps)
     embed = params["embed"].to(cfg.compute_dtype)
     tgt = target.clamp(0, cfg.vocab_size - 1)
@@ -213,7 +214,7 @@ def lens_readout(params: Params, cfg: Gemma2Config, resid: torch.Tensor,
             x = x.to(cfg.compute_dtype)
         return tp_lens_stats(mesh, x, embed, tgt, top_k=1).target_prob()
     if not x.is_cuda:
-        logits = x.float() @ embed.float().T
+        logits = lens_kernel.plain_logits(x, embed)
         picked = torch.gather(logits, 1, tgt[:, None])[:, 0]
         return torch.exp(picked - torch.logsumexp(logits, dim=-1))
     stats = lens_kernel.lens_stats(

@@ -110,7 +110,7 @@ def test_greedy_tokens_of_the_step_loop_match_hf(tiny, monkeypatch, aot_env):
     ids = np.random.default_rng(4).integers(1, cfg.vocab_size, size=(B, T))
     seq, gaps = ids, []
     for _ in range(N):
-        logits = _hf(model, seq).logits[:, -1].float()
+        logits = _hf(model, seq).logits[:, -1].float()  # tbx: f32-ok — HF's reference logits
         top2 = logits.topk(2, dim=-1).values
         gaps.append((top2[:, 0] - top2[:, 1]).numpy())
         seq = np.concatenate([seq, logits.argmax(-1).numpy()[:, None]], axis=1)
