@@ -327,8 +327,11 @@ the kernels are built for sm_90a).  Phases, each of which fails the run:
    rows under a capture: one ``fused`` record whose phase split sums to its
    device seconds within 1% (15c).
 16. tensor and sequence parallelism: two rank processes on the one card
-   (``parallel.multihost.run_ranks``; ``gloo``, since NCCL refuses two ranks
-   on one device, every collective staged through the host), each drawing
+   (``parallel.multihost.run_ranks`` given no device, as a user would call
+   it: each rank joins on the card, ``LOCAL_RANK % device_count``, and
+   holds its params on cuda:0; ``gloo``, since NCCL refuses two ranks on
+   one device, every collective staged through the host, and each mesh's
+   record names the shared card), each drawing
    phase 6's weights from its seed leaf by leaf and keeping its tp shard.
    16a: ``run_evaluation`` for "ship" through the model at tp 2 (rank 0
    alone writes; TP_NEW_TOKENS new tokens), against the unsharded
@@ -7018,11 +7021,11 @@ def _rel_gap(a, b) -> float:
 
 
 def _rank_setup(torch, rank: int):
-    """A phase-16 rank: the port on the path, TF32 off, its mesh's world."""
+    """A phase-16 rank: the port on the path, TF32 off.  Its card is the
+    one the join gave it (``LOCAL_RANK % device_count``: card 0 here)."""
     sys.path.insert(0, REPO)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    torch.cuda.set_device(0)
 
 
 def _rank_model(torch, mesh):
@@ -7257,11 +7260,12 @@ def tp_rank(rank: int, job: dict) -> dict:
     from taboo_brittleness_tpu_torch.config import MeshConfig
     from taboo_brittleness_tpu_torch.parallel.mesh import make_mesh
 
-    mesh = make_mesh(MeshConfig(dp=1, tp=TP_RANKS, sp=1), device="cuda")
+    mesh = make_mesh(MeshConfig(dp=1, tp=TP_RANKS, sp=1))
     torch.cuda.reset_peak_memory_stats()
     params, cfg, tok, config, t_params = _rank_model(torch, mesh)
     out = {"rank": rank, "mesh": mesh.record(), "params_seconds": t_params,
-           "embed_rows": int(params["embed"].shape[0])}
+           "embed_rows": int(params["embed"].shape[0]),
+           "params_device": str(params["embed"].device)}
     out["lens"] = _tp_lens(torch, mesh, params, cfg, tok, _tp_config(config),
                            os.path.join(job["workdir"], f"lens{rank}"))
     out["merged"] = _merged_readout(torch, mesh, params["embed"], job["merge"])
@@ -7289,7 +7293,7 @@ def sp_rank(rank: int, job: dict) -> dict:
     from taboo_brittleness_tpu_torch.parallel import sp as splib
     from taboo_brittleness_tpu_torch.parallel.mesh import make_mesh
 
-    mesh = make_mesh(MeshConfig(dp=1, tp=1, sp=TP_RANKS), device="cuda")
+    mesh = make_mesh(MeshConfig(dp=1, tp=1, sp=TP_RANKS))
     torch.cuda.reset_peak_memory_stats()
     params, cfg, tok, config, t_params = _rank_model(torch, mesh)
     gen = torch.Generator(device="cuda").manual_seed(16)
@@ -7303,6 +7307,7 @@ def sp_rank(rank: int, job: dict) -> dict:
                                 tap_layer=layer, top_k=TOP_K)
     torch.cuda.synchronize()
     out = {"rank": rank, "mesh": mesh.record(), "params_seconds": t_params,
+           "params_device": str(params["embed"].device),
            "sp_seconds": time.perf_counter() - t0}
     mesh.barrier()
     if rank == 0:
@@ -7550,6 +7555,25 @@ def check_selfcheck_process(torch) -> None:
     if proc.returncode != 0 or not verdict.get("ok"):
         fail(f"serve --selfcheck: exit {proc.returncode}\n{proc.stdout[-3000:]}"
              f"\n{proc.stderr[-3000:]}")
+    if shared_card_reason(torch) not in verdict["mesh"].get("reason", ""):
+        fail(f"serve --selfcheck: the tp ranks joined as {verdict['mesh']}")
+
+
+def shared_card_reason(torch) -> str:
+    """How ``choose_backend`` names phase 16's layout: more ranks than
+    cards share them over ``gloo``."""
+    return f"{TP_RANKS} ranks share {torch.cuda.device_count()} card(s)"
+
+
+def check_rank_layout(torch, r: dict) -> None:
+    """A phase-16 rank started with no device: on card 0 (``LOCAL_RANK %
+    device_count`` of one card), ``gloo`` with its collectives staged
+    through the host, and the reason naming the shared card."""
+    mesh = r["mesh"]
+    if (mesh["backend"] != "gloo" or mesh["staging"] != "host"
+            or shared_card_reason(torch) not in mesh["reason"]
+            or r["params_device"] != "cuda:0"):
+        fail(f"rank {r['rank']}: mesh {mesh}, params on {r['params_device']}")
 
 
 def drive_parallel_tp(torch, workdir: str, ctx: tuple, *,
@@ -7674,16 +7698,16 @@ def drive_parallel_tp(torch, workdir: str, ctx: tuple, *,
     t0 = time.perf_counter()
     ranks = run_ranks(tp_rank, TP_RANKS,
                       {"workdir": workdir, "ids": ids, "merge": merge},
-                      device="cuda", workdir=os.path.join(workdir, "tp-ranks"))
+                      workdir=os.path.join(workdir, "tp-ranks"))
     t_ranks = time.perf_counter() - t0
     for r in ranks:
-        log(f"  rank {r['rank']}: mesh {r['mesh']}; embed rows "
+        log(f"  rank {r['rank']}: mesh {r['mesh']}; params on "
+            f"{r['params_device']}; embed rows "
             f"{r['embed_rows']}; params sliced in {r['params_seconds']:.1f} s; "
             f"peak device memory {r['peak_gib']:.2f} GiB")
         if r["embed_rows"] * TP_RANKS != cfg.vocab_size:
             fail(f"rank {r['rank']} holds {r['embed_rows']} vocab rows")
-        if r["mesh"]["backend"] != "gloo" or r["mesh"]["staging"] != "host":
-            fail(f"rank {r['rank']}: mesh {r['mesh']}")
+        check_rank_layout(torch, r)
     log("phase 16a the tp lens pass")
     check_tp_lens(torch, ref, ref_sums, ref_topk, ranks, margins, witness_a)
     check_merged_readout(torch, merge, merge_ref, ranks)
@@ -7748,8 +7772,12 @@ def drive_parallel_sp(torch, workdir: str) -> dict:
     held = torch.cuda.memory_allocated() / 2**30
     log(f"phase 16c lens_forward_sp at sp {TP_RANKS}, B 1, T {SP_T} (this "
         f"process holds {held:.2f} GiB)")
-    ranks = run_ranks(sp_rank, TP_RANKS, {"workdir": workdir}, device="cuda",
+    ranks = run_ranks(sp_rank, TP_RANKS, {"workdir": workdir},
                       workdir=os.path.join(workdir, "sp-ranks"))
+    for x in ranks:
+        log(f"  rank {x['rank']}: mesh {x['mesh']}; params on "
+            f"{x['params_device']}")
+        check_rank_layout(torch, x)
     r = ranks[0]
     peak = held + sum(x["peak_gib"] for x in ranks)
     log(f"  sp pass {r['sp_seconds']:.2f} s (gloo over one card), dense pass "

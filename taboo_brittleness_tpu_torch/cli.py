@@ -154,12 +154,15 @@ _PEERS: List[Any] = []
 def _join_ranks(world: int, args) -> None:
     """Make this process rank 0 of ``world`` ranks of the same command,
     starting the other ranks, unless it already is a rank of a group
-    (``torchrun``, or a peer started here); then join the group."""
+    (``torchrun``, or a peer started here); then join the group on the
+    command's device (``--device``, default cuda: one card per rank where
+    the host has them)."""
+    from taboo_brittleness_tpu_torch.device import resolve_device
     from taboo_brittleness_tpu_torch.parallel import multihost
 
     if world > 1 and not multihost.in_group():
         _PEERS.append(multihost.spawn_peers(world, args.argv))
-    multihost.initialize(device=args.device)
+    multihost.initialize(device=resolve_device(args.device))
 
 
 def _mesh(config: Config, args):
@@ -1059,7 +1062,8 @@ def cmd_worker(args) -> int:
     # span stamps: set it before any tracer or ledger exists.
     os.environ[resilience.WORKER_ENV] = wid
     # Join THIS worker's slice-local process group (TBX_FLEET_*; a no-op for
-    # a local fleet), never the global one.
+    # a local fleet), never the global one.  The join resolves --device
+    # itself (default cuda), so a worker that joins no group resolves none.
     multihost.worker_initialize(device=args.device)
     spool = fleet.FleetSpool(
         os.path.join(args.fleet_dir, fleet.SPOOL_DIRNAME)).ensure()

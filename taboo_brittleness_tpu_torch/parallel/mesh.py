@@ -32,12 +32,14 @@ mesh :func:`make_mesh` built last in this process): a rank process holds one.
 from __future__ import annotations
 
 import logging
+import os
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from taboo_brittleness_tpu_torch.config import MeshConfig
+from taboo_brittleness_tpu_torch.device import resolve_device
 from taboo_brittleness_tpu_torch.models.gemma2 import Gemma2Config, Params
 from taboo_brittleness_tpu_torch.ops.lens_kernel import (
     LensPartials,
@@ -100,7 +102,7 @@ class Mesh:
                  groups: Optional[Dict[str, Any]] = None,
                  axis_ranks: Optional[Dict[str, List[int]]] = None,
                  control: Any = None, backend: Optional[str] = None,
-                 reason: str = "", device: Optional[torch.device] = None):
+                 reason: str = "", device: Any = None):
         self.shape: Dict[str, int] = {a: int(sizes[a]) for a in AXES}
         self.size = int(np.prod(list(self.shape.values())))
         self.rank = int(rank)
@@ -112,7 +114,7 @@ class Mesh:
         self._control = control
         self.backend = backend
         self.reason = reason
-        self.device = device if device is not None else torch.device("cpu")
+        self.device = resolve_device(device)
         self.staging = ("host" if backend == "gloo"
                         and self.device.type == "cuda" else "device")
 
@@ -240,25 +242,32 @@ def set_active(mesh: Optional[Mesh]) -> None:
 
 
 def make_mesh(mesh_cfg: Optional[MeshConfig] = None, *,
-              device: Optional[torch.device] = None) -> Mesh:
+              device: Any = None) -> Mesh:
     """Build this rank's (dp, tp, sp) mesh over the process group's ranks
     (one rank without a process group) and make it :func:`active`.  -1
     axes absorb the remaining ranks and the errors are JAX's
     (:func:`mesh_sizes`).  Every rank of the group must call it: it makes
-    one process group per axis slice, in the same order everywhere."""
+    one process group per axis slice, in the same order everywhere.
+    ``device`` None is the device this rank joined its group with
+    (``parallel.multihost``), and ``cuda`` without a group."""
     import torch.distributed as dist
+
+    from taboo_brittleness_tpu_torch.parallel import multihost
 
     ready = dist.is_available() and dist.is_initialized()
     n = dist.get_world_size() if ready else 1
     rank = dist.get_rank() if ready else 0
     sizes = mesh_sizes(mesh_cfg, n)
-    device = torch.device(device) if device is not None else torch.device("cpu")
+    if device is None and ready:
+        device = multihost.joined_device()
+    device = resolve_device(device)
     if n == 1:
         mesh = Mesh(sizes, device=device)
         set_active(mesh)
         return mesh
     backend = dist.get_backend()
-    _, reason = choose_backend(device, n)
+    _, reason = choose_backend(device,
+                               int(os.environ.get("LOCAL_WORLD_SIZE", n)))
     if backend == "gloo" and device.type == "cuda":
         reason += "; collectives staged through the host"
     tp, sp, dp = sizes["tp"], sizes["sp"], sizes["dp"]

@@ -36,6 +36,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import torch
 
 from taboo_brittleness_tpu_torch.config import MeshConfig
+from taboo_brittleness_tpu_torch.device import resolve_device
 from taboo_brittleness_tpu_torch.parallel.mesh import (
     Mesh,
     choose_backend,
@@ -53,24 +54,42 @@ COORDINATOR_VARS = ("COORDINATOR_ADDRESS", "JAX_COORDINATOR_ADDRESS",
 TIMEOUT = datetime.timedelta(hours=1)
 
 
-def _join(init_method: str, world: int, rank: int,
-          device: Optional[torch.device]) -> bool:
+#: The device this process joined its group with (None before
+#: :func:`_join`): a mesh given no device takes it.
+_DEVICE: Optional[torch.device] = None
+
+
+def joined_device() -> Optional[torch.device]:
+    """The device of this process's join, None before it."""
+    return _DEVICE
+
+
+def _join(init_method: str, world: int, rank: int, device: Any) -> bool:
+    """Join the group on ``device`` (``resolve_device``: None is ``cuda``,
+    which raises without CUDA).  A CUDA rank not given a card index takes
+    card ``LOCAL_RANK % device_count()`` whatever the backend, so ranks
+    that share cards over ``gloo`` spread over them."""
     import torch.distributed as dist
 
+    global _DEVICE
     if dist.is_initialized():
         return True
-    dev = torch.device(device) if device is not None else torch.device("cpu")
+    dev = resolve_device(device)
     local = int(os.environ.get("LOCAL_WORLD_SIZE", world))
     backend, _ = choose_backend(dev, local)
     if dev.type == "cpu" and world > 1:
         # CPU ranks share the host's cores: one intra-op thread each (a
         # spinning thread pool per rank slows a small step a hundredfold).
         torch.set_num_threads(1)
-    if backend == "nccl" and dev.type == "cuda":
-        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", rank))
-                              % torch.cuda.device_count())
+    if dev.type == "cuda":
+        card = (dev.index if dev.index is not None else
+                int(os.environ.get("LOCAL_RANK", rank))
+                % torch.cuda.device_count())
+        torch.cuda.set_device(card)
+        dev = torch.device("cuda", card)
     dist.init_process_group(backend, init_method=init_method,
                             world_size=world, rank=rank, timeout=TIMEOUT)
+    _DEVICE = dev
     return True
 
 
@@ -83,8 +102,8 @@ def initialize(coordinator_address: Optional[str] = None,
     A no-op (False) without arguments and without a coordinator in the
     environment: ``TBX_DIST_INIT``, ``MASTER_ADDR`` with ``WORLD_SIZE``, or
     one of JAX's :data:`COORDINATOR_VARS`.  As in JAX, scheduler markers
-    such as ``SLURM_JOB_ID`` do not count.  ``device`` picks the backend
-    (``parallel.mesh.choose_backend``)."""
+    such as ``SLURM_JOB_ID`` do not count.  ``device`` (None: ``cuda``)
+    picks the backend (``parallel.mesh.choose_backend``) and the card."""
     import torch.distributed as dist
 
     if dist.is_available() and dist.is_initialized():
@@ -263,7 +282,7 @@ def _rank_main(rank: int, world: int, init: str, device: Optional[str],
                fn: Callable, args: tuple, out_dir: str) -> None:
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
                       LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
-    _join(init, world, rank, torch.device(device) if device else None)
+    _join(init, world, rank, device)
     try:
         result = fn(rank, *args)
         torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
@@ -277,8 +296,10 @@ def run_ranks(fn: Callable, world: int, *args: Any, device: Any = None,
               workdir: Optional[str] = None) -> List[Any]:
     """Run ``fn(rank, *args)`` on ``world`` spawned ranks joined over a
     file rendezvous in ``workdir`` (a temporary directory by default);
-    returns each rank's result (saved with ``torch.save``).  ``fn`` must be
-    importable by its module path.  Raises when a rank fails."""
+    returns each rank's result (saved with ``torch.save``).  Each rank
+    joins on ``device`` as :func:`initialize` does (None: ``cuda``, one
+    card per rank where there are enough).  ``fn`` must be importable by
+    its module path.  Raises when a rank fails."""
     import torch.multiprocessing as mp
 
     own = workdir is None

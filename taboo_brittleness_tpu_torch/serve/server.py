@@ -1035,6 +1035,7 @@ def serve_forever(
         if getattr(engine, "mesh", None) is not None:
             summary["mesh"] = {**dict(engine.mesh.shape),
                                "backend": engine.mesh.backend,
+                               "reason": engine.mesh.reason,
                                "staging": engine.mesh.staging}
         if tuned is not None:
             summary["autotune"] = {**tuned.to_dict(), "plan": tuned.plan}

@@ -67,7 +67,7 @@ def test_make_mesh_fills_free_axis():
     # The JAX rule, case for case.
     j = jmesh.make_mesh(JMeshConfig(dp=-1, tp=2, sp=1))
     assert dict(j.shape) == meshlib.mesh_sizes(MeshConfig(dp=-1, tp=2, sp=1), 8)
-    one = meshlib.make_mesh(MeshConfig())
+    one = meshlib.make_mesh(MeshConfig(), device="cpu")
     assert one.shape == {"dp": 1, "tp": 1, "sp": 1} and one.size == 1
     x = np.arange(3.0)
     assert one.all_reduce(x, "tp") is x          # no group: identity
@@ -239,7 +239,7 @@ def tp_run(tmp_path_factory):
     ref["pipeline"] = (got.guess_ids, got.response_texts, got.target_probs)
 
     ref["params_np"], ref["sae_np"] = inp["params"], inp["sae"]
-    port = multihost.run_ranks(ranks.tp_checks, 4, inp,
+    port = multihost.run_ranks(ranks.tp_checks, 4, inp, device="cpu",
                                workdir=str(tmp_path_factory.mktemp("tp")))[0]
     return ref, port
 
@@ -450,7 +450,7 @@ def sp_run(tmp_path_factory):
         top_k=3, max_new_tokens=5)
     ref["pipeline"] = (dense.guesses, dense.guess_ids, dense.target_probs)
 
-    port = multihost.run_ranks(ranks.sp_checks, 4, inp,
+    port = multihost.run_ranks(ranks.sp_checks, 4, inp, device="cpu",
                                workdir=str(tmp_path_factory.mktemp("sp")))[0]
     return ref, port
 

@@ -125,7 +125,7 @@ def arms(tmp_path_factory):
     assert bases, "no projection request in the traffic"
     inp["bases"] = bases
     whole = ranks.serve_arms(0, inp, 1)
-    tp = multihost.run_ranks(ranks.serve_arms, TP, inp, TP,
+    tp = multihost.run_ranks(ranks.serve_arms, TP, inp, TP, device="cpu",
                              workdir=str(tmp_path_factory.mktemp("serve")))[0]
     return jax_arms, whole, tp
 

@@ -288,6 +288,7 @@ def test_serve_replica_mode_raises(tmp_path):
     assert verdict["ok"], verdict["problems"]
     assert verdict["compared"] == 6
     assert verdict["mesh"]["tp"] == 2 and verdict["mesh"]["backend"] == "gloo"
+    assert verdict["mesh"]["reason"] == "CPU ranks"
     assert verdict["aot"]["misses"] == 0 and verdict["aot"]["graphed"] is False
 
 
