@@ -33,12 +33,15 @@ the kernels are built for sm_90a).  Phases, each of which fails the run:
    split-V kernel certifying in its last blocks): bf16 at N 1140 and 8, K
    33, 64 and 128, and f32 at N 1140 and 8, K 64, each against the plain
    version (values at ATOL, ids entry by entry where clear), its launches
-   by route (pass 1 and refills) and the refill blocks that ran, timed in
-   turns with the library call at that K (library, call, call, library),
-   beside the plain version and the bound; the worst cases at K 128, bf16,
-   N 1140 and 8 (one row's whole top-k planted in one chunk, and x = 0:
-   every pair saturates), on exact inputs, ids and values equal to the
-   plain version's bit for bit, timed; a K 128 call at each N under
+   by route (pass 1 and refills) and, per refill, the blocks of its fixed
+   grid that ran and the open units (``lens_kernel.refill_work``), timed
+   in turns with the library call at that K (library, call, call,
+   library), beside the plain version and the bound; the worst cases at K
+   128, bf16, N 1140 and 8 (one row's whole top-k planted in one chunk,
+   and x = 0: every pair saturates), on exact inputs, ids and values equal
+   to the plain version's bit for bit, timed beside the library call and
+   the bound (a NOTE where not at or below the library call); a K 128
+   call at each N under
    ``torch.cuda.set_sync_debug_mode("error")``; and a K 64 call at N 1140
    captured in a CUDA graph, its replay bit-equal to the eager call;
    3b. the split-V kernel (every bf16 readout of at most SPLITV_MAX_ROWS
@@ -1007,8 +1010,11 @@ def measure_f32(torch) -> list:
 
 def refill_blocks(torch, lk, fn) -> list:
     """Run ``fn`` once with the launcher watched: for each refill launch,
-    (blocks that ran, blocks in all), read from the ceilings it was given
-    (a block runs when one of its (chunk, row) pairs is open)."""
+    (blocks that ran, blocks of its grid, open units, units in all), read
+    from the ceilings it was given through the kernels' work list
+    (``lens_kernel.refill_work``: a unit is open when one of its (chunk,
+    row) pairs is; the grid is one block per SM, and a block runs when it
+    takes one of the open units' tiles)."""
     real, seen = lk._launch, []
 
     def watched(x, embed, targets, plan, top_k, logit_cap, **kw):
@@ -1022,17 +1028,19 @@ def refill_blocks(torch, lk, fn) -> list:
     finally:
         lk._launch = real
     torch.cuda.synchronize()
+    grid = lk._sm_count(torch.device("cuda"))
     out = []
     for plan, ceiling in seen:
-        open_ = ceiling != lk.EMPTY_KEY             # [S, N]
-        if plan.route == "wgmma":
-            pad = plan.row_tiles * lk.WGMMA_ROWS - open_.shape[1]
-            open_ = torch.nn.functional.pad(open_, (0, pad)).view(
-                plan.chunks, plan.row_tiles, lk.WGMMA_ROWS).any(dim=-1)
-        else:
-            open_ = open_.any(dim=1)
-        out.append((int(open_.sum().item()), open_.numel()))
+        work = lk.refill_work(ceiling.cpu(), plan)
+        out.append((min(grid, work.starts[-1]), grid, len(work.units),
+                    len(work.items)))
     return out
+
+
+def refill_log(blocks: list) -> str:
+    """Each refill's blocks that ran of its grid and open units of all."""
+    return ", ".join(f"{a}/{b} blocks ({c}/{d} units)"
+                     for a, b, c, d in blocks) or "none"
 
 
 def _timed_call(torch, fn, n: int) -> float:
@@ -1089,15 +1097,22 @@ def check_wide_worst(torch, lk, gen, dev) -> dict:
                     k, device=dev, dtype=torch.int32)).all().item()
             ms = _timed_call(torch, call, n)
             library_ms = _timed_call(torch, library_topk(torch, x, embed, k), n)
+            bound_ms, bound_by = lens_bound_ms(n, HIDDEN, VOCAB, k)
             out[f"n{n}_{case}"] = dict(ms=ms, library_ms=library_ms,
+                                       bound_ms=bound_ms, bound_by=bound_by,
                                        refill_blocks=blocks, ids_equal=same,
                                        lse_err=err, route=plan.route)
             log(f"  worst case {case} N={n} K={k} ({plan.route}): ids and "
                 f"values equal to the plain version {same} (the planted "
                 f"top-k where built: {inside}), lse err {err:.3e}; "
-                f"{len(blocks) + 1} passes, refill blocks ran/all "
-                f"{[f'{a}/{b}' for a, b in blocks]}; call {ms:.3f} ms, "
-                f"library {library_ms:.3f} ms")
+                f"{len(blocks) + 1} passes, refills ran {refill_log(blocks)}; "
+                f"call {ms:.3f} ms, library {library_ms:.3f} ms "
+                f"({ms / library_ms:.2f}x), bound {bound_ms:.3f} ms "
+                f"({bound_by}; {bound_ms / ms:.1%} of it)")
+            if not ms <= library_ms:
+                log(f"NOTE: the worst case {case} at N={n} K={k} ({ms:.3f} "
+                    f"ms) is not at or below its library call "
+                    f"({library_ms:.3f} ms)")
             if not (same and inside and err <= ATOL):
                 fail(f"the wide route's worst case {case} at N={n} K={k} "
                      "differs from the plain version")
@@ -1223,7 +1238,7 @@ def measure_wide(torch) -> dict:
                            bound_by=bounds["bound_by"])
                 rows.append(row)
                 log(f"{dtype_name} N={n} K={k} ({plan.route}, {passes} passes; "
-                    f"refill blocks ran/all {[f'{a}/{b}' for a, b in blocks]}): "
+                    f"refills ran {refill_log(blocks)}): "
                     f"max_abs_err {err:.3e}, ids equal on {e_clear - e_bad}/"
                     f"{e_clear} entries with clear margins; call "
                     f"{row['ms']:.3f} ms, library {row['library_ms']:.3f} ms "
@@ -1253,7 +1268,8 @@ def measure_wide(torch) -> dict:
         bound_by=head["bound_by"], library_ms=head["library_ms"],
         n=head["n"], k=head["k"], on_main_path=False,
         sources=[f"{PACKAGE}/csrc/lens_stats_wgmma.cu",
-                 f"{PACKAGE}/csrc/lens_stats_splitv.cu"],
+                 f"{PACKAGE}/csrc/lens_stats_splitv.cu",
+                 f"{PACKAGE}/csrc/refill_work.cuh"],
         rows=rows, worst_cases=worst, **checks)
 
 

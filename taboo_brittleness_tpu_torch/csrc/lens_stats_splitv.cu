@@ -79,8 +79,13 @@
 //   at or above it (-inf) after its statistics have read them; the list's
 //   cut is its own last entry, with no stand-in taken from the tile, so
 //   the list is the top of what the ceiling leaves.  A pair known complete
-//   gets the empty key (-inf, INT_MAX), and a block none of whose tokens is
-//   open loads nothing.  Up to MERGE_MAX (128) the last block of each pass
+//   gets the empty key (-inf, INT_MAX).  A refill runs on a grid of one
+//   block per SM of its own, whatever chunks are open: a plan kernel lists
+//   the open chunks and their 32-row tiles, each block takes an even share
+//   of those tiles (loading only their boxes, each at its place in its
+//   128-row step), and the pieces of a chunk are merged by the block that
+//   completes it (refill_work.cuh), so one open chunk is streamed by 60-61
+//   SMs, not one.  Up to MERGE_MAX (128) the last block of each pass
 //   also certifies: it merges the open pairs' lists into the call's top-K
 //   (4 ranks a lane), takes t, its K-th key, and gives each pair whose list
 //   ends above t that last key as its next ceiling (every other pair the
@@ -623,6 +628,8 @@ __device__ __forceinline__ bool open_key(long long key) {
   return v != -INFINITY;
 }
 
+#include "refill_work.cuh"
+
 // ------------------------------------------------------------------ kernel
 
 // Where a launch writes: the partials, and the merged statistics of the last
@@ -790,15 +797,24 @@ __device__ __forceinline__ void rank_insert(float (&lv)[R], int (&li)[R],
 // ceiling; every other pair is complete (every key it did not list lies
 // below its list's last key, hence below t) and gets the empty key.  Each
 // pair's ceiling is read and written by one lane, so next may be ceiling.
+// The next pass's work list (refill_work.cuh) is written here too, from
+// the ceilings just made: the chunks an open pair keeps and their tiles.
+// `stage`: 64 KB of the block's shared memory, which no stage holds by now.
 template <int NT>
 __device__ __forceinline__ void merge_certify(const Outputs& out,
                                               const long long* ceiling,
                                               long long* next, int n,
                                               int k_merge, int n_chunks,
-                                              int warp, int lane) {
+                                              int* work, int vocab_tiles,
+                                              float* stage, int warp,
+                                              int lane) {
   constexpr int R = MERGE_MAX / 32;
   const bool refill = ceiling != nullptr;
   const int last_j = (k_merge - 1) / 32, last_lane = (k_merge - 1) % 32;
+  int* const next_open = work + 3 + 2 * n_chunks;  // the next pass's chunks
+  for (int s = threadIdx.x; s < n_chunks; s += CONSUMER_THREADS)
+    next_open[s] = 0;
+  consumers_sync();
 #pragma unroll 1
   for (int r = 0; r < NT; ++r) {
     const int tok = warp + 8 * r;
@@ -836,30 +852,74 @@ __device__ __forceinline__ void merge_certify(const Outputs& out,
       lv[j] = held ? __ldcg(out.vals + at) : -INFINITY;
       li[j] = held ? __ldcg(out.ids + at) : INT_MAX;
     }
-    for (int base = 0; base < n_chunks; base += 32) {
-      const int s = base + lane;
+    // Offers the top-K the 32 lanes' entries (cv, ci), in lane order; a
+    // false return: none of them went above its last entry.
+    auto offer = [&](float cv, int ci) -> bool {
+      float cut;
+      int cut_i;
+      rank_entry(lv, li, last_j, last_lane, cut, cut_i);
+      unsigned todo = __ballot_sync(FULL_MASK, ahead(cv, ci, cut, cut_i));
+      const bool any = todo != 0;
+      while (todo) {
+        const int from = __ffs(todo) - 1;
+        rank_insert(lv, li, __shfl_sync(FULL_MASK, cv, from),
+                    __shfl_sync(FULL_MASK, ci, from), k_merge, lane);
+        rank_entry(lv, li, last_j, last_lane, cut, cut_i);
+        todo &= __ballot_sync(FULL_MASK, ahead(cv, ci, cut, cut_i)) &
+                ~((2u << from) - 1u);
+      }
+      return any;
+    };
+    // The first pass offers every chunk's first entry first: the top-K
+    // then starts from the largest candidates, and few of the later ones
+    // go in only to be pushed out (chunk after chunk, a chunk's low ranks
+    // went in before the next chunks' firsts pushed them out).
+    int first_rank = 0;
+    if (!refill) {
+      for (int s0 = 0; s0 < n_chunks; s0 += 32) {
+        const int s = s0 + lane;
+        const size_t at = ((size_t)s * n + tok) * KMAX_WIDE;
+        offer(s < n_chunks ? __ldcg(out.part_vals + at) : -INFINITY,
+              s < n_chunks ? __ldcg(out.part_ids + at) : INT_MAX);
+      }
+      first_rank = 1;
+    }
+    // Then chunk group by chunk group (32 chunks, a lane each; a refill's
+    // open pairs alone), the lists staged in this warp's 8 KB of the
+    // block's shared memory, free by now ([rank][chunk]: one round trip to
+    // L2 a group, not one a rank), and offered rank by rank: each list is
+    // in the top-k order, so a rank at which no chunk goes above the
+    // top-K's last entry ends the group.
+    float* const group_v = stage + warp * 2 * 32 * KMAX_WIDE;
+    int* const group_i = reinterpret_cast<int*>(group_v + 32 * KMAX_WIDE);
+    for (int s0 = 0; s0 < n_chunks; s0 += 32) {
+      const int s = s0 + lane;
       const size_t pair = (size_t)s * n + tok;
       const bool open =
           s < n_chunks && (!refill || open_key(__ldcg(ceiling + pair)));
-      // Each list is in the top-k order: a rank at which no chunk of the
-      // 32 goes above the top-K's last entry ends the group's reads.
-      for (int kk = 0; kk < KMAX_WIDE; ++kk) {
-        const size_t at = pair * KMAX_WIDE + kk;
-        const float cv = open ? __ldcg(out.part_vals + at) : -INFINITY;
-        const int ci = open ? __ldcg(out.part_ids + at) : INT_MAX;
-        float cut;
-        int cut_i;
-        rank_entry(lv, li, last_j, last_lane, cut, cut_i);
-        unsigned todo = __ballot_sync(FULL_MASK, ahead(cv, ci, cut, cut_i));
-        if (todo == 0) break;
-        while (todo) {
-          const int from = __ffs(todo) - 1;
-          rank_insert(lv, li, __shfl_sync(FULL_MASK, cv, from),
-                      __shfl_sync(FULL_MASK, ci, from), k_merge, lane);
-          rank_entry(lv, li, last_j, last_lane, cut, cut_i);
-          todo &= __ballot_sync(FULL_MASK, ahead(cv, ci, cut, cut_i)) &
-                  ~((2u << from) - 1u);
+      if (!__any_sync(FULL_MASK, open)) continue;
+      __syncwarp();  // the last group's reads are done
+      if (open) {
+#pragma unroll
+        for (int j = 0; j < KMAX_WIDE / 4; ++j) {
+          const float4 v4 = __ldcg(
+              reinterpret_cast<const float4*>(out.part_vals + pair * KMAX_WIDE) +
+              j);
+          const int4 i4 = __ldcg(
+              reinterpret_cast<const int4*>(out.part_ids + pair * KMAX_WIDE) +
+              j);
+          const int at = 4 * j * 32 + lane;
+          group_v[at] = v4.x, group_v[at + 32] = v4.y;
+          group_v[at + 64] = v4.z, group_v[at + 96] = v4.w;
+          group_i[at] = i4.x, group_i[at + 32] = i4.y;
+          group_i[at + 64] = i4.z, group_i[at + 96] = i4.w;
         }
+      }
+      __syncwarp();
+      for (int kk = first_rank; kk < KMAX_WIDE; ++kk) {
+        if (!offer(open ? group_v[kk * 32 + lane] : -INFINITY,
+                   open ? group_i[kk * 32 + lane] : INT_MAX))
+          break;
       }
     }
 #pragma unroll
@@ -883,7 +943,13 @@ __device__ __forceinline__ void merge_certify(const Outputs& out,
         if (ahead(v, id, t, ti)) key = make_key(v, id);
       }
       next[pair] = key;
+      if (open_key(key)) next_open[s] = 1;
     }
+  }
+  consumers_sync();
+  if (warp == 0) {
+    const refill::Geometry g{n, 1, MAX_ROWS, n_chunks, vocab_tiles};
+    refill::compact_units(g, work, lane);
   }
 }
 
@@ -892,9 +958,10 @@ __device__ __forceinline__ void merge_certify(const Outputs& out,
 // running top-k list has L entries, one per lane of lanes 0 .. L-1.  T is
 // the input type: __nv_bfloat16, or float (3xTF32; map_x then covers the
 // wrapper's [2, n, d] split of x).  The long list only: ceiling, [n_chunks,
-// n] keys or null, makes the pass a refill, and k_merge > KMAX_WIDE the
-// last block's merge a certified one that writes the next pass's ceilings
-// to next_ceiling (see the file header).
+// n] keys or null, makes the pass a refill on a grid of its own, its work
+// dealt out by the list in `scratch` (refill_work.cuh), and k_merge >
+// KMAX_WIDE the last block's merge a certified one that writes the next
+// pass's ceilings to next_ceiling (see the file header).
 template <typename T, int NT, bool CAP, int L>
 __global__ void __launch_bounds__(THREADS, 1)
     lens_splitv_kernel(const __grid_constant__ CUtensorMap map_x,
@@ -902,7 +969,8 @@ __global__ void __launch_bounds__(THREADS, 1)
                        const int* __restrict__ targets, const Outputs out,
                        int n, int d, int v, int k_top, int n_chunks,
                        float cap, const long long* ceiling,
-                       long long* next_ceiling, int k_merge) {
+                       long long* next_ceiling, int k_merge,
+                       const refill::Scratch scratch) {
   constexpr bool F32 = tf32::is_f32<T>;
   constexpr int NPAD = 8 * NT;
   constexpr int kBK = F32 ? F32_BK : BK;
@@ -920,13 +988,18 @@ __global__ void __launch_bounds__(THREADS, 1)
   float* const staged =
       reinterpret_cast<float*>(smem_raw + (empty + MAX_STAGES * 8 - base));
 
-  const int chunk = blockIdx.x;
   const int vocab_tiles = (v + TILE_ROWS - 1) / TILE_ROWS;
-  const int row_begin =
-      (int)((long long)chunk * vocab_tiles / n_chunks) * TILE_ROWS;
-  int row_end = min(
-      v, (int)((long long)(chunk + 1) * vocab_tiles / n_chunks) * TILE_ROWS);
   const int k_steps = (d + kBK - 1) / kBK;
+  // A refill of the long list walks the spans the work list deals this
+  // block (units are chunks, items 32-row tiles); every other launch the
+  // block's own chunk, whole.
+  const bool spread = L == KMAX_WIDE && ceiling != nullptr;
+  const refill::Work work{scratch.work, n_chunks};
+  // A refill with nothing open has nothing to list, and its certifying
+  // block nothing to change.
+  if (spread && work.items() == 0) return;
+  refill::Spans spans{work, 0, 1};
+  if (spread) spans = refill::Spans::of_block(work, blockIdx.x, gridDim.x);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -935,42 +1008,68 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  if constexpr (L == KMAX_WIDE) {
-    // A refill whose tokens are all complete in this chunk streams no tile:
-    // nothing is loaded, and the lists written are empty.
-    bool open = true;
-    if (ceiling != nullptr)
-      open = threadIdx.x < n &&
-             open_key(ceiling[(size_t)chunk * n + threadIdx.x]);
-    if (!__syncthreads_or(open)) row_end = row_begin;
-  } else {
-    __syncthreads();
-  }
+  __syncthreads();
+
+  // The rows [row_begin, row_end) of a span's chunk and its tiles [tile_lo,
+  // tile_hi) of it.  A block walks a chunk in 128-row steps from row_begin
+  // and loads a step's boxes [box_lo, box_hi) that are its tiles, each at
+  // its place in the step as on the first pass (steps()).
+  refill::Span span{-1, 0, 0, 0, 0};
+  int chunk = 0, row_begin = 0, row_end = 0, tile_lo = 0, tile_hi = 0;
+  auto next_span = [&]() -> bool {
+    if (spread) {
+      if (!spans.next(span)) return false;
+      chunk = span.unit;
+    } else {
+      if (spans.item++ > 0) return false;
+      chunk = blockIdx.x;
+    }
+    row_begin = (int)((long long)chunk * vocab_tiles / n_chunks) * TILE_ROWS;
+    row_end = min(
+        v, (int)((long long)(chunk + 1) * vocab_tiles / n_chunks) * TILE_ROWS);
+    tile_lo = spread ? span.first : 0;
+    tile_hi = spread ? span.upto : (row_end - row_begin + TILE_ROWS - 1) /
+                                       TILE_ROWS;
+    return true;
+  };
+  constexpr int STEP_BOXES = BLOCK_ROWS / TILE_ROWS;
+  // The step of tile t of the span and its boxes [box_lo, box_hi).
+  auto step_of = [&](int t, int& row0, int& box_lo, int& box_hi) {
+    const int step = t / STEP_BOXES;
+    row0 = row_begin + step * BLOCK_ROWS;
+    box_lo = t - step * STEP_BOXES;
+    box_hi = min(STEP_BOXES, tile_hi - step * STEP_BOXES);
+  };
 
   if (threadIdx.x >= CONSUMER_THREADS) {
     // ---- producer warp: one lane keeps the ring full.
     if (threadIdx.x == CONSUMER_THREADS) {
       int stage = 0;
       uint32_t phase = 0;
-      for (int row0 = row_begin; row0 < row_end; row0 += BLOCK_ROWS) {
-        const int boxes =
-            (min(BLOCK_ROWS, row_end - row0) + TILE_ROWS - 1) / TILE_ROWS;
-        for (int ks = 0; ks < k_steps; ++ks) {
-          mbar_wait(empty + 8 * stage, phase ^ 1);
-          const uint32_t s = ring + stage * STAGE_BYTES;
-          mbar_expect_tx(full + 8 * stage, boxes * BOX_BYTES + X_BYTES);
-          for (int b = 0; b < boxes; ++b) {
-            tma_load_2d(s + b * BOX_BYTES, &map_e, full + 8 * stage, ks * kBK,
-                        row0 + b * TILE_ROWS);
-          }
-          if constexpr (F32) {
-            tma_load_3d(s + E_BYTES, &map_x, full + 8 * stage, ks * kBK, 0, 0);
-          } else {
-            tma_load_2d(s + E_BYTES, &map_x, full + 8 * stage, ks * BK, 0);
-          }
-          if (++stage == STAGES) {
-            stage = 0;
-            phase ^= 1;
+      while (next_span()) {
+        for (int t = tile_lo; t < tile_hi;) {
+          int row0, box_lo, box_hi;
+          step_of(t, row0, box_lo, box_hi);
+          t += box_hi - box_lo;
+          for (int ks = 0; ks < k_steps; ++ks) {
+            mbar_wait(empty + 8 * stage, phase ^ 1);
+            const uint32_t s = ring + stage * STAGE_BYTES;
+            mbar_expect_tx(full + 8 * stage,
+                           (box_hi - box_lo) * BOX_BYTES + X_BYTES);
+            for (int b = box_lo; b < box_hi; ++b) {
+              tma_load_2d(s + b * BOX_BYTES, &map_e, full + 8 * stage,
+                          ks * kBK, row0 + b * TILE_ROWS);
+            }
+            if constexpr (F32) {
+              tma_load_3d(s + E_BYTES, &map_x, full + 8 * stage, ks * kBK, 0,
+                          0);
+            } else {
+              tma_load_2d(s + E_BYTES, &map_x, full + 8 * stage, ks * BK, 0);
+            }
+            if (++stage == STAGES) {
+              stage = 0;
+              phase ^= 1;
+            }
           }
         }
       }
@@ -990,6 +1089,12 @@ __global__ void __launch_bounds__(THREADS, 1)
   int top_i[NT];
   float ceil_v[NT];  // a refill's ceiling per token (long list only)
   int ceil_i[NT];
+  float acc[4 * NT];
+  int stage = 0;
+  uint32_t phase = 0;
+  int buf = 0;
+  int lo_buf = 0;  // f32: the lo tile of E this stage's split writes
+  while (next_span()) {
 #pragma unroll
   for (int r = 0; r < NT; ++r) {
     const int tok = warp + 8 * r;
@@ -1008,12 +1113,10 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
   }
 
-  float acc[4 * NT];
-  int stage = 0;
-  uint32_t phase = 0;
-  int buf = 0;
-  int lo_buf = 0;  // f32: the lo tile of E this stage's split writes
-  for (int row0 = row_begin; row0 < row_end; row0 += BLOCK_ROWS) {
+  for (int t = tile_lo; t < tile_hi;) {
+    int row0, box_lo, box_hi;
+    step_of(t, row0, box_lo, box_hi);
+    t += box_hi - box_lo;
 #pragma unroll
     for (int i = 0; i < 4 * NT; ++i) acc[i] = 0.0f;
     int prev = 0;
@@ -1085,7 +1188,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 
     // ---- fold: lane l reads columns l, l + 32, l + 64, l + 96 of a token,
     // so visiting u, then lanes in order, visits ascending ids.
-    const int valid = min(BLOCK_ROWS, row_end - row0);
+    // The rows of this span's boxes, below the chunk's end.
+    const int valid_lo = box_lo * TILE_ROWS;
+    const int valid_hi = min(box_hi * TILE_ROWS, row_end - row0);
 #pragma unroll
     for (int r = 0; r < NT; ++r) {
       const float* src = tile + (warp + 8 * r) * LOGIT_STRIDE;
@@ -1096,7 +1201,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         const int col = lane + 32 * u;
         float y = src[col];
         if (CAP) y = capped_tanh(y, 2.0f * LOG2E / cap, cap);
-        x[u] = col < valid ? y : -INFINITY;
+        x[u] = col >= valid_lo && col < valid_hi ? y : -INFINITY;
         tile_max = fmaxf(tile_max, x[u]);
       }
 #pragma unroll
@@ -1162,6 +1267,48 @@ __global__ void __launch_bounds__(THREADS, 1)
 #endif  // LENS_ANATOMY_SKIP_FOLD
   }
 
+  if constexpr (L == KMAX_WIDE) {
+   if (spread && !span.whole()) {
+    // ---- a piece of the chunk: its lists into slot m + b; the block whose
+    // steps complete the chunk merges the pieces into the chunk's lists.
+    const size_t slot = (size_t)(span.m + blockIdx.x);
+#pragma unroll
+    for (int r = 0; r < NT; ++r) {
+      const int tok = warp + 8 * r;
+      if (tok < n) {
+        const size_t at = (slot * n + tok) * KMAX_WIDE + lane;
+        scratch.piece_vals[at] = top_v[r];
+        scratch.piece_ids[at] = top_i[r];
+      }
+    }
+    __shared__ int merges;
+    __threadfence();
+    consumers_sync();
+    if (threadIdx.x == 0) {
+      const int done = span.upto - span.first;
+      merges = atomicAdd(scratch.tickets + chunk, done) + done == span.items;
+    }
+    consumers_sync();
+    if (merges) {
+      __threadfence();
+      const int items = work.items();
+      const int s0 = work.start(span.m);
+      const int b0 = refill::block_of(s0, items, gridDim.x);
+      const int b1 = refill::block_of(s0 + span.items - 1, items, gridDim.x);
+      for (int tok = warp; tok < n; tok += CONSUMER_WARPS) {
+        const size_t first = ((size_t)(span.m + b0) * n + tok) * KMAX_WIDE;
+        const size_t at = ((size_t)chunk * n + tok) * KMAX_WIDE;
+        refill::merge_pieces(scratch.piece_vals + first,
+                             scratch.piece_ids + first,
+                             (size_t)n * KMAX_WIDE, b0, b1 - b0 + 1, items,
+                             gridDim.x, out.part_vals + at, out.part_ids + at,
+                             lane);
+      }
+    }
+    continue;
+   }
+  }
+
   // ---- reduce each token's lanes and write the chunk's partials.
 #pragma unroll
   for (int r = 0; r < NT; ++r) {
@@ -1186,19 +1333,24 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
     }
   }
+  }  // spans
   if (out.lse == nullptr) return;
 
   // ---- the last block to finish merges the chunks (one ticket).
   __shared__ int last;
   __threadfence();
   consumers_sync();
-  if (threadIdx.x == 0) last = atomicAdd(out.ticket, 1) == n_chunks - 1;
+  if (threadIdx.x == 0)
+    last = atomicAdd(out.ticket, 1) ==
+           (L == KMAX_WIDE ? (int)gridDim.x : n_chunks) - 1;
   consumers_sync();
   if (!last) return;
   __threadfence();
   if constexpr (L == KMAX_WIDE) {
     if (k_merge > KMAX_WIDE) {
       merge_certify<NT>(out, ceiling, next_ceiling, n, k_merge, n_chunks,
+                        scratch.work, vocab_tiles,
+                        reinterpret_cast<float*>(smem_raw + (ring - base)),
                         warp, lane);
       return;
     }
@@ -1262,6 +1414,8 @@ struct Args {
   const long long* ceiling;
   long long* next_ceiling;
   int k_merge;
+  refill::Scratch scratch;
+  int grid;  // a refill's blocks
 };
 
 template <typename T, int NT, bool CAP, int L>
@@ -1273,9 +1427,10 @@ int launch(const CUtensorMap& mx, const CUtensorMap& me, const Args& a,
   cudaError_t rc = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  kernel<<<a.n_chunks, THREADS, bytes, stream>>>(
-      mx, me, a.targets, a.out, a.n, a.d, a.v, a.k_top, a.n_chunks, a.cap,
-      a.ceiling, a.next_ceiling, a.k_merge);
+  kernel<<<a.ceiling != nullptr ? a.grid : a.n_chunks, THREADS, bytes,
+           stream>>>(mx, me, a.targets, a.out, a.n, a.d, a.v, a.k_top,
+                     a.n_chunks, a.cap, a.ceiling, a.next_ceiling, a.k_merge,
+                     a.scratch);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1303,11 +1458,13 @@ int launch_rows(const CUtensorMap& mx, const CUtensorMap& me, const Args& a,
       int *part_ids, float *lse, float *tgt, float *vals, int *ids,           \
       int *ticket, int n, int d, int v, int k_top, int list_len,              \
       int n_chunks, int has_cap, int f32, float cap, void *stream,            \
-      const long long *ceiling, long long *next_ceiling, int k_merge
+      const long long *ceiling, long long *next_ceiling, int k_merge,         \
+      int *work, float *piece_vals, int *piece_ids, int *tickets, int grid
 #define SPLITV_ARGS                                                          \
   x, e, x_split, targets, part_max, part_sumexp, part_tgt, part_vals,        \
       part_ids, lse, tgt, vals, ids, ticket, n, d, v, k_top, list_len,       \
-      n_chunks, has_cap, f32, cap, stream, ceiling, next_ceiling, k_merge
+      n_chunks, has_cap, f32, cap, stream, ceiling, next_ceiling, k_merge,   \
+      work, piece_vals, piece_ids, tickets, grid
 
 // One launch in the input type T (float: x split first into x_split), with
 // the cap or without.
@@ -1325,11 +1482,20 @@ int launch_typed(SPLITV_PARAMS) {
   const Args a{targets,
                {part_max, part_sumexp, part_tgt, part_vals, part_ids, lse,
                 tgt, vals, ids, ticket},
-               n, d, v, k_top, n_chunks, cap, ceiling, next_ceiling, k_merge};
+               n, d, v, k_top, n_chunks, cap, ceiling, next_ceiling, k_merge,
+               {work, piece_vals, piece_ids, tickets}, grid};
   if constexpr (F32) {
     const cudaError_t rc = tf32::split_rows(static_cast<const float*>(x),
                                             static_cast<float*>(x_split), n, d,
                                             s);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  if (ceiling != nullptr && k_merge == k_top) {
+    // A refill: the work list of its chunks (units) and 32-row tiles.  (A
+    // certified pass finds it written by the pass before.)
+    const refill::Geometry g{n, 1, MAX_ROWS, n_chunks,
+                             (v + TILE_ROWS - 1) / TILE_ROWS};
+    const cudaError_t rc = refill::launch_plan(ceiling, g, work, s);
     if (rc != cudaSuccess) return static_cast<int>(rc);
   }
   return list_len == KMAX ? launch_rows<T, CAP, KMAX>(mx, me, a, s)
@@ -1402,7 +1568,12 @@ const char* tbx_splitv_error_string(int code) {
 // pass (list_len == k_top == KMAX_WIDE, lse and next_ceiling not null)
 // KMAX_WIDE < k_merge <= MERGE_MAX; ceiling, null or a refill's [n_chunks,
 // n] keys (long list only; a refill's max, sum-exp and target partials are
-// not read), may be next_ceiling.
+// not read), may be next_ceiling.  A refill runs on `grid` blocks with its
+// scratch (refill_work.cuh): work [3 + 3 n_chunks] ints, piece_vals and
+// piece_ids [n_chunks + grid, n, KMAX_WIDE], tickets [n_chunks] ints, 0 at
+// launch; it lists only the pairs its ceilings leave open.  A certified
+// pass writes the next pass's work list into `work` (every certified pass
+// takes it), and its refill reads the list the pass before wrote.
 int tbx_lens_splitv(SPLITV_PARAMS) {
   const bool wide = list_len == KMAX_WIDE && k_top == KMAX_WIDE;
   const bool certified = k_merge != k_top;
@@ -1412,9 +1583,12 @@ int tbx_lens_splitv(SPLITV_PARAMS) {
       (lse != nullptr && (tgt == nullptr || vals == nullptr ||
                           ids == nullptr || ticket == nullptr)) ||
       (f32 && (x_split == nullptr || d % 4 != 0)) ||
-      (ceiling != nullptr && !wide) ||
+      (ceiling != nullptr &&
+       (!wide || work == nullptr || piece_vals == nullptr ||
+        piece_ids == nullptr || tickets == nullptr || grid < 1)) ||
       (certified && (!wide || k_merge <= KMAX_WIDE || k_merge > MERGE_MAX ||
-                     lse == nullptr || next_ceiling == nullptr))) {
+                     lse == nullptr || next_ceiling == nullptr ||
+                     work == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (f32) {

@@ -60,7 +60,7 @@
 //   list of 32 per row, split across its four lanes: lane q holds ranks
 //   8q .. 8q+7, in the same 2 x 8 register pairs as the short list, and the
 //   list's last entry (lane 3's) is the cut.  Each lane queues its columns
-//   above the cut in its slots as before; the quad then walks the four
+//   above the cut in its slots (8 a row); the quad then walks the four
 //   queues one candidate at a time (every lane reads the candidate from
 //   shared memory), and a candidate enters lane q's part when it is ahead
 //   of that part's last entry, lane q-1's last entry moving down into lane
@@ -68,11 +68,34 @@
 //   8-entry insertion per candidate, with no merge at the end of the chunk.
 //   The four queues interleave ids, so this list compares (value desc, id
 //   asc) on insertion, which keeps the lowest id first among ties as the
-//   strict rule does for the short list.  Past a lane's 16 slots the quad
-//   goes round again from the list's last entry, ties included.  In a
-//   chunk's first tile, while the list is not yet full, the least of the
-//   quad's 32 group maxima (8 columns a group) stands in for the cut: 32
-//   of the tile's columns are at or above it.
+//   strict rule does for the short list.  Past a lane's 8 slots the quad
+//   goes round again from the list's last entry, ties included.  While the
+//   list is not yet full the least of the quad's 32 group maxima (8 columns
+//   a group) stands in for the cut: 32 of the tile's columns are at or
+//   above it.
+//   The walk is a chain of shuffles, and it ran while the tensor cores
+//   waited: 0.9-1.2 ms of a 4.6 ms K 32 call against K <= 8's 0.3.  Two
+//   changes take it off that path:
+//   * A tile's last round of candidates stays in the row's slots (each row
+//     keeps 8 of the thread's 16) and is walked during the next tile's
+//     products: one step of each row between a k-step's commit and its wait
+//     (56 k-steps a tile, each ~1,600 cycles of products, a step ~150), the
+//     rest before the next fold reads the list.  Only rounds before the
+//     last (some lane with more than 8 candidates) walk on the critical
+//     path.
+//   * A span's first tile (every list of the warp empty), whose floor lets
+//     in ~90 columns a row, takes no walk: each lane takes its own top 8 as
+//     the short list does, the quad's four lists become its one list by
+//     rank (each entry's rank counted against the other lanes' 24, written
+//     to that rank's slot and read back), and the tile's columns the list
+//     may still lack, those behind their lane's 8th entry yet ahead of the
+//     list's last (any of the true top 32 missing is one: a few), are
+//     walked in as a last round.
+//   Not taken: a ping-pong of the two warpgroups, one folding while the
+//   other's wgmmas run.  A tile is 56 k-steps deep and the ring 4 stages,
+//   so the warpgroups cannot run a fold apart on shared stages; each would
+//   need its own stream of E (1.7x the bytes from L2 a k-step) for a fold
+//   that the two changes above mostly hide.
 // - A top-k above KMAX_WIDE (up to the wrapper's 1024) takes the long list
 //   in ceil(K / KMAX_WIDE) passes, certified by the wrapper
 //   (ops/lens_kernel.py `certify_top_k`): the first is the K = KMAX_WIDE
@@ -80,11 +103,14 @@
 //   last key that pair's list held, and lists the KMAX_WIDE keys strictly
 //   below it (value descending, then id ascending).  A pair the wrapper
 //   found complete gets the empty key (-inf, INT_MAX), below which nothing
-//   lies, and a block none of whose rows is open loads nothing.  The
-//   ceiling hides a row's columns at or above it (-inf) after the row's
-//   statistics have read them, so the group maxima above stand in for the
-//   cut over the columns the list may take.  The shorter list's code is
-//   untouched.
+//   lies.  The ceiling hides a row's columns at or above it (-inf) after
+//   the row's statistics have read them, so the group maxima above stand
+//   in for the cut over the columns the list may take.  A refill runs on a
+//   grid of one block per SM whatever pairs are open: a plan kernel lists
+//   the (chunk, row tile) units an open pair keeps, each block takes an
+//   even share of their tiles (spans), and a unit dealt in pieces is merged
+//   by the block that completes it (refill_work.cuh), so one open unit's
+//   22-23 tiles run on as many SMs, not on one.
 // - E crosses HBM about once.  Blocks are numbered row-tile fastest, so the
 //   row tiles of one vocab chunk run together and walk the same E tiles in
 //   step: one of them reads each E stage from HBM, the others from L2.  x
@@ -159,6 +185,9 @@ constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
 // slot k of every thread is one row of SLOT_STRIDE bytes.
 constexpr int CAND_SLOTS = 16;
 constexpr int SLOT_STRIDE = CONSUMER_THREADS * 8;
+// The long list's rows each keep half of them: a row's last round of
+// candidates waits in its slots while the next tile's products run.
+constexpr int WIDE_SLOTS = CAND_SLOTS / 2;
 constexpr int SMEM_BYTES = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * 8 +
                            CAND_SLOTS * CONSUMER_THREADS * 8;
 // The f32 (3xTF32) instantiation.  A stage holds x split into hi and lo
@@ -493,6 +522,15 @@ __device__ __forceinline__ void topk_pop(float (&tv)[KMAX], int (&ti)[KMAX]) {
   ti[KMAX - 1] = INT_MAX;
 }
 
+#include "refill_work.cuh"
+
+// A walk of the long list still to do: the quad's queue of one round (lane
+// q's candidates at ranks [p_q, p_{q+1}) of `total`, p_0 = 0), of which
+// steps [k, steps) are left (steps: the warp's longest queue).
+struct Walk {
+  int p1, p2, p3, total, k, steps;
+};
+
 // ------------------------------------------------------------------ kernel
 
 // Grid: row_tiles * n_chunks blocks, row tile fastest.  Chunk s covers the
@@ -501,7 +539,9 @@ __device__ __forceinline__ void topk_pop(float (&tv)[KMAX], int (&ti)[KMAX]) {
 // merged at the end) or KMAX_WIDE (one list split across the quad).  T is the
 // input type: __nv_bfloat16, or float (3xTF32; map_x then covers the
 // wrapper's [2, n, d] split of x).  ceiling, [n_chunks, n] keys or null,
-// makes the pass a refill (long list only; see the file header).
+// makes the pass a refill (long list only; see the file header) on a grid
+// of its own, its work dealt out by the list in `scratch`
+// (refill_work.cuh).
 template <typename T, bool CAP, int L>
 __global__ void __launch_bounds__(THREADS, 1)
     lens_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
@@ -513,7 +553,8 @@ __global__ void __launch_bounds__(THREADS, 1)
                       float* __restrict__ part_vals,
                       int* __restrict__ part_ids, int n, int d, int v,
                       int k_top, int n_chunks, float cap,
-                      const long long* __restrict__ ceiling) {
+                      const long long* __restrict__ ceiling,
+                      const refill::Scratch scratch) {
   constexpr bool F32 = tf32::is_f32<T>;
   constexpr int kBK = F32 ? F32_BK : BK;
   constexpr int kStages = F32 ? F32_STAGES : STAGES;
@@ -533,12 +574,37 @@ __global__ void __launch_bounds__(THREADS, 1)
   const uint32_t slots = full + kBarriers * kStages * 8;
 
   const int row_tiles = (n + BM - 1) / BM;
-  const int row_tile = blockIdx.x % row_tiles;
-  const int chunk = blockIdx.x / row_tiles;
   const int vocab_tiles = (v + BN - 1) / BN;
-  const int t_begin = (int)((long long)chunk * vocab_tiles / n_chunks);
-  int t_end = (int)((long long)(chunk + 1) * vocab_tiles / n_chunks);
   const int k_steps = (d + kBK - 1) / kBK;
+  // A refill of the long list walks the spans the work list deals this
+  // block (units are (chunk, row tile), items vocab tiles); every other
+  // launch the block's own unit, whole.
+  const bool spread = L == KMAX_WIDE && ceiling != nullptr;
+  const refill::Work work{scratch.work, n_chunks * row_tiles};
+  // A refill with nothing open has nothing to list.
+  if (spread && work.items() == 0) return;
+  refill::Spans spans{work, 0, 1};
+  if (spread) spans = refill::Spans::of_block(work, blockIdx.x, gridDim.x);
+  refill::Span span{-1, 0, 0, 0, 0};
+  int row_tile = 0, chunk = 0, t_begin = 0, t_end = 0;
+  auto next_span = [&]() -> bool {
+    int unit = blockIdx.x;
+    if (spread) {
+      if (!spans.next(span)) return false;
+      unit = span.unit;
+    } else if (spans.item++ > 0) {
+      return false;
+    }
+    row_tile = unit % row_tiles;
+    chunk = unit / row_tiles;
+    t_begin = (int)((long long)chunk * vocab_tiles / n_chunks);
+    t_end = (int)((long long)(chunk + 1) * vocab_tiles / n_chunks);
+    if (spread) {
+      t_end = t_begin + span.upto;
+      t_begin += span.first;
+    }
+    return true;
+  };
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -548,22 +614,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  if constexpr (L == KMAX_WIDE) {
-    // A refill whose rows are all complete in this chunk walks no tile:
-    // nothing is loaded, and the lists written are empty.
-    bool open = true;
-    if (ceiling != nullptr) {
-      const int row = row_tile * BM + threadIdx.x;
-      float cv = -INFINITY;
-      int ci;
-      if (threadIdx.x < BM && row < n)
-        key_parts(ceiling[(size_t)chunk * n + row], cv, ci);
-      open = cv != -INFINITY;
-    }
-    if (!__syncthreads_or(open)) t_end = t_begin;
-  } else {
-    __syncthreads();
-  }
+  __syncthreads();
 
   if (threadIdx.x >= CONSUMER_THREADS) {
     // ---- producer warpgroup: hands its registers to the consumers; one
@@ -572,6 +623,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (threadIdx.x == CONSUMER_THREADS) {
       int stage = 0;
       uint32_t phase = 0;
+      while (next_span())
       for (int t = t_begin; t < t_end; ++t) {
         for (int ks = 0; ks < k_steps; ++ks) {
           mbar_wait(empty + 8 * stage, phase ^ 1);
@@ -597,6 +649,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         const int ct = threadIdx.x - CONSUMER_THREADS - 32;
         int stage = 0;
         uint32_t phase = 0;
+        while (next_span())
         for (int t = t_begin; t < t_end; ++t) {
           for (int ks = 0; ks < k_steps; ++ks) {
             mbar_wait(full + 8 * stage, phase);
@@ -628,18 +681,55 @@ __global__ void __launch_bounds__(THREADS, 1)
     // Accumulator layout of m64nNk16: d[4j + 2i + c] is row
     // 16*(warp%4) + lane/4 + 8i, column 8j + 2q + c.
     int rows[2], tgt[2];
+    float run_max[2], run_sum[2], run_tgt[2];
+    float top_v[2][KMAX];
+    int top_i[2][KMAX];
+    float acc[128];
+    int stage = 0;
+    uint32_t phase = 0;
+    // The long list's walks left to do, and the tile whose columns they
+    // queued; a step of each runs between a k-step's products and its wait.
+    Walk walk[2] = {};
+    int walk_col0 = 0;
+    // (Called with i 0 or 1 where it unrolls, so the arrays stay registers.)
+    auto walk_step = [&](int i) {
+      Walk& w = walk[i];
+      if (w.k >= w.steps) return;  // warp-uniform
+      const int k = w.k++;
+      const int from = (k >= w.p1) + (k >= w.p2) + (k >= w.p3);
+      const int first = from == 0 ? 0 : from == 1 ? w.p1
+                      : from == 2 ? w.p2 : w.p3;
+      float y;
+      int jc;
+      ld_shared(slots + (threadIdx.x & ~3) * 8 + from * 8 +
+                    (i * WIDE_SLOTS + min(k - first, WIDE_SLOTS - 1)) *
+                        SLOT_STRIDE,
+                y, jc);
+      const int id = walk_col0 + 2 * from + jc;
+      // Lane q-1's last entry moves down into this lane's part when the
+      // candidate goes above it.
+      const float up_v = __shfl_up_sync(FULL_MASK, top_v[i][KMAX - 1], 1);
+      const int up_i = __shfl_up_sync(FULL_MASK, top_i[i][KMAX - 1], 1);
+      const bool carry = (lane & 3) > 0 && ahead(y, id, up_v, up_i);
+      if (k < w.total && ahead(y, id, top_v[i][KMAX - 1], top_i[i][KMAX - 1]))
+        topk_insert_ahead(top_v[i], top_i[i], carry ? up_v : y,
+                          carry ? up_i : id);
+    };
+    auto flush_walks = [&]() {
+      while (walk[0].k < walk[0].steps) walk_step(0);
+      while (walk[1].k < walk[1].steps) walk_step(1);
+    };
+
+    while (next_span()) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       rows[i] = row_tile * BM + wg * 64 + (warp % 4) * 16 + lane / 4 + 8 * i;
       const int t = rows[i] < n ? targets[rows[i]] : -1;
       tgt[i] = (t >= 0 && t < v) ? t : -1;
+      run_max[i] = -INFINITY;
+      run_sum[i] = 0.0f;
+      run_tgt[i] = NEG_BIG;
     }
-
-    float run_max[2] = {-INFINITY, -INFINITY};
-    float run_sum[2] = {0.0f, 0.0f};
-    float run_tgt[2] = {NEG_BIG, NEG_BIG};
-    float top_v[2][KMAX];
-    int top_i[2][KMAX];
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -648,9 +738,6 @@ __global__ void __launch_bounds__(THREADS, 1)
         top_i[i][p] = INT_MAX;
       }
 
-    float acc[128];
-    int stage = 0;
-    uint32_t phase = 0;
     for (int t = t_begin; t < t_end; ++t) {
 #pragma unroll
       for (int r = 0; r < 128; ++r) acc[r] = 0.0f;
@@ -682,6 +769,12 @@ __global__ void __launch_bounds__(THREADS, 1)
           }
         }
         wgmma_commit();
+        if constexpr (L == KMAX_WIDE) {
+          // The last tile's deferred walks, a step a row while the
+          // products just issued run.
+          walk_step(0);
+          walk_step(1);
+        }
         if (ks > 0) {
           // The previous stage's products are done: hand its buffer back.
           wgmma_wait<1>();
@@ -696,6 +789,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       wgmma_wait<0>();
       if (lane == 0) mbar_arrive(empty + 8 * prev);
       fence_acc(acc);
+      if constexpr (L == KMAX_WIDE) flush_walks();
 
 #ifndef LENS_ANATOMY_SKIP_FOLD
       // ---- fold this tile into the running state.  The code is unrolled
@@ -798,11 +892,10 @@ __global__ void __launch_bounds__(THREADS, 1)
           }
         } else {
           // The quad's one list of KMAX_WIDE: lane q holds its entries
-          // KMAX q .. KMAX q + KMAX - 1, so its last entry, the cut, is
-          // lane 3's.  Every entry has a lower id than this tile's columns,
-          // so a value at or below the cut cannot enter.
+          // KMAX q .. KMAX q + KMAX - 1, so its last entry is lane 3's.
           const int quad = lane & ~3;
-          const uint32_t quad_slots = slots + (threadIdx.x & ~3) * 8;
+          const uint32_t row_slots = my_slots + i * WIDE_SLOTS * SLOT_STRIDE;
+          const uint32_t row_slots_end = row_slots + WIDE_SLOTS * SLOT_STRIDE;
           if (ceiling != nullptr) {
             // A refill: the columns at or above the pair's ceiling (listed
             // by an earlier pass, or every column of a complete pair) leave
@@ -822,91 +915,182 @@ __global__ void __launch_bounds__(THREADS, 1)
                 acc[4 * j + 2 * i + c] = below ? x : -INFINITY;
               }
           }
-          float cut = __shfl_sync(FULL_MASK, top_v[i][KMAX - 1], quad + 3);
-          // Until the list is full (a chunk's first tile) its cut is -inf.
-          // A floor from the tile itself: the least of the quad's 32 group
-          // maxima, each over 8 of a lane's columns, has 32 columns of this
-          // tile at or above it, so a value below it cannot enter either.
-          // (In a refill the columns the ceiling hides are -inf here, so the
-          // 32 are columns the list may take.)
-          float floor_cut = -INFINITY;
-          if (__any_sync(FULL_MASK, cut == -INFINITY)) {
-            float least = INFINITY;
-#pragma unroll
-            for (int g = 0; g < 8; ++g) {
-              float group = -INFINITY;
-#pragma unroll
-              for (int j = 4 * g; j < 4 * g + 4; ++j)
-#pragma unroll
-                for (int c = 0; c < 2; ++c)
-                  group = fmaxf(group, acc[4 * j + 2 * i + c]);
-              least = fminf(least, group);
-            }
-            least = fminf(least, __shfl_xor_sync(FULL_MASK, least, 1));
-            least = fminf(least, __shfl_xor_sync(FULL_MASK, least, 2));
-            // x > floor_cut keeps x == least, whose ties the list orders.
-            floor_cut = nextafterf(least, -INFINITY);
-            cut = fmaxf(cut, floor_cut);
-          }
-          if (__any_sync(FULL_MASK, tile_max > cut)) {
+          // Rounds of at most WIDE_SLOTS candidates a lane (take(x, 8j + c)
+          // picks them), queued in the row's slots in ascending id and
+          // walked into the list by the quad.  Every round but the last is
+          // walked at once (`raise` then moves the pick past the list's new
+          // last entry); the last one waits in the slots and is walked, a
+          // step per k-step, while the next tile's products run.
+          auto rounds = [&](auto&& take, auto&& raise) {
+            walk_col0 = col0;
             int done = -1;  // columns 8j + c <= done are handled
             while (true) {
               __syncwarp();  // the quad has read the slots of the last round
-              uint32_t at = my_slots;
+              uint32_t at = row_slots;
 #pragma unroll
               for (int j = 0; j < 32; ++j)
 #pragma unroll
                 for (int c = 0; c < 2; ++c) {
                   const float x = acc[4 * j + 2 * i + c];
-                  const bool take = x > cut && 8 * j + c > done;
-                  st_shared_if(take && at < slots_end, at, x, 8 * j + c);
-                  at += take ? SLOT_STRIDE : 0;
+                  const bool pick = take(x, 8 * j + c) && 8 * j + c > done;
+                  st_shared_if(pick && at < row_slots_end, at, x, 8 * j + c);
+                  at += pick ? SLOT_STRIDE : 0;
                 }
-              const int n_cand = (at - my_slots) / SLOT_STRIDE;
-              const int n_take = min(n_cand, CAND_SLOTS);
+              const int n_cand = (at - row_slots) / SLOT_STRIDE;
+              const int n_take = min(n_cand, WIDE_SLOTS);
               __syncwarp();
               // The quad's queue: lane 0's candidates, then lane 1's, ...
-              const int p1 = __shfl_sync(FULL_MASK, n_take, quad);
-              const int p2 = p1 + __shfl_sync(FULL_MASK, n_take, quad + 1);
-              const int p3 = p2 + __shfl_sync(FULL_MASK, n_take, quad + 2);
-              const int total = p3 + __shfl_sync(FULL_MASK, n_take, quad + 3);
-              const int steps = __reduce_max_sync(FULL_MASK, total);
-              for (int k = 0; k < steps; ++k) {
-                const int from = (k >= p1) + (k >= p2) + (k >= p3);
-                const int first = from == 0 ? 0 : from == 1 ? p1
-                                : from == 2 ? p2 : p3;
-                float y;
-                int jc;
-                ld_shared(quad_slots + from * 8 +
-                              min(k - first, CAND_SLOTS - 1) * SLOT_STRIDE,
-                          y, jc);
-                const int id = col0 + 2 * from + jc;
-                // Lane q-1's last entry moves down into this lane's part
-                // when the candidate goes above it.
-                const float up_v =
-                    __shfl_up_sync(FULL_MASK, top_v[i][KMAX - 1], 1);
-                const int up_i =
-                    __shfl_up_sync(FULL_MASK, top_i[i][KMAX - 1], 1);
-                const bool carry = q > 0 && ahead(y, id, up_v, up_i);
-                if (k < total &&
-                    ahead(y, id, top_v[i][KMAX - 1], top_i[i][KMAX - 1])) {
-                  topk_insert_ahead(top_v[i], top_i[i], carry ? up_v : y,
-                                    carry ? up_i : id);
-                }
-              }
-              if (!__any_sync(FULL_MASK, n_cand > CAND_SLOTS)) break;
-              if (n_cand > CAND_SLOTS) {
+              Walk& w = walk[i];
+              w.p1 = __shfl_sync(FULL_MASK, n_take, quad);
+              w.p2 = w.p1 + __shfl_sync(FULL_MASK, n_take, quad + 1);
+              w.p3 = w.p2 + __shfl_sync(FULL_MASK, n_take, quad + 2);
+              w.total = w.p3 + __shfl_sync(FULL_MASK, n_take, quad + 3);
+              w.steps = __reduce_max_sync(FULL_MASK, w.total);
+              w.k = 0;
+              if (!__any_sync(FULL_MASK, n_cand > WIDE_SLOTS)) break;
+              while (w.k < w.steps) walk_step(i);
+              if (n_cand > WIDE_SLOTS) {
                 float x;
-                ld_shared(my_slots + (CAND_SLOTS - 1) * SLOT_STRIDE, x, done);
+                ld_shared(row_slots + (WIDE_SLOTS - 1) * SLOT_STRIDE, x, done);
               } else {
                 done = BN;
               }
-              // A later column of this tile may tie the list's last entry
-              // with a lower id: go round from the cut on, ties included.
-              cut = fmaxf(floor_cut,
-                          nextafterf(__shfl_sync(FULL_MASK, top_v[i][KMAX - 1],
-                                                 quad + 3),
-                                     -INFINITY));
+              raise();
+            }
+          };
+          if (__all_sync(FULL_MASK, top_v[i][0] == -INFINITY)) {
+            // ---- every list of the warp empty (a span's first tile).  A
+            // walk through the quad would take each of the ~90 columns a
+            // floor lets in, one shuffle chain a column.  Instead each lane
+            // takes its own top-KMAX of its 64 columns as the short list
+            // does (ids ascend within a lane, so a strict > keeps the
+            // lowest id among ties) ...
+            float lane_cut = -INFINITY;
+            int done = -1;
+            while (true) {
+              __syncwarp();
+              uint32_t at = row_slots;
+#pragma unroll
+              for (int j = 0; j < 32; ++j)
+#pragma unroll
+                for (int c = 0; c < 2; ++c) {
+                  const float x = acc[4 * j + 2 * i + c];
+                  const bool pick = x > lane_cut && 8 * j + c > done;
+                  st_shared_if(pick && at < row_slots_end, at, x, 8 * j + c);
+                  at += pick ? SLOT_STRIDE : 0;
+                }
+              const int n_cand = (at - row_slots) / SLOT_STRIDE;
+              const int n_take = min(n_cand, WIDE_SLOTS);
+              for (int k = 0; k < n_take; ++k) {
+                float x;
+                int jc;
+                ld_shared(row_slots + k * SLOT_STRIDE, x, jc);
+                topk_insert(top_v[i], top_i[i], x, base + jc);
+              }
+              if (!__any_sync(FULL_MASK, n_cand > WIDE_SLOTS)) break;
+              if (n_cand > WIDE_SLOTS) {
+                float x;
+                ld_shared(row_slots + (WIDE_SLOTS - 1) * SLOT_STRIDE, x, done);
+              } else {
+                done = BN;
+              }
+              lane_cut = top_v[i][KMAX - 1];
+            }
+            // ... the quad's four lists become its one list by rank: lane
+            // q's entry p goes to rank p + (the other lanes' entries ahead
+            // of it; two empty entries by lane), through the quad's slots
+            // of that rank, read back as ranks KMAX q .. KMAX q + KMAX - 1
+            // ...
+            const float own_v = top_v[i][KMAX - 1];
+            const int own_i = top_i[i][KMAX - 1];
+            int rank[KMAX];
+#pragma unroll
+            for (int p = 0; p < KMAX; ++p) rank[p] = p;
+#pragma unroll 1
+            for (int dq = 1; dq < 4; ++dq) {
+              const int other = (q + dq) & 3;
+#pragma unroll
+              for (int p2 = 0; p2 < KMAX; ++p2) {
+                const float ov =
+                    __shfl_sync(FULL_MASK, top_v[i][p2], quad + other);
+                const int oi =
+                    __shfl_sync(FULL_MASK, top_i[i][p2], quad + other);
+#pragma unroll
+                for (int p = 0; p < KMAX; ++p)
+                  rank[p] += ahead(ov, oi, top_v[i][p], top_i[i][p]) ||
+                             (other < q && ov == top_v[i][p] &&
+                              oi == top_i[i][p]);
+              }
+            }
+            __syncwarp();
+#pragma unroll
+            for (int p = 0; p < KMAX; ++p)
+              st_shared_if(true,
+                           slots + ((threadIdx.x & ~3) + rank[p] / KMAX) * 8 +
+                               (i * WIDE_SLOTS + rank[p] % KMAX) * SLOT_STRIDE,
+                           top_v[i][p], top_i[i][p]);
+            __syncwarp();
+#pragma unroll
+            for (int p = 0; p < KMAX; ++p)
+              ld_shared(row_slots + p * SLOT_STRIDE, top_v[i][p], top_i[i][p]);
+            // ... and the tile's columns it may still lack go in: a column
+            // of the true top-KMAX_WIDE missing from it lies behind its
+            // lane's own KMAX-th entry (it is in no lane's list) and ahead
+            // of the list's last (which then is no top entry): a few.
+            float lo_v = __shfl_sync(FULL_MASK, top_v[i][KMAX - 1], quad + 3);
+            int lo_i = __shfl_sync(FULL_MASK, top_i[i][KMAX - 1], quad + 3);
+            if (lo_v == -INFINITY) lo_i = -1;  // finite columns only
+            rounds(
+                [&](float x, int jc) {
+                  return ahead(x, base + jc, lo_v, lo_i) &&
+                         ahead(own_v, own_i, x, base + jc);
+                },
+                [&]() {
+                  lo_v = __shfl_sync(FULL_MASK, top_v[i][KMAX - 1], quad + 3);
+                  lo_i = __shfl_sync(FULL_MASK, top_i[i][KMAX - 1], quad + 3);
+                  if (lo_v == -INFINITY) lo_i = -1;
+                });
+          } else {
+            // Every entry has a lower id than this tile's columns, so a
+            // value at or below the list's last cannot enter.
+            float cut = __shfl_sync(FULL_MASK, top_v[i][KMAX - 1], quad + 3);
+            // Until the list is full its cut is -inf.  A floor from the
+            // tile itself: the least of the quad's 32 group maxima, each
+            // over 8 of a lane's columns, has 32 columns of this tile at or
+            // above it, so a value below it cannot enter either.  (In a
+            // refill the columns the ceiling hides are -inf here, so the 32
+            // are columns the list may take.)
+            float floor_cut = -INFINITY;
+            if (__any_sync(FULL_MASK, cut == -INFINITY)) {
+              float least = INFINITY;
+#pragma unroll
+              for (int g = 0; g < 8; ++g) {
+                float group = -INFINITY;
+#pragma unroll
+                for (int j = 4 * g; j < 4 * g + 4; ++j)
+#pragma unroll
+                  for (int c = 0; c < 2; ++c)
+                    group = fmaxf(group, acc[4 * j + 2 * i + c]);
+                least = fminf(least, group);
+              }
+              least = fminf(least, __shfl_xor_sync(FULL_MASK, least, 1));
+              least = fminf(least, __shfl_xor_sync(FULL_MASK, least, 2));
+              // x > floor_cut keeps x == least, whose ties the list orders.
+              floor_cut = nextafterf(least, -INFINITY);
+              cut = fmaxf(cut, floor_cut);
+            }
+            if (__any_sync(FULL_MASK, tile_max > cut)) {
+              rounds([&](float x, int) { return x > cut; },
+                     [&]() {
+                       // A later column of this tile may tie the list's
+                       // last entry with a lower id: from the cut on, ties
+                       // included.
+                       cut = fmaxf(floor_cut,
+                                   nextafterf(__shfl_sync(FULL_MASK,
+                                                          top_v[i][KMAX - 1],
+                                                          quad + 3),
+                                              -INFINITY));
+                     });
             }
           }
         }
@@ -916,6 +1100,57 @@ __global__ void __launch_bounds__(THREADS, 1)
       // Measurement build (perf/lens_anatomy.py): the product alone.
       run_max[0] = fmaxf(run_max[0], acc[0] + acc[127]);
 #endif  // LENS_ANATOMY_SKIP_FOLD
+    }
+
+    if constexpr (L == KMAX_WIDE) {
+      flush_walks();
+      if (spread && !span.whole()) {
+        // ---- a piece of the unit: its lists into slot m + b; the block
+        // whose tiles complete the unit merges the pieces into its lists.
+        const size_t slot = (size_t)(span.m + blockIdx.x);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const size_t at =
+              (slot * BM + (rows[i] - row_tile * BM)) * KMAX_WIDE + KMAX * q;
+#pragma unroll
+          for (int p = 0; p < KMAX; ++p) {
+            scratch.piece_vals[at + p] = top_v[i][p];
+            scratch.piece_ids[at + p] = top_i[i][p];
+          }
+        }
+        __threadfence();
+        asm volatile("bar.sync 1, %0;" ::"n"(CONSUMER_THREADS) : "memory");
+        __shared__ int merges;
+        if (threadIdx.x == 0) {
+          const int done = span.upto - span.first;
+          const int unit = chunk * row_tiles + row_tile;
+          merges = atomicAdd(scratch.tickets + unit, done) + done == span.items;
+        }
+        asm volatile("bar.sync 1, %0;" ::"n"(CONSUMER_THREADS) : "memory");
+        if (merges) {
+          __threadfence();
+          const int items = work.items();
+          const int s0 = work.start(span.m);
+          const int b0 = refill::block_of(s0, items, gridDim.x);
+          const int b1 =
+              refill::block_of(s0 + span.items - 1, items, gridDim.x);
+          for (int r = warp; r < BM && row_tile * BM + r < n;
+               r += CONSUMER_WARPS) {
+            const size_t first =
+                ((size_t)(span.m + b0) * BM + r) * KMAX_WIDE;
+            const size_t at =
+                ((size_t)chunk * n + row_tile * BM + r) * KMAX_WIDE;
+            refill::merge_pieces(scratch.piece_vals + first,
+                                 scratch.piece_ids + first,
+                                 (size_t)BM * KMAX_WIDE, b0, b1 - b0 + 1,
+                                 items, gridDim.x, part_vals + at,
+                                 part_ids + at, lane);
+          }
+        }
+        // The flag is read; the next span's round may set it again.
+        asm volatile("bar.sync 1, %0;" ::"n"(CONSUMER_THREADS) : "memory");
+        continue;
+      }
     }
 
     // ---- merge the quad's four states and write the chunk's partials.
@@ -969,6 +1204,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         }
       }
     }
+    }  // spans
   }
 }
 
@@ -1028,16 +1264,17 @@ int launch(const CUtensorMap& mx, const CUtensorMap& me, const int* targets,
            float* part_max, float* part_sumexp, float* part_tgt,
            float* part_vals, int* part_ids, int n, int d, int v, int k_top,
            int n_chunks, float cap, const long long* ceiling,
-           cudaStream_t stream) {
+           const refill::Scratch& scratch, int grid, cudaStream_t stream) {
   auto kernel = lens_wgmma_kernel<T, CAP, L>;
   constexpr int bytes = tf32::is_f32<T> ? F32_SMEM_BYTES : SMEM_BYTES;
   cudaError_t rc = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   const int row_tiles = (n + BM - 1) / BM;
-  kernel<<<row_tiles * n_chunks, THREADS, bytes, stream>>>(
-      mx, me, targets, part_max, part_sumexp, part_tgt, part_vals, part_ids, n,
-      d, v, k_top, n_chunks, cap, ceiling);
+  kernel<<<ceiling != nullptr ? grid : row_tiles * n_chunks, THREADS, bytes,
+           stream>>>(mx, me, targets, part_max, part_sumexp, part_tgt,
+                     part_vals, part_ids, n, d, v, k_top, n_chunks, cap,
+                     ceiling, scratch);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1047,11 +1284,12 @@ int launch(const CUtensorMap& mx, const CUtensorMap& me, const int* targets,
       float *part_max, float *part_sumexp, float *part_tgt, float *part_vals, \
       int *part_ids, int n, int d, int v, int k_top, int list_len,            \
       int n_chunks, int has_cap, int f32, float cap, void *stream,            \
-      const long long *ceiling
+      const long long *ceiling, int *work, float *piece_vals,                 \
+      int *piece_ids, int *tickets, int grid
 #define WGMMA_ARGS                                                           \
   x, e, x_split, targets, part_max, part_sumexp, part_tgt, part_vals,        \
       part_ids, n, d, v, k_top, list_len, n_chunks, has_cap, f32, cap,       \
-      stream, ceiling
+      stream, ceiling, work, piece_vals, piece_ids, tickets, grid
 
 // One launch in the input type T (float: x split first into x_split).
 template <typename T>
@@ -1070,12 +1308,21 @@ int launch_typed(WGMMA_PARAMS) {
                                             s);
     if (rc != cudaSuccess) return static_cast<int>(rc);
   }
+  if (ceiling != nullptr) {
+    // A refill: the work list of its (chunk, row tile) units and tiles.
+    const refill::Geometry g{n, (n + BM - 1) / BM, BM, n_chunks,
+                             (v + BN - 1) / BN};
+    const cudaError_t rc = refill::launch_plan(ceiling, g, work, s);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  const refill::Scratch scratch{work, piece_vals, piece_ids, tickets};
   auto run = list_len == KMAX ? (has_cap ? &launch<T, true, KMAX>
                                          : &launch<T, false, KMAX>)
                               : (has_cap ? &launch<T, true, KMAX_WIDE>
                                          : &launch<T, false, KMAX_WIDE>);
   return run(mx, me, targets, part_max, part_sumexp, part_tgt, part_vals,
-             part_ids, n, d, v, k_top, n_chunks, cap, ceiling, s);
+             part_ids, n, d, v, k_top, n_chunks, cap, ceiling, scratch, grid,
+             s);
 }
 
 }  // namespace
@@ -1116,12 +1363,19 @@ const char* tbx_wgmma_error_string(int code) {
 // [n_chunks, n, k_top] as in the file header.  ceiling: null, or for a
 // refill of the long list (list_len == k_top == KMAX_WIDE) the
 // [n_chunks, n] keys below which each pair lists; a refill's max, sum-exp
-// and target partials are not read.
+// and target partials are not read.  A refill runs on `grid` blocks with
+// its scratch (refill_work.cuh), for U = n_chunks * ceil(n / BM) units:
+// work [3 + 3 U] ints, piece_vals and piece_ids [U + grid, BM, KMAX_WIDE],
+// tickets [U] ints, 0 at launch.  It lists only the pairs its ceilings
+// leave open.
 int tbx_lens_wgmma(WGMMA_PARAMS) {
   if (n < 1 || (list_len != KMAX && list_len != KMAX_WIDE) || k_top < 1 ||
       k_top > list_len || n_chunks < 1 || n_chunks > (v + BN - 1) / BN ||
       (f32 && (x_split == nullptr || d % 4 != 0)) ||
-      (ceiling != nullptr && (list_len != KMAX_WIDE || k_top != KMAX_WIDE))) {
+      (ceiling != nullptr &&
+       (list_len != KMAX_WIDE || k_top != KMAX_WIDE || work == nullptr ||
+        piece_vals == nullptr || piece_ids == nullptr || tickets == nullptr ||
+        grid < 1))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (f32) return tbx_wgmma_launch_f32(WGMMA_ARGS);

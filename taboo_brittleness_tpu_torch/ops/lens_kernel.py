@@ -38,10 +38,14 @@ list in ``ceil(K / KMAX_WIDE)`` passes of the same plan, each a launch of
 the same kernel, certified exact by :func:`certify_top_k`: the first pass
 is the ``KMAX_WIDE`` call, and each later one (a refill) lists, per (chunk,
 row), the keys below a ceiling, the last key that pair's list held, where
-the list may have left some of the top-k out.  No pass waits on the host,
-so the call can be captured in a CUDA graph.  The split-V kernel's last
-block certifies in the launch itself up to :data:`MERGE_MAX`; above it, and
-on the wgmma route, the certificate is a torch epilogue.
+the list may have left some of the top-k out.  A refill runs on a fixed
+grid of one block per SM whatever pairs are open: the kernel deals the open
+units' tiles out evenly (:func:`refill_work`, :func:`refill_spans`,
+``csrc/refill_work.cuh``) and merges the pieces of a unit.  No pass waits
+on the host, so the call can be captured in a CUDA graph.  The split-V
+kernel's last block certifies in the launch itself up to
+:data:`MERGE_MAX`; above it, and on the wgmma route, the certificate is a
+torch epilogue.
 
 - :func:`lens_stats` dispatches on the device of its inputs: CUDA tensors go
   to a kernel (or raise when no kernel can take them), CPU tensors go to
@@ -144,7 +148,8 @@ SOURCES = {
 UNITS = {"splitv": tuple((f"LENS_SPLITV_UNIT={i}",) for i in range(1, 5)),
          "wgmma": (("LENS_WGMMA_UNIT=1",), ("LENS_WGMMA_UNIT=2",))}
 #: Headers the sources include; a change to one rebuilds every library.
-HEADERS = (os.path.join(_CSRC, "tf32_split.cuh"),)
+HEADERS = (os.path.join(_CSRC, "tf32_split.cuh"),
+           os.path.join(_CSRC, "refill_work.cuh"))
 BUILD_DIR = os.path.join(_CSRC, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -323,8 +328,10 @@ def certify_top_k(pass_fn: PassFn, top_k: int) -> LensPartials:
     partials, each (chunk s, row r) listing its L largest keys (value
     descending, then id ascending; :func:`_keys`) strictly below
     ``ceiling[s, r]`` ([S, N] int64), or below nothing for ``None``, padded
-    with the empty key.  After pass 1, ``t[r]`` is the ``top_k``-th key of
-    the union of every list so far.  A pair whose list's last key lies at
+    with the empty key; a pair whose ceiling is the empty key has nothing
+    below it, and its list is not read (the kernels do not write it).
+    After pass 1, ``t[r]`` is the ``top_k``-th key of the union of every
+    list so far.  A pair whose list's last key lies at
     or below ``t[r]`` is complete: every key it did not list lies below
     that last key, so outside the union's top-``top_k``.  Every other pair
     gets its list's last key as its ceiling for the next pass, and a
@@ -343,7 +350,8 @@ def certify_top_k(pass_fn: PassFn, top_k: int) -> LensPartials:
         last = keys[..., -1]
         ceiling = torch.where(last > best[:, -1], last, EMPTY_KEY)
         refill = pass_fn(ceiling)
-        keys = _keys(refill.cand_vals, refill.cand_ids)
+        keys = torch.where(ceiling[..., None] != EMPTY_KEY,
+                           _keys(refill.cand_vals, refill.cand_ids), EMPTY_KEY)
         best = _top_keys(keys, top_k, best)
     vals, ids = _unkey(best)
     gmax = parts.chunk_max.max(dim=0).values
@@ -351,6 +359,120 @@ def certify_top_k(pass_fn: PassFn, top_k: int) -> LensPartials:
     return LensPartials(gmax[None], sumexp[None],
                         parts.chunk_tgt.max(dim=0).values[None], vals[None],
                         ids[None])
+
+
+# ---------------------------------------------------------------------------
+# A refill's work, dealt over a fixed grid (csrc/refill_work.cuh).
+# ---------------------------------------------------------------------------
+
+class RefillWork(NamedTuple):
+    """The work list of a refill pass, as the kernels' plan kernel writes
+    it: the open units in order, where each one's items start in the list
+    of all their items (``starts[-1]`` is their count, W), and every
+    unit's items."""
+    units: Tuple[int, ...]
+    starts: Tuple[int, ...]
+    items: Tuple[int, ...]
+
+
+def _refill_geometry(plan: LensPlan, n: int) -> Tuple[int, int, int]:
+    """(row tiles, rows of a row tile, columns of a plan tile) of a refill's
+    units, whose items are their plan tiles: a (chunk, row tile) and its
+    256-column tiles on the wgmma route, a chunk and its 32-row tiles of E
+    on split-V."""
+    if plan.route == "wgmma":
+        return plan.row_tiles, WGMMA_ROWS, WGMMA_COLS
+    if plan.route == "splitv":
+        return 1, n, SPLITV_TILE
+    raise ValueError(f"a refill spreads a kernel's plan, not {plan.route!r}")
+
+
+def refill_work(ceiling: torch.Tensor, plan: LensPlan) -> RefillWork:
+    """The work list of a refill pass with these [S, N] ceilings: a unit is
+    open when one of its pairs' ceilings is not the empty key."""
+    s, n = ceiling.shape
+    rows, tile_rows, cols = _refill_geometry(plan, n)
+    open_ = torch.nn.functional.pad(ceiling != EMPTY_KEY,
+                                    (0, rows * tile_rows - n))
+    open_ = open_.view(s, rows, tile_rows).any(dim=-1).flatten().tolist()
+    tiles = [_cdiv(hi - lo, cols)
+             for lo, hi in zip(plan.bounds[:-1], plan.bounds[1:])]
+    items = tuple(tiles[u // rows] for u in range(s * rows))
+    units = tuple(u for u, o in enumerate(open_) if o)
+    starts = tuple(np.cumsum([0] + [items[u] for u in units]).tolist())
+    return RefillWork(units, starts, items)
+
+
+def refill_block_of(item: int, total: int, grid: int) -> int:
+    """The block of ``grid`` whose items hold ``item`` of ``total``."""
+    return ((item + 1) * grid - 1) // total
+
+
+def refill_spans(work: RefillWork, block: int, grid: int
+                 ) -> Tuple[Tuple[int, int, int, int], ...]:
+    """Block ``block``'s spans of a refill on ``grid`` blocks, in order:
+    (m, unit, first, upto), items [first, upto) of the m-th open unit.  The
+    block takes items [b W / G, (b + 1) W / G) of all W."""
+    total = work.starts[-1]
+    item, end = block * total // grid, (block + 1) * total // grid
+    spans = []
+    m = int(np.searchsorted(work.starts, item, side="right")) - 1
+    while item < end:
+        s0, s1 = work.starts[m], work.starts[m + 1]
+        upto = min(end, s1) - s0
+        spans.append((m, work.units[m], item - s0, upto))
+        item, m = s0 + upto, m + 1
+    return tuple(spans)
+
+
+def _spread_refill(keys: torch.Tensor, plan: LensPlan, ceiling: torch.Tensor,
+                   top_k: int, grid: int) -> torch.Tensor:
+    """A refill's lists ([S, N, top_k] keys) from the call's keys [N, V] as
+    the kernels deal it over ``grid`` blocks: a span that is a whole unit
+    lists its pairs; a piece of a unit lists into slot m + b, and the
+    unit's pieces are merged; the closed units list nothing."""
+    s, n = ceiling.shape
+    rows, tile_rows, cols = _refill_geometry(plan, n)
+    work = refill_work(ceiling, plan)
+    out = torch.full((s, n, top_k), EMPTY_KEY, dtype=torch.int64,
+                     device=keys.device)
+    pieces: Dict[int, torch.Tensor] = {}
+
+    def listed(c, r0, r1, lo, hi):
+        block = keys[r0:r1, lo:hi]
+        block = torch.where(block < ceiling[c, r0:r1, None], block, EMPTY_KEY)
+        pad = torch.full((r1 - r0, top_k), EMPTY_KEY, dtype=torch.int64,
+                         device=keys.device)
+        return torch.topk(torch.cat([block, pad], dim=1), top_k, dim=1).values
+
+    for b in range(grid):
+        for m, u, first, upto in refill_spans(work, b, grid):
+            c, r0 = u // rows, (u % rows) * tile_rows
+            r1 = min(n, r0 + tile_rows)
+            lo = plan.bounds[c] + first * cols
+            hi = min(plan.bounds[c + 1], plan.bounds[c] + upto * cols)
+            if first == 0 and upto == work.items[u]:
+                out[c, r0:r1] = listed(c, r0, r1, lo, hi)
+            else:
+                if m + b in pieces:
+                    raise AssertionError(f"refill slot {m + b} written twice")
+                pieces[m + b] = listed(c, r0, r1, lo, hi)
+    total = work.starts[-1]
+    for m, u in enumerate(work.units):
+        b0 = refill_block_of(work.starts[m], total, grid)
+        b1 = refill_block_of(work.starts[m + 1] - 1, total, grid)
+        if b0 == b1:
+            continue
+        c, r0 = u // rows, (u % rows) * tile_rows
+        r1 = min(n, r0 + tile_rows)
+        # A block that took no item (fewer items than blocks) wrote none.
+        merged = torch.cat([pieces.pop(m + b) for b in range(b0, b1 + 1)
+                            if b * total // grid < (b + 1) * total // grid],
+                           dim=1)
+        out[c, r0:r1] = torch.topk(merged, top_k, dim=1).values
+    if pieces:
+        raise AssertionError(f"refill slots {sorted(pieces)} never merged")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -432,6 +554,7 @@ def lens_stats_partials_reference(
     top_k: int = 5,
     logit_cap: Optional[float] = None,
     ceiling: Optional[torch.Tensor] = None,   # [S, N] int64 keys
+    grid: Optional[int] = None,
 ) -> LensPartials:
     """The plain version of the partials a kernel writes for ``plan``: the
     same statistics as :func:`lens_stats_reference`, per chunk of the
@@ -439,7 +562,10 @@ def lens_stats_partials_reference(
     (:func:`whole_plan` is one chunk over any vocabulary).  Each list holds
     its chunk's ``top_k`` largest keys (:func:`_keys`; below ``ceiling[s,
     r]`` when given, a refill pass of :func:`certify_top_k`), padded with
-    the empty key (-inf, id 2**31 - 1) where the chunk has fewer."""
+    the empty key (-inf, id 2**31 - 1) where the chunk has fewer.  A refill
+    with a ``grid`` lists as the kernels deal it over that many blocks
+    (:func:`refill_spans`: whole units and merged pieces); its statistics
+    are the first pass's (no caller reads them)."""
     _check_shapes(x, embed, top_k, tiled=False)
     if plan.bounds[-1] != embed.shape[0]:
         raise ValueError(f"plan cut for vocab {plan.bounds[-1]}, embed has "
@@ -449,15 +575,24 @@ def lens_stats_partials_reference(
     targets = _targets(target_id, n, x.device).long()
     tgt = torch.gather(logits, 1, targets.clamp(0, logits.shape[1] - 1)[:, None])[:, 0]
     empty = torch.full((n, top_k), EMPTY_KEY, dtype=torch.int64, device=x.device)
+    spread = None
+    if ceiling is not None and grid is not None:
+        ids = torch.arange(logits.shape[1], device=x.device).expand(n, -1)
+        spread = _spread_refill(_keys(logits, ids), plan, ceiling, top_k, grid)
     parts = []
     for s, (lo, hi) in enumerate(zip(plan.bounds[:-1], plan.bounds[1:])):
         block = logits[:, lo:hi]
         m = block.max(dim=1).values
         inside = (targets >= lo) & (targets < hi)
-        keys = _keys(block, torch.arange(lo, hi, device=x.device).expand(n, -1))
-        if ceiling is not None:
-            keys = torch.where(keys < ceiling[s, :, None], keys, EMPTY_KEY)
-        keys = torch.topk(torch.cat([keys, empty], dim=1), top_k, dim=1).values
+        if spread is not None:
+            keys = spread[s]
+        else:
+            keys = _keys(block,
+                         torch.arange(lo, hi, device=x.device).expand(n, -1))
+            if ceiling is not None:
+                keys = torch.where(keys < ceiling[s, :, None], keys, EMPTY_KEY)
+            keys = torch.topk(torch.cat([keys, empty], dim=1), top_k,
+                              dim=1).values
         parts.append((m, torch.exp(block - m[:, None]).sum(dim=1),
                       torch.where(inside, tgt, torch.full_like(tgt, NEG_INF)),
                       *_unkey(keys)))
@@ -571,7 +706,7 @@ def bind_library(route: str, path: str) -> ctypes.CDLL:
         lib.tbx_splitv_error_string.argtypes = [i]
         lib.tbx_splitv_error_string.restype = ctypes.c_char_p
         lib.tbx_lens_splitv.argtypes = ([p] * 14 + [i] * 8 + [ctypes.c_float, p]
-                                        + [p, p, i])
+                                        + [p, p, i] + [p] * 4 + [i])
         lib.tbx_lens_splitv.restype = i
         tile, rows = lib.tbx_splitv_tile_rows(), lib.tbx_splitv_max_rows()
         if tile != SPLITV_TILE or rows < SPLITV_MAX_ROWS:
@@ -591,7 +726,8 @@ def bind_library(route: str, path: str) -> ctypes.CDLL:
         getattr(lib, name).restype = i
     lib.tbx_wgmma_error_string.argtypes = [i]
     lib.tbx_wgmma_error_string.restype = ctypes.c_char_p
-    lib.tbx_lens_wgmma.argtypes = [p] * 9 + [i] * 8 + [ctypes.c_float, p, p]
+    lib.tbx_lens_wgmma.argtypes = ([p] * 9 + [i] * 8 + [ctypes.c_float, p, p]
+                                   + [p] * 4 + [i])
     lib.tbx_lens_wgmma.restype = i
     geometry = (lib.tbx_wgmma_block_rows(), lib.tbx_wgmma_block_cols())
     if geometry != (WGMMA_ROWS, WGMMA_COLS):
@@ -631,9 +767,12 @@ class _Certify(NamedTuple):
     """Where a pass of the split-V kernel's certified merge (top-k
     ``KMAX_WIDE + 1`` to :data:`MERGE_MAX`) writes: the call's statistics
     (its top-k carried from pass to pass), the ceilings its last block sets
-    for the next pass ([S, N] int64) and the pass's ticket (one int, 0)."""
+    for the next pass ([S, N] int64), the next pass's work list
+    ([3 + 3 S] int32, ``csrc/refill_work.cuh``; a refill reads the one the
+    pass before wrote) and the pass's ticket (one int, 0)."""
     stats: LensStats
     next_ceiling: torch.Tensor
+    work: torch.Tensor
     ticket: torch.Tensor
 
 
@@ -696,6 +835,12 @@ def _launch(x: torch.Tensor, embed: torch.Tensor, targets: torch.Tensor,
                          f"{top_k}")
     if certify is not None and not merged:
         raise ValueError("the certified merge is the split-V kernel's merge")
+    if certify is not None and (
+            certify.work.dtype != torch.int32
+            or tuple(certify.work.shape) != (3 + 3 * s,)
+            or certify.work.device != x.device):
+        raise ValueError(f"a certified pass's work list is [{3 + 3 * s}] "
+                         f"int32 on {x.device}")
 
     lib = _library(plan.route)
     length = list_length(lib, plan.route, top_k)
@@ -723,6 +868,27 @@ def _launch(x: torch.Tensor, embed: torch.Tensor, targets: torch.Tensor,
     split_buf = torch.empty((2, n, d), **f32) if is_f32 else None
     split = None if split_buf is None else split_buf.data_ptr()
     ceiling_ptr = None if ceiling is None else ceiling.data_ptr()
+    # A refill's scratch (csrc/refill_work.cuh): the work list (a certified
+    # pass's, written by the pass before), the pieces' lists (a slot per
+    # open unit and per block of the fixed grid) and the units' tickets;
+    # the tensors live until the launch is enqueued.
+    refill, grid = [None] * 4, 0
+    work = None if certify is None else certify.work
+    if ceiling is not None:
+        grid = _sm_count(x.device)
+        rows, tile_rows, _ = _refill_geometry(plan, n)
+        units = s * rows
+        if work is None:
+            work = torch.empty((3 + 3 * units,), dtype=torch.int32,
+                               device=x.device)
+        scratch = (work,
+                   torch.empty((units + grid, tile_rows, KMAX_WIDE), **f32),
+                   torch.empty((units + grid, tile_rows, KMAX_WIDE),
+                               dtype=torch.int32, device=x.device),
+                   torch.zeros((units,), dtype=torch.int32, device=x.device))
+        refill = [t.data_ptr() for t in scratch]
+    elif work is not None:
+        refill[0] = work.data_ptr()
     stats, ticket, next_ptr = None, None, None
     if certify is not None:
         stats, ticket = certify.stats, certify.ticket
@@ -742,12 +908,12 @@ def _launch(x: torch.Tensor, embed: torch.Tensor, targets: torch.Tensor,
             rc = lib.tbx_lens_splitv(*ptrs[:2], split, *ptrs[2:], *merge_ptrs,
                                      n, d, v, top_k, length, s, has_cap,
                                      is_f32, cap, stream, ceiling_ptr,
-                                     next_ptr, k_merge)
+                                     next_ptr, k_merge, *refill, grid)
             why = lib.tbx_splitv_error_string
         else:
             rc = lib.tbx_lens_wgmma(*ptrs[:2], split, *ptrs[2:], n, d, v,
                                     top_k, length, s, has_cap, is_f32, cap,
-                                    stream, ceiling_ptr)
+                                    stream, ceiling_ptr, *refill, grid)
             why = lib.tbx_wgmma_error_string
     if rc != 0:
         raise RuntimeError(f"lens_stats {plan.route} kernel launch failed "
@@ -767,11 +933,13 @@ def _kernel_pass(x: torch.Tensor, embed: torch.Tensor, targets: torch.Tensor,
 
 
 def _plain_pass(x: torch.Tensor, embed: torch.Tensor, targets: torch.Tensor,
-                plan: LensPlan, logit_cap: Optional[float]) -> PassFn:
-    """The same pass through :func:`lens_stats_partials_reference`."""
+                plan: LensPlan, logit_cap: Optional[float],
+                grid: int = H100_SMS) -> PassFn:
+    """The same pass through :func:`lens_stats_partials_reference`, its
+    refills dealt over ``grid`` blocks as the kernels deal them."""
     return lambda ceiling: lens_stats_partials_reference(
         x, embed, targets, plan, top_k=KMAX_WIDE, logit_cap=logit_cap,
-        ceiling=ceiling)
+        ceiling=ceiling, grid=grid)
 
 
 def _splitv_certified(x: torch.Tensor, embed: torch.Tensor,
@@ -788,12 +956,13 @@ def _splitv_certified(x: torch.Tensor, embed: torch.Tensor,
         topk_vals=torch.empty((n, top_k), **f32),
         topk_ids=torch.empty((n, top_k), dtype=torch.int32, device=x.device))
     ceiling = torch.empty((s, n), dtype=torch.int64, device=x.device)
+    work = torch.empty((3 + 3 * s,), dtype=torch.int32, device=x.device)
     passes = _cdiv(top_k, KMAX_WIDE)
     tickets = torch.zeros((passes,), dtype=torch.int32, device=x.device)
     for p in range(passes):
         _launch(x, embed, targets, plan, KMAX_WIDE, logit_cap, merged=True,
                 ceiling=ceiling if p else None,
-                certify=_Certify(stats, ceiling, tickets[p:p + 1]))
+                certify=_Certify(stats, ceiling, work, tickets[p:p + 1]))
     return stats
 
 

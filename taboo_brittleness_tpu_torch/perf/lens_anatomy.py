@@ -18,8 +18,9 @@ times each build's launch on the route's own plan (CUDA events, means over
 ``torch.matmul(x, E^T)`` (cuBLAS, bf16 out) on the same inputs.
 With ``--base DIR`` (the root of another checkout, an unpacked ``git
 archive`` of the parent commit, say) that tree's source of the route, as
-shipped, is one more build (``base``), timed in the same turns: the change
-against its parent on one card.  The cut builds' partials are meaningless;
+shipped, is one more build (``base``), and for the wgmma kernel also
+without its running top-k (``base_no_topk``), timed in the same turns: the
+change against its parent on one card, the top-k's share of each.  The cut builds' partials are meaningless;
 only their times are read.  The
 fold's cost is the difference of the full and the product-only build, the
 top-k's the difference of the full and the no-top-k build, and a line fitted
@@ -67,6 +68,9 @@ def build_variants(route: str, dtype: str = "bf16", base: str = None) -> dict:
         rel = os.path.relpath(source, os.path.dirname(os.path.dirname(
             os.path.dirname(os.path.abspath(lk.__file__)))))
         builds["base"] = (os.path.join(base, rel), ())
+        if "no_topk" in builds:
+            builds["base_no_topk"] = (os.path.join(base, rel),
+                                      BUILDS[route]["no_topk"])
     running = {}
     for name, (src, defines) in builds.items():
         out = os.path.join(lk.BUILD_DIR, f"lens_anatomy_{route}_{name}.so")
@@ -87,21 +91,22 @@ def build_variants(route: str, dtype: str = "bf16", base: str = None) -> dict:
 def bind_base(route: str, path: str):
     """A library built from another checkout, bound for one pass: the
     launcher's arguments up to the stream (as every tree since the f32
-    builds takes them; later ones append theirs) and the list lengths."""
+    builds takes them; later ones append theirs, which ``launcher`` passes
+    to every tree) and the list lengths."""
     import ctypes
 
     lib = ctypes.CDLL(path)
     p, i = ctypes.c_void_p, ctypes.c_int
     head = [p] * (14 if route == "splitv" else 9) + [i] * 8 + [ctypes.c_float, p]
+    tail = ([p, p, i] if route == "splitv" else [p]) + [p] * 4 + [i]
     run = getattr(lib, f"tbx_lens_{route}")
-    run.argtypes, run.restype = head, i
+    run.argtypes, run.restype = head + tail, i
     why = getattr(lib, f"tbx_{route}_error_string")
     why.argtypes, why.restype = [i], ctypes.c_char_p
     for name in (f"tbx_{route}_kmax", f"tbx_{route}_kmax_wide"):
         getattr(lib, name).restype = i
     lib.list_lengths = (getattr(lib, f"tbx_{route}_kmax")(),
                         getattr(lib, f"tbx_{route}_kmax_wide")())
-    lib.base = True
     return lib
 
 
@@ -129,9 +134,11 @@ def launcher(lib, x: torch.Tensor, embed: torch.Tensor, plan: lk.LensPlan,
 
     length = lk.list_length(lib, plan.route, top_k)
     # This tree's launchers take the pass's ceiling (and the split-V
-    # kernel's next ceilings and merged top-k) after the stream.
-    tail = [] if getattr(lib, "base", False) else (
-        [None, None, top_k] if plan.route == "splitv" else [None])
+    # kernel's next ceilings and merged top-k) after the stream, then a
+    # refill's scratch and grid; an older tree's C function ignores the
+    # arguments it does not take.
+    tail = ([None, None, top_k] if plan.route == "splitv" else [None]) \
+        + [None] * 4 + [0]
 
     def launch():
         rc = run(*ptrs, n, d, embed.shape[0], top_k, length, plan.chunks, 0,
@@ -173,7 +180,7 @@ def main() -> int:
                          text=True, timeout=60)
     # tbx: TBX009-ok — CLI stdout contract (card name and power limit)
     print(smi.stdout.strip(), flush=True)
-    libs = {name: (bind_base(args.route, path) if name == "base"
+    libs = {name: (bind_base(args.route, path) if name.startswith("base")
                    else lk.bind_library(args.route, path))
             for name, path in build_variants(args.route, args.dtype,
                                              args.base).items()}
@@ -227,9 +234,12 @@ def measure(args, libs: dict, plan: lk.LensPlan, top_k: int) -> None:
                     "fold_ms": at["full"] - at["product_only"],
                     "topk_ms": (at["full"] - at["no_topk"]
                                 if "no_topk" in at else None),
+                    "base_topk_ms": (at["base"] - at["base_no_topk"]
+                                     if "base_no_topk" in at else None),
                     "product_ms": at["product_only"],
                     "cublas_matmul_ms": at["cublas_matmul"],
-                    **{f"{name}_ms": at[name] for name in (*F32_DEPTHS, "base")
+                    **{f"{name}_ms": at[name]
+                       for name in (*F32_DEPTHS, "base", "base_no_topk")
                        if name in at}},
         "product_fit": {"ms_per_1000_depth": slope * 1000,
                         "fixed_ms": mean_t - slope * mean_d},

@@ -329,14 +329,19 @@ class FleetCoordinator:
     (a claimed marker with no lease, older than a lease), (5) the recovery
     clock.  (4), a dead replica's backlog, is :meth:`reroute_dead`.
     ``ob`` is the sweep observer whose events the rounds emit (default:
-    the active tracer's ``obs.event``)."""
+    the active tracer's ``obs.event``).  ``pins`` maps request ids to the
+    replica that must take them: a pinned request skips the router and
+    waits in intake until its replica is alive (the chaos selfcheck pins
+    one request to the replica its fault kills)."""
 
     def __init__(self, spool: RequestSpool, router: BurnRouter, *,
-                 lease_s: float, ob: Any = None):
+                 lease_s: float, ob: Any = None,
+                 pins: Optional[Dict[str, str]] = None):
         self.spool = spool
         self.router = router
         self.lease_s = float(lease_s)
         self.ob = ob if ob is not None else _NoObserver()
+        self.pins = dict(pins or {})
         self.issued: Dict[str, int] = {}          # rid -> latest attempt
         self.reissue_chains: Dict[str, List[Dict[str, Any]]] = {}
         self.reissued_ids: set = set()
@@ -419,9 +424,16 @@ class FleetCoordinator:
                     ob.event("serve_fleet.route", request=rid,
                              worker=target, resumed=True)
                 for rid in spool.intake_ids():
-                    target = router.pick(view)
-                    if target is None:
-                        break
+                    target = self.pins.get(rid)
+                    if target is not None:
+                        if not view.get(target, {}).get("alive"):
+                            continue    # waits for its replica
+                        router.routed[target] = \
+                            router.routed.get(target, 0) + 1
+                    else:
+                        target = router.pick(view)
+                        if target is None:
+                            break
                     payload = spool.route_intake(rid)
                     if payload is None:
                         continue
@@ -550,12 +562,15 @@ def run_serve_fleet(
     policy: Optional[RetryPolicy] = None,
     burn_cap: Optional[float] = None,
     router_seed: int = 0,
+    pins: Optional[Dict[str, str]] = None,
     sleep=time.sleep,
 ) -> ServeFleetResult:
     """Run N supervised serve replicas over one shared request spool until
     ``max_requests`` responses exist (status ``done``), a drain lands
     (``drained``, exit 75), or the fleet stalls (every supervisor dead or
-    ``max_wall_s`` exceeded; exit 1).  See the module docstring."""
+    ``max_wall_s`` exceeded; exit 1).  ``pins``: request ids routed to
+    a given replica (:class:`FleetCoordinator`).  See the module
+    docstring."""
     t_start = time.monotonic()
     lease_s = float(lease_s) if lease_s is not None \
         else fleet_mod.lease_seconds()
@@ -584,7 +599,8 @@ def run_serve_fleet(
 
     status = "stalled"
     with obs.sweep_observer(output_dir, pipeline="serve-fleet") as ob:
-        coord = FleetCoordinator(spool, router, lease_s=lease_s, ob=ob)
+        coord = FleetCoordinator(spool, router, lease_s=lease_s, ob=ob,
+                                 pins=pins)
         ob.event("serve_fleet.start", replicas=list(wids), lease_s=lease_s,
                  **({"max_requests": max_requests}
                     if max_requests is not None else {}))
@@ -707,7 +723,14 @@ def chaos_smoke(output_dir: str, *, n_requests: int = 12,
     requests once every replica heartbeats, kill replica w1 at its FIRST
     response commit (``serve.respond`` die, incarnation 0), and run the
     fleet to completion.  The serve fleet has no speculative re-dispatch:
-    recovery MUST go through lease expiry -> re-spool."""
+    recovery MUST go through lease expiry -> re-spool.
+
+    The first request is pinned to w1 (``run_serve_fleet(pins=...)``), so
+    the fault always has a commit to die on: the burn router alone may
+    send every request elsewhere (a weighted draw, and a heartbeat older
+    than three intervals reads as dead, which a loaded host makes likely
+    at the moment of routing), and then nothing dies and no lease
+    expires."""
     spool = RequestSpool(output_dir, fleet=True)
 
     def _feed() -> None:
@@ -746,7 +769,8 @@ def chaos_smoke(output_dir: str, *, n_requests: int = 12,
             poll_s=0.2, max_requests=int(n_requests), max_wall_s=max_wall_s,
             max_incarnations=4, supervise_poll=0.2, grace=2.0,
             wedge_after=60.0,
-            policy=RetryPolicy(max_retries=6, base_delay=0.0))
+            policy=RetryPolicy(max_retries=6, base_delay=0.0),
+            pins={"r000": "w1"} if fault_plan is None else None)
     finally:
         feeder.join(timeout=310.0)
 

@@ -408,3 +408,51 @@ def test_f32_plans_merged_match_pallas(n, k, cap):
         jnp.asarray(x), jnp.asarray(embed), jnp.asarray(targets), top_k=k,
         logit_cap=cap, block_v=128, interpret=True)
     _assert_stats_close(got, exp)
+
+
+@pytest.mark.parametrize("route,n,units,items", [
+    # The main path's plan: 9 row tiles x 44 chunks of 22-23 tiles; one
+    # open pair leaves one (chunk, row tile) unit to deal.
+    ("wgmma", 1140, 396, (22, 23)),
+    # A serve readout's: 132 chunks of 60-61 32-row tiles.
+    ("splitv", 8, 132, (60, 61)),
+])
+def test_refill_work_at_the_main_shapes(route, n, units, items):
+    """The refill's units and items on the card's plans, and how the
+    fixed grid of 132 blocks shares them: one open pair spreads its unit
+    over as many blocks as it has items, every pair open over all 132."""
+    plan = lens_kernel.lens_plan(n, 256_000, 5, BF16)
+    assert plan.route == route
+    ceiling = torch.full((plan.chunks, n), lens_kernel.EMPTY_KEY,
+                         dtype=torch.int64)
+    work = lens_kernel.refill_work(ceiling, plan)
+    assert len(work.items) == units and set(work.items) == set(items)
+    assert work.units == () and work.starts == (0,)
+    assert all(lens_kernel.refill_spans(work, b, 132) == ()
+               for b in range(132))
+    ceiling[plan.chunks // 2, n // 2] = 7
+    work = lens_kernel.refill_work(ceiling, plan)
+    assert len(work.units) == 1
+    one = work.items[work.units[0]]
+    assert work.starts == (0, one) and one in items
+    ran = [b for b in range(132) if lens_kernel.refill_spans(work, b, 132)]
+    assert len(ran) == one
+    assert all(len(lens_kernel.refill_spans(work, b, 132)) == 1 for b in ran)
+    work = lens_kernel.refill_work(torch.zeros_like(ceiling), plan)
+    assert work.units == tuple(range(units))
+    shares = [sum(up - first for _, _, first, up in
+                  lens_kernel.refill_spans(work, b, 132)) for b in range(132)]
+    assert max(shares) - min(shares) <= 1 and sum(shares) == sum(work.items)
+
+
+def test_refill_geometry_follows_the_kernels():
+    """A refill's unit is what one first-pass block owns, and its items
+    are its plan tiles: 256-column wgmma tiles, 32-row split-V tiles."""
+    wgmma = lens_kernel.lens_plan(1140, 256_000, 64, BF16)
+    splitv = lens_kernel.lens_plan(8, 256_000, 64, BF16)
+    assert lens_kernel._refill_geometry(wgmma, 1140) == (
+        9, lens_kernel.WGMMA_ROWS, lens_kernel.WGMMA_COLS)
+    assert lens_kernel._refill_geometry(splitv, 8) == (
+        1, 8, lens_kernel.SPLITV_TILE)
+    with pytest.raises(ValueError, match="refill"):
+        lens_kernel._refill_geometry(lens_kernel.whole_plan(256), 3)

@@ -232,6 +232,8 @@ def test_the_launcher_checks_a_pass_before_it_launches():
                   (dict(ceiling=good[:, :4].contiguous()), 32),
                   (dict(ceiling=good), 16),
                   (dict(certify=lk._Certify(stats, good,
+                                            torch.zeros(3 + 3 * SMS,
+                                                        dtype=torch.int32),
                                             torch.zeros(1, dtype=torch.int32))),
                    32)):
         with pytest.raises(ValueError):
@@ -289,3 +291,185 @@ def test_lens_tap_at_top_k_200_matches_jax_xla_tap(tiny256, tap):
     assert clear.mean() > 0.5
     np.testing.assert_array_equal(got.topk_ids.numpy()[clear],
                                   np.asarray(exp.topk_ids)[clear])
+
+
+# ---------------------------------------------------------------------------
+# A refill dealt over a fixed grid (csrc/refill_work.cuh, the plain pass's
+# `refill_work` / `refill_spans` / `_spread_refill`).
+# ---------------------------------------------------------------------------
+
+def _first_pass_ceilings(x, embed, targets, plan, k, cap=None):
+    """The ceilings ``certify_top_k`` hands its first refill."""
+    seen = []
+
+    def record(ceiling):
+        seen.append(ceiling)
+        return lk.lens_stats_partials_reference(
+            x, embed, targets, plan, top_k=lk.KMAX_WIDE, logit_cap=cap,
+            ceiling=ceiling)
+
+    lk.certify_top_k(record, k)
+    return seen[1]
+
+
+def _one_chunk_inputs(seed, n, v, route, k):
+    """Every row's top-k planted in chunk 1 of the route's plan."""
+    x, embed, targets = _inputs(seed, n, 16, v)
+    plan = PLANS[route](n, v, SMS)
+    lo = plan.bounds[1]
+    hot = embed[lo:lo + 2 * k] * 0.1 + 4 * x.mean(dim=0)
+    embed = embed * 0.1
+    embed[lo:lo + 2 * k] = hot
+    return x + 4 * x.mean(dim=0), embed, targets, plan
+
+
+@pytest.mark.parametrize("grid", [1, 3, 7, 132])
+@pytest.mark.parametrize("route,n,v", [("splitv", 5, 8192),
+                                       ("wgmma", 300, 8192),
+                                       ("wgmma", 5, 16384)])
+def test_refill_spans_deal_each_open_item_once(route, n, v, grid):
+    """Every item (a plan tile) of every open unit goes to
+    exactly one block, the blocks' shares differ by one item at most, a
+    block's spans are consecutive, and no two pieces share a slot m + b."""
+    plan = PLANS[route](n, v, SMS)
+    rng = np.random.default_rng(grid)
+    ceiling = torch.where(torch.from_numpy(rng.random((plan.chunks, n)) < 0.3),
+                          torch.tensor(7), torch.tensor(lk.EMPTY_KEY))
+    work = lk.refill_work(ceiling, plan)
+    rows = plan.row_tiles if route == "wgmma" else 1
+    assert len(work.items) == plan.chunks * rows
+    open_units = [u for u in range(len(work.items))
+                  if (ceiling[u // rows] != lk.EMPTY_KEY)[
+                      (u % rows) * lk.WGMMA_ROWS:(u % rows + 1) * lk.WGMMA_ROWS
+                  ].any()] if route == "wgmma" else [
+        u for u in range(plan.chunks) if (ceiling[u] != lk.EMPTY_KEY).any()]
+    assert list(work.units) == open_units
+    total = work.starts[-1]
+    assert total == sum(work.items[u] for u in work.units)
+    dealt, slots, shares = {}, set(), []
+    for b in range(grid):
+        spans = lk.refill_spans(work, b, grid)
+        shares.append(sum(upto - first for _, _, first, upto in spans))
+        for m, u, first, upto in spans:
+            assert work.units[m] == u and 0 <= first < upto <= work.items[u]
+            for item in range(first, upto):
+                assert (u, item) not in dealt
+                dealt[(u, item)] = b
+                assert lk.refill_block_of(work.starts[m] + item, total,
+                                          grid) == b
+            if (first, upto) != (0, work.items[u]):
+                assert m + b not in slots
+                slots.add(m + b)
+        assert [m for m, *_ in spans] == list(
+            range(spans[0][0], spans[0][0] + len(spans))) if spans else True
+    assert sorted(dealt) == sorted((u, i) for u in work.units
+                                   for i in range(work.items[u]))
+    assert max(shares) - min(shares) <= 1
+    assert all(s < len(work.items) + grid for s in slots)
+
+
+@pytest.mark.parametrize("cap", [None, 30.0])
+@pytest.mark.parametrize("grid", [1, 2, 5, 132])
+@pytest.mark.parametrize("case", ["random", "one_chunk", "all_equal"])
+@pytest.mark.parametrize("route", ["splitv", "wgmma"])
+def test_a_spread_refill_lists_what_the_unsplit_one_does(route, case, grid,
+                                                          cap):
+    """The lists of a refill dealt over `grid` blocks (whole units, pieces
+    merged) equal, key for key, those of the same refill on the first
+    pass's plan: each pair's 32 largest keys below its ceiling."""
+    n, v, k = 6, 8192, 128
+    if case == "one_chunk":
+        x, embed, targets, plan = _one_chunk_inputs(9, n, v, route, k)
+    else:
+        x, embed, targets = _inputs(9, n, 16, v)
+        plan = PLANS[route](n, v, SMS)
+        if case == "all_equal":
+            x = torch.zeros_like(x)
+    ceiling = _first_pass_ceilings(x, embed, targets, plan, k, cap)
+    whole = lk.lens_stats_partials_reference(
+        x, embed, targets, plan, top_k=32, logit_cap=cap, ceiling=ceiling)
+    spread = lk.lens_stats_partials_reference(
+        x, embed, targets, plan, top_k=32, logit_cap=cap, ceiling=ceiling,
+        grid=grid)
+    assert torch.equal(lk._keys(spread.cand_vals, spread.cand_ids),
+                       lk._keys(whole.cand_vals, whole.cand_ids))
+    if case != "random":
+        assert lk.refill_work(ceiling, plan).units
+
+
+def test_ties_across_a_piece_boundary_keep_the_lowest_ids():
+    """Equal logits on both sides of a tile boundary inside one chunk, so
+    that two pieces of a refill hold them: the merged lists, and the call,
+    keep the lowest ids first."""
+    n, v, k = 3, 4096, 64
+    _, embed, targets = _inputs(10, n, 8, v)
+    x = torch.zeros((n, 8))
+    x[:, 0] = 1.0
+    plan = lk._wgmma_plan(n, v, SMS)
+    lo = plan.bounds[1]
+    edge = lo + lk.WGMMA_COLS           # a tile boundary inside chunk 1
+    embed[:, 0] = -1.0
+    embed[edge - 40:edge + 40, 0] = 2.0  # 80 equal logits across it
+    for grid in (2, 3, 9):
+        ceiling = _first_pass_ceilings(x, embed, targets, plan, k)
+        whole = lk.lens_stats_partials_reference(
+            x, embed, targets, plan, top_k=32, ceiling=ceiling)
+        spread = lk.lens_stats_partials_reference(
+            x, embed, targets, plan, top_k=32, ceiling=ceiling, grid=grid)
+        assert torch.equal(spread.cand_ids, whole.cand_ids)
+        got = lk.merge_partials(lk.certify_top_k(
+            lk._plain_pass(x, embed, targets, plan, None, grid=grid), k))
+        assert got.topk_ids.tolist() == [list(range(edge - 40, edge + 24))] * n
+
+
+@pytest.mark.parametrize("cap", [None, 30.0])
+@pytest.mark.parametrize("k", [33, 64, 128, 1024])
+@pytest.mark.parametrize("route", ["splitv", "wgmma"])
+def test_spread_certified_passes_match_pallas_and_the_full_top_k(route, k,
+                                                                 cap):
+    """``certify_top_k`` over the plain passes dealt over a 3-block grid
+    against the top-k of the full logits (exact) and JAX's Pallas kernel
+    in interpret mode (ids exact, values at 1e-5)."""
+    x, embed, targets = _inputs(11, 5, 16, 4096)
+    plan = PLANS[route](5, 4096, SMS)
+    got = lk.merge_partials(lk.certify_top_k(
+        lk._plain_pass(x, embed, targets, plan, cap, grid=3), k))
+    _assert_exact(got, lk.lens_stats_reference(x, embed, targets, top_k=k,
+                                               logit_cap=cap))
+    exp = pallas_lens.lens_stats(
+        jnp.asarray(x.numpy()), jnp.asarray(embed.numpy()),
+        jnp.asarray(targets.numpy()), top_k=k, logit_cap=cap, block_v=128,
+        interpret=True)
+    for a, b in zip(got, exp):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
+    np.testing.assert_array_equal(got.topk_ids.numpy(), np.asarray(exp.topk_ids))
+
+
+@pytest.mark.parametrize("route", ["splitv", "wgmma"])
+def test_a_pair_that_closes_between_refills(route):
+    """The top-100 split 70 / 40 between chunks 1 and 2: both pairs stay
+    open after the first pass, chunk 2's closes after the first refill (its
+    40 are listed and the 100th key rises past its list's end) while chunk
+    1's stays open; the spread passes (grid 4) stay exact and the last work
+    list holds no other chunk."""
+    n, v, k = 4, 8192, 100
+    rng = np.random.default_rng(12)
+    plan = PLANS[route](n, v, SMS)
+    logit = rng.normal(size=v).astype(np.float32) * 0.1
+    hot = rng.uniform(5, 10, size=110).astype(np.float32)
+    logit[plan.bounds[1]:plan.bounds[1] + 70] = hot[:70]
+    logit[plan.bounds[2]:plan.bounds[2] + 40] = hot[70:]
+    embed = torch.from_numpy(rng.normal(size=(v, 8)).astype(np.float32))
+    embed[:, 0] = torch.from_numpy(logit)
+    x = torch.zeros((n, 8))
+    x[:, 0] = 1.0
+    targets = torch.zeros((n,), dtype=torch.int32)
+    passes = _Passes(x, embed, targets, plan)
+    passes.run = lk._plain_pass(x, embed, targets, plan, None, grid=4)
+    got = lk.merge_partials(lk.certify_top_k(passes, k))
+    _assert_exact(got, lk.lens_stats_reference(x, embed, targets, top_k=k))
+    first, second, third = passes.ceilings[1:]
+    assert (first[1:3] != lk.EMPTY_KEY).all()
+    assert (second[1] != lk.EMPTY_KEY).all() and (second[2] == lk.EMPTY_KEY).all()
+    rows = plan.row_tiles if route == "wgmma" else 1
+    assert set(lk.refill_work(third, plan).units) <= {1 * rows}

@@ -783,7 +783,35 @@ def test_cli_serve_fleet_selfcheck(monkeypatch, capsys):
     out = capsys.readouterr().out
     verdict = json.loads(out[out.index("{"):])
     assert verdict["ok"] and verdict["completed"] == 12, verdict
-    assert verdict["lease_expiries"] >= 1 and verdict["respooled"] >= 1
+    assert verdict["lease_expiries"] >= 1 and verdict["respooled"] >= 1, \
+        verdict
+
+
+def test_selfcheck_fault_bites_when_w1_reads_dead_at_routing(
+        monkeypatch, tmp_path):
+    """The chaos selfcheck kills w1 at its first commit.  A router that
+    reads w1 as dead while the batch is routed (its heartbeat three
+    intervals late on a loaded host) must still leave w1 a request to die
+    on: otherwise nothing dies, no lease expires and the verdict fails."""
+    monkeypatch.setattr(supervise, "install_drain_handlers", lambda: True)
+    for k, v in CPU_SLO_ENV.items():
+        monkeypatch.setenv(k, v)
+    real_view = BurnRouter.view
+
+    def late_w1(self):
+        view = real_view(self)
+        waiting = RequestSpool(self.output_dir, fleet=True).intake_ids()
+        if set(waiting) - {"r000"}:
+            view["w1"] = dict(view["w1"], alive=False, weight=0.0)
+        return view
+
+    monkeypatch.setattr(BurnRouter, "view", late_w1)
+    verdict = replica.selfcheck(str(tmp_path / "fleet"), device="cpu")
+    result = verdict["result"]
+    assert verdict["ok"], verdict
+    assert result["completed"] == 12, result
+    assert result["lease_expiries"] >= 1 and result["respooled"] >= 1, result
+    assert result["router"]["routed"].get("w1", 0) >= 1, result
 
 
 def test_cli_serve_fleet_sigterm_drains_75_then_rerun_done(tmp_path):
