@@ -60,15 +60,28 @@ the kernels are built for sm_90a).  Phases, each of which fails the run:
    split-V and the wgmma kernels on the same K = 1 readouts at the same N,
    each held to the plain version and timed in turns (the f32 crossover
    that sets SPLITV_F32_MAX_ROWS);
+   3c. the f16 builds (a ``model.dtype: float16`` run): N 1140 at K 5, 16
+   and 64 (the wgmma build; K 64 two certified passes) and N 8 at K 1 and
+   64 (the split-V build), cap None and 30, a scalar target and per-row
+   targets with -1 and V - 1, each against the plain version at ATOL with
+   ids equal wherever the margins clear; K 5 at N 1140 and K 1 at N 8 timed
+   in turns with the bf16 build of the same call (bf16, f16, f16, bf16)
+   beside the f16 library yardstick, the plain version and the bound (a
+   NOTE where not below the library call); both routes at N 48 and 64,
+   held and timed in turns (the f16 crossover: f16 takes bf16's
+   SPLITV_MAX_ROWS);
 4. edges: bf16 at N in {1, 129, 1140} and f32 at N in {1,
    SPLITV_F32_MAX_ROWS + 1, 129, 1140}, V in {384, 256000}, D in {72,
    3584}, K in {1, 5, KMAX, 16, KMAX_WIDE} (on the Hopper kernels) and
-   KMAX_WIDE + 1 (two certified passes of the long list), cap None and 30,
+   KMAX_WIDE + 1 (two certified passes of the long list), and f16 at N in
+   {1, SPLITV_MAX_ROWS + 1, 129}, V 384, D 72, K in {1, KMAX, KMAX_WIDE,
+   KMAX_WIDE + 1}, cap None and 30,
    one target and per-row targets with -1, each route of each dtype reached
    by at least one case; then exact ties from duplicated embedding rows in
    different tiles, at K 5, 8, 16, 32 and 33, and for K 16 and up also on
-   both sides of the wgmma plan's chunk edges; in f32 on both sides of two
-   chunk edges of the wgmma plan at N 1140 and of the split-V plan at N 8;
+   both sides of the wgmma plan's chunk edges; in f32 and in f16 on both
+   sides of two chunk edges of the wgmma plan at N 1140 and of the split-V
+   plan at N 8;
 5. a tiny f32 model through the lens pass on the card (N 33 on the split-V
    kernel's f32 build, N 77 on the wgmma kernel's, each route's launches
    counted) and on the CPU (the plain tap), at 1e-5;
@@ -420,6 +433,19 @@ the kernels are built for sm_90a).  Phases, each of which fails the run:
    there, and a twin run on card tensors is recorded); the findings are
    printed as a ``{"deep": ...}`` line.  ``python3 chip_smoke.py --deep``
    runs phases 1, 2 and 18 alone.
+19. the float16 main path (run before phase 6, whose bf16 params do not
+   exist yet): Gemma-2-9B width with ``dtype`` and ``param_dtype``
+   float16 (42 layers, seeded random weights made on the card),
+   ``run_generation`` then ``run_evaluation`` for the default config's 10
+   prompts, through a model loader, into a temporary directory; 42
+   launches per lens pass, all on the wgmma route; each pass's taps held
+   to the same call with the plain tap on the card (probabilities at
+   ATOL, top-5 ids equal wherever the margins clear the plain tap's f16
+   rounding); the largest |h| per tenth of the layers printed and every
+   tap, residual and |h| finite (an f16 overflow fails, reported, nothing
+   rescaled); peak memory under PEAK_GIB; then one prompt's last 8
+   columns through ``lens.lens_forward``: 42 launches of the split-V f16
+   build, held the same way.
 
 The card's name and power limit are printed again just before the
 ``{"kernels": [...]}`` line, which is the line before the last: one entry
@@ -430,7 +456,11 @@ call of phase 3's wide rows in ``rows``, the worst cases, the sync-debug
 and the graph check beside it; its ``launches`` are the main path's
 refills (none: no path asks a top-k above 32).  The f32 entries (``lens_stats_wgmma_f32`` at N
 1140, K 5 and ``lens_stats_splitv_f32`` at N 8, K 1, with the f32
-``crossover`` and ``by_rows``) take ``launches`` from 5b's passes.  The split-V entry: ``launches`` from 11b's
+``crossover`` and ``by_rows``) take ``launches`` from 5b's passes; the f16
+entries (``lens_stats_wgmma_f16`` at N 1140, K 5 and
+``lens_stats_splitv_f16`` at N 8, K 1, each with ``bf16_ms``, the bf16
+build in turns, and the split-V one with the f16 ``by_rows``) take theirs
+from phase 19's main path and its split-V pass.  The split-V entry: ``launches`` from 11b's
 eager serving sessions, the N 8 readout's times from 3b with
 ``wgmma_ms``, ``body_ms``, ``merge_ms``, ``crossover`` and ``by_rows`` (the
 routes per N) and ``tp_shard`` (N 8, V 128000); beside them the serving
@@ -569,7 +599,7 @@ def report_device(torch) -> tuple:
             "count": torch.cuda.device_count()}, card
 
 
-_KERNEL_NAMES = {"f": "f32", "13__nv_bfloat16": "bf16"}
+_KERNEL_NAMES = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
 
 
 def ptxas_summary(out: str) -> list:
@@ -580,7 +610,7 @@ def ptxas_summary(out: str) -> list:
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             # lens_<route>_kernel<T[, NT], CAP, L>
-            k = re.search(r"(lens_[a-z_]+_kernel)I(f|13__nv_bfloat16)"
+            k = re.search(r"(lens_[a-z_]+_kernel)I(f|13__nv_bfloat16|6__half)"
                           r"(?:Li(\d+)E)?(?:Lb([01])ELi(\d+)E)?",
                           m.group(1))
             if k:
@@ -707,16 +737,17 @@ def compare_partials(got, ref, k: int) -> tuple:
             int((clear & ~same).sum().item()))
 
 
-def rank_ids(torch, got_ids, ref_vals, ref_ids, k: int) -> tuple:
-    """(entries of a top-k whose reference value lies more than ATOL from
-    both its neighbours in the reference top-(k+1); of those, entries whose
-    id differs), over any leading axes.  A clear entry's rank, hence its id,
-    is the same whatever the rounding."""
+def rank_ids(torch, got_ids, ref_vals, ref_ids, k: int,
+             margin: float = ATOL) -> tuple:
+    """(entries of a top-k whose reference value lies more than ``margin``
+    from both its neighbours in the reference top-(k+1); of those, entries
+    whose id differs), over any leading axes.  A clear entry's rank, hence
+    its id, is the same whatever the rounding."""
     ref = ref_vals[..., :k + 1]
     below = ref[..., :-1] - ref[..., 1:]
     above = torch.cat([torch.full_like(below[..., :1], float("inf")),
                        below[..., :-1]], dim=-1)
-    clear = (below > ATOL) & (above > ATOL)
+    clear = (below > margin) & (above > margin)
     bad = clear & (got_ids != ref_ids[..., :k])
     return int(clear.sum().item()), int(bad.sum().item())
 
@@ -1008,6 +1039,150 @@ def measure_f32(torch) -> list:
     return rows
 
 
+# Phase 3c: the f16 builds (a ``model.dtype: float16`` run's readouts) held
+# to the plain version at the main path's N (K 5, 16 and 64: one, one and
+# two certified passes of the wgmma build) and the serving readout's N 8
+# (K 1 and 64: the split-V build, its last block certifying); K 5 at N 1140
+# and K 1 at N 8 timed in turns with the bf16 build of the same call; the
+# split-V route against the wgmma route at F16_CROSSOVER_ROWS.
+F16_CHECKS = ((N_ROWS, (TOP_K, WIDE_KS[0], 64), "wgmma"), (8, (1, 64), "splitv"))
+F16_CROSSOVER_ROWS = (48, 64)
+
+
+def measure_f16(torch) -> dict:
+    """Phase 3c (see F16_CHECKS).  Each call with cap None and 30, a scalar
+    target and per-row targets with -1 and V - 1, at ATOL, ids equal on
+    every row and entry whose margins clear.  Returns {route: entry fields}
+    for the kernels line (``launches`` filled by phase 19), the f16
+    crossover beside the split-V one."""
+    from taboo_brittleness_tpu_torch.ops import lens_kernel as lk
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    sms = lk._sm_count(dev)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    embed32 = torch.randn((VOCAB, HIDDEN), generator=gen, device=dev) * HIDDEN ** -0.5
+    embed = embed32.to(torch.float16)
+    out = {}
+    for n, ks, route in F16_CHECKS:
+        x32 = torch.randn((n, HIDDEN), generator=gen, device=dev)
+        x = x32.to(torch.float16)
+        per_row = torch.randint(0, VOCAB, (n,), generator=gen, device=dev,
+                                dtype=torch.int32)
+        per_row[::7] = -1
+        per_row[-1] = VOCAB - 1
+        worst = 0.0
+        for k in ks:
+            plan = lk.lens_plan(n, VOCAB, k, torch.float16, sm_count=sms)
+            if plan.route != route:
+                fail(f"f16 N={n} K={k} plans {plan.route}, not {route}")
+            passes = -(-k // lk.KMAX_WIDE)
+            for cap in (None, 30.0):
+                for name, target in (("scalar", 7509), ("per-row", per_row)):
+                    before = dict(lk.lens_stats.route_launches)
+                    got = lk.lens_stats(x, embed, target, top_k=k,
+                                        logit_cap=cap)
+                    ref = lk.lens_stats_reference(x, embed, target,
+                                                  top_k=k + 1, logit_cap=cap)
+                    torch.cuda.synchronize()
+                    want = {**before, route: before[route] + 1,
+                            f"{route}_refill": before[f"{route}_refill"]
+                            + passes - 1}
+                    if lk.lens_stats.route_launches != want:
+                        fail(f"f16 N={n} K={k} launched "
+                             f"{lk.lens_stats.route_launches}, expected {want}")
+                    err, n_clear, n_bad = compare(got, ref, k)
+                    e_clear, e_bad = rank_ids(torch, got.topk_ids,
+                                              ref.topk_vals, ref.topk_ids, k)
+                    log(f"f16 N={n} K={k} cap={cap} target={name} ({route}, "
+                        f"{passes} pass{'es' if passes > 1 else ''}): "
+                        f"max_abs_err {err:.3e} (atol {ATOL}); ids equal on "
+                        f"{n_clear - n_bad}/{n_clear} rows and "
+                        f"{e_clear - e_bad}/{e_clear} entries with clear "
+                        f"margins of {n * k}")
+                    if not err <= ATOL or n_bad or e_bad \
+                            or e_clear < MIN_CLEAR_ENTRIES * n * k:
+                        fail(f"the f16 {route} build disagrees with its plain "
+                             f"version at N={n} K={k} cap={cap}: err {err}, "
+                             f"{n_bad} rows and {e_bad} entries with other ids")
+                    worst = max(worst, err)
+                    del got, ref
+        # The call timed in turns with the bf16 build of the same values
+        # (bf16, f16, f16, bf16), beside the f16 library yardstick (the f16
+        # product read in f32, logsumexp, topk) and the bound (the same bytes
+        # and tensor-core rate as bf16).  The targets lie on the card: a
+        # scalar's copy to it would wait on the backlog at every call.
+        k = ks[0]
+        xb, eb = x32.to(torch.bfloat16), embed32.to(torch.bfloat16)
+        t = torch.full((n,), 7509, dtype=torch.int32, device=dev)
+        calls = {"bf16": lambda: lk.lens_stats(xb, eb, t, top_k=k),
+                 "f16": lambda: lk.lens_stats(x, embed, t, top_k=k)}
+        library = library_topk(torch, x, embed, k)
+        if route == "wgmma":
+            def timer(fn):
+                return timed_ms(torch, fn, 10)
+        else:   # behind the backlog, as the other small-N calls
+            def timer(fn):
+                return backlogged_ms(torch, fn, SPLITV_REPS)[0]
+        turns = {name: [] for name in calls}
+        for name in ("bf16", "f16", "f16", "bf16"):
+            turns[name].append(timer(calls[name]))
+        bound_ms, bound_by = lens_bound_ms(n, HIDDEN, VOCAB, k)
+        r = dict(n=n, k=k, max_abs_err=worst, ms=sum(turns["f16"]) / 2,
+                 bf16_ms=sum(turns["bf16"]) / 2,
+                 plain_ms=timed_ms(torch, lambda: lk.lens_stats_reference(
+                     x, embed, t, top_k=k), 3),
+                 library_ms=timer(library), bound_ms=bound_ms,
+                 bound_by=bound_by)
+        log(f"f16 N={n} K={k} ({route}): call {r['ms']:.3f} ms, the bf16 "
+            f"build in turns {r['bf16_ms']:.3f} ms ({r['ms'] / r['bf16_ms']:.3f}"
+            f"x), plain {r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} "
+            f"ms, bound {bound_ms:.3f} ms ({bound_by}; "
+            f"{bound_ms / r['ms']:.1%} of it)")
+        if not r["ms"] < r["library_ms"]:
+            log(f"NOTE: the f16 N={n} K={k} {route} call ({r['ms']:.3f} ms) is "
+                f"not below its library call ({r['library_ms']:.3f} ms)")
+        out[route] = r
+        del x, x32, xb, eb, per_row, t
+    del embed32
+    # The crossover at the top of the split-V route's rows: both routes on
+    # the same K = 1 readouts, held to the plain version, timed in turns.
+    rows = []
+    for n in F16_CROSSOVER_ROWS:
+        x = torch.randn((n, HIDDEN), generator=gen, device=dev).to(torch.float16)
+        t = torch.randint(0, VOCAB, (n,), generator=gen, device=dev,
+                          dtype=torch.int32)
+        ref = lk.lens_stats_reference(x, embed, t, top_k=2)
+        for plan in (lk._splitv_plan(n, VOCAB, sms),
+                     lk._wgmma_plan(n, VOCAB, sms)):
+            got = (lk._launch(x, embed, t, plan, 1, None, merged=True)
+                   if plan.route == "splitv" else
+                   lk.merge_partials(lk._launch(x, embed, t, plan, 1, None)))
+            torch.cuda.synchronize()
+            err, _, n_bad = compare(got, ref, 1)
+            if not err <= ATOL or n_bad:
+                fail(f"f16 {plan.route} N={n} K=1: max_abs_err {err:.3e}, "
+                     f"{n_bad} rows with other ids")
+            out["splitv"]["max_abs_err"] = max(out["splitv"]["max_abs_err"],
+                                               err)
+        r = _time_routes(torch, lk, x, embed, t)
+        rows.append(r)
+        log(f"  f16 N={n} V={VOCAB} K=1 readout: splitv {r['splitv_ms']:.3f} "
+            f"ms, wgmma {r['wgmma_ms']:.3f} ms, library {r['library_ms']:.3f} "
+            f"ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']}; splitv "
+            f"{r['bound_ms'] / r['splitv_ms']:.1%} of it)")
+        if not r["splitv_ms"] < r["wgmma_ms"]:
+            log(f"NOTE: at f16 N={n} the split-V route ({r['splitv_ms']:.3f} "
+                f"ms) is not below the wgmma route ({r['wgmma_ms']:.3f} ms) "
+                f"though SPLITV_MAX_ROWS is {lk.SPLITV_MAX_ROWS}")
+        del x, t, ref
+    out["splitv"]["by_rows"] = rows
+    del embed
+    torch.cuda.empty_cache()
+    log(f"phase 3c f16: {time.perf_counter() - t0:.2f} s")
+    return out
+
+
 def refill_blocks(torch, lk, fn) -> list:
     """Run ``fn`` once with the launcher watched: for each refill launch,
     (blocks that ran, blocks of its grid, open units, units in all), read
@@ -1274,28 +1449,38 @@ def measure_wide(torch) -> dict:
 
 
 def check_edges(torch) -> dict:
-    """bf16 and f32 edge shapes on the card against the plain version, every
-    K, both caps, both kinds of target; then exact ties.  Returns the worst
-    error per route (f32's keyed ``<route>_f32``); fails if a route of
-    either dtype was reached by no case."""
+    """Edge shapes of each dtype on the card against the plain version,
+    both caps, both kinds of target; then exact ties.  Returns the worst
+    error per route (f32's keyed ``<route>_f32``, f16's ``<route>_f16``);
+    fails if a route of a dtype was reached by no case."""
     from taboo_brittleness_tpu_torch.ops import lens_kernel as lk
 
+    # Per dtype: its tag in the keys, rows, vocabularies, depths and top-k.
+    # K 33: the long list in two certified passes.  f32 also one row past
+    # its split-V limit (the wgmma kernel's f32 build); f16 one row past the
+    # split-V limit and two row tiles.
+    ks = (1, 5, lk.KMAX, *WIDE_KS, lk.KMAX_WIDE + 1)
+    shapes = {
+        "bf16": ("", (1, 129, N_ROWS), (384, VOCAB), (72, HIDDEN), ks),
+        "f32": ("_f32", (1, lk.SPLITV_F32_MAX_ROWS + 1, 129, N_ROWS),
+                (384, VOCAB), (72, HIDDEN), ks),
+        "f16": ("_f16", (1, lk.SPLITV_MAX_ROWS + 1, 129), (384,), (72,),
+                (1, lk.KMAX, lk.KMAX_WIDE, lk.KMAX_WIDE + 1)),
+    }
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
-    worst = {f"{r}{tag}": 0.0 for tag in ("", "_f32")
+    types_ = {"bf16": torch.bfloat16, "f32": torch.float32,
+              "f16": torch.float16}
+    worst = {f"{r}{tag}": 0.0 for tag, *_ in shapes.values()
              for r in ("splitv", "wgmma")}
     n_cases = dict.fromkeys(worst, 0)
-    # K 33: the long list in two certified passes.
-    ks = (1, 5, lk.KMAX, *WIDE_KS, lk.KMAX_WIDE + 1)
-    # f32 also one row past its split-V limit (the wgmma kernel's f32 build).
-    rows = {torch.bfloat16: (1, 129, N_ROWS),
-            torch.float32: (1, lk.SPLITV_F32_MAX_ROWS + 1, 129, N_ROWS)}
-    for dtype, tag in ((torch.bfloat16, ""), (torch.float32, "_f32")):
-        for v in (384, VOCAB):
-            for d in (72, HIDDEN):
+    for name, (tag, rows, vocabs, depths, ks) in shapes.items():
+        dtype = types_[name]
+        for v in vocabs:
+            for d in depths:
                 embed = (torch.randn((v, d), generator=gen, device=dev)
                          * d ** -0.5).to(dtype)
-                for n in rows[dtype]:
+                for n in rows:
                     x = torch.randn((n, d), generator=gen, device=dev).to(dtype)
                     per_row = torch.randint(0, v, (n,), generator=gen,
                                             device=dev, dtype=torch.int32)
@@ -1368,33 +1553,38 @@ def check_edges(torch) -> dict:
                 fail(f"the {route} route breaks exact ties at K {k} other "
                      "than lowest id first")
     del x, embed
-    # The f32 builds: the same values are TF32 numbers (lo = 0), so 3xTF32
-    # sums them exactly; duplicated rows on both sides of two chunk edges of
-    # each route's own plan, and the last row.
-    for n in (N_ROWS, 8):
-        bounds = lk.lens_plan(n, VOCAB, lk.KMAX_WIDE, torch.float32,
-                              sm_count=lk._sm_count(dev)).bounds
-        mid = bounds[len(bounds) // 2]
-        heads_of = torch.tensor(sorted({bounds[1] - 1, bounds[1], mid - 1, mid,
-                                        VOCAB - 1}), device=dev)
-        embed = embed32.clone()
-        embed[heads_of] = hot
-        for k in (TOP_K, lk.KMAX, *WIDE_KS, lk.KMAX_WIDE + 1):
-            route = lk.lens_plan(n, VOCAB, k, torch.float32).route
-            got = lk.lens_stats(x32[:n], embed, 11, top_k=k)
-            ref = lk.lens_stats_reference(x32[:n], embed, 11, top_k=k)
-            torch.cuda.synchronize()
-            same = torch.equal(got.topk_ids, ref.topk_ids)
-            err = (got.topk_vals - ref.topk_vals).abs().max().item()
-            heads = (got.topk_ids[:, :len(heads_of)]
-                     == heads_of.to(torch.int32)).all().item()
-            log(f"exact ties f32 N={n} K={k} ({route}), duplicated rows on "
-                f"both sides of chunk edges: ids equal {same}, duplicated rows "
-                f"first in id order {heads}, values max_abs_err {err:.3e}")
-            if not (same and heads and err == 0.0):
-                fail(f"the f32 {route} route breaks exact ties at K {k} other "
-                     "than lowest id first")
-        del embed
+    # The f32 and f16 builds: the same values are TF32 numbers (lo = 0), so
+    # 3xTF32 sums them exactly, and f16 numbers, whose products are exact in
+    # f32; duplicated rows on both sides of two chunk edges of each route's
+    # own plan (wgmma at N 1140, split-V at N 8), and the last row.
+    for name in ("f32", "f16"):
+        dtype = types_[name]
+        for n in (N_ROWS, 8):
+            bounds = lk.lens_plan(n, VOCAB, lk.KMAX_WIDE, dtype,
+                                  sm_count=lk._sm_count(dev)).bounds
+            mid = bounds[len(bounds) // 2]
+            heads_of = torch.tensor(sorted({bounds[1] - 1, bounds[1], mid - 1,
+                                            mid, VOCAB - 1}), device=dev)
+            embed = embed32.clone()
+            embed[heads_of] = hot
+            embed, xn = embed.to(dtype), x32[:n].to(dtype)
+            for k in (TOP_K, lk.KMAX, *WIDE_KS, lk.KMAX_WIDE + 1):
+                route = lk.lens_plan(n, VOCAB, k, dtype).route
+                got = lk.lens_stats(xn, embed, 11, top_k=k)
+                ref = lk.lens_stats_reference(xn, embed, 11, top_k=k)
+                torch.cuda.synchronize()
+                same = torch.equal(got.topk_ids, ref.topk_ids)
+                err = (got.topk_vals - ref.topk_vals).abs().max().item()
+                heads = (got.topk_ids[:, :len(heads_of)]
+                         == heads_of.to(torch.int32)).all().item()
+                log(f"exact ties {name} N={n} K={k} ({route}), duplicated "
+                    f"rows on both sides of chunk edges: ids equal {same}, "
+                    f"duplicated rows first in id order {heads}, values "
+                    f"max_abs_err {err:.3e}")
+                if not (same and heads and err == 0.0):
+                    fail(f"the {name} {route} route breaks exact ties at K "
+                         f"{k} other than lowest id first")
+            del embed, xn
     del x32, embed32
     torch.cuda.empty_cache()
     return worst
@@ -2119,6 +2309,215 @@ def drive_main_path(torch, workdir: str) -> tuple:
     wide = check_wide_lens_pass(torch, config, tok, loader, processed, workdir,
                                 lens_word, taps5, guesses5, results)
     return by_route, wide, (params, cfg, tok, config, processed, gen_word)
+
+
+# Phase 19: phase 6's path in f16 (``model.dtype: float16``), and one
+# prompt's last F16_READOUT_COLUMNS columns through ``lens_forward`` (the
+# split-V f16 build).
+F16_READOUT_COLUMNS = 8
+
+
+def _f16_ulp(max_logit: float) -> float:
+    """One f16 ulp at |logit| <= ``max_logit``.  The plain tap forms the
+    logits in f16 (the XLA tap's rounding), each within half of it, so a
+    gap between two logits, or a logit's distance to the logsumexp, moves
+    by up to one."""
+    return 2.0 ** (np.floor(np.log2(max_logit)) - 10)
+
+
+def _hold_f16_taps(torch, lens, what: str, call, kernel_tap) -> float:
+    """``call`` (a kernel lens pass's (args, kwargs)) again with the plain
+    tap on the card: ``kernel_tap`` (target_prob, topk_probs, topk_ids on
+    the host) within ATOL in probabilities plus the plain tap's own f16
+    rounding (a probability p = e^(l - lse) moves by up to
+    p (e^ulp - 1), :func:`_f16_ulp`), its top-5 ids equal wherever the plain
+    tap's log-probability margins clear ATOL + ulp.  Returns the largest
+    probability error."""
+    args, kw = call
+    seen = []
+    logits = lens._lens_logits
+
+    def recorded(*a, **k):
+        out = logits(*a, **k)
+        seen.append(out.abs().amax())
+        return out
+
+    lens._lens_logits = recorded
+    try:
+        plain = lens.lens_forward(*args, **{**kw, "use_pallas": False,
+                                            "top_k": TOP_K + 1}).tap
+    finally:
+        lens._lens_logits = logits
+    torch.cuda.synchronize()
+    max_logit = torch.stack(seen).max().item()
+    ulp = _f16_ulp(max_logit)
+    tgt, probs, ids = kernel_tap
+    worst = over = 0.0
+    for got, want in ((tgt, plain.target_prob.cpu()),
+                      (probs, plain.topk_probs[..., :TOP_K].cpu())):
+        gap = (got - want).abs()
+        worst = max(worst, gap.max().item())
+        over = max(over, (gap - want * np.expm1(ulp)).max().item())
+    logp = plain.topk_probs.clamp_min(1e-38).log().cpu()
+    e_clear, e_bad = rank_ids(torch, ids, logp, plain.topk_ids.cpu(), TOP_K,
+                              margin=ATOL + ulp)
+    log(f"  {what}: probabilities max_abs_err {worst:.3e} against the plain "
+        f"tap on the card ({over:.3e} beyond its f16 rounding, atol {ATOL}; "
+        f"largest |logit| {max_logit:.2f}, ulp {ulp:.3e}); top-{TOP_K} ids "
+        f"equal on {e_clear - e_bad}/{e_clear} entries whose margins clear "
+        f"{ATOL + ulp:.3e} of {ids.numel()}")
+    if not (over <= ATOL and e_bad == 0
+            and e_clear >= MIN_CLEAR_ENTRIES * ids.numel()):
+        fail(f"19: the f16 {what} disagrees with the plain tap: "
+             f"{over:.3e} beyond its rounding, {e_bad} entries with other ids")
+    return worst
+
+
+def drive_f16_main_path(torch, workdir: str) -> dict:
+    """Phase 19: Gemma-2-9B width in f16 (``dtype`` and ``param_dtype``
+    float16; 42 layers, seeded random weights made on the card), phase 6's
+    ``run_generation`` then ``run_evaluation`` through a model loader: 42
+    launches per lens pass, all on the wgmma route; each pass's taps held to
+    the plain tap on the card (:func:`_hold_f16_taps`); the largest |h| per
+    tenth of the layers, every tap and residual finite (an overflow of f16
+    fails here, reported).  Then one prompt's last F16_READOUT_COLUMNS
+    columns through ``lens.lens_forward``: 42 launches of the split-V f16
+    build, held the same way.  The counts are set to 0 just before each
+    part and read just after.  Returns {route: (launches, max abs error)}."""
+    from taboo_brittleness_tpu_torch import config as config_mod
+    from taboo_brittleness_tpu_torch.models import gemma2
+    from taboo_brittleness_tpu_torch.ops import lens, lens_kernel
+    from taboo_brittleness_tpu_torch.pipelines import generation, logit_lens
+    from taboo_brittleness_tpu_torch.runtime import cache as cache_io
+    from taboo_brittleness_tpu_torch.runtime.tokenizer import WordTokenizer
+
+    t0 = time.perf_counter()
+    config = config_mod.Config(output=config_mod.OutputConfig(save_plots=False))
+    cfg = gemma2.PRESETS["gemma2_9b"].replace(dtype="float16",
+                                              param_dtype="float16")
+    gen_word, lens_word = "ship", "moon"
+    params = gemma2.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    words = sorted({w for p in config.prompts for w in p.split()}
+                   | set(config.words))
+    tok = WordTokenizer(words, vocab_size=cfg.vocab_size)
+
+    def loader(word):
+        return params, cfg, tok
+
+    out_dir = os.path.join(workdir, "f16")
+    processed = os.path.join(out_dir, "processed")
+    calls, taps, hmax = [], [], []
+    lens_forward, kernel_tap = lens.lens_forward, lens.make_kernel_lens_tap
+
+    def recorded_forward(*args, **kw):
+        res = lens_forward(*args, **kw)
+        calls.append((args, kw))
+        taps.append(tuple(t.cpu() for t in (res.tap.target_prob,
+                                             res.tap.topk_probs,
+                                             res.tap.topk_ids)))
+        return res
+
+    def measured_tap(*args, **kw):
+        inner = kernel_tap(*args, **kw)
+
+        def tap(h, layer_idx):
+            hmax.append((int(layer_idx), h.abs().amax()))
+            return inner(h, layer_idx)
+        return tap
+
+    lens.lens_forward, lens.make_kernel_lens_tap = recorded_forward, measured_tap
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches(lens_kernel)
+    try:
+        done = generation.run_generation(
+            config, model_loader=loader, words=[gen_word],
+            processed_dir=processed, fail_fast=True)
+        after_generate = lens_kernel.lens_stats.launches
+        results = logit_lens.run_evaluation(
+            config, tok, words=[gen_word, lens_word], model_loader=loader,
+            processed_dir=processed,
+            output_path=os.path.join(out_dir, "results.json"))
+    finally:
+        lens.lens_forward, lens.make_kernel_lens_tap = lens_forward, kernel_tap
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = lens_kernel.lens_stats.launches
+    by_route = dict(lens_kernel.lens_stats.route_launches)
+    peak = torch.cuda.max_memory_allocated()
+    n_layers, n_prompts = cfg.num_layers, len(config.prompts)
+    if done != {gen_word: list(range(n_prompts))}:
+        fail(f"19: run_generation wrote {done}")
+    want = {**dict.fromkeys(by_route, 0), "wgmma": 2 * n_layers}
+    if after_generate != n_layers or by_route != want or len(calls) != 2:
+        fail(f"19: lens kernel launches {after_generate} in generate, "
+             f"{by_route} in all over {len(calls)} lens passes; expected "
+             f"{n_layers} per pass, 2 passes, all wgmma")
+    # |h| per layer over both passes: an f16 overflow is inf (or NaN) here.
+    per_layer = np.zeros(n_layers)
+    for layer, m in hmax:   # np.maximum keeps a NaN
+        per_layer[layer] = np.maximum(per_layer[layer], m.float().item())
+    tenths = [float(g.max())
+              for g in np.array_split(per_layer, min(10, n_layers))]
+    log(f"19: gemma2_9b in float16 ({gemma2.num_params(params) / 1e9:.2f} B "
+        f"params made on the card): run_generation ({gen_word}) then "
+        f"run_evaluation ({lens_word} on the card) {seconds:.2f} s; lens "
+        f"kernel launches {by_route}; peak device memory "
+        f"{peak / 2**30:.2f} GiB (limit {PEAK_GIB} GiB); largest |h| per "
+        "tenth of the layers "
+        + ", ".join(f"{t:.4g}" for t in tenths))
+    if not np.isfinite(per_layer).all():
+        bad = np.flatnonzero(~np.isfinite(per_layer)).tolist()
+        fail(f"19: the f16 residual overflows at layers {bad} (|h| "
+             f"{per_layer[bad].tolist()}) on these random weights; reported, "
+             "not rescaled")
+    if peak > PEAK_GIB * 2**30:
+        fail(f"19 peaked at {peak / 2**30:.2f} GiB, over {PEAK_GIB} GiB")
+    if not all(torch.isfinite(t.float()).all() for tap in taps for t in tap[:2]):
+        fail("19: an f16 lens tap is not finite")
+    for i in range(n_prompts):
+        arrays, _ = cache_io.load_summary(
+            cache_io.summary_path(processed, gen_word, i))
+        T = arrays["token_ids"].shape[0]
+        if arrays["target_prob"].shape != (n_layers, T) \
+                or not np.isfinite(arrays["residual"]).all():
+            fail(f"19: summary {i}: target_prob "
+                 f"{arrays['target_prob'].shape}, residual finite "
+                 f"{np.isfinite(arrays['residual']).all()}")
+    for word in (gen_word, lens_word):
+        preds = results[word]["predictions"]
+        if len(preds) != n_prompts or any(len(p) > config.model.top_k
+                                          for p in preds):
+            fail(f"19: predictions for {word}: {preds}")
+    worst = max(_hold_f16_taps(torch, lens, f"f16 lens pass {w} "
+                               f"{tuple(c[0][2].shape)} (wgmma)", c, tap)
+                for w, c, tap in zip((gen_word, lens_word), calls, taps))
+    out = {"wgmma": (by_route["wgmma"], worst)}
+
+    # One prompt's last columns: the split-V f16 build.
+    args, kw = calls[-1]
+    cut = (slice(0, 1), slice(-F16_READOUT_COLUMNS, None))
+    args = (*args[:2], args[2][cut], args[3][:1])
+    kw = {**kw, "positions": kw["positions"][cut],
+          "attn_validity": kw["attn_validity"][cut], "use_pallas": True}
+    _reset_launches(lens_kernel)
+    res = lens.lens_forward(*args, **kw)
+    torch.cuda.synchronize()
+    by_route = dict(lens_kernel.lens_stats.route_launches)
+    if by_route != {**dict.fromkeys(by_route, 0), "splitv": n_layers}:
+        fail(f"19: the f16 lens pass over {tuple(args[2].shape)} launched "
+             f"{by_route}; expected {n_layers} on the split-V route")
+    tap = tuple(t.cpu() for t in (res.tap.target_prob, res.tap.topk_probs,
+                                  res.tap.topk_ids))
+    if not all(torch.isfinite(t).all() for t in tap[:2]):
+        fail("19: the f16 split-V lens tap is not finite")
+    err = _hold_f16_taps(torch, lens, f"f16 lens pass {tuple(args[2].shape)} "
+                         "(splitv)", (args, kw), tap)
+    out["splitv"] = (by_route["splitv"], err)
+    del params, calls, res
+    torch.cuda.empty_cache()
+    log(f"phase 19 f16 main path: {time.perf_counter() - t0:.2f} s")
+    return out
 
 
 # The SAE of the interventions phase: Gemma-Scope layer_31/width_16k shape.
@@ -7871,14 +8270,15 @@ def drive_kernels(torch) -> tuple:
     """Phases 3-5b: every lens kernel held to its plain version and timed.
     Returns the kernels line's entries: the bf16 split-V and wgmma kernels,
     the wide top-k route (top_k above 32 in certified passes of both, its
-    headline bf16 N 1140 K 33), and the f32 builds of the wgmma and the
-    split-V kernels (their launches from 5b's passes, counted from 0 just
-    before each)."""
+    headline bf16 N 1140 K 33), the f32 builds of the wgmma and the split-V
+    kernels (their launches from 5b's passes, counted from 0 just before
+    each) and their f16 builds (3c; launches 0 until phase 19 sets them)."""
     wgmma = check_lens_stats(torch)
     f32_rows = {r["route"]: r for r in measure_f32(torch)}
     wide = measure_wide(torch)
     splitv = check_splitv(torch)
     f32_cross = check_f32_crossover(torch)
+    f16 = measure_f16(torch)
     worst = check_edges(torch)
     small = check_small_against_cpu(torch)
     f32_pass = check_f32_lens_pass(torch)
@@ -7905,6 +8305,19 @@ def drive_kernels(torch) -> tuple:
             entry["max_abs_err"] = max(entry["max_abs_err"],
                                        f32_cross["max_abs_err"])
         entries.append(entry)
+    for route, source in (("wgmma", "lens_stats_wgmma.cu"),
+                          ("splitv", "lens_stats_splitv.cu")):
+        r = f16[route]
+        entries.append(dict(
+            name=f"lens_stats_{route}_f16", route="cuda",
+            source=f"{PACKAGE}/csrc/{source}",
+            replaces="taboo_brittleness_tpu/ops/pallas_lens.py:56",
+            launches=0, max_abs_err=max(r["max_abs_err"],
+                                        worst[f"{route}_f16"]),
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"], n=r["n"],
+            k=r["k"], bf16_ms=r["bf16_ms"], product="f16 wgmma",
+            **({"by_rows": r["by_rows"]} if route == "splitv" else {})))
     return (splitv, wgmma, wide, *entries)
 
 
@@ -7983,9 +8396,17 @@ def main() -> int:
         return phases_alone(torch, sys.argv[1][2:])
     device, card = report_device(torch)
     build_kernels()
-    splitv, wgmma, wide, *f32_entries = drive_kernels(torch)
+    splitv, wgmma, wide, *entries = drive_kernels(torch)
     print(json.dumps({"deep": drive_deep(torch)}), flush=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        # Before phase 6 makes its bf16 params: the two models never share
+        # the card.  Its launches (and tap errors) go to the f16 entries.
+        f16_path = drive_f16_main_path(torch, workdir)
+        for entry in entries:
+            if entry["name"].endswith("_f16"):
+                launches, err = f16_path[entry["name"].split("_")[2]]
+                entry["launches"] = launches
+                entry["max_abs_err"] = max(entry["max_abs_err"], err)
         by_route, wide_pass, ctx = drive_main_path(torch, workdir)
         sae, ablation_set = drive_interventions(torch, workdir, ctx)
         forcing = drive_attacks(torch, workdir, ctx, sae, ablation_set)
@@ -8033,7 +8454,7 @@ def main() -> int:
     # Again at the end, beside the numbers, where a tail of the output
     # keeps it.
     print(card, flush=True)
-    print(json.dumps({"kernels": [splitv, wgmma, wide, *f32_entries]}),
+    print(json.dumps({"kernels": [splitv, wgmma, wide, *entries]}),
           flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0

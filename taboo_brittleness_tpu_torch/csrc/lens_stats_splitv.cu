@@ -3,7 +3,7 @@
 //
 // Replaces the TPU kernel of the JAX package, ops/pallas_lens.py
 // `_lens_tile_kernel` launched by `lens_stats`, for the calls with few rows:
-// bf16 or f32 inputs, any top_k (above KMAX_WIDE in several passes, below)
+// bf16, f16 or f32 inputs, any top_k (above KMAX_WIDE in several passes, below)
 // and N <= the route's row limit (the wrapper, ops/lens_kernel.py
 // `lens_plan`, sends them here; the main path's N 1140 stays on
 // lens_stats_wgmma.cu).  Those are the serving readouts: one
@@ -12,7 +12,7 @@
 // block owns a contiguous chunk of the vocabulary and writes one partial per
 // (chunk, row), the same contract as the other two kernels:
 //
-//   logits = x @ E[chunk]^T            (bf16 wgmma or 3xTF32, f32 sums)
+//   logits = x @ E[chunk]^T            (bf16 or f16 wgmma, or 3xTF32; f32 sums)
 //   logits = tanh(logits / cap) * cap   [CAP only]
 //   part_max[s, n], part_sumexp[s, n]   max / sum exp(logit - max)
 //   part_tgt[s, n]                      logit of targets[n] in the chunk, else -1e30
@@ -71,6 +71,8 @@
 //   stage lands (hi in place, lo into one of two lo tiles), behind one
 //   warpgroup barrier.  The tensor-core work is a few percent of the stream's
 //   time, so the split costs the consumers' idle time, not the stream's.
+// - f16 takes bf16's path whole (the same 2-byte elements, stages and
+//   boxes), with the f16 form of each wgmma (m64nNk16.f32.f16.f16).
 // - A top-k above KMAX_WIDE takes the long list in ceil(K / KMAX_WIDE)
 //   passes (ops/lens_kernel.py `certify_top_k` has the argument): the first
 //   is the K = KMAX_WIDE call; each later one (a refill) gets a ceiling per
@@ -97,13 +99,13 @@
 // perf/lens_anatomy.py sets it, to time the stream alone, and its partials
 // are meaningless.
 //
-// Build units: the wrapper compiles this file four times, in parallel, and
+// Build units: the wrapper compiles this file six times, in parallel, and
 // links the objects into one library, each unit holding 16 of the kernel's
-// 64 instantiations: -DLENS_SPLITV_UNIT=1 the bf16 ones without the cap and
-// the C interface, 2 bf16 with the cap, 3 f32 without, 4 f32 with
-// (tbx_splitv_bf16, tbx_splitv_bf16_cap, tbx_splitv_f32,
-// tbx_splitv_f32_cap).  Without the macro (perf/lens_anatomy.py) one unit
-// holds all.
+// 96 instantiations: -DLENS_SPLITV_UNIT=1 the bf16 ones without the cap and
+// the C interface, 2 bf16 with the cap, 3 f32 without, 4 f32 with, 5 f16
+// without, 6 f16 with (tbx_splitv_bf16, tbx_splitv_bf16_cap, tbx_splitv_f32,
+// tbx_splitv_f32_cap, tbx_splitv_f16, tbx_splitv_f16_cap).  Without the
+// macro (perf/lens_anatomy.py) one unit holds all.
 //
 // Plain C interface, built with nvcc into a shared library and loaded with
 // ctypes.  The launcher returns 0, a cudaError_t of the launch, or a negative
@@ -111,6 +113,7 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -126,9 +129,19 @@ namespace {
 // its own copy of the header's x split kernel.
 #include "tf32_split.cuh"
 
+// The input types, as the C interface's dtype code and the wrapper's bit
+// mask name them (ops/lens_kernel.py DTYPE_BITS).
+constexpr int DTYPE_BF16 = 1, DTYPE_F32 = 2, DTYPE_F16 = 4;
+template <typename T>
+constexpr int dtype_code = DTYPE_BF16;
+template <>
+constexpr int dtype_code<float> = DTYPE_F32;
+template <>
+constexpr int dtype_code<__half> = DTYPE_F16;
+
 constexpr int TILE_ROWS = 32;     // vocab rows per plan tile: one TMA box of E
 constexpr int BLOCK_ROWS = 128;   // vocab rows per wgmma tile: two warpgroups
-constexpr int BK = 64;            // depth per stage: one 128-byte row of bf16
+constexpr int BK = 64;            // depth per stage: one 128-byte row of bf16 / f16
 constexpr int MAX_NT = 8;         // 8-row groups of x the kernel holds
 constexpr int MAX_ROWS = 8 * MAX_NT;
 constexpr int KMAX = 8;           // the short top-k list
@@ -310,134 +323,165 @@ __device__ __forceinline__ void fence_acc(float (&d)[R]) {
 }
 
 // d[64 x 8 NT] += A[64 x 16] * B[8 NT x 16]^T, both K-major in shared memory
-// (A = 64 rows of E, B = the rows of x).
-template <int NT>
-__device__ __forceinline__ void wgmma_tile(float (&d)[4 * NT], uint64_t da,
-                                           uint64_t db);
+// (A = 64 rows of E, B = the rows of x), in bf16 or (F16) f16: one overload
+// per accumulator of 4 NT floats, NT 1-8.  Each defines TILE(AB), its asm
+// statement for operands of PTX type AB, and takes the type's form.
+#define WGMMA_TYPED(TILE)  \
+  if constexpr (F16) {     \
+    TILE("f16");           \
+  } else {                 \
+    TILE("bf16");          \
+  }
 
-template <>
-__device__ __forceinline__ void wgmma_tile<1>(float (&d)[4], uint64_t da,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3}, "
-      "%4, %5, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "l"(da), "l"(db), "r"(1));
+template <bool F16>
+__device__ __forceinline__ void wgmma_tile(float (&d)[4], uint64_t da,
+                                           uint64_t db) {
+#define TILE(AB)                                                               \
+  asm volatile(                                                                \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"                              \
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32." AB "." AB " "               \
+      "{%0, %1, %2, %3}, "                                                     \
+      "%4, %5, p, 1, 1, 0, 0;\n}\n"                                            \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])                         \
+      : "l"(da), "l"(db), "r"(1))
+  WGMMA_TYPED(TILE)
+#undef TILE
 }
 
-template <>
-__device__ __forceinline__ void wgmma_tile<2>(float (&d)[8], uint64_t da,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-      "%8, %9, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7])
-      : "l"(da), "l"(db), "r"(1));
+template <bool F16>
+__device__ __forceinline__ void wgmma_tile(float (&d)[8], uint64_t da,
+                                           uint64_t db) {
+#define TILE(AB)                                                               \
+  asm volatile(                                                                \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"                             \
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32." AB "." AB " "              \
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "                                     \
+      "%8, %9, p, 1, 1, 0, 0;\n}\n"                                            \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+        "+f"(d[6]), "+f"(d[7])                                                 \
+      : "l"(da), "l"(db), "r"(1))
+  WGMMA_TYPED(TILE)
+#undef TILE
 }
 
-template <>
-__device__ __forceinline__ void wgmma_tile<3>(float (&d)[12], uint64_t da,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %14, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, "
-      "%12, %13, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
-      : "l"(da), "l"(db), "r"(1));
+template <bool F16>
+__device__ __forceinline__ void wgmma_tile(float (&d)[12], uint64_t da,
+                                           uint64_t db) {
+#define TILE(AB)                                                               \
+  asm volatile(                                                                \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %14, 0;\n"                             \
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32." AB "." AB " "              \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, "                   \
+      "%12, %13, p, 1, 1, 0, 0;\n}\n"                                          \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]) \
+      : "l"(da), "l"(db), "r"(1))
+  WGMMA_TYPED(TILE)
+#undef TILE
 }
 
-template <>
-__device__ __forceinline__ void wgmma_tile<4>(float (&d)[16], uint64_t da,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(1));
+template <bool F16>
+__device__ __forceinline__ void wgmma_tile(float (&d)[16], uint64_t da,
+                                           uint64_t db) {
+#define TILE(AB)                                                               \
+  asm volatile(                                                                \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"                             \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." AB "." AB " "              \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "     \
+      "%15}, "                                                                 \
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"                                          \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),           \
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])        \
+      : "l"(da), "l"(db), "r"(1))
+  WGMMA_TYPED(TILE)
+#undef TILE
 }
 
-template <>
-__device__ __forceinline__ void wgmma_tile<5>(float (&d)[20], uint64_t da,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %22, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19}, "
-      "%20, %21, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
-      : "l"(da), "l"(db), "r"(1));
+template <bool F16>
+__device__ __forceinline__ void wgmma_tile(float (&d)[20], uint64_t da,
+                                           uint64_t db) {
+#define TILE(AB)                                                               \
+  asm volatile(                                                                \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %22, 0;\n"                             \
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32." AB "." AB " "              \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "     \
+      "%15, %16, %17, %18, %19}, "                                             \
+      "%20, %21, p, 1, 1, 0, 0;\n}\n"                                          \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),           \
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),       \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])                     \
+      : "l"(da), "l"(db), "r"(1))
+  WGMMA_TYPED(TILE)
+#undef TILE
 }
 
-template <>
-__device__ __forceinline__ void wgmma_tile<6>(float (&d)[24], uint64_t da,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23}, "
-      "%24, %25, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
-      : "l"(da), "l"(db), "r"(1));
+template <bool F16>
+__device__ __forceinline__ void wgmma_tile(float (&d)[24], uint64_t da,
+                                           uint64_t db) {
+#define TILE(AB)                                                               \
+  asm volatile(                                                                \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"                             \
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32." AB "." AB " "              \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "     \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23}, "                         \
+      "%24, %25, p, 1, 1, 0, 0;\n}\n"                                          \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),           \
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),       \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),       \
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23])                                  \
+      : "l"(da), "l"(db), "r"(1))
+  WGMMA_TYPED(TILE)
+#undef TILE
 }
 
-template <>
-__device__ __forceinline__ void wgmma_tile<7>(float (&d)[28], uint64_t da,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %30, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n56k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27}, "
-      "%28, %29, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27])
-      : "l"(da), "l"(db), "r"(1));
+template <bool F16>
+__device__ __forceinline__ void wgmma_tile(float (&d)[28], uint64_t da,
+                                           uint64_t db) {
+#define TILE(AB)                                                               \
+  asm volatile(                                                                \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %30, 0;\n"                             \
+      "wgmma.mma_async.sync.aligned.m64n56k16.f32." AB "." AB " "              \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "     \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27}, "     \
+      "%28, %29, p, 1, 1, 0, 0;\n}\n"                                          \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),           \
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),       \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),       \
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),       \
+        "+f"(d[26]), "+f"(d[27])                                               \
+      : "l"(da), "l"(db), "r"(1))
+  WGMMA_TYPED(TILE)
+#undef TILE
 }
 
-template <>
-__device__ __forceinline__ void wgmma_tile<8>(float (&d)[32], uint64_t da,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
+template <bool F16>
+__device__ __forceinline__ void wgmma_tile(float (&d)[32], uint64_t da,
+                                           uint64_t db) {
+#define TILE(AB)                                                               \
+  asm volatile(                                                                \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                             \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." AB "." AB " "              \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "     \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "      \
+      "%28, %29, %30, %31}, "                                                  \
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"                                          \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),           \
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),       \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),       \
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),       \
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),       \
+        "+f"(d[31])                                                            \
+      : "l"(da), "l"(db), "r"(1))
+  WGMMA_TYPED(TILE)
+#undef TILE
 }
+
+#undef WGMMA_TYPED
 
 // d[64 x 8 NT] += A[64 x 8] * B[8 NT x 8]^T in TF32 (f32 operands whose low
 // 13 mantissa bits are zero), both K-major in shared memory.
@@ -956,8 +1000,8 @@ __device__ __forceinline__ void merge_certify(const Outputs& out,
 // Grid: n_chunks blocks.  Chunk s covers the 32-row vocab tiles
 // [s * T / S, (s + 1) * T / S) of T = ceil(v / TILE_ROWS).  Each token's
 // running top-k list has L entries, one per lane of lanes 0 .. L-1.  T is
-// the input type: __nv_bfloat16, or float (3xTF32; map_x then covers the
-// wrapper's [2, n, d] split of x).  The long list only: ceiling, [n_chunks,
+// the input type: __nv_bfloat16, __half, or float (3xTF32; map_x then
+// covers the wrapper's [2, n, d] split of x).  The long list only: ceiling, [n_chunks,
 // n] keys or null, makes the pass a refill on a grid of its own, its work
 // dealt out by the list in `scratch` (refill_work.cuh), and k_merge >
 // KMAX_WIDE the last block's merge a certified one that writes the next
@@ -972,6 +1016,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                        long long* next_ceiling, int k_merge,
                        const refill::Scratch scratch) {
   constexpr bool F32 = tf32::is_f32<T>;
+  constexpr bool F16 = dtype_code<T> == DTYPE_F16;
   constexpr int NPAD = 8 * NT;
   constexpr int kBK = F32 ? F32_BK : BK;
   constexpr int X_BYTES = (F32 ? 2 : 1) * NPAD * 128;  // f32: x hi, x lo
@@ -1152,7 +1197,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk) {
-          wgmma_tile<NT>(acc, smem_desc(a + kk * 32), smem_desc(b + kk * 32));
+          wgmma_tile<F16>(acc, smem_desc(a + kk * 32), smem_desc(b + kk * 32));
         }
       }
       wgmma_commit();
@@ -1381,14 +1426,15 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A tensor map over `planes` row-major [rows, cols] matrices of bf16 (or
-// f32) one after the other, boxes of planes x box_rows x one 128-byte row
-// (BK bf16, F32_BK f32) with the 128-byte swizzle; reads past an edge are
-// zero.
+// A tensor map over `planes` row-major [rows, cols] matrices of `dtype` (a
+// DTYPE_* code) one after the other, boxes of planes x box_rows x one
+// 128-byte row (BK bf16 or f16, F32_BK f32) with the 128-byte swizzle; reads
+// past an edge are zero.
 CUresult make_map(CUtensorMap* map, const void* base, int rows, int cols,
-                  int box_rows, bool f32 = false, int planes = 1) {
+                  int box_rows, int dtype, int planes = 1) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
+  const bool f32 = dtype == DTYPE_F32;
   const cuuint64_t bytes = f32 ? 4 : 2;
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
                               (cuuint64_t)planes};
@@ -1398,8 +1444,9 @@ CUresult make_map(CUtensorMap* map, const void* base, int rows, int cols,
                              (cuuint32_t)planes};
   const cuuint32_t elem[3] = {1, 1, 1};
   return encode(map,
-                f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                    : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                f32                   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                : dtype == DTYPE_F16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                 planes > 1 ? 3 : 2, const_cast<void*>(base), dims, strides,
                 box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
@@ -1457,13 +1504,13 @@ int launch_rows(const CUtensorMap& mx, const CUtensorMap& me, const Args& a,
       float *part_max, float *part_sumexp, float *part_tgt, float *part_vals, \
       int *part_ids, float *lse, float *tgt, float *vals, int *ids,           \
       int *ticket, int n, int d, int v, int k_top, int list_len,              \
-      int n_chunks, int has_cap, int f32, float cap, void *stream,            \
+      int n_chunks, int has_cap, int dtype, float cap, void *stream,          \
       const long long *ceiling, long long *next_ceiling, int k_merge,         \
       int *work, float *piece_vals, int *piece_ids, int *tickets, int grid
 #define SPLITV_ARGS                                                          \
   x, e, x_split, targets, part_max, part_sumexp, part_tgt, part_vals,        \
       part_ids, lse, tgt, vals, ids, ticket, n, d, v, k_top, list_len,       \
-      n_chunks, has_cap, f32, cap, stream, ceiling, next_ceiling, k_merge,   \
+      n_chunks, has_cap, dtype, cap, stream, ceiling, next_ceiling, k_merge, \
       work, piece_vals, piece_ids, tickets, grid
 
 // One launch in the input type T (float: x split first into x_split), with
@@ -1474,10 +1521,10 @@ int launch_typed(SPLITV_PARAMS) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int npad = 8 * ((n + 7) / 8);
   CUtensorMap mx, me;
-  CUresult cr = F32 ? make_map(&mx, x_split, n, d, npad, true, 2)
-                    : make_map(&mx, x, n, d, npad);
+  CUresult cr = F32 ? make_map(&mx, x_split, n, d, npad, DTYPE_F32, 2)
+                    : make_map(&mx, x, n, d, npad, dtype_code<T>);
   if (cr != CUDA_SUCCESS) return -static_cast<int>(cr);
-  cr = make_map(&me, e, v, d, TILE_ROWS, F32);
+  cr = make_map(&me, e, v, d, TILE_ROWS, dtype_code<T>);
   if (cr != CUDA_SUCCESS) return -static_cast<int>(cr);
   const Args a{targets,
                {part_max, part_sumexp, part_tgt, part_vals, part_ids, lse,
@@ -1506,12 +1553,14 @@ int launch_typed(SPLITV_PARAMS) {
 
 extern "C" {
 
-// The quarters of tbx_lens_splitv, which checks the arguments, each in its
+// The sixths of tbx_lens_splitv, which checks the arguments, each in its
 // own unit.
 int tbx_splitv_bf16(SPLITV_PARAMS);
 int tbx_splitv_bf16_cap(SPLITV_PARAMS);
 int tbx_splitv_f32(SPLITV_PARAMS);
 int tbx_splitv_f32_cap(SPLITV_PARAMS);
+int tbx_splitv_f16(SPLITV_PARAMS);
+int tbx_splitv_f16_cap(SPLITV_PARAMS);
 
 #if LENS_SPLITV_UNIT == 0 || LENS_SPLITV_UNIT == 1
 int tbx_splitv_bf16(SPLITV_PARAMS) {
@@ -1533,6 +1582,16 @@ int tbx_splitv_f32_cap(SPLITV_PARAMS) {
   return launch_typed<float, true>(SPLITV_ARGS);
 }
 #endif
+#if LENS_SPLITV_UNIT == 0 || LENS_SPLITV_UNIT == 5
+int tbx_splitv_f16(SPLITV_PARAMS) {
+  return launch_typed<__half, false>(SPLITV_ARGS);
+}
+#endif
+#if LENS_SPLITV_UNIT == 0 || LENS_SPLITV_UNIT == 6
+int tbx_splitv_f16_cap(SPLITV_PARAMS) {
+  return launch_typed<__half, true>(SPLITV_ARGS);
+}
+#endif
 
 #if LENS_SPLITV_UNIT == 0 || LENS_SPLITV_UNIT == 1
 // Geometry, checked by the wrapper against its own plan.
@@ -1547,8 +1606,9 @@ int tbx_splitv_smem_bytes(int n) {
 int tbx_splitv_f32_smem_bytes(int n) {
   return n >= 1 && n <= MAX_ROWS ? f32_smem_bytes((n + 7) / 8) : -1;
 }
-// The input types instantiated: bit 0 bf16, bit 1 f32 (3xTF32).
-int tbx_splitv_dtypes() { return 3; }
+// The input types instantiated, as a mask of their dtype codes: bit 0
+// bf16, bit 1 f32 (3xTF32), bit 2 f16.
+int tbx_splitv_dtypes() { return DTYPE_BF16 | DTYPE_F32 | DTYPE_F16; }
 
 // Negative codes are -(CUresult) of a refused tensor map.
 const char* tbx_splitv_error_string(int code) {
@@ -1556,8 +1616,9 @@ const char* tbx_splitv_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Launch one pass on `stream`.  x [n, d] and e [v, d] row-major bf16 (f32
-// with f32 != 0), 16-byte aligned, d % 8 == 0 (d % 4 == 0 in f32); x_split
+// Launch one pass on `stream`.  x [n, d] and e [v, d] row-major, both of
+// the type `dtype` codes (DTYPE_BF16, DTYPE_F32 or DTYPE_F16), 16-byte
+// aligned, d % 8 == 0 (d % 4 == 0 in f32); x_split
 // [2, n, d] f32 scratch for the split of x (f32 only; written here first);
 // 1 <= n <= MAX_ROWS; targets [n] int32 (-1 = none); list_len KMAX or
 // KMAX_WIDE, the instantiation's list length, and 1 <= k_top <= list_len;
@@ -1582,7 +1643,7 @@ int tbx_lens_splitv(SPLITV_PARAMS) {
       n_chunks > (v + TILE_ROWS - 1) / TILE_ROWS ||
       (lse != nullptr && (tgt == nullptr || vals == nullptr ||
                           ids == nullptr || ticket == nullptr)) ||
-      (f32 && (x_split == nullptr || d % 4 != 0)) ||
+      (dtype == DTYPE_F32 && (x_split == nullptr || d % 4 != 0)) ||
       (ceiling != nullptr &&
        (!wide || work == nullptr || piece_vals == nullptr ||
         piece_ids == nullptr || tickets == nullptr || grid < 1)) ||
@@ -1591,12 +1652,19 @@ int tbx_lens_splitv(SPLITV_PARAMS) {
                      work == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (f32) {
-    return has_cap ? tbx_splitv_f32_cap(SPLITV_ARGS)
-                   : tbx_splitv_f32(SPLITV_ARGS);
+  switch (dtype) {
+    case DTYPE_BF16:
+      return has_cap ? tbx_splitv_bf16_cap(SPLITV_ARGS)
+                     : tbx_splitv_bf16(SPLITV_ARGS);
+    case DTYPE_F32:
+      return has_cap ? tbx_splitv_f32_cap(SPLITV_ARGS)
+                     : tbx_splitv_f32(SPLITV_ARGS);
+    case DTYPE_F16:
+      return has_cap ? tbx_splitv_f16_cap(SPLITV_ARGS)
+                     : tbx_splitv_f16(SPLITV_ARGS);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  return has_cap ? tbx_splitv_bf16_cap(SPLITV_ARGS)
-                 : tbx_splitv_bf16(SPLITV_ARGS);
 }
 #endif
 

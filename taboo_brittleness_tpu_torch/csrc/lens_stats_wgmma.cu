@@ -2,15 +2,15 @@
 // and a running per-row state across a chunk of the vocabulary.
 //
 // Replaces the TPU kernel of the JAX package: ops/pallas_lens.py,
-// `_lens_tile_kernel` launched by `lens_stats`, on its bf16 or f32 inputs
-// with more rows than the split-V kernel takes (ops/lens_kernel.py
+// `_lens_tile_kernel` launched by `lens_stats`, on its bf16, f16 or f32
+// inputs with more rows than the split-V kernel takes (ops/lens_kernel.py
 // `lens_plan`): every top_k, those above KMAX_WIDE in several passes of the
 // long list (below).  For rows x [N, D]
 // (final-normed residuals) and the tied embedding E [V, D] a block owns one
 // tile of BM rows and a contiguous chunk of the vocabulary, and writes one
 // partial per (chunk, row):
 //
-//   logits = x @ E[chunk]^T            (bf16 wgmma or 3xTF32, f32 sums)
+//   logits = x @ E[chunk]^T            (bf16 or f16 wgmma, or 3xTF32; f32 sums)
 //   logits = tanh(logits / cap) * cap   [CAP only]
 //   part_max[s, n], part_sumexp[s, n]   running max / sum exp(logit - max)
 //   part_tgt[s, n]                      logit of targets[n] in the chunk, else -1e30
@@ -128,6 +128,11 @@
 //   kernel into the wrapper's [2, N, D] scratch and loaded as both planes
 //   in one 3-D TMA box.  The fold, the lists and the epilogue read the same
 //   f32 accumulator and do not change; the registers stay as bf16's.
+// - f16 takes bf16's path whole: the same 2-byte elements, so the same
+//   stages, swizzle, ring and registers, and the f16 form of the same
+//   wgmma (m64n256k16.f32.f16.f16) at the same tensor-core rate.  The
+//   product of two f16 values is exact in f32, as of two bf16 ones, so the
+//   plain version's upcast matches the sums up to their order.
 // - Edges: TMA zero-fills rows past N, depth past D and columns past V.
 //   Padded rows are never written; columns past V are set to -inf after the
 //   cap, before any statistic reads them.
@@ -141,14 +146,16 @@
 // ctypes.  The launcher returns 0, a cudaError_t of the launch, or a negative
 // code for a tensor map the driver refused (see tbx_wgmma_error_string).
 //
-// Build units: the wrapper compiles this file twice, in parallel, and links
-// both objects into one library: -DLENS_WGMMA_UNIT=1 holds the bf16
+// Build units: the wrapper compiles this file three times, in parallel, and
+// links the objects into one library: -DLENS_WGMMA_UNIT=1 holds the bf16
 // instantiations and the C interface, -DLENS_WGMMA_UNIT=2 the f32 ones
-// (tbx_wgmma_launch_f32).  Without the macro (perf/sass_compare.py,
-// perf/lens_anatomy.py) one unit holds both.
+// (tbx_wgmma_launch_f32), -DLENS_WGMMA_UNIT=3 the f16 ones
+// (tbx_wgmma_launch_f16).  Without the macro (perf/sass_compare.py,
+// perf/lens_anatomy.py) one unit holds all three.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -164,9 +171,19 @@ namespace {
 // its own copy of the header's x split kernel.
 #include "tf32_split.cuh"
 
+// The input types, as the C interface's dtype code and the wrapper's bit
+// mask name them (ops/lens_kernel.py DTYPE_BITS).
+constexpr int DTYPE_BF16 = 1, DTYPE_F32 = 2, DTYPE_F16 = 4;
+template <typename T>
+constexpr int dtype_code = DTYPE_BF16;
+template <>
+constexpr int dtype_code<float> = DTYPE_F32;
+template <>
+constexpr int dtype_code<__half> = DTYPE_F16;
+
 constexpr int BM = 128;              // rows per block: two warpgroups of 64
 constexpr int BN = 256;              // vocab columns per tile
-constexpr int BK = 64;               // depth per stage: one 128-byte row of bf16
+constexpr int BK = 64;               // depth per stage: one 128-byte row of bf16 / f16
 constexpr int STAGES = 4;
 constexpr int KMAX = 8;              // the short top-k list, per lane
 static_assert(KMAX % 4 == 0, "the quad's cut takes KMAX / 4 from each lane");
@@ -414,19 +431,28 @@ __device__ __forceinline__ void fence_acc(float (&d)[128]) {
   "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), \
   "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
 
-// d[64 x 256] += A[64 x 16] * B[256 x 16]^T, both K-major in shared memory.
+// d[64 x 256] += A[64 x 16] * B[256 x 16]^T, both K-major in shared memory,
+// in bf16 or (F16) f16.
+template <bool F16>
 __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
                                                  uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{" WGMMA_ACC_REGS "},"
-      " %128, %129, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : WGMMA_ACC_OPERANDS
-      : "l"(da), "l"(db), "r"(1));
+#define WGMMA_M64N256K16(AB)                                        \
+  asm volatile(                                                     \
+      "{\n"                                                         \
+      ".reg .pred p;\n"                                             \
+      "setp.ne.b32 p, %130, 0;\n"                                   \
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32." AB "." AB " "  \
+      "{" WGMMA_ACC_REGS "},"                                       \
+      " %128, %129, p, 1, 1, 0, 0;\n"                               \
+      "}\n"                                                         \
+      : WGMMA_ACC_OPERANDS                                          \
+      : "l"(da), "l"(db), "r"(1))
+  if constexpr (F16) {
+    WGMMA_M64N256K16("f16");
+  } else {
+    WGMMA_M64N256K16("bf16");
+  }
+#undef WGMMA_M64N256K16
 }
 
 // d[64 x 256] += A[64 x 8] * B[256 x 8]^T in TF32 (f32 operands whose low
@@ -537,8 +563,8 @@ struct Walk {
 // vocab tiles [s * T / S, (s + 1) * T / S) of T = ceil(v / BN).  L is the
 // running list's length: KMAX (each lane its own list, the quad's four
 // merged at the end) or KMAX_WIDE (one list split across the quad).  T is the
-// input type: __nv_bfloat16, or float (3xTF32; map_x then covers the
-// wrapper's [2, n, d] split of x).  ceiling, [n_chunks, n] keys or null,
+// input type: __nv_bfloat16, __half, or float (3xTF32; map_x then covers
+// the wrapper's [2, n, d] split of x).  ceiling, [n_chunks, n] keys or null,
 // makes the pass a refill (long list only; see the file header) on a grid
 // of its own, its work dealt out by the list in `scratch`
 // (refill_work.cuh).
@@ -556,6 +582,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                       const long long* __restrict__ ceiling,
                       const refill::Scratch scratch) {
   constexpr bool F32 = tf32::is_f32<T>;
+  constexpr bool F16 = dtype_code<T> == DTYPE_F16;
   constexpr int kBK = F32 ? F32_BK : BK;
   constexpr int kStages = F32 ? F32_STAGES : STAGES;
   constexpr int kStageBytes = F32 ? F32_STAGE_BYTES : STAGE_BYTES;
@@ -764,8 +791,8 @@ __global__ void __launch_bounds__(THREADS, 1)
         } else {
 #pragma unroll
           for (int kk = 0; kk < BK / 16; ++kk) {
-            wgmma_m64n256k16(acc, smem_desc(a + kk * 32),
-                             smem_desc(b + kk * 32));
+            wgmma_m64n256k16<F16>(acc, smem_desc(a + kk * 32),
+                                  smem_desc(b + kk * 32));
           }
         }
         wgmma_commit();
@@ -1231,13 +1258,15 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A tensor map over `planes` row-major [rows, cols] matrices of bf16 (or
-// f32) one after the other, boxes of planes x box_rows x one row (BK bf16,
-// F32_BK f32) swizzled over the row; reads past an edge are zero.
+// A tensor map over `planes` row-major [rows, cols] matrices of `dtype`
+// (a DTYPE_* code) one after the other, boxes of planes x box_rows x one row
+// (BK bf16 or f16, F32_BK f32) swizzled over the row; reads past an edge are
+// zero.
 CUresult make_map(CUtensorMap* map, const void* base, int rows, int cols,
-                  int box_rows, bool f32 = false, int planes = 1) {
+                  int box_rows, int dtype, int planes = 1) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
+  const bool f32 = dtype == DTYPE_F32;
   const cuuint64_t bytes = f32 ? 4 : 2;
   const cuuint32_t row = f32 ? F32_ROW : 128;
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
@@ -1248,8 +1277,9 @@ CUresult make_map(CUtensorMap* map, const void* base, int rows, int cols,
                              (cuuint32_t)planes};
   const cuuint32_t elem[3] = {1, 1, 1};
   return encode(map,
-                f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                    : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                f32                   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                : dtype == DTYPE_F16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                 planes > 1 ? 3 : 2, const_cast<void*>(base), dims, strides,
                 box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 row == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
@@ -1283,12 +1313,12 @@ int launch(const CUtensorMap& mx, const CUtensorMap& me, const int* targets,
   const void *x, const void *e, void *x_split, const int *targets,            \
       float *part_max, float *part_sumexp, float *part_tgt, float *part_vals, \
       int *part_ids, int n, int d, int v, int k_top, int list_len,            \
-      int n_chunks, int has_cap, int f32, float cap, void *stream,            \
+      int n_chunks, int has_cap, int dtype, float cap, void *stream,          \
       const long long *ceiling, int *work, float *piece_vals,                 \
       int *piece_ids, int *tickets, int grid
 #define WGMMA_ARGS                                                           \
   x, e, x_split, targets, part_max, part_sumexp, part_tgt, part_vals,        \
-      part_ids, n, d, v, k_top, list_len, n_chunks, has_cap, f32, cap,       \
+      part_ids, n, d, v, k_top, list_len, n_chunks, has_cap, dtype, cap,     \
       stream, ceiling, work, piece_vals, piece_ids, tickets, grid
 
 // One launch in the input type T (float: x split first into x_split).
@@ -1297,10 +1327,10 @@ int launch_typed(WGMMA_PARAMS) {
   constexpr bool F32 = tf32::is_f32<T>;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   CUtensorMap mx, me;
-  CUresult cr = F32 ? make_map(&mx, x_split, n, d, BM, true, 2)
-                    : make_map(&mx, x, n, d, BM);
+  CUresult cr = F32 ? make_map(&mx, x_split, n, d, BM, DTYPE_F32, 2)
+                    : make_map(&mx, x, n, d, BM, dtype_code<T>);
   if (cr != CUDA_SUCCESS) return -static_cast<int>(cr);
-  cr = make_map(&me, e, v, d, BN, F32);
+  cr = make_map(&me, e, v, d, BN, dtype_code<T>);
   if (cr != CUDA_SUCCESS) return -static_cast<int>(cr);
   if constexpr (F32) {
     const cudaError_t rc = tf32::split_rows(static_cast<const float*>(x),
@@ -1329,14 +1359,19 @@ int launch_typed(WGMMA_PARAMS) {
 
 extern "C" {
 
-#if LENS_WGMMA_UNIT != 1
-// The f32 half of tbx_lens_wgmma, which checks the arguments.
+// The f32 and f16 parts of tbx_lens_wgmma, which checks the arguments, each
+// in its own unit.
+int tbx_wgmma_launch_f32(WGMMA_PARAMS);
+int tbx_wgmma_launch_f16(WGMMA_PARAMS);
+
+#if LENS_WGMMA_UNIT == 0 || LENS_WGMMA_UNIT == 2
 int tbx_wgmma_launch_f32(WGMMA_PARAMS) { return launch_typed<float>(WGMMA_ARGS); }
-#else
-int tbx_wgmma_launch_f32(WGMMA_PARAMS);  // in the f32 unit
+#endif
+#if LENS_WGMMA_UNIT == 0 || LENS_WGMMA_UNIT == 3
+int tbx_wgmma_launch_f16(WGMMA_PARAMS) { return launch_typed<__half>(WGMMA_ARGS); }
 #endif
 
-#if LENS_WGMMA_UNIT != 2
+#if LENS_WGMMA_UNIT == 0 || LENS_WGMMA_UNIT == 1
 
 // Tile geometry, checked by the wrapper against its own plan.
 int tbx_wgmma_block_rows() { return BM; }
@@ -1345,8 +1380,9 @@ int tbx_wgmma_kmax() { return KMAX; }
 int tbx_wgmma_kmax_wide() { return KMAX_WIDE; }
 int tbx_wgmma_smem_bytes() { return SMEM_BYTES; }
 int tbx_wgmma_f32_smem_bytes() { return F32_SMEM_BYTES; }
-// The input types instantiated: bit 0 bf16, bit 1 f32 (3xTF32).
-int tbx_wgmma_dtypes() { return 3; }
+// The input types instantiated, as a mask of their dtype codes: bit 0
+// bf16, bit 1 f32 (3xTF32), bit 2 f16.
+int tbx_wgmma_dtypes() { return DTYPE_BF16 | DTYPE_F32 | DTYPE_F16; }
 
 // Negative codes are -(CUresult) of a refused tensor map.
 const char* tbx_wgmma_error_string(int code) {
@@ -1354,8 +1390,9 @@ const char* tbx_wgmma_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Launch one pass on `stream`.  x [n, d] and e [v, d] row-major bf16 (f32
-// with f32 != 0), 16-byte aligned, d % 8 == 0 (d % 4 == 0 in f32); x_split
+// Launch one pass on `stream`.  x [n, d] and e [v, d] row-major, both of
+// the type `dtype` codes (DTYPE_BF16, DTYPE_F32 or DTYPE_F16), 16-byte
+// aligned, d % 8 == 0 (d % 4 == 0 in f32); x_split
 // [2, n, d] f32 scratch for the split of x (f32 only; written here first);
 // targets [n] int32 (-1 = none); list_len KMAX or KMAX_WIDE, the
 // instantiation's list length, and 1 <= k_top <= list_len;
@@ -1371,15 +1408,19 @@ const char* tbx_wgmma_error_string(int code) {
 int tbx_lens_wgmma(WGMMA_PARAMS) {
   if (n < 1 || (list_len != KMAX && list_len != KMAX_WIDE) || k_top < 1 ||
       k_top > list_len || n_chunks < 1 || n_chunks > (v + BN - 1) / BN ||
-      (f32 && (x_split == nullptr || d % 4 != 0)) ||
+      (dtype == DTYPE_F32 && (x_split == nullptr || d % 4 != 0)) ||
       (ceiling != nullptr &&
        (list_len != KMAX_WIDE || k_top != KMAX_WIDE || work == nullptr ||
         piece_vals == nullptr || piece_ids == nullptr || tickets == nullptr ||
         grid < 1))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (f32) return tbx_wgmma_launch_f32(WGMMA_ARGS);
-  return launch_typed<__nv_bfloat16>(WGMMA_ARGS);
+  switch (dtype) {
+    case DTYPE_BF16: return launch_typed<__nv_bfloat16>(WGMMA_ARGS);
+    case DTYPE_F32: return tbx_wgmma_launch_f32(WGMMA_ARGS);
+    case DTYPE_F16: return tbx_wgmma_launch_f16(WGMMA_ARGS);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 #endif
 

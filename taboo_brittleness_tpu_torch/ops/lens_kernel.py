@@ -10,28 +10,32 @@ epilogue, merges them, so the ``[N, V]`` logits never reach device memory.
 Two kernels, two routes, chosen by :func:`lens_plan` before the launch
 from the call's rows, vocabulary, dtype and the card's SM count:
 
-- ``"splitv"`` (``csrc/lens_stats_splitv.cu``): bf16 or f32 inputs and at
-  most :data:`SPLITV_MAX_ROWS` rows (f32: :data:`SPLITV_F32_MAX_ROWS`): the
-  serving readouts (N 8 per step, N 32 per speculative verify, each tp
-  shard's).  E's rows are the wgmma's M and the few rows of x its N; one
-  block per SM streams a balanced range of 32-row vocab tiles once (TMA
-  ring), and each consumer warp folds its tokens' logits across the lanes.
-  One partial per (chunk, row).
-- ``"wgmma"`` (``csrc/lens_stats_wgmma.cu``): bf16 or f32 inputs with more
-  rows, which is every call of the main path.  TMA ring, wgmma, 128 x 256
-  tiles and a running per-row state across a vocab chunk: one partial per
-  (chunk, row).
+- ``"splitv"`` (``csrc/lens_stats_splitv.cu``): bf16, f16 or f32 inputs
+  and at most :data:`SPLITV_MAX_ROWS` rows (f32:
+  :data:`SPLITV_F32_MAX_ROWS`): the serving readouts (N 8 per step, N 32
+  per speculative verify, each tp shard's).  E's rows are the wgmma's M
+  and the few rows of x its N; one block per SM streams a balanced range
+  of 32-row vocab tiles once (TMA ring), and each consumer warp folds its
+  tokens' logits across the lanes.  One partial per (chunk, row).
+- ``"wgmma"`` (``csrc/lens_stats_wgmma.cu``): bf16, f16 or f32 inputs with
+  more rows, which is every call of the main path.  TMA ring, wgmma, 128 x
+  256 tiles and a running per-row state across a vocab chunk: one partial
+  per (chunk, row).
 
 The two Hopper kernels each hold two instantiations of their running top-k
 list: :data:`KMAX` entries (every call with ``top_k <= KMAX``) and
-:data:`KMAX_WIDE` (``KMAX < top_k <= KMAX_WIDE``), and each of those in bf16
-and in f32.  The f32 instantiations take three TF32 tensor-core products
-(3xTF32: each operand split into a TF32 hi and lo, ``hi.hi + lo.hi + hi.lo``
-in one f32 accumulator, ``csrc/tf32_split.cuh``), f32's accuracy at six
-times bf16's tensor-core time (three products at half the rate); they
-split x once per call into a ``[2, N, D]`` scratch the launcher allocates.  The launcher passes the instantiation's
-length and dtype, and refuses a top-k above the longest list, or a dtype,
-the library does not export.
+:data:`KMAX_WIDE` (``KMAX < top_k <= KMAX_WIDE``), and each of those in
+bf16, in f16 and in f32 (the three float types the TPU kernel takes).  The
+f16 instantiations are the bf16 ones with the f16 form of each wgmma: the
+same bytes, tiles and tensor-core rate.  The f32 instantiations take three
+TF32 tensor-core products (3xTF32: each operand split into a TF32 hi and
+lo, ``hi.hi + lo.hi + hi.lo`` in one f32 accumulator,
+``csrc/tf32_split.cuh``), f32's accuracy at six times bf16's tensor-core
+time (three products at half the rate); they split x once per call into a
+``[2, N, D]`` scratch the launcher allocates.  The launcher passes the
+instantiation's length and the input type's code (:data:`DTYPE_BITS`), and
+refuses a top-k above the longest list, or a dtype, the library does not
+export.
 
 A top-k above :data:`KMAX_WIDE` (up to :data:`TOP_K_MAX`) runs the long
 list in ``ceil(K / KMAX_WIDE)`` passes of the same plan, each a launch of
@@ -63,7 +67,7 @@ All prefer the lower vocab id among equal values, as ``lax.top_k`` does
 
 The kernels are built from the checkout at first use: ``nvcc`` compiles each
 source for ``sm_90a`` into ``csrc/build/`` (listed in ``.gitignore``), one
-compiler per unit (:data:`UNITS`: each source's bf16 and f32
+compiler per unit (:data:`UNITS`: each source's bf16, f32 and f16
 instantiations apart, split-V's also by the cap), all started together,
 one link per library, and the shared libraries are loaded with
 ``ctypes``.
@@ -124,8 +128,9 @@ SPLITV_MAX_ROWS = 64
 SPLITV_F32_MAX_ROWS = 48
 
 #: The input types the Hopper kernels instantiate, as their libraries export
-#: them (bit 0 bf16, bit 1 f32).
-DTYPE_BITS = {torch.bfloat16: 1, torch.float32: 2}
+#: them (bit 0 bf16, bit 1 f32, bit 2 f16); a type's bit is also the dtype
+#: code the launcher passes.
+DTYPE_BITS = {torch.bfloat16: 1, torch.float32: 2, torch.float16: 4}
 
 #: Streaming multiprocessors of an H100 SXM, the default of :func:`lens_plan`;
 #: a launch plans with its card's own count.
@@ -141,12 +146,12 @@ SOURCES = {
     "splitv": os.path.join(_CSRC, "lens_stats_splitv.cu"),
     "wgmma": os.path.join(_CSRC, "lens_stats_wgmma.cu"),
 }
-#: Each library's compiler units, as the defines of each: a source's bf16
-#: and f32 instantiations (wgmma 4 each) compile apart, in parallel, and
-#: link into one library; split-V's 64 also apart with the cap and without
-#: (16 a unit).
-UNITS = {"splitv": tuple((f"LENS_SPLITV_UNIT={i}",) for i in range(1, 5)),
-         "wgmma": (("LENS_WGMMA_UNIT=1",), ("LENS_WGMMA_UNIT=2",))}
+#: Each library's compiler units, as the defines of each: a source's bf16,
+#: f32 and f16 instantiations (wgmma 4 each) compile apart, in parallel,
+#: and link into one library; split-V's 96 also apart with the cap and
+#: without (16 a unit).
+UNITS = {"splitv": tuple((f"LENS_SPLITV_UNIT={i}",) for i in range(1, 7)),
+         "wgmma": tuple((f"LENS_WGMMA_UNIT={i}",) for i in range(1, 4))}
 #: Headers the sources include; a change to one rebuilds every library.
 HEADERS = (os.path.join(_CSRC, "tf32_split.cuh"),
            os.path.join(_CSRC, "refill_work.cuh"))
@@ -231,8 +236,9 @@ def lens_plan(n: int, v: int, k: int, dtype: torch.dtype, *,
     """The route and geometry of a lens-stats call over N rows, V vocab
     columns and top-``k`` on a card of ``sm_count`` SMs.
 
-    The split-V kernel up to :data:`SPLITV_MAX_ROWS` rows in bf16
-    (:data:`SPLITV_F32_MAX_ROWS` in f32; :func:`_splitv_plan`), the wgmma
+    The split-V kernel up to :data:`SPLITV_MAX_ROWS` rows in bf16 and f16
+    (the same bytes; :data:`SPLITV_F32_MAX_ROWS` in f32;
+    :func:`_splitv_plan`), the wgmma
     kernel above (:func:`_wgmma_plan`), whatever ``k``: a top-k above
     :data:`KMAX_WIDE` runs the same plan in passes (:func:`certify_top_k`).
     """
@@ -688,7 +694,8 @@ def build_library() -> Dict[str, Tuple[str, str]]:
 def bind_library(route: str, path: str) -> ctypes.CDLL:
     """Load a built library of ``route`` and declare its C interface.  Its
     ``list_lengths`` are the top-k list lengths it instantiates, shortest
-    first, its ``dtypes`` the input types and (split-V) its ``merge_max``
+    first, its ``dtypes`` the input types (of bf16, f32 and f16) and
+    (split-V) its ``merge_max``
     the largest top-k its last block certifies, as the library exports
     them."""
     lib = ctypes.CDLL(path)
@@ -789,9 +796,9 @@ def _launch(x: torch.Tensor, embed: torch.Tensor, targets: torch.Tensor,
     if embed.device != x.device or targets.device != x.device:
         raise ValueError(f"x is on {x.device} but embed on {embed.device} and "
                          f"targets on {targets.device}")
-    if x.dtype not in (torch.bfloat16, torch.float32) or embed.dtype != x.dtype:
-        raise ValueError(f"the lens kernels take bf16 or f32 x and embed of "
-                         f"one dtype, got {x.dtype} and {embed.dtype}")
+    if x.dtype not in DTYPE_BITS or embed.dtype != x.dtype:
+        raise ValueError(f"the lens kernels take bf16, f16 or f32 x and embed "
+                         f"of one dtype, got {x.dtype} and {embed.dtype}")
     if not (x.is_contiguous() and embed.is_contiguous()):
         raise ValueError("the lens kernels take contiguous x and embed")
     n, d = x.shape
@@ -862,10 +869,11 @@ def _launch(x: torch.Tensor, embed: torch.Tensor, targets: torch.Tensor,
         cand_ids=torch.empty((s, n, top_k), dtype=torch.int32, device=x.device))
     ptrs = [t.data_ptr() for t in (x, embed, targets, *parts)]
     has_cap, cap = int(logit_cap is not None), float(logit_cap or 0.0)
-    is_f32 = int(x.dtype == torch.float32)
+    code = DTYPE_BITS[x.dtype]
     # The f32 instantiations split x into hi and lo here; the tensor lives
     # until the launch is enqueued on this stream.
-    split_buf = torch.empty((2, n, d), **f32) if is_f32 else None
+    split_buf = (torch.empty((2, n, d), **f32) if x.dtype == torch.float32
+                 else None)
     split = None if split_buf is None else split_buf.data_ptr()
     ceiling_ptr = None if ceiling is None else ceiling.data_ptr()
     # A refill's scratch (csrc/refill_work.cuh): the work list (a certified
@@ -907,12 +915,12 @@ def _launch(x: torch.Tensor, embed: torch.Tensor, targets: torch.Tensor,
                           else [None] * 5)
             rc = lib.tbx_lens_splitv(*ptrs[:2], split, *ptrs[2:], *merge_ptrs,
                                      n, d, v, top_k, length, s, has_cap,
-                                     is_f32, cap, stream, ceiling_ptr,
+                                     code, cap, stream, ceiling_ptr,
                                      next_ptr, k_merge, *refill, grid)
             why = lib.tbx_splitv_error_string
         else:
             rc = lib.tbx_lens_wgmma(*ptrs[:2], split, *ptrs[2:], n, d, v,
-                                    top_k, length, s, has_cap, is_f32, cap,
+                                    top_k, length, s, has_cap, code, cap,
                                     stream, ceiling_ptr, *refill, grid)
             why = lib.tbx_wgmma_error_string
     if rc != 0:

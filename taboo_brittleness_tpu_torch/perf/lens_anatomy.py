@@ -2,7 +2,7 @@
 
     python3 -m taboo_brittleness_tpu_torch.perf.lens_anatomy [--reps 10]
         [--route wgmma|splitv] [--rows 1140] [--top-k 5 [16 ...]]
-        [--dtype bf16|f32] [--base DIR]
+        [--dtype bf16|f16|f32] [--base DIR]
 
 Builds the route's source (``csrc/lens_stats_wgmma.cu`` or
 ``csrc/lens_stats_splitv.cu``) as shipped, without the whole per-tile fold
@@ -11,7 +11,7 @@ without the running top-k (``-DLENS_ANATOMY_SKIP_TOPK``).  At ``--rows`` N
 (the main path's 1140 by default), V = 256000 and ``--top-k`` (up to
 ``KMAX_WIDE``: above ``KMAX`` the kernel's long list; several values: one pass of the whole measurement
 each, on the same builds) in ``--dtype`` (bf16,
-or f32: the kernels' 3xTF32 builds, and for the wgmma kernel two more builds
+f16, or f32: the kernels' 3xTF32 builds, and for the wgmma kernel two more builds
 with its f32 stage 32 and 8 deep instead of 16, ``-DLENS_F32_BK``) it
 times each build's launch on the route's own plan (CUDA events, means over
 ``--reps``) for D in 1792, 3584 and 7168, the builds in turns, beside
@@ -53,7 +53,7 @@ BUILDS = {
 # The wgmma kernel's f32 stage at the depths it was not given.
 F32_DEPTHS = {"depth32": ("LENS_F32_BK=32",), "depth8": ("LENS_F32_BK=8",)}
 PLANS = {"wgmma": lk._wgmma_plan, "splitv": lk._splitv_plan}
-DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
+DTYPES = {"bf16": torch.bfloat16, "f16": torch.float16, "f32": torch.float32}
 
 
 def build_variants(route: str, dtype: str = "bf16", base: str = None) -> dict:
@@ -103,10 +103,12 @@ def bind_base(route: str, path: str):
     run.argtypes, run.restype = head + tail, i
     why = getattr(lib, f"tbx_{route}_error_string")
     why.argtypes, why.restype = [i], ctypes.c_char_p
-    for name in (f"tbx_{route}_kmax", f"tbx_{route}_kmax_wide"):
+    for name in (f"tbx_{route}_kmax", f"tbx_{route}_kmax_wide",
+                 f"tbx_{route}_dtypes"):
         getattr(lib, name).restype = i
     lib.list_lengths = (getattr(lib, f"tbx_{route}_kmax")(),
                         getattr(lib, f"tbx_{route}_kmax_wide")())
+    lib.dtypes = lk._dtypes(getattr(lib, f"tbx_{route}_dtypes")())
     return lib
 
 
@@ -121,8 +123,14 @@ def launcher(lib, x: torch.Tensor, embed: torch.Tensor, plan: lk.LensPlan,
     outs += [torch.empty((plan.chunks, n, top_k), **f32),
              torch.empty((plan.chunks, n, top_k), dtype=torch.int32,
                          device=x.device)]
-    is_f32 = int(x.dtype == torch.float32)
+    if x.dtype not in lib.dtypes:
+        raise ValueError(f"{getattr(lib, '_name', lib)} has no {x.dtype} build")
+    is_f32 = x.dtype == torch.float32
     split = torch.empty((2, n, d), **f32) if is_f32 else None
+    # The input type as the library takes it: a dtype code (the trees with
+    # the f16 builds) or, before them, an f32 flag.
+    code = (lk.DTYPE_BITS[x.dtype] if torch.float16 in lib.dtypes
+            else int(is_f32))
     ptrs = [t.data_ptr() for t in (x, embed)]
     ptrs += [None if split is None else split.data_ptr()]
     ptrs += [t.data_ptr() for t in (targets, *outs)]
@@ -142,7 +150,7 @@ def launcher(lib, x: torch.Tensor, embed: torch.Tensor, plan: lk.LensPlan,
 
     def launch():
         rc = run(*ptrs, n, d, embed.shape[0], top_k, length, plan.chunks, 0,
-                 is_f32, 0.0, stream, *tail)
+                 code, 0.0, stream, *tail)
         if rc != 0:
             raise RuntimeError(why(rc).decode())
     return launch

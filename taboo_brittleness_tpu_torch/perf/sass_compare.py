@@ -12,7 +12,7 @@ matched across the trees by its name with the input type's template
 argument (``__nv_bfloat16``) dropped and its anonymous namespace (named
 per translation unit) left out, so a kernel that gained a type parameter
 is compared with its old self; functions only one tree has (``float``
-builds, helpers) are listed apart.  Prints one line per kernel
+and ``__half`` builds, helpers) are listed apart.  Prints one line per kernel
 and one JSON line; exits non-zero without ``nvcc`` or ``cuobjdump``.  Where
 two kernels differ, the count of differing instructions is also given with
 the targets of branches and calls left out (``other``): a kernel whose

@@ -10,6 +10,9 @@ as ``tests/test_pallas_lens.py``: two f32 matmuls that sum in different
 orders.  Ids are compared exactly.
 """
 
+import contextlib
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -21,7 +24,7 @@ from taboo_brittleness_tpu.ops import pallas_lens
 from taboo_brittleness_tpu_torch.ops import lens_kernel
 
 TOL = dict(rtol=1e-5, atol=1e-5)
-BF16, F32 = torch.bfloat16, torch.float32
+BF16, F32, F16 = torch.bfloat16, torch.float32, torch.float16
 
 
 def _inputs(rng, n, d, v):
@@ -280,11 +283,11 @@ def test_cpu_partials_take_the_plain_version():
 
 
 @pytest.mark.parametrize("n_rows,dtype,k,plan", [
-    (128, torch.float16, 3,                                            # f16 on the wgmma route
+    (128, torch.float64, 3,                                            # f64 on the wgmma route
      lambda: lens_kernel.lens_plan(128, 512, 3, BF16)),
     (128, BF16, 3, lambda: lens_kernel.lens_plan(128, 1024, 3, BF16)),  # a plan cut for another vocab
     (128, BF16, 3, lambda: lens_kernel.lens_plan(300, 512, 3, BF16)),   # ... or another row count
-    (8, torch.float16, 3, lambda: lens_kernel.lens_plan(8, 512, 3, BF16)),  # f16 on the splitv route
+    (8, torch.float64, 3, lambda: lens_kernel.lens_plan(8, 512, 3, BF16)),  # f64 on the splitv route
     (SPLITV_ROWS + 1, BF16, 3,                                          # N over the route's limit
      lambda: lens_kernel._splitv_plan(SPLITV_ROWS + 1, 512, 4)),
     (8, BF16, 3, lambda: lens_kernel.lens_plan(8, 1024, 3, BF16)),      # splitv cut for another vocab
@@ -359,6 +362,7 @@ def test_list_length_takes_the_shortest_list_that_holds_k(lengths, k, want):
 @pytest.mark.parametrize("route,have,want", [
     ("splitv", (BF16,), F32), ("wgmma", (BF16,), F32),
     ("splitv", (F32,), BF16), ("wgmma", (F32,), BF16),
+    ("splitv", (BF16, F32), F16), ("wgmma", (BF16, F32), F16),
 ])
 def test_launcher_refuses_a_dtype_the_library_lacks(monkeypatch, route, have,
                                                     want):
@@ -379,9 +383,80 @@ def test_launcher_refuses_a_dtype_the_library_lacks(monkeypatch, route, have,
 
 
 @pytest.mark.parametrize("bits,want", [(1, (BF16,)), (2, (F32,)),
-                                       (3, (BF16, F32)), (0, ())])
+                                       (3, (BF16, F32)), (0, ()),
+                                       (4, (F16,)), (7, (BF16, F32, F16))])
 def test_exported_dtype_bits(bits, want):
     assert lens_kernel._dtypes(bits) == want
+
+
+class _Launched(_Exports):
+    """A library that exports f16 (bit 4) and records the arguments of each
+    launch instead of running it."""
+
+    def __init__(self):
+        super().__init__((lens_kernel.KMAX, lens_kernel.KMAX_WIDE),
+                         lens_kernel._dtypes(7))
+        self.calls = []
+        self.merge_max = lens_kernel.MERGE_MAX
+
+    def tbx_lens_splitv(self, *args):
+        self.calls.append(("splitv", args))
+        return 0
+
+    def tbx_lens_wgmma(self, *args):
+        self.calls.append(("wgmma", args))
+        return 0
+
+    tbx_splitv_error_string = tbx_wgmma_error_string = staticmethod(bytes)
+
+
+# Where each C launcher takes the dtype code, after its pointers and
+# n, d, v, top_k, list_len, n_chunks, has_cap (``bind_library``'s argtypes).
+DTYPE_ARG = {"splitv": 14 + 7, "wgmma": 9 + 7}
+
+
+@pytest.mark.parametrize("route", ["splitv", "wgmma"])
+@pytest.mark.parametrize("dtype", [BF16, F16, F32])
+def test_launcher_passes_the_dtype_code(monkeypatch, route, dtype):
+    """A library exporting bit 4 takes f16: the launcher passes each type's
+    bit as its dtype code (f16 4, bf16 1, f32 2), and only f32 gets the
+    split scratch of x."""
+    n = 8 if route == "splitv" else 128
+    plan = PLANS[route](n, 512, 5, 4)
+    lib = _Launched()
+    monkeypatch.setattr(lens_kernel, "_library", lambda r: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: types.SimpleNamespace(cuda_stream=0))
+    x = torch.zeros((n, 16), dtype=dtype)
+    embed = torch.zeros((512, 16), dtype=dtype)
+    targets = torch.zeros((n,), dtype=torch.int32)
+    before = dict(lens_kernel.lens_stats.route_launches)
+    try:
+        lens_kernel._launch(x, embed, targets, plan, 5, None,
+                            merged=route == "splitv")
+        assert lens_kernel.lens_stats.route_launches[route] \
+            == before[route] + 1
+    finally:
+        lens_kernel.lens_stats.route_launches.update(before)
+        lens_kernel.lens_stats.launches -= len(lib.calls)
+    [(called, args)] = lib.calls
+    assert called == route
+    assert args[DTYPE_ARG[route]] == lens_kernel.DTYPE_BITS[dtype]
+    assert (args[2] is not None) == (dtype == F32)   # the split scratch
+    assert args[DTYPE_ARG[route] - 7:DTYPE_ARG[route] - 4] == (n, 16, 512)
+
+
+@pytest.mark.parametrize("n,route", [
+    (1, "splitv"), (8, "splitv"), (F32_ROWS + 1, "splitv"),
+    (SPLITV_ROWS, "splitv"), (SPLITV_ROWS + 1, "wgmma"), (1140, "wgmma")])
+def test_f16_takes_the_bf16_row_limit(n, route):
+    """f16 has bf16's bytes, so ``lens_plan`` sends it to the split-V kernel
+    up to SPLITV_MAX_ROWS (f32 stops at SPLITV_F32_MAX_ROWS), with bf16's
+    geometry."""
+    plan = lens_kernel.lens_plan(n, 256_000, 5, F16)
+    assert plan.route == route
+    assert plan == lens_kernel.lens_plan(n, 256_000, 5, BF16)
 
 
 @pytest.mark.parametrize("cap", [None, 30.0])
